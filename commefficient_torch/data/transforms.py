@@ -1,0 +1,66 @@
+"""CIFAR batch transforms (numpy), copied from
+the JAX package's ``data/transforms.py``: reflect-pad-4 random crop,
+horizontal flip and normalization for training, normalization alone for
+evaluation. A transform maps a whole batch dict at once and returns NHWC
+float32 images."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+CIFAR10_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
+CIFAR10_STD = np.array([0.2471, 0.2435, 0.2616], np.float32)
+
+
+def _normalize(images: np.ndarray, mean, std) -> np.ndarray:
+    x = images.astype(np.float32)
+    if np.issubdtype(images.dtype, np.integer):  # uint8-range sources
+        x = x / 255.0
+    return (x - mean) / std
+
+
+def _random_crop_flip(images: np.ndarray, pad: int,
+                      rng: np.random.Generator) -> np.ndarray:
+    """Per-image random shift crop (reflect-pad then crop back) and
+    horizontal flip, by one gather."""
+    n, h, w = images.shape[:3]
+    padded = np.pad(images,
+                    [(0, 0), (pad, pad), (pad, pad)] +
+                    [(0, 0)] * (images.ndim - 3),
+                    mode="reflect")
+    dy = rng.integers(0, 2 * pad + 1, size=n)
+    dx = rng.integers(0, 2 * pad + 1, size=n)
+    rows = dy[:, None] + np.arange(h)[None, :]
+    cols = dx[:, None] + np.arange(w)[None, :]
+    out = padded[np.arange(n)[:, None, None], rows[:, :, None],
+                 cols[:, None, :]]
+    do_flip = rng.random(n) < 0.5
+    out[do_flip] = out[do_flip, :, ::-1]
+    return out
+
+
+class CifarTrain:
+    def __init__(self, mean=CIFAR10_MEAN, std=CIFAR10_STD, seed: int = 0):
+        self.mean, self.std = mean, std
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        img = batch["image"]
+        shape = img.shape
+        flat = _random_crop_flip(img.reshape((-1,) + shape[-3:]), pad=4,
+                                 rng=self.rng)
+        out = dict(batch)
+        out["image"] = _normalize(flat.reshape(shape), self.mean, self.std)
+        return out
+
+
+class CifarEval:
+    def __init__(self, mean=CIFAR10_MEAN, std=CIFAR10_STD):
+        self.mean, self.std = mean, std
+
+    def __call__(self, batch):
+        out = dict(batch)
+        out["image"] = _normalize(batch["image"], self.mean, self.std)
+        return out

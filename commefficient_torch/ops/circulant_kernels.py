@@ -1,0 +1,177 @@
+"""Wrappers of the circulant-sketch CUDA kernels, and their plain versions.
+
+K1 ``encode`` replaces the JAX package's ``ops/circulant_pallas.py
+pallas_encode``; K2 ``decode`` replaces ``pallas_decode``. The kernels are
+in ``csrc/circulant.cu`` (design and bounds in its header note).
+
+Each wrapper takes the plain PyTorch version only for tensors that lie on
+the CPU. For a CUDA tensor it launches the kernel on the current stream or
+raises; nothing falls back. ``launches`` counts, per wrapper, the times it
+launched its kernel.
+
+Arguments shared by both: ``shifts`` (r, m) int32 in [0, c), and ``keys``
+(r,) int32 holding the bits of the uint32 sign keys, both on the data's
+device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from commefficient_torch.ops import _build
+from commefficient_torch.ops.hashing import MASK32, signs
+from commefficient_torch.ops.topk import median_axis0
+
+SOURCE = "circulant.cu"
+
+# launches of each kernel since the last reset_launches()
+launches = {"circ_encode": 0, "circ_decode": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    if not getattr(lib, "_typed", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.circ_encode.argtypes = [p, ll, p, p, i, i, i, ctypes.c_float, i,
+                                    p, p]
+        lib.circ_encode.restype = i
+        lib.circ_decode.argtypes = [p, p, p, i, i, i, ll, p, p]
+        lib.circ_decode.restype = i
+        lib.circ_max_rows.argtypes = []
+        lib.circ_max_rows.restype = i
+        lib._typed = True
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
+            f"on {t.device} (contiguous={t.is_contiguous()})")
+
+
+def _check_geometry(d: int, c: int, r: int, m: int) -> None:
+    if m != -(-d // c):
+        raise ValueError(f"m={m} is not ceil(d/c) for d={d}, c={c}")
+    if m * c >= 2 ** 32:
+        raise ValueError(f"m*c={m * c} coordinates exceed the uint32 "
+                         "sign-stream index range")
+    if r < 1:
+        raise ValueError(f"r={r}")
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+# ------------------------------------------------------------------ K1
+
+
+def encode_plain(v: torch.Tensor, shifts: torch.Tensor, keys: torch.Tensor,
+                 c: int, r: int, m: int, scale: Optional[float] = None,
+                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K1: ``[table +] encode(scale * v)`` by a loop over
+    rows and blocks with ``torch.roll``, summing the blocks in ascending
+    order as the kernel does."""
+    d = v.shape[0]
+    vals = v.to(torch.float32)
+    if scale is not None:
+        vals = vals * scale
+    vp = torch.nn.functional.pad(vals, (0, m * c - d)).view(m, c)
+    idx = torch.arange(m * c, dtype=torch.int64, device=v.device)
+    keys64 = keys.to(torch.int64) & MASK32
+    sh = shifts.tolist()
+    out = torch.empty((r, c), dtype=torch.float32, device=v.device)
+    for j in range(r):
+        sv = signs(idx, keys64[j]).view(m, c) * vp
+        row = torch.zeros(c, dtype=torch.float32, device=v.device)
+        for b in range(m):
+            row += torch.roll(sv[b], sh[j][b])
+        out[j] = row
+    return out if table is None else table + out
+
+
+def encode(v: torch.Tensor, shifts: torch.Tensor, keys: torch.Tensor,
+           c: int, r: int, m: int, scale: Optional[float] = None,
+           table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1: the (r, c) table ``encode(scale * v)`` of the (d,) float32
+    vector ``v``. With ``table`` given, ``table + encode(scale * v)`` is
+    written into ``table`` in place (on the card in the same launch) and
+    ``table`` is returned."""
+    d = v.shape[0]
+    _check_geometry(d, c, r, m)
+    if v.device.type == "cpu":
+        out = encode_plain(v, shifts, keys, c, r, m, scale)
+        return out if table is None else table.add_(out)
+    if v.device.type != "cuda":
+        raise ValueError(f"encode: no kernel for device {v.device}")
+    _check("v", v, torch.float32, (d,), v.device)
+    _check("shifts", shifts, torch.int32, (r, m), v.device)
+    _check("keys", keys, torch.int32, (r,), v.device)
+    if table is None:
+        out, accumulate = torch.empty((r, c), dtype=torch.float32,
+                                      device=v.device), 0
+    else:
+        _check("table", table, torch.float32, (r, c), v.device)
+        out, accumulate = table, 1
+    err = _lib().circ_encode(
+        v.data_ptr(), d, shifts.data_ptr(), keys.data_ptr(), c, r, m,
+        1.0 if scale is None else float(scale), accumulate, out.data_ptr(),
+        torch.cuda.current_stream(v.device).cuda_stream)
+    _raise_on("circ_encode", err)
+    launches["circ_encode"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ K2
+
+
+def decode_plain(table: torch.Tensor, shifts: torch.Tensor,
+                 keys: torch.Tensor, c: int, r: int, m: int,
+                 d: int) -> torch.Tensor:
+    """Plain version of K2: per-coordinate signed gathers from every row by
+    index arithmetic, then ``median_axis0``."""
+    x = torch.arange(d, dtype=torch.int64, device=table.device)
+    b = torch.div(x, c, rounding_mode="floor")
+    i = x - b * c
+    keys64 = keys.to(torch.int64) & MASK32
+    sh = shifts.to(torch.int64)
+    ests = torch.stack([
+        signs(x, keys64[j]) * table[j][(i + sh[j][b]) % c]
+        for j in range(r)])
+    return median_axis0(ests)
+
+
+def decode(table: torch.Tensor, shifts: torch.Tensor, keys: torch.Tensor,
+           c: int, r: int, m: int, d: int) -> torch.Tensor:
+    """K2: the (d,) float32 median-of-r estimates of an (r, c) table."""
+    _check_geometry(d, c, r, m)
+    if table.device.type == "cpu":
+        return decode_plain(table, shifts, keys, c, r, m, d)
+    if table.device.type != "cuda":
+        raise ValueError(f"decode: no kernel for device {table.device}")
+    _check("table", table, torch.float32, (r, c), table.device)
+    _check("shifts", shifts, torch.int32, (r, m), table.device)
+    _check("keys", keys, torch.int32, (r,), table.device)
+    lib = _lib()
+    if r > lib.circ_max_rows():
+        raise ValueError(f"decode kernel takes r <= {lib.circ_max_rows()}, "
+                         f"got r={r}")
+    out = torch.empty(d, dtype=torch.float32, device=table.device)
+    err = lib.circ_decode(
+        table.data_ptr(), shifts.data_ptr(), keys.data_ptr(), c, r, m, d,
+        out.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream)
+    _raise_on("circ_decode", err)
+    launches["circ_decode"] += 1
+    return out
