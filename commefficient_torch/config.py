@@ -1,12 +1,14 @@
 """Run configuration of the PyTorch port: the slice of the JAX package's
 ``FedConfig`` that the port runs, plus ``auto_num_cols``.
 
-The slice is the FetchSGD round of ResNet-9 on CIFAR10: ``mode sketch``
-with the circulant count sketch, ``error_type virtual``, no local momentum,
-the zero error-feedback rule, fused clients with the fused sketch encode,
-on one device. A value or flag outside it raises and names the flag.
-Defaults are the JAX package's (its ``config.py``), except
-``local_momentum``, whose reference default 0.9 is illegal in sketch mode.
+The slice is the FetchSGD round (``mode sketch`` with the circulant count
+sketch, ``error_type virtual``, no local momentum, the zero error-feedback
+rule, fused clients with the fused sketch encode, each client's batch one
+microbatch, on one device) of two models: ResNet-9 on CIFAR10
+(``cv_train``) and GPT-2 DoubleHeads on PersonaChat (``gpt2_train``). A
+value or flag outside it raises and names the flag. Defaults are the JAX
+package's (its ``config.py``), except ``local_momentum``, whose reference
+default 0.9 is illegal in sketch mode.
 """
 
 from __future__ import annotations
@@ -45,16 +47,40 @@ class FedConfig:
     error_decay: float = 1.0
     approx_topk: bool = False
     grad_size: int = 0
+    microbatch_size: int = -1
+    # GPT-2 / PersonaChat (gpt2_train)
+    do_test: bool = False
+    dataset_dir: str = "./dataset"
+    lr_warmup: bool = False
+    num_candidates: int = 2
+    max_history: int = 2
+    max_seq_len: int = 0
+    lm_coef: float = 1.0
+    mc_coef: float = 1.0
+    personality_permutations: int = 1
+    attn_impl: str = "auto"
 
     def __post_init__(self):
         fixed = {"mode": "sketch", "error_type": "virtual",
-                 "model": "ResNet9", "dataset_name": "CIFAR10",
                  "sketch_ef": "zero", "local_momentum": 0.0}
         for name, want in fixed.items():
             if getattr(self, name) != want:
                 raise ValueError(
                     f"--{name} {getattr(self, name)!r} is outside the "
                     f"PyTorch port's slice (only {want!r} is ported)")
+        if (self.model, self.dataset_name) not in MODEL_DATASETS:
+            raise ValueError(
+                f"--model {self.model} --dataset_name {self.dataset_name} "
+                "is outside the PyTorch port's slice (ported: "
+                + ", ".join(f"{m} on {d}" for m, d in MODEL_DATASETS) + ")")
+        if self.microbatch_size not in (-1, self.local_batch_size):
+            raise ValueError(
+                f"--microbatch_size {self.microbatch_size}: the port runs "
+                "each client's batch as one microbatch (-1 or "
+                "--local_batch_size)")
+        if self.attn_impl not in ("auto", "dense", "flash"):
+            raise ValueError(f"--attn_impl {self.attn_impl!r}: want auto, "
+                             "dense or flash")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"--compute_dtype {self.compute_dtype!r}: "
                              "want bfloat16 or float32")
@@ -70,6 +96,9 @@ class FedConfig:
 
     def replace(self, **kw) -> "FedConfig":
         return dataclasses.replace(self, **kw)
+
+
+MODEL_DATASETS = (("ResNet9", "CIFAR10"), ("GPT2", "PERSONA"))
 
 
 def auto_num_cols(num_cols: int) -> int:
@@ -115,6 +144,23 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--approx_topk", action="store_true",
                    help="accepted for the reference's command lines; the "
                         "port's top-k is exact either way")
+    p.add_argument("--microbatch_size", type=int, default=-1)
+
+
+def add_gpt2_args(p: argparse.ArgumentParser) -> None:
+    """The GPT-2 / PersonaChat flags of ``gpt2_train``."""
+    p.add_argument("--test", action="store_true", dest="do_test")
+    p.add_argument("--dataset_dir", default="./dataset")
+    p.add_argument("--lr_warmup", action="store_true")
+    p.add_argument("--num_candidates", type=int, default=2)
+    p.add_argument("--max_history", type=int, default=2)
+    p.add_argument("--max_seq_len", type=int, default=0,
+                   help="PERSONA packed sequence length; 0 = the entry "
+                        "point's default")
+    p.add_argument("--lm_coef", type=float, default=1.0)
+    p.add_argument("--mc_coef", type=float, default=1.0)
+    p.add_argument("--personality_permutations", type=int, default=1)
+    p.add_argument("--attn_impl", default="auto")
 
 
 def config_from_args(ns: argparse.Namespace) -> FedConfig:
@@ -131,5 +177,6 @@ def parse_known(parser: argparse.ArgumentParser,
         flags = [a for a in rest if a.startswith("-")] or rest
         raise ValueError(
             f"{' '.join(flags)}: outside the PyTorch port's slice "
-            "(sketch-mode ResNet-9 on CIFAR10, one device)")
+            "(sketch-mode ResNet-9 on CIFAR10 or GPT-2 on PersonaChat, "
+            "one device)")
     return ns

@@ -11,7 +11,7 @@ accounting, no telemetry.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -29,10 +29,12 @@ def _to(x, device, dtype):
 class FedRuntime:
     """``model`` is a port model whose parameters are one flat vector
     (``model.flat``, the initial weights); ``loss_fn(flat, batch, mask)``
-    follows losses.make_cv_loss. ``device`` defaults to the card."""
+    follows the contract of losses.py, and ``loss_fn_val`` (default
+    ``loss_fn``) is the one ``val`` runs. ``device`` defaults to the
+    card."""
 
     def __init__(self, cfg: FedConfig, model, loss_fn: Callable,
-                 device="cuda"):
+                 device="cuda", loss_fn_val: Optional[Callable] = None):
         self.device = torch.device(device)
         d = int(model.num_params)
         cfg = cfg.replace(grad_size=d)
@@ -50,7 +52,7 @@ class FedRuntime:
                                         seed=cfg.sketch_seed,
                                         device=self.device)
         self._fused_fn = make_fused_grad(cfg, loss_fn)
-        self._val_fn = make_val_step(loss_fn)
+        self._val_fn = make_val_step(loss_fn_val or loss_fn)
 
     def init_state(self) -> FedState:
         return FedState(ps_weights=self.initial_weights.clone(),
@@ -58,8 +60,15 @@ class FedRuntime:
                         Verror=self.cs.empty_table(), step=0)
 
     def _batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        return {"image": _to(batch["image"], self.device, torch.float32),
-                "target": _to(batch["target"], self.device, torch.int64)}
+        """Every leaf onto the device: floating leaves as float32, integer
+        leaves (labels, token ids, positions) as int64."""
+        out = {}
+        for key, val in batch.items():
+            val = torch.as_tensor(val)
+            dtype = (torch.float32 if val.is_floating_point()
+                     else torch.int64)
+            out[key] = val.to(self.device, dtype)
+        return out
 
     def round(self, state: FedState, client_ids, batch, mask, lr
               ) -> Tuple[FedState, Dict]:

@@ -3,7 +3,9 @@
 ``params_from_jax`` takes a Flax parameter tree whose leaves are numpy
 arrays (``jax.tree.map(np.asarray, params)`` on the JAX side) and returns
 the flat float32 vector in ``ravel_pytree`` order: the layout of the port's
-models (models/resnet9.py), so the same vector drives both packages.
+models (models/resnet9.py, and models/gpt2.py with its layer-stacked
+``h/block`` leaves), so the same vector drives both packages. Given the
+model, it checks every leaf's path and shape against ``model.layout``.
 """
 
 from __future__ import annotations

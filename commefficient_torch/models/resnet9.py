@@ -17,21 +17,18 @@ NHWC as in the JAX package; the forward permutes to NCHW inside.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
 from commefficient_torch.models.layers import (batch_stat_norm, conv3x3,
-                                               max_pool)
+                                               lecun_normal_, max_pool,
+                                               ravel_layout)
 
 DEFAULT_CHANNELS = {"prep": 64, "layer1": 128, "layer2": 256, "layer3": 512}
 HEAD_WEIGHT = 0.125    # the reference's ``Mul`` classifier scale
 POOL = 2               # max-pool window after the downsampling stages
-
-# Flax's default kernel init (lecun_normal): truncated normal at +-2 std,
-# rescaled so the truncated distribution has variance 1 / fan_in
-_TRUNC_STD = 0.87962566103423978
 
 
 def _convbn_tree(cin: int, cout: int, bn: bool) -> Dict:
@@ -64,20 +61,6 @@ def param_tree(do_batchnorm: bool = False, num_classes: int = 10,
     }}
 
 
-def ravel_layout(tree: Dict, prefix: str = "") -> List[Tuple[str, Tuple]]:
-    """``(path, shape)`` of every leaf in ``ravel_pytree`` order (sorted
-    keys, depth first)."""
-    out = []
-    for key in sorted(tree):
-        val = tree[key]
-        path = f"{prefix}/{key}" if prefix else key
-        if isinstance(val, dict):
-            out.extend(ravel_layout(val, path))
-        else:
-            out.append((path, tuple(val)))
-    return out
-
-
 class ResNet9(nn.Module):
     def __init__(self, do_batchnorm: bool = False, num_classes: int = 10,
                  channels: Optional[Dict[str, int]] = None,
@@ -97,10 +80,8 @@ class ResNet9(nn.Module):
         with torch.no_grad():
             for path, view in self.views(self.flat).items():
                 if path.endswith("/kernel"):
-                    fan_in = math.prod(view.shape[:-1])
-                    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-                    nn.init.trunc_normal_(view, 0.0, std, -2 * std, 2 * std,
-                                          generator=generator)
+                    lecun_normal_(view, math.prod(view.shape[:-1]),
+                                  generator)
                 elif path.endswith("/scale"):
                     view.fill_(1.0)
                 else:

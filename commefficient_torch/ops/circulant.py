@@ -139,11 +139,12 @@ class CirculantSketch:
 
 
 def make_circulant_sketch(d: int, c: int, r: int, seed: int = 42,
-                          device="cpu") -> CirculantSketch:
+                          device="cuda") -> CirculantSketch:
     """The same ``np.random.RandomState(seed)`` draws as the JAX package's
     ``make_circulant_sketch``, so shifts and sign keys match it bitwise:
     shifts are multiples of 1024 when ``c % 1024 == 0`` (the statistics
-    note there applies), 1-granular otherwise; keys are forced odd."""
+    note there applies), 1-granular otherwise; keys are forced odd. The
+    sketch lives on the card unless ``device`` names another."""
     rng = np.random.RandomState(seed)
     m = -(-d // c)
     if c % 1024 == 0:

@@ -1,33 +1,46 @@
 """Where a round's time goes: ``torch.profiler`` over a few rounds of the
-``cv_train`` run that the same flags describe.
+``cv_train`` run (or, with ``--model GPT2``, the ``gpt2_train`` run) that
+the same flags describe.
 
     python -m commefficient_torch.profile_round --num_workers 8 \\
         --local_batch_size 64 --k 50000 --num_rows 5 --num_cols 500000 \\
         --virtual_momentum 0.9 --warmup 2 --profile_rounds 3
+    python -m commefficient_torch.profile_round --model GPT2 \\
+        --num_workers 8 --local_batch_size 4 --max_seq_len 1024 \\
+        --k 50000 --num_cols 524288 --virtual_momentum 0.9 \\
+        --warmup 1 --profile_rounds 2
 
-Prints the device time by kernel group (convolution and matmul, the
-circulant-sketch kernels, top-k and sorting, other), the device's busy
-and idle share of the profiled window (busy = the union of device kernel
-intervals), and the top kernels by device time. Writes the Chrome trace to
-``--trace`` when given. Needs a CUDA device.
+Prints the device time by kernel group (the flash-attention kernels,
+the circulant-sketch kernels, convolution and matmul, top-k and sorting,
+other), the device's busy and idle share of the profiled window (busy =
+the union of device kernel intervals), and the top kernels by device
+time. Writes the Chrome trace to ``--trace`` when given. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import sys
 import time
 from typing import Optional, Sequence
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from commefficient_torch import cv_train, gpt2_train
 from commefficient_torch.config import parse_known
-from commefficient_torch.cv_train import build_parser, rounds, setup
+from commefficient_torch.core import driver
+from commefficient_torch.utils.schedules import lr_schedule_for
 
 GROUPS = (
+    ("flash attention (K3)", ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                              "flash_bwd_dkv_kernel")),
     ("sketch kernels (K1, K2)", ("encode_kernel", "decode_kernel")),
     ("convolution / matmul", ("conv", "cudnn", "gemm", "xmma", "sm90",
-                              "wgrad", "dgrad", "implicit")),
+                              "wgrad", "dgrad", "implicit", "nvjet",
+                              "cutlass")),
     ("top-k / sort / nonzero", ("topk", "sort", "radix", "select",
                                 "nonzero", "scan", "gatherTopK")),
 )
@@ -57,7 +70,12 @@ def _busy_us(intervals) -> float:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    p = build_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    pre = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
+    pre.add_argument("--model", default="ResNet9")
+    entry = (gpt2_train if pre.parse_known_args(argv)[0].model == "GPT2"
+              else cv_train)
+    p = entry.build_parser()
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--profile_rounds", type=int, default=3)
     p.add_argument("--top", type=int, default=20)
@@ -65,8 +83,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ns = parse_known(p, argv)
     if not torch.cuda.is_available() or torch.device(ns.device).type != "cuda":
         raise SystemExit("profile_round measures the card: no CUDA device")
-    runtime, state, train_ds, _ = setup(ns)
-    it = rounds(runtime, train_ds)
+    runtime, state, train_ds = entry.setup(ns)[:3]
+    schedule = (gpt2_train.make_gpt2_schedule(runtime.cfg)
+                if entry is gpt2_train else lr_schedule_for(runtime.cfg))
+    it = driver.rounds(runtime, train_ds, schedule)
     for _ in range(ns.warmup):
         _, lr, rnd = next(it)
         state, _ = runtime.round(state, rnd.client_ids,

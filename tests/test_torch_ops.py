@@ -52,7 +52,8 @@ D, R = 20_000, 5
 
 def _pair(c, d=D, r=R, seed=42):
     return (jcirc.make_circulant_sketch(d, c, r, seed=seed, pallas="off"),
-            tcirc.make_circulant_sketch(d, c, r, seed=seed))
+            tcirc.make_circulant_sketch(d, c, r, seed=seed,
+                                        device="cpu"))
 
 
 def _np(t):

@@ -66,7 +66,7 @@ def test_server_update_matches_reference(c, decay):
     rng = np.random.RandomState(c)
     grad, vel, err = (rng.randn(r, c).astype(np.float32) for _ in range(3))
     js = j_make_sketch(d, c, r, pallas="off")
-    ts = make_circulant_sketch(d, c, r)
+    ts = make_circulant_sketch(d, c, r, device="cpu")
     jc = _jcfg(k=k, num_rows=r, num_cols=c, error_decay=decay)
     tc = FedConfig(**SLICE, k=k, num_rows=r, num_cols=c, error_decay=decay)
     ref = j_update(jc, jnp.asarray(grad), jnp.asarray(vel), jnp.asarray(err),
