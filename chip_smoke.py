@@ -7,6 +7,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. build every CUDA kernel of the port from the sources in the checkout
    (one nvcc per source, all started together) and print the build time;
+   print each K3 kernel's registers and shared memory (``cuobjdump
+   -res-usage`` and the launch's dynamic shared memory) and count its
+   HGMMA (wgmma) and UTMALDG (TMA load) instructions in the library's
+   SASS (``cuobjdump -sass``): the redesigned forward and dk/dv kernels
+   must hold both;
 2. hold K1 (circulant encode) and K2 (circulant decode) against their
    plain PyTorch versions on the card at the ResNet-9 shapes
    (d = 6,568,640, c = 500,736, r = 5; seeded inputs; shifts from
@@ -18,8 +23,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    versions at (N, H, S, D) = (8, 12, 1024, 64) and (8, 12, 256, 64), q,
    k, v the slices of one c_attn-shaped buffer, each output row against
    its own norm (FLASH_ROW_RTOL), and show that this check rejects a
-   planted fault in each kernel (one tile of its walk skipped); time the
-   kernels, the plain versions and ``scaled_dot_product_attention``
+   planted fault in each kernel (one tile of its walk skipped), and that
+   two calls of the forward and of dk/dv give bitwise-equal outputs; time
+   the kernels, the plain versions and ``scaled_dot_product_attention``
    (forward, backward and both) beside each kernel's bound;
 4. small-input checks: three rounds of a narrow ResNet-9 on the card
    (float32, TF32 off) against the same rounds on the CPU, whose wrappers
@@ -69,7 +75,12 @@ GPT2_PER_ROUND = {"circ_encode": 9, "circ_decode": 1, "flash_fwd": 96,
                   "flash_bwd_dq": 96, "flash_bwd_dkv": 96}
 GPT2_VAL_FWD = 12               # one validation batch of 8 items, 12 layers
 FLASH_SHAPES = ((8, 1024, 12, 64), (8, 256, 12, 64))   # (N, S, H, D)
-FLASH_TILE = 64                 # the kernels' query and key tile
+# a planted fault skips this many keys or queries: dq's tile, and finer
+# than the 128-wide tiles of the forward and dk/dv kernels
+FLASH_TILE = 64
+# kernels built from wgmma fed by TMA: their SASS must hold both
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+HOPPER_SASS = ("HGMMA", "UTMALDG")
 # K3 against its plain version, each (n, s, h) row of D held against its
 # own size: |got - ref| <= 1.5e-2 |ref| (+ 1e-3 of the mean row norm, for
 # rows near 0) for o, dq, dk and dv. The kernels round p and ds to bf16 as
@@ -148,6 +159,62 @@ def phase_build():
         print(f"[build] {source}:\n  " + "\n  ".join(lines))
     print(f"[build] {len(_build.SOURCES)} source(s) in {dt:.2f} s "
           f"({len(logs)} compiled now)", flush=True)
+
+
+def phase_sass():
+    """Registers, shared memory and the wgmma/TMA instruction counts of each
+    K3 kernel, read from the built library with the toolkit's cuobjdump
+    (the library carries SASS for sm_90a only, no PTX). Fails if a
+    redesigned kernel lacks HGMMA or UTMALDG."""
+    from commefficient_torch.ops import _build
+    from commefficient_torch.ops import flash_attention as FA
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    lib = _build.library_path(FA.SOURCE)
+
+    def dump(flag):
+        r = subprocess.run([tool, flag, lib], capture_output=True, text=True,
+                           timeout=300)
+        if r.returncode != 0:
+            fail(f"cuobjdump {flag} failed: {r.stderr.strip()}")
+        return r.stdout.splitlines()
+
+    def kernel_of(line):
+        return next((name for name in FA.launches
+                     if f"{name}_kernel" in line), None)
+
+    out = {name: dict.fromkeys(HOPPER_SASS, 0) for name in FA.launches}
+    name = None
+    for line in dump("-sass"):
+        if "Function :" in line:
+            name = kernel_of(line)
+        elif name is not None:
+            for op in HOPPER_SASS:
+                out[name][op] += op in line
+    for line in dump("-res-usage"):
+        if "Function " in line:
+            name = kernel_of(line)
+        elif name is not None and "REG:" in line:
+            use = dict(f.split(":", 1) for f in line.split() if ":" in f)
+            out[name]["registers"] = int(use["REG"])
+            out[name]["static_smem"] = int(use["SHARED"])
+    lib_fa = FA._lib()
+    dynamic = {"flash_fwd": lib_fa.flash_fwd_smem_bytes(),
+               "flash_bwd_dq": 0,
+               "flash_bwd_dkv": lib_fa.flash_bwd_dkv_smem_bytes()}
+    for name, use in out.items():
+        use["dynamic_smem"] = dynamic[name]
+        print(f"[sass] {name}: {use.get('registers')} registers at launch, "
+              f"shared memory {use.get('static_smem')} B static + "
+              f"{use['dynamic_smem']} B dynamic; SASS: "
+              + ", ".join(f"{use[op]} {op}" for op in HOPPER_SASS),
+              flush=True)
+        if "registers" not in use:
+            fail(f"cuobjdump -res-usage reported nothing for {name}")
+    lacking = [f"{name} ({op})" for name in HOPPER_KERNELS
+               for op in HOPPER_SASS if out[name][op] == 0]
+    if lacking:
+        fail(f"redesigned K3 kernels without wgmma/TMA in SASS: {lacking}")
+    return out
 
 
 def bound(nbytes: float, ops: float, peak: float):
@@ -393,6 +460,17 @@ def phase_flash():
                 fail(f"the K3 check passed a planted fault in {name} at "
                      f"S={S}: {planted}")
         del fwd_f, dq_f, dk_f, dv_f, delta_ref
+        # no atomics: a second call repeats every bit
+        o2, lse2 = FA.forward(q, k, v)
+        dk2, dv2 = FA.backward_dkv(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in
+                   ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2)))
+        print(f"[flash] S={S}: a second call of flash_fwd and flash_bwd_dkv "
+              f"is bitwise equal: {same}", flush=True)
+        if not same:
+            fail(f"flash_fwd or flash_bwd_dkv is not deterministic at S={S}")
+        del o2, lse2, dk2, dv2
         if S != FLASH_SHAPES[0][1]:
             continue
         del o_ref, refs
@@ -731,6 +809,7 @@ def main() -> int:
               flush=True)
 
     phase_build()
+    resources = phase_sass()
     done("build")
     # scale: a client's datum count, as the fused step passes it
     circ = phase_kernels(FLAGSHIP, (FLAGSHIP["c"], 500_000), scale=64.0)
@@ -770,7 +849,7 @@ def main() -> int:
             "source": "commefficient_torch/csrc/flash_attention.cu",
             "replaces": f"{gpt2_file}:106 -> {LIBRARY_FLASH}:{line}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            **flash[name]})
+            **flash[name], "resources": resources[name]})
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

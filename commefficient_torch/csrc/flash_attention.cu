@@ -24,40 +24,77 @@
 // follows a kernel. Rows must start on 16-byte boundaries (the wrapper
 // checks the pointers and strides).
 //
-// Design. One CTA of four warps per (64-row tile, head, sequence); each
-// warp owns 16 rows of the tile. Tiles of 64 rows of q / k / v / dO are
-// copied into shared memory with 16-byte loads (rows padded by 8 bf16 so
-// that ldmatrix reads hit 32 distinct banks), and every product runs on
-// the tensor cores as mma.sync m16n8k16 (bf16 in, float32 accumulate),
-// operands fed by ldmatrix (.trans where the tile is the k-major operand).
-// The forward keeps the running row max and sum in registers (online
-// softmax in the log2 domain) and never stores the S x S scores; the
-// probabilities are rounded to bf16 only as the A operand of p v. The
-// backward recomputes p from the saved lse. flash_bwd_dq owns a query
-// tile and walks the key tiles up to the diagonal; it also computes delta
-// for its rows and writes it, and flash_bwd_dkv, launched after it on the
-// same stream, reads it: no extra pass. flash_bwd_dkv owns a key tile and
-// walks the query tiles from the diagonal down. Every output element is
-// written by one thread, once: no atomics, so the gradient is
-// deterministic. Heavy tiles (most keys to walk) are scheduled first.
+// flash_fwd and flash_bwd_dkv: warp-specialised wgmma kernels fed by TMA.
+// A persistent grid, one CTA per SM, each CTA of three warpgroups: a
+// producer whose one elected thread issues TMA loads (cp.async.bulk.tensor
+// through a 4-D (D, H, S, N) tensor map of the strided operand, 128-byte
+// swizzle, rows past S read as zeros) into a 4-stage ring guarded by
+// full/empty mbarriers, and gives up its registers (setmaxnreg 24); two
+// consumer warpgroups (setmaxnreg 240) that run every product as
+// wgmma.mma_async (bf16 in, float32 accumulate). A CTA walks work items
+// (tile, head, sequence), heaviest tile first, in a zigzag over the CTAs;
+// the ring runs on across items, and the item's fixed operand (Q, or K and
+// V) is double-buffered, so the next item's loads overlap this one's work.
+// Within a consumer, tile j's first products are issued before tile j -
+// 1's last ones, so the softmax (or the elementwise step) of one tile
+// overlaps the other's tensor-core work.
+//   forward: items (128-row query tile, head, sequence); K and V tiles of
+//   128 keys (32 KB a stage) stream through the ring. Each consumer owns
+//   64 query rows: s = q k^T as m64n128k16 from shared memory (both
+//   K-major), the online softmax in the log2 domain on the accumulator
+//   fragments (a thread owns rows g and g + 8 of its warp's 16, so a row
+//   reduces over a quad), the diagonal tile alone masked, then o += p v as
+//   m64n64k16 with p rounded to bf16 in registers (the accumulator maps
+//   onto the A fragment) and v read MN-major. o is normalised and written
+//   as bf16, lse as float32.
+//   dk/dv: items (128-key tile, head, sequence); K and V stay in shared
+//   memory as A operands; Q and dO tiles of 64 rows stream through the
+//   ring with their lse and delta (bulk copies). Each consumer owns 64 keys
+//   and, per query tile from the diagonal down, computes s^T = k q^T and
+//   dp^T = v dO^T (m64n64k16, shared memory), p^T = exp2(s^T scale log2e -
+//   lse log2e) masked on the diagonal, ds^T = p^T (dp^T - delta), then
+//   dv += p^T dO and dk += ds^T q with p^T and ds^T as bf16 register A
+//   operands and dO, q read MN-major. A query tile that lies wholly before
+//   a consumer's keys is skipped. dk (x 1/sqrt(D)) and dv are written once
+//   each as bf16: no atomics, so two calls give the same bits.
+// flash_bwd_dq keeps the first design until its own redesign: one CTA of
+// four warps per (64-row tile, head, sequence), mma.sync m16n8k16 fed by
+// ldmatrix from tiles copied synchronously into padded shared memory. It
+// walks the key tiles up to the diagonal, computes delta for its rows and
+// writes it; flash_bwd_dkv, launched after it on the same stream, reads it.
+// p and ds round to bf16 only as product operands, in all three kernels.
 // The TPU kernel's block structure (512-wide blocks, the sequential grid
 // that carries the softmax state in VMEM scratch) is not carried over:
-// the loop over key tiles inside the CTA takes its place.
+// the loop over tiles inside the CTA takes its place.
 //
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s) at the GPT-2
 // shape N 8, H 12, S 1024, D 64: the forward needs 2 causal products,
-// 12.9 GFLOP (13 us), and moves 50.7 MB: 15 us by bytes. The backward
-// needs 5 causal products, 32 GFLOP: 33 us. This first version stops at
-// what mma.sync from synchronously loaded tiles gives; wgmma, TMA and
-// warp specialisation are later work.
+// 12.9 GFLOP (13 us), and moves 50.7 MB: 15 us by bytes; dk/dv needs 4
+// causal products, 25.8 GFLOP: 26 us by operations; dq 3 products, 76 MB:
+// 23 us by bytes. What holds the wgmma kernels back at D = 64 is the
+// exponential: an SM's special-function units give 16 exp2 a clock
+// against 4,096 bf16 tensor-core FLOPs, and the forward does one exp2 per
+// score against 4 D = 256 FLOPs, so exp2 alone takes as long as the
+// products; dk/dv does one against 512. Measured on an NVIDIA H100 80GB
+// HBM3 at a 700 W limit (chip_smoke.py): forward 0.047 ms (272 TFLOP/s),
+// dk/dv 0.075 ms (343 TFLOP/s); dq 0.115 ms.
+//
+// Build (nvcc -Xptxas -v, sm_90a; both sources in parallel about 5 s):
+// flash_fwd and flash_bwd_dkv 168 registers at launch (384 threads; 24
+// for the producer, 240 for the consumers after setmaxnreg), no spills,
+// 164,992 and 134,240 bytes of dynamic shared memory: one CTA an SM;
+// flash_bwd_dq 167 registers, 37,376 bytes of static shared memory.
 //
 // Interface: plain C, loaded with ctypes. Each function launches on the
-// given stream and returns cudaGetLastError() (0 on success), or
+// given stream and returns cudaGetLastError() (0 on success),
 // cudaErrorInvalidValue for a shape it does not take (D != 64, S not a
-// multiple of 64).
+// multiple of 64), -1 when the driver refuses a tensor map, or the error
+// of raising the kernel's shared-memory limit.
 
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>               // CUtensorMap (the driver is reached through
+                                // cudaGetDriverEntryPoint: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -212,104 +249,6 @@ __device__ __forceinline__ void store_rows(bf16* base, long long row_stride,
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int S, int H, Strides sq,
-                     Strides sk, Strides sv, Strides so, float scale_log2) {
-  constexpr int LD = D + kPad;
-  __shared__ __align__(16) bf16 sQ[kTile * LD];
-  __shared__ __align__(16) bf16 sK[kTile * LD];
-  __shared__ __align__(16) bf16 sV[kTile * LD];
-
-  const int qt = gridDim.x - 1 - blockIdx.x;   // most key tiles first
-  const int h = blockIdx.y, n = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kTile;
-  const int row0 = q0 + warp * 16 + g;         // and row0 + 8
-  const bf16* kb = k + n * sk.n + h * sk.h;
-  const bf16* vb = v + n * sv.n + h * sv.h;
-
-  load_tile<D>(sQ, q + n * sq.n + h * sq.h + q0 * sq.s, sq.s);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-  load_a<D>(qa, sQ, warp * 16, lane);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.0f;
-  }
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    __syncthreads();                           // last tile's reads done
-    load_tile<D>(sK, kb + kt * kTile * sk.s, sk.s);
-    load_tile<D>(sV, vb + kt * kTile * sv.s, sv.s);
-    __syncthreads();
-
-    float s[8][4];
-    mma_abt<D>(s, qa, sK, lane);
-    const bool diag = kt == qt;
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale_log2;
-        if (diag && kt * kTile + nt * 8 + 2 * t + (e & 1) >
-                        row0 + (e >> 1) * 8) {
-          x = -INFINITY;
-        }
-        s[nt][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
-    // every row sees key 0 in its first tile, so mx is finite from there
-    const float al0 = exp2f(m0 - mx0), al1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= al0;
-    l1 *= al1;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - m0);
-      s[nt][1] = exp2f(s[nt][1] - m0);
-      s[nt][2] = exp2f(s[nt][2] - m1);
-      s[nt][3] = exp2f(s[nt][3] - m1);
-      l0 += s[nt][0] + s[nt][1];
-      l1 += s[nt][2] + s[nt][3];
-    }
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      acc[nd][0] *= al0;
-      acc[nd][1] *= al0;
-      acc[nd][2] *= al1;
-      acc[nd][3] *= al1;
-    }
-    mma_pb<D>(acc, s, sV, lane);
-  }
-
-  l0 += __shfl_xor_sync(kFull, l0, 1);
-  l0 += __shfl_xor_sync(kFull, l0, 2);
-  l1 += __shfl_xor_sync(kFull, l1, 1);
-  l1 += __shfl_xor_sync(kFull, l1, 2);
-  store_rows<D>(o + n * so.n + h * so.h, so.s, row0, acc, 1.0f / l0,
-                1.0f / l1, t);
-  if (t == 0) {
-    float* lb = lse + ((long long)n * H + h) * S;
-    lb[row0] = m0 * kLn2 + logf(l0);
-    lb[row0 + 8] = m1 * kLn2 + logf(l1);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ o,
                         const bf16* __restrict__ dout,
@@ -398,91 +337,6 @@ __global__ void __launch_bounds__(kThreads)
                 t);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-                         int H, Strides sq, Strides sk, Strides sv,
-                         Strides sdo, Strides sdk, Strides sdv, float scale,
-                         float scale_log2) {
-  constexpr int LD = D + kPad;
-  __shared__ __align__(16) bf16 sQ[kTile * LD];
-  __shared__ __align__(16) bf16 sDO[kTile * LD];
-  __shared__ __align__(16) bf16 sK[kTile * LD];
-  __shared__ __align__(16) bf16 sV[kTile * LD];
-  __shared__ float sLse[kTile];
-  __shared__ float sDelta[kTile];
-
-  const int kt = blockIdx.x;                   // most query tiles first
-  const int nq = gridDim.x;
-  const int h = blockIdx.y, n = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = kt * kTile;
-  const int key0 = k0 + warp * 16 + g;         // and key0 + 8
-  const long long stat = ((long long)n * H + h) * S;
-  const bf16* qb = q + n * sq.n + h * sq.h;
-  const bf16* db = dout + n * sdo.n + h * sdo.h;
-
-  load_tile<D>(sK, k + n * sk.n + h * sk.h + k0 * sk.s, sk.s);
-  load_tile<D>(sV, v + n * sv.n + h * sv.h + k0 * sv.s, sv.s);
-  __syncthreads();
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a<D>(ka, sK, warp * 16, lane);
-  load_a<D>(va, sV, warp * 16, lane);
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    dka[nd][0] = dka[nd][1] = dka[nd][2] = dka[nd][3] = 0.0f;
-    dva[nd][0] = dva[nd][1] = dva[nd][2] = dva[nd][3] = 0.0f;
-  }
-  for (int qt = kt; qt < nq; ++qt) {
-    __syncthreads();
-    load_tile<D>(sQ, qb + qt * kTile * sq.s, sq.s);
-    load_tile<D>(sDO, db + qt * kTile * sdo.s, sdo.s);
-    if (threadIdx.x < kTile) {
-      sLse[threadIdx.x] = lse[stat + qt * kTile + threadIdx.x] * kLog2e;
-      sDelta[threadIdx.x] = delta[stat + qt * kTile + threadIdx.x];
-    }
-    __syncthreads();
-
-    // p^T (16 keys x 64 queries a warp) from s^T = k q^T
-    float pt[8][4], dpt[8][4];
-    mma_abt<D>(pt, ka, sQ, lane);
-    const bool diag = qt == kt;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = nt * 8 + 2 * t + (e & 1);
-        float p = exp2f(pt[nt][e] * scale_log2 - sLse[ql]);
-        if (diag && qt * kTile + ql < key0 + (e >> 1) * 8) p = 0.0f;
-        pt[nt][e] = p;
-      }
-    }
-    mma_pb<D>(dva, pt, sDO, lane);             // dv += p^T dO
-    mma_abt<D>(dpt, va, sDO, lane);            // dp^T = v dO^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = nt * 8 + 2 * t + (e & 1);
-        pt[nt][e] *= dpt[nt][e] - sDelta[ql];  // ds^T
-      }
-    }
-    mma_pb<D>(dka, pt, sQ, lane);              // dk += ds^T q
-  }
-  store_rows<D>(dk + n * sdk.n + h * sdk.h, sdk.s, key0, dka, scale, scale,
-                t);
-  store_rows<D>(dv + n * sdv.n + h * sdv.h, sdv.s, key0, dva, 1.0f, 1.0f, t);
-}
-
 constexpr int kHeadDim = 64;                    // the one D compiled
 
 bool bad_shape(int N, int S, int H, int D) {
@@ -494,6 +348,787 @@ Strides at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
+// ------------------------------------------------------------------------
+// Hopper: TMA into an mbarrier ring, wgmma, producer and consumer
+// warpgroups (flash_fwd and flash_bwd_dkv).
+
+constexpr int kBlock = 128;       // forward: query rows of a work item and
+                                  // keys of a stage; dk/dv: keys of an item
+constexpr int kQBlock = 64;       // dk/dv: query rows of a stage
+constexpr int kStages = 4;        // depth of the TMA ring
+constexpr int kWg = 128;          // threads of a warpgroup
+constexpr int kWsThreads = 3 * kWg;           // producer + two consumers
+constexpr int kConsumerThreads = 2 * kWg;
+constexpr uint32_t kRowBytes = 2 * kHeadDim;  // 128: the swizzle span
+constexpr uint32_t kBlockBytes = kBlock * kRowBytes;     // 16 KB
+constexpr uint32_t kQBlockBytes = kQBlock * kRowBytes;   // 8 KB
+constexpr uint32_t kStatBytes = 4 * kQBlock;  // a stage's lse or delta
+constexpr int kEncodeFailed = -1;             // a tensor map was refused
+
+// Shared memory of the forward, from a 1024-byte aligned base (the
+// 128-byte swizzle repeats every 8 rows of 128 bytes): two Q buffers (a
+// CTA's next work item loads while the current one runs), kStages stages
+// of K and V, then the barriers q[2], q_empty[2], k[s], v[s], empty[s].
+constexpr uint32_t kFwdK = 2 * kBlockBytes;
+constexpr uint32_t kFwdBar = kBlockBytes * (2 + 2 * kStages);
+constexpr uint32_t kFwdSmem = kFwdBar + 8 * (4 + 3 * kStages) + 1024;
+// dk/dv: two K, V buffers, kStages stages of Q and dO, the stages' lse and
+// delta, then the barriers kv[2], kv_empty[2], full[s], empty[s].
+constexpr uint32_t kDkvStage = 4 * kBlockBytes;
+constexpr uint32_t kDkvStat = kDkvStage + 2 * kStages * kQBlockBytes;
+constexpr uint32_t kDkvBar = kDkvStat + 2 * kStages * kStatBytes;
+constexpr uint32_t kDkvSmem = kDkvBar + 8 * (4 + 2 * kStages) + 1024;
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic to the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// TMA: one box of a 4-D tensor map (coordinates innermost first) into
+// shared memory; completion is counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Bulk copy of contiguous bytes (16-byte aligned) into shared memory.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keep the compiler from moving reads or writes of wgmma accumulators
+// across the wait that completes them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma descriptor of a tile in shared memory as TMA wrote it: 64-wide bf16
+// rows of 128 bytes, 128-byte swizzle, groups of 8 rows 1024 bytes apart.
+// As a K-major operand (rows along M or N) the k-th 16-deep step starts
+// 32 k bytes further (+2 k in the descriptor); as an MN-major operand
+// (rows along the depth) 16 rows further, 2048 k bytes (+128 k). Both byte
+// offsets of the descriptor are set to the 1024-byte group stride: the
+// swizzled K-major layouts read only the stride byte offset, and an
+// MN-major operand 64 wide is one swizzle atom across, so whichever offset
+// steps between its 8-row groups is right.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  constexpr uint64_t kGroup = 1024 >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (kGroup << 16) |
+         (kGroup << 32) | (1ull << 62);
+}
+constexpr uint64_t kDescK = 32 >> 4;
+constexpr uint64_t kDescMN = (16 * kRowBytes) >> 4;
+
+// d (64 x 128) (+)= a b^T, a and b K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64) (+)= a b^T, a and b K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64) += a b, a in registers, b MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// The bf16 A operand of k-step kk (accumulator columns 16 kk .. 16 kk + 15)
+// from a warpgroup's float accumulators: the wgmma accumulator and register
+// A layouts agree thread by thread, as for mma.sync.
+template <int N>
+__device__ __forceinline__ void frag_to_a(uint32_t (&a)[4],
+                                          const float (&d)[N], int kk) {
+  a[0] = pack(d[8 * kk], d[8 * kk + 1]);
+  a[1] = pack(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// Write a thread's part of a 64 x 64 accumulator times `mul` as bf16: rows
+// row0 and row0 + 8 (those below S) of a strided (S, D) slab.
+__device__ __forceinline__ void store_frag(bf16* base, long long row_stride,
+                                           int row0, int S,
+                                           const float (&d)[32], float mul0,
+                                           float mul1, int t) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int col = 8 * c + 2 * t;
+    if (row0 < S) {
+      *reinterpret_cast<__nv_bfloat162*>(base + row0 * row_stride + col) =
+          __floats2bfloat162_rn(d[4 * c] * mul0, d[4 * c + 1] * mul0);
+    }
+    if (row0 + 8 < S) {
+      *reinterpret_cast<__nv_bfloat162*>(base + (row0 + 8) * row_stride +
+                                         col) =
+          __floats2bfloat162_rn(d[4 * c + 2] * mul1, d[4 * c + 3] * mul1);
+    }
+  }
+}
+
+// The forward's online softmax over one tile of raw scores s = q k^T (64
+// rows x 128 keys a warpgroup), in place: s becomes p = exp2((s - m)
+// scale log2e) with m the running row max of the raw scores (rows g and
+// g + 8 of the warp: m0, m1), l the running row sum of this thread's
+// columns, al the factor that rescales the earlier sums. Only the diagonal
+// tile (`key0` its first key) is masked.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& al0, float& al1,
+                                             bool diag, int key0, int row0,
+                                             int t, float scale_log2) {
+  if (diag) {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (key0 + 8 * c + 2 * t + (e & 1) > row0 + (e >> 1) * 8) {
+          sc[4 * c + e] = -INFINITY;
+        }
+      }
+    }
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * c], sc[4 * c + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * c + 2], sc[4 * c + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
+  // every row sees key 0 in its first tile, so mx is finite from there
+  al0 = fast_exp2((m0 - mx0) * scale_log2);
+  al1 = fast_exp2((m1 - mx1) * scale_log2);
+  m0 = mx0;
+  m1 = mx1;
+  const float ms0 = mx0 * scale_log2, ms1 = mx1 * scale_log2;
+  float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    sc[4 * c] = fast_exp2(fmaf(sc[4 * c], scale_log2, -ms0));
+    sc[4 * c + 1] = fast_exp2(fmaf(sc[4 * c + 1], scale_log2, -ms0));
+    sc[4 * c + 2] = fast_exp2(fmaf(sc[4 * c + 2], scale_log2, -ms1));
+    sc[4 * c + 3] = fast_exp2(fmaf(sc[4 * c + 3], scale_log2, -ms1));
+    s0 += sc[4 * c] + sc[4 * c + 1];
+    s1 += sc[4 * c + 2] + sc[4 * c + 3];
+  }
+  l0 = l0 * al0 + s0;
+  l1 = l1 * al1 + s1;
+}
+
+// Work items of the persistent kernels: (tile, head, sequence), heaviest
+// tile first. In round r a CTA takes item r G + blockIdx.x (r even) or
+// r G + G - 1 - blockIdx.x (r odd), G = gridDim.x: the zigzag evens out
+// the causal triangle's falling work per item (at the GPT-2 shape the
+// busiest SM gets 27 key tiles of the forward's 26.2 average, 30 by plain
+// striding).
+struct Item {
+  int tile, h, n;
+};
+
+__device__ __forceinline__ int item_index(int r) {
+  return r * gridDim.x +
+         ((r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+__device__ __forceinline__ Item item_at(int i, int first_tile, int step,
+                                        int H, int N) {
+  const int hn = i % (H * N);
+  return Item{first_tile + step * (i / (H * N)), hn % H, hn / H};
+}
+
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     bf16* __restrict__ o, float* __restrict__ lse, int S,
+                     int H, int N, Strides so, float scale_log2) {
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t bar0 = base + kFwdBar;
+  const int n_qt = (S + kBlock - 1) / kBlock;
+  const int items = n_qt * H * N;
+  // Q buffer b at base + b kBlockBytes; stage s: K at base + kFwdK +
+  // 2 s kBlockBytes, V kBlockBytes after it; barriers from bar0: q[2],
+  // q_empty[2], k[s], v[s], empty[s]
+  auto sQ = [&](int b) { return base + b * kBlockBytes; };
+  auto sK = [&](int s) { return base + kFwdK + 2 * s * kBlockBytes; };
+  auto bar_q = [&](int b) { return bar0 + 8 * b; };
+  auto bar_qe = [&](int b) { return bar0 + 8 * (2 + b); };
+  auto bar_k = [&](int s) { return bar0 + 8 * (4 + s); };
+  auto bar_v = [&](int s) { return bar0 + 8 * (4 + kStages + s); };
+  auto bar_e = [&](int s) { return bar0 + 8 * (4 + 2 * kStages + s); };
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bar_q(b), 1);
+      mbar_init(bar_qe(b), kConsumerThreads);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k(s), 1);
+      mbar_init(bar_v(s), 1);
+      mbar_init(bar_e(s), kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {
+    // producer warpgroup: one thread keeps the ring full, across items
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      int jg = 0;                              // K/V tiles loaded so far
+      for (int it = 0; it * (int)gridDim.x < items; ++it) {
+        const int i = item_index(it);
+        if (i >= items) break;
+        const Item w = item_at(i, n_qt - 1, -1, H, N);
+        const int b = it & 1;
+        if (it >= 2) mbar_wait(bar_qe(b), ((it >> 1) - 1) & 1);
+        mbar_expect_tx(bar_q(b), kBlockBytes);
+        tma_load(sQ(b), &tq, bar_q(b), 0, w.h, w.tile * kBlock, w.n);
+        for (int j = 0; j <= w.tile; ++j, ++jg) {
+          const int s = jg % kStages;
+          if (jg >= kStages) mbar_wait(bar_e(s), (jg / kStages - 1) & 1);
+          mbar_expect_tx(bar_k(s), kBlockBytes);
+          tma_load(sK(s), &tk, bar_k(s), 0, w.h, j * kBlock, w.n);
+          mbar_expect_tx(bar_v(s), kBlockBytes);
+          tma_load(sK(s) + kBlockBytes, &tv, bar_v(s), 0, w.h, j * kBlock,
+                   w.n);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: 64 query rows each, 16 a warp
+  setmaxnreg_inc<240>();
+  const int ct = threadIdx.x - kWg;
+  const int wg = ct / kWg, warp = (ct / 32) % 4, lane = ct % 32;
+  const int g = lane >> 2, t = lane & 3;
+  // s = q k^T for 64 rows x 128 keys, both operands K-major
+  auto issue_qk = [&](float (&sc)[64], uint64_t qdesc, int s) {
+    const uint64_t kdesc = smem_desc(sK(s));
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+      wgmma_ss_n128(sc, qdesc + kDescK * kk, kdesc + kDescK * kk, kk);
+    }
+  };
+  // o += p v: p as bf16 from registers, v MN-major
+  auto issue_pv = [&](float (&acc)[32], const uint32_t (&pa)[kBlock / 16][4],
+                      int s) {
+    const uint64_t vdesc = smem_desc(sK(s) + kBlockBytes);
+#pragma unroll
+    for (int kk = 0; kk < kBlock / 16; ++kk) {
+      wgmma_rs_n64(acc, pa[kk], vdesc + kDescMN * kk, 1);
+    }
+  };
+
+  float acc[32], sc[64];
+  uint32_t pa[kBlock / 16][4];
+  int jg = 0;                                  // K/V tiles consumed so far
+  for (int it = 0; it * (int)gridDim.x < items; ++it) {
+    const int i = item_index(it);
+    if (i >= items) break;
+    const Item w = item_at(i, n_qt - 1, -1, H, N);
+    const int b = it & 1, nk = w.tile + 1;     // key tiles to the diagonal
+    const int row0 = w.tile * kBlock + wg * 64 + warp * 16 + g;  // + 8
+    const uint64_t qdesc = smem_desc(sQ(b) + wg * 64 * kRowBytes);
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[r] = 0.0f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f, al0, al1;
+
+    mbar_wait(bar_q(b), (it >> 1) & 1);
+    int s = jg % kStages;
+    mbar_wait(bar_k(s), (jg / kStages) & 1);
+    wgmma_fence();
+    issue_qk(sc, qdesc, s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (nk == 1) mbar_arrive(bar_qe(b));       // q is read for the last time
+    softmax_tile(sc, m0, m1, l0, l1, al0, al1, nk == 1, 0, row0, t,
+                 scale_log2);
+#pragma unroll
+    for (int kk = 0; kk < kBlock / 16; ++kk) frag_to_a(pa[kk], sc, kk);
+
+    // tile j's q k^T runs on the tensor cores while tile j - 1's p v is
+    // issued behind it; tile j's softmax overlaps that p v
+    for (int j = 1; j < nk; ++j) {
+      const int sp = s, jj = jg + j;
+      s = jj % kStages;
+      mbar_wait(bar_k(s), (jj / kStages) & 1);
+      mbar_wait(bar_v(sp), ((jj - 1) / kStages) & 1);
+      wgmma_fence();
+      issue_qk(sc, qdesc, s);
+      wgmma_commit();
+      issue_pv(acc, pa, sp);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      if (j == nk - 1) mbar_arrive(bar_qe(b));
+      softmax_tile(sc, m0, m1, l0, l1, al0, al1, j == nk - 1, j * kBlock,
+                   row0, t, scale_log2);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(bar_e(sp));
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        acc[4 * c] *= al0;
+        acc[4 * c + 1] *= al0;
+        acc[4 * c + 2] *= al1;
+        acc[4 * c + 3] *= al1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk) frag_to_a(pa[kk], sc, kk);
+    }
+    mbar_wait(bar_v(s), ((jg + nk - 1) / kStages) & 1);
+    wgmma_fence();
+    issue_pv(acc, pa, s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(bar_e(s));
+    jg += nk;
+
+    l0 += __shfl_xor_sync(kFull, l0, 1);
+    l0 += __shfl_xor_sync(kFull, l0, 2);
+    l1 += __shfl_xor_sync(kFull, l1, 1);
+    l1 += __shfl_xor_sync(kFull, l1, 2);
+    store_frag(o + w.n * so.n + w.h * so.h, so.s, row0, S, acc, 1.0f / l0,
+               1.0f / l1, t);
+    if (t == 0) {
+      float* lb = lse + ((long long)w.n * H + w.h) * S;
+      if (row0 < S) lb[row0] = m0 * scale_log2 * kLn2 + logf(l0);
+      if (row0 + 8 < S) lb[row0 + 8] = m1 * scale_log2 * kLn2 + logf(l1);
+    }
+  }
+}
+
+// dk/dv's elementwise step over one query tile (64 keys x 64 queries a
+// warpgroup), in place: s^T becomes p^T = exp2(s^T scale log2e - lse
+// log2e), masked on the diagonal (query < key), and dp^T becomes ds^T =
+// p^T (dp^T - delta). lse and delta of the tile's queries are read from
+// shared memory once per column pair of the thread.
+__device__ __forceinline__ void dkv_tile(float (&pt)[32], float (&dpt)[32],
+                                         const float2* ls, const float2* dl,
+                                         bool diag, int q0, int key0, int t,
+                                         float scale_log2) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float2 l2 = ls[4 * c + t], d2 = dl[4 * c + t];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lq = ((e & 1) ? l2.y : l2.x) * kLog2e;
+      const float dq = (e & 1) ? d2.y : d2.x;
+      float p = fast_exp2(fmaf(pt[4 * c + e], scale_log2, -lq));
+      if (diag && q0 + 8 * c + 2 * t + (e & 1) < key0 + (e >> 1) * 8) {
+        p = 0.0f;
+      }
+      pt[4 * c + e] = p;
+      dpt[4 * c + e] = p * (dpt[4 * c + e] - dq);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
+                         int H, int N, Strides sdk, Strides sdv, float scale,
+                         float scale_log2) {
+  extern __shared__ uint8_t smem[];
+  const uint32_t raw = smem_addr(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar0 = base + kDkvBar;
+  const int n_kt = (S + kBlock - 1) / kBlock;
+  const int items = n_kt * H * N;
+  // K of buffer b at base + 2 b kBlockBytes, V kBlockBytes after it;
+  // stage s: Q at base + kDkvStage + 2 s kQBlockBytes, dO kQBlockBytes
+  // after it, its lse at base + kDkvStat + s kStatBytes, its delta kStages
+  // kStatBytes after that; barriers from bar0: kv[2], kv_empty[2],
+  // full[s], empty[s]
+  auto sK = [&](int b) { return base + 2 * b * kBlockBytes; };
+  auto sQ = [&](int s) { return base + kDkvStage + 2 * s * kQBlockBytes; };
+  auto sL = [&](int s) { return base + kDkvStat + s * kStatBytes; };
+  auto sD = [&](int s) { return sL(s) + kStages * kStatBytes; };
+  auto bar_kv = [&](int b) { return bar0 + 8 * b; };
+  auto bar_kve = [&](int b) { return bar0 + 8 * (2 + b); };
+  auto bar_f = [&](int s) { return bar0 + 8 * (4 + s); };
+  auto bar_e = [&](int s) { return bar0 + 8 * (4 + kStages + s); };
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bar_kv(b), 1);
+      mbar_init(bar_kve(b), kConsumerThreads);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_f(s), 1);
+      mbar_init(bar_e(s), kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      int jg = 0;                              // Q/dO tiles loaded so far
+      for (int it = 0; it * (int)gridDim.x < items; ++it) {
+        const int i = item_index(it);
+        if (i >= items) break;
+        const Item w = item_at(i, 0, 1, H, N);
+        const int b = it & 1;
+        const int q_first = w.tile * (kBlock / kQBlock);
+        const long long stat = ((long long)w.n * H + w.h) * S;
+        if (it >= 2) mbar_wait(bar_kve(b), ((it >> 1) - 1) & 1);
+        mbar_expect_tx(bar_kv(b), 2 * kBlockBytes);
+        tma_load(sK(b), &tk, bar_kv(b), 0, w.h, w.tile * kBlock, w.n);
+        tma_load(sK(b) + kBlockBytes, &tv, bar_kv(b), 0, w.h,
+                 w.tile * kBlock, w.n);
+        for (int qi = q_first; qi < S / kQBlock; ++qi, ++jg) {
+          const int s = jg % kStages, q0 = qi * kQBlock;
+          if (jg >= kStages) mbar_wait(bar_e(s), (jg / kStages - 1) & 1);
+          mbar_expect_tx(bar_f(s), 2 * kQBlockBytes + 2 * kStatBytes);
+          tma_load(sQ(s), &tq, bar_f(s), 0, w.h, q0, w.n);
+          tma_load(sQ(s) + kQBlockBytes, &tdo, bar_f(s), 0, w.h, q0, w.n);
+          bulk_load(sL(s), lse + stat + q0, kStatBytes, bar_f(s));
+          bulk_load(sD(s), delta + stat + q0, kStatBytes, bar_f(s));
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: 64 keys each, 16 a warp
+  setmaxnreg_inc<240>();
+  const int ct = threadIdx.x - kWg;
+  const int wg = ct / kWg, warp = (ct / 32) % 4, lane = ct % 32;
+  const int g = lane >> 2, t = lane & 3;
+  // s^T = k q^T and dp^T = v dO^T, 64 keys x 64 queries, K-major
+  auto issue_s = [&](float (&pt)[32], float (&dpt)[32], uint64_t kdesc,
+                     uint64_t vdesc, int s) {
+    const uint64_t qd = smem_desc(sQ(s));
+    const uint64_t dd = smem_desc(sQ(s) + kQBlockBytes);
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+      wgmma_ss_n64(pt, kdesc + kDescK * kk, qd + kDescK * kk, kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+      wgmma_ss_n64(dpt, vdesc + kDescK * kk, dd + kDescK * kk, kk);
+    }
+  };
+  // dv += p^T dO and dk += ds^T q: A bf16 from registers, B MN-major
+  auto issue_grad = [&](float (&dva)[32], float (&dka)[32],
+                        const uint32_t (&pa)[kQBlock / 16][4],
+                        const uint32_t (&da)[kQBlock / 16][4], int s) {
+    const uint64_t qd = smem_desc(sQ(s));
+    const uint64_t dd = smem_desc(sQ(s) + kQBlockBytes);
+#pragma unroll
+    for (int kk = 0; kk < kQBlock / 16; ++kk) {
+      wgmma_rs_n64(dva, pa[kk], dd + kDescMN * kk, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kQBlock / 16; ++kk) {
+      wgmma_rs_n64(dka, da[kk], qd + kDescMN * kk, 1);
+    }
+  };
+  auto step = [&](float (&pt)[32], float (&dpt)[32], int s, int q0, int kw0,
+                  int key0) {
+    dkv_tile(pt, dpt, reinterpret_cast<const float2*>(smem + (sL(s) - raw)),
+             reinterpret_cast<const float2*>(smem + (sD(s) - raw)),
+             q0 < kw0 + 64, q0, key0, t, scale_log2);
+  };
+
+  float dka[32], dva[32], pt[32], dpt[32];
+  uint32_t pa[kQBlock / 16][4], da[kQBlock / 16][4];
+  int jg = 0;                                  // Q/dO tiles consumed so far
+  for (int it = 0; it * (int)gridDim.x < items; ++it) {
+    const int i = item_index(it);
+    if (i >= items) break;
+    const Item w = item_at(i, 0, 1, H, N);
+    const int b = it & 1;
+    const int q_first = w.tile * (kBlock / kQBlock);   // the diagonal's
+    const int nq = S / kQBlock - q_first;
+    const int kw0 = w.tile * kBlock + wg * 64;   // the warpgroup's first key
+    const int key0 = kw0 + warp * 16 + g;        // and key0 + 8
+    const uint64_t kdesc = smem_desc(sK(b) + wg * 64 * kRowBytes);
+    const uint64_t vdesc = kdesc + (kBlockBytes >> 4);
+#pragma unroll
+    for (int r = 0; r < 32; ++r) dka[r] = dva[r] = 0.0f;
+    // the first query tile lies wholly before the second warpgroup's keys
+    // and adds nothing there: that warpgroup starts at the next one
+    const int j0 = wg;
+    for (int j = 0; j < j0 && j < nq; ++j) {
+      mbar_wait(bar_f((jg + j) % kStages), ((jg + j) / kStages) & 1);
+      mbar_arrive(bar_e((jg + j) % kStages));
+    }
+    if (j0 >= nq) mbar_arrive(bar_kve(b));
+    if (j0 < nq) {
+      mbar_wait(bar_kv(b), (it >> 1) & 1);
+      int s = (jg + j0) % kStages;
+      int q0 = (q_first + j0) * kQBlock;
+      mbar_wait(bar_f(s), ((jg + j0) / kStages) & 1);
+      wgmma_fence();
+      issue_s(pt, dpt, kdesc, vdesc, s);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pt);
+      fence_regs(dpt);
+      if (j0 == nq - 1) mbar_arrive(bar_kve(b));   // k, v read for the last
+      step(pt, dpt, s, q0, kw0, key0);
+#pragma unroll
+      for (int kk = 0; kk < kQBlock / 16; ++kk) {
+        frag_to_a(pa[kk], pt, kk);
+        frag_to_a(da[kk], dpt, kk);
+      }
+      // tile j's two score products run while tile j - 1's two gradient
+      // products are issued behind them; tile j's elementwise step
+      // overlaps those
+      for (int j = j0 + 1; j < nq; ++j) {
+        const int sp = s;
+        s = (jg + j) % kStages;
+        q0 = (q_first + j) * kQBlock;
+        mbar_wait(bar_f(s), ((jg + j) / kStages) & 1);
+        wgmma_fence();
+        issue_s(pt, dpt, kdesc, vdesc, s);
+        wgmma_commit();
+        issue_grad(dva, dka, pa, da, sp);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(pt);
+        fence_regs(dpt);
+        if (j == nq - 1) mbar_arrive(bar_kve(b));
+        step(pt, dpt, s, q0, kw0, key0);
+        wgmma_wait<0>();
+        fence_regs(dva);
+        fence_regs(dka);
+        mbar_arrive(bar_e(sp));
+#pragma unroll
+        for (int kk = 0; kk < kQBlock / 16; ++kk) {
+          frag_to_a(pa[kk], pt, kk);
+          frag_to_a(da[kk], dpt, kk);
+        }
+      }
+      wgmma_fence();
+      issue_grad(dva, dka, pa, da, s);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      mbar_arrive(bar_e(s));
+    }
+    jg += nq;
+
+    store_frag(dk + w.n * sdk.n + w.h * sdk.h, sdk.s, key0, S, dka, scale,
+               scale, t);
+    store_frag(dv + w.n * sdv.n + w.h * sdv.h, sdv.s, key0, S, dva, 1.0f,
+               1.0f, t);
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime, so that the library
+// needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D tensor map (D, H, S, N) of a strided (N, S, H, D) bf16 operand,
+// read in boxes of `rows` positions of one head with the 128-byte swizzle.
+// Rows past S read as zeros; the box never crosses into the next sequence.
+bool tensor_map(CUtensorMap* map, const void* ptr, int N, int S, int H,
+                Strides st, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {kHeadDim, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)N};
+  const cuuint64_t bytes[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                               (cuuint64_t)st.n * 2};
+  const cuuint32_t box[4] = {kHeadDim, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, bytes, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// CTAs of a persistent kernel: one per SM (the kernels take one SM
+// each), at most one per work item; -1 if the device cannot be queried.
+int persistent_grid(int items) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return items < sms ? items : sms;
+}
+
 }  // namespace
 
 // strides: (sequence, position, head) element strides of q, k, v, o.
@@ -502,11 +1137,20 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const long long* strides, float scale,
                          void* stream) {
   if (bad_shape(N, S, H, D)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(S / kTile, H, N);
-  flash_fwd_kernel<kHeadDim><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, S, H,
-      at(strides, 0), at(strides, 1), at(strides, 2), at(strides, 3),
-      scale * kLog2e);
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, N, S, H, at(strides, 0), kBlock) ||
+      !tensor_map(&tk, k, N, S, H, at(strides, 1), kBlock) ||
+      !tensor_map(&tv, v, N, S, H, at(strides, 2), kBlock)) {
+    return kEncodeFailed;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFwdSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = persistent_grid((S + kBlock - 1) / kBlock * H * N);
+  if (grid < 0) return (int)cudaGetLastError();
+  flash_fwd_kernel<<<grid, kWsThreads, kFwdSmem, (cudaStream_t)stream>>>(
+      tq, tk, tv, (bf16*)o, lse, S, H, N, at(strides, 3), scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -533,15 +1177,28 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int S, int H, int D, const long long* strides,
                              float scale, void* stream) {
   if (bad_shape(N, S, H, D)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(S / kTile, H, N);
-  flash_bwd_dkv_kernel<kHeadDim>
-      <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-          (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-          lse, delta, (bf16*)dk, (bf16*)dv, S, H, at(strides, 0),
-          at(strides, 1), at(strides, 2), at(strides, 3), at(strides, 4),
-          at(strides, 5), scale, scale * kLog2e);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map(&tq, q, N, S, H, at(strides, 0), kQBlock) ||
+      !tensor_map(&tk, k, N, S, H, at(strides, 1), kBlock) ||
+      !tensor_map(&tv, v, N, S, H, at(strides, 2), kBlock) ||
+      !tensor_map(&tdo, dout, N, S, H, at(strides, 3), kQBlock)) {
+    return kEncodeFailed;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kDkvSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = persistent_grid((S + kBlock - 1) / kBlock * H * N);
+  if (grid < 0) return (int)cudaGetLastError();
+  flash_bwd_dkv_kernel<<<grid, kWsThreads, kDkvSmem,
+                         (cudaStream_t)stream>>>(
+      tq, tk, tv, tdo, lse, delta, (bf16*)dk, (bf16*)dv, S, H, N,
+      at(strides, 4), at(strides, 5), scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 extern "C" int flash_head_dim() { return kHeadDim; }
 extern "C" int flash_tile() { return kTile; }
+// Dynamic shared memory of a launch of flash_fwd and of flash_bwd_dkv.
+extern "C" int flash_fwd_smem_bytes() { return (int)kFwdSmem; }
+extern "C" int flash_bwd_dkv_smem_bytes() { return (int)kDkvSmem; }

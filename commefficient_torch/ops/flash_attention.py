@@ -49,11 +49,12 @@ def _lib() -> ctypes.CDLL:
                                      f, p]
         lib.flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p,
                                       f, p]
-        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv,
-                   lib.flash_head_dim, lib.flash_tile):
+        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
             fn.restype = i
-        lib.flash_head_dim.argtypes = []
-        lib.flash_tile.argtypes = []
+        for fn in (lib.flash_head_dim, lib.flash_tile,
+                   lib.flash_fwd_smem_bytes, lib.flash_bwd_dkv_smem_bytes):
+            fn.restype = i
+            fn.argtypes = []
         lib._typed = True
     return lib
 
@@ -103,6 +104,9 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _raise_on(name: str, err: int) -> None:
+    if err == -1:
+        raise RuntimeError(f"{name}: the driver refused an operand's tensor "
+                           "map (cuTensorMapEncodeTiled)")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -204,9 +208,11 @@ def backward_dkv(q, k, v, do, lse, delta
     _check_cuda("flash_bwd_dkv", (q, k, v, do), (N, S, H, D))
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or tuple(t.shape) != (N, H, S) \
-                or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"flash_bwd_dkv: {name} must be contiguous "
-                             f"float32 {(N, H, S)} on {q.device}")
+                or not t.is_contiguous() or t.device != q.device \
+                or t.data_ptr() % 16:
+            raise ValueError(f"flash_bwd_dkv: {name} must be contiguous, "
+                             f"16-byte aligned float32 {(N, H, S)} on "
+                             f"{q.device}")
     dk, dv = (torch.empty((N, S, H, D), dtype=q.dtype, device=q.device)
               for _ in range(2))
     err = _lib().flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -157,7 +157,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [256, 1024])
+@pytest.mark.parametrize("S", [192, 256, 1024])
 def test_function_on_card_matches_plain(cuda, S):
     """The autograd.Function on the card at GPT-2's head width: q, k, v
     are the slices of one c_attn-shaped buffer, and the kernels' gradients

@@ -217,8 +217,16 @@ def test_flash_wrappers_take_plain_version_on_cpu_without_launching():
                               "flash_bwd_dkv": 0}
 
 
+# (N, S, H): S = 64 and 192 end in a partial 128-row tile of the forward
+# and dk/dv kernels; N H = 144 work items (S = 128) exceed the H100's 132
+# SMs, so a CTA of the persistent kernels takes a second item; the last is
+# the GPT-2 main path's shape.
+FLASH_CARD_SHAPES = [(2, 128, 3), (1, 256, 2), (3, 64, 1), (2, 192, 3),
+                     (12, 128, 12), (8, 1024, 12)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,S,H", [(2, 128, 3), (1, 256, 2), (3, 64, 1)])
+@pytest.mark.parametrize("N,S,H", FLASH_CARD_SHAPES)
 def test_flash_kernels_match_plain_on_card(cuda, N, S, H):
     """bf16 in, float32 accumulation: each row of o, dq, dk and dv within
     ``chip_smoke.FLASH_ROW_RTOL`` of its own norm (the kernels round p and
@@ -237,6 +245,40 @@ def test_flash_kernels_match_plain_on_card(cuda, N, S, H):
     for got, want in zip((dq, dk, dv),
                          flash.backward_plain(q, k, v, o, lse_ref, do)):
         assert _worst_row_error(got, want) <= chip_smoke.FLASH_ROW_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,S,H", [(2, 192, 3), (12, 128, 12)])
+def test_flash_redesigned_kernels_are_deterministic_on_card(cuda, N, S, H):
+    """The forward and dk/dv kernels write each output element once, with
+    no atomics: two calls give the same bits."""
+    q, k, v, do = _qkv(N, S, H, device=cuda)
+    o, lse = flash.forward(q, k, v)
+    _, delta = flash.backward_dq(q, k, v, o, lse, do)
+    dk, dv = flash.backward_dkv(q, k, v, do, lse, delta)
+    o2, lse2 = flash.forward(q, k, v)
+    dk2, dv2 = flash.backward_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    for a, b in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [64, 192, 256])
+def test_flash_dkv_matches_plain_from_the_delta_dq_wrote(cuda, S):
+    """flash_bwd_dq writes delta = rowsum(dO o) for flash_bwd_dkv, which
+    runs after it on the same stream: that delta matches the plain one,
+    and dk and dv computed from it match the plain backward."""
+    q, k, v, do = _qkv(2, S, 3, device=cuda)
+    o, lse = flash.forward(q, k, v)
+    dq, delta = flash.backward_dq(q, k, v, o, lse, do)
+    dk, dv = flash.backward_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(delta, chip_smoke.plain_delta(o, do),
+                               rtol=1e-5, atol=1e-4)
+    _, dk_ref, dv_ref = flash.backward_plain(q, k, v, o, lse, do)
+    assert _worst_row_error(dk, dk_ref) <= chip_smoke.FLASH_ROW_RTOL
+    assert _worst_row_error(dv, dv_ref) <= chip_smoke.FLASH_ROW_RTOL
 
 
 @pytest.mark.cuda
