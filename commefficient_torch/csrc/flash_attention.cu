@@ -24,8 +24,8 @@
 // follows a kernel. Rows must start on 16-byte boundaries (the wrapper
 // checks the pointers and strides).
 //
-// flash_fwd and flash_bwd_dkv: warp-specialised wgmma kernels fed by TMA.
-// A persistent grid, one CTA per SM, each CTA of three warpgroups: a
+// All three kernels are warp-specialised wgmma kernels fed by TMA. A
+// persistent grid, one CTA per SM, each CTA of three warpgroups: a
 // producer whose one elected thread issues TMA loads (cp.async.bulk.tensor
 // through a 4-D (D, H, S, N) tensor map of the strided operand, 128-byte
 // swizzle, rows past S read as zeros) into a 4-stage ring guarded by
@@ -33,11 +33,11 @@
 // consumer warpgroups (setmaxnreg 240) that run every product as
 // wgmma.mma_async (bf16 in, float32 accumulate). A CTA walks work items
 // (tile, head, sequence), heaviest tile first, in a zigzag over the CTAs;
-// the ring runs on across items, and the item's fixed operand (Q, or K and
-// V) is double-buffered, so the next item's loads overlap this one's work.
-// Within a consumer, tile j's first products are issued before tile j -
-// 1's last ones, so the softmax (or the elementwise step) of one tile
-// overlaps the other's tensor-core work.
+// the ring runs on across items, and the item's fixed operands (Q; Q and
+// dO; or K and V) are double-buffered, so the next item's loads overlap
+// this one's work. Within a consumer, tile j's first products are issued
+// before tile j - 1's last ones, so the softmax (or the elementwise step)
+// of one tile overlaps the other's tensor-core work.
 //   forward: items (128-row query tile, head, sequence); K and V tiles of
 //   128 keys (32 KB a stage) stream through the ring. Each consumer owns
 //   64 query rows: s = q k^T as m64n128k16 from shared memory (both
@@ -47,6 +47,17 @@
 //   m64n64k16 with p rounded to bf16 in registers (the accumulator maps
 //   onto the A fragment) and v read MN-major. o is normalised and written
 //   as bf16, lse as float32.
+//   dq: items (128-row query tile, head, sequence), the forward's walk;
+//   the same K and V stages. Each consumer owns 64 query rows. At the
+//   start of an item it computes delta = rowsum(dO o) for its rows from
+//   the item's dO tile and an O tile (one buffer, released as soon as
+//   delta is read, so the next item's O loads behind it) and writes it
+//   once for flash_bwd_dkv, launched after it on the same stream; lse
+//   arrives by bulk copy beside Q and dO. Per key tile: s = q k^T and dp =
+//   dO v^T (m64n128k16, shared memory, K-major), p = exp2(s scale log2e -
+//   lse log2e) masked on the diagonal, ds = p (dp - delta) in place, then
+//   dq += ds k (m64n64k16, ds rounded to bf16 in registers, k read
+//   MN-major). dq (x 1/sqrt(D)) is written once as bf16.
 //   dk/dv: items (128-key tile, head, sequence); K and V stay in shared
 //   memory as A operands; Q and dO tiles of 64 rows stream through the
 //   ring with their lse and delta (bulk copies). Each consumer owns 64 keys
@@ -56,34 +67,32 @@
 //   dv += p^T dO and dk += ds^T q with p^T and ds^T as bf16 register A
 //   operands and dO, q read MN-major. A query tile that lies wholly before
 //   a consumer's keys is skipped. dk (x 1/sqrt(D)) and dv are written once
-//   each as bf16: no atomics, so two calls give the same bits.
-// flash_bwd_dq keeps the first design until its own redesign: one CTA of
-// four warps per (64-row tile, head, sequence), mma.sync m16n8k16 fed by
-// ldmatrix from tiles copied synchronously into padded shared memory. It
-// walks the key tiles up to the diagonal, computes delta for its rows and
-// writes it; flash_bwd_dkv, launched after it on the same stream, reads it.
-// p and ds round to bf16 only as product operands, in all three kernels.
-// The TPU kernel's block structure (512-wide blocks, the sequential grid
-// that carries the softmax state in VMEM scratch) is not carried over:
-// the loop over tiles inside the CTA takes its place.
+//   each as bf16.
+// No atomics anywhere, so two calls give the same bits. p and ds round to
+// bf16 only as product operands, in all three kernels. The TPU kernel's
+// block structure (512-wide blocks, the sequential grid that carries the
+// softmax state in VMEM scratch) is not carried over: the loop over tiles
+// inside the CTA takes its place.
 //
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s) at the GPT-2
 // shape N 8, H 12, S 1024, D 64: the forward needs 2 causal products,
 // 12.9 GFLOP (13 us), and moves 50.7 MB: 15 us by bytes; dk/dv needs 4
-// causal products, 25.8 GFLOP: 26 us by operations; dq 3 products, 76 MB:
-// 23 us by bytes. What holds the wgmma kernels back at D = 64 is the
-// exponential: an SM's special-function units give 16 exp2 a clock
-// against 4,096 bf16 tensor-core FLOPs, and the forward does one exp2 per
-// score against 4 D = 256 FLOPs, so exp2 alone takes as long as the
-// products; dk/dv does one against 512. Measured on an NVIDIA H100 80GB
-// HBM3 at a 700 W limit (chip_smoke.py): forward 0.047 ms (272 TFLOP/s),
-// dk/dv 0.075 ms (343 TFLOP/s); dq 0.115 ms.
+// causal products, 25.8 GFLOP: 26 us by operations; dq 3 products, 19.3
+// GFLOP (20 us), and 76 MB: 23 us by bytes. What holds the kernels back at
+// D = 64 is the exponential: an SM's special-function units give 16 exp2
+// a clock against 4,096 bf16 tensor-core FLOPs, and the forward and dq do
+// one exp2 per score against 4 D = 256 FLOPs (forward) or 6 D = 384 (dq),
+// so exp2 alone takes about as long as the products (about 13 us at the
+// main shape); dk/dv does one against 512. Measured on an NVIDIA H100
+// 80GB HBM3 at a 700 W limit (chip_smoke.py): forward 0.047 ms (272
+// TFLOP/s), dq 0.054 ms (359-361 TFLOP/s), dk/dv 0.075 ms (343-346
+// TFLOP/s).
 //
-// Build (nvcc -Xptxas -v, sm_90a; both sources in parallel about 5 s):
-// flash_fwd and flash_bwd_dkv 168 registers at launch (384 threads; 24
-// for the producer, 240 for the consumers after setmaxnreg), no spills,
-// 164,992 and 134,240 bytes of dynamic shared memory: one CTA an SM;
-// flash_bwd_dq 167 registers, 37,376 bytes of static shared memory.
+// Build (nvcc -Xptxas -v, sm_90a): all three kernels 168 registers at
+// launch (384 threads; 24 for the producer, 240 for the consumers after
+// setmaxnreg), no spills, no wgmma serialisation; 164,992 (forward),
+// 215,152 (dq: Q and dO x 2, O, 4 stages of K and V, lse) and 134,240
+// (dk/dv) bytes of dynamic shared memory: one CTA an SM.
 //
 // Interface: plain C, loaded with ctypes. Each function launches on the
 // given stream and returns cudaGetLastError() (0 on success),
@@ -102,10 +111,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 64;               // query rows and keys per tile
-constexpr int kWarps = 4;               // 16 rows of a tile per warp
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPad = 8;                 // bf16 padding per shared row
+constexpr int kTile = 64;               // S must be a multiple of this
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -118,223 +124,9 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a b for one m16n8k16 tile: a row-major 16x16, b 16x8 (k-major).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The A operand of one k-step (16 columns = n-tiles 2kk and 2kk+1) from a
-// warp's float32 accumulators of a 16 x 64 product, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&s)[8][4], int kk) {
-  a[0] = pack(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = pack(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-}
-
-// 64 rows of D bf16 from global memory (row stride in elements) into a
-// padded shared tile, 16 bytes a thread per step.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride) {
-  constexpr int kChunks = D / 8;
-  constexpr int kSteps = kTile * kChunks / kThreads;
-#pragma unroll
-  for (int j = 0; j < kSteps; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i / kChunks, c = i % kChunks;
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c * 8) =
-        *reinterpret_cast<const uint4*>(src + r * row_stride + c * 8);
-  }
-}
-
-// A fragments of a warp's 16 rows (rows r0.., all D columns) of a tile.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4],
-                                       const bf16* tile, int r0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldsm4(a[kk], tile + (r0 + (lane & 15)) * (D + kPad) + kk * 16 +
-                     (lane >> 4) * 8);
-  }
-}
-
-// s (16 x 64) = a (16 x D) b^T, b a 64 x D row-major shared tile.
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&s)[8][4],
-                                        const uint32_t (&a)[D / 16][4],
-                                        const bf16* b, int lane) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t r[4];
-      ldsm4(r, b + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * (D + kPad) +
-                   kk * 16 + ((lane >> 3) & 1) * 8);
-      mma(s[2 * np], a[kk], r[0], r[1]);
-      mma(s[2 * np + 1], a[kk], r[2], r[3]);
-    }
-  }
-}
-
-// acc (16 x D) += p (16 x 64, float accumulators) b, b a 64 x D
-// row-major shared tile; p is rounded to bf16.
-template <int D>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4],
-                                       const float (&p)[8][4], const bf16* b,
-                                       int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    acc_to_a(a, p, kk);
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t r[4];
-      ldsm4_t(r, b + (kk * 16 + (lane & 15)) * (D + kPad) + dp * 16 +
-                     (lane >> 4) * 8);
-      mma(acc[2 * dp], a, r[0], r[1]);
-      mma(acc[2 * dp + 1], a, r[2], r[3]);
-    }
-  }
-}
-
-// Write a warp's 16 x D float accumulators times `mul` as bf16 rows
-// row0 and row0 + 8 of a strided (S, D) slab.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* base, long long row_stride,
-                                           int row0,
-                                           const float (&acc)[D / 8][4],
-                                           float mul0, float mul1, int t) {
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    *reinterpret_cast<__nv_bfloat162*>(base + row0 * row_stride + col) =
-        __floats2bfloat162_rn(acc[nd][0] * mul0, acc[nd][1] * mul0);
-    *reinterpret_cast<__nv_bfloat162*>(base + (row0 + 8) * row_stride +
-                                       col) =
-        __floats2bfloat162_rn(acc[nd][2] * mul1, acc[nd][3] * mul1);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        float* __restrict__ delta, bf16* __restrict__ dq,
-                        int S, int H, Strides sq, Strides sk, Strides sv,
-                        Strides so, Strides sdo, Strides sdq, float scale,
-                        float scale_log2) {
-  constexpr int LD = D + kPad;
-  __shared__ __align__(16) bf16 sQ[kTile * LD];
-  __shared__ __align__(16) bf16 sDO[kTile * LD];
-  __shared__ __align__(16) bf16 sK[kTile * LD];
-  __shared__ __align__(16) bf16 sV[kTile * LD];
-  __shared__ float sLse[kTile];
-  __shared__ float sDelta[kTile];
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, n = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * kTile;
-  const int rl = warp * 16 + g;                // local rows rl, rl + 8
-  const int row0 = q0 + rl;
-  const long long stat = ((long long)n * H + h) * S + q0;
-  const bf16* kb = k + n * sk.n + h * sk.h;
-  const bf16* vb = v + n * sv.n + h * sv.h;
-
-  load_tile<D>(sQ, q + n * sq.n + h * sq.h + q0 * sq.s, sq.s);
-  load_tile<D>(sDO, dout + n * sdo.n + h * sdo.h + q0 * sdo.s, sdo.s);
-  load_tile<D>(sK, o + n * so.n + h * so.h + q0 * so.s, so.s);  // o, for delta
-  __syncthreads();
-  {
-    // delta = rowsum(dO * o): two threads a row, half the columns each
-    const int r = threadIdx.x >> 1, c0 = (threadIdx.x & 1) * (D / 2);
-    float sum = 0.0f;
-#pragma unroll 8
-    for (int c = c0; c < c0 + D / 2; ++c) {
-      sum += __bfloat162float(sDO[r * LD + c]) *
-             __bfloat162float(sK[r * LD + c]);
-    }
-    sum += __shfl_xor_sync(kFull, sum, 1);
-    if ((threadIdx.x & 1) == 0) {
-      sDelta[r] = sum;
-      delta[stat + r] = sum;
-      sLse[r] = lse[stat + r] * kLog2e;
-    }
-  }
-  __syncthreads();
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  load_a<D>(qa, sQ, warp * 16, lane);
-  load_a<D>(da, sDO, warp * 16, lane);
-  const float lse0 = sLse[rl], lse1 = sLse[rl + 8];
-  const float del0 = sDelta[rl], del1 = sDelta[rl + 8];
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.0f;
-  }
-  for (int kt = 0; kt <= qt; ++kt) {
-    __syncthreads();
-    load_tile<D>(sK, kb + kt * kTile * sk.s, sk.s);
-    load_tile<D>(sV, vb + kt * kTile * sv.s, sv.s);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_abt<D>(s, qa, sK, lane);
-    mma_abt<D>(dp, da, sV, lane);
-    const bool diag = kt == qt;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lo = e < 2;
-        float p = exp2f(s[nt][e] * scale_log2 - (lo ? lse0 : lse1));
-        if (diag && kt * kTile + nt * 8 + 2 * t + (e & 1) >
-                        row0 + (e >> 1) * 8) {
-          p = 0.0f;
-        }
-        s[nt][e] = p * (dp[nt][e] - (lo ? del0 : del1));   // ds
-      }
-    }
-    mma_pb<D>(acc, s, sK, lane);
-  }
-  store_rows<D>(dq + n * sdq.n + h * sdq.h, sdq.s, row0, acc, scale, scale,
-                t);
 }
 
 constexpr int kHeadDim = 64;                    // the one D compiled
@@ -350,7 +142,7 @@ Strides at(const long long* s, int i) {
 
 // ------------------------------------------------------------------------
 // Hopper: TMA into an mbarrier ring, wgmma, producer and consumer
-// warpgroups (flash_fwd and flash_bwd_dkv).
+// warpgroups.
 
 constexpr int kBlock = 128;       // forward: query rows of a work item and
                                   // keys of a stage; dk/dv: keys of an item
@@ -378,6 +170,15 @@ constexpr uint32_t kDkvStage = 4 * kBlockBytes;
 constexpr uint32_t kDkvStat = kDkvStage + 2 * kStages * kQBlockBytes;
 constexpr uint32_t kDkvBar = kDkvStat + 2 * kStages * kStatBytes;
 constexpr uint32_t kDkvSmem = kDkvBar + 8 * (4 + 2 * kStages) + 1024;
+// dq: two buffers of Q and dO (dO kBlockBytes after Q), one O buffer (read
+// once an item, for delta), kStages stages of K and V, the two buffers'
+// lse, then the barriers q[2], q_empty[2], o, o_empty, full[s], empty[s].
+constexpr uint32_t kDqO = 4 * kBlockBytes;
+constexpr uint32_t kDqK = 5 * kBlockBytes;
+constexpr uint32_t kDqStat = kDqK + 2 * kStages * kBlockBytes;
+constexpr uint32_t kDqBar = kDqStat + 2 * 4 * kBlock;
+constexpr uint32_t kDqSmem = kDqBar + 8 * (6 + 2 * kStages) + 1024;
+static_assert(kDqSmem <= 232448, "dq exceeds an SM's shared memory");
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -430,6 +231,12 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 }
 
 // Bulk copy of contiguous bytes (16-byte aligned) into shared memory.
+// Order this thread's earlier generic-proxy reads of shared memory before
+// later TMA writes into the same bytes (the buffer is then released).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
                                           uint32_t bytes, uint32_t bar) {
   asm volatile(
@@ -843,6 +650,248 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   }
 }
 
+// rowsum(dO o) of rows r and r + 8 of a 128-row dO tile and O tile as TMA
+// wrote them (128-byte rows, 16-byte chunks swizzled by the row mod 8):
+// the four threads of a quad (t) sum 16 columns each, the quad reduces.
+__device__ __forceinline__ float2 row_delta(const uint8_t* dout,
+                                            const uint8_t* o, int r, int t) {
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int off = row * kRowBytes + (((2 * t + k) ^ (row & 7)) << 4);
+      const uint4 a = *reinterpret_cast<const uint4*>(dout + off);
+      const uint4 b = *reinterpret_cast<const uint4*>(o + off);
+      const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 fa = __bfloat1622float2(pa[e]);
+        const float2 fb = __bfloat1622float2(pb[e]);
+        sum[h] = fmaf(fa.x, fb.x, sum[h]);
+        sum[h] = fmaf(fa.y, fb.y, sum[h]);
+      }
+    }
+    sum[h] += __shfl_xor_sync(kFull, sum[h], 1);
+    sum[h] += __shfl_xor_sync(kFull, sum[h], 2);
+  }
+  return make_float2(sum[0], sum[1]);
+}
+
+// dq's elementwise step over one key tile (64 rows x 128 keys a
+// warpgroup), in place: s becomes ds = p (dp - delta), p = exp2(s scale
+// log2e - lse log2e) masked on the diagonal tile (`key0` its first key).
+// ls0, ls1 are the rows' lse times log2e, dl0, dl1 their delta.
+__device__ __forceinline__ void dq_tile(float (&sc)[64], const float (&dp)[64],
+                                        float ls0, float ls1, float dl0,
+                                        float dl1, bool diag, int key0,
+                                        int row0, int t, float scale_log2) {
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool lo = e < 2;
+      float p = fast_exp2(fmaf(sc[4 * c + e], scale_log2, lo ? -ls0 : -ls1));
+      if (diag && key0 + 8 * c + 2 * t + (e & 1) > row0 + (e >> 1) * 8) {
+        p = 0.0f;
+      }
+      sc[4 * c + e] = p * (dp[4 * c + e] - (lo ? dl0 : dl1));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap to,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        float* __restrict__ delta, bf16* __restrict__ dq,
+                        int S, int H, int N, Strides sdq, float scale,
+                        float scale_log2) {
+  extern __shared__ uint8_t smem[];
+  const uint32_t raw = smem_addr(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar0 = base + kDqBar;
+  const int n_qt = (S + kBlock - 1) / kBlock;
+  const int items = n_qt * H * N;
+  // Q of buffer b at base + 2 b kBlockBytes, dO kBlockBytes after it, its
+  // lse at base + kDqStat + b 4 kBlock; O at base + kDqO; stage s: K at
+  // base + kDqK + 2 s kBlockBytes, V kBlockBytes after it; barriers from
+  // bar0: q[2], q_empty[2], o, o_empty, full[s], empty[s]
+  auto sQ = [&](int b) { return base + 2 * b * kBlockBytes; };
+  const uint32_t sO = base + kDqO;
+  auto sK = [&](int s) { return base + kDqK + 2 * s * kBlockBytes; };
+  auto sL = [&](int b) { return base + kDqStat + b * 4 * kBlock; };
+  auto bar_q = [&](int b) { return bar0 + 8 * b; };
+  auto bar_qe = [&](int b) { return bar0 + 8 * (2 + b); };
+  const uint32_t bar_o = bar0 + 8 * 4, bar_oe = bar0 + 8 * 5;
+  auto bar_f = [&](int s) { return bar0 + 8 * (6 + s); };
+  auto bar_e = [&](int s) { return bar0 + 8 * (6 + kStages + s); };
+  auto generic = [&](uint32_t a) { return smem + (a - raw); };
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(bar_q(b), 1);
+      mbar_init(bar_qe(b), kConsumerThreads);
+    }
+    mbar_init(bar_o, 1);
+    mbar_init(bar_oe, kConsumerThreads);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_f(s), 1);
+      mbar_init(bar_e(s), kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {
+    // producer warpgroup: one thread keeps the ring full, across items
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      int jg = 0;                              // K/V tiles loaded so far
+      for (int it = 0; it * (int)gridDim.x < items; ++it) {
+        const int i = item_index(it);
+        if (i >= items) break;
+        const Item w = item_at(i, n_qt - 1, -1, H, N);
+        const int b = it & 1, q0 = w.tile * kBlock;
+        const int rows = S - q0 < kBlock ? S - q0 : kBlock;
+        if (it >= 2) mbar_wait(bar_qe(b), ((it >> 1) - 1) & 1);
+        mbar_expect_tx(bar_q(b), 2 * kBlockBytes + 4 * rows);
+        tma_load(sQ(b), &tq, bar_q(b), 0, w.h, q0, w.n);
+        tma_load(sQ(b) + kBlockBytes, &tdo, bar_q(b), 0, w.h, q0, w.n);
+        bulk_load(sL(b), lse + ((long long)w.n * H + w.h) * S + q0, 4 * rows,
+                  bar_q(b));
+        if (it >= 1) mbar_wait(bar_oe, (it - 1) & 1);
+        mbar_expect_tx(bar_o, kBlockBytes);
+        tma_load(sO, &to, bar_o, 0, w.h, q0, w.n);
+        for (int j = 0; j <= w.tile; ++j, ++jg) {
+          const int s = jg % kStages;
+          if (jg >= kStages) mbar_wait(bar_e(s), (jg / kStages - 1) & 1);
+          mbar_expect_tx(bar_f(s), 2 * kBlockBytes);
+          tma_load(sK(s), &tk, bar_f(s), 0, w.h, j * kBlock, w.n);
+          tma_load(sK(s) + kBlockBytes, &tv, bar_f(s), 0, w.h, j * kBlock,
+                   w.n);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: 64 query rows each, 16 a warp
+  setmaxnreg_inc<240>();
+  const int ct = threadIdx.x - kWg;
+  const int wg = ct / kWg, warp = (ct / 32) % 4, lane = ct % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int rl = wg * 64 + warp * 16 + g;      // row in the tile, and + 8
+  // s = q k^T and dp = dO v^T for 64 rows x 128 keys, all K-major
+  auto issue_s = [&](float (&sc)[64], float (&dp)[64], uint64_t qdesc,
+                     int s) {
+    const uint64_t kdesc = smem_desc(sK(s));
+    const uint64_t ddesc = qdesc + (kBlockBytes >> 4);
+    const uint64_t vdesc = kdesc + (kBlockBytes >> 4);
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+      wgmma_ss_n128(sc, qdesc + kDescK * kk, kdesc + kDescK * kk, kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+      wgmma_ss_n128(dp, ddesc + kDescK * kk, vdesc + kDescK * kk, kk);
+    }
+  };
+  // dq += ds k: ds as bf16 from registers, k MN-major
+  auto issue_dq = [&](float (&acc)[32], const uint32_t (&da)[kBlock / 16][4],
+                      int s) {
+    const uint64_t kdesc = smem_desc(sK(s));
+#pragma unroll
+    for (int kk = 0; kk < kBlock / 16; ++kk) {
+      wgmma_rs_n64(acc, da[kk], kdesc + kDescMN * kk, 1);
+    }
+  };
+
+  float acc[32], sc[64], dp[64];
+  uint32_t da[kBlock / 16][4];
+  int jg = 0;                                  // K/V tiles consumed so far
+  for (int it = 0; it * (int)gridDim.x < items; ++it) {
+    const int i = item_index(it);
+    if (i >= items) break;
+    const Item w = item_at(i, n_qt - 1, -1, H, N);
+    const int b = it & 1, nk = w.tile + 1;     // key tiles to the diagonal
+    const int row0 = w.tile * kBlock + rl;
+    const uint64_t qdesc = smem_desc(sQ(b) + wg * 64 * kRowBytes);
+
+    // delta from this item's dO and O; lse of the rows (0 past S, where
+    // q and dO are zero)
+    mbar_wait(bar_q(b), (it >> 1) & 1);
+    mbar_wait(bar_o, it & 1);
+    const float2 dl = row_delta(generic(sQ(b) + kBlockBytes), generic(sO),
+                                rl, t);
+    fence_proxy_async();
+    mbar_arrive(bar_oe);                       // O is read
+    const float* ls = reinterpret_cast<const float*>(generic(sL(b)));
+    const float ls0 = row0 < S ? ls[rl] * kLog2e : 0.0f;
+    const float ls1 = row0 + 8 < S ? ls[rl + 8] * kLog2e : 0.0f;
+    if (t == 0) {
+      float* db = delta + ((long long)w.n * H + w.h) * S;
+      if (row0 < S) db[row0] = dl.x;
+      if (row0 + 8 < S) db[row0 + 8] = dl.y;
+    }
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[r] = 0.0f;
+
+    int s = jg % kStages;
+    mbar_wait(bar_f(s), (jg / kStages) & 1);
+    wgmma_fence();
+    issue_s(sc, dp, qdesc, s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    if (nk == 1) mbar_arrive(bar_qe(b));       // q and dO read for the last
+    dq_tile(sc, dp, ls0, ls1, dl.x, dl.y, nk == 1, 0, row0, t, scale_log2);
+#pragma unroll
+    for (int kk = 0; kk < kBlock / 16; ++kk) frag_to_a(da[kk], sc, kk);
+
+    // tile j's two score products run on the tensor cores while tile j -
+    // 1's ds k is issued behind them; tile j's elementwise step overlaps
+    // that ds k
+    for (int j = 1; j < nk; ++j) {
+      const int sp = s, jj = jg + j;
+      s = jj % kStages;
+      mbar_wait(bar_f(s), (jj / kStages) & 1);
+      wgmma_fence();
+      issue_s(sc, dp, qdesc, s);
+      wgmma_commit();
+      issue_dq(acc, da, sp);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (j == nk - 1) mbar_arrive(bar_qe(b));
+      dq_tile(sc, dp, ls0, ls1, dl.x, dl.y, j == nk - 1, j * kBlock, row0, t,
+              scale_log2);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(bar_e(sp));                  // k, v of tile j - 1 read
+#pragma unroll
+      for (int kk = 0; kk < kBlock / 16; ++kk) frag_to_a(da[kk], sc, kk);
+    }
+    wgmma_fence();
+    issue_dq(acc, da, s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(bar_e(s));
+    jg += nk;
+
+    store_frag(dq + w.n * sdq.n + w.h * sdq.h, sdq.s, row0, S, acc, scale,
+               scale, t);
+  }
+}
+
 // dk/dv's elementwise step over one query tile (64 keys x 64 queries a
 // warpgroup), in place: s^T becomes p^T = exp2(s^T scale log2e - lse
 // log2e), masked on the diagonal (query < key), and dp^T becomes ds^T =
@@ -1117,6 +1166,17 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int N, int S, int H,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Raise a kernel's dynamic shared-memory limit. Being a runtime call, it
+// also makes the device's primary context current on the calling thread,
+// which the driver's tensor-map encoder needs: PyTorch's autograd runs a
+// backward on a thread of its own, where a kernel wrapper may make the
+// first CUDA call. So it comes before the tensor maps.
+template <typename Kernel>
+cudaError_t bind_and_set_smem(Kernel kernel, uint32_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // CTAs of a persistent kernel: one per SM (the kernels take one SM
 // each), at most one per work item; -1 if the device cannot be queried.
 int persistent_grid(int items) {
@@ -1137,16 +1197,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const long long* strides, float scale,
                          void* stream) {
   if (bad_shape(N, S, H, D)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = bind_and_set_smem(flash_fwd_kernel, kFwdSmem);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, N, S, H, at(strides, 0), kBlock) ||
       !tensor_map(&tk, k, N, S, H, at(strides, 1), kBlock) ||
       !tensor_map(&tv, v, N, S, H, at(strides, 2), kBlock)) {
     return kEncodeFailed;
   }
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kFwdSmem);
-  if (err != cudaSuccess) return (int)err;
   const int grid = persistent_grid((S + kBlock - 1) / kBlock * H * N);
   if (grid < 0) return (int)cudaGetLastError();
   flash_fwd_kernel<<<grid, kWsThreads, kFwdSmem, (cudaStream_t)stream>>>(
@@ -1161,12 +1219,21 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             int S, int H, int D, const long long* strides,
                             float scale, void* stream) {
   if (bad_shape(N, S, H, D)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(S / kTile, H, N);
-  flash_bwd_dq_kernel<kHeadDim><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
-      (const bf16*)dout, lse, delta, (bf16*)dq, S, H, at(strides, 0),
-      at(strides, 1), at(strides, 2), at(strides, 3), at(strides, 4),
-      at(strides, 5), scale, scale * kLog2e);
+  const cudaError_t err = bind_and_set_smem(flash_bwd_dq_kernel, kDqSmem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tq, tk, tv, to, tdo;
+  if (!tensor_map(&tq, q, N, S, H, at(strides, 0), kBlock) ||
+      !tensor_map(&tk, k, N, S, H, at(strides, 1), kBlock) ||
+      !tensor_map(&tv, v, N, S, H, at(strides, 2), kBlock) ||
+      !tensor_map(&to, o, N, S, H, at(strides, 3), kBlock) ||
+      !tensor_map(&tdo, dout, N, S, H, at(strides, 4), kBlock)) {
+    return kEncodeFailed;
+  }
+  const int grid = persistent_grid((S + kBlock - 1) / kBlock * H * N);
+  if (grid < 0) return (int)cudaGetLastError();
+  flash_bwd_dq_kernel<<<grid, kWsThreads, kDqSmem, (cudaStream_t)stream>>>(
+      tq, tk, tv, to, tdo, lse, delta, (bf16*)dq, S, H, N, at(strides, 5),
+      scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -1177,6 +1244,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int S, int H, int D, const long long* strides,
                              float scale, void* stream) {
   if (bad_shape(N, S, H, D)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = bind_and_set_smem(flash_bwd_dkv_kernel, kDkvSmem);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv, tdo;
   if (!tensor_map(&tq, q, N, S, H, at(strides, 0), kQBlock) ||
       !tensor_map(&tk, k, N, S, H, at(strides, 1), kBlock) ||
@@ -1184,10 +1253,6 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
       !tensor_map(&tdo, dout, N, S, H, at(strides, 3), kQBlock)) {
     return kEncodeFailed;
   }
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kDkvSmem);
-  if (err != cudaSuccess) return (int)err;
   const int grid = persistent_grid((S + kBlock - 1) / kBlock * H * N);
   if (grid < 0) return (int)cudaGetLastError();
   flash_bwd_dkv_kernel<<<grid, kWsThreads, kDkvSmem,
@@ -1199,6 +1264,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
 
 extern "C" int flash_head_dim() { return kHeadDim; }
 extern "C" int flash_tile() { return kTile; }
-// Dynamic shared memory of a launch of flash_fwd and of flash_bwd_dkv.
+// Dynamic shared memory of a launch of each kernel.
 extern "C" int flash_fwd_smem_bytes() { return (int)kFwdSmem; }
+extern "C" int flash_bwd_dq_smem_bytes() { return (int)kDqSmem; }
 extern "C" int flash_bwd_dkv_smem_bytes() { return (int)kDkvSmem; }

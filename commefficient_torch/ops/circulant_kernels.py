@@ -119,13 +119,17 @@ def encode(v: torch.Tensor, shifts: torch.Tensor, keys: torch.Tensor,
     _check("v", v, torch.float32, (d,), v.device)
     _check("shifts", shifts, torch.int32, (r, m), v.device)
     _check("keys", keys, torch.int32, (r,), v.device)
+    lib = _lib()
+    if r > lib.circ_max_rows():
+        raise ValueError(f"encode kernel takes r <= {lib.circ_max_rows()}, "
+                         f"got r={r}")
     if table is None:
         out, accumulate = torch.empty((r, c), dtype=torch.float32,
                                       device=v.device), 0
     else:
         _check("table", table, torch.float32, (r, c), v.device)
         out, accumulate = table, 1
-    err = _lib().circ_encode(
+    err = lib.circ_encode(
         v.data_ptr(), d, shifts.data_ptr(), keys.data_ptr(), c, r, m,
         1.0 if scale is None else float(scale), accumulate, out.data_ptr(),
         torch.cuda.current_stream(v.device).cuda_stream)

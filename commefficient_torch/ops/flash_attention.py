@@ -52,7 +52,8 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
             fn.restype = i
         for fn in (lib.flash_head_dim, lib.flash_tile,
-                   lib.flash_fwd_smem_bytes, lib.flash_bwd_dkv_smem_bytes):
+                   lib.flash_fwd_smem_bytes, lib.flash_bwd_dq_smem_bytes,
+                   lib.flash_bwd_dkv_smem_bytes):
             fn.restype = i
             fn.argtypes = []
         lib._typed = True
@@ -184,10 +185,11 @@ def backward_dq(q, k, v, o, lse, do
     N, S, H, D = q.shape
     _check_cuda("flash_bwd_dq", (q, k, v, o, do), (N, S, H, D))
     if lse.dtype != torch.float32 or tuple(lse.shape) != (N, H, S) \
-            or not lse.is_contiguous() or lse.device != q.device:
-        raise ValueError(f"flash_bwd_dq: lse must be contiguous float32 "
-                         f"{(N, H, S)} on {q.device}, got {lse.dtype} "
-                         f"{tuple(lse.shape)} on {lse.device}")
+            or not lse.is_contiguous() or lse.device != q.device \
+            or lse.data_ptr() % 16:
+        raise ValueError(f"flash_bwd_dq: lse must be contiguous, 16-byte "
+                         f"aligned float32 {(N, H, S)} on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
     dq = torch.empty((N, S, H, D), dtype=q.dtype, device=q.device)
     delta = torch.empty((N, H, S), dtype=torch.float32, device=q.device)
     err = _lib().flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),

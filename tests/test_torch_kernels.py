@@ -101,6 +101,41 @@ def test_kernels_match_plain_on_card(cuda, c, r):
     assert torch.equal(dec, kernels.decode_plain(t0, *args, D))
 
 
+# (d, c, r): m = 1 (c = d and c above d), m above and not a multiple of
+# the 128 blocks whose shifts K1 stages at a time (m = 134 and 129), the
+# unaligned c = 500,000 (m = 3), and c = 2,000,000, whose column tiles
+# outnumber the CTAs of K1's persistent grid (a CTA takes a second tile);
+# r = 1, 5 (4 columns a thread) and 8 (2 columns a thread)
+K1_WALKS = [(20_000, 20_000, 5), (20_000, 30_000, 1), (20_000, 150, 5),
+            (20_000, 156, 8), (1_200_000, 500_000, 1),
+            (1_200_000, 500_000, 5), (1_200_000, 500_000, 8),
+            (4_000_000, 2_000_000, 5), (4_000_000, 2_000_000, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,c,r", K1_WALKS)
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_encode_walk_is_bitwise_on_card(cuda, d, c, r, accumulate):
+    """K1 walks the blocks in ascending order for every cell, whatever the
+    number of blocks, rows and column tiles: bitwise equal to its plain
+    version, fresh and accumulating into a table."""
+    ts = make_circulant_sketch(d, c, r, device=cuda)
+    rng = np.random.RandomState(d + c + r)
+    v = torch.from_numpy(rng.randn(d).astype(np.float32)).to(cuda)
+    t0 = torch.from_numpy(rng.randn(r, c).astype(np.float32)).to(cuda)
+    args = (ts.shifts, ts.sign_keys, c, r, ts.m)
+    kernels.reset_launches()
+    if accumulate:
+        got = kernels.encode(v, *args, scale=0.37, table=t0.clone())
+        want = kernels.encode_plain(v, *args, scale=0.37, table=t0)
+    else:
+        got = kernels.encode(v, *args)
+        want = kernels.encode_plain(v, *args)
+    torch.cuda.synchronize()
+    assert kernels.launches["circ_encode"] == 1
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_inputs(cuda):
     ts = make_circulant_sketch(D, 4000, 5, device=cuda)
@@ -110,10 +145,130 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
         kernels.encode(v.double(), *args)
     with pytest.raises(ValueError, match="table"):
         kernels.encode(v, *args, table=t0[:, :100])
+    ts9 = make_circulant_sketch(D, 4000, 9, device=cuda)
     with pytest.raises(ValueError, match="r <= 8"):
-        ts9 = make_circulant_sketch(D, 4000, 9, device=cuda)
         kernels.decode(torch.zeros(9, 4000, device=cuda), ts9.shifts,
                        ts9.sign_keys, 4000, 9, ts9.m, D)
+    with pytest.raises(ValueError, match="r <= 8"):
+        kernels.encode(v, ts9.shifts, ts9.sign_keys, 4000, 9, ts9.m)
+
+
+def test_sign_hash_instructions_compute_the_sign_stream():
+    """The instructions that K1's and K2's bound counts for a term's sign
+    (chip_smoke.SIGN_HASH) compute the port's sign stream, bit for bit,
+    over the whole uint32 range of coordinates and keys."""
+    from commefficient_torch.ops.hashing import signs
+    rng = np.random.RandomState(7)
+    x = rng.randint(0, 2**32, 4096, dtype=np.uint64)
+    value = rng.randn(4096).astype(np.float32)
+    for key in rng.randint(0, 2**32, 8, dtype=np.uint64):
+        want = signs(torch.from_numpy(x.astype(np.int64)), int(key))
+        got = chip_smoke.sign_hash(x, int(key), value)
+        assert np.array_equal(got, value * want.numpy())
+
+
+@pytest.mark.parametrize("left_out", range(len(chip_smoke.SIGN_HASH)))
+def test_each_sign_hash_instruction_is_needed(left_out):
+    """No instruction counted for a term's sign can be left out: without
+    any one of them some signs change."""
+    rng = np.random.RandomState(8)
+    x = rng.randint(0, 2**32, 4096, dtype=np.uint64)
+    value = np.ones(4096, np.float32)
+    ops = chip_smoke.SIGN_HASH
+    fewer = ops[:left_out] + ops[left_out + 1:]
+    key = 0x2545F491
+    assert not np.array_equal(chip_smoke.sign_hash(x, key, value, fewer),
+                              chip_smoke.sign_hash(x, key, value, ops))
+
+
+@pytest.mark.parametrize("shape,m,kind", [
+    ((6_568_640, 500_736, 5), 14, "bytes"),
+    ((92_138_496, 524_288, 5), 176, "instruction issue")])
+def test_sketch_bound_counts_integer_issue(shape, m, kind):
+    """K1's and K2's bound in chip_smoke.py counts what every (row,
+    coordinate) term needs by pipe: the sign's instructions of SIGN_HASH
+    (5 ALU, 2 IMAD, 1 on either pipe) and one index step (either), plus
+    the term's share of loads, stores and float adds. At m = 176 the 128
+    instructions an SM issues a clock bound both kernels, above the bytes
+    and above the ALU's own 64 lanes; at m = 14 the bytes do."""
+    d, c, r = shape
+    assert -(-d // c) == m
+    per_clock = chip_smoke.H100_SMS * chip_smoke.H100_CLOCK_HZ
+    assert 256 * per_clock == pytest.approx(67e12)
+    need = chip_smoke.term_instructions(0)
+    assert (need["alu"], need["imad"], need["either"]) == (5, 2, 2)
+    for name, other in (("circ_encode", 1 + 2 / r),
+                        ("circ_decode", 1 + 1 / r)):
+        nbytes, ops, instr = chip_smoke.sketch_work(d, c, r)[name]
+        assert instr == pytest.approx(
+            {p: n * r * d for p, n in
+             chip_smoke.term_instructions(other).items()})
+        ms, got = chip_smoke.bound(nbytes, ops, chip_smoke.H100_FP32_PER_S,
+                                   instr)
+        assert got == kind, name
+        issue_ms = 1e3 * (9 + other) * r * d / (128 * per_clock)
+        assert ms == pytest.approx(max(
+            issue_ms, 1e3 * nbytes / chip_smoke.H100_BYTES_PER_S))
+        assert issue_ms > 1e3 * 5 * r * d / (64 * per_clock)
+
+
+def test_bound_names_what_bounds_it():
+    """The bound is the largest of bytes, float operations and, where
+    instructions are given, the ALU's, the IMAD pipe's and the issue's
+    time, named by kind; the kernel line's bound_by folds every kind but
+    bytes into "operations"."""
+    fp32, bf16 = chip_smoke.H100_FP32_PER_S, chip_smoke.H100_BF16_PER_S
+    per_clock = chip_smoke.H100_SMS * chip_smoke.H100_CLOCK_HZ
+    assert chip_smoke.bound(3.35e9, 1e9, bf16) == pytest.approx(
+        (1.0, "bytes"))
+    assert chip_smoke.bound(1e6, 989e9, bf16) == pytest.approx(
+        (1.0, "bf16 operations"))
+    assert chip_smoke.bound(1e6, 67e9, fp32)[1] == "fp32 operations"
+    alu = {"alu": 64 * per_clock, "imad": 0, "either": 0, "other": 0}
+    assert chip_smoke.bound(1e6, 1e6, fp32, alu) == pytest.approx(
+        (1e3, "ALU issue"))
+    imad = {"alu": 0, "imad": 64 * per_clock, "either": 0, "other": 0}
+    assert chip_smoke.bound(1e6, 1e6, fp32, imad)[1] == "IMAD issue"
+    spread = {"alu": 0, "imad": 0, "either": 64 * per_clock,
+              "other": 64 * per_clock}
+    assert chip_smoke.bound(1e6, 1e6, fp32, spread) == pytest.approx(
+        (1e3, "instruction issue"))
+    assert [chip_smoke.bound_by(k) for k in ("bytes", "ALU issue")] == [
+        "bytes", "operations"]
+
+
+# a SASS excerpt in cuobjdump's layout: a loop of two sign hashes
+# (0x85ebca6b printed as -0x7a143595) behind a branch
+_SASS = """\
+        /*0000*/                   ISETP.GE.AND P0, PT, R0, R1, PT ;  /* 0x0 */
+                                                                      /* 0x0 */
+        /*0010*/               @P0 BRA 0x90 ;                         /* 0x0 */
+        /*0020*/                   IMAD R2, R3, R4, -0x61c88647 ;     /* 0x0 */
+        /*0030*/                   SHF.R.U32.HI R5, RZ, 0x10, R2 ;    /* 0x0 */
+        /*0040*/                   LOP3.LUT R2, R5, R2, RZ, 0x3c, !PT ;
+        /*0050*/                   IMAD R2, R2, -0x7a143595, RZ ;     /* 0x0 */
+        /*0060*/                   IMAD R6, R6, -0x7a143595, RZ ;     /* 0x0 */
+        /*0070*/                   LDG.E.CONSTANT R7, desc[UR8][R8.64] ;
+        /*0080*/                   FADD R9, R9, R7 ;                  /* 0x0 */
+        /*0090*/                   IADD3 R0, R0, 0x1, RZ ;            /* 0x0 */
+        /*00a0*/              @!P0 BRA 0x20 ;                         /* 0x0 */
+        /*00b0*/                   EXIT ;                             /* 0x0 */
+"""
+
+
+def test_sass_reading_splits_blocks_and_counts_by_pipe():
+    """chip_smoke's SASS reading: blocks end at each branch and start at
+    each branch target; the block with the most hashes is counted by pipe
+    per hash."""
+    lines = _SASS.splitlines()
+    blocks = chip_smoke.sass_blocks(lines)
+    assert [[op.split(".")[0] for op, _ in b] for b in blocks] == [
+        ["ISETP", "BRA"], ["IMAD", "SHF", "LOP3", "IMAD", "IMAD", "LDG",
+                           "FADD"], ["IADD3", "BRA"], ["EXIT"]]
+    per, hashes = chip_smoke.sass_per_term(lines)
+    assert hashes == 2
+    assert per == {"alu": 1.0, "imad": 1.5, "fp32": 0.5, "memory": 0.5,
+                   "other": 0.0}
 
 
 # ------------------------------------------------------------------ K3
@@ -250,16 +405,18 @@ def test_flash_kernels_match_plain_on_card(cuda, N, S, H):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,S,H", [(2, 192, 3), (12, 128, 12)])
 def test_flash_redesigned_kernels_are_deterministic_on_card(cuda, N, S, H):
-    """The forward and dk/dv kernels write each output element once, with
-    no atomics: two calls give the same bits."""
+    """The forward, dq and dk/dv kernels write each output element once,
+    with no atomics: two calls give the same bits, delta included."""
     q, k, v, do = _qkv(N, S, H, device=cuda)
     o, lse = flash.forward(q, k, v)
-    _, delta = flash.backward_dq(q, k, v, o, lse, do)
+    dq, delta = flash.backward_dq(q, k, v, o, lse, do)
     dk, dv = flash.backward_dkv(q, k, v, do, lse, delta)
     o2, lse2 = flash.forward(q, k, v)
+    dq2, delta2 = flash.backward_dq(q, k, v, o, lse, do)
     dk2, dv2 = flash.backward_dkv(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
-    for a, b in ((o, o2), (lse, lse2), (dk, dk2), (dv, dv2)):
+    for a, b in ((o, o2), (lse, lse2), (dq, dq2), (delta, delta2),
+                 (dk, dk2), (dv, dv2)):
         assert torch.equal(a, b)
 
 
