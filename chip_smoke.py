@@ -14,16 +14,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    -sass``): all three K3 kernels must hold both; count by pipe the
    instructions K1 and K2 issue per (row, coordinate) term at r = 5, in
    the SASS block that holds the most sign hashes, beside what a term
-   needs (SIGN_HASH and one index step);
+   needs (SIGN_HASH, K1's index step, K2's share of its median network
+   MEDIAN_NETS); K2 must call no subroutine and issue fewer than
+   K2_BUBBLE_SASS_PER_TERM a term;
 2. hold K1 (circulant encode) and K2 (circulant decode) against their
    plain PyTorch versions on the card at the ResNet-9 shapes
    (d = 6,568,640, c = 500,736, r = 5; seeded inputs; shifts from
    ``make_circulant_sketch``), at the unaligned c = 500,000, and at the
-   GPT-2 shape (d = 92,138,496, c = 524,288, r = 5, m = 176), bitwise,
-   fresh and accumulating; time kernel and plain version with CUDA events
-   (median of 25 after warm-up) beside each kernel's bound, the largest
-   of its bytes, float operations and the instructions a term needs
-   (``bound``) over the card's rates;
+   GPT-2 shape (d = 92,138,496, c = 524,288, r = 5, m = 176), bitwise
+   (int32 views, ``same_bits``), fresh and accumulating, K2 also on a
+   table with zeroed cells, -0 and NaN (``zeroed_table``); time kernel
+   and plain version with CUDA events (median of 25 after warm-up)
+   beside each kernel's bound, the largest of its bytes, float
+   operations and the instructions a term needs (``bound``) over the
+   card's rates, and print two measured floors of the L2 read rate
+   outside the bound: a PyTorch reduction's (``l2_read_rate``) and that
+   of the kernels' own r gathers;
 3. hold K3 (causal flash attention: forward, dq, dk/dv) against its plain
    versions at (N, H, S, D) = (8, 12, 1024, 64) and (8, 12, 256, 64), q,
    k, v the slices of one c_attn-shaped buffer, each output row against
@@ -94,8 +100,51 @@ SIGN_HASH = (("mad", 0x9E3779B9, "either"), ("shr", 16, "alu"),
              ("xor", None, "alu"), ("mul", 0x85EBCA6B, "imad"),
              ("shr", 13, "alu"), ("xor", None, "alu"),
              ("mul", 0xC2B2AE35, "imad"), ("sign", None, "alu"))
-# besides the hash, a term needs one index step (an add, either pipe)
+# besides the hash, a term of K1 needs one index step (an add, either
+# pipe); K2 reads its r cells of a tile through row pointers and needs none
 INDEX_STEP = "either"
+# K2's median of the r signed estimates of a coordinate, as min/max
+# operations: ("min" or "max", a, b) appends min or max of values a and b
+# to the values 0 .. r - 1 (the estimates); the median is the last value
+# for odd r, the mean of the last two for even r (the two middle values,
+# in either order). Each min and max returns a NaN operand and orders -0
+# below +0, as jnp.minimum / jnp.maximum do: one FMNMX on the card's ALU
+# pipe. ``median_net`` evaluates a network; the tests hold each, bit for
+# bit, to the JAX package's median_axis0, show that none of its operations
+# can go, and that csrc/circulant.cu MedianNet holds the same lists.
+MEDIAN_NETS = {
+    1: (),
+    2: (),
+    3: (("min", 0, 1), ("max", 0, 1), ("min", 4, 2), ("max", 3, 5)),
+    4: (("min", 0, 1), ("max", 0, 1), ("min", 2, 3), ("max", 2, 3),
+        ("max", 4, 6), ("min", 5, 7)),
+    5: (("min", 0, 1), ("max", 0, 1), ("min", 2, 3), ("max", 2, 3),
+        ("max", 5, 7), ("min", 6, 8), ("min", 4, 9), ("max", 4, 9),
+        ("min", 12, 10), ("max", 11, 13)),
+    6: (("min", 1, 4), ("max", 1, 4), ("min", 0, 2), ("max", 0, 2),
+        ("min", 9, 5), ("max", 9, 5), ("min", 8, 3), ("max", 8, 3),
+        ("min", 10, 7), ("max", 10, 7), ("max", 12, 6), ("min", 16, 13),
+        ("max", 16, 13), ("min", 18, 11), ("max", 17, 14),
+        ("min", 19, 15)),
+    7: (("min", 2, 6), ("max", 2, 6), ("min", 0, 7), ("max", 0, 7),
+        ("min", 10, 5), ("max", 10, 5), ("min", 1, 8), ("max", 1, 8),
+        ("min", 12, 14), ("min", 13, 4), ("max", 13, 4), ("min", 3, 17),
+        ("max", 3, 17), ("min", 19, 15), ("max", 9, 18), ("max", 16, 11),
+        ("min", 22, 21), ("max", 22, 21), ("min", 24, 20),
+        ("max", 23, 25)),
+    8: (("min", 0, 1), ("max", 0, 1), ("min", 2, 3), ("max", 2, 3),
+        ("min", 4, 5), ("max", 4, 5), ("min", 6, 7), ("max", 6, 7),
+        ("min", 8, 10), ("max", 8, 10), ("min", 9, 11), ("max", 9, 11),
+        ("min", 12, 14), ("max", 12, 14), ("min", 13, 15), ("max", 13, 15),
+        ("min", 18, 17), ("max", 18, 17), ("min", 22, 21), ("max", 22, 21),
+        ("max", 16, 20), ("max", 24, 26), ("min", 25, 27), ("min", 19, 23),
+        ("min", 31, 29), ("max", 30, 28)),
+}
+# what K2's earlier design (one thread per coordinate, a 64-bit division
+# per coordinate, the bubble network of NaN-aware min/max) issued per term
+# at r = 5, read by phase_sketch_sass on an NVIDIA H100 80GB HBM3; the
+# decode must issue fewer
+K2_BUBBLE_SASS_PER_TERM = 34.20
 # the pipe of each SASS opcode the circulant kernels issue (by its name
 # before the first dot); any other counts only as an issued instruction
 SASS_PIPE = {**dict.fromkeys(("IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA",
@@ -217,9 +266,11 @@ def cuobjdump(flag: str, source: str):
 def phase_sketch_sass():
     """Instructions by pipe per (row, coordinate) term that K1 and K2
     issue at r = 5, read from the circulant library's SASS
-    (``sass_per_term``), beside what a term needs (``term_instructions``).
-    Fails if the block is not found or if a kernel issues fewer integer
-    instructions a term than the count of what a term needs."""
+    (``sass_per_term``), beside what a term needs (``term_instructions``,
+    ``decode_term_instructions``). Fails if the block is not found, if a
+    kernel issues fewer integer instructions a term than the count of what
+    a term needs, if K2 calls a subroutine (a 64-bit division would) or if
+    it issues K2_BUBBLE_SASS_PER_TERM or more a term."""
     from commefficient_torch.ops import circulant_kernels as K
     funcs, name = {}, None
     for line in cuobjdump("-sass", K.SOURCE):
@@ -230,21 +281,32 @@ def phase_sketch_sass():
                 funcs[name] = []
         elif name is not None:
             funcs[name].append(line)
-    need = term_instructions(0)
-    need_int = need["alu"] + need["imad"] + need["either"]
+    needs = {"circ_encode": term_instructions(0),
+             "circ_decode": decode_term_instructions(5)}
     out = {}
-    for name in ("circ_encode", "circ_decode"):
+    for name, need in needs.items():
+        need_int = need["alu"] + need["imad"] + need["either"]
         per, hashes = sass_per_term(funcs.get(name, []))
+        calls = sum(" CALL" in line for line in funcs.get(name, []))
+        issued = sum(per.values())
         print(f"[sass] {name} (r = 5): per term, in the block of "
               f"{hashes} hashes: " + ", ".join(f"{n:.2f} {p}" for p, n in
                                                per.items())
-              + f" = {sum(per.values()):.2f} issued; a term needs "
-              f"{need_int} integer ({need['alu']} ALU, {need['imad']} "
-              f"IMAD, {need['either']} either)", flush=True)
+              + f" = {issued:.2f} issued; a term needs {need_int:.2f} "
+              f"integer ({need['alu']:.2f} ALU, {need['imad']} IMAD, "
+              f"{need['either']} either); {calls} CALL in the function",
+              flush=True)
         if hashes == 0 or per["alu"] + per["imad"] < need_int:
             fail(f"{name}: no hash block in the SASS, or fewer integer "
                  f"instructions a term than counted as needed: {per}")
-        out[name] = {"hashes_in_block": hashes, **per}
+        if name == "circ_decode":
+            print(f"[sass] circ_decode issues {issued:.2f} a term; the "
+                  f"one-thread-per-coordinate design issued "
+                  f"{K2_BUBBLE_SASS_PER_TERM:.2f}", flush=True)
+            if calls or issued >= K2_BUBBLE_SASS_PER_TERM:
+                fail(f"circ_decode: {calls} CALL, {issued:.2f} "
+                     "instructions a term")
+        out[name] = {"hashes_in_block": hashes, "calls": calls, **per}
     return out
 
 
@@ -341,14 +403,40 @@ def sign_hash(x, key: int, value, ops=SIGN_HASH):
     return out.view(np.float32)
 
 
-def term_instructions(other: float):
+def median_net(x, ops):
+    """The median over the leading axis of ``x`` ((r, ...) float32) by
+    the operations ``ops`` of a MEDIAN_NETS entry, each min and max under
+    the rule of jnp.minimum / jnp.maximum (a NaN operand is returned,
+    -0 < +0)."""
+    import numpy as np
+    v = list(np.asarray(x, np.float32))
+    r = len(v)
+    for op, a, b in ops:
+        p, q = v[a], v[b]
+        order = p < q if op == "min" else p > q
+        tie = (p == q) & (np.signbit(p) == (op == "min"))
+        v.append(np.where(np.isnan(p) | order | tie, p, q))
+    return v[-1] if r % 2 else np.float32(0.5) * (v[-2] + v[-1])
+
+
+def term_instructions(other: float, index_step: bool = True):
     """Instructions one (row, coordinate) term needs by pipe: the sign
-    hash and sign of SIGN_HASH, one index step, and ``other``, the term's
-    share of the loads, stores and float operations."""
+    hash and sign of SIGN_HASH, one index step unless ``index_step`` is
+    False, and ``other``, the term's share of the loads, stores and float
+    operations."""
     out = {"alu": 0, "imad": 0, "either": 0, "other": other}
     for _, _, pipe in SIGN_HASH:
         out[pipe] += 1
-    out[INDEX_STEP] += 1
+    out[INDEX_STEP] += index_step
+    return out
+
+
+def decode_term_instructions(r: int):
+    """What a term of K2 needs by pipe: SIGN_HASH, its share of a load and
+    a store, and its share (1/r) of the coordinate's median network on the
+    ALU; no index step."""
+    out = term_instructions(1 + 1 / r, index_step=False)
+    out["alu"] += len(MEDIAN_NETS[r]) / r
     return out
 
 
@@ -358,15 +446,16 @@ def sketch_work(d: int, c: int, r: int):
     do: every input read once, every output written once. K1: per
     coordinate below d a load of v and the scale multiply, per (row,
     coordinate) a term and an add. K2: per (row, coordinate) a term and a
-    load of a table cell, per coordinate a store and the r(r-1) min/max of
-    the median (counted as float operations only)."""
+    load of a table cell, per coordinate a store, the median network
+    (``decode_term_instructions``) and, for even r, the mean's add and
+    multiply."""
     terms = r * d
     return {"circ_encode": (4 * d + 2 * 4 * r * c, terms + d,
                             {p: n * terms for p, n in
                              term_instructions(1 + 2 / r).items()}),
-            "circ_decode": (4 * r * c + 4 * d, r * (r - 1) * d,
+            "circ_decode": (4 * r * c + 4 * d, (1 - r % 2) * 2 * d,
                             {p: n * terms for p, n in
-                             term_instructions(1 + 1 / r).items()})}
+                             decode_term_instructions(r).items()})}
 
 
 def sass_blocks(lines):
@@ -400,10 +489,11 @@ def sass_blocks(lines):
 
 def sass_per_term(lines):
     """Instructions by pipe per sign hash in the basic block that holds
-    the most hashes (K1: one block of the walk; K2: the gathers, hashes
-    and median of a coordinate), and that block's hash count."""
+    the most hashes, the shortest of them on a tie (K1: one block of the
+    walk; K2: a tile that holds no seam), and that block's hash count."""
     block = max(sass_blocks(lines),
-                key=lambda b: sum(SASS_HASH_MARK in t for _, t in b))
+                key=lambda b: (sum(SASS_HASH_MARK in t for _, t in b),
+                               -len(b)))
     hashes = sum(SASS_HASH_MARK in t for _, t in block)
     out = dict.fromkeys(("alu", "imad", "fp32", "memory", "other"), 0)
     for op, _ in block:
@@ -463,9 +553,48 @@ def attention_skipping(q, k, v, drop, do=None, lse=None, delta=None):
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two float32 tensors (int32 views: -0 differs
+    from +0), NaN counted by position only: the card's float units return
+    one canonical NaN, where a sign xor keeps a NaN's payload."""
+    import torch
+    nan = torch.tensor(float("nan"), device=a.device)
+    a = torch.where(torch.isnan(a), nan, a)
+    b = torch.where(torch.isnan(b), nan, b)
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def zeroed_table(r: int, c: int, seed: int):
+    """A seeded (r, c) table as the server's zero rule leaves one: about
+    half its cells 0, some -0, and a few NaN (numpy, on the CPU)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    table = rng.randn(r, c).astype(np.float32)
+    table[rng.rand(r, c) < 0.5] = 0.0
+    table[rng.rand(r, c) < 0.05] = -0.0
+    table[rng.rand(r, c) < 0.002] = np.nan
+    return table
+
+
+def l2_read_rate(nbytes: int = 4 * 5 * 524_288, passes: int = 64):
+    """(TB/s, ms) of ``torch.sum`` over ``passes`` reads of one float32
+    buffer of ``nbytes`` that stays in the 50 MB L2 (a stride-0 view
+    repeats it): the rate at which a PyTorch reduction reads from L2. It
+    is a floor of what L2 can deliver, not its ceiling; the sketch
+    kernels' own gather rates are printed beside it."""
+    import torch
+    buf = torch.randn(nbytes // 4, device="cuda")
+    view = buf.expand(passes, buf.numel())
+    ms = time_ms(lambda: view.sum())
+    return passes * nbytes / (ms * 1e-3) / 1e12, ms
+
+
 def phase_kernels(shape: dict, cols_list, scale: float, plain_n: int = 20):
     """K1 and K2 against their plain versions at (d, r) of ``shape`` and
-    each c of ``cols_list``, and their timings at ``shape['c']``."""
+    each c of ``cols_list``, bitwise (``same_bits``), K2 also on a table
+    with zeroed cells, signed zeros and NaN (``zeroed_table``), and their
+    timings at ``shape['c']`` beside their bounds and the L2 read rates
+    of ``torch.sum`` and of their r gathers."""
     import numpy as np
     import torch
     from commefficient_torch.ops import circulant_kernels as K
@@ -490,23 +619,33 @@ def phase_kernels(shape: dict, cols_list, scale: float, plain_n: int = 20):
         fresh_p = K.encode_plain(v, *args)
         dec_k = K.decode(tab, *args, d)
         dec_p = K.decode_plain(tab, *args, d)
+        zt = torch.from_numpy(zeroed_table(r, cols, seed=cols)).to(dev)
+        zdec_k = K.decode(zt, *args, d)
+        zdec_p = K.decode_plain(zt, *args, d)
         torch.cuda.synchronize()
         if not torch.isfinite(enc_k).all() or dec_k.shape != (d,):
             fail(f"c={cols}: kernel output not finite or misshapen")
         e1 = max(float((enc_k - enc_p).abs().max()),
                  float((fresh_k - fresh_p).abs().max()))
         e2 = float((dec_k - dec_p).abs().max())
-        k1_bitwise = torch.equal(enc_k, enc_p) and torch.equal(fresh_k,
-                                                               fresh_p)
+        k1_bitwise = same_bits(enc_k, enc_p) and same_bits(fresh_k, fresh_p)
+        k2_bitwise = same_bits(dec_k, dec_p)
+        k2_zeroed = same_bits(zdec_k, zdec_p)
+        zeros = int((zdec_p == 0).sum())
+        neg = int(((zdec_p == 0) & torch.signbit(zdec_p)).sum())
+        nans = int(torch.isnan(zdec_p).sum())
         print(f"[kernels] c={cols} m={m}: K1 max|diff| {e1} "
               f"(bitwise {k1_bitwise}), K2 max|diff| {e2} "
-              f"(bitwise {torch.equal(dec_k, dec_p)})", flush=True)
+              f"(bitwise {k2_bitwise}); K2 on a zeroed table ({zeros} "
+              f"zero estimates, {neg} of them -0, {nans} NaN): bitwise "
+              f"{k2_zeroed}", flush=True)
         if not k1_bitwise:
             fail(f"K1 is not bitwise equal to its plain version at "
                  f"c={cols}: {e1}")
-        if not torch.equal(dec_k, dec_p):
+        if not (k2_bitwise and k2_zeroed):
             fail(f"K2 is not bitwise equal to its plain version at "
-                 f"c={cols}: {e2}")
+                 f"c={cols}: randn {k2_bitwise}, zeroed {k2_zeroed}")
+        del zt, zdec_k, zdec_p
         if cols == c:
             results["err"] = (e1, e2)
             results["args"] = args
@@ -520,6 +659,16 @@ def phase_kernels(shape: dict, cols_list, scale: float, plain_n: int = 20):
         n=plain_n)
     dec_ms = time_ms(lambda: K.decode(t0, *args, d))
     dec_plain_ms = time_ms(lambda: K.decode_plain(t0, *args, d), n=plain_n)
+    l2_tb_s, l2_ms = l2_read_rate()
+    gathers = 4 * r * d
+    rates = {"circ_encode": gathers / (enc_ms * 1e-3) / 1e12,
+             "circ_decode": gathers / (dec_ms * 1e-3) / 1e12}
+    print(f"[kernels] L2 reads: torch.sum over 64 reads of a 10.5 MB "
+          f"buffer that L2 holds {l2_tb_s:.3f} TB/s ({l2_ms:.4f} ms); the "
+          f"r gathers of a call (r 4 d = {gathers / 1e9:.3f} GB, L2 hits) "
+          f"ran at {rates['circ_encode']:.3f} TB/s in K1 and "
+          f"{rates['circ_decode']:.3f} TB/s in K2: measured floors of the "
+          f"L2 read rate, outside the bound", flush=True)
 
     bounds = {}
     for name, (nbytes, ops, instr) in sketch_work(d, c, r).items():
@@ -541,12 +690,14 @@ def phase_kernels(shape: dict, cols_list, scale: float, plain_n: int = 20):
                         "plain_ms": enc_plain_ms,
                         "bound_ms": bounds["circ_encode"][0],
                         "bound_by": bound_by(bounds["circ_encode"][1]),
-                        "library_ms": None},
+                        "library_ms": None, "l2_sum_tb_s": l2_tb_s,
+                        "gather_tb_s": rates["circ_encode"]},
         "circ_decode": {"max_abs_err": e2, "ms": dec_ms, "kernel_ms": dec_ms,
                         "plain_ms": dec_plain_ms,
                         "bound_ms": bounds["circ_decode"][0],
                         "bound_by": bound_by(bounds["circ_decode"][1]),
-                        "library_ms": None},
+                        "library_ms": None, "l2_sum_tb_s": l2_tb_s,
+                        "gather_tb_s": rates["circ_decode"]},
     }
 
 

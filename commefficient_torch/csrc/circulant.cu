@@ -16,8 +16,9 @@
 //
 // with sigma_j(x) = +1 or -1 from the top bit of
 // fmix32(x * key_j + 0x9E3779B9) (murmur3 finalizer, uint32 arithmetic).
-// The median is the bubble comparator network of ops/topk.py
-// median_axis0, the mean of the two middle values for even r.
+// The median is that of ops/topk.py median_axis0, the mean of the two
+// middle values for even r, under min/max that return a NaN operand and
+// order -0 below +0 (jnp.minimum / jnp.maximum).
 //
 // Design. The Pallas kernels' wrap padding and 1024-aligned spans exist
 // only to avoid TPU lane rotates; none of that is carried over. Any shift
@@ -29,15 +30,19 @@
 // pipe; the finalizer's last h ^= h >> 16 cannot change bit 31 and is
 // left out) and one index step, with its share of the loads and float
 // adds: 10.4 instructions at r = 5 (chip_smoke.py SIGN_HASH and
-// sketch_work). An SM issues 128 instructions a clock, 64 of them on the
-// ALU and 64 on the IMAD pipe, at the clock of the data sheet's 67 TFLOP/s
-// float32. At the GPT-2 shape (d = 92,138,496, c = 524,288, m = 176)
-// issue bounds both, 0.143 ms for K1 and 0.140 ms for K2, above the bytes
-// (0.116 and 0.113 ms); at the ResNet-9 shape (d = 6,568,640, c = 500,736,
-// m = 14) the bytes do: 0.0138 and 0.0108 ms. Both kernels issue more than
-// that (chip_smoke.py reads their SASS): a term of K1's walk about 15, 8 on
-// the ALU (the shifted column's wrap test, select and add, the address);
-// K2 about 34, 20 on the ALU, most in the NaN-propagating median network.
+// sketch_work). K2 needs no index step, but a coordinate's median network
+// (MedianNet below: 10 min/max at r = 5, one FMNMX each on the ALU), 2 a
+// term: 7 ALU instructions a term. An SM issues 128 instructions a clock,
+// 64 of them on the ALU and 64 on the IMAD pipe, at the clock of the data
+// sheet's 67 TFLOP/s float32. At the GPT-2 shape (d = 92,138,496,
+// c = 524,288, m = 176) issue bounds K1 at 0.143 ms, above its bytes
+// (0.116 ms), and the ALU K2 at 0.193 ms (bytes 0.113); at the ResNet-9
+// shape (d = 6,568,640, c = 500,736, m = 14) the bytes bound K1, 0.0138 ms,
+// and the ALU K2, 0.0137 ms (bytes 0.0108). chip_smoke.py reads what the
+// kernels issue from their SASS: a term of K1's walk about 15, 8 on the
+// ALU (the shifted column's wrap test, select and add, the address). Both
+// kernels gather r 4 d bytes from L2 (1.84 GB at the GPT-2 shape), a
+// ceiling that chip_smoke.py prints at a measured L2 read rate.
 //
 // K1: a persistent grid of 256-thread CTAs, as many as fit on the card at
 // once (4 an SM). A CTA owns a tile of output columns for all r rows (4
@@ -58,17 +63,31 @@
 // accumulate flag and the scale fold the fused client step's
 // per-microbatch weighting into the launch.
 //
-// K2: one thread per output coordinate x < d. It gathers r table cells,
-// applies the signs and takes the median in registers (the network is
-// unrolled for a compile-time r). The 10 MB table stays in the 50 MB L2.
-// Bytes: 4 r c read + 4 d written = 36.3 MB at the ResNet-9 shape.
+// K2: a CTA of 256 threads owns one work item, a tile of 2,048 columns
+// (1,024 for r > 5) of one block b: grid x the tile, grid y the block (y
+// loops past 65,535 blocks). It loads the r shifts s[j, b] and keys once,
+// so a coordinate costs no division and no 64-bit index arithmetic (x =
+// b c + i stays in uint32). A thread owns 8 coordinates (4 for r > 5),
+// strided by 256, and issues all their r gathers before it uses one: row
+// j of the tile is the run table[j, (i0 + s[j, b]) mod c ...], which wraps
+// at most once; a tile whose runs do not wrap and that ends before c and
+// before d reads through row pointers with constant offsets and stores
+// without a test, the few others wrap and test each coordinate. The hash
+// input x key + C advances by 256 key from one of a thread's coordinates
+// to the next (one add), and the median is the network MedianNet<r>, one
+// min.NaN / max.NaN each. Neighbouring threads gather neighbouring cells
+// and store neighbouring coordinates. The 10.5 MB table stays in the 50
+// MB L2. Bytes: 4 r c read + 4 d written = 36.3 MB at the ResNet-9 shape.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at a 700 W limit (chip_smoke.py,
 // r = 5): K1 0.043 ms at m = 14 and 0.474 ms at m = 176 (32% and 30% of
-// the bound); K2 0.057 and 0.760 ms (19% and 18%). ptxas (nvcc -Xptxas -v,
-// sm_90a): the encode 63-64 registers for r >= 3 (55 at r = 2, 40 at
-// r = 1) and 512 r bytes of shared memory, the decode 16-28 registers; no
-// spills.
+// the bound); K2 0.0259 and 0.276 ms (53% and 70% of its ALU bound; the
+// one-thread-per-coordinate design it replaced took 0.057 and 0.760 ms).
+// K2's SASS issues 11.8 instructions a term at r = 5 (7.5 ALU, 3.05 IMAD,
+// 1.2 memory; no CALL), and its gathers read L2 at 6.7 TB/s at m = 176.
+// ptxas (nvcc -Xptxas -v, sm_90a): the encode 63-64 registers for r >= 3
+// (55 at r = 2, 40 at r = 1) and 512 r bytes of shared memory, the decode
+// 122 registers at r = 5 (56 to 108 for the other r); no spills.
 //
 // Bitwise agreement with the plain PyTorch versions
 // (ops/circulant_kernels.py): the float operations are written with
@@ -80,15 +99,24 @@
 // given stream and returns cudaGetLastError() (0 on success).
 
 #include <cstdint>
+#include <utility>
+
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;          // decode: threads a CTA
 constexpr int kMaxRows = 8;
+constexpr int kDecThreads = 256;       // decode: threads a CTA
 constexpr int kEncThreads = 256;       // encode: threads a CTA
 constexpr int kEncCtasPerSm = 4;       // resident encode CTAs an SM
 constexpr int kShiftChunk = 128;       // blocks whose shifts are staged
+
+// Coordinates of a column tile a thread owns in the decode, strided by
+// kDecThreads: their C r gathers are in flight together.
+template <int R>
+__host__ __device__ constexpr int dec_cols() {
+  return R <= 5 ? 8 : 4;
+}
 
 // Columns of a table tile a thread owns in the encode: its r sums a column
 // stay in registers (at most 64 a thread for 4 CTAs an SM).
@@ -97,11 +125,10 @@ __host__ __device__ constexpr int enc_cols() {
   return R <= 5 ? 4 : 2;
 }
 
-// The sign bit of sigma_j(x): bit 31 of fmix32(x * key + 0x9E3779B9). The
-// finalizer's last step, h ^= h >> 16, cannot change bit 31 and is left
-// out.
-__device__ __forceinline__ uint32_t sign_bit(uint32_t x, uint32_t key) {
-  uint32_t h = x * key + 0x9E3779B9u;
+// The sign bit of sigma_j(x): bit 31 of fmix32(h), h = x * key +
+// 0x9E3779B9. The finalizer's last step, h ^= h >> 16, cannot change bit
+// 31 and is left out.
+__device__ __forceinline__ uint32_t mix_sign(uint32_t h) {
   h ^= h >> 16;
   h *= 0x85EBCA6Bu;
   h ^= h >> 13;
@@ -109,19 +136,13 @@ __device__ __forceinline__ uint32_t sign_bit(uint32_t x, uint32_t key) {
   return h & 0x80000000u;
 }
 
+__device__ __forceinline__ uint32_t sign_bit(uint32_t x, uint32_t key) {
+  return mix_sign(x * key + 0x9E3779B9u);
+}
+
 // sigma * a: negation flips the sign bit, nothing else
 __device__ __forceinline__ float with_sign(float a, uint32_t bit) {
   return __uint_as_float(__float_as_uint(a) ^ bit);
-}
-
-// min/max that propagate NaN, as torch.minimum / jnp.minimum do (fminf
-// alone would drop it)
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (isnan(a) || isnan(b)) ? __fadd_rn(a, b) : fminf(a, b);
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (isnan(a) || isnan(b)) ? __fadd_rn(a, b) : fmaxf(a, b);
 }
 
 // Add block b's terms to a thread's sums: for row j and column i the term
@@ -245,48 +266,227 @@ int launch_encode(const float* v, long long d, const int* shifts,
   return (int)cudaGetLastError();
 }
 
+// ---- K2 -------------------------------------------------------------
+
+// The median networks, as lists of min/max operations: value v[R + k] is
+// the k-th operation's min or max of v[A] and v[B], v[0 .. R - 1] the
+// signed estimates. The median is the last value (odd R), or the mean of
+// the last two (even R: the two middle values, in either order; a float
+// sum does not depend on its operands' order). chip_smoke.py MEDIAN_NETS
+// holds the same lists; its tests hold each, bit for bit, to the JAX
+// package's median_axis0 and parse them from this file.
+enum { kMin, kMax };
+template <int Kind, int A, int B>
+struct MinMax {};
+template <typename... Ops>
+struct Net {};
+
 template <int R>
-__global__ void decode_kernel(const float* __restrict__ table,
-                              const int* __restrict__ shifts,
-                              const uint32_t* __restrict__ keys, int c,
-                              int m, long long d, float* __restrict__ out) {
-  const long long x = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= d) return;
-  const int b = (int)(x / c);
-  const int i = (int)(x - (long long)b * c);
-  float e[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    int q = i + shifts[(long long)j * m + b];
-    if (q >= c) q -= c;
-    e[j] = with_sign(table[(long long)j * c + q],
-                     sign_bit((uint32_t)x, keys[j]));
+struct MedianNet;
+template <>
+struct MedianNet<1> {
+  using type = Net<>;
+};
+template <>
+struct MedianNet<2> {
+  using type = Net<>;
+};
+template <>
+struct MedianNet<3> {
+  using type = Net<MinMax<kMin, 0, 1>, MinMax<kMax, 0, 1>, MinMax<kMin, 4, 2>,
+                   MinMax<kMax, 3, 5>>;
+};
+template <>
+struct MedianNet<4> {
+  using type = Net<MinMax<kMin, 0, 1>, MinMax<kMax, 0, 1>, MinMax<kMin, 2, 3>,
+                   MinMax<kMax, 2, 3>, MinMax<kMax, 4, 6>, MinMax<kMin, 5, 7>>;
+};
+template <>
+struct MedianNet<5> {
+  using type = Net<MinMax<kMin, 0, 1>, MinMax<kMax, 0, 1>, MinMax<kMin, 2, 3>,
+                   MinMax<kMax, 2, 3>, MinMax<kMax, 5, 7>, MinMax<kMin, 6, 8>,
+                   MinMax<kMin, 4, 9>, MinMax<kMax, 4, 9>,
+                   MinMax<kMin, 12, 10>, MinMax<kMax, 11, 13>>;
+};
+template <>
+struct MedianNet<6> {
+  using type = Net<MinMax<kMin, 1, 4>, MinMax<kMax, 1, 4>, MinMax<kMin, 0, 2>,
+                   MinMax<kMax, 0, 2>, MinMax<kMin, 9, 5>, MinMax<kMax, 9, 5>,
+                   MinMax<kMin, 8, 3>, MinMax<kMax, 8, 3>, MinMax<kMin, 10, 7>,
+                   MinMax<kMax, 10, 7>, MinMax<kMax, 12, 6>,
+                   MinMax<kMin, 16, 13>, MinMax<kMax, 16, 13>,
+                   MinMax<kMin, 18, 11>, MinMax<kMax, 17, 14>,
+                   MinMax<kMin, 19, 15>>;
+};
+template <>
+struct MedianNet<7> {
+  using type = Net<MinMax<kMin, 2, 6>, MinMax<kMax, 2, 6>, MinMax<kMin, 0, 7>,
+                   MinMax<kMax, 0, 7>, MinMax<kMin, 10, 5>,
+                   MinMax<kMax, 10, 5>, MinMax<kMin, 1, 8>, MinMax<kMax, 1, 8>,
+                   MinMax<kMin, 12, 14>, MinMax<kMin, 13, 4>,
+                   MinMax<kMax, 13, 4>, MinMax<kMin, 3, 17>,
+                   MinMax<kMax, 3, 17>, MinMax<kMin, 19, 15>,
+                   MinMax<kMax, 9, 18>, MinMax<kMax, 16, 11>,
+                   MinMax<kMin, 22, 21>, MinMax<kMax, 22, 21>,
+                   MinMax<kMin, 24, 20>, MinMax<kMax, 23, 25>>;
+};
+template <>
+struct MedianNet<8> {
+  using type = Net<MinMax<kMin, 0, 1>, MinMax<kMax, 0, 1>, MinMax<kMin, 2, 3>,
+                   MinMax<kMax, 2, 3>, MinMax<kMin, 4, 5>, MinMax<kMax, 4, 5>,
+                   MinMax<kMin, 6, 7>, MinMax<kMax, 6, 7>, MinMax<kMin, 8, 10>,
+                   MinMax<kMax, 8, 10>, MinMax<kMin, 9, 11>,
+                   MinMax<kMax, 9, 11>, MinMax<kMin, 12, 14>,
+                   MinMax<kMax, 12, 14>, MinMax<kMin, 13, 15>,
+                   MinMax<kMax, 13, 15>, MinMax<kMin, 18, 17>,
+                   MinMax<kMax, 18, 17>, MinMax<kMin, 22, 21>,
+                   MinMax<kMax, 22, 21>, MinMax<kMax, 16, 20>,
+                   MinMax<kMax, 24, 26>, MinMax<kMin, 25, 27>,
+                   MinMax<kMin, 19, 23>, MinMax<kMin, 31, 29>,
+                   MinMax<kMax, 30, 28>>;
+};
+
+// min and max that return NaN if an operand is NaN and order -0 below
+// +0, as jnp.minimum and jnp.maximum do: one FMNMX each
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+template <int Kind, int A, int B, int N>
+__device__ __forceinline__ float apply(const float (&v)[N],
+                                       MinMax<Kind, A, B>) {
+  static_assert(A < N && B < N, "an operand past the values");
+  return Kind == kMin ? min_nan(v[A], v[B]) : max_nan(v[A], v[B]);
+}
+
+template <int R, int N, typename... Ops, int... K>
+__device__ __forceinline__ float run_net(float (&v)[N], Net<Ops...>,
+                                         std::integer_sequence<int, K...>) {
+  ((v[R + K] = apply(v, Ops{})), ...);
+  if constexpr (R % 2) {
+    return v[N - 1];
+  } else {
+    return __fmul_rn(0.5f, __fadd_rn(v[N - 2], v[N - 1]));
   }
-  // bubble network of median_axis0: r(r-1)/2 min/max pairs
+}
+
+template <int R, typename... Ops>
+__device__ __forceinline__ float median(const float (&e)[R],
+                                        Net<Ops...> net) {
+  float v[R + sizeof...(Ops)];
 #pragma unroll
-  for (int p = 0; p < R; ++p) {
+  for (int j = 0; j < R; ++j) v[j] = e[j];
+  return run_net<R>(v, net,
+                    std::make_integer_sequence<int, sizeof...(Ops)>{});
+}
+
+// Decode one tile of kDecThreads * C columns, i0 .. i0 + kTile - 1, of
+// block b for all rows. Thread t owns the columns i = i0 + t + q
+// kDecThreads, q < C, coordinates x = b c + i, and gathers row j's cell at
+// column start[j] + t + q kDecThreads (mod c), start[j] = (i0 + s[j, b])
+// mod c. h[j] enters as x key_j + 0x9E3779B9 of its first coordinate and
+// advances by step[j] = kDecThreads key_j from one coordinate to the next.
+// kEdge: the tile holds a row's seam, or runs past c or past d, so each
+// gather wraps and each coordinate is tested; the other tiles read through
+// a row pointer and store without a test.
+template <int R, int C, bool kEdge>
+__device__ __forceinline__ void decode_tile(const float* __restrict__ table,
+                                            const uint32_t (&start)[R],
+                                            uint32_t (&h)[R],
+                                            const uint32_t (&step)[R],
+                                            uint32_t c, uint32_t d,
+                                            uint32_t bc, uint32_t i0,
+                                            float* __restrict__ out) {
+  const uint32_t t = threadIdx.x;
+  const float* row[R];
 #pragma unroll
-    for (int q = 0; q < R - 1 - p; ++q) {
-      const float lo = nan_min(e[q], e[q + 1]);
-      const float hi = nan_max(e[q], e[q + 1]);
-      e[q] = lo;
-      e[q + 1] = hi;
+  for (int j = 0; j < R; ++j) row[j] = table + (size_t)j * c;
+  float e[C][R];
+  bool valid[C];
+  // all C R gathers first, so that they are in flight together
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    const uint32_t off = q * kDecThreads + t;
+    valid[q] = !kEdge || (i0 + off < c && bc + i0 + off < d);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if constexpr (kEdge) {
+        uint32_t col = start[j] + off;
+        if (col >= c) col -= c;
+        e[q][j] = valid[q] ? __ldg(row[j] + col) : 0.0f;
+      } else {
+        // a constant offset from the row's pointer, in the load itself
+        e[q][j] = __ldg(row[j] + start[j] + t + q * kDecThreads);
+      }
     }
   }
-  if (R % 2) {
-    out[x] = e[R / 2];
-  } else {
-    out[x] = __fmul_rn(0.5f, __fadd_rn(e[R / 2 - 1], e[R / 2]));
+  float* dst = out + (bc + i0 + t);
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    float v[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      v[j] = with_sign(e[q][j], mix_sign(h[j]));
+      h[j] += step[j];
+    }
+    const float med = median(v, typename MedianNet<R>::type{});
+    if (!kEdge || valid[q]) dst[q * kDecThreads] = med;
+  }
+}
+
+// A CTA decodes column tile blockIdx.x of the blocks b = blockIdx.y,
+// blockIdx.y + gridDim.y, ... (the grid's y extent stops at 65,535 blocks).
+template <int R>
+__global__ void __launch_bounds__(kDecThreads, 2)
+    decode_kernel(const float* __restrict__ table,
+                  const int* __restrict__ shifts,
+                  const uint32_t* __restrict__ keys, uint32_t c, uint32_t m,
+                  uint32_t d, float* __restrict__ out) {
+  constexpr int C = dec_cols<R>();
+  constexpr uint32_t kTile = kDecThreads * C;
+  const uint32_t i0 = blockIdx.x * kTile;
+  uint32_t key[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) key[j] = __ldg(keys + j);
+  for (uint32_t b = blockIdx.y; b < m; b += gridDim.y) {
+    const uint32_t bc = b * c;
+    uint32_t start[R], h[R], step[R];
+    bool edge = i0 + kTile > c || (uint64_t)bc + i0 + kTile > d;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      uint32_t s = i0 + (uint32_t)__ldg(shifts + (size_t)j * m + b);
+      if (s >= c) s -= c;
+      start[j] = s;
+      edge |= s + kTile > c;
+      h[j] = (bc + i0 + threadIdx.x) * key[j] + 0x9E3779B9u;
+      step[j] = key[j] * kDecThreads;
+    }
+    if (edge) {
+      decode_tile<R, C, true>(table, start, h, step, c, d, bc, i0, out);
+    } else {
+      decode_tile<R, C, false>(table, start, h, step, c, d, bc, i0, out);
+    }
   }
 }
 
 template <int R>
-void launch_decode(const float* table, const int* shifts,
-                   const uint32_t* keys, int c, int m, long long d,
-                   float* out, cudaStream_t stream) {
-  const long long blocks = (d + kThreads - 1) / kThreads;
-  decode_kernel<R><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      table, shifts, keys, c, m, d, out);
+int launch_decode(const float* table, const int* shifts,
+                  const uint32_t* keys, int c, int m, long long d,
+                  float* out, cudaStream_t stream) {
+  constexpr int kTile = kDecThreads * dec_cols<R>();
+  const dim3 grid((unsigned)(((long long)c + kTile - 1) / kTile),
+                  (unsigned)(m < 65535 ? m : 65535));
+  decode_kernel<R><<<grid, kDecThreads, 0, stream>>>(
+      table, shifts, keys, (uint32_t)c, (uint32_t)m, (uint32_t)d, out);
+  return (int)cudaGetLastError();
 }
 
 // m c coordinates must fit the uint32 sign-stream index (the wrapper
@@ -327,20 +527,21 @@ extern "C" int circ_decode(const float* table, const int* shifts,
                            long long d, float* out, void* stream) {
   if (bad_geometry(d, c, m)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+#define CIRC_DECODE(R) \
+  case R:              \
+    return launch_decode<R>(table, shifts, keys, c, m, d, out, s)
   switch (r) {
-    case 1: launch_decode<1>(table, shifts, keys, c, m, d, out, s); break;
-    case 2: launch_decode<2>(table, shifts, keys, c, m, d, out, s); break;
-    case 3: launch_decode<3>(table, shifts, keys, c, m, d, out, s); break;
-    case 4: launch_decode<4>(table, shifts, keys, c, m, d, out, s); break;
-    case 5: launch_decode<5>(table, shifts, keys, c, m, d, out, s); break;
-    case 6: launch_decode<6>(table, shifts, keys, c, m, d, out, s); break;
-    case 7: launch_decode<7>(table, shifts, keys, c, m, d, out, s); break;
-    case kMaxRows:
-      launch_decode<kMaxRows>(table, shifts, keys, c, m, d, out, s);
-      break;
+    CIRC_DECODE(1);
+    CIRC_DECODE(2);
+    CIRC_DECODE(3);
+    CIRC_DECODE(4);
+    CIRC_DECODE(5);
+    CIRC_DECODE(6);
+    CIRC_DECODE(7);
+    CIRC_DECODE(8);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef CIRC_DECODE
 }
 
 extern "C" int circ_max_rows() { return kMaxRows; }

@@ -39,18 +39,34 @@ def topk_with_idx(vec: torch.Tensor, k: int, approx: bool = False):
     return out, idx
 
 
+def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.minimum``: a NaN operand is returned, and -0 < +0, so
+    min(-0, +0) is -0 in either order. ``torch.minimum`` returns its first
+    argument on a tie of -0 and +0."""
+    take_a = torch.isnan(a) | (a < b) | ((a == b) & torch.signbit(a))
+    return torch.where(take_a, a, b)
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum``: a NaN operand is returned, and max(-0, +0) is +0
+    in either order."""
+    take_a = torch.isnan(a) | (a > b) | ((a == b) & ~torch.signbit(a))
+    return torch.where(take_a, a, b)
+
+
 def median_axis0(x: torch.Tensor) -> torch.Tensor:
     """Median over a small leading axis by the bubble min/max network of
     the JAX package's ``ops/topk.py median_axis0``: the same comparisons
-    in the same order, and the mean of the two middle values for even r."""
+    in the same order, under the same min/max (``minimum``, ``maximum``),
+    and the mean of the two middle values for even r."""
     r = x.shape[0]
     if r == 1:
         return x[0]
     rows = [x[i] for i in range(r)]
     for i in range(r):
         for j in range(r - 1 - i):
-            lo = torch.minimum(rows[j], rows[j + 1])
-            hi = torch.maximum(rows[j], rows[j + 1])
+            lo = minimum(rows[j], rows[j + 1])
+            hi = maximum(rows[j], rows[j + 1])
             rows[j], rows[j + 1] = lo, hi
     if r % 2:
         return rows[r // 2]

@@ -14,7 +14,10 @@ the JAX package, so it also runs on a machine that has only PyTorch:
     python -m pytest --noconftest tests/test_torch_kernels.py
 """
 
+import importlib
 import math
+import os
+import re
 
 import numpy as np
 import pytest
@@ -95,10 +98,44 @@ def test_kernels_match_plain_on_card(cuda, c, r):
     dec = kernels.decode(t0, *args, D)
     torch.cuda.synchronize()
     assert kernels.launches == {"circ_encode": 2, "circ_decode": 1}
-    assert torch.equal(got, kernels.encode_plain(v, *args))
-    assert torch.equal(got_acc, kernels.encode_plain(v, *args, scale=3.0,
-                                                     table=t0))
-    assert torch.equal(dec, kernels.decode_plain(t0, *args, D))
+    assert chip_smoke.same_bits(got, kernels.encode_plain(v, *args))
+    assert chip_smoke.same_bits(got_acc, kernels.encode_plain(
+        v, *args, scale=3.0, table=t0))
+    assert chip_smoke.same_bits(dec, kernels.decode_plain(t0, *args, D))
+
+
+# (d, c, r) for K2, r = 1 .. 8: c not a multiple of the tile (2,048
+# columns for r <= 5, 1,024 above), so each block ends in a partial tile;
+# d that ends inside a tile; m = 1 with d < c (tiles past d); c below the
+# tile (every tile tests its coordinates); random unaligned shifts, whose
+# tiles cross the seam (a row's run wraps from column c - 1 to 0), and
+# shifts aligned to 1,024; m = 70,000, more blocks than the grid's 65,535
+# in y.
+K2_CASES = [(20_000, 4000, 1), (19_999, 4096, 2), (3_000, 4096, 3),
+            (20_000, 500_000, 4), (1_200_000, 500_000, 5),
+            (1_100_000, 524_288, 5), (600_000, 131_072, 6),
+            (50_000, 777, 7), (2_000_000, 300_007, 8),
+            (20_000, 150, 5), (1_120_000, 16, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,c,r", K2_CASES)
+@pytest.mark.parametrize("kind", ["randn", "zeroed"])
+def test_decode_matches_plain_on_card(cuda, d, c, r, kind):
+    """K2 gives its plain version's bits (``chip_smoke.same_bits``: -0 is
+    not +0) on a randn table and on one with zeroed cells, -0 and NaN,
+    whatever the tile, seam, block and grid geometry."""
+    ts = make_circulant_sketch(d, c, r, device=cuda)
+    rng = np.random.RandomState(d + c + r)
+    table = (rng.randn(r, c).astype(np.float32) if kind == "randn"
+             else chip_smoke.zeroed_table(r, c, seed=c + r))
+    table = torch.from_numpy(table).to(cuda)
+    args = (ts.shifts, ts.sign_keys, c, r, ts.m)
+    kernels.reset_launches()
+    got = kernels.decode(table, *args, d)
+    torch.cuda.synchronize()
+    assert kernels.launches["circ_decode"] == 1
+    assert chip_smoke.same_bits(got, kernels.decode_plain(table, *args, d))
 
 
 # (d, c, r): m = 1 (c = d and c above d), m above and not a multiple of
@@ -187,29 +224,44 @@ def test_each_sign_hash_instruction_is_needed(left_out):
 def test_sketch_bound_counts_integer_issue(shape, m, kind):
     """K1's and K2's bound in chip_smoke.py counts what every (row,
     coordinate) term needs by pipe: the sign's instructions of SIGN_HASH
-    (5 ALU, 2 IMAD, 1 on either pipe) and one index step (either), plus
-    the term's share of loads, stores and float adds. At m = 176 the 128
-    instructions an SM issues a clock bound both kernels, above the bytes
-    and above the ALU's own 64 lanes; at m = 14 the bytes do."""
+    (5 ALU, 2 IMAD, 1 on either pipe), for K1 one index step (either),
+    for K2 its share of the median network (MEDIAN_NETS[5], 10 min/max on
+    the ALU: 2 a term), plus the term's share of loads, stores and float
+    adds. K1 (``kind``): at m = 176 the 128 instructions an SM issues a
+    clock bound it, above the bytes and above the ALU's own 64 lanes; at
+    m = 14 the bytes do. K2: its 7 ALU instructions a term bound it at
+    both, 0.193 ms at m = 176 and 0.0137 ms at m = 14."""
     d, c, r = shape
     assert -(-d // c) == m
     per_clock = chip_smoke.H100_SMS * chip_smoke.H100_CLOCK_HZ
     assert 256 * per_clock == pytest.approx(67e12)
     need = chip_smoke.term_instructions(0)
     assert (need["alu"], need["imad"], need["either"]) == (5, 2, 2)
-    for name, other in (("circ_encode", 1 + 2 / r),
-                        ("circ_decode", 1 + 1 / r)):
-        nbytes, ops, instr = chip_smoke.sketch_work(d, c, r)[name]
-        assert instr == pytest.approx(
-            {p: n * r * d for p, n in
-             chip_smoke.term_instructions(other).items()})
-        ms, got = chip_smoke.bound(nbytes, ops, chip_smoke.H100_FP32_PER_S,
-                                   instr)
-        assert got == kind, name
-        issue_ms = 1e3 * (9 + other) * r * d / (128 * per_clock)
-        assert ms == pytest.approx(max(
-            issue_ms, 1e3 * nbytes / chip_smoke.H100_BYTES_PER_S))
-        assert issue_ms > 1e3 * 5 * r * d / (64 * per_clock)
+    work = chip_smoke.sketch_work(d, c, r)
+    nbytes, ops, instr = work["circ_encode"]
+    other = 1 + 2 / r
+    assert instr == pytest.approx(
+        {p: n * r * d for p, n in
+         chip_smoke.term_instructions(other).items()})
+    ms, got = chip_smoke.bound(nbytes, ops, chip_smoke.H100_FP32_PER_S,
+                               instr)
+    assert got == kind
+    issue_ms = 1e3 * (9 + other) * r * d / (128 * per_clock)
+    assert ms == pytest.approx(max(
+        issue_ms, 1e3 * nbytes / chip_smoke.H100_BYTES_PER_S))
+    assert issue_ms > 1e3 * 5 * r * d / (64 * per_clock)
+
+    nbytes, ops, instr = work["circ_decode"]
+    assert len(chip_smoke.MEDIAN_NETS[r]) == 10 and ops == 0
+    assert instr == pytest.approx({"alu": 7 * r * d, "imad": 2 * r * d,
+                                   "either": r * d,
+                                   "other": (1 + 1 / r) * r * d})
+    ms, got = chip_smoke.bound(nbytes, ops, chip_smoke.H100_FP32_PER_S,
+                               instr)
+    assert got == "ALU issue"
+    assert ms == pytest.approx(1e3 * 7 * r * d / (64 * per_clock))
+    assert ms == pytest.approx({14: 0.0137, 176: 0.193}[m], rel=5e-3)
+    assert ms > 1e3 * nbytes / chip_smoke.H100_BYTES_PER_S
 
 
 def test_bound_names_what_bounds_it():
@@ -235,6 +287,85 @@ def test_bound_names_what_bounds_it():
         (1e3, "instruction issue"))
     assert [chip_smoke.bound_by(k) for k in ("bytes", "ALU issue")] == [
         "bytes", "operations"]
+
+
+_SPECIALS = np.array([0.0, -0.0, 1.0, -1.0, np.nan], np.float32)
+
+
+def _bits(x):
+    return np.ascontiguousarray(x, np.float32).view(np.uint32)
+
+
+def _jax_median_axis0():
+    """The JAX package's median_axis0, imported here (this file runs
+    without JAX too; the test skips where the JAX package cannot be
+    imported). jax 0.9's ``PrimitiveBatchersProxy`` lacks the
+    ``__contains__`` that the package's jax_compat needs at import; it is
+    given one first, as tests/test_torch_ops.py does."""
+    pytest.importorskip("jax")
+    from jax._src.interpreters import batching
+    proxy = getattr(batching, "PrimitiveBatchersProxy", None)
+    if proxy is not None and "__contains__" not in vars(proxy):
+        proxy.__contains__ = (
+            lambda self, k: k in batching.fancy_primitive_batchers)
+    try:
+        topk = importlib.import_module("commefficient_tpu.ops.topk")
+    except ImportError as e:
+        pytest.skip(f"the JAX package does not import here: {e}")
+    return topk.median_axis0
+
+
+@pytest.mark.parametrize("r", range(1, 9))
+def test_median_nets_match_the_jax_median_bitwise(r):
+    """Each K2 median network (chip_smoke.MEDIAN_NETS) gives the bits of
+    the JAX package's median_axis0, and of the port's, on every r-row
+    column over {+0, -0, 1, -1, NaN}: signed zeros, ties and NaN. JAX runs
+    on its CPU device, as the JAX package's tests do (a card's float units
+    return another NaN payload)."""
+    jax_median = _jax_median_axis0()
+    import jax
+    from commefficient_torch.ops.topk import median_axis0
+    x = _SPECIALS[np.indices((len(_SPECIALS),) * r).reshape(r, -1)]
+    got = _bits(chip_smoke.median_net(x, chip_smoke.MEDIAN_NETS[r]))
+    with jax.default_device(jax.devices("cpu")[0]):
+        want = _bits(jax_median(jax.numpy.asarray(x)))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, _bits(median_axis0(torch.from_numpy(x))))
+
+
+@pytest.mark.parametrize("r", range(3, 9))
+def test_each_median_net_operation_is_needed(r):
+    """No min/max of a median network can go: with any one of them left
+    out (its value taken as either operand), some 0/1 column gets a wrong
+    median. A network of min/max is a median on every input if it is one
+    on every 0/1 input, so these columns decide it."""
+    x = ((np.arange(2 ** r)[None, :] >> np.arange(r)[:, None]) & 1).astype(
+        np.float32)
+    ops = chip_smoke.MEDIAN_NETS[r]
+    want = np.sort(x, axis=0)
+    want = want[r // 2] if r % 2 else 0.5 * (want[r // 2 - 1] + want[r // 2])
+    assert np.array_equal(chip_smoke.median_net(x, ops), want)
+    for k, (_, a, b) in enumerate(ops):
+        for keep in (a, b):
+            fewer = ops[:k] + (("max", keep, keep),) + ops[k + 1:]
+            assert not np.array_equal(chip_smoke.median_net(x, fewer),
+                                      want), (k, keep)
+
+
+def test_kernel_holds_the_median_nets():
+    """csrc/circulant.cu MedianNet<R> holds the operations of
+    chip_smoke.MEDIAN_NETS[R], in order, for R = 1 .. 8: the bound counts
+    the network the kernel runs."""
+    src = open(os.path.join(os.path.dirname(kernels.__file__), os.pardir,
+                            "csrc", kernels.SOURCE)).read()
+    for r, ops in chip_smoke.MEDIAN_NETS.items():
+        body = re.search(r"struct MedianNet<%d> \{\s*using type = "
+                         r"Net<(.*?)>;\s*\};" % r, src, re.S)
+        assert body, r
+        got = tuple((kind.lower(), int(a), int(b)) for kind, a, b in
+                    re.findall(r"MinMax<k(Min|Max), (\d+), (\d+)>",
+                               body.group(1)))
+        assert got == ops, r
 
 
 # a SASS excerpt in cuobjdump's layout: a loop of two sign hashes

@@ -40,6 +40,7 @@ from commefficient_tpu.ops import sketch as jsketch  # noqa: E402
 # commefficient_tpu.ops re-exports a function named topk over the module
 jtopk = importlib.import_module("commefficient_tpu.ops.topk")
 
+from chip_smoke import zeroed_table  # noqa: E402
 from commefficient_torch import config as tconfig  # noqa: E402
 from commefficient_torch.data import fed_cifar as tcifar  # noqa: E402
 from commefficient_torch.data import fed_sampler as tsampler  # noqa: E402
@@ -58,6 +59,22 @@ def _pair(c, d=D, r=R, seed=42):
 
 def _np(t):
     return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def _bits(t):
+    """The uint32 bits of a float32 result: -0 and +0 differ here, and
+    NaN equals NaN of the same bits (np.array_equal on values does
+    neither)."""
+    return np.ascontiguousarray(_np(t), np.float32).view(np.uint32)
+
+
+# every r-row column over {+0, -0, 1, -1, NaN}: ties, signed zeros, NaN
+_SPECIALS = np.array([0.0, -0.0, 1.0, -1.0, np.nan], np.float32)
+
+
+def _all_columns(r):
+    idx = np.indices((len(_SPECIALS),) * r).reshape(r, -1)
+    return _SPECIALS[idx]
 
 
 # ----------------------------------------------------------- hashing
@@ -161,7 +178,7 @@ def test_decode_matches_pallas_interpret_bitwise():
                                 js.sign_keys, c=4096, r=R, m=js.m,
                                 interpret=True)[:D]
     got = ts.decode(torch.from_numpy(table))
-    assert np.array_equal(_np(got), np.asarray(ref))
+    assert np.array_equal(_bits(got), _bits(ref))
 
 
 @pytest.mark.parametrize("c,r", [(4000, 5), (4096, 4)])
@@ -171,14 +188,45 @@ def test_decode_and_decode_at_match_roll_path_bitwise(c, r):
     js, ts = _pair(c, r=r)
     rng = np.random.RandomState(5)
     table = rng.randn(r, c).astype(np.float32)
-    ref = np.asarray(js.decode(jnp.asarray(table)))
-    got = _np(ts.decode(torch.from_numpy(table)))
+    ref = _bits(js.decode(jnp.asarray(table)))
+    got = _bits(ts.decode(torch.from_numpy(table)))
     assert np.array_equal(got, ref)
     idx = rng.choice(D, 2000, replace=False)
-    ref_at = np.asarray(js.decode_at(jnp.asarray(table), jnp.asarray(idx)))
-    got_at = _np(ts.decode_at(torch.from_numpy(table), torch.from_numpy(idx)))
+    ref_at = _bits(js.decode_at(jnp.asarray(table), jnp.asarray(idx)))
+    got_at = _bits(ts.decode_at(torch.from_numpy(table),
+                                torch.from_numpy(idx)))
     assert np.array_equal(got_at, ref_at)
     assert np.array_equal(got_at, got[idx])
+
+
+@pytest.mark.parametrize("c,r", [(4000, 5), (4096, 4), (4000, 3), (777, 8)])
+def test_decode_and_decode_at_of_zeroed_table_bitwise(c, r):
+    """A table with zeroed cells: the signs make -0 and +0 estimates that
+    tie in the median, where the JAX package's jnp.minimum takes -0 and
+    jnp.maximum +0 in either order. Decode and decode_at give the JAX
+    package's bits, NaN included."""
+    js, ts = _pair(c, r=r)
+    table = zeroed_table(r, c, seed=c + r)
+    ref = _bits(js.decode(jnp.asarray(table)))
+    got = _bits(ts.decode(torch.from_numpy(table)))
+    assert np.array_equal(got, ref)
+    idx = np.random.RandomState(c).choice(D, 4000, replace=False)
+    ref_at = _bits(js.decode_at(jnp.asarray(table), jnp.asarray(idx)))
+    got_at = _bits(ts.decode_at(torch.from_numpy(table),
+                                torch.from_numpy(idx)))
+    assert np.array_equal(got_at, ref_at)
+    assert np.array_equal(got_at, got[idx])
+
+
+def test_decode_of_zeroed_table_matches_pallas_interpret_bitwise():
+    js, ts = _pair(4096)
+    table = zeroed_table(R, 4096, seed=11)
+    ref = jpallas.pallas_decode(jnp.asarray(table),
+                                jnp.asarray(js.shifts, jnp.int32),
+                                js.sign_keys, c=4096, r=R, m=js.m,
+                                interpret=True)[:D]
+    got = ts.decode(torch.from_numpy(table))
+    assert np.array_equal(_bits(got), _bits(ref))
 
 
 def test_l2estimate_and_clip_match_reference():
@@ -232,8 +280,25 @@ def test_topk_ties_lower_index_wins():
 @pytest.mark.parametrize("r", [1, 2, 4, 5])
 def test_median_axis0_bitwise(r):
     x = np.random.RandomState(r).randn(r, 4096).astype(np.float32)
-    assert np.array_equal(_np(ttopk.median_axis0(torch.from_numpy(x))),
-                          np.asarray(jtopk.median_axis0(jnp.asarray(x))))
+    assert np.array_equal(_bits(ttopk.median_axis0(torch.from_numpy(x))),
+                          _bits(jtopk.median_axis0(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 6])
+def test_median_axis0_signed_zeros_nan_and_ties_bitwise(r):
+    """Every r-row column over {+0, -0, 1, -1, NaN}: the port's min/max
+    take -0 below +0 and propagate NaN as jnp.minimum / jnp.maximum do,
+    so the bubble network gives the JAX package's bits."""
+    x = _all_columns(r)
+    assert np.array_equal(_bits(ttopk.median_axis0(torch.from_numpy(x))),
+                          _bits(jtopk.median_axis0(jnp.asarray(x))))
+    a, b = x[0], x[-1]
+    for name in ("minimum", "maximum"):
+        for p, q in ((a, b), (b, a)):
+            assert np.array_equal(
+                _bits(getattr(ttopk, name)(torch.from_numpy(p),
+                                           torch.from_numpy(q))),
+                _bits(getattr(jnp, name)(jnp.asarray(p), jnp.asarray(q))))
 
 
 # ------------------------------------------------- config, data, sampler
