@@ -47,21 +47,42 @@ Phases, in order; any failure exits non-zero and prints no result:
    the card against the CPU: one client's c_attn q/k/v gradient and three
    rounds, within NARROW_LIMITS, and the same runs with a planted fault
    in each K3 kernel outside them;
-5. the ResNet-9 main path: ``commefficient_torch.cv_train`` at full width
+5. the card's top-k (``topk_with_idx`` and the row-wise ``topk``) on
+   vectors with +-NaN, +-inf, +-0 and ties against a plain ranking of
+   the card's own squares (it prints which NaN (-NaN)^2 gives), timed at
+   d = 6,568,640 and 92,138,496 with k = 50,000 beside ``torch.topk`` of
+   the float32 squares; the device time of the byte accounting at both
+   d; the sparse re-encode of 50,000 values on the card bitwise equal to
+   the CPU's, at both sketches;
+6. the ResNet-9 main path: ``commefficient_torch.cv_train`` at full width
    (8 clients x 64 synthetic CIFAR10 images, k = 50,000, r = 5,
    c = 500,000 -> 500,736, bf16 compute), every launch count set to 0
    just before and read just after; requires 9 encode and 1 decode launch
    per round and finite losses; prints the median round time (of the
-   rounds after the first), img/s and peak memory;
-6. the GPT-2 main path: ``commefficient_torch.gpt2_train`` at GPT-2
+   rounds after the first), img/s and peak memory; then the same with
+   ``--no_track_bytes``;
+7. ``cv_train`` in every mode of the single-device round
+   (``MODE_CONFIGS``: uncompressed, true_topk, local_topk with local
+   error and momentum rows, fedavg with whole-client batches, sketch
+   subtract with 16-image microbatches, the unfused sketch) at full
+   width, 100 clients of 64 images, 3 rounds: finite losses, exact K1/K2
+   launches a round, every round's upload bytes 4 x upload_floats and
+   its download counts equal to a plain recount on the card
+   (``RoundRecorder``); then a planted NaN in the main path's second
+   round must set ``nan_round`` to 1 and stop the driver at that epoch's
+   end without validating it;
+8. the GPT-2 main path: ``commefficient_torch.gpt2_train`` at GPT-2
    small's width (8 clients x 4 dialogues x 2 candidates x 1024 tokens,
    k = 50,000, r = 5, c = 524,288, bf16, K3), every launch count set to
-   0 just before; requires per round exactly 9 K1, 1 K2, 96 K3 forward,
-   96 dq and 96 dk/dv launches, 12 K3 forward launches in the validation
-   after the rounds, and finite losses; prints the median round time (of
-   the rounds after the first), tokens/s, the analytic model TFLOP/s and
-   its share of 989 TFLOP/s, and peak memory;
-7. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+   0 just before; each round is an epoch and ends in a validation;
+   requires per round exactly 9 K1, 1 K2, 96 K3 forward, 96 dq and 96
+   dk/dv launches, 12 K3 forward launches and nothing else in each
+   validation batch (each counted around its own call, ``LaunchSplit``),
+   no launch outside them, and finite losses; prints the median round
+   time (of the rounds after the first), tokens/s, the analytic model
+   TFLOP/s and its share of 989 TFLOP/s, and peak memory; then the same
+   with ``--no_track_bytes``;
+9. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -1056,18 +1077,24 @@ def phase_gpt2_reference():
         fail(f"the narrow GPT-2 check passed planted faults in {passed}")
 
 
-def phase_main_path():
-    """Full-width rounds through the user's entry point."""
+MAIN_ARGV = ["--dataset_name", "CIFAR10", "--model", "ResNet9",
+             "--mode", "sketch", "--error_type", "virtual",
+             "--virtual_momentum", "0.9", "--num_workers", "8",
+             "--local_batch_size", "64", "--k", "50000", "--num_rows", "5",
+             "--num_cols", "500000"]
+
+
+def phase_main_path(extra=()):
+    """Full-width rounds through the user's entry point; ``extra`` flags
+    (``--no_track_bytes``) after the main path's. Returns the launches and
+    the median round time (ms)."""
     import numpy as np
     import torch
     from commefficient_torch import cv_train
     from commefficient_torch.ops import circulant_kernels as K
 
-    argv = ["--dataset_name", "CIFAR10", "--model", "ResNet9",
-            "--mode", "sketch", "--error_type", "virtual",
-            "--virtual_momentum", "0.9", "--num_workers", "8",
-            "--local_batch_size", "64", "--k", "50000", "--num_rows", "5",
-            "--num_cols", "500000", "--num_rounds", str(ROUNDS)]
+    argv = MAIN_ARGV + ["--num_rounds", str(ROUNDS), *extra]
+    tag = " ".join(extra) or "bytes on"
     print("[main] python -m commefficient_torch.cv_train " + " ".join(argv),
           flush=True)
     torch.cuda.reset_peak_memory_stats()
@@ -1076,8 +1103,9 @@ def phase_main_path():
     launches = dict(K.launches)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    if out["rounds"] != ROUNDS:
-        fail(f"ran {out['rounds']} rounds, wanted {ROUNDS}")
+    if out["rounds"] != ROUNDS or out["summary"] is None:
+        fail(f"ran {out['rounds']} rounds (summary {out['summary']}), "
+             f"wanted {ROUNDS}")
     if not np.isfinite(out["losses"]).all() or \
             not math.isfinite(out["val_loss"]):
         fail(f"non-finite losses {out['losses']} / {out['val_loss']}")
@@ -1085,17 +1113,404 @@ def phase_main_path():
             launches["circ_decode"] != ROUNDS:
         fail(f"launches {launches}: want 9 encode and 1 decode per round")
     rt = statistics.median(out["round_s"][1:])
-    print(f"[main] {ROUNDS} rounds: median of rounds 2-{ROUNDS} (the first "
-          f"pays one-time set-up) {rt * 1e3:.3f} ms "
+    print(f"[main] {tag}: {ROUNDS} rounds: median of rounds 2-{ROUNDS} "
+          f"(the first pays one-time set-up) {rt * 1e3:.3f} ms "
           f"(all: {[round(t * 1e3, 3) for t in out['round_s']]}), "
           f"{8 * 64 / rt:.1f} img/s, peak memory {peak / 2**30:.3f} GiB, "
           f"launches {launches}", flush=True)
+    return launches, rt * 1e3
+
+
+# the single-device round in every mode at ResNet-9's full width: 100
+# clients of 64 synthetic images, 8 a round; (flags, K1 and K2 launches a
+# round). K1: the fused step's W x (64 / 16) microbatches + weight decay,
+# or the unfused path's one encode of the summed gradient.
+MODE_ROUNDS = 3
+MODE_COMMON = ["--dataset_name", "CIFAR10", "--model", "ResNet9",
+               "--num_clients", "100", "--synthetic_per_class", "640",
+               "--num_workers", "8", "--local_batch_size", "64",
+               "--k", "50000", "--num_rows", "5", "--num_cols", "500000",
+               "--valid_batch_size", "400", "--num_rounds", str(MODE_ROUNDS)]
+MODE_CONFIGS = {
+    "uncompressed": (["--mode", "uncompressed", "--error_type", "none",
+                      "--virtual_momentum", "0.9"], 0, 0),
+    "true_topk": (["--mode", "true_topk", "--virtual_momentum", "0.9"],
+                  0, 0),
+    "local_topk": (["--mode", "local_topk", "--error_type", "local",
+                    "--local_momentum", "0.9"], 0, 0),
+    "fedavg": (["--mode", "fedavg", "--error_type", "none",
+                "--local_batch_size", "-1", "--fedavg_batch_size", "64"],
+               0, 0),
+    "sketch_subtract": (["--mode", "sketch", "--virtual_momentum", "0.9",
+                         "--sketch_ef", "subtract", "--microbatch_size",
+                         "16"], 8 * 4 + 1, 1),
+    "sketch_unfused": (["--mode", "sketch", "--virtual_momentum", "0.9",
+                        "--sketch_fused_encode", "off"], 1, 1),
+}
+
+
+class RoundRecorder:
+    """Wraps ``FedRuntime.round`` while installed: keeps each round's
+    participants, the byte state its download count reads (cloned before
+    the round) and its metrics, so the counts can be recounted plainly
+    after the run."""
+
+    def __init__(self):
+        from commefficient_torch.core.runtime import FedRuntime
+        self.cls, self.orig, self.rounds = FedRuntime, FedRuntime.round, []
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+        orig, rounds = self.orig, self.rounds
+
+        def round(rt, state, client_ids, batch, mask, lr):
+            ids = torch.as_tensor(np.asarray(client_ids), device=rt.device)
+            before = None
+            if rt.cfg.track_bytes:
+                before = (state.coord_last_update.clone(),
+                          state.client_last_round[ids].clone())
+            new, metrics = orig(rt, state, client_ids, batch, mask, lr)
+            rounds.append((rt.cfg, ids, before, metrics))
+            return new, metrics
+
+        self.cls.round = round
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.round = self.orig
+
+    def check_bytes(self, label: str) -> int:
+        """Upload bytes 4 x upload_floats for each participant and 0 for
+        the others; download bytes 4 x a plain recount on the card,
+        ``(coord_last_update >= t).sum()``. Returns the rounds checked."""
+        import torch
+        for cfg, ids, (cul, thr), m in self.rounds:
+            up, down = m["upload_bytes"], m["download_bytes"]
+            plain = torch.stack([(cul >= t).sum() for t in thr])
+            others = torch.ones_like(up, dtype=torch.bool)
+            others[ids] = False
+            if not (torch.equal(up[ids], torch.full_like(
+                        up[ids], 4.0 * cfg.upload_floats))
+                    and not up[others].any() and not down[others].any()
+                    and torch.equal(down[ids], 4.0 * plain.float())):
+                fail(f"{label}: byte accounting disagrees: up {up[ids]}, "
+                     f"want {4 * cfg.upload_floats}; down {down[ids]}, "
+                     f"plain {4 * plain}")
+        return len(self.rounds)
+
+
+def phase_modes():
+    """``cv_train`` on the card in every mode of ``MODE_CONFIGS`` at
+    ResNet-9's full width, MODE_ROUNDS rounds each: finite losses, the
+    exact K1/K2 launches a round, and the bytes (``RoundRecorder``).
+    Returns {mode: (launches, median round ms)}."""
+    import numpy as np
+    import torch
+    from commefficient_torch import cv_train
+    from commefficient_torch.ops import circulant_kernels as K
+
+    out_modes = {}
+    for mode, (flags, n_enc, n_dec) in MODE_CONFIGS.items():
+        argv = MODE_COMMON + flags
+        print(f"[modes] python -m commefficient_torch.cv_train "
+              + " ".join(argv), flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        with RoundRecorder() as rec:
+            out = cv_train.main(argv)
+        launches = dict(K.launches)
+        peak = torch.cuda.max_memory_allocated()
+        if out["rounds"] != MODE_ROUNDS or out["summary"] is None \
+                or not np.isfinite(out["losses"]).all():
+            fail(f"{mode}: {out['rounds']} rounds, losses {out['losses']}, "
+                 f"summary {out['summary']}")
+        want = {"circ_encode": n_enc * MODE_ROUNDS,
+                "circ_decode": n_dec * MODE_ROUNDS}
+        if launches != want:
+            fail(f"{mode}: launches {launches}, want {want}")
+        checked = rec.check_bytes(mode)
+        rt = statistics.median(out["round_s"][1:])
+        print(f"[modes] {mode}: median of rounds 2-{MODE_ROUNDS} "
+              f"{rt * 1e3:.3f} ms (all: "
+              f"{[round(t * 1e3, 3) for t in out['round_s']]}), "
+              f"losses {[round(float(x), 5) for x in out['losses']]}, "
+              f"launches {launches}, bytes of {checked} rounds held to the "
+              f"plain recount, {out['total_upload_mib']:.3f} MiB up and "
+              f"{out['total_download_mib']:.3f} MiB down, peak memory "
+              f"{peak / 2**30:.3f} GiB", flush=True)
+        out_modes[mode] = (launches, rt * 1e3)
+        del out, rec
+        torch.cuda.empty_cache()
+    return out_modes
+
+
+def phase_nan_abort():
+    """A planted NaN: the main path's second round reads a NaN pixel in
+    one client's batch. The round must set ``nan_round`` to 1 on the
+    device, and the driver must stop at that epoch's end (each round is an
+    epoch here) without validating it. Returns the K1/K2 launches."""
+    import numpy as np
+    import torch
+    from commefficient_torch import cv_train
+    from commefficient_torch.config import parse_known
+    from commefficient_torch.core import driver
+    from commefficient_torch.ops import circulant_kernels as K
+    from commefficient_torch.utils.schedules import lr_schedule_for
+
+    ns = parse_known(cv_train.build_parser(), MAIN_ARGV)
+    runtime, state, train_ds, val_ds = cv_train.setup(ns)
+    gather, calls = train_ds.gather, []
+
+    def planted(idx):
+        batch = gather(idx)
+        calls.append(1)
+        if len(calls) == 2:
+            batch["image"] = batch["image"].copy()
+            batch["image"][3, 0, 0, 0, 0] = np.nan
+        return batch
+
+    train_ds.gather = planted
+    K.reset_launches()
+    state, summary, log = driver.train(runtime, state, train_ds, val_ds,
+                                       lr_schedule_for(runtime.cfg),
+                                       num_rounds=4)
+    launches = dict(K.launches)
+    nan_round = int(state.nan_round)
+    print(f"[nan] planted NaN in round 1: nan_round {nan_round}, summary "
+          f"{summary}, epochs validated {len(log.epochs)}, rounds run "
+          f"{len(log.round_s)}, update finite "
+          f"{bool(torch.isfinite(state.ps_weights).all())}, launches "
+          f"{launches}", flush=True)
+    if nan_round != 1 or summary is not None or len(log.epochs) != 1 \
+            or len(log.round_s) != 2:
+        fail("the planted NaN did not set nan_round = 1 and abort the "
+             "driver at the second epoch's end")
     return launches
 
 
-def phase_gpt2_main():
+def phase_accounting():
+    """Device time of a round's byte accounting at both main paths' d,
+    W = 8, 100 rounds in (CUDA events, 10 calls a timing) on the states a
+    run holds: a sparse run's (50,000 coordinates updated a round, the
+    rest -1), a dense mode's (every coordinate updated in the last round)
+    and random rounds. The download count (``download_coord_counts``),
+    the update's record (``where(update != 0, step, coord_last_update)``
+    on a 50,000-sparse update), and beside them a plain recount (one
+    compare-and-sum over d a participant), which must give the same
+    counts, and ``torch.bincount`` of ``coord_last_update + 1`` (the
+    histogram form, whose atomics pile onto one bin in the skewed
+    states)."""
+    import torch
+    from commefficient_torch.core.runtime import download_coord_counts
+
+    dev, step, out = torch.device("cuda"), 100, {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for d in (FLAGSHIP["d"], GPT2_SKETCH["d"]):
+        thr = torch.randint(0, step + 1, (8,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        update = torch.zeros(d, device=dev)
+        update[torch.randperm(d, generator=gen, device=dev)[:50_000]] = 1.0
+        step_t = torch.tensor(step, dtype=torch.int32, device=dev)
+        sparse = torch.full((d,), -1, dtype=torch.int32, device=dev)
+        hit = torch.randint(0, d, (50_000 * step,), generator=gen,
+                            device=dev)
+        sparse[hit] = torch.randint(0, step, hit.shape, generator=gen,
+                                    device=dev, dtype=torch.int32)
+        states = {
+            "sparse": sparse,
+            "dense": torch.full((d,), step - 1, dtype=torch.int32,
+                                device=dev),
+            "random": torch.randint(-1, step, (d,), generator=gen,
+                                    device=dev, dtype=torch.int32)}
+        record_ms = time_ms(
+            lambda: torch.where(update != 0, step_t, sparse), n=10)
+        for kind, cul in states.items():
+            def plain():
+                return torch.stack([(cul >= t).sum() for t in thr])
+
+            if not torch.equal(download_coord_counts(cul, thr), plain()):
+                fail(f"download counts at d={d} ({kind}) disagree with "
+                     "the recount")
+            count_ms = time_ms(lambda: download_coord_counts(cul, thr),
+                               n=10)
+            plain_ms = time_ms(plain, n=10)
+            hist_ms = time_ms(lambda: torch.bincount(
+                cul.to(torch.int64) + 1, minlength=step + 2), n=10)
+            out[(d, kind)] = (count_ms, record_ms)
+            print(f"[bytes] d={d} {kind}: download count {count_ms:.4f} "
+                  f"ms, update record {record_ms:.4f} ms a round (device); "
+                  f"a plain recount of 8 participants {plain_ms:.4f} ms, "
+                  f"torch.bincount {hist_ms:.4f} ms", flush=True)
+    return out
+
+
+def phase_sparse_encode():
+    """The sparse re-encode (``encode_vals_at``, which the subtract rule
+    reads) on the card at both main paths' sketches with k = 50,000: its
+    table must have the bits of the same call on the CPU (a cell's
+    addends are summed in the order of ``idx`` on every device), and two
+    card calls the same bits; timed beside ``index_add_`` (whose order on
+    the card is not fixed)."""
+    import numpy as np
+    import torch
+    from commefficient_torch.ops.circulant import make_circulant_sketch
+
+    rng, out = np.random.RandomState(5), {}
+    for shape in (FLAGSHIP, GPT2_SKETCH):
+        d, c, r = shape["d"], shape["c"], shape["r"]
+        idx = torch.from_numpy(rng.permutation(d)[:50_000])
+        vals = torch.from_numpy(rng.randn(50_000).astype(np.float32))
+        cpu = make_circulant_sketch(d, c, r, device="cpu")
+        card = make_circulant_sketch(d, c, r, device="cuda")
+        want = cpu.encode_vals_at(vals, idx)
+        gi, gv = idx.cuda(), vals.cuda()
+        got = card.encode_vals_at(gv, gi)
+        again = card.encode_vals_at(gv, gi)
+        if not (same_bits(got.cpu(), want) and same_bits(got, again)):
+            fail(f"the sparse re-encode at d={d} differs from the CPU's "
+                 "bits or between two calls")
+
+        def index_add():
+            table = card.empty_table()
+            for j in range(r):
+                table[j].index_add_(0, card._buckets_of(j, gi),
+                                    card._sign_of(j, gi) * gv)
+            return table
+
+        ms = time_ms(lambda: card.encode_vals_at(gv, gi), n=10)
+        lib = time_ms(index_add, n=10)
+        out[d] = (ms, lib)
+        print(f"[sparse] d={d} c={c}: encode_vals_at of 50,000 values "
+              f"bitwise equal to the CPU's and across calls; "
+              f"{ms:.4f} ms (index_add_ {lib:.4f} ms)", flush=True)
+    return out
+
+
+def phase_topk(device="cuda"):
+    """The card's top-k (``topk_with_idx``, and row-wise ``topk``) on
+    vectors with +-NaN, +-inf, +-0 and ties, held to a plain ranking of
+    the card's own ``vec * vec`` (numpy's lexsort of its float32 bits in
+    their total order, then the index); prints which NaN the card's
+    multiply gives for (-NaN)^2, and times the top-k at both main paths'
+    d with k = 50,000 (CUDA events) and PyTorch's ``torch.topk`` of the
+    same k over the float32 squares beside it."""
+    import numpy as np
+    import torch
+    from commefficient_torch.ops.topk import topk, topk_with_idx
+
+    def plain_order(sq, k=None):
+        """The first k indices of ``sq`` by descending total order of its
+        bits, then ascending index (all of them without k)."""
+        bits = sq.view(np.int32).astype(np.int64)
+        keys = np.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+        cand = np.arange(len(sq))
+        if k is not None and k < len(sq):
+            kth = np.partition(keys, len(sq) - k)[len(sq) - k]
+            cand = np.flatnonzero(keys >= kth)
+        return cand[np.lexsort((cand, -keys[cand]))][:k]
+
+    special = np.array([0x7FC00000, 0x7FC00001, 0xFFC00000, 0xFFC00005,
+                        0x7F800000, 0xFF800000, 0, 0x80000000],
+                       np.uint32).view(np.float32)
+    small = np.concatenate([special, np.float32([1, -2, 3, -3, 2, 0.5, -1,
+                                                 3, 2e-30, -2e-30])])
+    dev = torch.device(device)
+    v = torch.from_numpy(small).to(dev)
+    sq = (v * v).cpu().numpy()
+    order = plain_order(sq)
+    for k in range(1, len(small) + 1):
+        vals, idx = topk_with_idx(v, k)
+        if not np.array_equal(idx.cpu().numpy(), order[:k]) or \
+                not np.array_equal(vals.cpu().numpy().view(np.uint32)
+                                   [order[:k]],
+                                   small.view(np.uint32)[order[:k]]):
+            fail(f"top-k on the card, k={k}: {idx.cpu().numpy()} against "
+                 f"the plain ranking {order[:k]}")
+    neg = sq.view(np.uint32)[[2, 3]]
+    print(f"[topk] the card's (-NaN)^2 for inputs 0xffc00000, 0xffc00005: "
+          f"{[hex(int(b)) for b in neg]} (the CPU keeps the sign bit: "
+          f"0xffc00000, 0xffc00005); +NaN^2: "
+          f"{[hex(int(b)) for b in sq.view(np.uint32)[[0, 1]]]}; k = 1..18 "
+          f"agree with the plain ranking", flush=True)
+    rng = np.random.RandomState(0)
+    times = {}
+    for d in (FLAGSHIP["d"], GPT2_SKETCH["d"]):
+        big = rng.randn(d).astype(np.float32)
+        big[rng.randint(0, d, 64)] = np.nan
+        big[rng.randint(0, d, 64)] = -np.inf
+        big[rng.randint(0, d, 5000)] = 2.5       # ties around the cut
+        big[rng.randint(0, d, 64)] = -0.0
+        vb = torch.from_numpy(big).to(dev)
+        k = 50_000
+        _, idx = topk_with_idx(vb, k)
+        want = plain_order((vb * vb).cpu().numpy(), k)
+        if not np.array_equal(idx.cpu().numpy(), want):
+            fail(f"top-k on the card at d={d} disagrees with the plain "
+                 "ranking")
+        rows = vb[: 8 * (d // 8)].view(8, -1)
+        dense = topk(rows, 1000).cpu().numpy()
+        for j in (0, 7):
+            o = plain_order((rows[j] * rows[j]).cpu().numpy(), 1000)
+            if not np.array_equal(np.flatnonzero(dense[j] != 0),
+                                  np.sort(o[rows[j].cpu().numpy()[o] != 0])):
+                fail(f"row-wise top-k on the card, row {j}, disagrees")
+        ms = time_ms(lambda: topk_with_idx(vb, k), n=10)
+        lib = time_ms(lambda: torch.topk(vb * vb, k), n=10)
+        times[d] = (ms, lib)
+        print(f"[topk] d={d} k={k} (NaN, -inf, ties, -0 planted): agrees "
+              f"with the plain ranking (and the row-wise top-k of 8 rows); "
+              f"topk_with_idx {ms:.4f} ms, torch.topk of the float32 "
+              f"squares {lib:.4f} ms", flush=True)
+    return times
+
+
+class LaunchSplit:
+    """Wraps ``FedRuntime.round`` and ``FedRuntime.val`` while installed:
+    keeps the kernel launches each call made (the counts read before and
+    after it), so the run's launches split into rounds and validation
+    batches by measurement."""
+
+    def __init__(self, counts):
+        from commefficient_torch.core.runtime import FedRuntime
+        self.cls, self.counts = FedRuntime, counts
+        self.orig = {"round": FedRuntime.round, "val": FedRuntime.val}
+        self.calls = {"round": [], "val": []}
+
+    def __enter__(self):
+        for kind, orig in self.orig.items():
+            setattr(self.cls, kind, self._wrap(orig, self.calls[kind]))
+        return self
+
+    def _wrap(self, orig, calls):
+        counts = self.counts
+
+        def wrapped(*args, **kw):
+            before = counts()
+            out = orig(*args, **kw)
+            after = counts()
+            calls.append({n: after[n] - before[n] for n in after})
+            return out
+
+        return wrapped
+
+    def __exit__(self, *exc):
+        for kind, orig in self.orig.items():
+            setattr(self.cls, kind, orig)
+
+    def total(self, kind: str) -> dict:
+        return {n: sum(c[n] for c in self.calls[kind])
+                for n in self.counts()}
+
+
+def phase_gpt2_main(extra=()):
     """Four GPT-2 rounds at GPT-2 small's width through the user's entry
-    point, then its validation."""
+    point, each round an epoch with its validation; ``extra`` flags after
+    the main path's. Every round must launch exactly GPT2_PER_ROUND and
+    every validation batch GPT2_VAL_FWD K3 forward kernels and nothing
+    else (``LaunchSplit``), and the two must add up to the run's counts.
+    Returns the measured launches of the rounds and of the validations,
+    and the median round time (ms)."""
     import numpy as np
     import torch
     from commefficient_torch import gpt2_train
@@ -1106,42 +1521,58 @@ def phase_gpt2_main():
             "--virtual_momentum", "0.9", "--num_workers", "8",
             "--local_batch_size", "4", "--num_candidates", "2",
             "--max_seq_len", "1024", "--k", "50000", "--num_rows", "5",
-            "--num_cols", "524288", "--num_rounds", str(GPT2_ROUNDS)]
+            "--num_cols", "524288", "--num_rounds", str(GPT2_ROUNDS),
+            *extra]
+    tag = " ".join(extra) or "bytes on"
     print("[gpt2] python -m commefficient_torch.gpt2_train " + " ".join(argv),
           flush=True)
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     FA.reset_launches()
-    out = gpt2_train.main(argv)
+    with LaunchSplit(gpt2_train.kernel_launches) as split:
+        out = gpt2_train.main(argv)
     total = gpt2_train.kernel_launches()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    rounds = out["launches_after_rounds"]
-    val = {name: total[name] - rounds[name] for name in total}
-    if out["rounds"] != GPT2_ROUNDS:
-        fail(f"ran {out['rounds']} GPT-2 rounds, wanted {GPT2_ROUNDS}")
+    rounds, val = split.total("round"), split.total("val")
+    val_batch = dict.fromkeys(total, 0)
+    val_batch["flash_fwd"] = GPT2_VAL_FWD
+    if out["rounds"] != GPT2_ROUNDS or len(split.calls["round"]) \
+            != GPT2_ROUNDS or len(split.calls["val"]) != out["val_batches"] \
+            or out["val_batches"] < 1:
+        fail(f"ran {out['rounds']} GPT-2 rounds ({len(split.calls['round'])}"
+             f" measured) and {out['val_batches']} validation batches "
+             f"({len(split.calls['val'])} measured), wanted {GPT2_ROUNDS} "
+             "and some")
     if not np.isfinite(out["losses"]).all() or \
             not math.isfinite(out["val_loss"]):
         fail(f"non-finite GPT-2 losses {out['losses']} / {out['val_loss']}")
-    want = {name: n * GPT2_ROUNDS for name, n in GPT2_PER_ROUND.items()}
-    if rounds != want:
-        fail(f"GPT-2 round launches {rounds}, want {want}")
-    want_val = dict.fromkeys(total, 0)
-    want_val["flash_fwd"] = GPT2_VAL_FWD
-    if val != want_val:
-        fail(f"GPT-2 validation launches {val}, want {want_val}")
+    bad = [("round", i, c) for i, c in enumerate(split.calls["round"])
+           if c != GPT2_PER_ROUND] + \
+          [("validation batch", i, c) for i, c in enumerate(split.calls["val"])
+           if c != val_batch]
+    if bad:
+        fail(f"GPT-2 launches: {bad[:4]}; want {GPT2_PER_ROUND} a round and "
+             f"{val_batch} a validation batch")
+    if {n: rounds[n] + val[n] for n in total} != total:
+        fail(f"GPT-2 launches {total} outside the rounds ({rounds}) and the "
+             f"validation batches ({val})")
     rt = statistics.median(out["round_s"][1:])
     tflops = out["model_flops_per_round"] / rt / 1e12
-    print(f"[gpt2] {GPT2_ROUNDS} rounds: median of rounds 2-{GPT2_ROUNDS} "
-          f"(the first pays one-time set-up) {rt * 1e3:.3f} ms "
+    print(f"[gpt2] {tag}: {GPT2_ROUNDS} rounds: median of rounds "
+          f"2-{GPT2_ROUNDS} (the first pays one-time set-up) "
+          f"{rt * 1e3:.3f} ms "
           f"(all: {[round(t * 1e3, 3) for t in out['round_s']]}), "
           f"{out['tokens_per_round'] / rt:.1f} tokens/s, "
           f"{out['model_flops_per_round'] / 1e12:.3f} model TFLOP/round -> "
           f"{tflops:.2f} TFLOP/s = {100 * tflops * 1e12 / H100_BF16_PER_S:.2f}"
           f"% of 989 TFLOP/s, peak memory {peak / 2**30:.3f} GiB, "
-          f"val nll {out['val_loss']:.4f}; launches: rounds {rounds}, "
-          f"validation {val}", flush=True)
-    return rounds, val
+          f"round losses {[round(float(x), 5) for x in out['losses']]}, "
+          f"val nll {out['val_loss']:.4f}, {out['total_download_mib']:.1f} "
+          f"MiB down, {out['total_upload_mib']:.1f} MiB up; launches "
+          f"measured around each call: rounds {rounds}, validation "
+          f"({out['val_batches']} batches) {val}", flush=True)
+    return rounds, val, rt * 1e3
 
 
 def main() -> int:
@@ -1179,10 +1610,35 @@ def main() -> int:
     phase_small_reference()
     phase_gpt2_reference()
     done("card-vs-CPU rounds")
-    cv_launches = phase_main_path()
+    topk_ms = phase_topk()
+    accounting = phase_accounting()
+    sparse = phase_sparse_encode()
+    done("top-k, byte accounting, sparse re-encode")
+    cv_launches, cv_ms = phase_main_path()
+    cv_off, cv_off_ms = phase_main_path(["--no_track_bytes"])
     done("ResNet-9 main path")
-    gpt2_rounds, gpt2_val = phase_gpt2_main()
+    modes = phase_modes()
+    nan_launches = phase_nan_abort()
+    done("modes and the NaN abort")
+    gpt2_rounds, gpt2_val, gpt2_ms = phase_gpt2_main()
+    gpt2_off, gpt2_off_val, gpt2_off_ms = phase_gpt2_main(
+        ["--no_track_bytes"])
     done("GPT-2 main path")
+    print(f"[bytes] what byte accounting costs a round (medians; bytes on "
+          f"vs --no_track_bytes): ResNet-9 {cv_ms:.3f} vs "
+          f"{cv_off_ms:.3f} ms, GPT-2 {gpt2_ms:.3f} vs {gpt2_off_ms:.3f} "
+          f"ms; round medians by mode (ms): "
+          + ", ".join(f"{m} {ms:.3f}" for m, (_, ms) in modes.items())
+          + "; accounting's device time a round (count + record, ms): "
+          + ", ".join(f"d={d} {kind}: {c:.4f} + {r:.4f}"
+                      for (d, kind), (c, r) in accounting.items())
+          + "; sparse re-encode (ms; index_add_): "
+          + ", ".join(f"d={d}: {a:.4f} ({b:.4f})"
+                      for d, (a, b) in sparse.items())
+          + "; top-k (ms, kernel-free PyTorch): "
+          + ", ".join(f"d={d}: {a:.4f} (torch.topk of the squares "
+                      f"{b:.4f})" for d, (a, b) in topk_ms.items()),
+          flush=True)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("JAX was imported: the port must run without it")
 
@@ -1191,7 +1647,13 @@ def main() -> int:
     kernels = []
     for name, line in (("circ_encode", 144), ("circ_decode", 175)):
         by_path = {"cv_train": cv_launches[name],
-                   "gpt2_train": gpt2_rounds[name] + gpt2_val[name]}
+                   "cv_train --no_track_bytes": cv_off[name],
+                   **{f"cv_train --mode {m}": launches[name]
+                      for m, (launches, _) in modes.items()},
+                   "cv_train planted NaN": nan_launches[name],
+                   "gpt2_train": gpt2_rounds[name] + gpt2_val[name],
+                   "gpt2_train --no_track_bytes": (gpt2_off[name]
+                                                   + gpt2_off_val[name])}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "commefficient_torch/csrc/circulant.cu",
@@ -1202,7 +1664,10 @@ def main() -> int:
     for name, line in (("flash_fwd", 589), ("flash_bwd_dq", 1287),
                        ("flash_bwd_dkv", 941)):
         by_path = {"gpt2_train rounds": gpt2_rounds[name],
-                   "gpt2_train validation": gpt2_val[name]}
+                   "gpt2_train validation": gpt2_val[name],
+                   "gpt2_train --no_track_bytes rounds": gpt2_off[name],
+                   "gpt2_train --no_track_bytes validation":
+                       gpt2_off_val[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "commefficient_torch/csrc/flash_attention.cu",

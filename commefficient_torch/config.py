@@ -1,14 +1,20 @@
-"""Run configuration of the PyTorch port: the slice of the JAX package's
+"""Run configuration of the PyTorch port: the part of the JAX package's
 ``FedConfig`` that the port runs, plus ``auto_num_cols``.
 
-The slice is the FetchSGD round (``mode sketch`` with the circulant count
-sketch, ``error_type virtual``, no local momentum, the zero error-feedback
-rule, fused clients with the fused sketch encode, each client's batch one
-microbatch, on one device) of two models: ResNet-9 on CIFAR10
-(``cv_train``) and GPT-2 DoubleHeads on PersonaChat (``gpt2_train``). A
-value or flag outside it raises and names the flag. Defaults are the JAX
-package's (its ``config.py``), except ``local_momentum``, whose reference
-default 0.9 is illegal in sketch mode.
+The port runs the single-device round in every mode of ``MODES``
+(uncompressed, true_topk, local_topk, fedavg and the FetchSGD sketch with
+the circulant count sketch and either error-feedback rule), with local
+momentum and local or virtual error, microbatches, whole-client batches
+and byte accounting, of two models: ResNet-9 on CIFAR10 (``cv_train``)
+and GPT-2 DoubleHeads on PersonaChat (``gpt2_train``). A value or flag
+outside it raises and names the flag: the other sketches, DP, clipping,
+topk-down, the bf16 and int8 wires and meshes are not ported. Which
+combinations of mode, error type and momentum are legal is the server's
+rule (``core/server.py validate_mode_combo``), checked when a runtime is
+built, as in the JAX package. Defaults are the JAX package's (its
+``config.py``), except ``local_momentum`` (0, not 0.9) and
+``error_type`` (virtual, not none): the reference's defaults are illegal
+in the default sketch mode.
 """
 
 from __future__ import annotations
@@ -16,6 +22,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from typing import Optional, Sequence
+
+MODES = ("sketch", "true_topk", "local_topk", "fedavg", "uncompressed")
+ERROR_TYPES = ("none", "local", "virtual")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,20 +43,28 @@ class FedConfig:
     virtual_momentum: float = 0.0
     weight_decay: float = 5e-4
     num_epochs: float = 24.0
+    num_fedavg_epochs: int = 1
+    fedavg_batch_size: int = -1
+    fedavg_lr_decay: float = 1.0
     error_type: str = "virtual"
     lr_scale: Optional[float] = 0.4
     pivot_epoch: float = 5.0
     num_clients: Optional[int] = None
     num_workers: int = 1
-    local_batch_size: int = 8
+    local_batch_size: int = 8      # -1: each client's whole dataset
     valid_batch_size: int = 8
+    microbatch_size: int = -1      # -1: the whole batch in one fwd/bwd
+    # the static bound that whole-client batches are padded to
+    max_client_batch: int = 512
+    track_bytes: bool = True
     compute_dtype: str = "bfloat16"
     sketch_seed: int = 42
     sketch_ef: str = "zero"
+    sketch_fused_encode: str = "auto"
     error_decay: float = 1.0
     approx_topk: bool = False
+    strict_regimes: bool = False
     grad_size: int = 0
-    microbatch_size: int = -1
     # GPT-2 / PersonaChat (gpt2_train)
     do_test: bool = False
     dataset_dir: str = "./dataset"
@@ -61,41 +78,76 @@ class FedConfig:
     attn_impl: str = "auto"
 
     def __post_init__(self):
-        fixed = {"mode": "sketch", "error_type": "virtual",
-                 "sketch_ef": "zero", "local_momentum": 0.0}
-        for name, want in fixed.items():
-            if getattr(self, name) != want:
-                raise ValueError(
-                    f"--{name} {getattr(self, name)!r} is outside the "
-                    f"PyTorch port's slice (only {want!r} is ported)")
+        choices = {"mode": MODES, "error_type": ERROR_TYPES,
+                   "sketch_ef": ("zero", "subtract"),
+                   "sketch_fused_encode": ("auto", "on", "off"),
+                   "attn_impl": ("auto", "dense", "flash"),
+                   "compute_dtype": ("bfloat16", "float32")}
+        for name, legal in choices.items():
+            if getattr(self, name) not in legal:
+                raise ValueError(f"--{name} {getattr(self, name)!r}: want "
+                                 "one of " + ", ".join(legal))
         if (self.model, self.dataset_name) not in MODEL_DATASETS:
             raise ValueError(
                 f"--model {self.model} --dataset_name {self.dataset_name} "
                 "is outside the PyTorch port's slice (ported: "
                 + ", ".join(f"{m} on {d}" for m, d in MODEL_DATASETS) + ")")
-        if self.microbatch_size not in (-1, self.local_batch_size):
-            raise ValueError(
-                f"--microbatch_size {self.microbatch_size}: the port runs "
-                "each client's batch as one microbatch (-1 or "
-                "--local_batch_size)")
-        if self.attn_impl not in ("auto", "dense", "flash"):
-            raise ValueError(f"--attn_impl {self.attn_impl!r}: want auto, "
-                             "dense or flash")
-        if self.compute_dtype not in ("bfloat16", "float32"):
-            raise ValueError(f"--compute_dtype {self.compute_dtype!r}: "
-                             "want bfloat16 or float32")
-        if self.local_batch_size <= 0:
-            raise ValueError(
-                f"--local_batch_size {self.local_batch_size}: the port "
-                "takes a fixed positive batch (whole-client batches, -1, "
-                "are outside its slice)")
+        if self.local_batch_size == 0 or self.local_batch_size < -1:
+            raise ValueError(f"--local_batch_size {self.local_batch_size}: "
+                             "want a positive batch, or -1 for each "
+                             "client's whole dataset")
+        if self.microbatch_size == 0 or self.microbatch_size < -1:
+            raise ValueError(f"--microbatch_size {self.microbatch_size}: "
+                             "want a positive size, or -1 for the whole "
+                             "batch")
         if self.num_workers < 1 or self.k < 1 or self.num_rows < 1 \
-                or self.num_cols < 1:
-            raise ValueError("--num_workers, --k, --num_rows and "
-                             "--num_cols must be positive")
+                or self.num_cols < 1 or self.max_client_batch < 1 \
+                or self.num_fedavg_epochs < 1:
+            raise ValueError("--num_workers, --k, --num_rows, --num_cols, "
+                             "--max_client_batch and --num_fedavg_epochs "
+                             "must be positive")
+        if self.sketch_fused_encode == "on" and self.mode != "sketch":
+            raise ValueError(
+                f"--sketch_fused_encode on requires --mode sketch (mode="
+                f"{self.mode} has no sketch encode to fuse); use auto")
+        if self.mode == "fedavg" and self.local_batch_size != -1:
+            # the reference's invariant (its utils.py:225-228); the mode,
+            # error and momentum rules are validate_mode_combo's
+            raise ValueError("--mode fedavg requires --local_batch_size -1")
 
     def replace(self, **kw) -> "FedConfig":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def upload_floats(self) -> int:
+        """Floats a participating client uploads a round (the reference's
+        byte table, fed_aggregator.py:291-299)."""
+        return {
+            "uncompressed": self.grad_size,
+            "true_topk": self.grad_size,
+            "local_topk": self.k,
+            "sketch": self.num_rows * self.num_cols,
+            "fedavg": self.grad_size,
+        }[self.mode]
+
+    def upload_wire_bytes(self) -> float:
+        """A participating client's upload bytes a round: 4 a float on the
+        float32 wire, the only wire the port runs (``--wire_dtype`` is not
+        ported)."""
+        return 4.0 * self.upload_floats
+
+    @property
+    def needs_client_velocities(self) -> bool:
+        return self.local_momentum > 0
+
+    @property
+    def needs_client_errors(self) -> bool:
+        return self.error_type == "local"
+
+    def default_num_clients(self) -> int:
+        if self.num_clients is not None:
+            return self.num_clients
+        return {"CIFAR10": 10, "PERSONA": 17568}[self.dataset_name]
 
 
 MODEL_DATASETS = (("ResNet9", "CIFAR10"), ("GPT2", "PERSONA"))
@@ -115,7 +167,7 @@ def auto_num_cols(num_cols: int) -> int:
 
 
 def add_args(p: argparse.ArgumentParser) -> None:
-    """The slice's flags, named as in the JAX package's parser."""
+    """The port's flags, named as in the JAX package's parser."""
     p.add_argument("--mode", default="sketch")
     p.add_argument("--seed", type=int, default=21)
     p.add_argument("--model", default="ResNet9")
@@ -130,6 +182,9 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--virtual_momentum", type=float, default=0.0)
     p.add_argument("--weight_decay", type=float, default=5e-4)
     p.add_argument("--num_epochs", type=float, default=24)
+    p.add_argument("--num_fedavg_epochs", type=int, default=1)
+    p.add_argument("--fedavg_batch_size", type=int, default=-1)
+    p.add_argument("--fedavg_lr_decay", type=float, default=1.0)
     p.add_argument("--error_type", default="virtual")
     p.add_argument("--lr_scale", type=float, default=0.4)
     p.add_argument("--pivot_epoch", type=float, default=5)
@@ -137,14 +192,19 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--num_workers", type=int, default=1)
     p.add_argument("--local_batch_size", type=int, default=8)
     p.add_argument("--valid_batch_size", type=int, default=8)
+    p.add_argument("--microbatch_size", type=int, default=-1)
+    p.add_argument("--max_client_batch", type=int, default=512)
+    p.add_argument("--no_track_bytes", dest="track_bytes",
+                   action="store_false", default=True)
     p.add_argument("--compute_dtype", default="bfloat16")
     p.add_argument("--sketch_seed", type=int, default=42)
     p.add_argument("--sketch_ef", default="zero")
+    p.add_argument("--sketch_fused_encode", default="auto")
     p.add_argument("--error_decay", type=float, default=1.0)
     p.add_argument("--approx_topk", action="store_true",
                    help="accepted for the reference's command lines; the "
                         "port's top-k is exact either way")
-    p.add_argument("--microbatch_size", type=int, default=-1)
+    p.add_argument("--strict_regimes", action="store_true")
 
 
 def add_gpt2_args(p: argparse.ArgumentParser) -> None:
@@ -171,12 +231,16 @@ def config_from_args(ns: argparse.Namespace) -> FedConfig:
 def parse_known(parser: argparse.ArgumentParser,
                 argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """``parse_known_args`` that raises on any flag outside the slice,
-    naming it (the JAX package's other flags are not ported yet)."""
+    naming it (the JAX package's other flags, such as ``--dp``,
+    ``--topk_down``, ``--max_grad_norm``, ``--sketch_impl`` (the port runs
+    the circulant sketch) and ``--wire_dtype`` (the float32 wire), are
+    not ported yet)."""
     ns, rest = parser.parse_known_args(argv)
     if rest:
         flags = [a for a in rest if a.startswith("-")] or rest
         raise ValueError(
             f"{' '.join(flags)}: outside the PyTorch port's slice "
-            "(sketch-mode ResNet-9 on CIFAR10 or GPT-2 on PersonaChat, "
-            "one device)")
+            "(ResNet-9 on CIFAR10 or GPT-2 on PersonaChat, one device, the "
+            "circulant sketch and the float32 wire; no DP, clipping, "
+            "topk-down or meshes)")
     return ns

@@ -1,59 +1,222 @@
-"""The fused client step, counterpart of the JAX package's ``core/client.py
-make_fused_grad`` with ``fused_encode=True``.
+"""Client-side computation, counterpart of the JAX package's
+``core/client.py``: microbatched gradients, the client step with local
+momentum, local error and the local top-k, the FedAvg local-SGD loop, and
+the fused sketch step.
 
-The server consumes ``sum_c n_c g_c``: each client's gradient plus the
-weight-decay term, weighted by its datum count n_c. That sum is linear, so
-one loop over the round's clients (each client's batch is one microbatch,
-the reference's default) streams each flat gradient into ONE (r, c) sketch
-table, scaled by n_c on the way in (one K1 launch each); the dense round
-gradient never exists. Weight decay enters the same table by linearity.
+A client's batch is padded to a fixed shape with a validity mask. Its
+gradient is the sum over its microbatches of each microbatch's mean
+gradient (the reference's ``loss.backward()`` accumulation), plus the
+decoupled weight decay ``weight_decay / num_workers * w``. Where the JAX
+package ``vmap``s or ``scan``s, the port loops in Python over the
+round's clients and a client's microbatches.
+
+``loss_fn(flat, batch, mask) -> (loss, (acc,))`` follows the contract of
+losses.py: masked means over the valid items of a batch.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import math
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from commefficient_torch.config import FedConfig
+from commefficient_torch.ops.topk import topk
 
 
-def make_fused_grad(cfg: FedConfig, loss_fn: Callable):
-    """Returns ``fused(params_vec, batch, mask, cs) -> (table, results,
-    n_per_client)``. ``batch`` leaves are (W, B, ...) tensors, ``mask`` a
-    (W, B) bool tensor; ``results`` is a tuple (loss, acc) of (W,)
-    per-client means over the valid items."""
+class ClientOut(NamedTuple):
+    transmit: torch.Tensor             # what the client uploads, x n_c
+    velocity: Optional[torch.Tensor]   # its new local velocity row
+    error: Optional[torch.Tensor]      # its new local error row
+    results: torch.Tensor              # (2,): mean loss and accuracy
+    n_valid: torch.Tensor              # () valid items processed
 
-    def fused(params_vec: torch.Tensor, batch: Dict[str, torch.Tensor],
-              mask: torch.Tensor, cs) -> Tuple[torch.Tensor, Tuple,
-                                               torch.Tensor]:
+
+def _num_microbatches(cfg: FedConfig, batch_size: int) -> Tuple[int, int]:
+    """``(number of microbatches, microbatch size)`` of a batch."""
+    if cfg.microbatch_size > 0:
+        mb = min(batch_size, cfg.microbatch_size)
+    else:
+        mb = batch_size
+    return math.ceil(batch_size / mb), mb
+
+
+def _pad(batch: Dict[str, torch.Tensor], mask: torch.Tensor, to: int):
+    """Pad the items of ``batch`` and ``mask`` with zeros (invalid) up to
+    ``to``, as the JAX package pads a batch whose size the microbatch or
+    chunk does not divide."""
+    pad = to - mask.shape[0]
+    if pad == 0:
+        return batch, mask
+    batch = {k: torch.cat((v, v.new_zeros((pad,) + v.shape[1:])))
+             for k, v in batch.items()}
+    return batch, torch.cat((mask, mask.new_zeros(pad)))
+
+
+def _grad(loss_fn: Callable, params_vec: torch.Tensor, batch, mask):
+    """``(loss, acc, gradient of the mean loss)`` at ``params_vec``."""
+    w = params_vec.detach().requires_grad_(True)
+    loss, (acc,) = loss_fn(w, batch, mask)
+    (g,) = torch.autograd.grad(loss, w)
+    return loss.detach(), acc.detach(), g
+
+
+def make_forward_grad(cfg: FedConfig, loss_fn: Callable, batch_size: int):
+    """The microbatched gradient of one client (reference
+    fed_worker.py:249-335). Returns ``fwd(params_vec, batch, mask) -> (g,
+    results, n_valid)``: ``g`` the (d,) sum over microbatches of their
+    mean gradients plus the weight-decay term, ``results`` the (2,) mean
+    loss and accuracy over the valid items."""
+    num_iters, mb = _num_microbatches(cfg, batch_size)
+
+    def fwd(params_vec: torch.Tensor, batch: Dict[str, torch.Tensor],
+            mask: torch.Tensor):
+        batch, mask = _pad(batch, mask, num_iters * mb)
+        g = None
+        sums = torch.zeros(2, dtype=torch.float32, device=params_vec.device)
+        for i in range(num_iters):
+            sl = slice(i * mb, (i + 1) * mb)
+            mb_mask = mask[sl]
+            loss, acc, g_mb = _grad(loss_fn, params_vec,
+                                    {k: v[sl] for k, v in batch.items()},
+                                    mb_mask)
+            g = g_mb if g is None else g + g_mb
+            sums += torch.stack((loss, acc)) * mb_mask.to(torch.float32).sum()
+        n_valid = mask.to(torch.float32).sum()
+        results = sums / torch.clamp(n_valid, min=1.0)
+        if cfg.weight_decay != 0:
+            g = g + (cfg.weight_decay / cfg.num_workers) * params_vec
+        return g, results, n_valid
+
+    return fwd
+
+
+def make_client_step(cfg: FedConfig, loss_fn: Callable, batch_size: int):
+    """One client's round (reference fed_worker.py:184-230). Returns
+    ``step(params_vec, batch, mask, velocity, error) -> ClientOut``;
+    ``velocity`` and ``error`` are the client's rows, or None when the
+    mode keeps none. The transmit is dense: the sketch mode's per-client
+    path sums the clients' transmits and encodes once."""
+    fwd = make_forward_grad(cfg, loss_fn, batch_size)
+
+    def step(params_vec, batch, mask, velocity=None,
+             error=None) -> ClientOut:
+        g, results, n_valid = fwd(params_vec, batch, mask)
+        # weighted by the datum count: the server divides by the round's
+        g = g * n_valid
+        new_velocity, new_error = velocity, error
+        if cfg.local_momentum > 0:
+            new_velocity = cfg.local_momentum * velocity + g
+            base = new_velocity
+        else:
+            base = g
+        if cfg.error_type == "local":
+            new_error = error + base
+            to_transmit = new_error
+        else:
+            to_transmit = base
+        if cfg.mode == "local_topk":
+            to_transmit = topk(to_transmit, cfg.k, approx=cfg.approx_topk)
+            nz = to_transmit != 0
+            if new_error is not None:
+                new_error = new_error.masked_fill(nz, 0.0)
+            if cfg.local_momentum > 0:
+                new_velocity = new_velocity.masked_fill(nz, 0.0)
+        return ClientOut(to_transmit, new_velocity, new_error, results,
+                         n_valid)
+
+    return step
+
+
+def make_fedavg_client(cfg: FedConfig, loss_fn: Callable, batch_size: int):
+    """The FedAvg local-SGD loop (reference fed_worker.py:61-113): the
+    client's whole padded dataset is cut into ``fedavg_batch_size``
+    chunks and trained for ``num_fedavg_epochs`` epochs of SGD with the
+    rate decayed by ``fedavg_lr_decay ** step``; the transmit is the
+    weight delta times the client's datum count.
+
+    Returns ``step(params_vec, batch, mask, mask_host, lr) -> ClientOut``;
+    ``mask_host`` is the mask as a numpy array. A chunk with no valid item
+    is a no-op, as in the JAX package (no step, no decay, no metric), and
+    is skipped without running it."""
+    if cfg.fedavg_batch_size == -1:
+        chunk = batch_size
+    else:
+        chunk = min(cfg.fedavg_batch_size, batch_size)
+    n_chunks = math.ceil(batch_size / chunk)
+    fwd = make_forward_grad(cfg, loss_fn, chunk)
+
+    def step(params_vec, batch, mask, mask_host: np.ndarray,
+             lr: torch.Tensor) -> ClientOut:
+        n_c = mask.to(torch.float32).sum()
+        batch, mask = _pad(batch, mask, n_chunks * chunk)
+        w = params_vec
+        res = torch.zeros(2, dtype=torch.float32, device=w.device)
+        decay = torch.tensor(cfg.fedavg_lr_decay, dtype=torch.float32,
+                             device=w.device)
+        step_idx = 0
+        for _ in range(cfg.num_fedavg_epochs):
+            for i in range(n_chunks):
+                sl = slice(i * chunk, (i + 1) * chunk)
+                if not mask_host[sl].any():
+                    continue
+                g, results, n_valid = fwd(
+                    w, {k: v[sl] for k, v in batch.items()}, mask[sl])
+                w = w - g * (lr * decay ** step_idx)
+                res = res + results * n_valid
+                step_idx += 1
+        results = res / torch.clamp(n_c * cfg.num_fedavg_epochs, min=1.0)
+        return ClientOut((params_vec - w) * n_c, None, None, results, n_c)
+
+    return step
+
+
+def make_fused_grad(cfg: FedConfig, loss_fn: Callable, batch_size: int):
+    """The fused sketch step (reference ``make_fused_grad`` with
+    ``fused_encode=True``). The server consumes ``sum_c n_c g_c``, which
+    is linear in the microbatch gradients, so every microbatch gradient
+    of every client streams into ONE (r, c) table, scaled by its client's
+    datum count n_c (one K1 launch each); the dense round gradient never
+    exists. A microbatch never straddles two clients: a client's batch
+    that the microbatch does not divide is padded with invalid items.
+    Weight decay enters the same table by linearity (one more launch).
+
+    Returns ``fused(params_vec, batch, mask, mask_host, cs) -> (table,
+    results (W, 2), n_per_client (W,))``; ``batch`` leaves are (W, B,
+    ...) tensors, ``mask`` (W, B) bool and ``mask_host`` its numpy
+    copy."""
+    num_iters, mb = _num_microbatches(cfg, batch_size)
+
+    def fused(params_vec, batch, mask, mask_host: np.ndarray, cs):
         W = mask.shape[0]
-        maskf = mask.to(torch.float32)
-        n_per_client = maskf.sum(dim=1)
-        # the per-microbatch scales go to the kernel as host floats: one
-        # copy of the (W, B) mask per round instead of a sync per launch
-        n_host = mask.detach().cpu().numpy().sum(axis=1).astype(np.float32)
+        n_per_client = mask.to(torch.float32).sum(dim=1)
+        # the scales go to the kernel as host floats, from the round's one
+        # copy of the mask
+        n_host = mask_host.sum(axis=1).astype(np.float32)
         table = cs.empty_table()
-        sums = torch.zeros((2, W), dtype=torch.float32,
+        sums = torch.zeros((W, 2), dtype=torch.float32,
                            device=params_vec.device)
         for c in range(W):
-            w = params_vec.detach().requires_grad_(True)
-            loss, (acc,) = loss_fn(w, {k: v[c] for k, v in batch.items()},
-                                   mask[c])
-            (g,) = torch.autograd.grad(loss, w)
-            table = cs.encode_accum(table, g, 0, scale=float(n_host[c]))
-            with torch.no_grad():
-                sums[:, c] = torch.stack((loss.detach(), acc)) \
-                    * n_per_client[c]
-        # decoupled weight decay summed over the round's clients
+            cb, cm = _pad({k: v[c] for k, v in batch.items()}, mask[c],
+                          num_iters * mb)
+            for i in range(num_iters):
+                sl = slice(i * mb, (i + 1) * mb)
+                loss, acc, g = _grad(loss_fn, params_vec,
+                                     {k: v[sl] for k, v in cb.items()},
+                                     cm[sl])
+                table = cs.encode_accum(table, g, 0, scale=float(n_host[c]))
+                sums[c] += torch.stack((loss, acc)) \
+                    * cm[sl].to(torch.float32).sum()
+        # decoupled weight decay summed over the round's clients,
         # (wd / num_workers) * sum_c n_c, encoded by linearity
         if cfg.weight_decay != 0:
             wd_scale = float(np.float32(cfg.weight_decay / cfg.num_workers)
                              * n_host.sum(dtype=np.float32))
             table = cs.encode_accum(table, params_vec, 0, scale=wd_scale)
-        denom = torch.clamp(n_per_client, min=1.0)
-        return table, (sums[0] / denom, sums[1] / denom), n_per_client
+        return table, sums / torch.clamp(n_per_client, min=1.0)[:, None], \
+            n_per_client
 
     return fused
 

@@ -1,13 +1,17 @@
-"""Federated CV training entry point of the PyTorch port (sketch-mode
-ResNet-9 on CIFAR10).
+"""Federated CV training entry point of the PyTorch port (ResNet-9 on
+CIFAR10, every mode of the JAX package's single-device round).
 
     python -m commefficient_torch.cv_train --dataset_name CIFAR10 \\
         --model ResNet9 --mode sketch --error_type virtual \\
         --virtual_momentum 0.9 --num_workers 8 --local_batch_size 64 \\
         --k 50000 --num_rows 5 --num_cols 500000 --num_rounds 5
 
-Runs on the card unless ``--device cpu`` is given. Prints one row per
-round (loss, accuracy, round time) and a validation row at the end. The
+``--mode`` takes sketch, true_topk, local_topk, fedavg or uncompressed
+(fedavg with ``--local_batch_size -1 --error_type none``). Runs on the
+card unless ``--device cpu`` is given. At each epoch's end it prints the
+epoch's rounds (loss, accuracy, round time), validates, and prints the
+reference's epoch row (train and test loss and accuracy, download and
+upload MiB); at the end the run's byte totals and the TSV record. The
 data is the synthetic CIFAR10 set of data/fed_cifar.py.
 """
 
@@ -20,12 +24,13 @@ import numpy as np
 import torch
 
 from commefficient_torch.config import add_args, config_from_args, parse_known
-from commefficient_torch.core.driver import train, validate
+from commefficient_torch.core.driver import train
 from commefficient_torch.core.runtime import FedRuntime
 from commefficient_torch.data.fed_cifar import FedCIFAR10
 from commefficient_torch.data.transforms import CifarEval, CifarTrain
 from commefficient_torch.losses import make_cv_loss
 from commefficient_torch.models.resnet9 import ResNet9
+from commefficient_torch.utils.logging import TableLogger, Timer, TSVLogger
 from commefficient_torch.utils.schedules import lr_schedule_for
 
 
@@ -58,27 +63,39 @@ def setup(ns: argparse.Namespace):
     val_ds = FedCIFAR10(train=False,
                         synthetic_per_class=cfg.synthetic_per_class,
                         transform=CifarEval())
+    cfg = cfg.replace(num_clients=train_ds.num_clients)
     gen = torch.Generator().manual_seed(cfg.seed)
     model = ResNet9(do_batchnorm=cfg.do_batchnorm, num_classes=10,
                     generator=gen)
     loss_fn = make_cv_loss(model, cfg.compute_dtype)
     runtime = FedRuntime(cfg, model, loss_fn, device=device)
     cfg = runtime.cfg
-    print(f"d={cfg.grad_size} c={cfg.num_cols} r={cfg.num_rows} k={cfg.k} "
-          f"W={cfg.num_workers} B={cfg.local_batch_size} device={device}")
+    print(f"mode={cfg.mode} d={cfg.grad_size} c={cfg.num_cols} "
+          f"r={cfg.num_rows} k={cfg.k} W={cfg.num_workers} "
+          f"B={runtime.batch_size} clients={runtime.num_clients} "
+          f"device={device}")
     return runtime, runtime.init_state(), train_ds, val_ds
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Runs the flags ``argv``; returns the run's per-round losses and
+    host-clock round times, the last epoch row (``summary``, None after a
+    divergence abort), the final state and the run's byte totals."""
+    timer = Timer()
     ns = parse_known(build_parser(), argv)
     runtime, state, train_ds, val_ds = setup(ns)
-    state, times, losses = train(runtime, state, train_ds,
-                                 lr_schedule_for(runtime.cfg), ns.num_rounds)
-    val_loss, val_acc = validate(runtime, state, val_ds,
-                                 runtime.cfg.valid_batch_size)
-    print(f"val loss {val_loss:.5f} acc {val_acc:.4f}")
-    return {"losses": losses, "round_s": times, "val_loss": val_loss,
-            "val_acc": val_acc, "rounds": len(losses)}
+    tsv = TSVLogger()
+    state, summary, log = train(runtime, state, train_ds, val_ds,
+                                lr_schedule_for(runtime.cfg), ns.num_rounds,
+                                loggers=(TableLogger(), tsv), timer=timer)
+    print(tsv)
+    return {"losses": log.losses, "round_s": log.round_s,
+            "rounds": len(log.losses), "summary": summary, "state": state,
+            "val_loss": summary["test_loss"] if summary else float("nan"),
+            "val_acc": summary["test_acc"] if summary else float("nan"),
+            "total_download_mib": log.total_download_mib,
+            "total_upload_mib": log.total_upload_mib,
+            "runtime": runtime}
 
 
 if __name__ == "__main__":

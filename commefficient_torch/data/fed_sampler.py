@@ -8,6 +8,8 @@ every round samples ``num_workers`` clients uniformly without replacement
 from the clients with data left; each contributes up to B of its remaining
 items; an epoch ends when fewer than ``num_workers`` clients have data
 left (reference fed_sampler.py:5-71 and cv_train.py:205-219).
+``local_batch_size == -1`` takes each client's whole dataset, padded to
+``max_client_batch`` (a larger client gives a chunk a round).
 """
 
 from __future__ import annotations
@@ -25,11 +27,15 @@ class Round(NamedTuple):
 
 class FedSampler:
     def __init__(self, data_per_client: np.ndarray, num_workers: int,
-                 local_batch_size: int, seed: Optional[int] = None):
+                 local_batch_size: int, max_client_batch: int = 512,
+                 seed: Optional[int] = None):
         self.data_per_client = np.asarray(data_per_client, dtype=np.int64)
         self.num_clients = len(self.data_per_client)
         self.num_workers = min(num_workers, self.num_clients)
-        self.batch = int(local_batch_size)
+        if local_batch_size == -1:
+            self.batch = int(max_client_batch)
+        else:
+            self.batch = int(local_batch_size)
         self.rng = np.random.RandomState(seed)
         self.offsets = np.concatenate(
             [[0], np.cumsum(self.data_per_client)[:-1]])

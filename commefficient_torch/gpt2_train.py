@@ -1,6 +1,6 @@
 """GPT-2 DoubleHeads on federated PersonaChat, entry point of the PyTorch
-port (the FetchSGD sketch round of the JAX package's ``gpt2_train.py``,
-without checkpointing, telemetry or meshes).
+port (the JAX package's ``gpt2_train.py`` without checkpoints, telemetry
+or meshes; the FetchSGD sketch round is the path built for the card).
 
     python -m commefficient_torch.gpt2_train --mode sketch \\
         --error_type virtual --virtual_momentum 0.9 --num_workers 8 \\
@@ -11,10 +11,12 @@ Runs on the card unless ``--device cpu`` is given. GPT-2 small's width
 (n_embd 768, 12 layers, 12 heads) over the HashTokenizer vocabulary of
 data/fed_persona.py; ``--test`` runs ``GPT2Config.small`` with a 10-column
 sketch, one round and one validation batch, as the JAX package's
-gpt2_train does (``--num_rounds`` more: one round per epoch). Prints one
-row per round (loss, MC accuracy, round time), then the validation NLL,
-perplexity and MC accuracy, and the analytic tokens and model FLOPs per
-round (``gpt2_model_flops``).
+gpt2_train does (``--num_rounds`` more: one round per epoch). The epoch
+loop is ``cv_train``'s (core/driver.py): at each epoch's end the epoch's
+rounds (loss, MC accuracy, round time), the validation and the epoch row
+with its download and upload MiB; at the end the validation NLL,
+perplexity and MC accuracy of the last epoch, and the analytic tokens and
+model FLOPs per round (``gpt2_model_flops``).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 from commefficient_torch.config import (add_args, add_gpt2_args,
                                         config_from_args, parse_known)
-from commefficient_torch.core.driver import train, validate
+from commefficient_torch.core.driver import train
 from commefficient_torch.core.runtime import FedRuntime
 from commefficient_torch.data.fed_persona import FedPERSONA, HashTokenizer
 from commefficient_torch.losses import (COMPUTE_DTYPES,
@@ -38,6 +40,7 @@ from commefficient_torch.losses import (COMPUTE_DTYPES,
 from commefficient_torch.models.gpt2 import (GPT2Config, GPT2DoubleHeads,
                                              gpt2_model_flops)
 from commefficient_torch.ops import circulant_kernels, flash_attention
+from commefficient_torch.utils.logging import TableLogger, Timer, TSVLogger
 from commefficient_torch.utils.schedules import make_gpt2_schedule
 
 
@@ -113,33 +116,41 @@ def kernel_launches() -> dict:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
+    timer = Timer()
     ns = parse_known(build_parser(), argv)
     runtime, state, train_ds, val_ds, gcfg = setup(ns)
     cfg = runtime.cfg
-    tokens = (cfg.num_workers * cfg.local_batch_size * cfg.num_candidates
+    tokens = (cfg.num_workers * runtime.batch_size * cfg.num_candidates
               * cfg.max_seq_len)
     flops = gpt2_model_flops(gcfg, tokens, cfg.max_seq_len)
-    # --test: one round, as the JAX package's loop breaks after it, unless
-    # --num_rounds asks for more (one per epoch)
-    state, times, losses = train(
-        runtime, state, train_ds, make_gpt2_schedule(cfg),
+    # --test: one round and one validation batch, as the JAX package's
+    # loop breaks after them, unless --num_rounds asks for more rounds
+    # (one per epoch)
+    tsv = TSVLogger()
+    state, summary, log = train(
+        runtime, state, train_ds, val_ds, make_gpt2_schedule(cfg),
         ns.num_rounds or (1 if cfg.do_test else 0),
-        max_per_epoch=1 if cfg.do_test else None)
-    round_launches = kernel_launches()
-    nll, acc = validate(runtime, state, val_ds, cfg.valid_batch_size,
-                        max_batches=1 if cfg.do_test else None)
-    ppl = math.exp(min(nll, 20))
+        max_per_epoch=1 if cfg.do_test else None,
+        val_max_batches=1 if cfg.do_test else None,
+        loggers=(TableLogger(), tsv), timer=timer)
+    print(tsv)
+    nll = summary["test_loss"] if summary else float("nan")
+    acc = summary["test_acc"] if summary else float("nan")
+    ppl = math.exp(min(nll, 20)) if summary else float("nan")
     print(f"final val nll {nll:.4f} ppl {ppl:.2f} mc acc {acc:.4f}")
-    if times:
-        rt = statistics.median(times)
+    if log.round_s:
+        rt = statistics.median(log.round_s)
         print(f"{tokens} tokens and {flops / 1e12:.3f} model TFLOP per "
               f"round (analytic); median round {rt:.4f} s: "
               f"{tokens / rt:.1f} tokens/s, {flops / rt / 1e12:.3f} "
               f"TFLOP/s on {runtime.device}")
-    return {"losses": losses, "round_s": times, "val_loss": nll,
-            "val_ppl": ppl, "val_acc": acc, "rounds": len(losses),
-            "tokens_per_round": tokens, "model_flops_per_round": flops,
-            "launches_after_rounds": round_launches}
+    return {"losses": log.losses, "round_s": log.round_s, "val_loss": nll,
+            "val_ppl": ppl, "val_acc": acc, "rounds": len(log.losses),
+            "summary": summary, "state": state,
+            "val_batches": log.val_batches,
+            "total_download_mib": log.total_download_mib,
+            "total_upload_mib": log.total_upload_mib,
+            "tokens_per_round": tokens, "model_flops_per_round": flops}
 
 
 if __name__ == "__main__":

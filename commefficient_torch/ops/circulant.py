@@ -66,6 +66,17 @@ class CirculantSketch:
             torch.div(idx, self.c, rounding_mode="floor")]
         return (idx % self.c + s) % self.c
 
+    def _signs_and_buckets(self, idx: torch.Tensor):
+        """``(signs (r, k), buckets (r, k))`` of global coordinates ``idx``
+        in every row at once: ``_sign_of`` and ``_buckets_of`` for all r
+        rows in one pass each."""
+        idx = idx.to(torch.int64)
+        keys = self.sign_keys.to(torch.int64) & MASK32
+        sg = signs(idx[None, :], keys[:, None])
+        block = torch.div(idx, self.c, rounding_mode="floor")
+        s = self.shifts.to(torch.int64)[:, block]
+        return sg, (idx % self.c + s) % self.c
+
     # -------------------------------------------------------------- ops
 
     def encode(self, vec: torch.Tensor) -> torch.Tensor:
@@ -96,17 +107,34 @@ class CirculantSketch:
     def encode_vals_at(self, vals: torch.Tensor,
                        idx: torch.Tensor) -> torch.Tensor:
         """The table of the vector holding ``vals`` at ``idx`` and zero
-        elsewhere, at O(k r) cost. ``segment_sum`` becomes ``index_add_``,
-        whose order of addition on the card is not fixed; the server's zero
-        rule only reads which cells are non-zero, so that order does not
-        change the main path (short of an exact cancellation to 0)."""
-        rows = []
-        for j in range(self.r):
-            row = torch.zeros(self.c, dtype=torch.float32, device=vals.device)
-            row.index_add_(0, self._buckets_of(j, idx),
-                           self._sign_of(j, idx) * vals.to(torch.float32))
-            rows.append(row)
-        return torch.stack(rows)
+        elsewhere, at O(k r) cost. The addends of a cell are summed in the
+        order of ``idx`` on every device, as the JAX package's
+        ``segment_sum`` sums them on the CPU: ``index_add_``'s order on
+        the card is not fixed, and the subtract rule reads the sums. So
+        the (row, bucket) cells are sorted stably, each addend gets its
+        rank among its cell's addends, and rank t is added to all cells
+        at once for t = 0, 1, ...: one write a cell a rank, no two writes
+        to a cell in one step. The number of ranks is read back to the
+        host (one sync)."""
+        r, c = self.r, self.c
+        sg, buckets = self._signs_and_buckets(idx)
+        rows = torch.arange(r, device=buckets.device)[:, None]
+        cells = (buckets + rows * c).reshape(-1)
+        addends = (sg * vals.to(torch.float32)).reshape(-1)
+        sorted_cells, order = torch.sort(cells, stable=True)
+        # an addend's rank: its place in the sorted order less the place
+        # of its cell's first addend
+        pos = torch.arange(cells.numel(), device=cells.device)
+        rank = torch.empty_like(pos)
+        rank[order] = pos - torch.searchsorted(sorted_cells, sorted_cells)
+        table = torch.zeros(r * c + 1, dtype=torch.float32,
+                            device=vals.device)
+        spare = r * c                 # where the other ranks write
+        for t in range(int(rank.max()) + 1 if rank.numel() else 0):
+            now = rank == t
+            at = torch.where(now, cells, spare)
+            table[at] = table[at] + torch.where(now, addends, 0.0)
+        return table[:spare].view(r, c)
 
     def encode_at(self, vec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """``encode(vec)`` for a ``vec`` that is zero outside ``idx``."""
@@ -122,10 +150,8 @@ class CirculantSketch:
     def decode_at(self, table: torch.Tensor,
                   idx: torch.Tensor) -> torch.Tensor:
         """``decode(table)[idx]`` at O(k r) gather cost."""
-        ests = torch.stack([self._sign_of(j, idx)
-                            * table[j][self._buckets_of(j, idx)]
-                            for j in range(self.r)])
-        return median_axis0(ests)
+        sg, buckets = self._signs_and_buckets(idx)
+        return median_axis0(sg * table.gather(1, buckets))
 
     def unsketch_with_idx(self, table: torch.Tensor, k: int,
                           approx: bool = False):

@@ -9,34 +9,74 @@ from __future__ import annotations
 import torch
 
 
+_LOW32 = 0xFFFFFFFF
+
+
+def _rank_keys(sq: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose descending order is ``lax.top_k``'s order of
+    ``sq`` along its last axis: the high 32 bits are the float32 bits of
+    ``sq`` mapped to a signed integer of the same total order (-NaN < -inf
+    < ... < -0 < +0 < ... < +inf < +NaN, NaN payloads by their bits), the
+    low 32 bits ``0xFFFFFFFF - index``, so an equal value ranks the lower
+    index first. The keys are unique, so no tie is left to the sort.
+
+    Each half is written straight into the int64 keys through an int32
+    view (little-endian, as the CPU and the card are: the low half comes
+    first), which saves the widening casts, shifts and ors of building
+    them in int64."""
+    bits = sq.contiguous().view(torch.int32)
+    n = sq.shape[-1]
+    keys = torch.empty(sq.shape, dtype=torch.int64, device=sq.device)
+    halves = keys.view(torch.int32).unflatten(-1, (n, 2))
+    # a set sign bit flips the other 31: the total order as a signed int
+    halves[..., 1] = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    # -1 - index has the bits of 0xFFFFFFFF - index
+    halves[..., 0] = torch.arange(-1, -n - 1, -1, dtype=torch.int32,
+                                  device=sq.device)
+    return keys
+
+
 def topk_with_idx(vec: torch.Tensor, k: int, approx: bool = False):
     """Dense vector keeping the ``k`` entries of largest ``vec * vec`` (zero
-    elsewhere), and their (k,) int64 indices.
+    elsewhere), and their (k,) int64 indices, as ``lax.top_k(vec * vec,
+    k)`` selects and orders them: by the total order of the float32 bits
+    of ``vec * vec`` (a NaN ranks above +inf, or below -inf when its sign
+    bit is set), ties to the lower index. It always returns k indices.
 
-    Ties follow ``lax.top_k``: the lower index wins. ``torch.topk`` does not
-    promise that, so the rule is enforced at the k-th value: every entry
-    strictly above it is kept, and the entries equal to it are taken in
-    ascending index order until k are chosen. The indices come back in
-    descending magnitude, ties in ascending index, as ``lax.top_k`` orders
-    them.
+    One ``torch.topk`` over unique int64 keys (``_rank_keys``): no
+    ``nonzero`` and no value read back to the host. The card's float
+    multiply may return another NaN than the CPU's for a NaN input (the
+    canonical +NaN); the order is the total order of whatever ``vec *
+    vec`` gave.
 
     ``approx`` (``lax.approx_max_k``, a TPU XLA op with recall >= 0.95)
     maps to this exact top-k: exact selection satisfies its contract.
     """
     del approx
     k = int(k)
-    if not 0 < k <= vec.shape[0]:
-        raise ValueError(f"k={k} outside [1, {vec.shape[0]}]")
-    sq = vec * vec
-    kth = torch.topk(sq, k, sorted=False).values.min()
-    above = torch.nonzero(sq > kth).squeeze(1)
-    at = torch.nonzero(sq == kth).squeeze(1)[: k - above.numel()]
-    idx = torch.sort(torch.cat((above, at))).values
-    order = torch.sort(sq[idx], descending=True, stable=True).indices
-    idx = idx[order]
+    if vec.ndim != 1 or not 0 < k <= vec.shape[0]:
+        raise ValueError(f"k={k} outside [1, {vec.shape[-1]}] or shape "
+                         f"{tuple(vec.shape)} not 1-D")
+    keys = torch.topk(_rank_keys(vec * vec), k).values
+    idx = _LOW32 - (keys & _LOW32)
     out = torch.zeros_like(vec)
     out[idx] = vec[idx]
     return out, idx
+
+
+def topk(vec: torch.Tensor, k: int, approx: bool = False) -> torch.Tensor:
+    """The dense top-k of ``topk_with_idx``: over the whole vector for a
+    1-D ``vec``, row by row (each row keeps its own k) for a 2-D one."""
+    if vec.ndim == 1:
+        return topk_with_idx(vec, k, approx)[0]
+    if vec.ndim != 2:
+        raise ValueError(f"topk takes 1-D or 2-D, got {tuple(vec.shape)}")
+    k = int(k)
+    if not 0 < k <= vec.shape[1]:
+        raise ValueError(f"k={k} outside [1, {vec.shape[1]}]")
+    keys = torch.topk(_rank_keys(vec * vec), k, dim=1).values
+    idx = _LOW32 - (keys & _LOW32)
+    return torch.zeros_like(vec).scatter_(1, idx, vec.gather(1, idx))
 
 
 def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 import time
@@ -86,16 +87,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     runtime, state, train_ds = entry.setup(ns)[:3]
     schedule = (gpt2_train.make_gpt2_schedule(runtime.cfg)
                 if entry is gpt2_train else lr_schedule_for(runtime.cfg))
-    it = driver.rounds(runtime, train_ds, schedule)
+    cfg = runtime.cfg
+    spe = max(driver.epoch_sampler(cfg, train_ds, 0).epoch_rounds(), 1)
+    it = enumerate(itertools.chain.from_iterable(
+        driver.epoch_sampler(cfg, train_ds, epoch)
+        for epoch in itertools.count()))
     for _ in range(ns.warmup):
-        _, lr, rnd = next(it)
+        i, rnd = next(it)
         state, _ = runtime.round(state, rnd.client_ids,
-                                 train_ds.gather(rnd.idx), rnd.mask, lr)
+                                 train_ds.gather(rnd.idx), rnd.mask,
+                                 schedule((i + 1) / spe))
     torch.cuda.synchronize()
     batches = []
     for _ in range(ns.profile_rounds):
-        _, lr, rnd = next(it)
-        batches.append((rnd, lr, train_ds.gather(rnd.idx)))
+        i, rnd = next(it)
+        batches.append((rnd, schedule((i + 1) / spe),
+                        train_ds.gather(rnd.idx)))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -287,7 +287,7 @@ def test_gpt2_train_runs_on_cpu(tmp_path, capsys, extra, rounds):
     (["--remat"], "--remat"), (["--remat_policy", "x"], "--remat_policy"),
     (["--lm_chunk", "64"], "--lm_chunk"), (["--mesh_shape", "2"],
                                            "--mesh_shape"),
-    (["--microbatch_size", "1"], "--microbatch_size")])
+    (["--max_grad_norm", "1.0"], "--max_grad_norm")])
 def test_gpt2_train_rejects_flags_outside_the_slice(flags, name):
     with pytest.raises(ValueError, match=name):
         gpt2_train.main(["--test", "--device", "cpu", *flags])

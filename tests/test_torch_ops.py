@@ -149,8 +149,9 @@ def test_encode_and_encode_accum_match_roll_path(c):
 
 
 def test_encode_vals_at_matches_reference():
-    """Sparse encode: the scatter-add order differs from segment_sum, so
-    colliding cells agree to float32 rounding (rtol 1e-6, atol 1e-6)."""
+    """Sparse encode and ``encode_at`` against the reference (rtol 1e-6,
+    atol 1e-6; test_encode_vals_at_sums_in_reference_order holds the
+    bits)."""
     for c in (4096, 4000):
         js, ts = _pair(c)
         rng = np.random.RandomState(3)
@@ -277,6 +278,73 @@ def test_topk_ties_lower_index_wins():
     assert np.array_equal(_np(got_v), np.asarray(ref_v))
 
 
+def _special_vector():
+    """+-NaN with two payloads each, +-inf, +-0, and ties of equal
+    magnitude and mixed sign among finite values."""
+    bits = np.array([0x7FC00000, 0x7FC00001, 0xFFC00000, 0xFFC00005,
+                     0x7F800000, 0xFF800000, 0x00000000, 0x80000000],
+                    np.uint32)
+    special = bits.view(np.float32)
+    finite = np.array([1, -2, 3, -3, 2, 0.5, -1, 3, 2e-30, -2e-30],
+                      np.float32)
+    v = np.concatenate([finite[:4], special[:3], finite[4:7], special[3:],
+                        finite[7:]])
+    return v
+
+
+@pytest.mark.parametrize("k", range(1, 19))
+def test_topk_nan_inf_signed_zero_and_ties_match_lax_top_k(k):
+    """With NaN in the vector the top-k still returns k indices, in
+    ``lax.top_k``'s order of ``vec * vec`` (the total order of float32:
+    +NaN above +inf, a NaN with its sign bit set below -inf, payloads by
+    their bits, -0 below +0, ties to the lower index), and the values'
+    bits are the reference's."""
+    from jax import lax
+    v = _special_vector()
+    assert len(v) == 18
+    _, ref_sq_idx = lax.top_k(jnp.asarray(v) * jnp.asarray(v), k)
+    ref_v, ref_i = jtopk.topk_with_idx(jnp.asarray(v), k)
+    got_v, got_i = ttopk.topk_with_idx(torch.from_numpy(v), k)
+    assert got_i.shape == (k,)
+    assert np.array_equal(_np(got_i), np.asarray(ref_i))
+    assert np.array_equal(_np(got_i), np.asarray(ref_sq_idx))
+    assert np.array_equal(_bits(got_v), _bits(ref_v))
+
+
+def test_topk_rowwise_matches_reference():
+    x = np.random.RandomState(4).randn(6, 300).astype(np.float32)
+    x[2, 7] = np.nan
+    x[4, :] = 1.0                          # a row of ties
+    got = ttopk.topk(torch.from_numpy(x), 11)
+    ref = jtopk.topk(jnp.asarray(x), 11)
+    assert np.array_equal(_bits(got), _bits(ref))
+    assert np.array_equal(_bits(ttopk.topk(torch.from_numpy(x[0]), 11)),
+                          _bits(jtopk.topk(jnp.asarray(x[0]), 11)))
+
+
+@pytest.mark.parametrize("c,k", [(64, 500), (4096, 2000), (997, 300)])
+def test_encode_vals_at_sums_in_reference_order(c, k):
+    """Many addends a cell (k up to 8x c): the sparse encode adds a
+    cell's addends in the order of ``idx``, so its table has the bits of
+    the reference's ``segment_sum`` and of a plain sequential loop."""
+    d, r = 20_000, 5
+    js, ts = _pair(c, d=d, r=r)
+    rng = np.random.RandomState(c)
+    idx = rng.permutation(d)[:k]
+    vals = rng.randn(k).astype(np.float32)
+    got = ts.encode_vals_at(torch.from_numpy(vals), torch.from_numpy(idx))
+    ref = js.encode_vals_at(jnp.asarray(vals), jnp.asarray(idx))
+    assert np.array_equal(_bits(got), _bits(ref))
+    loop = np.zeros((r, c), np.float32)
+    tidx = torch.from_numpy(idx)
+    for j in range(r):
+        buckets = _np(ts._buckets_of(j, tidx))
+        signed = _np(ts._sign_of(j, tidx)) * vals
+        for b, x in zip(buckets, signed):
+            loop[j, b] = np.float32(loop[j, b] + x)
+    assert np.array_equal(_bits(got), _bits(loop))
+
+
 @pytest.mark.parametrize("r", [1, 2, 4, 5])
 def test_median_axis0_bitwise(r):
     x = np.random.RandomState(r).randn(r, 4096).astype(np.float32)
@@ -316,9 +384,15 @@ def test_flags_outside_the_slice_raise_naming_them():
     with pytest.raises(ValueError, match="--dp"):
         tconfig.parse_known(p, ["--k", "10", "--dp"])
     with pytest.raises(ValueError, match="--mode"):
-        tconfig.FedConfig(mode="true_topk")
+        tconfig.FedConfig(mode="dense_sketch")
+    with pytest.raises(ValueError, match="--wire_dtype"):
+        tconfig.parse_known(p, ["--wire_dtype", "int8"])
+    # a legal flag in an illegal combination names itself when the
+    # runtime validates it, as in the JAX package
+    from commefficient_torch.core.server import validate_mode_combo
     with pytest.raises(ValueError, match="--local_momentum"):
-        tconfig.config_from_args(p.parse_args(["--local_momentum", "0.9"]))
+        validate_mode_combo(tconfig.config_from_args(
+            p.parse_args(["--local_momentum", "0.9"])))
 
 
 @pytest.mark.parametrize("seed,epoch", [(21, 0), (5, 3)])
@@ -338,6 +412,23 @@ def test_sampler_rounds_identical(seed, epoch):
     vgot = list(tsampler.ValSampler(50, 16))
     assert all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
                for a, b in zip(vgot, vref))
+
+
+@pytest.mark.parametrize("max_client_batch, rounds", [(64, 2), (32, 4)])
+def test_sampler_whole_client_batches_identical(max_client_batch, rounds):
+    """``local_batch_size -1``: each client's whole dataset padded to
+    ``max_client_batch``; a client larger than that gives a chunk a
+    round."""
+    per_client = np.array([64, 17, 40, 64, 3, 64, 64, 30, 64, 9])
+    kw = dict(num_workers=4, local_batch_size=-1,
+              max_client_batch=max_client_batch, seed=11)
+    ref = list(jsampler.FedSampler(per_client, **kw))
+    got = list(tsampler.FedSampler(per_client, **kw))
+    assert len(got) == len(ref) == rounds
+    for a, b in zip(got, ref):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y)
+    assert got[0].mask.shape == (4, max_client_batch)
 
 
 def test_synthetic_cifar_and_transforms_identical():
