@@ -55,7 +55,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    d; the sparse re-encode of 50,000 values on the card bitwise equal to
    the CPU's, at both sketches;
 6. the ResNet-9 main path: ``commefficient_torch.cv_train`` at full width
-   (8 clients x 64 synthetic CIFAR10 images, k = 50,000, r = 5,
+   (8 clients x 64 synthetic CIFAR10 images, prepared in a temporary
+   directory and served by the device store, k = 50,000, r = 5,
    c = 500,000 -> 500,736, bf16 compute), every launch count set to 0
    just before and read just after; requires 9 encode and 1 decode launch
    per round and finite losses; prints the median round time (of the
@@ -71,7 +72,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``RoundRecorder``); then a planted NaN in the main path's second
    round must set ``nan_round`` to 1 and stop the driver at that epoch's
    end without validating it;
-8. the GPT-2 main path: ``commefficient_torch.gpt2_train`` at GPT-2
+8. real-format data, checkpoints and resume (``phase_real_data_resume``):
+   a full-scale ``cifar-10-batches-py`` (50,000 train and 10,000 test
+   images of ``synthetic_cifar``) is written to a temporary directory;
+   ``cv_train`` runs the main path's flags from it for two epochs with
+   ``--checkpoint_every 1``: every round from the device store (its MiB
+   printed), exactly 9 K1 and 1 K2 launches a round, the store's host
+   time a round against the host gather's; a flipped byte in the newest
+   generation, then ``--resume`` in a fresh call: the restore must fall
+   back to the first generation and name the damaged one, the restored
+   state must be bitwise the saved one, the first resumed round's batch
+   bitwise the uninterrupted run's and its loss within
+   RESUME_LOSS_RTOL;
+9. the GPT-2 main path: ``commefficient_torch.gpt2_train`` at GPT-2
    small's width (8 clients x 4 dialogues x 2 candidates x 1024 tokens,
    k = 50,000, r = 5, c = 524,288, bf16, K3), every launch count set to
    0 just before; each round is an epoch and ends in a validation;
@@ -81,8 +94,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    no launch outside them, and finite losses; prints the median round
    time (of the rounds after the first), tokens/s, the analytic model
    TFLOP/s and its share of 989 TFLOP/s, and peak memory; then the same
-   with ``--no_track_bytes``;
-9. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+   with ``--no_track_bytes``; then the GPT-2 main path's state saved and
+   loaded once at full width (time, size, bitwise on the card);
+10. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -92,9 +106,11 @@ device it fails at once.
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
@@ -1021,7 +1037,7 @@ def phase_gpt2_reference():
             w0 = st.ps_weights.clone()
             w = w0.clone().requires_grad_(True)
             loss, _ = loss_fn(w, {key: val[0] for key, val in
-                                  rt._batch(batches[0]).items()},
+                                  rt.to_device(batches[0]).items()},
                               torch.ones(B, dtype=torch.bool, device=device))
             (g,) = torch.autograd.grad(loss, w)
             g = model.views(g)["transformer/h/block/c_attn/kernel"]
@@ -1077,6 +1093,17 @@ def phase_gpt2_reference():
         fail(f"the narrow GPT-2 check passed planted faults in {passed}")
 
 
+# where the phases' CIFAR directories are written (a temporary directory
+# that main() makes and removes)
+DATA_ROOT = {"path": None}
+
+
+def dataset_flags(name: str):
+    """``--dataset_dir`` of a directory of its own under the run's data
+    root (each synthetic size is prepared in its own)."""
+    return ["--dataset_dir", os.path.join(DATA_ROOT["path"], name)]
+
+
 MAIN_ARGV = ["--dataset_name", "CIFAR10", "--model", "ResNet9",
              "--mode", "sketch", "--error_type", "virtual",
              "--virtual_momentum", "0.9", "--num_workers", "8",
@@ -1093,7 +1120,8 @@ def phase_main_path(extra=()):
     from commefficient_torch import cv_train
     from commefficient_torch.ops import circulant_kernels as K
 
-    argv = MAIN_ARGV + ["--num_rounds", str(ROUNDS), *extra]
+    argv = MAIN_ARGV + dataset_flags("synthetic64") + [
+        "--num_rounds", str(ROUNDS), *extra]
     tag = " ".join(extra) or "bytes on"
     print("[main] python -m commefficient_torch.cv_train " + " ".join(argv),
           flush=True)
@@ -1212,7 +1240,7 @@ def phase_modes():
 
     out_modes = {}
     for mode, (flags, n_enc, n_dec) in MODE_CONFIGS.items():
-        argv = MODE_COMMON + flags
+        argv = MODE_COMMON + dataset_flags("synthetic640") + flags
         print(f"[modes] python -m commefficient_torch.cv_train "
               + " ".join(argv), flush=True)
         torch.cuda.reset_peak_memory_stats()
@@ -1247,10 +1275,10 @@ def phase_modes():
 
 def phase_nan_abort():
     """A planted NaN: the main path's second round reads a NaN pixel in
-    one client's batch. The round must set ``nan_round`` to 1 on the
-    device, and the driver must stop at that epoch's end (each round is an
-    epoch here) without validating it. Returns the K1/K2 launches."""
-    import numpy as np
+    one client's batch, planted in what the device store hands the
+    driver. The round must set ``nan_round`` to 1 on the device, and the
+    driver must stop at that epoch's end (each round is an epoch here)
+    without validating it. Returns the K1/K2 launches."""
     import torch
     from commefficient_torch import cv_train
     from commefficient_torch.config import parse_known
@@ -1258,23 +1286,27 @@ def phase_nan_abort():
     from commefficient_torch.ops import circulant_kernels as K
     from commefficient_torch.utils.schedules import lr_schedule_for
 
-    ns = parse_known(cv_train.build_parser(), MAIN_ARGV)
+    ns = parse_known(cv_train.build_parser(),
+                     MAIN_ARGV + dataset_flags("synthetic64"))
     runtime, state, train_ds, val_ds = cv_train.setup(ns)
-    gather, calls = train_ds.gather, []
+    train_store, val_store = cv_train.make_stores(runtime, train_ds, val_ds)
+    if train_store is None:
+        fail("the main path's rounds are not fed by the device store")
+    draw, calls = train_store.round_batch, []
 
-    def planted(idx):
-        batch = gather(idx)
-        calls.append(1)
+    def planted(idx, round_index=None):
+        batch = draw(idx, round_index)
+        calls.append(round_index)
         if len(calls) == 2:
-            batch["image"] = batch["image"].copy()
-            batch["image"][3, 0, 0, 0, 0] = np.nan
+            batch["image"][3, 0, 0, 0, 0] = float("nan")
         return batch
 
-    train_ds.gather = planted
+    train_store.round_batch = planted
     K.reset_launches()
     state, summary, log = driver.train(runtime, state, train_ds, val_ds,
                                        lr_schedule_for(runtime.cfg),
-                                       num_rounds=4)
+                                       num_rounds=4, train_store=train_store,
+                                       val_store=val_store)
     launches = dict(K.launches)
     nan_round = int(state.nan_round)
     print(f"[nan] planted NaN in round 1: nan_round {nan_round}, summary "
@@ -1283,9 +1315,9 @@ def phase_nan_abort():
           f"{bool(torch.isfinite(state.ps_weights).all())}, launches "
           f"{launches}", flush=True)
     if nan_round != 1 or summary is not None or len(log.epochs) != 1 \
-            or len(log.round_s) != 2:
+            or len(log.round_s) != 2 or calls != [1, 2]:
         fail("the planted NaN did not set nan_round = 1 and abort the "
-             "driver at the second epoch's end")
+             f"driver at the second epoch's end (store rounds {calls})")
     return launches
 
 
@@ -1575,6 +1607,304 @@ def phase_gpt2_main(extra=()):
     return rounds, val, rt * 1e3
 
 
+# the real-data phase: a full-scale CIFAR10 pickle directory (50,000 train
+# and 10,000 test images of synthetic_cifar, 5,000 and 1,000 a class)
+REAL_TRAIN_PER_CLASS = 5000
+REAL_TEST_PER_CLASS = 1000
+REAL_EPOCHS = 2
+REAL_VALID_BATCH = 1000
+# the first resumed round's loss: a forward of identical weights on an
+# identical batch (bf16 compute); the card's convolutions may pick other
+# algorithms in another process
+RESUME_LOSS_RTOL = 1e-3
+HOST_GATHER_ROUNDS = 20
+
+
+def write_cifar10_pickles(root: str) -> float:
+    """``cifar-10-batches-py`` under ``root`` in the CIFAR python-pickle
+    schema: 5 train batches of 10,000 images and a test batch, classes
+    interleaved by a seeded permutation. Returns the seconds it took."""
+    import pickle
+    import numpy as np
+    from commefficient_torch.data.fed_cifar import synthetic_cifar
+
+    t0 = time.perf_counter()
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d)
+
+    def rows(images):
+        return np.ascontiguousarray(images.transpose(0, 3, 1, 2)
+                                    .reshape(len(images), 3072))
+
+    images, labels = synthetic_cifar(10, REAL_TRAIN_PER_CLASS)
+    perm = np.random.RandomState(0).permutation(len(labels))
+    for i, part in enumerate(np.array_split(perm, 5)):
+        with open(os.path.join(d, f"data_batch_{i + 1}"), "wb") as f:
+            pickle.dump({b"data": rows(images[part]),
+                         b"labels": labels[part].tolist()}, f)
+    images, labels = synthetic_cifar(10, REAL_TEST_PER_CLASS, seed=4321)
+    with open(os.path.join(d, "test_batch"), "wb") as f:
+        pickle.dump({b"data": rows(images), b"labels": labels.tolist()}, f)
+    return time.perf_counter() - t0
+
+
+class StoreRecorder:
+    """Wraps ``DeviceStore.round_batch`` while installed: keeps each train
+    batch (round index, indices, output) of the run."""
+
+    def __init__(self):
+        from commefficient_torch.data.device_store import DeviceStore
+        self.cls, self.orig, self.calls = DeviceStore, \
+            DeviceStore.round_batch, []
+
+    def __enter__(self):
+        import numpy as np
+        orig, calls = self.orig, self.calls
+
+        def round_batch(store, flat_idx, round_index=None):
+            out = orig(store, flat_idx, round_index)
+            if round_index is not None:
+                calls.append((round_index, np.array(flat_idx), out))
+            return out
+
+        self.cls.round_batch = round_batch
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.round_batch = self.orig
+
+    def batch(self, round_index: int):
+        hits = [c for c in self.calls if c[0] == round_index]
+        if len(hits) != 1:
+            fail(f"round {round_index} drew {len(hits)} store batches")
+        return hits[0]
+
+
+def same_state_bits(a, b) -> list:
+    """The fields of two ``FedState``s whose bits differ."""
+    import torch
+    bad = [] if a.step == b.step else ["step"]
+    for name in ("ps_weights", "Vvelocity", "Verror", "client_velocities",
+                 "client_errors", "coord_last_update", "client_last_round",
+                 "nan_round"):
+        x, y = getattr(a, name), getattr(b, name)
+        if (x is None) != (y is None) or (x is not None and not (
+                x.dtype == y.dtype and x.device == y.device
+                and torch.equal(x.view(torch.int32), y.view(torch.int32)))):
+            bad.append(name)
+    return bad
+
+
+def phase_real_data_resume():
+    """The main path from a CIFAR10 pickle directory at full scale:
+    ``cv_train`` with the main path's flags, ``--checkpoint_every 1``, two
+    epochs, from the device store (its MiB printed), exactly 9 K1 and 1 K2
+    launches a round; the data path's time a round against the host
+    gather's; then a flipped byte in the newest generation and a
+    ``--resume`` in a fresh call of the entry point: the restore must
+    fall back to the first generation and name the damaged one, the
+    restored state must be bitwise the one saved, the first resumed
+    round's batch (indices, augmented images, targets) bitwise the
+    uninterrupted run's and its loss within RESUME_LOSS_RTOL. Returns the
+    K1/K2 launches of both runs."""
+    import numpy as np
+    import torch
+    from commefficient_torch import checkpoint as ckpt
+    from commefficient_torch import cv_train
+    from commefficient_torch.config import parse_known
+    from commefficient_torch.core import driver
+    from commefficient_torch.data.transforms import transforms_for
+    from commefficient_torch.ops import circulant_kernels as K
+
+    root = os.path.join(DATA_ROOT["path"], "cifar10_pickles")
+    gen_s = write_cifar10_pickles(root)
+    ck_dir = os.path.join(DATA_ROOT["path"], "checkpoints")
+    argv = MAIN_ARGV + [
+        "--dataset_dir", root, "--num_epochs", str(REAL_EPOCHS),
+        "--valid_batch_size", str(REAL_VALID_BATCH), "--checkpoint_every",
+        "1", "--checkpoint_path", ck_dir]
+    print(f"[real] wrote {root} ({REAL_TRAIN_PER_CLASS * 10} train and "
+          f"{REAL_TEST_PER_CLASS * 10} test images) in {gen_s:.2f} s; "
+          "python -m commefficient_torch.cv_train " + " ".join(argv),
+          flush=True)
+    saved = {}
+    save = ckpt.CheckpointManager.save
+
+    def keep_saved(mgr, state, epoch, meta=None):
+        saved[epoch] = ckpt.FedState(**{
+            f: (v.clone() if isinstance(v, torch.Tensor) else v)
+            for f, v in vars(state).items()})
+        return save(mgr, state, epoch, meta)
+
+    ckpt.CheckpointManager.save = keep_saved
+    K.reset_launches()
+    try:
+        with StoreRecorder() as rec_a:
+            whole = cv_train.main(argv)
+    finally:
+        ckpt.CheckpointManager.save = save
+    launches_a = dict(K.launches)
+    n_a = whole["rounds"]
+    if whole["summary"] is None or whole["summary"]["epoch"] != REAL_EPOCHS \
+            or not np.isfinite(whole["losses"]).all():
+        fail(f"the real-data run ended at {whole['summary']}")
+    if launches_a != {"circ_encode": 9 * n_a, "circ_decode": n_a}:
+        fail(f"real-data launches {launches_a} over {n_a} rounds: want 9 "
+             "encode and 1 decode a round")
+    if len(rec_a.calls) != n_a:
+        fail(f"{len(rec_a.calls)} store batches for {n_a} rounds: the "
+             "rounds were not fed by the device store")
+    store_mib = whole["train_store"].nbytes / 2**20
+    mgr = ckpt.CheckpointManager(os.path.join(ck_dir, "ResNet9"))
+    first = ckpt.load_meta(mgr.path(1))["global_round"]
+    rt = statistics.median(whole["round_s"][1:])
+    data_ms = 1e3 * statistics.median(whole["data_s"][1:])
+
+    # the host path's data path for the same rounds, as the driver takes
+    # it where no store is built: the gather with its crop, flip and
+    # normalisation, and the batch's upload, synced
+    ns = parse_known(cv_train.build_parser(), argv)
+    _, _, train_ds, _ = cv_train.setup(ns)
+    train_ds.transform = transforms_for("CIFAR10", True)
+    runtime = whole["runtime"]
+    device = runtime.device
+    host_ms = []
+    for i, rnd in enumerate(driver.epoch_sampler(runtime.cfg, train_ds, 0)):
+        if i == HOST_GATHER_ROUNDS:
+            break
+        driver._sync(device)
+        t0 = time.perf_counter()
+        runtime.to_device(train_ds.gather(rnd.idx))
+        driver._sync(device)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    host_ms = statistics.median(host_ms[1:])
+    print(f"[real] {n_a} rounds in {REAL_EPOCHS} epochs ({first} in the "
+          f"first) from the device store ({store_mib:.1f} MiB train): "
+          f"median round {rt * 1e3:.3f} ms, data path {data_ms:.3f} ms a "
+          "round (index upload, gather and augmentation on the device, "
+          f"synced) against {host_ms:.3f} ms for the host gather and its "
+          f"upload; val acc "
+          f"{whole['summary']['test_acc']:.4f} after {REAL_EPOCHS} epochs; "
+          f"launches {launches_a}", flush=True)
+
+    # damage the newest generation, resume in a fresh call
+    import zipfile
+    newest = mgr.path(REAL_EPOCHS) + ".npz"
+    with zipfile.ZipFile(newest) as zf:
+        info = zf.getinfo("ps_weights.npy")
+    end = (info.header_offset + 30 + len(info.filename) + len(info.extra)
+           + info.compress_size)
+    with open(newest, "r+b") as f:
+        f.seek(end - 4)
+        byte = f.read(1)
+        f.seek(end - 4)
+        f.write(bytes([byte[0] ^ 0x01]))
+    restored = {}
+    setup = cv_train.setup_checkpointing
+
+    def keep_restored(*a, **kw):
+        out = setup(*a, **kw)
+        restored["mgr"], restored["epoch"], restored["state"], \
+            restored["round"] = out
+        return out
+
+    cv_train.setup_checkpointing = keep_restored
+    K.reset_launches()
+    try:
+        with StoreRecorder() as rec_b:
+            rest = cv_train.main(argv + ["--resume"])
+    finally:
+        cv_train.setup_checkpointing = setup
+    launches_b = dict(K.launches)
+    n_b = rest["rounds"]
+    fallbacks = [fb["path"] for fb in restored["mgr"].restore_fallbacks]
+    if fallbacks != [mgr.path(REAL_EPOCHS)] or restored["epoch"] != 1 \
+            or restored["round"] != first:
+        fail(f"the resume restored epoch {restored['epoch']} at round "
+             f"{restored['round']} with fallbacks {fallbacks}; want epoch "
+             f"1, round {first}, past {mgr.path(REAL_EPOCHS)}")
+    bad = same_state_bits(restored["state"], saved[1])
+    if bad or restored["state"].ps_weights.device.type != device.type:
+        fail(f"the restored state differs from the saved one in {bad}")
+    if launches_b != {"circ_encode": 9 * n_b, "circ_decode": n_b} \
+            or n_b != n_a - first:
+        fail(f"resumed run: {n_b} rounds, launches {launches_b}; want "
+             f"{n_a - first} rounds, 9 + 1 a round")
+    r_a, idx_a, out_a = rec_a.batch(first + 1)
+    r_b, idx_b, out_b = rec_b.calls[0]
+    if r_b != first + 1 or not np.array_equal(idx_a, idx_b) or not all(
+            torch.equal(out_a[k].view(torch.int32) if k == "image"
+                        else out_a[k],
+                        out_b[k].view(torch.int32) if k == "image"
+                        else out_b[k]) for k in out_a):
+        fail(f"the first resumed round (store round {r_b}) drew another "
+             f"batch than round {first + 1} of the uninterrupted run")
+    loss_a, loss_b = whole["losses"][first], rest["losses"][0]
+    rel = abs(loss_b - loss_a) / abs(loss_a)
+    if rel > RESUME_LOSS_RTOL:
+        fail(f"first resumed round's loss {loss_b} against {loss_a}: "
+             f"relative {rel:.3g} > {RESUME_LOSS_RTOL}")
+    diffs = [abs(b - a) / abs(a)
+             for a, b in zip(whole["losses"][first:], rest["losses"])]
+    print(f"[real] resumed from epoch 1 (global round {first}) past the "
+          f"damaged {fallbacks[0]}: restored state bitwise the saved one "
+          f"on {restored['state'].ps_weights.device}; round {first + 1}'s "
+          f"batch bitwise the uninterrupted run's; its loss "
+          f"{float(loss_b)!r} against {float(loss_a)!r} (relative "
+          f"{rel:.3g}, limit "
+          f"{RESUME_LOSS_RTOL}); epoch {REAL_EPOCHS}'s {n_b} rounds' "
+          f"losses within {max(diffs):.3g} relative (printed, not held: "
+          f"the card's kernels need not repeat their bits); val acc "
+          f"{rest['summary']['test_acc']:.4f} against "
+          f"{whole['summary']['test_acc']:.4f}; launches {launches_b}",
+          flush=True)
+    return launches_a, launches_b
+
+
+def phase_gpt2_checkpoint():
+    """Save and load the GPT-2 main path's state at full width once
+    (d = 92,138,496, sketch tables, byte accounting): the time and size of
+    each, and the loaded state bitwise the saved one on the card."""
+    import torch
+    from commefficient_torch import gpt2_train
+    from commefficient_torch.checkpoint import load_meta, load_state, \
+        save_state
+    from commefficient_torch.config import parse_known
+    from commefficient_torch.core import driver
+
+    ns = parse_known(gpt2_train.build_parser(), [
+        "--mode", "sketch", "--error_type", "virtual", "--virtual_momentum",
+        "0.9", "--num_workers", "8", "--local_batch_size", "4",
+        "--max_seq_len", "1024", "--k", "50000", "--num_rows", "5",
+        "--num_cols", "524288"])
+    runtime = gpt2_train.setup(ns)[0]
+    state = runtime.init_state()
+    gen = torch.Generator(device=runtime.device).manual_seed(0)
+    state.Vvelocity.normal_(generator=gen)
+    state.Verror.normal_(generator=gen)
+    state.coord_last_update.random_(0, 100, generator=gen)
+    path = os.path.join(DATA_ROOT["path"], "gpt2_state")
+    driver._sync(runtime.device)
+    t0 = time.perf_counter()
+    save_state(path, state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_state(path, runtime.device, load_meta(path)["digests"],
+                        runtime.state_shapes())
+    driver._sync(runtime.device)
+    load_s = time.perf_counter() - t0
+    bad = same_state_bits(loaded, state)
+    if bad:
+        fail(f"the GPT-2 state read back differs in {bad}")
+    size = os.path.getsize(path + ".npz")
+    print(f"[ckpt] GPT-2 main path state (d = {runtime.cfg.grad_size}): "
+          f"{size / 2**20:.1f} MiB, saved in {save_s:.3f} s (host copies, "
+          f"sha256 of each entry, write, fsync), loaded and verified in "
+          f"{load_s:.3f} s, bitwise equal on {runtime.device}", flush=True)
+    os.unlink(path + ".npz")
+    return save_s, load_s, size
+
+
 def main() -> int:
     try:
         import torch
@@ -1591,6 +1921,15 @@ def main() -> int:
           f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
+    DATA_ROOT["path"] = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        return run_phases(t0)
+    finally:
+        shutil.rmtree(DATA_ROOT["path"], ignore_errors=True)
+
+
+def run_phases(t0: float) -> int:
+    import torch
 
     def done(phase: str) -> None:
         print(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s",
@@ -1620,10 +1959,13 @@ def main() -> int:
     modes = phase_modes()
     nan_launches = phase_nan_abort()
     done("modes and the NaN abort")
+    real_launches, resumed_launches = phase_real_data_resume()
+    done("real-format CIFAR10, checkpoint and resume")
     gpt2_rounds, gpt2_val, gpt2_ms = phase_gpt2_main()
     gpt2_off, gpt2_off_val, gpt2_off_ms = phase_gpt2_main(
         ["--no_track_bytes"])
-    done("GPT-2 main path")
+    gpt2_ckpt = phase_gpt2_checkpoint()
+    done("GPT-2 main path, its state saved and loaded")
     print(f"[bytes] what byte accounting costs a round (medians; bytes on "
           f"vs --no_track_bytes): ResNet-9 {cv_ms:.3f} vs "
           f"{cv_off_ms:.3f} ms, GPT-2 {gpt2_ms:.3f} vs {gpt2_off_ms:.3f} "
@@ -1635,6 +1977,8 @@ def main() -> int:
           + "; sparse re-encode (ms; index_add_): "
           + ", ".join(f"d={d}: {a:.4f} ({b:.4f})"
                       for d, (a, b) in sparse.items())
+          + f"; GPT-2 state checkpoint: saved {gpt2_ckpt[0]:.3f} s, loaded "
+          f"{gpt2_ckpt[1]:.3f} s, {gpt2_ckpt[2] / 2**20:.1f} MiB"
           + "; top-k (ms, kernel-free PyTorch): "
           + ", ".join(f"d={d}: {a:.4f} (torch.topk of the squares "
                       f"{b:.4f})" for d, (a, b) in topk_ms.items()),
@@ -1651,6 +1995,9 @@ def main() -> int:
                    **{f"cv_train --mode {m}": launches[name]
                       for m, (launches, _) in modes.items()},
                    "cv_train planted NaN": nan_launches[name],
+                   "cv_train CIFAR10 pickles, device store":
+                       real_launches[name],
+                   "cv_train --resume": resumed_launches[name],
                    "gpt2_train": gpt2_rounds[name] + gpt2_val[name],
                    "gpt2_train --no_track_bytes": (gpt2_off[name]
                                                    + gpt2_off_val[name])}

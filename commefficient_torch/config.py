@@ -5,8 +5,10 @@ The port runs the single-device round in every mode of ``MODES``
 (uncompressed, true_topk, local_topk, fedavg and the FetchSGD sketch with
 the circulant count sketch and either error-feedback rule), with local
 momentum and local or virtual error, microbatches, whole-client batches
-and byte accounting, of two models: ResNet-9 on CIFAR10 (``cv_train``)
-and GPT-2 DoubleHeads on PersonaChat (``gpt2_train``). A value or flag
+and byte accounting, of two models: ResNet-9 on CIFAR10 or CIFAR100,
+natural or iid clients (``cv_train``), and GPT-2 DoubleHeads on
+PersonaChat (``gpt2_train``), with whole-state checkpoints and resume in
+both. A value or flag
 outside it raises and names the flag: the other sketches, DP, clipping,
 topk-down, the bf16 and int8 wires and meshes are not ported. Which
 combinations of mode, error type and momentum are legal is the server's
@@ -32,6 +34,10 @@ class FedConfig:
     mode: str = "sketch"
     model: str = "ResNet9"
     dataset_name: str = "CIFAR10"
+    dataset_dir: str = "./dataset"
+    do_iid: bool = False
+    # the train split normalised only: no crop or flip
+    no_augment: bool = False
     do_batchnorm: bool = False
     seed: int = 21
     synthetic_per_class: int = 64
@@ -65,9 +71,15 @@ class FedConfig:
     approx_topk: bool = False
     strict_regimes: bool = False
     grad_size: int = 0
+    # checkpoints (checkpoint.py): every N epochs under checkpoint_path,
+    # resume from the newest intact one, and the end-of-run weights
+    checkpoint_every: int = 0
+    checkpoint_path: str = "./checkpoint"
+    do_resume: bool = False
+    resume_unverified: bool = False
+    do_checkpoint: bool = False
     # GPT-2 / PersonaChat (gpt2_train)
     do_test: bool = False
-    dataset_dir: str = "./dataset"
     lr_warmup: bool = False
     num_candidates: int = 2
     max_history: int = 2
@@ -102,10 +114,11 @@ class FedConfig:
                              "batch")
         if self.num_workers < 1 or self.k < 1 or self.num_rows < 1 \
                 or self.num_cols < 1 or self.max_client_batch < 1 \
-                or self.num_fedavg_epochs < 1:
+                or self.num_fedavg_epochs < 1 or self.checkpoint_every < 0:
             raise ValueError("--num_workers, --k, --num_rows, --num_cols, "
                              "--max_client_batch and --num_fedavg_epochs "
-                             "must be positive")
+                             "must be positive, --checkpoint_every not "
+                             "negative")
         if self.sketch_fused_encode == "on" and self.mode != "sketch":
             raise ValueError(
                 f"--sketch_fused_encode on requires --mode sketch (mode="
@@ -147,10 +160,16 @@ class FedConfig:
     def default_num_clients(self) -> int:
         if self.num_clients is not None:
             return self.num_clients
-        return {"CIFAR10": 10, "PERSONA": 17568}[self.dataset_name]
+        return {"CIFAR10": 10, "CIFAR100": 100,
+                "PERSONA": 17568}[self.dataset_name]
+
+    @property
+    def num_classes(self) -> int:
+        return {"CIFAR10": 10, "CIFAR100": 100}[self.dataset_name]
 
 
-MODEL_DATASETS = (("ResNet9", "CIFAR10"), ("GPT2", "PERSONA"))
+MODEL_DATASETS = (("ResNet9", "CIFAR10"), ("ResNet9", "CIFAR100"),
+                  ("GPT2", "PERSONA"))
 
 
 def auto_num_cols(num_cols: int) -> int:
@@ -172,6 +191,10 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=21)
     p.add_argument("--model", default="ResNet9")
     p.add_argument("--dataset_name", default="CIFAR10")
+    p.add_argument("--dataset_dir", default="./dataset")
+    p.add_argument("--iid", action="store_true", dest="do_iid")
+    p.add_argument("--no_augment", action="store_true",
+                   help="train on normalised images only (no crop or flip)")
     p.add_argument("--batchnorm", action="store_true", dest="do_batchnorm")
     p.add_argument("--synthetic_per_class", type=int, default=64)
     p.add_argument("--k", type=int, default=50_000)
@@ -205,12 +228,19 @@ def add_args(p: argparse.ArgumentParser) -> None:
                    help="accepted for the reference's command lines; the "
                         "port's top-k is exact either way")
     p.add_argument("--strict_regimes", action="store_true")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="write the whole state every N epochs (0 = never)")
+    p.add_argument("--checkpoint_path", default="./checkpoint")
+    p.add_argument("--resume", action="store_true", dest="do_resume",
+                   help="continue from the newest intact checkpoint")
+    p.add_argument("--resume_unverified", action="store_true",
+                   help="resume under another layout fingerprint or sketch "
+                        "(another sketch: the tables are zeroed)")
 
 
 def add_gpt2_args(p: argparse.ArgumentParser) -> None:
     """The GPT-2 / PersonaChat flags of ``gpt2_train``."""
     p.add_argument("--test", action="store_true", dest="do_test")
-    p.add_argument("--dataset_dir", default="./dataset")
     p.add_argument("--lr_warmup", action="store_true")
     p.add_argument("--num_candidates", type=int, default=2)
     p.add_argument("--max_history", type=int, default=2)
@@ -240,7 +270,7 @@ def parse_known(parser: argparse.ArgumentParser,
         flags = [a for a in rest if a.startswith("-")] or rest
         raise ValueError(
             f"{' '.join(flags)}: outside the PyTorch port's slice "
-            "(ResNet-9 on CIFAR10 or GPT-2 on PersonaChat, one device, the "
+            "(ResNet-9 on CIFAR10/100 or GPT-2 on PersonaChat, one device, the "
             "circulant sketch and the float32 wire; no DP, clipping, "
             "topk-down or meshes)")
     return ns

@@ -1,14 +1,23 @@
 """The epoch loop and validation shared by the port's entry points
 (``cv_train`` and ``gpt2_train``), counterpart of the JAX package's
-``cv_train.train`` and ``run_validation`` without checkpoints,
-telemetry, pipelining or asynchronous aggregation.
+``cv_train.train`` and ``run_validation`` without telemetry, pipelining
+or asynchronous aggregation.
 
-Each round's ``[loss * n, acc * n, n, download bytes, upload bytes]``
-stays on the device; the epoch's rows are fetched once, at its end. There
-the loop reads the device-side divergence flag and aborts on it (``TRAINING
-DIVERGED``, no validation after it), validates, and appends the epoch
-row to the loggers. Round times are taken on the host clock around work
-that ends in a device sync.
+A round's batch comes from the train ``DeviceStore`` when there is one
+(gathered and augmented on the device, keyed by the global round) and
+from the host gather otherwise. Each round's ``[loss * n, acc * n, n,
+download bytes, upload bytes]`` stays on the device; the epoch's rows
+are fetched once, at its end. There the loop reads the device-side
+divergence flag and aborts on it (``TRAINING DIVERGED``, no validation
+and no checkpoint after it), validates, appends the epoch row to the
+loggers and, every ``checkpoint_every`` epochs, writes the whole state.
+A resumed run starts at its checkpoint's epoch and global round, so the
+rate schedule, the epoch samplers and the store's draws continue as if
+never interrupted. Round times are taken on the host clock around
+``runtime.round`` alone, between device syncs; the data path's time is
+kept beside them, from the round's start to its batch on the device,
+synced: the host gather and its upload, or the store's index upload and
+its gather and augmentation on the device.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ class RunLog:
     """What a run measured, for the entry points' callers."""
 
     round_s: List[float] = dataclasses.field(default_factory=list)
+    data_s: List[float] = dataclasses.field(default_factory=list)
     losses: List[float] = dataclasses.field(default_factory=list)
     epochs: List[dict] = dataclasses.field(default_factory=list)
     val_batches: int = 0          # validation batches run, all epochs
@@ -44,16 +54,18 @@ class RunLog:
 
 
 def validate(runtime: FedRuntime, state, val_ds, batch_size: int,
-             max_batches: Optional[int] = None):
+             max_batches: Optional[int] = None, val_store=None):
     """Masked means of the validation loss and accuracy over the set, in
     chunks of ``batch_size`` (the first ``max_batches`` chunks only, when
-    given). The sums stay on the device and are fetched once. Returns
-    ``(loss, acc, batches)``."""
+    given), from ``val_store`` when there is one. The sums stay on the
+    device and are fetched once. Returns ``(loss, acc, batches)``."""
     sums, batches = None, 0
     for idx, mask in ValSampler(len(val_ds), batch_size):
         if max_batches is not None and batches >= max_batches:
             break
-        (loss, acc), n = runtime.val(state, val_ds.gather(idx), mask)
+        batch = (val_store.round_batch(idx) if val_store is not None
+                 else val_ds.gather(idx))
+        (loss, acc), n = runtime.val(state, batch, mask)
         contrib = torch.stack((loss * n, acc * n, n))
         sums = contrib if sums is None else sums + contrib
         batches += 1
@@ -74,21 +86,27 @@ def epoch_sampler(cfg, train_ds, epoch: int) -> FedSampler:
 def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
           num_rounds: int = 0, max_per_epoch: Optional[int] = None,
           val_max_batches: Optional[int] = None, loggers: Sequence = (),
-          timer: Optional[Timer] = None):
-    """The run's epochs: one sampler an epoch, seeded by (seed, epoch), at
-    most ``ceil(rounds per epoch x the epoch's fraction)`` rounds of it
-    (and ``max_per_epoch``), round t (from 1) at the rate ``schedule(t /
-    rounds per epoch)``.
-    Stops after ``num_rounds`` rounds when that is positive; the epoch in
-    which it stops still ends as any epoch does. Returns ``(state,
-    summary, log)``: ``summary`` is the last epoch row, or None after a
-    divergence abort."""
+          timer: Optional[Timer] = None, train_store=None, val_store=None,
+          ckpt_mgr=None, checkpoint_every: int = 0, start_epoch: int = 0,
+          global_round: int = 0):
+    """The run's epochs from ``start_epoch``: one sampler an epoch, seeded
+    by (seed, epoch), at most ``ceil(rounds per epoch x the epoch's
+    fraction)`` rounds of it (and ``max_per_epoch``), round t (from 1,
+    counted over the whole run from ``global_round`` rounds already taken)
+    at the rate ``schedule(t / rounds per epoch)``, its batch from
+    ``train_store`` (drawn for round t) or the host gather. Stops after
+    ``num_rounds`` rounds of the whole run when that is positive; the
+    epoch in which it stops still ends as any epoch does, but is
+    checkpointed only when it ran to its end. Every ``checkpoint_every``
+    epochs ``ckpt_mgr`` saves the state with the epoch row and the global
+    round. Returns ``(state, summary, log)``: ``summary`` is the last
+    epoch row, or None after a divergence abort."""
     cfg, device = runtime.cfg, runtime.device
     timer = timer or Timer()
     spe = max(epoch_sampler(cfg, train_ds, 0).epoch_rounds(), 1)
-    log, summary, global_round = RunLog(), None, 0
+    log, summary = RunLog(), None
     n_epochs = math.ceil(cfg.num_epochs)
-    for epoch in range(n_epochs):
+    for epoch in range(start_epoch, n_epochs):
         if num_rounds and global_round >= num_rounds:
             break
         fraction = (cfg.num_epochs - epoch if epoch == n_epochs - 1
@@ -96,15 +114,22 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
         max_rounds = int(math.ceil(spe * fraction))
         if max_per_epoch is not None:
             max_rounds = min(max_rounds, max_per_epoch)
-        rows, lrs, first = [], [], global_round
+        rows, lrs, first, cut = [], [], len(log.round_s), False
         for rnd in epoch_sampler(cfg, train_ds, epoch):
-            if len(rows) >= max_rounds or (num_rounds
-                                           and global_round >= num_rounds):
+            if len(rows) >= max_rounds:
                 break
-            # the JAX package keys the schedule by the 1-based round
+            if num_rounds and global_round >= num_rounds:
+                cut = True
+                break
+            # the JAX package keys the schedule and the store's draws by
+            # the 1-based round
             lr = schedule((global_round + 1) / spe)
-            batch = train_ds.gather(rnd.idx)
+            t_data = time.perf_counter()
+            batch = (train_store.round_batch(rnd.idx, global_round + 1)
+                     if train_store is not None
+                     else runtime.to_device(train_ds.gather(rnd.idx)))
             _sync(device)
+            log.data_s.append(time.perf_counter() - t_data)
             t0 = time.perf_counter()
             state, metrics = runtime.round(state, rnd.client_ids, batch,
                                            rnd.mask, lr)
@@ -127,12 +152,14 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
         sums = per_round.sum(axis=0)
         train_time = timer()
         print(f"{'round':>6} {'lr':>8} {'loss':>9} {'acc':>7} "
-              f"{'round_s':>9}")
+              f"{'round_s':>9} {'data_ms':>8}")
         for i, row in enumerate(per_round):
             n = max(row[2], 1.0)
             log.losses.append(row[0] / n)
-            print(f"{first + i + 1:>6} {lrs[i]:>8.5f} {row[0] / n:>9.5f} "
-                  f"{row[1] / n:>7.4f} {log.round_s[first + i]:>9.4f}")
+            print(f"{global_round - len(rows) + i + 1:>6} {lrs[i]:>8.5f} "
+                  f"{row[0] / n:>9.5f} {row[1] / n:>7.4f} "
+                  f"{log.round_s[first + i]:>9.4f} "
+                  f"{log.data_s[first + i] * 1e3:>8.3f}")
         # the divergence abort, at the epoch boundary: the flag names the
         # first round whose update, aggregate or loss was not finite
         nan_round = int(state.nan_round)
@@ -147,7 +174,8 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
         log.total_download_mib += download_mib
         log.total_upload_mib += upload_mib
         test_loss, test_acc, batches = validate(
-            runtime, state, val_ds, cfg.valid_batch_size, val_max_batches)
+            runtime, state, val_ds, cfg.valid_batch_size, val_max_batches,
+            val_store)
         log.val_batches += batches
         timer()
         summary = {
@@ -165,6 +193,11 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
         log.epochs.append(summary)
         for logger in loggers:
             logger.append(summary)
+        if (ckpt_mgr is not None and checkpoint_every and not cut
+                and (epoch + 1) % checkpoint_every == 0):
+            ckpt_mgr.save(state, epoch + 1,
+                          meta={"summary": summary,
+                                "global_round": int(global_round)})
     n_clients = len(train_ds.data_per_client)
     print(f"Total Download (MiB): {log.total_download_mib:0.2f}")
     print(f"Total Upload (MiB): {log.total_upload_mib:0.2f}")

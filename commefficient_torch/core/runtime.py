@@ -79,6 +79,8 @@ class FedRuntime:
                            else cfg.max_client_batch)
         self.initial_weights = model.flat.detach().to(self.device,
                                                       torch.float32)
+        # (path, shape) of the flat parameters, for checkpoint fingerprints
+        self.layout = getattr(model, "layout", None)
         self.cs = None
         if cfg.mode == "sketch":
             self.cs = make_circulant_sketch(d, cfg.num_cols, cfg.num_rows,
@@ -97,32 +99,40 @@ class FedRuntime:
                                                           self.batch_size)
         self._val_fn = client_lib.make_val_step(loss_fn_val or loss_fn)
 
-    def init_state(self) -> FedState:
-        cfg, dev = self.cfg, self.device
+    def state_shapes(self) -> Dict[str, Optional[Tuple[int, ...]]]:
+        """The shape of each ``FedState`` field this run holds (None: a
+        field it does not hold)."""
+        cfg = self.cfg
         d, n = cfg.grad_size, self.num_clients
-        if cfg.mode == "sketch":
-            server = self.cs.empty_table
-        else:
-            def server():
-                return torch.zeros(d, dtype=torch.float32, device=dev)
-
-        def rows(needed: bool):
-            return (torch.zeros((n, d), dtype=torch.float32, device=dev)
-                    if needed else None)
-
+        server = self.cs.table_shape if cfg.mode == "sketch" else (d,)
         track = cfg.track_bytes
+        return {"ps_weights": (d,), "Vvelocity": server, "Verror": server,
+                "step": (),
+                "client_velocities": ((n, d) if cfg.needs_client_velocities
+                                      else None),
+                "client_errors": (n, d) if cfg.needs_client_errors else None,
+                "coord_last_update": (d,) if track else None,
+                "client_last_round": (n,) if track else None,
+                "nan_round": ()}
+
+    def init_state(self) -> FedState:
+        dev, shapes = self.device, self.state_shapes()
+
+        def zeros(name: str, fill: float = 0.0, dtype=torch.float32):
+            shape = shapes[name]
+            return (torch.full(shape, fill, dtype=dtype, device=dev)
+                    if shape is not None else None)
+
         return FedState(
             ps_weights=self.initial_weights.clone(),
-            Vvelocity=server(), Verror=server(), step=0,
-            client_velocities=rows(cfg.needs_client_velocities),
-            client_errors=rows(cfg.needs_client_errors),
-            coord_last_update=(torch.full((d,), -1, dtype=torch.int32,
-                                          device=dev) if track else None),
-            client_last_round=(torch.zeros(n, dtype=torch.int32, device=dev)
-                               if track else None),
-            nan_round=torch.full((), -1, dtype=torch.int32, device=dev))
+            Vvelocity=zeros("Vvelocity"), Verror=zeros("Verror"), step=0,
+            client_velocities=zeros("client_velocities"),
+            client_errors=zeros("client_errors"),
+            coord_last_update=zeros("coord_last_update", -1, torch.int32),
+            client_last_round=zeros("client_last_round", 0, torch.int32),
+            nan_round=zeros("nan_round", -1, torch.int32))
 
-    def _batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+    def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """Every leaf onto the device: floating leaves as float32, integer
         leaves (labels, token ids, positions) as int64."""
         out = {}
@@ -205,7 +215,7 @@ class FedRuntime:
                 (ids,), step_t)
 
         agg, results, n_valid, vel_new, err_new = self._clients(
-            state, ids, self._batch(batch), mask, mask_host, lr)
+            state, ids, self.to_device(batch), mask, mask_host, lr)
         agg = agg / torch.clamp(n_valid.sum(), min=1.0)
         update, Vvel, Verr, sup_mask = server_update(
             cfg, agg, state.Vvelocity, state.Verror, lr, self.cs)
@@ -240,6 +250,6 @@ class FedRuntime:
     def val(self, state: FedState, batch, mask):
         """Masked evaluation on the current weights: ``((loss, acc),
         n_valid)``."""
-        return self._val_fn(state.ps_weights, self._batch(batch),
+        return self._val_fn(state.ps_weights, self.to_device(batch),
                             torch.as_tensor(mask, device=self.device,
                                             dtype=torch.bool))

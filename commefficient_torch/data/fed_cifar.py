@@ -1,18 +1,31 @@
-"""Federated CIFAR10 with one natural client per class, held in memory.
+"""Federated CIFAR10/100 with one natural client per class, counterpart of
+the JAX package's ``data/fed_cifar.py``.
 
-Real CIFAR10 is not in the repository, so the port's data is the JAX
-package's synthetic set: ``synthetic_cifar`` is a copy of
-the JAX package's ``data/fed_cifar.py _synthetic_cifar`` (its default,
-low-frequency branch), and the train/val splits are drawn with the same
-seeds, so both packages see the same images. Train items are sorted by
-client (= class), as the JAX package stores them.
+``prepare`` reads the CIFAR python pickles under ``dataset_dir``
+(``cifar-10-batches-py``: ``data_batch_1..5``, ``test_batch``,
+``b"labels"``; ``cifar-100-python``: ``train``, ``test``,
+``b"fine_labels"``), converts NCHW rows to NHWC and writes one file per
+class, a test file and the stats json (``data/fed_dataset.py``). The
+train target of an item is its natural client. Without the pickles, the
+``synthetic`` switch decides, as in the JAX package: None falls back to
+the synthetic set with a ``WARNING:`` line, False raises, True forces
+the synthetic set. ``synthetic_cifar`` is a copy of the JAX package's
+``_synthetic_cifar`` (its default, low-frequency branch), with the same
+seeds, so both packages prepare the same images.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+import pickle
+from typing import Optional
 
 import numpy as np
+
+from commefficient_torch.data.fed_dataset import FedDataset
+
+# the JAX package's version tag of the synthetic generator
+SYNTH_PROTOS = "shared-v3"
 
 
 def synthetic_cifar(num_classes: int, per_class: int, img_hw: int = 32,
@@ -38,49 +51,105 @@ def synthetic_cifar(num_classes: int, per_class: int, img_hw: int = 32,
     return np.concatenate(images), np.concatenate(targets)
 
 
-class FedCIFAR10:
-    """``train=True``: ``synthetic_per_class`` images per class, seed 1234;
-    ``train=False``: ``max(per_class // 4, 2)`` per class, seed 4321, the
-    same prototypes. ``num_clients`` (a multiple of 10) splits each class
-    across ``num_clients // 10`` clients, the last taking the remainder."""
-
+class FedCIFAR10(FedDataset):
+    expected_natural_clients = 10
     num_classes = 10
+    pickle_dir = "cifar-10-batches-py"
+    train_files = [f"data_batch_{i}" for i in range(1, 6)]
+    test_file = "test_batch"
+    label_key = b"labels"
 
-    def __init__(self, train: bool = True, synthetic_per_class: int = 64,
-                 num_clients: Optional[int] = None, transform=None):
-        if train:
-            images, targets = synthetic_cifar(self.num_classes,
-                                              synthetic_per_class)
+    def __init__(self, dataset_dir: str, train: bool = True,
+                 do_iid: bool = False, num_clients: Optional[int] = None,
+                 transform=None, synthetic: Optional[bool] = None,
+                 synthetic_per_class: int = 64):
+        self._synthetic = synthetic
+        self._synthetic_per_class = synthetic_per_class
+        self._invalidate_stale_synth_prep(dataset_dir, synthetic)
+        super().__init__(dataset_dir, train=train, do_iid=do_iid,
+                         num_clients=num_clients, transform=transform)
+
+    @classmethod
+    def _has_real_source(cls, dataset_dir: str) -> bool:
+        return os.path.isdir(os.path.join(dataset_dir, cls.pickle_dir))
+
+    def _synth_marker(self) -> dict:
+        """What a synthetic prep bakes into its arrays; equal to the JAX
+        package's marker for the same flags (the port runs neither the
+        hard regime nor label noise)."""
+        return {"per_class": self._synthetic_per_class,
+                "protos": SYNTH_PROTOS, "hard": False, "label_noise": 0.0}
+
+    def _load_pickles(self, files):
+        images, labels = [], []
+        for fn in files:
+            with open(os.path.join(self.dataset_dir, self.pickle_dir, fn),
+                      "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+            images.append(d[b"data"].reshape(-1, 3, 32, 32)
+                          .transpose(0, 2, 3, 1))
+            labels.append(np.asarray(d[self.label_key], dtype=np.int64))
+        return np.concatenate(images), np.concatenate(labels)
+
+    def _prepare(self) -> None:
+        marker = None
+        if self._has_real_source(self.dataset_dir) and not self._synthetic:
+            train_images, train_targets = self._load_pickles(
+                self.train_files)
+            test_images, test_targets = self._load_pickles([self.test_file])
+        elif self._synthetic is False:
+            raise FileNotFoundError(
+                f"no {self.pickle_dir} under {self.dataset_dir} and "
+                "synthetic=False; place the CIFAR python pickles there or "
+                "pass synthetic=True")
         else:
-            images, targets = synthetic_cifar(
-                self.num_classes, max(synthetic_per_class // 4, 2),
+            if self._synthetic is None:
+                print(f"WARNING: no {self.pickle_dir} under "
+                      f"{self.dataset_dir}; generating synthetic data")
+            train_images, train_targets = synthetic_cifar(
+                self.num_classes, self._synthetic_per_class)
+            test_images, test_targets = synthetic_cifar(
+                self.num_classes, max(self._synthetic_per_class // 4, 2),
                 seed=4321)
+            marker = self._synth_marker()
+        os.makedirs(self.dataset_dir, exist_ok=True)
+        images_per_client = []
+        for c in range(self.num_classes):
+            sel = np.where(train_targets == c)[0]
+            images_per_client.append(len(sel))
+            np.save(self.client_fn(c), train_images[sel])
+        np.savez(self.test_fn(), test_images=test_images,
+                 test_targets=test_targets)
+        self.write_stats(images_per_client, len(test_targets),
+                         **({"synthetic": marker} if marker else {}))
+
+    def _load_arrays(self) -> None:
+        if self.train:
+            imgs = [np.load(self.client_fn(c))
+                    for c in range(len(self.images_per_client))]
+            images = np.concatenate(imgs)
+            targets = np.repeat(np.arange(len(imgs), dtype=np.int64),
+                                self.images_per_client)
+        else:
+            with np.load(self.test_fn()) as t:
+                images = t["test_images"]
+                targets = t["test_targets"].astype(np.int64)
         self.arrays = {"image": images, "target": targets}
-        self.images_per_client = np.bincount(targets,
-                                             minlength=self.num_classes)
-        self.num_clients = (num_clients if num_clients is not None
-                            else self.num_classes)
-        if self.num_clients % self.num_classes:
-            raise ValueError(
-                f"num_clients ({self.num_clients}) must be a multiple of "
-                f"the {self.num_classes} natural clients (iid splits are "
-                "outside the port's slice)")
-        self.transform = transform
 
-    @property
-    def data_per_client(self) -> np.ndarray:
-        shards = self.num_clients // self.num_classes
-        out = []
-        for num_images in self.images_per_client:
-            counts = [num_images // shards] * shards
-            counts[-1] += num_images % shards
-            out.extend(counts)
-        return np.array(out, dtype=np.int64)
+    def client_fn(self, client_id: int) -> str:
+        return self.data_fn(f"client{client_id}.npy")
 
-    def __len__(self) -> int:
-        return len(self.arrays["target"])
+    def test_fn(self) -> str:
+        return self.data_fn("test.npz")
 
-    def gather(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
-        """The items at ``idx`` (any shape), transformed."""
-        batch = {k: v[idx] for k, v in self.arrays.items()}
-        return self.transform(batch) if self.transform else batch
+
+class FedCIFAR100(FedCIFAR10):
+    expected_natural_clients = 100
+    num_classes = 100
+    pickle_dir = "cifar-100-python"
+    train_files = ["train"]
+    test_file = "test"
+    label_key = b"fine_labels"
+
+
+DATASETS = {"CIFAR10": FedCIFAR10, "CIFAR100": FedCIFAR100}

@@ -2,7 +2,8 @@
 the JAX package's ``data/transforms.py``: reflect-pad-4 random crop,
 horizontal flip and normalization for training, normalization alone for
 evaluation. A transform maps a whole batch dict at once and returns NHWC
-float32 images."""
+float32 images. They serve the host path; ``data/device_store.py`` does
+the same on the device."""
 
 from __future__ import annotations
 
@@ -12,6 +13,10 @@ import numpy as np
 
 CIFAR10_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR10_STD = np.array([0.2471, 0.2435, 0.2616], np.float32)
+CIFAR100_MEAN = np.array([0.5071, 0.4867, 0.4408], np.float32)
+CIFAR100_STD = np.array([0.2675, 0.2565, 0.2761], np.float32)
+NORMALIZE = {"CIFAR10": (CIFAR10_MEAN, CIFAR10_STD),
+             "CIFAR100": (CIFAR100_MEAN, CIFAR100_STD)}
 
 
 def _normalize(images: np.ndarray, mean, std) -> np.ndarray:
@@ -64,3 +69,11 @@ class CifarEval:
         out = dict(batch)
         out["image"] = _normalize(batch["image"], self.mean, self.std)
         return out
+
+
+def transforms_for(dataset_name: str, train: bool, seed: int = 0):
+    """The host transform of a CIFAR split: ``CifarTrain`` (seeded) for
+    training, ``CifarEval`` otherwise, with the dataset's constants."""
+    mean, std = NORMALIZE[dataset_name]
+    return (CifarTrain(mean, std, seed=seed) if train
+            else CifarEval(mean, std))

@@ -1,6 +1,7 @@
 """GPT-2 DoubleHeads on federated PersonaChat, entry point of the PyTorch
-port (the JAX package's ``gpt2_train.py`` without checkpoints, telemetry
-or meshes; the FetchSGD sketch round is the path built for the card).
+port (the JAX package's ``gpt2_train.py`` without telemetry, meshes or
+``save_pretrained``; the FetchSGD sketch round is the path built for the
+card).
 
     python -m commefficient_torch.gpt2_train --mode sketch \\
         --error_type virtual --virtual_momentum 0.9 --num_workers 8 \\
@@ -16,7 +17,10 @@ loop is ``cv_train``'s (core/driver.py): at each epoch's end the epoch's
 rounds (loss, MC accuracy, round time), the validation and the epoch row
 with its download and upload MiB; at the end the validation NLL,
 perplexity and MC accuracy of the last epoch, and the analytic tokens and
-model FLOPs per round (``gpt2_model_flops``).
+model FLOPs per round (``gpt2_model_flops``). ``--checkpoint_every N``
+writes the whole state every N epochs under
+``<checkpoint_path>/gpt2_doubleheads`` and ``--resume`` continues from
+the newest intact one (checkpoint.py), as in ``cv_train``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from commefficient_torch.checkpoint import setup_checkpointing
 from commefficient_torch.config import (add_args, add_gpt2_args,
                                         config_from_args, parse_known)
 from commefficient_torch.core.driver import train
@@ -71,6 +76,9 @@ def setup(ns: argparse.Namespace):
     cfg = config_from_args(ns)
     if cfg.model != "GPT2":
         raise ValueError(f"--model {cfg.model}: gpt2_train runs GPT2")
+    if cfg.do_iid:
+        raise ValueError("--iid: iid PersonaChat splits are outside the "
+                         "PyTorch port's slice")
     device = torch.device(ns.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the "
@@ -120,6 +128,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ns = parse_known(build_parser(), argv)
     runtime, state, train_ds, val_ds, gcfg = setup(ns)
     cfg = runtime.cfg
+    ckpt_mgr, start_epoch, restored, global_round = setup_checkpointing(
+        cfg, runtime, "gpt2_doubleheads")
+    if restored is not None:
+        state = restored
     tokens = (cfg.num_workers * runtime.batch_size * cfg.num_candidates
               * cfg.max_seq_len)
     flops = gpt2_model_flops(gcfg, tokens, cfg.max_seq_len)
@@ -132,7 +144,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         ns.num_rounds or (1 if cfg.do_test else 0),
         max_per_epoch=1 if cfg.do_test else None,
         val_max_batches=1 if cfg.do_test else None,
-        loggers=(TableLogger(), tsv), timer=timer)
+        loggers=(TableLogger(), tsv), timer=timer, ckpt_mgr=ckpt_mgr,
+        checkpoint_every=cfg.checkpoint_every, start_epoch=start_epoch,
+        global_round=global_round)
     print(tsv)
     nll = summary["test_loss"] if summary else float("nan")
     acc = summary["test_acc"] if summary else float("nan")

@@ -14,8 +14,13 @@ Prints the device time by kernel group (the flash-attention kernels,
 the circulant-sketch kernels, convolution and matmul, top-k and sorting,
 other), the device's busy and idle share of the profiled window (busy =
 the union of device kernel intervals), and the top kernels by device
-time. Writes the Chrome trace to ``--trace`` when given. Needs a CUDA
-device.
+time. The rounds take their batches as the run would, inside the
+profiled window: from the device store when ``cv_train`` builds one
+(index upload, gather and augmentation on the device), else the host
+gather and its upload. The data path is then profiled alone over the
+same rounds, and its device busy and wall a round are printed beside
+the round's. Writes the Chrome trace to ``--trace`` when given. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -70,6 +75,23 @@ def _busy_us(intervals) -> float:
     return busy
 
 
+def _profiled(fn):
+    """``(profiler, device events, wall us)`` of ``fn()`` under
+    ``torch.profiler``, synced at its end."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise SystemExit("the profiler recorded no device activity; time "
+                         "with CUDA events instead")
+    return prof, kernels, wall_us
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     pre = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
@@ -84,7 +106,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ns = parse_known(p, argv)
     if not torch.cuda.is_available() or torch.device(ns.device).type != "cuda":
         raise SystemExit("profile_round measures the card: no CUDA device")
-    runtime, state, train_ds = entry.setup(ns)[:3]
+    runtime, state, train_ds, val_ds = entry.setup(ns)[:4]
+    store = (cv_train.make_stores(runtime, train_ds, val_ds)[0]
+             if entry is cv_train else None)
+
+    def batch_of(rnd, i):
+        return (store.round_batch(rnd.idx, i + 1) if store is not None
+                else runtime.to_device(train_ds.gather(rnd.idx)))
+
     schedule = (gpt2_train.make_gpt2_schedule(runtime.cfg)
                 if entry is gpt2_train else lr_schedule_for(runtime.cfg))
     cfg = runtime.cfg
@@ -94,28 +123,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         for epoch in itertools.count()))
     for _ in range(ns.warmup):
         i, rnd = next(it)
-        state, _ = runtime.round(state, rnd.client_ids,
-                                 train_ds.gather(rnd.idx), rnd.mask,
-                                 schedule((i + 1) / spe))
+        state, _ = runtime.round(state, rnd.client_ids, batch_of(rnd, i),
+                                 rnd.mask, schedule((i + 1) / spe))
     torch.cuda.synchronize()
-    batches = []
-    for _ in range(ns.profile_rounds):
-        i, rnd = next(it)
-        batches.append((rnd, schedule((i + 1) / spe),
-                        train_ds.gather(rnd.idx)))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for rnd, lr, batch in batches:
-            state, _ = runtime.round(state, rnd.client_ids, batch, rnd.mask,
-                                     lr)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise SystemExit("the profiler recorded no device activity; time "
-                         "with CUDA events instead")
+    rounds = [next(it) for _ in range(ns.profile_rounds)]
+
+    def run_rounds():
+        nonlocal state
+        for i, rnd in rounds:
+            state, _ = runtime.round(state, rnd.client_ids, batch_of(rnd, i),
+                                     rnd.mask, schedule((i + 1) / spe))
+
+    prof, kernels, wall_us = _profiled(run_rounds)
+    # the same rounds' data path alone (the store's draws are keyed by the
+    # round, so it gathers the batches just trained on)
+    _, data_kernels, data_wall_us = _profiled(
+        lambda: [batch_of(rnd, i) for i, rnd in rounds])
     by_group, by_name = {}, {}
     for e in kernels:
         us = e.time_range.end - e.time_range.start
@@ -135,12 +158,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             k: v / n / 1e3 for k, v in sorted(by_group.items(),
                                                key=lambda kv: -kv[1])},
         "device_ops_per_round": len(kernels) / n,
+        "data_wall_ms_per_round": data_wall_us / n / 1e3,
+        "data_device_busy_ms_per_round": _busy_us(
+            [(e.time_range.start, e.time_range.end)
+             for e in data_kernels]) / n / 1e3,
+        "data_device_ops_per_round": len(data_kernels) / n,
         "device": torch.cuda.get_device_name(0),
     }
-    print(f"{n} rounds: wall {out['wall_ms_per_round']:.3f} ms/round, "
-          f"device busy {out['device_busy_ms_per_round']:.3f} ms/round, "
-          f"idle share {out['device_idle_share_of_wall']:.3f}, "
-          f"{out['device_ops_per_round']:.0f} device ops/round")
+    print(f"{n} rounds with their data path: wall "
+          f"{out['wall_ms_per_round']:.3f} ms/round, device busy "
+          f"{out['device_busy_ms_per_round']:.3f} ms/round, idle share "
+          f"{out['device_idle_share_of_wall']:.3f}, "
+          f"{out['device_ops_per_round']:.0f} device ops/round; the data "
+          f"path alone: wall {out['data_wall_ms_per_round']:.3f} ms/round, "
+          f"device busy {out['data_device_busy_ms_per_round']:.3f} "
+          f"ms/round, {out['data_device_ops_per_round']:.0f} device "
+          "ops/round")
     for k, v in out["kernel_ms_per_round_by_group"].items():
         print(f"  {k:<28} {v:9.3f} ms/round")
     print(f"top {ns.top} kernels by device time (ms per round):")

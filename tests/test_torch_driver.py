@@ -163,13 +163,14 @@ CV_MODES = {
 
 
 @pytest.mark.parametrize("mode", sorted(CV_MODES))
-def test_cv_train_runs_every_mode_on_cpu(mode):
+def test_cv_train_runs_every_mode_on_cpu(tmp_path, mode):
     """The entry point at ResNet-9's full width, two rounds: finite
     losses, an epoch row, upload bytes 4 x upload_floats a participant,
     and download counts that a plain recount of the final state gives."""
     from commefficient_torch import cv_train
     out = cv_train.main([
-        "--device", "cpu", "--virtual_momentum", "0.9", "--num_workers",
+        "--device", "cpu", "--dataset_dir", str(tmp_path),
+        "--virtual_momentum", "0.9", "--num_workers",
         "2", "--local_batch_size", "4", "--k", "500", "--num_rounds", "2",
         "--synthetic_per_class", "4", "--valid_batch_size", "20",
         *CV_MODES[mode]])

@@ -431,11 +431,12 @@ def test_sampler_whole_client_batches_identical(max_client_batch, rounds):
     assert got[0].mask.shape == (4, max_client_batch)
 
 
-def test_synthetic_cifar_and_transforms_identical():
+def test_synthetic_cifar_and_transforms_identical(tmp_path):
     ref = jcifar._synthetic_cifar(10, 8)
     got = tcifar.synthetic_cifar(10, 8)
     assert all(np.array_equal(a, b) for a, b in zip(got, ref))
-    ds = tcifar.FedCIFAR10(train=True, synthetic_per_class=8, num_clients=20)
+    ds = tcifar.FedCIFAR10(str(tmp_path), train=True, synthetic=True,
+                           synthetic_per_class=8, num_clients=20)
     assert ds.data_per_client.tolist() == [4] * 20
     batch = {"image": got[0][:12].reshape(3, 4, 32, 32, 3),
              "target": got[1][:12].reshape(3, 4)}

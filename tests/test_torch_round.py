@@ -126,11 +126,12 @@ def test_three_rounds_match_reference():
                                rtol=1e-4, atol=1e-6)
 
 
-def test_cv_train_runs_on_cpu(capsys):
+def test_cv_train_runs_on_cpu(tmp_path, capsys):
     """The entry point at full width on the CPU: two rounds, finite
     losses, one printed row per round."""
     out = cv_train.main([
         "--device", "cpu", "--dataset_name", "CIFAR10", "--model", "ResNet9",
+        "--dataset_dir", str(tmp_path),
         "--mode", "sketch", "--error_type", "virtual",
         "--virtual_momentum", "0.9", "--num_workers", "2",
         "--local_batch_size", "4", "--k", "500", "--num_rows", "5",
