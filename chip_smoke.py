@@ -72,6 +72,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``RoundRecorder``); then a planted NaN in the main path's second
    round must set ``nan_round`` to 1 and stop the driver at that epoch's
    end without validating it;
+   then the hash sketch and the SRHT on the card (``phase_hash_rht``):
+   the hash encode at ResNet-9's shape against the same call on the CPU
+   (HASH_ENCODE_RTOL), its decode (a table with zeroed cells, -0 and
+   NaN) and sparse re-encode bitwise equal to the CPU's, the SRHT's round
+   trip at c = d' = 2^23 within RHT_ROUND_TRIP_ATOL with TF32 switched on
+   around it, and the rht path's encode against the CPU's; DP noise
+   measured in a round (``phase_noise``: uncompressed ResNet-9 with
+   ``--dp``, worker and server; the update's difference from a
+   noise-free run over the rate has standard deviation 0.1 within
+   NOISE_STD_RTOL, and a repeated round draws the same noise); then
+   ``cv_train`` in each of ``RULE_CONFIGS`` (the table clip, the dense
+   clip, the dense server state, DP worker and server, ``--topk_down``,
+   the hash sketch with the zero rule and with the dense state, the SRHT
+   at r c = d) at the same widths, 3 rounds each, exact K1/K2 launches a
+   round (16 + 1 for the table clip and ``--topk_down``, 1 + 1 for the
+   dense clip, DP and the dense state, none for hash, rht and the
+   uncompressed DP run) and the bytes held as in the modes;
 8. real-format data, checkpoints and resume (``phase_real_data_resume``):
    a full-scale ``cifar-10-batches-py`` (50,000 train and 10,000 test
    images of ``synthetic_cifar``) is written to a temporary directory;
@@ -95,7 +112,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    time (of the rounds after the first), tokens/s, the analytic model
    TFLOP/s and its share of 989 TFLOP/s, and peak memory; then the same
    with ``--no_track_bytes``; then the GPT-2 main path's state saved and
-   loaded once at full width (time, size, bitwise on the card);
+   loaded once at full width (time, size, bitwise on the card); then two
+   arms of the JAX package's GPT-2 study at the main path's k
+   (``GPT2_ARMS``: the table clip ``--max_grad_norm 1``, 16 K1 a round,
+   and ``densestate_clip1``, 1 K1), 3 rounds each, with the same launch
+   checks;
 10. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last the ``{"ok": true, ...}`` line.
 
@@ -200,6 +221,29 @@ GPT2_ROUNDS = 4
 GPT2_PER_ROUND = {"circ_encode": 9, "circ_decode": 1, "flash_fwd": 96,
                   "flash_bwd_dq": 96, "flash_bwd_dkv": 96}
 GPT2_VAL_FWD = 12               # one validation batch of 8 items, 12 layers
+# two arms of the JAX package's GPT-2 study (scripts/gpt2_ef_study.sh) at
+# the main path's k, 3 rounds each: the table clip (each client streams
+# its microbatch and its weight-decay term into its own table: 8 x 2 K1)
+# and densestate_clip1 (dense clip, one deferred encode of the dense sum
+# of the (d,) error pre-image: 1 K1)
+GPT2_ARM_ROUNDS = 3
+GPT2_ARMS = {
+    "clip1": (["--max_grad_norm", "1"], 16),
+    "densestate_clip1": (["--sketch_server_state", "dense",
+                          "--sketch_dense_clip", "--max_grad_norm", "1"], 1),
+}
+# the hash encode on the card against the same call on the CPU: each
+# cell within 1e-5 of itself plus 1e-5 of its row's RMS cell (index_add_
+# sums a cell's ~13 addends in no fixed order on the card)
+HASH_ENCODE_RTOL = 1e-5
+# the SRHT's lossless round trip at c >= d': within 1e-5 of the largest
+# |v| (three float32 products of 2^23 coordinates; TF32 would miss it)
+RHT_ROUND_TRIP_ATOL = 1e-5
+# the DP noise measured in a round on the card: its standard deviation
+# within 1% of noise_multiplier, and a repeated round's noise within 1e-3
+# of it (the gradient's own run-to-run spread on the card is far below)
+NOISE_STD_RTOL = 1e-2
+NOISE_REPEAT_RTOL = 1e-3
 FLASH_SHAPES = ((8, 1024, 12, 64), (8, 256, 12, 64))   # (N, S, H, D)
 # a planted fault skips this many keys or queries: finer than the
 # 128-wide tiles of every K3 kernel
@@ -1003,7 +1047,8 @@ def phase_gpt2_reference():
     gcfg = GPT2Config(vocab_size=8192, n_positions=S, n_embd=128,
                       n_layer=2, n_head=2)
     cfg = FedConfig(model="GPT2", dataset_name="PERSONA", mode="sketch",
-                    error_type="virtual", virtual_momentum=0.9,
+                    error_type="virtual", local_momentum=0.0,
+                    virtual_momentum=0.9,
                     weight_decay=5e-4, k=2000, num_rows=5, num_cols=65536,
                     num_workers=W, local_batch_size=B, attn_impl="flash",
                     max_seq_len=S)
@@ -1106,7 +1151,7 @@ def dataset_flags(name: str):
 
 MAIN_ARGV = ["--dataset_name", "CIFAR10", "--model", "ResNet9",
              "--mode", "sketch", "--error_type", "virtual",
-             "--virtual_momentum", "0.9", "--num_workers", "8",
+             "--local_momentum", "0", "--virtual_momentum", "0.9", "--num_workers", "8",
              "--local_batch_size", "64", "--k", "50000", "--num_rows", "5",
              "--num_cols", "500000"]
 
@@ -1155,6 +1200,7 @@ def phase_main_path(extra=()):
 # or the unfused path's one encode of the summed gradient.
 MODE_ROUNDS = 3
 MODE_COMMON = ["--dataset_name", "CIFAR10", "--model", "ResNet9",
+               "--error_type", "virtual", "--local_momentum", "0",
                "--num_clients", "100", "--synthetic_per_class", "640",
                "--num_workers", "8", "--local_batch_size", "64",
                "--k", "50000", "--num_rows", "5", "--num_cols", "500000",
@@ -1174,6 +1220,34 @@ MODE_CONFIGS = {
                          "16"], 8 * 4 + 1, 1),
     "sketch_unfused": (["--mode", "sketch", "--virtual_momentum", "0.9",
                         "--sketch_fused_encode", "off"], 1, 1),
+}
+# the client and server rules of this slice at the same widths (100
+# clients: --topk_down holds a row of weights for each). K1 as the JAX
+# package routes them: the table clip and --topk_down stream each
+# client's microbatch and its own weight-decay term into its own table (8
+# x 2); the dense clip and DP encode the round's dense sum once; the dense
+# server state encodes its (d,) error once; hash and rht launch none.
+SKETCH_FLAGS = ["--mode", "sketch", "--virtual_momentum", "0.9"]
+RULE_CONFIGS = {
+    "clip": (SKETCH_FLAGS + ["--max_grad_norm", "1"], 16, 1),
+    "dense_clip": (SKETCH_FLAGS + ["--sketch_dense_clip",
+                                   "--max_grad_norm", "1"], 1, 1),
+    "dense_state": (SKETCH_FLAGS + ["--sketch_server_state", "dense"], 1, 1),
+    "dp_worker": (SKETCH_FLAGS + ["--dp", "--l2_norm_clip", "1",
+                                  "--noise_multiplier", "0.1"], 1, 1),
+    "dp_server_uncompressed": (["--mode", "uncompressed", "--error_type",
+                                "none", "--dp", "--dp_mode", "server",
+                                "--noise_multiplier", "0.1"], 0, 0),
+    "topk_down": (SKETCH_FLAGS + ["--topk_down"], 16, 1),
+    "hash": (SKETCH_FLAGS + ["--sketch_impl", "hash", "--num_cols",
+                             "500000", "--num_blocks", "20"], 0, 0),
+    "hash_dense_state": (SKETCH_FLAGS + ["--sketch_impl", "hash",
+                                         "--num_cols", "500000",
+                                         "--num_blocks", "20",
+                                         "--sketch_server_state", "dense"],
+                         0, 0),
+    "rht": (SKETCH_FLAGS + ["--sketch_impl", "rht", "--num_rows", "5",
+                            "--num_cols", "1313728"], 0, 0),
 }
 
 
@@ -1228,20 +1302,21 @@ class RoundRecorder:
         return len(self.rounds)
 
 
-def phase_modes():
-    """``cv_train`` on the card in every mode of ``MODE_CONFIGS`` at
-    ResNet-9's full width, MODE_ROUNDS rounds each: finite losses, the
-    exact K1/K2 launches a round, and the bytes (``RoundRecorder``).
-    Returns {mode: (launches, median round ms)}."""
+def phase_modes(configs=None, tag: str = "modes"):
+    """``cv_train`` on the card in every configuration of ``configs``
+    (default ``MODE_CONFIGS``) at ResNet-9's full width, MODE_ROUNDS
+    rounds each: finite losses, the exact K1/K2 launches a round, and the
+    bytes (``RoundRecorder``). Returns {name: (launches, median round
+    ms)}."""
     import numpy as np
     import torch
     from commefficient_torch import cv_train
     from commefficient_torch.ops import circulant_kernels as K
 
     out_modes = {}
-    for mode, (flags, n_enc, n_dec) in MODE_CONFIGS.items():
+    for mode, (flags, n_enc, n_dec) in (configs or MODE_CONFIGS).items():
         argv = MODE_COMMON + dataset_flags("synthetic640") + flags
-        print(f"[modes] python -m commefficient_torch.cv_train "
+        print(f"[{tag}] python -m commefficient_torch.cv_train "
               + " ".join(argv), flush=True)
         torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
@@ -1259,7 +1334,7 @@ def phase_modes():
             fail(f"{mode}: launches {launches}, want {want}")
         checked = rec.check_bytes(mode)
         rt = statistics.median(out["round_s"][1:])
-        print(f"[modes] {mode}: median of rounds 2-{MODE_ROUNDS} "
+        print(f"[{tag}] {mode}: median of rounds 2-{MODE_ROUNDS} "
               f"{rt * 1e3:.3f} ms (all: "
               f"{[round(t * 1e3, 3) for t in out['round_s']]}), "
               f"losses {[round(float(x), 5) for x in out['losses']]}, "
@@ -1419,6 +1494,151 @@ def phase_sparse_encode():
     return out
 
 
+def phase_hash_rht():
+    """The hash Count Sketch and the SRHT on the card at the shapes their
+    paths give them. Hash (ResNet-9: d = 6,568,640, c = 500,000, r = 5,
+    20 blocks): the encode of a seeded vector against the same call on
+    the CPU (HASH_ENCODE_RTOL), the decode of a table with zeroed cells,
+    -0 and NaN bitwise equal to the CPU's, the sparse re-encode of 50,000
+    values bitwise equal to the CPU's. SRHT: the round trip at c >= d'
+    (d = 6,568,640, c = d' = 2^23, r = 1) within RHT_ROUND_TRIP_ATOL,
+    with TF32 switched on around the call (the transform must turn it
+    off), and the rht path's encode (r = 5, c = 1,313,728) against the
+    CPU's. Returns the device times (ms) of each call, and of the hash
+    encode's two parts apart (the derived buckets and signs of all d
+    coordinates; one ``index_add_`` of the r d signed values)."""
+    import numpy as np
+    import torch
+    from commefficient_torch.ops.rht import make_rht_sketch
+    from commefficient_torch.ops.sketch import make_sketch
+
+    d, c, r = FLAGSHIP["d"], 500_000, 5
+    rng = np.random.RandomState(8)
+    v = torch.from_numpy(rng.randn(d).astype(np.float32))
+    cpu = make_sketch(d, c, r, 20, device="cpu")
+    card = make_sketch(d, c, r, 20, device="cuda")
+    want = cpu.encode(v)
+    vc = v.cuda()
+    got = card.encode(vc).cpu()
+    rms = torch.linalg.vector_norm(want, dim=1, keepdim=True) / math.sqrt(c)
+    enc_err = float(((got - want).abs() / (want.abs() + rms)).max())
+    if not enc_err <= HASH_ENCODE_RTOL:
+        fail(f"the hash encode on the card is {enc_err:.3e} from the CPU's "
+             f"(limit {HASH_ENCODE_RTOL})")
+    table = torch.from_numpy(zeroed_table(r, c, seed=9))
+    tc = table.cuda()
+    if not same_bits(card.decode(tc).cpu(), cpu.decode(table)):
+        fail("the hash decode on the card differs from the CPU's bits")
+    idx = torch.from_numpy(rng.permutation(d)[:50_000])
+    vals = torch.from_numpy(rng.randn(50_000).astype(np.float32))
+    gi, gv = idx.cuda(), vals.cuda()
+    if not same_bits(card.encode_vals_at(gv, gi).cpu(),
+                     cpu.encode_vals_at(vals, idx)):
+        fail("the hash sparse re-encode on the card differs from the CPU's "
+             "bits")
+    # the encode's two parts apart: the derived buckets and signs of all
+    # d coordinates (block by block, as encode and decode derive them),
+    # and one index_add_ of the r d signed values into their cells
+    blocks = [torch.arange(lo, min(lo + card.block_len, d), device="cuda")
+              for lo in range(0, d, card.block_len)]
+    buckets, sg = card.buckets_signs(torch.arange(d, device="cuda"))
+    cells = (buckets + torch.arange(r, device="cuda")[:, None] * c).view(-1)
+    addends = (sg * vc).view(-1)
+    del buckets, sg
+    out = {"hash_encode": time_ms(lambda: card.encode(vc), n=5),
+           "hash_decode": time_ms(lambda: card.decode(tc), n=5),
+           "hash_encode_vals_at": time_ms(
+               lambda: card.encode_vals_at(gv, gi), n=5),
+           "hash_buckets_signs": time_ms(
+               lambda: [card.buckets_signs(i) for i in blocks], n=5),
+           "hash_index_add": time_ms(
+               lambda: card.empty_table().view(-1).index_add_(0, cells,
+                                                              addends), n=5)}
+    del cells, addends
+
+    lossless = make_rht_sketch(d, 1 << 23, 1, device="cuda")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        back = lossless.decode(lossless.encode(vc))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    trip_err = float((back - vc).abs().max() / vc.abs().max())
+    if not trip_err <= RHT_ROUND_TRIP_ATOL:
+        fail(f"the SRHT round trip at c = d' is {trip_err:.3e} of max|v| "
+             f"from v (limit {RHT_ROUND_TRIP_ATOL})")
+    c_rht = 1_313_728
+    rht_cpu = make_rht_sketch(d, c_rht, r, device="cpu")
+    rht = make_rht_sketch(d, c_rht, r, device="cuda")
+    want = rht_cpu.encode(v)
+    rht_err = float((rht.encode(vc).cpu() - want).abs().max()
+                    / want.abs().max())
+    if not rht_err <= RHT_ROUND_TRIP_ATOL:
+        fail(f"the SRHT encode on the card is {rht_err:.3e} of the largest "
+             f"cell from the CPU's (limit {RHT_ROUND_TRIP_ATOL})")
+    t_rht = rht.encode(vc)
+    out.update(rht_encode=time_ms(lambda: rht.encode(vc), n=5),
+               rht_decode=time_ms(lambda: rht.decode(t_rht), n=5))
+    print(f"[hash/rht] hash encode within {enc_err:.3e} (cell-relative) of "
+          f"the CPU's, decode and sparse re-encode bitwise; SRHT round trip "
+          f"at c = d' = 2^23 within {trip_err:.3e} of max|v| (TF32 on "
+          f"around it), the rht path's encode within {rht_err:.3e} of the "
+          "CPU's; device ms: "
+          + ", ".join(f"{k} {t:.4f}" for k, t in out.items()), flush=True)
+    return out
+
+
+def phase_noise():
+    """DP noise on the card, measured in a round: ResNet-9 uncompressed
+    at the main path's widths with ``--dp`` (worker and server), one
+    round from the initial state with noise_multiplier 0.1, again, and
+    once from a run with 0 (the same seeded weights). The update's difference over the rate is the noise:
+    its standard deviation within NOISE_STD_RTOL of 0.1 (worker: 8 draws
+    of 0.1 sqrt(8) averaged), its mean near 0, and the repeated round's
+    noise within NOISE_REPEAT_RTOL of the first (one seed, one round, one
+    slot: one draw). Returns {mode: measured std}."""
+    import numpy as np
+    import torch
+    from commefficient_torch import cv_train
+    from commefficient_torch.config import parse_known
+
+    sigma, W, B, lr = 0.1, 8, 64, 0.1
+    out = {}
+    def runtime(mode: str, multiplier: float):
+        argv = (MAIN_ARGV + dataset_flags("synthetic64")
+                + ["--mode", "uncompressed", "--error_type", "none", "--dp",
+                   "--dp_mode", mode, "--noise_multiplier", str(multiplier)])
+        return cv_train.setup(parse_known(cv_train.build_parser(), argv))[:2]
+
+    for mode in ("worker", "server"):
+        rng = np.random.RandomState(3)
+        batch = {"image": rng.randn(W, B, 32, 32, 3).astype(np.float32),
+                 "target": rng.randint(0, 10, (W, B))}
+        ids, mask = np.arange(W), np.ones((W, B), bool)
+        rt, s0 = runtime(mode, sigma)
+        a, _ = rt.round(s0, ids, batch, mask, lr)
+        b, _ = rt.round(s0, ids, batch, mask, lr)
+        rt, s0 = runtime(mode, 0.0)
+        c, _ = rt.round(s0, ids, batch, mask, lr)
+        noise = ((c.ps_weights - a.ps_weights) / lr).double()
+        repeat = float((b.ps_weights - a.ps_weights).abs().max()) / lr
+        std, mean = float(noise.std()), float(noise.mean())
+        n = noise.numel()
+        if not (abs(std / sigma - 1) <= NOISE_STD_RTOL
+                and abs(mean) <= 5 * sigma / math.sqrt(n)
+                and repeat <= NOISE_REPEAT_RTOL * sigma):
+            fail(f"DP {mode} noise on the card: std {std:.6f} (want "
+                 f"{sigma}), mean {mean:.3e}, a repeated round's noise "
+                 f"{repeat:.3e} from the first")
+        out[mode] = std
+        print(f"[noise] --dp_mode {mode}: std {std:.6f} over {n} "
+              f"coordinates (want {sigma}), mean {mean:.3e}, a repeated "
+              f"round's noise {repeat:.3e} from the first", flush=True)
+        del rt, s0, a, b, c
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_topk(device="cuda"):
     """The card's top-k (``topk_with_idx``, and row-wise ``topk``) on
     vectors with +-NaN, +-inf, +-0 and ties, held to a plain ranking of
@@ -1535,14 +1755,15 @@ class LaunchSplit:
                 for n in self.counts()}
 
 
-def phase_gpt2_main(extra=()):
-    """Four GPT-2 rounds at GPT-2 small's width through the user's entry
-    point, each round an epoch with its validation; ``extra`` flags after
-    the main path's. Every round must launch exactly GPT2_PER_ROUND and
-    every validation batch GPT2_VAL_FWD K3 forward kernels and nothing
-    else (``LaunchSplit``), and the two must add up to the run's counts.
-    Returns the measured launches of the rounds and of the validations,
-    and the median round time (ms)."""
+def phase_gpt2_main(extra=(), n_rounds: int = GPT2_ROUNDS,
+                    encodes: int = 9):
+    """``n_rounds`` GPT-2 rounds at GPT-2 small's width through the user's
+    entry point, each round an epoch with its validation; ``extra`` flags
+    after the main path's. Every round must launch exactly GPT2_PER_ROUND
+    (with ``encodes`` K1) and every validation batch GPT2_VAL_FWD K3
+    forward kernels and nothing else (``LaunchSplit``), and the two must
+    add up to the run's counts. Returns the measured launches of the
+    rounds and of the validations, and the median round time (ms)."""
     import numpy as np
     import torch
     from commefficient_torch import gpt2_train
@@ -1550,11 +1771,12 @@ def phase_gpt2_main(extra=()):
     from commefficient_torch.ops import flash_attention as FA
 
     argv = ["--mode", "sketch", "--error_type", "virtual",
-            "--virtual_momentum", "0.9", "--num_workers", "8",
-            "--local_batch_size", "4", "--num_candidates", "2",
-            "--max_seq_len", "1024", "--k", "50000", "--num_rows", "5",
-            "--num_cols", "524288", "--num_rounds", str(GPT2_ROUNDS),
-            *extra]
+            "--local_momentum", "0", "--virtual_momentum", "0.9",
+            "--num_workers", "8", "--local_batch_size", "4",
+            "--num_candidates", "2", "--max_seq_len", "1024", "--k",
+            "50000", "--num_rows", "5", "--num_cols", "524288",
+            "--num_rounds", str(n_rounds), *extra]
+    per_round = dict(GPT2_PER_ROUND, circ_encode=encodes)
     tag = " ".join(extra) or "bytes on"
     print("[gpt2] python -m commefficient_torch.gpt2_train " + " ".join(argv),
           flush=True)
@@ -1569,30 +1791,30 @@ def phase_gpt2_main(extra=()):
     rounds, val = split.total("round"), split.total("val")
     val_batch = dict.fromkeys(total, 0)
     val_batch["flash_fwd"] = GPT2_VAL_FWD
-    if out["rounds"] != GPT2_ROUNDS or len(split.calls["round"]) \
-            != GPT2_ROUNDS or len(split.calls["val"]) != out["val_batches"] \
+    if out["rounds"] != n_rounds or len(split.calls["round"]) \
+            != n_rounds or len(split.calls["val"]) != out["val_batches"] \
             or out["val_batches"] < 1:
         fail(f"ran {out['rounds']} GPT-2 rounds ({len(split.calls['round'])}"
              f" measured) and {out['val_batches']} validation batches "
-             f"({len(split.calls['val'])} measured), wanted {GPT2_ROUNDS} "
+             f"({len(split.calls['val'])} measured), wanted {n_rounds} "
              "and some")
     if not np.isfinite(out["losses"]).all() or \
             not math.isfinite(out["val_loss"]):
         fail(f"non-finite GPT-2 losses {out['losses']} / {out['val_loss']}")
     bad = [("round", i, c) for i, c in enumerate(split.calls["round"])
-           if c != GPT2_PER_ROUND] + \
+           if c != per_round] + \
           [("validation batch", i, c) for i, c in enumerate(split.calls["val"])
            if c != val_batch]
     if bad:
-        fail(f"GPT-2 launches: {bad[:4]}; want {GPT2_PER_ROUND} a round and "
+        fail(f"GPT-2 launches: {bad[:4]}; want {per_round} a round and "
              f"{val_batch} a validation batch")
     if {n: rounds[n] + val[n] for n in total} != total:
         fail(f"GPT-2 launches {total} outside the rounds ({rounds}) and the "
              f"validation batches ({val})")
     rt = statistics.median(out["round_s"][1:])
     tflops = out["model_flops_per_round"] / rt / 1e12
-    print(f"[gpt2] {tag}: {GPT2_ROUNDS} rounds: median of rounds "
-          f"2-{GPT2_ROUNDS} (the first pays one-time set-up) "
+    print(f"[gpt2] {tag}: {n_rounds} rounds: median of rounds "
+          f"2-{n_rounds} (the first pays one-time set-up) "
           f"{rt * 1e3:.3f} ms "
           f"(all: {[round(t * 1e3, 3) for t in out['round_s']]}), "
           f"{out['tokens_per_round'] / rt:.1f} tokens/s, "
@@ -1873,9 +2095,9 @@ def phase_gpt2_checkpoint():
     from commefficient_torch.core import driver
 
     ns = parse_known(gpt2_train.build_parser(), [
-        "--mode", "sketch", "--error_type", "virtual", "--virtual_momentum",
-        "0.9", "--num_workers", "8", "--local_batch_size", "4",
-        "--max_seq_len", "1024", "--k", "50000", "--num_rows", "5",
+        "--mode", "sketch", "--error_type", "virtual", "--local_momentum",
+        "0", "--virtual_momentum", "0.9", "--num_workers", "8",
+        "--local_batch_size", "4", "--max_seq_len", "1024", "--k", "50000", "--num_rows", "5",
         "--num_cols", "524288"])
     runtime = gpt2_train.setup(ns)[0]
     state = runtime.init_state()
@@ -1959,6 +2181,10 @@ def run_phases(t0: float) -> int:
     modes = phase_modes()
     nan_launches = phase_nan_abort()
     done("modes and the NaN abort")
+    hash_rht = phase_hash_rht()
+    noise = phase_noise()
+    rules = phase_modes(RULE_CONFIGS, tag="rules")
+    done("hash, SRHT, DP noise and the clip/DP/topk-down/server-state paths")
     real_launches, resumed_launches = phase_real_data_resume()
     done("real-format CIFAR10, checkpoint and resume")
     gpt2_rounds, gpt2_val, gpt2_ms = phase_gpt2_main()
@@ -1966,6 +2192,9 @@ def run_phases(t0: float) -> int:
         ["--no_track_bytes"])
     gpt2_ckpt = phase_gpt2_checkpoint()
     done("GPT-2 main path, its state saved and loaded")
+    gpt2_arms = {arm: phase_gpt2_main(flags, GPT2_ARM_ROUNDS, encodes)
+                 for arm, (flags, encodes) in GPT2_ARMS.items()}
+    done("GPT-2 study arms")
     print(f"[bytes] what byte accounting costs a round (medians; bytes on "
           f"vs --no_track_bytes): ResNet-9 {cv_ms:.3f} vs "
           f"{cv_off_ms:.3f} ms, GPT-2 {gpt2_ms:.3f} vs {gpt2_off_ms:.3f} "
@@ -1979,6 +2208,14 @@ def run_phases(t0: float) -> int:
                       for d, (a, b) in sparse.items())
           + f"; GPT-2 state checkpoint: saved {gpt2_ckpt[0]:.3f} s, loaded "
           f"{gpt2_ckpt[1]:.3f} s, {gpt2_ckpt[2] / 2**20:.1f} MiB"
+          + "; the slice's paths, round medians (ms): "
+          + ", ".join(f"{m} {ms:.3f}" for m, (_, ms) in rules.items())
+          + ", GPT-2 "
+          + ", ".join(f"{a} {ms:.3f}" for a, (_, _, ms) in gpt2_arms.items())
+          + "; hash and SRHT (ms, plain PyTorch): "
+          + ", ".join(f"{k} {t:.4f}" for k, t in hash_rht.items())
+          + "; DP noise std: "
+          + ", ".join(f"{m} {v:.6f}" for m, v in noise.items())
           + "; top-k (ms, kernel-free PyTorch): "
           + ", ".join(f"d={d}: {a:.4f} (torch.topk of the squares "
                       f"{b:.4f})" for d, (a, b) in topk_ms.items()),
@@ -2000,7 +2237,11 @@ def run_phases(t0: float) -> int:
                    "cv_train --resume": resumed_launches[name],
                    "gpt2_train": gpt2_rounds[name] + gpt2_val[name],
                    "gpt2_train --no_track_bytes": (gpt2_off[name]
-                                                   + gpt2_off_val[name])}
+                                                   + gpt2_off_val[name]),
+                   **{f"cv_train {m}": launches[name]
+                      for m, (launches, _) in rules.items()},
+                   **{f"gpt2_train {a}": r[name] + v[name]
+                      for a, (r, v, _) in gpt2_arms.items()}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "commefficient_torch/csrc/circulant.cu",
@@ -2014,7 +2255,9 @@ def run_phases(t0: float) -> int:
                    "gpt2_train validation": gpt2_val[name],
                    "gpt2_train --no_track_bytes rounds": gpt2_off[name],
                    "gpt2_train --no_track_bytes validation":
-                       gpt2_off_val[name]}
+                       gpt2_off_val[name],
+                   **{f"gpt2_train {a}": r[name] + v[name]
+                      for a, (r, v, _) in gpt2_arms.items()}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "commefficient_torch/csrc/flash_attention.cu",

@@ -8,9 +8,11 @@ with the run's meta and a sha256 digest of every entry over (dtype,
 shape, bytes), the JAX package's digest. The meta is written first, then
 the npz, each to a ``.tmp`` file, synced and renamed; a generation whose
 npz has no meta beside it counts as damaged. A file written by the JAX
-package loads here: its ``rng`` (a PRNG key the port does not draw from)
-is skipped, a missing ``nan_round`` becomes -1, and a field the port has
-no counterpart for is refused by name.
+package loads here, ``client_weights`` (``--topk_down``) and the dense
+server state's (d,) momentum and error included: its ``rng`` (a PRNG key
+the port does not draw from; its noise generators are keyed by seed,
+round and slot) is skipped, a missing ``nan_round`` becomes -1, and a
+field the port has no counterpart for is refused by name.
 
 ``CheckpointManager`` keeps ``ckpt_<epoch:06d>`` generations (the newest
 ``keep_last``), removes ``.tmp`` litter from an interrupted write, and
@@ -19,9 +21,11 @@ damaged ones and naming each (``restore_fallbacks``). A resume is
 refused, unless ``--resume_unverified``, when the checkpoint was written
 under another parameter layout (the port's ``torch_layout`` fingerprint;
 a JAX-written file has none and is held to the run's d and field shapes
-instead) or another sketch (``sketch_gen``); an unverified resume under
-another sketch keeps the weights and zeroes the momentum and error
-tables, as the JAX package does.
+instead) or another sketch (``sketch_gen``, the JAX package's
+``{impl}-{aligned1024|v1}-{r}x{c}-{seed}[-densestate]``); an unverified
+resume under another sketch keeps the weights and zeroes the momentum
+and error, as the JAX package does, and a dense state never crosses to
+a table state.
 """
 
 from __future__ import annotations
@@ -47,7 +51,6 @@ INT_FIELDS = ("step", "coord_last_update", "client_last_round", "nan_round")
 SKIPPED = ("rng",)
 # the JAX package's fields that the port does not run
 UNPORTED = {
-    "client_weights": "topk-down client weights",
     "sig_Vvelocity": "the --signals_exact shadow",
     "sig_Verror": "the --signals_exact shadow",
     "async_buffer": "asynchronous aggregation",
@@ -85,14 +88,19 @@ def layout_fingerprint(layout) -> Optional[str]:
 
 
 def sketch_generation(cfg) -> Optional[str]:
-    """The JAX package's marker of the sketch that encoded a run's tables
-    (``circ-aligned1024-5x500736-42`` on the main path), None outside the
-    sketch mode."""
+    """The JAX package's marker of the sketch that encoded a run's
+    momentum and error, ``{impl}-{aligned1024|v1}-{r}x{c}-{seed}``
+    (``circ-aligned1024-5x500736-42`` on the main path; aligned1024 only
+    for a circulant sketch of 1024-aligned width), with ``-densestate``
+    under ``--sketch_server_state dense``; None outside the sketch
+    mode."""
     if cfg.mode != "sketch":
         return None
-    kind = "aligned1024" if cfg.num_cols % 1024 == 0 else "v1"
-    return (f"circ-{kind}-{cfg.num_rows}x{cfg.num_cols}-"
-            f"{cfg.sketch_seed}")
+    kind = ("aligned1024" if cfg.sketch_impl == "circ"
+            and cfg.num_cols % 1024 == 0 else "v1")
+    return (f"{cfg.sketch_impl}-{kind}-{cfg.num_rows}x{cfg.num_cols}-"
+            f"{cfg.sketch_seed}"
+            + ("-densestate" if cfg.sketch_server_state == "dense" else ""))
 
 
 def state_nbytes(state: FedState) -> int:
@@ -378,20 +386,35 @@ class CheckpointManager:
 
     @staticmethod
     def _check_sketch_gen(saved, expect, unverified: bool, path: str):
+        """The JAX package's rule: the momentum and error decode only under
+        the sketch that encoded them. A dense (d,) state and a table state
+        never cross, even unverified; otherwise ``unverified`` lets the
+        caller zero them and continue from the weights."""
         if expect is None or saved == expect:
             return
-        if isinstance(saved, str) and saved.endswith("-densestate"):
+        dense_saved = (isinstance(saved, str)
+                       and saved.endswith("-densestate"))
+        if dense_saved != expect.endswith("-densestate"):
+            layouts = {True: "dense (d,) pre-images", False: "(r, c) tables"}
             raise ValueError(
-                f"checkpoint {path} stores its sketch server state as dense "
-                f"(d,) pre-images (generation {saved!r}); the port holds "
-                f"(r, c) tables ({expect!r})")
+                f"checkpoint {path} stores its sketch server state as "
+                f"{layouts[dense_saved]} (generation {saved!r}) but this run "
+                f"holds {layouts[not dense_saved]} (generation {expect!r}): "
+                "it can be neither loaded nor discarded in place. Restore "
+                "under the original --sketch_server_state")
         if unverified:
             return
+        if saved is None:
+            raise ValueError(
+                f"checkpoint {path} has no sketch-generation marker, so its "
+                "momentum/error cannot be verified against the current "
+                f"construction {expect!r}. Pass --resume_unverified to "
+                "DISCARD the sketch state and continue from the weights.")
         raise ValueError(
             f"checkpoint sketch generation {saved!r} does not match the "
             f"current construction {expect!r}: the saved momentum/error "
-            "tables would decode under the wrong shifts. Re-create the run, "
-            "or pass --resume_unverified to DISCARD the sketch state and "
+            "would decode under the wrong sketch. Re-create the run, or "
+            "pass --resume_unverified to DISCARD the sketch state and "
             "continue from the weights.")
 
 

@@ -2,21 +2,23 @@
 ``FedConfig`` that the port runs, plus ``auto_num_cols``.
 
 The port runs the single-device round in every mode of ``MODES``
-(uncompressed, true_topk, local_topk, fedavg and the FetchSGD sketch with
-the circulant count sketch and either error-feedback rule), with local
-momentum and local or virtual error, microbatches, whole-client batches
-and byte accounting, of two models: ResNet-9 on CIFAR10 or CIFAR100,
-natural or iid clients (``cv_train``), and GPT-2 DoubleHeads on
-PersonaChat (``gpt2_train``), with whole-state checkpoints and resume in
-both. A value or flag
-outside it raises and names the flag: the other sketches, DP, clipping,
-topk-down, the bf16 and int8 wires and meshes are not ported. Which
-combinations of mode, error type and momentum are legal is the server's
-rule (``core/server.py validate_mode_combo``), checked when a runtime is
-built, as in the JAX package. Defaults are the JAX package's (its
-``config.py``), except ``local_momentum`` (0, not 0.9) and
-``error_type`` (virtual, not none): the reference's defaults are illegal
-in the default sketch mode.
+(uncompressed, true_topk, local_topk, fedavg and the FetchSGD sketch
+with the circulant, hash or SRHT sketch, either error-feedback rule and
+the table or dense server state), with local momentum and local or
+virtual error, microbatches, whole-client batches, gradient clipping,
+DP, top-k download and byte accounting, of two models: ResNet-9 on
+CIFAR10 or CIFAR100, natural or iid clients (``cv_train``), and GPT-2
+DoubleHeads on PersonaChat (``gpt2_train``), with whole-state
+checkpoints and resume in both. A value or flag outside it raises and
+names the flag: the bf16 and int8 wires, the other models and datasets,
+``--sketch_scan_rows``/``--sketch_dtype`` and meshes are not ported.
+Which combinations of mode, error type and momentum are legal is the
+server's rule (``core/server.py validate_mode_combo``), checked when a
+runtime is built, as in the JAX package. Defaults and choices are the
+JAX package's (its ``config.py``), so one command line configures the
+same run in both packages; like the JAX package's, the defaults
+(``--error_type none``, ``--local_momentum 0.9``) are illegal in the
+default sketch mode.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ from typing import Optional, Sequence
 
 MODES = ("sketch", "true_topk", "local_topk", "fedavg", "uncompressed")
 ERROR_TYPES = ("none", "local", "virtual")
+DP_MODES = ("worker", "server")
+SKETCH_IMPLS = ("circ", "hash", "rht")
+SERVER_STATES = ("table", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,15 +49,17 @@ class FedConfig:
     k: int = 50_000
     num_cols: int = 500_000
     num_rows: int = 5
+    num_blocks: int = 20           # the hash sketch's encode blocks
     exact_num_cols: bool = False
-    local_momentum: float = 0.0
+    do_topk_down: bool = False
+    local_momentum: float = 0.9
     virtual_momentum: float = 0.0
     weight_decay: float = 5e-4
     num_epochs: float = 24.0
     num_fedavg_epochs: int = 1
     fedavg_batch_size: int = -1
     fedavg_lr_decay: float = 1.0
-    error_type: str = "virtual"
+    error_type: str = "none"
     lr_scale: Optional[float] = 0.4
     pivot_epoch: float = 5.0
     num_clients: Optional[int] = None
@@ -65,11 +72,22 @@ class FedConfig:
     track_bytes: bool = True
     compute_dtype: str = "bfloat16"
     sketch_seed: int = 42
+    sketch_impl: str = "circ"
+    allow_divergent_rht: bool = False
+    sketch_server_state: str = "table"
     sketch_ef: str = "zero"
     sketch_fused_encode: str = "auto"
     error_decay: float = 1.0
     approx_topk: bool = False
     strict_regimes: bool = False
+    # clipping (the dense gradient's, x num_iters, in the dense modes and
+    # under sketch_dense_clip; else each client's table) and DP
+    max_grad_norm: Optional[float] = None
+    sketch_dense_clip: bool = False
+    do_dp: bool = False
+    dp_mode: str = "worker"
+    l2_norm_clip: float = 1.0
+    noise_multiplier: float = 0.0
     grad_size: int = 0
     # checkpoints (checkpoint.py): every N epochs under checkpoint_path,
     # resume from the newest intact one, and the end-of-run weights
@@ -92,6 +110,8 @@ class FedConfig:
     def __post_init__(self):
         choices = {"mode": MODES, "error_type": ERROR_TYPES,
                    "sketch_ef": ("zero", "subtract"),
+                   "dp_mode": DP_MODES, "sketch_impl": SKETCH_IMPLS,
+                   "sketch_server_state": SERVER_STATES,
                    "sketch_fused_encode": ("auto", "on", "off"),
                    "attn_impl": ("auto", "dense", "flash"),
                    "compute_dtype": ("bfloat16", "float32")}
@@ -123,6 +143,11 @@ class FedConfig:
             raise ValueError(
                 f"--sketch_fused_encode on requires --mode sketch (mode="
                 f"{self.mode} has no sketch encode to fuse); use auto")
+        if self.sketch_dense_clip and (self.mode != "sketch"
+                                       or self.max_grad_norm is None):
+            # a clip study run unclipped would measure the wrong rule
+            raise ValueError("--sketch_dense_clip requires --mode sketch "
+                             "and --max_grad_norm")
         if self.mode == "fedavg" and self.local_batch_size != -1:
             # the reference's invariant (its utils.py:225-228); the mode,
             # error and momentum rules are validate_mode_combo's
@@ -148,6 +173,15 @@ class FedConfig:
         float32 wire, the only wire the port runs (``--wire_dtype`` is not
         ported)."""
         return 4.0 * self.upload_floats
+
+    @property
+    def table_clip(self) -> bool:
+        """The reference's clip of each client's sketch table
+        (``--max_grad_norm`` in sketch mode without
+        ``--sketch_dense_clip``): a per-client nonlinearity, so the round
+        cannot encode the clients' sum once."""
+        return (self.mode == "sketch" and self.max_grad_norm is not None
+                and not self.sketch_dense_clip)
 
     @property
     def needs_client_velocities(self) -> bool:
@@ -200,15 +234,17 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--k", type=int, default=50_000)
     p.add_argument("--num_cols", type=int, default=500_000)
     p.add_argument("--num_rows", type=int, default=5)
+    p.add_argument("--num_blocks", type=int, default=20)
+    p.add_argument("--topk_down", action="store_true", dest="do_topk_down")
     p.add_argument("--exact_num_cols", action="store_true")
-    p.add_argument("--local_momentum", type=float, default=0.0)
+    p.add_argument("--local_momentum", type=float, default=0.9)
     p.add_argument("--virtual_momentum", type=float, default=0.0)
     p.add_argument("--weight_decay", type=float, default=5e-4)
     p.add_argument("--num_epochs", type=float, default=24)
     p.add_argument("--num_fedavg_epochs", type=int, default=1)
     p.add_argument("--fedavg_batch_size", type=int, default=-1)
     p.add_argument("--fedavg_lr_decay", type=float, default=1.0)
-    p.add_argument("--error_type", default="virtual")
+    p.add_argument("--error_type", default="none")
     p.add_argument("--lr_scale", type=float, default=0.4)
     p.add_argument("--pivot_epoch", type=float, default=5)
     p.add_argument("--num_clients", type=int)
@@ -220,7 +256,20 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no_track_bytes", dest="track_bytes",
                    action="store_false", default=True)
     p.add_argument("--compute_dtype", default="bfloat16")
+    p.add_argument("--max_grad_norm", type=float)
+    p.add_argument("--sketch_dense_clip", action="store_true",
+                   help="clip the dense worker gradient before the sketch "
+                        "encode (threshold x num_iters) instead of the "
+                        "reference's table clip")
+    p.add_argument("--dp", action="store_true", dest="do_dp")
+    p.add_argument("--dp_mode", choices=DP_MODES, default="worker")
+    p.add_argument("--l2_norm_clip", type=float, default=1.0)
+    p.add_argument("--noise_multiplier", type=float, default=0.0)
     p.add_argument("--sketch_seed", type=int, default=42)
+    p.add_argument("--allow_divergent_rht", action="store_true")
+    p.add_argument("--sketch_impl", choices=SKETCH_IMPLS, default="circ")
+    p.add_argument("--sketch_server_state", choices=SERVER_STATES,
+                   default="table")
     p.add_argument("--sketch_ef", default="zero")
     p.add_argument("--sketch_fused_encode", default="auto")
     p.add_argument("--error_decay", type=float, default=1.0)
@@ -261,16 +310,14 @@ def config_from_args(ns: argparse.Namespace) -> FedConfig:
 def parse_known(parser: argparse.ArgumentParser,
                 argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """``parse_known_args`` that raises on any flag outside the slice,
-    naming it (the JAX package's other flags, such as ``--dp``,
-    ``--topk_down``, ``--max_grad_norm``, ``--sketch_impl`` (the port runs
-    the circulant sketch) and ``--wire_dtype`` (the float32 wire), are
-    not ported yet)."""
+    naming it (the JAX package's other flags, such as ``--wire_dtype``
+    (the float32 wire), ``--sketch_scan_rows``, ``--sketch_dtype``,
+    ``--mesh_shape`` and ``--finetune``, are not ported yet)."""
     ns, rest = parser.parse_known_args(argv)
     if rest:
         flags = [a for a in rest if a.startswith("-")] or rest
         raise ValueError(
             f"{' '.join(flags)}: outside the PyTorch port's slice "
-            "(ResNet-9 on CIFAR10/100 or GPT-2 on PersonaChat, one device, the "
-            "circulant sketch and the float32 wire; no DP, clipping, "
-            "topk-down or meshes)")
+            "(ResNet-9 on CIFAR10/100 or GPT-2 on PersonaChat, one device, "
+            "the float32 wire and the batched float32 SRHT; no meshes)")
     return ns

@@ -1,14 +1,17 @@
 """Client-side computation, counterpart of the JAX package's
-``core/client.py``: microbatched gradients, the client step with local
-momentum, local error and the local top-k, the FedAvg local-SGD loop, and
-the fused sketch step.
+``core/client.py``: microbatched gradients, clipping and DP, the client
+step with local momentum, local error, the local top-k and the
+per-client sketch table, the FedAvg local-SGD loop, the fused sketch
+step and the top-k download.
 
 A client's batch is padded to a fixed shape with a validity mask. Its
 gradient is the sum over its microbatches of each microbatch's mean
 gradient (the reference's ``loss.backward()`` accumulation), plus the
 decoupled weight decay ``weight_decay / num_workers * w``. Where the JAX
 package ``vmap``s or ``scan``s, the port loops in Python over the
-round's clients and a client's microbatches.
+round's clients and a client's microbatches. DP noise is drawn from the
+``torch.Generator`` the runtime keys by (seed, round, slot): a resumed
+run draws the same noise (JAX's threefry draws cannot be reproduced).
 
 ``loss_fn(flat, batch, mask) -> (loss, (acc,))`` follows the contract of
 losses.py: masked means over the valid items of a batch.
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from commefficient_torch.config import FedConfig
-from commefficient_torch.ops.topk import topk
+from commefficient_torch.ops.topk import clip_by_l2_norm, topk
 
 
 class ClientOut(NamedTuple):
@@ -32,6 +35,27 @@ class ClientOut(NamedTuple):
     error: Optional[torch.Tensor]      # its new local error row
     results: torch.Tensor              # (2,): mean loss and accuracy
     n_valid: torch.Tensor              # () valid items processed
+
+
+def fused_encode_blockers(cfg: FedConfig) -> list:
+    """What makes the fused sketch encode (``--sketch_fused_encode``)
+    unsound for ``cfg``, each naming the dense-space consumer and what to
+    change; empty when nothing does. ``FedRuntime`` adds the blockers of
+    the sketch and the server state and raises under ``on``."""
+    if cfg.mode != "sketch":
+        return [f"--mode {cfg.mode} has no sketch encode to fuse"]
+    problems = []
+    if cfg.do_dp:
+        problems.append(
+            "--dp clips and noises the DENSE per-client gradient before the "
+            "encode; fusing would skip the privacy mechanism. Drop --dp, or "
+            "run the unfused round")
+    if cfg.sketch_dense_clip:
+        problems.append(
+            "--sketch_dense_clip clips the DENSE worker gradient before the "
+            "encode; the fused path never materializes it. Use the table "
+            "clip (--max_grad_norm without --sketch_dense_clip)")
+    return problems
 
 
 def _num_microbatches(cfg: FedConfig, batch_size: int) -> Tuple[int, int]:
@@ -63,18 +87,37 @@ def _grad(loss_fn: Callable, params_vec: torch.Tensor, batch, mask):
     return loss.detach(), acc.detach(), g
 
 
-def make_forward_grad(cfg: FedConfig, loss_fn: Callable, batch_size: int):
+def make_forward_grad(cfg: FedConfig, loss_fn: Callable, batch_size: int,
+                      fused_encode: bool = False):
     """The microbatched gradient of one client (reference
-    fed_worker.py:249-335). Returns ``fwd(params_vec, batch, mask) -> (g,
-    results, n_valid)``: ``g`` the (d,) sum over microbatches of their
-    mean gradients plus the weight-decay term, ``results`` the (2,) mean
-    loss and accuracy over the valid items."""
+    fed_worker.py:249-335). Returns ``fwd(params_vec, batch, mask,
+    gen=None, cs=None) -> (g, results, n_valid)``: ``g`` the sum over
+    microbatches of their mean gradients plus the weight-decay term,
+    then clipped and noised (below), ``results`` the (2,) mean loss and
+    accuracy over the valid items.
+
+    - ``--max_grad_norm`` in the dense modes, or in sketch mode with
+      ``--sketch_dense_clip``: the dense ``g`` is clipped at
+      ``max_grad_norm`` x the number of microbatches;
+    - ``--dp``: clipped at ``l2_norm_clip``, then (``--dp_mode worker``)
+      plus ``noise_multiplier * sqrt(num_workers)`` x N(0, 1) drawn from
+      ``gen``;
+    - under the table clip (``cfg.table_clip``): ``g`` is the client's
+      own (r, c) table, clipped at the bare ``max_grad_norm``.
+      Under ``fused_encode`` each microbatch gradient and the weight-decay
+      term stream into it (a K1 launch each on the card); otherwise the
+      dense ``g`` is encoded once.
+    """
     num_iters, mb = _num_microbatches(cfg, batch_size)
+    dense_clip = cfg.max_grad_norm is not None and (
+        cfg.mode != "sketch" or cfg.sketch_dense_clip)
+    wd = cfg.weight_decay / cfg.num_workers
 
     def fwd(params_vec: torch.Tensor, batch: Dict[str, torch.Tensor],
-            mask: torch.Tensor):
+            mask: torch.Tensor, gen: Optional[torch.Generator] = None,
+            cs=None):
         batch, mask = _pad(batch, mask, num_iters * mb)
-        g = None
+        g = cs.empty_table() if fused_encode else None
         sums = torch.zeros(2, dtype=torch.float32, device=params_vec.device)
         for i in range(num_iters):
             sl = slice(i * mb, (i + 1) * mb)
@@ -82,28 +125,49 @@ def make_forward_grad(cfg: FedConfig, loss_fn: Callable, batch_size: int):
             loss, acc, g_mb = _grad(loss_fn, params_vec,
                                     {k: v[sl] for k, v in batch.items()},
                                     mb_mask)
-            g = g_mb if g is None else g + g_mb
+            if fused_encode:
+                g = cs.encode_accum(g, g_mb, 0)
+            else:
+                g = g_mb if g is None else g + g_mb
             sums += torch.stack((loss, acc)) * mb_mask.to(torch.float32).sum()
         n_valid = mask.to(torch.float32).sum()
         results = sums / torch.clamp(n_valid, min=1.0)
         if cfg.weight_decay != 0:
-            g = g + (cfg.weight_decay / cfg.num_workers) * params_vec
+            if fused_encode:
+                g = cs.encode_accum(g, params_vec, 0, scale=wd)
+            else:
+                g = g + wd * params_vec
+        if dense_clip:
+            g = clip_by_l2_norm(g, cfg.max_grad_norm * num_iters)
+        if cfg.do_dp:
+            g = clip_by_l2_norm(g, cfg.l2_norm_clip)
+            if cfg.dp_mode == "worker":
+                g = g + cfg.noise_multiplier * math.sqrt(cfg.num_workers) \
+                    * torch.randn(g.shape, generator=gen, device=g.device)
+        if cfg.table_clip:
+            if not fused_encode:
+                g = cs.encode(g)
+            g = cs.clip(g, cfg.max_grad_norm)
         return g, results, n_valid
 
     return fwd
 
 
-def make_client_step(cfg: FedConfig, loss_fn: Callable, batch_size: int):
+def make_client_step(cfg: FedConfig, loss_fn: Callable, batch_size: int,
+                     fused_encode: bool = False):
     """One client's round (reference fed_worker.py:184-230). Returns
-    ``step(params_vec, batch, mask, velocity, error) -> ClientOut``;
-    ``velocity`` and ``error`` are the client's rows, or None when the
-    mode keeps none. The transmit is dense: the sketch mode's per-client
-    path sums the clients' transmits and encodes once."""
-    fwd = make_forward_grad(cfg, loss_fn, batch_size)
+    ``step(params_vec, batch, mask, velocity, error, gen, cs) ->
+    ClientOut``; ``velocity`` and ``error`` are the client's rows, or None
+    when the mode keeps none, ``gen`` the client's DP noise generator.
+    In sketch mode the transmit is the client's clipped table under the
+    table clip (``make_forward_grad``); otherwise it is dense, or, under
+    ``fused_encode``, its table, and the runtime sums the transmits and
+    encodes a dense sum once."""
+    fwd = make_forward_grad(cfg, loss_fn, batch_size, fused_encode)
 
-    def step(params_vec, batch, mask, velocity=None,
-             error=None) -> ClientOut:
-        g, results, n_valid = fwd(params_vec, batch, mask)
+    def step(params_vec, batch, mask, velocity=None, error=None, gen=None,
+             cs=None) -> ClientOut:
+        g, results, n_valid = fwd(params_vec, batch, mask, gen, cs)
         # weighted by the datum count: the server divides by the round's
         g = g * n_valid
         new_velocity, new_error = velocity, error
@@ -137,10 +201,12 @@ def make_fedavg_client(cfg: FedConfig, loss_fn: Callable, batch_size: int):
     rate decayed by ``fedavg_lr_decay ** step``; the transmit is the
     weight delta times the client's datum count.
 
-    Returns ``step(params_vec, batch, mask, mask_host, lr) -> ClientOut``;
-    ``mask_host`` is the mask as a numpy array. A chunk with no valid item
-    is a no-op, as in the JAX package (no step, no decay, no metric), and
-    is skipped without running it."""
+    Returns ``step(params_vec, batch, mask, mask_host, lr, gen=None) ->
+    ClientOut``; ``mask_host`` is the mask as a numpy array, ``gen`` the
+    client's DP noise generator (each local step clips and noises its
+    gradient). A chunk with no valid item is a no-op, as in the JAX
+    package (no step, no decay, no metric), and is skipped without
+    running it."""
     if cfg.fedavg_batch_size == -1:
         chunk = batch_size
     else:
@@ -149,7 +215,7 @@ def make_fedavg_client(cfg: FedConfig, loss_fn: Callable, batch_size: int):
     fwd = make_forward_grad(cfg, loss_fn, chunk)
 
     def step(params_vec, batch, mask, mask_host: np.ndarray,
-             lr: torch.Tensor) -> ClientOut:
+             lr: torch.Tensor, gen=None) -> ClientOut:
         n_c = mask.to(torch.float32).sum()
         batch, mask = _pad(batch, mask, n_chunks * chunk)
         w = params_vec
@@ -163,7 +229,7 @@ def make_fedavg_client(cfg: FedConfig, loss_fn: Callable, batch_size: int):
                 if not mask_host[sl].any():
                     continue
                 g, results, n_valid = fwd(
-                    w, {k: v[sl] for k, v in batch.items()}, mask[sl])
+                    w, {k: v[sl] for k, v in batch.items()}, mask[sl], gen)
                 w = w - g * (lr * decay ** step_idx)
                 res = res + results * n_valid
                 step_idx += 1
@@ -231,3 +297,12 @@ def make_val_step(loss_fn: Callable):
         return (loss, acc), mask.to(torch.float32).sum()
 
     return val
+
+
+def topk_down_weights(cfg: FedConfig, ps_weights: torch.Tensor,
+                      worker_weights: torch.Tensor) -> torch.Tensor:
+    """Download compression (reference fed_worker.py:232-247): a client's
+    stale weights advance by the top-k of their lag behind the server's,
+    row by row for a (W, d) ``worker_weights``."""
+    return worker_weights + topk(ps_weights - worker_weights, cfg.k,
+                                 approx=cfg.approx_topk)

@@ -5,13 +5,17 @@ telemetry or the robustness subsystem.
 A round:
 
 1. download accounting, before the update: each participant's count of
-   coordinates changed since its last download;
-2. the clients: the fused sketch step (sketch mode with the fused encode,
-   the default) streams every microbatch gradient into the round's
-   table; every other mode, and ``--sketch_fused_encode off``, runs the
-   client step once a client (local momentum, local error, the local
-   top-k, or FedAvg's local SGD) and sums the dense transmits, which the
-   sketch mode then encodes once;
+   coordinates changed since its last download; under ``--topk_down``
+   each participant's stale weights advance by the top-k of their lag;
+2. the clients, routed as the JAX package routes them: the fused sketch
+   step (sketch mode with the fused encode, the default) streams every
+   microbatch gradient of every client into the round's table; with a
+   per-client table clip or ``--topk_down`` each client streams its
+   microbatches and its own weight-decay term into its own table;
+   every other case runs the client step once a client (local momentum,
+   local error, the local top-k, clipping, DP, or FedAvg's local SGD)
+   and sums the transmits, which the sketch mode then encodes once
+   (deferred encode), or not at all under the dense server state;
 3. the aggregate is divided by the round's datum count and
    ``server_update`` runs the mode's rule;
 4. the weights move by the update, the participants' rows are written
@@ -33,7 +37,21 @@ from commefficient_torch.core.server import (server_update,
                                              validate_mode_combo,
                                              validate_regimes)
 from commefficient_torch.core.state import FedState
-from commefficient_torch.ops.circulant import make_circulant_sketch
+from commefficient_torch.ops.sketch import make_sketch_impl
+
+# keys DP noise apart from the data path's draws (seed ^ 0xDA7A)
+NOISE_SALT = 0xD9
+
+
+def noise_generator(seed: int, step: int, slot: int,
+                    device) -> torch.Generator:
+    """The generator of one round's DP noise: slot 0 is the server's,
+    slot w + 1 the round's w-th client's. Keyed by (seed, global round,
+    slot), so a resumed run draws the noise of the uninterrupted one."""
+    key = np.random.SeedSequence([seed, NOISE_SALT, step, slot])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(key.generate_state(1, np.uint64)[0] >> 1))
+    return gen
 
 
 def download_coord_counts(coord_last_update: torch.Tensor,
@@ -64,7 +82,8 @@ class FedRuntime:
         self.device = torch.device(device)
         d = int(model.num_params)
         cfg = cfg.replace(grad_size=d)
-        if cfg.mode == "sketch" and not cfg.exact_num_cols:
+        if (cfg.mode == "sketch" and cfg.sketch_impl == "circ"
+                and not cfg.exact_num_cols):
             c = auto_num_cols(cfg.num_cols)
             if c != cfg.num_cols:
                 print(f"auto-sized sketch num_cols {cfg.num_cols} -> {c} "
@@ -83,20 +102,54 @@ class FedRuntime:
         self.layout = getattr(model, "layout", None)
         self.cs = None
         if cfg.mode == "sketch":
-            self.cs = make_circulant_sketch(d, cfg.num_cols, cfg.num_rows,
-                                            seed=cfg.sketch_seed,
-                                            device=self.device)
+            self.cs = make_sketch_impl(cfg.sketch_impl, d, cfg.num_cols,
+                                       cfg.num_rows, cfg.num_blocks,
+                                       seed=cfg.sketch_seed,
+                                       device=self.device)
+        # sum of the clients' sketches == sketch of the sum, so the round
+        # encodes once, unless a per-client table clip intervenes
+        self.defer_encode = cfg.mode == "sketch" and not cfg.table_clip
+        # the dense server state: (d,) momentum and error pre-images,
+        # always for the SRHT (a dense transform has no table cells)
+        self.dense_preimage = self.defer_encode and (
+            self.cs.dense_transform or cfg.sketch_server_state == "dense")
+        if (cfg.mode == "sketch" and cfg.sketch_server_state == "dense"
+                and not self.dense_preimage):
+            raise ValueError(
+                "--sketch_server_state dense requires deferred encode (no "
+                "per-client table clip; use --sketch_dense_clip to clip)")
+        problems = client_lib.fused_encode_blockers(cfg)
+        if cfg.mode == "sketch":
+            if self.dense_preimage:
+                problems.append(
+                    "the dense server state (--sketch_impl rht or "
+                    "--sketch_server_state dense) consumes the dense "
+                    "aggregate; there is no table to accumulate into")
+            elif self.cs.dense_transform:
+                problems.append(f"--sketch_impl {cfg.sketch_impl} has a "
+                                "dense transform (no streaming encode)")
+        fused_encode = (cfg.mode == "sketch"
+                        and cfg.sketch_fused_encode != "off"
+                        and not problems)
+        if cfg.sketch_fused_encode == "on" and not fused_encode:
+            raise ValueError(
+                "--sketch_fused_encode on: the fused sketch encode is "
+                "unsound for this configuration (use auto to fall back to "
+                "the unfused round):\n  " + "\n  ".join(problems))
         self._upload_bytes = cfg.upload_wire_bytes()
         self._fused_fn = self._client_fn = None
         if cfg.mode == "fedavg":
             self._client_fn = client_lib.make_fedavg_client(
                 cfg, loss_fn, self.batch_size)
-        elif cfg.mode == "sketch" and cfg.sketch_fused_encode != "off":
+        elif fused_encode and self.defer_encode and not cfg.do_topk_down:
+            # no per-client nonlinearity: every client into one table
             self._fused_fn = client_lib.make_fused_grad(cfg, loss_fn,
                                                         self.batch_size)
         else:
-            self._client_fn = client_lib.make_client_step(cfg, loss_fn,
-                                                          self.batch_size)
+            self._client_fn = client_lib.make_client_step(
+                cfg, loss_fn, self.batch_size, fused_encode)
+        self._encode_sum = (self.defer_encode and not self.dense_preimage
+                            and not fused_encode)
         self._val_fn = client_lib.make_val_step(loss_fn_val or loss_fn)
 
     def state_shapes(self) -> Dict[str, Optional[Tuple[int, ...]]]:
@@ -104,19 +157,34 @@ class FedRuntime:
         field it does not hold)."""
         cfg = self.cfg
         d, n = cfg.grad_size, self.num_clients
-        server = self.cs.table_shape if cfg.mode == "sketch" else (d,)
+        server = (self.cs.table_shape
+                  if cfg.mode == "sketch" and not self.dense_preimage
+                  else (d,))
         track = cfg.track_bytes
         return {"ps_weights": (d,), "Vvelocity": server, "Verror": server,
                 "step": (),
                 "client_velocities": ((n, d) if cfg.needs_client_velocities
                                       else None),
                 "client_errors": (n, d) if cfg.needs_client_errors else None,
+                "client_weights": (n, d) if cfg.do_topk_down else None,
                 "coord_last_update": (d,) if track else None,
                 "client_last_round": (n,) if track else None,
                 "nan_round": ()}
 
     def init_state(self) -> FedState:
         dev, shapes = self.device, self.state_shapes()
+        rows = sum(4 * shapes[name][0] * shapes[name][1]
+                   for name in ("client_velocities", "client_errors",
+                                "client_weights")
+                   if shapes[name] is not None)
+        if rows and dev.type == "cuda":
+            free = torch.cuda.mem_get_info(dev)[0]
+            if rows > free:
+                raise ValueError(
+                    f"the per-client rows of {self.num_clients} clients x d "
+                    f"= {self.cfg.grad_size} take {rows} bytes "
+                    f"({rows / 2**30:.2f} GiB), above the {free} bytes free "
+                    f"on {dev}: lower --num_clients")
 
         def zeros(name: str, fill: float = 0.0, dtype=torch.float32):
             shape = shapes[name]
@@ -128,6 +196,10 @@ class FedRuntime:
             Vvelocity=zeros("Vvelocity"), Verror=zeros("Verror"), step=0,
             client_velocities=zeros("client_velocities"),
             client_errors=zeros("client_errors"),
+            # every client starts from the initial weights
+            client_weights=(self.initial_weights.expand(
+                shapes["client_weights"]).clone()
+                if shapes["client_weights"] is not None else None),
             coord_last_update=zeros("coord_last_update", -1, torch.int32),
             client_last_round=zeros("client_last_round", 0, torch.int32),
             nan_round=zeros("nan_round", -1, torch.int32))
@@ -144,11 +216,15 @@ class FedRuntime:
         return out
 
     def _clients(self, state: FedState, ids: torch.Tensor, batch, mask,
-                 mask_host: np.ndarray, lr: torch.Tensor):
+                 mask_host: np.ndarray, lr: torch.Tensor,
+                 used: Optional[torch.Tensor]):
         """The round's client work: ``(aggregate, results (W, 2), n_valid
         (W,), new velocity rows or None, new error rows or None)``. The
-        aggregate is the sketch table in sketch mode, else a (d,) vector,
-        not yet divided by the round's datum count."""
+        aggregate is the sketch table in sketch mode (a (d,) vector under
+        the dense server state), else a (d,) vector, not yet divided by
+        the round's datum count. ``used`` holds each participant's
+        weights under ``--topk_down``; otherwise every client reads the
+        server's."""
         cfg, w = self.cfg, state.ps_weights
         if self._fused_fn is not None:
             table, results, n_valid = self._fused_fn(w, batch, mask,
@@ -161,19 +237,22 @@ class FedRuntime:
         agg, results, n_valid, vels, errs = None, [], [], [], []
         for c in range(mask.shape[0]):
             cb = {k: v[c] for k, v in batch.items()}
+            wc = w if used is None else used[c]
+            gen = (noise_generator(cfg.seed, state.step, c + 1, self.device)
+                   if cfg.do_dp and cfg.dp_mode == "worker" else None)
             if cfg.mode == "fedavg":
-                out = self._client_fn(w, cb, mask[c], mask_host[c], lr)
+                out = self._client_fn(wc, cb, mask[c], mask_host[c], lr, gen)
             else:
                 out = self._client_fn(
-                    w, cb, mask[c],
+                    wc, cb, mask[c],
                     None if vel_rows is None else vel_rows[c],
-                    None if err_rows is None else err_rows[c])
+                    None if err_rows is None else err_rows[c], gen, self.cs)
             agg = out.transmit if agg is None else agg + out.transmit
             results.append(out.results)
             n_valid.append(out.n_valid)
             vels.append(out.velocity)
             errs.append(out.error)
-        if cfg.mode == "sketch":
+        if self._encode_sum:
             # sum of the clients' sketches == sketch of the sum: one encode
             agg = self.cs.encode(agg)
         return (agg, torch.stack(results), torch.stack(n_valid),
@@ -185,9 +264,10 @@ class FedRuntime:
         """One federated round. ``client_ids`` (W,) names the round's
         clients, ``batch`` leaves are (W, B, ...), ``mask`` is (W, B) and
         ``lr`` a scalar; numpy arrays or tensors. The participants' rows of
-        ``state.client_velocities`` and ``state.client_errors`` are written
-        in place (the JAX package donates the state likewise); the rest of
-        the new state is new tensors."""
+        ``state.client_velocities``, ``state.client_errors`` and
+        ``state.client_weights`` are written in place (the JAX package
+        donates the state likewise); the rest of the new state is new
+        tensors."""
         cfg, dev, step = self.cfg, self.device, state.step
         mask_host = np.asarray(torch.as_tensor(mask).cpu(), dtype=bool)
         mask = torch.as_tensor(mask_host, device=dev)
@@ -214,11 +294,22 @@ class FedRuntime:
             client_last_round = state.client_last_round.index_put(
                 (ids,), step_t)
 
+        # each participant's stale weights advance by the top-k of their
+        # lag (the download compression); it trains on those
+        used = None
+        if cfg.do_topk_down:
+            used = client_lib.topk_down_weights(cfg, state.ps_weights,
+                                                state.client_weights[ids])
+            state.client_weights.index_copy_(0, ids, used)
+
         agg, results, n_valid, vel_new, err_new = self._clients(
-            state, ids, self.to_device(batch), mask, mask_host, lr)
+            state, ids, self.to_device(batch), mask, mask_host, lr, used)
         agg = agg / torch.clamp(n_valid.sum(), min=1.0)
+        noise_gen = (noise_generator(cfg.seed, step, 0, dev)
+                     if cfg.do_dp and cfg.dp_mode == "server" else None)
         update, Vvel, Verr, sup_mask = server_update(
-            cfg, agg, state.Vvelocity, state.Verror, lr, self.cs)
+            cfg, agg, state.Vvelocity, state.Verror, lr, self.cs,
+            noise_gen, self.dense_preimage)
 
         if vel_new is not None:
             if cfg.mode == "true_topk":
@@ -240,6 +331,7 @@ class FedRuntime:
             Verror=Verr, step=step + 1,
             client_velocities=state.client_velocities,
             client_errors=state.client_errors,
+            client_weights=state.client_weights,
             coord_last_update=coord_last_update,
             client_last_round=client_last_round, nan_round=nan_round)
         return new_state, {"results": (results[:, 0], results[:, 1]),

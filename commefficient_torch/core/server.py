@@ -7,8 +7,11 @@ Every rule is ``(gradient, Vvelocity, Verror, lr) -> (update, Vvelocity',
 Verror', support_mask_or_None)``: ``gradient`` is the round's aggregate,
 already divided by the round's datum count; the update comes back
 multiplied by ``lr`` (fedavg's by 1: its clients applied the rate). The
-sketch rules keep momentum and error in (r, c) table space; the
-dense-preimage and SRHT branches of the JAX package are not ported.
+sketch rules keep momentum and error in (r, c) table space, or, under
+the dense server state (``dense_preimage``: ``--sketch_server_state
+dense``, and always for the SRHT on one device), as (d,) pre-images
+that one encode-decode round trip a round passes through the sketch;
+the SRHT's table-space rule subtracts in estimate space.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from commefficient_torch.config import FedConfig
-from commefficient_torch.ops.topk import topk
+from commefficient_torch.ops.topk import topk, topk_with_idx
 
 # The JAX package's measured divergence envelopes (its core/server.py):
 # local_topk with local error learns only with the rate cut far below
@@ -44,15 +47,16 @@ def check_regime_health(cfg: FedConfig) -> List[str]:
             f"~{LOCAL_TOPK_EF_STABLE_LR} or below. Cut --lr_scale, or use "
             "error_type=none")
     if (cfg.mode == "sketch" and cfg.sketch_ef == "subtract"
-            and cfg.grad_size
+            and cfg.sketch_server_state != "dense" and cfg.grad_size
             and cfg.grad_size / cfg.num_cols >= SUBTRACT_EF_STABLE_LOAD):
         warnings.append(
             f"--sketch_ef subtract at collision load d/c = "
             f"{cfg.grad_size / cfg.num_cols:.0f} (d={cfg.grad_size}, "
             f"c={cfg.num_cols}) is in the MEASURED divergent regime "
             "(every GPT-2-scale arm at d/c ~ 176 diverged). Use d/c < "
-            f"{SUBTRACT_EF_STABLE_LOAD:.0f} (raise --num_cols), or the "
-            "default --sketch_ef zero")
+            f"{SUBTRACT_EF_STABLE_LOAD:.0f} (raise --num_cols), or drop "
+            "--sketch_ef subtract and use --sketch_server_state dense, or "
+            "the default --sketch_ef zero")
     return warnings
 
 
@@ -76,6 +80,31 @@ def validate_mode_combo(cfg: FedConfig) -> None:
     fed_aggregator.py:484-486, 512, 545, 573-576)."""
     m, e = cfg.mode, cfg.error_type
     if m == "sketch":
+        if (cfg.sketch_impl == "rht" and cfg.grad_size
+                and cfg.num_rows * cfg.num_cols < cfg.grad_size):
+            # the JAX package measured it: at r c < d the SRHT's top-k of
+            # noisy estimates grows the error it should shrink
+            msg = (f"--sketch_impl rht with r*c ({cfg.num_rows * cfg.num_cols}"
+                   f") < grad_size ({cfg.grad_size}) diverges under error "
+                   "feedback (measured by the JAX package); use --sketch_impl"
+                   " circ or hash to compress: rht is safe only at r*c >= d")
+            if not cfg.allow_divergent_rht:
+                raise ValueError(msg + ". Pass --allow_divergent_rht to "
+                                 "proceed anyway.")
+            print(f"WARNING: {msg}", file=sys.stderr)
+        if cfg.sketch_ef == "subtract" and (
+                cfg.sketch_server_state == "dense"
+                or cfg.sketch_impl == "rht"):
+            which = ("--sketch_server_state dense"
+                     if cfg.sketch_server_state == "dense"
+                     else "--sketch_impl rht (its dense transform has no "
+                          "table cells)")
+            raise ValueError(
+                f"--sketch_ef subtract has no effect with {which}: that "
+                "server path applies its own error-feedback rule and would "
+                "silently ignore the table-space subtract. Drop --sketch_ef "
+                "subtract, or use --sketch_impl circ/hash with "
+                "--sketch_server_state table")
         if e != "virtual":
             raise ValueError(
                 "--mode sketch requires --error_type virtual (FetchSGD): "
@@ -108,22 +137,32 @@ def validate_mode_combo(cfg: FedConfig) -> None:
 
 def server_update(cfg: FedConfig, gradient: torch.Tensor,
                   Vvelocity: torch.Tensor, Verror: torch.Tensor, lr,
-                  cs=None) -> Tuple[torch.Tensor, torch.Tensor,
-                                    torch.Tensor, Optional[torch.Tensor]]:
+                  cs=None, noise_gen: Optional[torch.Generator] = None,
+                  dense_preimage: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             Optional[torch.Tensor]]:
     """One server step of ``cfg.mode`` (reference
     fed_aggregator.py:469-613). Returns ``(weight_update, Vvelocity',
     Verror', support_mask_or_None)``; the mask is the update's support in
     transmitted space (true_topk: coordinates; the sketch's zero rule:
-    table cells)."""
+    table cells). ``noise_gen`` draws the server's DP noise
+    (``--dp --dp_mode server``, uncompressed); ``dense_preimage`` keeps
+    the sketch's momentum and error as (d,) vectors."""
     rho = cfg.virtual_momentum
     Vvel = gradient + rho * Vvelocity
     if cfg.mode == "fedavg":
         # the clients applied the rate; the update is the (momentum of
         # the) averaged weight delta
         return Vvel, Vvel, Verror, None
-    if cfg.mode in ("uncompressed", "local_topk"):
-        # local_topk: momentum accumulates onto the already sparse sum of
-        # the clients' top-k; no virtual error, no masking
+    if cfg.mode == "uncompressed":
+        grad = Vvel
+        if cfg.do_dp and cfg.dp_mode == "server":
+            grad = grad + cfg.noise_multiplier * torch.randn(
+                grad.shape, generator=noise_gen, device=grad.device)
+        return grad * lr, Vvel, Verror, None
+    if cfg.mode == "local_topk":
+        # momentum accumulates onto the already sparse sum of the clients'
+        # top-k; no virtual error, no masking
         return Vvel * lr, Vvel, Verror, None
     if cfg.mode == "true_topk":
         Verr = Verror + Vvel
@@ -140,6 +179,34 @@ def server_update(cfg: FedConfig, gradient: torch.Tensor,
     if cs is None:
         raise ValueError("sketch mode needs the runtime's sketch")
     Verr = Verror + Vvel
+    if dense_preimage:
+        # the round trip through the sketch is what the server sees of the
+        # error; the pre-images are exact, so error feedback and momentum
+        # masking zero exactly the update's support (the true_topk rule
+        # with the sketch inserted before the top-k)
+        update, upd_idx = topk_with_idx(cs.decode(cs.encode(Verr)), cfg.k,
+                                        approx=cfg.approx_topk)
+        Verr = Verr.index_fill(0, upd_idx, 0.0)
+        Vvel = Vvel.index_fill(0, upd_idx, 0.0)
+        if cfg.error_decay < 1.0:
+            Verr = cfg.error_decay * Verr
+        return update * lr, Vvel, Verr, None
+    if cs.dense_transform:
+        # the SRHT of a k-sparse update is dense, so zeroing its cells
+        # would wipe the table: subtract, in estimate space, the sketch of
+        # what the reference zeroes (the update; the velocity's estimates
+        # at the support)
+        ests_err, ests_vel = cs.decode(torch.stack([Verr, Vvel]))
+        update, upd_idx = topk_with_idx(ests_err, cfg.k,
+                                        approx=cfg.approx_topk)
+        vel_at_support = torch.zeros_like(ests_vel)
+        vel_at_support[upd_idx] = ests_vel[upd_idx]
+        enc_upd, enc_vel = cs.encode(torch.stack([update, vel_at_support]))
+        Verr = Verr - enc_upd
+        Vvel = Vvel - enc_vel
+        if cfg.error_decay < 1.0:
+            Verr = cfg.error_decay * Verr
+        return update * lr, Vvel, Verr, None
     update, upd_idx = cs.unsketch_with_idx(Verr, k=cfg.k,
                                            approx=cfg.approx_topk)
     # the k-sparse update's sparse re-encode, O(k r)

@@ -22,11 +22,14 @@ import torch
 class FedState:
     ps_weights: torch.Tensor   # (d,) float32
     Vvelocity: torch.Tensor    # (r, c) table, or (d,) in the dense modes
+                               # and under the dense sketch server state
     Verror: torch.Tensor       # same shape as Vvelocity
     step: int = 0              # rounds taken
     # per-client rows, allocated only for the modes that need them
     client_velocities: Optional[torch.Tensor] = None  # (num_clients, d)
     client_errors: Optional[torch.Tensor] = None      # (num_clients, d)
+    # --topk_down: the weights each client last downloaded
+    client_weights: Optional[torch.Tensor] = None     # (num_clients, d)
     # byte accounting (None under --no_track_bytes)
     coord_last_update: Optional[torch.Tensor] = None  # (d,) int32, init -1
     client_last_round: Optional[torch.Tensor] = None  # (num_clients,) int32

@@ -4,12 +4,15 @@ round).
 
     python -m commefficient_torch.cv_train --dataset_name CIFAR10 \\
         --dataset_dir ./dataset --model ResNet9 --mode sketch \\
-        --error_type virtual --virtual_momentum 0.9 --num_workers 8 \\
-        --local_batch_size 64 --k 50000 --num_rows 5 --num_cols 500000 \\
-        --checkpoint_every 1
+        --error_type virtual --local_momentum 0 --virtual_momentum 0.9 \\
+        --num_workers 8 --local_batch_size 64 --k 50000 --num_rows 5 \\
+        --num_cols 500000 --checkpoint_every 1
 
 ``--mode`` takes sketch, true_topk, local_topk, fedavg or uncompressed
-(fedavg with ``--local_batch_size -1 --error_type none``). Runs on the
+(fedavg with ``--local_batch_size -1 --error_type none --local_momentum
+0``); ``--sketch_impl`` circ, hash or rht; ``--max_grad_norm``,
+``--sketch_dense_clip``, ``--dp``, ``--topk_down`` and
+``--sketch_server_state dense`` as in the JAX package. Runs on the
 card unless ``--device cpu`` is given. At each epoch's end it prints the
 epoch's rounds (loss, accuracy, round time), validates, and prints the
 reference's epoch row (train and test loss and accuracy, download and

@@ -4,9 +4,10 @@ port (the JAX package's ``gpt2_train.py`` without telemetry, meshes or
 card).
 
     python -m commefficient_torch.gpt2_train --mode sketch \\
-        --error_type virtual --virtual_momentum 0.9 --num_workers 8 \\
-        --local_batch_size 4 --num_candidates 2 --max_seq_len 1024 \\
-        --k 50000 --num_rows 5 --num_cols 524288 --num_rounds 4
+        --error_type virtual --local_momentum 0 --virtual_momentum 0.9 \\
+        --num_workers 8 --local_batch_size 4 --num_candidates 2 \\
+        --max_seq_len 1024 --k 50000 --num_rows 5 --num_cols 524288 \\
+        --num_rounds 4
 
 Runs on the card unless ``--device cpu`` is given. GPT-2 small's width
 (n_embd 768, 12 layers, 12 heads) over the HashTokenizer vocabulary of

@@ -34,6 +34,9 @@ class CirculantSketch:
     c: int
     r: int
 
+    # a k-sparse vector's table is k r-sparse: the cell rules apply
+    dense_transform = False
+
     @property
     def m(self) -> int:
         return -(-self.d // self.c)
@@ -107,34 +110,10 @@ class CirculantSketch:
     def encode_vals_at(self, vals: torch.Tensor,
                        idx: torch.Tensor) -> torch.Tensor:
         """The table of the vector holding ``vals`` at ``idx`` and zero
-        elsewhere, at O(k r) cost. The addends of a cell are summed in the
-        order of ``idx`` on every device, as the JAX package's
-        ``segment_sum`` sums them on the CPU: ``index_add_``'s order on
-        the card is not fixed, and the subtract rule reads the sums. So
-        the (row, bucket) cells are sorted stably, each addend gets its
-        rank among its cell's addends, and rank t is added to all cells
-        at once for t = 0, 1, ...: one write a cell a rank, no two writes
-        to a cell in one step. The number of ranks is read back to the
-        host (one sync)."""
-        r, c = self.r, self.c
+        elsewhere, at O(k r) cost, each cell's addends summed in the order
+        of ``idx`` (``ordered_cell_sum``)."""
         sg, buckets = self._signs_and_buckets(idx)
-        rows = torch.arange(r, device=buckets.device)[:, None]
-        cells = (buckets + rows * c).reshape(-1)
-        addends = (sg * vals.to(torch.float32)).reshape(-1)
-        sorted_cells, order = torch.sort(cells, stable=True)
-        # an addend's rank: its place in the sorted order less the place
-        # of its cell's first addend
-        pos = torch.arange(cells.numel(), device=cells.device)
-        rank = torch.empty_like(pos)
-        rank[order] = pos - torch.searchsorted(sorted_cells, sorted_cells)
-        table = torch.zeros(r * c + 1, dtype=torch.float32,
-                            device=vals.device)
-        spare = r * c                 # where the other ranks write
-        for t in range(int(rank.max()) + 1 if rank.numel() else 0):
-            now = rank == t
-            at = torch.where(now, cells, spare)
-            table[at] = table[at] + torch.where(now, addends, 0.0)
-        return table[:spare].view(r, c)
+        return ordered_cell_sum(buckets, sg * vals.to(torch.float32), self.c)
 
     def encode_at(self, vec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """``encode(vec)`` for a ``vec`` that is zero outside ``idx``."""
@@ -162,6 +141,37 @@ class CirculantSketch:
 
     def clip(self, table: torch.Tensor, clip: float) -> torch.Tensor:
         return clip_by_l2_norm(table, clip)
+
+
+def ordered_cell_sum(buckets: torch.Tensor, addends: torch.Tensor,
+                     c: int) -> torch.Tensor:
+    """The (r, c) table whose cell (j, b) sums ``addends[j, t]`` over the
+    t with ``buckets[j, t] == b``, in the order of t on every device, as
+    the JAX package's ``segment_sum`` sums them on the CPU:
+    ``index_add_``'s order on the card is not fixed, and the subtract
+    rule reads the sums. So the (row, bucket) cells are sorted stably,
+    each addend gets its rank among its cell's addends, and rank t is
+    added to all cells at once for t = 0, 1, ...: one write a cell a
+    rank, no two writes to a cell in one step. The number of ranks is
+    read back to the host (one sync)."""
+    r = buckets.shape[0]
+    rows = torch.arange(r, device=buckets.device)[:, None]
+    cells = (buckets + rows * c).reshape(-1)
+    addends = addends.reshape(-1)
+    sorted_cells, order = torch.sort(cells, stable=True)
+    # an addend's rank: its place in the sorted order less the place of
+    # its cell's first addend
+    pos = torch.arange(cells.numel(), device=cells.device)
+    rank = torch.empty_like(pos)
+    rank[order] = pos - torch.searchsorted(sorted_cells, sorted_cells)
+    table = torch.zeros(r * c + 1, dtype=torch.float32,
+                        device=addends.device)
+    spare = r * c                     # where the other ranks write
+    for t in range(int(rank.max()) + 1 if rank.numel() else 0):
+        now = rank == t
+        at = torch.where(now, cells, spare)
+        table[at] = table[at] + torch.where(now, addends, 0.0)
+    return table[:spare].view(r, c)
 
 
 def make_circulant_sketch(d: int, c: int, r: int, seed: int = 42,

@@ -4,10 +4,12 @@ the same flags describe.
 
     python -m commefficient_torch.profile_round --num_workers 8 \\
         --local_batch_size 64 --k 50000 --num_rows 5 --num_cols 500000 \\
-        --virtual_momentum 0.9 --warmup 2 --profile_rounds 3
+        --error_type virtual --local_momentum 0 --virtual_momentum 0.9 \\
+        --warmup 2 --profile_rounds 3
     python -m commefficient_torch.profile_round --model GPT2 \\
         --num_workers 8 --local_batch_size 4 --max_seq_len 1024 \\
-        --k 50000 --num_cols 524288 --virtual_momentum 0.9 \\
+        --k 50000 --num_cols 524288 --error_type virtual \\
+        --local_momentum 0 --virtual_momentum 0.9 \\
         --warmup 1 --profile_rounds 2
 
 Prints the device time by kernel group (the flash-attention kernels,

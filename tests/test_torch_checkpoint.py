@@ -41,6 +41,8 @@ from commefficient_torch.utils.schedules import lr_schedule_for  # noqa
 
 LOCAL = dict(mode="local_topk", error_type="local", k=3,
              local_momentum=0.9, lr_scale=0.01)
+TOPK_DOWN = dict(SKETCH, do_topk_down=True, k=2)
+DENSE = dict(SKETCH, sketch_server_state="dense")
 
 
 def _bits(t: torch.Tensor) -> np.ndarray:
@@ -51,8 +53,8 @@ def _bits(t: torch.Tensor) -> np.ndarray:
 def assert_same_state(a: FedState, b: FedState):
     assert a.step == b.step
     for name in ("ps_weights", "Vvelocity", "Verror", "client_velocities",
-                 "client_errors", "coord_last_update", "client_last_round",
-                 "nan_round"):
+                 "client_errors", "client_weights", "coord_last_update",
+                 "client_last_round", "nan_round"):
         x, y = getattr(a, name), getattr(b, name)
         assert (x is None) == (y is None), name
         if x is not None:
@@ -257,14 +259,58 @@ def test_refusals_and_resume_unverified(tmp_path):
     save_state(path, state)
     with np.load(path + ".npz") as z:
         arrays = {k: z[k] for k in z.files}
-    np.savez(path + ".npz", client_weights=np.zeros((2, 7), np.float32),
+    np.savez(path + ".npz", defense_ref=np.zeros((4,), np.float32),
              **arrays)
-    with pytest.raises(ValueError, match="'client_weights' .*topk-down"):
+    with pytest.raises(ValueError, match="'defense_ref' .*normclip"):
         load_state(path)
     os.replace(path + ".npz", str(tmp_path / "ck" / "ckpt_000005_r000002_"
                                   "preempt.npz"))
     with pytest.raises(ValueError, match="inside an epoch"):
         CheckpointManager(str(tmp_path / "ck")).restore_latest()
+
+
+@pytest.mark.parametrize("kw", [TOPK_DOWN, DENSE],
+                         ids=["client_weights", "dense_state"])
+def test_state_saves_restores_bitwise_and_resumes(tmp_path, kw):
+    """A run with per-client download weights, and one with the dense
+    server state: saved after 3 rounds, restored bit for bit under the
+    run's shapes and marker, and a fourth round from the restored state
+    equals the uninterrupted run's fourth round bit for bit."""
+    rt = port_runtime(**kw)
+    state = run_rounds(rt)
+    gen = sketch_generation(rt.cfg)
+    assert gen.endswith("-densestate") == (kw is DENSE)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.default_meta = {"sketch_gen": gen}
+    mgr.save(state, 1)
+    restored, _ = mgr.restore_latest(expect_shapes=rt.state_shapes(),
+                                     expect_sketch_gen=gen)
+    assert_same_state(restored, state)
+    ids, batch, mask = round_inputs(4, ragged=True)[3]
+    want, _ = rt.round(state, ids, batch, mask, 0.05)
+    got, _ = rt.round(restored, ids, batch, mask, 0.05)
+    assert_same_state(got, want)
+
+
+def test_hash_generation_refused_in_a_circ_run(tmp_path):
+    """The tables of a hash sketch decode as garbage under the circulant
+    one: refused unless --resume_unverified, which then zeroes them."""
+    rt = port_runtime(**dict(SKETCH, sketch_impl="hash"))
+    state = run_rounds(rt)
+    assert sketch_generation(rt.cfg) == "hash-v1-3x5-42"
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.default_meta = {"sketch_gen": sketch_generation(rt.cfg)}
+    mgr.save(state, 1, meta={"global_round": 3})
+    circ = port_runtime(**SKETCH, checkpoint_path=str(tmp_path),
+                        do_resume=True)
+    assert sketch_generation(circ.cfg) == "circ-v1-3x5-42"
+    with pytest.raises(ValueError, match="'hash-v1-3x5-42' does not match"):
+        setup_checkpointing(circ.cfg, circ, "ck")
+    circ = port_runtime(**SKETCH, checkpoint_path=str(tmp_path),
+                        do_resume=True, resume_unverified=True)
+    _, _, restored, _ = setup_checkpointing(circ.cfg, circ, "ck")
+    assert torch.equal(restored.ps_weights, state.ps_weights)
+    assert not restored.Verror.any()
 
 
 def test_resume_unverified_under_another_sketch_zeroes_tables(tmp_path,
@@ -291,12 +337,16 @@ def test_resume_unverified_under_another_sketch_zeroes_tables(tmp_path,
     assert "tables RESET" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("kw", [SKETCH, LOCAL], ids=["sketch", "local_topk"])
+@pytest.mark.parametrize("kw", [SKETCH, LOCAL, TOPK_DOWN, DENSE],
+                         ids=["sketch", "local_topk", "topk_down",
+                              "dense_state"])
 def test_jax_checkpoint_loads_and_its_round_matches(tmp_path, kw):
     """The JAX package writes a checkpoint after 3 rounds; the port loads
     it bit for bit (``rng`` skipped), through ``restore_latest`` with no
     layout fingerprint in the meta (held to d and the field shapes), and
-    a round from it equals the JAX package's round from the same file."""
+    a round from it equals the JAX package's round from the same file:
+    also with ``client_weights`` (``--topk_down``) and with the dense
+    server state's (d,) momentum and error (``-densestate``)."""
     jrt, trt = ref_runtime(**kw), port_runtime(**kw)
     js = jrt.init_state()
     inputs = round_inputs(4, ragged=True)
@@ -319,8 +369,8 @@ def test_jax_checkpoint_loads_and_its_round_matches(tmp_path, kw):
         expect_sketch_gen=sketch_generation(trt.cfg))
     assert meta["global_round"] == 3 and "torch_layout" not in meta
     for name in ("ps_weights", "Vvelocity", "Verror", "client_velocities",
-                 "client_errors", "coord_last_update", "client_last_round",
-                 "nan_round"):
+                 "client_errors", "client_weights", "coord_last_update",
+                 "client_last_round", "nan_round"):
         want = getattr(js, name)
         got = getattr(ts, name)
         assert (want is None) == (got is None), name
@@ -383,8 +433,8 @@ def narrow_model(cfg, num_classes):
 
 CV_RESUME = {
     "sketch": ["--mode", "sketch", "--error_type", "virtual",
-               "--virtual_momentum", "0.9", "--k", "200", "--num_cols",
-               "4096"],
+               "--local_momentum", "0", "--virtual_momentum", "0.9", "--k",
+               "200", "--num_cols", "4096"],
     "local_topk": ["--mode", "local_topk", "--error_type", "local",
                    "--local_momentum", "0.9", "--k", "200",
                    "--lr_scale", "0.01"],
@@ -430,6 +480,7 @@ def test_cv_train_resumed_ends_where_uninterrupted_ends(tmp_path,
 
 def test_gpt2_train_resumed_ends_where_uninterrupted_ends(tmp_path):
     argv = ["--test", "--device", "cpu", "--dataset_dir", str(tmp_path),
+            "--error_type", "virtual", "--local_momentum", "0",
             "--num_workers", "2", "--local_batch_size", "2", "--num_cols",
             "4096", "--valid_batch_size", "4", "--checkpoint_every", "1"]
     whole = gpt2_train.main(argv + ["--num_rounds", "3",

@@ -146,18 +146,22 @@ def test_loggers_and_logdir(capsys):
 
 
 CV_MODES = {
-    "uncompressed": ["--mode", "uncompressed", "--error_type", "none"],
-    "true_topk": ["--mode", "true_topk"],
+    "uncompressed": ["--mode", "uncompressed", "--error_type", "none",
+                     "--local_momentum", "0"],
+    "true_topk": ["--mode", "true_topk", "--error_type", "virtual",
+                  "--local_momentum", "0"],
     "local_topk": ["--mode", "local_topk", "--error_type", "local",
                    "--local_momentum", "0.9", "--lr_scale", "0.01"],
     "fedavg": ["--mode", "fedavg", "--error_type", "none",
-               "--local_batch_size", "-1", "--fedavg_batch_size", "4",
+               "--local_momentum", "0", "--local_batch_size", "-1", "--fedavg_batch_size", "4",
                "--max_client_batch", "16"],
     # one client a round: the plain sketch at full width is the slow part
-    "sketch_subtract": ["--mode", "sketch", "--sketch_ef", "subtract",
+    "sketch_subtract": ["--mode", "sketch", "--error_type", "virtual",
+                        "--local_momentum", "0", "--sketch_ef", "subtract",
                         "--microbatch_size", "2", "--num_cols", "262144",
                         "--num_workers", "1"],
-    "sketch_unfused": ["--mode", "sketch", "--sketch_fused_encode", "off",
+    "sketch_unfused": ["--mode", "sketch", "--error_type", "virtual",
+                       "--local_momentum", "0", "--sketch_fused_encode", "off",
                        "--num_cols", "262144", "--num_workers", "1"],
 }
 

@@ -274,6 +274,7 @@ def test_gpt2_train_runs_on_cpu(tmp_path, capsys, extra, rounds):
     ``--num_rounds`` asks for more."""
     out = gpt2_train.main([
         "--test", "--device", "cpu", "--dataset_dir", str(tmp_path),
+        "--error_type", "virtual", "--local_momentum", "0",
         "--num_workers", "2", "--local_batch_size", "2", "--num_cols",
         "4096", "--valid_batch_size", "4", *extra])
     assert out["rounds"] == rounds and np.isfinite(out["losses"]).all()
@@ -287,7 +288,7 @@ def test_gpt2_train_runs_on_cpu(tmp_path, capsys, extra, rounds):
     (["--remat"], "--remat"), (["--remat_policy", "x"], "--remat_policy"),
     (["--lm_chunk", "64"], "--lm_chunk"), (["--mesh_shape", "2"],
                                            "--mesh_shape"),
-    (["--max_grad_norm", "1.0"], "--max_grad_norm")])
+    (["--wire_dtype", "int8"], "--wire_dtype")])
 def test_gpt2_train_rejects_flags_outside_the_slice(flags, name):
     with pytest.raises(ValueError, match=name):
         gpt2_train.main(["--test", "--device", "cpu", *flags])

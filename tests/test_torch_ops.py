@@ -381,8 +381,8 @@ def test_flags_outside_the_slice_raise_naming_them():
     import argparse
     p = argparse.ArgumentParser()
     tconfig.add_args(p)
-    with pytest.raises(ValueError, match="--dp"):
-        tconfig.parse_known(p, ["--k", "10", "--dp"])
+    with pytest.raises(ValueError, match="--sketch_scan_rows"):
+        tconfig.parse_known(p, ["--k", "10", "--sketch_scan_rows", "1"])
     with pytest.raises(ValueError, match="--mode"):
         tconfig.FedConfig(mode="dense_sketch")
     with pytest.raises(ValueError, match="--wire_dtype"):
@@ -392,7 +392,7 @@ def test_flags_outside_the_slice_raise_naming_them():
     from commefficient_torch.core.server import validate_mode_combo
     with pytest.raises(ValueError, match="--local_momentum"):
         validate_mode_combo(tconfig.config_from_args(
-            p.parse_args(["--local_momentum", "0.9"])))
+            p.parse_args(["--error_type", "virtual"])))
 
 
 @pytest.mark.parametrize("seed,epoch", [(21, 0), (5, 3)])

@@ -43,6 +43,12 @@ MODES = {
     "sketch_unfused": dict(mode="sketch", error_type="virtual",
                            num_rows=5, num_cols=4096, k=200,
                            sketch_fused_encode="off"),
+    "sketch_hash_table_clip": dict(mode="sketch", error_type="virtual",
+                                   sketch_impl="hash", num_rows=5,
+                                   num_cols=4096, k=200, max_grad_norm=1.0),
+    "sketch_dense_clip": dict(mode="sketch", error_type="virtual",
+                              num_rows=5, num_cols=4096, k=200,
+                              max_grad_norm=1.0, sketch_dense_clip=True),
 }
 
 

@@ -132,13 +132,13 @@ def test_cv_train_runs_on_cpu(tmp_path, capsys):
     out = cv_train.main([
         "--device", "cpu", "--dataset_name", "CIFAR10", "--model", "ResNet9",
         "--dataset_dir", str(tmp_path),
-        "--mode", "sketch", "--error_type", "virtual",
-        "--virtual_momentum", "0.9", "--num_workers", "2",
+        "--mode", "sketch", "--error_type", "virtual", "--local_momentum",
+        "0", "--virtual_momentum", "0.9", "--num_workers", "2",
         "--local_batch_size", "4", "--k", "500", "--num_rows", "5",
         "--num_cols", "262144", "--num_rounds", "2",
         "--synthetic_per_class", "4", "--valid_batch_size", "20"])
     assert out["rounds"] == 2 and np.isfinite(out["losses"]).all()
     text = capsys.readouterr().out
     assert "d=6568640 c=262144" in text
-    with pytest.raises(ValueError, match="--sketch_impl"):
-        cv_train.main(["--device", "cpu", "--sketch_impl", "hash"])
+    with pytest.raises(ValueError, match="--sketch_dtype"):
+        cv_train.main(["--device", "cpu", "--sketch_dtype", "bfloat16"])
