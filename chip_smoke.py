@@ -21,7 +21,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain PyTorch versions on the card at the ResNet-9 shapes
    (d = 6,568,640, c = 500,736, r = 5; seeded inputs; shifts from
    ``make_circulant_sketch``), at the unaligned c = 500,000, and at the
-   GPT-2 shape (d = 92,138,496, c = 524,288, r = 5, m = 176), bitwise
+   GPT-2 shape (d = 92,138,496, c = 524,288, r = 5, m = 176) and the
+   FEMNIST ResNet101LN shape (d = 43,124,350, c = 500,736, m = 87), bitwise
    (int32 views, ``same_bits``), fresh and accumulating, K2 also on a
    table with zeroed cells, -0 and NaN (``zeroed_table``); time kernel
    and plain version with CUDA events (median of 25 after warm-up)
@@ -46,7 +47,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    of 64, S = 128, bf16, K3 on the card, full-length random tokens) on
    the card against the CPU: one client's c_attn q/k/v gradient and three
    rounds, within NARROW_LIMITS, and the same runs with a planted fault
-   in each K3 kernel outside them;
+   in each K3 kernel outside them; one sketch round of each CV model
+   family at a narrow or shallow form (FixupResNet9, ResNet18 and
+   FixupResNet18 at one block a stage, FixupResNet50 at (1, 1, 1, 1),
+   the torchvision ResNet with BasicBlock and grouped Bottleneck under
+   the batch and the layer norm) on the card against the CPU, float32
+   with TF32 off, within ZOO_LOSS_RTOL, ZOO_UPDATE_RTOL and ZOO_SWAPS;
 5. the card's top-k (``topk_with_idx`` and the row-wise ``topk``) on
    vectors with +-NaN, +-inf, +-0 and ties against a plain ranking of
    the card's own squares (it prints which NaN (-NaN)^2 gives), timed at
@@ -117,7 +123,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``GPT2_ARMS``: the table clip ``--max_grad_norm 1``, 16 K1 a round,
    and ``densestate_clip1``, 1 K1), 3 rounds each, with the same launch
    checks;
-10. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+10. the FEMNIST FetchSGD round (``phase_femnist``): a LEAF FEMNIST
+   directory of 3,500 writers (16 train and 1 test image each, the real
+   json schema over 4 files a split) is written and prepared, both
+   times printed; ``cv_train --dataset_name EMNIST --model ResNet101LN
+   --mode sketch`` at full width (d = 43,124,350, m = 87, 8 writers of
+   16 a round, k = 50,000, r = 5, c = 500,736) from the device store, 3
+   rounds and a validation, every launch count set to 0 just before:
+   exactly 9 K1 and 1 K2 a round; then BASELINE config 3
+   (``phase_fixup``): ``cv_train --dataset_name CIFAR100 --model
+   FixupResNet50 --mode true_topk``, 100 synthetic clients, 8 a round, 3
+   rounds, with Fixup's (d,) rate vector (its share of 0.1 entries
+   printed), the first round's update held bit for bit to the rate
+   vector times the server rule's update at rate 1;
+11. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -2127,6 +2146,334 @@ def phase_gpt2_checkpoint():
     return save_s, load_s, size
 
 
+# the CV model zoo, card against CPU (phase_zoo_reference): one sketch
+# round of each family at a narrow or shallow form, from its seeded
+# initialisation plus seeded noise of ZOO_NOISE on every weight (so
+# Fixup's zero convs and classifiers pass a gradient), float32 with TF32
+# off on the card (cuDNN would run float32 convolutions in TF32; the
+# drivers' default bf16 compute does not use TF32), so only summation
+# order differs. The clients' losses within ZOO_LOSS_RTOL; the weight
+# update's L2 difference within ZOO_UPDATE_RTOL of its norm, apart from
+# at most ZOO_SWAPS coordinates of the k-sparse support on each side (a
+# near-tie at the k-th estimate tipped by that noise). Single coordinates
+# move more: a relu or a max tipped by summation order carries a
+# gradient coordinate with it (ResNet18's largest single difference, read
+# on an H100 from the seeded initialisation: 8.1e-4 of the largest
+# update), so the limit is on the norm.
+ZOO_NOISE = 0.01
+ZOO_LOSS_RTOL = 1e-4
+ZOO_UPDATE_RTOL = 1e-3
+ZOO_SWAPS = 2
+ZOO_CH = {"prep": 8, "layer1": 16, "layer2": 16, "layer3": 32}
+SHALLOW = (1, 1, 1, 1)
+# the FEMNIST FetchSGD round: ResNet101LN at 28 x 28 x 1 and 62 classes
+# (d = 43,124,350), c = 500,000 -> 500,736, so m = ceil(d / c) = 87; 8
+# writers of 16 images a round: 8 fused client encodes + the weight-decay
+# encode = 9 K1, 1 K2 a round
+FEMNIST_SKETCH = dict(d=43_124_350, c=500_736, r=5)
+FEMNIST_WRITERS = 3500
+FEMNIST_PER_WRITER = 16
+FEMNIST_TEST_PER_WRITER = 1
+FEMNIST_FILES = 4
+FEMNIST_ROUNDS = 3
+FEMNIST_PER_ROUND = {"circ_encode": 9, "circ_decode": 1}
+FEMNIST_ARGV = ["--dataset_name", "EMNIST", "--model", "ResNet101LN",
+                "--mode", "sketch", "--error_type", "virtual",
+                "--virtual_momentum", "0.9", "--local_momentum", "0",
+                "--num_workers", "8", "--local_batch_size", "16",
+                "--k", "50000", "--num_rows", "5", "--num_cols", "500000",
+                "--valid_batch_size", "500",
+                "--num_rounds", str(FEMNIST_ROUNDS)]
+# BASELINE config 3: FixupResNet50 / CIFAR100 / true_topk / 100 clients
+# (synthetic, 64 images each), 8 a round, with Fixup's rate vector
+FIXUP_D = 23_659_926
+FIXUP_ROUNDS = 3
+FIXUP_ARGV = ["--dataset_name", "CIFAR100", "--model", "FixupResNet50",
+              "--mode", "true_topk", "--error_type", "virtual",
+              "--virtual_momentum", "0.9", "--local_momentum", "0",
+              "--num_workers", "8", "--local_batch_size", "64",
+              "--k", "50000", "--valid_batch_size", "400",
+              "--num_rounds", str(FIXUP_ROUNDS)]
+
+
+def zoo_families():
+    """(name, constructor, NHWC input shape, classes) of each family at
+    its narrow or shallow form."""
+    from commefficient_torch.models.fixup_resnet import FixupResNetImageNet
+    from commefficient_torch.models.resnet9 import FixupResNet9
+    from commefficient_torch.models.resnet18 import FixupResNet18, ResNet18
+    from commefficient_torch.models.resnets import (ResNet, basic_block,
+                                                    bottleneck)
+    cifar, emnist = (32, 32, 3), (28, 28, 1)
+    out = [("FixupResNet9", lambda **kw: FixupResNet9(channels=ZOO_CH, **kw),
+            cifar, 10),
+           ("ResNet18", lambda **kw: ResNet18(num_blocks=SHALLOW, **kw),
+            cifar, 10),
+           ("FixupResNet18",
+            lambda **kw: FixupResNet18(num_blocks=SHALLOW, **kw), cifar, 10),
+           ("FixupResNet50",
+            lambda **kw: FixupResNetImageNet(SHALLOW, 100, cifar, **kw),
+            cifar, 100)]
+    for norm in ("batch", "layer"):
+        out.append((f"resnet BasicBlock {norm}",
+                    lambda norm=norm, **kw: ResNet(
+                        basic_block, SHALLOW, 62, norm, input_shape=emnist,
+                        **kw), emnist, 62))
+        out.append((f"resnet grouped Bottleneck {norm}",
+                    lambda norm=norm, **kw: ResNet(
+                        bottleneck, SHALLOW, 62, norm, groups=4,
+                        width_per_group=4, input_shape=emnist, **kw),
+                    emnist, 62))
+    return out
+
+
+def phase_zoo_reference():
+    """One sketch round of each CV family on the card (K1, K2, cuDNN)
+    against the same round on the CPU (plain versions), float32 with TF32
+    off, within ZOO_LOSS_RTOL, ZOO_UPDATE_RTOL and ZOO_SWAPS. Returns
+    {family: (max relative loss difference, the update's relative L2
+    difference, support swaps)}."""
+    import numpy as np
+    import torch
+    from commefficient_torch.config import FedConfig
+    from commefficient_torch.core.runtime import FedRuntime
+    from commefficient_torch.losses import make_cv_loss
+
+    cfg = FedConfig(mode="sketch", error_type="virtual", local_momentum=0.0,
+                    virtual_momentum=0.9, weight_decay=5e-4, k=200,
+                    num_rows=5, num_cols=4096, num_workers=2,
+                    local_batch_size=4, compute_dtype="float32")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for name, make, shape, classes in zoo_families():
+            rng = np.random.RandomState(0)
+            batch = {"image": rng.randn(2, 4, *shape).astype(np.float32),
+                     "target": rng.randint(0, classes, (2, 4))}
+            mask = np.ones((2, 4), bool)
+            mask[1, 3:] = False
+            runs = {}
+            for device in ("cpu", "cuda"):
+                model = make(generator=torch.Generator().manual_seed(0))
+                with torch.no_grad():
+                    model.flat.add_(ZOO_NOISE * torch.randn(
+                        model.num_params,
+                        generator=torch.Generator().manual_seed(1)))
+                rt = FedRuntime(cfg, model, make_cv_loss(model, "float32"),
+                                device=device)
+                st, met = rt.round(rt.init_state(), np.arange(2), batch,
+                                   mask, 0.1)
+                runs[device] = (met["results"][0].cpu().numpy(),
+                                (st.ps_weights - rt.initial_weights)
+                                .cpu().numpy())
+            (l_cpu, u_cpu), (l_gpu, u_gpu) = runs["cpu"], runs["cuda"]
+            dl = float(np.abs(l_gpu - l_cpu).max() / np.abs(l_cpu).max())
+            s_cpu, s_gpu = u_cpu != 0, u_gpu != 0
+            swaps = int(max((s_cpu & ~s_gpu).sum(), (s_gpu & ~s_cpu).sum()))
+            same = s_cpu == s_gpu
+            diff = (u_gpu - u_cpu)[same]
+            du = float(np.linalg.norm(diff) / np.linalg.norm(u_cpu))
+            dmax = float(np.abs(diff).max() / np.abs(u_cpu).max())
+            print(f"[zoo] {name} (d={model.num_params}), one sketch round, "
+                  f"card vs CPU: max rel dloss {dl:.3e}, update L2 "
+                  f"difference {du:.3e} of its norm (largest single "
+                  f"{dmax:.3e} of the largest), support {int(s_cpu.sum())} "
+                  f"coordinates, {swaps} swapped", flush=True)
+            if not (dl <= ZOO_LOSS_RTOL and du <= ZOO_UPDATE_RTOL
+                    and swaps <= ZOO_SWAPS and s_cpu.sum() > 0):
+                fail(f"{name}: the card's round disagrees with the CPU's "
+                     f"(dloss {dl}, dupdate {du}, swaps {swaps})")
+            out[name] = (dl, du, swaps)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    return out
+
+
+def write_leaf_femnist(root: str, writers: int, per_writer: int,
+                       test_per_writer: int, files: int,
+                       seed: int = 0) -> int:
+    """A LEAF FEMNIST directory in the real schema (``train/`` and
+    ``test/`` of ``all_data_<i>.json``, each ``{"users", "num_samples",
+    "user_data": {user: {"x": [784-float lists], "y": [ints]}}}``):
+    ``writers`` writers split over ``files`` files, white pixels (1.00)
+    with the darker strokes of a seeded prototype of each of the 62
+    classes, numbers of 2 decimals laid out by numpy rather than by
+    ``json.dump``. Returns the bytes written."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    protos = rng.rand(62, 28, 28) < 0.15
+    levels = np.frombuffer(b"".join(f"{v / 100:.2f}".encode()
+                                    for v in range(101)),
+                           np.uint8).reshape(101, 4)
+    total = 0
+    for split, per in (("train", per_writer), ("test", test_per_writer)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        for i, users in enumerate(np.array_split(np.arange(writers), files)):
+            names = [f"f{u:04d}_{u % 89:02d}" for u in users]
+            parts = []
+            for name in names:
+                y = rng.randint(0, 62, per)
+                dark = protos[y] ^ (rng.rand(per, 28, 28) < 0.02)
+                level = np.where(dark, rng.randint(0, 60, dark.shape),
+                                 100).reshape(per, 784)
+                # each image "[p,p,...,p]" and a "," after it, the last "]"
+                img = np.empty((per, 784 * 5 + 2), np.uint8)
+                img[:, 0] = ord("[")
+                body = img[:, 1:-1].reshape(per, 784, 5)
+                body[:, :, :4] = levels[level]
+                body[:, :, 4] = ord(",")
+                body[:, -1, 4] = ord("]")
+                img[:, -1] = ord(",")
+                img[-1, -1] = ord("]")
+                parts.append(b'"' + name.encode() + b'": {"x": ['
+                             + img.tobytes() + b', "y": '
+                             + json.dumps(y.tolist()).encode() + b"}")
+            blob = (b'{"users": ' + json.dumps(names).encode()
+                    + b', "num_samples": '
+                    + json.dumps([per] * len(names)).encode()
+                    + b', "user_data": {' + b", ".join(parts) + b"}}")
+            with open(os.path.join(root, split, f"all_data_{i}.json"),
+                      "wb") as f:
+                f.write(blob)
+            total += len(blob)
+    return total
+
+
+def phase_femnist():
+    """The FEMNIST FetchSGD round through the user's entry point at full
+    width: a LEAF directory of FEMNIST_WRITERS writers is written and
+    prepared (its times printed), then FEMNIST_ROUNDS rounds of
+    ResNet101LN and one validation, every launch count set to 0 just
+    before; exactly FEMNIST_PER_ROUND launches a round, d and m as
+    predicted, finite losses. Returns (launches, median round ms)."""
+    import numpy as np
+    import torch
+    from commefficient_torch import cv_train
+    from commefficient_torch.data.fed_emnist import FedEMNIST
+    from commefficient_torch.ops import circulant_kernels as K
+
+    root = os.path.join(DATA_ROOT["path"], "femnist")
+    t0 = time.perf_counter()
+    nbytes = write_leaf_femnist(root, FEMNIST_WRITERS, FEMNIST_PER_WRITER,
+                                FEMNIST_TEST_PER_WRITER, FEMNIST_FILES)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = FedEMNIST(root)
+    prepare_s = time.perf_counter() - t0
+    n_writers, n_images = train.num_clients, len(train)
+    del train
+    print(f"[femnist] LEAF directory: {FEMNIST_WRITERS} writers x "
+          f"{FEMNIST_PER_WRITER} train + {FEMNIST_TEST_PER_WRITER} test "
+          f"images in {FEMNIST_FILES} files a split, {nbytes / 1e6:.1f} MB "
+          f"of json written in {write_s:.2f} s; prepared (json ingest to "
+          f"FedEMNIST_train/val.npz) in {prepare_s:.2f} s: {n_writers} "
+          f"clients, {n_images} images", flush=True)
+    if n_writers != FEMNIST_WRITERS:
+        fail(f"FEMNIST prepared {n_writers} writers, wrote "
+             f"{FEMNIST_WRITERS}")
+    argv = FEMNIST_ARGV + ["--dataset_dir", root]
+    print("[femnist] python -m commefficient_torch.cv_train "
+          + " ".join(argv), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    out = cv_train.main(argv)
+    launches = dict(K.launches)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    rt = out["runtime"]
+    want = {n: c * FEMNIST_ROUNDS for n, c in FEMNIST_PER_ROUND.items()}
+    if out["rounds"] != FEMNIST_ROUNDS or out["summary"] is None:
+        fail(f"FEMNIST ran {out['rounds']} rounds (summary "
+             f"{out['summary']}), wanted {FEMNIST_ROUNDS}")
+    if not np.isfinite(out["losses"]).all() or \
+            not math.isfinite(out["val_loss"]):
+        fail(f"FEMNIST non-finite losses {out['losses']} / "
+             f"{out['val_loss']}")
+    if (rt.cfg.grad_size, rt.cfg.num_cols, rt.cs.m) != (
+            FEMNIST_SKETCH["d"], FEMNIST_SKETCH["c"], 87):
+        fail(f"FEMNIST d={rt.cfg.grad_size} c={rt.cfg.num_cols} "
+             f"m={rt.cs.m}, want {FEMNIST_SKETCH} and m = 87")
+    if out["train_store"] is None or rt.num_clients != FEMNIST_WRITERS:
+        fail("FEMNIST: the writers are not served by the device store")
+    if launches != want:
+        fail(f"FEMNIST launches {launches}, want {want}")
+    med = statistics.median(out["round_s"][1:])
+    print(f"[femnist] ResNet101LN d={rt.cfg.grad_size} m={rt.cs.m}: "
+          f"{FEMNIST_ROUNDS} rounds, median of rounds 2-{FEMNIST_ROUNDS} "
+          f"{med * 1e3:.3f} ms (all: "
+          f"{[round(t * 1e3, 3) for t in out['round_s']]}), "
+          f"{8 * FEMNIST_PER_WRITER / med:.1f} img/s, losses "
+          f"{[round(float(x), 5) for x in out['losses']]}, val loss "
+          f"{out['val_loss']:.5f}, launches {launches} (want {want}), "
+          f"peak memory {peak / 2**30:.3f} GiB", flush=True)
+    del out, rt
+    torch.cuda.empty_cache()
+    return launches, med * 1e3
+
+
+def phase_fixup():
+    """BASELINE config 3 through the entry point: FixupResNet50 on CIFAR100,
+    true_topk, 100 clients, 8 a round, FIXUP_ROUNDS rounds with Fixup's
+    (d,) rate vector; in the first round the server rule runs once more at
+    rate 1, and its update times the rate vector must be the round's
+    update bit for bit (the rounds after it, which the median reads, run
+    it once). Returns (launches, median round ms, share of 0.1 rates)."""
+    import numpy as np
+    import torch
+    from commefficient_torch import cv_train
+    from commefficient_torch.core import runtime as runtime_mod
+    from commefficient_torch.ops import circulant_kernels as K
+
+    orig, checked = runtime_mod.server_update, []
+
+    def server_update(cfg, agg, vel, err, lr, *args, **kw):
+        out = orig(cfg, agg, vel, err, lr, *args, **kw)
+        if lr.ndim and not checked:
+            unit = orig(cfg, agg, vel, err, torch.ones_like(lr[0]), *args,
+                        **kw)
+            checked.append(torch.equal(out[0], unit[0] * lr)
+                           and int((out[0] != 0).sum()) > 0)
+        return out
+
+    argv = FIXUP_ARGV + dataset_flags("cifar100_64")
+    print("[fixup] python -m commefficient_torch.cv_train " + " ".join(argv),
+          flush=True)
+    K.reset_launches()
+    runtime_mod.server_update = server_update
+    try:
+        out = cv_train.main(argv)
+    finally:
+        runtime_mod.server_update = orig
+    launches = dict(K.launches)
+    mult, rt = out["lr_mult"], out["runtime"]
+    if out["rounds"] != FIXUP_ROUNDS or out["summary"] is None \
+            or not np.isfinite(out["losses"]).all():
+        fail(f"FixupResNet50: {out['rounds']} rounds, losses "
+             f"{out['losses']}, summary {out['summary']}")
+    if rt.cfg.grad_size != FIXUP_D or mult is None \
+            or tuple(mult.shape) != (FIXUP_D,) or mult.device.type != "cuda":
+        fail(f"FixupResNet50: d={rt.cfg.grad_size}, multiplier "
+             f"{None if mult is None else tuple(mult.shape)}")
+    if checked != [True]:
+        fail(f"FixupResNet50: the round's update is not lr * lr_mult * the "
+             f"unscaled update ({checked})")
+    if any(launches.values()):
+        fail(f"FixupResNet50 true_topk launched sketch kernels {launches}")
+    tenth = int((mult != 1.0).sum())
+    med = statistics.median(out["round_s"][1:])
+    print(f"[fixup] FixupResNet50 d={FIXUP_D}: the (d,) multiplier in use, "
+          f"0.1 on {tenth} parameters ({tenth / FIXUP_D:.6f} of d); round "
+          f"1's update equals lr * lr_mult * the unscaled update bit for "
+          f"bit; median of rounds 2-{FIXUP_ROUNDS} {med * 1e3:.3f} ms "
+          f"(all: {[round(t * 1e3, 3) for t in out['round_s']]}), losses "
+          f"{[round(float(x), 5) for x in out['losses']]}", flush=True)
+    del out, rt, mult
+    torch.cuda.empty_cache()
+    return launches, med * 1e3, tenth / FIXUP_D
+
+
 def main() -> int:
     try:
         import torch
@@ -2165,11 +2512,14 @@ def run_phases(t0: float) -> int:
     circ = phase_kernels(FLAGSHIP, (FLAGSHIP["c"], 500_000), scale=64.0)
     circ_gpt2 = phase_kernels(GPT2_SKETCH, (GPT2_SKETCH["c"],), scale=4.0,
                               plain_n=5)
+    circ_femnist = phase_kernels(FEMNIST_SKETCH, (FEMNIST_SKETCH["c"],),
+                                 scale=16.0, plain_n=5)
     done("K1/K2")
     flash = phase_flash()
     done("K3")
     phase_small_reference()
     phase_gpt2_reference()
+    zoo = phase_zoo_reference()
     done("card-vs-CPU rounds")
     topk_ms = phase_topk()
     accounting = phase_accounting()
@@ -2195,6 +2545,15 @@ def run_phases(t0: float) -> int:
     gpt2_arms = {arm: phase_gpt2_main(flags, GPT2_ARM_ROUNDS, encodes)
                  for arm, (flags, encodes) in GPT2_ARMS.items()}
     done("GPT-2 study arms")
+    femnist_launches, femnist_ms = phase_femnist()
+    fixup_launches, fixup_ms, fixup_share = phase_fixup()
+    done("FEMNIST ResNet101LN and FixupResNet50 paths")
+    print(f"[zoo] this slice's paths, round medians (ms): FEMNIST "
+          f"ResNet101LN sketch {femnist_ms:.3f}, FixupResNet50 CIFAR100 "
+          f"true_topk {fixup_ms:.3f} (0.1 rate on {fixup_share:.6f} of d); "
+          "card vs CPU (rel dloss, dupdate, swaps): "
+          + ", ".join(f"{n} {a:.2e}/{b:.2e}/{c}"
+                      for n, (a, b, c) in zoo.items()), flush=True)
     print(f"[bytes] what byte accounting costs a round (medians; bytes on "
           f"vs --no_track_bytes): ResNet-9 {cv_ms:.3f} vs "
           f"{cv_off_ms:.3f} ms, GPT-2 {gpt2_ms:.3f} vs {gpt2_off_ms:.3f} "
@@ -2241,13 +2600,17 @@ def run_phases(t0: float) -> int:
                    **{f"cv_train {m}": launches[name]
                       for m, (launches, _) in rules.items()},
                    **{f"gpt2_train {a}": r[name] + v[name]
-                      for a, (r, v, _) in gpt2_arms.items()}}
+                      for a, (r, v, _) in gpt2_arms.items()},
+                   "cv_train EMNIST ResNet101LN": femnist_launches[name],
+                   "cv_train CIFAR100 FixupResNet50 true_topk":
+                       fixup_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "commefficient_torch/csrc/circulant.cu",
             "replaces": f"{pallas_file}:{line}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **circ[name], "at_gpt2_shape": circ_gpt2[name],
+            "at_femnist_shape": circ_femnist[name],
             "sass_per_term": sketch_sass[name]})
     for name, line in (("flash_fwd", 589), ("flash_bwd_dq", 1287),
                        ("flash_bwd_dkv", 941)):

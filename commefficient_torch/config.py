@@ -6,12 +6,14 @@ The port runs the single-device round in every mode of ``MODES``
 with the circulant, hash or SRHT sketch, either error-feedback rule and
 the table or dense server state), with local momentum and local or
 virtual error, microbatches, whole-client batches, gradient clipping,
-DP, top-k download and byte accounting, of two models: ResNet-9 on
-CIFAR10 or CIFAR100, natural or iid clients (``cv_train``), and GPT-2
-DoubleHeads on PersonaChat (``gpt2_train``), with whole-state
-checkpoints and resume in both. A value or flag outside it raises and
-names the flag: the bf16 and int8 wires, the other models and datasets,
-``--sketch_scan_rows``/``--sketch_dtype`` and meshes are not ported.
+DP, top-k download and byte accounting, of every CV model of the JAX
+package's registry (``models.MODEL_NAMES``; Fixup's per-parameter rates
+for the Fixup models) on CIFAR10, CIFAR100 or LEAF FEMNIST (``EMNIST``),
+natural or iid clients (``cv_train``), and GPT-2 DoubleHeads on
+PersonaChat (``gpt2_train``), with whole-state checkpoints and resume in
+both. A value or flag outside it raises and names the flag: the bf16 and
+int8 wires, ImageNet, ``--finetune``, ``--sketch_scan_rows``/
+``--sketch_dtype`` and meshes are not ported.
 Which combinations of mode, error type and momentum are legal is the
 server's rule (``core/server.py validate_mode_combo``), checked when a
 runtime is built, as in the JAX package. Defaults and choices are the
@@ -25,7 +27,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
+
+from commefficient_torch.models import MODEL_NAMES
 
 MODES = ("sketch", "true_topk", "local_topk", "fedavg", "uncompressed")
 ERROR_TYPES = ("none", "local", "virtual")
@@ -122,8 +126,9 @@ class FedConfig:
         if (self.model, self.dataset_name) not in MODEL_DATASETS:
             raise ValueError(
                 f"--model {self.model} --dataset_name {self.dataset_name} "
-                "is outside the PyTorch port's slice (ported: "
-                + ", ".join(f"{m} on {d}" for m, d in MODEL_DATASETS) + ")")
+                "is outside the PyTorch port's slice (ported: the CV "
+                f"models {', '.join(MODEL_NAMES)} on "
+                f"{', '.join(CV_DATASETS)}; GPT2 on PERSONA)")
         if self.local_batch_size == 0 or self.local_batch_size < -1:
             raise ValueError(f"--local_batch_size {self.local_batch_size}: "
                              "want a positive batch, or -1 for each "
@@ -194,16 +199,27 @@ class FedConfig:
     def default_num_clients(self) -> int:
         if self.num_clients is not None:
             return self.num_clients
-        return {"CIFAR10": 10, "CIFAR100": 100,
+        return {"CIFAR10": 10, "CIFAR100": 100, "EMNIST": 3500,
                 "PERSONA": 17568}[self.dataset_name]
 
     @property
     def num_classes(self) -> int:
-        return {"CIFAR10": 10, "CIFAR100": 100}[self.dataset_name]
+        return CV_DATASETS[self.dataset_name][0]
+
+    @property
+    def input_shape(self) -> Tuple[int, int, int]:
+        """The dataset's NHWC image shape, which the models' layouts
+        follow."""
+        return CV_DATASETS[self.dataset_name][1]
 
 
-MODEL_DATASETS = (("ResNet9", "CIFAR10"), ("ResNet9", "CIFAR100"),
-                  ("GPT2", "PERSONA"))
+# the JAX package's CV datasets: (classes, NHWC image shape); ImageNet is
+# not ported
+CV_DATASETS = {"CIFAR10": (10, (32, 32, 3)), "CIFAR100": (100, (32, 32, 3)),
+               "EMNIST": (62, (28, 28, 1))}
+# the JAX package's pairs: any registry model on any CV dataset
+MODEL_DATASETS = tuple((m, d) for m in MODEL_NAMES for d in CV_DATASETS) \
+    + (("GPT2", "PERSONA"),)
 
 
 def auto_num_cols(num_cols: int) -> int:
@@ -318,6 +334,7 @@ def parse_known(parser: argparse.ArgumentParser,
         flags = [a for a in rest if a.startswith("-")] or rest
         raise ValueError(
             f"{' '.join(flags)}: outside the PyTorch port's slice "
-            "(ResNet-9 on CIFAR10/100 or GPT-2 on PersonaChat, one device, "
-            "the float32 wire and the batched float32 SRHT; no meshes)")
+            "(the CV models on CIFAR10/100 or FEMNIST, or GPT-2 on "
+            "PersonaChat, one device, the float32 wire and the batched "
+            "float32 SRHT; no meshes)")
     return ns

@@ -88,12 +88,14 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
           val_max_batches: Optional[int] = None, loggers: Sequence = (),
           timer: Optional[Timer] = None, train_store=None, val_store=None,
           ckpt_mgr=None, checkpoint_every: int = 0, start_epoch: int = 0,
-          global_round: int = 0):
+          global_round: int = 0, lr_mult: Optional[torch.Tensor] = None):
     """The run's epochs from ``start_epoch``: one sampler an epoch, seeded
     by (seed, epoch), at most ``ceil(rounds per epoch x the epoch's
     fraction)`` rounds of it (and ``max_per_epoch``), round t (from 1,
     counted over the whole run from ``global_round`` rounds already taken)
-    at the rate ``schedule(t / rounds per epoch)``, its batch from
+    at the rate ``schedule(t / rounds per epoch)`` (times the (d,)
+    ``lr_mult`` when given: the round takes the vector, the rows print
+    the scalar), its batch from
     ``train_store`` (drawn for round t) or the host gather. Stops after
     ``num_rounds`` rounds of the whole run when that is positive; the
     epoch in which it stops still ends as any epoch does, but is
@@ -131,8 +133,9 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
             _sync(device)
             log.data_s.append(time.perf_counter() - t_data)
             t0 = time.perf_counter()
-            state, metrics = runtime.round(state, rnd.client_ids, batch,
-                                           rnd.mask, lr)
+            state, metrics = runtime.round(
+                state, rnd.client_ids, batch, rnd.mask,
+                lr if lr_mult is None else lr * lr_mult)
             _sync(device)
             log.round_s.append(time.perf_counter() - t0)
             w = metrics["n_valid"]

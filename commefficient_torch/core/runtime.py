@@ -274,6 +274,9 @@ class FedRuntime:
         ids = torch.as_tensor(np.asarray(client_ids), dtype=torch.int64,
                               device=dev)
         lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+        if lr.ndim and lr.shape != (cfg.grad_size,):
+            raise ValueError(f"lr of shape {tuple(lr.shape)}: want a scalar "
+                             f"or ({cfg.grad_size},)")
         step_t = torch.tensor(step, dtype=torch.int32, device=dev)
         W = mask.shape[0]
 

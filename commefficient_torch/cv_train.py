@@ -1,6 +1,8 @@
-"""Federated CV training entry point of the PyTorch port (ResNet-9 on
-CIFAR10 or CIFAR100, every mode of the JAX package's single-device
-round).
+"""Federated CV training entry point of the PyTorch port: any model of
+the registry (``models.MODEL_NAMES``: ResNet-9, the Fixup ResNets, ResNet-18,
+the torchvision family and ResNet101LN) on CIFAR10, CIFAR100 or LEAF
+FEMNIST (``--dataset_name EMNIST``), in every mode of the JAX package's
+single-device round.
 
     python -m commefficient_torch.cv_train --dataset_name CIFAR10 \\
         --dataset_dir ./dataset --model ResNet9 --mode sketch \\
@@ -8,34 +10,47 @@ round).
         --num_workers 8 --local_batch_size 64 --k 50000 --num_rows 5 \\
         --num_cols 500000 --checkpoint_every 1
 
+    python -m commefficient_torch.cv_train --dataset_name EMNIST \\
+        --dataset_dir ./femnist --model ResNet101LN --mode sketch \\
+        --error_type virtual --virtual_momentum 0.9 --local_momentum 0 \\
+        --num_workers 8 --local_batch_size 16 --k 50000 --num_rows 5 \\
+        --num_cols 500000
+
 ``--mode`` takes sketch, true_topk, local_topk, fedavg or uncompressed
 (fedavg with ``--local_batch_size -1 --error_type none --local_momentum
 0``); ``--sketch_impl`` circ, hash or rht; ``--max_grad_norm``,
 ``--sketch_dense_clip``, ``--dp``, ``--topk_down`` and
-``--sketch_server_state dense`` as in the JAX package. Runs on the
-card unless ``--device cpu`` is given. At each epoch's end it prints the
-epoch's rounds (loss, accuracy, round time), validates, and prints the
-reference's epoch row (train and test loss and accuracy, download and
-upload MiB); at the end the run's byte totals and the TSV record.
+``--sketch_server_state dense`` as in the JAX package. A model whose name
+starts with ``Fixup`` trains its scalar biases and scales at a tenth of
+the rate (``fixup_lr_multiplier``). Runs on the card unless ``--device
+cpu`` is given. At each epoch's end it prints the epoch's rounds (loss,
+accuracy, round time), validates, and prints the reference's epoch row
+(train and test loss and accuracy, download and upload MiB); at the end
+the run's byte totals and the TSV record.
 
-The data is read from the CIFAR python pickles under ``--dataset_dir``
-(``cifar-10-batches-py`` or ``cifar-100-python``), prepared there once
-(data/fed_cifar.py); without them a synthetic set is generated there,
-with a ``WARNING:``. ``--iid`` deals a fixed permutation of the train set
-to ``--num_clients`` clients. When the set fits (2 GiB), its arrays live
-on the device and every round is gathered and augmented there
-(data/device_store.py; ``--no_augment``: normalised only); the run says
-which path feeds it. ``--checkpoint_every N`` writes the whole state
-every N epochs under ``--checkpoint_path``, ``--resume`` continues from
-the newest intact checkpoint, and ``--checkpoint`` writes the final
-weights to ``<checkpoint_path>/ResNet9.npz`` (checkpoint.py).
+The data is read from ``--dataset_dir``, prepared there once: the CIFAR
+python pickles (``cifar-10-batches-py`` or ``cifar-100-python``,
+data/fed_cifar.py) or LEAF FEMNIST's ``train/`` and ``test/``
+``all_data*.json`` (data/fed_emnist.py); without them a synthetic set is
+generated there, with a ``WARNING:``. ``--iid`` deals a fixed
+permutation of the train set to ``--num_clients`` clients. When the set
+fits (2 GiB), its arrays live on the device and every round is gathered
+and augmented there (data/device_store.py; ``--no_augment``: normalised
+only); the run says which path feeds it. ``--test`` runs the JAX
+package's smoke size (one-channel ResNet-9s, a 1 x 10 sketch, synthetic
+data). ``--checkpoint_every N`` writes the whole state every N epochs
+under ``--checkpoint_path``, ``--resume`` continues from the newest
+intact checkpoint, and ``--checkpoint`` writes the final weights to
+``<checkpoint_path>/<model>.npz`` (checkpoint.py).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
-from typing import Optional, Sequence
+import sys
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,17 +61,29 @@ from commefficient_torch.core.driver import train
 from commefficient_torch.core.runtime import FedRuntime
 from commefficient_torch.data.device_store import (DATA_KEY,
                                                    make_device_store)
-from commefficient_torch.data.fed_cifar import DATASETS
+from commefficient_torch.data import fed_cifar
+from commefficient_torch.data.fed_emnist import FedEMNIST
 from commefficient_torch.data.transforms import transforms_for
 from commefficient_torch.losses import make_cv_loss
-from commefficient_torch.models.resnet9 import ResNet9
+from commefficient_torch.models import get_model
 from commefficient_torch.utils.logging import TableLogger, Timer, TSVLogger
 from commefficient_torch.utils.schedules import lr_schedule_for
+
+
+DATASETS = {**fed_cifar.DATASETS, "EMNIST": FedEMNIST}
+# more batch-stat norm scopes than this, evaluated in batches below
+# VALID_BATCH_WARN, draw the JAX package's warning: ResNet-9's 8 norms are
+# robust at batch 8, the 20+ of the depth-18+ models are not
+BSN_WARN_SCOPES = 10
+VALID_BATCH_WARN = 64
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_args(p)
+    p.add_argument("--test", action="store_true", dest="do_test",
+                   help="smoke size: one-channel ResNet-9s, a 1 x 10 "
+                        "sketch, synthetic data")
     p.add_argument("--num_rounds", type=int, default=0,
                    help="stop after this many rounds (0 = run num_epochs)")
     p.add_argument("--device", default="cuda")
@@ -67,20 +94,64 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def build_model(cfg, num_classes: int) -> ResNet9:
-    """ResNet-9 with weights drawn from a generator seeded by ``--seed``."""
-    gen = torch.Generator().manual_seed(cfg.seed)
-    return ResNet9(do_batchnorm=cfg.do_batchnorm, num_classes=num_classes,
-                   generator=gen)
+def build_model(cfg, num_classes: int):
+    """The registry's ``--model`` at the dataset's NHWC input shape
+    (``cfg.input_shape``), with weights drawn from a generator seeded by
+    ``--seed``; the JAX package's rules: ``--batchnorm`` reaches ResNet9
+    alone, ``--test``'s one-channel widths the two ResNet-9s alone."""
+    kwargs = {"num_classes": num_classes}
+    if cfg.do_test:
+        kwargs["channels"] = {"prep": 1, "layer1": 1, "layer2": 1,
+                              "layer3": 1}
+    ctor = get_model(cfg.model)
+    if cfg.model == "ResNet9":
+        kwargs["do_batchnorm"] = cfg.do_batchnorm
+    elif cfg.model != "FixupResNet9":
+        kwargs.pop("channels", None)
+    return ctor(input_shape=cfg.input_shape,
+                generator=torch.Generator().manual_seed(cfg.seed), **kwargs)
+
+
+def fixup_lr_multiplier(layout: List[Tuple[str, Tuple]]) -> torch.Tensor:
+    """The Fixup models' per-parameter rate multipliers, as a (d,) float32
+    vector in ravel order: 0.1 where the parameter's path holds ``bias``
+    or ``scale``, 1.0 elsewhere (the JAX package's
+    ``fixup_lr_multiplier``)."""
+    return torch.cat([
+        torch.full((math.prod(shape),),
+                   0.1 if ("bias" in path or "scale" in path) else 1.0,
+                   dtype=torch.float32)
+        for path, shape in layout])
+
+
+def warn_small_eval_batches(cfg, layout) -> None:
+    """The JAX package's warning: batch-stat norms normalise an eval batch
+    by its own statistics, and in a deep stack a small batch's noise
+    compounds to chance-level accuracy."""
+    scopes = set()
+    for path, _ in layout:
+        keys = path.split("/")
+        hits = [i for i, k in enumerate(keys) if "BatchStatNorm" in k]
+        if hits:
+            scopes.add("/".join(keys[:hits[0] + 1]))
+    if len(scopes) > BSN_WARN_SCOPES and \
+            cfg.valid_batch_size < VALID_BATCH_WARN:
+        print(f"WARNING: {cfg.model} stacks {len(scopes)} batch-stat norm "
+              f"layers and --valid_batch_size {cfg.valid_batch_size} < "
+              f"{VALID_BATCH_WARN}: eval batches normalize by their OWN "
+              "statistics, and small-batch stat noise compounds with depth "
+              "(measured: chance-level val accuracy at depth 50 / batch 8 "
+              "where batch 256 tracks train). Raise --valid_batch_size.",
+              file=sys.stderr)
 
 
 def setup(ns: argparse.Namespace):
     """Data, model and runtime for the parsed flags ``ns``: returns
     ``(runtime, state, train_ds, val_ds)``."""
     cfg = config_from_args(ns)
-    if cfg.model != "ResNet9":
-        raise ValueError(f"--model {cfg.model}: cv_train runs ResNet9 "
-                         "(GPT-2 runs through commefficient_torch.gpt2_train)")
+    if cfg.do_test:
+        # the JAX package's smoke size of the sketch
+        cfg = cfg.replace(num_cols=10, num_rows=1, k=10)
     device = torch.device(ns.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the "
@@ -88,15 +159,17 @@ def setup(ns: argparse.Namespace):
     torch.manual_seed(cfg.seed)
     np.random.seed(cfg.seed)
     ds_cls = DATASETS[cfg.dataset_name]
+    kw = {"synthetic": True} if cfg.do_test else {}
+    if cfg.dataset_name != "EMNIST":
+        kw["synthetic_per_class"] = cfg.synthetic_per_class
     # no host transform yet: make_stores installs one where no store
     # feeds the split
     train_ds = ds_cls(cfg.dataset_dir, train=True, do_iid=cfg.do_iid,
-                      num_clients=cfg.num_clients,
-                      synthetic_per_class=cfg.synthetic_per_class)
-    val_ds = ds_cls(cfg.dataset_dir, train=False,
-                    synthetic_per_class=cfg.synthetic_per_class)
+                      num_clients=cfg.num_clients, **kw)
+    val_ds = ds_cls(cfg.dataset_dir, train=False, **kw)
     cfg = cfg.replace(num_clients=train_ds.num_clients)
     model = build_model(cfg, cfg.num_classes)
+    warn_small_eval_batches(cfg, model.layout)
     loss_fn = make_cv_loss(model, cfg.compute_dtype)
     runtime = FedRuntime(cfg, model, loss_fn, device=device)
     cfg = runtime.cfg
@@ -106,6 +179,19 @@ def setup(ns: argparse.Namespace):
           f"{cfg.dataset_name}{' iid' if cfg.do_iid else ''} "
           f"device={device}")
     return runtime, runtime.init_state(), train_ds, val_ds
+
+
+def lr_multiplier(runtime: FedRuntime) -> Optional[torch.Tensor]:
+    """The (d,) rate multiplier on the runtime's device for a Fixup model
+    (built once a run), else None (the scalar rate)."""
+    if not runtime.cfg.model.startswith("Fixup"):
+        return None
+    mult = fixup_lr_multiplier(runtime.layout).to(runtime.device)
+    share = float((mult != 1.0).float().mean())
+    print(f"using fixup learning rates: a (d,) multiplier, 0.1 on "
+          f"{share:.6f} of the {mult.numel()} parameters (scalar biases "
+          "and scales), 1.0 elsewhere")
+    return mult
 
 
 def make_stores(runtime: FedRuntime, train_ds, val_ds):
@@ -146,6 +232,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ns = parse_known(build_parser(), argv)
     runtime, state, train_ds, val_ds = setup(ns)
     cfg = runtime.cfg
+    lr_mult = lr_multiplier(runtime)
     train_store, val_store = make_stores(runtime, train_ds, val_ds)
     ckpt_mgr, start_epoch, restored, global_round = setup_checkpointing(
         cfg, runtime, cfg.model)
@@ -159,7 +246,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                 val_store=val_store, ckpt_mgr=ckpt_mgr,
                                 checkpoint_every=cfg.checkpoint_every,
                                 start_epoch=start_epoch,
-                                global_round=global_round)
+                                global_round=global_round, lr_mult=lr_mult)
     print(tsv)
     if cfg.do_checkpoint and summary is not None:
         os.makedirs(cfg.checkpoint_path, exist_ok=True)
@@ -173,7 +260,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             "val_acc": summary["test_acc"] if summary else float("nan"),
             "total_download_mib": log.total_download_mib,
             "total_upload_mib": log.total_upload_mib,
-            "runtime": runtime, "train_store": train_store}
+            "runtime": runtime, "train_store": train_store,
+            "lr_mult": lr_mult}
 
 
 if __name__ == "__main__":

@@ -1,21 +1,25 @@
 """Device-resident dataset store, counterpart of the JAX package's
-``data/device_store.py``: the dataset's arrays are uploaded once (uint8
-stays uint8), and each round's batch is gathered and augmented on the
-device from the round's (W, B) index array, the only upload a round makes.
+``data/device_store.py``: the dataset's arrays are uploaded once as they
+are (CIFAR's uint8 stays uint8, LEAF FEMNIST's float32 pixels in [0, 1]
+stay float32), and each round's batch is gathered and augmented on the
+device from the round's (W, B) index array, the only upload a round
+makes.
 
 ``cifar_train`` is the host ``CifarTrain`` in kind: reflect-pad 4, a
-random 32 x 32 crop, a random horizontal flip, then the per-channel
-normalisation. The pad, crop and flip are one gather: the source rows of
-each of the 9 vertical offsets and the source columns of each of the 9
-horizontal offsets, mirrored or not (a reflection of the shifted index),
-are tabled once; a round draws an offset pair and a flip an image, looks
-its rows and columns up, and reads the uint8 pixels straight from the
-store. Padding only copies pixels, so the floats
-equal those of the JAX package's order (float and /255, pad, crop, flip,
-normalise), and the ``normalize`` path equals the host ``CifarEval``
-bit for bit. The draws come from a ``torch.Generator`` on the device
-seeded from ``(seed ^ 0xDA7A, round)``: a resumed run draws what the
-uninterrupted run drew at the same round, whatever ran before it.
+random crop back to the image's size, a random horizontal flip, then the
+per-channel normalisation; ``emnist_train`` is ``FemnistTrain``'s:
+edge-pad 2 and a random crop, no flip. The pad, crop and flip are one
+gather: the source rows of each vertical offset and the source columns
+of each horizontal offset, mirrored or not (a reflection or a clamp of
+the shifted index), are tabled once; a round draws an offset pair (and a
+flip) an image, looks its rows and columns up, and reads the pixels
+straight from the store. Padding only copies pixels, so the floats equal
+those of the JAX package's order (float, and /255 for uint8, pad, crop,
+flip, normalise), and the ``normalize`` path equals the host
+``CifarEval`` or ``FemnistEval`` bit for bit. The draws come from a
+``torch.Generator`` on the device seeded from ``(seed ^ 0xDA7A,
+round)``: a resumed run draws what the uninterrupted run drew at the same
+round, whatever ran before it.
 """
 
 from __future__ import annotations
@@ -27,7 +31,13 @@ import torch
 
 from commefficient_torch.data import transforms as T
 
-CROP_PAD = 4
+# augment -> (crop pad, pad mode, horizontal flip), as the host
+# transforms crop
+SHIFT_CROP = {"cifar_train": (4, "reflect", True),
+              "emnist_train": (2, "edge", False)}
+CROP_PAD = SHIFT_CROP["cifar_train"][0]
+TRAIN_AUGMENT = {"CIFAR10": "cifar_train", "CIFAR100": "cifar_train",
+                 "EMNIST": "emnist_train"}
 DATA_KEY = 0xDA7A
 MAX_STORE_BYTES = 2 << 30
 
@@ -50,15 +60,15 @@ class DeviceStore:
     ``FedDataset.arrays``), uploaded to ``device`` as they are.
     ``iid_shuffle``: the dataset's global permutation, applied on the
     device so the round's indices stay the sampler's. ``augment``:
-    ``cifar_train`` or ``normalize``; ``mean``/``std``: the image leaf's
-    per-channel constants."""
+    ``cifar_train``, ``emnist_train`` or ``normalize``; ``mean``/``std``:
+    the image leaf's per-channel constants."""
 
     def __init__(self, arrays: Dict[str, np.ndarray], device,
                  augment: str, mean, std,
                  iid_shuffle: Optional[np.ndarray] = None, seed: int = 0):
-        if augment not in ("cifar_train", "normalize"):
-            raise ValueError(f"augment {augment!r}: want cifar_train or "
-                             "normalize")
+        if augment not in (*SHIFT_CROP, "normalize"):
+            raise ValueError(f"augment {augment!r}: want one of "
+                             f"{(*SHIFT_CROP, 'normalize')}")
         self.device = torch.device(device)
         self.arrays = {k: torch.from_numpy(np.ascontiguousarray(v))
                        .to(self.device) for k, v in arrays.items()}
@@ -76,14 +86,17 @@ class DeviceStore:
         self._255 = torch.full((), 255.0, device=self.device)
         self.seed = seed
         self._gen = torch.Generator(device=self.device)
-        if augment == "cifar_train":
+        if augment in SHIFT_CROP:
+            pad, mode, flip = SHIFT_CROP[augment]
+            source = _reflect if mode == "reflect" else _edge
             h, w = arrays["image"].shape[1:3]
-            shift = torch.arange(2 * CROP_PAD + 1)[:, None] - CROP_PAD
-            self._rows = _reflect(shift + torch.arange(h), h).to(self.device)
-            cols = _reflect(shift + torch.arange(w), w)
-            # row 9 * flip + offset: a flipped crop's column j is the
-            # crop's column w - 1 - j
-            self._cols = torch.cat([cols, cols.flip(1)]).to(self.device)
+            shift = torch.arange(2 * pad + 1)[:, None] - pad
+            self._rows = source(shift + torch.arange(h), h).to(self.device)
+            cols = source(shift + torch.arange(w), w)
+            # row (2 pad + 1) * flip + offset: a flipped crop's column j
+            # is the crop's column w - 1 - j
+            self._cols = (torch.cat([cols, cols.flip(1)]) if flip
+                          else cols).to(self.device)
 
     @property
     def nbytes(self) -> int:
@@ -98,14 +111,27 @@ class DeviceStore:
             return idx.pin_memory().to(self.device, non_blocking=True)
         return idx
 
-    def crop_flip_index(self, n: int, round_index: int):
-        """Source rows (n, h) and columns (n, w) of a reflect-pad-4 crop
-        and flip of each of ``n`` images, drawn for ``round_index``."""
-        gen, k = self._gen, 2 * CROP_PAD + 1
+    def draw_offsets(self, n: int, round_index: int):
+        """The draws of ``round_index`` for ``n`` images: the (row, column)
+        offsets into the padded image (2, n), and the flips (n,) or None
+        where the augment does not flip."""
+        pad, _, flip = SHIFT_CROP[self.augment]
+        gen = self._gen
         gen.manual_seed(round_seed(self.seed, round_index))
-        offs = torch.randint(0, k, (2, n), generator=gen, device=self.device)
-        flip = torch.randint(0, 2, (n,), generator=gen, device=self.device)
-        return self._rows[offs[0]], self._cols[offs[1] + k * flip]
+        offs = torch.randint(0, 2 * pad + 1, (2, n), generator=gen,
+                             device=self.device)
+        flips = (torch.randint(0, 2, (n,), generator=gen,
+                               device=self.device) if flip else None)
+        return offs, flips
+
+    def crop_flip_index(self, n: int, round_index: int):
+        """Source rows (n, h) and columns (n, w) of the padded crop (and
+        flip) of each of ``n`` images, drawn for ``round_index``."""
+        offs, flips = self.draw_offsets(n, round_index)
+        cols = offs[1]
+        if flips is not None:
+            cols = cols + self._rows.shape[0] * flips
+        return self._rows[offs[0]], self._cols[cols]
 
     def round_batch(self, flat_idx, round_index: Optional[int] = None
                     ) -> Dict[str, torch.Tensor]:
@@ -121,10 +147,10 @@ class DeviceStore:
     def _images(self, arr: torch.Tensor, idx: torch.Tensor,
                 round_index: Optional[int]) -> torch.Tensor:
         flat = idx.reshape(-1)
-        if self.augment == "cifar_train":
+        if self.augment in SHIFT_CROP:
             if round_index is None:
-                raise ValueError("the cifar_train store draws its crops "
-                                 "and flips by round: pass round_index")
+                raise ValueError(f"the {self.augment} store draws its "
+                                 "crops by round: pass round_index")
             rows, cols = self.crop_flip_index(flat.numel(), round_index)
             img = arr[flat[:, None, None], rows[:, :, None],
                       cols[:, None, :]]
@@ -144,21 +170,28 @@ def _reflect(i: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(i > n - 1, 2 * (n - 1) - i, i)
 
 
+def _edge(i: torch.Tensor, n: int) -> torch.Tensor:
+    """Index ``i`` clamped into [0, n - 1] (``np.pad(mode="edge")``)."""
+    return i.clamp(0, n - 1)
+
+
 def make_device_store(dataset, dataset_name: str, train: bool, device,
                       no_augment: bool = False, seed: int = 0,
                       max_bytes: int = MAX_STORE_BYTES
                       ) -> Optional[DeviceStore]:
-    """A store for a CIFAR10/100 ``FedDataset`` whose arrays fit in
-    ``max_bytes`` (2 GiB), else None (the host path). Train stores
-    augment (``cifar_train``; normalise only under ``no_augment``) and
-    route through the dataset's ``iid_shuffle``; evaluation stores
+    """A store for a CIFAR10/100 or EMNIST ``FedDataset`` whose arrays fit
+    in ``max_bytes`` (2 GiB), else None (the host path: a real FEMNIST,
+    about 805k float32 images, 2.5 GB). Train stores augment
+    (``TRAIN_AUGMENT``; normalise only under ``no_augment``) and route
+    through the dataset's ``iid_shuffle``; evaluation stores
     normalise."""
     if dataset_name not in T.NORMALIZE:
         return None
     if arrays_nbytes(dataset.arrays) > max_bytes:
         return None
     mean, std = T.NORMALIZE[dataset_name]
-    augment = "cifar_train" if train and not no_augment else "normalize"
+    augment = (TRAIN_AUGMENT[dataset_name] if train and not no_augment
+               else "normalize")
     iid = (dataset.iid_shuffle if train and dataset.do_iid else None)
     return DeviceStore(dataset.arrays, device, augment, mean, std,
                        iid_shuffle=iid, seed=seed)

@@ -1,9 +1,10 @@
-"""CIFAR batch transforms (numpy), copied from
-the JAX package's ``data/transforms.py``: reflect-pad-4 random crop,
-horizontal flip and normalization for training, normalization alone for
-evaluation. A transform maps a whole batch dict at once and returns NHWC
-float32 images. They serve the host path; ``data/device_store.py`` does
-the same on the device."""
+"""CIFAR and FEMNIST batch transforms (numpy), copied from the JAX
+package's ``data/transforms.py``: for CIFAR training a reflect-pad-4
+random crop, a horizontal flip and normalization; for FEMNIST training an
+edge-pad-2 random crop and normalization, no flip; for evaluation
+normalization alone. A transform maps a whole batch dict at once and
+returns NHWC float32 images. They serve the host path;
+``data/device_store.py`` does the same on the device."""
 
 from __future__ import annotations
 
@@ -15,8 +16,11 @@ CIFAR10_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR10_STD = np.array([0.2471, 0.2435, 0.2616], np.float32)
 CIFAR100_MEAN = np.array([0.5071, 0.4867, 0.4408], np.float32)
 CIFAR100_STD = np.array([0.2675, 0.2565, 0.2761], np.float32)
+FEMNIST_MEAN = np.array([0.9637], np.float32)
+FEMNIST_STD = np.array([0.1597], np.float32)
 NORMALIZE = {"CIFAR10": (CIFAR10_MEAN, CIFAR10_STD),
-             "CIFAR100": (CIFAR100_MEAN, CIFAR100_STD)}
+             "CIFAR100": (CIFAR100_MEAN, CIFAR100_STD),
+             "EMNIST": (FEMNIST_MEAN, FEMNIST_STD)}
 
 
 def _normalize(images: np.ndarray, mean, std) -> np.ndarray:
@@ -27,22 +31,24 @@ def _normalize(images: np.ndarray, mean, std) -> np.ndarray:
 
 
 def _random_crop_flip(images: np.ndarray, pad: int,
-                      rng: np.random.Generator) -> np.ndarray:
-    """Per-image random shift crop (reflect-pad then crop back) and
-    horizontal flip, by one gather."""
+                      rng: np.random.Generator, flip: bool = True,
+                      pad_mode: str = "reflect") -> np.ndarray:
+    """Per-image random shift crop (pad, then crop back) and, with
+    ``flip``, horizontal flip, by one gather."""
     n, h, w = images.shape[:3]
     padded = np.pad(images,
                     [(0, 0), (pad, pad), (pad, pad)] +
                     [(0, 0)] * (images.ndim - 3),
-                    mode="reflect")
+                    mode=pad_mode)
     dy = rng.integers(0, 2 * pad + 1, size=n)
     dx = rng.integers(0, 2 * pad + 1, size=n)
     rows = dy[:, None] + np.arange(h)[None, :]
     cols = dx[:, None] + np.arange(w)[None, :]
     out = padded[np.arange(n)[:, None, None], rows[:, :, None],
                  cols[:, None, :]]
-    do_flip = rng.random(n) < 0.5
-    out[do_flip] = out[do_flip, :, ::-1]
+    if flip:
+        do_flip = rng.random(n) < 0.5
+        out[do_flip] = out[do_flip, :, ::-1]
     return out
 
 
@@ -71,9 +77,33 @@ class CifarEval:
         return out
 
 
+class FemnistTrain:
+    """Edge-pad-2 random crop (no flip) and normalization."""
+
+    def __init__(self, seed: int = 0):
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, batch):
+        img = batch["image"]
+        shape = img.shape
+        flat = _random_crop_flip(img.reshape((-1,) + shape[-3:]), pad=2,
+                                 rng=self.rng, flip=False, pad_mode="edge")
+        out = dict(batch)
+        out["image"] = _normalize(flat.reshape(shape), FEMNIST_MEAN,
+                                  FEMNIST_STD)
+        return out
+
+
+class FemnistEval(CifarEval):
+    def __init__(self):
+        super().__init__(FEMNIST_MEAN, FEMNIST_STD)
+
+
 def transforms_for(dataset_name: str, train: bool, seed: int = 0):
-    """The host transform of a CIFAR split: ``CifarTrain`` (seeded) for
-    training, ``CifarEval`` otherwise, with the dataset's constants."""
+    """The host transform of a split: the dataset's train transform
+    (seeded) for training, its evaluation transform otherwise."""
+    if dataset_name == "EMNIST":
+        return FemnistTrain(seed=seed) if train else FemnistEval()
     mean, std = NORMALIZE[dataset_name]
     return (CifarTrain(mean, std, seed=seed) if train
             else CifarEval(mean, std))

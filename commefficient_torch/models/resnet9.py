@@ -1,10 +1,13 @@
-"""ResNet-9 (cifar10_fast lineage), counterpart of
-the JAX package's ``models/resnet9.py ResNet9``.
+"""ResNet-9 (cifar10_fast lineage) and its Fixup variant, counterparts of
+the JAX package's ``models/resnet9.py`` ``ResNet9`` and ``FixupResNet9``.
 
-Prep 3x3 conv, three conv stages with 2x max-pool, residual pairs after
-stages 1 and 3, global max-pool and a bias-free linear head scaled by
-0.125; batch-statistics norm after each conv under
-``do_batchnorm``.
+``ResNet9``: prep 3x3 conv, three conv stages with 2x max-pool, residual
+pairs after stages 1 and 3, global max-pool and a bias-free linear head
+scaled by 0.125; batch-statistics norm after each conv under
+``do_batchnorm``. ``FixupResNet9``: the norm-free version, each conv
+wrapped in scalar biases and a scalar scale, Fixup basic blocks (a He
+L^-1/2 first conv, a zero second conv) after stages 1 and 3, and a
+biased head.
 
 Every parameter is a view into ONE flat float32 vector laid out in the JAX
 ravel order: ``ravel_pytree`` over the Flax parameter dict, keys sorted at
@@ -16,115 +19,106 @@ NHWC as in the JAX package; the forward permutes to NCHW inside.
 
 from __future__ import annotations
 
-import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
-import torch.nn as nn
 
-from commefficient_torch.models.layers import (batch_stat_norm, conv3x3,
-                                               lecun_normal_, max_pool,
-                                               ravel_layout)
+from commefficient_torch.models.layers import (FlatModel, Params,
+                                               batch_stat_norm, conv1x1,
+                                               conv3x3, dense,
+                                               fixup_conv_init, max_pool,
+                                               scalar, zeros)
 
 DEFAULT_CHANNELS = {"prep": 64, "layer1": 128, "layer2": 256, "layer3": 512}
 HEAD_WEIGHT = 0.125    # the reference's ``Mul`` classifier scale
 POOL = 2               # max-pool window after the downsampling stages
+CIFAR_SHAPE = (32, 32, 3)
 
 
-def _convbn_tree(cin: int, cout: int, bn: bool) -> Dict:
-    tree = {"Conv_0": {"kernel": (3, 3, cin, cout)}}
-    if bn:
-        tree["BatchStatNorm_0"] = {"bias": (cout,), "scale": (cout,)}
-    return tree
-
-
-def param_tree(do_batchnorm: bool = False, num_classes: int = 10,
-               channels: Optional[Dict[str, int]] = None) -> Dict:
-    """Nested dict of parameter shapes (RGB input), named as Flax names
-    them."""
-    ch = channels or DEFAULT_CHANNELS
-    bn = do_batchnorm
-    return {"params": {
-        "ConvBN_0": _convbn_tree(3, ch["prep"], bn),
-        "ConvBN_1": _convbn_tree(ch["prep"], ch["layer1"], bn),
-        "Residual_0": {"ConvBN_0": _convbn_tree(ch["layer1"], ch["layer1"],
-                                                bn),
-                       "ConvBN_1": _convbn_tree(ch["layer1"], ch["layer1"],
-                                                bn)},
-        "ConvBN_2": _convbn_tree(ch["layer1"], ch["layer2"], bn),
-        "ConvBN_3": _convbn_tree(ch["layer2"], ch["layer3"], bn),
-        "Residual_1": {"ConvBN_0": _convbn_tree(ch["layer3"], ch["layer3"],
-                                                bn),
-                       "ConvBN_1": _convbn_tree(ch["layer3"], ch["layer3"],
-                                                bn)},
-        "head": {"kernel": (ch["layer3"], num_classes)},
-    }}
-
-
-class ResNet9(nn.Module):
+class ResNet9(FlatModel):
     def __init__(self, do_batchnorm: bool = False, num_classes: int = 10,
                  channels: Optional[Dict[str, int]] = None,
-                 generator: Optional[torch.Generator] = None):
+                 input_shape: Sequence[int] = CIFAR_SHAPE,
+                 generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.do_batchnorm = do_batchnorm
-        self.layout = ravel_layout(param_tree(do_batchnorm, num_classes,
-                                              channels))
-        self.num_params = sum(math.prod(s) for _, s in self.layout)
-        self.flat = nn.Parameter(torch.empty(self.num_params))
-        self.reset_parameters(generator)
+        self.num_classes = num_classes
+        self.channels = channels or DEFAULT_CHANNELS
+        self.build(input_shape, generator, device)
 
-    def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Flax's initializers: lecun_normal kernels, BatchStatNorm scale 1
-        and bias 0. The draws are torch's, not JAX's; carry JAX weights
-        over with ``models.convert.params_from_jax``."""
-        with torch.no_grad():
-            for path, view in self.views(self.flat).items():
-                if path.endswith("/kernel"):
-                    lecun_normal_(view, math.prod(view.shape[:-1]),
-                                  generator)
-                elif path.endswith("/scale"):
-                    view.fill_(1.0)
-                else:
-                    view.zero_()
+    def net(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        ch = self.channels
 
-    def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Parameter views into ``flat``, keyed by Flax path without the
-        leading ``params/``. One ``split`` rather than a slice per
-        parameter: its backward writes the flat gradient with one
-        concatenation, where each slice's backward would fill and add a
-        whole d-sized zero vector."""
-        pieces = torch.split(flat, [math.prod(s) for _, s in self.layout])
-        return {path[len("params/"):]: piece.view(shape)
-                for (path, shape), piece in zip(self.layout, pieces)}
-
-    def forward(self, x_nhwc: torch.Tensor,
-                flat: Optional[torch.Tensor] = None,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """Logits of the NHWC batch ``x_nhwc``, with the weights ``flat``
-        (default: the module's own), computed in ``dtype``."""
-        p = {k: v.to(dtype) for k, v in
-             self.views(self.flat if flat is None else flat).items()}
-        x = x_nhwc.to(dtype).permute(0, 3, 1, 2)
-
-        def convbn(x, name, pool=0):
-            x = conv3x3(x, p[f"{name}/Conv_0/kernel"])
+        def convbn(p, x, features, pool=0):
+            x = conv3x3(p, "Conv_0", x, features)
             if self.do_batchnorm:
-                x = batch_stat_norm(x, p[f"{name}/BatchStatNorm_0/scale"],
-                                    p[f"{name}/BatchStatNorm_0/bias"])
+                x = batch_stat_norm(p, "BatchStatNorm_0", x)
             x = torch.relu(x)
             return max_pool(x, pool) if pool else x
 
-        def residual(x, name):
-            y = convbn(x, f"{name}/ConvBN_0")
-            y = convbn(y, f"{name}/ConvBN_1")
+        def residual(p, x, features):
+            y = convbn(p.child("ConvBN_0"), x, features)
+            y = convbn(p.child("ConvBN_1"), y, features)
             return x + torch.relu(y)
 
-        x = convbn(x, "ConvBN_0")
-        x = convbn(x, "ConvBN_1", POOL)
-        x = residual(x, "Residual_0")
-        x = convbn(x, "ConvBN_2", POOL)
-        x = convbn(x, "ConvBN_3", POOL)
-        x = residual(x, "Residual_1")
+        x = convbn(p.child("ConvBN_0"), x, ch["prep"])
+        x = convbn(p.child("ConvBN_1"), x, ch["layer1"], POOL)
+        x = residual(p.child("Residual_0"), x, ch["layer1"])
+        x = convbn(p.child("ConvBN_2"), x, ch["layer2"], POOL)
+        x = convbn(p.child("ConvBN_3"), x, ch["layer3"], POOL)
+        x = residual(p.child("Residual_1"), x, ch["layer3"])
         # global max pool (MaxPool2d(4) on the 4x4 CIFAR map)
         x = x.amax(dim=(2, 3))
-        return (x @ p["head/kernel"]) * HEAD_WEIGHT
+        return dense(p, "head", x, self.num_classes,
+                     use_bias=False) * HEAD_WEIGHT
+
+
+def fixup_basic_block(p: Params, x: torch.Tensor, features: int,
+                      num_layers: int, stride: int = 1) -> torch.Tensor:
+    """``FixupBasicBlock``: scalar biases around each conv, a scalar scale
+    before the residual add, conv1 He L^-1/2 and conv2 zero at init (so
+    the block starts as the identity, or as its shortcut), and a 1x1
+    shortcut on a change of shape."""
+    y = conv3x3(p, "conv1", x + scalar(p, "bias1a"), features, stride,
+                init=fixup_conv_init(num_layers))
+    y = torch.relu(y + scalar(p, "bias1b"))
+    y = conv3x3(p, "conv2", y + scalar(p, "bias2a"), features, init=zeros)
+    y = y * scalar(p, "scale", 1.0) + scalar(p, "bias2b")
+    if stride != 1 or x.shape[1] != features:
+        x = conv1x1(p, "shortcut", x, features, stride)
+    return torch.relu(y + x)
+
+
+def fixup_layer(p: Params, x: torch.Tensor, features: int, num_blocks: int,
+                pool: int = POOL, num_layers: int = 2) -> torch.Tensor:
+    """``FixupLayer``: conv(x + bias1a) * scale + bias1b, relu, pool, then
+    ``num_blocks`` Fixup basic blocks."""
+    x = conv3x3(p, "Conv_0", x + scalar(p, "bias1a"), features)
+    x = torch.relu(x * scalar(p, "scale", 1.0) + scalar(p, "bias1b"))
+    if pool:
+        x = max_pool(x, pool)
+    for i in range(num_blocks):
+        x = fixup_basic_block(p.child(f"block{i}"), x, features, num_layers)
+    return x
+
+
+class FixupResNet9(FlatModel):
+    def __init__(self, num_classes: int = 10,
+                 channels: Optional[Dict[str, int]] = None, pool: int = POOL,
+                 input_shape: Sequence[int] = CIFAR_SHAPE,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.channels = channels or DEFAULT_CHANNELS
+        self.pool = pool
+        self.build(input_shape, generator, device)
+
+    def net(self, p: Params, x: torch.Tensor) -> torch.Tensor:
+        ch = self.channels
+        x = conv3x3(p, "Conv_0", x + scalar(p, "bias1a"), ch["prep"])
+        x = torch.relu(x * scalar(p, "scale", 1.0) + scalar(p, "bias1b"))
+        x = fixup_layer(p.child("layer1"), x, ch["layer1"], 1, self.pool)
+        x = fixup_layer(p.child("layer2"), x, ch["layer2"], 0, self.pool)
+        x = fixup_layer(p.child("layer3"), x, ch["layer3"], 1, self.pool)
+        x = x.amax(dim=(2, 3))   # global max pool (see ResNet9)
+        return dense(p, "head", x + scalar(p, "bias2"), self.num_classes)

@@ -109,15 +109,23 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if not torch.cuda.is_available() or torch.device(ns.device).type != "cuda":
         raise SystemExit("profile_round measures the card: no CUDA device")
     runtime, state, train_ds, val_ds = entry.setup(ns)[:4]
-    store = (cv_train.make_stores(runtime, train_ds, val_ds)[0]
-             if entry is cv_train else None)
+    store = lr_mult = None
+    if entry is cv_train:
+        store = cv_train.make_stores(runtime, train_ds, val_ds)[0]
+        lr_mult = cv_train.lr_multiplier(runtime)
 
     def batch_of(rnd, i):
         return (store.round_batch(rnd.idx, i + 1) if store is not None
                 else runtime.to_device(train_ds.gather(rnd.idx)))
 
-    schedule = (gpt2_train.make_gpt2_schedule(runtime.cfg)
-                if entry is gpt2_train else lr_schedule_for(runtime.cfg))
+    base = (gpt2_train.make_gpt2_schedule(runtime.cfg)
+            if entry is gpt2_train else lr_schedule_for(runtime.cfg))
+
+    def schedule(t):
+        """The round's rate, times Fixup's (d,) multiplier as the driver
+        applies it."""
+        return base(t) if lr_mult is None else base(t) * lr_mult
+
     cfg = runtime.cfg
     spe = max(driver.epoch_sampler(cfg, train_ds, 0).epoch_rounds(), 1)
     it = enumerate(itertools.chain.from_iterable(
