@@ -21,8 +21,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain PyTorch versions on the card at the ResNet-9 shapes
    (d = 6,568,640, c = 500,736, r = 5; seeded inputs; shifts from
    ``make_circulant_sketch``), at the unaligned c = 500,000, and at the
-   GPT-2 shape (d = 92,138,496, c = 524,288, r = 5, m = 176) and the
-   FEMNIST ResNet101LN shape (d = 43,124,350, c = 500,736, m = 87), bitwise
+   GPT-2 shape (d = 92,138,496, c = 524,288, r = 5, m = 176), the
+   FEMNIST ResNet101LN shape (d = 43,124,350, c = 500,736, m = 87) and
+   the ImageNet FixupResNet50 shape (d = 25,504,026, m = 51), bitwise
    (int32 views, ``same_bits``), fresh and accumulating, K2 also on a
    table with zeroed cells, -0 and NaN (``zeroed_table``); time kernel
    and plain version with CUDA events (median of 25 after warm-up)
@@ -135,8 +136,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    FixupResNet50 --mode true_topk``, 100 synthetic clients, 8 a round, 3
    rounds, with Fixup's (d,) rate vector (its share of 0.1 entries
    printed), the first round's update held bit for bit to the rate
-   vector times the server rule's update at rate 1;
-11. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+   vector times the server rule's update at rate 1; then the round input
+   pipeline on these two store paths and the main path's
+   (``phase_pipeline_ab``: the driver's loop in four runs, inline,
+   threaded, threaded, inline; the round and the wall a round of each);
+11. the ImageNet recipe (``phase_imagenet``): ``cv_train --dataset_name
+   ImageNet --model FixupResNet50`` with ``scripts/imagenet.sh``'s flags
+   (``--mesh_shape ""``, 7 iid clients of 64) on a synthetic ImageNet at
+   224 x 224 (8 classes x 64, the device store), 3 rounds uncompressed
+   and 3 of the sketch form (d = 25,504,026, m = 51: exactly 8 K1 and 1
+   K2 a round, K1/K2 also bitwise at this shape in phase 2), each with
+   its median round, img/s, the analytic model FLOPs' share of 989
+   TFLOP/s, peak memory and the Fixup multiplier's share, then one
+   ``profile_round`` call of the sketch round for the device's idle
+   share; the host path (``phase_imagenet_host``: 8 classes x 2,000, 2.41
+   GB, over the store's 2 GiB) inline and pipelined, the batches bitwise
+   equal round by round and the losses within HOST_LOSS_RTOL, the fetch,
+   the wait and the round of both; the native CIFAR host gather against
+   its numpy twin and across thread counts (``phase_native``); the
+   finetune two-step (``phase_finetune``: FixupResNet50 on CIFAR100 with
+   ``--checkpoint``, then its head alone on CIFAR10, the backbone bitwise
+   the saved one); the reference API (``phase_compat``: ``FedModel``'s
+   ResNet-9 sketch round on the card with the driver's 9 K1 and 1 K2 a
+   step);
+12. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and last the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -674,6 +697,72 @@ def zeroed_table(r: int, c: int, seed: int):
     table[rng.rand(r, c) < 0.05] = -0.0
     table[rng.rand(r, c) < 0.002] = np.nan
     return table
+
+
+# the numpy twins of the native host gather against its library: the
+# unfused x / 255 is rounded once more, by at most half an ulp of 1.0
+# (2^-24), which 1 / std (at most 4.3 for the CIFAR and ImageNet
+# constants) scales, plus an ulp of the result
+NATIVE_PLAIN_ATOL = 2.0 ** -21
+
+
+def _splitmix64(x):
+    import numpy as np
+    x = x + np.uint64(0x9E3779B97F4A7C15)
+    x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def _native_normalize_plain(px, mean, std):
+    import numpy as np
+    stdinv = np.float32(1.0) / np.asarray(std, np.float32)
+    return ((px.astype(np.float32) * (np.float32(1.0) / np.float32(255.0))
+             - np.asarray(mean, np.float32)) * stdinv)
+
+
+def native_gather_augment_plain(images, idx, mean, std, pad: int,
+                                flip: bool, seed: int):
+    """``data/native.gather_augment`` in numpy: the library's splitmix64
+    draws, its index arithmetic (the flip mirrors the column before the
+    reflect-padded shift) and its float32 operations, unfused: within
+    NATIVE_PLAIN_ATOL of the library."""
+    import numpy as np
+    flat = np.asarray(idx, np.int64).reshape(-1)
+    n = flat.size
+    h, w = images.shape[1:3]
+    items = np.arange(n, dtype=np.uint64)
+    r = _splitmix64(np.uint64(seed)
+                    ^ (items * np.uint64(0x2545F4914F6CDD1D)))
+    dy = dx = np.zeros(n, np.int64)
+    if pad > 0:
+        span = np.uint64(2 * pad + 1)
+        dy = (r % span).astype(np.int64) - pad
+        r = _splitmix64(r)
+        dx = (r % span).astype(np.int64) - pad
+        r = _splitmix64(r)
+    do_flip = ((r & np.uint64(1)).astype(bool) if flip
+               else np.zeros(n, bool))
+
+    def reflect(i, m):
+        i = np.abs(i)
+        return np.where(i >= m, 2 * m - 2 - i, i)
+
+    xs = np.arange(w)
+    cols = np.where(do_flip[:, None], w - 1 - xs, xs)
+    rows = reflect(np.arange(h)[None, :] + dy[:, None], h)
+    cols = reflect(cols + dx[:, None], w)
+    px = images[flat[:, None, None], rows[:, :, None], cols[:, None, :]]
+    return _native_normalize_plain(px, mean, std).reshape(
+        np.shape(idx) + images.shape[1:])
+
+
+def native_gather_normalize_plain(images, idx, mean, std):
+    """``data/native.gather_normalize`` in numpy, unfused."""
+    import numpy as np
+    flat = np.asarray(idx, np.int64).reshape(-1)
+    return _native_normalize_plain(images[flat], mean, std).reshape(
+        np.shape(idx) + images.shape[1:])
 
 
 def l2_read_rate(nbytes: int = 4 * 5 * 524_288, passes: int = 64):
@@ -1382,7 +1471,7 @@ def phase_nan_abort():
 
     ns = parse_known(cv_train.build_parser(),
                      MAIN_ARGV + dataset_flags("synthetic64"))
-    runtime, state, train_ds, val_ds = cv_train.setup(ns)
+    runtime, state, train_ds, val_ds = cv_train.setup(ns)[:4]
     train_store, val_store = cv_train.make_stores(runtime, train_ds, val_ds)
     if train_store is None:
         fail("the main path's rounds are not fed by the device store")
@@ -1999,13 +2088,13 @@ def phase_real_data_resume():
     mgr = ckpt.CheckpointManager(os.path.join(ck_dir, "ResNet9"))
     first = ckpt.load_meta(mgr.path(1))["global_round"]
     rt = statistics.median(whole["round_s"][1:])
-    data_ms = 1e3 * statistics.median(whole["data_s"][1:])
+    data_ms = 1e3 * statistics.median(whole["fetch_s"][1:])
 
     # the host path's data path for the same rounds, as the driver takes
     # it where no store is built: the gather with its crop, flip and
     # normalisation, and the batch's upload, synced
     ns = parse_known(cv_train.build_parser(), argv)
-    _, _, train_ds, _ = cv_train.setup(ns)
+    train_ds = cv_train.setup(ns)[2]
     train_ds.transform = transforms_for("CIFAR10", True)
     runtime = whole["runtime"]
     device = runtime.device
@@ -2474,6 +2563,520 @@ def phase_fixup():
     return launches, med * 1e3, tenth / FIXUP_D
 
 
+# the round input pipeline on the store paths: each path's rounds inline
+# and on the worker thread, in the order inline, threaded, threaded, inline
+PIPELINE_AB_ROUNDS = {"ResNet-9": 12, "FEMNIST ResNet101LN": 6,
+                      "FixupResNet50 CIFAR100": 6}
+
+
+def phase_pipeline_ab():
+    """What the round input pipeline costs or saves where the device store
+    feeds the rounds (the fetch is a few kernels of gather and
+    augmentation): the main path's ResNet-9, the FEMNIST ResNet101LN
+    round and the FixupResNet50 true_topk round, PIPELINE_AB_ROUNDS
+    rounds a run, four runs a path (inline, threaded, threaded, inline).
+    Each run is the driver's loop (``RoundPipeline`` over ``make_fetch``
+    at depth 2, the round, a sync), timed on the host clock: the round
+    alone, as the driver's ``round_s``, and the loop's wall a round, the
+    first round left out of both. Returns {path: {way: [(median round
+    ms, wall ms a round) of each run]}}."""
+    import itertools
+    import torch
+    from commefficient_torch import cv_train
+    from commefficient_torch.config import parse_known
+    from commefficient_torch.core.driver import epoch_sampler, make_fetch
+    from commefficient_torch.core.pipeline import RoundPipeline
+
+    paths = {
+        "ResNet-9": MAIN_ARGV + dataset_flags("synthetic64"),
+        "FEMNIST ResNet101LN": FEMNIST_ARGV + [
+            "--dataset_dir", os.path.join(DATA_ROOT["path"], "femnist")],
+        "FixupResNet50 CIFAR100": FIXUP_ARGV + dataset_flags("cifar100_64"),
+    }
+    out = {}
+    for path, argv in paths.items():
+        n = PIPELINE_AB_ROUNDS[path]
+        rt, state, train_ds, val_ds = cv_train.setup(
+            parse_known(cv_train.build_parser(), argv))[:4]
+        store, _ = cv_train.make_stores(rt, train_ds, val_ds)
+        if store is None:
+            fail(f"[pipeline] {path}: no device store")
+        fetch = make_fetch(rt, train_ds, store)
+        mult = cv_train.lr_multiplier(rt)
+        lr = 0.01 if mult is None else 0.01 * mult
+        runs = {"inline": [], "threaded": []}
+        for way in ("inline", "threaded", "threaded", "inline"):
+            rounds = itertools.chain.from_iterable(
+                epoch_sampler(rt.cfg, train_ds, e)
+                for e in itertools.count())
+            round_s, ends = [], []
+            torch.cuda.synchronize()
+            with RoundPipeline(rounds, fetch, start_round=0, max_rounds=n,
+                               depth=2, enabled=way == "threaded",
+                               device=rt.device) as pipe:
+                for item in pipe:
+                    t0 = time.perf_counter()
+                    state, _ = rt.round(state, item.rnd.client_ids,
+                                        item.batch, item.rnd.mask, lr)
+                    torch.cuda.synchronize()
+                    ends.append(time.perf_counter())
+                    round_s.append(ends[-1] - t0)
+            runs[way].append((1e3 * statistics.median(round_s[1:]),
+                              1e3 * (ends[-1] - ends[0]) / (n - 1)))
+        out[path] = runs
+        print(f"[pipeline] {path} on the store path, {n} rounds a run "
+              "(median round ms, wall ms a round): "
+              + "; ".join(f"{way} " + ", ".join(f"{a:.3f}/{b:.3f}"
+                                                for a, b in r)
+                          for way, r in runs.items()), flush=True)
+        del rt, state, store, fetch, train_ds, val_ds, mult, lr
+        torch.cuda.empty_cache()
+    return out
+
+
+# the ImageNet recipe (scripts/imagenet.sh) on one device: FixupResNet50 at
+# 224 x 224 x 3 and 1,000 classes (d = 25,504,026), 7 iid clients of 64
+# images a round (448 images), weight decay 1e-4, on a synthetic ImageNet
+# of 8 classes x 64 (77 MB of uint8: the device store); its sketch form at
+# c = 500,000 -> 500,736, so m = ceil(d / c) = 51: 7 fused client encodes
+# and the weight-decay encode = 8 K1, and 1 K2, a round
+IMAGENET_SKETCH = dict(d=25_504_026, c=500_736, r=5)
+IMAGENET_M = 51
+IMAGENET_ROUNDS = 3
+IMAGENET_IMAGES = 7 * 64
+IMAGENET_ARGV = ["--dataset_name", "ImageNet", "--model", "FixupResNet50",
+                 "--mode", "uncompressed", "--error_type", "virtual",
+                 "--virtual_momentum", "0.9", "--local_momentum", "0",
+                 "--weight_decay", "1e-4", "--lr_scale", "0.4",
+                 "--pivot_epoch", "2", "--num_workers", "7",
+                 "--num_clients", "7", "--iid", "--local_batch_size", "64",
+                 "--valid_batch_size", "64", "--mesh_shape", "",
+                 "--checkpoint", "--num_rounds", str(IMAGENET_ROUNDS)]
+IMAGENET_MODES = {
+    "uncompressed": ([], {"circ_encode": 0, "circ_decode": 0}),
+    "sketch": (["--mode", "sketch", "--k", "50000", "--num_rows", "5"],
+               {"circ_encode": 8, "circ_decode": 1}),
+}
+IMAGENET_STORE_PER_CLASS = 64
+# the host path: 8 classes x 2,000 images (2.41 GB of uint8, over the
+# store's 2 GiB), inline and pipelined
+IMAGENET_HOST_PER_CLASS = 2000
+# the same rounds twice on the card, from the same batches: the losses
+# agree within the card's run-to-run spread (cuDNN's weight-gradient
+# kernels may sum in another order from run to run, so the second round
+# on may start from weights a few ulps apart)
+HOST_LOSS_RTOL = 1e-3
+# the finetune two-step: FixupResNet50 on CIFAR100 with --checkpoint, then
+# its head (fc: 2,048 x 10 + 10 = 20,490 weights) on CIFAR10. Uncompressed:
+# the head is smaller than the sketch's k = 50,000 and than one row of its
+# table, so a sketch or a top-k would pass it whole
+FINETUNE_ROUNDS = 2
+FINETUNE_D = 2048 * 10 + 10
+FINETUNE_COMMON = ["--model", "FixupResNet50", "--mode", "uncompressed",
+                   "--error_type", "virtual", "--virtual_momentum", "0.9",
+                   "--local_momentum", "0", "--num_workers", "8",
+                   "--local_batch_size", "64", "--valid_batch_size", "400",
+                   "--num_rounds", str(FINETUNE_ROUNDS)]
+COMPAT_STEPS = 2
+
+
+def imagenet_round_flops() -> float:
+    """Model FLOPs of one ImageNet round: the forward and backward of
+    FixupResNet50 at 224 x 224 (convolutions and matrix products, counted
+    by ``FlopCounterMode`` from the shapes on the ``meta`` device) times
+    IMAGENET_IMAGES."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from commefficient_torch.models.fixup_resnet import FixupResNet50
+
+    m = FixupResNet50(num_classes=1000, input_shape=(224, 224, 3),
+                      device="meta")
+    flat = torch.zeros(m.num_params, device="meta", requires_grad=True)
+    with FlopCounterMode(display=False) as counter:
+        m(torch.zeros(1, 224, 224, 3, device="meta"), flat,
+          dtype=torch.bfloat16).float().sum().backward()
+    return counter.get_total_flops() * IMAGENET_IMAGES
+
+
+def imagenet_argv(root: str, per_class: int, extra=()):
+    return IMAGENET_ARGV + [
+        "--dataset_dir", root, "--synthetic_per_class", str(per_class),
+        "--checkpoint_path", os.path.join(DATA_ROOT["path"], "imagenet_ck"),
+        *extra]
+
+
+def phase_imagenet():
+    """The ImageNet recipe through the user's entry point on a synthetic
+    ImageNet at 224 x 224 served by the device store: IMAGENET_ROUNDS
+    rounds of the recipe (uncompressed) and of its sketch form, every
+    launch count set to 0 just before each run: exactly IMAGENET_MODES'
+    launches a round, finite losses, d = 25,504,026 (m = 51 in the
+    sketch), the final weights written by ``--checkpoint``; then one
+    ``profile_round`` call of the sketch round for the device's idle
+    share. Returns ({mode: launches}, {mode: median ms}, idle share)."""
+    import numpy as np
+    import torch
+    from commefficient_torch import cv_train, profile_round
+    from commefficient_torch.data.fed_imagenet import FedImageNet
+    from commefficient_torch.ops import circulant_kernels as K
+
+    # no ImageNet tree here: the synthetic set is prepared first, and the
+    # recipe reads it as a prepared directory
+    root = os.path.join(DATA_ROOT["path"], "imagenet_store")
+    FedImageNet(root, synthetic=True,
+                synthetic_per_class=IMAGENET_STORE_PER_CLASS)
+    flops = imagenet_round_flops()
+    launches, medians = {}, {}
+    for mode, (flags, per_round) in IMAGENET_MODES.items():
+        argv = imagenet_argv(root, IMAGENET_STORE_PER_CLASS, flags)
+        print(f"[imagenet] python -m commefficient_torch.cv_train "
+              + " ".join(repr(a) if a == "" else a for a in argv),
+              flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        out = cv_train.main(argv)
+        launches[mode] = dict(K.launches)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        rt, mult = out["runtime"], out["lr_mult"]
+        want = {n: c * IMAGENET_ROUNDS for n, c in per_round.items()}
+        if out["rounds"] != IMAGENET_ROUNDS or out["summary"] is None \
+                or not np.isfinite(out["losses"]).all() \
+                or not math.isfinite(out["val_loss"]):
+            fail(f"ImageNet {mode}: {out['rounds']} rounds, losses "
+                 f"{out['losses']}, val {out['val_loss']}")
+        if rt.cfg.grad_size != IMAGENET_SKETCH["d"] or \
+                out["train_store"] is None or mult is None:
+            fail(f"ImageNet {mode}: d={rt.cfg.grad_size}, store "
+                 f"{out['train_store']}, multiplier {mult}")
+        if mode == "sketch" and (rt.cfg.num_cols, rt.cs.m) != (
+                IMAGENET_SKETCH["c"], IMAGENET_M):
+            fail(f"ImageNet sketch c={rt.cfg.num_cols} m={rt.cs.m}, want "
+                 f"{IMAGENET_SKETCH['c']} and {IMAGENET_M}")
+        if launches[mode] != want:
+            fail(f"ImageNet {mode} launches {launches[mode]}, want {want}")
+        saved = os.path.join(DATA_ROOT["path"], "imagenet_ck",
+                             "FixupResNet50.npz")
+        with np.load(saved) as f:
+            if f["ps_weights"].shape != (IMAGENET_SKETCH["d"],):
+                fail(f"--checkpoint wrote {f['ps_weights'].shape}")
+        med = statistics.median(out["round_s"][1:])
+        medians[mode] = med * 1e3
+        tenth = float((mult != 1.0).float().mean())
+        print(f"[imagenet] {mode}: FixupResNet50 at 224 x 224, d="
+              f"{rt.cfg.grad_size}"
+              + (f", c={rt.cfg.num_cols}, m={rt.cs.m}" if mode == "sketch"
+                 else "")
+              + f"; {IMAGENET_ROUNDS} rounds, median of rounds 2-"
+              f"{IMAGENET_ROUNDS} {med * 1e3:.3f} ms (all: "
+              f"{[round(t * 1e3, 3) for t in out['round_s']]}), "
+              f"{IMAGENET_IMAGES / med:.1f} img/s; model FLOPs "
+              f"{flops / 1e12:.3f} TFLOP a round, {flops / med / 1e12:.1f} "
+              f"TFLOP/s, {flops / med / H100_BF16_PER_S:.4f} of 989 "
+              f"TFLOP/s; losses {[round(float(x), 5) for x in out['losses']]}"
+              f", val loss {out['val_loss']:.5f}; the Fixup multiplier's "
+              f"0.1 on {tenth:.6f} of d; peak memory {peak / 2**30:.3f} GiB"
+              f"; store {out['train_store'].nbytes / 2**20:.1f} MiB; "
+              f"launches {launches[mode]} (want {want})", flush=True)
+        del out, rt, mult
+        torch.cuda.empty_cache()
+    argv = imagenet_argv(root, IMAGENET_STORE_PER_CLASS,
+                         IMAGENET_MODES["sketch"][0]
+                         + ["--warmup", "1", "--profile_rounds", "2"])
+    print("[imagenet] python -m commefficient_torch.profile_round "
+          + " ".join(repr(a) if a == "" else a for a in argv), flush=True)
+    prof = profile_round.main(argv)
+    idle = prof["device_idle_share_of_wall"]
+    print(f"[imagenet] sketch round profiled: device busy "
+          f"{prof['device_busy_ms_per_round']:.3f} ms of a "
+          f"{prof['wall_ms_per_round']:.3f} ms profiled wall a round, idle "
+          f"share {idle:.3f}, {prof['device_ops_per_round']:.0f} device "
+          "operations a round; by group (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      prof["kernel_ms_per_round_by_group"].items()),
+          flush=True)
+    torch.cuda.empty_cache()
+    return launches, medians, idle
+
+
+def phase_imagenet_host():
+    """The recipe on a synthetic ImageNet over the store's cut-off (the
+    host path: the host gather with ``ImagenetTrain``'s flip and the
+    upload from pinned memory), IMAGENET_ROUNDS rounds inline
+    (``--no_pipeline``) and pipelined (``--prefetch_depth 2``): the
+    batches trained on bitwise equal round by round (kept on the card,
+    a sha256 digest a round printed), the losses within HOST_LOSS_RTOL;
+    prints the fetch, the wait and the round for both. Returns {way:
+    (median fetch ms, median wait ms, median round ms)}."""
+    import hashlib
+    import numpy as np
+    import torch
+    from commefficient_torch import cv_train
+    from commefficient_torch.core import driver
+    from commefficient_torch.data.fed_imagenet import FedImageNet
+    from commefficient_torch.ops import circulant_kernels as K
+
+    root = os.path.join(DATA_ROOT["path"], "imagenet_host")
+    t0 = time.perf_counter()
+    ds = FedImageNet(root, synthetic=True,
+                     synthetic_per_class=IMAGENET_HOST_PER_CLASS)
+    prep_s = time.perf_counter() - t0
+    nbytes, n_images = ds.arrays["image"].nbytes, len(ds)
+    del ds
+    print(f"[imagenet-host] synthetic ImageNet of 8 classes x "
+          f"{IMAGENET_HOST_PER_CLASS} at 224 x 224 ({nbytes / 1e9:.3f} GB "
+          f"of uint8 train images, {n_images} images) generated and "
+          f"prepared in {prep_s:.2f} s", flush=True)
+    make_fetch = driver.make_fetch
+    runs = {}
+    for way, flags in (("inline", ["--no_pipeline"]),
+                       ("pipelined", ["--prefetch_depth", "2"])):
+        kept = []
+
+        def keeping(*args, **kw):
+            fetch = make_fetch(*args, **kw)
+
+            def wrapped(rnd, g):
+                batch = fetch(rnd, g)
+                kept.append({k: v.clone() for k, v in batch.items()})
+                return batch
+            return wrapped
+
+        argv = imagenet_argv(root, IMAGENET_HOST_PER_CLASS, flags)
+        print("[imagenet-host] python -m commefficient_torch.cv_train "
+              + " ".join(repr(a) if a == "" else a for a in argv),
+              flush=True)
+        K.reset_launches()
+        driver.make_fetch = keeping
+        try:
+            out = cv_train.main(argv)
+        finally:
+            driver.make_fetch = make_fetch
+        if out["train_store"] is not None:
+            fail("the 2.41 GB ImageNet went to the device store")
+        if out["rounds"] != IMAGENET_ROUNDS or len(kept) != IMAGENET_ROUNDS \
+                or not np.isfinite(out["losses"]).all() \
+                or any(K.launches.values()):
+            fail(f"ImageNet host path {way}: {out['rounds']} rounds, "
+                 f"{len(kept)} batches, losses {out['losses']}, launches "
+                 f"{dict(K.launches)}")
+        runs[way] = (out["losses"], out["fetch_s"], out["data_s"],
+                     out["round_s"], kept)
+        del out
+    (l_a, _, _, _, b_a), (l_b, _, _, _, b_b) = runs.values()
+    digests = []
+    for i, (a, b) in enumerate(zip(b_a, b_b)):
+        if a.keys() != b.keys() or not all(
+                torch.equal(a[k].view(torch.uint8), b[k].view(torch.uint8))
+                for k in a):
+            fail(f"round {i + 1}: the pipelined batch differs from the "
+                 "inline one")
+        h = hashlib.sha256()
+        for k in sorted(a):
+            h.update(a[k].cpu().numpy().tobytes())
+        digests.append(h.hexdigest()[:16])
+    dloss = max(abs(x - y) / abs(y) for x, y in zip(l_b, l_a))
+    print(f"[imagenet-host] the batches of rounds 1-{IMAGENET_ROUNDS} are "
+          f"bitwise equal inline and pipelined (sha256 {digests}); losses "
+          f"inline {[round(float(x), 6) for x in l_a]}, pipelined "
+          f"{[round(float(x), 6) for x in l_b]}: largest relative "
+          f"difference {dloss:.3e} (limit {HOST_LOSS_RTOL})", flush=True)
+    if dloss > HOST_LOSS_RTOL:
+        fail(f"the pipelined losses differ from the inline ones by {dloss}")
+    out = {}
+    for way, (_, fetch_s, wait_s, round_s, _) in runs.items():
+        med = [1e3 * statistics.median(x[1:]) for x in (fetch_s, wait_s,
+                                                       round_s)]
+        out[way] = tuple(med)
+        print(f"[imagenet-host] {way}: medians of rounds 2-"
+              f"{IMAGENET_ROUNDS}: fetch {med[0]:.3f} ms (the host gather, "
+              f"flip, normalisation and upload, synced), the round's wait "
+              f"for its batch {med[1]:.3f} ms, round {med[2]:.3f} ms; all "
+              f"fetches {[round(t * 1e3, 3) for t in fetch_s]}, waits "
+              f"{[round(t * 1e3, 3) for t in wait_s]}", flush=True)
+    del runs, b_a, b_b
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_native():
+    """The native host gather on this machine: the port's host-path CIFAR
+    batch (``FedDataset.gather`` through ``CifarTrain``, one main-path
+    round of 8 x 64 images) against its numpy twin within
+    NATIVE_PLAIN_ATOL, each element from the twin's source pixel, the
+    same bits for 1 to 16 threads, and its time beside the numpy stream's
+    on the same round. Returns (native ms, numpy ms)."""
+    import numpy as np
+    from commefficient_torch.core.driver import epoch_sampler
+    from commefficient_torch.config import FedConfig
+    from commefficient_torch.data import native
+    from commefficient_torch.data import transforms as T
+    from commefficient_torch.data.fed_cifar import FedCIFAR10
+
+    if not native.enabled():
+        fail("COMMEFFICIENT_NATIVE=0: the native host gather is off")
+    ds = FedCIFAR10(dataset_flags("synthetic64")[1],
+                    transform=T.CifarTrain(seed=21))
+    cfg = FedConfig(num_workers=8, local_batch_size=64)
+    rnd = next(iter(epoch_sampler(cfg, ds, 0)))
+    got = ds.gather(rnd.idx)["image"]
+    # the same draws again (a fresh transform at the seed), timed
+    ds.transform = T.CifarTrain(seed=21)
+    t0 = time.perf_counter()
+    again = ds.gather(rnd.idx)["image"]
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    images = ds.arrays["image"]
+    twin = native_gather_augment_plain(images, rnd.idx, T.CIFAR10_MEAN,
+                                       T.CIFAR10_STD, 4, True, (21 << 20) + 1)
+    err = float(np.abs(got - twin).max())
+    px = np.rint((got * T.CIFAR10_STD + T.CIFAR10_MEAN) * 255)
+    px_twin = np.rint((twin * T.CIFAR10_STD + T.CIFAR10_MEAN) * 255)
+    threads = {0: np.array_equal(again.view(np.int32), got.view(np.int32))}
+    for n in (1, 2, 4, 8, 16):
+        again = native.gather_augment(images, rnd.idx, T.CIFAR10_MEAN,
+                                      T.CIFAR10_STD, 4, True,
+                                      (21 << 20) + 1, num_threads=n)
+        threads[n] = np.array_equal(again.view(np.int32), got.view(np.int32))
+    t0 = time.perf_counter()
+    T.CifarTrain(seed=21)({"image": images[rnd.idx]})
+    numpy_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"[native] host CIFAR batch of {rnd.idx.size} images through the "
+          f"native gather ({native.library_path()}): max |diff| to the "
+          f"numpy twin {err:.3e} (limit {NATIVE_PLAIN_ATOL:.3e}), "
+          f"{float((got != twin).mean()):.4f} of the values differ (the "
+          f"fused multiply-add), source pixels equal "
+          f"{bool(np.array_equal(px, px_twin))}; bitwise equal for threads "
+          f"{threads} (0: the default); {native_ms:.3f} ms against "
+          f"{numpy_ms:.3f} ms for the numpy stream", flush=True)
+    if err > NATIVE_PLAIN_ATOL or not np.array_equal(px, px_twin) \
+            or not all(threads.values()):
+        fail(f"the native gather disagrees with its numpy twin ({err}, "
+             f"threads {threads})")
+    return native_ms, numpy_ms
+
+
+def phase_finetune():
+    """The finetune two-step through the entry point: FINETUNE_ROUNDS
+    rounds of FixupResNet50 on CIFAR100 with ``--checkpoint``, then
+    ``--finetune --finetuned_from CIFAR100`` on CIFAR10 for
+    FINETUNE_ROUNDS rounds: the federated vector is the head (d =
+    FINETUNE_D), which moves; the frozen backbone on the card is the saved
+    one bit for bit. Returns the median round ms of the finetune."""
+    import numpy as np
+    import torch
+    from commefficient_torch import cv_train
+    from commefficient_torch.ops import circulant_kernels as K
+
+    ck = os.path.join(DATA_ROOT["path"], "finetune_ck")
+    argv = FINETUNE_COMMON + ["--dataset_name", "CIFAR100", "--checkpoint",
+                              "--checkpoint_path", ck] \
+        + dataset_flags("cifar100_64")
+    print("[finetune] python -m commefficient_torch.cv_train "
+          + " ".join(argv), flush=True)
+    first = cv_train.main(argv)
+    full_layout = first["runtime"].layout
+    del first
+    with np.load(os.path.join(ck, "FixupResNet50.npz")) as f:
+        saved = torch.from_numpy(f["ps_weights"])
+    pieces, at = [], 0
+    for path, shape in full_layout:
+        n = math.prod(shape)
+        if not path.startswith("params/fc/"):
+            pieces.append(saved[at:at + n])
+        at += n
+    backbone = torch.cat(pieces)
+    argv = FINETUNE_COMMON + ["--dataset_name", "CIFAR10", "--finetune",
+                              "--finetuned_from", "CIFAR100",
+                              "--finetune_path", ck] \
+        + dataset_flags("synthetic64")
+    print("[finetune] python -m commefficient_torch.cv_train "
+          + " ".join(argv), flush=True)
+    K.reset_launches()
+    out = cv_train.main(argv)
+    rt, state = out["runtime"], out["state"]
+    frozen = out["frozen"].frozen_vector
+    same = frozen.device.type == "cuda" and torch.equal(
+        frozen.cpu().view(torch.int32), backbone.view(torch.int32))
+    moved = int((state.ps_weights != 0).sum())
+    med = statistics.median(out["round_s"][1:]) if out["rounds"] > 1 \
+        else out["round_s"][0]
+    print(f"[finetune] head of d={rt.cfg.grad_size} trained "
+          f"{out['rounds']} rounds on CIFAR10 (losses "
+          f"{[round(float(x), 5) for x in out['losses']]}, val loss "
+          f"{out['val_loss']:.5f}, median round {med * 1e3:.3f} ms): "
+          f"{moved} of its weights moved from 0; the frozen backbone "
+          f"({frozen.numel()} weights on {frozen.device}) is the saved one "
+          f"bit for bit: {same}; launches {dict(K.launches)}", flush=True)
+    if rt.cfg.grad_size != FINETUNE_D or moved == 0 or not same \
+            or not np.isfinite(out["losses"]).all() \
+            or any(K.launches.values()):
+        fail("the finetune did not train the head alone on the saved "
+             "backbone")
+    del out, rt, state, frozen
+    torch.cuda.empty_cache()
+    return med * 1e3
+
+
+def phase_compat():
+    """The reference API: ``FedModel`` over the main path's ResNet-9
+    sketch round on the card (its default device), COMPAT_STEPS train
+    steps on 8 clients x 64 synthetic CIFAR10 images in the reference's
+    flat wire format, then a validation call; exactly the driver's 9 K1
+    and 1 K2 a step, none in the validation. Returns the launches."""
+    import numpy as np
+    import torch
+    from commefficient_torch.compat import FedModel, FedOptimizer
+    from commefficient_torch.config import FedConfig
+    from commefficient_torch.data import transforms as T
+    from commefficient_torch.data.fed_cifar import FedCIFAR10
+    from commefficient_torch.losses import make_cv_loss
+    from commefficient_torch.models.resnet9 import ResNet9
+    from commefficient_torch.ops import circulant_kernels as K
+
+    ds = FedCIFAR10(dataset_flags("synthetic64")[1],
+                    transform=T.CifarEval())
+    model = ResNet9(num_classes=10,
+                    generator=torch.Generator().manual_seed(21))
+    cfg = FedConfig(mode="sketch", error_type="virtual", local_momentum=0.0,
+                    virtual_momentum=0.9, num_workers=8, local_batch_size=64,
+                    k=50_000, num_rows=5, num_cols=500_000,
+                    valid_batch_size=500)
+    fm = FedModel(model, make_cv_loss(model), cfg, num_clients=10)
+    opt = fm.attach_optimizer(FedOptimizer(fm.cfg, lr=0.1))
+    rng = np.random.RandomState(0)
+    K.reset_launches()
+    losses = []
+    for step in range(COMPAT_STEPS):
+        clients = rng.choice(10, 8, replace=False)
+        idx = np.concatenate([c * 64 + rng.permutation(64)
+                              for c in clients])
+        batch = ds.gather(idx)
+        loss, acc, down, up = fm({"client_id": batch["target"], **batch})
+        opt.step()
+        losses.append(loss)
+        if (up > 0).sum() != 8 or not np.isfinite(loss).all():
+            fail(f"FedModel step {step}: losses {loss}, uploads {up}")
+    train_launches = dict(K.launches)
+    fm.train(False)
+    val = FedCIFAR10(dataset_flags("synthetic64")[1], train=False,
+                     transform=T.CifarEval()).gather(np.arange(160))
+    vloss, vacc = fm({"client_id": np.full(160, -1), **val})
+    want = {"circ_encode": 9 * COMPAT_STEPS, "circ_decode": COMPAT_STEPS}
+    print(f"[compat] FedModel on {fm.runtime.device}, ResNet-9 sketch "
+          f"(d={fm.cfg.grad_size}, m={fm.runtime.cs.m}): {COMPAT_STEPS} "
+          f"steps, losses {[[round(float(v), 5) for v in x] for x in losses]}"
+          ", "
+          f"launches {train_launches} (want {want}); validation loss "
+          f"{float(vloss[0]):.5f}, acc {float(vacc[0]):.4f}, launches after "
+          f"it {dict(K.launches)}", flush=True)
+    if fm.runtime.device.type != "cuda" or train_launches != want \
+            or dict(K.launches) != want or not np.isfinite(vloss).all():
+        fail("FedModel's round did not launch the driver's kernels")
+    del fm, model
+    torch.cuda.empty_cache()
+    return train_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2514,6 +3117,8 @@ def run_phases(t0: float) -> int:
                               plain_n=5)
     circ_femnist = phase_kernels(FEMNIST_SKETCH, (FEMNIST_SKETCH["c"],),
                                  scale=16.0, plain_n=5)
+    circ_imagenet = phase_kernels(IMAGENET_SKETCH, (IMAGENET_SKETCH["c"],),
+                                  scale=64.0, plain_n=5)
     done("K1/K2")
     flash = phase_flash()
     done("K3")
@@ -2548,6 +3153,25 @@ def run_phases(t0: float) -> int:
     femnist_launches, femnist_ms = phase_femnist()
     fixup_launches, fixup_ms, fixup_share = phase_fixup()
     done("FEMNIST ResNet101LN and FixupResNet50 paths")
+    phase_pipeline_ab()
+    done("the round pipeline on the store paths")
+    imagenet_launches, imagenet_ms, imagenet_idle = phase_imagenet()
+    imagenet_host = phase_imagenet_host()
+    native_ms = phase_native()
+    finetune_ms = phase_finetune()
+    compat_launches = phase_compat()
+    done("ImageNet recipe and its host path, native gather, finetune, "
+         "compat")
+    print(f"[imagenet] this slice's paths, round medians (ms): ImageNet "
+          f"FixupResNet50 "
+          + ", ".join(f"{m} {ms:.3f}" for m, ms in imagenet_ms.items())
+          + f" (sketch round's device idle share {imagenet_idle:.3f}); the "
+          "host path's fetch / wait / round: "
+          + ", ".join(f"{w} {a:.3f} / {b:.3f} / {c:.3f}"
+                      for w, (a, b, c) in imagenet_host.items())
+          + f"; the native CIFAR gather {native_ms[0]:.3f} ms against "
+          f"numpy's {native_ms[1]:.3f} ms; finetune round {finetune_ms:.3f}",
+          flush=True)
     print(f"[zoo] this slice's paths, round medians (ms): FEMNIST "
           f"ResNet101LN sketch {femnist_ms:.3f}, FixupResNet50 CIFAR100 "
           f"true_topk {fixup_ms:.3f} (0.1 rate on {fixup_share:.6f} of d); "
@@ -2603,7 +3227,10 @@ def run_phases(t0: float) -> int:
                       for a, (r, v, _) in gpt2_arms.items()},
                    "cv_train EMNIST ResNet101LN": femnist_launches[name],
                    "cv_train CIFAR100 FixupResNet50 true_topk":
-                       fixup_launches[name]}
+                       fixup_launches[name],
+                   **{f"cv_train ImageNet FixupResNet50 {m}": launches[name]
+                      for m, launches in imagenet_launches.items()},
+                   "compat FedModel ResNet9 sketch": compat_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "commefficient_torch/csrc/circulant.cu",
@@ -2611,6 +3238,7 @@ def run_phases(t0: float) -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **circ[name], "at_gpt2_shape": circ_gpt2[name],
             "at_femnist_shape": circ_femnist[name],
+            "at_imagenet_shape": circ_imagenet[name],
             "sass_per_term": sketch_sass[name]})
     for name, line in (("flash_fwd", 589), ("flash_bwd_dq", 1287),
                        ("flash_bwd_dkv", 941)):

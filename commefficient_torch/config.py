@@ -9,11 +9,13 @@ virtual error, microbatches, whole-client batches, gradient clipping,
 DP, top-k download and byte accounting, of every CV model of the JAX
 package's registry (``models.MODEL_NAMES``; Fixup's per-parameter rates
 for the Fixup models) on CIFAR10, CIFAR100 or LEAF FEMNIST (``EMNIST``),
-natural or iid clients (``cv_train``), and GPT-2 DoubleHeads on
-PersonaChat (``gpt2_train``), with whole-state checkpoints and resume in
-both. A value or flag outside it raises and names the flag: the bf16 and
-int8 wires, ImageNet, ``--finetune``, ``--sketch_scan_rows``/
-``--sketch_dtype`` and meshes are not ported.
+ImageNet, natural or iid clients, finetuning a saved model's head
+(``cv_train``), and GPT-2 DoubleHeads on PersonaChat (``gpt2_train``),
+with whole-state checkpoints and resume in both, the host path's batches
+fetched ahead by the round input pipeline (``core/pipeline.py``). A value
+or flag outside it raises and names the flag: the bf16 and int8 wires,
+``--sketch_scan_rows``/``--sketch_dtype`` and meshes are not ported
+(``--mesh_shape ""``, the JAX package's single device, is accepted).
 Which combinations of mode, error type and momentum are legal is the
 server's rule (``core/server.py validate_mode_combo``), checked when a
 runtime is built, as in the JAX package. Defaults and choices are the
@@ -45,11 +47,28 @@ class FedConfig:
     dataset_name: str = "CIFAR10"
     dataset_dir: str = "./dataset"
     do_iid: bool = False
-    # the train split normalised only: no crop or flip
+    # the train split normalised only: no crop or flip (implied by
+    # synthetic_hard)
     no_augment: bool = False
     do_batchnorm: bool = False
     seed: int = 21
     synthetic_per_class: int = 64
+    # the synthetic CIFAR generator's non-saturating regime and its
+    # train-only label noise (data/fed_cifar.py synthetic_cifar)
+    synthetic_hard: bool = False
+    synthetic_label_noise: float = 0.0
+    # finetune: the head of <finetune_path>/<model>.npz, trained at the
+    # dataset's class count on the backbone of the model trained on
+    # finetuned_from, which stays frozen
+    do_finetune: bool = False
+    finetune_path: str = "./finetune"
+    finetuned_from: Optional[str] = None
+    eval_before_start: bool = False
+    # the round input pipeline: the host path fetches the next rounds'
+    # batches on a worker thread, at most prefetch_depth ahead; False
+    # fetches inline (the device store always does)
+    pipeline: bool = True
+    prefetch_depth: int = 2
     k: int = 50_000
     num_cols: int = 500_000
     num_rows: int = 5
@@ -112,6 +131,20 @@ class FedConfig:
     attn_impl: str = "auto"
 
     def __post_init__(self):
+        if self.synthetic_hard and not self.no_augment:
+            # the hard regime's class evidence is per pixel: a crop or a
+            # flip scrambles it (the JAX package's rule)
+            object.__setattr__(self, "no_augment", True)
+        if self.prefetch_depth < 1:
+            raise ValueError(
+                f"--prefetch_depth {self.prefetch_depth} must be >= 1 (the "
+                "prefetcher's queue bound; 2 = double-buffered); "
+                "--no_pipeline fetches inline")
+        if self.do_finetune and self.finetuned_from not in CV_DATASETS:
+            raise ValueError(
+                f"--finetune needs --finetuned_from, the dataset the saved "
+                f"model was trained on (one of {', '.join(CV_DATASETS)}); "
+                f"got {self.finetuned_from!r}")
         choices = {"mode": MODES, "error_type": ERROR_TYPES,
                    "sketch_ef": ("zero", "subtract"),
                    "dp_mode": DP_MODES, "sketch_impl": SKETCH_IMPLS,
@@ -213,10 +246,10 @@ class FedConfig:
         return CV_DATASETS[self.dataset_name][1]
 
 
-# the JAX package's CV datasets: (classes, NHWC image shape); ImageNet is
-# not ported
+# the JAX package's CV datasets: (classes, NHWC image shape)
 CV_DATASETS = {"CIFAR10": (10, (32, 32, 3)), "CIFAR100": (100, (32, 32, 3)),
-               "EMNIST": (62, (28, 28, 1))}
+               "EMNIST": (62, (28, 28, 1)),
+               "ImageNet": (1000, (224, 224, 3))}
 # the JAX package's pairs: any registry model on any CV dataset
 MODEL_DATASETS = tuple((m, d) for m in MODEL_NAMES for d in CV_DATASETS) \
     + (("GPT2", "PERSONA"),)
@@ -247,6 +280,22 @@ def add_args(p: argparse.ArgumentParser) -> None:
                    help="train on normalised images only (no crop or flip)")
     p.add_argument("--batchnorm", action="store_true", dest="do_batchnorm")
     p.add_argument("--synthetic_per_class", type=int, default=64)
+    p.add_argument("--synthetic_hard", action="store_true")
+    p.add_argument("--synthetic_label_noise", type=float, default=0.0)
+    p.add_argument("--finetune", action="store_true", dest="do_finetune")
+    p.add_argument("--finetune_path", default="./finetune")
+    p.add_argument("--finetuned_from", choices=list(CV_DATASETS))
+    p.add_argument("--eval_before_start", action="store_true")
+    p.add_argument("--no_pipeline", dest="pipeline", action="store_false",
+                   default=True,
+                   help="fetch the host path's batches inline (the same "
+                        "rounds, no prefetch; the device store's always "
+                        "are)")
+    p.add_argument("--prefetch_depth", type=int, default=2,
+                   help="rounds the input pipeline fetches ahead")
+    p.add_argument("--mesh_shape", default="",
+                   help="the JAX package's device mesh; only \"\" (one "
+                        "device) is ported")
     p.add_argument("--k", type=int, default=50_000)
     p.add_argument("--num_cols", type=int, default=500_000)
     p.add_argument("--num_rows", type=int, default=5)
@@ -319,6 +368,11 @@ def add_gpt2_args(p: argparse.ArgumentParser) -> None:
 
 
 def config_from_args(ns: argparse.Namespace) -> FedConfig:
+    if getattr(ns, "mesh_shape", ""):
+        raise ValueError(
+            f"--mesh_shape {ns.mesh_shape!r}: the PyTorch port runs one "
+            "device (multi-GPU meshes are ROADMAP A9); pass --mesh_shape "
+            '"" or leave it out')
     names = {f.name for f in dataclasses.fields(FedConfig)}
     return FedConfig(**{k: v for k, v in vars(ns).items() if k in names})
 
@@ -327,14 +381,14 @@ def parse_known(parser: argparse.ArgumentParser,
                 argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """``parse_known_args`` that raises on any flag outside the slice,
     naming it (the JAX package's other flags, such as ``--wire_dtype``
-    (the float32 wire), ``--sketch_scan_rows``, ``--sketch_dtype``,
-    ``--mesh_shape`` and ``--finetune``, are not ported yet)."""
+    (the float32 wire), ``--sketch_scan_rows``, ``--sketch_dtype`` and
+    ``--mesh_axes``, are not ported yet)."""
     ns, rest = parser.parse_known_args(argv)
     if rest:
         flags = [a for a in rest if a.startswith("-")] or rest
         raise ValueError(
             f"{' '.join(flags)}: outside the PyTorch port's slice "
-            "(the CV models on CIFAR10/100 or FEMNIST, or GPT-2 on "
-            "PersonaChat, one device, the float32 wire and the batched "
+            "(the CV models on CIFAR10/100, FEMNIST or ImageNet, or GPT-2 "
+            "on PersonaChat, one device, the float32 wire and the batched "
             "float32 SRHT; no meshes)")
     return ns

@@ -206,13 +206,16 @@ class FedRuntime:
 
     def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """Every leaf onto the device: floating leaves as float32, integer
-        leaves (labels, token ids, positions) as int64."""
+        leaves (labels, token ids, positions) as int64. A pinned host leaf
+        is copied without blocking the host, in order on the current
+        stream."""
         out = {}
         for key, val in batch.items():
             val = torch.as_tensor(val)
             dtype = (torch.float32 if val.is_floating_point()
                      else torch.int64)
-            out[key] = val.to(self.device, dtype)
+            out[key] = val.to(self.device, dtype,
+                              non_blocking=val.is_pinned())
         return out
 
     def _clients(self, state: FedState, ids: torch.Tensor, batch, mask,

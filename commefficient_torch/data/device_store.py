@@ -8,7 +8,9 @@ makes.
 ``cifar_train`` is the host ``CifarTrain`` in kind: reflect-pad 4, a
 random crop back to the image's size, a random horizontal flip, then the
 per-channel normalisation; ``emnist_train`` is ``FemnistTrain``'s:
-edge-pad 2 and a random crop, no flip. The pad, crop and flip are one
+edge-pad 2 and a random crop, no flip; ``imagenet_train`` is
+``ImagenetTrain``'s: a random horizontal flip alone (a crop of pad 0) of
+the uint8 images sized at prepare time. The pad, crop and flip are one
 gather: the source rows of each vertical offset and the source columns
 of each horizontal offset, mirrored or not (a reflection or a clamp of
 the shifted index), are tabled once; a round draws an offset pair (and a
@@ -34,10 +36,11 @@ from commefficient_torch.data import transforms as T
 # augment -> (crop pad, pad mode, horizontal flip), as the host
 # transforms crop
 SHIFT_CROP = {"cifar_train": (4, "reflect", True),
-              "emnist_train": (2, "edge", False)}
+              "emnist_train": (2, "edge", False),
+              "imagenet_train": (0, "reflect", True)}
 CROP_PAD = SHIFT_CROP["cifar_train"][0]
 TRAIN_AUGMENT = {"CIFAR10": "cifar_train", "CIFAR100": "cifar_train",
-                 "EMNIST": "emnist_train"}
+                 "EMNIST": "emnist_train", "ImageNet": "imagenet_train"}
 DATA_KEY = 0xDA7A
 MAX_STORE_BYTES = 2 << 30
 
@@ -60,8 +63,9 @@ class DeviceStore:
     ``FedDataset.arrays``), uploaded to ``device`` as they are.
     ``iid_shuffle``: the dataset's global permutation, applied on the
     device so the round's indices stay the sampler's. ``augment``:
-    ``cifar_train``, ``emnist_train`` or ``normalize``; ``mean``/``std``:
-    the image leaf's per-channel constants."""
+    ``cifar_train``, ``emnist_train``, ``imagenet_train`` or
+    ``normalize``; ``mean``/``std``: the image leaf's per-channel
+    constants."""
 
     def __init__(self, arrays: Dict[str, np.ndarray], device,
                  augment: str, mean, std,
@@ -179,12 +183,12 @@ def make_device_store(dataset, dataset_name: str, train: bool, device,
                       no_augment: bool = False, seed: int = 0,
                       max_bytes: int = MAX_STORE_BYTES
                       ) -> Optional[DeviceStore]:
-    """A store for a CIFAR10/100 or EMNIST ``FedDataset`` whose arrays fit
-    in ``max_bytes`` (2 GiB), else None (the host path: a real FEMNIST,
-    about 805k float32 images, 2.5 GB). Train stores augment
-    (``TRAIN_AUGMENT``; normalise only under ``no_augment``) and route
-    through the dataset's ``iid_shuffle``; evaluation stores
-    normalise."""
+    """A store for a CIFAR10/100, EMNIST or ImageNet ``FedDataset`` whose
+    arrays fit in ``max_bytes`` (2 GiB), else None (the host path: a real
+    FEMNIST, about 805k float32 images, 2.5 GB, or a real ImageNet).
+    Train stores augment (``TRAIN_AUGMENT``; normalise only under
+    ``no_augment``) and route through the dataset's ``iid_shuffle``;
+    evaluation stores normalise."""
     if dataset_name not in T.NORMALIZE:
         return None
     if arrays_nbytes(dataset.arrays) > max_bytes:

@@ -192,10 +192,24 @@ class FedDataset:
 
     def gather(self, flat_idx: np.ndarray) -> Dict[str, np.ndarray]:
         """The items at ``flat_idx`` (any shape; under iid routed through
-        ``iid_shuffle`` first), transformed."""
+        ``iid_shuffle`` first), transformed: the image leaf by the
+        transform's ``gather_fused`` (the native host gather) when it
+        serves them, as in the JAX package. The round pipeline calls it
+        from one thread, in round order, so the transform's draws advance
+        as they do inline."""
         idx = np.asarray(flat_idx)
         if self.train and self.do_iid:
             idx = self.iid_shuffle[idx]
+        # the image leaf through the transform's native host gather, where
+        # it has one that serves these images
+        fused = (self.transform.gather_fused(self.arrays["image"], idx)
+                 if hasattr(self.transform, "gather_fused")
+                 and "image" in self.arrays else None)
+        if fused is not None:
+            out = {k: v[idx] for k, v in self.arrays.items()
+                   if k != "image"}
+            out["image"] = fused
+            return out
         out = {k: v[idx] for k, v in self.arrays.items()}
         return self.transform(out) if self.transform is not None else out
 

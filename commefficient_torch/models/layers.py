@@ -173,8 +173,15 @@ class FlatModel(nn.Module):
         (default: the module's own), computed in ``dtype`` (the weights are
         cast once, as one vector)."""
         flat = self.flat if flat is None else flat
-        p = Params(self.views(flat.to(dtype)))
-        return self.net(p, x_nhwc.to(dtype).permute(0, 3, 1, 2))
+        return self.forward_views(self.views(flat.to(dtype)), x_nhwc, dtype)
+
+    def forward_views(self, views: Dict[str, torch.Tensor],
+                      x_nhwc: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Logits of ``x_nhwc`` with the parameter ``views`` (keyed as
+        ``views`` keys them, already in ``dtype``): a finetune passes
+        frozen leaves that carry no gradient beside trainable ones."""
+        return self.net(Params(views), x_nhwc.to(dtype).permute(0, 3, 1, 2))
 
 
 def conv(p: Params, name: str, x: torch.Tensor, features: int, size: int,

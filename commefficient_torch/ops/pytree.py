@@ -12,7 +12,7 @@ both packages.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,3 +62,29 @@ def ravel_params(tree: Mapping) -> Tuple[torch.Tensor, Callable]:
     tensors or arrays."""
     leaves = [_as_tensor(leaf).reshape(-1) for _, leaf in tree_leaves(tree)]
     return torch.cat(leaves), make_unraveler(tree)[1]
+
+
+def layout_leaves(flat: torch.Tensor,
+                  layout: Sequence[Tuple[str, Tuple]]) -> Dict[str,
+                                                               torch.Tensor]:
+    """``{path: view}`` of ``flat``'s pieces in a model's ``(path,
+    shape)`` layout (ravel order); ``flat`` must hold exactly its
+    floats."""
+    sizes = [math.prod(shape) for _, shape in layout]
+    if flat.numel() != sum(sizes):
+        raise ValueError(f"a vector of {flat.numel()} floats for a layout "
+                         f"of {sum(sizes)}")
+    return {path: piece.view(shape) for (path, shape), piece
+            in zip(layout, torch.split(flat, sizes))}
+
+
+def nest(leaves: Mapping[str, Any]) -> Dict:
+    """The nested tree of ``{path: leaf}`` (paths joined by ``/``)."""
+    out: Dict = {}
+    for path, leaf in leaves.items():
+        *parents, name = path.split("/")
+        node = out
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[name] = leaf
+    return out

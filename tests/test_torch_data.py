@@ -140,11 +140,12 @@ def test_legacy_layout_is_read_by_both(tmp_path):
 def test_partitions_shuffle_and_gather_match_reference(tmp_path, monkeypatch,
                                                        do_iid, num_clients):
     """``data_per_client``, ``iid_shuffle`` and ``gather`` (raw, and through
-    the seeded host transform) equal the JAX package's. The JAX package's
-    native gather, which draws another stream, is not ported: its numpy
-    path is the reference here."""
+    the seeded host transform) equal the JAX package's, both on the numpy
+    stream of the host transform, selected on each side (the native host
+    gather draws another stream: tests/test_torch_native.py holds it)."""
     from commefficient_tpu.data import native
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setenv("COMMEFFICIENT_NATIVE", "0")
     root = write_cifar_pickles(str(tmp_path))
     kw = dict(do_iid=do_iid, num_clients=num_clients)
     j = j_cifar.FedCIFAR10(root, transform=j_transforms.CifarTrain(seed=5),
@@ -260,7 +261,10 @@ def test_store_train_path_crops_and_flips_by_round():
         store.round_batch(idx)
 
 
-def test_store_iid_path_and_gate(tmp_path):
+def test_store_iid_path_and_gate(tmp_path, monkeypatch):
+    # the host path's numpy stream, which the store's normalise equals bit
+    # for bit (the native gather fuses a multiply-add)
+    monkeypatch.setenv("COMMEFFICIENT_NATIVE", "0")
     root = write_cifar_pickles(str(tmp_path))
     ds = fed_cifar.FedCIFAR10(root, do_iid=True, num_clients=7,
                               transform=T.CifarEval())
@@ -318,9 +322,12 @@ def test_cv_train_slice_matches_reference(tmp_path, monkeypatch, capsys,
     store's gate refuses (an oversize set). The JAX run takes its host
     path (numpy gather and ``CifarEval``), whose images the port's store
     gives bit for bit; the JAX store's differ from them in the last bits,
-    which the network carries past rtol 1e-5."""
+    which the network carries past rtol 1e-5. Both host paths take the
+    numpy stream, selected on each side (the native gather normalises
+    with a fused multiply-add, whose last bits differ from numpy's)."""
     from commefficient_tpu.data import native
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setenv("COMMEFFICIENT_NATIVE", "0")
     monkeypatch.setattr(j_cv, "make_device_store", lambda *a, **k: None)
     if port_path == "host":
         monkeypatch.setattr(cv_train, "make_device_store",
