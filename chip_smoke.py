@@ -123,7 +123,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    arms of the JAX package's GPT-2 study at the main path's k
    (``GPT2_ARMS``: the table clip ``--max_grad_norm 1``, 16 K1 a round,
    and ``densestate_clip1``, 1 K1), 3 rounds each, with the same launch
-   checks;
+   checks; then GPT-2's memory levers (``phase_gpt2_levers``): the base
+   arm and ``GPT2_LEVER_ARMS`` (``--lm_chunk 128``, ``--remat``,
+   ``--remat --remat_policy dots_with_no_batch_dims_saveable``, ``--remat
+   --lm_chunk 128``), 3 rounds each, exact launches (192 K3 forward a
+   round under ``--remat``), each arm's median round and peak memory
+   beside the base arm's, and its first round's loss and weights against
+   the base arm's (bit for bit under remat alone, LEVER_LIMITS with the
+   chunked loss); then the pretrained path (``phase_gpt2_pretrained``):
+   an HF ``pytorch_model.bin`` at GPT-2 small's width written from a
+   seed, one round with ``--model_checkpoint DIR --checkpoint --iid
+   --num_clients 16`` (initial weights bit for bit ``load_state_dict`` of
+   the file, ``load_pretrained`` of the saved directory bit for bit the
+   final weights), a second round that reads the PersonaChat packs the
+   first wrote (no pack counted), and the K3 forward of the loaded
+   DoubleHeads model and of a ``GPT2LMHead`` against dense attention
+   (PRETRAINED_FLASH_RTOL);
 10. the FEMNIST FetchSGD round (``phase_femnist``): a LEAF FEMNIST
    directory of 3,500 writers (16 train and 1 test image each, the real
    json schema over 4 files a split) is written and prepared, both
@@ -1829,13 +1844,16 @@ class LaunchSplit:
     """Wraps ``FedRuntime.round`` and ``FedRuntime.val`` while installed:
     keeps the kernel launches each call made (the counts read before and
     after it), so the run's launches split into rounds and validation
-    batches by measurement."""
+    batches by measurement. With ``keep_weights``, ``first_weights``
+    holds the first round's weights before and after it, copied to the
+    host."""
 
-    def __init__(self, counts):
+    def __init__(self, counts, keep_weights: bool = False):
         from commefficient_torch.core.runtime import FedRuntime
         self.cls, self.counts = FedRuntime, counts
         self.orig = {"round": FedRuntime.round, "val": FedRuntime.val}
         self.calls = {"round": [], "val": []}
+        self.keep_weights, self.first_weights = keep_weights, None
 
     def __enter__(self):
         for kind, orig in self.orig.items():
@@ -1850,6 +1868,10 @@ class LaunchSplit:
             out = orig(*args, **kw)
             after = counts()
             calls.append({n: after[n] - before[n] for n in after})
+            if self.keep_weights and calls is self.calls["round"] \
+                    and self.first_weights is None:
+                self.first_weights = (args[1].ps_weights.cpu(),
+                                      out[0].ps_weights.cpu())
             return out
 
         return wrapped
@@ -1863,35 +1885,42 @@ class LaunchSplit:
                 for n in self.counts()}
 
 
+GPT2_ARGV = ["--mode", "sketch", "--error_type", "virtual",
+             "--local_momentum", "0", "--virtual_momentum", "0.9",
+             "--num_workers", "8", "--local_batch_size", "4",
+             "--num_candidates", "2", "--max_seq_len", "1024", "--k",
+             "50000", "--num_rows", "5", "--num_cols", "524288"]
+
+
 def phase_gpt2_main(extra=(), n_rounds: int = GPT2_ROUNDS,
-                    encodes: int = 9):
+                    encodes: int = 9, fwd: int = GPT2_PER_ROUND["flash_fwd"],
+                    keep: bool = False):
     """``n_rounds`` GPT-2 rounds at GPT-2 small's width through the user's
     entry point, each round an epoch with its validation; ``extra`` flags
     after the main path's. Every round must launch exactly GPT2_PER_ROUND
-    (with ``encodes`` K1) and every validation batch GPT2_VAL_FWD K3
-    forward kernels and nothing else (``LaunchSplit``), and the two must
-    add up to the run's counts. Returns the measured launches of the
-    rounds and of the validations, and the median round time (ms)."""
+    (with ``encodes`` K1 and ``fwd`` K3 forward kernels: 192 when every
+    block's forward runs again in the backward) and every validation batch
+    GPT2_VAL_FWD K3 forward kernels and nothing else (``LaunchSplit``),
+    and the two must add up to the run's counts. Returns the measured
+    launches of the rounds and of the validations, the median round time
+    (ms) and ``info``: the peak memory (bytes), the round losses and,
+    with ``keep``, the first round's weights before and after it and the
+    final weights (on the host)."""
     import numpy as np
     import torch
     from commefficient_torch import gpt2_train
     from commefficient_torch.ops import circulant_kernels as K
     from commefficient_torch.ops import flash_attention as FA
 
-    argv = ["--mode", "sketch", "--error_type", "virtual",
-            "--local_momentum", "0", "--virtual_momentum", "0.9",
-            "--num_workers", "8", "--local_batch_size", "4",
-            "--num_candidates", "2", "--max_seq_len", "1024", "--k",
-            "50000", "--num_rows", "5", "--num_cols", "524288",
-            "--num_rounds", str(n_rounds), *extra]
-    per_round = dict(GPT2_PER_ROUND, circ_encode=encodes)
+    argv = [*GPT2_ARGV, "--num_rounds", str(n_rounds), *extra]
+    per_round = dict(GPT2_PER_ROUND, circ_encode=encodes, flash_fwd=fwd)
     tag = " ".join(extra) or "bytes on"
     print("[gpt2] python -m commefficient_torch.gpt2_train " + " ".join(argv),
           flush=True)
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     FA.reset_launches()
-    with LaunchSplit(gpt2_train.kernel_launches) as split:
+    with LaunchSplit(gpt2_train.kernel_launches, keep) as split:
         out = gpt2_train.main(argv)
     total = gpt2_train.kernel_launches()
     torch.cuda.synchronize()
@@ -1919,10 +1948,11 @@ def phase_gpt2_main(extra=(), n_rounds: int = GPT2_ROUNDS,
     if {n: rounds[n] + val[n] for n in total} != total:
         fail(f"GPT-2 launches {total} outside the rounds ({rounds}) and the "
              f"validation batches ({val})")
-    rt = statistics.median(out["round_s"][1:])
+    rt = statistics.median(out["round_s"][1:] or out["round_s"])
     tflops = out["model_flops_per_round"] / rt / 1e12
     print(f"[gpt2] {tag}: {n_rounds} rounds: median of rounds "
-          f"2-{n_rounds} (the first pays one-time set-up) "
+          f"2-{n_rounds} (the first pays one-time set-up; one round: "
+          "itself) "
           f"{rt * 1e3:.3f} ms "
           f"(all: {[round(t * 1e3, 3) for t in out['round_s']]}), "
           f"{out['tokens_per_round'] / rt:.1f} tokens/s, "
@@ -1934,7 +1964,11 @@ def phase_gpt2_main(extra=(), n_rounds: int = GPT2_ROUNDS,
           f"MiB down, {out['total_upload_mib']:.1f} MiB up; launches "
           f"measured around each call: rounds {rounds}, validation "
           f"({out['val_batches']} batches) {val}", flush=True)
-    return rounds, val, rt * 1e3
+    info = {"peak": peak, "losses": [float(x) for x in out["losses"]]}
+    if keep:
+        info["first_weights"] = split.first_weights
+        info["final"] = out["state"].ps_weights.cpu()
+    return rounds, val, rt * 1e3, info
 
 
 # the real-data phase: a full-scale CIFAR10 pickle directory (50,000 train
@@ -2233,6 +2267,215 @@ def phase_gpt2_checkpoint():
           f"{load_s:.3f} s, bitwise equal on {runtime.device}", flush=True)
     os.unlink(path + ".npz")
     return save_s, load_s, size
+
+
+# GPT-2's memory levers (the JAX package's bench_gpt2.py runs its round
+# with remat and lm_chunk 128; scripts/gpt2_mfu_sweep.py sweeps both),
+# each GPT2_ARM_ROUNDS rounds beside the base arm of the same call: its
+# flags and its K3 forward launches a round (under --remat each block's
+# forward runs again in the backward: K3 is reached through ctypes, so no
+# policy saves its outputs)
+GPT2_LEVER_ARMS = {
+    "lm_chunk128": (["--lm_chunk", "128"], 96),
+    "remat": (["--remat"], 192),
+    "remat_dots_no_batch": (["--remat", "--remat_policy",
+                             "dots_with_no_batch_dims_saveable"], 192),
+    "remat_lm_chunk128": (["--remat", "--lm_chunk", "128"], 192),
+}
+# the lever arms against the base arm, after the first round: remat
+# repeats the block's arithmetic, so its arms must give the base arm's
+# loss and weights bit for bit (they do on an H100); the chunked LM loss
+# sums the same logits in another order (and float32 products of other
+# heights), so its arms are held to LEVER_LIMITS: the first round's loss
+# (relative) and the first round's update (relative L2: the gradient's
+# last bits move a few of the k = 50,000 coordinates at the top-k's edge
+# in or out). Read on an H100: 6.4e-8 and 4.8e-2.
+LEVER_BITWISE = ("remat", "remat_dots_no_batch")
+LEVER_LIMITS = {"dloss": 1e-6, "dupdate": 0.1}
+# the pretrained round trip: an HF GPT-2 checkpoint at GPT-2 small's width
+# over the HashTokenizer's 8,192 rows, drawn from a seed; iid clients
+PRETRAINED_CLIENTS = 16
+# K3 against dense attention at full width from those weights (bf16):
+# the logits' relative L2 error (read on an H100: 9.4e-3 DoubleHeads,
+# 1.1e-2 LMHead; the two round bf16 at different places)
+PRETRAINED_FLASH_RTOL = 2e-2
+
+
+def phase_gpt2_levers():
+    """The base arm and each of GPT2_LEVER_ARMS through ``gpt2_train``,
+    GPT2_ARM_ROUNDS rounds each, at the main path's width: exact launches
+    a round (``phase_gpt2_main``), the median round and the peak memory
+    of each arm beside the base arm's, and the first round's loss and
+    weights against the base arm's (LEVER_BITWISE, LEVER_LIMITS). Returns
+    ``{arm: (round launches, validation launches, median ms, peak bytes,
+    readings)}``, the base arm first."""
+    base = phase_gpt2_main([], GPT2_ARM_ROUNDS, keep=True)
+    b_info = base[3]
+    b_w0, b_w1 = b_info["first_weights"]
+    b_up = b_w1 - b_w0
+    out = {"base": base[:3] + (b_info["peak"], {})}
+    for arm, (flags, fwd) in GPT2_LEVER_ARMS.items():
+        rounds, val, ms, info = phase_gpt2_main(flags, GPT2_ARM_ROUNDS,
+                                                fwd=fwd, keep=True)
+        w0, w1 = info["first_weights"]
+        if not same_bits(w0, b_w0):
+            fail(f"GPT-2 lever arm {arm} started from other weights")
+        read = {"dloss": abs(info["losses"][0] / b_info["losses"][0] - 1),
+                "dupdate": float((w1 - w0 - b_up).norm() / b_up.norm()),
+                "bitwise": bool(same_bits(w1, b_w1) and info["losses"][0]
+                                == b_info["losses"][0])}
+        print(f"[levers] {arm} ({' '.join(flags)}): median round {ms:.3f} "
+              f"ms (base {base[2]:.3f}), peak memory "
+              f"{info['peak'] / 2**30:.3f} GiB (base "
+              f"{b_info['peak'] / 2**30:.3f}); first round against the "
+              f"base arm: loss {info['losses'][0]!r} vs "
+              f"{b_info['losses'][0]!r} (relative {read['dloss']:.3e}), "
+              f"update relative L2 {read['dupdate']:.3e}, bitwise "
+              f"{read['bitwise']}", flush=True)
+        if arm in LEVER_BITWISE and not read["bitwise"]:
+            fail(f"GPT-2 lever arm {arm}: the first round differs from the "
+                 f"base arm's: {read}")
+        if read["dloss"] > LEVER_LIMITS["dloss"] or \
+                read["dupdate"] > LEVER_LIMITS["dupdate"]:
+            fail(f"GPT-2 lever arm {arm}: {read} outside {LEVER_LIMITS}")
+        out[arm] = (rounds, val, ms, info["peak"], read)
+    return out
+
+
+def write_hf_gpt2(root: str, gcfg, seed: int = 0) -> dict:
+    """An HF ``GPT2Model`` checkpoint (``pytorch_model.bin``, the
+    ``transformer.`` keys of an LM-head checkpoint) at ``gcfg``'s width
+    with ``gcfg.vocab_size`` token rows and ``n_positions`` positions,
+    drawn from ``seed`` at GPT-2's initial scales; returns the arrays."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    E, L = gcfg.n_embd, gcfg.n_layer
+
+    def draw(shape, scale, mean=0.0):
+        return (mean + scale * rng.standard_normal(shape, np.float32)
+                ).astype(np.float32)
+
+    sd = {"wte.weight": draw((gcfg.vocab_size, E), 0.02),
+          "wpe.weight": draw((gcfg.n_positions, E), 0.01),
+          "ln_f.weight": draw((E,), 0.01, 1.0), "ln_f.bias": draw((E,), 0.01)}
+    for i in range(L):
+        for name, n_in, n_out in (("attn.c_attn", E, 3 * E),
+                                  ("attn.c_proj", E, E),
+                                  ("mlp.c_fc", E, 4 * E),
+                                  ("mlp.c_proj", 4 * E, E)):
+            sd[f"h.{i}.{name}.weight"] = draw((n_in, n_out), 0.02)
+            sd[f"h.{i}.{name}.bias"] = draw((n_out,), 0.01)
+        for ln in ("ln_1", "ln_2"):
+            sd[f"h.{i}.{ln}.weight"] = draw((E,), 0.01, 1.0)
+            sd[f"h.{i}.{ln}.bias"] = draw((E,), 0.01)
+    os.makedirs(root, exist_ok=True)
+    torch.save({"transformer." + k: torch.from_numpy(v)
+                for k, v in sd.items()},
+               os.path.join(root, "pytorch_model.bin"))
+    return sd
+
+
+def phase_gpt2_pretrained():
+    """The pretrained path at full width: an HF checkpoint written by
+    ``write_hf_gpt2``, then one round of the main path's flags plus
+    ``--model_checkpoint DIR --checkpoint --iid --num_clients 16`` into a
+    fresh dataset directory, then one more round from the same directory
+    (exact launches a round in both). The run's initial weights must be
+    ``load_state_dict`` of the file's arrays bit for bit,
+    ``load_pretrained`` of the saved directory its final weights bit for
+    bit, the second run must pack nothing (the first packs the train and
+    validation splits once each), and the K3 forward of the loaded
+    DoubleHeads model and of a ``GPT2LMHead`` from the same file must
+    agree with their dense forward (PRETRAINED_FLASH_RTOL). Returns the
+    two runs' launches, their round times (ms) and the K3 readings."""
+    import numpy as np
+    import torch
+    from commefficient_torch import gpt2_train
+    from commefficient_torch.data.fed_persona import FedPERSONA
+    from commefficient_torch.models.gpt2 import (GPT2Config,
+                                                 GPT2DoubleHeads, GPT2LMHead,
+                                                 load_state_dict)
+    from commefficient_torch.ops import flash_attention as FA
+
+    root = tempfile.mkdtemp(prefix="gpt2_pretrained_", dir=DATA_ROOT["path"])
+    gcfg = GPT2Config(vocab_size=8192)
+    t0 = time.perf_counter()
+    sd = write_hf_gpt2(os.path.join(root, "hf"), gcfg)
+    write_s = time.perf_counter() - t0
+    flags = ["--model_checkpoint", os.path.join(root, "hf"), "--iid",
+             "--num_clients", str(PRETRAINED_CLIENTS), "--dataset_dir",
+             os.path.join(root, "data")]
+    saved = os.path.join(root, "ck", "gpt2_doubleheads")
+    packs, orig = [], FedPERSONA._pack_split
+
+    def counted(self, *a, **kw):
+        packs.append(self.train)
+        return orig(self, *a, **kw)
+
+    FedPERSONA._pack_split = counted
+    try:
+        first = phase_gpt2_main([*flags, "--checkpoint", "--checkpoint_path",
+                                 os.path.join(root, "ck")], 1, keep=True)
+        first_packs = len(packs)
+        second = phase_gpt2_main(flags, 1)
+    finally:
+        FedPERSONA._pack_split = orig
+    if first_packs != 2 or len(packs) != 2:
+        fail(f"PersonaChat packs: {first_packs} in the first run (want 2: "
+             f"train and validation), {len(packs) - first_packs} in the "
+             "second (want 0: the cache)")
+    seed = gpt2_train.build_parser().get_default("seed")
+    seeded = GPT2DoubleHeads(gcfg, generator=torch.Generator().manual_seed(
+        seed))
+    w0 = first[3]["first_weights"][0]
+    if not same_bits(load_state_dict(seeded, gcfg, sd), w0):
+        fail("the pretrained run's initial weights are not load_state_dict "
+             "of the checkpoint's arrays")
+    model, flat, gcfg_saved, tok = gpt2_train.load_pretrained(saved, "cuda")
+    if gcfg_saved != gcfg or tok.base_vocab != 8192 or \
+            not same_bits(flat.cpu(), first[3]["final"]):
+        fail(f"load_pretrained of {saved} is not the run's final model")
+    rng = np.random.default_rng(1)
+    N, C, S = 2, 2, gcfg.n_positions
+    ids = torch.from_numpy(rng.integers(0, gcfg.total_vocab, (N, C, S))).cuda()
+    tt = torch.from_numpy(rng.integers(gcfg.vocab_size, gcfg.total_vocab,
+                                       (N, C, S))).cuda()
+    mc = torch.full((N, C), S - 1).cuda()
+    flash_model = GPT2DoubleHeads(gcfg, attn_impl="flash").cuda()
+    lm_flash = GPT2LMHead(gcfg, attn_impl="flash")
+    lm_flat = load_state_dict(lm_flash, gcfg, sd).cuda()
+    lm_flash, lm_dense = lm_flash.cuda(), GPT2LMHead(gcfg).cuda()
+    readings, launches = {}, {}
+    with torch.no_grad():
+        for name, run_flash, run_dense in (
+                ("DoubleHeads", lambda: flash_model(ids, mc, tt, flat),
+                 lambda: model(ids, mc, tt, flat)),
+                ("LMHead", lambda: (lm_flash(ids, tt, lm_flat),),
+                 lambda: (lm_dense(ids, tt, lm_flat),))):
+            FA.reset_launches()
+            got = run_flash()
+            launches[name] = FA.launches["flash_fwd"]
+            ref = run_dense()
+            readings[name] = max(float((g - r).norm() / r.norm())
+                                 for g, r in zip(got, ref))
+    FA.reset_launches()
+    print(f"[pretrained] HF checkpoint at GPT-2 small's width (8,192 token "
+          f"rows) written in {write_s:.2f} s; the run's initial weights are "
+          f"load_state_dict of it bit for bit; load_pretrained of {saved} "
+          f"gives its final weights bit for bit; PersonaChat packed "
+          f"{first_packs} times by the first run and 0 by the second; "
+          f"rounds {first[2]:.3f} / {second[2]:.3f} ms; K3 forward against "
+          f"dense attention from these weights (logits' relative L2, "
+          f"limit {PRETRAINED_FLASH_RTOL}): "
+          + ", ".join(f"{n} {e:.3e} ({launches[n]} K3 launches)"
+                      for n, e in readings.items()), flush=True)
+    if any(e > PRETRAINED_FLASH_RTOL for e in readings.values()) or \
+            any(n != GPT2_VAL_FWD for n in launches.values()):
+        fail(f"K3 forward from the pretrained weights: {readings}, "
+             f"launches {launches}")
+    return {"pretrained": first[:3], "cached": second[:3],
+            "flash": readings}
 
 
 # the CV model zoo, card against CPU (phase_zoo_reference): one sketch
@@ -3142,14 +3385,20 @@ def run_phases(t0: float) -> int:
     done("hash, SRHT, DP noise and the clip/DP/topk-down/server-state paths")
     real_launches, resumed_launches = phase_real_data_resume()
     done("real-format CIFAR10, checkpoint and resume")
-    gpt2_rounds, gpt2_val, gpt2_ms = phase_gpt2_main()
-    gpt2_off, gpt2_off_val, gpt2_off_ms = phase_gpt2_main(
+    gpt2_rounds, gpt2_val, gpt2_ms, _ = phase_gpt2_main()
+    gpt2_off, gpt2_off_val, gpt2_off_ms, _ = phase_gpt2_main(
         ["--no_track_bytes"])
     gpt2_ckpt = phase_gpt2_checkpoint()
     done("GPT-2 main path, its state saved and loaded")
     gpt2_arms = {arm: phase_gpt2_main(flags, GPT2_ARM_ROUNDS, encodes)
                  for arm, (flags, encodes) in GPT2_ARMS.items()}
     done("GPT-2 study arms")
+    levers = phase_gpt2_levers()
+    pretrained = phase_gpt2_pretrained()
+    done("GPT-2 memory levers and the pretrained round trip")
+    gpt2_runs = {**{f"{a} (GPT2_ARMS)": v[:2] for a, v in gpt2_arms.items()},
+                 **{f"levers {a}": v[:2] for a, v in levers.items()},
+                 **{k: pretrained[k][:2] for k in ("pretrained", "cached")}}
     femnist_launches, femnist_ms = phase_femnist()
     fixup_launches, fixup_ms, fixup_share = phase_fixup()
     done("FEMNIST ResNet101LN and FixupResNet50 paths")
@@ -3178,6 +3427,15 @@ def run_phases(t0: float) -> int:
           "card vs CPU (rel dloss, dupdate, swaps): "
           + ", ".join(f"{n} {a:.2e}/{b:.2e}/{c}"
                       for n, (a, b, c) in zoo.items()), flush=True)
+    print("[levers] GPT-2 round medians (ms) and peak memory (GiB), each "
+          "arm beside the base arm of this call: "
+          + ", ".join(f"{a} {ms:.3f} / {peak / 2**30:.3f}"
+                      for a, (_, _, ms, peak, _) in levers.items())
+          + "; pretrained round trip: rounds "
+          f"{pretrained['pretrained'][2]:.3f} / "
+          f"{pretrained['cached'][2]:.3f} ms, K3 vs dense "
+          + ", ".join(f"{n} {e:.3e}" for n, e in pretrained["flash"].items()),
+          flush=True)
     print(f"[bytes] what byte accounting costs a round (medians; bytes on "
           f"vs --no_track_bytes): ResNet-9 {cv_ms:.3f} vs "
           f"{cv_off_ms:.3f} ms, GPT-2 {gpt2_ms:.3f} vs {gpt2_off_ms:.3f} "
@@ -3194,7 +3452,8 @@ def run_phases(t0: float) -> int:
           + "; the slice's paths, round medians (ms): "
           + ", ".join(f"{m} {ms:.3f}" for m, (_, ms) in rules.items())
           + ", GPT-2 "
-          + ", ".join(f"{a} {ms:.3f}" for a, (_, _, ms) in gpt2_arms.items())
+          + ", ".join(f"{a} {ms:.3f}"
+                      for a, (_, _, ms, _) in gpt2_arms.items())
           + "; hash and SRHT (ms, plain PyTorch): "
           + ", ".join(f"{k} {t:.4f}" for k, t in hash_rht.items())
           + "; DP noise std: "
@@ -3224,7 +3483,7 @@ def run_phases(t0: float) -> int:
                    **{f"cv_train {m}": launches[name]
                       for m, (launches, _) in rules.items()},
                    **{f"gpt2_train {a}": r[name] + v[name]
-                      for a, (r, v, _) in gpt2_arms.items()},
+                      for a, (r, v) in gpt2_runs.items()},
                    "cv_train EMNIST ResNet101LN": femnist_launches[name],
                    "cv_train CIFAR100 FixupResNet50 true_topk":
                        fixup_launches[name],
@@ -3248,7 +3507,7 @@ def run_phases(t0: float) -> int:
                    "gpt2_train --no_track_bytes validation":
                        gpt2_off_val[name],
                    **{f"gpt2_train {a}": r[name] + v[name]
-                      for a, (r, v, _) in gpt2_arms.items()}}
+                      for a, (r, v) in gpt2_runs.items()}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "commefficient_torch/csrc/flash_attention.cu",

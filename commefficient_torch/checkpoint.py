@@ -87,6 +87,32 @@ def layout_fingerprint(layout) -> Optional[str]:
     return hashlib.sha256(desc.encode()).hexdigest()[:16]
 
 
+def params_fingerprint_jax(layout) -> str:
+    """The JAX package's ``params_fingerprint`` of the Flax tree whose
+    ravel layout is ``layout`` ((path, shape) in ravel order, paths such
+    as ``params/mc_head/kernel``), without jax: sha256[:16] of the tree's
+    ``PyTreeDef`` string (nested dicts, keys sorted, ``*`` a leaf), ``|``,
+    and ``shape:float32`` of each leaf joined by ``;``. It marks a
+    ``save_pretrained`` directory, which either package reads."""
+    tree: Dict = {}
+    for path, _ in layout:
+        *parents, leaf = path.split("/")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = None
+
+    def spec(node) -> str:
+        if node is None:
+            return "*"
+        return "{" + ", ".join(f"{k!r}: {spec(node[k])}"
+                               for k in sorted(node)) + "}"
+
+    desc = f"PyTreeDef({spec(tree)})|" + ";".join(
+        f"{tuple(shape)}:float32" for _, shape in layout)
+    return hashlib.sha256(desc.encode()).hexdigest()[:16]
+
+
 def sketch_generation(cfg) -> Optional[str]:
     """The JAX package's marker of the sketch that encoded a run's
     momentum and error, ``{impl}-{aligned1024|v1}-{r}x{c}-{seed}``

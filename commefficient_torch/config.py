@@ -10,9 +10,11 @@ DP, top-k download and byte accounting, of every CV model of the JAX
 package's registry (``models.MODEL_NAMES``; Fixup's per-parameter rates
 for the Fixup models) on CIFAR10, CIFAR100 or LEAF FEMNIST (``EMNIST``),
 ImageNet, natural or iid clients, finetuning a saved model's head
-(``cv_train``), and GPT-2 DoubleHeads on PersonaChat (``gpt2_train``),
-with whole-state checkpoints and resume in both, the host path's batches
-fetched ahead by the round input pipeline (``core/pipeline.py``). A value
+(``cv_train``), and GPT-2 DoubleHeads on PersonaChat (``gpt2_train``,
+with block remat, the chunked LM loss, local HF weights and
+``save_pretrained``), with whole-state checkpoints and resume in both,
+the host path's batches fetched ahead by the round input pipeline
+(``core/pipeline.py``). A value
 or flag outside it raises and names the flag: the bf16 and int8 wires,
 ``--sketch_scan_rows``/``--sketch_dtype`` and meshes are not ported
 (``--mesh_shape ""``, the JAX package's single device, is accepted).
@@ -129,6 +131,13 @@ class FedConfig:
     mc_coef: float = 1.0
     personality_permutations: int = 1
     attn_impl: str = "auto"
+    # GPT-2's memory levers: block recompute and its JAX policy name, and
+    # the LM loss lm_chunk positions at a time (0: all at once)
+    do_remat: bool = False
+    remat_policy: str = ""
+    lm_chunk: int = 0
+    # a local HF checkpoint (directory or hub-cache name) to start from
+    model_checkpoint: str = "gpt2"
 
     def __post_init__(self):
         if self.synthetic_hard and not self.no_augment:
@@ -365,6 +374,22 @@ def add_gpt2_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mc_coef", type=float, default=1.0)
     p.add_argument("--personality_permutations", type=int, default=1)
     p.add_argument("--attn_impl", default="auto")
+    p.add_argument("--remat", action="store_true", dest="do_remat",
+                   help="recompute each block in the backward")
+    p.add_argument("--remat_policy", default="",
+                   help="the JAX checkpoint policy under --remat ("
+                        "dots_saveable, dots_with_no_batch_dims_saveable, "
+                        "...; \"\" = full remat)")
+    p.add_argument("--lm_chunk", type=int, default=0,
+                   help="compute the LM loss this many positions at a time "
+                        "(0 = all at once)")
+    p.add_argument("--model_checkpoint", default="gpt2",
+                   help="local HF GPT-2 checkpoint: a directory or a hub "
+                        "name in the hub cache")
+    p.add_argument("--checkpoint", action="store_true",
+                   dest="do_checkpoint",
+                   help="save_pretrained the final model to "
+                        "<checkpoint_path>/gpt2_doubleheads")
 
 
 def config_from_args(ns: argparse.Namespace) -> FedConfig:

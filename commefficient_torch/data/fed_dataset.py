@@ -122,15 +122,16 @@ class FedDataset:
                             f"stats_{type(self).__name__}.json")
 
     def stats_fn(self) -> str:
-        if self._legacy_layout:
+        if getattr(self, "_legacy_layout", False):
             return os.path.join(self.dataset_dir, "stats.json")
         return self._prefixed_stats_fn()
 
     def data_fn(self, name: str) -> str:
         """A prepared file's path: class-prefixed, or the reference's
         unprefixed name in a legacy layout (read only: preparation always
-        writes prefixed names)."""
-        if self._legacy_layout:
+        writes prefixed names; before ``__init__`` has decided the
+        layout, the prefixed name)."""
+        if getattr(self, "_legacy_layout", False):
             return os.path.join(self.dataset_dir, name)
         return os.path.join(self.dataset_dir,
                             f"{type(self).__name__}_{name}")

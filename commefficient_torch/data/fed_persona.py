@@ -1,30 +1,41 @@
-"""Federated PersonaChat held in memory: one natural client per
-personality.
+"""Federated PersonaChat: one natural client per personality.
 
-A copy of the JAX package's ``data/fed_persona.py`` (and the part of
-``data/fed_dataset.py`` it needs), so the two packages pack the same
-items into the same arrays. Items are next-utterance classification
-instances: ``num_candidates`` candidate replies (gold last), each encoded
-as persona + dialogue history + reply with speaker segment tokens, padded
-to a static ``max_seq_len`` into int32 arrays ``input_ids``,
-``token_type_ids``, ``lm_labels`` (items, C, S), ``mc_token_ids`` (items,
-C) and ``mc_label`` (items,), sorted by client.
+A copy of the JAX package's ``data/fed_persona.py`` on the port's
+``FedDataset`` (data/fed_dataset.py), so the two packages pack the same
+items into the same arrays and share one prepared directory. Items are
+next-utterance classification instances: ``num_candidates`` candidate
+replies (gold last), each encoded as persona + dialogue history + reply
+with speaker segment tokens, padded to a static ``max_seq_len`` into int32
+arrays ``input_ids``, ``token_type_ids``, ``lm_labels`` (items, C, S),
+``mc_token_ids`` (items, C) and ``mc_label`` (items,), sorted by client.
+``do_iid`` deals a fixed permutation (``RandomState(0)``) to
+``num_clients``, as the base class does.
 
 The corpus is ``personachat_self_original.json`` under ``dataset_dir``
 when it is there, else the JAX package's synthetic dialogues. The
-tokenizer is ``HashTokenizer`` (8,192 word buckets + 5 special tokens);
-the GPT-2 BPE tokenizer and the packed npz cache of the JAX package are
-not ported, so nothing is written to disk.
+tokenizer is ``HashTokenizer`` (8,192 word buckets + 5 special tokens;
+the GPT-2 BPE tokenizer is not ported). Both splits are packed once and
+written under ``dataset_dir`` in the JAX package's layout:
+``FedPERSONA_persona_train.npz``, ``FedPERSONA_persona_val.npz``,
+``stats_FedPERSONA.json`` and the prep sidecar
+``FedPERSONA_persona_prep.json`` (the packing knobs, the tokenizer and the
+corpus source); a later run, of either package, reads them unless a knob
+changed, which packs again. A layout of earlier JAX package versions
+(unprefixed ``persona_*`` files) is adopted, or set aside as
+``*.stale``, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import zipfile
 import zlib
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from commefficient_torch.data.fed_dataset import FedDataset
 
 SPECIAL_TOKENS = ["<bos>", "<eos>", "<speaker1>", "<speaker2>", "<pad>"]
 LM_IGNORE = -100
@@ -104,33 +115,115 @@ def synthetic_personachat(num_personalities: int = 12,
     return data
 
 
-class FedPERSONA:
-    """``train=True``: the training split, one client per personality (or
-    ``num_clients``, a multiple of the natural count, splitting each);
-    ``train=False``: the validation split. ``personality_permutations``
-    rotates the persona sentences to augment the training split only."""
+class FedPERSONA(FedDataset):
+    """``train=True``: the training split, one client per personality
+    (``num_clients`` a multiple of that count splits each, or any count
+    under ``do_iid``); ``train=False``: the validation split.
+    ``personality_permutations`` rotates the persona sentences to augment
+    the training split only; both splits' packs are written at once, so
+    pass the same knobs to both."""
 
     def __init__(self, dataset_dir: str = "./dataset", train: bool = True,
-                 num_clients: Optional[int] = None, tokenizer=None,
-                 num_candidates: int = 2, max_seq_len: int = 128,
-                 max_history: int = 2, personality_permutations: int = 1,
+                 do_iid: bool = False, num_clients: Optional[int] = None,
+                 tokenizer=None, num_candidates: int = 2,
+                 max_seq_len: int = 128, max_history: int = 2,
+                 personality_permutations: int = 1,
                  synthetic: Optional[bool] = None):
         self.dataset_dir = dataset_dir
-        self.train = train
         self.tokenizer = tokenizer or HashTokenizer()
         self.num_candidates = num_candidates
         self.max_seq_len = max_seq_len
         self.max_history = max_history
         self.personality_permutations = personality_permutations
         self._synthetic = synthetic
+        corpus_json = os.path.join(dataset_dir,
+                                   "personachat_self_original.json")
+        # what the packs bake in: a change to any of it packs again
+        self._prep_config = {
+            "num_candidates": num_candidates,
+            "max_seq_len": max_seq_len,
+            "max_history": max_history,
+            "personality_permutations": personality_permutations,
+            "tokenizer": [type(self.tokenizer).__name__,
+                          len(self.tokenizer)],
+            "corpus": ("real" if (os.path.exists(corpus_json)
+                                  and not synthetic) else "synthetic"),
+        }
+        self._check_prep(dataset_dir)
+        super().__init__(dataset_dir, train=train, do_iid=do_iid,
+                         num_clients=num_clients)
+
+    def _check_prep(self, dataset_dir: str) -> None:
+        """The JAX package's staleness rules, before the base class looks
+        for the stats. The sidecar is read under the prefixed name, else
+        an earlier version's plain ``persona_prep.json``; a pack without
+        any sidecar was packed under other rules and is stale. A plain
+        layout (pack and sidecar unprefixed beside the prefixed stats)
+        that matches is renamed into the prefixed names, not packed
+        again. A stale cache loses its prefixed stats (and a plain
+        ``stats.json`` whose item count is the plain pack's), and its
+        plain files are renamed to ``*.stale``, never deleted."""
+        cfg_pref = self.data_fn("persona_prep.json")
+        cfg_legacy = os.path.join(dataset_dir, "persona_prep.json")
+        npz_pref = self.data_fn("persona_train.npz")
+        npz_legacy = os.path.join(dataset_dir, "persona_train.npz")
+        val_legacy = os.path.join(dataset_dir, "persona_val.npz")
+        saved_cfg = cfg_src = None
+        for fn in (cfg_pref, cfg_legacy):
+            if os.path.exists(fn):
+                with open(fn) as f:
+                    saved_cfg = json.load(f)
+                cfg_src = fn
+                break
+        have_pack = os.path.exists(npz_pref) or os.path.exists(npz_legacy)
+        stale = (saved_cfg != self._prep_config if saved_cfg is not None
+                 else have_pack)
+        if (not stale and cfg_src == cfg_legacy
+                and os.path.exists(npz_legacy)
+                and not os.path.exists(npz_pref)
+                and os.path.exists(self._prefixed_stats_fn())):
+            os.rename(npz_legacy, npz_pref)
+            if os.path.exists(val_legacy):
+                os.rename(val_legacy, self.data_fn("persona_val.npz"))
+            os.rename(cfg_legacy, cfg_pref)
+        if not stale:
+            return
+        pref = self._prefixed_stats_fn()
+        if os.path.exists(pref):
+            os.unlink(pref)
+        plain = os.path.join(dataset_dir, "stats.json")
+        if os.path.exists(plain) and os.path.exists(npz_legacy):
+            try:
+                with open(plain) as pf:
+                    n_stats = sum(json.load(pf)["images_per_client"])
+                with np.load(npz_legacy) as z:
+                    n_items = len(z["mc_label"])
+            except (OSError, ValueError, KeyError, TypeError, EOFError,
+                    zipfile.BadZipFile):
+                n_stats, n_items = -1, -2
+            if n_stats == n_items:
+                os.unlink(plain)
+        for fn in (npz_legacy, val_legacy, cfg_legacy):
+            if os.path.exists(fn):
+                os.replace(fn, fn + ".stale")
+
+    def _prepare(self) -> None:
+        """Pack both splits and write them, the sidecar and the stats."""
         train_raw, val_raw = self._raw_corpus()
-        if train:
-            self.arrays, per_client = self._pack_split(
-                train_raw, permutations=personality_permutations)
-        else:
-            self.arrays, per_client = self._pack_split(val_raw)
-        self.images_per_client = np.array(per_client, dtype=np.int64)
-        self._num_clients = num_clients
+        train, per_client = self._pack_split(
+            train_raw, permutations=self.personality_permutations)
+        val, _ = self._pack_split(val_raw)
+        os.makedirs(self.dataset_dir, exist_ok=True)
+        np.savez(self.data_fn("persona_train.npz"), **train)
+        np.savez(self.data_fn("persona_val.npz"), **val)
+        with open(self.data_fn("persona_prep.json"), "w") as f:
+            json.dump(self._prep_config, f)
+        self.write_stats(per_client, len(val["mc_label"]))
+
+    def _load_arrays(self) -> None:
+        fn = "persona_train.npz" if self.train else "persona_val.npz"
+        with np.load(self.data_fn(fn)) as d:
+            self.arrays = {k: d[k] for k in d.files}
 
     def _raw_corpus(self):
         fn = os.path.join(self.dataset_dir, "personachat_self_original.json")
@@ -198,38 +291,3 @@ class FedPERSONA:
         rows["lm_labels"].append(ll)
         rows["mc_token_ids"].append(mc)
         rows["mc_label"].append(len(cands) - 1)
-
-    @property
-    def num_clients(self) -> int:
-        return (self._num_clients if self._num_clients is not None
-                else len(self.images_per_client))
-
-    @property
-    def data_per_client(self) -> np.ndarray:
-        """Items per client: the natural partition, or each natural client
-        split across ``num_clients // natural`` clients, the last taking
-        the remainder."""
-        if self._num_clients is None:
-            return self.images_per_client
-        natural = len(self.images_per_client)
-        if self.num_clients % natural:
-            raise ValueError(
-                f"num_clients ({self.num_clients}) must be a multiple of "
-                f"the natural client count ({natural}); iid splits are "
-                "outside the port's slice")
-        shards = self.num_clients // natural
-        out = []
-        for n in self.images_per_client:
-            counts = [n // shards] * shards
-            counts[-1] += n % shards
-            out.extend(counts)
-        return np.array(out, dtype=np.int64)
-
-    def __len__(self) -> int:
-        return len(self.arrays["mc_label"])
-
-    def gather(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
-        """The items at ``idx`` (any shape); leaves take that leading
-        shape."""
-        idx = np.asarray(idx)
-        return {k: v[idx] for k, v in self.arrays.items()}

@@ -1,7 +1,6 @@
 """GPT-2 DoubleHeads on federated PersonaChat, entry point of the PyTorch
-port (the JAX package's ``gpt2_train.py`` without telemetry, meshes or
-``save_pretrained``; the FetchSGD sketch round is the path built for the
-card).
+port (the JAX package's ``gpt2_train.py`` without telemetry or meshes;
+the FetchSGD sketch round is the path built for the card).
 
     python -m commefficient_torch.gpt2_train --mode sketch \\
         --error_type virtual --local_momentum 0 --virtual_momentum 0.9 \\
@@ -22,29 +21,49 @@ model FLOPs per round (``gpt2_model_flops``). ``--checkpoint_every N``
 writes the whole state every N epochs under
 ``<checkpoint_path>/gpt2_doubleheads`` and ``--resume`` continues from
 the newest intact one (checkpoint.py), as in ``cv_train``.
+
+The JAX package's GPT-2 flags: ``--remat`` recomputes each block in the
+backward, ``--remat_policy NAME`` keeps the saved set of that JAX
+checkpoint policy (models/gpt2.py ``REMAT_POLICIES``), ``--lm_chunk N``
+computes the LM loss N positions at a time (training and validation);
+``--model_checkpoint`` (default ``gpt2``) starts from a local HF GPT-2
+checkpoint (a directory holding ``model.safetensors`` or
+``pytorch_model.bin``, or a name in the HF hub cache), else from the
+seeded initialisation with a warning; ``--iid`` deals the PersonaChat
+items to ``--num_clients`` clients; ``--checkpoint`` ends the run with
+``save_pretrained`` into ``<checkpoint_path>/gpt2_doubleheads``
+(``weights.npz``, ``config.json`` with the JAX package's layout
+fingerprint, ``hash_tokenizer.json``), which ``load_pretrained`` of
+either package reads. The PersonaChat packs are written once under
+``--dataset_dir`` and read by later runs of either package.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import math
+import os
 import statistics
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from commefficient_torch.checkpoint import setup_checkpointing
+from commefficient_torch.checkpoint import (params_fingerprint_jax,
+                                            setup_checkpointing)
 from commefficient_torch.config import (add_args, add_gpt2_args,
                                         config_from_args, parse_known)
 from commefficient_torch.core.driver import train
 from commefficient_torch.core.runtime import FedRuntime
 from commefficient_torch.data.fed_persona import FedPERSONA, HashTokenizer
-from commefficient_torch.losses import (COMPUTE_DTYPES,
+from commefficient_torch.losses import (COMPUTE_DTYPES, DTYPE_NAMES,
                                         make_gpt2_train_loss,
                                         make_gpt2_val_loss)
 from commefficient_torch.models.gpt2 import (GPT2Config, GPT2DoubleHeads,
-                                             gpt2_model_flops)
+                                             gpt2_model_flops,
+                                             load_hf_weights)
 from commefficient_torch.ops import circulant_kernels, flash_attention
 from commefficient_torch.utils.logging import TableLogger, Timer, TSVLogger
 from commefficient_torch.utils.schedules import make_gpt2_schedule
@@ -63,12 +82,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_gpt2(cfg, tokenizer) -> GPT2Config:
     """GPT-2 small's width, or ``GPT2Config.small`` under ``--test`` (in
-    its default bf16, as the JAX package's gpt2_train builds it)."""
-    vocab = len(tokenizer) - 5
+    its default bf16, as the JAX package's gpt2_train builds it), with
+    ``--remat`` and ``--remat_policy``."""
+    kw = dict(vocab_size=len(tokenizer) - 5, remat=cfg.do_remat,
+              remat_policy=cfg.remat_policy)
     if cfg.do_test:
-        return GPT2Config.small(vocab_size=vocab)
-    return GPT2Config(vocab_size=vocab,
-                      compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype])
+        return GPT2Config.small(**kw)
+    return GPT2Config(compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype], **kw)
 
 
 def setup(ns: argparse.Namespace):
@@ -77,9 +97,6 @@ def setup(ns: argparse.Namespace):
     cfg = config_from_args(ns)
     if cfg.model != "GPT2":
         raise ValueError(f"--model {cfg.model}: gpt2_train runs GPT2")
-    if cfg.do_iid:
-        raise ValueError("--iid: iid PersonaChat splits are outside the "
-                         "PyTorch port's slice")
     device = torch.device(ns.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the "
@@ -92,12 +109,12 @@ def setup(ns: argparse.Namespace):
     torch.manual_seed(cfg.seed)
     np.random.seed(cfg.seed)
     tokenizer = HashTokenizer()
+    # one prep config for both splits: the packs share one cache
     data_kw = dict(tokenizer=tokenizer, num_candidates=cfg.num_candidates,
-                   max_seq_len=S, max_history=cfg.max_history)
-    train_ds = FedPERSONA(cfg.dataset_dir, train=True,
-                          num_clients=cfg.num_clients,
-                          personality_permutations=(
-                              cfg.personality_permutations), **data_kw)
+                   max_seq_len=S, max_history=cfg.max_history,
+                   personality_permutations=cfg.personality_permutations)
+    train_ds = FedPERSONA(cfg.dataset_dir, train=True, do_iid=cfg.do_iid,
+                          num_clients=cfg.num_clients, **data_kw)
     val_ds = FedPERSONA(cfg.dataset_dir, train=False, **data_kw)
     cfg = cfg.replace(num_clients=train_ds.num_clients)
 
@@ -107,16 +124,73 @@ def setup(ns: argparse.Namespace):
                          f"{gcfg.n_positions} positions")
     model = GPT2DoubleHeads(gcfg, attn_impl=cfg.attn_impl,
                             generator=torch.Generator().manual_seed(cfg.seed))
+    loaded = load_hf_weights(model, gcfg, cfg.model_checkpoint)
+    if loaded is not None:
+        with torch.no_grad():
+            model.flat.copy_(loaded)
+        print("loaded pretrained GPT-2 weights")
+    else:
+        print("WARNING: no local pretrained GPT-2; training from scratch")
     runtime = FedRuntime(cfg, model,
                          make_gpt2_train_loss(model, cfg.lm_coef,
-                                              cfg.mc_coef),
-                         device=device, loss_fn_val=make_gpt2_val_loss(model))
+                                              cfg.mc_coef, cfg.lm_chunk),
+                         device=device,
+                         loss_fn_val=make_gpt2_val_loss(model, cfg.lm_chunk))
     cfg = runtime.cfg
     print(f"d={cfg.grad_size} c={cfg.num_cols} r={cfg.num_rows} k={cfg.k} "
           f"W={cfg.num_workers} B={cfg.local_batch_size} "
           f"C={cfg.num_candidates} S={S} attn={cfg.attn_impl} "
+          f"remat={gcfg.remat_policy or gcfg.remat} lm_chunk={cfg.lm_chunk} "
           f"device={device}")
     return runtime, runtime.init_state(), train_ds, val_ds, gcfg
+
+
+def save_pretrained(out_dir: str, runtime, state, gcfg: GPT2Config,
+                    tokenizer) -> None:
+    """The JAX package's ``save_pretrained`` format: ``weights.npz``
+    (``ps_weights``), ``config.json`` (``model_type``, the config's
+    fields, ``compute_dtype`` by name, ``params_fingerprint``: the JAX
+    package's fingerprint of the DoubleHeads layout) and
+    ``hash_tokenizer.json``; reloadable without this run's flags."""
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(os.path.join(out_dir, "weights.npz"),
+             ps_weights=state.ps_weights.cpu().numpy())
+    cfg_dict = dataclasses.asdict(gcfg)
+    cfg_dict["compute_dtype"] = DTYPE_NAMES[gcfg.compute_dtype]
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump({"model_type": "gpt2_doubleheads", **cfg_dict,
+                   "params_fingerprint": params_fingerprint_jax(
+                       runtime.layout)}, f, indent=1)
+    with open(os.path.join(out_dir, "hash_tokenizer.json"), "w") as f:
+        json.dump({"type": "HashTokenizer",
+                   "base_vocab": tokenizer.base_vocab}, f)
+    print(f"saved pretrained checkpoint to {out_dir}")
+
+
+def load_pretrained(out_dir: str, device="cpu"):
+    """``(model, flat, gcfg, tokenizer)`` from a ``save_pretrained``
+    directory of either package: the DoubleHeads model (dense attention)
+    with its weights ``flat`` on ``device``. Refuses weights written
+    under another layout (the fingerprint)."""
+    with open(os.path.join(out_dir, "config.json")) as f:
+        cfg_dict = json.load(f)
+    saved_fp = cfg_dict.pop("params_fingerprint", None)
+    cfg_dict.pop("model_type", None)
+    cfg_dict["compute_dtype"] = COMPUTE_DTYPES[cfg_dict["compute_dtype"]]
+    gcfg = GPT2Config(**cfg_dict)
+    model = GPT2DoubleHeads(gcfg)
+    fp = params_fingerprint_jax(model.layout)
+    if saved_fp is not None and fp != saved_fp:
+        raise ValueError(
+            f"{out_dir}: saved weights were written under a different "
+            f"parameter layout ({saved_fp} != {fp})")
+    model = model.to(device)
+    with np.load(os.path.join(out_dir, "weights.npz")) as z, \
+            torch.no_grad():
+        model.flat.copy_(torch.from_numpy(z["ps_weights"]))
+    with open(os.path.join(out_dir, "hash_tokenizer.json")) as f:
+        tokenizer = HashTokenizer(json.load(f)["base_vocab"])
+    return model, model.flat.detach(), gcfg, tokenizer
 
 
 def kernel_launches() -> dict:
@@ -153,6 +227,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     acc = summary["test_acc"] if summary else float("nan")
     ppl = math.exp(min(nll, 20)) if summary else float("nan")
     print(f"final val nll {nll:.4f} ppl {ppl:.2f} mc acc {acc:.4f}")
+    if cfg.do_checkpoint and summary is not None:
+        save_pretrained(os.path.join(cfg.checkpoint_path,
+                                     "gpt2_doubleheads"),
+                        runtime, state, gcfg, train_ds.tokenizer)
     if log.round_s:
         rt = statistics.median(log.round_s)
         print(f"{tokens} tokens and {flops / 1e12:.3f} model TFLOP per "

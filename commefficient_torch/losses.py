@@ -1,7 +1,8 @@
 """Loss functions of the port, counterparts of the JAX package's
 ``losses.py``: ``make_cv_loss`` (masked softmax cross-entropy and top-1
 accuracy) and the GPT-2 DoubleHeads losses ``make_gpt2_train_loss`` and
-``make_gpt2_val_loss``.
+``make_gpt2_val_loss``, whose ``lm_chunk`` > 0 computes the LM loss
+``lm_chunk`` positions at a time (``_chunked_lm_nll``).
 
 Every ``make_*`` function returns ``loss_fn(flat, batch, mask) ->
 (loss, (acc,))``: ``flat`` the model's flat float32 weights (under
@@ -16,10 +17,12 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from commefficient_torch.data.fed_persona import LM_IGNORE
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPE_NAMES = {v: k for k, v in COMPUTE_DTYPES.items()}
 
 
 class FrozenBackbone:
@@ -108,18 +111,59 @@ def make_cv_loss(model, compute_dtype: str = "bfloat16",
     return loss_fn
 
 
-def _gpt2_losses(model, flat, batch, mask):
+def _chunk_nll_sums(hc, wte, lc, m):
+    """One chunk's masked LM NLL sum and valid-token count: hc (B, C,
+    chunk, E), lc (B, C, chunk)."""
+    tok_valid = ((lc != LM_IGNORE) * m[:, None, None]).to(torch.float32)
+    logp = F.log_softmax((hc @ wte.T.to(hc.dtype)).to(torch.float32), -1)
+    nll = -logp.gather(-1, lc.clamp(min=0)[..., None])[..., 0]
+    return (nll * tok_valid).sum(), tok_valid.sum()
+
+
+def _chunked_lm_nll(hidden, wte, labels, m, chunk: int):
+    """The shifted LM cross-entropy (the JAX package's
+    ``_chunked_lm_nll``) without the full (tokens, vocab) logits: the
+    shifted positions, padded to a multiple of ``chunk`` with label -100,
+    are projected and log-softmaxed ``chunk`` at a time, each chunk under
+    ``torch.utils.checkpoint`` so the backward recomputes its logits
+    instead of saving them; the masked sums accumulate in float32, chunk
+    after chunk."""
+    h = hidden[..., :-1, :]                                 # (B, C, T, E)
+    lab = labels[..., 1:]                                   # (B, C, T)
+    T = h.shape[-2]
+    pad = (-T) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        lab = F.pad(lab, (0, pad), value=LM_IGNORE)
+    num = den = torch.zeros((), dtype=torch.float32, device=h.device)
+    for start in range(0, T + pad, chunk):
+        args = (h[..., start:start + chunk, :], wte,
+                lab[..., start:start + chunk], m)
+        n, d = (checkpoint(_chunk_nll_sums, *args, use_reentrant=False,
+                           preserve_rng_state=False,
+                           determinism_check="none")
+                if torch.is_grad_enabled() else _chunk_nll_sums(*args))
+        num, den = num + n, den + d
+    return num / torch.clamp(den, min=1.0)
+
+
+def _gpt2_losses(model, flat, batch, mask, lm_chunk: int = 0):
     """Shared DoubleHeads forward: ``(lm_nll_per_token, mc_loss, mc_acc)``.
 
     The LM loss is the shifted cross-entropy over the tokens whose label is
     not -100, in valid items only. The tied LM head projects only the
     shifted hidden states (``hidden[..., :-1, :]``): the same logits the
     JAX package slices from the full projection, without the last
-    position's row."""
+    position's row; ``lm_chunk`` > 0 projects them ``lm_chunk`` at a time
+    (``_chunked_lm_nll``)."""
     hidden, wte, mc_logits = model.hidden_and_mc(
         batch["input_ids"], batch["mc_token_ids"], batch["token_type_ids"],
         flat)
     m = mask.to(torch.float32)                              # (B,)
+    if lm_chunk > 0:
+        lm_loss = _chunked_lm_nll(hidden, wte, batch["lm_labels"], m,
+                                  lm_chunk)
+        return (lm_loss,) + _mc_metrics(mc_logits, batch["mc_label"], m)
     logits = hidden[..., :-1, :] @ wte.T                    # (B, C, S-1, V)
     labels = batch["lm_labels"][..., 1:]
     tok_valid = (labels != LM_IGNORE) * m[:, None, None]
@@ -141,26 +185,28 @@ def _mc_metrics(mc_logits, mc_label, m):
 
 
 def make_gpt2_train_loss(model, lm_coef: float = 1.0,
-                         mc_coef: float = 1.0) -> Callable:
+                         mc_coef: float = 1.0, lm_chunk: int = 0) -> Callable:
     """DoubleHeads training loss ``lm_coef * lm + mc_coef * mc``; metrics
     (mc accuracy,). The model keeps its own dtype policy (models/gpt2.py),
     so the weights stay float32 here. ``batch`` holds ``input_ids``,
     ``token_type_ids``, ``lm_labels`` (B, C, S), ``mc_token_ids`` (B, C)
-    and ``mc_label`` (B,), all int64."""
+    and ``mc_label`` (B,), all int64. ``lm_chunk`` > 0: the chunked LM
+    loss."""
 
     def loss_fn(flat, batch, mask):
-        lm_loss, mc_loss, acc = _gpt2_losses(model, flat, batch, mask)
+        lm_loss, mc_loss, acc = _gpt2_losses(model, flat, batch, mask,
+                                             lm_chunk)
         return lm_coef * lm_loss + mc_coef * mc_loss, (acc,)
 
     return loss_fn
 
 
-def make_gpt2_val_loss(model) -> Callable:
+def make_gpt2_val_loss(model, lm_chunk: int = 0) -> Callable:
     """Validation metrics: the per-token LM NLL (perplexity on the host)
     and the MC accuracy."""
 
     def loss_fn(flat, batch, mask):
-        lm_loss, _, acc = _gpt2_losses(model, flat, batch, mask)
+        lm_loss, _, acc = _gpt2_losses(model, flat, batch, mask, lm_chunk)
         return lm_loss, (acc,)
 
     return loss_fn

@@ -4,7 +4,8 @@
 arrays (``jax.tree.map(np.asarray, params)`` on the JAX side) and returns
 the flat float32 vector in ``ravel_pytree`` order (``ops/pytree.py``):
 the layout of the port's models (models/resnet9.py, and models/gpt2.py
-with its layer-stacked ``h/block`` leaves), so the same vector drives
+with its layer-stacked ``h/block`` leaves: ``GPT2DoubleHeads``'s tree, or
+``GPT2LMHead``'s, which has no ``mc_head``), so the same vector drives
 both packages. Given the model (or a ``layout``: a finetune's trainable
 ``TrainableView.layout`` or frozen ``FrozenBackbone.layout_frozen``), it
 checks every leaf's path and shape against it.

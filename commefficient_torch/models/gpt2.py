@@ -21,24 +21,68 @@ float32 product. Attention dispatch follows the JAX rules (``resolve_attn``):
 attention below; ``flash`` runs K3 when S % 128 == 0 and otherwise dense
 attention with a warning. That is the JAX package's documented policy,
 not a fallback on failure: a K3 launch that fails raises.
+
+``GPT2Config.remat`` runs each block under non-reentrant
+``torch.utils.checkpoint`` (the JAX package's ``nn.remat(Block)``), and
+``remat_policy`` names the JAX checkpoint policy whose saved set it
+keeps (``REMAT_POLICIES``). K3 is reached through ctypes, so no policy
+saves its outputs: its forward runs again in the backward, as the Pallas
+call is recomputed under JAX's remat. ``GPT2LMHead`` is the LM-only
+model (no ``mc_head`` in its layout). ``load_state_dict`` and
+``load_hf_weights`` map a HuggingFace GPT-2 state dict (a local
+``model.safetensors`` or ``pytorch_model.bin``) onto either layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import math
+import os
 import warnings
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from commefficient_torch.models.layers import lecun_normal_, ravel_layout
 from commefficient_torch.ops.flash_attention import flash_attention
 
 NUM_SPECIAL_TOKENS = 5  # <bos> <eos> <speaker1> <speaker2> <pad>
+
+_aten = torch.ops.aten
+_DOTS = frozenset((_aten.mm, _aten.addmm, _aten.bmm))
+_DOTS_NO_BATCH = frozenset((_aten.mm, _aten.addmm))
+# the JAX package's jax.checkpoint_policies -> the aten ops whose outputs
+# a checkpointed block saves (None: no checkpoint, everything is saved).
+# The Dense layers are mm/addmm (no batch dimension), the dense
+# attention's einsums bmm; "" is --remat without a policy, full remat.
+REMAT_POLICIES = {"": frozenset(), "nothing_saveable": frozenset(),
+                  "dots_saveable": _DOTS, "checkpoint_dots": _DOTS,
+                  "dots_with_no_batch_dims_saveable": _DOTS_NO_BATCH,
+                  "checkpoint_dots_with_no_batch_dims": _DOTS_NO_BATCH,
+                  "everything_saveable": None}
+
+
+def _remat_context(saved: frozenset) -> Callable:
+    """``context_fn`` of a checkpoint that saves the outputs of the ops in
+    ``saved`` and recomputes every other op. Full remat (nothing saved)
+    takes the plain checkpoint: a selective one runs every op of the
+    block through a Python dispatch mode, which costs the host time."""
+    if not saved:
+        return noop_context_fn
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +95,23 @@ class GPT2Config:
     num_added_tokens: int = NUM_SPECIAL_TOKENS
     layer_norm_eps: float = 1e-5
     compute_dtype: torch.dtype = torch.bfloat16
+    # recompute each block in the backward (torch.utils.checkpoint), and
+    # the JAX checkpoint policy whose saved set it keeps ("" = full remat)
+    remat: bool = False
+    remat_policy: str = ""
+    # the JAX package's layer scan: the port's flat layout is the scanned
+    # one (block leaves stacked over the layers), so it must stay True
+    scan_layers: bool = True
+
+    def __post_init__(self):
+        if not self.scan_layers:
+            raise ValueError("scan_layers=False: the port's GPT-2 runs the "
+                             "scanned layout (h/block leaves stacked over "
+                             "the layers) only")
+        if self.remat and self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r}: want one of "
+                f"{sorted(p for p in REMAT_POLICIES if p)}")
 
     @property
     def total_vocab(self) -> int:
@@ -129,9 +190,10 @@ def resolve_attn(name: str) -> Callable:
                          f"want one of {sorted(ATTN_IMPLS)}") from None
 
 
-def param_tree(gcfg: GPT2Config) -> Dict:
+def param_tree(gcfg: GPT2Config, mc_head: bool = True) -> Dict:
     """Nested dict of parameter shapes, named as Flax names them under
-    ``scan_layers`` (block leaves stacked over the layers)."""
+    ``scan_layers`` (block leaves stacked over the layers); ``mc_head``
+    False gives ``GPT2LMHead``'s tree."""
     E, L = gcfg.n_embd, gcfg.n_layer
 
     def dense(n_in, n_out):
@@ -140,24 +202,24 @@ def param_tree(gcfg: GPT2Config) -> Dict:
     def norm(shape):
         return {"bias": shape, "scale": shape}
 
-    return {"params": {
-        "mc_head": {"kernel": (E, 1)},
-        "transformer": {
-            "h": {"block": {
-                "c_attn": dense(E, 3 * E), "c_fc": dense(E, 4 * E),
-                "c_proj": dense(E, E), "ln_1": norm((L, E)),
-                "ln_2": norm((L, E)), "mlp_proj": dense(4 * E, E)}},
-            "ln_f": norm((E,)),
-            "wpe": (gcfg.n_positions, E),
-            "wte": (gcfg.total_vocab, E),
-        }}}
+    tree = {"transformer": {
+        "h": {"block": {
+            "c_attn": dense(E, 3 * E), "c_fc": dense(E, 4 * E),
+            "c_proj": dense(E, E), "ln_1": norm((L, E)),
+            "ln_2": norm((L, E)), "mlp_proj": dense(4 * E, E)}},
+        "ln_f": norm((E,)),
+        "wpe": (gcfg.n_positions, E),
+        "wte": (gcfg.total_vocab, E),
+    }}
+    if mc_head:
+        tree["mc_head"] = {"kernel": (E, 1)}
+    return {"params": tree}
 
 
-class GPT2DoubleHeads(nn.Module):
-    """``forward(input_ids, mc_token_ids, token_type_ids, flat)`` ->
-    (lm_logits float32 (..., S, V), mc_logits float32 (...,)), inputs
-    (..., S) and (...,) int64; ``flat`` defaults to the module's own
-    weights."""
+class _GPT2(nn.Module):
+    """The backbone over one flat weight vector; the heads subclass it."""
+
+    mc_head = True
 
     def __init__(self, gcfg: GPT2Config, attn_impl: str = "dense",
                  generator: Optional[torch.Generator] = None):
@@ -165,7 +227,10 @@ class GPT2DoubleHeads(nn.Module):
         self.gcfg = gcfg
         self.attn_impl = attn_impl
         self.attn = resolve_attn(attn_impl)
-        self.layout: List[Tuple[str, Tuple]] = ravel_layout(param_tree(gcfg))
+        self.layout: List[Tuple[str, Tuple]] = ravel_layout(
+            param_tree(gcfg, self.mc_head))
+        policy = REMAT_POLICIES[gcfg.remat_policy] if gcfg.remat else None
+        self._remat = None if policy is None else _remat_context(policy)
         self.num_params = sum(math.prod(s) for _, s in self.layout)
         self.flat = nn.Parameter(torch.empty(self.num_params))
         self.reset_parameters(generator)
@@ -195,17 +260,17 @@ class GPT2DoubleHeads(nn.Module):
         return {path[len("params/"):]: piece.view(shape)
                 for (path, shape), piece in zip(self.layout, pieces)}
 
-    def _block(self, x, p, i):
+    def _block(self, x, p):
+        """One block on its layer's parameter views ``p``."""
         g = self.gcfg
         H, D, dt = g.n_head, g.n_embd // g.n_head, g.compute_dtype
 
         def ln(y, name):
-            return F.layer_norm(y.float(), (g.n_embd,), p[f"{name}/scale"][i],
-                                p[f"{name}/bias"][i], g.layer_norm_eps)
+            return F.layer_norm(y.float(), (g.n_embd,), p[f"{name}/scale"],
+                                p[f"{name}/bias"], g.layer_norm_eps)
 
         def dense(y, name):
-            return y @ p[f"{name}/kernel"][i].to(dt) \
-                + p[f"{name}/bias"][i].to(dt)
+            return y @ p[f"{name}/kernel"].to(dt) + p[f"{name}/bias"].to(dt)
 
         qkv = dense(ln(x, "ln_1").to(dt), "c_attn")
         q, k, v = (t.unflatten(-1, (H, D))
@@ -215,10 +280,11 @@ class GPT2DoubleHeads(nn.Module):
         h = F.gelu(dense(ln(x, "ln_2").to(dt), "c_fc"), approximate="tanh")
         return x + dense(h, "mlp_proj")
 
-    def hidden_and_mc(self, input_ids, mc_token_ids, token_type_ids=None,
-                      flat: Optional[torch.Tensor] = None):
-        """The backbone without the LM projection: ``(hidden float32
-        (..., S, E), wte, mc_logits float32 (...,))``."""
+    def hidden(self, input_ids, token_type_ids=None,
+               flat: Optional[torch.Tensor] = None):
+        """The backbone: ``(hidden float32 (..., S, E), wte, P)``, ``P``
+        the parameter views keyed without ``transformer/``. Under
+        ``remat`` each block runs checkpointed while autograd records."""
         g = self.gcfg
         P = {k[len("transformer/"):] if k.startswith("transformer/") else k: v
              for k, v in self.views(self.flat if flat is None
@@ -226,18 +292,43 @@ class GPT2DoubleHeads(nn.Module):
         # the stacked block leaves split once into per-layer views: the
         # backward then stacks the layers' gradients in one pass, where a
         # per-layer index would fill and add a whole stack for each layer
-        p = {k[len("h/block/"):]: v.unbind(0) for k, v in P.items()
-             if k.startswith("h/block/")}
+        stacked = {k[len("h/block/"):]: v.unbind(0) for k, v in P.items()
+                   if k.startswith("h/block/")}
+        layers = [{k: v[i] for k, v in stacked.items()}
+                  for i in range(g.n_layer)]
         S = input_ids.shape[-1]
         wte = P["wte"]
         x = F.embedding(input_ids, wte) + P["wpe"][:S]
         if token_type_ids is not None:
             x = x + F.embedding(token_type_ids, wte)
         x = x.to(g.compute_dtype)
-        for i in range(g.n_layer):
-            x = self._block(x, p, i)
+        remat = self._remat is not None and torch.is_grad_enabled()
+        for p in layers:
+            # a block draws no random numbers and its recompute gives the
+            # forward's shapes (and bits), so the checkpoint keeps no RNG
+            # state and records no per-tensor metadata: both cost the host
+            # a Python call for each tensor the block saves
+            x = (checkpoint(self._block, x, p, use_reentrant=False,
+                            context_fn=self._remat, preserve_rng_state=False,
+                            determinism_check="none")
+                 if remat else self._block(x, p))
         hidden = F.layer_norm(x.float(), (g.n_embd,), P["ln_f/scale"],
                               P["ln_f/bias"], g.layer_norm_eps)
+        return hidden, wte, P
+
+
+class GPT2DoubleHeads(_GPT2):
+    """``forward(input_ids, mc_token_ids, token_type_ids, flat)`` ->
+    (lm_logits float32 (..., S, V), mc_logits float32 (...,)), inputs
+    (..., S) and (...,) int64; ``flat`` defaults to the module's own
+    weights."""
+
+    def hidden_and_mc(self, input_ids, mc_token_ids, token_type_ids=None,
+                      flat: Optional[torch.Tensor] = None):
+        """The backbone without the LM projection: ``(hidden float32
+        (..., S, E), wte, mc_logits float32 (...,))``."""
+        g = self.gcfg
+        hidden, wte, P = self.hidden(input_ids, token_type_ids, flat)
         mc_hidden = torch.gather(
             hidden, -2, mc_token_ids[..., None, None].expand(
                 mc_token_ids.shape + (1, g.n_embd)))[..., 0, :]
@@ -249,3 +340,175 @@ class GPT2DoubleHeads(nn.Module):
         hidden, wte, mc_logits = self.hidden_and_mc(
             input_ids, mc_token_ids, token_type_ids, flat)
         return hidden @ wte.T, mc_logits
+
+
+class GPT2LMHead(_GPT2):
+    """The LM-only model: ``forward(input_ids, token_type_ids, flat)`` ->
+    float32 logits (..., S, V) of the tied LM head; its layout has no
+    ``mc_head``."""
+
+    mc_head = False
+
+    def forward(self, input_ids, token_type_ids=None,
+                flat: Optional[torch.Tensor] = None):
+        hidden, wte, _ = self.hidden(input_ids, token_type_ids, flat)
+        return hidden @ wte.T
+
+
+# HF GPT-2's Conv1D weights are already (in, out), as the Dense kernels
+_HF_OF = {("c_attn", "kernel"): "attn.c_attn.weight",
+          ("c_attn", "bias"): "attn.c_attn.bias",
+          ("c_proj", "kernel"): "attn.c_proj.weight",
+          ("c_proj", "bias"): "attn.c_proj.bias",
+          ("c_fc", "kernel"): "mlp.c_fc.weight",
+          ("c_fc", "bias"): "mlp.c_fc.bias",
+          ("mlp_proj", "kernel"): "mlp.c_proj.weight",
+          ("mlp_proj", "bias"): "mlp.c_proj.bias",
+          ("ln_1", "scale"): "ln_1.weight",
+          ("ln_1", "bias"): "ln_1.bias",
+          ("ln_2", "scale"): "ln_2.weight",
+          ("ln_2", "bias"): "ln_2.bias"}
+
+
+def load_state_dict(target: Union[nn.Module, torch.Tensor],
+                    gcfg: GPT2Config,
+                    sd: Mapping[str, np.ndarray]) -> torch.Tensor:
+    """The flat float32 weights (on the CPU) of ``target`` (a
+    ``GPT2DoubleHeads`` or ``GPT2LMHead``, or either's flat vector) with
+    the backbone taken from an HF-GPT-2-layout ``name -> array`` mapping
+    (``wte.weight``, ``h.<i>.attn.c_attn.weight``, ...), as the JAX
+    package's ``load_state_dict`` fills its tree: ``wte`` padded for the
+    added special tokens with the mean row, ``wpe`` cut to
+    ``n_positions``, the layers stacked; ``mc_head`` keeps ``target``'s
+    value. A missing key raises ``KeyError``, a wrong shape
+    ``ValueError``."""
+    if isinstance(target, nn.Module):
+        layout, flat = target.layout, target.flat
+    else:
+        flat = target
+        layouts = [ravel_layout(param_tree(gcfg, mc)) for mc in (True, False)]
+        layout = next((lay for lay in layouts if flat.numel() == sum(
+            math.prod(s) for _, s in lay)), None)
+        if layout is None:
+            raise ValueError(f"a flat vector of {flat.numel()} floats is "
+                             "neither GPT-2 head's layout at this config")
+    sizes = [math.prod(s) for _, s in layout]
+    leaves = {path: piece.view(shape).numpy().copy() for (path, shape), piece
+              in zip(layout, torch.split(flat.detach().float().cpu(), sizes))}
+
+    def put(path, value):
+        value = np.array(value, np.float32)
+        want = leaves[path].shape
+        if tuple(want) != value.shape:
+            raise ValueError(
+                f"HF weight shape {value.shape} does not match target leaf "
+                f"{path!r} shape {tuple(want)}")
+        leaves[path] = value
+
+    tr = "params/transformer/"
+    wte = np.asarray(sd["wte.weight"])
+    pad = gcfg.total_vocab - wte.shape[0]
+    if pad < 0:
+        raise ValueError(f"HF wte has {wte.shape[0]} rows, more than the "
+                         f"model's {gcfg.total_vocab}")
+    put(tr + "wte", np.concatenate(
+        [wte, np.tile(wte.mean(0, keepdims=True), (pad, 1))], 0))
+    put(tr + "wpe", np.asarray(sd["wpe.weight"])[:gcfg.n_positions])
+    for (mod, leaf), hf_name in _HF_OF.items():
+        put(f"{tr}h/block/{mod}/{leaf}", np.stack(
+            [np.asarray(sd[f"h.{i}.{hf_name}"])
+             for i in range(gcfg.n_layer)]))
+    put(tr + "ln_f/scale", sd["ln_f.weight"])
+    put(tr + "ln_f/bias", sd["ln_f.bias"])
+    return torch.cat([torch.from_numpy(leaves[path]).reshape(-1)
+                      for path, _ in layout])
+
+
+# safetensors dtype names -> numpy (little-endian); BF16 is widened
+_SAFETENSORS_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2",
+                       "I64": "<i8", "I32": "<i4", "I16": "<i2", "I8": "i1",
+                       "U8": "u1", "BOOL": "?"}
+
+
+def read_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """Every tensor of a ``.safetensors`` file (the documented format: an
+    8-byte little-endian header length, a JSON header of ``name ->
+    {dtype, shape, data_offsets}``, then the raw little-endian buffers),
+    as numpy arrays; bf16 tensors come back as float32."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = f.read()
+    out = {}
+    for name, entry in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = entry["data_offsets"]
+        buf = data[begin:end]
+        if entry["dtype"] == "BF16":
+            arr = (np.frombuffer(buf, "<u2").astype(np.uint32)
+                   << 16).view(np.float32)
+        else:
+            arr = np.frombuffer(buf, _SAFETENSORS_DTYPES[entry["dtype"]])
+        out[name] = arr.reshape(entry["shape"])
+    return out
+
+
+def hf_checkpoint_dir(checkpoint: str) -> Optional[str]:
+    """The directory of a local HF checkpoint: ``checkpoint`` itself, or
+    for a hub name (``gpt2``, ``org/name``) its snapshot in the hub cache
+    (``HF_HUB_CACHE``, else ``HF_HOME/hub``, else
+    ``~/.cache/huggingface/hub``; the revision ``refs/main`` names, else
+    the newest snapshot); None when there is none."""
+    if os.path.isdir(checkpoint):
+        return checkpoint
+    hub = os.environ.get("HF_HUB_CACHE") or os.path.join(
+        os.environ.get("HF_HOME") or os.path.join(
+            os.path.expanduser("~"), ".cache", "huggingface"), "hub")
+    repo = os.path.join(hub, "models--" + checkpoint.replace("/", "--"))
+    snapshots = os.path.join(repo, "snapshots")
+    ref = os.path.join(repo, "refs", "main")
+    if os.path.isfile(ref):
+        with open(ref) as f:
+            path = os.path.join(snapshots, f.read().strip())
+        return path if os.path.isdir(path) else None
+    if not os.path.isdir(snapshots):
+        return None
+    revs = [os.path.join(snapshots, r) for r in os.listdir(snapshots)]
+    revs = [r for r in revs if os.path.isdir(r)]
+    return max(revs, key=os.path.getmtime) if revs else None
+
+
+def read_hf_state_dict(checkpoint: str) -> Optional[Dict[str, np.ndarray]]:
+    """The GPT-2 state dict of a local HF checkpoint (``model.safetensors``
+    or ``pytorch_model.bin``, read without ``transformers``) as float32
+    numpy arrays, keys without the ``transformer.`` prefix of an LM-head
+    checkpoint (as ``GPT2Model.from_pretrained`` strips it); None when
+    there is no such file."""
+    root = hf_checkpoint_dir(checkpoint)
+    if root is None:
+        return None
+    st, pt = (os.path.join(root, n) for n in ("model.safetensors",
+                                               "pytorch_model.bin"))
+    if os.path.isfile(st):
+        sd = read_safetensors(st)
+    elif os.path.isfile(pt):
+        sd = {k: v.float().numpy() if v.is_floating_point() else v.numpy()
+              for k, v in torch.load(pt, map_location="cpu",
+                                     weights_only=True).items()}
+    else:
+        return None
+    prefix = "transformer."
+    return {k[len(prefix):] if k.startswith(prefix) else k: v
+            for k, v in sd.items()}
+
+
+def load_hf_weights(target: Union[nn.Module, torch.Tensor],
+                    gcfg: GPT2Config,
+                    checkpoint: str = "gpt2") -> Optional[torch.Tensor]:
+    """``load_state_dict`` of a local HF checkpoint (a directory, or a hub
+    name found in the hub cache): the flat weights, or None when there is
+    no checkpoint (the caller trains from scratch). Mapping errors
+    propagate."""
+    sd = read_hf_state_dict(checkpoint)
+    return None if sd is None else load_state_dict(target, gcfg, sd)

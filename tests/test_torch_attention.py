@@ -29,22 +29,10 @@ from commefficient_torch.models import gpt2 as tgpt2
 from commefficient_torch.ops import flash_attention as flash
 
 
-def _fix_reference_import():
-    """jax 0.9's ``PrimitiveBatchersProxy`` has no ``__contains__``, which
-    ``commefficient_tpu/utils/jax_compat.py`` needs at import time. This
-    gives it one, from the test's side only; it is process-global."""
-    from jax._src.interpreters import batching
-    proxy = getattr(batching, "PrimitiveBatchersProxy", None)
-    if proxy is not None and "__contains__" not in vars(proxy):
-        proxy.__contains__ = (
-            lambda self, k: k in batching.fancy_primitive_batchers)
-
-
 @pytest.fixture(scope="module")
 def ref():
     """``(jax, jax.numpy, the JAX package's models.gpt2)``."""
     jax = pytest.importorskip("jax")
-    _fix_reference_import()
     try:
         from commefficient_tpu.models import gpt2 as jgpt2
     except ImportError as e:

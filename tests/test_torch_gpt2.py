@@ -23,19 +23,6 @@ import pytest
 import torch
 
 
-def _fix_reference_import():
-    """jax 0.9's ``PrimitiveBatchersProxy`` has no ``__contains__``, which
-    ``commefficient_tpu/utils/jax_compat.py`` needs at import time. This
-    gives it one, from the test's side only; it is process-global."""
-    from jax._src.interpreters import batching
-    proxy = getattr(batching, "PrimitiveBatchersProxy", None)
-    if proxy is not None and "__contains__" not in vars(proxy):
-        proxy.__contains__ = (
-            lambda self, k: k in batching.fancy_primitive_batchers)
-
-
-_fix_reference_import()
-
 from jax.flatten_util import ravel_pytree  # noqa: E402
 
 from commefficient_tpu.config import FedConfig as JConfig  # noqa: E402
@@ -285,9 +272,10 @@ def test_gpt2_train_runs_on_cpu(tmp_path, capsys, extra, rounds):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--remat"], "--remat"), (["--remat_policy", "x"], "--remat_policy"),
-    (["--lm_chunk", "64"], "--lm_chunk"), (["--mesh_shape", "2"],
-                                           "--mesh_shape"),
+    (["--mesh_axes", "clients,seq"], "--mesh_axes"),
+    (["--sketch_scan_rows"], "--sketch_scan_rows"),
+    (["--async_agg"], "--async_agg"), (["--mesh_shape", "2"],
+                                       "--mesh_shape"),
     (["--wire_dtype", "int8"], "--wire_dtype")])
 def test_gpt2_train_rejects_flags_outside_the_slice(flags, name):
     with pytest.raises(ValueError, match=name):

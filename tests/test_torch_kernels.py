@@ -299,15 +299,8 @@ def _bits(x):
 def _jax_median_axis0():
     """The JAX package's median_axis0, imported here (this file runs
     without JAX too; the test skips where the JAX package cannot be
-    imported). jax 0.9's ``PrimitiveBatchersProxy`` lacks the
-    ``__contains__`` that the package's jax_compat needs at import; it is
-    given one first, as tests/test_torch_ops.py does."""
+    imported)."""
     pytest.importorskip("jax")
-    from jax._src.interpreters import batching
-    proxy = getattr(batching, "PrimitiveBatchersProxy", None)
-    if proxy is not None and "__contains__" not in vars(proxy):
-        proxy.__contains__ = (
-            lambda self, k: k in batching.fancy_primitive_batchers)
     try:
         topk = importlib.import_module("commefficient_tpu.ops.topk")
     except ImportError as e:

@@ -19,19 +19,6 @@ import pytest
 import torch
 
 
-def _fix_reference_import():
-    """jax 0.9's ``PrimitiveBatchersProxy`` has no ``__contains__``, which
-    ``commefficient_tpu/utils/jax_compat.py`` needs at import time. This
-    gives it one, from the test's side only; it is process-global."""
-    from jax._src.interpreters import batching
-    proxy = getattr(batching, "PrimitiveBatchersProxy", None)
-    if proxy is not None and "__contains__" not in vars(proxy):
-        proxy.__contains__ = (
-            lambda self, k: k in batching.fancy_primitive_batchers)
-
-
-_fix_reference_import()
-
 from commefficient_tpu.config import FedConfig as JConfig  # noqa: E402
 from commefficient_tpu.core import FedRuntime as JRuntime  # noqa: E402
 from commefficient_tpu.core.server import \

@@ -18,8 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_modes import _fix_reference_import  # noqa: F401
-
 from chip_smoke import zeroed_table  # noqa: E402
 from commefficient_tpu.ops import rht as jrht  # noqa: E402
 from commefficient_tpu.ops import sketch as jsketch  # noqa: E402
