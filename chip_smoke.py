@@ -31,7 +31,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    operations and the instructions a term needs (``bound``) over the
    card's rates, and print two measured floors of the L2 read rate
    outside the bound: a PyTorch reduction's (``l2_read_rate``) and that
-   of the kernels' own r gathers;
+   of the kernels' own r gathers; K1/K2 also at the StreamMLP shape (d =
+   102,830,080, m = 197); K1's range form (``phase_kernels_range``) at
+   the GPT-2 and StreamMLP shapes, bitwise its plain version, fresh and
+   accumulating, over ``range_cases`` (on a block boundary, straddling
+   one, inside one, ending at d, one value, the whole vector, which must
+   also give the whole-vector call's bits), the weight-sized (4,194,304)
+   and bias-sized (2,048) ranges timed beside their bounds;
 3. hold K3 (causal flash attention: forward, dq, dk/dv) against its plain
    versions at (N, H, S, D) = (8, 12, 1024, 64) and (8, 12, 256, 64), q,
    k, v the slices of one c_attn-shaped buffer, each output row against
@@ -44,7 +50,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    (forward, backward and both) beside each kernel's bound;
 4. small-input checks: three rounds of a narrow ResNet-9 on the card
    (float32, TF32 off) against the same rounds on the CPU, whose wrappers
-   take the plain versions; a narrow GPT-2 (2 layers, width 128, 2 heads
+   take the plain versions, on the float32 and on the int8 wire; a narrow GPT-2 (2 layers, width 128, 2 heads
    of 64, S = 128, bf16, K3 on the card, full-length random tokens) on
    the card against the CPU: one client's c_attn q/k/v gradient and three
    rounds, within NARROW_LIMITS, and the same runs with a planted fault
@@ -68,7 +74,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    just before and read just after; requires 9 encode and 1 decode launch
    per round and finite losses; prints the median round time (of the
    rounds after the first), img/s and peak memory; then the same with
-   ``--no_track_bytes``;
+   ``--no_track_bytes``; then each of ``WIRE_ARMS`` (``phase_wire``:
+   ``--wire_dtype bfloat16``, ``--sketch_dtype bfloat16``, ``--wire_dtype
+   int8`` twice, with ``--max_grad_norm 1`` and with the hash sketch), 3
+   rounds each, exact K1/K2 launches, every round's bytes a client held
+   to the arm's (5,007,360 bf16, 2,542,800 int8) and to
+   ``upload_wire_bytes``, the alias's warning and bits equal to the bf16
+   arm's, the two int8 runs bitwise equal;
 7. ``cv_train`` in every mode of the single-device round
    (``MODE_CONFIGS``: uncompressed, true_topk, local_topk with local
    error and momentum rows, fedavg with whole-client batches, sketch
@@ -95,7 +107,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    at r c = d) at the same widths, 3 rounds each, exact K1/K2 launches a
    round (16 + 1 for the table clip and ``--topk_down``, 1 + 1 for the
    dense clip, DP and the dense state, none for hash, rht and the
-   uncompressed DP run) and the bytes held as in the modes;
+   uncompressed DP run) and the bytes held as in the modes; then the
+   SRHT's row scan (``phase_rht_scan``): one ResNet-9 round with
+   ``--sketch_scan_rows 1`` against ``0``, the update within
+   RHT_SCAN_RTOL, and GPT2_RHT_ARMS at GPT-2's width (the automatic scan
+   at d' = 2^27, ``--sketch_scan_rows 0``, ``--sketch_dtype bfloat16``),
+   3 rounds each, no K1/K2, median and peak memory, the scan's peak below
+   the batched form's;
 8. real-format data, checkpoints and resume (``phase_real_data_resume``):
    a full-scale ``cifar-10-batches-py`` (50,000 train and 10,000 test
    images of ``synthetic_cifar``) is written to a temporary directory;
@@ -123,8 +141,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    arms of the JAX package's GPT-2 study at the main path's k
    (``GPT2_ARMS``: the table clip ``--max_grad_norm 1``, 16 K1 a round,
    and ``densestate_clip1``, 1 K1), 3 rounds each, with the same launch
-   checks; then GPT-2's memory levers (``phase_gpt2_levers``): the base
-   arm and ``GPT2_LEVER_ARMS`` (``--lm_chunk 128``, ``--remat``,
+   checks; then ``--wire_dtype int8`` (3 rounds, 9 K1 + 1 K2 a round,
+   2,662,400 bytes a client a round); then GPT-2's memory levers
+   (``phase_gpt2_levers``): the base arm and ``GPT2_LEVER_ARMS`` (``--lm_chunk 128``, ``--remat``,
    ``--remat --remat_policy dots_with_no_batch_dims_saveable``, ``--remat
    --lm_chunk 128``), 3 rounds each, exact launches (192 K3 forward a
    round under ``--remat``), each arm's median round and peak memory
@@ -174,8 +193,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    the saved one); the reference API (``phase_compat``: ``FedModel``'s
    ResNet-9 sketch round on the card with the driver's 9 K1 and 1 K2 a
    step);
-12. print the ``{"kernels": [...]}`` line, the card's name and power limit,
-   and last the ``{"ok": true, ...}`` line.
+12. the streaming encode (``phase_stream``): ``FedRuntime`` on a
+   StreamMLP (L = 24, H = 2,048, d_in = 1,024, d = 102,830,080), r = 5,
+   c = 524,288, 8 clients x 32, 3 rounds, with the loss's
+   ``streaming_grad`` and without: exact launches (50 K1 ranges a
+   microbatch with the hook), the first round's losses equal and its
+   updates within STREAM_UPDATE_RTOL, the client step's peak above its
+   resident memory under d 4 bytes with the hook, at least d 4 without;
+13. print the ``{"kernels": [...]}`` line (K1's range launches and
+   range timings in its entry), the card's name and power limit, and last
+   the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device it fails at once.
@@ -1090,7 +1117,9 @@ def phase_flash():
 
 def phase_small_reference():
     """Narrow ResNet-9 rounds: the card (kernels) against the CPU (plain
-    versions). float32 with TF32 off on the card, so only summation order
+    versions), on the float32 wire and on the int8 wire (``--wire_dtype
+    int8``, block 256: the rounding draws are the same bits on both
+    devices). float32 with TF32 off on the card, so only summation order
     differs: losses to rtol 1e-4, weights to atol 1e-5."""
     import numpy as np
     import torch
@@ -1102,35 +1131,38 @@ def phase_small_reference():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     ch = {"prep": 8, "layer1": 16, "layer2": 16, "layer3": 32}
-    cfg = FedConfig(mode="sketch", error_type="virtual", local_momentum=0.0,
-                    virtual_momentum=0.9, weight_decay=5e-4, k=200,
-                    num_rows=5, num_cols=4096, num_workers=2,
-                    local_batch_size=8, compute_dtype="float32")
-    runs = {}
-    for device in ("cpu", "cuda"):
-        model = ResNet9(channels=ch,
-                        generator=torch.Generator().manual_seed(0))
-        rt = FedRuntime(cfg, model, make_cv_loss(model, "float32"),
-                        device=device)
-        st = rt.init_state()
-        rng = np.random.RandomState(0)
-        losses = []
-        for rnd in range(3):
-            batch = {"image": rng.randn(2, 8, 32, 32, 3).astype(np.float32),
-                     "target": rng.randint(0, 10, (2, 8))}
-            st, met = rt.round(st, np.arange(2), batch, np.ones((2, 8), bool),
-                               0.1 * (rnd + 1))
-            losses.append(met["results"][0].cpu().numpy())
-        runs[device] = (np.stack(losses), st.ps_weights.cpu().numpy())
+    for wire in ("float32", "int8"):
+        cfg = FedConfig(mode="sketch", error_type="virtual",
+                        local_momentum=0.0, virtual_momentum=0.9,
+                        weight_decay=5e-4, k=200, num_rows=5,
+                        num_cols=4096, num_workers=2, local_batch_size=8,
+                        compute_dtype="float32", wire_dtype=wire)
+        runs = {}
+        for device in ("cpu", "cuda"):
+            model = ResNet9(channels=ch,
+                            generator=torch.Generator().manual_seed(0))
+            rt = FedRuntime(cfg, model, make_cv_loss(model, "float32"),
+                            device=device)
+            st = rt.init_state()
+            rng = np.random.RandomState(0)
+            losses = []
+            for rnd in range(3):
+                batch = {"image": rng.randn(2, 8, 32, 32, 3).astype(
+                    np.float32), "target": rng.randint(0, 10, (2, 8))}
+                st, met = rt.round(st, np.arange(2), batch,
+                                   np.ones((2, 8), bool), 0.1 * (rnd + 1))
+                losses.append(met["results"][0].cpu().numpy())
+            runs[device] = (np.stack(losses), st.ps_weights.cpu().numpy())
+        (l_cpu, w_cpu), (l_gpu, w_gpu) = runs["cpu"], runs["cuda"]
+        dl = float(np.abs(l_gpu - l_cpu).max())
+        dw = float(np.abs(w_gpu - w_cpu).max())
+        print(f"[reference] narrow ResNet-9, {wire} wire, 3 rounds, card vs "
+              f"CPU: max|dloss| {dl:.3e}, max|dw| {dw:.3e}", flush=True)
+        if not np.allclose(l_gpu, l_cpu, rtol=1e-4, atol=0) or dw > 1e-5:
+            fail(f"the card's rounds on the {wire} wire disagree with the "
+                 "CPU's plain rounds")
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
-    (l_cpu, w_cpu), (l_gpu, w_gpu) = runs["cpu"], runs["cuda"]
-    dl = float(np.abs(l_gpu - l_cpu).max())
-    dw = float(np.abs(w_gpu - w_cpu).max())
-    print(f"[reference] narrow ResNet-9, 3 rounds, card vs CPU: max|dloss| "
-          f"{dl:.3e}, max|dw| {dw:.3e}", flush=True)
-    if not np.allclose(l_gpu, l_cpu, rtol=1e-4, atol=0) or dw > 1e-5:
-        fail("the card's rounds disagree with the CPU's plain rounds")
 
 
 def narrow_gpt2_batch(rng, W, B, C, S, vocab):
@@ -1405,23 +1437,23 @@ class RoundRecorder:
     def __exit__(self, *exc):
         self.cls.round = self.orig
 
-    def check_bytes(self, label: str) -> int:
-        """Upload bytes 4 x upload_floats for each participant and 0 for
-        the others; download bytes 4 x a plain recount on the card,
-        ``(coord_last_update >= t).sum()``. Returns the rounds checked."""
+    def check_bytes(self, label: str, want_up=None) -> int:
+        """Upload bytes ``want_up`` (default 4 x upload_floats, the
+        float32 wire) for each participant and 0 for the others; download
+        bytes 4 x a plain recount on the card, ``(coord_last_update >=
+        t).sum()``. Returns the rounds checked."""
         import torch
         for cfg, ids, (cul, thr), m in self.rounds:
             up, down = m["upload_bytes"], m["download_bytes"]
+            want = 4.0 * cfg.upload_floats if want_up is None else want_up
             plain = torch.stack([(cul >= t).sum() for t in thr])
             others = torch.ones_like(up, dtype=torch.bool)
             others[ids] = False
-            if not (torch.equal(up[ids], torch.full_like(
-                        up[ids], 4.0 * cfg.upload_floats))
+            if not (torch.equal(up[ids], torch.full_like(up[ids], want))
                     and not up[others].any() and not down[others].any()
                     and torch.equal(down[ids], 4.0 * plain.float())):
                 fail(f"{label}: byte accounting disagrees: up {up[ids]}, "
-                     f"want {4 * cfg.upload_floats}; down {down[ids]}, "
-                     f"plain {4 * plain}")
+                     f"want {want}; down {down[ids]}, plain {4 * plain}")
         return len(self.rounds)
 
 
@@ -1894,7 +1926,8 @@ GPT2_ARGV = ["--mode", "sketch", "--error_type", "virtual",
 
 def phase_gpt2_main(extra=(), n_rounds: int = GPT2_ROUNDS,
                     encodes: int = 9, fwd: int = GPT2_PER_ROUND["flash_fwd"],
-                    keep: bool = False):
+                    keep: bool = False, decodes: int = 1,
+                    want_up=None):
     """``n_rounds`` GPT-2 rounds at GPT-2 small's width through the user's
     entry point, each round an epoch with its validation; ``extra`` flags
     after the main path's. Every round must launch exactly GPT2_PER_ROUND
@@ -1905,7 +1938,10 @@ def phase_gpt2_main(extra=(), n_rounds: int = GPT2_ROUNDS,
     launches of the rounds and of the validations, the median round time
     (ms) and ``info``: the peak memory (bytes), the round losses and,
     with ``keep``, the first round's weights before and after it and the
-    final weights (on the host)."""
+    final weights (on the host). With ``want_up``, each round's upload
+    bytes a participant are held to it (``RoundRecorder``)."""
+    import contextlib
+
     import numpy as np
     import torch
     from commefficient_torch import gpt2_train
@@ -1913,15 +1949,20 @@ def phase_gpt2_main(extra=(), n_rounds: int = GPT2_ROUNDS,
     from commefficient_torch.ops import flash_attention as FA
 
     argv = [*GPT2_ARGV, "--num_rounds", str(n_rounds), *extra]
-    per_round = dict(GPT2_PER_ROUND, circ_encode=encodes, flash_fwd=fwd)
+    per_round = dict(GPT2_PER_ROUND, circ_encode=encodes, flash_fwd=fwd,
+                     circ_decode=decodes)
     tag = " ".join(extra) or "bytes on"
     print("[gpt2] python -m commefficient_torch.gpt2_train " + " ".join(argv),
           flush=True)
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     FA.reset_launches()
-    with LaunchSplit(gpt2_train.kernel_launches, keep) as split:
+    with LaunchSplit(gpt2_train.kernel_launches, keep) as split, \
+            (RoundRecorder() if want_up is not None
+             else contextlib.nullcontext()) as rec:
         out = gpt2_train.main(argv)
+    if rec is not None:
+        rec.check_bytes(" ".join(extra), want_up)
     total = gpt2_train.kernel_launches()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
@@ -1964,7 +2005,8 @@ def phase_gpt2_main(extra=(), n_rounds: int = GPT2_ROUNDS,
           f"MiB down, {out['total_upload_mib']:.1f} MiB up; launches "
           f"measured around each call: rounds {rounds}, validation "
           f"({out['val_batches']} batches) {val}", flush=True)
-    info = {"peak": peak, "losses": [float(x) for x in out["losses"]]}
+    info = {"peak": peak, "losses": [float(x) for x in out["losses"]],
+            "upload_mib": out["total_upload_mib"]}
     if keep:
         info["first_weights"] = split.first_weights
         info["final"] = out["state"].ps_weights.cpu()
@@ -3320,6 +3362,361 @@ def phase_compat():
     return train_launches
 
 
+# ---- the sketch wire, the SRHT's row scan, the streaming encode
+
+# StreamMLP at the streaming encode's card shape: d = 102,830,080
+# (d 4 = 411 MB), r = 5, c = 524,288 (m = 197), k = 50,000, 8 clients x
+# 32 samples, 3 rounds; a microbatch streams 2 L + 2 = 50 K1 ranges
+STREAM = dict(L=24, H=2048, d_in=1024, classes=10)
+STREAM_SKETCH = dict(d=102_830_080, c=524_288, r=5)
+STREAM_ROUNDS = 3
+STREAM_W, STREAM_B = 8, 32
+# the first round's update with the hook against the flat path: the same
+# gradient values summed into the table in another order, then the top-k
+# of 50,000 of 102.8 M estimates (a coordinate at the edge may swap)
+STREAM_UPDATE_RTOL = 1e-2
+# K1's range form: the weight- and bias-sized ranges timed, and the
+# ranges held bitwise to the plain version (start, n), d the shape's
+RANGE_WEIGHT = 4 * 1024 * 1024
+RANGE_BIAS = 2048
+
+
+def range_cases(d: int, c: int):
+    """(label, start, n) of the K1 ranges checked bitwise: on a block
+    boundary, straddling one, inside one block, ending at d, one value,
+    and the whole vector."""
+    return [("block boundary, weight-sized", 5 * c, RANGE_WEIGHT),
+            ("straddling a boundary", 7 * c - 1000, 5000),
+            ("inside one block, bias-sized", 10 * c + 100, RANGE_BIAS),
+            ("ending at d", d - 3_000_000, 3_000_000),
+            ("one value", d // 2, 1),
+            ("whole vector", 0, d)]
+
+
+def phase_kernels_range(shape: dict, scale: float, plain_n: int = 5):
+    """K1's range form at (d, c, r) of ``shape``: each of ``range_cases``
+    bitwise (``same_bits``) its plain version, fresh and accumulating, and
+    the whole range bitwise the whole-vector call (which phase_kernels
+    holds bitwise to the plain version, unchanged for the whole vector);
+    the weight- and bias-sized ranges timed beside their bounds
+    (``sketch_work`` of n values). Returns {label: timings}."""
+    import numpy as np
+    import torch
+    from commefficient_torch.ops import circulant_kernels as K
+    from commefficient_torch.ops.circulant import make_circulant_sketch
+
+    dev = torch.device("cuda")
+    d, c, r = shape["d"], shape["c"], shape["r"]
+    cs = make_circulant_sketch(d, c, r, device=dev)
+    args = (cs.shifts, cs.sign_keys, c, r, cs.m)
+    rng = np.random.RandomState(1)
+    v = torch.from_numpy(rng.randn(d).astype(np.float32)).to(dev)
+    t0 = torch.from_numpy(rng.randn(r, c).astype(np.float32)).to(dev)
+    for label, start, n in range_cases(d, c):
+        vals = v[start:start + n]
+        got = K.encode(vals, *args, start=start)
+        got_acc = K.encode(vals, *args, scale=scale, table=t0.clone(),
+                           start=start)
+        want = K.encode_plain(vals, *args, start=start)
+        want_acc = K.encode_plain(vals, *args, scale=scale, table=t0,
+                                  start=start)
+        torch.cuda.synchronize()
+        ok = same_bits(got, want) and same_bits(got_acc, want_acc)
+        print(f"[range] m={cs.m} [{start}, {start + n}) ({label}): bitwise "
+              f"{ok}", flush=True)
+        if not ok:
+            fail(f"K1's range form differs from its plain version at m="
+                 f"{cs.m}, [{start}, {start + n}): max|diff| "
+                 f"{float((got_acc - want_acc).abs().max())}")
+    whole = K.encode(v, *args)
+    if not same_bits(K.encode(v, *args, start=0), whole):
+        fail(f"K1 at start 0, n = d differs from the whole-vector call at "
+             f"m={cs.m}")
+    out = {}
+    for label, start, n in (("weight", 5 * c, RANGE_WEIGHT),
+                            ("bias", 10 * c + 100, RANGE_BIAS)):
+        vals = v[start:start + n].contiguous()
+        acc = t0.clone()
+        ms = time_ms(lambda: K.encode(vals, *args, scale=scale, table=acc,
+                                      start=start))
+        plain_ms = time_ms(lambda: K.encode_plain(
+            vals, *args, scale=scale, table=acc, start=start), n=plain_n)
+        nbytes, ops, instr = sketch_work(n, c, r)["circ_encode"]
+        b_ms, kind = bound(nbytes, ops, H100_FP32_PER_S, instr)
+        print(f"[range] m={cs.m}, {label} range of {n} values "
+              f"(accumulate): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({kind}: {nbytes / 1e6:.1f} MB, the "
+              f"table's {8 * r * c / 1e6:.1f} MB read and written)",
+              flush=True)
+        out[label] = {"n": n, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": bound_by(kind)}
+    return out
+
+
+WIRE_ROUNDS = 3
+# the ResNet-9 main path on each wire: (flags, K1 a round, K2 a round,
+# bytes a client a round); int8 at --wire_block 256 is 5 c cells plus a
+# float32 scale every 256 columns of a row
+WIRE_ARMS = {
+    "bf16": (["--wire_dtype", "bfloat16"], 9, 1, 5_007_360),
+    "sketch_dtype_alias": (["--sketch_dtype", "bfloat16"], 9, 1, 5_007_360),
+    "int8": (["--wire_dtype", "int8"], 9, 1, 2_542_800),
+    "int8_again": (["--wire_dtype", "int8"], 9, 1, 2_542_800),
+    "int8_clip": (["--wire_dtype", "int8", "--max_grad_norm", "1"], 16, 1,
+                  2_542_800),
+    "int8_hash": (["--wire_dtype", "int8", "--sketch_impl", "hash",
+                   "--num_cols", "500736"], 0, 0, 2_542_800),
+}
+
+
+def phase_wire():
+    """The ResNet-9 main path (8 x 64, k = 50,000, r = 5, c = 500,736)
+    on each of ``WIRE_ARMS`` through ``python -m
+    commefficient_torch.cv_train``, WIRE_ROUNDS rounds each: finite
+    losses, the exact K1/K2 launches a round, every round's upload bytes
+    a client held to the arm's bytes and to ``upload_wire_bytes``
+    (``RoundRecorder``); the ``--sketch_dtype`` arm warns and its state
+    is bitwise the bf16 arm's; the two int8 runs are bitwise equal.
+    Returns {arm: (launches, median round ms, bytes)}."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from commefficient_torch import cv_train
+    from commefficient_torch.ops import circulant_kernels as K
+
+    out_arms, finals = {}, {}
+    for arm, (flags, n_enc, n_dec, want_up) in WIRE_ARMS.items():
+        argv = MAIN_ARGV + dataset_flags("synthetic64") + [
+            "--num_rounds", str(WIRE_ROUNDS), *flags]
+        print(f"[wire] python -m commefficient_torch.cv_train "
+              + " ".join(argv), flush=True)
+        K.reset_launches()
+        err = io.StringIO()
+        with RoundRecorder() as rec, contextlib.redirect_stderr(err):
+            res = cv_train.main(argv)
+        sys.stderr.write(err.getvalue())
+        launches = dict(K.launches)
+        want = {"circ_encode": n_enc * WIRE_ROUNDS,
+                "circ_decode": n_dec * WIRE_ROUNDS}
+        if res["rounds"] != WIRE_ROUNDS or \
+                not np.isfinite(res["losses"]).all() or launches != want:
+            fail(f"wire {arm}: {res['rounds']} rounds, losses "
+                 f"{res['losses']}, launches {launches} (want {want})")
+        cfg = rec.rounds[0][0]
+        if cfg.upload_wire_bytes() != want_up:
+            fail(f"wire {arm}: upload_wire_bytes {cfg.upload_wire_bytes()}"
+                 f", want {want_up}")
+        rec.check_bytes(f"wire {arm}", want_up)
+        warned = "--sketch_dtype is a deprecated alias" in err.getvalue()
+        if warned != ("--sketch_dtype" in flags):
+            fail(f"wire {arm}: the deprecation warning printed {warned}")
+        finals[arm] = (res["state"].ps_weights.cpu(), res["losses"])
+        rt = statistics.median(res["round_s"][1:])
+        print(f"[wire] {arm}: median of rounds 2-{WIRE_ROUNDS} "
+              f"{rt * 1e3:.3f} ms (all: "
+              f"{[round(t * 1e3, 3) for t in res['round_s']]}), "
+              f"{want_up} bytes a client a round (float32: "
+              f"{4 * cfg.num_rows * cfg.num_cols}), losses "
+              f"{[round(float(x), 5) for x in res['losses']]}, launches "
+              f"{launches}", flush=True)
+        out_arms[arm] = (launches, rt * 1e3, want_up)
+        del res, rec
+        torch.cuda.empty_cache()
+    for a, b in (("bf16", "sketch_dtype_alias"), ("int8", "int8_again")):
+        if not (same_bits(finals[a][0], finals[b][0])
+                and finals[a][1] == finals[b][1]):
+            fail(f"wire: the {b} run is not bitwise the {a} run")
+    print("[wire] --sketch_dtype bfloat16 bitwise --wire_dtype bfloat16; "
+          "the two int8 runs bitwise equal", flush=True)
+    return out_arms
+
+
+# the SRHT at ResNet-9's width (r c >= d, the rht rule's arm): the first
+# round's update with the row scan forced against the batched form,
+# within this relative L2 (the same products in other cuBLAS shapes,
+# then the top-k of 50,000 estimates, where an edge coordinate may swap)
+RHT_SCAN_RTOL = 5e-2
+RHT_RESNET_FLAGS = ["--sketch_impl", "rht", "--num_rows", "5",
+                    "--num_cols", "1313728"]
+GPT2_RHT_ROUNDS = 3
+# bytes a client a round on GPT-2's int8 wire: 5 x 524,288 cells plus a
+# float32 scale every 256 columns of a row
+GPT2_INT8_BYTES = 2_662_400
+GPT2_RHT_ARMS = {
+    "rht auto (row scan at d' = 2^27)": [],
+    "rht --sketch_scan_rows 0": ["--sketch_scan_rows", "0"],
+    "rht --sketch_dtype bfloat16": ["--sketch_dtype", "bfloat16"],
+}
+
+
+def phase_rht_scan():
+    """The SRHT's row scan. ResNet-9 (main path's round, r = 5, c =
+    1,313,728): one round with ``--sketch_scan_rows 1`` and one with
+    ``0``, the first update's relative L2 within RHT_SCAN_RTOL. GPT-2
+    (main path's flags, ``--sketch_impl rht --allow_divergent_rht``):
+    each of GPT2_RHT_ARMS for GPT2_RHT_ROUNDS rounds, no K1/K2 and 96 of
+    each K3 a round, its median round and peak memory; the scan arm's
+    peak must sit below the batched arm's. Returns ({arm: (median ms,
+    peak bytes)}, the ResNet-9 relative L2, {arm: (launches of the
+    rounds, of the validations)})."""
+    import numpy as np
+    import torch
+    from commefficient_torch import cv_train
+    from commefficient_torch.ops import circulant_kernels as K
+
+    updates = {}
+    for flag in ("1", "0"):
+        argv = MAIN_ARGV + dataset_flags("synthetic64") + RHT_RESNET_FLAGS \
+            + ["--sketch_scan_rows", flag, "--num_rounds", "1"]
+        print("[rht] python -m commefficient_torch.cv_train "
+              + " ".join(argv), flush=True)
+        K.reset_launches()
+        with LaunchSplit(lambda: dict(K.launches), True) as split:
+            res = cv_train.main(argv)
+        before, after = split.first_weights
+        if not np.isfinite(res["losses"]).all() or any(K.launches.values()):
+            fail(f"rht scan {flag}: losses {res['losses']}, launches "
+                 f"{K.launches}")
+        updates[flag] = (before - after).double()
+    rel = float((updates["1"] - updates["0"]).norm() / updates["0"].norm())
+    print(f"[rht] ResNet-9 width, first round's update, --sketch_scan_rows "
+          f"1 against 0: relative L2 {rel:.3e} (limit {RHT_SCAN_RTOL})",
+          flush=True)
+    if not rel <= RHT_SCAN_RTOL:
+        fail(f"the SRHT's row scan moves the first update by {rel:.3e}")
+    arms, runs = {}, {}
+    for arm, flags in GPT2_RHT_ARMS.items():
+        rounds, val, ms, info = phase_gpt2_main(
+            ["--sketch_impl", "rht", "--allow_divergent_rht", *flags],
+            GPT2_RHT_ROUNDS, encodes=0, decodes=0)
+        arms[arm], runs[arm] = (ms, info["peak"]), (rounds, val)
+        torch.cuda.empty_cache()
+    print("[rht] GPT-2 SRHT arms, median round (ms) / peak memory (GiB): "
+          + ", ".join(f"{a} {ms:.3f} / {p / 2**30:.3f}"
+                      for a, (ms, p) in arms.items()), flush=True)
+    scan, batched = (arms[a][1] for a in list(GPT2_RHT_ARMS)[:2])
+    if not scan < batched:
+        fail(f"the SRHT row scan's peak {scan} is not below the batched "
+             f"form's {batched}")
+    return arms, rel, runs
+
+
+def phase_stream():
+    """The streaming encode: ``FedRuntime`` built directly on a StreamMLP
+    (STREAM: L = 24, H = 2,048, d_in = 1,024, 10 classes, d =
+    102,830,080), circulant r = 5, c = 524,288 (m = 197), k = 50,000, 8
+    clients x 32 seeded samples, STREAM_ROUNDS rounds; once with the
+    loss's ``streaming_grad`` and once without it (the flat gradient, one
+    whole-vector K1 a microbatch). Exact launches: with the hook 2 L + 2
+    K1 ranges a microbatch and one whole-vector K1 (weight decay) a
+    round, without it 8 + 1 whole-vector K1, 1 K2 either way; the first
+    round's losses equal and its updates within STREAM_UPDATE_RTOL; the
+    client step's peak allocation above what is resident before it below
+    d 4 bytes with the hook and at least d 4 without. Returns {arm:
+    (launches, range launches, median round ms, client-step peak
+    bytes)}."""
+    import numpy as np
+    import torch
+    from commefficient_torch.config import FedConfig
+    from commefficient_torch.core.runtime import FedRuntime
+    from commefficient_torch.models.stream_mlp import (init_stream_mlp,
+                                                       make_stream_mlp_loss)
+    from commefficient_torch.ops import circulant_kernels as K
+
+    L, H, d_in, C = (STREAM[k] for k in ("L", "H", "d_in", "classes"))
+    cfg = FedConfig(mode="sketch", error_type="virtual", local_momentum=0.0,
+                    virtual_momentum=0.9, k=50_000, num_rows=5,
+                    num_cols=STREAM_SKETCH["c"], num_workers=STREAM_W,
+                    local_batch_size=STREAM_B, num_clients=100)
+    rng = np.random.RandomState(0)
+    rounds = []
+    for _ in range(STREAM_ROUNDS):
+        rounds.append((rng.choice(100, STREAM_W, replace=False),
+                       {"x": rng.randn(STREAM_W, STREAM_B, d_in).astype(
+                           np.float32),
+                        "target": rng.randint(0, C, (STREAM_W, STREAM_B))},
+                       np.ones((STREAM_W, STREAM_B), bool)))
+    model = init_stream_mlp(d_in, H, L, C,
+                            generator=torch.Generator().manual_seed(0),
+                            device="cuda")
+    d = model.num_params
+    if d != STREAM_SKETCH["d"]:
+        fail(f"StreamMLP d = {d}, want {STREAM_SKETCH['d']}")
+    out, first = {}, {}
+    for arm in ("streaming_grad", "flat gradient"):
+        loss_fn = make_stream_mlp_loss(model)
+        if arm == "flat gradient":
+            plain = loss_fn
+            loss_fn = lambda f, b, m: plain(f, b, m)  # noqa: E731
+        rt = FedRuntime(cfg, model, loss_fn, device="cuda")
+        if rt.cs.m != 197 or rt._fused_fn is None:
+            fail(f"stream {arm}: m = {rt.cs.m}, fused {rt._fused_fn}")
+        fused, peaks = rt._fused_fn, []
+
+        def measured(*args, _fused=fused, _peaks=peaks):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = _fused(*args)
+            torch.cuda.synchronize()
+            _peaks.append(torch.cuda.max_memory_allocated() - base)
+            return res
+
+        rt._fused_fn = measured
+        st = rt.init_state()
+        K.reset_launches()
+        times = []
+        for i, (ids, batch, mask) in enumerate(rounds):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            w0 = st.ps_weights.clone() if i == 0 else None
+            st, met = rt.round(st, ids, batch, mask, 0.1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            if i == 0:
+                first[arm] = (met["results"][0].cpu(),
+                              (w0 - st.ps_weights).double().cpu())
+            if not torch.isfinite(met["results"][0]).all():
+                fail(f"stream {arm}: non-finite losses")
+        launches = dict(K.launches)
+        ranges = K.range_launches["circ_encode"]
+        per_mb = 2 * L + 2
+        want_ranges = (per_mb * STREAM_W * STREAM_ROUNDS
+                       if arm == "streaming_grad" else 0)
+        want = {"circ_encode": (want_ranges + STREAM_ROUNDS
+                                if arm == "streaming_grad"
+                                else (STREAM_W + 1) * STREAM_ROUNDS),
+                "circ_decode": STREAM_ROUNDS}
+        if launches != want or ranges != want_ranges:
+            fail(f"stream {arm}: launches {launches}, ranges {ranges}; want "
+                 f"{want}, {want_ranges} ranges")
+        peak = max(peaks)
+        med = statistics.median(times[1:])
+        print(f"[stream] {arm}: d = {d} (d 4 = {4 * d} bytes), m = 197: "
+              f"median of rounds 2-{STREAM_ROUNDS} {med * 1e3:.3f} ms (all:"
+              f" {[round(t * 1e3, 3) for t in times]}), launches {launches}"
+              f" ({ranges} K1 ranges, {per_mb} a microbatch), client step's"
+              f" peak above its resident memory {peak} bytes "
+              f"({peak / (4 * d):.4f} d 4)", flush=True)
+        out[arm] = (launches, ranges, med * 1e3, peak)
+        del rt, st, fused
+        torch.cuda.empty_cache()
+    (l_s, u_s), (l_f, u_f) = first["streaming_grad"], first["flat gradient"]
+    rel = float((u_s - u_f).norm() / u_f.norm())
+    print(f"[stream] first round: losses equal {torch.equal(l_s, l_f)}, "
+          f"update relative L2 {rel:.3e} (limit {STREAM_UPDATE_RTOL})",
+          flush=True)
+    if not torch.equal(l_s, l_f) or not rel <= STREAM_UPDATE_RTOL:
+        fail(f"stream: the hook's first round differs from the flat path's"
+             f" (losses {l_s} / {l_f}, update {rel:.3e})")
+    if not (out["streaming_grad"][3] < 4 * d <= out["flat gradient"][3]):
+        fail(f"stream: client-step peaks {out['streaming_grad'][3]} (hook) "
+             f"and {out['flat gradient'][3]} (flat) against d 4 = {4 * d}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3362,7 +3759,11 @@ def run_phases(t0: float) -> int:
                                  scale=16.0, plain_n=5)
     circ_imagenet = phase_kernels(IMAGENET_SKETCH, (IMAGENET_SKETCH["c"],),
                                   scale=64.0, plain_n=5)
-    done("K1/K2")
+    circ_stream = phase_kernels(STREAM_SKETCH, (STREAM_SKETCH["c"],),
+                                scale=32.0, plain_n=5)
+    k1_range = {"gpt2": phase_kernels_range(GPT2_SKETCH, scale=4.0),
+                "stream": phase_kernels_range(STREAM_SKETCH, scale=32.0)}
+    done("K1/K2, K1's range form")
     flash = phase_flash()
     done("K3")
     phase_small_reference()
@@ -3376,6 +3777,8 @@ def run_phases(t0: float) -> int:
     cv_launches, cv_ms = phase_main_path()
     cv_off, cv_off_ms = phase_main_path(["--no_track_bytes"])
     done("ResNet-9 main path")
+    wire = phase_wire()
+    done("the ResNet-9 main path on the bf16 and int8 wires")
     modes = phase_modes()
     nan_launches = phase_nan_abort()
     done("modes and the NaN abort")
@@ -3383,6 +3786,8 @@ def run_phases(t0: float) -> int:
     noise = phase_noise()
     rules = phase_modes(RULE_CONFIGS, tag="rules")
     done("hash, SRHT, DP noise and the clip/DP/topk-down/server-state paths")
+    rht_arms, rht_scan_rel, rht_runs = phase_rht_scan()
+    done("the SRHT's row scan and bf16 transform (ResNet-9, GPT-2)")
     real_launches, resumed_launches = phase_real_data_resume()
     done("real-format CIFAR10, checkpoint and resume")
     gpt2_rounds, gpt2_val, gpt2_ms, _ = phase_gpt2_main()
@@ -3392,7 +3797,12 @@ def run_phases(t0: float) -> int:
     done("GPT-2 main path, its state saved and loaded")
     gpt2_arms = {arm: phase_gpt2_main(flags, GPT2_ARM_ROUNDS, encodes)
                  for arm, (flags, encodes) in GPT2_ARMS.items()}
-    done("GPT-2 study arms")
+    gpt2_int8 = phase_gpt2_main(["--wire_dtype", "int8"], GPT2_ARM_ROUNDS,
+                                want_up=GPT2_INT8_BYTES)
+    print(f"[gpt2] --wire_dtype int8: {GPT2_INT8_BYTES} bytes a client a "
+          f"round (float32: {4 * 5 * GPT2_SKETCH['c']}), median "
+          f"{gpt2_int8[2]:.3f} ms", flush=True)
+    done("GPT-2 study arms, the int8 wire")
     levers = phase_gpt2_levers()
     pretrained = phase_gpt2_pretrained()
     done("GPT-2 memory levers and the pretrained round trip")
@@ -3411,6 +3821,22 @@ def run_phases(t0: float) -> int:
     compat_launches = phase_compat()
     done("ImageNet recipe and its host path, native gather, finetune, "
          "compat")
+    stream = phase_stream()
+    done("the streaming encode (StreamMLP)")
+    print("[slice 12] round medians (ms): ResNet-9 wires "
+          + ", ".join(f"{a} {ms:.3f} ({b} B a client)"
+                      for a, (_, ms, b) in wire.items())
+          + f"; GPT-2 int8 {gpt2_int8[2]:.3f}; SRHT (ms / GiB peak) "
+          + ", ".join(f"{a} {ms:.3f} / {p / 2**30:.3f}"
+                      for a, (ms, p) in rht_arms.items())
+          + f", ResNet-9 scan vs batched update {rht_scan_rel:.3e}; "
+          "StreamMLP "
+          + ", ".join(f"{a} {ms:.3f} (client-step peak {pk / 2**20:.1f} MiB)"
+                      for a, (_, _, ms, pk) in stream.items())
+          + "; K1 ranges (ms, bound): "
+          + ", ".join(f"{shape} {k} {t['ms']:.4f} ({t['bound_ms']:.4f})"
+                      for shape, kinds in k1_range.items()
+                      for k, t in kinds.items()), flush=True)
     print(f"[imagenet] this slice's paths, round medians (ms): ImageNet "
           f"FixupResNet50 "
           + ", ".join(f"{m} {ms:.3f}" for m, ms in imagenet_ms.items())
@@ -3489,7 +3915,17 @@ def run_phases(t0: float) -> int:
                        fixup_launches[name],
                    **{f"cv_train ImageNet FixupResNet50 {m}": launches[name]
                       for m, launches in imagenet_launches.items()},
-                   "compat FedModel ResNet9 sketch": compat_launches[name]}
+                   "compat FedModel ResNet9 sketch": compat_launches[name],
+                   **{f"cv_train wire {a}": launches[name]
+                      for a, (launches, _, _) in wire.items()},
+                   "gpt2_train --wire_dtype int8": (gpt2_int8[0][name]
+                                                    + gpt2_int8[1][name]),
+                   **{f"FedRuntime StreamMLP {a}": launches[name]
+                      for a, (launches, _, _, _) in stream.items()}}
+        extra = {}
+        if name == "circ_encode":
+            extra = {"range_launches": stream["streaming_grad"][1],
+                     "range_form": k1_range}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "commefficient_torch/csrc/circulant.cu",
@@ -3498,7 +3934,8 @@ def run_phases(t0: float) -> int:
             **circ[name], "at_gpt2_shape": circ_gpt2[name],
             "at_femnist_shape": circ_femnist[name],
             "at_imagenet_shape": circ_imagenet[name],
-            "sass_per_term": sketch_sass[name]})
+            "at_stream_shape": circ_stream[name],
+            "sass_per_term": sketch_sass[name], **extra})
     for name, line in (("flash_fwd", 589), ("flash_bwd_dq", 1287),
                        ("flash_bwd_dkv", 941)):
         by_path = {"gpt2_train rounds": gpt2_rounds[name],
@@ -3507,7 +3944,11 @@ def run_phases(t0: float) -> int:
                    "gpt2_train --no_track_bytes validation":
                        gpt2_off_val[name],
                    **{f"gpt2_train {a}": r[name] + v[name]
-                      for a, (r, v) in gpt2_runs.items()}}
+                      for a, (r, v) in gpt2_runs.items()},
+                   "gpt2_train --wire_dtype int8": (gpt2_int8[0][name]
+                                                    + gpt2_int8[1][name]),
+                   **{f"gpt2_train {a}": r[name] + v[name]
+                      for a, (r, v) in rht_runs.items()}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "commefficient_torch/csrc/flash_attention.cu",

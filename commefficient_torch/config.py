@@ -14,9 +14,10 @@ ImageNet, natural or iid clients, finetuning a saved model's head
 with block remat, the chunked LM loss, local HF weights and
 ``save_pretrained``), with whole-state checkpoints and resume in both,
 the host path's batches fetched ahead by the round input pipeline
-(``core/pipeline.py``). A value
-or flag outside it raises and names the flag: the bf16 and int8 wires,
-``--sketch_scan_rows``/``--sketch_dtype`` and meshes are not ported
+(``core/pipeline.py``), the sketch table's float32, bf16 or int8 wire
+(``--wire_dtype``, ``--wire_block``, the deprecated ``--sketch_dtype``)
+and the SRHT's row scan (``--sketch_scan_rows``). A value or flag
+outside it raises and names the flag: meshes are not ported
 (``--mesh_shape ""``, the JAX package's single device, is accepted).
 Which combinations of mode, error type and momentum are legal is the
 server's rule (``core/server.py validate_mode_combo``), checked when a
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 from typing import Optional, Sequence, Tuple
 
 from commefficient_torch.models import MODEL_NAMES
@@ -40,6 +42,7 @@ ERROR_TYPES = ("none", "local", "virtual")
 DP_MODES = ("worker", "server")
 SKETCH_IMPLS = ("circ", "hash", "rht")
 SERVER_STATES = ("table", "dense")
+WIRE_DTYPES = ("float32", "bfloat16", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +102,18 @@ class FedConfig:
     sketch_seed: int = 42
     sketch_impl: str = "circ"
     allow_divergent_rht: bool = False
+    # the deprecated alias of wire_dtype; it also sets the SRHT's
+    # transform dtype. __post_init__ resolves the pair as the JAX package
+    # does: an empty wire_dtype inherits it, a bf16 wire sets it to bf16,
+    # a float32 or int8 wire to float32
+    sketch_dtype: str = "float32"
+    # what a sketch table cell costs on the wire (ops/wire.py): bf16
+    # rounds each uploaded table, int8 block-quantizes it with
+    # stochastic rounding and wire_block columns a float32 scale
+    wire_dtype: str = ""
+    wire_block: int = 256
+    # the SRHT's row-at-a-time transforms: -1 on at d' >= 2^25, 0 off, 1 on
+    sketch_scan_rows: int = -1
     sketch_server_state: str = "table"
     sketch_ef: str = "zero"
     sketch_fused_encode: str = "auto"
@@ -165,6 +180,7 @@ class FedConfig:
             if getattr(self, name) not in legal:
                 raise ValueError(f"--{name} {getattr(self, name)!r}: want "
                                  "one of " + ", ".join(legal))
+        self._resolve_wire()
         if (self.model, self.dataset_name) not in MODEL_DATASETS:
             raise ValueError(
                 f"--model {self.model} --dataset_name {self.dataset_name} "
@@ -200,6 +216,49 @@ class FedConfig:
             # error and momentum rules are validate_mode_combo's
             raise ValueError("--mode fedavg requires --local_batch_size -1")
 
+    def _resolve_wire(self) -> None:
+        """The JAX package's resolution of ``wire_dtype`` and its alias
+        ``sketch_dtype``, and its refusals of the int8 wire."""
+        if self.sketch_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"--sketch_dtype {self.sketch_dtype!r}: want "
+                             "float32 or bfloat16")
+        if self.wire_dtype == "":
+            object.__setattr__(self, "wire_dtype", self.sketch_dtype)
+        if self.wire_dtype not in WIRE_DTYPES:
+            raise ValueError(f"--wire_dtype {self.wire_dtype!r}: want one "
+                             "of " + ", ".join(WIRE_DTYPES))
+        # the SRHT's transform follows a bf16 wire; an explicit float32 or
+        # int8 wire wins over the deprecated bf16 alias (else the bf16
+        # rounding would run under another wire's byte accounting)
+        object.__setattr__(self, "sketch_dtype",
+                           "bfloat16" if self.wire_dtype == "bfloat16"
+                           else "float32")
+        if self.wire_block < 8:
+            raise ValueError(
+                f"--wire_block {self.wire_block} must be >= 8: each block "
+                "pays 4 bytes of float32 scale, so blocks below 8 columns "
+                "spend more on scales than a bf16 wire spends on cells")
+        if self.sketch_scan_rows not in (-1, 0, 1):
+            raise ValueError(f"--sketch_scan_rows {self.sketch_scan_rows}: "
+                             "want -1 (auto), 0 or 1")
+        if self.wire_dtype == "int8":
+            if self.mode != "sketch":
+                raise ValueError(
+                    f"--wire_dtype int8 requires --mode sketch (mode="
+                    f"{self.mode} has no table-shaped wire to quantize; "
+                    "dense-mode payloads keep their f32 wire)")
+            if self.sketch_impl == "rht":
+                raise ValueError(
+                    "--wire_dtype int8 is unsupported with sketch_impl="
+                    "rht: its dense transform has no cell-addressable "
+                    "table to block-quantize (use circ or hash)")
+            if self.sketch_server_state == "dense":
+                raise ValueError(
+                    "--wire_dtype int8 is unsupported with "
+                    "--sketch_server_state dense: that server path "
+                    "consumes the dense aggregated gradient, so no table "
+                    "crosses the wire to quantize")
+
     def replace(self, **kw) -> "FedConfig":
         return dataclasses.replace(self, **kw)
 
@@ -215,11 +274,19 @@ class FedConfig:
             "fedavg": self.grad_size,
         }[self.mode]
 
-    def upload_wire_bytes(self) -> float:
-        """A participating client's upload bytes a round: 4 a float on the
-        float32 wire, the only wire the port runs (``--wire_dtype`` is not
-        ported)."""
-        return 4.0 * self.upload_floats
+    def upload_wire_bytes(self, block: Optional[int] = None) -> float:
+        """A participating client's upload bytes a round under the wire
+        dtype: 4 a float on the float32 wire (and in every mode but the
+        sketch), 2 a table cell on the bf16 wire, and on the int8 wire 1
+        a cell plus 4 for each row's scale of every ``block`` columns
+        (``wire_block`` unless the runtime passes its effective block)."""
+        if self.mode != "sketch" or self.wire_dtype == "float32":
+            return 4.0 * self.upload_floats
+        cells = self.num_rows * self.num_cols
+        if self.wire_dtype == "bfloat16":
+            return 2.0 * cells
+        b = int(block or self.wire_block)
+        return float(cells + 4 * self.num_rows * (-(-self.num_cols // b)))
 
     @property
     def table_clip(self) -> bool:
@@ -342,6 +409,21 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--sketch_seed", type=int, default=42)
     p.add_argument("--allow_divergent_rht", action="store_true")
     p.add_argument("--sketch_impl", choices=SKETCH_IMPLS, default="circ")
+    p.add_argument("--sketch_dtype", choices=("float32", "bfloat16"),
+                   default=None,
+                   help="deprecated alias of --wire_dtype (a warning at "
+                        "parse time); the SRHT's transform dtype follows "
+                        "it")
+    p.add_argument("--wire_dtype", choices=WIRE_DTYPES, default="",
+                   help="the sketch table's wire: float32 (default), "
+                        "bfloat16 (each table rounded) or int8 (block "
+                        "scales, stochastic rounding; ops/wire.py)")
+    p.add_argument("--wire_block", type=int, default=256,
+                   help="int8 wire: columns a float32 scale")
+    p.add_argument("--sketch_scan_rows", type=int, default=-1,
+                   choices=(-1, 0, 1),
+                   help="SRHT row-at-a-time transforms: -1 auto (on at "
+                        "d' >= 2^25), 0 batched, 1 by rows")
     p.add_argument("--sketch_server_state", choices=SERVER_STATES,
                    default="table")
     p.add_argument("--sketch_ef", default="zero")
@@ -398,22 +480,31 @@ def config_from_args(ns: argparse.Namespace) -> FedConfig:
             f"--mesh_shape {ns.mesh_shape!r}: the PyTorch port runs one "
             "device (multi-GPU meshes are ROADMAP A9); pass --mesh_shape "
             '"" or leave it out')
+    kw = dict(vars(ns))
+    if kw.get("sketch_dtype") is not None:
+        # the JAX package's parse-time warning; an explicit --wire_dtype
+        # wins over the alias
+        print("WARNING: --sketch_dtype is a deprecated alias of "
+              "--wire_dtype (it now also covers the int8 quantized "
+              "wire); update the invocation.", file=sys.stderr)
+        if not kw.get("wire_dtype"):
+            kw["wire_dtype"] = kw["sketch_dtype"]
+    else:
+        kw["sketch_dtype"] = "float32"
     names = {f.name for f in dataclasses.fields(FedConfig)}
-    return FedConfig(**{k: v for k, v in vars(ns).items() if k in names})
+    return FedConfig(**{k: v for k, v in kw.items() if k in names})
 
 
 def parse_known(parser: argparse.ArgumentParser,
                 argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """``parse_known_args`` that raises on any flag outside the slice,
-    naming it (the JAX package's other flags, such as ``--wire_dtype``
-    (the float32 wire), ``--sketch_scan_rows``, ``--sketch_dtype`` and
-    ``--mesh_axes``, are not ported yet)."""
+    naming it (the JAX package's other flags, such as ``--mesh_axes``,
+    ``--defense`` or ``--scenario``, are not ported yet)."""
     ns, rest = parser.parse_known_args(argv)
     if rest:
         flags = [a for a in rest if a.startswith("-")] or rest
         raise ValueError(
             f"{' '.join(flags)}: outside the PyTorch port's slice "
             "(the CV models on CIFAR10/100, FEMNIST or ImageNet, or GPT-2 "
-            "on PersonaChat, one device, the float32 wire and the batched "
-            "float32 SRHT; no meshes)")
+            "on PersonaChat, on one device; no meshes)")
     return ns

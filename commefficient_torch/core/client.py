@@ -14,7 +14,17 @@ round's clients and a client's microbatches. DP noise is drawn from the
 run draws the same noise (JAX's threefry draws cannot be reproduced).
 
 ``loss_fn(flat, batch, mask) -> (loss, (acc,))`` follows the contract of
-losses.py: masked means over the valid items of a batch.
+losses.py: masked means over the valid items of a batch. A loss that owns
+its backward carries ``loss_fn.streaming_grad(flat, batch, mask, cs,
+table, scale=None) -> (table, loss, (acc,))`` (models/stream_mlp.py):
+under the fused encode each microbatch calls it in place of autograd
+and the whole-vector K1, and it streams each layer's gradient into the
+table as the backward produces it.
+
+The fused encode launches one K1 over the flat gradient, the JAX
+package's own route on its accelerator (its ``encode_grad_tree`` ravels
+the leaves there; its chunked form exists for its other backends, and
+the port's gradient is already one flat vector).
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import torch
 
 from commefficient_torch.config import FedConfig
 from commefficient_torch.ops.topk import clip_by_l2_norm, topk
+from commefficient_torch.ops.wire import wire_round_trip
 
 
 class ClientOut(NamedTuple):
@@ -56,6 +67,16 @@ def fused_encode_blockers(cfg: FedConfig) -> list:
             "encode; the fused path never materializes it. Use the table "
             "clip (--max_grad_norm without --sketch_dense_clip)")
     return problems
+
+
+def int8_wire_uploads(cfg: FedConfig, tables, step: int, block: int,
+                      slot0: int = 0) -> list:
+    """Each client's (r, c) table as the server reads it after the int8
+    wire (``wire_round_trip``), client ``w`` of the round drawing its
+    rounding with salt ``slot0 + w``: the per-client path of
+    ``--wire_dtype int8`` (the table clip keeps per-client tables)."""
+    return [wire_round_trip(t, block, seed=cfg.seed, round_idx=step,
+                            salt=slot0 + w) for w, t in enumerate(tables)]
 
 
 def _num_microbatches(cfg: FedConfig, batch_size: int) -> Tuple[int, int]:
@@ -105,13 +126,16 @@ def make_forward_grad(cfg: FedConfig, loss_fn: Callable, batch_size: int,
     - under the table clip (``cfg.table_clip``): ``g`` is the client's
       own (r, c) table, clipped at the bare ``max_grad_norm``.
       Under ``fused_encode`` each microbatch gradient and the weight-decay
-      term stream into it (a K1 launch each on the card); otherwise the
-      dense ``g`` is encoded once.
+      term stream into it (a K1 launch each on the card, or the loss's
+      ``streaming_grad``'s range launches); otherwise the dense ``g`` is
+      encoded once.
     """
     num_iters, mb = _num_microbatches(cfg, batch_size)
     dense_clip = cfg.max_grad_norm is not None and (
         cfg.mode != "sketch" or cfg.sketch_dense_clip)
     wd = cfg.weight_decay / cfg.num_workers
+    stream = (getattr(loss_fn, "streaming_grad", None) if fused_encode
+              else None)
 
     def fwd(params_vec: torch.Tensor, batch: Dict[str, torch.Tensor],
             mask: torch.Tensor, gen: Optional[torch.Generator] = None,
@@ -122,13 +146,17 @@ def make_forward_grad(cfg: FedConfig, loss_fn: Callable, batch_size: int,
         for i in range(num_iters):
             sl = slice(i * mb, (i + 1) * mb)
             mb_mask = mask[sl]
-            loss, acc, g_mb = _grad(loss_fn, params_vec,
-                                    {k: v[sl] for k, v in batch.items()},
-                                    mb_mask)
-            if fused_encode:
-                g = cs.encode_accum(g, g_mb, 0)
+            mb_batch = {k: v[sl] for k, v in batch.items()}
+            if stream is not None:
+                g, loss, (acc,) = stream(params_vec, mb_batch, mb_mask, cs,
+                                         g)
             else:
-                g = g_mb if g is None else g + g_mb
+                loss, acc, g_mb = _grad(loss_fn, params_vec, mb_batch,
+                                        mb_mask)
+                if fused_encode:
+                    g = cs.encode_accum(g, g_mb, 0)
+                else:
+                    g = g_mb if g is None else g + g_mb
             sums += torch.stack((loss, acc)) * mb_mask.to(torch.float32).sum()
         n_valid = mask.to(torch.float32).sum()
         results = sums / torch.clamp(n_valid, min=1.0)
@@ -249,11 +277,15 @@ def make_fused_grad(cfg: FedConfig, loss_fn: Callable, batch_size: int):
     that the microbatch does not divide is padded with invalid items.
     Weight decay enters the same table by linearity (one more launch).
 
+    A loss with ``streaming_grad`` streams each microbatch itself, with
+    its client's datum count as ``scale``.
+
     Returns ``fused(params_vec, batch, mask, mask_host, cs) -> (table,
     results (W, 2), n_per_client (W,))``; ``batch`` leaves are (W, B,
     ...) tensors, ``mask`` (W, B) bool and ``mask_host`` its numpy
     copy."""
     num_iters, mb = _num_microbatches(cfg, batch_size)
+    stream = getattr(loss_fn, "streaming_grad", None)
 
     def fused(params_vec, batch, mask, mask_host: np.ndarray, cs):
         W = mask.shape[0]
@@ -269,10 +301,16 @@ def make_fused_grad(cfg: FedConfig, loss_fn: Callable, batch_size: int):
                           num_iters * mb)
             for i in range(num_iters):
                 sl = slice(i * mb, (i + 1) * mb)
-                loss, acc, g = _grad(loss_fn, params_vec,
-                                     {k: v[sl] for k, v in cb.items()},
-                                     cm[sl])
-                table = cs.encode_accum(table, g, 0, scale=float(n_host[c]))
+                mb_batch = {k: v[sl] for k, v in cb.items()}
+                if stream is not None:
+                    table, loss, (acc,) = stream(params_vec, mb_batch,
+                                                 cm[sl], cs, table,
+                                                 scale=float(n_host[c]))
+                else:
+                    loss, acc, g = _grad(loss_fn, params_vec, mb_batch,
+                                         cm[sl])
+                    table = cs.encode_accum(table, g, 0,
+                                            scale=float(n_host[c]))
                 sums[c] += torch.stack((loss, acc)) \
                     * cm[sl].to(torch.float32).sum()
         # decoupled weight decay summed over the round's clients,

@@ -16,9 +16,15 @@ A round:
    local error, the local top-k, clipping, DP, or FedAvg's local SGD)
    and sums the transmits, which the sketch mode then encodes once
    (deferred encode), or not at all under the dense server state;
-3. the aggregate is divided by the round's datum count and
+3. the sketch table crosses the wire (``--wire_dtype``): each client's
+   table under the table clip, and the round's one table, rounded to
+   bf16, or the round's one table (the per-client tables under the
+   table clip) through the int8 wire's quantize and dequantize, its
+   draws keyed by the round before it advances (so a resumed run draws
+   them again);
+4. the aggregate is divided by the round's datum count and
    ``server_update`` runs the mode's rule;
-4. the weights move by the update, the participants' rows are written
+5. the weights move by the update, the participants' rows are written
    back, ``coord_last_update`` records the changed coordinates, and
    ``nan_round`` the first round whose update, aggregate or client loss
    was not finite.
@@ -38,6 +44,7 @@ from commefficient_torch.core.server import (server_update,
                                              validate_regimes)
 from commefficient_torch.core.state import FedState
 from commefficient_torch.ops.sketch import make_sketch_impl
+from commefficient_torch.ops.wire import wire_round_trip
 
 # keys DP noise apart from the data path's draws (seed ^ 0xDA7A)
 NOISE_SALT = 0xD9
@@ -105,7 +112,13 @@ class FedRuntime:
             self.cs = make_sketch_impl(cfg.sketch_impl, d, cfg.num_cols,
                                        cfg.num_rows, cfg.num_blocks,
                                        seed=cfg.sketch_seed,
-                                       device=self.device)
+                                       device=self.device,
+                                       dtype=cfg.sketch_dtype,
+                                       scan_rows=cfg.sketch_scan_rows)
+        # the bf16 wire: tables travel rounded to bf16; the server's
+        # arithmetic stays float32
+        self._table_dtype = (getattr(torch, cfg.sketch_dtype)
+                             if cfg.mode == "sketch" else torch.float32)
         # sum of the clients' sketches == sketch of the sum, so the round
         # encodes once, unless a per-client table clip intervenes
         self.defer_encode = cfg.mode == "sketch" and not cfg.table_clip
@@ -136,7 +149,27 @@ class FedRuntime:
                 "--sketch_fused_encode on: the fused sketch encode is "
                 "unsound for this configuration (use auto to fall back to "
                 "the unfused round):\n  " + "\n  ".join(problems))
-        self._upload_bytes = cfg.upload_wire_bytes()
+        # the int8 wire (ops/wire.py): an explicit request, so what it
+        # cannot serve raises
+        self._int8_wire, self._wire_block = False, 0
+        if cfg.mode == "sketch" and cfg.wire_dtype == "int8":
+            problems = []
+            if self.dense_preimage:
+                problems.append(
+                    "the dense-preimage server state consumes the dense "
+                    "aggregated gradient — no table crosses the wire")
+            blk = min(cfg.wire_block, cfg.num_cols)
+            if cfg.num_cols % blk:
+                problems.append(
+                    f"--wire_block {cfg.wire_block} does not tile the "
+                    f"{cfg.num_cols} table columns: pick a --wire_block "
+                    "dividing num_cols")
+            if problems:
+                raise ValueError(
+                    "--wire_dtype int8 is unavailable for this "
+                    "configuration:\n  " + "\n  ".join(problems))
+            self._int8_wire, self._wire_block = True, blk
+        self._upload_bytes = cfg.upload_wire_bytes(self._wire_block or None)
         self._fused_fn = self._client_fn = None
         if cfg.mode == "fedavg":
             self._client_fn = client_lib.make_fedavg_client(
@@ -237,6 +270,10 @@ class FedRuntime:
                     if state.client_velocities is not None else None)
         err_rows = (state.client_errors[ids]
                     if state.client_errors is not None else None)
+        # the per-client wire: each client's own table (the table clip)
+        table_wire = (cfg.mode == "sketch" and not self.defer_encode
+                      and (self._table_dtype != torch.float32
+                           or self._int8_wire))
         agg, results, n_valid, vels, errs = None, [], [], [], []
         for c in range(mask.shape[0]):
             cb = {k: v[c] for k, v in batch.items()}
@@ -250,7 +287,13 @@ class FedRuntime:
                     wc, cb, mask[c],
                     None if vel_rows is None else vel_rows[c],
                     None if err_rows is None else err_rows[c], gen, self.cs)
-            agg = out.transmit if agg is None else agg + out.transmit
+            tx = out.transmit
+            if table_wire and self._int8_wire:
+                (tx,) = client_lib.int8_wire_uploads(
+                    cfg, [tx], state.step, self._wire_block, slot0=c)
+            elif table_wire:
+                tx = tx.to(self._table_dtype).to(torch.float32)
+            agg = tx if agg is None else agg + tx
             results.append(out.results)
             n_valid.append(out.n_valid)
             vels.append(out.velocity)
@@ -310,6 +353,14 @@ class FedRuntime:
 
         agg, results, n_valid, vel_new, err_new = self._clients(
             state, ids, self.to_device(batch), mask, mask_host, lr, used)
+        if agg.ndim == 2 and not self.dense_preimage \
+                and self._table_dtype != torch.float32:
+            agg = agg.to(self._table_dtype).to(torch.float32)
+        elif agg.ndim == 2 and self._int8_wire and self.defer_encode:
+            # the round's one table over the int8 wire, keyed by the round
+            # before it advances
+            agg = wire_round_trip(agg, self._wire_block, seed=cfg.seed,
+                                  round_idx=step, salt=0)
         agg = agg / torch.clamp(n_valid.sum(), min=1.0)
         noise_gen = (noise_generator(cfg.seed, step, 0, dev)
                      if cfg.do_dp and cfg.dp_mode == "server" else None)

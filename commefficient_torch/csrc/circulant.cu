@@ -49,7 +49,8 @@
 // columns a thread for r <= 5, 2 above, strided by 256 so that neighbouring
 // threads gather neighbouring elements of v) and keeps r sums a column in
 // registers. It walks the blocks b = 0 .. m - 1 in ascending order with the
-// (r, m) shifts staged in shared memory 128 blocks at a time. Since every
+// (r, m) shifts staged in shared memory 128 blocks at a time (the range
+// form: only the blocks that hold coordinates of [start, start + n)). Since every
 // CTA in flight walks b in step, the r gathers of block b come from one
 // 4 c-byte slice of v that L2 holds: v is read from device memory once
 // (368 MB at the GPT-2 shape), and the r reads of it are L2 hits (r x 4 d
@@ -58,10 +59,15 @@
 // outnumber the CTAs (c above about 540,000 at r <= 5) a CTA takes a
 // second tile and v is read once per wave. The summation order is that of
 // the plain version (and of pallas_encode), ascending b per cell, with no
-// atomics, so the result is deterministic. The last block alone tests
-// x < d. One launch computes table = [table +] encode(scale * v): the
-// accumulate flag and the scale fold the fused client step's
-// per-microbatch weighting into the launch.
+// atomics, so the result is deterministic. Only a block that the range
+// does not cover whole (its first block, and its last, such as the block
+// that holds d) tests x. One launch computes table = [table +]
+// encode(scale * v): the accumulate flag and the scale fold the fused
+// client step's per-microbatch weighting into the launch. The range form
+// (a layer's gradient at its offset, StreamMLP's streaming encode) reads
+// and writes all r c cells whatever n is: a 2,048-value bias costs the
+// table's 21 MB at c = 524,288 (a design that touches only the columns a
+// range reaches is left for later).
 //
 // K2: a CTA of 256 threads owns one work item, a tile of 2,048 columns
 // (1,024 for r > 5) of one block b: grid x the tile, grid y the block (y
@@ -136,48 +142,55 @@ __device__ __forceinline__ uint32_t mix_sign(uint32_t h) {
   return h & 0x80000000u;
 }
 
-__device__ __forceinline__ uint32_t sign_bit(uint32_t x, uint32_t key) {
-  return mix_sign(x * key + 0x9E3779B9u);
-}
-
 // sigma * a: negation flips the sign bit, nothing else
 __device__ __forceinline__ float with_sign(float a, uint32_t bit) {
   return __uint_as_float(__float_as_uint(a) ^ bit);
 }
 
 // Add block b's terms to a thread's sums: for row j and column i the term
-// sigma_j(x) * scale * v[x], x = b c + (i - s[j, b]) mod c. Only the last
-// block, which may run past d, tests x < d (past d the vector is zero
-// padding: sigma * 0 would add a signed zero, which leaves a sum that
-// starts at +0 unchanged).
-template <int R, int C, bool kTail>
+// sigma_j(x) * scale * v[x - lo], x = b c + (i - s[j, b]) mod c, where v
+// holds the n values of the coordinates [lo, lo + n). The walk indexes v
+// by u = x - lo (uint32: a coordinate below lo wraps past n), and the
+// hash input x key + C is u key + (lo key + C), the row's constant
+// computed once a block, so a term costs what it costs in the
+// whole-vector walk (lo = 0). Only a block that the range does not cover
+// whole tests u < n (kEdge): the first block of a range that starts
+// inside a block, and the last that ends inside one, such as the block
+// that holds d. A term outside the range would add a signed zero, which
+// leaves a sum that starts at +0 unchanged.
+template <int R, int C, bool kEdge>
 __device__ __forceinline__ void encode_block(float (&acc)[R][C],
                                              const int (&col)[C],
                                              int (*sh)[kShiftChunk],
                                              const uint32_t (&key)[R],
                                              const float* __restrict__ v,
-                                             uint32_t d, uint32_t c,
-                                             uint32_t bc, int bb,
+                                             uint32_t lo, uint32_t n,
+                                             uint32_t c, uint32_t bc, int bb,
                                              float scale) {
 #pragma unroll
   for (int j = 0; j < R; ++j) {
     const int s = sh[j][bb];
-    const uint32_t base = bc - (uint32_t)s;
+    const uint32_t base = bc - lo - (uint32_t)s;
+    const uint32_t hc = lo * key[j] + 0x9E3779B9u;
 #pragma unroll
     for (int q = 0; q < C; ++q) {
-      uint32_t x = base + (uint32_t)col[q];
-      if (col[q] < s) x += c;
-      if (!kTail || x < d) {
-        const float val = __fmul_rn(__ldg(v + x), scale);
-        acc[j][q] = __fadd_rn(acc[j][q], with_sign(val, sign_bit(x, key[j])));
+      uint32_t u = base + (uint32_t)col[q];
+      if (col[q] < s) u += c;
+      if (!kEdge || u < n) {
+        const float val = __fmul_rn(__ldg(v + u), scale);
+        acc[j][q] = __fadd_rn(acc[j][q],
+                              with_sign(val, mix_sign(u * key[j] + hc)));
       }
     }
   }
 }
 
+// The range [lo, lo + n) of global coordinates, 0 < n, lo + n <= m c <
+// 2^32: the blocks lo / c .. (lo + n - 1) / c are walked in ascending
+// order.
 template <int R>
 __global__ void __launch_bounds__(kEncThreads, kEncCtasPerSm)
-    encode_kernel(const float* __restrict__ v, uint32_t d,
+    encode_kernel(const float* __restrict__ v, uint32_t lo, uint32_t n,
                   const int* __restrict__ shifts,
                   const uint32_t* __restrict__ keys, int c, int m,
                   float scale, int accumulate, float* __restrict__ table) {
@@ -187,7 +200,9 @@ __global__ void __launch_bounds__(kEncThreads, kEncCtasPerSm)
   uint32_t key[R];
 #pragma unroll
   for (int j = 0; j < R; ++j) key[j] = keys[j];
-  const int m_full = (int)(d / (uint32_t)c);    // blocks wholly below d
+  const uint32_t hi = lo + n;
+  const int b_first = (int)(lo / (uint32_t)c);
+  const int b_end = (int)((hi - 1) / (uint32_t)c) + 1;
   const int tiles = (int)(((long long)c + kTileCols - 1) / kTileCols);
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -201,8 +216,8 @@ __global__ void __launch_bounds__(kEncThreads, kEncCtasPerSm)
 #pragma unroll
       for (int j = 0; j < R; ++j) acc[j][q] = 0.0f;
     }
-    for (int b0 = 0; b0 < m; b0 += kShiftChunk) {
-      const int nb = min(kShiftChunk, m - b0);
+    for (int b0 = b_first; b0 < b_end; b0 += kShiftChunk) {
+      const int nb = min(kShiftChunk, b_end - b0);
       __syncthreads();                         // the last chunk is read
 #pragma unroll
       for (int j = 0; j < R; ++j) {
@@ -212,13 +227,12 @@ __global__ void __launch_bounds__(kEncThreads, kEncCtasPerSm)
       }
       __syncthreads();
       for (int bb = 0; bb < nb; ++bb) {
-        const int b = b0 + bb;
-        const uint32_t bc = (uint32_t)b * (uint32_t)c;
-        if (b < m_full) {
-          encode_block<R, C, false>(acc, col, sh, key, v, d, c, bc, bb,
+        const uint32_t bc = (uint32_t)(b0 + bb) * (uint32_t)c;
+        if (bc >= lo && bc + (uint32_t)c <= hi) {
+          encode_block<R, C, false>(acc, col, sh, key, v, lo, n, c, bc, bb,
                                     scale);
         } else {
-          encode_block<R, C, true>(acc, col, sh, key, v, d, c, bc, bb,
+          encode_block<R, C, true>(acc, col, sh, key, v, lo, n, c, bc, bb,
                                    scale);
         }
       }
@@ -253,16 +267,18 @@ int persistent_grid(int items, Kernel kernel, int threads) {
 }
 
 template <int R>
-int launch_encode(const float* v, long long d, const int* shifts,
-                  const uint32_t* keys, int c, int m, float scale,
-                  int accumulate, float* table, cudaStream_t stream) {
+int launch_encode(const float* v, long long start, long long n,
+                  const int* shifts, const uint32_t* keys, int c, int m,
+                  float scale, int accumulate, float* table,
+                  cudaStream_t stream) {
   constexpr int kTileCols = kEncThreads * enc_cols<R>();
   const int tiles = (int)(((long long)c + kTileCols - 1) / kTileCols);
   const int grid = persistent_grid(tiles, encode_kernel<R>, kEncThreads);
   if (grid < 0) return (int)cudaGetLastError();
   if (grid == 0) return (int)cudaErrorInvalidConfiguration;
   encode_kernel<R><<<grid, kEncThreads, 0, stream>>>(
-      v, (uint32_t)d, shifts, keys, c, m, scale, accumulate, table);
+      v, (uint32_t)start, (uint32_t)n, shifts, keys, c, m, scale, accumulate,
+      table);
   return (int)cudaGetLastError();
 }
 
@@ -498,16 +514,20 @@ bool bad_geometry(long long d, int c, int m) {
 
 }  // namespace
 
-extern "C" int circ_encode(const float* v, long long d, const int* shifts,
-                           const uint32_t* keys, int c, int r, int m,
-                           float scale, int accumulate, float* table,
-                           void* stream) {
-  if (bad_geometry(d, c, m)) return (int)cudaErrorInvalidValue;
+// table [+]= encode(scale * v) of the vector that holds v's n values at
+// the coordinates [start, start + n) and zeros elsewhere; the whole
+// vector is start = 0, n = d.
+extern "C" int circ_encode(const float* v, long long start, long long n,
+                           const int* shifts, const uint32_t* keys, int c,
+                           int r, int m, float scale, int accumulate,
+                           float* table, void* stream) {
+  if (start < 0 || bad_geometry(start + n, c, m) || n <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define CIRC_ENCODE(R)                                                     \
   case R:                                                                  \
-    return launch_encode<R>(v, d, shifts, keys, c, m, scale, accumulate,  \
-                            table, s)
+    return launch_encode<R>(v, start, n, shifts, keys, c, m, scale,        \
+                            accumulate, table, s)
   switch (r) {
     CIRC_ENCODE(1);
     CIRC_ENCODE(2);

@@ -4,9 +4,9 @@ Counterpart of the JAX package's ``ops/circulant.py``. The vector is padded
 to m = ceil(d / c) blocks of length c; row j of the table is
 ``sum_b roll(sigma_j * v_b, s[j][b])``, with signs sigma from the murmur
 mixer (ops/hashing.py) and per-(row, block) cyclic shifts drawn once from
-the seed. The whole-vector encode and the decode run the hand-written
-CUDA kernels K1 and K2 (ops/circulant_kernels.py) on the card; the O(k r)
-sparse encode and gather are plain PyTorch.
+the seed. The whole-vector and range encodes and the decode run the
+hand-written CUDA kernels K1 and K2 (ops/circulant_kernels.py) on the
+card; the O(k r) sparse encode and gather are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from commefficient_torch.ops import circulant_kernels as kernels
+from commefficient_torch.ops import wire
 from commefficient_torch.ops.hashing import MASK32, signs
 from commefficient_torch.ops.topk import (clip_by_l2_norm, median_axis0,
                                           topk_with_idx)
@@ -92,20 +93,24 @@ class CirculantSketch:
     def encode_accum(self, table: torch.Tensor, vals: torch.Tensor,
                      start: int = 0, scale: Optional[float] = None
                      ) -> torch.Tensor:
-        """``table + encode(scale * vals)``, written into ``table`` in place
-        (one K1 launch on the card) and returned. Only the whole-vector
-        form is ported (``start == 0``, ``len(vals) == d``): it is the one
-        the fused client step uses."""
-        if int(start) != 0 or vals.ndim != 1 or vals.shape[0] != self.d:
-            raise ValueError(
-                "encode_accum: only the whole-vector form (start=0, d "
-                f"values) is ported; got start={start}, shape "
-                f"{tuple(vals.shape)}, d={self.d}")
+        """``table + encode(scale * v)`` for the vector ``v`` holding
+        ``vals`` at the coordinates ``[start, start + len(vals))`` and
+        zeros elsewhere, written into ``table`` in place (one K1 launch on
+        the card, over the range's blocks only) and returned: the
+        streaming encode of the fused client step, a layer's gradient at
+        its offset. ``start`` is any int with the range inside the m c
+        coordinates, as in the JAX package."""
+        if vals.ndim != 1:
+            raise ValueError(f"encode_accum: vals of shape "
+                             f"{tuple(vals.shape)}, want a vector")
         if tuple(table.shape) != self.table_shape:
             raise ValueError(f"table shape {tuple(table.shape)}")
+        start = int(start)
+        whole = start == 0 and vals.shape[0] == self.d
         return kernels.encode(vals.to(torch.float32).contiguous(),
                               self.shifts, self.sign_keys, self.c, self.r,
-                              self.m, scale=scale, table=table)
+                              self.m, scale=scale, table=table,
+                              start=None if whole else start)
 
     def encode_vals_at(self, vals: torch.Tensor,
                        idx: torch.Tensor) -> torch.Tensor:
@@ -141,6 +146,16 @@ class CirculantSketch:
 
     def clip(self, table: torch.Tensor, clip: float) -> torch.Tensor:
         return clip_by_l2_norm(table, clip)
+
+    # the int8 wire quantizes table cells, whatever the sketch
+    def quantize_wire(self, table: torch.Tensor, block: int, *, seed: int,
+                      round_idx: int, salt: int = 0):
+        return wire.quantize_table(table, block, seed=seed,
+                                   round_idx=round_idx, salt=salt)
+
+    def dequantize_wire(self, q: torch.Tensor, scale: torch.Tensor,
+                        block: int) -> torch.Tensor:
+        return wire.dequantize_table(q, scale, block)
 
 
 def ordered_cell_sum(buckets: torch.Tensor, addends: torch.Tensor,

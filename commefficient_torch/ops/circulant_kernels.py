@@ -27,21 +27,24 @@ from commefficient_torch.ops.topk import median_axis0
 
 SOURCE = "circulant.cu"
 
-# launches of each kernel since the last reset_launches()
+# launches of each kernel since the last reset_launches(); K1's range
+# form (a ``start``) is also counted apart
 launches = {"circ_encode": 0, "circ_decode": 0}
+range_launches = {"circ_encode": 0}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    range_launches["circ_encode"] = 0
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.circ_encode.argtypes = [p, ll, p, p, i, i, i, ctypes.c_float, i,
-                                    p, p]
+        lib.circ_encode.argtypes = [p, ll, ll, p, p, i, i, i,
+                                    ctypes.c_float, i, p, p]
         lib.circ_encode.restype = i
         lib.circ_decode.argtypes = [p, p, p, i, i, i, ll, p, p]
         lib.circ_decode.restype = i
@@ -78,45 +81,74 @@ def _raise_on(name: str, err: int) -> None:
 # ------------------------------------------------------------------ K1
 
 
+def _range_geometry(n: int, c: int, r: int, m: int,
+                    start: Optional[int]) -> int:
+    """The first coordinate of ``n`` values: 0 for the whole vector
+    (``start`` None; then m must be ceil(n / c)), else ``start`` with the
+    range inside the m c coordinates."""
+    if start is None:
+        _check_geometry(n, c, r, m)
+        return 0
+    start = int(start)
+    if start < 0 or n < 1 or start + n > m * c:
+        raise ValueError(f"range [{start}, {start + n}) outside the "
+                         f"{m} x {c} coordinates")
+    _check_geometry(m * c, c, r, m)
+    return start
+
+
 def encode_plain(v: torch.Tensor, shifts: torch.Tensor, keys: torch.Tensor,
                  c: int, r: int, m: int, scale: Optional[float] = None,
-                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of K1: ``[table +] encode(scale * v)`` by a loop over
-    rows and blocks with ``torch.roll``, summing the blocks in ascending
-    order as the kernel does."""
-    d = v.shape[0]
+                 table: Optional[torch.Tensor] = None,
+                 start: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K1: ``[table +] encode(scale * v)`` of the vector
+    holding ``v`` at the coordinates ``[start, start + len(v))`` (the
+    whole vector without ``start``) and zeros elsewhere, by a loop over
+    rows and the range's blocks with ``torch.roll``, summing the blocks
+    in ascending order as the kernel does, then adding the sum to
+    ``table``."""
+    n = v.shape[0]
+    start = _range_geometry(n, c, r, m, start)
     vals = v.to(torch.float32)
     if scale is not None:
         vals = vals * scale
-    vp = torch.nn.functional.pad(vals, (0, m * c - d)).view(m, c)
-    idx = torch.arange(m * c, dtype=torch.int64, device=v.device)
+    b0 = start // c
+    o0 = start - b0 * c
+    nb = -(-(o0 + n) // c)
+    vp = torch.nn.functional.pad(vals, (o0, nb * c - o0 - n)).view(nb, c)
+    idx = torch.arange(b0 * c, (b0 + nb) * c, dtype=torch.int64,
+                       device=v.device)
     keys64 = keys.to(torch.int64) & MASK32
     sh = shifts.tolist()
     out = torch.empty((r, c), dtype=torch.float32, device=v.device)
     for j in range(r):
-        sv = signs(idx, keys64[j]).view(m, c) * vp
+        sv = signs(idx, keys64[j]).view(nb, c) * vp
         row = torch.zeros(c, dtype=torch.float32, device=v.device)
-        for b in range(m):
-            row += torch.roll(sv[b], sh[j][b])
+        for b in range(nb):
+            row += torch.roll(sv[b], sh[j][b0 + b])
         out[j] = row
     return out if table is None else table + out
 
 
 def encode(v: torch.Tensor, shifts: torch.Tensor, keys: torch.Tensor,
            c: int, r: int, m: int, scale: Optional[float] = None,
-           table: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1: the (r, c) table ``encode(scale * v)`` of the (d,) float32
-    vector ``v``. With ``table`` given, ``table + encode(scale * v)`` is
+           table: Optional[torch.Tensor] = None,
+           start: Optional[int] = None) -> torch.Tensor:
+    """K1: the (r, c) table ``encode(scale * v)`` of the float32 vector
+    ``v``: the whole (d,) vector, or with ``start`` the vector holding
+    ``v`` at the coordinates ``[start, start + len(v))`` and zeros
+    elsewhere. With ``table`` given, ``table + encode(scale * v)`` is
     written into ``table`` in place (on the card in the same launch) and
     ``table`` is returned."""
-    d = v.shape[0]
-    _check_geometry(d, c, r, m)
+    n = v.shape[0]
+    start_given = start is not None
+    start = _range_geometry(n, c, r, m, start)
     if v.device.type == "cpu":
-        out = encode_plain(v, shifts, keys, c, r, m, scale)
+        out = encode_plain(v, shifts, keys, c, r, m, scale, start=start)
         return out if table is None else table.add_(out)
     if v.device.type != "cuda":
         raise ValueError(f"encode: no kernel for device {v.device}")
-    _check("v", v, torch.float32, (d,), v.device)
+    _check("v", v, torch.float32, (n,), v.device)
     _check("shifts", shifts, torch.int32, (r, m), v.device)
     _check("keys", keys, torch.int32, (r,), v.device)
     lib = _lib()
@@ -130,11 +162,12 @@ def encode(v: torch.Tensor, shifts: torch.Tensor, keys: torch.Tensor,
         _check("table", table, torch.float32, (r, c), v.device)
         out, accumulate = table, 1
     err = lib.circ_encode(
-        v.data_ptr(), d, shifts.data_ptr(), keys.data_ptr(), c, r, m,
+        v.data_ptr(), start, n, shifts.data_ptr(), keys.data_ptr(), c, r, m,
         1.0 if scale is None else float(scale), accumulate, out.data_ptr(),
         torch.cuda.current_stream(v.device).cuda_stream)
     _raise_on("circ_encode", err)
     launches["circ_encode"] += 1
+    range_launches["circ_encode"] += start_given
     return out
 
 

@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from commefficient_torch.ops import wire
 from commefficient_torch.ops.circulant import ordered_cell_sum
 from commefficient_torch.ops.hashing import GOLDEN, MASK32, mix32, mul32
 from commefficient_torch.ops.topk import (clip_by_l2_norm, median_axis0,
@@ -158,6 +159,16 @@ class CountSketch:
     def clip(self, table: torch.Tensor, clip: float) -> torch.Tensor:
         return clip_by_l2_norm(table, clip)
 
+    # the int8 wire quantizes table cells, whatever the sketch
+    def quantize_wire(self, table: torch.Tensor, block: int, *, seed: int,
+                      round_idx: int, salt: int = 0):
+        return wire.quantize_table(table, block, seed=seed,
+                                   round_idx=round_idx, salt=salt)
+
+    def dequantize_wire(self, q: torch.Tensor, scale: torch.Tensor,
+                        block: int) -> torch.Tensor:
+        return wire.dequantize_table(q, scale, block)
+
 
 def make_sketch(d: int, c: int, r: int, num_blocks: int = 1, seed: int = 42,
                 device="cuda") -> CountSketch:
@@ -177,10 +188,12 @@ def make_sketch(d: int, c: int, r: int, num_blocks: int = 1, seed: int = 42,
 
 
 def make_sketch_impl(impl: str, d: int, c: int, r: int, num_blocks: int = 1,
-                     seed: int = 42, device="cuda"):
+                     seed: int = 42, device="cuda", dtype: str = "float32",
+                     scan_rows: int = -1):
     """The sketch ``--sketch_impl`` names: ``circ`` (the circulant count
     sketch, K1/K2 on the card), ``hash`` (the Count Sketch above) or
-    ``rht`` (the stratified SRHT, ops/rht.py)."""
+    ``rht`` (the stratified SRHT, ops/rht.py, with its transform dtype
+    ``dtype`` and ``scan_rows`` -1 automatic, 0 batched, 1 by rows)."""
     if impl == "circ":
         from commefficient_torch.ops.circulant import make_circulant_sketch
         return make_circulant_sketch(d, c, r, seed=seed, device=device)
@@ -188,6 +201,9 @@ def make_sketch_impl(impl: str, d: int, c: int, r: int, num_blocks: int = 1,
         return make_sketch(d, c, r, num_blocks, seed=seed, device=device)
     if impl == "rht":
         from commefficient_torch.ops.rht import make_rht_sketch
-        return make_rht_sketch(d, c, r, seed=seed, device=device)
+        return make_rht_sketch(d, c, r, seed=seed, device=device,
+                               dtype=dtype,
+                               scan_rows=None if scan_rows < 0
+                               else bool(scan_rows))
     raise ValueError(f"unknown sketch_impl {impl!r} (want 'circ', 'hash' or "
                      "'rht')")

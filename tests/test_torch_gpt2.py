@@ -273,10 +273,10 @@ def test_gpt2_train_runs_on_cpu(tmp_path, capsys, extra, rounds):
 
 @pytest.mark.parametrize("flags,name", [
     (["--mesh_axes", "clients,seq"], "--mesh_axes"),
-    (["--sketch_scan_rows"], "--sketch_scan_rows"),
+    (["--defense", "trimmed_mean"], "--defense"),
     (["--async_agg"], "--async_agg"), (["--mesh_shape", "2"],
                                        "--mesh_shape"),
-    (["--wire_dtype", "int8"], "--wire_dtype")])
+    (["--scenario", "dropout"], "--scenario")])
 def test_gpt2_train_rejects_flags_outside_the_slice(flags, name):
     with pytest.raises(ValueError, match=name):
         gpt2_train.main(["--test", "--device", "cpu", *flags])

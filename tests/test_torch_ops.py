@@ -131,8 +131,16 @@ def test_encode_and_encode_accum_match_roll_path(c):
     assert got is table
     np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=1e-5,
                                atol=3e-5 * np.abs(v).max())
-    with pytest.raises(ValueError, match="whole-vector"):
-        ts.encode_accum(table, torch.from_numpy(v[:100]), 0)
+    # a range of the vector at an unaligned start, as the reference
+    # encodes it; a range past the m c coordinates is refused
+    ref = js.encode_accum(jnp.asarray(t0), jnp.asarray(v[:100]), 333,
+                          scale=jnp.float32(3.0))
+    got = ts.encode_accum(torch.from_numpy(t0.copy()),
+                          torch.from_numpy(v[:100]), 333, scale=3.0)
+    np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=1e-5,
+                               atol=3e-5 * np.abs(v).max())
+    with pytest.raises(ValueError, match="outside"):
+        ts.encode_accum(table, torch.from_numpy(v[:100]), ts.m * c - 99)
 
 
 def test_encode_vals_at_matches_reference():
@@ -368,12 +376,19 @@ def test_flags_outside_the_slice_raise_naming_them():
     import argparse
     p = argparse.ArgumentParser()
     tconfig.add_args(p)
-    with pytest.raises(ValueError, match="--sketch_scan_rows"):
-        tconfig.parse_known(p, ["--k", "10", "--sketch_scan_rows", "1"])
+    with pytest.raises(ValueError, match="--defense"):
+        tconfig.parse_known(p, ["--k", "10", "--defense", "trimmed_mean"])
     with pytest.raises(ValueError, match="--mode"):
         tconfig.FedConfig(mode="dense_sketch")
+    with pytest.raises(ValueError, match="--scenario"):
+        tconfig.parse_known(p, ["--scenario", "dropout"])
+    # the wire's flags are the port's: they parse, and a value outside
+    # what the wire serves names the flag
+    ns = tconfig.parse_known(p, ["--sketch_scan_rows", "1", "--wire_dtype",
+                                 "int8"])
+    assert (ns.sketch_scan_rows, ns.wire_dtype) == (1, "int8")
     with pytest.raises(ValueError, match="--wire_dtype"):
-        tconfig.parse_known(p, ["--wire_dtype", "int8"])
+        tconfig.FedConfig(mode="true_topk", wire_dtype="int8")
     # a legal flag in an illegal combination names itself when the
     # runtime validates it, as in the JAX package
     from commefficient_torch.core.server import validate_mode_combo

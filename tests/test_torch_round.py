@@ -127,5 +127,5 @@ def test_cv_train_runs_on_cpu(tmp_path, capsys):
     assert out["rounds"] == 2 and np.isfinite(out["losses"]).all()
     text = capsys.readouterr().out
     assert "d=6568640 c=262144" in text
-    with pytest.raises(ValueError, match="--sketch_dtype"):
-        cv_train.main(["--device", "cpu", "--sketch_dtype", "bfloat16"])
+    with pytest.raises(ValueError, match="--defense"):
+        cv_train.main(["--device", "cpu", "--defense", "trimmed_mean"])

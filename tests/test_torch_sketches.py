@@ -10,7 +10,11 @@ scatters in another order than the JAX package's block-wise
 ``segment_sum``: its tables are held to rtol 1e-6, plus 1e-6 of the row's
 norm where a cell's addends cancel. The SRHT's transform is three float32
 matrix products whose summation order differs between the two BLAS:
-tables and estimates are held to 1e-5 of the largest magnitude.
+tables and estimates are held to 1e-5 of the largest magnitude; the same
+bound holds the row-scanned form against the batched one. The bf16
+transform rounds every product to bf16 in both packages: its tables and
+estimates are held to 1e-2 of the largest magnitude (a few bf16 ulps;
+the two CPU backends agree bit for bit on these inputs).
 """
 
 import jax.numpy as jnp
@@ -232,6 +236,67 @@ def test_rht_encode_linear_and_decode_of_a_given_table(d, c, r):
         float(js.l2estimate(jnp.asarray(table))), rtol=1e-6)
     _close_to_max(ts.clip(torch.from_numpy(table), 1.0).numpy(),
                   js.clip(jnp.asarray(table), 1.0))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,c,r", [(3000, 256, 3), (5000, 64, 4)])
+def test_rht_row_scan_and_bf16_transform_match_reference(d, c, r, dtype):
+    """``scan_rows`` against the batched form in the port, and each form
+    and transform dtype against the JAX package's: the encode of a
+    vector and the decode of a given table (the scan keeps its per-row
+    estimates in the transform dtype, as the JAX package's does)."""
+    rng = np.random.RandomState(d + r)
+    x = rng.randn(d).astype(np.float32)
+    table = rng.randn(r, c).astype(np.float32)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    out = {}
+    for scan in (False, True):
+        js = jrht.make_rht_sketch(d, c, r, seed=3, dtype=dtype,
+                                  scan_rows=scan)
+        ts = trht.make_rht_sketch(d, c, r, seed=3, device="cpu",
+                                  dtype=dtype, scan_rows=scan)
+        assert ts.scan_rows is scan and ts.dtype == dtype
+        enc = ts.encode(torch.from_numpy(x)).numpy()
+        dec = ts.decode(torch.from_numpy(table)).numpy()
+        assert enc.dtype == dec.dtype == np.float32
+        _close_to_max(enc, js.encode(jnp.asarray(x)), tol)
+        _close_to_max(dec, js.decode(jnp.asarray(table)), tol)
+        batched = ts.decode(torch.from_numpy(np.stack([table, -table])))
+        _close_to_max(batched[1].numpy(), -dec, 0)
+        out[scan] = (enc, dec)
+    _close_to_max(out[True][0], out[False][0], tol)
+    _close_to_max(out[True][1], out[False][1], tol)
+
+
+def test_rht_bf16_transform_differs_from_float32():
+    """The bf16 transform is not the float32 one: at d' = 4096 its round
+    trip at c >= d' misses v by bf16 rounding, where float32's is exact
+    to 1e-5."""
+    d = 4096
+    v = torch.from_numpy(np.random.RandomState(1).randn(d).astype(
+        np.float32))
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        ts = trht.make_rht_sketch(d, d, 1, device="cpu", dtype=dtype)
+        errs[dtype] = float((ts.decode(ts.encode(v)) - v).abs().max())
+    assert errs["float32"] < 1e-5 < 1e-3 < errs["bfloat16"] < 0.2
+
+
+@pytest.mark.parametrize("d,want", [(1 << 24, False), ((1 << 24) + 1, True),
+                                    ((1 << 25) - 5, True)])
+def test_rht_row_scan_switches_on_at_two_to_the_25(d, want):
+    """``scan_rows`` None (``--sketch_scan_rows -1``) turns the scan on
+    once d' reaches 2^25, as the JAX package does; 0 and 1 force it
+    (``make_sketch_impl`` passes the flag through). r = 1, a small table:
+    the int8 sign table is d' bytes."""
+    ts = tsketch.make_sketch_impl("rht", d, 64, 1, device="cpu")
+    js = jsketch.make_sketch_impl("rht", d, 64, 1)
+    assert ts.scan_rows is want and js.scan_rows is want
+    assert ts.dp == js.dp == max(trht.next_pow2(d), 64)
+    for flag in (0, 1):
+        ts = tsketch.make_sketch_impl("rht", 100, 64, 1, device="cpu",
+                                      scan_rows=flag, dtype="bfloat16")
+        assert ts.scan_rows is bool(flag) and ts.dtype == "bfloat16"
 
 
 # ------------------------------------------------------------- pytree
