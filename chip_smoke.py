@@ -200,7 +200,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    microbatch with the hook), the first round's losses equal and its
    updates within STREAM_UPDATE_RTOL, the client step's peak above its
    resident memory under d 4 bytes with the hook, at least d 4 without;
-13. print the ``{"kernels": [...]}`` line (K1's range launches and
+13. the runtime services at the main path's widths over 100 clients of
+   64 images (``run_services``): ``phase_robust`` runs the plain sketch
+   round and ``ROBUST_ARMS`` (``--defense normclip``, ``trim``,
+   ``--adversary signflip`` with normclip, ``--adversary nan`` with
+   ``--nonfinite_action quarantine``), SERVICE_ROUNDS rounds each through
+   ``cv_train``: 9 K1 + 1 K2 a plain round, exactly 1 + 1 a robust one,
+   finite losses, every round's defense scalars, each arm's median and
+   peak beside the plain round's, the quarantine ledger equal to the CPU
+   run's of the same seeds, and each arm's first round at full width
+   held to the CPU's (ROBUST_* limits); ``phase_async``: ``--async_agg
+   --max_inflight 1 --buffer_goal 1`` bitwise the plain rounds (weights,
+   losses, launches), then ASYNC_STRAGGLERS for ASYNC_TICKS ticks and
+   the flush (9 K1 a computed cohort, 1 K2 a commit, staleness, tick and
+   commit medians); ``phase_preempt``: ``--watchdog`` bitwise the plain
+   rounds, and one epoch in child processes: a SIGTERM drain at round 3,
+   a kill inside the next checkpoint write, a resume that falls back to
+   the preempt generation and ends bitwise at the uninterrupted epoch's
+   weights. ``python3 chip_smoke.py --services`` runs the build and these
+   three phases alone (no result line);
+14. print the ``{"kernels": [...]}`` line (K1's range launches and
    range timings in its entry), the card's name and power limit, and last
    the ``{"ok": true, ...}`` line.
 
@@ -3717,6 +3736,406 @@ def phase_stream():
     return out
 
 
+# ------------------------------------------------------ the runtime services
+# The A10 arms on the ResNet-9 FetchSGD round at full width (8 clients x
+# 64, k = 50,000, r = 5, c = 500,736, d = 6,568,640) over the 100-client
+# universe of MODE_COMMON (12 rounds an epoch), SERVICE_ROUNDS rounds each.
+SERVICE_ROUNDS = 5
+SERVICE_ARGV = MODE_COMMON + ["--mode", "sketch", "--virtual_momentum",
+                              "0.9", "--num_rounds", str(SERVICE_ROUNDS)]
+# a robust arm runs the per-client path with deferred encode: one K1 (the
+# aggregate's encode) and one K2 a round
+ROBUST_ARMS = {
+    "normclip": ["--defense", "normclip"],
+    "trim": ["--defense", "trim"],
+    "signflip_normclip": ["--adversary", "signflip", "--adversary_frac",
+                          "0.25", "--defense", "normclip"],
+    "nan_quarantine": ["--adversary", "nan", "--adversary_frac", "0.25",
+                       "--nonfinite_action", "quarantine"],
+}
+# the first robust round on the card against the same round on the CPU
+# (plain kernel versions), float32 with TF32 off, 8 clients x 8 images:
+# the loss to 1e-4 relative, the update on the support both pick to 1e-3
+# of its L2 norm, at most 50 of the k = 50,000 coordinates swapped (0.1%:
+# the gradients differ in float32 order, and estimates tie near the k-th)
+ROBUST_LOSS_RTOL = 1e-4
+ROBUST_UPDATE_RTOL = 1e-3
+ROBUST_SWAPS = 50
+ROBUST_DEFENSE_RTOL = 1e-3
+ASYNC_TICKS = 12
+# the straggler fraction 0.25: at the default 0.1 the fates of seed 21's
+# 12 ticks draw no straggler (cohort 1 is dropped); at 0.25 cohorts 2 and
+# 10 take 10 ticks, so the pool fills and staleness shows
+ASYNC_STRAGGLERS = ["--async_agg", "--max_inflight", "4", "--buffer_goal",
+                    "2", "--staleness_discount", "poly", "--scenario",
+                    "stragglers", "--scenario_dropout", "0.1",
+                    "--scenario_straggler_frac", "0.25"]
+PREEMPT_TIMEOUT_S = 300
+
+
+def run_cv(argv, tag: str):
+    """``cv_train.main(argv)`` on the card with every launch count set to
+    0 just before and read just after; returns (result, launches, peak
+    memory)."""
+    import torch
+    from commefficient_torch import cv_train
+    from commefficient_torch.ops import circulant_kernels as K
+
+    print(f"[{tag}] python -m commefficient_torch.cv_train "
+          + " ".join(argv), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    out = cv_train.main(argv)
+    launches = dict(K.launches)
+    torch.cuda.synchronize()
+    return out, launches, torch.cuda.max_memory_allocated()
+
+
+def _rounds_ok(tag, out, launches, want, rounds=SERVICE_ROUNDS):
+    import numpy as np
+    if out["rounds"] != rounds or out["summary"] is None \
+            or not np.isfinite(out["losses"]).all():
+        fail(f"{tag}: {out['rounds']} rounds, losses {out['losses']}, "
+             f"summary {out['summary']}")
+    if launches != want:
+        fail(f"{tag}: launches {launches}, want {want}")
+
+
+def robust_reference_round(flags_kw: dict):
+    """The first round of a robust arm on the card and on the CPU (plain
+    versions) at ResNet-9's full width, float32, TF32 off, 8 clients x 8
+    seeded images; returns (rel dloss, rel dupdate, swaps, defense
+    scalars of both)."""
+    import numpy as np
+    import torch
+    from commefficient_torch.config import FedConfig
+    from commefficient_torch.core.runtime import FedRuntime
+    from commefficient_torch.data.scenarios import make_adversary
+    from commefficient_torch.losses import make_cv_loss
+    from commefficient_torch.models.resnet9 import ResNet9
+
+    cfg = FedConfig(mode="sketch", error_type="virtual", local_momentum=0.0,
+                    virtual_momentum=0.9, weight_decay=5e-4, k=50_000,
+                    num_rows=5, num_cols=500_000, num_workers=8,
+                    local_batch_size=8, compute_dtype="float32",
+                    num_clients=100, **flags_kw)
+    plan = make_adversary(cfg)
+    ids = np.arange(8)
+    if plan is not None:
+        hostile = plan.universe_mask(100)
+        ids = np.concatenate([np.flatnonzero(hostile)[:2],
+                              np.flatnonzero(~hostile)[:6]])
+    rng = np.random.RandomState(0)
+    batch = {"image": rng.randn(8, 8, 32, 32, 3).astype(np.float32),
+             "target": rng.randint(0, 10, (8, 8))}
+    mask = np.ones((8, 8), bool)
+    mask[1, 5:] = False
+    runs = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cpu", "cuda"):
+            model = ResNet9(num_classes=10,
+                            generator=torch.Generator().manual_seed(0))
+            rt = FedRuntime(cfg, model, make_cv_loss(model, "float32"),
+                            device=device)
+            st, met = rt.round(rt.init_state(), ids, batch, mask, 0.1)
+            runs[device] = (met["results"][0].cpu().numpy(),
+                            (st.ps_weights - rt.initial_weights)
+                            .cpu().numpy(),
+                            {k: float(v) for k, v in met["defense"].items()},
+                            None if met["client_finite"] is None
+                            else met["client_finite"].cpu().numpy())
+            del rt, st, met
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    (l_cpu, u_cpu, d_cpu, f_cpu), (l_gpu, u_gpu, d_gpu, f_gpu) = \
+        runs["cpu"], runs["cuda"]
+    fin = np.isfinite(l_cpu)
+    if not np.array_equal(fin, np.isfinite(l_gpu)):
+        fail(f"robust reference {flags_kw}: finite losses differ")
+    dl = float(np.abs(l_gpu - l_cpu)[fin].max() / np.abs(l_cpu[fin]).max())
+    s_cpu, s_gpu = u_cpu != 0, u_gpu != 0
+    swaps = int(max((s_cpu & ~s_gpu).sum(), (s_gpu & ~s_cpu).sum()))
+    same = s_cpu == s_gpu
+    du = float(np.linalg.norm((u_gpu - u_cpu)[same])
+               / np.linalg.norm(u_cpu))
+    for key, v in d_cpu.items():
+        w = d_gpu[key]
+        if not (math.isnan(v) and math.isnan(w)
+                or abs(w - v) <= ROBUST_DEFENSE_RTOL * max(abs(v), 1e-12)):
+            fail(f"robust reference {flags_kw}: defense {key} {w} on the "
+                 f"card, {v} on the CPU")
+    if (f_cpu is None) != (f_gpu is None) or (
+            f_cpu is not None and not np.array_equal(f_cpu, f_gpu)):
+        fail(f"robust reference {flags_kw}: finite flags {f_gpu} / {f_cpu}")
+    if not (dl <= ROBUST_LOSS_RTOL and du <= ROBUST_UPDATE_RTOL
+            and swaps <= ROBUST_SWAPS and s_cpu.sum() > 0
+            and np.isfinite(u_gpu).all()):
+        fail(f"robust reference {flags_kw}: the card's round disagrees "
+             f"with the CPU's (dloss {dl}, dupdate {du}, swaps {swaps})")
+    return dl, du, swaps, d_gpu
+
+
+def phase_robust():
+    """The plain sketch round and the four robust arms (ROBUST_ARMS)
+    through ``cv_train`` at full width, SERVICE_ROUNDS rounds each, in
+    one call: 9 K1 + 1 K2 a round plain, exactly 1 K1 + 1 K2 a robust
+    round, finite losses, the defense scalars of every round printed,
+    each arm's median round and peak memory beside the plain round's;
+    the quarantine arm's ledger (strikes, benches, ejections) equal to
+    the CPU run's of the same seeds (``--test`` size: the ledger depends
+    on the sampler and the adversary plan alone); each arm's first round
+    card-vs-CPU (``robust_reference_round``). Returns (plain, {arm:
+    (launches, median ms, peak bytes)})."""
+    import numpy as np
+    from commefficient_torch import cv_train
+
+    R = SERVICE_ROUNDS
+    argv = SERVICE_ARGV + dataset_flags("synthetic640")
+    out, launches, peak = run_cv(argv, "robust")
+    _rounds_ok("plain sketch", out, launches,
+               {"circ_encode": 9 * R, "circ_decode": R})
+    plain_ms = statistics.median(out["round_s"][1:]) * 1e3
+    plain = {"launches": launches, "ms": plain_ms, "peak": peak,
+             "weights": out["state"].ps_weights.cpu(),
+             "losses": list(out["losses"])}
+    print(f"[robust] plain sketch: median of rounds 2-{R} {plain_ms:.3f} "
+          f"ms, peak {peak / 2**30:.3f} GiB, launches {launches}",
+          flush=True)
+    del out
+    arms = {}
+    for arm, flags in ROBUST_ARMS.items():
+        out, launches, peak = run_cv(argv + flags, "robust")
+        _rounds_ok(arm, out, launches, {"circ_encode": R, "circ_decode": R})
+        ms = statistics.median(out["round_s"][1:]) * 1e3
+        scalars = out["defense"]
+        if len(scalars) != R:
+            fail(f"{arm}: {len(scalars)} rounds of defense scalars")
+        print(f"[robust] {arm}: median of rounds 2-{R} {ms:.3f} ms "
+              f"(plain {plain_ms:.3f}), peak {peak / 2**30:.3f} GiB (plain "
+              f"{plain['peak'] / 2**30:.3f}), launches {launches}, losses "
+              f"{[round(float(x), 5) for x in out['losses']]}, defense "
+              + "; ".join(", ".join(f"{k} {v:.5g}" for k, v in s.items())
+                          for s in scalars), flush=True)
+        if "quarantine" in arm:
+            ledger = out["services"].qledger
+            cpu = cv_train.main(["--device", "cpu", "--test"] + argv[:-2]
+                                + dataset_flags("synthetic640_cpu") + flags)
+            want = cpu["services"].qledger
+            if ledger.state_dict() != want.state_dict() \
+                    or not ledger.total_strikes:
+                fail(f"{arm}: the card's quarantine ledger "
+                     f"{ledger.state_dict()} is not the CPU run's "
+                     f"{want.state_dict()}")
+            print(f"[robust] {arm}: {ledger.total_strikes} strikes, "
+                  f"{ledger.quarantined(R)} benched and "
+                  f"{len(ledger.ejected)} ejected after round {R}, equal "
+                  "to the CPU run of the same seeds", flush=True)
+            del cpu
+        arms[arm] = (launches, ms, peak)
+        del out
+    for arm, flags in ROBUST_ARMS.items():
+        kw = {f[2:]: (float(v) if f in ("--adversary_frac",) else v)
+              for f, v in zip(flags[::2], flags[1::2])}
+        dl, du, swaps, d = robust_reference_round(kw)
+        print(f"[robust] {arm}: first round card vs CPU (float32, TF32 "
+              f"off, 8 x 8): rel dloss {dl:.3e}, update L2 difference "
+              f"{du:.3e} of its norm, {swaps} of 50,000 swapped; defense "
+              + ", ".join(f"{k} {v:.5g}" for k, v in d.items()), flush=True)
+    return plain, arms
+
+
+def phase_async(plain):
+    """``--async_agg --max_inflight 1 --buffer_goal 1`` over the plain
+    arm's rounds: weights, losses and launches bitwise the synchronous
+    run's; then ASYNC_STRAGGLERS for ASYNC_TICKS ticks (one epoch of the
+    100-client universe) and its flush: commits, staleness, K1 = 9 a
+    computed cohort (a dropped cohort computes nothing, as in the JAX
+    package), K2 = 1 a commit, tick and commit medians. Returns
+    {part: launches} and the printed numbers."""
+    import numpy as np
+    import torch
+    from commefficient_torch.core.runtime import FedRuntime
+
+    argv = SERVICE_ARGV + dataset_flags("synthetic640")
+    out, launches, peak = run_cv(argv + ["--async_agg", "--max_inflight",
+                                         "1", "--buffer_goal", "1"],
+                                 "async")
+    agg = out["services"].async_agg
+    if not (same_bits(out["state"].ps_weights.cpu(), plain["weights"])
+            and list(out["losses"]) == plain["losses"]
+            and launches == plain["launches"]
+            and agg.commits == SERVICE_ROUNDS):
+        fail(f"async K=1/M=1: not bitwise the synchronous rounds (launches "
+             f"{launches} vs {plain['launches']}, commits {agg.commits})")
+    k1m1_ms = statistics.median(out["round_s"][1:]) * 1e3
+    print(f"[async] K=1 M=1: {SERVICE_ROUNDS} ticks bitwise the synchronous"
+          f" rounds (weights, losses, launches {launches}); median tick "
+          f"{k1m1_ms:.3f} ms against the round's {plain['ms']:.3f}, peak "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    del out
+    commit_s, orig = [], FedRuntime.commit
+
+    def timed_commit(rt, state, lr):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = orig(rt, state, lr)
+        torch.cuda.synchronize()
+        commit_s.append(time.perf_counter() - t)
+        return res
+
+    FedRuntime.commit = timed_commit
+    try:
+        argv = MODE_COMMON + ["--mode", "sketch", "--virtual_momentum",
+                              "0.9", "--num_rounds", str(ASYNC_TICKS)]
+        out, launches, peak = run_cv(argv + dataset_flags("synthetic640")
+                                     + ASYNC_STRAGGLERS, "async")
+    finally:
+        FedRuntime.commit = orig
+    agg = out["services"].async_agg
+    want = {"circ_encode": 9 * agg.dispatched, "circ_decode": agg.commits}
+    if launches != want or agg.dispatched + agg.dropped != ASYNC_TICKS \
+            or agg.inflight or agg.pending or not agg.commits \
+            or out["state"].step != agg.commits \
+            or not np.isfinite(out["losses"]).all() \
+            or len(commit_s) != agg.commits:
+        fail(f"async stragglers: launches {launches} (want {want}), "
+             f"dispatched {agg.dispatched}, dropped {agg.dropped}, commits "
+             f"{agg.commits}, in flight {agg.inflight}, pending "
+             f"{agg.pending}")
+    tick_ms = statistics.median(out["round_s"][1:]) * 1e3
+    commit_ms = statistics.median(commit_s) * 1e3
+    print(f"[async] stragglers K=4 M=2 poly, dropout 0.1, straggler "
+          f"share 0.25: {ASYNC_TICKS} "
+          f"ticks, {agg.dispatched} cohorts computed, {agg.dropped} dropped,"
+          f" {agg.merged} merged, {agg.commits} commits, staleness mean "
+          f"{agg.staleness_mean_seen:.3f} max {agg.staleness_max_seen}; "
+          f"K1 {launches['circ_encode']} (9 a computed cohort), K2 "
+          f"{launches['circ_decode']} (1 a commit); median tick "
+          f"{tick_ms:.3f} ms (a tick's dispatch, landings and commits), "
+          f"median commit {commit_ms:.3f} ms, peak {peak / 2**30:.3f} GiB",
+          flush=True)
+    return {"k1m1": dict(plain["launches"]), "stragglers": launches}, \
+        {"k1m1_ms": k1m1_ms, "tick_ms": tick_ms, "commit_ms": commit_ms}
+
+
+def phase_preempt(plain):
+    """``--watchdog`` on the plain arm's rounds: bitwise its weights. Then
+    one epoch (12 rounds) with ``--checkpoint_every 1 --checkpoint``
+    uninterrupted in this process, and in child processes on the card:
+    ``COMMEFFICIENT_FAULT=sigterm:pre_round:3`` drains to
+    ``ckpt_000000_r000003_preempt`` and exits 0; ``--resume`` under
+    ``kill:mid_checkpoint_write`` is killed (137) writing the epoch's
+    generation, which leaves the preempt generation and .tmp litter; a
+    last ``--resume`` falls back to the preempt generation, removes the
+    litter and ends at the uninterrupted run's weights bit for bit.
+    Returns the watchdog run's launches and the children's seconds."""
+    import numpy as np
+
+    argv = SERVICE_ARGV + dataset_flags("synthetic640")
+    out, launches, _ = run_cv(argv + ["--watchdog"], "preempt")
+    if not (same_bits(out["state"].ps_weights.cpu(), plain["weights"])
+            and launches == plain["launches"]):
+        fail("--watchdog changed the rounds")
+    print(f"[preempt] --watchdog: {SERVICE_ROUNDS} rounds bitwise the plain "
+          f"arm's, deadline history {len(out['services'].watchdog.history)}"
+          f" rounds, {out['services'].watchdog.stalls} stalls", flush=True)
+    wd_launches = launches
+    del out
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def epoch_argv(ck):
+        return (MODE_COMMON + ["--mode", "sketch", "--virtual_momentum",
+                               "0.9", "--num_rounds", "0", "--num_epochs",
+                               "1", "--checkpoint_every", "1",
+                               "--checkpoint", "--checkpoint_path", ck]
+                + dataset_flags("synthetic640"))
+
+    ck_a = os.path.join(DATA_ROOT["path"], "preempt_straight")
+    ck_b = os.path.join(DATA_ROOT["path"], "preempt_chain")
+    out, _, _ = run_cv(epoch_argv(ck_a), "preempt")
+    straight = np.load(os.path.join(ck_a, "ResNet9.npz"))["ps_weights"]
+    if out["rounds"] != 12:
+        fail(f"preempt: the straight epoch ran {out['rounds']} rounds")
+    del out
+    times = {}
+
+    def child(tag, extra, fault):
+        env = dict(os.environ)
+        env.pop("COMMEFFICIENT_FAULT", None)
+        if fault:
+            env["COMMEFFICIENT_FAULT"] = fault
+        t = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "commefficient_torch.cv_train"]
+            + epoch_argv(ck_b) + extra, cwd=root, env=env,
+            capture_output=True, text=True, timeout=PREEMPT_TIMEOUT_S)
+        times[tag] = time.perf_counter() - t
+        return res
+
+    gens = lambda: sorted(f for f in os.listdir(  # noqa: E731
+        os.path.join(ck_b, "ResNet9")) if f.endswith(".npz"))
+    a = child("sigterm", [], "sigterm:pre_round:3")
+    if a.returncode != 0 or "PREEMPT: drained at epoch 0 + 3" not in \
+            a.stdout or gens() != ["ckpt_000000_r000003_preempt.npz"]:
+        fail(f"preempt: the SIGTERM drain (rc {a.returncode}): "
+             f"{a.stdout[-1500:]} {a.stderr[-1500:]}")
+    b = child("kill", ["--resume"], "kill:mid_checkpoint_write")
+    litter = [f for f in os.listdir(os.path.join(ck_b, "ResNet9"))
+              if f.endswith(".tmp")]
+    if b.returncode != 137 or gens() != \
+            ["ckpt_000000_r000003_preempt.npz"] or not litter:
+        fail(f"preempt: the kill inside the checkpoint write (rc "
+             f"{b.returncode}, generations {gens()}, litter {litter}): "
+             f"{b.stderr[-1500:]}")
+    c = child("resume", ["--resume"], None)
+    got = np.load(os.path.join(ck_b, "ResNet9.npz"))["ps_weights"]
+    if c.returncode != 0 or "epoch 0 + 3 rounds (preempt checkpoint)" \
+            not in c.stdout or "stale .tmp" not in c.stderr \
+            or got.tobytes() != straight.tobytes():
+        fail(f"preempt: the resume (rc {c.returncode}) did not end at the "
+             f"uninterrupted weights: {c.stdout[-1500:]} "
+             f"{c.stderr[-1500:]}")
+    rows = [ln for ln in c.stdout.splitlines() if "train_time" in ln]
+    epoch_row = c.stdout.splitlines()
+    epoch_row = epoch_row[epoch_row.index(rows[0]) + 1] if rows else ""
+    print(f"[preempt] the last resume's epoch row: {epoch_row.strip()}",
+          flush=True)
+    print(f"[preempt] sigterm:pre_round:3 drained to the preempt "
+          f"generation and exited 0 ({times['sigterm']:.1f} s); the resume "
+          f"under kill:mid_checkpoint_write exited 137 leaving it and "
+          f"{len(litter)} .tmp file(s) ({times['kill']:.1f} s); the last "
+          f"resume fell back to it, removed the litter and ended bitwise "
+          f"at the uninterrupted epoch's weights ({times['resume']:.1f} s)",
+          flush=True)
+    return wd_launches, times
+
+
+def run_services() -> dict:
+    """phase_robust, phase_async and phase_preempt; returns {path: K1/K2
+    launches} for the kernel line."""
+    plain, arms = phase_robust()
+    async_launches, async_ms = phase_async(plain)
+    wd_launches, preempt_s = phase_preempt(plain)
+    print("[slice 13] round medians (ms) and peaks (GiB), beside the plain "
+          f"sketch round's {plain['ms']:.3f} / {plain['peak'] / 2**30:.3f}: "
+          + ", ".join(f"{a} {ms:.3f} / {pk / 2**30:.3f}"
+                      for a, (_, ms, pk) in arms.items())
+          + f"; async K=1 M=1 tick {async_ms['k1m1_ms']:.3f}, stragglers "
+          f"tick {async_ms['tick_ms']:.3f} and commit "
+          f"{async_ms['commit_ms']:.3f}; preempt children (s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in preempt_s.items()),
+          flush=True)
+    return {"plain": plain["launches"],
+            **{f"--defense/--adversary {a}": v[0] for a, v in arms.items()},
+            **{f"--async_agg {a}": v for a, v in async_launches.items()},
+            "--watchdog": wd_launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -3735,6 +4154,14 @@ def main() -> int:
     t0 = time.perf_counter()
     DATA_ROOT["path"] = tempfile.mkdtemp(prefix="chip_smoke_data_")
     try:
+        if sys.argv[1:2] == ["--services"]:
+            # the runtime services' phases alone, after the build: a quick
+            # check of this slice, with no kernel line and no result line
+            phase_build()
+            run_services()
+            print(f"[time] services done at {time.perf_counter() - t0:.1f}"
+                  " s (partial run: no result line)", flush=True)
+            return 0
         return run_phases(t0)
     finally:
         shutil.rmtree(DATA_ROOT["path"], ignore_errors=True)
@@ -3823,6 +4250,8 @@ def run_phases(t0: float) -> int:
          "compat")
     stream = phase_stream()
     done("the streaming encode (StreamMLP)")
+    services = run_services()
+    done("the runtime services (robust, async, preempt)")
     print("[slice 12] round medians (ms): ResNet-9 wires "
           + ", ".join(f"{a} {ms:.3f} ({b} B a client)"
                       for a, (_, ms, b) in wire.items())
@@ -3921,7 +4350,9 @@ def run_phases(t0: float) -> int:
                    "gpt2_train --wire_dtype int8": (gpt2_int8[0][name]
                                                     + gpt2_int8[1][name]),
                    **{f"FedRuntime StreamMLP {a}": launches[name]
-                      for a, (launches, _, _, _) in stream.items()}}
+                      for a, (launches, _, _, _) in stream.items()},
+                   **{f"cv_train services {a}": launches[name]
+                      for a, launches in services.items()}}
         extra = {}
         if name == "circ_encode":
             extra = {"range_launches": stream["streaming_grad"][1],

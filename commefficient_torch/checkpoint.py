@@ -17,8 +17,14 @@ field the port has no counterpart for is refused by name.
 ``CheckpointManager`` keeps ``ckpt_<epoch:06d>`` generations (the newest
 ``keep_last``), removes ``.tmp`` litter from an interrupted write, and
 restores the newest generation that reads back intact, falling back past
-damaged ones and naming each (``restore_fallbacks``). A resume is
-refused, unless ``--resume_unverified``, when the checkpoint was written
+damaged ones and naming each (``restore_fallbacks``). The preemption
+drain writes out-of-cadence ``ckpt_<epoch>_r<round>_preempt``
+generations inside an epoch (the JAX package's names); all generations
+share one rotation ordered by (epoch, round in epoch), and a resume from
+one continues at its round. A round-granular meta carries the host
+ledgers (``ledgers``, core/preempt.py) and an async run's marker
+``async_gen`` (``v1-{discount}-a{alpha}-M{goal}-K{inflight}``). A resume
+is refused, unless ``--resume_unverified``, when the checkpoint was written
 under another parameter layout (the port's ``torch_layout`` fingerprint;
 a JAX-written file has none and is held to the run's d and field shapes
 instead) or another sketch (``sketch_gen``, the JAX package's
@@ -44,6 +50,7 @@ import numpy as np
 import torch
 
 from commefficient_torch.core.state import FedState
+from commefficient_torch.faults import maybe_fault
 
 FIELDS = tuple(f.name for f in dataclasses.fields(FedState))
 INT_FIELDS = ("step", "coord_last_update", "client_last_round", "nan_round")
@@ -53,10 +60,10 @@ SKIPPED = ("rng",)
 UNPORTED = {
     "sig_Vvelocity": "the --signals_exact shadow",
     "sig_Verror": "the --signals_exact shadow",
-    "async_buffer": "asynchronous aggregation",
-    "async_buffer_n": "asynchronous aggregation",
-    "defense_ref": "the --defense normclip reference",
 }
+# fields that a resume fits to the run (``fit_services``) instead of
+# refusing their shape: the async buffer and the normclip ring
+FITTED = ("async_buffer", "async_buffer_n", "defense_ref")
 # a plain save refuses above this many bytes of host copies
 DEFAULT_MAX_HOST_BYTES = 8 << 30
 _DAMAGE_ERRORS = (zipfile.BadZipFile, OSError, EOFError, KeyError)
@@ -189,8 +196,38 @@ def save_state(path: str, state: FedState, meta: Optional[Dict] = None,
     digests = {k: entry_digest(v) for k, v in arrays.items()}
     text = json.dumps(dict(meta or {}, digests=digests)).encode()
     _atomic_write(path + ".meta.json", lambda f: f.write(text))
-    _atomic_write(path + ".npz", lambda f: np.savez(f, **arrays))
+
+    def write_npz(f):
+        np.savez(f, **arrays)
+        f.flush()
+        # the tmp file is written, its rename pending: a death here leaves
+        # the previous generation intact and only .tmp litter (removed
+        # before the next save)
+        maybe_fault("mid_checkpoint_write")
+
+    _atomic_write(path + ".npz", write_npz)
     return path + ".npz"
+
+
+def save_postmortem(path: str, state: FedState,
+                    meta: Optional[Dict] = None) -> str:
+    """``save_state`` that degrades instead of refusing: a state above
+    the host-copy guard is written as its ``ps_weights`` alone, and the
+    meta says so (``degraded``). A postmortem happens when the run is in
+    trouble, and the weights are what a replay needs first."""
+    meta = dict(meta or {})
+    try:
+        return save_state(path, state, meta)
+    except ValueError as e:
+        meta["degraded"] = f"weights-only postmortem: {e}"
+        print(f"WARNING: postmortem degraded to weights-only ({e})",
+              file=sys.stderr)
+        arrays = {"ps_weights": state.ps_weights.detach().cpu().numpy()}
+        text = json.dumps(dict(meta, digests={
+            "ps_weights": entry_digest(arrays["ps_weights"])})).encode()
+        _atomic_write(path + ".meta.json", lambda f: f.write(text))
+        _atomic_write(path + ".npz", lambda f: np.savez(f, **arrays))
+        return path + ".npz"
 
 
 def load_meta(path: str) -> Dict:
@@ -255,7 +292,8 @@ def load_state(path: str, device="cpu",
     """A ``FedState`` on ``device`` from ``<path>.npz`` (digests checked
     when given). ``expect_shapes`` (``FedRuntime.state_shapes``) names
     the fields a run holds and their shapes; a checkpoint that differs in
-    any of them, or in a field's dtype, is refused by field."""
+    any of them but ``FITTED``'s, or in a field's dtype, is refused by
+    field."""
     arrays = load_arrays(path, digests)
     if "nan_round" not in arrays:
         arrays["nan_round"] = np.full((), -1, np.int32)
@@ -266,6 +304,8 @@ def load_state(path: str, device="cpu",
                              f"{arr.dtype}, want {np.dtype(want)}")
     if expect_shapes is not None:
         for name in FIELDS:
+            if name in FITTED:
+                continue
             want = expect_shapes.get(name)
             got = arrays[name].shape if name in arrays else None
             if got != (tuple(want) if want is not None else None):
@@ -289,9 +329,19 @@ class CheckpointManager:
         self.default_meta: Dict = {}
         # the generations the last restore_latest skipped: [{path, error}]
         self.restore_fallbacks: List[Dict[str, str]] = []
+        # set by setup_checkpointing's resume: the rounds trained inside
+        # the restored epoch and the meta's host ledgers
+        self.resume: Dict = {}
 
-    def path(self, epoch: int) -> str:
-        return os.path.join(self.directory, f"ckpt_{epoch:06d}")
+    def path(self, epoch: int, round_in_epoch: int = 0,
+             tag: Optional[str] = None) -> str:
+        """``ckpt_<epoch:06d>``, or ``ckpt_<epoch:06d>_r<round:06d>_<tag>``
+        for a generation written ``round_in_epoch`` rounds into the epoch
+        after ``epoch`` (the preemption drain's, tag ``preempt``)."""
+        stem = f"ckpt_{epoch:06d}"
+        if round_in_epoch or tag:
+            stem += f"_r{round_in_epoch:06d}_{tag or 'preempt'}"
+        return os.path.join(self.directory, stem)
 
     def clean_stale_tmp(self) -> List[str]:
         """Removes the ``.tmp`` files a killed write left behind."""
@@ -307,12 +357,15 @@ class CheckpointManager:
         return removed
 
     def save(self, state: FedState, epoch: int,
-             meta: Optional[Dict] = None) -> str:
+             meta: Optional[Dict] = None, round_in_epoch: int = 0,
+             tag: Optional[str] = None) -> str:
         meta = dict(self.default_meta, **(meta or {}), epoch=epoch,
-                    round_in_epoch=0)
+                    round_in_epoch=int(round_in_epoch))
+        if tag:
+            meta["tag"] = tag
         self.clean_stale_tmp()
         t0 = time.perf_counter()
-        out = save_state(self.path(epoch), state, meta)
+        out = save_state(self.path(epoch, round_in_epoch, tag), state, meta)
         print(f"checkpoint: wrote {out} ({os.path.getsize(out) / 2**20:.1f}"
               f" MiB) in {time.perf_counter() - t0:.3f} s", flush=True)
         for _, stem in self.generations()[:-self.keep_last]:
@@ -344,23 +397,25 @@ class CheckpointManager:
 
     def restore_latest(self, device="cpu", expect_layout=None,
                        expect_shapes=None, expect_sketch_gen=None,
-                       unverified: bool = False):
-        """``(state, meta)`` of the newest intact generation, or ``(None,
-        {})`` when there is none. Refusals (a ValueError, never a fallback:
-        an older file has the same configuration): another layout
-        fingerprint, another sketch (both waived by ``unverified``; the
-        caller then zeroes the tables), other field shapes, a mid-epoch
-        generation. A damaged file is skipped with a ``WARNING:`` naming
-        it; when every generation is damaged the last damage is raised."""
+                       unverified: bool = False, expect_async_gen=None):
+        """``(state, meta)`` of the newest intact generation (a preempt
+        generation inside an epoch included: its meta's
+        ``round_in_epoch`` says where), or ``(None, {})`` when there is
+        none. Refusals (a ValueError, never a fallback: an older file has
+        the same configuration): another layout fingerprint, another
+        sketch (both waived by ``unverified``; the caller then zeroes the
+        tables), other field shapes, and for an async run
+        (``expect_async_gen``) a checkpoint without the async marker
+        (waived by ``unverified``: the buffer starts empty). A damaged
+        file is skipped with a ``WARNING:`` naming it; when every
+        generation is damaged the last damage is raised."""
         self.restore_fallbacks = []
         gens = self.generations()
         if not gens:
             return None, {}
         last_err: Optional[Exception] = None
-        for (_, rnd), stem in reversed(gens):
+        for _, stem in reversed(gens):
             path = os.path.join(self.directory, stem)
-            if rnd:
-                self._refuse_mid_epoch(path)
             try:
                 if not os.path.exists(path + ".meta.json"):
                     # both packages write a generation's meta: without it
@@ -372,10 +427,11 @@ class CheckpointManager:
                 self._fallback(path, err)
                 last_err = err
                 continue
-            if int(meta.get("round_in_epoch", 0)):
-                self._refuse_mid_epoch(path)
             self._check_sketch_gen(meta.get("sketch_gen"), expect_sketch_gen,
                                    unverified, path)
+            if expect_async_gen is not None:
+                self._check_async_gen(meta.get("async_gen"),
+                                      expect_async_gen, unverified, path)
             saved = meta.get("torch_layout")
             if (expect_layout is not None and saved is not None
                     and saved != expect_layout and not unverified):
@@ -399,11 +455,31 @@ class CheckpointManager:
             f"restart from scratch. Last error: {last_err}")
 
     @staticmethod
-    def _refuse_mid_epoch(path: str) -> None:
-        raise ValueError(
-            f"checkpoint {path} was written inside an epoch (a preemption "
-            "checkpoint of the JAX package); the port resumes at epoch "
-            "boundaries only")
+    def _check_async_gen(saved, expect: str, unverified: bool,
+                         path: str) -> None:
+        """The JAX package's rule: an async run cannot verify a checkpoint
+        without the async marker (written before buffered aggregation, or
+        by a synchronous run) unless ``unverified`` (the buffer then
+        starts empty: commits are atomic, nothing double-counts); a
+        marker that differs only warns (the buffer is flushed at every
+        epoch's end and at a drain)."""
+        if saved == expect:
+            return
+        if saved is None:
+            if unverified:
+                return
+            raise ValueError(
+                f"checkpoint {path} predates async buffered aggregation "
+                "(it carries no async_gen marker): the resume cannot "
+                "verify the buffer state or commit ledger this "
+                f"--async_agg run ({expect!r}) would continue. Pass "
+                "--resume_unverified to resume with a FRESH, EMPTY "
+                "buffer — that is safe (commits are atomic, nothing "
+                "double-counts); the async commit counter restarts.")
+        print(f"WARNING: async-aggregation parameters changed "
+              f"({saved!r} -> {expect!r}); resuming anyway — the buffer "
+              "is committed/flushed atomically, so only future merges "
+              "use the new discount", file=sys.stderr)
 
     def _fallback(self, path: str, err: Exception) -> None:
         self.restore_fallbacks.append({"path": path, "error": str(err)})
@@ -444,24 +520,59 @@ class CheckpointManager:
             "continue from the weights.")
 
 
+def async_generation(cfg) -> Optional[str]:
+    """The JAX package's marker of an async run's buffering,
+    ``v1-{discount}-a{alpha}-M{goal}-K{inflight}``; None for a
+    synchronous run."""
+    if not cfg.async_agg:
+        return None
+    return (f"v1-{cfg.staleness_discount}-a{cfg.staleness_alpha}"
+            f"-M{cfg.buffer_goal}-K{cfg.max_inflight}")
+
+
+def fit_services(state: FedState, runtime) -> FedState:
+    """A restored state fitted to the run's services, as the JAX
+    package's driver fits it: a normclip ring that is missing or of
+    another window restarts cold (NaN), one the run does not hold is
+    dropped; the async buffer as ``reconcile_resumed_state`` decides
+    (each change printed)."""
+    from commefficient_torch.core.async_agg import reconcile_resumed_state
+    want = runtime.state_shapes()["defense_ref"]
+    ring = state.defense_ref
+    if want is not None and (ring is None
+                             or tuple(ring.shape) != tuple(want)):
+        state = state.replace(defense_ref=torch.full(
+            want, float("nan"), device=runtime.device))
+    elif want is None and ring is not None:
+        state = state.replace(defense_ref=None)
+    state, msgs = reconcile_resumed_state(state, runtime)
+    for m in msgs:
+        print(f"WARNING: {m}", file=sys.stderr)
+    return state
+
+
 def setup_checkpointing(cfg, runtime, name: str):
     """The drivers' ``--checkpoint_every``/``--resume`` wiring. Returns
     ``(manager or None, start_epoch, restored state or None,
     global_round)``: a resumed run starts at the checkpoint's epoch and
-    global round."""
+    global round; the manager's ``resume`` holds the rounds already
+    trained inside that epoch (``round_in_epoch``, a preempt
+    generation's) and the host ``ledgers`` of its meta."""
     if not (cfg.checkpoint_every or cfg.do_resume):
         return None, 0, None, 0
     mgr = CheckpointManager(os.path.join(cfg.checkpoint_path, name))
     layout = layout_fingerprint(runtime.layout)
     sketch_gen = sketch_generation(cfg)
-    mgr.default_meta = {"torch_layout": layout, "sketch_gen": sketch_gen}
+    async_gen = async_generation(cfg)
+    mgr.default_meta = {"torch_layout": layout, "sketch_gen": sketch_gen,
+                        "async_gen": async_gen}
     if not cfg.do_resume:
         return mgr, 0, None, 0
     t0 = time.perf_counter()
     state, meta = mgr.restore_latest(
         runtime.device, expect_layout=layout,
         expect_shapes=runtime.state_shapes(), expect_sketch_gen=sketch_gen,
-        unverified=cfg.resume_unverified)
+        unverified=cfg.resume_unverified, expect_async_gen=async_gen)
     if state is None:
         print(f"--resume: no checkpoint under {mgr.directory}; starting "
               "from scratch")
@@ -473,11 +584,19 @@ def setup_checkpointing(cfg, runtime, name: str):
               f"({meta.get('sketch_gen')!r} -> {sketch_gen!r}); momentum "
               "and error tables RESET, resuming from the weights only",
               file=sys.stderr)
+    state = fit_services(state, runtime)
     epoch = int(meta.get("epoch", 0))
+    in_epoch = int(meta.get("round_in_epoch", 0))
     global_round = int(meta.get("global_round", state.step))
-    print(f"resumed from {mgr.path(epoch)} (epoch {epoch}, global round "
-          f"{global_round}; {len(meta.get('digests', {}))} entries "
-          f"verified) in {time.perf_counter() - t0:.3f} s"
+    print(f"resumed from {mgr.path(epoch, in_epoch, meta.get('tag'))} "
+          f"(epoch {epoch}"
+          + (f" + {in_epoch} rounds (preempt checkpoint)" if in_epoch
+             else "")
+          + f", global round {global_round}; "
+          f"{len(meta.get('digests', {}))} entries verified) in "
+          f"{time.perf_counter() - t0:.3f} s"
           + "".join(f"; skipped damaged {fb['path']}"
                     for fb in mgr.restore_fallbacks), flush=True)
+    mgr.resume = {"round_in_epoch": in_epoch,
+                  "ledgers": meta.get("ledgers")}
     return mgr, epoch, state, global_round

@@ -15,10 +15,13 @@ with block remat, the chunked LM loss, local HF weights and
 ``save_pretrained``), with whole-state checkpoints and resume in both,
 the host path's batches fetched ahead by the round input pipeline
 (``core/pipeline.py``), the sketch table's float32, bf16 or int8 wire
-(``--wire_dtype``, ``--wire_block``, the deprecated ``--sketch_dtype``)
-and the SRHT's row scan (``--sketch_scan_rows``). A value or flag
-outside it raises and names the flag: meshes are not ported
-(``--mesh_shape ""``, the JAX package's single device, is accepted).
+(``--wire_dtype``, ``--wire_block``, the deprecated ``--sketch_dtype``),
+the SRHT's row scan (``--sketch_scan_rows``) and the runtime services
+(``add_service_args``: robust aggregation, adversaries and the
+quarantine, FedBuff and its straggler scenarios, the preemption drain
+and the watchdog). A value or flag outside it raises and names the flag:
+meshes and telemetry are not ported (``--mesh_shape ""``, the JAX
+package's single device, is accepted).
 Which combinations of mode, error type and momentum are legal is the
 server's rule (``core/server.py validate_mode_combo``), checked when a
 runtime is built, as in the JAX package. Defaults and choices are the
@@ -43,6 +46,13 @@ DP_MODES = ("worker", "server")
 SKETCH_IMPLS = ("circ", "hash", "rht")
 SERVER_STATES = ("table", "dense")
 WIRE_DTYPES = ("float32", "bfloat16", "int8")
+# the runtime services (core/async_agg.py, data/scenarios.py,
+# core/server.py robust_aggregate, core/quarantine.py, core/preempt.py)
+ADVERSARY_KINDS = ("none", "labelflip", "signflip", "scale", "noise", "nan")
+DEFENSES = ("none", "normclip", "trim")
+NONFINITE_ACTIONS = ("abort", "quarantine")
+DISCOUNT_RULES = ("none", "poly", "exp")
+SCENARIO_KINDS = ("none", "uniform", "lognormal", "stragglers")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +163,43 @@ class FedConfig:
     lm_chunk: int = 0
     # a local HF checkpoint (directory or hub-cache name) to start from
     model_checkpoint: str = "gpt2"
+    # the runtime services, with the JAX package's defaults. Asynchronous
+    # buffered aggregation (core/async_agg.py, FedBuff): up to
+    # max_inflight cohorts in flight, a commit every buffer_goal merged
+    # cohorts, each merged at staleness_discount's weight; the straggler
+    # scenario (data/scenarios.py) draws each cohort's latency, dropout
+    # and participation and needs async_agg
+    async_agg: bool = False
+    max_inflight: int = 4
+    buffer_goal: int = 1
+    staleness_discount: str = "poly"
+    staleness_alpha: float = 0.5
+    scenario: str = "none"
+    scenario_latency: float = 1.0
+    scenario_spread: float = 0.5
+    scenario_straggler_frac: float = 0.1
+    scenario_straggler_mult: float = 10.0
+    scenario_dropout: float = 0.0
+    scenario_participation: float = 1.0
+    # adversarial clients (a deterministic adversary_frac of the universe,
+    # keyed by (seed, client id)), robust aggregation in transmitted
+    # space (core/server.py robust_aggregate) and the quarantine of
+    # clients whose uploads went nonfinite (core/quarantine.py)
+    adversary: str = "none"
+    adversary_frac: float = 0.0
+    adversary_scale: float = 10.0
+    defense: str = "none"
+    defense_clip_mult: float = 3.0
+    defense_window: int = 8
+    defense_trim_frac: float = 0.1
+    nonfinite_action: str = "abort"
+    quarantine_backoff: int = 8
+    quarantine_strikes: int = 3
+    # preemption (core/preempt.py): the drain's budget in seconds after
+    # the first SIGTERM/SIGINT, and the hang watchdog
+    preempt_grace: float = 30.0
+    watchdog: bool = False
+    watchdog_mult: float = 10.0
 
     def __post_init__(self):
         if self.synthetic_hard and not self.no_augment:
@@ -175,12 +222,17 @@ class FedConfig:
                    "sketch_server_state": SERVER_STATES,
                    "sketch_fused_encode": ("auto", "on", "off"),
                    "attn_impl": ("auto", "dense", "flash"),
-                   "compute_dtype": ("bfloat16", "float32")}
+                   "compute_dtype": ("bfloat16", "float32"),
+                   "staleness_discount": DISCOUNT_RULES,
+                   "scenario": SCENARIO_KINDS, "adversary": ADVERSARY_KINDS,
+                   "defense": DEFENSES,
+                   "nonfinite_action": NONFINITE_ACTIONS}
         for name, legal in choices.items():
             if getattr(self, name) not in legal:
                 raise ValueError(f"--{name} {getattr(self, name)!r}: want "
                                  "one of " + ", ".join(legal))
         self._resolve_wire()
+        self._check_services()
         if (self.model, self.dataset_name) not in MODEL_DATASETS:
             raise ValueError(
                 f"--model {self.model} --dataset_name {self.dataset_name} "
@@ -215,6 +267,84 @@ class FedConfig:
             # the reference's invariant (its utils.py:225-228); the mode,
             # error and momentum rules are validate_mode_combo's
             raise ValueError("--mode fedavg requires --local_batch_size -1")
+
+    def _check_services(self) -> None:
+        """The JAX package's refusals of the runtime services' numbers
+        (its ``config.py``); which modes each service admits is the
+        runtime's check (``validate_async_combo``,
+        ``validate_defense_combo``)."""
+        if self.staleness_alpha <= 0:
+            raise ValueError(
+                f"--staleness_alpha {self.staleness_alpha} must be > 0")
+        if self.async_agg:
+            if self.buffer_goal < 1:
+                raise ValueError(
+                    f"--buffer_goal {self.buffer_goal} must be >= 1")
+            if self.max_inflight < 1:
+                raise ValueError(
+                    f"--max_inflight {self.max_inflight} must be >= 1")
+        if not 0.0 <= self.scenario_dropout < 1.0:
+            raise ValueError(f"--scenario_dropout {self.scenario_dropout} "
+                             "must be in [0, 1)")
+        if not 0.0 < self.scenario_participation <= 1.0:
+            raise ValueError(
+                f"--scenario_participation {self.scenario_participation} "
+                "must be in (0, 1]")
+        if not self.async_agg and (
+                self.scenario != "none" or self.scenario_dropout > 0
+                or self.scenario_participation < 1.0):
+            raise ValueError(
+                "--scenario/--scenario_dropout/--scenario_participation "
+                "require --async_agg: the synchronous round loop has no "
+                "notion of a late, dropped or partially-participating "
+                "cohort, so the scenario would be silently ignored.")
+        if not 0.0 <= self.adversary_frac <= 1.0:
+            raise ValueError(
+                f"--adversary_frac {self.adversary_frac} must be in [0, 1]")
+        if self.adversary != "none" and self.adversary_frac == 0.0:
+            raise ValueError(
+                f"--adversary {self.adversary} with --adversary_frac 0 "
+                "injects nothing; pass --adversary_frac > 0 (fraction of "
+                "the client universe that is hostile)")
+        if self.adversary == "none" and self.adversary_frac > 0.0:
+            raise ValueError(
+                f"--adversary_frac {self.adversary_frac} without "
+                "--adversary selects clients that then do nothing; pass "
+                f"--adversary {{{','.join(ADVERSARY_KINDS[1:])}}}")
+        if self.adversary_scale <= 0:
+            raise ValueError(
+                f"--adversary_scale {self.adversary_scale} must be > 0 "
+                "(scale attack multiplier / noise sigma)")
+        if self.defense_clip_mult <= 0:
+            raise ValueError(
+                f"--defense_clip_mult {self.defense_clip_mult} must be > 0")
+        if self.defense_window < 1:
+            raise ValueError(
+                f"--defense_window {self.defense_window} must be >= 1")
+        if not 0.0 <= self.defense_trim_frac < 0.5:
+            raise ValueError(
+                f"--defense_trim_frac {self.defense_trim_frac} must be in "
+                "[0, 0.5): trimming half or more of the clients per side "
+                "leaves nothing to average")
+        if self.quarantine_backoff < 1:
+            raise ValueError(
+                f"--quarantine_backoff {self.quarantine_backoff} must be "
+                ">= 1 (rounds a struck client sits out before a retry)")
+        if self.quarantine_strikes < 1:
+            raise ValueError(
+                f"--quarantine_strikes {self.quarantine_strikes} must be "
+                ">= 1 (strikes before permanent ejection)")
+        if self.preempt_grace <= 0:
+            raise ValueError(
+                f"--preempt_grace {self.preempt_grace} must be > 0 "
+                "seconds (the graceful-drain budget after the first "
+                "SIGTERM/SIGINT; a second signal always force-exits)")
+        if self.watchdog_mult < 1:
+            raise ValueError(
+                f"--watchdog_mult {self.watchdog_mult} must be >= 1: the "
+                "stall deadline is this multiple of the rolling median "
+                "round time, and a sub-1 multiplier would declare the "
+                "median round stalled")
 
     def _resolve_wire(self) -> None:
         """The JAX package's resolution of ``wire_dtype`` and its alias
@@ -441,6 +571,57 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--resume_unverified", action="store_true",
                    help="resume under another layout fingerprint or sketch "
                         "(another sketch: the tables are zeroed)")
+    add_service_args(p)
+
+
+def add_service_args(p: argparse.ArgumentParser) -> None:
+    """The runtime services' flags, with the JAX package's names and
+    defaults; choices are checked by ``FedConfig`` (a ValueError naming
+    the flag)."""
+    p.add_argument("--async_agg", action="store_true",
+                   help="FedBuff-style buffered aggregation: up to "
+                        "--max_inflight cohorts in flight, a commit every "
+                        "--buffer_goal merged cohorts")
+    p.add_argument("--max_inflight", type=int, default=4,
+                   help="cohorts in flight (K)")
+    p.add_argument("--buffer_goal", type=int, default=1,
+                   help="cohorts merged a commit (M)")
+    p.add_argument("--staleness_discount", default="poly",
+                   help="none (1), poly ((1+s)^-alpha) or exp "
+                        "(exp(-alpha s))")
+    p.add_argument("--staleness_alpha", type=float, default=0.5)
+    p.add_argument("--scenario", default="none",
+                   help="cohort latency: none, uniform, lognormal or "
+                        "stragglers (requires --async_agg)")
+    p.add_argument("--scenario_latency", type=float, default=1.0)
+    p.add_argument("--scenario_spread", type=float, default=0.5)
+    p.add_argument("--scenario_straggler_frac", type=float, default=0.1)
+    p.add_argument("--scenario_straggler_mult", type=float, default=10.0)
+    p.add_argument("--scenario_dropout", type=float, default=0.0)
+    p.add_argument("--scenario_participation", type=float, default=1.0)
+    p.add_argument("--adversary", default="none",
+                   help="labelflip, signflip, scale, noise or nan on "
+                        "--adversary_frac of the clients")
+    p.add_argument("--adversary_frac", type=float, default=0.0)
+    p.add_argument("--adversary_scale", type=float, default=10.0)
+    p.add_argument("--defense", default="none",
+                   help="normclip or trim (robust aggregation)")
+    p.add_argument("--defense_clip_mult", type=float, default=3.0)
+    p.add_argument("--defense_window", type=int, default=8)
+    p.add_argument("--defense_trim_frac", type=float, default=0.1)
+    p.add_argument("--nonfinite_action", default="abort",
+                   help="abort, or quarantine: zero a nonfinite client out "
+                        "of the round, bench it, eject it after "
+                        "--quarantine_strikes")
+    p.add_argument("--quarantine_backoff", type=int, default=8)
+    p.add_argument("--quarantine_strikes", type=int, default=3)
+    p.add_argument("--preempt_grace", type=float, default=30.0,
+                   help="seconds the drain may take after SIGTERM/SIGINT "
+                        "(a second signal force-exits)")
+    p.add_argument("--watchdog", action="store_true",
+                   help="deadline each round at --watchdog_mult x the "
+                        "rolling median round time; retry the input fetch")
+    p.add_argument("--watchdog_mult", type=float, default=10.0)
 
 
 def add_gpt2_args(p: argparse.ArgumentParser) -> None:
@@ -498,8 +679,8 @@ def config_from_args(ns: argparse.Namespace) -> FedConfig:
 def parse_known(parser: argparse.ArgumentParser,
                 argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """``parse_known_args`` that raises on any flag outside the slice,
-    naming it (the JAX package's other flags, such as ``--mesh_axes``,
-    ``--defense`` or ``--scenario``, are not ported yet)."""
+    naming it (the JAX package's other flags, such as ``--mesh_axes``
+    or ``--logdir``, are not ported yet)."""
     ns, rest = parser.parse_known_args(argv)
     if rest:
         flags = [a for a in rest if a.startswith("-")] or rest

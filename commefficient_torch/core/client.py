@@ -48,6 +48,19 @@ class ClientOut(NamedTuple):
     n_valid: torch.Tensor              # () valid items processed
 
 
+# the update-space adversaries: they act on each client's upload
+INJECT_KINDS = ("signflip", "scale", "noise", "nan")
+
+
+def per_client_uploads(cfg: FedConfig) -> bool:
+    """Whether the round needs each client's own upload (the JAX
+    package's gating of its fused client loop): an update-space
+    adversary, a robust aggregation or the quarantine act on them, so
+    the round keeps the (W, ...) uploads instead of their running sum."""
+    return (cfg.adversary in INJECT_KINDS or cfg.defense != "none"
+            or cfg.nonfinite_action == "quarantine")
+
+
 def fused_encode_blockers(cfg: FedConfig) -> list:
     """What makes the fused sketch encode (``--sketch_fused_encode``)
     unsound for ``cfg``, each naming the dense-space consumer and what to
@@ -56,6 +69,20 @@ def fused_encode_blockers(cfg: FedConfig) -> list:
     if cfg.mode != "sketch":
         return [f"--mode {cfg.mode} has no sketch encode to fuse"]
     problems = []
+    if cfg.defense != "none" and not cfg.table_clip:
+        problems.append(
+            f"--defense {cfg.defense} measures per-client norms on the "
+            "dense deferred-encode uploads; fusing would move the defense "
+            "to table-Frobenius space and silently change its "
+            "clipping/trimming numerics")
+    if cfg.adversary in INJECT_KINDS or cfg.nonfinite_action == "quarantine":
+        problems.append(
+            "--adversary " + cfg.adversary + " / --nonfinite_action "
+            + cfg.nonfinite_action + " act on each client's own upload, "
+            "which the fused client loop sums away; the JAX package's "
+            "default round keeps those uploads dense (its per-client "
+            "gradient statistics block the fused encode whenever the fused "
+            "client loop is off). Pass --sketch_fused_encode auto")
     if cfg.do_dp:
         problems.append(
             "--dp clips and noises the DENSE per-client gradient before the "
@@ -67,6 +94,68 @@ def fused_encode_blockers(cfg: FedConfig) -> list:
             "encode; the fused path never materializes it. Use the table "
             "clip (--max_grad_norm without --sketch_dense_clip)")
     return problems
+
+
+def flip_labels(batch: Dict[str, torch.Tensor], adv: torch.Tensor,
+                num_classes: int, key: str = "target"
+                ) -> Dict[str, torch.Tensor]:
+    """Label flipping (data space): the adversarial slots of ``adv`` (W,)
+    train on ``(C - 1) - y``, applied to the whole (W, B) batch before
+    the clients run, so every client path sees it."""
+    if key not in batch:
+        raise ValueError(
+            f"--adversary labelflip needs a {key!r} batch leaf (integer "
+            f"class labels); this batch has {sorted(batch)} — label "
+            "flipping is only defined for classification datasets")
+    t = batch[key]
+    advb = adv.reshape((-1,) + (1,) * (t.ndim - 1))
+    return {**batch, key: torch.where(advb, (num_classes - 1) - t, t)}
+
+
+def inject_adversary(cfg: FedConfig, tx: torch.Tensor, adv: torch.Tensor,
+                     gens=None, n_valid: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Update-space injection on the (W, ...) uploads ``tx`` (dense
+    gradients, tables or FedAvg deltas, each already times its datum
+    count): signflip uploads -x, scale ``adversary_scale`` x, noise x +
+    ``adversary_scale`` N(0, I) drawn from slot w's generator ``gens[w]``
+    (the runtime keys them by (seed, round, slot) and the adversary's
+    fold: the JAX package's threefry draws cannot be reproduced), nan an
+    all-NaN upload. A slot with ``n_valid == 0`` uploads nothing and is
+    never injected."""
+    kind = cfg.adversary
+    if kind in ("none", "labelflip"):
+        return tx
+    if n_valid is not None:
+        adv = adv & (n_valid > 0)
+    advb = adv.reshape((-1,) + (1,) * (tx.ndim - 1))
+    if kind == "signflip":
+        return torch.where(advb, -tx, tx)
+    if kind == "scale":
+        return torch.where(advb, cfg.adversary_scale * tx, tx)
+    if kind == "noise":
+        noise = torch.stack([
+            torch.randn(tx.shape[1:], generator=g, dtype=tx.dtype,
+                        device=tx.device) for g in gens])
+        return torch.where(advb, tx + cfg.adversary_scale * noise, tx)
+    if kind == "nan":
+        return torch.where(advb, torch.full_like(tx, float("nan")), tx)
+    raise ValueError(f"unknown adversary kind {kind!r}")
+
+
+def quarantine_zero(tx: torch.Tensor, n_valid: torch.Tensor,
+                    results: torch.Tensor):
+    """``--nonfinite_action quarantine``: a client whose upload or loss
+    went nonfinite is zeroed out of the round (its upload, its datum
+    count and its (2,) results). Returns ``(tx, n_valid, results,
+    finite)``, ``finite`` the (W,) flags the quarantine ledger reads."""
+    W = tx.shape[0]
+    fin = torch.isfinite(tx.reshape(W, -1)).all(dim=1) \
+        & torch.isfinite(results[:, 0])
+    finb = fin.reshape((-1,) + (1,) * (tx.ndim - 1))
+    zero = tx.new_zeros(())
+    return (torch.where(finb, tx, zero), torch.where(fin, n_valid, zero),
+            torch.where(fin[:, None], results, zero), fin)
 
 
 def int8_wire_uploads(cfg: FedConfig, tables, step: int, block: int,

@@ -21,7 +21,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from commefficient_torch.config import FedConfig
+from commefficient_torch.config import CV_DATASETS, FedConfig
 from commefficient_torch.ops.topk import topk, topk_with_idx
 
 # The JAX package's measured divergence envelopes (its core/server.py):
@@ -30,6 +30,8 @@ from commefficient_torch.ops.topk import topk, topk_with_idx
 # GPT-2-scale collision load d/c ~ 176 while d/c ~ 13 is its win.
 LOCAL_TOPK_EF_STABLE_LR = 0.02
 SUBTRACT_EF_STABLE_LOAD = 100.0
+# class counts of the datasets (PersonaChat has none)
+CLASSES = {name: n for name, (n, _) in CV_DATASETS.items()}
 
 
 def check_regime_health(cfg: FedConfig) -> List[str]:
@@ -72,6 +74,100 @@ def validate_regimes(cfg: FedConfig) -> None:
             + "\n  ".join(warnings))
     for w in warnings:
         print(f"WARNING: {w}", file=sys.stderr)
+
+
+def validate_defense_combo(cfg: FedConfig) -> None:
+    """The JAX package's refusals of the robustness flags on one device:
+    label flipping needs a classification dataset (the mesh refusals of
+    trim and of a seq axis wait for the port's meshes)."""
+    if cfg.adversary == "labelflip" and CLASSES.get(cfg.dataset_name,
+                                                    0) < 2:
+        n_cls = CLASSES.get(cfg.dataset_name, 0)
+        raise ValueError(
+            f"--adversary labelflip needs a classification dataset "
+            f"with >= 2 classes; {cfg.dataset_name!r} has "
+            f"{n_cls if n_cls > 0 else 'no fixed class count'} — use "
+            "signflip/scale/noise/nan for update-space attacks "
+            "instead")
+
+
+def nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.nanmedian`` of a 1-d tensor, bit for bit: NaNs skipped, the
+    mean of the two middle values of an even count (``torch.nanmedian``
+    returns the lower one), NaN when every value is NaN. The sort is
+    stable with -0 == +0, as ``jnp.sort`` orders them."""
+    x = torch.where(torch.isnan(x), x.new_tensor(float("nan")), x)
+    s = torch.sort(x, stable=True).values
+    count = (~torch.isnan(s)).sum().to(torch.float32)
+    q = 0.5 * (count - 1.0)
+    last = count - 1.0
+    low = torch.clamp(torch.minimum(torch.floor(q), last), min=0.0)
+    high = torch.clamp(torch.minimum(torch.ceil(q), last), min=0.0)
+    return (s[low.to(torch.int64)] + s[high.to(torch.int64)]) * 0.5
+
+
+def robust_aggregate(cfg: FedConfig, tx: torch.Tensor,
+                     n_valid: torch.Tensor,
+                     ref_thresh: Optional[torch.Tensor] = None):
+    """The JAX package's robust aggregation (``--defense``) of the (W, ...)
+    uploads ``tx`` (each its client's upload times its datum count
+    ``n_valid``); every statistic is over the per-datum update tx_i / n_i.
+    Returns ``(agg, cur_med, stats)``: ``agg`` in place of
+    ``tx.sum(0)``, ``cur_med`` the round's median per-datum norm (normclip
+    alone, the ring's feed) and the four defense scalars.
+
+    - normclip: each client's per-datum norm clipped to ``ref x
+      defense_clip_mult``, ``ref`` the ring's median ``ref_thresh`` (NaN
+      while the ring is cold: the round's own median).
+    - trim: per coordinate, the live slots' values sorted (a zero-datum
+      slot holds no vote: pushed to +inf, it sorts after every finite
+      value, and a live NaN after it), ranks [t, V - t) averaged, t =
+      floor(defense_trim_frac V) in float32, then times the round's
+      datum count."""
+    W = tx.shape[0]
+    shape = (W,) + (1,) * (tx.ndim - 1)
+    denom = torch.clamp(n_valid, min=1.0)
+    valid = n_valid > 0
+    nan = tx.new_tensor(float("nan"))
+    if cfg.defense == "trim":
+        V = valid.sum()
+        t = torch.floor(torch.tensor(cfg.defense_trim_frac,
+                                     dtype=torch.float32)
+                        * V.to(torch.float32)).to(torch.int64)
+        u = torch.where(valid.reshape(shape), tx / denom.reshape(shape),
+                        tx.new_tensor(float("inf")))
+        srt = torch.sort(u, dim=0, stable=True).values
+        rank = torch.arange(W, device=tx.device).reshape(shape)
+        keep = (rank >= t) & (rank < V - t)
+        n_kept = torch.clamp(V - 2 * t, min=1)
+        core_mean = torch.where(keep, srt, tx.new_zeros(())).sum(dim=0) \
+            / n_kept
+        agg = core_mean * n_valid.sum()
+        stats = {"clip_frac": nan, "clip_thresh": nan, "clipped_mass": nan,
+                 "trim_frac": (2.0 * t / torch.clamp(V, min=1)
+                               ).to(torch.float32)}
+        return agg, None, stats
+    assert cfg.defense == "normclip", cfg.defense
+    flat = tx.reshape(W, -1)
+    norms = torch.sqrt((flat * flat).sum(dim=1)) / denom
+    usable = valid & torch.isfinite(norms)
+    cur_med = nanmedian(torch.where(usable, norms, nan))
+    ref = cur_med if ref_thresh is None else torch.where(
+        torch.isnan(ref_thresh), cur_med, ref_thresh)
+    thresh = torch.tensor(cfg.defense_clip_mult, dtype=torch.float32,
+                          device=tx.device) * ref
+    factors = torch.minimum(tx.new_ones(()),
+                            thresh / torch.clamp(norms, min=1e-12))
+    factors = torch.where(usable, factors, tx.new_ones(()))
+    agg = (tx * factors.reshape(shape)).sum(dim=0)
+    n_clipped = ((factors < 1.0) & usable).sum().to(torch.float32)
+    removed_sq = torch.where(usable, ((1.0 - factors) * norms * denom) ** 2,
+                             tx.new_zeros(())).sum()
+    n_part = usable.sum().to(torch.float32)
+    stats = {"clip_frac": n_clipped / torch.clamp(n_part, min=1.0),
+             "clip_thresh": thresh, "clipped_mass": torch.sqrt(removed_sq),
+             "trim_frac": nan}
+    return agg, cur_med, stats
 
 
 def validate_mode_combo(cfg: FedConfig) -> None:

@@ -8,6 +8,13 @@ download is then 4 bytes x |{i : coord_last_update[i] >=
 client_last_round[c]}|. ``nan_round`` is the first round whose update,
 aggregate or client loss was not finite, or -1; it stays on the device,
 and the driver reads it once an epoch.
+
+The runtime services add three fields, with the JAX package's names and
+shapes: ``async_buffer`` and ``async_buffer_n`` (``--async_agg``: the
+merged cohorts' staleness-weighted sum, in the server state's shape,
+and their raw datum count) and ``defense_ref`` (``--defense normclip``:
+the ring of the last ``defense_window`` rounds' median per-datum norms,
+NaN until written).
 """
 
 from __future__ import annotations
@@ -34,3 +41,11 @@ class FedState:
     coord_last_update: Optional[torch.Tensor] = None  # (d,) int32, init -1
     client_last_round: Optional[torch.Tensor] = None  # (num_clients,) int32
     nan_round: Optional[torch.Tensor] = None          # () int32, init -1
+    # --async_agg: the buffer of merged cohorts (the server state's shape)
+    async_buffer: Optional[torch.Tensor] = None
+    async_buffer_n: Optional[torch.Tensor] = None     # () float32
+    # --defense normclip: the rolling reference, (defense_window,) NaN
+    defense_ref: Optional[torch.Tensor] = None
+
+    def replace(self, **kw) -> "FedState":
+        return dataclasses.replace(self, **kw)

@@ -61,6 +61,22 @@ count: the federated vector is the head alone. On the host path each
 round's batch is fetched a round or more ahead on a worker thread
 (``--prefetch_depth``; ``--no_pipeline`` fetches inline, the same
 rounds); the device store's fetch runs inline.
+
+The runtime services, with the JAX package's flags: ``--defense
+normclip|trim`` aggregates robustly, ``--adversary
+labelflip|signflip|scale|noise|nan --adversary_frac F`` makes a
+deterministic fraction of the clients hostile, ``--nonfinite_action
+quarantine`` zeroes a client whose upload went nonfinite out of the round
+and benches it (``--quarantine_backoff``, ``--quarantine_strikes``); the
+rows then print the defense scalars. ``--async_agg`` runs FedBuff's
+buffered rounds (``--max_inflight``, ``--buffer_goal``,
+``--staleness_discount``, ``--staleness_alpha``) under a straggler
+``--scenario`` (``--scenario_*``). A first SIGTERM or SIGINT drains
+within ``--preempt_grace`` seconds to a ``preempt``-tagged checkpoint
+(with ``--checkpoint_every``) and exits 0; ``--resume`` continues at its
+round. ``--watchdog`` deadlines each round (``--watchdog_mult``).
+``COMMEFFICIENT_FAULT=<kill|sigterm>:<point>[:<round>]`` plants a fault
+(faults.py).
 """
 
 from __future__ import annotations
@@ -355,7 +371,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                 checkpoint_every=cfg.checkpoint_every,
                                 start_epoch=start_epoch,
                                 global_round=global_round, lr_mult=lr_mult,
-                                eval_before_start=cfg.eval_before_start)
+                                eval_before_start=cfg.eval_before_start,
+                                services=True)
     print(tsv)
     if cfg.do_checkpoint and summary is not None:
         os.makedirs(cfg.checkpoint_path, exist_ok=True)
@@ -371,7 +388,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             "total_download_mib": log.total_download_mib,
             "total_upload_mib": log.total_upload_mib,
             "runtime": runtime, "train_store": train_store,
-            "lr_mult": lr_mult, "frozen": frozen}
+            "lr_mult": lr_mult, "frozen": frozen,
+            "defense": log.defense, "services": log.services,
+            "preempted": log.preempted}
 
 
 if __name__ == "__main__":

@@ -25,6 +25,21 @@ class Round(NamedTuple):
     mask: np.ndarray        # (num_workers, B)
 
 
+def mask_blocked(rnd: Round, blocked) -> Round:
+    """``rnd`` with the slots of the clients in ``blocked`` (the
+    quarantine ledger's benched and ejected ids, core/quarantine.py)
+    masked out: static shapes, no data. The Round is never mutated (a
+    prefetched round is shared with the pipeline's thread); the decision
+    is taken at dispatch against the ledger's current view."""
+    if not blocked:
+        return rnd
+    hit = np.fromiter((int(c) in blocked for c in rnd.client_ids),
+                      dtype=bool, count=len(rnd.client_ids))
+    if not hit.any():
+        return rnd
+    return rnd._replace(mask=rnd.mask & ~hit[:, None])
+
+
 class FedSampler:
     def __init__(self, data_per_client: np.ndarray, num_workers: int,
                  local_batch_size: int, max_client_batch: int = 512,

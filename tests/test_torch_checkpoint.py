@@ -54,7 +54,8 @@ def assert_same_state(a: FedState, b: FedState):
     assert a.step == b.step
     for name in ("ps_weights", "Vvelocity", "Verror", "client_velocities",
                  "client_errors", "client_weights", "coord_last_update",
-                 "client_last_round", "nan_round"):
+                 "client_last_round", "nan_round", "async_buffer",
+                 "async_buffer_n", "defense_ref"):
         x, y = getattr(a, name), getattr(b, name)
         assert (x is None) == (y is None), name
         if x is not None:
@@ -254,19 +255,29 @@ def test_refusals_and_resume_unverified(tmp_path):
     with pytest.raises(ValueError, match="'Vvelocity' has shape"):
         CheckpointManager(str(tmp_path / "ck")).restore_latest(
             expect_shapes=other.state_shapes())
-    # the JAX package's fields that the port does not run, by name
+    # the JAX package's normclip ring loads (the port runs it now), under
+    # a normclip run's shapes too
     path = str(tmp_path / "foreign")
     save_state(path, state)
     with np.load(path + ".npz") as z:
         arrays = {k: z[k] for k in z.files}
-    np.savez(path + ".npz", defense_ref=np.zeros((4,), np.float32),
-             **arrays)
-    with pytest.raises(ValueError, match="'defense_ref' .*normclip"):
-        load_state(path)
-    os.replace(path + ".npz", str(tmp_path / "ck" / "ckpt_000005_r000002_"
-                                  "preempt.npz"))
-    with pytest.raises(ValueError, match="inside an epoch"):
-        CheckpointManager(str(tmp_path / "ck")).restore_latest()
+    ring = np.array([0.5, np.nan, 1.25, np.nan], np.float32)
+    np.savez(path + ".npz", defense_ref=ring, **arrays)
+    normclip = port_runtime(**dict(SKETCH, defense="normclip",
+                                   defense_window=4))
+    loaded = load_state(path, expect_shapes=normclip.state_shapes())
+    assert loaded.defense_ref.numpy().tobytes() == ring.tobytes()
+    # a preempt generation inside an epoch resumes at its round
+    CheckpointManager(str(tmp_path / "ck")).save(
+        state, 5, meta={"global_round": 12}, round_in_epoch=2,
+        tag="preempt")
+    assert os.path.exists(str(tmp_path / "ck" / "ckpt_000005_r000002_"
+                              "preempt.npz"))
+    restored, meta = CheckpointManager(str(tmp_path / "ck")).restore_latest(
+        expect_shapes=shapes)
+    assert (meta["epoch"], meta["round_in_epoch"], meta["tag"],
+            meta["global_round"]) == (5, 2, "preempt", 12)
+    assert_same_state(restored, state)
 
 
 @pytest.mark.parametrize("kw", [TOPK_DOWN, DENSE],
@@ -370,7 +381,8 @@ def test_jax_checkpoint_loads_and_its_round_matches(tmp_path, kw):
     assert meta["global_round"] == 3 and "torch_layout" not in meta
     for name in ("ps_weights", "Vvelocity", "Verror", "client_velocities",
                  "client_errors", "client_weights", "coord_last_update",
-                 "client_last_round", "nan_round"):
+                 "client_last_round", "nan_round", "async_buffer",
+                 "async_buffer_n", "defense_ref"):
         want = getattr(js, name)
         got = getattr(ts, name)
         assert (want is None) == (got is None), name

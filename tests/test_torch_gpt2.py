@@ -274,7 +274,8 @@ def test_gpt2_train_runs_on_cpu(tmp_path, capsys, extra, rounds):
 @pytest.mark.parametrize("flags,name", [
     (["--mesh_axes", "clients,seq"], "--mesh_axes"),
     (["--defense", "trimmed_mean"], "--defense"),
-    (["--async_agg"], "--async_agg"), (["--mesh_shape", "2"],
+    (["--async_agg", "--mode", "true_topk", "--error_type", "virtual"],
+     "--async_agg"), (["--mesh_shape", "2"],
                                        "--mesh_shape"),
     (["--scenario", "dropout"], "--scenario")])
 def test_gpt2_train_rejects_flags_outside_the_slice(flags, name):

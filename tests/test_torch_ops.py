@@ -376,12 +376,18 @@ def test_flags_outside_the_slice_raise_naming_them():
     import argparse
     p = argparse.ArgumentParser()
     tconfig.add_args(p)
-    with pytest.raises(ValueError, match="--defense"):
-        tconfig.parse_known(p, ["--k", "10", "--defense", "trimmed_mean"])
+    with pytest.raises(ValueError, match="--logdir"):
+        tconfig.parse_known(p, ["--k", "10", "--logdir", "runs/x"])
     with pytest.raises(ValueError, match="--mode"):
         tconfig.FedConfig(mode="dense_sketch")
-    with pytest.raises(ValueError, match="--scenario"):
-        tconfig.parse_known(p, ["--scenario", "dropout"])
+    with pytest.raises(ValueError, match="--mesh_axes"):
+        tconfig.parse_known(p, ["--mesh_axes", "clients"])
+    # the runtime services' flags are the port's: they parse, and a value
+    # outside their choices names the flag
+    for argv in (["--defense", "trimmed_mean"], ["--scenario", "dropout",
+                                                 "--async_agg"]):
+        with pytest.raises(ValueError, match=argv[0]):
+            tconfig.config_from_args(tconfig.parse_known(p, argv))
     # the wire's flags are the port's: they parse, and a value outside
     # what the wire serves names the flag
     ns = tconfig.parse_known(p, ["--sketch_scan_rows", "1", "--wire_dtype",

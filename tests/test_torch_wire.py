@@ -229,8 +229,8 @@ def test_wire_refusals_from_one_argv(name):
 
 def test_wire_flags_parse_in_both_entry_points():
     """The four flags are the port's now (the GPT-2 entry point too); the
-    JAX package's parser holds 52 flags that neither port parser takes
-    (56 before them)."""
+    JAX package's parser holds 27 flags that neither port parser takes
+    (56 before the wire's four, 52 before the runtime services' 25)."""
     def flags(parser):
         return {o for a in parser._actions for o in a.option_strings
                 if o.startswith("--")}
@@ -242,7 +242,7 @@ def test_wire_flags_parse_in_both_entry_points():
             "--sketch_scan_rows"}
     assert wire <= flags(cv_train.build_parser())
     assert wire <= flags(gpt2_train.build_parser())
-    assert len(flags(jp) - ours) == 52
+    assert len(flags(jp) - ours) == 27
     with pytest.raises(ValueError, match="--mesh_axes"):
         tconfig.parse_known(cv_train.build_parser(), ["--mesh_axes", "x"])
 
