@@ -105,9 +105,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    clip, the dense server state, DP worker and server, ``--topk_down``,
    the hash sketch with the zero rule and with the dense state, the SRHT
    at r c = d) at the same widths, 3 rounds each, exact K1/K2 launches a
-   round (16 + 1 for the table clip and ``--topk_down``, 1 + 1 for the
-   dense clip, DP and the dense state, none for hash, rht and the
-   uncompressed DP run) and the bytes held as in the modes; then the
+   round, as the JAX package routes them under its default telemetry (8
+   + 1 for the table clip, whose per-client gradient statistics take it
+   off the fused encode; 16 + 1 for the table clip under
+   ``--no_client_stats``, the fused per-client route; 1 + 1 for
+   ``--topk_down``, the dense clip, DP and the dense state, none for
+   hash, rht and the uncompressed DP run) and the bytes held as in the
+   modes; then the
    SRHT's row scan (``phase_rht_scan``): one ResNet-9 round with
    ``--sketch_scan_rows 1`` against ``0``, the update within
    RHT_SCAN_RTOL, and GPT2_RHT_ARMS at GPT-2's width (the automatic scan
@@ -139,7 +143,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    with ``--no_track_bytes``; then the GPT-2 main path's state saved and
    loaded once at full width (time, size, bitwise on the card); then two
    arms of the JAX package's GPT-2 study at the main path's k
-   (``GPT2_ARMS``: the table clip ``--max_grad_norm 1``, 16 K1 a round,
+   (``GPT2_ARMS``: the table clip ``--max_grad_norm 1``, 8 K1 a round,
    and ``densestate_clip1``, 1 K1), 3 rounds each, with the same launch
    checks; then ``--wire_dtype int8`` (3 rounds, 9 K1 + 1 K2 a round,
    2,662,400 bytes a client a round); then GPT-2's memory levers
@@ -217,9 +221,37 @@ Phases, in order; any failure exits non-zero and prints no result:
    rounds, and one epoch in child processes: a SIGTERM drain at round 3,
    a kill inside the next checkpoint write, a resume that falls back to
    the preempt generation and ends bitwise at the uninterrupted epoch's
-   weights. ``python3 chip_smoke.py --services`` runs the build and these
-   three phases alone (no result line);
-14. print the ``{"kernels": [...]}`` line (K1's range launches and
+   weights. The services' streams (``--telemetry_every 1``): a
+   ``defense`` event every round of each robust arm, an ``async_round``
+   event a commit, and the children's one stream of three segments, each
+   ``resume`` naming the one before, with the drain's ``fault`` event.
+   ``python3 chip_smoke.py --services`` runs the build and these three
+   phases alone (no result line);
+14. the run telemetry (``phase_telemetry``): the ResNet-9 main path
+   through ``cv_train``, ROUNDS rounds, four runs interleaved (default
+   with ``--telemetry_every 1``, ``--no_telemetry``, default,
+   ``--no_telemetry``): 9 K1 + 1 K2 a round in each, the round-1 weights
+   bitwise equal in both arms, both arms' medians printed with the
+   card's name and power limit; the default stream validated (manifest
+   first with the card and ``cuda``, summary last, one ``round``,
+   ``signals``, ``layer_signals`` and ``client_stats`` event a round,
+   ``device_wait`` spans, ``utilization``, memory events with live, peak
+   and limit bytes, null ``grad_true_norm`` and ``grad_mass`` on the fused
+   route, the layer counts summing to the support) and its measured
+   round_step ledger against d x 4 bytes; round 1's signals, layer
+   signals and client quantiles of phase_small_reference's narrow
+   ResNet-9, card against CPU (TEL_SIGNAL_RTOL, TEL_SWAPS);
+   ``--signals_exact`` (1 K1 + 1 K2 a round, topk_overlap in [0, 1]);
+   ``--profile_dir`` (a chrome trace of rounds 2:4, its kernels counted);
+   GPT-2 at full width with and without ``--signal_groups off`` (layer
+   signals over its 39 coarse groups: each block's attn, mlp and
+   norm-bias, embed, the final norm and the head; the MFU
+   against the 989 TFLOP/s entry, the two peaks side by side, their
+   difference under d x 4 bytes). Every entry-point call of every phase
+   writes its stream under the run's data root (``entry_main``,
+   ``--logdir``). ``python3 chip_smoke.py --telemetry`` runs the build
+   and this phase alone (no result line);
+15. print the ``{"kernels": [...]}`` line (K1's range launches and
    range timings in its entry), the card's name and power limit, and last
    the ``{"ok": true, ...}`` line.
 
@@ -325,13 +357,13 @@ GPT2_PER_ROUND = {"circ_encode": 9, "circ_decode": 1, "flash_fwd": 96,
                   "flash_bwd_dq": 96, "flash_bwd_dkv": 96}
 GPT2_VAL_FWD = 12               # one validation batch of 8 items, 12 layers
 # two arms of the JAX package's GPT-2 study (scripts/gpt2_ef_study.sh) at
-# the main path's k, 3 rounds each: the table clip (each client streams
-# its microbatch and its weight-decay term into its own table: 8 x 2 K1)
-# and densestate_clip1 (dense clip, one deferred encode of the dense sum
-# of the (d,) error pre-image: 1 K1)
+# the main path's k, 3 rounds each: the table clip (under the default
+# telemetry, as the JAX package routes it, each client's dense gradient is
+# encoded into its own table: 8 K1) and densestate_clip1 (dense clip, one
+# deferred encode of the dense sum of the (d,) error pre-image: 1 K1)
 GPT2_ARM_ROUNDS = 3
 GPT2_ARMS = {
-    "clip1": (["--max_grad_norm", "1"], 16),
+    "clip1": (["--max_grad_norm", "1"], 8),
     "densestate_clip1": (["--sketch_server_state", "dense",
                           "--sketch_dense_clip", "--max_grad_norm", "1"], 1),
 }
@@ -1323,6 +1355,53 @@ def dataset_flags(name: str):
     return ["--dataset_dir", os.path.join(DATA_ROOT["path"], name)]
 
 
+# the telemetry streams of the run's entry-point calls, {logdir: tag}:
+# every call writes its stream under the run's data root (``--logdir``),
+# never into the checkout
+LOGDIRS = {}
+
+
+def logdir_flags(tag: str):
+    """``--logdir`` of a directory of its own under the run's data root
+    for one entry-point call's stream (registered in LOGDIRS)."""
+    name = "".join(ch if ch.isalnum() else "_" for ch in tag)
+    path = os.path.join(DATA_ROOT["path"], "logs",
+                        f"{len(LOGDIRS):03d}_{name}")
+    LOGDIRS[path] = tag
+    return ["--logdir", path]
+
+
+def entry_main(module, argv, tag: str = "run"):
+    """``module.main(argv)`` (``cv_train`` or ``gpt2_train``) with its
+    telemetry stream under the run's data root, unless argv names a
+    ``--logdir``."""
+    argv = list(argv)
+    if "--logdir" not in argv:
+        argv += logdir_flags(tag)
+    return module.main(argv)
+
+
+def read_stream(logdir: str, tag: str):
+    """The events of ``logdir``'s telemetry.jsonl, which must exist and
+    pass the port's validator (a stream that disabled itself fails)."""
+    from commefficient_torch.telemetry import validate_file
+    path = os.path.join(logdir, "telemetry.jsonl")
+    if not os.path.exists(path):
+        fail(f"{tag}: no telemetry stream at {path}")
+    problems = validate_file(path)
+    if problems:
+        fail(f"{tag}: the stream {path} fails the validator: "
+             f"{problems[:5]}")
+    return [json.loads(line) for line in open(path) if line.strip()]
+
+
+def kinds_of(events) -> dict:
+    out = {}
+    for e in events:
+        out[e["event"]] = out.get(e["event"], 0) + 1
+    return out
+
+
 MAIN_ARGV = ["--dataset_name", "CIFAR10", "--model", "ResNet9",
              "--mode", "sketch", "--error_type", "virtual",
              "--local_momentum", "0", "--virtual_momentum", "0.9", "--num_workers", "8",
@@ -1346,7 +1425,7 @@ def phase_main_path(extra=()):
           flush=True)
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    out = cv_train.main(argv)
+    out = entry_main(cv_train, argv)
     launches = dict(K.launches)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
@@ -1397,13 +1476,18 @@ MODE_CONFIGS = {
 }
 # the client and server rules of this slice at the same widths (100
 # clients: --topk_down holds a row of weights for each). K1 as the JAX
-# package routes them: the table clip and --topk_down stream each
-# client's microbatch and its own weight-decay term into its own table (8
-# x 2); the dense clip and DP encode the round's dense sum once; the dense
-# server state encodes its (d,) error once; hash and rht launch none.
+# package routes them under its default telemetry, whose per-client
+# gradient statistics take every per-client arm off the fused encode: the
+# table clip encodes each client's dense gradient (8), --topk_down, the
+# dense clip and DP encode the round's dense sum once, the dense server
+# state its (d,) error once; with --no_client_stats the table clip streams
+# each client's microbatch and its weight-decay term into its own table (8
+# x 2, the fused per-client route, kept held); hash and rht launch none.
 SKETCH_FLAGS = ["--mode", "sketch", "--virtual_momentum", "0.9"]
 RULE_CONFIGS = {
-    "clip": (SKETCH_FLAGS + ["--max_grad_norm", "1"], 16, 1),
+    "clip": (SKETCH_FLAGS + ["--max_grad_norm", "1"], 8, 1),
+    "clip_no_client_stats": (SKETCH_FLAGS + ["--max_grad_norm", "1",
+                                             "--no_client_stats"], 16, 1),
     "dense_clip": (SKETCH_FLAGS + ["--sketch_dense_clip",
                                    "--max_grad_norm", "1"], 1, 1),
     "dense_state": (SKETCH_FLAGS + ["--sketch_server_state", "dense"], 1, 1),
@@ -1412,7 +1496,7 @@ RULE_CONFIGS = {
     "dp_server_uncompressed": (["--mode", "uncompressed", "--error_type",
                                 "none", "--dp", "--dp_mode", "server",
                                 "--noise_multiplier", "0.1"], 0, 0),
-    "topk_down": (SKETCH_FLAGS + ["--topk_down"], 16, 1),
+    "topk_down": (SKETCH_FLAGS + ["--topk_down"], 1, 1),
     "hash": (SKETCH_FLAGS + ["--sketch_impl", "hash", "--num_cols",
                              "500000", "--num_blocks", "20"], 0, 0),
     "hash_dense_state": (SKETCH_FLAGS + ["--sketch_impl", "hash",
@@ -1440,13 +1524,14 @@ class RoundRecorder:
         import torch
         orig, rounds = self.orig, self.rounds
 
-        def round(rt, state, client_ids, batch, mask, lr):
+        def round(rt, state, client_ids, batch, mask, lr, **kw):
             ids = torch.as_tensor(np.asarray(client_ids), device=rt.device)
             before = None
             if rt.cfg.track_bytes:
                 before = (state.coord_last_update.clone(),
                           state.client_last_round[ids].clone())
-            new, metrics = orig(rt, state, client_ids, batch, mask, lr)
+            new, metrics = orig(rt, state, client_ids, batch, mask, lr,
+                                **kw)
             rounds.append((rt.cfg, ids, before, metrics))
             return new, metrics
 
@@ -1495,7 +1580,7 @@ def phase_modes(configs=None, tag: str = "modes"):
         torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
         with RoundRecorder() as rec:
-            out = cv_train.main(argv)
+            out = entry_main(cv_train, argv)
         launches = dict(K.launches)
         peak = torch.cuda.max_memory_allocated()
         if out["rounds"] != MODE_ROUNDS or out["summary"] is None \
@@ -1979,7 +2064,7 @@ def phase_gpt2_main(extra=(), n_rounds: int = GPT2_ROUNDS,
     with LaunchSplit(gpt2_train.kernel_launches, keep) as split, \
             (RoundRecorder() if want_up is not None
              else contextlib.nullcontext()) as rec:
-        out = gpt2_train.main(argv)
+        out = entry_main(gpt2_train, argv)
     if rec is not None:
         rec.check_bytes(" ".join(extra), want_up)
     total = gpt2_train.kernel_launches()
@@ -2165,7 +2250,7 @@ def phase_real_data_resume():
     K.reset_launches()
     try:
         with StoreRecorder() as rec_a:
-            whole = cv_train.main(argv)
+            whole = entry_main(cv_train, argv)
     finally:
         ckpt.CheckpointManager.save = save
     launches_a = dict(K.launches)
@@ -2237,7 +2322,7 @@ def phase_real_data_resume():
     K.reset_launches()
     try:
         with StoreRecorder() as rec_b:
-            rest = cv_train.main(argv + ["--resume"])
+            rest = entry_main(cv_train, argv + ["--resume"])
     finally:
         cv_train.setup_checkpointing = setup
     launches_b = dict(K.launches)
@@ -2771,7 +2856,7 @@ def phase_femnist():
           + " ".join(argv), flush=True)
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    out = cv_train.main(argv)
+    out = entry_main(cv_train, argv)
     launches = dict(K.launches)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
@@ -2836,7 +2921,7 @@ def phase_fixup():
     K.reset_launches()
     runtime_mod.server_update = server_update
     try:
-        out = cv_train.main(argv)
+        out = entry_main(cv_train, argv)
     finally:
         runtime_mod.server_update = orig
     launches = dict(K.launches)
@@ -3038,7 +3123,7 @@ def phase_imagenet():
               flush=True)
         torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
-        out = cv_train.main(argv)
+        out = entry_main(cv_train, argv)
         launches[mode] = dict(K.launches)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
@@ -3086,7 +3171,7 @@ def phase_imagenet():
         torch.cuda.empty_cache()
     argv = imagenet_argv(root, IMAGENET_STORE_PER_CLASS,
                          IMAGENET_MODES["sketch"][0]
-                         + ["--warmup", "1", "--profile_rounds", "2"])
+                         + ["--warmup", "1", "--rounds", "2"])
     print("[imagenet] python -m commefficient_torch.profile_round "
           + " ".join(repr(a) if a == "" else a for a in argv), flush=True)
     prof = profile_round.main(argv)
@@ -3153,7 +3238,7 @@ def phase_imagenet_host():
         K.reset_launches()
         driver.make_fetch = keeping
         try:
-            out = cv_train.main(argv)
+            out = entry_main(cv_train, argv)
         finally:
             driver.make_fetch = make_fetch
         if out["train_store"] is not None:
@@ -3277,7 +3362,7 @@ def phase_finetune():
         + dataset_flags("cifar100_64")
     print("[finetune] python -m commefficient_torch.cv_train "
           + " ".join(argv), flush=True)
-    first = cv_train.main(argv)
+    first = entry_main(cv_train, argv)
     full_layout = first["runtime"].layout
     del first
     with np.load(os.path.join(ck, "FixupResNet50.npz")) as f:
@@ -3296,7 +3381,7 @@ def phase_finetune():
     print("[finetune] python -m commefficient_torch.cv_train "
           + " ".join(argv), flush=True)
     K.reset_launches()
-    out = cv_train.main(argv)
+    out = entry_main(cv_train, argv)
     rt, state = out["runtime"], out["state"]
     frozen = out["frozen"].frozen_vector
     same = frozen.device.type == "cuda" and torch.equal(
@@ -3481,7 +3566,9 @@ WIRE_ARMS = {
     "sketch_dtype_alias": (["--sketch_dtype", "bfloat16"], 9, 1, 5_007_360),
     "int8": (["--wire_dtype", "int8"], 9, 1, 2_542_800),
     "int8_again": (["--wire_dtype", "int8"], 9, 1, 2_542_800),
-    "int8_clip": (["--wire_dtype", "int8", "--max_grad_norm", "1"], 16, 1,
+    # the table clip under the default telemetry: each client's dense
+    # gradient encoded (8 K1), as the JAX package routes it
+    "int8_clip": (["--wire_dtype", "int8", "--max_grad_norm", "1"], 8, 1,
                   2_542_800),
     "int8_hash": (["--wire_dtype", "int8", "--sketch_impl", "hash",
                    "--num_cols", "500736"], 0, 0, 2_542_800),
@@ -3514,7 +3601,7 @@ def phase_wire():
         K.reset_launches()
         err = io.StringIO()
         with RoundRecorder() as rec, contextlib.redirect_stderr(err):
-            res = cv_train.main(argv)
+            res = entry_main(cv_train, argv)
         sys.stderr.write(err.getvalue())
         launches = dict(K.launches)
         want = {"circ_encode": n_enc * WIRE_ROUNDS,
@@ -3593,7 +3680,7 @@ def phase_rht_scan():
               + " ".join(argv), flush=True)
         K.reset_launches()
         with LaunchSplit(lambda: dict(K.launches), True) as split:
-            res = cv_train.main(argv)
+            res = entry_main(cv_train, argv)
         before, after = split.first_weights
         if not np.isfinite(res["losses"]).all() or any(K.launches.values()):
             fail(f"rht scan {flag}: losses {res['losses']}, launches "
@@ -3742,7 +3829,8 @@ def phase_stream():
 # universe of MODE_COMMON (12 rounds an epoch), SERVICE_ROUNDS rounds each.
 SERVICE_ROUNDS = 5
 SERVICE_ARGV = MODE_COMMON + ["--mode", "sketch", "--virtual_momentum",
-                              "0.9", "--num_rounds", str(SERVICE_ROUNDS)]
+                              "0.9", "--num_rounds", str(SERVICE_ROUNDS),
+                              "--telemetry_every", "1"]
 # a robust arm runs the per-client path with deferred encode: one K1 (the
 # aggregate's encode) and one K2 a round
 ROBUST_ARMS = {
@@ -3774,9 +3862,9 @@ PREEMPT_TIMEOUT_S = 300
 
 
 def run_cv(argv, tag: str):
-    """``cv_train.main(argv)`` on the card with every launch count set to
-    0 just before and read just after; returns (result, launches, peak
-    memory)."""
+    """``cv_train.main(argv)`` (through ``entry_main``) on the card with
+    every launch count set to 0 just before and read just after; returns
+    (result, launches, peak memory)."""
     import torch
     from commefficient_torch import cv_train
     from commefficient_torch.ops import circulant_kernels as K
@@ -3787,7 +3875,7 @@ def run_cv(argv, tag: str):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    out = cv_train.main(argv)
+    out = entry_main(cv_train, argv)
     launches = dict(K.launches)
     torch.cuda.synchronize()
     return out, launches, torch.cuda.max_memory_allocated()
@@ -3915,6 +4003,19 @@ def phase_robust():
         scalars = out["defense"]
         if len(scalars) != R:
             fail(f"{arm}: {len(scalars)} rounds of defense scalars")
+        # the defense event of every round (A10's telemetry), its device
+        # scalars the console row's
+        events = read_stream(out["logdir"], arm)
+        defense = [e for e in events if e["event"] == "defense"]
+        if [e["round"] for e in defense] != list(range(1, R + 1)) or any(
+                e["defense"] != (flags[flags.index("--defense") + 1]
+                                 if "--defense" in flags else "none")
+                for e in defense):
+            fail(f"{arm}: defense events {[e['round'] for e in defense]}")
+        print(f"[robust] {arm}: {len(defense)} defense events, e.g. "
+              + json.dumps({k: defense[-1][k] for k in (
+                  "clip_frac", "trim_frac", "nonfinite_clients",
+                  "quarantined", "injected")}), flush=True)
         print(f"[robust] {arm}: median of rounds 2-{R} {ms:.3f} ms "
               f"(plain {plain_ms:.3f}), peak {peak / 2**30:.3f} GiB (plain "
               f"{plain['peak'] / 2**30:.3f}), launches {launches}, losses "
@@ -3923,8 +4024,9 @@ def phase_robust():
                           for s in scalars), flush=True)
         if "quarantine" in arm:
             ledger = out["services"].qledger
-            cpu = cv_train.main(["--device", "cpu", "--test"] + argv[:-2]
-                                + dataset_flags("synthetic640_cpu") + flags)
+            cpu = entry_main(cv_train, ["--device", "cpu", "--test"]
+                             + argv[:-2] + dataset_flags("synthetic640_cpu")
+                             + flags)
             want = cpu["services"].qledger
             if ledger.state_dict() != want.state_dict() \
                     or not ledger.total_strikes:
@@ -3991,7 +4093,8 @@ def phase_async(plain):
     FedRuntime.commit = timed_commit
     try:
         argv = MODE_COMMON + ["--mode", "sketch", "--virtual_momentum",
-                              "0.9", "--num_rounds", str(ASYNC_TICKS)]
+                              "0.9", "--num_rounds", str(ASYNC_TICKS),
+                              "--telemetry_every", "1"]
         out, launches, peak = run_cv(argv + dataset_flags("synthetic640")
                                      + ASYNC_STRAGGLERS, "async")
     finally:
@@ -4009,6 +4112,18 @@ def phase_async(plain):
              f"{agg.pending}")
     tick_ms = statistics.median(out["round_s"][1:]) * 1e3
     commit_ms = statistics.median(commit_s) * 1e3
+    # one async_round event a commit (A10's telemetry), the device fields
+    # on record ticks and the flush's
+    events = read_stream(out["logdir"], "async stragglers")
+    commits_ev = [e for e in events if e["event"] == "async_round"]
+    if len(commits_ev) != agg.commits or [e["round"] for e in commits_ev] \
+            != list(range(1, agg.commits + 1)) or \
+            commits_ev[-1]["update_norm"] is None:
+        fail(f"async stragglers: {len(commits_ev)} async_round events for "
+             f"{agg.commits} commits")
+    print(f"[async] {len(commits_ev)} async_round events, staleness max "
+          f"{max(e['staleness_max'] for e in commits_ev)}, last update "
+          f"norm {commits_ev[-1]['update_norm']:.6g}", flush=True)
     print(f"[async] stragglers K=4 M=2 poly, dropout 0.1, straggler "
           f"share 0.25: {ASYNC_TICKS} "
           f"ticks, {agg.dispatched} cohorts computed, {agg.dropped} dropped,"
@@ -4049,10 +4164,12 @@ def phase_preempt(plain):
     root = os.path.dirname(os.path.abspath(__file__))
 
     def epoch_argv(ck):
+        # one stream for the run and its resumes: the lineage
         return (MODE_COMMON + ["--mode", "sketch", "--virtual_momentum",
                                "0.9", "--num_rounds", "0", "--num_epochs",
                                "1", "--checkpoint_every", "1",
-                               "--checkpoint", "--checkpoint_path", ck]
+                               "--checkpoint", "--checkpoint_path", ck,
+                               "--logdir", os.path.join(ck, "logs")]
                 + dataset_flags("synthetic640"))
 
     ck_a = os.path.join(DATA_ROOT["path"], "preempt_straight")
@@ -4100,6 +4217,23 @@ def phase_preempt(plain):
         fail(f"preempt: the resume (rc {c.returncode}) did not end at the "
              f"uninterrupted weights: {c.stdout[-1500:]} "
              f"{c.stderr[-1500:]}")
+    # the stream the three children shared: one segment each, every
+    # resume naming the segment before it, the drain's fault event
+    events = read_stream(os.path.join(ck_b, "logs"), "preempt children")
+    manifests = [e for e in events if e["event"] == "manifest"]
+    resumes = [e for e in events if e["event"] == "resume"]
+    faults = [e for e in events if e["event"] == "fault"]
+    if len(manifests) != 3 or [r["prior_stream"] for r in resumes] != \
+            [m["stream_id"] for m in manifests[:2]] or not any(
+                f["kind"] == "preempt" and f["round"] == 3 for f in faults):
+        fail(f"preempt: the stream's lineage: {len(manifests)} manifests, "
+             f"resumes {[r['prior_stream'] for r in resumes]}, faults "
+             f"{[(f['kind'], f['round']) for f in faults]}")
+    print(f"[preempt] the children's stream: {len(manifests)} segments, "
+          f"each resume names its predecessor "
+          f"({[r['prior_events'] for r in resumes]} events before it), "
+          f"faults {[(f['kind'], f['round']) for f in faults]}",
+          flush=True)
     rows = [ln for ln in c.stdout.splitlines() if "train_time" in ln]
     epoch_row = c.stdout.splitlines()
     epoch_row = epoch_row[epoch_row.index(rows[0]) + 1] if rows else ""
@@ -4113,6 +4247,318 @@ def phase_preempt(plain):
           f"at the uninterrupted epoch's weights ({times['resume']:.1f} s)",
           flush=True)
     return wd_launches, times
+
+
+# the telemetry phase (phase_telemetry): the main path's A/B, then the
+# card's round-1 signals against the CPU's at phase_small_reference's
+# narrow width, float32, TF32 off: every norm, mass and quantile within
+# TEL_SIGNAL_RTOL of the CPU's, the support counts within TEL_SWAPS of k
+TEL_SIGNAL_RTOL = 1e-4
+TEL_SWAPS = 2
+TEL_GPT2_ROUNDS = 2
+H100_NAME = "NVIDIA H100 80GB HBM3"
+
+
+class FirstRound:
+    """While installed, keeps the weights after the first
+    ``FedRuntime.round`` call (on the host)."""
+
+    def __enter__(self):
+        from commefficient_torch.core.runtime import FedRuntime
+        self.cls, self.orig, self.weights = FedRuntime, FedRuntime.round, None
+        orig, box = self.orig, self
+
+        def round(rt, state, *args, **kw):
+            new, metrics = orig(rt, state, *args, **kw)
+            if box.weights is None:
+                box.weights = new.ps_weights.detach().cpu().clone()
+            return new, metrics
+
+        self.cls.round = round
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.round = self.orig
+
+
+def smi_line() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return (smi.stdout.strip().splitlines() or ["(nvidia-smi: none)"])[0]
+
+
+def check_main_stream(events, rounds: int, d: int) -> dict:
+    """The default arm's stream: manifest first (the card, cuda), summary
+    last, one round/signals/layer_signals/client_stats event a round,
+    device_wait spans, a utilization event, memory events with live,
+    peak and limit bytes, the fused route's null grad_true_norm and
+    grad_mass, the measured round_step ledger. Returns its counts."""
+    import torch
+    counts = kinds_of(events)
+    man = events[0]
+    if man["event"] != "manifest" or man["backend"] != "cuda" or \
+            man["device_kind"] != torch.cuda.get_device_name(0):
+        fail(f"telemetry: manifest {man.get('backend')} "
+             f"{man.get('device_kind')}")
+    if events[-1]["event"] != "summary" or events[-1]["aborted"]:
+        fail(f"telemetry: the stream ends with {events[-1]['event']}")
+    for kind in ("round", "signals", "layer_signals", "client_stats"):
+        got = [e["round"] for e in events if e["event"] == kind]
+        if got != list(range(1, rounds + 1)):
+            fail(f"telemetry: {kind} events for rounds {got}")
+    spans = {s["name"] for e in events if e["event"] == "span"
+             for s in e["spans"]}
+    if "device_wait" not in spans or not counts.get("utilization"):
+        fail(f"telemetry: spans {sorted(spans)}, utilization "
+             f"{counts.get('utilization')}")
+    for e in events:
+        if e["event"] == "memory" and None in (
+                e["live_bytes"], e["peak_bytes"], e["limit_bytes"]):
+            fail(f"telemetry: memory event {e['phase']} has null bytes")
+    sig = [e for e in events if e["event"] == "signals"]
+    lay = [e for e in events if e["event"] == "layer_signals"]
+    if any(e["grad_true_norm"] is not None for e in sig) or any(
+            e["grad_mass"] is not None for e in lay):
+        fail("telemetry: the fused route reported a dense gradient")
+    if any(abs(sum(e["topk_count"]) - s["support_density"] * d) > 0.5
+           for e, s in zip(lay, sig)):
+        fail("telemetry: the layer counts do not sum to the support")
+    return counts
+
+
+def phase_telemetry():
+    """The run telemetry on the card (the stream, the in-round signals,
+    memory, the profiler window):
+
+    - the ResNet-9 main path through ``cv_train``, ROUNDS rounds, four
+      runs interleaved: default (``--telemetry_every 1``),
+      ``--no_telemetry``, default, ``--no_telemetry``, then one at the
+      default cadence (no record in ROUNDS rounds). Every run launches
+      exactly 9 K1 + 1 K2 a round, the weights after round 1 are bit for
+      bit equal in every arm (telemetry only observes), the medians are
+      printed side by side with the card's name and power limit;
+    - the default arm's stream (``check_main_stream``) and its measured
+      round_step ledger against d x 4 bytes (printed);
+    - round 1's signals, layer signals and client quantiles of a narrow
+      ResNet-9 on the card against the CPU's (TEL_SIGNAL_RTOL,
+      TEL_SWAPS);
+    - ``--signals_exact``: the unfused route (1 K1 + 1 K2 a round), a
+      grad_true_norm, topk_overlap in [0, 1] every round;
+    - ``--profile_dir``: a chrome trace of rounds 2:4 with its kernels;
+    - GPT-2 at full width, TEL_GPT2_ROUNDS rounds, with the default
+      groups and with ``--signal_groups off``: layer signals over GPT-2's
+      coarse groups, the MFU against the card's 989 TFLOP/s entry, and
+      the two peaks side by side (the per-range reductions add no
+      d-sized map: the difference stays under d x 4 bytes).
+    Returns the medians (ms) of both arms and the GPT-2 peaks."""
+    import numpy as np
+    import torch
+    from commefficient_torch.config import FedConfig
+    from commefficient_torch.core.runtime import FedRuntime
+    from commefficient_torch.losses import make_cv_loss
+    from commefficient_torch.models.resnet9 import ResNet9
+    from commefficient_torch.telemetry import (check_dense_grad_floor,
+                                               tree_to_host)
+
+    base = MAIN_ARGV + dataset_flags("synthetic64") + [
+        "--num_rounds", str(ROUNDS)]
+    # the A/B at one record a round, then one run at the default cadence
+    # (a record every 64 rounds: none in these rounds), the telemetry's
+    # cost between records
+    arms = (("telemetry", ["--telemetry_every", "1"]),
+            ("no_telemetry", ["--no_telemetry"])) * 2 + (
+                ("default_cadence", []),)
+    medians, firsts, streams = {}, {}, []
+    d = None
+    for arm, flags in arms:
+        with FirstRound() as first:
+            out, launches, peak = run_cv(base + flags, f"telemetry {arm}")
+        if launches != {"circ_encode": 9 * ROUNDS, "circ_decode": ROUNDS} \
+                or out["rounds"] != ROUNDS or out["summary"] is None:
+            fail(f"telemetry {arm}: launches {launches}, {out['rounds']} "
+                 "rounds: want 9 K1 + 1 K2 a round")
+        d = out["runtime"].cfg.grad_size
+        medians.setdefault(arm, []).append(
+            statistics.median(out["round_s"][1:]) * 1e3)
+        firsts.setdefault(arm, []).append(first.weights)
+        if arm == "telemetry":
+            streams.append(out["logdir"])
+        elif arm == "no_telemetry" and os.path.exists(
+                os.path.join(list(LOGDIRS)[-1], "telemetry.jsonl")):
+            fail("--no_telemetry wrote a stream")
+        del out
+    for a, b in zip(firsts["telemetry"] + firsts["default_cadence"],
+                    firsts["no_telemetry"] * 2):
+        if not same_bits(a, b):
+            fail("telemetry changed the round-1 weights")
+    smi = smi_line()
+    print(f"[telemetry] main path A/B on {smi}: median of rounds 2-{ROUNDS}"
+          f" (ms), interleaved: telemetry "
+          f"{[round(x, 3) for x in medians['telemetry']]}, --no_telemetry "
+          f"{[round(x, 3) for x in medians['no_telemetry']]}, then the "
+          "default cadence "
+          f"{[round(x, 3) for x in medians['default_cadence']]}; 9 K1 + 1 "
+          "K2 a round in every run, round-1 weights bitwise equal",
+          flush=True)
+    events = read_stream(streams[0], "telemetry main path")
+    counts = check_main_stream(events, ROUNDS, d)
+    ledger = [e for e in events if e["event"] == "memory_ledger"][0]
+    over = check_dense_grad_floor(ledger, d)
+    rnd = [e for e in events if e["event"] == "round"]
+    print(f"[telemetry] stream: {len(events)} events {counts}; round "
+          f"split (host/dispatch/device ms, median): "
+          + "/".join(f"{statistics.median(e[k] for e in rnd) * 1e3:.3f}"
+                     for k in ("host_s", "dispatch_s", "device_s"))
+          + f"; measured round_step temp {ledger['temp_bytes']} B against "
+          f"d x 4 = {4 * d} B ({'above' if over else 'below'}: the "
+          "autograd route forms each microbatch's (d,) gradient)",
+          flush=True)
+    util = [e for e in events if e["event"] == "utilization"]
+    print(f"[telemetry] utilization: device_wait_frac "
+          f"{util[-1]['device_wait_frac']}, dispatch_frac "
+          f"{util[-1]['dispatch_frac']}, input_wait_frac "
+          f"{util[-1]['input_wait_frac']}, mfu {util[-1]['mfu']} (no "
+          "analytic FLOP count for the CV models)", flush=True)
+
+    # round 1's signals, card against CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ch = {"prep": 8, "layer1": 16, "layer2": 16, "layer3": 32}
+    cfg = FedConfig(mode="sketch", error_type="virtual", local_momentum=0.0,
+                    virtual_momentum=0.9, weight_decay=5e-4, k=200,
+                    num_rows=5, num_cols=4096, num_workers=2,
+                    local_batch_size=8, compute_dtype="float32")
+    got = {}
+    try:
+        for device in ("cpu", "cuda"):
+            model = ResNet9(channels=ch,
+                            generator=torch.Generator().manual_seed(0))
+            rt = FedRuntime(cfg, model, make_cv_loss(model, "float32"),
+                            device=device)
+            rng = np.random.RandomState(0)
+            batch = {"image": rng.randn(2, 8, 32, 32, 3).astype(np.float32),
+                     "target": rng.randint(0, 10, (2, 8))}
+            mask = np.ones((2, 8), bool)
+            mask[1, 5:] = False
+            _, met = rt.round(rt.init_state(), np.arange(2), batch, mask,
+                              0.1)
+            got[device] = tree_to_host({k: met[k] for k in (
+                "signals", "layer_signals", "client_stats")})
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    worst = 0.0
+
+    def near(a, b, what):
+        nonlocal worst
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        both = np.isnan(a) & np.isnan(b)
+        err = np.abs(a - b)[~both] / np.maximum(np.abs(b)[~both], 1e-30)
+        worst = max(worst, float(err.max(initial=0.0)))
+        if not np.array_equal(np.isnan(a), np.isnan(b)) or \
+                (err > TEL_SIGNAL_RTOL).any():
+            fail(f"telemetry: round-1 {what} on the card {a} against the "
+                 f"CPU's {b}")
+
+    gpu, cpu = got["cuda"], got["cpu"]
+    for key, v in cpu["signals"].items():
+        if key == "support_density":
+            if abs(float(gpu["signals"][key]) - float(v)) * d > 2 * TEL_SWAPS:
+                fail(f"telemetry: support on the card {gpu['signals'][key]}"
+                     f" against {v}")
+        else:
+            near(gpu["signals"][key], v, f"signals.{key}")
+    for key, v in cpu["layer_signals"].items():
+        if v is None:
+            if gpu["layer_signals"][key] is not None:
+                fail(f"telemetry: layer {key} on the card only")
+        elif key == "topk_count":
+            if np.abs(gpu["layer_signals"][key] - v).sum() > 2 * TEL_SWAPS:
+                fail(f"telemetry: layer counts {gpu['layer_signals'][key]}"
+                     f" against {v}")
+        else:
+            near(gpu["layer_signals"][key], v, f"layer_signals.{key}")
+    for key, s in cpu["client_stats"].items():
+        for field in ("q", "max", "mean"):
+            near(gpu["client_stats"][key][field], s[field],
+                 f"client_stats.{key}.{field}")
+    print(f"[telemetry] round-1 signals, layer signals and client "
+          f"quantiles, card vs CPU (narrow ResNet-9, float32, TF32 off): "
+          f"largest relative difference {worst:.3e}", flush=True)
+
+    # --signals_exact: the unfused route, an overlap every round
+    out, launches, _ = run_cv(base[:-1] + ["3", "--signals_exact",
+                                           "--telemetry_every", "1"],
+                              "telemetry --signals_exact")
+    if launches != {"circ_encode": 3, "circ_decode": 3}:
+        fail(f"--signals_exact: launches {launches}, want 1 K1 + 1 K2 a "
+             "round (the unfused route)")
+    sig = [e for e in read_stream(out["logdir"], "signals_exact")
+           if e["event"] == "signals"]
+    if len(sig) != 3 or any(
+            e["topk_overlap"] is None or not 0 <= e["topk_overlap"] <= 1
+            or e["grad_true_norm"] is None for e in sig):
+        fail(f"--signals_exact: signals {sig}")
+    print("[telemetry] --signals_exact: 1 K1 + 1 K2 a round, topk_overlap "
+          f"{[round(e['topk_overlap'], 5) for e in sig]}, grad_true_norm "
+          f"{[round(e['grad_true_norm'], 5) for e in sig]}", flush=True)
+    del out
+
+    # --profile_dir: the trace of rounds 2:4
+    prof_dir = os.path.join(DATA_ROOT["path"], "profile")
+    out, _, _ = run_cv(base[:-1] + ["4", "--profile_dir", prof_dir],
+                       "telemetry --profile_dir")
+    trace = os.path.join(prof_dir, "trace_rounds_2-4.json")
+    if not os.path.exists(trace):
+        fail(f"--profile_dir: no {trace}")
+    with open(trace) as f:
+        tev = json.load(f).get("traceEvents", [])
+    n_kernels = sum(1 for e in tev if e.get("cat") == "kernel")
+    print(f"[telemetry] --profile_dir: {os.path.basename(trace)}, "
+          f"{os.path.getsize(trace)} bytes, {len(tev)} events, "
+          f"{n_kernels} device kernels", flush=True)
+    del out
+
+    # GPT-2 with the default groups and without them
+    peaks = {}
+    for arm, flags in (("coarse", []), ("off", ["--signal_groups", "off"])):
+        logdir = logdir_flags(f"gpt2 telemetry {arm}")
+        _, _, ms, info = phase_gpt2_main(
+            flags + logdir + ["--telemetry_every", "1"], TEL_GPT2_ROUNDS)
+        peaks[arm] = (info["peak"], ms)
+        events = read_stream(logdir[1], f"gpt2 {arm}")
+        lay = [e for e in events if e["event"] == "layer_signals"]
+        util = [e for e in events if e["event"] == "utilization"]
+        if arm == "coarse":
+            groups = set(lay[0]["groups"]) if lay else set()
+            want = {"embed", "head"} | {f"h{b}/{s}" for b in range(12)
+                                        for s in ("attn", "mlp",
+                                                  "norm-bias")}
+            if len(lay) != TEL_GPT2_ROUNDS or not want <= groups:
+                fail(f"gpt2 telemetry: layer_signals {len(lay)}, groups "
+                     f"{sorted(groups)}")
+            if not util or util[0]["mfu"] is None or \
+                    util[0]["peak_flops"] != 989e12:
+                fail(f"gpt2 telemetry: utilization {util[:1]}")
+            print(f"[telemetry] gpt2: layer_signals over "
+                  f"{len(lay[0]['groups'])} groups, mfu "
+                  f"{[e['mfu'] for e in util]} against "
+                  f"{util[0]['peak_flops']:.3g} FLOP/s "
+                  f"({util[0]['device_kind']})", flush=True)
+        elif lay:
+            fail("gpt2 --signal_groups off wrote layer_signals")
+    d_gpt2 = GPT2_SKETCH["d"]
+    extra = peaks["coarse"][0] - peaks["off"][0]
+    if extra >= 4 * d_gpt2:
+        fail(f"gpt2: the layer signals add {extra} bytes of peak (d x 4 = "
+             f"{4 * d_gpt2})")
+    print(f"[telemetry] gpt2 on {smi}: median round / peak, coarse groups "
+          f"{peaks['coarse'][1]:.3f} ms / {peaks['coarse'][0] / 2**30:.3f} "
+          f"GiB, --signal_groups off {peaks['off'][1]:.3f} ms / "
+          f"{peaks['off'][0] / 2**30:.3f} GiB", flush=True)
+    return medians, peaks
 
 
 def run_services() -> dict:
@@ -4154,6 +4600,13 @@ def main() -> int:
     t0 = time.perf_counter()
     DATA_ROOT["path"] = tempfile.mkdtemp(prefix="chip_smoke_data_")
     try:
+        if sys.argv[1:2] == ["--telemetry"]:
+            # the telemetry phase alone, after the build (no result line)
+            phase_build()
+            phase_telemetry()
+            print(f"[time] telemetry done at {time.perf_counter() - t0:.1f}"
+                  " s (partial run: no result line)", flush=True)
+            return 0
         if sys.argv[1:2] == ["--services"]:
             # the runtime services' phases alone, after the build: a quick
             # check of this slice, with no kernel line and no result line
@@ -4252,6 +4705,8 @@ def run_phases(t0: float) -> int:
     done("the streaming encode (StreamMLP)")
     services = run_services()
     done("the runtime services (robust, async, preempt)")
+    phase_telemetry()
+    done("the run telemetry")
     print("[slice 12] round medians (ms): ResNet-9 wires "
           + ", ".join(f"{a} {ms:.3f} ({b} B a client)"
                       for a, (_, ms, b) in wire.items())

@@ -56,14 +56,11 @@ FIELDS = tuple(f.name for f in dataclasses.fields(FedState))
 INT_FIELDS = ("step", "coord_last_update", "client_last_round", "nan_round")
 # the JAX package's PRNG key: the port's round draws no random numbers
 SKIPPED = ("rng",)
-# the JAX package's fields that the port does not run
-UNPORTED = {
-    "sig_Vvelocity": "the --signals_exact shadow",
-    "sig_Verror": "the --signals_exact shadow",
-}
 # fields that a resume fits to the run (``fit_services``) instead of
-# refusing their shape: the async buffer and the normclip ring
-FITTED = ("async_buffer", "async_buffer_n", "defense_ref")
+# refusing their shape: the async buffer, the normclip ring and the
+# --signals_exact shadow pair
+FITTED = ("async_buffer", "async_buffer_n", "defense_ref",
+          "sig_Vvelocity", "sig_Verror")
 # a plain save refuses above this many bytes of host copies
 DEFAULT_MAX_HOST_BYTES = 8 << 30
 _DAMAGE_ERRORS = (zipfile.BadZipFile, OSError, EOFError, KeyError)
@@ -259,10 +256,6 @@ def load_arrays(path: str, digests: Optional[Dict[str, str]] = None
                              "checkpoint of the JAX package's meshes; the "
                              "port reads single-device checkpoints only")
         for name in names:
-            if name in UNPORTED:
-                raise ValueError(
-                    f"checkpoint {path}.npz holds '{name}' "
-                    f"({UNPORTED[name]}), which the port does not run")
             if name not in FIELDS:
                 raise ValueError(f"checkpoint {path}.npz holds an unknown "
                                  f"field '{name}'")
@@ -534,9 +527,19 @@ def fit_services(state: FedState, runtime) -> FedState:
     """A restored state fitted to the run's services, as the JAX
     package's driver fits it: a normclip ring that is missing or of
     another window restarts cold (NaN), one the run does not hold is
-    dropped; the async buffer as ``reconcile_resumed_state`` decides
-    (each change printed)."""
+    dropped; the --signals_exact shadow pair restarts at zero where the
+    run keeps it and the checkpoint does not (the shadow, not the run,
+    restarts), and is dropped where the run does not keep it; the async
+    buffer as ``reconcile_resumed_state`` decides (each change
+    printed)."""
     from commefficient_torch.core.async_agg import reconcile_resumed_state
+    shadow = runtime.state_shapes()["sig_Verror"]
+    if shadow is not None and state.sig_Verror is None:
+        state = state.replace(
+            sig_Vvelocity=torch.zeros(shadow, device=runtime.device),
+            sig_Verror=torch.zeros(shadow, device=runtime.device))
+    elif shadow is None and state.sig_Verror is not None:
+        state = state.replace(sig_Vvelocity=None, sig_Verror=None)
     want = runtime.state_shapes()["defense_ref"]
     ring = state.defense_ref
     if want is not None and (ring is None
@@ -598,5 +601,8 @@ def setup_checkpointing(cfg, runtime, name: str):
           + "".join(f"; skipped damaged {fb['path']}"
                     for fb in mgr.restore_fallbacks), flush=True)
     mgr.resume = {"round_in_epoch": in_epoch,
-                  "ledgers": meta.get("ledgers")}
+                  "ledgers": meta.get("ledgers"), "epoch": epoch,
+                  "global_round": global_round,
+                  "checkpoint": mgr.path(epoch, in_epoch, meta.get("tag")),
+                  "fallbacks": list(mgr.restore_fallbacks)}
     return mgr, epoch, state, global_round

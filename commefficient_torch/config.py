@@ -16,12 +16,15 @@ with block remat, the chunked LM loss, local HF weights and
 the host path's batches fetched ahead by the round input pipeline
 (``core/pipeline.py``), the sketch table's float32, bf16 or int8 wire
 (``--wire_dtype``, ``--wire_block``, the deprecated ``--sketch_dtype``),
-the SRHT's row scan (``--sketch_scan_rows``) and the runtime services
+the SRHT's row scan (``--sketch_scan_rows``), the runtime services
 (``add_service_args``: robust aggregation, adversaries and the
 quarantine, FedBuff and its straggler scenarios, the preemption drain
-and the watchdog). A value or flag outside it raises and names the flag:
-meshes and telemetry are not ported (``--mesh_shape ""``, the JAX
-package's single device, is accepted).
+and the watchdog) and the run telemetry (``add_telemetry_args``: the
+``telemetry.jsonl`` stream, the in-round signals and client statistics,
+the anomaly monitor, utilization peaks and the profiler window). A value
+or flag outside it raises and names the flag: meshes and the XLA-only
+flags are not ported (``--mesh_shape ""``, the JAX package's single
+device, is accepted).
 Which combinations of mode, error type and momentum are legal is the
 server's rule (``core/server.py validate_mode_combo``), checked when a
 runtime is built, as in the JAX package. Defaults and choices are the
@@ -53,6 +56,11 @@ DEFENSES = ("none", "normclip", "trim")
 NONFINITE_ACTIONS = ("abort", "quarantine")
 DISCOUNT_RULES = ("none", "poly", "exp")
 SCENARIO_KINDS = ("none", "uniform", "lognormal", "stragglers")
+# the run telemetry (telemetry/): the anomaly monitor's actions, the
+# layer-signal groupings, the participation ledger's backings
+ALERT_ACTIONS = ("log", "warn", "checkpoint", "abort")
+SIGNAL_GROUPS = ("coarse", "leaf", "off")
+POPULATION_SKETCH = ("auto", "on", "off")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,6 +208,31 @@ class FedConfig:
     preempt_grace: float = 30.0
     watchdog: bool = False
     watchdog_mult: float = 10.0
+    # run telemetry (telemetry/), with the JAX package's defaults: the
+    # telemetry.jsonl stream in the run's logdir (logdir "" = make_logdir's
+    # timestamped directory), a round record every telemetry_every rounds
+    # (-1: every round under --test, else every 64; 0: none), the
+    # in-round signals (signals_exact adds topk_overlap and, on the table
+    # state, the dense shadow pair), the layer-signal groups, the
+    # per-client statistics and the participation ledger's backing, the
+    # anomaly monitor, the peaks of the utilization events (0: the
+    # per-card table), and the profiler window
+    telemetry: bool = True
+    telemetry_every: int = -1
+    logdir: str = ""
+    use_tensorboard: bool = False
+    signals: bool = True
+    signals_exact: bool = False
+    signal_groups: str = "coarse"
+    client_stats: bool = True
+    population_sketch: str = "auto"
+    alert_action: str = "log"
+    alert_window: int = 32
+    alert_zscore: float = 6.0
+    peak_flops: float = 0.0
+    peak_hbm_gbps: float = 0.0
+    profile_dir: str = ""
+    profile_rounds: str = "2:4"
 
     def __post_init__(self):
         if self.synthetic_hard and not self.no_augment:
@@ -226,13 +259,17 @@ class FedConfig:
                    "staleness_discount": DISCOUNT_RULES,
                    "scenario": SCENARIO_KINDS, "adversary": ADVERSARY_KINDS,
                    "defense": DEFENSES,
-                   "nonfinite_action": NONFINITE_ACTIONS}
+                   "nonfinite_action": NONFINITE_ACTIONS,
+                   "signal_groups": SIGNAL_GROUPS,
+                   "population_sketch": POPULATION_SKETCH,
+                   "alert_action": ALERT_ACTIONS}
         for name, legal in choices.items():
             if getattr(self, name) not in legal:
                 raise ValueError(f"--{name} {getattr(self, name)!r}: want "
                                  "one of " + ", ".join(legal))
         self._resolve_wire()
         self._check_services()
+        self._check_telemetry()
         if (self.model, self.dataset_name) not in MODEL_DATASETS:
             raise ValueError(
                 f"--model {self.model} --dataset_name {self.dataset_name} "
@@ -345,6 +382,41 @@ class FedConfig:
                 "stall deadline is this multiple of the rolling median "
                 "round time, and a sub-1 multiplier would declare the "
                 "median round stalled")
+
+    def _check_telemetry(self) -> None:
+        """The JAX package's refusals of the telemetry flags."""
+        if self.telemetry_every < -1:
+            raise ValueError(f"--telemetry_every {self.telemetry_every} "
+                             "must be >= -1 (-1 auto, 0 none)")
+        if self.alert_window < 4:
+            raise ValueError(
+                f"--alert_window {self.alert_window} must be >= 4")
+        if self.alert_zscore <= 0:
+            raise ValueError(
+                f"--alert_zscore {self.alert_zscore} must be > 0")
+        if self.watchdog and (not self.telemetry
+                              or self.telemetry_every == 0):
+            # its deadline history and its round_stall alert live in the
+            # stream: without round records it would never arm
+            raise ValueError(
+                "--watchdog requires telemetry round records to arm "
+                "(its deadline history fills on synced record rounds "
+                "and its round_stall alert goes to the stream): drop "
+                "--no_telemetry / set --telemetry_every != 0, or drop "
+                "--watchdog.")
+        if self.profile_dir:
+            # a bad window fails at start-up, not at its first round
+            from commefficient_torch.telemetry.profiling import \
+                parse_profile_rounds
+            parse_profile_rounds(self.profile_rounds)
+
+    @property
+    def telemetry_round_every(self) -> int:
+        """The resolved --telemetry_every: -1 is every round under
+        --test, every 64 rounds otherwise."""
+        if self.telemetry_every != -1:
+            return self.telemetry_every
+        return 1 if self.do_test else 64
 
     def _resolve_wire(self) -> None:
         """The JAX package's resolution of ``wire_dtype`` and its alias
@@ -622,6 +694,54 @@ def add_service_args(p: argparse.ArgumentParser) -> None:
                    help="deadline each round at --watchdog_mult x the "
                         "rolling median round time; retry the input fetch")
     p.add_argument("--watchdog_mult", type=float, default=10.0)
+    add_telemetry_args(p)
+
+
+def add_telemetry_args(p: argparse.ArgumentParser) -> None:
+    """The run telemetry's flags (telemetry/), with the JAX package's
+    names and defaults; choices are checked by ``FedConfig``."""
+    p.add_argument("--logdir", default="",
+                   help="fixed run directory for telemetry/tensorboard "
+                        "(empty = runs/<timestamp>_...); a resumed run "
+                        "pointed at its predecessor's logdir appends to "
+                        "the stream behind a resume lineage record")
+    p.add_argument("--tensorboard", dest="use_tensorboard",
+                   action="store_true")
+    p.add_argument("--no_telemetry", dest="telemetry", action="store_false",
+                   default=True,
+                   help="disable the telemetry.jsonl event stream")
+    p.add_argument("--telemetry_every", type=int, default=-1,
+                   help="a round record every N rounds (0 = none, -1 = "
+                        "auto: 1 under --test, 64 otherwise)")
+    p.add_argument("--no_signals", dest="signals", action="store_false",
+                   default=True,
+                   help="drop the per-round compression signals")
+    p.add_argument("--signals_exact", action="store_true",
+                   help="compute topk_overlap against the exact dense "
+                        "error top-k (a dense shadow error pair for the "
+                        "table-state sketch)")
+    p.add_argument("--signal_groups", default="coarse",
+                   help="layer-signal groups: coarse, leaf or off")
+    p.add_argument("--no_client_stats", dest="client_stats",
+                   action="store_false", default=True,
+                   help="drop the per-client population statistics")
+    p.add_argument("--population_sketch", default="auto",
+                   help="participation-ledger backing: auto (sketch at "
+                        ">= 1e5 clients), on or off")
+    p.add_argument("--alert_action", default="log",
+                   help="anomaly-monitor action: log, warn, checkpoint "
+                        "(+ a flight-recorder bundle) or abort")
+    p.add_argument("--alert_window", type=int, default=32)
+    p.add_argument("--alert_zscore", type=float, default=6.0)
+    p.add_argument("--peak_flops", type=float, default=0.0,
+                   help="peak FLOP/s of the card for MFU (0 = the table)")
+    p.add_argument("--peak_hbm_gbps", type=float, default=0.0,
+                   help="peak memory GB/s of the card (0 = the table)")
+    p.add_argument("--profile_dir", default="",
+                   help="write a torch.profiler chrome trace of the "
+                        "--profile_rounds window here")
+    p.add_argument("--profile_rounds", default="2:4",
+                   help="1-based inclusive round window, START:STOP")
 
 
 def add_gpt2_args(p: argparse.ArgumentParser) -> None:
@@ -680,7 +800,7 @@ def parse_known(parser: argparse.ArgumentParser,
                 argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """``parse_known_args`` that raises on any flag outside the slice,
     naming it (the JAX package's other flags, such as ``--mesh_axes``
-    or ``--logdir``, are not ported yet)."""
+    or ``--compile_cache``, are not ported)."""
     ns, rest = parser.parse_known_args(argv)
     if rest:
         flags = [a for a in rest if a.startswith("-")] or rest

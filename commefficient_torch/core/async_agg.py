@@ -336,6 +336,8 @@ class AsyncAggregator:
             "n_valid": payload["n_valid"],
             "download_bytes": payload["download_bytes"],
             "upload_bytes": payload["upload_bytes"],
+            # the cohort's per-client quantiles (telemetry/clients.py)
+            "client_stats": payload["client_stats"],
             # robustness channel (FedRuntime.cohort): the defense scalars
             # and the quarantine ledger's per-client finite flags ride
             # the cohort payload, as they ride the synchronous round's

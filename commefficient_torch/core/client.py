@@ -46,6 +46,9 @@ class ClientOut(NamedTuple):
     error: Optional[torch.Tensor]      # its new local error row
     results: torch.Tensor              # (2,): mean loss and accuracy
     n_valid: torch.Tensor              # () valid items processed
+    # the per-client gradient statistics (telemetry/clients.py
+    # CLIENT_GRAD_KEYS), or None when the round does not keep them
+    stats: Optional[Dict[str, torch.Tensor]] = None
 
 
 # the update-space adversaries: they act on each client's upload
@@ -61,11 +64,14 @@ def per_client_uploads(cfg: FedConfig) -> bool:
             or cfg.nonfinite_action == "quarantine")
 
 
-def fused_encode_blockers(cfg: FedConfig) -> list:
+def fused_encode_blockers(cfg: FedConfig, signals: bool = False) -> list:
     """What makes the fused sketch encode (``--sketch_fused_encode``)
     unsound for ``cfg``, each naming the dense-space consumer and what to
     change; empty when nothing does. ``FedRuntime`` adds the blockers of
-    the sketch and the server state and raises under ``on``."""
+    the sketch, the server state and the per-client gradient statistics
+    and raises under ``on``. ``signals`` is whether the round's signals
+    are live (telemetry on, no async split): only then does
+    ``--signals_exact`` block."""
     if cfg.mode != "sketch":
         return [f"--mode {cfg.mode} has no sketch encode to fuse"]
     problems = []
@@ -75,14 +81,6 @@ def fused_encode_blockers(cfg: FedConfig) -> list:
             "dense deferred-encode uploads; fusing would move the defense "
             "to table-Frobenius space and silently change its "
             "clipping/trimming numerics")
-    if cfg.adversary in INJECT_KINDS or cfg.nonfinite_action == "quarantine":
-        problems.append(
-            "--adversary " + cfg.adversary + " / --nonfinite_action "
-            + cfg.nonfinite_action + " act on each client's own upload, "
-            "which the fused client loop sums away; the JAX package's "
-            "default round keeps those uploads dense (its per-client "
-            "gradient statistics block the fused encode whenever the fused "
-            "client loop is off). Pass --sketch_fused_encode auto")
     if cfg.do_dp:
         problems.append(
             "--dp clips and noises the DENSE per-client gradient before the "
@@ -93,6 +91,12 @@ def fused_encode_blockers(cfg: FedConfig) -> list:
             "--sketch_dense_clip clips the DENSE worker gradient before the "
             "encode; the fused path never materializes it. Use the table "
             "clip (--max_grad_norm without --sketch_dense_clip)")
+    if cfg.signals_exact and signals:
+        problems.append(
+            "--signals_exact threads a dense shadow EF accumulator pair "
+            "(and the exact dense-error top-k) through the round; both "
+            "need the dense aggregated gradient the fusion removes. Drop "
+            "--signals_exact (or --no_signals)")
     return problems
 
 
@@ -198,7 +202,7 @@ def _grad(loss_fn: Callable, params_vec: torch.Tensor, batch, mask):
 
 
 def make_forward_grad(cfg: FedConfig, loss_fn: Callable, batch_size: int,
-                      fused_encode: bool = False):
+                      fused_encode: bool = False, with_stats: bool = False):
     """The microbatched gradient of one client (reference
     fed_worker.py:249-335). Returns ``fwd(params_vec, batch, mask,
     gen=None, cs=None) -> (g, results, n_valid)``: ``g`` the sum over
@@ -218,12 +222,22 @@ def make_forward_grad(cfg: FedConfig, loss_fn: Callable, batch_size: int,
       term stream into it (a K1 launch each on the card, or the loss's
       ``streaming_grad``'s range launches); otherwise the dense ``g`` is
       encoded once.
+
+    ``with_stats`` (telemetry/clients.py; never with ``fused_encode``):
+    ``fwd`` returns a fourth item, the client's ``grad_norm_pre`` (the
+    dense norm before any clip), ``grad_norm_post`` (after the clips and
+    DP noise, before the encode) and ``clip_frac`` (whether the binding
+    clip bound: DP's, else the dense clip's; NaN where none applies).
     """
     num_iters, mb = _num_microbatches(cfg, batch_size)
     dense_clip = cfg.max_grad_norm is not None and (
         cfg.mode != "sketch" or cfg.sketch_dense_clip)
     wd = cfg.weight_decay / cfg.num_workers
     stream = (getattr(loss_fn, "streaming_grad", None) if fused_encode
+              else None)
+    # the clip the statistics measure against: DP's binds when on
+    thresh = (np.float32(cfg.l2_norm_clip) if cfg.do_dp
+              else np.float32(cfg.max_grad_norm * num_iters) if dense_clip
               else None)
 
     def fwd(params_vec: torch.Tensor, batch: Dict[str, torch.Tensor],
@@ -254,6 +268,13 @@ def make_forward_grad(cfg: FedConfig, loss_fn: Callable, batch_size: int,
                 g = cs.encode_accum(g, params_vec, 0, scale=wd)
             else:
                 g = g + wd * params_vec
+        stats = None
+        if with_stats:
+            pre = torch.linalg.vector_norm(g)
+            stats = {"grad_norm_pre": pre,
+                     "clip_frac": ((pre > thresh).to(torch.float32)
+                                   if thresh is not None
+                                   else torch.full_like(pre, float("nan")))}
         if dense_clip:
             g = clip_by_l2_norm(g, cfg.max_grad_norm * num_iters)
         if cfg.do_dp:
@@ -261,17 +282,21 @@ def make_forward_grad(cfg: FedConfig, loss_fn: Callable, batch_size: int,
             if cfg.dp_mode == "worker":
                 g = g + cfg.noise_multiplier * math.sqrt(cfg.num_workers) \
                     * torch.randn(g.shape, generator=gen, device=g.device)
+        if with_stats:
+            stats["grad_norm_post"] = torch.linalg.vector_norm(g)
         if cfg.table_clip:
             if not fused_encode:
                 g = cs.encode(g)
             g = cs.clip(g, cfg.max_grad_norm)
+        if with_stats:
+            return g, results, n_valid, stats
         return g, results, n_valid
 
     return fwd
 
 
 def make_client_step(cfg: FedConfig, loss_fn: Callable, batch_size: int,
-                     fused_encode: bool = False):
+                     fused_encode: bool = False, with_stats: bool = False):
     """One client's round (reference fed_worker.py:184-230). Returns
     ``step(params_vec, batch, mask, velocity, error, gen, cs) ->
     ClientOut``; ``velocity`` and ``error`` are the client's rows, or None
@@ -279,12 +304,17 @@ def make_client_step(cfg: FedConfig, loss_fn: Callable, batch_size: int,
     In sketch mode the transmit is the client's clipped table under the
     table clip (``make_forward_grad``); otherwise it is dense, or, under
     ``fused_encode``, its table, and the runtime sums the transmits and
-    encodes a dense sum once."""
-    fwd = make_forward_grad(cfg, loss_fn, batch_size, fused_encode)
+    encodes a dense sum once. ``with_stats``: ``ClientOut.stats`` holds
+    the gradient statistics and ``tx_norm``, the norm of the transmit
+    (dense, or the table's Frobenius norm)."""
+    fwd = make_forward_grad(cfg, loss_fn, batch_size, fused_encode,
+                            with_stats)
 
     def step(params_vec, batch, mask, velocity=None, error=None, gen=None,
              cs=None) -> ClientOut:
-        g, results, n_valid = fwd(params_vec, batch, mask, gen, cs)
+        out = fwd(params_vec, batch, mask, gen, cs)
+        g, results, n_valid = out[:3]
+        stats = out[3] if with_stats else None
         # weighted by the datum count: the server divides by the round's
         g = g * n_valid
         new_velocity, new_error = velocity, error
@@ -305,13 +335,16 @@ def make_client_step(cfg: FedConfig, loss_fn: Callable, batch_size: int,
                 new_error = new_error.masked_fill(nz, 0.0)
             if cfg.local_momentum > 0:
                 new_velocity = new_velocity.masked_fill(nz, 0.0)
+        if stats is not None:
+            stats["tx_norm"] = torch.linalg.vector_norm(to_transmit)
         return ClientOut(to_transmit, new_velocity, new_error, results,
-                         n_valid)
+                         n_valid, stats)
 
     return step
 
 
-def make_fedavg_client(cfg: FedConfig, loss_fn: Callable, batch_size: int):
+def make_fedavg_client(cfg: FedConfig, loss_fn: Callable, batch_size: int,
+                       with_stats: bool = False):
     """The FedAvg local-SGD loop (reference fed_worker.py:61-113): the
     client's whole padded dataset is cut into ``fedavg_batch_size``
     chunks and trained for ``num_fedavg_epochs`` epochs of SGD with the
@@ -323,7 +356,9 @@ def make_fedavg_client(cfg: FedConfig, loss_fn: Callable, batch_size: int):
     client's DP noise generator (each local step clips and noises its
     gradient). A chunk with no valid item is a no-op, as in the JAX
     package (no step, no decay, no metric), and is skipped without
-    running it."""
+    running it. ``with_stats``: ``ClientOut.stats`` holds ``tx_norm``, the
+    delta's norm; the gradient statistics are NaN (a weight delta has no
+    one gradient), as in the JAX package."""
     if cfg.fedavg_batch_size == -1:
         chunk = batch_size
     else:
@@ -351,7 +386,14 @@ def make_fedavg_client(cfg: FedConfig, loss_fn: Callable, batch_size: int):
                 res = res + results * n_valid
                 step_idx += 1
         results = res / torch.clamp(n_c * cfg.num_fedavg_epochs, min=1.0)
-        return ClientOut((params_vec - w) * n_c, None, None, results, n_c)
+        transmit = (params_vec - w) * n_c
+        stats = None
+        if with_stats:
+            nan = torch.full((), float("nan"), device=w.device)
+            stats = {"grad_norm_pre": nan, "grad_norm_post": nan,
+                     "clip_frac": nan,
+                     "tx_norm": torch.linalg.vector_norm(transmit)}
+        return ClientOut(transmit, None, None, results, n_c, stats)
 
     return step
 

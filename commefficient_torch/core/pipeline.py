@@ -35,6 +35,8 @@ from typing import Any, Callable, Iterable, Iterator, NamedTuple, Optional
 
 import torch
 
+from commefficient_torch.telemetry import tracing
+
 _ITEM, _DONE, _ERR = "item", "done", "err"
 
 
@@ -101,7 +103,8 @@ class RoundPipeline:
         if self._exhausted:
             raise StopIteration
         t0 = time.perf_counter()
-        kind, payload = self._q.get()
+        with tracing.span("data_wait"):
+            kind, payload = self._q.get()
         wait = time.perf_counter() - t0
         if kind is _ERR:
             self._exhausted = True
@@ -126,14 +129,15 @@ class RoundPipeline:
         stream on the card, waited for on this thread."""
         t0 = time.perf_counter()
         event = None
-        if self._stream is None:
-            batch = self._fetch(rnd, g)
-        else:
-            with torch.cuda.stream(self._stream):
+        with tracing.span("data_fetch"):
+            if self._stream is None:
                 batch = self._fetch(rnd, g)
-                event = torch.cuda.Event()
-                event.record(self._stream)
-            event.synchronize()
+            else:
+                with torch.cuda.stream(self._stream):
+                    batch = self._fetch(rnd, g)
+                    event = torch.cuda.Event()
+                    event.record(self._stream)
+                event.synchronize()
         return batch, event, time.perf_counter() - t0
 
     def _ready(self, item):

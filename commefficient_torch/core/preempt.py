@@ -12,44 +12,32 @@ the JAX package's ``core/preempt.py``.
   dispatch and sync at ``--watchdog_mult`` times the rolling median round
   time (with a MAD envelope, so scheduler jitter cannot fire it). On
   expiry it calls back once a round; the driver prints the JAX
-  package's ``WATCHDOG:`` line (its alert and flight-recorder bundle
-  come with the telemetry services).
+  package's ``WATCHDOG:`` line, writes a ``fault`` event and fires a
+  ``round_stall`` alert through the anomaly monitor, and the flight
+  recorder (``--alert_action checkpoint|abort``) writes an events-only
+  bundle.
 - :func:`with_retries`: bounded exponential-backoff retries of the
   retryable host phases (the round's input fetch).
 - :func:`collect_ledger_state` / :func:`restore_ledger_state`: the
-  host ledgers a round-granular checkpoint carries in its meta (the
-  quarantine ledger; the JAX package's participation ledger and anomaly
-  monitor are read past).
+  host ledgers a checkpoint carries in its meta (the quarantine ledger,
+  the participation ledger, the anomaly monitor and the stream's ring
+  vintage), in the JAX package's layout.
 
 Everything here is host-only, standard library alone.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import signal
 import sys
 import threading
 import time
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Optional
 
-
-def robust_z(value: float, history: List[float],
-             mad_floor_frac: float = 0.02,
-             mad_floor_abs: float = 0.0) -> Dict[str, float]:
-    """Median/MAD z-score of ``value`` against ``history`` (the JAX
-    package's ``telemetry/health.py robust_z``): the MAD floored at
-    ``mad_floor_frac`` of the median, at ``mad_floor_abs`` and at
-    1e-12."""
-    xs = sorted(history)
-    n = len(xs)
-    med = (xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2]))
-    dev = sorted(abs(x - med) for x in xs)
-    mad = (dev[n // 2] if n % 2 else 0.5 * (dev[n // 2 - 1] + dev[n // 2]))
-    mad = max(mad, mad_floor_frac * abs(med), mad_floor_abs, 1e-12)
-    return {"zscore": 0.6745 * (value - med) / mad, "median": med,
-            "mad": mad}
+from commefficient_torch.telemetry.health import robust_z
 
 
 # signals a preemption can arrive on (SIGKILL is uncatchable by design)
@@ -291,24 +279,59 @@ def with_retries(fn: Callable[[], Any], *, attempts: int = 3,
 # ------------------------------------------------------- ledger persistence
 
 
-def collect_ledger_state(qledger=None) -> Dict[str, Any]:
-    """The host-ledger sidecar a round-granular checkpoint carries in its
-    meta, in the JAX package's layout: ``{"quarantine": strikes,
-    benches, ejections}`` (JSON). The JAX package's participation ledger,
-    anomaly monitor and telemetry ring are not kept by the port yet."""
+# the cap on the participation ledger's serialized sidecar (it rides the
+# checkpoint's meta.json, read whole at every resume): the JAX package's,
+# with its environment override
+LEDGER_SIDECAR_MAX_BYTES = int(os.environ.get(
+    "COMMEFF_LEDGER_SIDECAR_MAX_BYTES", 8 * 1024 * 1024))
+
+
+def collect_ledger_state(qledger=None, participation=None, monitor=None,
+                         telemetry=None) -> Dict[str, Any]:
+    """The host-ledger sidecar a checkpoint carries in its meta, in the
+    JAX package's layout: ``quarantine`` (strikes, benches, ejections),
+    ``participation`` (the participation ledger's state), ``monitor``
+    (the anomaly monitor's rolling histories) and ``ring`` (how far the
+    stream's flight-recorder ring had advanced). JSON; restored by
+    :func:`restore_ledger_state`. Raises when the participation state
+    passes :data:`LEDGER_SIDECAR_MAX_BYTES` (the exact ledger at
+    population scale), naming ``--population_sketch on``."""
     out: Dict[str, Any] = {}
     if qledger is not None:
         out["quarantine"] = qledger.state_dict()
+    if participation is not None:
+        part = participation.state_dict()
+        nbytes = len(json.dumps(part).encode())
+        if nbytes > LEDGER_SIDECAR_MAX_BYTES:
+            raise ValueError(
+                f"participation-ledger checkpoint sidecar is "
+                f"{nbytes / 2**20:.1f} MiB (> "
+                f"{LEDGER_SIDECAR_MAX_BYTES / 2**20:.1f} MiB cap): the "
+                f"exact per-client ledger does not scale to this "
+                f"universe ({getattr(participation, 'num_clients', '?')} "
+                f"registered clients). Pass --population_sketch on (or "
+                f"auto) for the bounded-memory sketch ledger, or raise "
+                f"COMMEFF_LEDGER_SIDECAR_MAX_BYTES to keep exact state.")
+        out["participation"] = part
+    if monitor is not None:
+        out["monitor"] = monitor.state_dict()
+    if telemetry is not None:
+        out["ring"] = {"seq": getattr(telemetry, "_seq", 0),
+                       "recent": len(getattr(telemetry, "recent", ()))}
     return out
 
 
 def restore_ledger_state(ledgers: Optional[Dict[str, Any]], *,
-                         qledger=None) -> None:
-    """Applies a saved sidecar to this run's fresh quarantine ledger
-    (when both the saved state and the ledger exist: a run that turned
-    quarantine off drops it; the JAX package's other ledgers are read
-    past)."""
+                         qledger=None, participation=None,
+                         monitor=None) -> None:
+    """Applies a saved sidecar to this run's fresh host ledgers, each
+    only where both the saved state and the live object exist (a run
+    that turned quarantine off drops that state)."""
     if not ledgers:
         return
     if qledger is not None and ledgers.get("quarantine"):
         qledger.load_state_dict(ledgers["quarantine"])
+    if participation is not None and ledgers.get("participation"):
+        participation.load_state_dict(ledgers["participation"])
+    if monitor is not None and ledgers.get("monitor"):
+        monitor.load_state_dict(ledgers["monitor"])

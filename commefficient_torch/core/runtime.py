@@ -1,7 +1,7 @@
 """FedRuntime on one device, counterpart of the JAX package's
 ``core/runtime.py FedRuntime`` (its ``_round_step``, and its split
 round ``cohort``/``merge``/``commit`` for ``--async_agg``) without a
-mesh or telemetry.
+mesh.
 
 A round:
 
@@ -34,7 +34,12 @@ A round:
    back, ``coord_last_update`` records the changed coordinates,
    ``nan_round`` the first round whose update, aggregate or client loss
    was not finite (under the quarantine: a round whose every live client
-   went nonfinite), and the normclip ring takes the round's median norm.
+   went nonfinite), and the normclip ring takes the round's median norm;
+6. under telemetry (the JAX package's gates, ``_signals`` and
+   ``_client_stats``), the round's compression signals
+   (telemetry/signals.py), its layer signals (telemetry/layer_signals.py)
+   and its per-client quantiles (telemetry/clients.py) are reduced on
+   the device into the metrics; nothing is read back here.
 
 The split round (``--async_agg``) runs steps 1-3 in ``cohort``, which
 returns the unnormalized sum and its datum count; ``merge`` folds a
@@ -46,6 +51,7 @@ cohort merged first and committed at once is bitwise that round.
 
 from __future__ import annotations
 
+import sys
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -63,6 +69,11 @@ from commefficient_torch.core.state import FedState
 from commefficient_torch.data.scenarios import make_adversary
 from commefficient_torch.ops.sketch import make_sketch_impl
 from commefficient_torch.ops.wire import wire_round_trip
+from commefficient_torch.telemetry.clients import (CLIENT_GRAD_KEYS,
+                                                   summarize_per_client)
+from commefficient_torch.telemetry.layer_signals import (
+    layer_group_signals, make_group_spec)
+from commefficient_torch.telemetry.signals import round_signals, shadow_step
 
 # keys DP noise apart from the data path's draws (seed ^ 0xDA7A)
 NOISE_SALT = 0xD9
@@ -172,7 +183,39 @@ class FedRuntime:
             raise ValueError(
                 "--sketch_server_state dense requires deferred encode (no "
                 "per-client table clip; use --sketch_dense_clip to clip)")
-        problems = client_lib.fused_encode_blockers(cfg)
+        # the telemetry's gates, as the JAX package sets them: signals and
+        # client statistics only where a stream reads them, no signals
+        # under the async split (a round's aggregate and its update are
+        # decoupled there)
+        self._signals = (cfg.signals and cfg.telemetry
+                         and not cfg.async_agg)
+        if cfg.signals and cfg.telemetry and cfg.async_agg:
+            print("NOTE: --async_agg disables the per-round `signals` "
+                  "diagnostics (they compare a round's aggregate against "
+                  "the same round's server update, which buffered "
+                  "aggregation decouples); commit-granularity EF norms "
+                  "are emitted on the `async_round` events instead. Pass "
+                  "--no_signals to silence this note.", file=sys.stderr)
+        # the dense summed gradient before the deferred encode, kept for
+        # grad_true_norm; with --signals_exact the table state's dense
+        # shadow error pair rides in FedState
+        self._signals_dense_cap = (self._signals and cfg.mode == "sketch"
+                                   and self.defer_encode
+                                   and not self.dense_preimage)
+        self._signals_shadow = self._signals_dense_cap and cfg.signals_exact
+        self._client_stats = cfg.client_stats and cfg.telemetry
+        # the JAX package's fused client loop (one scan into one buffer,
+        # no per-client gradient): its gradient statistics are NaN there
+        n_iters, mb = client_lib._num_microbatches(cfg, self.batch_size)
+        jax_fused = (cfg.mode in ("sketch", "true_topk", "uncompressed")
+                     and cfg.local_momentum == 0
+                     and cfg.error_type != "local" and not cfg.do_dp
+                     and cfg.max_grad_norm is None
+                     and not cfg.do_topk_down and not self._per_client
+                     and n_iters * mb == self.batch_size)
+        self._client_grad_stats = self._client_stats and not jax_fused
+        problems = client_lib.fused_encode_blockers(cfg,
+                                                    signals=self._signals)
         if cfg.mode == "sketch":
             if self.dense_preimage:
                 problems.append(
@@ -182,6 +225,13 @@ class FedRuntime:
             elif self.cs.dense_transform:
                 problems.append(f"--sketch_impl {cfg.sketch_impl} has a "
                                 "dense transform (no streaming encode)")
+            if self._client_grad_stats:
+                # the JAX package's default route: the per-client gradient
+                # norms are measured on dense gradients
+                problems.append(
+                    "per-client grad-norm stats (telemetry/clients.py) "
+                    "measure dense gradient norms on the per-client path; "
+                    "pass --no_client_stats (or --no_telemetry)")
         fused_encode = (cfg.mode == "sketch"
                         and cfg.sketch_fused_encode != "off"
                         and not problems)
@@ -190,6 +240,30 @@ class FedRuntime:
                 "--sketch_fused_encode on: the fused sketch encode is "
                 "unsound for this configuration (use auto to fall back to "
                 "the unfused round):\n  " + "\n  ".join(problems))
+        if fused_encode and self._signals_dense_cap:
+            print("NOTE: the fused sketch encode removes the dense "
+                  "aggregated gradient the sketch-mode signals capture "
+                  "(grad_true_norm and the collision-noise reference go "
+                  "null). Pass --sketch_fused_encode off to keep them at "
+                  "the cost of the dense (d,) materialization.",
+                  file=sys.stderr)
+            self._signals_dense_cap = False
+        self.fused_encode = fused_encode
+        # the layer signals: groups over the flat layout, reduced by
+        # ranges (ops/segments.py); the dense gradient's per-group mass
+        # only where the round holds a dense gradient
+        self._layer_signals = (self._signals
+                               and cfg.signal_groups != "off")
+        self._layer_grad_mass = (self._layer_signals
+                                 and (cfg.mode != "sketch"
+                                      or self.dense_preimage
+                                      or self._signals_dense_cap))
+        self.group_spec = None
+        if self._layer_signals:
+            # a model without a layout is one leaf
+            self.group_spec = make_group_spec(
+                self.layout or [("params/params", (d,))], cfg.signal_groups)
+            assert self.group_spec.d == d, (self.group_spec.d, d)
         # the int8 wire (ops/wire.py): an explicit request, so what it
         # cannot serve raises
         self._int8_wire, self._wire_block = False, 0
@@ -214,7 +288,8 @@ class FedRuntime:
         self._fused_fn = self._client_fn = None
         if cfg.mode == "fedavg":
             self._client_fn = client_lib.make_fedavg_client(
-                cfg, loss_fn, self.batch_size)
+                cfg, loss_fn, self.batch_size,
+                with_stats=self._client_grad_stats)
         elif (fused_encode and self.defer_encode and not cfg.do_topk_down
               and not self._per_client):
             # no per-client nonlinearity: every client into one table
@@ -222,7 +297,8 @@ class FedRuntime:
                                                         self.batch_size)
         else:
             self._client_fn = client_lib.make_client_step(
-                cfg, loss_fn, self.batch_size, fused_encode)
+                cfg, loss_fn, self.batch_size, fused_encode,
+                with_stats=self._client_grad_stats)
         self._encode_sum = (self.defer_encode and not self.dense_preimage
                             and not fused_encode)
         # the per-client wire: each client's own table (the table clip)
@@ -252,7 +328,9 @@ class FedRuntime:
                 "async_buffer": server if cfg.async_agg else None,
                 "async_buffer_n": () if cfg.async_agg else None,
                 "defense_ref": ((cfg.defense_window,)
-                                if self._defense_ring else None)}
+                                if self._defense_ring else None),
+                "sig_Vvelocity": (d,) if self._signals_shadow else None,
+                "sig_Verror": (d,) if self._signals_shadow else None}
 
     def init_state(self) -> FedState:
         dev, shapes = self.device, self.state_shapes()
@@ -289,7 +367,9 @@ class FedRuntime:
             async_buffer=zeros("async_buffer"),
             async_buffer_n=zeros("async_buffer_n"),
             # NaN: a round not yet seen (nanmedian skips it)
-            defense_ref=zeros("defense_ref", float("nan")))
+            defense_ref=zeros("defense_ref", float("nan")),
+            sig_Vvelocity=zeros("sig_Vvelocity"),
+            sig_Verror=zeros("sig_Verror"))
 
     def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """Every leaf onto the device: floating leaves as float32, integer
@@ -364,7 +444,7 @@ class FedRuntime:
             batch = client_lib.flip_labels(batch, self._adv_universe[ids],
                                            cfg.num_classes)
         out = dict(vel=None, err=None, client_finite=None, stats=None,
-                   cur_med=None)
+                   cur_med=None, grad_stats=None, sig_dense=None)
         if self._fused_fn is not None:
             out["agg"], out["results"], out["n_valid"] = self._fused_fn(
                 w, batch, mask, mask_host, self.cs)
@@ -376,6 +456,7 @@ class FedRuntime:
         W = mask.shape[0]
         agg, uploads, results, n_valid, vels, errs = None, None, [], [], \
             [], []
+        grad_stats = []
         for c in range(W):
             cb = {k: v[c] for k, v in batch.items()}
             wc = w if used is None else used[c]
@@ -401,13 +482,21 @@ class FedRuntime:
             n_valid.append(o.n_valid)
             vels.append(o.velocity)
             errs.append(o.error)
+            if o.stats is not None:
+                grad_stats.append(o.stats)
         results, n_valid = torch.stack(results), torch.stack(n_valid)
+        if grad_stats:
+            out["grad_stats"] = {k: torch.stack([g[k] for g in grad_stats])
+                                 for k in CLIENT_GRAD_KEYS}
         if uploads is not None:
             agg, results, n_valid, out["client_finite"], out["stats"], \
                 out["cur_med"] = self._transmit_tail(state, ids, uploads,
                                                      results, n_valid)
             del uploads
         if self._encode_sum:
+            if self._signals_dense_cap:
+                # the dense sum, kept for the signals' grad_true_norm
+                out["sig_dense"] = agg
             # sum of the clients' sketches == sketch of the sum: one encode
             agg = self.cs.encode(agg)
         if vel_rows is not None:
@@ -452,7 +541,7 @@ class FedRuntime:
 
     def _client_half(self, state: FedState, ids: torch.Tensor, batch,
                      mask: torch.Tensor, mask_host: np.ndarray,
-                     lr: torch.Tensor) -> Dict:
+                     lr: torch.Tensor, observe: bool = True) -> Dict:
         """The round up to the server update (steps 1-3), shared by
         ``round`` and ``cohort``: the download accounting, the top-k
         download, the clients and their tail, the encode and the wire.
@@ -464,19 +553,21 @@ class FedRuntime:
         cfg, dev, step = self.cfg, self.device, state.step
         step_t = torch.tensor(step, dtype=torch.int32, device=dev)
         W = mask.shape[0]
-        download_bytes = upload_bytes = None
+        download_bytes = upload_bytes = down_slot = up_slot = None
         client_last_round = state.client_last_round
         if cfg.track_bytes:
             counts = download_coord_counts(state.coord_last_update,
                                            state.client_last_round[ids])
+            # each slot's bytes, kept for the client statistics
+            down_slot = 4.0 * counts.float()
+            up_slot = torch.full((W,), self._upload_bytes,
+                                 dtype=torch.float32, device=dev)
             download_bytes = torch.zeros(
                 self.num_clients, dtype=torch.float32,
-                device=dev).index_put_((ids,), 4.0 * counts.float())
+                device=dev).index_put_((ids,), down_slot)
             upload_bytes = torch.zeros(
                 self.num_clients, dtype=torch.float32,
-                device=dev).index_put_(
-                    (ids,), torch.full((W,), self._upload_bytes,
-                                       dtype=torch.float32, device=dev))
+                device=dev).index_put_((ids,), up_slot)
             client_last_round = state.client_last_round.index_put(
                 (ids,), step_t)
 
@@ -517,7 +608,27 @@ class FedRuntime:
                    upload_bytes=upload_bytes,
                    client_last_round=client_last_round,
                    defense_ref=defense_ref, defense=defense, bad=bad)
+        out["client_stats"] = (self._client_summary(out, down_slot, up_slot)
+                               if observe else None)
         return out
+
+    def _client_summary(self, half: Dict, down_slot, up_slot):
+        """The round's per-client quantiles (telemetry/clients.py), or
+        None: the loss, the gradient statistics (NaN where the JAX package
+        keeps no per-client gradient) and the slots' bytes."""
+        if not self._client_stats:
+            return None
+        W = half["results"].shape[0]
+        per_client = {"loss": half["results"][:, 0]}
+        if half["grad_stats"] is not None:
+            per_client.update(half["grad_stats"])
+        else:
+            nan = torch.full((W,), float("nan"), device=self.device)
+            per_client.update({k: nan for k in CLIENT_GRAD_KEYS})
+        if self.cfg.track_bytes:
+            per_client["upload_bytes"] = up_slot
+            per_client["download_bytes"] = down_slot
+        return summarize_per_client(per_client, half["n_valid"])
 
     def _server_tail(self, state: FedState, agg: torch.Tensor,
                      lr: torch.Tensor, step_t: torch.Tensor):
@@ -537,8 +648,8 @@ class FedRuntime:
         bad = ~torch.isfinite(update).all() | ~torch.isfinite(agg).all()
         return update, Vvel, Verr, sup_mask, coord_last_update, bad
 
-    def round(self, state: FedState, client_ids, batch, mask, lr
-              ) -> Tuple[FedState, Dict]:
+    def round(self, state: FedState, client_ids, batch, mask, lr,
+              observe: bool = True) -> Tuple[FedState, Dict]:
         """One federated round. ``client_ids`` (W,) names the round's
         clients, ``batch`` leaves are (W, B, ...), ``mask`` is (W, B) and
         ``lr`` a scalar; numpy arrays or tensors. The participants' rows of
@@ -548,13 +659,34 @@ class FedRuntime:
         tensors. The metrics hold ``defense`` (the four defense scalars
         and ``nonfinite_clients``, NaN where not applicable) when a
         robustness flag is on, and ``client_finite`` (W,) under the
-        quarantine."""
+        quarantine; under telemetry ``signals``, ``layer_signals`` and
+        ``client_stats`` (None where off). ``observe=False`` (the driver's
+        rounds between records, which nothing reads) skips those three;
+        only the ``--signals_exact`` shadow pair advances."""
         cfg = self.cfg
         ids, mask, mask_host, lr = self._inputs(client_ids, mask, lr)
-        half = self._client_half(state, ids, batch, mask, mask_host, lr)
-        agg = half["agg"] / torch.clamp(half["n_valid"].sum(), min=1.0)
+        half = self._client_half(state, ids, batch, mask, mask_host, lr,
+                                 observe)
+        total = torch.clamp(half["n_valid"].sum(), min=1.0)
+        agg = half["agg"] / total
         update, Vvel, Verr, sup_mask, coord_last_update, bad = \
             self._server_tail(state, agg, lr, half["step_t"])
+        sig_dense = (half["sig_dense"] / total
+                     if half["sig_dense"] is not None else None)
+        signals = layer_signals = None
+        sig_vel, sig_err = state.sig_Vvelocity, state.sig_Verror
+        if self._signals and observe:
+            signals, sig_vel, sig_err = round_signals(
+                cfg, agg=agg, update=update, Vvel_prev=state.Vvelocity,
+                Verr_prev=state.Verror, Vvel_new=Vvel, Verr_new=Verr,
+                cs=self.cs, dense_agg=sig_dense,
+                sig_vel=state.sig_Vvelocity, sig_err=state.sig_Verror)
+        elif self._signals_shadow:
+            sig_vel, sig_err, _ = shadow_step(cfg, sig_dense, update,
+                                              sig_vel, sig_err)
+        if self._layer_signals and observe:
+            layer_signals = self._layer_signals_of(
+                state, agg, update, Verr, sig_dense, sig_err)
         vel_new, err_new = half["vel"], half["err"]
         if vel_new is not None:
             if cfg.mode == "true_topk":
@@ -571,14 +703,43 @@ class FedRuntime:
             Verror=Verr, step=state.step + 1,
             coord_last_update=coord_last_update,
             client_last_round=half["client_last_round"],
-            nan_round=nan_round, defense_ref=half["defense_ref"])
+            nan_round=nan_round, defense_ref=half["defense_ref"],
+            sig_Vvelocity=sig_vel, sig_Verror=sig_err)
         results = half["results"]
         return new_state, {"results": (results[:, 0], results[:, 1]),
                            "n_valid": half["n_valid"],
                            "download_bytes": half["download_bytes"],
                            "upload_bytes": half["upload_bytes"],
+                           "signals": signals,
+                           "layer_signals": layer_signals,
+                           "client_stats": half["client_stats"],
                            "defense": half["defense"],
                            "client_finite": half["client_finite"]}
+
+    def _layer_signals_of(self, state: FedState, agg, update, Verr,
+                          sig_dense, sig_err_new) -> Dict:
+        """The round's layer signals, from the same quantities as the
+        scalar signals: the dense gradient and error where the round holds
+        them, and under --signals_exact the dense pre-feedback error that
+        ``topk_overlap`` ranks."""
+        cfg = self.cfg
+        dense = cfg.mode != "sketch" or self.dense_preimage
+        grad_dense = (agg if dense
+                      else sig_dense if self._layer_grad_mass else None)
+        err_dense = Verr if dense else sig_err_new
+        err_pre = None
+        if cfg.signals_exact:
+            rho = cfg.virtual_momentum
+            if state.sig_Verror is not None and sig_dense is not None:
+                err_pre = (state.sig_Verror + sig_dense
+                           + rho * state.sig_Vvelocity)
+            elif cfg.mode == "true_topk" or (cfg.mode == "sketch"
+                                             and dense):
+                err_pre = (state.Verror + agg
+                           + rho * state.Vvelocity)[: cfg.grad_size]
+        return layer_group_signals(cfg, spec=self.group_spec, update=update,
+                                   grad_dense=grad_dense,
+                                   err_dense=err_dense, err_pre=err_pre)
 
     # ------------------------------------------- the split round (async)
 
@@ -606,6 +767,7 @@ class FedRuntime:
                            "n_valid": half["n_valid"],
                            "download_bytes": half["download_bytes"],
                            "upload_bytes": half["upload_bytes"],
+                           "client_stats": half["client_stats"],
                            "defense": half["defense"],
                            "client_finite": half["client_finite"]}
 

@@ -14,7 +14,9 @@ shapes: ``async_buffer`` and ``async_buffer_n`` (``--async_agg``: the
 merged cohorts' staleness-weighted sum, in the server state's shape,
 and their raw datum count) and ``defense_ref`` (``--defense normclip``:
 the ring of the last ``defense_window`` rounds' median per-datum norms,
-NaN until written).
+NaN until written). The telemetry adds ``sig_Vvelocity`` and
+``sig_Verror``: the dense shadow error-feedback pair that
+``--signals_exact`` carries on the table-state sketch.
 """
 
 from __future__ import annotations
@@ -46,6 +48,10 @@ class FedState:
     async_buffer_n: Optional[torch.Tensor] = None     # () float32
     # --defense normclip: the rolling reference, (defense_window,) NaN
     defense_ref: Optional[torch.Tensor] = None
+    # --signals_exact on the table-state sketch: the dense shadow error
+    # feedback pair (telemetry/signals.py), (d,) each
+    sig_Vvelocity: Optional[torch.Tensor] = None
+    sig_Verror: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "FedState":
         return dataclasses.replace(self, **kw)

@@ -93,7 +93,8 @@ import torch
 from commefficient_torch.checkpoint import setup_checkpointing
 from commefficient_torch.config import (CV_DATASETS, add_args,
                                         config_from_args, parse_known)
-from commefficient_torch.core.driver import train
+from commefficient_torch.core.driver import (make_writer, open_telemetry,
+                                              train)
 from commefficient_torch.core.runtime import FedRuntime
 from commefficient_torch.data.device_store import (DATA_KEY,
                                                    make_device_store)
@@ -349,7 +350,7 @@ def make_stores(runtime: FedRuntime, train_ds, val_ds):
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Runs the flags ``argv``; returns the run's per-round losses,
     host-clock round times, the round's wait for its batch and the
-    fetch's own time, the last epoch row
+    fetch's own time, the logdir and stream, the last epoch row
     (``summary``, None after a divergence abort), the final state, the
     run's byte totals and a finetune's frozen backbone."""
     timer = Timer()
@@ -362,17 +363,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg, runtime, cfg.model)
     if restored is not None:
         state = restored
+    logdir, telemetry = open_telemetry(cfg, runtime, "cv_train", ckpt_mgr)
     tsv = TSVLogger()
-    state, summary, log = train(runtime, state, train_ds, val_ds,
-                                lr_schedule_for(cfg), ns.num_rounds,
-                                loggers=(TableLogger(), tsv), timer=timer,
-                                train_store=train_store,
-                                val_store=val_store, ckpt_mgr=ckpt_mgr,
-                                checkpoint_every=cfg.checkpoint_every,
-                                start_epoch=start_epoch,
-                                global_round=global_round, lr_mult=lr_mult,
-                                eval_before_start=cfg.eval_before_start,
-                                services=True)
+    try:
+        state, summary, log = train(
+            runtime, state, train_ds, val_ds, lr_schedule_for(cfg),
+            ns.num_rounds, loggers=(TableLogger(), tsv), timer=timer,
+            train_store=train_store, val_store=val_store,
+            ckpt_mgr=ckpt_mgr, checkpoint_every=cfg.checkpoint_every,
+            start_epoch=start_epoch, global_round=global_round,
+            lr_mult=lr_mult, eval_before_start=cfg.eval_before_start,
+            services=True, telemetry=telemetry,
+            writer=make_writer(cfg, logdir))
+    finally:
+        if telemetry is not None:
+            telemetry.close()
     print(tsv)
     if cfg.do_checkpoint and summary is not None:
         os.makedirs(cfg.checkpoint_path, exist_ok=True)
@@ -390,7 +395,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             "runtime": runtime, "train_store": train_store,
             "lr_mult": lr_mult, "frozen": frozen,
             "defense": log.defense, "services": log.services,
-            "preempted": log.preempted}
+            "preempted": log.preempted, "logdir": logdir,
+            "telemetry": telemetry, "log": log}
 
 
 if __name__ == "__main__":

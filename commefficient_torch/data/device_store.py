@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from commefficient_torch.data import transforms as T
+from commefficient_torch.telemetry import tracing
 
 # augment -> (crop pad, pad mode, horizontal flip), as the host
 # transforms crop
@@ -140,13 +141,15 @@ class DeviceStore:
     def round_batch(self, flat_idx, round_index: Optional[int] = None
                     ) -> Dict[str, torch.Tensor]:
         """The batch at ``flat_idx`` (any shape; numpy) on the device, the
-        image leaf augmented (``round_index`` seeds the train draws)."""
-        idx = self.upload_index(flat_idx)
-        if self.iid_shuffle is not None:
-            idx = self.iid_shuffle[idx]
-        return {key: (self._images(arr, idx, round_index)
-                      if key == "image" else arr[idx])
-                for key, arr in self.arrays.items()}
+        image leaf augmented (``round_index`` seeds the train draws); the
+        ``data_gather`` span."""
+        with tracing.span("data_gather"):
+            idx = self.upload_index(flat_idx)
+            if self.iid_shuffle is not None:
+                idx = self.iid_shuffle[idx]
+            return {key: (self._images(arr, idx, round_index)
+                          if key == "image" else arr[idx])
+                    for key, arr in self.arrays.items()}
 
     def _images(self, arr: torch.Tensor, idx: torch.Tensor,
                 round_index: Optional[int]) -> torch.Tensor:

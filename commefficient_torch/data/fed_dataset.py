@@ -27,6 +27,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from commefficient_torch.telemetry import tracing
+
 
 class FedDataset:
     # natural clients this dataset always has, or None when data-dependent;
@@ -197,7 +199,11 @@ class FedDataset:
         transform's ``gather_fused`` (the native host gather) when it
         serves them, as in the JAX package. The round pipeline calls it
         from one thread, in round order, so the transform's draws advance
-        as they do inline."""
+        as they do inline. The ``host_gather`` span."""
+        with tracing.span("host_gather"):
+            return self._gather(flat_idx)
+
+    def _gather(self, flat_idx: np.ndarray) -> Dict[str, np.ndarray]:
         idx = np.asarray(flat_idx)
         if self.train and self.do_iid:
             idx = self.iid_shuffle[idx]

@@ -19,9 +19,9 @@ Spec grammar (one fault per process)::
 - ``action``: ``kill`` (``os._exit(137)``, the SIGKILL-alike) or
   ``sigterm`` (``os.kill(getpid(), SIGTERM)``: exercises the graceful
   drain instead of dying; the handler decides what happens next).
-- ``point``: one of :data:`FAULT_POINTS`. ``mid_telemetry_flush`` is
-  kept in the table for the grammar's sake: the port writes no telemetry
-  stream yet, so no site visits it.
+- ``point``: one of :data:`FAULT_POINTS`. ``mid_telemetry_flush``'s
+  site is the stream's writer (telemetry/run.py), whose counter is the
+  event's ``seq``: half the line reaches the file, then the action.
 - ``n`` (optional): only trigger when the site's counter argument
   equals ``n`` (e.g. global round 5). A point without ``n`` triggers on
   the site's first visit.

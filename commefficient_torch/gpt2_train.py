@@ -55,7 +55,8 @@ from commefficient_torch.checkpoint import (params_fingerprint_jax,
                                             setup_checkpointing)
 from commefficient_torch.config import (add_args, add_gpt2_args,
                                         config_from_args, parse_known)
-from commefficient_torch.core.driver import train
+from commefficient_torch.core.driver import (make_writer, open_telemetry,
+                                              train)
 from commefficient_torch.core.runtime import FedRuntime
 from commefficient_torch.data.fed_persona import FedPERSONA, HashTokenizer
 from commefficient_torch.losses import (COMPUTE_DTYPES, DTYPE_NAMES,
@@ -210,18 +211,25 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     tokens = (cfg.num_workers * runtime.batch_size * cfg.num_candidates
               * cfg.max_seq_len)
     flops = gpt2_model_flops(gcfg, tokens, cfg.max_seq_len)
+    logdir, telemetry = open_telemetry(cfg, runtime, "gpt2_train",
+                                       ckpt_mgr)
     # --test: one round and one validation batch, as the JAX package's
     # loop breaks after them, unless --num_rounds asks for more rounds
     # (one per epoch)
     tsv = TSVLogger()
-    state, summary, log = train(
-        runtime, state, train_ds, val_ds, make_gpt2_schedule(cfg),
-        ns.num_rounds or (1 if cfg.do_test else 0),
-        max_per_epoch=1 if cfg.do_test else None,
-        val_max_batches=1 if cfg.do_test else None,
-        loggers=(TableLogger(), tsv), timer=timer, ckpt_mgr=ckpt_mgr,
-        checkpoint_every=cfg.checkpoint_every, start_epoch=start_epoch,
-        global_round=global_round)
+    try:
+        state, summary, log = train(
+            runtime, state, train_ds, val_ds, make_gpt2_schedule(cfg),
+            ns.num_rounds or (1 if cfg.do_test else 0),
+            max_per_epoch=1 if cfg.do_test else None,
+            val_max_batches=1 if cfg.do_test else None,
+            loggers=(TableLogger(), tsv), timer=timer, ckpt_mgr=ckpt_mgr,
+            checkpoint_every=cfg.checkpoint_every, start_epoch=start_epoch,
+            global_round=global_round, telemetry=telemetry,
+            model_flops_per_round=flops, writer=make_writer(cfg, logdir))
+    finally:
+        if telemetry is not None:
+            telemetry.close()
     print(tsv)
     nll = summary["test_loss"] if summary else float("nan")
     acc = summary["test_acc"] if summary else float("nan")
@@ -243,7 +251,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             "val_batches": log.val_batches,
             "total_download_mib": log.total_download_mib,
             "total_upload_mib": log.total_upload_mib,
-            "tokens_per_round": tokens, "model_flops_per_round": flops}
+            "tokens_per_round": tokens, "model_flops_per_round": flops,
+            "logdir": logdir, "telemetry": telemetry, "log": log}
 
 
 if __name__ == "__main__":

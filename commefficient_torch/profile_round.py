@@ -5,12 +5,12 @@ the same flags describe.
     python -m commefficient_torch.profile_round --num_workers 8 \\
         --local_batch_size 64 --k 50000 --num_rows 5 --num_cols 500000 \\
         --error_type virtual --local_momentum 0 --virtual_momentum 0.9 \\
-        --warmup 2 --profile_rounds 3
+        --warmup 2 --rounds 3
     python -m commefficient_torch.profile_round --model GPT2 \\
         --num_workers 8 --local_batch_size 4 --max_seq_len 1024 \\
         --k 50000 --num_cols 524288 --error_type virtual \\
         --local_momentum 0 --virtual_momentum 0.9 \\
-        --warmup 1 --profile_rounds 2
+        --warmup 1 --rounds 2
 
 Prints the device time by kernel group (the flash-attention kernels,
 the circulant-sketch kernels, convolution and matmul, top-k and sorting,
@@ -102,7 +102,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
               else cv_train)
     p = entry.build_parser()
     p.add_argument("--warmup", type=int, default=2)
-    p.add_argument("--profile_rounds", type=int, default=3)
+    # the profiled rounds after the warm-up (the entry point's own
+    # --profile_rounds is the telemetry's trace window)
+    p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--top", type=int, default=20)
     p.add_argument("--trace", default="")
     ns = parse_known(p, argv)
@@ -136,7 +138,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         state, _ = runtime.round(state, rnd.client_ids, batch_of(rnd, i),
                                  rnd.mask, schedule((i + 1) / spe))
     torch.cuda.synchronize()
-    rounds = [next(it) for _ in range(ns.profile_rounds)]
+    rounds = [next(it) for _ in range(ns.rounds)]
 
     def run_rounds():
         nonlocal state
@@ -157,7 +159,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     span = [(e.time_range.start, e.time_range.end) for e in kernels]
     window_us = max(e for _, e in span) - min(s for s, _ in span)
     busy = _busy_us(span)
-    n = ns.profile_rounds
+    n = ns.rounds
     out = {
         "rounds": n,
         "wall_ms_per_round": wall_us / n / 1e3,

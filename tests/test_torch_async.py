@@ -34,6 +34,13 @@ from commefficient_torch.data import scenarios as tscen  # noqa: E402
 from commefficient_torch.data.fed_sampler import Round  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """The toy and smoke-size models run fastest on one thread, and the

@@ -39,6 +39,14 @@ from commefficient_torch.core.state import FedState  # noqa: E402
 from commefficient_torch.models.resnet9 import ResNet9  # noqa: E402
 from commefficient_torch.utils.schedules import lr_schedule_for  # noqa
 
+
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 LOCAL = dict(mode="local_topk", error_type="local", k=3,
              local_momentum=0.9, lr_scale=0.01)
 TOPK_DOWN = dict(SKETCH, do_topk_down=True, k=2)

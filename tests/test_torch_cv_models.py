@@ -35,6 +35,13 @@ from commefficient_torch.models.resnet18 import FixupResNet18  # noqa: E402
 CIFAR, EMNIST = (32, 32, 3), (28, 28, 1)
 
 
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 def _dataset_shape(name):
     return (EMNIST, 62) if name == "ResNet101LN" else (CIFAR, 10)
 

@@ -22,6 +22,7 @@ packages zip the stages with the layer counts), so d is about 0.3 M.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from test_torch_round import CH  # noqa: E402 (installs the import fix)
@@ -48,6 +49,14 @@ from commefficient_torch.models.fixup_resnet import \
     FixupResNetImageNet  # noqa: E402
 from commefficient_torch.models.resnet9 import FixupResNet9  # noqa: E402
 from commefficient_torch.models.resnets import ResNet, basic_block  # noqa
+
+
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
 
 W, B, NUM_CLIENTS = 2, 4, 6
 SHALLOW = (1, 1)
@@ -194,9 +203,9 @@ def test_cv_train_fixup_rates_reach_the_round(tmp_path, capsys):
     seen = []
     orig = FedRuntime.round
 
-    def round(rt, state, ids, batch, mask, lr):
+    def round(rt, state, ids, batch, mask, lr, **kw):
         seen.append(torch.as_tensor(lr).clone())
-        return orig(rt, state, ids, batch, mask, lr)
+        return orig(rt, state, ids, batch, mask, lr, **kw)
 
     FedRuntime.round = round
     try:

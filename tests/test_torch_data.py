@@ -43,6 +43,14 @@ from commefficient_torch.data.device_store import (  # noqa: E402
 from commefficient_torch.models.convert import params_from_jax  # noqa
 from commefficient_torch.models.resnet9 import ResNet9  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 PER_BATCH = 20
 NAMES = ("CIFAR10", "CIFAR100")
 

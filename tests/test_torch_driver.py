@@ -21,6 +21,14 @@ from commefficient_torch.utils.logging import (TableLogger,  # noqa: E402
                                                TSVLogger, make_logdir)
 from commefficient_torch.utils.schedules import lr_schedule_for  # noqa
 
+
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 EPOCHS = 3
 
 

@@ -45,6 +45,14 @@ from commefficient_torch.losses import make_cv_loss  # noqa: E402
 from commefficient_torch.models.convert import params_from_jax  # noqa
 from commefficient_torch.models.resnet9 import ResNet9  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 DENSE = dict(mode="uncompressed", error_type="virtual", local_momentum=0.0,
              virtual_momentum=0.9, weight_decay=5e-4, num_workers=2,
              local_batch_size=4, compute_dtype="float32")

@@ -45,6 +45,14 @@ from commefficient_torch.models.convert import params_from_jax  # noqa
 from commefficient_torch.utils.schedules import (  # noqa: E402
     make_gpt2_schedule)
 
+
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 

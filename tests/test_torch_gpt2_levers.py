@@ -40,6 +40,14 @@ from commefficient_torch.models.convert import params_from_jax
 from commefficient_torch.ops import flash_attention
 from test_torch_gpt2 import _batch, _torch
 
+
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 POLICIES = ["", "nothing_saveable", "dots_saveable", "checkpoint_dots",
             "dots_with_no_batch_dims_saveable",
             "checkpoint_dots_with_no_batch_dims", "everything_saveable"]

@@ -35,6 +35,14 @@ from commefficient_torch.data.fed_persona import HashTokenizer
 from commefficient_torch.models import gpt2 as tgpt2
 from commefficient_torch.models.convert import params_from_jax
 
+
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 HEADS = {"doubleheads": (jgpt2.GPT2DoubleHeads, tgpt2.GPT2DoubleHeads),
          "lmhead": (jgpt2.GPT2LMHead, tgpt2.GPT2LMHead)}
 

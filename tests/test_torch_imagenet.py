@@ -49,6 +49,14 @@ from commefficient_torch.models.fixup_resnet import (  # noqa: E402
     FixupResNet50, FixupResNetImageNet)
 from commefficient_torch.models.resnet9 import ResNet9  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 SYN = dict(synthetic=True, image_size=32, synthetic_num_classes=4,
            synthetic_per_class=8)
 IMAGENET_D = 25_504_026

@@ -90,8 +90,11 @@ def base_kw(**kw):
 
 
 def port_runtime(**kw):
-    return FedRuntime(FedConfig(**base_kw(**kw)), Toy(init_params()[1]),
-                      t_loss, device="cpu")
+    # the route without telemetry, as ref_runtime builds the reference's:
+    # the default route's parity is tests/test_torch_signals.py's
+    return FedRuntime(FedConfig(**base_kw(**dict({"telemetry": False},
+                                                 **kw))),
+                      Toy(init_params()[1]), t_loss, device="cpu")
 
 
 def ref_runtime(**kw):

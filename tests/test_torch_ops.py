@@ -376,8 +376,8 @@ def test_flags_outside_the_slice_raise_naming_them():
     import argparse
     p = argparse.ArgumentParser()
     tconfig.add_args(p)
-    with pytest.raises(ValueError, match="--logdir"):
-        tconfig.parse_known(p, ["--k", "10", "--logdir", "runs/x"])
+    with pytest.raises(ValueError, match="--compile_cache"):
+        tconfig.parse_known(p, ["--k", "10", "--compile_cache"])
     with pytest.raises(ValueError, match="--mode"):
         tconfig.FedConfig(mode="dense_sketch")
     with pytest.raises(ValueError, match="--mesh_axes"):

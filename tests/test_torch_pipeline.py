@@ -29,6 +29,14 @@ from commefficient_torch.core import driver  # noqa: E402
 from commefficient_torch.core.pipeline import (RoundInput,  # noqa: E402
                                                RoundPipeline)
 
+
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 JOIN_S = 10.0
 MAKE_FETCH = driver.make_fetch
 

@@ -37,6 +37,14 @@ from commefficient_torch import cv_train, faults  # noqa: E402
 from commefficient_torch.core import preempt  # noqa: E402
 from commefficient_torch.core.quarantine import QuarantineLedger  # noqa
 
+
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD_TIMEOUT_S = 120
 
@@ -272,7 +280,9 @@ def test_save_postmortem_full_and_degraded(tmp_path, monkeypatch, capsys):
 
 def _argv(tmp_path, ckpt: str, epochs: int = 2, extra=()):
     """The smoke-size CV run (5 rounds an epoch), checkpointed every
-    epoch under ``tmp_path / ckpt``, its final weights saved there."""
+    epoch under ``tmp_path / ckpt``, its final weights saved there, its
+    telemetry stream in ``tmp_path / ckpt / logs`` (a resumed run appends
+    to it)."""
     return ["--device", "cpu", "--test", "--dataset_dir",
             str(tmp_path / "ds"), "--num_workers", "4",
             "--local_batch_size", "8", "--iid", "--num_clients", "20",
@@ -280,7 +290,7 @@ def _argv(tmp_path, ckpt: str, epochs: int = 2, extra=()):
             "--local_momentum", "0", "--virtual_momentum", "0.9",
             "--num_epochs", str(epochs), "--checkpoint_every", "1",
             "--checkpoint", "--checkpoint_path", str(tmp_path / ckpt),
-            *extra]
+            "--logdir", str(tmp_path / ckpt / "logs"), *extra]
 
 
 def _child(argv, fault=None):

@@ -59,6 +59,14 @@ from commefficient_torch.losses import make_cv_loss  # noqa: E402
 from commefficient_torch.models.convert import params_from_jax  # noqa
 from commefficient_torch.models.resnet9 import ResNet9  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 NAN, INF = float("nan"), float("inf")
 
 
@@ -520,6 +528,8 @@ def test_fused_encode_on_refused_with_a_robust_flag():
     for kw in (dict(defense="normclip"), dict(defense="trim"),
                dict(adversary="signflip", adversary_frac=0.25),
                dict(nonfinite_action="quarantine")):
+        # the default round: telemetry on, its per-client statistics
+        kw = dict(kw, telemetry=True)
         with pytest.raises(ValueError, match="fused sketch encode"):
             port_runtime(**SKETCH, sketch_fused_encode="on", **kw)
         rt = port_runtime(**SKETCH, **kw)

@@ -35,6 +35,14 @@ from commefficient_torch.models.convert import params_from_jax  # noqa
 from commefficient_torch.models.resnet9 import ResNet9  # noqa: E402
 from commefficient_torch.ops.circulant import make_circulant_sketch  # noqa
 
+
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 CH = {"prep": 8, "layer1": 16, "layer2": 16, "layer3": 32}
 SLICE = dict(mode="sketch", error_type="virtual", local_momentum=0.0,
              virtual_momentum=0.9, weight_decay=5e-4)

@@ -284,7 +284,10 @@ def test_stream_mlp_round_matches_reference(J, case):
                      tree, J.stream.make_stream_mlp_loss(tree),
                      num_clients=4)
     loss_fn = make_stream_mlp_loss(model)
-    trt = FedRuntime(FedConfig(**kw), model, loss_fn, device="cpu")
+    # the reference's route without telemetry: its per-client gradient
+    # statistics would take the table clip off the streaming encode
+    trt = FedRuntime(FedConfig(**kw, telemetry=False), model, loss_fn,
+                     device="cpu")
     counting = CountingSketch(trt.cs)
     trt.cs = counting
     js, ts = jrt.init_state(), trt.init_state()

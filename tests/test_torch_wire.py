@@ -41,6 +41,13 @@ from commefficient_torch.ops import sketch as tsketch  # noqa: E402
 from commefficient_torch.ops import wire as twire  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def _runs_under_tmp(tmp_path, monkeypatch):
+    """The entry points' default run directory (``runs/<stamp>_...``, the
+    telemetry stream) lands under the test's tmp dir, not the checkout."""
+    monkeypatch.chdir(tmp_path)
+
+
 def _bits(x) -> np.ndarray:
     a = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
     return a.view(np.int32) if a.dtype == np.float32 else a
@@ -229,8 +236,9 @@ def test_wire_refusals_from_one_argv(name):
 
 def test_wire_flags_parse_in_both_entry_points():
     """The four flags are the port's now (the GPT-2 entry point too); the
-    JAX package's parser holds 27 flags that neither port parser takes
-    (56 before the wire's four, 52 before the runtime services' 25)."""
+    JAX package's parser holds 11 flags that neither port parser takes
+    (56 before the wire's four, 52 before the runtime services' 25, 27
+    before the telemetry's 16): the XLA-only seven and A9's four."""
     def flags(parser):
         return {o for a in parser._actions for o in a.option_strings
                 if o.startswith("--")}
@@ -242,7 +250,7 @@ def test_wire_flags_parse_in_both_entry_points():
             "--sketch_scan_rows"}
     assert wire <= flags(cv_train.build_parser())
     assert wire <= flags(gpt2_train.build_parser())
-    assert len(flags(jp) - ours) == 27
+    assert len(flags(jp) - ours) == 11
     with pytest.raises(ValueError, match="--mesh_axes"):
         tconfig.parse_known(cv_train.build_parser(), ["--mesh_axes", "x"])
 
