@@ -39,7 +39,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    also give the whole-vector call's bits), the weight-sized (4,194,304)
    and bias-sized (2,048) ranges timed beside their bounds;
 3. hold K3 (causal flash attention: forward, dq, dk/dv) against its plain
-   versions at (N, H, S, D) = (8, 12, 1024, 64) and (8, 12, 256, 64), q,
+   versions at (N, S, H, D) = (8, 1024, 12, 64), (8, 256, 12, 64), (8,
+   2048, 12, 64), (4, 4096, 12, 64), (16, 256, 12, 64) and (16, 1024,
+   12, 64) (``FLASH_SHAPES``: the main path's and the bench paths'), q,
    k, v the slices of one c_attn-shaped buffer, each output row against
    its own norm (FLASH_ROW_RTOL), and show that this check rejects a
    planted fault in each kernel (one tile of its walk skipped), and that
@@ -251,7 +253,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    writes its stream under the run's data root (``entry_main``,
    ``--logdir``). ``python3 chip_smoke.py --telemetry`` runs the build
    and this phase alone (no result line);
-15. print the ``{"kernels": [...]}`` line (K1's range launches and
+15. the benchmark entry points (``phase_bench``): ``python -m
+   commefficient_torch.bench.bench --telemetry_dir D`` in a subprocess
+   (rc 0, bench.py's keys at each depth, no ``error``, value > 0 and mfu
+   in (0, 1] in the headline, the saturated point and GPT-2, the bytes a
+   round exact, the stream's three ``bench`` and ``utilization`` events
+   and its summary); then in process, every count set to 0 just before
+   and each round between two syncs: ``run_cifar`` on the float32 and
+   int8 wires (9 K1 + 1 K2 in every warmup and timed round),
+   ``round_shape_grid`` at its 9 cells (W + 1 K1 a round),
+   ``gpt2_mfu_sweep`` with SWEEP_ARMS (SWEEP_K1 + 1 K2 a round; the
+   ``overlap`` line names ROADMAP A9), ``ledger_ab`` at full width,
+   ``bench_imagenet`` in both layouts, ``bench_gpt2_model`` and
+   ``bench_longctx`` (exact K3 launches a step); at each shape these two
+   give K3, the first-step loss and c_attn gradient with K3 against
+   dense attention, and with a planted fault in each K3 kernel, which
+   must fail (BENCH_ATTN_LIMITS); one ``[bench]`` line with the card's
+   name and power limit. K1/K2 at the GPT-2 bench's full vocabulary
+   (d = 124,444,416, m = 238) run in phase 2 and K3 at the bench paths'
+   shapes in phase 3. ``python3 chip_smoke.py --bench`` runs the build, those
+   kernel checks and this phase alone (no result line);
+16. print the ``{"kernels": [...]}`` line (K1's range launches and
    range timings in its entry), the card's name and power limit, and last
    the ``{"ok": true, ...}`` line.
 
@@ -259,6 +281,7 @@ It imports nothing of JAX and nothing of the JAX package. Without a CUDA
 device it fails at once.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -379,7 +402,14 @@ RHT_ROUND_TRIP_ATOL = 1e-5
 # of it (the gradient's own run-to-run spread on the card is far below)
 NOISE_STD_RTOL = 1e-2
 NOISE_REPEAT_RTOL = 1e-3
-FLASH_SHAPES = ((8, 1024, 12, 64), (8, 256, 12, 64))   # (N, S, H, D)
+# (N, S, H, D): the main path's shape, S = 256, and the bench paths'
+# shapes: the long-context bench's two longest (bench_longctx: 16,384
+# tokens a step), the bare-model bench's (a microbatch of 8 dialogues x 2
+# candidates) and the long-context bench's at S = 1024. N sets the work
+# list of K3's persistent grid: at (16, 256) its last round on the 132
+# CTAs is a partial one at an even r, which no other shape gives
+FLASH_SHAPES = ((8, 1024, 12, 64), (8, 256, 12, 64), (8, 2048, 12, 64),
+                (4, 4096, 12, 64), (16, 256, 12, 64), (16, 1024, 12, 64))
 # a planted fault skips this many keys or queries: finer than the
 # 128-wide tiles of every K3 kernel
 FLASH_TILE = 64
@@ -769,6 +799,49 @@ def attention_skipping(q, k, v, drop, do=None, lse=None, delta=None):
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+@contextlib.contextmanager
+def planted_k3(fault, S: int, device):
+    """While open, the K3 kernel named ``fault`` (None: none) is replaced
+    by plain attention that skips one tile of its walk
+    (``planted_drops``); the autograd function and every caller reach the
+    replacement."""
+    from commefficient_torch.ops import flash_attention as FA
+    saved = FA.forward, FA.backward_dq, FA.backward_dkv
+    if fault is not None:
+        drop = planted_drops(S, device)[fault]
+    if fault == "flash_fwd":
+        FA.forward = lambda q, k, v: attention_skipping(q, k, v, drop)
+    elif fault == "flash_bwd_dq":
+        FA.backward_dq = lambda q, k, v, o, lse, do: (
+            attention_skipping(q, k, v, drop, do, lse,
+                               plain_delta(o, do))[0],
+            plain_delta(o, do))
+    elif fault == "flash_bwd_dkv":
+        FA.backward_dkv = lambda q, k, v, do, lse, delta: \
+            attention_skipping(q, k, v, drop, do, lse, delta)[1:]
+    try:
+        yield
+    finally:
+        FA.forward, FA.backward_dq, FA.backward_dkv = saved
+
+
+def qkv_blocks(model, g) -> dict:
+    """Each layer's q, k and v column blocks of the c_attn kernel's
+    gradient in the flat gradient ``g`` (what dq, dk and dv feed), as
+    float32 copies."""
+    c = model.views(g)["transformer/h/block/c_attn/kernel"]
+    E = c.shape[1]
+    return {f"layer {i} {name}": c[i, :, j * E:(j + 1) * E].float().clone()
+            for i in range(c.shape[0]) for j, name in enumerate("qkv")}
+
+
+def worst_block_error(got: dict, ref: dict) -> float:
+    """The largest relative L2 error of a block of ``got`` against
+    ``ref``."""
+    return max(float((got[key].float() - r.float()).norm() / r.float().norm())
+               for key, r in ref.items())
+
+
 def same_bits(a, b) -> bool:
     """Bitwise equality of two float32 tensors (int32 views: -0 differs
     from +0), NaN counted by position only: the card's float units return
@@ -1033,16 +1106,18 @@ def flash_autograd_check():
         fail("the K3 autograd function's gradients differ from the kernels'")
 
 
-def phase_flash():
-    """K3 against its plain versions at the main path's shape and at
-    S = 256, and timings of kernels, plain versions and SDPA."""
+def phase_flash(shapes=FLASH_SHAPES):
+    """K3 against its plain versions at each of ``shapes`` (the main
+    path's first), and timings of kernels, plain versions and SDPA at
+    each; the kernel line's entries are the first shape's, the others
+    under ``at_shapes``."""
     import torch
     import torch.nn.functional as F
     from commefficient_torch.ops import flash_attention as FA
 
     flash_autograd_check()
-    out = {}
-    for N, S, H, D in FLASH_SHAPES:
+    per_shape = {}
+    for N, S, H, D in shapes:
         q, k, v, do = flash_inputs(N, S, H, D)
         o, lse = FA.forward(q, k, v)
         dq, delta = FA.backward_dq(q, k, v, o, lse, do)
@@ -1110,8 +1185,6 @@ def phase_flash():
         if not same:
             fail(f"a K3 kernel is not deterministic at S={S}")
         del o2, lse2, dq2, delta2, dk2, dv2
-        if S != FLASH_SHAPES[0][1]:
-            continue
         del o_ref, refs
         ms = {"flash_fwd": time_ms(lambda: FA.forward(q, k, v)),
               "flash_bwd_dq": time_ms(
@@ -1152,18 +1225,26 @@ def phase_flash():
                    "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
         err = {"flash_fwd": abs_errs["o"], "flash_bwd_dq": abs_errs["dq"],
                "flash_bwd_dkv": max(abs_errs["dk"], abs_errs["dv"])}
+        shape = (N, S, H, D)
+        per_shape[shape] = {}
         for name, (nbytes, flops) in flash_bounds(N, S, H, D).items():
             b_ms, b_kind = bound(nbytes, flops, H100_BF16_PER_S)
-            print(f"[flash] {name}: {nbytes / 1e6:.1f} MB, "
+            print(f"[flash] {shape} {name}: {nbytes / 1e6:.1f} MB, "
                   f"{flops / 1e9:.2f} GFLOP -> bound {b_ms * 1e3:.2f} us "
                   f"({b_kind}); kernel {ms[name] * 1e3:.2f} us = "
                   f"{flops / ms[name] / 1e9:.1f} TFLOP/s")
-            out[name] = {"max_abs_err": err[name], "ms": ms[name],
-                         "kernel_ms": ms[name], "plain_ms": plain[name],
-                         "bound_ms": b_ms, "bound_by": bound_by(b_kind),
-                         "library_ms": library[name],
-                         "max_row_err": row_err[name]}
-    return out
+            per_shape[shape][name] = {
+                "max_abs_err": err[name], "ms": ms[name],
+                "kernel_ms": ms[name], "plain_ms": plain[name],
+                "bound_ms": b_ms, "bound_by": bound_by(b_kind),
+                "library_ms": library[name], "max_row_err": row_err[name]}
+        del q, k, v, do, o, lse, dq, delta, dk, dv, qt, kt, vt, o_s
+        torch.cuda.empty_cache()
+    main = shapes[0]
+    return {name: {**entry, "at_shapes": {
+        "x".join(map(str, shape)): per_shape[shape][name]
+        for shape in shapes[1:]}}
+        for name, entry in per_shape[main].items()}
 
 
 def phase_small_reference():
@@ -1261,25 +1342,11 @@ def phase_gpt2_reference():
     rng = np.random.RandomState(0)
     batches = [narrow_gpt2_batch(rng, W, B, C, S, gcfg.vocab_size)
                for _ in range(3)]
-    E = gcfg.n_embd
 
     def run(device, fault=None):
         """(c_attn gradient blocks, (3, W) losses, update, K3 launches of
         the rounds) with ``fault`` planted in that K3 kernel."""
-        saved = FA.forward, FA.backward_dq, FA.backward_dkv
-        if fault is not None:
-            drop = planted_drops(S, device)[fault]
-        if fault == "flash_fwd":
-            FA.forward = lambda q, k, v: attention_skipping(q, k, v, drop)
-        elif fault == "flash_bwd_dq":
-            FA.backward_dq = lambda q, k, v, o, lse, do: (
-                attention_skipping(q, k, v, drop, do, lse,
-                                   plain_delta(o, do))[0],
-                plain_delta(o, do))
-        elif fault == "flash_bwd_dkv":
-            FA.backward_dkv = lambda q, k, v, do, lse, delta: \
-                attention_skipping(q, k, v, drop, do, lse, delta)[1:]
-        try:
+        with planted_k3(fault, S, device):
             model = GPT2DoubleHeads(gcfg, attn_impl="flash",
                                     generator=torch.Generator().manual_seed(0))
             loss_fn = make_gpt2_train_loss(model)
@@ -1291,10 +1358,7 @@ def phase_gpt2_reference():
                                   rt.to_device(batches[0]).items()},
                               torch.ones(B, dtype=torch.bool, device=device))
             (g,) = torch.autograd.grad(loss, w)
-            g = model.views(g)["transformer/h/block/c_attn/kernel"]
-            blocks = {f"layer {i} {name}": g[i, :, j * E:(j + 1) * E].cpu()
-                      for i in range(gcfg.n_layer)
-                      for j, name in enumerate("qkv")}
+            blocks = {key: b.cpu() for key, b in qkv_blocks(model, g).items()}
             FA.reset_launches()
             losses = []
             for rnd, batch in enumerate(batches):
@@ -1303,15 +1367,12 @@ def phase_gpt2_reference():
                 losses.append(met["results"][0].cpu().numpy())
             return (blocks, np.stack(losses),
                     (st.ps_weights - w0).cpu().numpy(), dict(FA.launches))
-        finally:
-            FA.forward, FA.backward_dq, FA.backward_dkv = saved
 
     g_cpu, l_cpu, u_cpu, n_cpu = run("cpu")
 
     def readings(result):
         g, l, u, _ = result
-        grad = max(float((g[key].float() - ref.float()).norm()
-                         / ref.float().norm()) for key, ref in g_cpu.items())
+        grad = worst_block_error(g, g_cpu)
         cos = float(u @ u_cpu / (np.linalg.norm(u) * np.linalg.norm(u_cpu)))
         dloss = float(np.abs(l / l_cpu - 1).max())
         return {"grad": grad, "dloss": dloss, "cos": cos}
@@ -3069,24 +3130,6 @@ FINETUNE_COMMON = ["--model", "FixupResNet50", "--mode", "uncompressed",
 COMPAT_STEPS = 2
 
 
-def imagenet_round_flops() -> float:
-    """Model FLOPs of one ImageNet round: the forward and backward of
-    FixupResNet50 at 224 x 224 (convolutions and matrix products, counted
-    by ``FlopCounterMode`` from the shapes on the ``meta`` device) times
-    IMAGENET_IMAGES."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-    from commefficient_torch.models.fixup_resnet import FixupResNet50
-
-    m = FixupResNet50(num_classes=1000, input_shape=(224, 224, 3),
-                      device="meta")
-    flat = torch.zeros(m.num_params, device="meta", requires_grad=True)
-    with FlopCounterMode(display=False) as counter:
-        m(torch.zeros(1, 224, 224, 3, device="meta"), flat,
-          dtype=torch.bfloat16).float().sum().backward()
-    return counter.get_total_flops() * IMAGENET_IMAGES
-
-
 def imagenet_argv(root: str, per_class: int, extra=()):
     return IMAGENET_ARGV + [
         "--dataset_dir", root, "--synthetic_per_class", str(per_class),
@@ -3106,6 +3149,7 @@ def phase_imagenet():
     import numpy as np
     import torch
     from commefficient_torch import cv_train, profile_round
+    from commefficient_torch.bench.bench_imagenet import imagenet_flops
     from commefficient_torch.data.fed_imagenet import FedImageNet
     from commefficient_torch.ops import circulant_kernels as K
 
@@ -3114,7 +3158,7 @@ def phase_imagenet():
     root = os.path.join(DATA_ROOT["path"], "imagenet_store")
     FedImageNet(root, synthetic=True,
                 synthetic_per_class=IMAGENET_STORE_PER_CLASS)
-    flops = imagenet_round_flops()
+    flops = imagenet_flops(IMAGENET_IMAGES)
     launches, medians = {}, {}
     for mode, (flags, per_round) in IMAGENET_MODES.items():
         argv = imagenet_argv(root, IMAGENET_STORE_PER_CLASS, flags)
@@ -4561,6 +4605,493 @@ def phase_telemetry():
     return medians, peaks
 
 
+# the benchmark entry points (commefficient_torch/bench/): phase_bench
+GPT2_BENCH_SKETCH = dict(d=124_444_416, c=524_288, r=5)
+# the keys of bench.py's line (bench.py:120-176 and 225-293) and of its
+# nested GPT-2 stage (bench_gpt2.py:269-298), key for key
+BENCH_CIFAR_KEYS = {"metric", "value", "unit", "vs_baseline", "mfu",
+                    "timed_rounds", "wire_dtype", "wire_bytes_per_round",
+                    "warmup_s", "phase_split", "input_wait_frac",
+                    "roofline"}
+BENCH_KEYS = {"headline": BENCH_CIFAR_KEYS | {"cifar_saturated", "gpt2"},
+              "cifar_saturated": BENCH_CIFAR_KEYS | {"round_images"},
+              "gpt2": {"metric", "value", "unit", "vs_baseline", "mfu",
+                       "tokens_per_round", "timed_rounds", "wire_dtype",
+                       "wire_bytes_per_round", "warmup_s", "phase_split",
+                       "input_wait_frac", "roofline", "memory_ledger",
+                       "memory_ledger_decode", "dryrun", "config"}}
+# each stage's upload a round on the float32 wire, W x 4 r c (the CIFAR
+# table sized 500,000 -> 500,736), and the headline's on the int8 wire
+# (a byte a cell and a float32 scale every 256 columns of a row)
+BENCH_WIRE_BYTES = {"headline": 8 * 4 * 5 * 500_736,
+                    "cifar_saturated": 32 * 4 * 5 * 500_736,
+                    "gpt2": 8 * 4 * 5 * 524_288}
+BENCH_INT8_BYTES = 8 * (5 * 500_736 + 4 * 5 * 1956)
+BENCH_TIMEOUT_S = 600
+# timed rounds of each in-process bench run (the launch counts), chained
+# steps of the bare-model and long-context arms
+BENCH_ROUNDS = 2
+BENCH_STEPS = 2
+# the GPT-2 bench's K1 a round: 8 clients x their microbatches (weight
+# decay 0: no decay encode, core/client.py make_fused_grad); unfused: the
+# clients' dense sum encoded once
+SWEEP_ARMS = ("base", "unfused_encode", "mb4", "chunk256", "overlap")
+SWEEP_K1 = {"base": 8, "unfused_encode": 1, "mb4": 16, "chunk256": 8}
+# the bench paths that launch K3, flash against dense attention from the
+# same weights and tokens (the bare model step: one client's microbatch,
+# (16, 256); the long-context step at S = 1024, 2048, 4096): the relative
+# difference of the first-step loss, and the largest relative L2 error
+# of a layer's q, k or v block of the c_attn gradient. The two round the
+# probabilities to bf16 in different places. Read on an H100 (NVIDIA
+# H100 80GB HBM3, 700 W): the loss 1.4e-6 to 8.2e-6 (the bare-model
+# bench's mean over 8 clients 1.6e-5), the gradient 2.8e-2 to 4.4e-2; with
+# a planted fault in a K3 kernel the gradient 0.13 (dk/dv at S = 4096)
+# to 3.7. A planted forward fault moves the loss 3.5e-3 at S = 256 but
+# only 1.4e-5 to 2.6e-5 at S >= 1024, inside the loss limit, and a
+# backward fault not at all: there the gradient rejects it
+BENCH_ATTN_LIMITS = {"loss": 1e-4, "grad": 0.08}
+K3_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+class SyncedRounds:
+    """While installed, every ``FedRuntime.round`` and ``.cohort`` call
+    runs between two ``torch.cuda.synchronize()`` calls; ``calls`` keeps
+    each call's kind, kernel launches (the counts read before and after
+    it) and seconds."""
+
+    def __init__(self, counts):
+        from commefficient_torch.core.runtime import FedRuntime
+        self.cls, self.counts = FedRuntime, counts
+        self.orig = {"round": FedRuntime.round, "cohort": FedRuntime.cohort}
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        def wrap(kind, orig):
+            def wrapped(*args, **kw):
+                torch.cuda.synchronize()
+                before, t0 = self.counts(), time.perf_counter()
+                out = orig(*args, **kw)
+                torch.cuda.synchronize()
+                dt, after = time.perf_counter() - t0, self.counts()
+                self.calls.append((kind, {n: after[n] - before[n]
+                                          for n in after}, dt))
+                return out
+            return wrapped
+
+        for kind, orig in self.orig.items():
+            setattr(self.cls, kind, wrap(kind, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for kind, orig in self.orig.items():
+            setattr(self.cls, kind, orig)
+
+    def median_ms(self, skip: int = 0) -> float:
+        return 1e3 * statistics.median(dt for _, _, dt in self.calls[skip:])
+
+
+def launches_of(k1: int = 0, k2: int = 0, k3=(0, 0, 0)) -> dict:
+    return {"circ_encode": k1, "circ_decode": k2,
+            **dict(zip(K3_NAMES, k3))}
+
+
+def check_calls(tag: str, calls, want) -> None:
+    """``calls`` (kind, launches, s) against ``want`` (kind, launches),
+    call by call."""
+    got = [(kind, launches) for kind, launches, _ in calls]
+    if got != list(want):
+        bad = [(i, g, w) for i, (g, w) in enumerate(zip(got, want))
+               if g != w]
+        fail(f"{tag}: {len(got)} calls, want {len(want)}; first "
+             f"differences (call, got, want): {bad[:3]}")
+
+
+def errors_in(obj, path="") -> list:
+    """The paths of every ``error`` key in a JSON value."""
+    if isinstance(obj, dict):
+        return ([path + "/error"] if "error" in obj else []) + [
+            p for k, v in obj.items() for p in errors_in(v, f"{path}/{k}")]
+    if isinstance(obj, list):
+        return [p for i, v in enumerate(obj)
+                for p in errors_in(v, f"{path}/{i}")]
+    return []
+
+
+def bench_as_a_user() -> dict:
+    """``python -m commefficient_torch.bench.bench --telemetry_dir D`` in
+    a subprocess: rc 0, the last line parses with bench.py's keys at each
+    depth, no ``error`` anywhere, each stage's value > 0, mfu in (0, 1]
+    and upload bytes exact, the GPT-2 stage's measured ledger; the stream
+    validates and holds three bench and utilization events and a
+    summary. Returns the line."""
+    tdir = os.path.join(DATA_ROOT["path"], "bench_telemetry")
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "commefficient_torch.bench.bench",
+            "--telemetry_dir", tdir]
+    print("[bench] " + " ".join(argv[1:]), flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=root, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"bench: rc {proc.returncode}; stderr tail:\n"
+             f"{proc.stderr[-4000:]}")
+    line = json.loads(lines[-1])
+    stages = {"headline": line, "cifar_saturated": line["cifar_saturated"],
+              "gpt2": line["gpt2"]}
+    errs = errors_in(line)
+    if errs:
+        fail(f"bench: errors at {errs}: {line}")
+    for name, stage in stages.items():
+        if set(stage) != BENCH_KEYS[name]:
+            fail(f"bench {name}: keys {sorted(stage)}, want "
+                 f"{sorted(BENCH_KEYS[name])}")
+        mfu = stage["mfu"]
+        if not stage["value"] > 0 or mfu is None or not 0 < mfu <= 1:
+            fail(f"bench {name}: value {stage['value']}, mfu {mfu}")
+        if stage["wire_bytes_per_round"] != BENCH_WIRE_BYTES[name]:
+            fail(f"bench {name}: {stage['wire_bytes_per_round']} bytes a "
+                 f"round on the wire, want {BENCH_WIRE_BYTES[name]}")
+    if stages["cifar_saturated"]["round_images"] != 32 * 512:
+        fail(f"bench: saturated round of {line['cifar_saturated']}")
+    ledger = stages["gpt2"]["memory_ledger"] or {}
+    if not (ledger.get("temp_bytes") or 0) > 0:
+        fail(f"bench gpt2: memory ledger {ledger}")
+    events = read_stream(tdir, "bench")
+    kinds = kinds_of(events)
+    if kinds.get("bench") != 3 or kinds.get("utilization") != 3 or \
+            events[-1]["event"] != "summary":
+        fail(f"bench stream: {kinds}, last {events[-1]['event']}")
+    print(f"[bench] the entry point took {wall:.1f} s; its stream holds "
+          f"{kinds}; its line: {json.dumps(line)}", flush=True)
+    return line
+
+
+def bench_attention_check(model_arms, long_arms):
+    """The bench paths' attention against dense attention
+    (BENCH_ATTN_LIMITS): each flash arm's first loss in the benches'
+    records against the dense arm's; then, at each shape that a bench
+    path gives K3, the first-step loss and c_attn gradient blocks
+    recomputed with dense attention, with K3, and with a planted fault in
+    each K3 kernel (``planted_k3``), which the check must reject."""
+    import torch
+    from commefficient_torch.bench import (bench_gpt2, bench_gpt2_model,
+                                           bench_longctx)
+    from commefficient_torch.core.client import make_forward_grad
+    from commefficient_torch.losses import make_gpt2_train_loss
+    from commefficient_torch.models.gpt2 import (GPT2Config,
+                                                 GPT2DoubleHeads, GPT2LMHead)
+
+    lim = BENCH_ATTN_LIMITS
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    dense = {a["remat"]: a for a in model_arms if a["attn"] == "dense"
+             and "error" not in a}
+    pairs = [(f"bench_gpt2_model {a['arm']}", a["first_loss"],
+              dense.get(a["remat"], dense[True])["first_loss"])
+             for a in model_arms if a["attn"] == "flash"]
+    pairs += [(f"bench_longctx S={d['S']}", f["first_loss"], d["first_loss"])
+              for d, f in zip(long_arms[::2], long_arms[1::2])]
+    for tag, flash, ref in pairs:
+        print(f"[bench] {tag}: first-step loss flash {flash:.6f}, dense "
+              f"{ref:.6f} (relative {rel(flash, ref):.2e}, limit "
+              f"{lim['loss']})", flush=True)
+        if not rel(flash, ref) <= lim["loss"]:
+            fail(f"{tag}: flash first loss {flash} against dense {ref}")
+
+    def bare_model():
+        W, B, NC, S = bench_gpt2_model.SHAPE
+        gcfg = GPT2Config(remat=True)
+        cfg = bench_gpt2_model.model_step_config(W, B)
+        batch = {k: v[0] for k, v in bench_gpt2.random_batch(
+            gcfg, bench_gpt2_model.SHAPE, "cuda").items()}
+        mask = torch.ones(B, dtype=torch.bool, device="cuda")
+
+        def loss_and_grad(attn):
+            model = bench_gpt2.seeded_gpt2(GPT2DoubleHeads, gcfg, attn,
+                                           "cuda")
+            fwd = make_forward_grad(cfg, make_gpt2_train_loss(
+                model, lm_chunk=cfg.lm_chunk), B)
+            g, res, _ = fwd(model.flat.detach(), batch, mask)
+            return float(res[0]), qkv_blocks(model, g)
+
+        return f"bench_gpt2_model (N, S) = ({B * NC}, {S})", S, loss_and_grad
+
+    def long_context(S):
+        B = bench_longctx.TOKENS // S
+        gcfg = GPT2Config(n_positions=S, remat=True)
+        ids, labels = bench_longctx.lm_batch(gcfg, B, S, "cuda")
+
+        def loss_and_grad(attn):
+            model = bench_gpt2.seeded_gpt2(GPT2LMHead, gcfg, attn, "cuda")
+            w = model.flat.detach().requires_grad_(True)
+            loss = bench_longctx.lm_loss(model, ids, labels)(w)
+            (g,) = torch.autograd.grad(loss, w)
+            return float(loss), qkv_blocks(model, g)
+
+        return f"bench_longctx (N, S) = ({B}, {S})", S, loss_and_grad
+
+    def passes(r):
+        return r["loss"] <= lim["loss"] and r["grad"] <= lim["grad"]
+
+    for tag, S, loss_and_grad in [bare_model()] + [
+            long_context(S) for S in bench_longctx.SEQS]:
+        loss_d, g_d = loss_and_grad("dense")
+
+        def reading(fault=None):
+            with planted_k3(fault, S, "cuda"):
+                loss, g = loss_and_grad("flash")
+            return {"loss": rel(loss, loss_d),
+                    "grad": worst_block_error(g, g_d)}
+
+        sound = reading()
+        planted = {fault: reading(fault) for fault in K3_NAMES}
+        torch.cuda.empty_cache()
+        print(f"[bench] {tag}, flash against dense: loss {sound['loss']:.2e}"
+              f", c_attn q/k/v gradient {sound['grad']:.3e} (limits {lim})"
+              "; with a planted fault: "
+              + ", ".join(f"{f} loss {r['loss']:.2e} gradient "
+                          f"{r['grad']:.3e}" for f, r in planted.items()),
+              flush=True)
+        if not passes(sound):
+            fail(f"{tag}: flash disagrees with dense attention: {sound}")
+        caught = [f for f, r in planted.items() if passes(r)]
+        if caught:
+            fail(f"{tag}: the check passed planted faults in {caught}")
+
+
+def phase_bench():
+    """The benchmark entry points on the card (``commefficient_torch/
+    bench/``):
+
+    - ``bench`` as a user runs it (``bench_as_a_user``);
+    - in process, every count set to 0 just before and read just after,
+      each round between two syncs (``SyncedRounds``): ``run_cifar`` on
+      the float32 and on the int8 wire (W + 1 K1 and 1 K2 in every warmup
+      and timed round, the bytes exact); ``round_shape_grid`` at its 9
+      cells (W + 1 K1 a round at W = 8, 16, 32); ``gpt2_mfu_sweep`` with
+      SWEEP_ARMS (``bench_gpt2.run`` in each arm but ``overlap``, whose
+      line names ROADMAP A9: SWEEP_K1 and 1 K2 a round); ``ledger_ab``
+      at full width (the cohort: 8 K1 fused, 1 unfused, no K2; both
+      ledgers measured); ``bench_imagenet`` in both layouts (no K1/K2);
+      ``bench_gpt2_model`` (K3 at (16, 256, 12, 64): 12 layers x 8
+      clients a step, the forward twice under remat; its no-remat dense
+      arm runs or records its error); ``bench_longctx`` (K3 at S = 1024,
+      2048, 4096: 24 forwards, 12 dq, 12 dk/dv a flash step); then
+      ``bench_attention_check`` (flash against dense at each of these
+      shapes, with planted faults).
+    Prints the [bench] line; returns the launches by path."""
+    from commefficient_torch import gpt2_train
+    from commefficient_torch.bench import (bench, bench_gpt2,
+                                           bench_gpt2_model, bench_imagenet,
+                                           bench_longctx, gpt2_mfu_sweep,
+                                           round_shape_grid)
+    from commefficient_torch.ops import circulant_kernels as K
+    from commefficient_torch.ops import flash_attention as FA
+
+    counts = gpt2_train.kernel_launches
+    launches = {}
+
+    def zero():
+        K.reset_launches()
+        FA.reset_launches()
+
+    line = bench_as_a_user()
+    R = BENCH_ROUNDS
+
+    # run_cifar on both wires: 2 warmup + R timed rounds
+    cifar_ms = {}
+    for wire in ("float32", "int8"):
+        res = {"metric": "cifar10_sketch_round_throughput"}
+        zero()
+        with SyncedRounds(counts) as rec:
+            bench.run_cifar(res, n_rounds=R, wire_dtype=wire)
+        check_calls(f"run_cifar {wire}", rec.calls,
+                    [("round", launches_of(9, 1))] * (2 + R))
+        want = BENCH_INT8_BYTES if wire == "int8" else \
+            BENCH_WIRE_BYTES["headline"]
+        if res["wire_bytes_per_round"] != want:
+            fail(f"run_cifar {wire}: {res['wire_bytes_per_round']} bytes, "
+                 f"want {want}")
+        launches[f"bench run_cifar W=8 {wire}"] = counts()
+        cifar_ms[wire] = rec.median_ms(skip=2)
+
+    # the round-shape grid: 9 cells of 2 warmup + R rounds
+    zero()
+    with SyncedRounds(counts) as rec:
+        grid = round_shape_grid.main(["--rounds", str(R)])
+    cells = [(W, B) for W in round_shape_grid.GRID_W
+             for B in round_shape_grid.GRID_B]
+    check_calls("round_shape_grid", rec.calls,
+                [("round", launches_of(W + 1, 1))
+                 for W, _ in cells for _ in range(2 + R)])
+    if [(r["W"], r["B"]) for r in grid["rows"]] != cells or any(
+            "error" in r or r["mfu"] is None or not 0 < r["mfu"] <= 1
+            for r in grid["rows"]):
+        fail(f"round_shape_grid: {grid}")
+    launches["bench round_shape_grid"] = counts()
+    per_cell = 2 + R
+    sat_ms = 1e3 * statistics.median(
+        dt for _, _, dt in rec.calls[-per_cell:][2:])
+
+    # the sweep: each arm 1 warmup + R timed rounds + the ledger's round
+    out = os.path.join(DATA_ROOT["path"], "gpt2_mfu_sweep.jsonl")
+    zero()
+    with SyncedRounds(counts) as rec:
+        rc = gpt2_mfu_sweep.main(["--arms", ",".join(SWEEP_ARMS),
+                                  "--rounds", str(R), "--out", out])
+    with open(out) as f:
+        arms = {r["arm"]: r for r in map(json.loads, f)}
+    if rc != 0 or list(arms) != list(SWEEP_ARMS) or \
+            "ROADMAP A9" not in arms["overlap"].get("error", ""):
+        fail(f"gpt2_mfu_sweep: rc {rc}, lines {arms}")
+    check_calls("gpt2_mfu_sweep", rec.calls,
+                [("round", launches_of(SWEEP_K1[a], 1))
+                 for a in SWEEP_ARMS if a in SWEEP_K1
+                 for _ in range(R + 2)])
+    for a in SWEEP_K1:
+        res = arms[a].get("result") or {}
+        if "error" in arms[a] or not res.get("value", 0) > 0 or \
+                not 0 < (res.get("mfu") or 0) <= 1 or \
+                not ((res.get("memory_ledger") or {}).get("temp_bytes")
+                     or 0) > 0:
+            fail(f"gpt2_mfu_sweep {a}: {arms[a]}")
+    launches["bench gpt2_mfu_sweep (bench_gpt2.run arms)"] = counts()
+    gpt2_ms = 1e3 * statistics.median(dt for _, _, dt in
+                                      rec.calls[1:R + 1])
+
+    # ledger_ab at full width: two cohort calls an arm
+    zero()
+    with SyncedRounds(counts) as rec:
+        ab = bench_gpt2.ledger_ab()
+    check_calls("ledger_ab", rec.calls,
+                [("cohort", launches_of(8))] * 2
+                + [("cohort", launches_of(1))] * 2)
+    temps = {fe: (led or {}).get("temp_bytes")
+             for fe, led in ab["arms"].items()}
+    if ab["d"] != GPT2_BENCH_SKETCH["d"] or not all(
+            t and t > 0 for t in temps.values()):
+        fail(f"ledger_ab: {ab}")
+    launches["bench ledger_ab (cohorts)"] = counts()
+
+    # ImageNet in both layouts: uncompressed, no K1/K2
+    imagenet = {}
+    for layout in ("uint8_device", "float_host"):
+        zero()
+        res = bench_imagenet.main(["--layout", layout, "--rounds", str(R)])
+        if counts() != launches_of() or not res["value"] > 0 or \
+                not 0 < (res["mfu"] or 0) <= 1 or res["round_images"] != 448:
+            fail(f"bench_imagenet {layout}: {res}, launches {counts()}")
+        imagenet[layout] = res
+
+    def per_step(module, name):
+        """Wraps ``module.<name>`` (one step) and ``module.seeded_gpt2``
+        (one arm's model): a None-separated list of each step's
+        launches."""
+        steps, orig, seeded = [], getattr(module, name), module.seeded_gpt2
+
+        def step(*a, **kw):
+            before = counts()
+            out = orig(*a, **kw)
+            after = counts()
+            steps.append({n: after[n] - before[n] for n in after})
+            return out
+
+        def model(cls, gcfg, attn, dev):
+            steps.append((gcfg.remat, attn))
+            return seeded(cls, gcfg, attn, dev)
+
+        return steps, {name: (step, orig), "seeded_gpt2": (model, seeded)}
+
+    def run_counted(module, name, fn):
+        steps, patches = per_step(module, name)
+        for attr, (new, _) in patches.items():
+            setattr(module, attr, new)
+        try:
+            zero()
+            return fn(), steps
+        finally:
+            for attr, (_, old) in patches.items():
+                setattr(module, attr, old)
+
+    def check_steps(tag, arms, steps, n):
+        """Each arm's steps: 1 + BENCH_STEPS of them (an arm with an
+        error: at most that many), each with n K3 calls of each kernel in
+        a flash arm (the forward twice under remat), none in a dense
+        one."""
+        got = []
+        for s in steps:
+            if isinstance(s, tuple):
+                got.append((s, []))
+            else:
+                got[-1][1].append(s)
+        if len(got) != len(arms):
+            fail(f"{tag}: {len(got)} arms built, {len(arms)} recorded")
+        for arm, ((remat, attn), arm_steps) in zip(arms, got):
+            want = (launches_of(k3=((1 + remat) * n, n, n))
+                    if attn == "flash" else launches_of())
+            if ("error" not in arm and len(arm_steps) != 1 + BENCH_STEPS) \
+                    or len(arm_steps) > 1 + BENCH_STEPS \
+                    or any(s != want for s in arm_steps):
+                fail(f"{tag} {arm}: steps {arm_steps}, want "
+                     f"{1 + BENCH_STEPS} of {want}")
+
+    model_arms, steps = run_counted(
+        bench_gpt2_model, "chained_step",
+        lambda: bench_gpt2_model.run(BENCH_STEPS))
+    # 12 layers x 8 clients (one microbatch of 16 sequences each)
+    check_steps("bench_gpt2_model", model_arms, steps, 96)
+    for a in model_arms:
+        if "error" in a and (a["remat"] or a["attn"] != "dense"):
+            fail(f"bench_gpt2_model {a['arm']}: {a['error']}")
+    launches["bench_gpt2_model"] = counts()
+
+    long_arms, steps = run_counted(
+        bench_longctx, "grad_step",
+        lambda: bench_longctx.run(BENCH_STEPS))
+    check_steps("bench_longctx", long_arms, steps, 12)
+    if any("error" in a for a in long_arms):
+        fail(f"bench_longctx: {long_arms}")
+    launches["bench_longctx"] = counts()
+    bench_attention_check(model_arms, long_arms)
+    smi = smi_line()
+    sat, g = line["cifar_saturated"], line["gpt2"]
+    summary = (
+        f"[bench] on {smi}: python -m commefficient_torch.bench.bench: "
+        f"headline {line['value']} img/s, mfu {line['mfu']}; saturated "
+        f"{sat['value']} img/s, mfu {sat['mfu']}; gpt2 {g['value']} tok/s, "
+        f"mfu {g['mfu']}, warm-round temp "
+        f"{g['memory_ledger']['temp_bytes']} B; synced round medians "
+        f"(in process, ms): headline {cifar_ms['float32']:.3f} (int8 wire "
+        f"{cifar_ms['int8']:.3f}), saturated {sat_ms:.3f}, gpt2 "
+        f"{gpt2_ms:.3f}; sweep (tok/s, mfu): "
+        + ", ".join(f"{a} {arms[a]['result']['value']} "
+                    f"{arms[a]['result']['mfu']}" for a in SWEEP_K1)
+        + f"; ledger_ab cohort temp auto {temps['auto']} B, off "
+        f"{temps['off']} B (d x 4 = {4 * ab['d']}), covers "
+        f"{ab.get('drop_covers_dense_grad')}; imagenet "
+        + ", ".join(f"{k} {r['value']} img/s mfu {r['mfu']}"
+                    for k, r in imagenet.items())
+        + "; grid (W, B: img/s, mfu) "
+        + ", ".join(f"{r['W']}x{r['B']}: {r['img_per_s']} {r['mfu']}"
+                    for r in grid["rows"])
+        + "; bare model (ms/step, mfu) "
+        + ", ".join(f"{a['arm']} "
+                    + (f"{a['ms']:.2f} {a['mfu']:.4f}" if "ms" in a
+                       else a.get("error", "")[:60])
+                    for a in model_arms)
+        + "; longctx (S attn ms/step mfu) "
+        + ", ".join(f"{a['S']} {a['attn']} {a['ms']:.2f} {a['mfu']:.4f}"
+                    for a in long_arms))
+    print(summary, flush=True)
+    return launches
+
+
 def run_services() -> dict:
     """phase_robust, phase_async and phase_preempt; returns {path: K1/K2
     launches} for the kernel line."""
@@ -4607,6 +5138,17 @@ def main() -> int:
             print(f"[time] telemetry done at {time.perf_counter() - t0:.1f}"
                   " s (partial run: no result line)", flush=True)
             return 0
+        if sys.argv[1:2] == ["--bench"]:
+            # the benchmark entry points alone, after the build and the
+            # kernel checks at their new shapes (no result line)
+            phase_build()
+            phase_kernels(GPT2_BENCH_SKETCH, (GPT2_BENCH_SKETCH["c"],),
+                          scale=8.0, plain_n=5)
+            phase_flash(FLASH_SHAPES[2:])
+            phase_bench()
+            print(f"[time] bench done at {time.perf_counter() - t0:.1f} s "
+                  "(partial run: no result line)", flush=True)
+            return 0
         if sys.argv[1:2] == ["--services"]:
             # the runtime services' phases alone, after the build: a quick
             # check of this slice, with no kernel line and no result line
@@ -4641,6 +5183,10 @@ def run_phases(t0: float) -> int:
                                   scale=64.0, plain_n=5)
     circ_stream = phase_kernels(STREAM_SKETCH, (STREAM_SKETCH["c"],),
                                 scale=32.0, plain_n=5)
+    # the GPT-2 bench's full vocabulary: m = 238, 8 dialogues a client
+    circ_gpt2_bench = phase_kernels(GPT2_BENCH_SKETCH,
+                                    (GPT2_BENCH_SKETCH["c"],), scale=8.0,
+                                    plain_n=5)
     k1_range = {"gpt2": phase_kernels_range(GPT2_SKETCH, scale=4.0),
                 "stream": phase_kernels_range(STREAM_SKETCH, scale=32.0)}
     done("K1/K2, K1's range form")
@@ -4707,6 +5253,8 @@ def run_phases(t0: float) -> int:
     done("the runtime services (robust, async, preempt)")
     phase_telemetry()
     done("the run telemetry")
+    bench_launches = phase_bench()
+    done("the benchmark entry points")
     print("[slice 12] round medians (ms): ResNet-9 wires "
           + ", ".join(f"{a} {ms:.3f} ({b} B a client)"
                       for a, (_, ms, b) in wire.items())
@@ -4807,7 +5355,9 @@ def run_phases(t0: float) -> int:
                    **{f"FedRuntime StreamMLP {a}": launches[name]
                       for a, (launches, _, _, _) in stream.items()},
                    **{f"cv_train services {a}": launches[name]
-                      for a, launches in services.items()}}
+                      for a, launches in services.items()},
+                   **{path: launches[name]
+                      for path, launches in bench_launches.items()}}
         extra = {}
         if name == "circ_encode":
             extra = {"range_launches": stream["streaming_grad"][1],
@@ -4821,6 +5371,7 @@ def run_phases(t0: float) -> int:
             "at_femnist_shape": circ_femnist[name],
             "at_imagenet_shape": circ_imagenet[name],
             "at_stream_shape": circ_stream[name],
+            "at_gpt2_bench_shape": circ_gpt2_bench[name],
             "sass_per_term": sketch_sass[name], **extra})
     for name, line in (("flash_fwd", 589), ("flash_bwd_dq", 1287),
                        ("flash_bwd_dkv", 941)):
@@ -4834,7 +5385,9 @@ def run_phases(t0: float) -> int:
                    "gpt2_train --wire_dtype int8": (gpt2_int8[0][name]
                                                     + gpt2_int8[1][name]),
                    **{f"gpt2_train {a}": r[name] + v[name]
-                      for a, (r, v) in rht_runs.items()}}
+                      for a, (r, v) in rht_runs.items()},
+                   **{path: launches[name]
+                      for path, launches in bench_launches.items()}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "commefficient_torch/csrc/flash_attention.cu",

@@ -53,7 +53,8 @@ from commefficient_torch.telemetry.tracing import (NullTracer, SpanTracer,
                                                    span)
 from commefficient_torch.telemetry.utilization import (
     PEAK_FLOPS_BY_KIND, PEAK_HBM_GBPS_BY_KIND, ROOFLINE_KEYS,
-    UtilizationTracker, peak_flops_for, peak_hbm_for, roofline_fields)
+    UtilizationTracker, emit_from_totals, peak_flops_for, peak_hbm_for,
+    roofline_fields)
 
 __all__ = [
     "CLIENT_STAT_KEYS", "ParticipationLedger", "client_stats_to_host",
@@ -69,6 +70,7 @@ __all__ = [
     "layer_signals_to_host", "make_group_spec", "starved_groups",
     "NullTracer", "SpanTracer", "span", "PEAK_FLOPS_BY_KIND",
     "PEAK_HBM_GBPS_BY_KIND", "ROOFLINE_KEYS", "UtilizationTracker",
+    "emit_from_totals",
     "peak_flops_for", "peak_hbm_for",
     "roofline_fields", "MEMORY_KEYS", "MEMORY_LEDGER_KEYS",
     "ResidencyTracker", "check_dense_grad_floor",

@@ -149,7 +149,7 @@ def roofline_fields(*, rounds: int, wall_s: float,
     }
 
 
-def _device_kind(device=None) -> str:
+def device_kind_of(device=None) -> str:
     """The card's name (``torch.cuda.get_device_name``), or "cpu"."""
     import torch
     if device is not None and torch.device(device).type != "cuda":
@@ -221,6 +221,30 @@ def utilization_fields(*, rounds: int, wall_s: float,
     }
 
 
+def emit_from_totals(telemetry, *, rnd: int, rounds: int, wall_s: float,
+                     host_s: float = 0.0, dispatch_s: float = 0.0,
+                     device_s: float = 0.0,
+                     flops_per_round: Optional[float] = None,
+                     flops_source: Optional[str] = None,
+                     device_kind: str = "unknown") -> Dict[str, Any]:
+    """One ``utilization`` event from a timed stage's totals (the bench
+    path: one event a stage); returns the fields so the caller can fold
+    them into its JSON line. ``n_devices`` is the cards this process sees
+    (1 on the CPU); the peaks come from the tables (null for an unknown
+    kind). One device, so no straggler spread."""
+    fields = utilization_fields(
+        rounds=rounds, wall_s=wall_s, host_s=host_s, dispatch_s=dispatch_s,
+        device_s=device_s, flops_per_round=flops_per_round,
+        flops_source=flops_source, device_kind=device_kind,
+        peak_flops=peak_flops_for(device_kind),
+        bytes_per_round=None, bytes_source=None,
+        peak_hbm_gbps=peak_hbm_for(device_kind),
+        n_devices=_device_count(), mesh_shape=None)
+    if telemetry is not None:
+        telemetry.event("utilization", round=int(rnd), **fields)
+    return fields
+
+
 class UtilizationTracker:
     """Windowed utilization accounting for a driver's round loop.
 
@@ -242,7 +266,7 @@ class UtilizationTracker:
                  mesh_shape: Optional[List[int]] = None):
         self._telemetry = telemetry
         if device_kind is None:
-            device_kind = _device_kind()
+            device_kind = device_kind_of()
         if n_devices is None:
             n_devices = _device_count()
         self.n_devices = n_devices
