@@ -251,8 +251,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    against the 989 TFLOP/s entry, the two peaks side by side, their
    difference under d x 4 bytes). Every entry-point call of every phase
    writes its stream under the run's data root (``entry_main``,
-   ``--logdir``). ``python3 chip_smoke.py --telemetry`` runs the build
-   and this phase alone (no result line);
+   ``--logdir``); the port's ``check_telemetry_schema`` and ``teleview
+   summarize`` on the default arm's stream, in process (``phase_readers``:
+   both exit 0, the summary names ``cv_train`` and the card).
+   ``python3 chip_smoke.py --telemetry`` runs the build and this phase
+   alone (no result line);
 15. the benchmark entry points (``phase_bench``): ``python -m
    commefficient_torch.bench.bench --telemetry_dir D`` in a subprocess
    (rc 0, bench.py's keys at each depth, no ``error``, value > 0 and mfu
@@ -271,9 +274,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    must fail (BENCH_ATTN_LIMITS); one ``[bench]`` line with the card's
    name and power limit. K1/K2 at the GPT-2 bench's full vocabulary
    (d = 124,444,416, m = 238) run in phase 2 and K3 at the bench paths'
-   shapes in phase 3. ``python3 chip_smoke.py --bench`` runs the build, those
+   shapes in phase 3. ``bench_imagenet_model`` at batch 64
+   (``phase_bench_model``: its line and top-25 table, every value finite
+   and > 0). ``python3 chip_smoke.py --bench`` runs the build, those
    kernel checks and this phase alone (no result line);
-16. print the ``{"kernels": [...]}`` line (K1's range launches and
+16. the crash harness and the study recipes: ``crash_matrix``'s
+   ``mid_round`` and ``async_pool`` rows with children on the card
+   (``phase_crash``: killed, resumed, bit for bit the straight child,
+   whose launches are exactly CRASH_W K1 + 1 K2 a round), and one epoch
+   of each CIFAR10 curve arm and of the GPT-2 sketch arm at seed 21
+   (``phase_curves``: the TSV header, the CIFAR10 upload MiB equal to
+   the TPU log's, 9 K1 + 1 K2 a sketch round). ``python3 chip_smoke.py
+   --crash`` runs the build and all six crash rows, ``--curves [ARM,...
+   [SEED,... [OUT]]]`` the whole learning-curve study into OUT (default
+   CURVES_OUT) with each arm's band verdict (no result line);
+17. print the ``{"kernels": [...]}`` line (K1's range launches and
    range timings in its entry), the card's name and power limit, and last
    the ``{"ok": true, ...}`` line.
 
@@ -1408,6 +1423,13 @@ def phase_gpt2_reference():
 # where the phases' CIFAR directories are written (a temporary directory
 # that main() makes and removes)
 DATA_ROOT = {"path": None}
+# the script's start (perf_counter), for the [time] lines
+T0 = {"t": None}
+
+
+def time_done(phase: str) -> None:
+    print(f"[time] {phase} done at {time.perf_counter() - T0['t']:.1f} s",
+          flush=True)
 
 
 def dataset_flags(name: str):
@@ -4465,6 +4487,8 @@ def phase_telemetry():
           f"{util[-1]['dispatch_frac']}, input_wait_frac "
           f"{util[-1]['input_wait_frac']}, mfu {util[-1]['mfu']} (no "
           "analytic FLOP count for the CV models)", flush=True)
+    phase_readers(streams[0])
+    time_done("the stream's readers (check_telemetry_schema, teleview)")
 
     # round 1's signals, card against CPU
     torch.backends.cudnn.allow_tf32 = False
@@ -5059,6 +5083,8 @@ def phase_bench():
         fail(f"bench_longctx: {long_arms}")
     launches["bench_longctx"] = counts()
     bench_attention_check(model_arms, long_arms)
+    bare = phase_bench_model()
+    time_done("bench_imagenet_model (the bare FixupResNet50 step at 224)")
     smi = smi_line()
     sat, g = line["cifar_saturated"], line["gpt2"]
     summary = (
@@ -5087,9 +5113,172 @@ def phase_bench():
                     for a in model_arms)
         + "; longctx (S attn ms/step mfu) "
         + ", ".join(f"{a['S']} {a['attn']} {a['ms']:.2f} {a['mfu']:.4f}"
-                    for a in long_arms))
+                    for a in long_arms)
+        + f"; bench_imagenet_model batch 64: {bare['ms_per_step']:.3f} "
+        f"ms/step, {bare['img_per_s']:.1f} img/s, mfu "
+        f"{bare['mfu_flopcounter']:.4f} (FlopCounterMode) / "
+        f"{bare['mfu_script_count']:.4f} (3 x 4.1e9, C13), busy "
+        f"{bare['busy_ms_per_step']:.3f} ms/step")
     print(summary, flush=True)
     return launches
+
+
+# the stream's readers, the crash harness and the study recipes (A11c,
+# A13): the crash rows of the full run (the two that no child test of
+# the port covered before the crash matrix), the curve arms of its
+# one-epoch smoke, and the K1/K2 a ResNet-9 sketch round launches
+# (PERF.md kernel table)
+CRASH_FULL_POINTS = ("mid_round", "async_pool")
+# the crash child: 2 epochs of 7 rounds (the sampler stops when fewer
+# than W = 4 clients have data left), W K1 (no weight decay: no decay
+# encode) and 1 K2 a synchronous round
+CRASH_ROUNDS, CRASH_W = 14, 4
+CURVE_SMOKE_ARMS = ("cv_uncompressed24", "cv_true_topk24", "cv_sketch96",
+                    "gpt2_sketch24")
+CV_SKETCH_K1, CV_SKETCH_K2 = 9, 1
+CURVES_OUT = "curves_out"
+
+
+def phase_readers(logdir: str) -> None:
+    """The port's ``check_telemetry_schema`` and ``teleview summarize``,
+    in process, on the stream at ``logdir``: both exit 0, and the summary
+    names ``cv_train`` and the card."""
+    import io
+
+    import torch
+    from commefficient_torch.scripts import check_telemetry_schema, teleview
+    path = os.path.join(logdir, "telemetry.jsonl")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_check = check_telemetry_schema.main([path])
+        mark = len(buf.getvalue())
+        rc_view = teleview.main(["summarize", path])
+    text = buf.getvalue()
+    summary = text[mark:]
+    kind = torch.cuda.get_device_name(0)
+    if rc_check != 0 or rc_view != 0 or "cv_train" not in summary \
+            or kind not in summary:
+        fail(f"the stream's readers on {path}: check_telemetry_schema rc "
+             f"{rc_check}, teleview summarize rc {rc_view}: "
+             f"{text[-1500:]}")
+    print(f"[readers] check_telemetry_schema: "
+          f"{text[:mark].strip().splitlines()[-1]}; teleview summarize: "
+          f"{summary.strip().splitlines()[0]} ({len(summary.splitlines())}"
+          " lines)", flush=True)
+
+
+def phase_bench_model() -> dict:
+    """``bench_imagenet_model`` at batch 64 in process: its line and the
+    top-25 table printed, every reported value finite and > 0."""
+    from commefficient_torch.scripts import bench_imagenet_model
+    out = bench_imagenet_model.main(["--batch", "64"])
+    vals = [out["ms_per_step"], out["img_per_s"], out["mfu_flopcounter"],
+            out["mfu_script_count"], out["busy_ms_per_step"]] + [
+        ms for _, ms in out["ops_ms_per_step"][:bench_imagenet_model.TOP]]
+    if not all(v is not None and math.isfinite(v) and v > 0
+               for v in vals) or not out["grad_finite"] \
+            or len(out["ops_ms_per_step"]) < bench_imagenet_model.TOP:
+        fail(f"bench_imagenet_model: a reported value is not finite and "
+             f"positive: {vals[:5]}, {len(out['ops_ms_per_step'])} ops")
+    return out
+
+
+def phase_crash(points=CRASH_FULL_POINTS) -> dict:
+    """``crash_matrix`` with children on the card, at the rows
+    ``points``: each row killed, resumed and held bit for bit to the
+    straight child; the straight synchronous child launches exactly
+    CRASH_W K1 and 1 K2 a round at d = 18 (the asynchronous one's counts
+    printed). Returns the straight children's launches."""
+    from commefficient_torch.scripts import crash_matrix
+    rows = [m for m in crash_matrix.MATRIX if m[0] in points]
+    res = {}
+    t = time.perf_counter()
+    rc = crash_matrix.run_matrix(rows, keep=False, device="cuda",
+                                 results=res)
+    if rc != 0 or any(res.get(m[0]) != "PASS" for m in rows):
+        fail(f"crash matrix on the card: rc {rc}, "
+             + ", ".join(f"{m[0]} {res.get(m[0])}" for m in rows))
+    launches = {("async" if a else "sync"): res[("straight", a)]
+                for a in (False, True) if ("straight", a) in res}
+    sync = launches.get("sync")
+    if sync is not None and (sync["circ_encode"] != CRASH_W * CRASH_ROUNDS
+                             or sync["circ_decode"] != CRASH_ROUNDS):
+        fail(f"crash matrix: the straight child launched {sync}; want "
+             f"{CRASH_W} K1 + 1 K2 a round over {CRASH_ROUNDS} rounds")
+    asy = launches.get("async")
+    if asy is not None and not (asy["circ_encode"] > 0
+                                and asy["circ_decode"] > 0):
+        fail(f"crash matrix: the async straight child launched {asy}")
+    print(f"[crash] rows {[m[0] for m in rows]} passed on the card in "
+          f"{time.perf_counter() - t:.1f} s; straight children's launches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    return {f"crash_matrix straight {k} child": v
+            for k, v in launches.items()}
+
+
+def check_curve_record(rec: dict, arm) -> None:
+    """A curve run's record: a TSV with its header, finite epoch rows,
+    the CIFAR10 arms' upload MiB at the TPU's seed equal to the TPU
+    log's, and the sketch arm's K1/K2 a round."""
+    from commefficient_torch.scripts import curves
+    name = rec["arm"]
+    with open(rec["tsv"]) as f:
+        head = f.readline().strip()
+    want_head = ("epoch,hours,top1Accuracy" if arm.kind == "cv"
+                 else "epoch\thours\ttest_nll\tppl\tmc_acc")
+    rows = rec["epochs"]
+    if head != want_head or not rows or not all(
+            math.isfinite(r["test_loss"]) for r in rows):
+        fail(f"curves {name}: header {head!r}, epoch rows {rows}")
+    if arm.kind == "cv" and rec["seed"] == curves.TPU_SEED:
+        wrong = curves.up_matches(rec, arm.tpu_log)
+        if wrong:
+            fail(f"curves {name}: up (MiB) differs from the TPU log's: "
+                 f"{wrong[:5]}")
+    if name.startswith("cv_sketch"):
+        n = rec["rounds"]
+        if (rec["launches"]["circ_encode"], rec["launches"]["circ_decode"]) \
+                != (CV_SKETCH_K1 * n, CV_SKETCH_K2 * n):
+            fail(f"curves {name}: launches {rec['launches']} over {n} "
+                 f"rounds; want {CV_SKETCH_K1} K1 + {CV_SKETCH_K2} K2 a "
+                 "round")
+
+
+def phase_curves(arms=CURVE_SMOKE_ARMS, seeds=(21,), epochs=1,
+                 out=None) -> dict:
+    """The study recipes (``curves.run_arm``) on the card: each arm at each
+    seed, its first ``epochs`` epochs (None: the whole run), each run's
+    record checked (``check_curve_record``). Returns the records."""
+    from commefficient_torch.scripts import curves
+    out = out or os.path.join(DATA_ROOT["path"], "curves")
+    recs = {}
+    for name in arms:
+        for seed in seeds:
+            t = time.perf_counter()
+            rec = curves.run_arm(name, seed, out, "cuda", epochs)
+            check_curve_record(rec, curves.ARMS[name])
+            recs[(name, seed)] = rec
+            row = rec["epochs"][-1]
+            print(f"[curves] {name} seed {seed}: {rec['rounds']} rounds, "
+                  f"round median {rec['round_s_median'] * 1e3:.3f} ms, "
+                  f"epoch {row['epoch']}: test_loss {row['test_loss']:.4f}"
+                  f" test_acc {row['test_acc']:.4f} up (MiB) "
+                  f"{row['up (MiB)']}; launches {rec['launches']}; "
+                  f"{time.perf_counter() - t:.1f} s", flush=True)
+    return recs
+
+
+def run_curve_study(arms, seeds, out: str) -> None:
+    """The whole A13 study (``--curves``): every arm at every seed, each
+    run's record checked, then ``curves band``: each arm's per-epoch
+    verdict against its TPU curve in ``out/<arm>_band.txt``, its first
+    line printed. A curve outside its band is a finding, not a failure
+    of the run."""
+    from commefficient_torch.scripts import curves
+    phase_curves(arms, seeds, None, out)
+    print(f"[curves] on {smi_line()}", flush=True)
+    curves.main(["band", "--arms", ",".join(arms), "--seeds",
+                 ",".join(map(str, seeds)), "--out", out])
 
 
 def run_services() -> dict:
@@ -5128,7 +5317,7 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__},"
           f" CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}", flush=True)
-    t0 = time.perf_counter()
+    t0 = T0["t"] = time.perf_counter()
     DATA_ROOT["path"] = tempfile.mkdtemp(prefix="chip_smoke_data_")
     try:
         if sys.argv[1:2] == ["--telemetry"]:
@@ -5148,6 +5337,28 @@ def main() -> int:
             phase_bench()
             print(f"[time] bench done at {time.perf_counter() - t0:.1f} s "
                   "(partial run: no result line)", flush=True)
+            return 0
+        if sys.argv[1:2] == ["--crash"]:
+            # the whole crash matrix, children on the card (no result line)
+            from commefficient_torch.scripts import crash_matrix
+            phase_build()
+            phase_crash([m[0] for m in crash_matrix.MATRIX])
+            time_done("crash matrix (partial run: no result line)")
+            return 0
+        if sys.argv[1:2] == ["--curves"]:
+            # the learning-curve study (no result line): every arm (or
+            # the comma-separated arms of the next argument) at every
+            # seed (or those of the one after), records under the
+            # directory after them (default CURVES_OUT)
+            from commefficient_torch.scripts import curves
+            arms = (sys.argv[2].split(",") if len(sys.argv) > 2
+                    else list(curves.ARMS))
+            seeds = ([int(x) for x in sys.argv[3].split(",")]
+                     if len(sys.argv) > 3 else list(curves.SEEDS))
+            phase_build()
+            run_curve_study(arms, seeds,
+                            sys.argv[4] if len(sys.argv) > 4 else CURVES_OUT)
+            time_done("curves (partial run: no result line)")
             return 0
         if sys.argv[1:2] == ["--services"]:
             # the runtime services' phases alone, after the build: a quick
@@ -5255,6 +5466,10 @@ def run_phases(t0: float) -> int:
     done("the run telemetry")
     bench_launches = phase_bench()
     done("the benchmark entry points")
+    crash_launches = phase_crash()
+    done("the crash matrix's mid_round and async_pool rows")
+    curve_recs = phase_curves()
+    done("one epoch of each CIFAR10 curve arm and of the GPT-2 sketch arm")
     print("[slice 12] round medians (ms): ResNet-9 wires "
           + ", ".join(f"{a} {ms:.3f} ({b} B a client)"
                       for a, (_, ms, b) in wire.items())
@@ -5357,7 +5572,12 @@ def run_phases(t0: float) -> int:
                    **{f"cv_train services {a}": launches[name]
                       for a, launches in services.items()},
                    **{path: launches[name]
-                      for path, launches in bench_launches.items()}}
+                      for path, launches in bench_launches.items()},
+                   **{path: launches[name]
+                      for path, launches in crash_launches.items()},
+                   **{f"curves {arm} seed {seed} (1 epoch)":
+                      rec["launches"][name]
+                      for (arm, seed), rec in curve_recs.items()}}
         extra = {}
         if name == "circ_encode":
             extra = {"range_launches": stream["streaming_grad"][1],

@@ -77,17 +77,27 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def _profiled(fn):
+def _profiled(fn, device="cuda"):
     """``(profiler, device events, wall us)`` of ``fn()`` under
-    ``torch.profiler``, synced at its end."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    ``torch.profiler``, synced at its end. On the CPU the "device events"
+    are the leaf operators (those that call no other operator), which run
+    one after another on the calling thread."""
+    on_cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_cuda else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        if on_cuda:
+            torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if on_cuda:
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    else:
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and not e.cpu_children]
     if not kernels:
         raise SystemExit("the profiler recorded no device activity; time "
                          "with CUDA events instead")

@@ -23,10 +23,12 @@ import pytest
 import torch
 
 from test_torch_modes import (B, NUM_CLIENTS, SKETCH, Toy,  # noqa: E402
-                              base_kw, init_params, port_runtime,
+                              base_kw, init_params, j_loss, port_runtime,
                               ref_runtime, round_inputs, t_loss)
 
 from commefficient_tpu import config as jconfig  # noqa: E402
+from commefficient_tpu.config import FedConfig as JConfig  # noqa: E402
+from commefficient_tpu.core import FedRuntime as JRuntime  # noqa: E402
 from commefficient_tpu.core.server import \
     validate_mode_combo as j_validate  # noqa: E402
 
@@ -285,3 +287,47 @@ def test_topk_down_clients_train_on_their_stale_weights():
     assert not any(moved[c] for c in range(NUM_CLIENTS) if c not in seen)
     assert all((row != w0).sum() <= 2 * 2 for row, m in
                zip(state.client_weights, moved) if m)
+
+
+# the default-path --topk_down round on inputs without ties: with c >= d
+# the circulant sketch recovers the lag exactly, so no two coordinates of
+# the download's ranking are equal in exact arithmetic and the k support
+# cannot hinge on the last ulp (the 5-column case of CASES has a tie
+# after round 3)
+UNTIED_TOPK_DOWN = {
+    "c8_k2": dict(SKETCH, do_topk_down=True, k=2, num_cols=8,
+                  weight_decay=5e-4),
+    "c16_r1_k3": dict(SKETCH, do_topk_down=True, k=3, num_rows=1,
+                      num_cols=16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNTIED_TOPK_DOWN))
+def test_topk_down_default_path_matches_reference(case):
+    """Both runtimes with their default telemetry: weights round by
+    round over 8 rounds at test_torch_modes.py's tolerances."""
+    kw = base_kw(**UNTIED_TOPK_DOWN[case])
+    trt = FedRuntime(FedConfig(**kw), Toy(init_params()[1]), t_loss,
+                     device="cpu")
+    jrt = JRuntime(JConfig(**kw, num_results_train=2), init_params()[0],
+                   j_loss, num_clients=NUM_CLIENTS)
+    assert trt.cfg.telemetry and jrt.cfg.telemetry
+    js, ts = jrt.init_state(), trt.init_state()
+    for ids, batch, mask in round_inputs(8, ragged=True):
+        js, jm = jrt.round(js, jnp.asarray(ids.astype(np.int32)),
+                           {k: jnp.asarray(v) for k, v in batch.items()},
+                           jnp.asarray(mask), 0.05)
+        ts, tm = trt.round(ts, ids, batch, mask, 0.05)
+        for got, want in zip(tm["results"], jm["results"]):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-5)
+        np.testing.assert_allclose(ts.ps_weights.numpy(),
+                                   np.asarray(js.ps_weights), rtol=0,
+                                   atol=1e-6)
+        want = np.asarray(js.client_weights)
+        np.testing.assert_allclose(ts.client_weights.numpy(), want,
+                                   rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max())
+        for key in ("download_bytes", "upload_bytes"):
+            assert np.array_equal(tm[key].numpy(), np.asarray(jm[key])), key
+    assert (ts.ps_weights.numpy() != init_params()[1]).any()

@@ -10,7 +10,8 @@ profiling.py) and its wiring into both entry points, on the CPU.
   validators, with the same sequence of event kinds except the JAX
   package's ``compile``/``collectives`` and either package's
   ``memory_ledger`` (XLA's static inventories, the port's measured one);
-  ``scripts/teleview.py summarize`` reads the port's stream.
+  the port's ``teleview summarize`` reads the port's stream in process
+  and prints what ``scripts/teleview.py`` prints.
 - ``gpt2_train --test``: the stream's layer signals over GPT-2's coarse
   groups and an MFU from the analytic FLOP count.
 - The stream's recovery: append behind a ``resume`` record, NaN to null,
@@ -133,12 +134,24 @@ def test_one_run_both_packages(tmp_path):
     mem = [e for e in ev if e["event"] == "memory"]
     assert all(e["live_bytes"] is None and e["peak_bytes"] is None
                for e in mem)
-    res = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "scripts", "teleview.py"),
-         "summarize", streams["port"]],
-        capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
-    assert "cv_train" in res.stdout
+    # the port's teleview, in process, prints what the JAX script prints
+    import contextlib
+    import importlib.util
+    import io
+    from commefficient_torch.scripts import teleview
+    spec = importlib.util.spec_from_file_location(
+        "jax_teleview", os.path.join(ROOT, "scripts", "teleview.py"))
+    jax_teleview = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_teleview)
+    said = {}
+    for name, main in (("port", teleview.main),
+                       ("jax", jax_teleview.main)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            said[name] = (main(["summarize", streams["port"]]),
+                          buf.getvalue())
+    assert said["port"] == said["jax"]
+    assert said["port"][0] == 0 and "cv_train" in said["port"][1]
 
 
 def test_gpt2_stream_has_groups_and_mfu(tmp_path):
