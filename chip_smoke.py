@@ -37,7 +37,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    accumulating, over ``range_cases`` (on a block boundary, straddling
    one, inside one, ending at d, one value, the whole vector, which must
    also give the whole-vector call's bits), the weight-sized (4,194,304)
-   and bias-sized (2,048) ranges timed beside their bounds;
+   and bias-sized (2,048) ranges timed beside their bounds; K2's range
+   form (``phase_decode_range``) at m = 14 and 176 over 4 and 8 equal
+   shards of d_pad, the shards bitwise the whole decode and their plain
+   version, +0.0 past d, a shard timed beside its bound
+   (``range_decode_work``); then the split round (``phase_decode_overlap``:
+   ``--decode_overlap`` against the monolithic round through the entry
+   point at the headline, interleaved, bitwise over ROUNDS_SPLIT rounds
+   with 9 K1 + 1 K2 a round, the driver waiting on the cohort's event
+   alone; the host syncs left in each half; the GPT-2 sweep's overlap
+   arms beside its base arm) and a 1-rank NCCL mesh (``phase_mesh1``:
+   the replicated tail, the sharded tail and the reduce in the decode
+   bitwise each other and the no-mesh round, K2's range form once a
+   sharded round; the group torn down in a ``finally``). ``python3
+   chip_smoke.py --mesh`` runs the build and these three alone (no
+   result line);
 3. hold K3 (causal flash attention: forward, dq, dk/dv) against its plain
    versions at (N, S, H, D) = (8, 1024, 12, 64), (8, 256, 12, 64), (8,
    2048, 12, 64), (4, 4096, 12, 64), (16, 256, 12, 64) and (16, 1024,
@@ -266,7 +280,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    int8 wires (9 K1 + 1 K2 in every warmup and timed round),
    ``round_shape_grid`` at its 9 cells (W + 1 K1 a round),
    ``gpt2_mfu_sweep`` with SWEEP_ARMS (SWEEP_K1 + 1 K2 a round; the
-   ``overlap`` line names ROADMAP A9), ``ledger_ab`` at full width,
+   ``overlap`` arm's client halves SWEEP_K1 + 0), ``ledger_ab`` at full
+   width,
    ``bench_imagenet`` in both layouts, ``bench_gpt2_model`` and
    ``bench_longctx`` (exact K3 launches a step); at each shape these two
    give K3, the first-step loss and c_attn gradient with K3 against
@@ -289,7 +304,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    [SEED,... [OUT]]]`` the whole learning-curve study into OUT (default
    CURVES_OUT) with each arm's band verdict (no result line);
 17. print the ``{"kernels": [...]}`` line (K1's range launches and
-   range timings in its entry), the card's name and power limit, and last
+   range timings in its entry; K2's range form an entry of its own,
+   ``circ_decode_range``), the card's name and power limit, and last
    the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package. Without a CUDA
@@ -534,10 +550,13 @@ def phase_sketch_sass():
     it issues K2_BUBBLE_SASS_PER_TERM or more a term."""
     from commefficient_torch.ops import circulant_kernels as K
     funcs, name = {}, None
+    # K2's whole decode is its kRange = false instantiation
+    marks = {"circ_encode": "encode_kernelILi5E",
+             "circ_decode": "decode_kernelILi5ELb0E"}
     for line in cuobjdump("-sass", K.SOURCE):
         if "Function :" in line:
-            name = next((f"circ_{n}" for n in ("encode", "decode")
-                         if f"{n}_kernelILi5E" in line), None)
+            name = next((n for n, mark in marks.items() if mark in line),
+                        None)
             if name is not None:
                 funcs[name] = []
         elif name is not None:
@@ -4660,7 +4679,8 @@ BENCH_STEPS = 2
 # decay 0: no decay encode, core/client.py make_fused_grad); unfused: the
 # clients' dense sum encoded once
 SWEEP_ARMS = ("base", "unfused_encode", "mb4", "chunk256", "overlap")
-SWEEP_K1 = {"base": 8, "unfused_encode": 1, "mb4": 16, "chunk256": 8}
+SWEEP_K1 = {"base": 8, "unfused_encode": 1, "mb4": 16, "chunk256": 8,
+            "overlap": 8}
 # the bench paths that launch K3, flash against dense attention from the
 # same weights and tokens (the bare model step: one client's microbatch,
 # (16, 256); the long-context step at S = 1024, 2048, 4096): the relative
@@ -4899,8 +4919,9 @@ def phase_bench():
       the float32 and on the int8 wire (W + 1 K1 and 1 K2 in every warmup
       and timed round, the bytes exact); ``round_shape_grid`` at its 9
       cells (W + 1 K1 a round at W = 8, 16, 32); ``gpt2_mfu_sweep`` with
-      SWEEP_ARMS (``bench_gpt2.run`` in each arm but ``overlap``, whose
-      line names ROADMAP A9: SWEEP_K1 and 1 K2 a round); ``ledger_ab``
+      SWEEP_ARMS (``bench_gpt2.run`` in each arm: SWEEP_K1 and 1 K2 a
+      round; the ``overlap`` arm's synced calls are its client halves,
+      SWEEP_K1 and no K2, and both its ledgers are measured); ``ledger_ab``
       at full width (the cohort: 8 K1 fused, 1 unfused, no K2; both
       ledgers measured); ``bench_imagenet`` in both layouts (no K1/K2);
       ``bench_gpt2_model`` (K3 at (16, 256, 12, 64): 12 layers x 8
@@ -4971,19 +4992,22 @@ def phase_bench():
                                   "--rounds", str(R), "--out", out])
     with open(out) as f:
         arms = {r["arm"]: r for r in map(json.loads, f)}
-    if rc != 0 or list(arms) != list(SWEEP_ARMS) or \
-            "ROADMAP A9" not in arms["overlap"].get("error", ""):
+    if rc != 0 or list(arms) != list(SWEEP_ARMS):
         fail(f"gpt2_mfu_sweep: rc {rc}, lines {arms}")
+    # the overlap arm's rounds are split: its synced calls are the client
+    # halves (its K2 launches in the decode halves between them)
     check_calls("gpt2_mfu_sweep", rec.calls,
-                [("round", launches_of(SWEEP_K1[a], 1))
-                 for a in SWEEP_ARMS if a in SWEEP_K1
-                 for _ in range(R + 2)])
+                [("cohort", launches_of(SWEEP_K1[a], 0)) if a == "overlap"
+                 else ("round", launches_of(SWEEP_K1[a], 1))
+                 for a in SWEEP_ARMS for _ in range(R + 2)])
     for a in SWEEP_K1:
         res = arms[a].get("result") or {}
+        ledgers = ["memory_ledger"] + (["memory_ledger_decode"]
+                                       if a == "overlap" else [])
         if "error" in arms[a] or not res.get("value", 0) > 0 or \
                 not 0 < (res.get("mfu") or 0) <= 1 or \
-                not ((res.get("memory_ledger") or {}).get("temp_bytes")
-                     or 0) > 0:
+                not all(((res.get(k) or {}).get("temp_bytes") or 0) > 0
+                        for k in ledgers):
             fail(f"gpt2_mfu_sweep {a}: {arms[a]}")
     launches["bench gpt2_mfu_sweep (bench_gpt2.run arms)"] = counts()
     gpt2_ms = 1e3 * statistics.median(dt for _, _, dt in
@@ -5302,6 +5326,358 @@ def run_services() -> dict:
             "--watchdog": wd_launches}
 
 
+# ------------------------------------------------ the split round, the mesh
+
+# the split round (--decode_overlap) against the monolithic one through the
+# entry point at the ResNet-9 headline round: ROUNDS_SPLIT rounds a run,
+# the four runs interleaved (monolithic, split, split, monolithic); the
+# GPT-2 sweep's overlap arms beside its base arm, GPT2_OVERLAP_ROUNDS
+# timed rounds a run, interleaved the same way
+ROUNDS_SPLIT = 5
+GPT2_OVERLAP_ARMS = ("base", "overlap", "overlap_unfused")
+GPT2_OVERLAP_ROUNDS = 3
+# the 1-rank NCCL mesh at the headline round: MESH1_ROUNDS rounds of
+# 8 x 64 seeded images a run; the no-mesh round held to the JAX mesh
+# test's tolerance (tests/test_parallel.py: rtol 1e-4, atol 1e-6)
+MESH1_ROUNDS = 3
+MESH1_RTOL, MESH1_ATOL = 1e-4, 1e-6
+# K2's range form: shards of d_pad over 4 and 8 ranks
+DECODE_SHARDS = (4, 8)
+
+
+def range_decode_work(d: int, start: int, n: int, c: int, r: int):
+    """(bytes, float operations, instructions by pipe) that K2's range
+    form must move and do for the coordinates [start, start + n): the
+    table cells its live coordinates (those below d) gather, read once
+    (all r c once the range spans c), n values written, and K2's work
+    (``sketch_work``) for the live coordinates."""
+    live = max(0, min(n, d - start))
+    terms = r * live
+    return (4 * r * min(live, c) + 4 * n, (1 - r % 2) * 2 * live,
+            {p: k * terms for p, k in decode_term_instructions(r).items()})
+
+
+def phase_decode_range(shape: dict, plain_n: int = 5):
+    """K2's range form at (d, c, r) of ``shape``: the shards of d_pad over
+    each count of DECODE_SHARDS bitwise (``same_bits``) the whole decode,
+    an interior shard bitwise its plain version, a range across d +0.0
+    past it; the interior shard timed beside its bound and its plain
+    version. Returns {n: timings}."""
+    import numpy as np
+    import torch
+    from commefficient_torch.ops import circulant_kernels as K
+    from commefficient_torch.ops.circulant import make_circulant_sketch
+
+    dev = torch.device("cuda")
+    d, c, r = shape["d"], shape["c"], shape["r"]
+    cs = make_circulant_sketch(d, c, r, device=dev)
+    args = (cs.shifts, cs.sign_keys, c, r, cs.m)
+    t0 = torch.from_numpy(np.random.RandomState(2).randn(
+        r, c).astype(np.float32)).to(dev)
+    whole = K.decode(t0, *args, d)
+    across = K.decode(t0, *args, d, start=d - 1000, n=5000)
+    K.reset_launches()
+    one = K.decode(t0, *args, d, start=0, n=d)
+    torch.cuda.synchronize()
+    if not (same_bits(across[:1000], whole[-1000:])
+            and same_bits(across[1000:], torch.zeros(4000, device=dev))):
+        fail(f"K2's range form across d (m={cs.m}) is not the whole "
+             "decode's tail and +0.0 past d")
+    # the range form over [0, d), a sharded tail on one rank, runs the
+    # range instantiation and is bitwise the whole decode
+    if not same_bits(one, whole) or K.range_launches["circ_decode"] != 1:
+        fail(f"K2's range form over [0, d) (m={cs.m}): bitwise "
+             f"{same_bits(one, whole)}, range launches "
+             f"{K.range_launches['circ_decode']}")
+    out = {}
+    for n in DECODE_SHARDS:
+        blk = -(-d // n)
+        shards = [K.decode(t0, *args, d, start=i * blk, n=blk)
+                  for i in range(n)]
+        cat = torch.cat(shards)
+        plain = K.decode_range_plain(t0, *args, d, blk, blk)
+        torch.cuda.synchronize()
+        err = float((shards[1] - plain).abs().max())
+        ok = (same_bits(cat[:d], whole) and same_bits(shards[1], plain)
+              and same_bits(cat[d:], torch.zeros(n * blk - d, device=dev)))
+        print(f"[range] K2 m={cs.m}, {n} shards of {blk}: bitwise the whole "
+              f"decode and the plain version {ok} (max|diff| {err})",
+              flush=True)
+        if not ok:
+            fail(f"K2's range form differs at m={cs.m}, {n} shards")
+        ms = time_ms(lambda: K.decode(t0, *args, d, start=blk, n=blk))
+        plain_ms = time_ms(
+            lambda: K.decode_range_plain(t0, *args, d, blk, blk), n=plain_n)
+        nbytes, ops, instr = range_decode_work(d, blk, blk, c, r)
+        b_ms, kind = bound(nbytes, ops, H100_FP32_PER_S, instr)
+        print(f"[range] K2 m={cs.m}, shard 1 of {n} ([{blk}, {2 * blk})): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({kind}: {nbytes / 1e6:.1f} MB)", flush=True)
+        out[n] = {"n": blk, "max_abs_err": err, "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": b_ms,
+                  "bound_by": bound_by(kind), "library_ms": None}
+    return out
+
+
+def host_syncs(fn) -> list:
+    """The host syncs ``fn()`` makes (``torch.cuda.set_sync_debug_mode``'s
+    warnings), as ``path:line`` of the call in the repository."""
+    import warnings
+    import torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sorted({f"{os.path.relpath(w.filename, root)}:{w.lineno}"
+                   for w in caught if "synchroniz" in str(w.message)})
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, for runs held bitwise to each
+    other (a nondeterministic weight gradient would differ between them
+    whatever the code under test does)."""
+    import torch
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = before
+
+
+def phase_decode_overlap():
+    """``--decode_overlap`` at the ResNet-9 headline round through the
+    entry point, interleaved with the monolithic round (monolithic, split,
+    split, monolithic; cuDNN deterministic in all four): every run 9 K1 +
+    1 K2 a round; the first split run's losses and state bitwise the first
+    monolithic run's; the driver waiting on the cohort's event once a
+    round (``DecodeOverlapRound.wait_cohort``) and never on the whole
+    card. Then the host syncs left in the decode half (and, apart, in the
+    client half), and the GPT-2 sweep's overlap arms beside its base arm,
+    interleaved. Returns (launches by path, the A/B numbers)."""
+    import numpy as np
+    import torch
+    from commefficient_torch.bench import bench_gpt2, gpt2_mfu_sweep
+    from commefficient_torch.core import driver, pipeline
+    from commefficient_torch.ops import circulant_kernels as K
+
+    base = MAIN_ARGV + dataset_flags("synthetic64") + [
+        "--num_rounds", str(ROUNDS_SPLIT)]
+    counts = {"wait_cohort": 0, "sync": 0}
+    wait, sync = pipeline.DecodeOverlapRound.wait_cohort, driver._sync
+
+    def counted_wait(self):
+        counts["wait_cohort"] += 1
+        return wait(self)
+
+    def counted_sync(device):
+        counts["sync"] += 1
+        return sync(device)
+
+    runs, launches_by, medians = {}, {}, {"monolithic": [], "split": []}
+    with deterministic_cudnn():
+        for arm in ("monolithic", "split", "split", "monolithic"):
+            flags = ["--decode_overlap"] if arm == "split" else []
+            counts.update(wait_cohort=0, sync=0)
+            pipeline.DecodeOverlapRound.wait_cohort = counted_wait
+            driver._sync = counted_sync
+            try:
+                out, launches, _ = run_cv(base + flags, f"overlap {arm}")
+            finally:
+                pipeline.DecodeOverlapRound.wait_cohort = wait
+                driver._sync = sync
+            _rounds_ok(f"overlap {arm}", out, launches,
+                       {"circ_encode": 9 * ROUNDS_SPLIT,
+                        "circ_decode": ROUNDS_SPLIT}, ROUNDS_SPLIT)
+            if arm == "split" and (counts["wait_cohort"] != ROUNDS_SPLIT
+                                   or counts["sync"]):
+                fail(f"the split round's driver waited {counts}: want the "
+                     f"cohort's event {ROUNDS_SPLIT} times, no whole sync")
+            medians[arm].append(statistics.median(out["round_s"][1:]) * 1e3)
+            launches_by[f"cv_train --decode_overlap ({arm})"] = launches
+            runs.setdefault(arm, out)
+    mono, split = runs["monolithic"], runs["split"]
+    if not np.array_equal(np.asarray(mono["losses"]),
+                          np.asarray(split["losses"])):
+        fail(f"split losses {split['losses']} != monolithic "
+             f"{mono['losses']}")
+    bad = same_state_bits(mono["state"], split["state"])
+    if bad:
+        fail(f"the split round's state differs from the monolithic one's "
+             f"in {bad} after {ROUNDS_SPLIT} rounds")
+    print(f"[overlap] {ROUNDS_SPLIT} rounds: losses and state bitwise the "
+          "monolithic round's; 9 K1 + 1 K2 a round; the driver waited on "
+          "the cohort's event once a round", flush=True)
+
+    # the host syncs of each half, on the split run's runtime
+    rt = split["runtime"]
+    rng = np.random.RandomState(0)
+    batch = {"image": rng.randn(8, 64, 32, 32, 3).astype(np.float32),
+             "target": rng.randint(0, 10, (8, 64))}
+    ids, mask = np.arange(8), np.ones((8, 64), bool)
+    state = rt.init_state()
+    got = {}
+    cohort_syncs = host_syncs(lambda: got.update(
+        zip(("state", "pay"), rt.cohort(state, ids, batch, mask, 0.1))))
+    decode_syncs = host_syncs(lambda: rt.decode(
+        got["state"], got["pay"]["sum"], got["pay"]["n_total"], 0.1))
+    print(f"[overlap] host syncs left in the decode half (each ends the "
+          f"overlap there): {decode_syncs or 'none'}; in the client half: "
+          f"{cohort_syncs or 'none'}", flush=True)
+    del rt, state, got, runs, mono, split
+
+    gpt2 = {arm: [] for arm in GPT2_OVERLAP_ARMS}
+    for arm in GPT2_OVERLAP_ARMS + GPT2_OVERLAP_ARMS[::-1]:
+        K.reset_launches()
+        res = bench_gpt2.run(n_rounds=GPT2_OVERLAP_ROUNDS,
+                             **gpt2_mfu_sweep.ARMS[arm])
+        launches_by[f"bench_gpt2 sweep arm {arm}"] = dict(K.launches)
+        ms = 1e3 * res["tokens_per_round"] / res["value"]
+        gpt2[arm].append((ms, res["memory_ledger_decode"]))
+        torch.cuda.empty_cache()
+    smi = smi_line()
+    print(f"[overlap] A/B on {smi}, interleaved: ResNet-9 median round "
+          f"(rounds 2-{ROUNDS_SPLIT}, ms) monolithic "
+          f"{[round(x, 3) for x in medians['monolithic']]}, split "
+          f"{[round(x, 3) for x in medians['split']]}; GPT-2 bench round "
+          f"({GPT2_OVERLAP_ROUNDS} timed, ms) "
+          + ", ".join(f"{a} {[round(ms, 3) for ms, _ in v]}"
+                      for a, v in gpt2.items())
+          + "; the decode half's peak above resident (GiB): "
+          + ", ".join(f"{a} {v[0][1]['temp_bytes'] / 2**30:.3f}"
+                      for a, v in gpt2.items() if v[0][1]), flush=True)
+    return launches_by, {"resnet9": medians, "gpt2": gpt2,
+                         "decode_syncs": decode_syncs,
+                         "cohort_syncs": cohort_syncs}
+
+
+def phase_mesh1():
+    """A clients mesh of one rank over NCCL (``--mesh_shape 1``: the group
+    set up as a lone process sets it, torn down in a ``finally``) at the
+    ResNet-9 headline round, 8 x 64 seeded images, MESH1_ROUNDS rounds
+    (cuDNN deterministic): the replicated tail, the sharded tail and the
+    sharded tail with the reduce in the decode (``--decode_overlap``),
+    the sharded forms bitwise the replicated one, each against the
+    no-mesh round at the JAX mesh test's tolerance; 9 K1 a round, K2's
+    whole decode once a replicated round and its range form once a
+    sharded one. Returns {path: launches}."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from commefficient_torch.config import FedConfig
+    from commefficient_torch.core.pipeline import DecodeOverlapRound
+    from commefficient_torch.core.runtime import FedRuntime
+    from commefficient_torch.losses import make_cv_loss
+    from commefficient_torch.models.resnet9 import ResNet9
+    from commefficient_torch.ops import circulant_kernels as K
+    from commefficient_torch.parallel.mesh import init_distributed, make_mesh
+
+    rng = np.random.RandomState(3)
+    rounds = [{"image": rng.randn(8, 64, 32, 32, 3).astype(np.float32),
+               "target": rng.randint(0, 10, (8, 64))}
+              for _ in range(MESH1_ROUNDS)]
+    ids, mask = np.arange(8), np.ones((8, 64), bool)
+    base_kw = dict(mode="sketch", error_type="virtual", local_momentum=0.0,
+                   virtual_momentum=0.9, k=50_000, num_rows=5,
+                   num_cols=500_000, num_workers=8, local_batch_size=64,
+                   num_clients=100, telemetry=False)
+    arms = {}
+    device = init_distributed("cuda")
+    try:
+        mesh = make_mesh((1,), ("clients",))
+        if dist.get_backend() != "nccl" or mesh.size != 1:
+            fail(f"mesh of {mesh.size} over {dist.get_backend()}")
+        with deterministic_cudnn():
+            for arm, kw, m in (
+                    ("no mesh", {}, None),
+                    ("replicated tail", {"sketch_sharded_server": "off"},
+                     mesh),
+                    ("sharded tail", {"sketch_sharded_server": "on"}, mesh),
+                    ("sharded tail, reduce in the decode",
+                     {"sketch_sharded_server": "on",
+                      "decode_overlap": True}, mesh)):
+                model = ResNet9(num_classes=10,
+                                generator=torch.Generator().manual_seed(0))
+                rt = FedRuntime(FedConfig(**base_kw, **kw), model,
+                                make_cv_loss(model), device=device, mesh=m)
+                obj = DecodeOverlapRound(rt) if rt.cfg.decode_overlap else rt
+                st = obj.init_state()
+                torch.cuda.synchronize()
+                K.reset_launches()
+                losses, times = [], []
+                for b in rounds:
+                    t0 = time.perf_counter()
+                    st, met = obj.round(st, ids, b, mask, 0.1)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    losses.append(met["results"][0])
+                launches = dict(K.launches)
+                ranged = K.range_launches["circ_decode"]
+                arms[arm] = (rt.flat_weights(st).clone(),
+                             torch.stack(losses), launches, ranged,
+                             statistics.median(times[1:]) * 1e3)
+                if m is not None and (rt.sharded_server
+                                      != ("sharded" in arm)):
+                    fail(f"mesh1 {arm}: sharded server "
+                         f"{rt.sharded_server}")
+                del rt, obj, st, model
+    finally:
+        dist.destroy_process_group()
+    ref_w, ref_l = arms["replicated tail"][:2]
+    for arm in ("sharded tail", "sharded tail, reduce in the decode"):
+        w, lo = arms[arm][:2]
+        if not (same_bits(w, ref_w) and same_bits(lo, ref_l)):
+            fail(f"mesh1: the {arm} is not bitwise the replicated tail")
+    w0, l0 = arms["no mesh"][:2]
+    dw = float((ref_w - w0).abs().max())
+    exact = same_bits(ref_w, w0) and same_bits(ref_l, l0)
+    if not torch.allclose(ref_w, w0, rtol=MESH1_RTOL, atol=MESH1_ATOL) or \
+            not torch.allclose(ref_l, l0, rtol=1e-5):
+        fail(f"mesh1: the mesh round departs from the no-mesh round "
+             f"(max|dw| {dw})")
+    out = {}
+    for arm, (_, _, launches, ranged, ms) in arms.items():
+        sharded = "sharded" in arm
+        want = {"circ_encode": 9 * MESH1_ROUNDS,
+                "circ_decode": MESH1_ROUNDS}
+        if launches != want or ranged != (MESH1_ROUNDS if sharded else 0):
+            fail(f"mesh1 {arm}: launches {launches}, range form {ranged}")
+        out[f"mesh1 {arm}"] = {"circ_encode": launches["circ_encode"],
+                               "circ_decode": launches["circ_decode"]
+                               - ranged, "circ_decode_range": ranged}
+    print(f"[mesh1] 1-rank NCCL mesh, {MESH1_ROUNDS} headline rounds: the "
+          f"sharded tail and the reduce in the decode bitwise the "
+          f"replicated tail; against the no-mesh round bitwise {exact} "
+          f"(max|dw| {dw:.3e}); K2's range form once a sharded round; "
+          "round medians (ms): "
+          + ", ".join(f"{a} {v[4]:.3f}" for a, v in arms.items()),
+          flush=True)
+    return out
+
+
+def run_slice17() -> tuple:
+    """K2's range form at m = 14 and m = 176, the split round and the
+    1-rank mesh."""
+    decode_range = {"m=14": phase_decode_range(FLAGSHIP),
+                    "m=176": phase_decode_range(GPT2_SKETCH)}
+    time_done("K2's range form")
+    overlap_launches, overlap = phase_decode_overlap()
+    time_done("the split round (--decode_overlap)")
+    mesh_launches = phase_mesh1()
+    time_done("the 1-rank NCCL mesh")
+    return decode_range, overlap_launches, overlap, mesh_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5360,6 +5736,13 @@ def main() -> int:
                             sys.argv[4] if len(sys.argv) > 4 else CURVES_OUT)
             time_done("curves (partial run: no result line)")
             return 0
+        if sys.argv[1:2] == ["--mesh"]:
+            # K2's range form, the split round and the 1-rank mesh alone,
+            # after the build (no result line)
+            phase_build()
+            run_slice17()
+            time_done("mesh (partial run: no result line)")
+            return 0
         if sys.argv[1:2] == ["--services"]:
             # the runtime services' phases alone, after the build: a quick
             # check of this slice, with no kernel line and no result line
@@ -5401,6 +5784,7 @@ def run_phases(t0: float) -> int:
     k1_range = {"gpt2": phase_kernels_range(GPT2_SKETCH, scale=4.0),
                 "stream": phase_kernels_range(STREAM_SKETCH, scale=32.0)}
     done("K1/K2, K1's range form")
+    decode_range, overlap_launches, overlap, mesh_launches = run_slice17()
     flash = phase_flash()
     done("K3")
     phase_small_reference()
@@ -5484,6 +5868,18 @@ def run_phases(t0: float) -> int:
           + ", ".join(f"{shape} {k} {t['ms']:.4f} ({t['bound_ms']:.4f})"
                       for shape, kinds in k1_range.items()
                       for k, t in kinds.items()), flush=True)
+    print("[slice 17] K2's range form (ms, bound): "
+          + ", ".join(f"{m} {n} shards {t['ms']:.4f} ({t['bound_ms']:.4f})"
+                      for m, shards in decode_range.items()
+                      for n, t in shards.items())
+          + "; split round A/B (ms) ResNet-9 "
+          + ", ".join(f"{a} {[round(x, 3) for x in v]}"
+                      for a, v in overlap["resnet9"].items())
+          + ", GPT-2 "
+          + ", ".join(f"{a} {[round(ms, 3) for ms, _ in v]}"
+                      for a, v in overlap["gpt2"].items())
+          + f"; decode-half host syncs {overlap['decode_syncs']}",
+          flush=True)
     print(f"[imagenet] this slice's paths, round medians (ms): ImageNet "
           f"FixupResNet50 "
           + ", ".join(f"{m} {ms:.3f}" for m, ms in imagenet_ms.items())
@@ -5577,7 +5973,11 @@ def run_phases(t0: float) -> int:
                       for path, launches in crash_launches.items()},
                    **{f"curves {arm} seed {seed} (1 epoch)":
                       rec["launches"][name]
-                      for (arm, seed), rec in curve_recs.items()}}
+                      for (arm, seed), rec in curve_recs.items()},
+                   **{path: launches[name]
+                      for path, launches in overlap_launches.items()},
+                   **{path: launches[name]
+                      for path, launches in mesh_launches.items()}}
         extra = {}
         if name == "circ_encode":
             extra = {"range_launches": stream["streaming_grad"][1],
@@ -5593,6 +5993,17 @@ def run_phases(t0: float) -> int:
             "at_stream_shape": circ_stream[name],
             "at_gpt2_bench_shape": circ_gpt2_bench[name],
             "sass_per_term": sketch_sass[name], **extra})
+    # K2's range form: the sharded server tail's decode of a rank's
+    # coordinates (the headline's m = 14 shard of 4; m = 176 beside it)
+    by_path = {path: launches["circ_decode_range"]
+               for path, launches in mesh_launches.items()}
+    kernels.append({
+        "name": "circ_decode_range", "route": "cuda",
+        "source": "commefficient_torch/csrc/circulant.cu",
+        "replaces": f"{pallas_file}:175",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        **decode_range["m=14"][4],
+        "shards": decode_range})
     for name, line in (("flash_fwd", 589), ("flash_bwd_dq", 1287),
                        ("flash_bwd_dkv", 941)):
         by_path = {"gpt2_train rounds": gpt2_rounds[name],

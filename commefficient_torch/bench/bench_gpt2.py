@@ -21,10 +21,12 @@ peak above resident memory of one warm round on the card
 port has no compiler cost analysis, so the roofline's byte fields are
 null. The timed rounds run with ``observe=False`` (bench_common).
 
-``ledger_ab`` measures the client half of the split round
-(``FedRuntime.cohort``) with the fused sketch encode on and off.
-``decode_overlap`` (the JAX package's split round behind
-``--decode_overlap``) is ROADMAP A9 and raises here.
+``decode_overlap`` times the split round (``--decode_overlap``,
+core/pipeline.py ``DecodeOverlapRound``: the client half, then the
+decode half), whose ``memory_ledger`` is then the client half's and
+``memory_ledger_decode`` the decode half's. ``ledger_ab`` measures the
+client half of the split round (``FedRuntime.cohort``) with the fused
+sketch encode on and off.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from commefficient_torch.bench.bench_common import (log, mfu_of,
                                                     timed_rounds,
                                                     with_retries)
 from commefficient_torch.config import FedConfig
+from commefficient_torch.core.pipeline import DecodeOverlapRound
 from commefficient_torch.core.runtime import FedRuntime
 from commefficient_torch.losses import make_gpt2_train_loss
 from commefficient_torch.models.gpt2 import (GPT2Config, GPT2DoubleHeads,
@@ -55,21 +58,10 @@ from commefficient_torch.telemetry.utilization import (device_kind_of,
 # package's figure for one V100)
 NOMINAL_SINGLE_GPU_TOK_PER_SEC = 4500.0
 
-DECODE_OVERLAP_REFUSAL = (
-    "decode_overlap: the split round (--decode_overlap: the decode of "
-    "round t running while round t+1 stages) is not ported; it is queued "
-    "with the multi-GPU work in ROADMAP A9")
-
-
-def refuse_decode_overlap(decode_overlap: bool) -> None:
-    if decode_overlap:
-        raise ValueError(DECODE_OVERLAP_REFUSAL)
-
-
 def run_config(remat: bool = True, *, remat_policy: str = "",
                microbatch: int = 8, lm_chunk: int = 128,
                fused_encode: str = "auto", wire_dtype: str = "float32",
-               dryrun: bool = False
+               decode_overlap: bool = False, dryrun: bool = False
                ) -> Tuple[GPT2Config, Tuple[int, int, int, int], FedConfig]:
     """The model config, the round shape (W, B, NC, S) and the FedConfig
     of ``run``. ``dryrun`` shrinks the model (``GPT2Config.small``), the
@@ -94,6 +86,7 @@ def run_config(remat: bool = True, *, remat_policy: str = "",
                     microbatch_size=microbatch,
                     num_clients=100, track_bytes=False, approx_topk=True,
                     lm_chunk=lm_chunk, sketch_fused_encode=fused_encode,
+                    decode_overlap=decode_overlap,
                     wire_dtype=wire_dtype, **sketch_kw)
     return gcfg, (W, B, NC, S), cfg
 
@@ -148,13 +141,12 @@ def run(remat: bool = True, telemetry=None, profiler=None, *,
     streams into the round's table; ``off``: the clients' dense sum is
     encoded once; ``on``: fail if ineligible). ``dryrun``: the smoke
     scale of ``run_config``, its line marked ``dryrun: true``."""
-    refuse_decode_overlap(decode_overlap)
     dev = resolve_device(device)
     log("device:", device_kind_of(dev))
     gcfg, (W, B, NC, S), cfg = run_config(
         remat, remat_policy=remat_policy, microbatch=microbatch,
         lm_chunk=lm_chunk, fused_encode=fused_encode, wire_dtype=wire_dtype,
-        dryrun=dryrun)
+        decode_overlap=decode_overlap, dryrun=dryrun)
     runtime = build_runtime(gcfg, cfg, dev)
     if telemetry is not None:
         telemetry.memory_event("gpt2_init")
@@ -162,7 +154,8 @@ def run(remat: bool = True, telemetry=None, profiler=None, *,
     mask = np.ones((W, B), bool)
     ids = np.arange(W)
     args = (ids, batch, mask, 0.1)
-    dt, metrics, phases = timed_rounds(runtime, args, warmup=1,
+    bench_rt = DecodeOverlapRound(runtime) if decode_overlap else runtime
+    dt, metrics, phases = timed_rounds(bench_rt, args, warmup=1,
                                        rounds=n_rounds, desc="gpt2",
                                        profiler=profiler, device=dev)
     warmup_s = phases.pop("warmup_s", None)
@@ -176,16 +169,31 @@ def run(remat: bool = True, telemetry=None, profiler=None, *,
     log(f"{n_rounds} rounds in {dt:.3f}s -> {tps:.0f} tok/s, loss {loss:.3f}")
     log(f"model FLOPs/round {flops:.3e}, peak {peak}, MFU {mfu}")
 
-    # the peak above resident memory of one warm round (on the card)
-    mledger = None
+    # the peak above resident memory of one warm round (on the card); of
+    # each half under the split
+    mledger = decode_ledger = None
     if dev.type == "cuda":
         state = runtime.init_state()
-        with measure_round(dev) as mr:
-            runtime.round(state, *args, observe=False)
-            torch.cuda.synchronize(dev)
-        mledger = mr.ledger()
+        if decode_overlap:
+            with measure_round(dev) as mr:
+                state, payload = runtime.cohort(state, *args)
+                torch.cuda.synchronize(dev)
+            mledger = mr.ledger()
+            with measure_round(dev) as mr:
+                runtime.decode(state, payload["sum"], payload["n_total"],
+                               0.1)
+                torch.cuda.synchronize(dev)
+            decode_ledger = mr.ledger()
+            del payload
+        else:
+            with measure_round(dev) as mr:
+                runtime.round(state, *args, observe=False)
+                torch.cuda.synchronize(dev)
+            mledger = mr.ledger()
         del state
-        log(f"memory ledger of a warm round: {mledger}")
+        log(f"memory ledger of a warm round: {mledger}"
+            + (f"; of its decode half: {decode_ledger}"
+               if decode_overlap else ""))
     roof = roofline_fields(
         rounds=n_rounds, wall_s=dt, flops_per_round=flops,
         bytes_per_round=None, bytes_source=None, peak_flops=peak,
@@ -209,8 +217,9 @@ def run(remat: bool = True, telemetry=None, profiler=None, *,
         "input_wait_frac": round(phases["host_s"] / dt, 6),
         "roofline": roof,
         "memory_ledger": mledger,
-        # the split round's decode ledger: never, the split is A9
-        "memory_ledger_decode": None,
+        # under decode_overlap: the server half's ledger (the headline
+        # memory_ledger is then the client half's)
+        "memory_ledger_decode": decode_ledger,
         "dryrun": dryrun,
         "config": {"remat": remat, "remat_policy": remat_policy,
                    "microbatch": cfg.microbatch_size,
@@ -238,8 +247,8 @@ def ledger_ab(dryrun: bool = False, *, device="cuda",
     32-token dialogue). Each arm's ledger is the peak above resident
     memory of its second cohort call on the card (the first pays one-time
     set-up), null off the card; the record has the JAX record's keys.
-    ``decode_overlap`` (the JAX record's executable) raises: ROADMAP A9."""
-    refuse_decode_overlap(decode_overlap)
+    ``decode_overlap`` builds the cohort of the ``--decode_overlap``
+    split (the JAX record's executable) instead of the async one."""
     dev = resolve_device(device)
     if dryrun:
         gcfg = GPT2Config(vocab_size=8192, n_positions=128, n_embd=256,
@@ -265,7 +274,9 @@ def ledger_ab(dryrun: bool = False, *, device="cuda",
                         local_batch_size=B, microbatch_size=mb,
                         num_clients=100, track_bytes=False,
                         approx_topk=True, lm_chunk=min(128, S),
-                        sketch_fused_encode=fe, async_agg=True,
+                        sketch_fused_encode=fe,
+                        async_agg=not decode_overlap,
+                        decode_overlap=decode_overlap,
                         telemetry=False, **sketch_kw)
         runtime = build_runtime(gcfg, cfg, dev)
         d = runtime.cfg.grad_size

@@ -9,8 +9,8 @@ package's ``scripts/gpt2_mfu_sweep.py``.
 Each arm is one ``bench_gpt2.run`` (the same round and analytic-FLOPs
 MFU) and lands as one JSON line in ``--out`` as it finishes; an arm that
 fails writes its error on its line and the sweep goes on. The last
-stdout line names the best arm. The ``overlap`` arms need the split
-round (``--decode_overlap``, ROADMAP A9): their lines carry that error.
+stdout line names the best arm. The ``overlap`` arms time the split
+round (``--decode_overlap``, core/pipeline.py ``DecodeOverlapRound``).
 ``--compile_cache`` is refused (the port has no compile step).
 """
 
@@ -35,7 +35,7 @@ ARMS = {
     # the clients' dense sum encoded once instead of every microbatch
     # gradient streamed into the table
     "unfused_encode": {"fused_encode": "off"},
-    # the split round (--decode_overlap): ROADMAP A9
+    # the split round (--decode_overlap)
     "overlap": {"decode_overlap": True},
     "overlap_unfused": {"decode_overlap": True, "fused_encode": "off"},
     "no_remat": {"remat": False},

@@ -325,6 +325,10 @@ class CheckpointManager:
         # set by setup_checkpointing's resume: the rounds trained inside
         # the restored epoch and the meta's host ledgers
         self.resume: Dict = {}
+        # a mesh run's gather of the ranks' slices, and whether this
+        # process writes (rank 0)
+        self.gather = None
+        self.writes = True
 
     def path(self, epoch: int, round_in_epoch: int = 0,
              tag: Optional[str] = None) -> str:
@@ -352,10 +356,18 @@ class CheckpointManager:
     def save(self, state: FedState, epoch: int,
              meta: Optional[Dict] = None, round_in_epoch: int = 0,
              tag: Optional[str] = None) -> str:
+        """Write a generation; on a mesh (``gather`` set by
+        ``setup_checkpointing``) every rank calls it, the ranks' slices
+        are gathered into the whole single-device state, and rank 0
+        alone writes (``writes``)."""
         meta = dict(self.default_meta, **(meta or {}), epoch=epoch,
                     round_in_epoch=int(round_in_epoch))
         if tag:
             meta["tag"] = tag
+        if self.gather is not None:
+            state = self.gather(state)
+        if not self.writes:
+            return self.path(epoch, round_in_epoch, tag) + ".npz"
         self.clean_stale_tmp()
         t0 = time.perf_counter()
         out = save_state(self.path(epoch, round_in_epoch, tag), state, meta)
@@ -569,12 +581,18 @@ def setup_checkpointing(cfg, runtime, name: str):
     async_gen = async_generation(cfg)
     mgr.default_meta = {"torch_layout": layout, "sketch_gen": sketch_gen,
                         "async_gen": async_gen}
+    mesh = getattr(runtime, "mesh", None)
+    if mesh is not None:
+        mgr.gather = runtime.gather_state
+        mgr.writes = mesh.rank == 0
     if not cfg.do_resume:
         return mgr, 0, None, 0
     t0 = time.perf_counter()
     state, meta = mgr.restore_latest(
         runtime.device, expect_layout=layout,
-        expect_shapes=runtime.state_shapes(), expect_sketch_gen=sketch_gen,
+        expect_shapes=getattr(runtime, "full_state_shapes",
+                              runtime.state_shapes)(),
+        expect_sketch_gen=sketch_gen,
         unverified=cfg.resume_unverified, expect_async_gen=async_gen)
     if state is None:
         print(f"--resume: no checkpoint under {mgr.directory}; starting "
@@ -587,6 +605,9 @@ def setup_checkpointing(cfg, runtime, name: str):
               f"({meta.get('sketch_gen')!r} -> {sketch_gen!r}); momentum "
               "and error tables RESET, resuming from the weights only",
               file=sys.stderr)
+    # a mesh rank keeps its slices of the whole state the file holds
+    if mesh is not None:
+        state = runtime.shard_state(state)
     state = fit_services(state, runtime)
     epoch = int(meta.get("epoch", 0))
     in_epoch = int(meta.get("round_in_epoch", 0))

@@ -21,10 +21,13 @@ the SRHT's row scan (``--sketch_scan_rows``), the runtime services
 quarantine, FedBuff and its straggler scenarios, the preemption drain
 and the watchdog) and the run telemetry (``add_telemetry_args``: the
 ``telemetry.jsonl`` stream, the in-round signals and client statistics,
-the anomaly monitor, utilization peaks and the profiler window). A value
-or flag outside it raises and names the flag: meshes and the XLA-only
-flags are not ported (``--mesh_shape ""``, the JAX package's single
-device, is accepted).
+the anomaly monitor, utilization peaks and the profiler window), on one
+device or a clients mesh (``--mesh_shape``, one process a rank; the
+sharded sketch server tail, ``--sketch_sharded_server``), with the round
+split into its client and decode halves under ``--decode_overlap``. A
+value or flag outside it raises and names the flag: the XLA-only flags,
+a ``seq`` mesh axis, ``--checkpoint_sharded`` and the int8 wire on a mesh
+are not ported.
 Which combinations of mode, error type and momentum are legal is the
 server's rule (``core/server.py validate_mode_combo``), checked when a
 runtime is built, as in the JAX package. Defaults and choices are the
@@ -135,6 +138,13 @@ class FedConfig:
     sketch_server_state: str = "table"
     sketch_ef: str = "zero"
     sketch_fused_encode: str = "auto"
+    # the clients mesh (parallel/mesh.py): () is one device; the sharded
+    # sketch server tail on it (auto, on, off), and the round split into
+    # client and server-decode halves (core/pipeline.py)
+    mesh_shape: Tuple[int, ...] = ()
+    mesh_axes: Tuple[str, ...] = ("clients",)
+    sketch_sharded_server: str = "auto"
+    decode_overlap: bool = False
     error_decay: float = 1.0
     approx_topk: bool = False
     strict_regimes: bool = False
@@ -254,6 +264,7 @@ class FedConfig:
                    "dp_mode": DP_MODES, "sketch_impl": SKETCH_IMPLS,
                    "sketch_server_state": SERVER_STATES,
                    "sketch_fused_encode": ("auto", "on", "off"),
+                   "sketch_sharded_server": ("auto", "on", "off"),
                    "attn_impl": ("auto", "dense", "flash"),
                    "compute_dtype": ("bfloat16", "float32"),
                    "staleness_discount": DISCOUNT_RULES,
@@ -295,6 +306,20 @@ class FedConfig:
             raise ValueError(
                 f"--sketch_fused_encode on requires --mode sketch (mode="
                 f"{self.mode} has no sketch encode to fuse); use auto")
+        if self.sketch_sharded_server == "on" and self.mode != "sketch":
+            raise ValueError(
+                f"--sketch_sharded_server on requires --mode sketch (mode="
+                f"{self.mode} has no sketch server tail to shard); drop "
+                "the flag or use --sketch_sharded_server auto (a no-op "
+                "off sketch mode)")
+        if self.decode_overlap and self.async_agg:
+            raise ValueError(
+                "--decode_overlap and --async_agg are mutually exclusive: "
+                "async buffered aggregation already splits the round into "
+                "cohort and commit executables (and adds buffering "
+                "semantics on top). Drop one of the flags.")
+        from commefficient_torch.parallel.mesh import check_axes
+        check_axes(self.mesh_shape, self.mesh_axes)
         if self.sketch_dense_clip and (self.mode != "sketch"
                                        or self.max_grad_norm is None):
             # a clip study run unclipped would measure the wrong rule
@@ -572,8 +597,11 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--prefetch_depth", type=int, default=2,
                    help="rounds the input pipeline fetches ahead")
     p.add_argument("--mesh_shape", default="",
-                   help="the JAX package's device mesh; only \"\" (one "
-                        "device) is ported")
+                   help="comma-separated clients mesh, e.g. 2 (one process "
+                        "a rank: torchrun --nproc_per_node 2); empty = one "
+                        "device")
+    p.add_argument("--mesh_axes", default="clients",
+                   help="the mesh's axis names; only clients is ported")
     p.add_argument("--k", type=int, default=50_000)
     p.add_argument("--num_cols", type=int, default=500_000)
     p.add_argument("--num_rows", type=int, default=5)
@@ -630,6 +658,16 @@ def add_args(p: argparse.ArgumentParser) -> None:
                    default="table")
     p.add_argument("--sketch_ef", default="zero")
     p.add_argument("--sketch_fused_encode", default="auto")
+    p.add_argument("--sketch_sharded_server", default="auto",
+                   help="shard the sketch server tail over the mesh "
+                        "(reduce-scattered table, range decode, candidate "
+                        "top-k merge): auto = on an eligible mesh, on = "
+                        "require, off = the replicated tail")
+    p.add_argument("--decode_overlap", action="store_true",
+                   help="split the round into client and server-decode "
+                        "halves, so that the host stages round t+1 while "
+                        "the card decodes round t (bitwise the same "
+                        "rounds; the constraints of --async_agg)")
     p.add_argument("--error_decay", type=float, default=1.0)
     p.add_argument("--approx_topk", action="store_true",
                    help="accepted for the reference's command lines; the "
@@ -776,12 +814,12 @@ def add_gpt2_args(p: argparse.ArgumentParser) -> None:
 
 
 def config_from_args(ns: argparse.Namespace) -> FedConfig:
-    if getattr(ns, "mesh_shape", ""):
-        raise ValueError(
-            f"--mesh_shape {ns.mesh_shape!r}: the PyTorch port runs one "
-            "device (multi-GPU meshes are ROADMAP A9); pass --mesh_shape "
-            '"" or leave it out')
     kw = dict(vars(ns))
+    kw["mesh_shape"] = tuple(int(x) for x in
+                             str(kw.get("mesh_shape", "")).split(",") if x)
+    kw["mesh_axes"] = tuple(x for x in
+                            str(kw.get("mesh_axes", "clients")).split(",")
+                            if x)
     if kw.get("sketch_dtype") is not None:
         # the JAX package's parse-time warning; an explicit --wire_dtype
         # wins over the alias
@@ -799,13 +837,19 @@ def config_from_args(ns: argparse.Namespace) -> FedConfig:
 def parse_known(parser: argparse.ArgumentParser,
                 argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """``parse_known_args`` that raises on any flag outside the slice,
-    naming it (the JAX package's other flags, such as ``--mesh_axes``
-    or ``--compile_cache``, are not ported)."""
+    naming it (the JAX package's other flags, such as
+    ``--compile_cache``, are not ported)."""
     ns, rest = parser.parse_known_args(argv)
+    if "--checkpoint_sharded" in rest:
+        from commefficient_torch.parallel.mesh import NEXT_SLICE
+        raise ValueError(
+            "--checkpoint_sharded: per-rank checkpoint shards are "
+            f"{NEXT_SLICE}; the port writes the gathered state from rank "
+            "0 (--checkpoint_every)")
     if rest:
         flags = [a for a in rest if a.startswith("-")] or rest
         raise ValueError(
             f"{' '.join(flags)}: outside the PyTorch port's slice "
             "(the CV models on CIFAR10/100, FEMNIST or ImageNet, or GPT-2 "
-            "on PersonaChat, on one device; no meshes)")
+            "on PersonaChat, on one device or a clients mesh)")
     return ns

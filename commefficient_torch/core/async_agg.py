@@ -122,10 +122,9 @@ def validate_async_combo(cfg: FedConfig) -> None:
 def validate_overlap_combo(cfg: FedConfig) -> None:
     """--decode_overlap's fail-fast twin of :func:`validate_async_combo`:
     the split round shares the cohort step, so the same per-client
-    persistent-state combinations are out. The port has no
-    ``--decode_overlap`` yet (it runs with the multi-GPU queue), so this
-    refuses nothing until the flag exists."""
-    if not getattr(cfg, "decode_overlap", False):
+    persistent-state combinations are out (``FedConfig`` already rejects
+    --decode_overlap together with --async_agg)."""
+    if not cfg.decode_overlap:
         return
     problems = _split_round_problems(cfg)
     if problems:

@@ -57,7 +57,8 @@ import torch
 
 from commefficient_torch.checkpoint import save_postmortem
 from commefficient_torch.core.async_agg import AsyncAggregator, commit_loss
-from commefficient_torch.core.pipeline import RoundPipeline
+from commefficient_torch.core.pipeline import (DecodeOverlapRound,
+                                               RoundPipeline)
 from commefficient_torch.core.preempt import (PreemptGuard, RoundWatchdog,
                                               collect_ledger_state,
                                               restore_ledger_state,
@@ -402,7 +403,11 @@ def open_telemetry(cfg, runtime: FedRuntime, run_type: str, ckpt_mgr=None):
     stream and the TensorBoard writer) and its telemetry stream (None
     under ``--no_telemetry``), opened on the runtime's resolved config
     with the resume's lineage, its ``manifest`` and ``memory("init")``
-    written. Returns ``(logdir or None, telemetry or None)``."""
+    written. Returns ``(logdir or None, telemetry or None)``; on a mesh
+    only rank 0 writes (the others get ``(None, None)``)."""
+    mesh = getattr(runtime, "mesh", None)
+    if mesh is not None and mesh.rank != 0:
+        return None, None
     logdir = (cfg.logdir or make_logdir(cfg)
               if cfg.telemetry or cfg.use_tensorboard else None)
     resume = ckpt_mgr.resume if ckpt_mgr is not None else {}
@@ -496,12 +501,25 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
            if services else None)
     log.services = svc
     fetch = make_fetch(runtime, train_ds, train_store)
+    # --decode_overlap: each round as its client and decode halves; the
+    # loop waits for the client half alone
+    overlap = None
+    if cfg.decode_overlap:
+        overlap = DecodeOverlapRound(runtime)
+        print("decode overlap: round split into cohort + decode halves "
+              "(the decode half still syncs the host, so nothing "
+              "overlaps yet)")
     if svc is not None:
         fetch = svc.retrying(fetch)
     plan = runtime.adversary_plan if svc is not None else None
     defense_on = (cfg.defense != "none" or cfg.adversary != "none"
                   or cfg.nonfinite_action == "quarantine")
     every = cfg.telemetry_round_every
+    # which rounds compute the record's device metrics: on a mesh every
+    # rank computes them (their gathers are collectives), rank 0 alone
+    # writes them
+    watch = (cfg.telemetry if getattr(runtime, "mesh", None) is not None
+             else tel is not None)
     if eval_before_start:
         _, test_acc, _ = validate(runtime, state, val_ds,
                                   cfg.valid_batch_size, val_max_batches,
@@ -624,14 +642,16 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
                 else:
                     # the telemetry's device metrics only where a record
                     # reads them
-                    state, metrics = runtime.round(
+                    state, metrics = (overlap or runtime).round(
                         state, rnd.client_ids, item.batch, rnd.mask, lr_arr,
-                        observe=bool(tel is not None and every
-                                     and g % every == 0))
+                        observe=bool(watch and every and g % every == 0))
                 t_dispatch = time.perf_counter()
                 maybe_fault("mid_round", g)
                 with tracing.span("device_wait"):
-                    _sync(device)
+                    if overlap is not None:
+                        overlap.wait_cohort()
+                    else:
+                        _sync(device)
                 t_device = time.perf_counter()
                 round_s = t_device - t0
                 obs.prof.maybe_stop(g, obs.sync)

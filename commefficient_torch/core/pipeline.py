@@ -1,7 +1,10 @@
 """The round input pipeline, counterpart of the JAX package's
 ``core/pipeline.py`` (``RoundPipeline``, ``RoundInput``): a worker thread
 fetches the next rounds' batches, at most ``depth`` ahead, while the
-current round runs.
+current round runs; and its server-side twin, ``DecodeOverlapRound``
+(``--decode_overlap``), which splits a round so that the host could stage
+round t+1 while the card decodes round t (the sketch tail's host read
+still blocks it; see the class).
 
 Pipelining does not change what trains. The sampler is iterated by one
 thread only (the worker, or the caller when inline), in round order, so
@@ -215,3 +218,69 @@ class _Fetched(NamedTuple):
     event: Any
     wait_s: float
     fetch_s: float
+
+
+class DecodeOverlapRound:
+    """``--decode_overlap``: one federated round as its two halves, the
+    counterpart of the JAX package's ``core/pipeline.py
+    DecodeOverlapRound``. ``round`` enqueues the client half
+    (``FedRuntime.cohort``, the synchronous round's client code), records
+    a CUDA event on the current stream, and enqueues the server half
+    (``FedRuntime.decode``, its server tail), then returns; the driver
+    waits on that event (``wait_cohort``) and not on the decode, so that
+    the decode of round t could run on the card while the host stages
+    round t+1. It does not yet: what the decode half reads back to the
+    host ends the overlap there, and the sketch tail's sparse re-encode
+    reads its rank count (``ops/circulant.py ordered_cell_sum``) before
+    ``round`` returns, so ``wait_cohort`` finds the round done.
+    chip_smoke.py lists those reads. The rounds are bitwise
+    those of ``FedRuntime.round``: the port keys every draw by the round,
+    so splitting it changes no draw.
+
+    The metrics follow ``FedRuntime.round``'s contract, with ``signals``
+    and ``layer_signals`` None (the runtime prints the NOTE once)."""
+
+    def __init__(self, runtime):
+        if not runtime.cfg.decode_overlap:
+            raise ValueError(
+                "DecodeOverlapRound needs a runtime built with "
+                "cfg.decode_overlap=True (its cohort and decode halves "
+                "exist only then)")
+        self.runtime = runtime
+        self.cohort_done = None
+
+    def init_state(self):
+        """The runtime's: the adapter stands in for it in loops that build
+        their state through the object they call ``round`` on."""
+        return self.runtime.init_state()
+
+    def round(self, state, client_ids, batch, mask, lr, observe=True):
+        """``FedRuntime.round``'s contract: ``(state', metrics)``.
+        ``observe=False`` skips the client statistics, as there."""
+        rt = self.runtime
+        with tracing.span("cohort_dispatch"):
+            state, payload = rt.cohort(state, client_ids, batch, mask, lr,
+                                       observe)
+        if rt.device.type == "cuda":
+            self.cohort_done = torch.cuda.Event()
+            self.cohort_done.record(torch.cuda.current_stream(rt.device))
+        with tracing.span("decode_dispatch"):
+            state = rt.decode(state, payload["sum"], payload["n_total"], lr)
+        metrics = {
+            "results": payload["results"],
+            "n_valid": payload["n_valid"],
+            "download_bytes": payload["download_bytes"],
+            "upload_bytes": payload["upload_bytes"],
+            "signals": None,
+            "layer_signals": None,
+            "client_stats": payload["client_stats"],
+            "defense": payload["defense"],
+            "client_finite": payload["client_finite"],
+        }
+        return state, metrics
+
+    def wait_cohort(self) -> None:
+        """Block the host until the last round's client half has run on
+        the card (its decode may still be running)."""
+        if self.cohort_done is not None:
+            self.cohort_done.synchronize()

@@ -1,7 +1,8 @@
-"""FedRuntime on one device, counterpart of the JAX package's
-``core/runtime.py FedRuntime`` (its ``_round_step``, and its split
-round ``cohort``/``merge``/``commit`` for ``--async_agg``) without a
-mesh.
+"""FedRuntime, counterpart of the JAX package's ``core/runtime.py
+FedRuntime``: its ``_round_step``, its split round (``cohort`` with
+``merge``/``commit`` for ``--async_agg``, with ``decode`` for
+``--decode_overlap``), on one device or on a clients mesh
+(``parallel/mesh.py``: one process a rank).
 
 A round:
 
@@ -41,12 +42,33 @@ A round:
    and its per-client quantiles (telemetry/clients.py) are reduced on
    the device into the metrics; nothing is read back here.
 
-The split round (``--async_agg``) runs steps 1-3 in ``cohort``, which
-returns the unnormalized sum and its datum count; ``merge`` folds a
-landed cohort into ``FedState.async_buffer`` at its staleness weight
-(``merge_first`` swaps it in, no arithmetic) and ``commit`` runs steps 4-5
-on the buffer. Both halves are the synchronous round's own code, so one
-cohort merged first and committed at once is bitwise that round.
+The split round runs steps 1-3 in ``cohort``, which returns the
+unnormalized sum and its datum count. Under ``--async_agg`` ``merge``
+folds a landed cohort into ``FedState.async_buffer`` at its staleness
+weight (``merge_first`` swaps it in, no arithmetic) and ``commit`` runs
+steps 4-5 on the buffer; under ``--decode_overlap`` ``decode`` runs them
+on the cohort's sum (core/pipeline.py ``DecodeOverlapRound``). Both
+halves are the synchronous round's own code, so one cohort merged first
+and committed at once, or decoded, is bitwise that round.
+
+On a mesh of n ranks (the JAX package's ``:146-190, 275-370, 972-1050,
+1056-1420, 1620-1655``) each process holds its slices of the state
+(``FedShardings``: the (d_pad,) vectors in d_pad/n blocks, the sketch
+tables in column blocks under the sharded server tail and whole
+otherwise, the dense client rows in column blocks) and runs the round's
+positions ``[i W/n, (i+1) W/n)``, each client keyed by its global
+position (DP and adversary noise draw what one device draws). The
+weights cross in one all-gather a round; the dense aggregate is
+reduce-scattered onto the d_pad/n blocks, the sketch table all-reduced
+for the replicated tail or reduce-scattered over its columns for the
+sharded tail (``core/server.py sharded_sketch_server_update``), every
+float partial added in rank order (``Mesh.all_reduce``), so the two tails
+are bitwise equal. Dense client rows move between their home column
+blocks and the ranks computing them by one all_to_all each way. The
+per-client results, datum counts, finite flags and gradient statistics
+are gathered, so every rank's metrics are those of the single-device
+round; the signals, on rounds that record them, read whole vectors
+gathered for them.
 """
 
 from __future__ import annotations
@@ -59,16 +81,23 @@ import torch
 
 from commefficient_torch.config import FedConfig, auto_num_cols
 from commefficient_torch.core import client as client_lib
-from commefficient_torch.core.async_agg import validate_async_combo
+from commefficient_torch.core.async_agg import (validate_async_combo,
+                                                validate_overlap_combo)
 from commefficient_torch.core.server import (nanmedian, robust_aggregate,
                                              server_update,
+                                             sharded_sketch_server_update,
+                                             sharded_topk_update,
                                              validate_defense_combo,
                                              validate_mode_combo,
                                              validate_regimes)
 from commefficient_torch.core.state import FedState
 from commefficient_torch.data.scenarios import make_adversary
 from commefficient_torch.ops.sketch import make_sketch_impl
+from commefficient_torch.ops.topk import (local_topk_candidates,
+                                          merge_topk_candidates,
+                                          scatter_winners)
 from commefficient_torch.ops.wire import wire_round_trip
+from commefficient_torch.parallel.mesh import NEXT_SLICE, FedShardings
 from commefficient_torch.telemetry.clients import (CLIENT_GRAD_KEYS,
                                                    summarize_per_client)
 from commefficient_torch.telemetry.layer_signals import (
@@ -115,11 +144,14 @@ class FedRuntime:
     (``model.flat``, the initial weights; ``model.num_params``);
     ``loss_fn(flat, batch, mask)`` follows the contract of losses.py, and
     ``loss_fn_val`` (default ``loss_fn``) is the one ``val`` runs. The
-    per-client state has ``cfg.default_num_clients()`` rows. ``device``
-    defaults to the card."""
+    per-client state has ``cfg.default_num_clients()`` rows (on a mesh
+    padded to a multiple of its size). ``device`` defaults to the card;
+    ``mesh`` (``parallel.make_mesh``) runs this process's rank of a
+    clients mesh on it."""
 
     def __init__(self, cfg: FedConfig, model, loss_fn: Callable,
-                 device="cuda", loss_fn_val: Optional[Callable] = None):
+                 device="cuda", loss_fn_val: Optional[Callable] = None,
+                 mesh=None):
         self.device = torch.device(device)
         d = int(model.num_params)
         cfg = cfg.replace(grad_size=d)
@@ -133,10 +165,33 @@ class FedRuntime:
                 cfg = cfg.replace(num_cols=c)
         validate_mode_combo(cfg)
         validate_regimes(cfg)
-        validate_defense_combo(cfg)
+        validate_defense_combo(cfg, mesh=mesh)
         validate_async_combo(cfg)
+        validate_overlap_combo(cfg)
         self.cfg = cfg
-        self.num_clients = cfg.default_num_clients()
+        self.mesh = mesh
+        n = mesh.size if mesh is not None else 1
+        if mesh is not None:
+            if torch.device(mesh.device) != self.device:
+                raise ValueError(f"the mesh computes on {mesh.device}, the "
+                                 f"runtime on {self.device}")
+            if cfg.num_workers % n:
+                raise ValueError(
+                    f"--num_workers {cfg.num_workers} must be divisible by "
+                    f"the mesh axis size {n}")
+            if cfg.wire_dtype == "int8":
+                raise ValueError(
+                    "--wire_dtype int8 on a mesh: its reduce is an "
+                    "all_to_all of int8 column shards, which is "
+                    f"{NEXT_SLICE}; use --wire_dtype float32 or bfloat16")
+        # the client rows and the dense federated vectors padded to mesh
+        # multiples, so that both shard evenly (the JAX package's d_pad)
+        self.num_clients = -(-cfg.default_num_clients() // n) * n
+        self.d_pad = -(-d // n) * n
+        self.shard_len = self.d_pad // n
+        # rank i's positions of the round and coordinates of the vectors
+        self.rank = mesh.rank if mesh is not None else 0
+        self.n_shards = n
         # the robustness services: what acts on each client's upload, the
         # adversaries' assignment over the whole universe (the host's and
         # the round's view of one draw), the normclip ring
@@ -176,19 +231,22 @@ class FedRuntime:
         self.defer_encode = cfg.mode == "sketch" and not cfg.table_clip
         # the dense server state: (d,) momentum and error pre-images,
         # always for the SRHT (a dense transform has no table cells)
-        self.dense_preimage = self.defer_encode and (
+        # (one device only: on a mesh it would turn the table-sized
+        # reduce back into a d-sized one)
+        self.dense_preimage = self.defer_encode and mesh is None and (
             self.cs.dense_transform or cfg.sketch_server_state == "dense")
         if (cfg.mode == "sketch" and cfg.sketch_server_state == "dense"
                 and not self.dense_preimage):
             raise ValueError(
-                "--sketch_server_state dense requires deferred encode (no "
-                "per-client table clip; use --sketch_dense_clip to clip)")
+                "--sketch_server_state dense requires a single device (no "
+                "mesh) and deferred encode (no per-client table clip; use "
+                "--sketch_dense_clip to clip)")
         # the telemetry's gates, as the JAX package sets them: signals and
         # client statistics only where a stream reads them, no signals
-        # under the async split (a round's aggregate and its update are
+        # under the split rounds (a round's aggregate and its update are
         # decoupled there)
         self._signals = (cfg.signals and cfg.telemetry
-                         and not cfg.async_agg)
+                         and not cfg.async_agg and not cfg.decode_overlap)
         if cfg.signals and cfg.telemetry and cfg.async_agg:
             print("NOTE: --async_agg disables the per-round `signals` "
                   "diagnostics (they compare a round's aggregate against "
@@ -196,12 +254,20 @@ class FedRuntime:
                   "aggregation decouples); commit-granularity EF norms "
                   "are emitted on the `async_round` events instead. Pass "
                   "--no_signals to silence this note.", file=sys.stderr)
+        if cfg.signals and cfg.telemetry and cfg.decode_overlap:
+            print("NOTE: --decode_overlap disables the per-round `signals` "
+                  "diagnostics: the split round's client block finishes "
+                  "before the server decode it would be compared against "
+                  "(that early finish is the point of the split). Pass "
+                  "--no_signals to silence this note.", file=sys.stderr)
         # the dense summed gradient before the deferred encode, kept for
         # grad_true_norm; with --signals_exact the table state's dense
-        # shadow error pair rides in FedState
+        # shadow error pair rides in FedState (one device only: a mesh
+        # never holds the dense aggregate)
         self._signals_dense_cap = (self._signals and cfg.mode == "sketch"
                                    and self.defer_encode
-                                   and not self.dense_preimage)
+                                   and not self.dense_preimage
+                                   and mesh is None)
         self._signals_shadow = self._signals_dense_cap and cfg.signals_exact
         self._client_stats = cfg.client_stats and cfg.telemetry
         # the JAX package's fused client loop (one scan into one buffer,
@@ -264,6 +330,48 @@ class FedRuntime:
             self.group_spec = make_group_spec(
                 self.layout or [("params/params", (d,))], cfg.signal_groups)
             assert self.group_spec.d == d, (self.group_spec.d, d)
+        # the sharded sketch server tail (core/server.py
+        # sharded_sketch_server_update), decided once here as the JAX
+        # package decides it: auto falls back to the replicated tail (the
+        # same numbers), on raises with every blocker
+        ss_problems = []
+        if cfg.mode == "sketch":
+            if mesh is None:
+                ss_problems.append(
+                    "no mesh: there is nothing to shard the server tail "
+                    "over (the single-device round already holds the "
+                    "whole table)")
+            else:
+                if self.cs.dense_transform \
+                        or not hasattr(self.cs, "decode_range"):
+                    ss_problems.append(
+                        f"sketch_impl={cfg.sketch_impl} has a dense "
+                        "transform (no cell-addressable table, no "
+                        "range-restricted decode, and an estimate-space "
+                        "EF rule); use circ or hash")
+                if cfg.num_cols % n:
+                    ss_problems.append(
+                        f"num_cols={cfg.num_cols} is not divisible by the "
+                        f"clients mesh axis ({n} ranks): the "
+                        "reduce-scattered column shards must tile evenly "
+                        "(pick --num_cols as a multiple of the rank count)")
+        self.sharded_server = (cfg.mode == "sketch"
+                               and cfg.sketch_sharded_server != "off"
+                               and not ss_problems)
+        if cfg.sketch_sharded_server == "on" and not self.sharded_server:
+            raise ValueError(
+                "--sketch_sharded_server on: the sharded server tail is "
+                "unavailable for this configuration (use auto to fall "
+                "back to the replicated tail instead):\n  "
+                + "\n  ".join(ss_problems))
+        # --decode_overlap with the sharded tail: the cohort ends at each
+        # rank's local partial table and the decode runs the reduce
+        self._reduce_in_decode = self.sharded_server and cfg.decode_overlap
+        # which slice of each state field this rank holds
+        self.shard_of = (FedShardings(mesh).for_state(
+            cfg, self.full_state_shapes(),
+            sharded_server=self.sharded_server)
+            if mesh is not None else None)
         # the int8 wire (ops/wire.py): an explicit request, so what it
         # cannot serve raises
         self._int8_wire, self._wire_block = False, 0
@@ -307,11 +415,12 @@ class FedRuntime:
                                  or self._int8_wire))
         self._val_fn = client_lib.make_val_step(loss_fn_val or loss_fn)
 
-    def state_shapes(self) -> Dict[str, Optional[Tuple[int, ...]]]:
-        """The shape of each ``FedState`` field this run holds (None: a
-        field it does not hold)."""
+    def full_state_shapes(self) -> Dict[str, Optional[Tuple[int, ...]]]:
+        """The shape of each ``FedState`` field of the single-device round
+        (None: a field the run does not hold): the whole state, as a
+        checkpoint holds it."""
         cfg = self.cfg
-        d, n = cfg.grad_size, self.num_clients
+        d, n = cfg.grad_size, cfg.default_num_clients()
         server = (self.cs.table_shape
                   if cfg.mode == "sketch" and not self.dense_preimage
                   else (d,))
@@ -331,6 +440,90 @@ class FedRuntime:
                                 if self._defense_ring else None),
                 "sig_Vvelocity": (d,) if self._signals_shadow else None,
                 "sig_Verror": (d,) if self._signals_shadow else None}
+
+    def state_shapes(self) -> Dict[str, Optional[Tuple[int, ...]]]:
+        """The shape of each ``FedState`` field this process holds: the
+        whole state on one device, this rank's slices on a mesh."""
+        shapes = self.full_state_shapes()
+        if self.mesh is None:
+            return shapes
+        n, N = self.n_shards, self.num_clients
+        out = {}
+        for name, shape in shapes.items():
+            kind = self.shard_of[name]
+            if kind == "dense":
+                shape = (self.shard_len,)
+            elif kind == "cols":
+                shape = ((N, self.shard_len) if len(shape) == 2
+                         and name.startswith("client_")
+                         else shape[:-1] + (shape[-1] // n,))
+            elif name == "client_last_round":
+                shape = (N,)
+            out[name] = shape
+        return out
+
+    def _block(self, full: torch.Tensor, kind: Optional[str],
+               fill: float = 0.0, rows: bool = False) -> torch.Tensor:
+        """This rank's slice of a single-device field: a (d,) vector
+        padded with ``fill`` to d_pad and cut to the rank's block; a
+        table's column block; the column block of every client row, the
+        rows padded to the mesh's client count."""
+        if kind is None or kind == "replicated":
+            return full
+        lo, n = self.rank * self.shard_len, self.n_shards
+        if kind == "dense":
+            pad = self.d_pad - full.shape[0]
+            full = torch.nn.functional.pad(full, (0, pad), value=fill)
+            return full[lo:lo + self.shard_len].clone()
+        if rows:
+            padded = torch.nn.functional.pad(
+                full, (0, self.d_pad - full.shape[1],
+                       0, self.num_clients - full.shape[0]), value=fill)
+            return padded[:, lo:lo + self.shard_len].clone()
+        c = full.shape[-1] // n
+        return full[..., self.rank * c:(self.rank + 1) * c].clone()
+
+    def shard_state(self, full: FedState) -> FedState:
+        """This rank's slices of a whole (single-device) state, such as a
+        checkpoint restores; the state itself without a mesh."""
+        if self.mesh is None:
+            return full
+        fields = {}
+        for name, kind in self.shard_of.items():
+            val = getattr(full, name)
+            if val is None or name == "step":
+                continue
+            val = val.to(self.device)
+            if name == "client_last_round":
+                val = torch.nn.functional.pad(
+                    val, (0, self.num_clients - val.shape[0]))
+            fields[name] = self._block(
+                val, kind, fill=-1 if name == "coord_last_update" else 0,
+                rows=name.startswith("client_"))
+        return full.replace(**fields)
+
+    def gather_state(self, state: FedState) -> FedState:
+        """The whole single-device state from the ranks' slices (a
+        collective: every rank calls it and gets it); the state itself
+        without a mesh."""
+        if self.mesh is None:
+            return state
+        d, N = self.cfg.grad_size, self.cfg.default_num_clients()
+        fields = {}
+        for name, kind in self.shard_of.items():
+            val = getattr(state, name)
+            if val is None or name == "step":
+                continue
+            if kind == "dense":
+                val = self.mesh.gather_rows(val)[:d]
+            elif kind == "cols":
+                val = self.mesh.gather_cols(val)
+                if name.startswith("client_"):
+                    val = val[:N, :d]
+            elif name == "client_last_round":
+                val = val[:N]
+            fields[name] = val
+        return state.replace(**fields)
 
     def init_state(self) -> FedState:
         dev, shapes = self.device, self.state_shapes()
@@ -352,13 +545,16 @@ class FedRuntime:
             return (torch.full(shape, fill, dtype=dtype, device=dev)
                     if shape is not None else None)
 
+        weights = self.initial_weights
+        if self.mesh is not None:
+            weights = self._block(weights, "dense")
         return FedState(
-            ps_weights=self.initial_weights.clone(),
+            ps_weights=weights.clone(),
             Vvelocity=zeros("Vvelocity"), Verror=zeros("Verror"), step=0,
             client_velocities=zeros("client_velocities"),
             client_errors=zeros("client_errors"),
             # every client starts from the initial weights
-            client_weights=(self.initial_weights.expand(
+            client_weights=(weights.expand(
                 shapes["client_weights"]).clone()
                 if shapes["client_weights"] is not None else None),
             coord_last_update=zeros("coord_last_update", -1, torch.int32),
@@ -399,8 +595,9 @@ class FedRuntime:
 
     def _transmit_tail(self, state: FedState, ids: torch.Tensor,
                        tx: torch.Tensor, results: torch.Tensor,
-                       n_valid: torch.Tensor):
-        """The JAX package's ``_transmit_tail`` on the (W, ...) uploads:
+                       n_valid: torch.Tensor, slot0: int = 0):
+        """The JAX package's ``_transmit_tail`` on the (W, ...) uploads
+        (a rank's W/n, its first at round position ``slot0``):
         injection, then the quarantine's zeroing, then the per-client
         wire, then the robust (or plain) sum. Returns ``(agg, results,
         n_valid, client_finite or None, defense stats or None, cur_med or
@@ -408,7 +605,7 @@ class FedRuntime:
         cfg, W = self.cfg, tx.shape[0]
         client_finite = stats = cur_med = None
         if self._adv_inject:
-            gens = ([noise_generator(cfg.seed, state.step, w + 1,
+            gens = ([noise_generator(cfg.seed, state.step, slot0 + w + 1,
                                      self.device, fold=ADV_FOLD)
                      for w in range(W)]
                     if cfg.adversary == "noise" else None)
@@ -418,28 +615,32 @@ class FedRuntime:
             tx, n_valid, results, client_finite = \
                 client_lib.quarantine_zero(tx, n_valid, results)
         if self._table_wire:
-            tx = torch.stack([self._client_wire(t, state.step, w)
+            tx = torch.stack([self._client_wire(t, state.step, slot0 + w)
                               for w, t in enumerate(tx)])
         if cfg.defense != "none":
             ref = (nanmedian(state.defense_ref) if self._defense_ring
                    else None)
-            agg, cur_med, stats = robust_aggregate(cfg, tx, n_valid, ref)
+            agg, cur_med, stats = robust_aggregate(cfg, tx, n_valid, ref,
+                                                   mesh=self.mesh)
         else:
             agg = tx.sum(dim=0)
         return agg, results, n_valid, client_finite, stats, cur_med
 
-    def _clients(self, state: FedState, ids: torch.Tensor, batch, mask,
-                 mask_host: np.ndarray, lr: torch.Tensor,
-                 used: Optional[torch.Tensor]) -> Dict:
-        """The round's client work, up to the encode and the round's wire:
-        ``agg`` (the sketch table in sketch mode, a (d,) vector under the
-        dense server state and in the other modes), not yet divided by the
-        round's datum count; ``results`` (W, 2), ``n_valid`` (W,), the new
-        velocity and error rows (or None), ``client_finite`` (W,) bool
-        under the quarantine, the defense ``stats`` and ``cur_med``.
-        ``used`` holds each participant's weights under ``--topk_down``;
-        otherwise every client reads the server's."""
-        cfg, w = self.cfg, state.ps_weights
+    def _clients(self, state: FedState, w: torch.Tensor, ids: torch.Tensor,
+                 batch, mask, mask_host: np.ndarray, lr: torch.Tensor,
+                 used: Optional[torch.Tensor], vel_rows, err_rows,
+                 slot0: int = 0) -> Dict:
+        """The round's client work (a rank's clients on a mesh, the first
+        at round position ``slot0``), up to the encode and, on one
+        device, the round's wire: ``agg`` (the sketch table in sketch
+        mode, a (d,) vector under the dense server state and in the other
+        modes), not yet divided by the round's datum count and, on a
+        mesh, not yet reduced over the ranks; ``results`` (W, 2),
+        ``n_valid`` (W,), the new velocity and error rows (or None),
+        ``client_finite`` (W,) bool under the quarantine, the defense
+        ``stats`` and ``cur_med``. ``w`` holds the server's weights;
+        ``used`` each participant's under ``--topk_down``."""
+        cfg = self.cfg
         if self._labelflip:
             batch = client_lib.flip_labels(batch, self._adv_universe[ids],
                                            cfg.num_classes)
@@ -449,10 +650,6 @@ class FedRuntime:
             out["agg"], out["results"], out["n_valid"] = self._fused_fn(
                 w, batch, mask, mask_host, self.cs)
             return self._round_wire(out, state.step)
-        vel_rows = (state.client_velocities[ids]
-                    if state.client_velocities is not None else None)
-        err_rows = (state.client_errors[ids]
-                    if state.client_errors is not None else None)
         W = mask.shape[0]
         agg, uploads, results, n_valid, vels, errs = None, None, [], [], \
             [], []
@@ -460,7 +657,8 @@ class FedRuntime:
         for c in range(W):
             cb = {k: v[c] for k, v in batch.items()}
             wc = w if used is None else used[c]
-            gen = (noise_generator(cfg.seed, state.step, c + 1, self.device)
+            gen = (noise_generator(cfg.seed, state.step, slot0 + c + 1,
+                                   self.device)
                    if cfg.do_dp and cfg.dp_mode == "worker" else None)
             if cfg.mode == "fedavg":
                 o = self._client_fn(wc, cb, mask[c], mask_host[c], lr, gen)
@@ -476,7 +674,7 @@ class FedRuntime:
                         (W,) + tuple(o.transmit.shape))
                 uploads[c] = o.transmit
             else:
-                tx = self._client_wire(o.transmit, state.step, c)
+                tx = self._client_wire(o.transmit, state.step, slot0 + c)
                 agg = tx if agg is None else agg + tx
             results.append(o.results)
             n_valid.append(o.n_valid)
@@ -491,13 +689,15 @@ class FedRuntime:
         if uploads is not None:
             agg, results, n_valid, out["client_finite"], out["stats"], \
                 out["cur_med"] = self._transmit_tail(state, ids, uploads,
-                                                     results, n_valid)
+                                                     results, n_valid,
+                                                     slot0)
             del uploads
         if self._encode_sum:
             if self._signals_dense_cap:
                 # the dense sum, kept for the signals' grad_true_norm
                 out["sig_dense"] = agg
             # sum of the clients' sketches == sketch of the sum: one encode
+            # (a rank's partial sum on a mesh)
             agg = self.cs.encode(agg)
         if vel_rows is not None:
             out["vel"] = torch.stack(vels)
@@ -515,8 +715,11 @@ class FedRuntime:
     def _round_wire(self, out: Dict, step: int) -> Dict:
         """The round's one table over the wire: rounded to bf16, or the
         int8 wire's round trip with its draws keyed by the round before it
-        advances (so a resumed run, and a cohort, draw them again)."""
+        advances (so a resumed run, and a cohort, draw them again). On a
+        mesh the bf16 wire is the reduce's own payload (``_reduce``)."""
         agg = out["agg"]
+        if self.mesh is not None:
+            return out
         if agg.ndim == 2 and not self.dense_preimage \
                 and self._table_dtype != torch.float32:
             agg = agg.to(self._table_dtype).to(torch.float32)
@@ -526,38 +729,118 @@ class FedRuntime:
         out["agg"] = agg
         return out
 
+    def _reduce(self, agg: torch.Tensor) -> torch.Tensor:
+        """The ranks' partial aggregates summed, in rank order
+        (``Mesh.all_reduce``): a dense vector padded to d_pad and
+        reduce-scattered onto the rank's block; a table reduce-scattered
+        over its columns under the sharded tail, else all-reduced whole.
+        Under the bf16 wire the partials travel in bf16, add in float32
+        and the sum is rounded to bf16 once, as the JAX package's bf16
+        collective gives it on the CPU (one device rounds its one sum so
+        too)."""
+        mesh = self.mesh
+        if agg.ndim == 1:
+            agg = torch.nn.functional.pad(agg, (0, self.d_pad - agg.shape[0]))
+            return mesh.reduce_scatter(agg, dim=0)
+        wire = self._table_dtype
+        part = agg.to(wire) if wire != torch.float32 else agg
+        red = (mesh.reduce_scatter(part, dim=1, dtype=torch.float32)
+               if self.sharded_server
+               else mesh.all_reduce(part, dtype=torch.float32))
+        return red.to(wire).to(torch.float32)
+
     def _inputs(self, client_ids, mask, lr):
         """``(ids, mask, mask_host, lr)`` on the device from the caller's
         numpy arrays or tensors; the mask is copied to the host once."""
-        mask_host = np.asarray(torch.as_tensor(mask).cpu(), dtype=bool)
+        mask_host = np.array(mask.cpu() if isinstance(mask, torch.Tensor)
+                             else mask, dtype=bool)
         mask = torch.as_tensor(mask_host, device=self.device)
         ids = torch.as_tensor(np.asarray(client_ids), dtype=torch.int64,
                               device=self.device)
-        lr = torch.as_tensor(lr, dtype=torch.float32, device=self.device)
+        lr = self._rate(lr)
         if lr.ndim and lr.shape != (self.cfg.grad_size,):
             raise ValueError(f"lr of shape {tuple(lr.shape)}: want a scalar "
                              f"or ({self.cfg.grad_size},)")
         return ids, mask, mask_host, lr
 
+    def _scalar(self, value, dtype) -> torch.Tensor:
+        """A 0-d tensor of a host number on the device, filled there:
+        ``torch.tensor(x, device=cuda)`` copies from the host and waits
+        for the copy (a host sync in the middle of a round)."""
+        return torch.full((), value, dtype=dtype, device=self.device)
+
+    def _rate(self, lr) -> torch.Tensor:
+        """The rate on the device: a host scalar filled there, a vector
+        or tensor moved there."""
+        if not isinstance(lr, torch.Tensor) and np.ndim(lr) == 0:
+            return self._scalar(float(lr), torch.float32)
+        return torch.as_tensor(lr, dtype=torch.float32, device=self.device)
+
+    def _positions(self, W: int) -> slice:
+        """This rank's positions of a round of W clients."""
+        per = W // self.n_shards
+        return slice(self.rank * per, (self.rank + 1) * per)
+
+    def _rows_to_compute(self, rows: torch.Tensor) -> torch.Tensor:
+        """(W, d_pad/n) column blocks of the participants' rows (their
+        home layout) -> (W/n, d) full rows of this rank's clients: one
+        all_to_all."""
+        n, W = self.n_shards, rows.shape[0]
+        got = self.mesh.all_to_all(rows)                # (n W/n, d_pad/n)
+        full = got.unflatten(0, (n, W // n)).permute(1, 0, 2)
+        return full.reshape(W // n, self.d_pad)[:, :self.cfg.grad_size]
+
+    def _rows_to_home(self, rows: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``_rows_to_compute``: (W/n, d) -> (W, d_pad/n)."""
+        n = self.n_shards
+        rows = torch.nn.functional.pad(rows,
+                                       (0, self.d_pad - rows.shape[1]))
+        blocks = rows.unflatten(1, (n, self.shard_len)).permute(1, 0, 2)
+        return self.mesh.all_to_all(blocks).flatten(0, 1)
+
+    def _mesh_topk_down(self, state: FedState, ids: torch.Tensor
+                        ) -> torch.Tensor:
+        """``topk_down_weights`` on the participants' column blocks: each
+        row's top-k of its lag by the candidate merge (one (n, W, k_loc)
+        all-gather of values and of indices). Writes the advanced blocks
+        home and returns them."""
+        stale = state.client_weights[ids]
+        lag = state.ps_weights[None, :] - stale
+        start = self.rank * self.shard_len
+        vals, idx = local_topk_candidates(lag, self.cfg.k, start)
+        win_v, win_i = merge_topk_candidates(self.mesh.all_gather(vals),
+                                             self.mesh.all_gather(idx),
+                                             self.cfg.k)
+        used = stale + scatter_winners(win_v, win_i, start, self.shard_len)
+        state.client_weights.index_copy_(0, ids, used)
+        return used
+
     def _client_half(self, state: FedState, ids: torch.Tensor, batch,
                      mask: torch.Tensor, mask_host: np.ndarray,
-                     lr: torch.Tensor, observe: bool = True) -> Dict:
+                     lr: torch.Tensor, observe: bool = True,
+                     reduce: bool = True) -> Dict:
         """The round up to the server update (steps 1-3), shared by
         ``round`` and ``cohort``: the download accounting, the top-k
-        download, the clients and their tail, the encode and the wire.
-        Besides ``_clients``'s entries it returns the byte vectors, the
-        new ``client_last_round`` and ``defense_ref``, the ``defense``
-        scalars and ``bad``, whether the aggregate or (under the abort)
-        a loss went nonfinite, or (under the quarantine) every live
-        client did."""
+        download, the clients and their tail, the encode and the wire,
+        and on a mesh the reduce over the ranks (``reduce=False``: the
+        rank's partial stays, for ``decode`` to reduce) and the gather of
+        the per-client results. Besides ``_clients``'s entries it returns
+        the byte vectors, the new ``client_last_round`` and
+        ``defense_ref``, the ``defense`` scalars and ``bad``, whether the
+        aggregate or (under the abort) a loss went nonfinite, or (under
+        the quarantine) every live client did."""
         cfg, dev, step = self.cfg, self.device, state.step
-        step_t = torch.tensor(step, dtype=torch.int32, device=dev)
+        mesh = self.mesh
+        step_t = self._scalar(step, torch.int32)
         W = mask.shape[0]
         download_bytes = upload_bytes = down_slot = up_slot = None
         client_last_round = state.client_last_round
         if cfg.track_bytes:
             counts = download_coord_counts(state.coord_last_update,
                                            state.client_last_round[ids])
+            if mesh is not None:
+                # each rank counts its own coordinates
+                counts = mesh.all_reduce_int(counts)
             # each slot's bytes, kept for the client statistics
             down_slot = 4.0 * counts.float()
             up_slot = torch.full((W,), self._upload_bytes,
@@ -571,18 +854,52 @@ class FedRuntime:
             client_last_round = state.client_last_round.index_put(
                 (ids,), step_t)
 
+        mine = self._positions(W)
+        if mesh is not None:
+            # only this rank's clients' data crosses to its device
+            batch = {k: v[mine] for k, v in batch.items()}
+        batch = self.to_device(batch)
+        w = state.ps_weights
+        vel_rows = (state.client_velocities[ids]
+                    if state.client_velocities is not None else None)
+        err_rows = (state.client_errors[ids]
+                    if state.client_errors is not None else None)
         # each participant's stale weights advance by the top-k of their
         # lag (the download compression); it trains on those
         used = None
-        if cfg.do_topk_down:
-            used = client_lib.topk_down_weights(cfg, state.ps_weights,
-                                                state.client_weights[ids])
-            state.client_weights.index_copy_(0, ids, used)
+        if mesh is None:
+            if cfg.do_topk_down:
+                used = client_lib.topk_down_weights(
+                    cfg, state.ps_weights, state.client_weights[ids])
+                state.client_weights.index_copy_(0, ids, used)
+        else:
+            # the round's weights cross once: every client reads them
+            w = mesh.gather_rows(state.ps_weights)[:cfg.grad_size]
+            if cfg.do_topk_down:
+                used = self._rows_to_compute(self._mesh_topk_down(state,
+                                                                  ids))
+            if vel_rows is not None:
+                vel_rows = self._rows_to_compute(vel_rows)
+            if err_rows is not None:
+                err_rows = self._rows_to_compute(err_rows)
+            mask, mask_host = mask[mine], mask_host[mine]
 
-        out = self._clients(state, ids, self.to_device(batch), mask,
-                            mask_host, lr, used)
+        out = self._clients(state, w, ids[mine], batch, mask, mask_host, lr,
+                            used, vel_rows, err_rows, slot0=mine.start)
+        if mesh is not None:
+            # every rank's metrics are the whole round's
+            for key in ("results", "n_valid", "client_finite"):
+                if out[key] is not None:
+                    out[key] = mesh.gather_rows(out[key])
+            if out["grad_stats"] is not None:
+                out["grad_stats"] = {k: mesh.gather_rows(v) for k, v in
+                                     out["grad_stats"].items()}
+            if reduce:
+                out["agg"] = self._reduce(out["agg"])
         fin = out["client_finite"]
         bad = ~torch.isfinite(out["agg"]).all()
+        if mesh is not None:
+            bad = mesh.any(bad)
         if fin is not None:
             # only a round whose every live client went nonfinite aborts
             # (n_valid is post-zeroing: > 0 iff live and finite)
@@ -630,23 +947,71 @@ class FedRuntime:
             per_client["download_bytes"] = down_slot
         return summarize_per_client(per_client, half["n_valid"])
 
+    def _lr_block(self, lr: torch.Tensor) -> torch.Tensor:
+        """A (d,) rate vector as this rank's d_pad/n block (the padding's
+        rate 1 multiplies an update that is 0 there); a scalar as is."""
+        if not lr.ndim or self.mesh is None:
+            return lr
+        return self._block(lr, "dense", fill=1.0)
+
     def _server_tail(self, state: FedState, agg: torch.Tensor,
                      lr: torch.Tensor, step_t: torch.Tensor):
         """The round's server half on the normalized aggregate, shared by
-        ``round`` and ``commit``: ``(update, Vvelocity, Verror,
-        support mask, coord_last_update, bad)``."""
-        cfg = self.cfg
+        ``round``, ``commit`` and ``decode``: ``(update, Vvelocity,
+        Verror, support mask, coord_last_update, bad)``; on a mesh the
+        update, the dense vectors and the mask are the rank's blocks (the
+        sharded tail's tables its columns) and ``bad`` holds on every
+        rank if it holds on any."""
+        cfg, mesh = self.cfg, self.mesh
         noise_gen = (noise_generator(cfg.seed, state.step, 0, self.device)
                      if cfg.do_dp and cfg.dp_mode == "server" else None)
-        update, Vvel, Verr, sup_mask = server_update(
-            cfg, agg, state.Vvelocity, state.Verror, lr, self.cs,
-            noise_gen, self.dense_preimage)
+        if mesh is None:
+            update, Vvel, Verr, sup_mask = server_update(
+                cfg, agg, state.Vvelocity, state.Verror, lr, self.cs,
+                noise_gen, self.dense_preimage)
+        elif self.sharded_server:
+            update, Vvel, Verr = sharded_sketch_server_update(
+                cfg, agg, state.Vvelocity, state.Verror,
+                self._lr_block(lr), self.cs, mesh=mesh, d_pad=self.d_pad)
+            sup_mask = None
+        elif cfg.mode == "sketch":
+            # the replicated tail: every rank runs the single-device rule
+            # on the whole table and keeps its block of the update
+            update, Vvel, Verr, sup_mask = server_update(
+                cfg, agg, state.Vvelocity, state.Verror, lr, self.cs)
+            update = self._block(update, "dense")
+        elif cfg.mode == "true_topk":
+            update, Vvel, Verr, sup_mask = sharded_topk_update(
+                cfg, agg, state.Vvelocity, state.Verror, self._lr_block(lr),
+                mesh=mesh, d_pad=self.d_pad)
+        else:
+            # elementwise rules on the blocks; server DP noise is the
+            # single-device draw's block
+            noise = (self._block(torch.randn(cfg.grad_size,
+                                             generator=noise_gen,
+                                             device=self.device), "dense")
+                     if noise_gen is not None else None)
+            update, Vvel, Verr, sup_mask = server_update(
+                cfg, agg, state.Vvelocity, state.Verror, self._lr_block(lr),
+                noise=noise)
         coord_last_update = state.coord_last_update
         if cfg.track_bytes:
             coord_last_update = torch.where(update != 0, step_t,
                                             coord_last_update)
         bad = ~torch.isfinite(update).all() | ~torch.isfinite(agg).all()
+        if mesh is not None:
+            bad = mesh.any(bad)
         return update, Vvel, Verr, sup_mask, coord_last_update, bad
+
+    def _whole(self, x: Optional[torch.Tensor], kind: Optional[str]):
+        """The single-device form of a rank's block: a dense block
+        gathered and cut to d, a table's columns gathered (for the
+        signals of a recorded round on a mesh)."""
+        if x is None or self.mesh is None or kind in (None, "replicated"):
+            return x
+        if kind == "dense":
+            return self.mesh.gather_rows(x)[:self.cfg.grad_size]
+        return self.mesh.gather_cols(x)
 
     def round(self, state: FedState, client_ids, batch, mask, lr,
               observe: bool = True) -> Tuple[FedState, Dict]:
@@ -662,7 +1027,8 @@ class FedRuntime:
         quarantine; under telemetry ``signals``, ``layer_signals`` and
         ``client_stats`` (None where off). ``observe=False`` (the driver's
         rounds between records, which nothing reads) skips those three;
-        only the ``--signals_exact`` shadow pair advances."""
+        only the ``--signals_exact`` shadow pair advances. On a mesh every
+        rank passes the whole round and gets the whole round's metrics."""
         cfg = self.cfg
         ids, mask, mask_host, lr = self._inputs(client_ids, mask, lr)
         half = self._client_half(state, ids, batch, mask, mask_host, lr,
@@ -675,19 +1041,31 @@ class FedRuntime:
                      if half["sig_dense"] is not None else None)
         signals = layer_signals = None
         sig_vel, sig_err = state.sig_Vvelocity, state.sig_Verror
+        if (self._signals or self._layer_signals) and observe:
+            kind = self.shard_of["Vvelocity"] if self.mesh else None
+            w = dict(agg=self._whole(agg, kind),
+                     update=self._whole(update, "dense"),
+                     Vvel_prev=self._whole(state.Vvelocity, kind),
+                     Verr_prev=self._whole(state.Verror, kind),
+                     Vvel_new=self._whole(Vvel, kind),
+                     Verr_new=self._whole(Verr, kind))
         if self._signals and observe:
             signals, sig_vel, sig_err = round_signals(
-                cfg, agg=agg, update=update, Vvel_prev=state.Vvelocity,
-                Verr_prev=state.Verror, Vvel_new=Vvel, Verr_new=Verr,
-                cs=self.cs, dense_agg=sig_dense,
+                cfg, **w, cs=self.cs, dense_agg=sig_dense,
                 sig_vel=state.sig_Vvelocity, sig_err=state.sig_Verror)
         elif self._signals_shadow:
             sig_vel, sig_err, _ = shadow_step(cfg, sig_dense, update,
                                               sig_vel, sig_err)
         if self._layer_signals and observe:
             layer_signals = self._layer_signals_of(
-                state, agg, update, Verr, sig_dense, sig_err)
+                state, w["agg"], w["update"], w["Verr_new"], sig_dense,
+                sig_err, w["Vvel_prev"], w["Verr_prev"])
         vel_new, err_new = half["vel"], half["err"]
+        if self.mesh is not None:
+            if vel_new is not None:
+                vel_new = self._rows_to_home(vel_new)
+            if err_new is not None:
+                err_new = self._rows_to_home(err_new)
         if vel_new is not None:
             if cfg.mode == "true_topk":
                 # momentum factor masking of the participants' rows
@@ -717,7 +1095,8 @@ class FedRuntime:
                            "client_finite": half["client_finite"]}
 
     def _layer_signals_of(self, state: FedState, agg, update, Verr,
-                          sig_dense, sig_err_new) -> Dict:
+                          sig_dense, sig_err_new, Vvel_prev, Verr_prev
+                          ) -> Dict:
         """The round's layer signals, from the same quantities as the
         scalar signals: the dense gradient and error where the round holds
         them, and under --signals_exact the dense pre-feedback error that
@@ -735,26 +1114,31 @@ class FedRuntime:
                            + rho * state.sig_Vvelocity)
             elif cfg.mode == "true_topk" or (cfg.mode == "sketch"
                                              and dense):
-                err_pre = (state.Verror + agg
-                           + rho * state.Vvelocity)[: cfg.grad_size]
+                err_pre = (Verr_prev + agg
+                           + rho * Vvel_prev)[: cfg.grad_size]
         return layer_group_signals(cfg, spec=self.group_spec, update=update,
                                    grad_dense=grad_dense,
                                    err_dense=err_dense, err_pre=err_pre)
 
-    # ------------------------------------------- the split round (async)
+    # ------------------------------- the split round (async, overlap)
 
-    def cohort(self, state: FedState, client_ids, batch, mask, lr
-               ) -> Tuple[FedState, Dict]:
-        """The client half of the round (``--async_agg``): advances only
-        the dispatch-time state (``client_last_round``, ``nan_round``,
-        the normclip ring) and returns the payload: ``sum`` (the
-        unnormalized aggregate), ``n_total`` (its datum count), the
-        round's per-client results, byte vectors and defense metrics."""
-        if not self.cfg.async_agg:
+    def cohort(self, state: FedState, client_ids, batch, mask, lr,
+               observe: bool = True) -> Tuple[FedState, Dict]:
+        """The client half of the round (``--async_agg``,
+        ``--decode_overlap``): advances only the dispatch-time state
+        (``client_last_round``, ``nan_round``, the normclip ring) and
+        returns the payload: ``sum`` (the unnormalized aggregate; on a
+        mesh reduced over the ranks, except under the sharded tail with
+        ``--decode_overlap``, where it is the rank's partial table and
+        ``decode`` reduces it), ``n_total`` (its datum count), the
+        round's per-client results, byte vectors and defense metrics;
+        ``observe=False`` skips the client statistics, as in ``round``."""
+        if not (self.cfg.async_agg or self.cfg.decode_overlap):
             raise ValueError("cohort: the runtime was built without "
-                             "--async_agg")
+                             "--async_agg or --decode_overlap")
         ids, mask, mask_host, lr = self._inputs(client_ids, mask, lr)
-        half = self._client_half(state, ids, batch, mask, mask_host, lr)
+        half = self._client_half(state, ids, batch, mask, mask_host, lr,
+                                 observe, reduce=not self._reduce_in_decode)
         nan_round = torch.where((state.nan_round < 0) & half["bad"],
                                 half["step_t"], state.nan_round)
         new_state = state.replace(
@@ -794,6 +1178,22 @@ class FedRuntime:
             async_buffer_n=torch.as_tensor(n_total, dtype=torch.float32,
                                            device=self.device))
 
+    def _server_fields(self, state: FedState, agg: torch.Tensor, lr):
+        """The split round's server half on the normalized aggregate, the
+        synchronous round's own ``_server_tail``: the new state's fields
+        and the update, velocity and error; ``step`` advances here."""
+        lr = self._rate(lr)
+        step_t = self._scalar(state.step, torch.int32)
+        update, Vvel, Verr, _, coord_last_update, bad = self._server_tail(
+            state, agg, lr, step_t)
+        nan_round = torch.where((state.nan_round < 0) & bad, step_t,
+                                state.nan_round)
+        fields = dict(ps_weights=state.ps_weights - update, Vvelocity=Vvel,
+                      Verror=Verr, step=state.step + 1,
+                      coord_last_update=coord_last_update,
+                      nan_round=nan_round)
+        return fields, update, Vvel, Verr
+
     def commit(self, state: FedState, lr) -> Tuple[FedState, Dict]:
         """The server half on the buffer: normalized by its raw datum
         count, the mode's server update, the weights moved, the buffer
@@ -801,29 +1201,77 @@ class FedRuntime:
         if not self.cfg.async_agg:
             raise ValueError("commit: the runtime was built without "
                              "--async_agg")
-        lr = torch.as_tensor(lr, dtype=torch.float32, device=self.device)
-        step_t = torch.tensor(state.step, dtype=torch.int32,
-                              device=self.device)
         agg = state.async_buffer / torch.clamp(state.async_buffer_n,
                                                min=1.0)
-        update, Vvel, Verr, _, coord_last_update, bad = self._server_tail(
-            state, agg, lr, step_t)
-        nan_round = torch.where((state.nan_round < 0) & bad, step_t,
-                                state.nan_round)
+        fields, update, Vvel, Verr = self._server_fields(state, agg, lr)
         new_state = state.replace(
-            ps_weights=state.ps_weights - update, Vvelocity=Vvel,
-            Verror=Verr, step=state.step + 1,
-            coord_last_update=coord_last_update, nan_round=nan_round,
             async_buffer=torch.zeros_like(state.async_buffer),
-            async_buffer_n=torch.zeros_like(state.async_buffer_n))
-        return new_state, {"update_norm": torch.linalg.norm(update),
-                           "error_norm": torch.linalg.norm(Verr),
-                           "velocity_norm": torch.linalg.norm(Vvel),
+            async_buffer_n=torch.zeros_like(state.async_buffer_n), **fields)
+        mesh = self.mesh
+        sq = torch.stack([(update * update).sum(), (Verr * Verr).sum(),
+                          (Vvel * Vvel).sum()])
+        if mesh is not None:
+            # the blocks' squares summed over the ranks (a replicated
+            # table counts once)
+            table = self.shard_of["Vvelocity"] == "replicated"
+            sq = torch.stack([mesh.all_reduce(sq[0]),
+                              sq[1] if table else mesh.all_reduce(sq[1]),
+                              sq[2] if table else mesh.all_reduce(sq[2])])
+            norms = torch.sqrt(sq)
+        else:
+            norms = torch.stack([torch.linalg.norm(update),
+                                 torch.linalg.norm(Verr),
+                                 torch.linalg.norm(Vvel)])
+        return new_state, {"update_norm": norms[0], "error_norm": norms[1],
+                           "velocity_norm": norms[2],
                            "buffer_n": state.async_buffer_n}
+
+    def decode(self, state: FedState, cohort_sum: torch.Tensor, n_total,
+               lr) -> FedState:
+        """The server half of the ``--decode_overlap`` split round (the
+        JAX package's ``_decode_step``): the commit without the buffer, on
+        the cohort's sum; with the sharded tail it first reduces the
+        ranks' partial tables (the cohort left them), as the synchronous
+        round does. Returns the new state."""
+        if not self.cfg.decode_overlap:
+            raise ValueError("decode: the runtime was built without "
+                             "--decode_overlap")
+        if self._reduce_in_decode:
+            cohort_sum = self._reduce(cohort_sum)
+        agg = cohort_sum / torch.clamp(
+            torch.as_tensor(n_total, dtype=torch.float32,
+                            device=self.device), min=1.0)
+        fields, _, _, _ = self._server_fields(state, agg, lr)
+        return state.replace(**fields)
 
     def val(self, state: FedState, batch, mask):
         """Masked evaluation on the current weights: ``((loss, acc),
-        n_valid)``."""
-        return self._val_fn(state.ps_weights, self.to_device(batch),
-                            torch.as_tensor(mask, device=self.device,
-                                            dtype=torch.bool))
+        n_valid)``. On a mesh the items pad to a multiple of its size
+        (the padding masked out), each rank evaluates its share with the
+        whole weights, and the shares' means recombine weighted by their
+        valid items, added in rank order (the JAX package's
+        ``_val_step_sharded``)."""
+        mask = torch.as_tensor(mask, device=self.device, dtype=torch.bool)
+        batch = self.to_device(batch)
+        if self.mesh is None:
+            return self._val_fn(state.ps_weights, batch, mask)
+        n, N = self.n_shards, mask.shape[0]
+        per = -(-N // n)
+        lo, hi = self.rank * per, min((self.rank + 1) * per, N)
+        w = self.flat_weights(state)
+        if hi > lo:
+            (loss, acc), cnt = self._val_fn(
+                w, {k: v[lo:hi] for k, v in batch.items()}, mask[lo:hi])
+        else:
+            loss = acc = cnt = torch.zeros((), device=self.device)
+        part = torch.stack([loss * cnt, acc * cnt, cnt])
+        num = self.mesh.all_reduce(part)
+        safe = torch.clamp(num[2], min=1.0)
+        return (num[0] / safe, num[1] / safe), num[2]
+
+    def flat_weights(self, state: FedState) -> torch.Tensor:
+        """The true-d flat weight vector (the mesh's blocks gathered and
+        its padding cut off, on every rank)."""
+        if self.mesh is None:
+            return state.ps_weights
+        return self.mesh.gather_rows(state.ps_weights)[:self.cfg.grad_size]

@@ -22,7 +22,10 @@ from typing import List, Optional, Tuple
 import torch
 
 from commefficient_torch.config import CV_DATASETS, FedConfig
-from commefficient_torch.ops.topk import topk, topk_with_idx
+from commefficient_torch.ops.topk import (local_topk_candidates,
+                                          merge_topk_candidates,
+                                          scatter_winners, topk,
+                                          topk_with_idx)
 
 # The JAX package's measured divergence envelopes (its core/server.py):
 # local_topk with local error learns only with the rate cut far below
@@ -76,10 +79,22 @@ def validate_regimes(cfg: FedConfig) -> None:
         print(f"WARNING: {w}", file=sys.stderr)
 
 
-def validate_defense_combo(cfg: FedConfig) -> None:
-    """The JAX package's refusals of the robustness flags on one device:
-    label flipping needs a classification dataset (the mesh refusals of
-    trim and of a seq axis wait for the port's meshes)."""
+def validate_defense_combo(cfg: FedConfig, mesh=None) -> None:
+    """The JAX package's refusals of the robustness flags (its
+    ``:112-140``): trim needs every client's whole upload on one device,
+    so a mesh refuses it (normclip's cross-rank cost is one W-sized
+    all-gather of norms); label flipping needs a classification dataset.
+    (A seq axis, whose refusal the JAX package adds here, is refused when
+    the mesh is built.)"""
+    robust = (cfg.defense != "none" or cfg.adversary != "none"
+              or cfg.nonfinite_action != "abort")
+    if robust and cfg.defense == "trim" and mesh is not None:
+        raise ValueError(
+            "--defense trim needs the per-coordinate cross-client sort, "
+            "which requires every client's full transmitted vector on "
+            "one device — unavailable on a mesh (the client axis is "
+            "sharded). Use --defense normclip on a mesh (its cross-shard "
+            "cost is one W-sized norm all-gather), or drop the mesh.")
     if cfg.adversary == "labelflip" and CLASSES.get(cfg.dataset_name,
                                                     0) < 2:
         n_cls = CLASSES.get(cfg.dataset_name, 0)
@@ -108,7 +123,7 @@ def nanmedian(x: torch.Tensor) -> torch.Tensor:
 
 def robust_aggregate(cfg: FedConfig, tx: torch.Tensor,
                      n_valid: torch.Tensor,
-                     ref_thresh: Optional[torch.Tensor] = None):
+                     ref_thresh: Optional[torch.Tensor] = None, mesh=None):
     """The JAX package's robust aggregation (``--defense``) of the (W, ...)
     uploads ``tx`` (each its client's upload times its datum count
     ``n_valid``); every statistic is over the per-datum update tx_i / n_i.
@@ -123,13 +138,20 @@ def robust_aggregate(cfg: FedConfig, tx: torch.Tensor,
       slot holds no vote: pushed to +inf, it sorts after every finite
       value, and a live NaN after it), ranks [t, V - t) averaged, t =
       floor(defense_trim_frac V) in float32, then times the round's
-      datum count."""
+      datum count.
+
+    On a ``mesh`` (normclip alone) ``tx`` and ``n_valid`` are the rank's
+    W/n clients: their norms and datum counts cross in one W-sized
+    all-gather, every rank computes the median, the factors and the
+    scalars over all W as one device does, and ``agg`` is the rank's
+    partial sum (the round's reduce adds the ranks)."""
     W = tx.shape[0]
     shape = (W,) + (1,) * (tx.ndim - 1)
-    denom = torch.clamp(n_valid, min=1.0)
-    valid = n_valid > 0
     nan = tx.new_tensor(float("nan"))
     if cfg.defense == "trim":
+        assert mesh is None, "trim is refused on a mesh"
+        denom = torch.clamp(n_valid, min=1.0)
+        valid = n_valid > 0
         V = valid.sum()
         t = torch.floor(torch.tensor(cfg.defense_trim_frac,
                                      dtype=torch.float32)
@@ -149,8 +171,15 @@ def robust_aggregate(cfg: FedConfig, tx: torch.Tensor,
         return agg, None, stats
     assert cfg.defense == "normclip", cfg.defense
     flat = tx.reshape(W, -1)
-    norms = torch.sqrt((flat * flat).sum(dim=1)) / denom
-    usable = valid & torch.isfinite(norms)
+    raw, nv, lo = torch.sqrt((flat * flat).sum(dim=1)), n_valid, 0
+    if mesh is not None:
+        # all W norms and datum counts, in client order
+        raw, nv = mesh.gather_cols(torch.stack([raw,
+                                                n_valid.to(raw.dtype)]))
+        lo = mesh.rank * W
+    denom = torch.clamp(nv, min=1.0)
+    norms = raw / denom
+    usable = (nv > 0) & torch.isfinite(norms)
     cur_med = nanmedian(torch.where(usable, norms, nan))
     ref = cur_med if ref_thresh is None else torch.where(
         torch.isnan(ref_thresh), cur_med, ref_thresh)
@@ -159,7 +188,7 @@ def robust_aggregate(cfg: FedConfig, tx: torch.Tensor,
     factors = torch.minimum(tx.new_ones(()),
                             thresh / torch.clamp(norms, min=1e-12))
     factors = torch.where(usable, factors, tx.new_ones(()))
-    agg = (tx * factors.reshape(shape)).sum(dim=0)
+    agg = (tx * factors[lo:lo + W].reshape(shape)).sum(dim=0)
     n_clipped = ((factors < 1.0) & usable).sum().to(torch.float32)
     removed_sq = torch.where(usable, ((1.0 - factors) * norms * denom) ** 2,
                              tx.new_zeros(())).sum()
@@ -168,6 +197,94 @@ def robust_aggregate(cfg: FedConfig, tx: torch.Tensor,
              "clip_thresh": thresh, "clipped_mass": torch.sqrt(removed_sq),
              "trim_frac": nan}
     return agg, cur_med, stats
+
+
+def sharded_sketch_server_update(cfg: FedConfig, agg_shard: torch.Tensor,
+                                 Vvel_shard: torch.Tensor,
+                                 Verr_shard: torch.Tensor, lr, cs, *,
+                                 mesh, d_pad: int):
+    """The sketch server tail on rank ``mesh.rank``'s column shards, the
+    counterpart of the JAX package's ``sharded_sketch_server_update``
+    (its ``core/server.py:470-573``), step for step. ``agg_shard``,
+    ``Vvel_shard`` and ``Verr_shard`` are the rank's (r, c/n) columns of
+    the datum-normalized aggregate (reduce-scattered) and of the
+    momentum and error tables:
+
+    1. momentum and virtual error on the shards (column shards update
+       independently);
+    2. one table all-gather of the error (stacked with the velocity
+       under the subtract rule, which also reads the velocity's
+       estimates at the winners);
+    3. ``decode_range`` of the rank's ``[i d_pad/n, (i+1) d_pad/n)``
+       (K2's range form on the card; coordinates past d decode to 0):
+       no rank holds the dense (d,) estimates;
+    4. the local top-k candidates, an (n, k_loc) all-gather of values
+       and indices and the order-stable merge: the global top-k, bitwise
+       the unsharded selection;
+    5. ``encode_vals_at`` of the k winners (O(k r)), of which the rank
+       keeps its column slice, and the zero or subtract rule on it, then
+       ``error_decay``.
+
+    ``lr`` is a scalar or the rank's (d_pad/n,) block of the rate
+    vector. Returns ``(update_shard (d_pad/n,), Vvel', Verr')``: the
+    update in the dense-vector layout of ``ps_weights``."""
+    rho = cfg.virtual_momentum
+    Vvel = agg_shard + rho * Vvel_shard
+    Verr = Verr_shard + Vvel
+    if cfg.sketch_ef == "subtract":
+        full = mesh.gather_cols(torch.stack([Verr, Vvel]))
+        Verr_full, Vvel_full = full[0], full[1]
+    else:
+        Verr_full, Vvel_full = mesh.gather_cols(Verr), None
+    i, n = mesh.rank, mesh.size
+    blk = d_pad // n
+    start = i * blk
+    ests = cs.decode_range(Verr_full, start, blk)
+    loc_vals, loc_idx = local_topk_candidates(ests, cfg.k, start)
+    cand_v = mesh.all_gather(loc_vals)
+    cand_i = mesh.all_gather(loc_idx)
+    win_vals, win_idx = merge_topk_candidates(cand_v, cand_i, cfg.k)
+    update = scatter_winners(win_vals, win_idx, start, blk)
+    c_loc = Verr.shape[1]
+    cols = slice(i * c_loc, (i + 1) * c_loc)
+    sk_upd = cs.encode_vals_at(win_vals, win_idx)[:, cols]
+    if cfg.sketch_ef == "subtract":
+        vel_ests = cs.decode_at(Vvel_full, win_idx)
+        Vvel = Vvel - cs.encode_vals_at(vel_ests, win_idx)[:, cols]
+        Verr = Verr - sk_upd
+    else:
+        mask = sk_upd != 0
+        Vvel = Vvel.masked_fill(mask, 0.0)
+        Verr = Verr.masked_fill(mask, 0.0)
+    if cfg.error_decay < 1.0:
+        Verr = cfg.error_decay * Verr
+    return update * lr, Vvel, Verr
+
+
+def sharded_topk_update(cfg: FedConfig, agg_shard: torch.Tensor,
+                        Vvel_shard: torch.Tensor, Verr_shard: torch.Tensor,
+                        lr, *, mesh, d_pad: int):
+    """true_topk's server rule on the rank's (d_pad/n,) blocks: the
+    global top-k of the error by the candidate merge (an (n, k_loc)
+    all-gather), error feedback and momentum masking at the rank's share
+    of its support. Returns ``(update, Vvel', Verr', support mask)``,
+    each the rank's block; bitwise ``server_update`` of the whole
+    vectors, block by block."""
+    rho = cfg.virtual_momentum
+    Vvel = agg_shard + rho * Vvel_shard
+    Verr = Verr_shard + Vvel
+    blk = d_pad // mesh.size
+    start = mesh.rank * blk
+    loc_vals, loc_idx = local_topk_candidates(Verr, cfg.k, start)
+    win_vals, win_idx = merge_topk_candidates(
+        mesh.all_gather(loc_vals), mesh.all_gather(loc_idx), cfg.k)
+    update = scatter_winners(win_vals, win_idx, start, blk)
+    mask = update != 0
+    Verr = Verr.masked_fill(mask, 0.0)
+    Vvel = Vvel.masked_fill(mask, 0.0)
+    if cfg.error_decay < 1.0:
+        Verr = cfg.error_decay * Verr
+    return update * lr, Vvel, Verr, mask
 
 
 def validate_mode_combo(cfg: FedConfig) -> None:
@@ -234,7 +351,8 @@ def validate_mode_combo(cfg: FedConfig) -> None:
 def server_update(cfg: FedConfig, gradient: torch.Tensor,
                   Vvelocity: torch.Tensor, Verror: torch.Tensor, lr,
                   cs=None, noise_gen: Optional[torch.Generator] = None,
-                  dense_preimage: bool = False
+                  dense_preimage: bool = False,
+                  noise: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              Optional[torch.Tensor]]:
     """One server step of ``cfg.mode`` (reference
@@ -242,8 +360,9 @@ def server_update(cfg: FedConfig, gradient: torch.Tensor,
     Verror', support_mask_or_None)``; the mask is the update's support in
     transmitted space (true_topk: coordinates; the sketch's zero rule:
     table cells). ``noise_gen`` draws the server's DP noise
-    (``--dp --dp_mode server``, uncompressed); ``dense_preimage`` keeps
-    the sketch's momentum and error as (d,) vectors."""
+    (``--dp --dp_mode server``, uncompressed), or ``noise`` is that
+    noise already drawn (a mesh rank's block of it); ``dense_preimage``
+    keeps the sketch's momentum and error as (d,) vectors."""
     rho = cfg.virtual_momentum
     Vvel = gradient + rho * Vvelocity
     if cfg.mode == "fedavg":
@@ -253,8 +372,10 @@ def server_update(cfg: FedConfig, gradient: torch.Tensor,
     if cfg.mode == "uncompressed":
         grad = Vvel
         if cfg.do_dp and cfg.dp_mode == "server":
-            grad = grad + cfg.noise_multiplier * torch.randn(
-                grad.shape, generator=noise_gen, device=grad.device)
+            if noise is None:
+                noise = torch.randn(grad.shape, generator=noise_gen,
+                                    device=grad.device)
+            grad = grad + cfg.noise_multiplier * noise
         return grad * lr, Vvel, Verror, None
     if cfg.mode == "local_topk":
         # momentum accumulates onto the already sparse sum of the clients'

@@ -85,6 +85,21 @@
 // and store neighbouring coordinates. The 10.5 MB table stays in the 50
 // MB L2. Bytes: 4 r c read + 4 d written = 36.3 MB at the ResNet-9 shape.
 //
+// K2's range form (start, n: the sharded server tail's decode of one
+// rank's coordinates, ops/circulant.py decode_range): the coordinates
+// [start, start + n) of the whole decode into out[0 .. n), bitwise that
+// slice; those at and past d are +0.0, written by one cudaMemsetAsync on
+// the stream. The grid's y walks only the range's blocks, a CTA whose tile
+// holds no coordinate of the range returns at once, and a tile that the
+// range does not cover whole tests each coordinate (kEdge). It is a second
+// instantiation (kRange), so the whole decode keeps its code and its time
+// (scripts/k2_ab.py of the port: 0.0261 ms against 0.0261 at m = 14).
+// Its bound is that of its live coordinates: the table cells they gather
+// (all r c once the range spans c) and 4 n bytes written, or their ALU
+// issue; a shard of 4 took 0.0092 ms at m = 14 (bound 0.0050, bytes) and
+// 0.0752 at m = 176 (bound 0.0481, ALU issue): the tiles at its two ends
+// test every coordinate.
+//
 // Measured on an NVIDIA H100 80GB HBM3 at a 700 W limit (chip_smoke.py,
 // r = 5): K1 0.043 ms at m = 14 and 0.474 ms at m = 176 (32% and 30% of
 // the bound); K2 0.0259 and 0.276 ms (53% and 70% of its ALU bound; the
@@ -410,16 +425,19 @@ __device__ __forceinline__ float median(const float (&e)[R],
 // column start[j] + t + q kDecThreads (mod c), start[j] = (i0 + s[j, b])
 // mod c. h[j] enters as x key_j + 0x9E3779B9 of its first coordinate and
 // advances by step[j] = kDecThreads key_j from one coordinate to the next.
-// kEdge: the tile holds a row's seam, or runs past c or past d, so each
-// gather wraps and each coordinate is tested; the other tiles read through
-// a row pointer and store without a test.
-template <int R, int C, bool kEdge>
+// kEdge: the tile holds a row's seam, or runs past c or past d (or, in
+// the range form kRange, out of the range), so each gather wraps and each
+// coordinate is tested; the other tiles read through a row pointer and
+// store without a test. The whole decode (kRange false) compiles to the
+// code it had before the range form: lo is 0 there and never read.
+template <int R, int C, bool kEdge, bool kRange>
 __device__ __forceinline__ void decode_tile(const float* __restrict__ table,
                                             const uint32_t (&start)[R],
                                             uint32_t (&h)[R],
                                             const uint32_t (&step)[R],
-                                            uint32_t c, uint32_t d,
-                                            uint32_t bc, uint32_t i0,
+                                            uint32_t c, uint32_t lo,
+                                            uint32_t hi, uint32_t bc,
+                                            uint32_t i0,
                                             float* __restrict__ out) {
   const uint32_t t = threadIdx.x;
   const float* row[R];
@@ -431,7 +449,12 @@ __device__ __forceinline__ void decode_tile(const float* __restrict__ table,
 #pragma unroll
   for (int q = 0; q < C; ++q) {
     const uint32_t off = q * kDecThreads + t;
-    valid[q] = !kEdge || (i0 + off < c && bc + i0 + off < d);
+    // the range form: x - lo < hi - lo, lo <= x < hi in one compare
+    if constexpr (kRange) {
+      valid[q] = !kEdge || (i0 + off < c && bc + i0 + off - lo < hi - lo);
+    } else {
+      valid[q] = !kEdge || (i0 + off < c && bc + i0 + off < hi);
+    }
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       if constexpr (kEdge) {
@@ -444,7 +467,9 @@ __device__ __forceinline__ void decode_tile(const float* __restrict__ table,
       }
     }
   }
-  float* dst = out + (bc + i0 + t);
+  // out holds the coordinates lo .. hi - 1 (only valid ones are stored)
+  float* dst = kRange ? out + ((long long)(bc + i0 + t) - (long long)lo)
+                      : out + (bc + i0 + t);
 #pragma unroll
   for (int q = 0; q < C; ++q) {
     float v[R];
@@ -458,24 +483,35 @@ __device__ __forceinline__ void decode_tile(const float* __restrict__ table,
   }
 }
 
-// A CTA decodes column tile blockIdx.x of the blocks b = blockIdx.y,
-// blockIdx.y + gridDim.y, ... (the grid's y extent stops at 65,535 blocks).
-template <int R>
+// A CTA decodes column tile blockIdx.x of the blocks b = b0 + blockIdx.y,
+// b0 + blockIdx.y + gridDim.y, ... up to b1 (the grid's y extent stops at
+// 65,535 blocks), the coordinates lo <= x < hi of them: the whole decode
+// is lo = 0, hi = d, blocks 0 .. m - 1; the range form decodes
+// [lo, hi), hi = min(start + n, d), into out[x - lo]. A tile with no
+// coordinate in the range returns at once; a tile that the range does
+// not cover whole tests each coordinate.
+template <int R, bool kRange>
 __global__ void __launch_bounds__(kDecThreads, 2)
     decode_kernel(const float* __restrict__ table,
                   const int* __restrict__ shifts,
                   const uint32_t* __restrict__ keys, uint32_t c, uint32_t m,
-                  uint32_t d, float* __restrict__ out) {
+                  uint32_t lo, uint32_t hi, uint32_t b0, uint32_t b1,
+                  float* __restrict__ out) {
   constexpr int C = dec_cols<R>();
   constexpr uint32_t kTile = kDecThreads * C;
   const uint32_t i0 = blockIdx.x * kTile;
   uint32_t key[R];
 #pragma unroll
   for (int j = 0; j < R; ++j) key[j] = __ldg(keys + j);
-  for (uint32_t b = blockIdx.y; b < m; b += gridDim.y) {
+  if constexpr (!kRange) b0 = 0;
+  for (uint32_t b = b0 + blockIdx.y; kRange ? b <= b1 : b < m;
+       b += gridDim.y) {
     const uint32_t bc = b * c;
+    if (kRange && ((uint64_t)bc + i0 >= hi || (uint64_t)bc + i0 + kTile <= lo))
+      continue;
     uint32_t start[R], h[R], step[R];
-    bool edge = i0 + kTile > c || (uint64_t)bc + i0 + kTile > d;
+    bool edge = i0 + kTile > c || (uint64_t)bc + i0 + kTile > hi ||
+                (kRange && bc + i0 < lo);
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       uint32_t s = i0 + (uint32_t)__ldg(shifts + (size_t)j * m + b);
@@ -486,22 +522,29 @@ __global__ void __launch_bounds__(kDecThreads, 2)
       step[j] = key[j] * kDecThreads;
     }
     if (edge) {
-      decode_tile<R, C, true>(table, start, h, step, c, d, bc, i0, out);
+      decode_tile<R, C, true, kRange>(table, start, h, step, c, lo, hi, bc,
+                                      i0, out);
     } else {
-      decode_tile<R, C, false>(table, start, h, step, c, d, bc, i0, out);
+      decode_tile<R, C, false, kRange>(table, start, h, step, c, lo, hi, bc,
+                                       i0, out);
     }
   }
 }
 
 template <int R>
 int launch_decode(const float* table, const int* shifts,
-                  const uint32_t* keys, int c, int m, long long d,
-                  float* out, cudaStream_t stream) {
+                  const uint32_t* keys, int c, int m, long long lo,
+                  long long hi, bool whole, float* out, cudaStream_t stream) {
   constexpr int kTile = kDecThreads * dec_cols<R>();
+  const long long b0 = lo / c, b1 = (hi - 1) / c;
+  const long long blocks = b1 - b0 + 1;
   const dim3 grid((unsigned)(((long long)c + kTile - 1) / kTile),
-                  (unsigned)(m < 65535 ? m : 65535));
-  decode_kernel<R><<<grid, kDecThreads, 0, stream>>>(
-      table, shifts, keys, (uint32_t)c, (uint32_t)m, (uint32_t)d, out);
+                  (unsigned)(blocks < 65535 ? blocks : 65535));
+  // the whole decode (lo = 0, hi = d) keeps its own instantiation
+  auto kernel = whole ? decode_kernel<R, false> : decode_kernel<R, true>;
+  kernel<<<grid, kDecThreads, 0, stream>>>(
+      table, shifts, keys, (uint32_t)c, (uint32_t)m, (uint32_t)lo,
+      (uint32_t)hi, (uint32_t)b0, (uint32_t)b1, out);
   return (int)cudaGetLastError();
 }
 
@@ -542,14 +585,34 @@ extern "C" int circ_encode(const float* v, long long start, long long n,
 #undef CIRC_ENCODE
 }
 
+// The estimates of the coordinates [start, start + n) into out[0 .. n):
+// those below d decoded, those at or past d exactly +0.0 (cudaMemsetAsync
+// on the same stream). The whole decode is start = 0, n = d, and any range
+// is bitwise that slice of it. A nonzero range_form runs the range
+// instantiation even where the range covers [0, d) (a sharded tail on one
+// rank), so a caller of the range form always runs its code.
 extern "C" int circ_decode(const float* table, const int* shifts,
                            const uint32_t* keys, int c, int r, int m,
-                           long long d, float* out, void* stream) {
-  if (bad_geometry(d, c, m)) return (int)cudaErrorInvalidValue;
+                           long long d, long long start, long long n,
+                           int range_form, float* out, void* stream) {
+  if (bad_geometry(d, c, m) || start < 0 || n <= 0 ||
+      start + n >= (1LL << 32))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define CIRC_DECODE(R) \
-  case R:              \
-    return launch_decode<R>(table, shifts, keys, c, m, d, out, s)
+  const long long hi = start + n < d ? start + n : d;
+  if (hi < start + n) {
+    const long long first = hi > start ? hi : start;
+    const cudaError_t err = cudaMemsetAsync(
+        out + (first - start), 0, (size_t)(start + n - first) * sizeof(float),
+        s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (hi <= start) return (int)cudaGetLastError();
+  const bool whole = !range_form && start == 0 && hi == d;
+#define CIRC_DECODE(R)                                                   \
+  case R:                                                                \
+    return launch_decode<R>(table, shifts, keys, c, m, start, hi, whole, \
+                            out, s)
   switch (r) {
     CIRC_DECODE(1);
     CIRC_DECODE(2);

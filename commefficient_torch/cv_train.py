@@ -104,6 +104,7 @@ from commefficient_torch.data.fed_imagenet import FedImageNet
 from commefficient_torch.data.transforms import transforms_for
 from commefficient_torch.losses import FrozenBackbone, make_cv_loss
 from commefficient_torch.ops.pytree import layout_leaves
+from commefficient_torch.parallel.mesh import setup_mesh
 from commefficient_torch.models import get_model
 from commefficient_torch.utils.logging import TableLogger, Timer, TSVLogger
 from commefficient_torch.utils.schedules import lr_schedule_for
@@ -285,9 +286,15 @@ def setup(ns: argparse.Namespace):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the "
                          "CPU")
+    device, mesh = setup_mesh(cfg, device)
     torch.manual_seed(cfg.seed)
     np.random.seed(cfg.seed)
+    # on a mesh rank 0 prepares the data directory, then the others read
+    if mesh is not None and mesh.rank != 0:
+        mesh.barrier()
     train_ds, val_ds = build_datasets(cfg)
+    if mesh is not None and mesh.rank == 0:
+        mesh.barrier()
     cfg = cfg.replace(num_clients=train_ds.num_clients)
     model = build_model(cfg, cfg.num_classes)
     warn_small_eval_batches(cfg, model.layout)
@@ -295,13 +302,16 @@ def setup(ns: argparse.Namespace):
     if cfg.do_finetune:
         weights, frozen = load_finetune_params(cfg, model, device)
     loss_fn = make_cv_loss(model, cfg.compute_dtype, frozen=frozen)
-    runtime = FedRuntime(cfg, weights, loss_fn, device=device)
+    runtime = FedRuntime(cfg, weights, loss_fn, device=device, mesh=mesh)
     cfg = runtime.cfg
     print(f"mode={cfg.mode} d={cfg.grad_size} c={cfg.num_cols} "
           f"r={cfg.num_rows} k={cfg.k} W={cfg.num_workers} "
           f"B={runtime.batch_size} clients={runtime.num_clients} "
           f"{cfg.dataset_name}{' iid' if cfg.do_iid else ''} "
-          f"device={device}")
+          f"device={device}"
+          + (f" mesh={mesh.size} ranks ({mesh.axis}), sharded server "
+             f"{'on' if runtime.sharded_server else 'off'}"
+             if mesh is not None else ""))
     return runtime, runtime.init_state(), train_ds, val_ds, frozen
 
 
@@ -380,10 +390,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             telemetry.close()
     print(tsv)
     if cfg.do_checkpoint and summary is not None:
-        os.makedirs(cfg.checkpoint_path, exist_ok=True)
-        path = os.path.join(cfg.checkpoint_path, cfg.model + ".npz")
-        np.savez(path, ps_weights=state.ps_weights.cpu().numpy())
-        print(f"saved checkpoint to {path}")
+        weights = runtime.flat_weights(state)     # every rank gathers
+        if runtime.mesh is None or runtime.mesh.rank == 0:
+            os.makedirs(cfg.checkpoint_path, exist_ok=True)
+            path = os.path.join(cfg.checkpoint_path, cfg.model + ".npz")
+            np.savez(path, ps_weights=weights.cpu().numpy())
+            print(f"saved checkpoint to {path}")
     return {"losses": log.losses, "round_s": log.round_s,
             "data_s": log.data_s, "fetch_s": log.fetch_s,
             "epochs": log.epochs,

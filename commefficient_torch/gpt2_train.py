@@ -66,6 +66,7 @@ from commefficient_torch.models.gpt2 import (GPT2Config, GPT2DoubleHeads,
                                              gpt2_model_flops,
                                              load_hf_weights)
 from commefficient_torch.ops import circulant_kernels, flash_attention
+from commefficient_torch.parallel.mesh import setup_mesh
 from commefficient_torch.utils.logging import TableLogger, Timer, TSVLogger
 from commefficient_torch.utils.schedules import make_gpt2_schedule
 
@@ -102,6 +103,9 @@ def setup(ns: argparse.Namespace):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the "
                          "CPU")
+    # the clients mesh (the JAX package's gpt2_train.py:186-217, clients
+    # axis only: a seq axis was refused with the config)
+    device, mesh = setup_mesh(cfg, device)
     if cfg.do_test:
         cfg = cfg.replace(num_cols=10, num_rows=1, k=10)
     cfg = cfg.replace(max_seq_len=cfg.max_seq_len
@@ -114,9 +118,14 @@ def setup(ns: argparse.Namespace):
     data_kw = dict(tokenizer=tokenizer, num_candidates=cfg.num_candidates,
                    max_seq_len=S, max_history=cfg.max_history,
                    personality_permutations=cfg.personality_permutations)
+    # on a mesh rank 0 prepares the data directory, then the others read
+    if mesh is not None and mesh.rank != 0:
+        mesh.barrier()
     train_ds = FedPERSONA(cfg.dataset_dir, train=True, do_iid=cfg.do_iid,
                           num_clients=cfg.num_clients, **data_kw)
     val_ds = FedPERSONA(cfg.dataset_dir, train=False, **data_kw)
+    if mesh is not None and mesh.rank == 0:
+        mesh.barrier()
     cfg = cfg.replace(num_clients=train_ds.num_clients)
 
     gcfg = build_gpt2(cfg, tokenizer)
@@ -136,13 +145,15 @@ def setup(ns: argparse.Namespace):
                          make_gpt2_train_loss(model, cfg.lm_coef,
                                               cfg.mc_coef, cfg.lm_chunk),
                          device=device,
-                         loss_fn_val=make_gpt2_val_loss(model, cfg.lm_chunk))
+                         loss_fn_val=make_gpt2_val_loss(model, cfg.lm_chunk),
+                         mesh=mesh)
     cfg = runtime.cfg
     print(f"d={cfg.grad_size} c={cfg.num_cols} r={cfg.num_rows} k={cfg.k} "
           f"W={cfg.num_workers} B={cfg.local_batch_size} "
           f"C={cfg.num_candidates} S={S} attn={cfg.attn_impl} "
           f"remat={gcfg.remat_policy or gcfg.remat} lm_chunk={cfg.lm_chunk} "
-          f"device={device}")
+          f"device={device}"
+          + (f" mesh={mesh.size} ranks" if mesh is not None else ""))
     return runtime, runtime.init_state(), train_ds, val_ds, gcfg
 
 
@@ -153,9 +164,16 @@ def save_pretrained(out_dir: str, runtime, state, gcfg: GPT2Config,
     fields, ``compute_dtype`` by name, ``params_fingerprint``: the JAX
     package's fingerprint of the DoubleHeads layout) and
     ``hash_tokenizer.json``; reloadable without this run's flags."""
+    mesh = getattr(runtime, "mesh", None)
+    if mesh is None:
+        weights = state.ps_weights
+    else:
+        weights = runtime.flat_weights(state)  # every rank gathers
+        if mesh.rank != 0:
+            return
     os.makedirs(out_dir, exist_ok=True)
     np.savez(os.path.join(out_dir, "weights.npz"),
-             ps_weights=state.ps_weights.cpu().numpy())
+             ps_weights=weights.cpu().numpy())
     cfg_dict = dataclasses.asdict(gcfg)
     cfg_dict["compute_dtype"] = DTYPE_NAMES[gcfg.compute_dtype]
     with open(os.path.join(out_dir, "config.json"), "w") as f:
@@ -252,7 +270,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             "total_download_mib": log.total_download_mib,
             "total_upload_mib": log.total_upload_mib,
             "tokens_per_round": tokens, "model_flops_per_round": flops,
-            "logdir": logdir, "telemetry": telemetry, "log": log}
+            "logdir": logdir, "telemetry": telemetry, "log": log,
+            "runtime": runtime}
 
 
 if __name__ == "__main__":

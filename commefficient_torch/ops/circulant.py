@@ -131,6 +131,19 @@ class CirculantSketch:
                               self.shifts, self.sign_keys, self.c, self.r,
                               self.m, self.d)
 
+    def decode_range(self, table: torch.Tensor, start: int,
+                     length: int) -> torch.Tensor:
+        """The estimates of the coordinates ``[start, start + length)``:
+        ``decode(table)[start:start + length]`` below d, exactly 0 at and
+        past d (mesh padding never wins a top-k). K2's range form on the
+        card (one launch), the gather form on the CPU; bitwise the whole
+        decode's slice either way."""
+        if tuple(table.shape) != self.table_shape:
+            raise ValueError(f"table shape {tuple(table.shape)}")
+        return kernels.decode(table.to(torch.float32).contiguous(),
+                              self.shifts, self.sign_keys, self.c, self.r,
+                              self.m, self.d, start=start, n=length)
+
     def decode_at(self, table: torch.Tensor,
                   idx: torch.Tensor) -> torch.Tensor:
         """``decode(table)[idx]`` at O(k r) gather cost."""

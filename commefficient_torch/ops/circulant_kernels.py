@@ -1,8 +1,10 @@
 """Wrappers of the circulant-sketch CUDA kernels, and their plain versions.
 
 K1 ``encode`` replaces the JAX package's ``ops/circulant_pallas.py
-pallas_encode``; K2 ``decode`` replaces ``pallas_decode``. The kernels are
-in ``csrc/circulant.cu`` (design and bounds in its header note).
+pallas_encode``; K2 ``decode`` replaces ``pallas_decode`` (its range form,
+a ``start``, decodes one rank's coordinates for the sharded server tail).
+The kernels are in ``csrc/circulant.cu`` (design and bounds in its header
+note).
 
 Each wrapper takes the plain PyTorch version only for tensors that lie on
 the CPU. For a CUDA tensor it launches the kernel on the current stream or
@@ -27,16 +29,16 @@ from commefficient_torch.ops.topk import median_axis0
 
 SOURCE = "circulant.cu"
 
-# launches of each kernel since the last reset_launches(); K1's range
-# form (a ``start``) is also counted apart
+# launches of each kernel since the last reset_launches(); the range
+# forms (a ``start``) are also counted apart
 launches = {"circ_encode": 0, "circ_decode": 0}
-range_launches = {"circ_encode": 0}
+range_launches = {"circ_encode": 0, "circ_decode": 0}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-    range_launches["circ_encode"] = 0
+        range_launches[name] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -46,7 +48,7 @@ def _lib() -> ctypes.CDLL:
         lib.circ_encode.argtypes = [p, ll, ll, p, p, i, i, i,
                                     ctypes.c_float, i, p, p]
         lib.circ_encode.restype = i
-        lib.circ_decode.argtypes = [p, p, p, i, i, i, ll, p, p]
+        lib.circ_decode.argtypes = [p, p, p, i, i, i, ll, ll, ll, i, p, p]
         lib.circ_decode.restype = i
         lib.circ_max_rows.argtypes = []
         lib.circ_max_rows.restype = i
@@ -179,7 +181,22 @@ def decode_plain(table: torch.Tensor, shifts: torch.Tensor,
                  d: int) -> torch.Tensor:
     """Plain version of K2: per-coordinate signed gathers from every row by
     index arithmetic, then ``median_axis0``."""
-    x = torch.arange(d, dtype=torch.int64, device=table.device)
+    return decode_range_plain(table, shifts, keys, c, r, m, d, 0, d)
+
+
+def decode_range_plain(table: torch.Tensor, shifts: torch.Tensor,
+                       keys: torch.Tensor, c: int, r: int, m: int, d: int,
+                       start: int, n: int) -> torch.Tensor:
+    """Plain version of K2's range form: the estimates of the coordinates
+    ``[start, start + n)`` by the gather form (each coordinate's signed
+    cell in every row, then ``median_axis0``), exactly 0 at and beyond
+    ``d``; bitwise ``decode_plain(...)[start:start + n]`` below d."""
+    out = torch.zeros(n, dtype=torch.float32, device=table.device)
+    live = max(0, min(n, d - start))
+    if not live:
+        return out
+    x = torch.arange(start, start + live, dtype=torch.int64,
+                     device=table.device)
     b = torch.div(x, c, rounding_mode="floor")
     i = x - b * c
     keys64 = keys.to(torch.int64) & MASK32
@@ -187,15 +204,28 @@ def decode_plain(table: torch.Tensor, shifts: torch.Tensor,
     ests = torch.stack([
         signs(x, keys64[j]) * table[j][(i + sh[j][b]) % c]
         for j in range(r)])
-    return median_axis0(ests)
+    out[:live] = median_axis0(ests)
+    return out
 
 
 def decode(table: torch.Tensor, shifts: torch.Tensor, keys: torch.Tensor,
-           c: int, r: int, m: int, d: int) -> torch.Tensor:
-    """K2: the (d,) float32 median-of-r estimates of an (r, c) table."""
+           c: int, r: int, m: int, d: int, start: Optional[int] = None,
+           n: Optional[int] = None) -> torch.Tensor:
+    """K2: the (d,) float32 median-of-r estimates of an (r, c) table; with
+    ``start`` (and ``n``), the range form: the (n,) estimates of the
+    global coordinates ``[start, start + n)``, exactly +0.0 at and past
+    d, bitwise that slice of the whole decode (one launch of the range
+    instantiation, even for ``start=0, n=d``, counted in
+    ``range_launches`` too)."""
     _check_geometry(d, c, r, m)
+    ranged = start is not None
+    start = int(start) if ranged else 0
+    n = int(n) if n is not None else d - start
+    if start < 0 or n < 1 or start + n >= 2 ** 32:
+        raise ValueError(f"decode: range [{start}, {start + n}) is empty, "
+                         "negative or past the uint32 coordinates")
     if table.device.type == "cpu":
-        return decode_plain(table, shifts, keys, c, r, m, d)
+        return decode_range_plain(table, shifts, keys, c, r, m, d, start, n)
     if table.device.type != "cuda":
         raise ValueError(f"decode: no kernel for device {table.device}")
     _check("table", table, torch.float32, (r, c), table.device)
@@ -205,10 +235,13 @@ def decode(table: torch.Tensor, shifts: torch.Tensor, keys: torch.Tensor,
     if r > lib.circ_max_rows():
         raise ValueError(f"decode kernel takes r <= {lib.circ_max_rows()}, "
                          f"got r={r}")
-    out = torch.empty(d, dtype=torch.float32, device=table.device)
+    out = torch.empty(n, dtype=torch.float32, device=table.device)
     err = lib.circ_decode(
         table.data_ptr(), shifts.data_ptr(), keys.data_ptr(), c, r, m, d,
-        out.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream)
+        start, n, int(ranged), out.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream)
     _raise_on("circ_decode", err)
-    launches["circ_decode"] += 1
+    if start < d:   # a range wholly past d is a memset, no launch
+        launches["circ_decode"] += 1
+        range_launches["circ_decode"] += ranged
     return out

@@ -64,6 +64,62 @@ def topk_with_idx(vec: torch.Tensor, k: int, approx: bool = False):
     return out, idx
 
 
+def local_topk_candidates(vec: torch.Tensor, k: int, offset: int = 0,
+                          approx: bool = False):
+    """The candidate stage of a sharded top-k (the JAX package's
+    ``ops/topk.py local_topk_candidates``): ``vec`` is one shard, the
+    contiguous slice of the global vector starting at coordinate
+    ``offset``, along its last axis (a leading axis holds rows, each
+    selecting its own). Returns the shard's top ``min(k, len)`` entries
+    as ``(values, global int64 indices)``, ordered as ``topk_with_idx``
+    orders them: descending ``vec * vec``, ties to the lower index.
+    Taking min(k, len) makes the merge exact: the global top-k has at
+    most that many winners in any one shard."""
+    del approx
+    k_loc = min(int(k), vec.shape[-1])
+    keys = torch.topk(_rank_keys(vec * vec), k_loc, dim=-1).values
+    li = _LOW32 - (keys & _LOW32)
+    return vec.gather(-1, li), li + int(offset)
+
+
+def merge_topk_candidates(cand_vals: torch.Tensor, cand_idx: torch.Tensor,
+                          k: int):
+    """The global top-k from the shards' candidates (the JAX package's
+    ``merge_topk_candidates``): ``cand_vals``/``cand_idx`` are ``(n,
+    ..., k_loc)`` stacks of ``local_topk_candidates`` over n contiguous
+    shards in index order (what an all-gather returns). Within a shard
+    equal magnitudes come in ascending index order, and shard order is
+    index order, so ranking the flattened candidates with ties to the
+    earlier position selects, in the same order, the coordinates
+    ``topk_with_idx`` selects on the whole vector, ties across shard
+    edges included. Returns ``(values, indices)``, ``(..., k)`` each."""
+    flat_v = cand_vals.movedim(0, -2).flatten(-2)
+    flat_i = cand_idx.movedim(0, -2).flatten(-2)
+    k = int(k)
+    if flat_v.shape[-1] < k:
+        raise ValueError(
+            f"{tuple(cand_vals.shape)} candidates cannot cover k={k}: each "
+            "shard must contribute min(k, shard_len) candidates")
+    keys = torch.topk(_rank_keys(flat_v * flat_v), k, dim=-1).values
+    sel = _LOW32 - (keys & _LOW32)
+    return flat_v.gather(-1, sel), flat_i.gather(-1, sel)
+
+
+def scatter_winners(win_vals: torch.Tensor, win_idx: torch.Tensor,
+                    start: int, length: int) -> torch.Tensor:
+    """The dense block ``[start, start + length)`` of the merged winners
+    (``merge_topk_candidates``'s ``(..., k)`` values at their global
+    indices), zero elsewhere: ``(..., length)``. Winners outside the
+    block land in a spare slot that is cut off, so no host read decides
+    which are inside (top-k indices are distinct)."""
+    rel = win_idx - start
+    inside = (rel >= 0) & (rel < length)
+    out = win_vals.new_zeros(win_vals.shape[:-1] + (length + 1,))
+    out.scatter_(-1, torch.where(inside, rel, length),
+                 torch.where(inside, win_vals, 0.0))
+    return out[..., :length]
+
+
 def topk(vec: torch.Tensor, k: int, approx: bool = False) -> torch.Tensor:
     """The dense top-k of ``topk_with_idx``: over the whole vector for a
     1-D ``vec``, row by row (each row keeps its own k) for a 2-D one."""

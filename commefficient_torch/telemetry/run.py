@@ -229,14 +229,14 @@ class RunTelemetry:
 
     @staticmethod
     def _config_fields(cfg) -> Dict[str, Any]:
-        """``mesh_shape``/``mesh_axes`` as the JAX package writes them for
-        a single-device run (the port runs one device)."""
+        """``mesh_shape``/``mesh_axes`` as the JAX package writes them:
+        the configured mesh ([] on one device)."""
         if cfg is None:
             return {"mesh_shape": [], "mesh_axes": [], "grad_size": 0,
                     "sketch": None, "config": {}}
         return {
-            "mesh_shape": [],
-            "mesh_axes": ["clients"],
+            "mesh_shape": list(cfg.mesh_shape),
+            "mesh_axes": list(cfg.mesh_axes),
             "grad_size": int(cfg.grad_size),
             "sketch": _sketch_geometry(cfg),
             "config": _jsonable(dataclasses.asdict(cfg)),

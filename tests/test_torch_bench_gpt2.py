@@ -10,8 +10,9 @@ against the JAX package's ``bench_gpt2.py`` and scripts, on the CPU:
 - the dryrun's result line has the JAX keys and equal derived values on
   every wire (the timed loop stubbed in both packages, the JAX round's
   cost analysis skipped);
-- the refusals name ROADMAP A9; the sweep writes a line an arm and goes
-  on past a dead one; ``ledger_ab`` gives null ledgers off the card;
+- the split round's arms run (``--decode_overlap``); the sweep writes a
+  line an arm and goes on past a dead one; ``ledger_ab`` gives null
+  ledgers off the card, of the async and of the overlap cohort;
 - the bare step and the long-context arms run on the CPU at a tiny
   GPT-2, K3's plain version in the flash arms: each flash arm's first
   loss within ``FLASH_LOSS_RTOL`` of the dense arm's (both round the
@@ -108,13 +109,10 @@ def test_gpt2_config_matches_jax(name, overrides, dryrun, jax_capture):
     with pytest.raises(_Captured):
         jax_bench_gpt2.run(dryrun=dryrun, **overrides)
     jcfg = jax_capture[0]
-    port_kw = {k: v for k, v in overrides.items() if k != "decode_overlap"}
-    _, _, pcfg = bench_gpt2.run_config(dryrun=dryrun, **port_kw)
+    _, _, pcfg = bench_gpt2.run_config(dryrun=dryrun, **overrides)
     assert not _shared_diff(pcfg, jcfg)
     if overrides.get("decode_overlap"):
-        assert jcfg.decode_overlap
-        with pytest.raises(ValueError, match="ROADMAP A9"):
-            bench_gpt2.run(dryrun=True, device="cpu", **overrides)
+        assert jcfg.decode_overlap and pcfg.decode_overlap
 
 
 @pytest.mark.parametrize("dryrun", [False, True])
@@ -182,10 +180,12 @@ def test_gpt2_dryrun_line_matches_jax(wire, monkeypatch):
 
 
 def test_decode_overlap_and_its_ledger_are_refused():
-    with pytest.raises(ValueError, match="ROADMAP A9"):
-        bench_gpt2.run(decode_overlap=True, dryrun=True, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A9"):
-        bench_gpt2.ledger_ab(dryrun=True, device="cpu", decode_overlap=True)
+    # no longer refused: the split round runs (its timed arm in the
+    # sweep test below), and ledger_ab builds the overlap cohort
+    rec = bench_gpt2.ledger_ab(dryrun=True, device="cpu",
+                               decode_overlap=True)
+    assert rec["arms"] == {"auto": None, "off": None}
+    assert rec["dense_grad_bytes"] == 4 * rec["d"]
 
 
 def test_ledger_ab_off_the_card_has_null_ledgers():
@@ -203,16 +203,23 @@ def test_sweep_arms_are_the_jax_sweeps():
     assert gpt2_mfu_sweep.DEFAULT_ARMS == script.DEFAULT_ARMS
 
 
-def test_sweep_writes_a_line_an_arm_past_a_dead_one(tmp_path, capsys):
+def test_sweep_writes_a_line_an_arm_past_a_dead_one(tmp_path, capsys,
+                                                    monkeypatch):
     out = tmp_path / "sweep.jsonl"
-    rc = gpt2_mfu_sweep.main(["--dryrun", "--arms", "overlap,base",
+    # an arm that dies at its config (every real arm runs now)
+    monkeypatch.setitem(gpt2_mfu_sweep.ARMS, "dead",
+                        {"fused_encode": "never"})
+    rc = gpt2_mfu_sweep.main(["--dryrun", "--arms", "dead,overlap",
                               "--rounds", "1", "--out", str(out),
                               "--device", "cpu"])
     lines = [json.loads(ln) for ln in out.read_text().splitlines()]
-    assert [r["arm"] for r in lines] == ["overlap", "base"]
-    assert "ROADMAP A9" in lines[0]["error"] and "result" not in lines[0]
+    assert [r["arm"] for r in lines] == ["dead", "overlap"]
+    assert ("--sketch_fused_encode" in lines[0]["error"]
+            and "result" not in lines[0])
     res = lines[1]["result"]
     assert res["dryrun"] and res["timed_rounds"] == 1
+    assert res["config"]["decode_overlap"]
+    assert res["memory_ledger_decode"] is None
     assert np.isfinite(res["value"]) and res["mfu"] is None
     # no MFU on the CPU: the summary line says so, rc 1
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

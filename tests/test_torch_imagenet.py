@@ -39,6 +39,7 @@ from commefficient_torch.config import FedConfig  # noqa: E402
 from commefficient_torch.core.runtime import FedRuntime  # noqa: E402
 from commefficient_torch.data import fed_cifar  # noqa: E402
 from commefficient_torch.data import transforms as T  # noqa: E402
+from commefficient_torch.parallel.mesh import setup_mesh  # noqa: E402
 from commefficient_torch.data.device_store import \
     make_device_store  # noqa: E402
 from commefficient_torch.data.fed_imagenet import FedImageNet  # noqa
@@ -275,9 +276,12 @@ def test_recipe_command_line_parses_and_meshes_refuse():
             cfg.num_workers, cfg.do_iid, cfg.do_checkpoint) == (
         "ImageNet", "FixupResNet50", 1000, (224, 224, 3), 7, True, True)
     assert cfg.pipeline and cfg.prefetch_depth == 2
-    with pytest.raises(ValueError, match="A9"):
-        cv_train.config_from_args(cv_train.parse_known(
-            cv_train.build_parser(), RECIPE[:-3] + ["--mesh_shape", "4"]))
+    # a mesh parses; without its ranks the entry point refuses it
+    cfg4 = cv_train.config_from_args(cv_train.parse_known(
+        cv_train.build_parser(), RECIPE[:-3] + ["--mesh_shape", "4"]))
+    assert cfg4.mesh_shape == (4,) and cfg4.mesh_axes == ("clients",)
+    with pytest.raises(ValueError, match="--mesh_shape 4 needs 4 ranks"):
+        setup_mesh(cfg4, torch.device("cpu"))
     with pytest.raises(ValueError, match="--finetuned_from"):
         FedConfig(do_finetune=True)
 

@@ -38,7 +38,9 @@ def test_no_port_module_imports_jax_or_the_jax_package():
             "commefficient_torch.models.stream_mlp",
             "commefficient_torch.scripts.teleview",
             "commefficient_torch.scripts.crash_matrix",
-            "commefficient_torch.scripts.curves"} <= set(names)
+            "commefficient_torch.scripts.curves",
+            "commefficient_torch.parallel",
+            "commefficient_torch.parallel.mesh"} <= set(names)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     out = subprocess.run([sys.executable, "-c", CHECK, ROOT], cwd=ROOT,

@@ -138,6 +138,67 @@ def test_decode_matches_plain_on_card(cuda, d, c, r, kind):
     assert chip_smoke.same_bits(got, kernels.decode_plain(table, *args, d))
 
 
+def test_decode_range_plain_is_the_slice_of_the_whole_decode():
+    """K2's range form on the CPU (the gather form): the whole decode's
+    slice below d, +0.0 at and past d (also past the m c coordinates),
+    no launch."""
+    for d, c, r in ((20_000, 4000, 5), (19_999, 4096, 2), (1_000, 64, 3)):
+        ts = make_circulant_sketch(d, c, r, device="cpu")
+        table = torch.from_numpy(np.random.RandomState(d).randn(
+            r, c).astype(np.float32))
+        args = (ts.shifts, ts.sign_keys, c, r, ts.m)
+        whole = kernels.decode_plain(table, *args, d)
+        kernels.reset_launches()
+        for start, n in ((0, d), (7, 1234), (d - 5, 40), (d + 3, 9),
+                         (ts.m * c - 2, 6)):
+            got = kernels.decode(table, *args, d, start=start, n=n)
+            live = max(0, min(n, d - start))
+            assert chip_smoke.same_bits(got[:live], whole[start:start + live])
+            assert chip_smoke.same_bits(got[live:],
+                                        torch.zeros(n - live))
+        assert kernels.launches["circ_decode"] == 0
+
+
+# shards of d_pad = ceil(d / n) n for n = 4 and 8 (the sharded server
+# tail's ranges), on K2_CASES geometries: a shard inside a block, one
+# across the blocks' seams, the last shard past d
+K2_RANGE_CASES = [(20_000, 4000, 1), (19_999, 4096, 2),
+                  (1_200_000, 500_000, 5), (1_100_000, 524_288, 5),
+                  (50_000, 777, 7), (2_000_000, 300_007, 8),
+                  (1_120_000, 16, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,c,r", K2_RANGE_CASES)
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_decode_range_matches_plain_on_card(cuda, d, c, r, n):
+    """K2's range form: each shard bitwise its plain version (the whole
+    decode's slice, +0.0 past d), one launch a shard counted in
+    ``range_launches``, and the shards together bitwise the whole
+    decode (n = 1: the range form over [0, d_pad), a sharded tail on
+    one rank)."""
+    ts = make_circulant_sketch(d, c, r, device=cuda)
+    table = torch.from_numpy(chip_smoke.zeroed_table(r, c, seed=c + r)
+                             ).to(cuda)
+    args = (ts.shifts, ts.sign_keys, c, r, ts.m)
+    blk = -(-d // n)
+    kernels.reset_launches()
+    shards = [kernels.decode(table, *args, d, start=i * blk, n=blk)
+              for i in range(n)]
+    whole = kernels.decode(table, *args, d)
+    torch.cuda.synchronize()
+    assert kernels.launches["circ_decode"] == n + 1
+    assert kernels.range_launches["circ_decode"] == n
+    cat = torch.cat(shards)
+    assert chip_smoke.same_bits(cat[:d], whole)
+    assert chip_smoke.same_bits(cat[d:], torch.zeros(n * blk - d,
+                                                     device=cuda))
+    plain = kernels.decode_range_plain(table.cpu(), ts.shifts.cpu(),
+                                       ts.sign_keys.cpu(), c, r, ts.m, d,
+                                       (n > 1) * blk, blk)
+    assert chip_smoke.same_bits(shards[n > 1].cpu(), plain)
+
+
 # (d, c, r): m = 1 (c = d and c above d), m above and not a multiple of
 # the 128 blocks whose shifts K1 stages at a time (m = 134 and 129), the
 # unaligned c = 500,000 (m = 3), and c = 2,000,000, whose column tiles

@@ -381,7 +381,8 @@ def test_flags_outside_the_slice_raise_naming_them():
     with pytest.raises(ValueError, match="--mode"):
         tconfig.FedConfig(mode="dense_sketch")
     with pytest.raises(ValueError, match="--mesh_axes"):
-        tconfig.parse_known(p, ["--mesh_axes", "clients"])
+        tconfig.config_from_args(
+            tconfig.parse_known(p, ["--mesh_axes", "clients,seq"]))
     # the runtime services' flags are the port's: they parse, and a value
     # outside their choices names the flag
     for argv in (["--defense", "trimmed_mean"], ["--scenario", "dropout",
