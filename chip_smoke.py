@@ -49,9 +49,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    arms beside its base arm) and a 1-rank NCCL mesh (``phase_mesh1``:
    the replicated tail, the sharded tail and the reduce in the decode
    bitwise each other and the no-mesh round, K2's range form once a
-   sharded round; the group torn down in a ``finally``). ``python3
-   chip_smoke.py --mesh`` runs the build and these three alone (no
-   result line);
+   sharded round; the int8 wire's sharded round, monolithic and split,
+   bitwise each other; every arm's first round under the collectives
+   ledger, within the JAX launch bounds with no table-reduce wire bytes
+   on one rank; ``--checkpoint_sharded`` written and read back, the next
+   round bitwise; the group torn down in a ``finally``); then ring
+   attention in one process (``phase_ring``: all shards on the card at
+   GPT-2 small's width, (8, 1024) over 4 shards and (4, 4096) over 8,
+   output and gradients against dense float32 attention and against
+   K3, each row within RING_ROW_RTOL, timed beside K3 and SDPA),
+   ``scaling_curves``' n = 1 arms on the card (``phase_scaling``), the
+   flags lifted on a mesh through the entry points on a 1-rank NCCL
+   mesh (``phase_mesh_entry``: ``--wire_dtype int8 --checkpoint_sharded
+   --alert_action abort``, a resume bitwise the straight run; ``gpt2_train
+   --mesh_axes clients,seq``) and ``multihost_dryrun`` on the machine's
+   CPU (``phase_multihost``). ``python3 chip_smoke.py --mesh`` runs the
+   build and the mesh phases alone, ``--ring`` the build and the ring
+   (no result line);
 3. hold K3 (causal flash attention: forward, dq, dk/dv) against its plain
    versions at (N, S, H, D) = (8, 1024, 12, 64), (8, 256, 12, 64), (8,
    2048, 12, 64), (4, 4096, 12, 64), (16, 256, 12, 64) and (16, 1024,
@@ -5343,6 +5357,19 @@ MESH1_ROUNDS = 3
 MESH1_RTOL, MESH1_ATOL = 1e-4, 1e-6
 # K2's range form: shards of d_pad over 4 and 8 ranks
 DECODE_SHARDS = (4, 8)
+# ring attention at GPT-2 small's width (H = 12, D = 64): (N, S, shards)
+RING_SHAPES = ((8, 1024, 4), (4, 4096, 8))
+# the ring's outputs against plain float32 dense attention, each output
+# row against its own norm (the ring's bf16 output and gradients round
+# once, as K3's do); against K3, the largest difference over the dense
+# output's largest value (a per-row measure would divide K3's own error
+# in a near-zero row, dq's first, by that row's norm)
+RING_ROW_RTOL = FLASH_ROW_RTOL
+RING_K3_RTOL = 2e-2
+# the scaling curves' n = 1 arms on the card (3 rounds after 2 of
+# warm-up) and the multi-host dryrun's time limit on the CPU
+SCALING_ROUNDS = 3
+MULTIHOST_TIMEOUT_S = 300
 
 
 def range_decode_work(d: int, start: int, n: int, c: int, r: int):
@@ -5579,8 +5606,13 @@ def phase_mesh1():
     from commefficient_torch.core.runtime import FedRuntime
     from commefficient_torch.losses import make_cv_loss
     from commefficient_torch.models.resnet9 import ResNet9
+    from commefficient_torch.checkpoint import (load_meta,
+                                                restore_own_shards,
+                                                save_sharded)
     from commefficient_torch.ops import circulant_kernels as K
     from commefficient_torch.parallel.mesh import init_distributed, make_mesh
+    from commefficient_torch.telemetry.collectives import (
+        past_bounds, recording, summarize_ledger, table_reduce_wire_bytes)
 
     rng = np.random.RandomState(3)
     rounds = [{"image": rng.randn(8, 64, 32, 32, 3).astype(np.float32),
@@ -5591,7 +5623,7 @@ def phase_mesh1():
                    virtual_momentum=0.9, k=50_000, num_rows=5,
                    num_cols=500_000, num_workers=8, local_batch_size=64,
                    num_clients=100, telemetry=False)
-    arms = {}
+    arms, ledgers = {}, {}
     device = init_distributed("cuda")
     try:
         mesh = make_mesh((1,), ("clients",))
@@ -5605,6 +5637,11 @@ def phase_mesh1():
                     ("sharded tail", {"sketch_sharded_server": "on"}, mesh),
                     ("sharded tail, reduce in the decode",
                      {"sketch_sharded_server": "on",
+                      "decode_overlap": True}, mesh),
+                    ("int8 sharded tail", {"sketch_sharded_server": "on",
+                                           "wire_dtype": "int8"}, mesh),
+                    ("int8 sharded tail, reduce in the decode",
+                     {"sketch_sharded_server": "on", "wire_dtype": "int8",
                       "decode_overlap": True}, mesh)):
                 model = ResNet9(num_classes=10,
                                 generator=torch.Generator().manual_seed(0))
@@ -5615,14 +5652,42 @@ def phase_mesh1():
                 torch.cuda.synchronize()
                 K.reset_launches()
                 losses, times = [], []
-                for b in rounds:
+                for i, b in enumerate(rounds):
                     t0 = time.perf_counter()
-                    st, met = obj.round(st, ids, b, mask, 0.1)
+                    with recording() as entries:
+                        st, met = obj.round(st, ids, b, mask, 0.1)
                     torch.cuda.synchronize()
                     times.append(time.perf_counter() - t0)
                     losses.append(met["results"][0])
+                    if i == 0 and m is not None:
+                        ledgers[arm] = entries
                 launches = dict(K.launches)
                 ranged = K.range_launches["circ_decode"]
+                if arm == "int8 sharded tail":
+                    # --checkpoint_sharded: this rank's shards written and
+                    # read back, and a round more from each, bitwise
+                    path = os.path.join(DATA_ROOT["path"], "mesh1_int8")
+                    save_sharded(path, st, rt, {"epoch": 0})
+                    back = restore_own_shards(path, rt,
+                                              load_meta(path)["digests"])
+                    resumed = [f for f in ("ps_weights", "Vvelocity",
+                                           "Verror", "nan_round")
+                               if not same_bits(getattr(back, f),
+                                                getattr(st, f))]
+                    if resumed or back.step != st.step:
+                        fail(f"mesh1: the sharded checkpoint's {resumed} "
+                             "did not read back bitwise")
+                    st_a, _ = rt.round(st, ids, rounds[0], mask, 0.1)
+                    st_b, _ = rt.round(back, ids, rounds[0], mask, 0.1)
+                    if not same_bits(st_a.ps_weights, st_b.ps_weights):
+                        fail("mesh1: the round after the sharded "
+                             "checkpoint's restore is not bitwise")
+                    print(f"[mesh1] --checkpoint_sharded at the headline: "
+                          f"{os.path.getsize(path + '.npz') / 2**20:.1f} "
+                          "MiB, read back bitwise, the next round bitwise",
+                          flush=True)
+                    del st_a, st_b, back
+                    K.reset_launches()
                 arms[arm] = (rt.flat_weights(st).clone(),
                              torch.stack(losses), launches, ranged,
                              statistics.median(times[1:]) * 1e3)
@@ -5638,6 +5703,25 @@ def phase_mesh1():
         w, lo = arms[arm][:2]
         if not (same_bits(w, ref_w) and same_bits(lo, ref_l)):
             fail(f"mesh1: the {arm} is not bitwise the replicated tail")
+    w8, l8 = arms["int8 sharded tail"][:2]
+    w8s, l8s = arms["int8 sharded tail, reduce in the decode"][:2]
+    if not (same_bits(w8, w8s) and same_bits(l8, l8s)):
+        fail("mesh1: the int8 split round is not bitwise the monolithic")
+    if not torch.isfinite(l8).all():
+        fail(f"mesh1: the int8 round's losses {l8}")
+    # the first round's collectives: within the JAX launch bounds, and no
+    # table-reduce wire bytes on one rank (the wire model)
+    for arm, entries in ledgers.items():
+        over = past_bounds(entries)
+        wire = table_reduce_wire_bytes(entries, 1)
+        counts = summarize_ledger(entries)["counts"]
+        print(f"[mesh1] {arm}: the round's collectives {counts}, "
+              f"table_reduce_bytes {wire}", flush=True)
+        if over or wire != 0.0 or not entries:
+            fail(f"mesh1 {arm}: collectives {counts} (past bounds {over}),"
+                 f" table_reduce_bytes {wire}")
+        if "int8" in arm and counts.get("all-to-all", 0) < 2:
+            fail(f"mesh1 {arm}: no int8 all_to_all reduce: {counts}")
     w0, l0 = arms["no mesh"][:2]
     dw = float((ref_w - w0).abs().max())
     exact = same_bits(ref_w, w0) and same_bits(ref_l, l0)
@@ -5657,12 +5741,266 @@ def phase_mesh1():
                                - ranged, "circ_decode_range": ranged}
     print(f"[mesh1] 1-rank NCCL mesh, {MESH1_ROUNDS} headline rounds: the "
           f"sharded tail and the reduce in the decode bitwise the "
-          f"replicated tail; against the no-mesh round bitwise {exact} "
+          f"replicated tail; the int8 wire's split round bitwise its "
+          f"monolithic one; against the no-mesh round bitwise {exact} "
           f"(max|dw| {dw:.3e}); K2's range form once a sharded round; "
           "round medians (ms): "
           + ", ".join(f"{a} {v[4]:.3f}" for a, v in arms.items()),
           flush=True)
     return out
+
+
+def phase_ring():
+    """Ring attention in its single-process form (all shards on the card,
+    the ring a rotating list: ``parallel/ring.py ring_attention_shards``)
+    at GPT-2 small's width, RING_SHAPES: its output and dq, dk, dv from
+    the seeded bf16 q, k, v of ``flash_inputs`` held against plain float32
+    dense causal attention (autograd) and against K3, each row within
+    RING_ROW_RTOL of its own norm; the ring's forward and forward+backward
+    timed beside K3's and SDPA's at the same shape. Returns
+    {shape: times}."""
+    import torch
+    import torch.nn.functional as F
+    from commefficient_torch.models.gpt2 import dense_causal_attention
+    from commefficient_torch.ops import flash_attention as FA
+    from commefficient_torch.parallel.ring import ring_attention_shards
+
+    out = {}
+    H, D = 12, 64
+    for N, S, n in RING_SHAPES:
+        q, k, v, do = flash_inputs(N, S, H, D)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+        def ring(qq, kk, vv):
+            return torch.cat(ring_attention_shards(
+                list(qq.chunk(n, 1)), list(kk.chunk(n, 1)),
+                list(vv.chunk(n, 1))), 1)
+
+        o = ring(*leaves)
+        dq, dk, dv = torch.autograd.grad(o, leaves, do)
+        ref_in = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+        o_ref = dense_causal_attention(*ref_in)
+        refs = dict(zip(("dq", "dk", "dv"),
+                        torch.autograd.grad(o_ref, ref_in, do.float())))
+        refs["o"] = o_ref.detach()
+        del o_ref, ref_in
+        o3, lse = FA.forward(q, k, v)
+        dq3, delta = FA.backward_dq(q, k, v, o3, lse, do)
+        dk3, dv3 = FA.backward_dkv(q, k, v, do, lse, delta)
+        k3 = {"o": o3, "dq": dq3, "dk": dk3, "dv": dv3}
+        got = {"o": o.detach(), "dq": dq, "dk": dk, "dv": dv}
+        errs = {name: (float(row_errors(t, refs[name]).max()),
+                       float((t.float() - k3[name].float()).abs().max()
+                             / refs[name].abs().max()))
+                for name, t in got.items()}
+        print(f"[ring] (N, S, H, D) = {(N, S, H, D)} over {n} shards: worst "
+              "row error against dense float32 / largest difference from "
+              "K3 over the largest dense value: "
+              + ", ".join(f"{name} {a:.3e} / {b:.3e}"
+                          for name, (a, b) in errs.items())
+              + f" (limits {RING_ROW_RTOL} / {RING_K3_RTOL})", flush=True)
+        bad = {name: e for name, e in errs.items()
+               if not (math.isfinite(e[0]) and e[0] <= RING_ROW_RTOL
+                       and math.isfinite(e[1]) and e[1] <= RING_K3_RTOL)}
+        if bad:
+            fail(f"ring attention disagrees at {(N, S, n)}: {bad}")
+        del refs, k3, o, dq, dk, dv, o3, dq3, dk3, dv3, delta
+        torch.cuda.empty_cache()
+        # fwd and fwd+bwd: the ring, K3 and SDPA at the same shape
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        qk = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        times = {
+            "ring_fwd": time_ms(lambda: ring(q, k, v), n=3, warmup=1),
+            "ring_fwd_bwd": time_ms(lambda: torch.autograd.grad(
+                ring(*leaves), leaves, do), n=3, warmup=1),
+            "k3_fwd": time_ms(lambda: FA.forward(q, k, v)),
+            "k3_fwd_bwd": time_ms(lambda: torch.autograd.grad(
+                FA.flash_attention(*qk), qk, do)),
+            "sdpa_fwd": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True).detach()),
+            "sdpa_fwd_bwd": time_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                (qt, kt, vt), do.transpose(1, 2)))}
+        print(f"[ring] {(N, S, H, D)} over {n} shards (ms): "
+              + ", ".join(f"{a} {t:.4f}" for a, t in times.items()),
+              flush=True)
+        out[f"{N}x{S}x{H}x{D}/{n}"] = times
+        del q, k, v, do, leaves, qt, kt, vt, qk
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_scaling():
+    """``scaling_curves``'s n = 1 arms on the card (a 1-rank NCCL mesh,
+    weak and strong, float32 and int8): one JSONL line an arm, read
+    back; every arm's collectives within the JAX bounds and its
+    table-reduce bytes 0 on one rank. Returns ``(launches, lines)``."""
+    from commefficient_torch.ops import circulant_kernels as K
+    from commefficient_torch.scripts import scaling_curves
+
+    out = os.path.join(DATA_ROOT["path"], "scaling.jsonl")
+    K.reset_launches()
+    rc = scaling_curves.main(["--device", "cuda", "--devices", "1",
+                              "--rounds", str(SCALING_ROUNDS),
+                              "--wire_dtype", "float32,int8",
+                              "--out", out])
+    launches = {**K.launches,
+                "circ_decode_range": K.range_launches["circ_decode"]}
+    launches["circ_decode"] -= launches["circ_decode_range"]
+    lines = [json.loads(ln) for ln in open(out)]
+    arms = [ln for ln in lines if ln["kind"] == "arm"]
+    if rc != 0 or len(arms) != 3 or any(
+            a["backend"] != "nccl-cuda" or a["table_reduce_bytes"] != 0.0
+            for a in arms):
+        fail(f"scaling_curves on the card: rc {rc}, {arms}")
+    print("[scaling] n = 1 arms on the card: " + "; ".join(
+        f"{a['scaling']} {a['wire_dtype']} {a['items_per_s']:.1f} img/s, "
+        f"round {a['round_ms']:.3f} ms, collectives {a['collectives']}"
+        for a in arms), flush=True)
+    return launches, arms
+
+
+def _mesh_entry(module, argv, tag):
+    """An entry point on a 1-rank NCCL mesh (the group its setup joins
+    as a lone process), its final weights gathered (``flat``) before the
+    group is torn down."""
+    import torch.distributed as dist
+    try:
+        out = entry_main(module, argv, tag)
+        out["flat"] = out["runtime"].flat_weights(out["state"])
+        return out
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_mesh_entry():
+    """The flags this slice lifted on a mesh, through the entry points on
+    a 1-rank NCCL mesh: ``cv_train`` at the headline with ``--mesh_shape 1
+    --wire_dtype int8 --checkpoint_sharded --checkpoint_every 1
+    --alert_action abort`` (one epoch, then ``--resume`` to the second,
+    bitwise the straight two-epoch run; 9 K1 and K2's range form a
+    round), and ``gpt2_train --test --mesh_axes clients,seq --mesh_shape
+    1,1`` (a seq axis of one rank is none). Returns the launches."""
+    import numpy as np
+    from commefficient_torch import cv_train, gpt2_train
+    from commefficient_torch.ops import circulant_kernels as K
+
+    ck = os.path.join(DATA_ROOT["path"], "mesh_entry_ck")
+    base = MAIN_ARGV + dataset_flags("mesh_entry") + [
+        "--mesh_shape", "1", "--wire_dtype", "int8", "--checkpoint_sharded",
+        "--checkpoint_every", "1", "--alert_action", "abort",
+        "--synthetic_per_class", "64"]
+    runs = {}
+    with deterministic_cudnn():
+        K.reset_launches()
+        runs["first"] = _mesh_entry(cv_train, base + [
+            "--num_epochs", "1", "--checkpoint_path", ck], "mesh int8 e1")
+        launches = {**K.launches,
+                    "circ_decode_range": K.range_launches["circ_decode"]}
+        rounds = runs["first"]["rounds"]
+        runs["resumed"] = _mesh_entry(cv_train, base + [
+            "--num_epochs", "2", "--resume", "--checkpoint_path", ck],
+            "mesh int8 resumed")
+        runs["straight"] = _mesh_entry(cv_train, base + [
+            "--num_epochs", "2", "--checkpoint_path", ck + "_straight"],
+            "mesh int8 straight")
+    w = {k: v["flat"] for k, v in runs.items()}
+    gens = sorted(f for f in os.listdir(os.path.join(ck, "ResNet9"))
+                  if f.endswith(".npz"))
+    with np.load(os.path.join(ck, "ResNet9", gens[0])) as z:
+        sharded = "__sharded__" in z.files
+    ok = (rounds > 0 and sharded and runs["first"]["runtime"].sharded_server
+          and same_bits(w["resumed"], w["straight"])
+          and launches["circ_encode"] == 9 * rounds
+          and launches["circ_decode_range"] == rounds
+          and launches["circ_decode"] == rounds)
+    print(f"[mesh entry] cv_train --mesh_shape 1 --wire_dtype int8 "
+          f"--checkpoint_sharded --alert_action abort: {rounds} rounds an "
+          f"epoch, launches {launches}, the sharded generation {gens[0]}, "
+          f"the resumed second epoch bitwise the straight run: "
+          f"{same_bits(w['resumed'], w['straight'])}", flush=True)
+    if not ok:
+        fail(f"mesh entry: rounds {rounds}, sharded {sharded}, launches "
+             f"{launches}")
+    g = _mesh_entry(gpt2_train, ["--test", "--error_type", "virtual",
+                                 "--local_momentum", "0", "--num_rounds",
+                                 "1", "--mesh_shape", "1,1", "--mesh_axes",
+                                 "clients,seq"] + dataset_flags(
+                                     "mesh_entry_persona"), "gpt2 seq 1,1")
+    if g["rounds"] != 1 or not np.isfinite(g["losses"]).all():
+        fail(f"gpt2_train on a (1, 1) clients,seq mesh: {g['losses']}")
+    print(f"[mesh entry] gpt2_train --test --mesh_axes clients,seq "
+          f"--mesh_shape 1,1: loss {g['losses']}", flush=True)
+    return {"cv_train --mesh_shape 1 --wire_dtype int8 "
+            "--checkpoint_sharded": {
+                "circ_encode": launches["circ_encode"],
+                "circ_decode": launches["circ_decode"]
+                - launches["circ_decode_range"],
+                "circ_decode_range": launches["circ_decode_range"]}}
+
+
+def start_multihost():
+    """``multihost_dryrun`` on this machine's CPU, started in the
+    background (two torchrun launchers of 4 gloo ranks against one of 8;
+    no card): it runs beside the card's phases. ``finish_multihost``
+    reads it."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "commefficient_torch.scripts.multihost_dryrun"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True), time.perf_counter()
+
+
+def stop_multihost(started) -> None:
+    """End the dryrun and every launcher and rank it started."""
+    import signal
+    proc = started[0]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.communicate()
+
+
+def finish_multihost(started) -> None:
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=MULTIHOST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        stop_multihost(started)
+        fail(f"multihost_dryrun took over {MULTIHOST_TIMEOUT_S} s")
+    line = [ln for ln in out.splitlines()
+            if ln.startswith("multihost dryrun:")]
+    if proc.returncode != 0 or not line or "PASS" not in line[0]:
+        fail(f"multihost_dryrun failed (rc {proc.returncode}):\n"
+             f"{out[-2000:]}\n{err[-2000:]}")
+    print(f"[multihost] {line[0]} ({time.perf_counter() - t0:.1f} s on "
+          "the CPU, beside the card's phases)", flush=True)
+
+
+def phase_multihost():
+    finish_multihost(start_multihost())
+
+
+def run_slice18() -> tuple:
+    """The ring at GPT-2 small's width, the scaling curves' n = 1 arms,
+    the lifted flags through the entry points and, on the CPU beside
+    them, the multi-host dryrun (phase_mesh1 holds the int8 wire, the
+    sharded checkpoint and the ledger on the 1-rank mesh)."""
+    multihost = start_multihost()
+    try:
+        ring = phase_ring()
+        time_done("ring attention")
+        scaling_launches, scaling = phase_scaling()
+        time_done("the scaling curves' n = 1 arms")
+        entry_launches = phase_mesh_entry()
+        time_done("the lifted flags through the entry points on the mesh")
+    except BaseException:
+        stop_multihost(multihost)
+        raise
+    finish_multihost(multihost)
+    time_done("the multi-host dryrun")
+    return ring, {"scaling_curves n = 1 arms": scaling_launches,
+                  **entry_launches}, scaling
 
 
 def run_slice17() -> tuple:
@@ -5737,11 +6075,22 @@ def main() -> int:
             time_done("curves (partial run: no result line)")
             return 0
         if sys.argv[1:2] == ["--mesh"]:
-            # K2's range form, the split round and the 1-rank mesh alone,
-            # after the build (no result line)
+            # K2's range form, the split round, the 1-rank mesh (the int8
+            # wire, the sharded checkpoint, the ledger), the scaling
+            # curves' n = 1 arms and the multi-host dryrun alone, after
+            # the build (no result line)
             phase_build()
             run_slice17()
+            phase_scaling()
+            phase_mesh_entry()
+            phase_multihost()
             time_done("mesh (partial run: no result line)")
+            return 0
+        if sys.argv[1:2] == ["--ring"]:
+            # ring attention alone, after the build (no result line)
+            phase_build()
+            phase_ring()
+            time_done("ring (partial run: no result line)")
             return 0
         if sys.argv[1:2] == ["--services"]:
             # the runtime services' phases alone, after the build: a quick
@@ -5785,6 +6134,7 @@ def run_phases(t0: float) -> int:
                 "stream": phase_kernels_range(STREAM_SKETCH, scale=32.0)}
     done("K1/K2, K1's range form")
     decode_range, overlap_launches, overlap, mesh_launches = run_slice17()
+    ring, scaling_launches, scaling = run_slice18()
     flash = phase_flash()
     done("K3")
     phase_small_reference()
@@ -5868,6 +6218,14 @@ def run_phases(t0: float) -> int:
           + ", ".join(f"{shape} {k} {t['ms']:.4f} ({t['bound_ms']:.4f})"
                       for shape, kinds in k1_range.items()
                       for k, t in kinds.items()), flush=True)
+    print("[slice 18] ring attention (ms): "
+          + "; ".join(f"{shape} " + ", ".join(f"{a} {t:.4f}"
+                                              for a, t in times.items())
+                      for shape, times in ring.items())
+          + "; scaling n = 1 on the card (img/s): "
+          + ", ".join(f"{a['scaling']} {a['wire_dtype']} "
+                      f"{a['items_per_s']:.1f}" for a in scaling),
+          flush=True)
     print("[slice 17] K2's range form (ms, bound): "
           + ", ".join(f"{m} {n} shards {t['ms']:.4f} ({t['bound_ms']:.4f})"
                       for m, shards in decode_range.items()
@@ -5977,7 +6335,9 @@ def run_phases(t0: float) -> int:
                    **{path: launches[name]
                       for path, launches in overlap_launches.items()},
                    **{path: launches[name]
-                      for path, launches in mesh_launches.items()}}
+                      for path, launches in mesh_launches.items()},
+                   **{path: launches[name]
+                      for path, launches in scaling_launches.items()}}
         extra = {}
         if name == "circ_encode":
             extra = {"range_launches": stream["streaming_grad"][1],
@@ -5997,6 +6357,8 @@ def run_phases(t0: float) -> int:
     # coordinates (the headline's m = 14 shard of 4; m = 176 beside it)
     by_path = {path: launches["circ_decode_range"]
                for path, launches in mesh_launches.items()}
+    by_path.update({path: launches["circ_decode_range"]
+                    for path, launches in scaling_launches.items()})
     kernels.append({
         "name": "circ_decode_range", "route": "cuda",
         "source": "commefficient_torch/csrc/circulant.cu",

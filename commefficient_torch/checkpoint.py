@@ -61,8 +61,10 @@ SKIPPED = ("rng",)
 # --signals_exact shadow pair
 FITTED = ("async_buffer", "async_buffer_n", "defense_ref",
           "sig_Vvelocity", "sig_Verror")
-# a plain save refuses above this many bytes of host copies
-DEFAULT_MAX_HOST_BYTES = 8 << 30
+# a plain save refuses above this many bytes of host copies (the JAX
+# package's guard and its environment override)
+DEFAULT_MAX_HOST_BYTES = int(os.environ.get(
+    "COMMEFFICIENT_CKPT_MAX_HOST_BYTES", 8 << 30))
 _DAMAGE_ERRORS = (zipfile.BadZipFile, OSError, EOFError, KeyError)
 
 
@@ -175,6 +177,19 @@ def _atomic_write(path: str, write) -> None:
         os.close(dfd)
 
 
+def check_host_bytes(total: int,
+                     max_host_bytes: int = DEFAULT_MAX_HOST_BYTES) -> None:
+    """Refuse a plain save of ``total`` bytes above the guard."""
+    if total > max_host_bytes:
+        raise ValueError(
+            f"checkpoint state is {total / 2**30:.1f} GiB, above the "
+            f"{max_host_bytes / 2**30:.1f} GiB host-copy guard: a plain "
+            "save copies the whole state to one host at once. Pass "
+            "--checkpoint_sharded (per-shard streaming writes, peak host "
+            "memory = one shard), or raise "
+            "COMMEFFICIENT_CKPT_MAX_HOST_BYTES explicitly.")
+
+
 def save_state(path: str, state: FedState, meta: Optional[Dict] = None,
                max_host_bytes: int = DEFAULT_MAX_HOST_BYTES) -> str:
     """Writes ``<path>.meta.json`` and then ``<path>.npz``, each
@@ -182,12 +197,7 @@ def save_state(path: str, state: FedState, meta: Optional[Dict] = None,
     listed by their npz, so a write cut between the two leaves no npz
     without its digests. Refuses a state above ``max_host_bytes`` of host
     copies."""
-    total = state_nbytes(state)
-    if total > max_host_bytes:
-        raise ValueError(
-            f"checkpoint state is {total / 2**30:.1f} GiB, above the "
-            f"{max_host_bytes / 2**30:.1f} GiB host-copy guard (the port "
-            "writes no sharded checkpoints)")
+    check_host_bytes(state_nbytes(state), max_host_bytes)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arrays = state_arrays(state)
     digests = {k: entry_digest(v) for k, v in arrays.items()}
@@ -242,8 +252,10 @@ def load_meta(path: str) -> Dict:
 def load_arrays(path: str, digests: Optional[Dict[str, str]] = None
                 ) -> Dict[str, np.ndarray]:
     """The file's fields as host arrays, each checked against its digest
-    when ``digests`` has one. Refuses the JAX package's sharded layout and
-    its fields that the port does not run, by name."""
+    when ``digests`` has one; a file in the sharded layout assembled on
+    the host (``assemble_sharded``, with its ``__sharded__`` marker).
+    Refuses the JAX package's fields that the port does not run, by
+    name."""
     try:
         z = np.load(path + ".npz")
     except Exception as e:
@@ -252,30 +264,293 @@ def load_arrays(path: str, digests: Optional[Dict[str, str]] = None
     with z:
         names = [n for n in z.files if n not in SKIPPED]
         if "__sharded__" in names:
-            raise ValueError(f"checkpoint {path}.npz is a sharded "
-                             "checkpoint of the JAX package's meshes; the "
-                             "port reads single-device checkpoints only")
+            return assemble_sharded(z, path, digests)
         for name in names:
             if name not in FIELDS:
                 raise ValueError(f"checkpoint {path}.npz holds an unknown "
                                  f"field '{name}'")
         out = {}
         for name in names:
-            try:
-                arr = z[name]
-            except Exception as e:
-                raise CheckpointIntegrityError(
-                    f"checkpoint file {path}.npz entry '{name}' is corrupt "
-                    f"({e})") from e
-            if digests and name in digests:
-                got = entry_digest(arr)
-                if got != digests[name]:
-                    raise CheckpointIntegrityError(
-                        f"checkpoint file {path}.npz entry '{name}' fails "
-                        f"its sha256 digest (stored {digests[name][:12]}..."
-                        f", read {got[:12]}...)")
-            out[name] = arr
+            out[name] = read_entry(z, name, path, digests)
     return out
+
+
+def read_entry(z, key: str, path: str,
+               digests: Optional[Dict[str, str]] = None) -> np.ndarray:
+    """One entry of an open npz, checked against its digest when
+    ``digests`` has one."""
+    try:
+        arr = z[key]
+    except Exception as e:
+        raise CheckpointIntegrityError(
+            f"checkpoint file {path}.npz entry '{key}' is corrupt "
+            f"({e})") from e
+    if digests and key in digests:
+        got = entry_digest(arr)
+        if got != digests[key]:
+            raise CheckpointIntegrityError(
+                f"checkpoint file {path}.npz entry '{key}' fails "
+                f"its sha256 digest (stored {digests[key][:12]}..."
+                f", read {got[:12]}...)")
+    return arr
+
+
+# ------------------------------------------------- the sharded layout
+
+
+def _sharded_fields(z) -> List[str]:
+    """The fields a sharded file holds (``name__shape`` entries), the
+    JAX package's PRNG key skipped; an unknown one is refused."""
+    names = [k[:-len("__shape")] for k in z.files if k.endswith("__shape")]
+    for name in names:
+        if name not in FIELDS and name not in SKIPPED:
+            raise ValueError(f"sharded checkpoint holds an unknown field "
+                             f"'{name}'")
+    return [n for n in FIELDS if n in names]
+
+
+def _shard_offsets(z, name: str, path: str, digests) -> List[Tuple]:
+    """``[(i, offset tuple)]`` of a field's shards."""
+    out, i = [], 0
+    while f"{name}__shard{i}" in z.files:
+        off = tuple(int(o) for o in read_entry(z, f"{name}__off{i}", path,
+                                               digests))
+        out.append((i, off))
+        i += 1
+    return out
+
+
+def assemble_sharded(z, path: str,
+                     digests: Optional[Dict[str, str]] = None
+                     ) -> Dict[str, np.ndarray]:
+    """Every field of a sharded file (the JAX package's layout: its
+    ``__sharded__`` marker and, a field, ``name__shape``,
+    ``name__dtype``, ``name__shard{i}`` and ``name__off{i}``) assembled
+    on the host at its stored shape; a field its shards do not cover is
+    refused (the JAX package's ``_load_arrays``)."""
+    out = {}
+    for name in _sharded_fields(z):
+        shape = tuple(int(x) for x in read_entry(z, f"{name}__shape", path,
+                                                 digests))
+        dtype = str(read_entry(z, f"{name}__dtype", path, digests))
+        arr = np.empty(shape, dtype=dtype)
+        covered = 0
+        for i, off in _shard_offsets(z, name, path, digests):
+            shard = read_entry(z, f"{name}__shard{i}", path, digests)
+            idx = tuple(slice(o, o + n) for o, n in zip(off, shard.shape))
+            arr[idx if shape else ...] = shard
+            covered += int(np.prod(shard.shape))
+        if covered != int(np.prod(shape)):
+            raise ValueError(
+                f"sharded checkpoint entry '{name}' covers only {covered} "
+                f"of {int(np.prod(shape))} elements")
+        out[name] = arr
+    # the marker: load_state cuts a mesh's padding off these
+    out["__sharded__"] = np.asarray(1)
+    return out
+
+
+def fit_to_shapes(arrays: Dict[str, np.ndarray],
+                  shapes: Dict[str, Optional[tuple]]) -> Dict:
+    """A sharded file's fields cut to a single-device run's ``shapes``:
+    the padding a mesh adds (the dense vectors' d_pad, the client rows'
+    padded count and columns) comes off; a cut that would drop nonzero
+    velocity or error is refused (the JAX package's rule: live state, not
+    padding). Other differences stay, for the shape check to refuse."""
+    out = dict(arrays)
+    for name, arr in arrays.items():
+        want = shapes.get(name)
+        if want is None or arr.ndim != len(want) or arr.shape == want:
+            continue
+        if any(g < w for g, w in zip(arr.shape, want)):
+            continue
+        keep = tuple(slice(0, w) for w in want)
+        if name in ("client_velocities", "client_errors"):
+            dropped = arr.copy()
+            dropped[keep] = 0
+            if np.any(dropped):
+                raise ValueError(
+                    f"cannot cut {name} from {arr.shape} to {tuple(want)}: "
+                    "the dropped rows or columns carry nonzero state (live "
+                    "clients, not mesh padding)")
+        cut = arr[keep]
+        out[name] = np.ascontiguousarray(cut)
+    return out
+
+
+class ShardPlan:
+    """The sharded layout of a run's state: for each field it holds, its
+    global shape (the mesh's padded shape) and its shards, ``[(rank,
+    offset)]`` in the order they are written (a replicated field once,
+    from rank 0). ``runtime`` None (one device) holds one shard a
+    field."""
+
+    def __init__(self, runtime, state: FedState):
+        mesh = getattr(runtime, "mesh", None)
+        n = mesh.size if mesh is not None else 1
+        self.fields = []
+        for name in FIELDS:
+            val = getattr(state, name)
+            if val is None:
+                continue
+            kind = (runtime.shard_of.get(name) if mesh is not None
+                    else None)
+            local = () if name == "step" else tuple(val.shape)
+            if kind == "dense":
+                shape = (local[0] * n,)
+                shards = [(i, (i * local[0],)) for i in range(n)]
+            elif kind == "cols":
+                shape = local[:-1] + (local[-1] * n,)
+                shards = [(i, (0,) * (len(local) - 1) + (i * local[-1],))
+                          for i in range(n)]
+            else:
+                shape = local
+                shards = [(0, (0,) * max(len(local), 1))]
+            dtype = ("int32" if name in INT_FIELDS else "float32")
+            self.fields.append((name, shape, dtype, shards))
+
+
+def _local(state: FedState, name: str) -> torch.Tensor:
+    val = getattr(state, name)
+    if name == "step":
+        return torch.tensor(int(val), dtype=torch.int32)
+    return val.detach()
+
+
+def save_sharded(path: str, state: FedState, runtime=None,
+                 meta: Optional[Dict] = None) -> str:
+    """The JAX package's sharded layout (its ``save_state(sharded=True)``)
+    from the ranks: every rank calls it; rank 0 streams the entries into
+    ``<path>.npz``, receiving one rank's shard at a time (a point-to-point
+    ``recv``; its host holds one shard at most), each shard written once
+    and a replicated field once; the per-entry digests go to
+    ``<path>.meta.json``. The npz is written to a ``.tmp`` file, the meta
+    beside it, then the npz renamed: a generation never lacks its meta.
+    Returns the npz path (on every rank, once it is written)."""
+    import zipfile as zf_mod
+    mesh = getattr(runtime, "mesh", None)
+    rank = mesh.rank if mesh is not None else 0
+    plan = ShardPlan(runtime, state)
+    if rank != 0:
+        import torch.distributed as dist
+        for name, _, _, shards in plan.fields:
+            for owner, _ in shards:
+                if owner == rank:
+                    dist.send(_local(state, name).contiguous(), dst=0)
+        mesh.barrier()
+        return path + ".npz"
+
+    def entries():
+        yield "__sharded__", lambda: np.asarray(1)
+        for name, shape, dtype, shards in plan.fields:
+            yield (f"{name}__shape",
+                   lambda shape=shape: np.asarray(shape, np.int64))
+            yield f"{name}__dtype", lambda dtype=dtype: np.asarray(dtype)
+            for i, (owner, off) in enumerate(shards):
+                yield (f"{name}__shard{i}",
+                       lambda name=name, owner=owner: _receive(
+                           state, name, owner))
+                yield (f"{name}__off{i}",
+                       lambda off=off: np.asarray(off, np.int64))
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    directory = os.path.dirname(path) or "."
+    fd, tmp = tempfile.mkstemp(dir=directory,
+                               prefix=os.path.basename(path) + ".npz.",
+                               suffix=".tmp")
+    digests: Dict[str, str] = {}
+    try:
+        with os.fdopen(fd, "wb") as f:
+            with zf_mod.ZipFile(f, "w", zf_mod.ZIP_STORED,
+                                allowZip64=True) as zf:
+                for key, thunk in entries():
+                    arr = np.asarray(thunk())
+                    digests[key] = entry_digest(arr)
+                    with zf.open(key + ".npy", "w", force_zip64=True) as g:
+                        np.lib.format.write_array(g, arr,
+                                                  allow_pickle=False)
+                    del arr
+            f.flush()
+            os.fsync(f.fileno())
+        # the tmp file is written, its rename pending
+        maybe_fault("mid_checkpoint_write")
+        text = json.dumps(dict(meta or {}, digests=digests)).encode()
+        _atomic_write(path + ".meta.json", lambda f: f.write(text))
+        os.replace(tmp, path + ".npz")
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    if mesh is not None:
+        mesh.barrier()
+    return path + ".npz"
+
+
+def _receive(state: FedState, name: str, owner: int) -> np.ndarray:
+    """Rank 0's copy of rank ``owner``'s block of field ``name`` (its own
+    without a message)."""
+    local = _local(state, name)
+    if owner == 0:
+        return local.cpu().numpy()
+    import torch.distributed as dist
+    buf = torch.empty_like(local)
+    dist.recv(buf, src=owner)
+    return buf.cpu().numpy()
+
+
+def restore_own_shards(path: str, runtime, digests=None
+                       ) -> Optional[FedState]:
+    """A same-topology restore of a sharded file (the JAX package's
+    ``_try_streaming_restore``): this rank's slices read from their own
+    shards alone, or None when the file is not sharded or its layout is
+    not this run's (the caller then assembles it on the host). A run
+    without a mesh reads one-shard fields."""
+    try:
+        z = np.load(path + ".npz")
+    except Exception as e:
+        raise CheckpointIntegrityError(
+            f"checkpoint file {path}.npz is unreadable ({e})") from e
+    mesh = getattr(runtime, "mesh", None)
+    rank = mesh.rank if mesh is not None else 0
+    held = runtime.state_shapes()
+    plan = ShardPlan(runtime, _shape_state(runtime))
+    kw = {}
+    with z:
+        if "__sharded__" not in z.files:
+            return None
+        names = set(_sharded_fields(z))
+        if names - {"nan_round"} != ({f for f, _, _, _ in plan.fields}
+                                     - {"nan_round"}):
+            return None
+        for name, shape, dtype, shards in plan.fields:
+            if name not in names:
+                continue
+            stored = tuple(int(x) for x in read_entry(
+                z, f"{name}__shape", path, digests))
+            offsets = {off: i for i, off in
+                       _shard_offsets(z, name, path, digests)}
+            mine = [off for owner, off in shards if owner == rank]
+            i = offsets.get(mine[0] if mine else shards[0][1])
+            if stored != tuple(shape) or i is None:
+                return None
+            arr = read_entry(z, f"{name}__shard{i}", path, digests)
+            local = () if name == "step" else tuple(held[name])
+            if tuple(arr.shape) != local or str(arr.dtype) != dtype:
+                return None
+            kw[name] = arr
+    if "nan_round" not in kw:
+        kw["nan_round"] = np.full((), -1, np.int32)
+    step = int(kw.pop("step"))
+    return FedState(step=step, **{k: torch.from_numpy(np.array(v)).to(
+        runtime.device) for k, v in kw.items()})
+
+
+def _shape_state(runtime) -> FedState:
+    """A state of empty tensors with the shapes this rank holds (the
+    plan's template)."""
+    shapes = runtime.state_shapes()
+    kw = {name: (torch.empty(shape) if shape is not None else None)
+          for name, shape in shapes.items() if name != "step"}
+    return FedState(step=0, **kw)
 
 
 def load_state(path: str, device="cpu",
@@ -288,6 +563,9 @@ def load_state(path: str, device="cpu",
     any of them but ``FITTED``'s, or in a field's dtype, is refused by
     field."""
     arrays = load_arrays(path, digests)
+    if arrays.pop("__sharded__", None) is not None \
+            and expect_shapes is not None:
+        arrays = fit_to_shapes(arrays, expect_shapes)
     if "nan_round" not in arrays:
         arrays["nan_round"] = np.full((), -1, np.int32)
     for name, arr in arrays.items():
@@ -329,6 +607,13 @@ class CheckpointManager:
         # process writes (rank 0)
         self.gather = None
         self.writes = True
+        # --checkpoint_sharded: every rank's shards, through rank 0; the
+        # runtime whose layout the shards follow (set on a mesh and under
+        # the flag), and whether the last restore read this rank's own
+        # shards (no re-sharding then)
+        self.sharded = False
+        self.runtime = None
+        self.restored_local = False
 
     def path(self, epoch: int, round_in_epoch: int = 0,
              tag: Optional[str] = None) -> str:
@@ -364,13 +649,28 @@ class CheckpointManager:
                     round_in_epoch=int(round_in_epoch))
         if tag:
             meta["tag"] = tag
-        if self.gather is not None:
-            state = self.gather(state)
-        if not self.writes:
-            return self.path(epoch, round_in_epoch, tag) + ".npz"
-        self.clean_stale_tmp()
-        t0 = time.perf_counter()
-        out = save_state(self.path(epoch, round_in_epoch, tag), state, meta)
+        path = self.path(epoch, round_in_epoch, tag)
+        if self.sharded:
+            if self.writes:
+                self.clean_stale_tmp()
+            t0 = time.perf_counter()
+            out = save_sharded(path, state, self.runtime, meta)
+            if not self.writes:
+                return out
+        else:
+            if self.gather is not None:
+                # the guard before the gather: no rank copies a state the
+                # plain save would refuse
+                check_host_bytes(4 * sum(
+                    int(np.prod(shape)) for shape in
+                    self.runtime.full_state_shapes().values()
+                    if shape is not None))
+                state = self.gather(state)
+            if not self.writes:
+                return path + ".npz"
+            self.clean_stale_tmp()
+            t0 = time.perf_counter()
+            out = save_state(path, state, meta)
         print(f"checkpoint: wrote {out} ({os.path.getsize(out) / 2**20:.1f}"
               f" MiB) in {time.perf_counter() - t0:.3f} s", flush=True)
         for _, stem in self.generations()[:-self.keep_last]:
@@ -447,8 +747,16 @@ class CheckpointManager:
                     "Pass --resume_unverified only if the model is "
                     "unchanged.")
             try:
-                state = load_state(path, device, meta.get("digests"),
-                                   expect_shapes)
+                state = None
+                if self.runtime is not None:
+                    # a sharded file of this run's layout: this rank's
+                    # own shards alone
+                    state = restore_own_shards(path, self.runtime,
+                                               meta.get("digests"))
+                self.restored_local = state is not None
+                if state is None:
+                    state = load_state(path, device, meta.get("digests"),
+                                       expect_shapes)
             except (CheckpointIntegrityError,) + _DAMAGE_ERRORS as err:
                 self._fallback(path, err)
                 last_err = err
@@ -582,6 +890,9 @@ def setup_checkpointing(cfg, runtime, name: str):
     mgr.default_meta = {"torch_layout": layout, "sketch_gen": sketch_gen,
                         "async_gen": async_gen}
     mesh = getattr(runtime, "mesh", None)
+    mgr.sharded = cfg.checkpoint_sharded
+    if mesh is not None or cfg.checkpoint_sharded:
+        mgr.runtime = runtime
     if mesh is not None:
         mgr.gather = runtime.gather_state
         mgr.writes = mesh.rank == 0
@@ -606,7 +917,8 @@ def setup_checkpointing(cfg, runtime, name: str):
               "and error tables RESET, resuming from the weights only",
               file=sys.stderr)
     # a mesh rank keeps its slices of the whole state the file holds
-    if mesh is not None:
+    # (a sharded file of this layout gave it them already)
+    if mesh is not None and not mgr.restored_local:
         state = runtime.shard_state(state)
     state = fit_services(state, runtime)
     epoch = int(meta.get("epoch", 0))

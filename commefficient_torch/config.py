@@ -22,12 +22,12 @@ quarantine, FedBuff and its straggler scenarios, the preemption drain
 and the watchdog) and the run telemetry (``add_telemetry_args``: the
 ``telemetry.jsonl`` stream, the in-round signals and client statistics,
 the anomaly monitor, utilization peaks and the profiler window), on one
-device or a clients mesh (``--mesh_shape``, one process a rank; the
-sharded sketch server tail, ``--sketch_sharded_server``), with the round
-split into its client and decode halves under ``--decode_overlap``. A
-value or flag outside it raises and names the flag: the XLA-only flags,
-a ``seq`` mesh axis, ``--checkpoint_sharded`` and the int8 wire on a mesh
-are not ported.
+device or a mesh (``--mesh_shape``, one process a rank; the sharded
+sketch server tail, ``--sketch_sharded_server``; ``--mesh_axes
+clients,seq`` for ring attention over the sequence;
+``--checkpoint_sharded``), with the round split into its client and
+decode halves under ``--decode_overlap``. A value or flag outside it
+raises and names the flag: the XLA-only flags are not ported.
 Which combinations of mode, error type and momentum are legal is the
 server's rule (``core/server.py validate_mode_combo``), checked when a
 runtime is built, as in the JAX package. Defaults and choices are the
@@ -161,6 +161,9 @@ class FedConfig:
     # resume from the newest intact one, and the end-of-run weights
     checkpoint_every: int = 0
     checkpoint_path: str = "./checkpoint"
+    # per-rank shards in one file (checkpoint.py save_sharded): no host
+    # holds more than one shard
+    checkpoint_sharded: bool = False
     do_resume: bool = False
     resume_unverified: bool = False
     do_checkpoint: bool = False
@@ -597,11 +600,12 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--prefetch_depth", type=int, default=2,
                    help="rounds the input pipeline fetches ahead")
     p.add_argument("--mesh_shape", default="",
-                   help="comma-separated clients mesh, e.g. 2 (one process "
-                        "a rank: torchrun --nproc_per_node 2); empty = one "
-                        "device")
+                   help="comma-separated mesh shape over --mesh_axes, e.g. "
+                        "2 or 2,2 (one process a rank: torchrun "
+                        "--nproc_per_node 4); empty = one device")
     p.add_argument("--mesh_axes", default="clients",
-                   help="the mesh's axis names; only clients is ported")
+                   help="the mesh's axis names: clients, or clients,seq "
+                        "(ring attention over the seq axis, gpt2_train)")
     p.add_argument("--k", type=int, default=50_000)
     p.add_argument("--num_cols", type=int, default=500_000)
     p.add_argument("--num_rows", type=int, default=5)
@@ -676,6 +680,11 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint_every", type=int, default=0,
                    help="write the whole state every N epochs (0 = never)")
     p.add_argument("--checkpoint_path", default="./checkpoint")
+    p.add_argument("--checkpoint_sharded", action="store_true",
+                   help="write each rank's shards (the JAX package's "
+                        "sharded layout; rank 0 streams them into one file "
+                        "holding one shard at a time) instead of the "
+                        "gathered state")
     p.add_argument("--resume", action="store_true", dest="do_resume",
                    help="continue from the newest intact checkpoint")
     p.add_argument("--resume_unverified", action="store_true",
@@ -840,12 +849,6 @@ def parse_known(parser: argparse.ArgumentParser,
     naming it (the JAX package's other flags, such as
     ``--compile_cache``, are not ported)."""
     ns, rest = parser.parse_known_args(argv)
-    if "--checkpoint_sharded" in rest:
-        from commefficient_torch.parallel.mesh import NEXT_SLICE
-        raise ValueError(
-            "--checkpoint_sharded: per-rank checkpoint shards are "
-            f"{NEXT_SLICE}; the port writes the gathered state from rank "
-            "0 (--checkpoint_every)")
     if rest:
         flags = [a for a in rest if a.startswith("-")] or rest
         raise ValueError(

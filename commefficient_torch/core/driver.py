@@ -17,7 +17,12 @@ validation and checkpoint) and the first round's measured
 ``memory_ledger``; ``async_round``, ``fault`` and ``resume`` lineage;
 ``epoch``; ``nan_abort``; and a ``summary`` footer on every exit. The
 ``AnomalyMonitor`` watches the stream, and under ``--alert_action
-checkpoint|abort`` the ``FlightRecorder`` writes its bundle.
+checkpoint|abort`` the ``FlightRecorder`` writes its bundle. On a mesh
+the first round runs under the collectives ledger and rank 0 writes its
+``collectives`` event; rank 0's monitor verdict (the abort) and a
+preemption drain request of any rank reach every rank through one
+``Mesh.any`` at each round's end and at the epoch's, so all ranks abort
+or drain at the same round.
 
 A round's batch comes from the train ``DeviceStore`` when there is one
 (gathered and augmented on the device, keyed by the global round) and
@@ -71,6 +76,7 @@ from commefficient_torch.data.scenarios import make_scenario
 from commefficient_torch.faults import maybe_fault
 from commefficient_torch.telemetry import maybe_create as make_telemetry
 from commefficient_torch.telemetry import tracing
+from commefficient_torch.telemetry.collectives import recording
 from commefficient_torch.telemetry.clients import (client_stats_to_host,
                                                    make_ledger)
 from commefficient_torch.telemetry.health import (AnomalyMonitor,
@@ -518,8 +524,28 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
     # which rounds compute the record's device metrics: on a mesh every
     # rank computes them (their gathers are collectives), rank 0 alone
     # writes them
-    watch = (cfg.telemetry if getattr(runtime, "mesh", None) is not None
-             else tel is not None)
+    mesh = getattr(runtime, "mesh", None)
+    watch = cfg.telemetry if mesh is not None else tel is not None
+    # a drain every rank has agreed on (a mesh; one process reads its own
+    # guard)
+    agreed_drain = False
+
+    def agree(abort: bool) -> bool:
+        """On a mesh: whether any rank asks to abort (rank 0's monitor)
+        or to drain (a guard), one ``Mesh.any`` for both; the drain is
+        kept for the next boundary. Returns the abort."""
+        nonlocal agreed_drain
+        if mesh is None:
+            return abort
+        want = torch.tensor([abort, svc is not None and svc.guard.requested])
+        got = mesh.any(want.to(mesh.device)).tolist()
+        agreed_drain = agreed_drain or got[1]
+        return got[0]
+
+    def drain_requested() -> bool:
+        if svc is None:
+            return False
+        return agreed_drain if mesh is not None else svc.guard.requested
     if eval_before_start:
         _, test_acc, _ = validate(runtime, state, val_ds,
                                   cfg.valid_batch_size, val_max_batches,
@@ -611,7 +637,7 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
                                  enabled=cfg.pipeline and train_store is None,
                                  device=device, skip=skip)
             for item in pipe:
-                if svc is not None and svc.guard.requested:
+                if drain_requested():
                     # the fetched round has not trained: the preempt
                     # checkpoint's round count covers the consumed ones
                     state = drain(state, epoch, in_epoch, pipe)
@@ -633,6 +659,10 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
                            if tel is not None and rounds_run == 0 else None)
                 if measure is not None:
                     measure.__enter__()
+                # the first round's collectives, on a mesh
+                ledger = (recording() if mesh is not None
+                          and rounds_run == 0 and cfg.telemetry else None)
+                entries = ledger.__enter__() if ledger is not None else None
                 t0 = time.perf_counter()
                 commits = ()
                 if svc is not None and svc.async_agg is not None:
@@ -646,6 +676,10 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
                         state, rnd.client_ids, item.batch, rnd.mask, lr_arr,
                         observe=bool(watch and every and g % every == 0))
                 t_dispatch = time.perf_counter()
+                if ledger is not None:
+                    ledger.__exit__(None, None, None)
+                    if tel is not None:
+                        tel.collectives_event("round_step", entries)
                 maybe_fault("mid_round", g)
                 with tracing.span("device_wait"):
                     if overlap is not None:
@@ -708,7 +742,8 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
                     tel.span_event(obs.tracer)
                 if commits:
                     obs.commits(commits, lr, with_device=record)
-                if (record or commits) and obs.act_on_alerts(state):
+                if agree(bool((record or commits)
+                              and obs.act_on_alerts(state))):
                     obs.footer(log, True, rounds_run + 1)
                     return state, None, log
                 if metrics is None:
@@ -792,13 +827,15 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
             log.epochs.append(summary)
             for logger in loggers:
                 logger.append(summary)
+            abort = False
             if tel is not None:
                 tel.epoch_event(summary, test_time=test_time)
                 tel.memory_event(f"epoch_{epoch + 1}")
                 tel.span_event(obs.tracer)
-                if obs.act_on_alerts(state):
-                    obs.footer(log, True, rounds_run)
-                    return state, None, log
+                abort = obs.act_on_alerts(state)
+            if agree(abort):
+                obs.footer(log, True, rounds_run)
+                return state, None, log
             if writer is not None:
                 # the reference's scalars
                 for tag, val in (("Loss/train", summary["train_loss"]),
@@ -821,7 +858,7 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
                               svc.qledger if svc is not None else None)})
                 if tel is not None:
                     tel.memory_event(f"checkpoint_{epoch + 1}")
-            if svc is not None and svc.guard.requested:
+            if drain_requested():
                 state = drain(state, epoch + 1, 0, None, existing=ck)
                 return state, None, log
     except BaseException:

@@ -68,7 +68,19 @@ blocks and the ranks computing them by one all_to_all each way. The
 per-client results, datum counts, finite flags and gradient statistics
 are gathered, so every rank's metrics are those of the single-device
 round; the signals, on rounds that record them, read whole vectors
-gathered for them.
+gathered for them. Under the int8 wire the sharded tail's reduce is
+``ops/wire.py int8_reduce_scatter`` (in the round, the split round's
+decode and the async cohort), its draws keyed by the round's step.
+
+With a seq axis (the JAX package's ``:98-143, 1298-1317``) the ranks of
+a clients index run the same clients, each on its S / n_seq tokens of
+the leaves ``seq_spec`` names, with a seq-sharded loss
+(``parallel/ring.py``, the seq fields of ``models/gpt2.py`` and
+``losses.py``) whose collectives carry their own backward: each rank's
+gradient is its tokens' share of its clients', and the reduce over every
+rank sums them into the dense gradient (no over-count to probe). The
+weight-decay term is added on seq index 0 alone; the per-client results
+are gathered over the clients axis.
 """
 
 from __future__ import annotations
@@ -96,8 +108,9 @@ from commefficient_torch.ops.sketch import make_sketch_impl
 from commefficient_torch.ops.topk import (local_topk_candidates,
                                           merge_topk_candidates,
                                           scatter_winners)
-from commefficient_torch.ops.wire import wire_round_trip
-from commefficient_torch.parallel.mesh import NEXT_SLICE, FedShardings
+from commefficient_torch.ops.wire import (int8_reduce_scatter,
+                                          wire_round_trip)
+from commefficient_torch.parallel.mesh import FedShardings
 from commefficient_torch.telemetry.clients import (CLIENT_GRAD_KEYS,
                                                    summarize_per_client)
 from commefficient_torch.telemetry.layer_signals import (
@@ -139,6 +152,37 @@ def download_coord_counts(coord_last_update: torch.Tensor,
         for t in thresholds]).to(torch.int64)
 
 
+def validate_seq_combo(cfg: FedConfig, seq_spec: Dict[str, int]) -> None:
+    """The JAX package's refusals of a seq mesh axis (its
+    ``runtime.py:112-139``): a client's gradient is the sum of its seq
+    shards' partials, so only rules linear in it run, and nothing that
+    needs its norm or its own state."""
+    if not seq_spec:
+        raise ValueError(
+            "the mesh has a 'seq' axis but no seq_spec was given: "
+            "without one the batch replicates over seq and every "
+            "shard silently duplicates the full forward/backward. "
+            "Pass seq_spec (and a seq-sharded loss/model, see "
+            "gpt2_train.py), or drop the seq axis from mesh_axes.")
+    if cfg.mode not in ("uncompressed", "true_topk", "sketch"):
+        raise ValueError(
+            f"mode={cfg.mode} is incompatible with a seq mesh axis "
+            "(per-client nonlinear pipeline; use uncompressed/"
+            "true_topk/sketch)")
+    if (cfg.do_topk_down or cfg.do_dp or cfg.needs_client_velocities
+            or cfg.needs_client_errors):
+        raise ValueError(
+            "topk_down / DP / local client state are not supported "
+            "with a seq mesh axis")
+    if cfg.max_grad_norm is not None:
+        raise ValueError(
+            "max_grad_norm is unsupported with a seq mesh axis: "
+            "clipping needs the norm of the client's SUMMED "
+            "gradient, which per-shard partial norms cannot "
+            "provide (and the sketch table clip is per-client "
+            "nonlinear)")
+
+
 class FedRuntime:
     """``model`` is a port model whose parameters are one flat vector
     (``model.flat``, the initial weights; ``model.num_params``);
@@ -147,11 +191,13 @@ class FedRuntime:
     per-client state has ``cfg.default_num_clients()`` rows (on a mesh
     padded to a multiple of its size). ``device`` defaults to the card;
     ``mesh`` (``parallel.make_mesh``) runs this process's rank of a
-    clients mesh on it."""
+    mesh on it. With a seq axis, ``seq_spec`` maps each batch leaf to the
+    index of its sequence dimension (None: the leaf replicates over seq),
+    and ``loss_fn`` runs the seq-sharded model (gpt2_train builds it)."""
 
     def __init__(self, cfg: FedConfig, model, loss_fn: Callable,
                  device="cuda", loss_fn_val: Optional[Callable] = None,
-                 mesh=None):
+                 mesh=None, seq_spec: Optional[Dict[str, int]] = None):
         self.device = torch.device(device)
         d = int(model.num_params)
         cfg = cfg.replace(grad_size=d)
@@ -165,33 +211,41 @@ class FedRuntime:
                 cfg = cfg.replace(num_cols=c)
         validate_mode_combo(cfg)
         validate_regimes(cfg)
-        validate_defense_combo(cfg, mesh=mesh)
+        # the seq axis (a size-1 one is none): every rank of a clients
+        # index runs its clients on S / n_seq of their tokens
+        self.seq = mesh.seq if mesh is not None else None
+        self.seq_spec = dict(seq_spec or {})
+        if self.seq is not None:
+            validate_seq_combo(cfg, self.seq_spec)
+        validate_defense_combo(cfg, mesh=mesh,
+                               seq_axis=None if self.seq is None else "seq")
         validate_async_combo(cfg)
         validate_overlap_combo(cfg)
         self.cfg = cfg
         self.mesh = mesh
         n = mesh.size if mesh is not None else 1
+        # the clients axis: its size splits the round's positions
+        self.clients = mesh.clients if mesh is not None else None
+        n_c = self.clients.size if mesh is not None else 1
         if mesh is not None:
             if torch.device(mesh.device) != self.device:
                 raise ValueError(f"the mesh computes on {mesh.device}, the "
                                  f"runtime on {self.device}")
-            if cfg.num_workers % n:
+            if cfg.num_workers % n_c:
                 raise ValueError(
                     f"--num_workers {cfg.num_workers} must be divisible by "
-                    f"the mesh axis size {n}")
-            if cfg.wire_dtype == "int8":
-                raise ValueError(
-                    "--wire_dtype int8 on a mesh: its reduce is an "
-                    "all_to_all of int8 column shards, which is "
-                    f"{NEXT_SLICE}; use --wire_dtype float32 or bfloat16")
+                    f"the mesh axis size {n_c}")
         # the client rows and the dense federated vectors padded to mesh
         # multiples, so that both shard evenly (the JAX package's d_pad)
         self.num_clients = -(-cfg.default_num_clients() // n) * n
         self.d_pad = -(-d // n) * n
         self.shard_len = self.d_pad // n
-        # rank i's positions of the round and coordinates of the vectors
+        # rank i's coordinates of the vectors (every rank of the mesh),
+        # and its clients index's positions of the round
         self.rank = mesh.rank if mesh is not None else 0
         self.n_shards = n
+        self.client_rank = self.clients.rank if mesh is not None else 0
+        self.n_client_shards = n_c
         # the robustness services: what acts on each client's upload, the
         # adversaries' assignment over the whole universe (the host's and
         # the round's view of one draw), the normclip ring
@@ -279,7 +333,10 @@ class FedRuntime:
                      and cfg.max_grad_norm is None
                      and not cfg.do_topk_down and not self._per_client
                      and n_iters * mb == self.batch_size)
-        self._client_grad_stats = self._client_stats and not jax_fused
+        # a seq shard holds a partial of each client's gradient, whose norm
+        # is not the client's: no per-client gradient statistics there
+        self._client_grad_stats = (self._client_stats and not jax_fused
+                                   and self.seq is None)
         problems = client_lib.fused_encode_blockers(cfg,
                                                     signals=self._signals)
         if cfg.mode == "sketch":
@@ -342,6 +399,13 @@ class FedRuntime:
                     "over (the single-device round already holds the "
                     "whole table)")
             else:
+                if self.seq is not None:
+                    ss_problems.append(
+                        "a seq mesh axis: the table's column shards "
+                        "live on the clients axis only (the state's "
+                        "sketch_table layout), which a seq-sharded "
+                        "aggregation cannot feed without a reshard "
+                        "every round")
                 if self.cs.dense_transform \
                         or not hasattr(self.cs, "decode_range"):
                     ss_problems.append(
@@ -381,12 +445,22 @@ class FedRuntime:
                 problems.append(
                     "the dense-preimage server state consumes the dense "
                     "aggregated gradient — no table crosses the wire")
-            blk = min(cfg.wire_block, cfg.num_cols)
-            if cfg.num_cols % blk:
+            if mesh is not None and not self.sharded_server:
+                problems.append(
+                    "a mesh without the sharded server tail: the "
+                    "quantized reduce is an all_to_all of int8 COLUMN "
+                    "SHARDS, which only the reduce-scattered tail "
+                    "consumes (sharded-server blockers:\n    "
+                    + "\n    ".join(ss_problems or ["(disabled by flag)"])
+                    + ")")
+            shard_c = cfg.num_cols // n_c
+            blk = min(cfg.wire_block, shard_c)
+            if shard_c == 0 or shard_c % max(blk, 1):
                 problems.append(
                     f"--wire_block {cfg.wire_block} does not tile the "
-                    f"{cfg.num_cols} table columns: pick a --wire_block "
-                    "dividing num_cols")
+                    f"per-device column shard ({shard_c} cols on "
+                    f"{n_c} devices): pick a --wire_block dividing "
+                    "num_cols / n_devices")
             if problems:
                 raise ValueError(
                     "--wire_dtype int8 is unavailable for this "
@@ -394,18 +468,24 @@ class FedRuntime:
             self._int8_wire, self._wire_block = True, blk
         self._upload_bytes = cfg.upload_wire_bytes(self._wire_block or None)
         self._fused_fn = self._client_fn = None
+        # on a seq axis every shard's gradient is its tokens' share of the
+        # client's, and the shards add up; the weight-decay term, which
+        # no token carries, is added by seq index 0 alone
+        client_cfg = cfg
+        if self.seq is not None and self.seq.rank != 0:
+            client_cfg = cfg.replace(weight_decay=0.0)
         if cfg.mode == "fedavg":
             self._client_fn = client_lib.make_fedavg_client(
-                cfg, loss_fn, self.batch_size,
+                client_cfg, loss_fn, self.batch_size,
                 with_stats=self._client_grad_stats)
         elif (fused_encode and self.defer_encode and not cfg.do_topk_down
               and not self._per_client):
             # no per-client nonlinearity: every client into one table
-            self._fused_fn = client_lib.make_fused_grad(cfg, loss_fn,
+            self._fused_fn = client_lib.make_fused_grad(client_cfg, loss_fn,
                                                         self.batch_size)
         else:
             self._client_fn = client_lib.make_client_step(
-                cfg, loss_fn, self.batch_size, fused_encode,
+                client_cfg, loss_fn, self.batch_size, fused_encode,
                 with_stats=self._client_grad_stats)
         self._encode_sum = (self.defer_encode and not self.dense_preimage
                             and not fused_encode)
@@ -729,19 +809,24 @@ class FedRuntime:
         out["agg"] = agg
         return out
 
-    def _reduce(self, agg: torch.Tensor) -> torch.Tensor:
+    def _reduce(self, agg: torch.Tensor, step: int) -> torch.Tensor:
         """The ranks' partial aggregates summed, in rank order
-        (``Mesh.all_reduce``): a dense vector padded to d_pad and
+        (``Mesh.all_reduce``; every rank's, so a seq axis's partial
+        gradients add up too): a dense vector padded to d_pad and
         reduce-scattered onto the rank's block; a table reduce-scattered
         over its columns under the sharded tail, else all-reduced whole.
         Under the bf16 wire the partials travel in bf16, add in float32
         and the sum is rounded to bf16 once, as the JAX package's bf16
         collective gives it on the CPU (one device rounds its one sum so
-        too)."""
+        too). Under the int8 wire the sharded tail's reduce is
+        ``int8_reduce_scatter``, its draws keyed by round ``step``."""
         mesh = self.mesh
         if agg.ndim == 1:
             agg = torch.nn.functional.pad(agg, (0, self.d_pad - agg.shape[0]))
             return mesh.reduce_scatter(agg, dim=0)
+        if self._int8_wire:
+            return int8_reduce_scatter(agg, mesh, self._wire_block,
+                                       seed=self.cfg.seed, round_idx=step)
         wire = self._table_dtype
         part = agg.to(wire) if wire != torch.float32 else agg
         red = (mesh.reduce_scatter(part, dim=1, dtype=torch.float32)
@@ -777,9 +862,31 @@ class FedRuntime:
         return torch.as_tensor(lr, dtype=torch.float32, device=self.device)
 
     def _positions(self, W: int) -> slice:
-        """This rank's positions of a round of W clients."""
-        per = W // self.n_shards
-        return slice(self.rank * per, (self.rank + 1) * per)
+        """This rank's positions of a round of W clients (its clients
+        index's)."""
+        per = W // self.n_client_shards
+        return slice(self.client_rank * per, (self.client_rank + 1) * per)
+
+    def _seq_slice(self, batch: Dict) -> Dict:
+        """The rank's S / n_seq tokens of each leaf ``seq_spec`` names
+        (the others whole)."""
+        if self.seq is None:
+            return batch
+        i, n = self.seq.rank, self.seq.size
+        out = {}
+        for key, val in batch.items():
+            dim = self.seq_spec.get(key)
+            if dim is not None:
+                S = val.shape[dim]
+                if S % n:
+                    raise ValueError(
+                        f"the seq mesh axis size ({n}) must divide the "
+                        f"sequence length ({S}) of batch leaf {key!r}")
+                cut = [slice(None)] * val.ndim
+                cut[dim] = slice(i * (S // n), (i + 1) * (S // n))
+                val = val[tuple(cut)]
+            out[key] = val
+        return out
 
     def _rows_to_compute(self, rows: torch.Tensor) -> torch.Tensor:
         """(W, d_pad/n) column blocks of the participants' rows (their
@@ -856,8 +963,9 @@ class FedRuntime:
 
         mine = self._positions(W)
         if mesh is not None:
-            # only this rank's clients' data crosses to its device
-            batch = {k: v[mine] for k, v in batch.items()}
+            # only this rank's clients' data (and tokens) cross to its
+            # device
+            batch = self._seq_slice({k: v[mine] for k, v in batch.items()})
         batch = self.to_device(batch)
         w = state.ps_weights
         vel_rows = (state.client_velocities[ids]
@@ -887,15 +995,17 @@ class FedRuntime:
         out = self._clients(state, w, ids[mine], batch, mask, mask_host, lr,
                             used, vel_rows, err_rows, slot0=mine.start)
         if mesh is not None:
-            # every rank's metrics are the whole round's
+            # every rank's metrics are the whole round's (the seq shards
+            # of a clients index hold the same ones)
+            rows = self.clients
             for key in ("results", "n_valid", "client_finite"):
                 if out[key] is not None:
-                    out[key] = mesh.gather_rows(out[key])
+                    out[key] = rows.gather_rows(out[key])
             if out["grad_stats"] is not None:
-                out["grad_stats"] = {k: mesh.gather_rows(v) for k, v in
+                out["grad_stats"] = {k: rows.gather_rows(v) for k, v in
                                      out["grad_stats"].items()}
             if reduce:
-                out["agg"] = self._reduce(out["agg"])
+                out["agg"] = self._reduce(out["agg"], step)
         fin = out["client_finite"]
         bad = ~torch.isfinite(out["agg"]).all()
         if mesh is not None:
@@ -1237,7 +1347,8 @@ class FedRuntime:
             raise ValueError("decode: the runtime was built without "
                              "--decode_overlap")
         if self._reduce_in_decode:
-            cohort_sum = self._reduce(cohort_sum)
+            # the round's draws: step has not advanced since the cohort
+            cohort_sum = self._reduce(cohort_sum, state.step)
         agg = cohort_sum / torch.clamp(
             torch.as_tensor(n_total, dtype=torch.float32,
                             device=self.device), min=1.0)

@@ -79,15 +79,22 @@ def validate_regimes(cfg: FedConfig) -> None:
         print(f"WARNING: {w}", file=sys.stderr)
 
 
-def validate_defense_combo(cfg: FedConfig, mesh=None) -> None:
+def validate_defense_combo(cfg: FedConfig, mesh=None,
+                           seq_axis=None) -> None:
     """The JAX package's refusals of the robustness flags (its
-    ``:112-140``): trim needs every client's whole upload on one device,
-    so a mesh refuses it (normclip's cross-rank cost is one W-sized
-    all-gather of norms); label flipping needs a classification dataset.
-    (A seq axis, whose refusal the JAX package adds here, is refused when
-    the mesh is built.)"""
+    ``:112-140``): a seq axis refuses them all (a rank holds a partial of
+    each client's upload); trim needs every client's whole upload on one
+    device, so a mesh refuses it (normclip's cross-rank cost is one
+    W-sized all-gather of norms); label flipping needs a classification
+    dataset."""
     robust = (cfg.defense != "none" or cfg.adversary != "none"
               or cfg.nonfinite_action != "abort")
+    if robust and seq_axis is not None:
+        raise ValueError(
+            "--adversary/--defense/--nonfinite_action quarantine are "
+            "unsupported with a seq mesh axis: they act on PER-CLIENT "
+            "transmitted quantities, and a seq-sharded round only ever "
+            "holds per-shard partials of them")
     if robust and cfg.defense == "trim" and mesh is not None:
         raise ValueError(
             "--defense trim needs the per-coordinate cross-client sort, "

@@ -1,6 +1,8 @@
 """GPT-2 DoubleHeads on federated PersonaChat, entry point of the PyTorch
-port (the JAX package's ``gpt2_train.py`` without telemetry or meshes;
-the FetchSGD sketch round is the path built for the card).
+port (the JAX package's ``gpt2_train.py``; the FetchSGD sketch round is
+the path built for the card). Under ``torchrun`` with ``--mesh_shape``
+it runs on a mesh, and ``--mesh_axes clients,seq --mesh_shape C,S``
+shards each client's sequence over S ranks (ring attention).
 
     python -m commefficient_torch.gpt2_train --mode sketch \\
         --error_type virtual --local_momentum 0 --virtual_momentum 0.9 \\
@@ -70,6 +72,12 @@ from commefficient_torch.parallel.mesh import setup_mesh
 from commefficient_torch.utils.logging import TableLogger, Timer, TSVLogger
 from commefficient_torch.utils.schedules import make_gpt2_schedule
 
+# batch leaf -> the index of its sequence dimension in the round's arrays
+# (W, B, candidates, S); None replicates the leaf over the seq axis (the
+# JAX package's PERSONA_SEQ_SPEC)
+PERSONA_SEQ_SPEC = {"input_ids": 3, "token_type_ids": 3, "lm_labels": 3,
+                    "mc_token_ids": None, "mc_label": None}
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -103,8 +111,8 @@ def setup(ns: argparse.Namespace):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the "
                          "CPU")
-    # the clients mesh (the JAX package's gpt2_train.py:186-217, clients
-    # axis only: a seq axis was refused with the config)
+    # the mesh (the JAX package's gpt2_train.py:186-217): clients, and
+    # with --mesh_axes clients,seq the seq axis of ring attention
     device, mesh = setup_mesh(cfg, device)
     if cfg.do_test:
         cfg = cfg.replace(num_cols=10, num_rows=1, k=10)
@@ -141,12 +149,28 @@ def setup(ns: argparse.Namespace):
         print("loaded pretrained GPT-2 weights")
     else:
         print("WARNING: no local pretrained GPT-2; training from scratch")
+    # the long-context configuration: every client's model seq-sharded
+    # over the seq axis (ring attention); validation runs the dense model
+    seq = mesh.seq if mesh is not None else None
+    train_model = model
+    if seq is not None:
+        if S % seq.size:
+            raise ValueError(
+                f"the seq mesh axis size ({seq.size}) must divide "
+                f"max_seq_len ({S})")
+        train_model = GPT2DoubleHeads(gcfg, attn_impl=cfg.attn_impl,
+                                      seq_axis=seq)
+        train_model.flat = model.flat
+        print(f"sequence parallelism: ring attention over {seq.size} "
+              "shards")
     runtime = FedRuntime(cfg, model,
-                         make_gpt2_train_loss(model, cfg.lm_coef,
+                         make_gpt2_train_loss(train_model, cfg.lm_coef,
                                               cfg.mc_coef, cfg.lm_chunk),
                          device=device,
                          loss_fn_val=make_gpt2_val_loss(model, cfg.lm_chunk),
-                         mesh=mesh)
+                         mesh=mesh,
+                         seq_spec=PERSONA_SEQ_SPEC if seq is not None
+                         else None)
     cfg = runtime.cfg
     print(f"d={cfg.grad_size} c={cfg.num_cols} r={cfg.num_rows} k={cfg.k} "
           f"W={cfg.num_workers} B={cfg.local_batch_size} "

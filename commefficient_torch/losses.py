@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from commefficient_torch.data.fed_persona import LM_IGNORE
+from commefficient_torch.parallel.ring import from_next_shard, seq_sum
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 DTYPE_NAMES = {v: k for k, v in COMPUTE_DTYPES.items()}
@@ -147,6 +148,15 @@ def _chunked_lm_nll(hidden, wte, labels, m, chunk: int):
     return num / torch.clamp(den, min=1.0)
 
 
+def check_seq_chunk(model, lm_chunk: int) -> None:
+    """The JAX package's refusal of ``lm_chunk`` on a seq axis."""
+    if lm_chunk > 0 and getattr(model, "seq_axis", None) is not None:
+        raise ValueError(
+            "lm_chunk is not supported together with a seq mesh axis yet "
+            "(the seq branch computes its own cross-shard label shift on "
+            "full logits); drop --lm_chunk or the seq axis")
+
+
 def _gpt2_losses(model, flat, batch, mask, lm_chunk: int = 0):
     """Shared DoubleHeads forward: ``(lm_nll_per_token, mc_loss, mc_acc)``.
 
@@ -155,11 +165,31 @@ def _gpt2_losses(model, flat, batch, mask, lm_chunk: int = 0):
     shifted hidden states (``hidden[..., :-1, :]``): the same logits the
     JAX package slices from the full projection, without the last
     position's row; ``lm_chunk`` > 0 projects them ``lm_chunk`` at a time
-    (``_chunked_lm_nll``)."""
+    (``_chunked_lm_nll``). On a seq axis (``model.seq_axis``) every local
+    position is projected, the last one's label comes from the next
+    shard (-100 on the last shard), and the token mean is the shards'
+    summed numerator over their summed denominator, so every shard holds
+    the global loss and its gradient only for its own tokens."""
     hidden, wte, mc_logits = model.hidden_and_mc(
         batch["input_ids"], batch["mc_token_ids"], batch["token_type_ids"],
         flat)
     m = mask.to(torch.float32)                              # (B,)
+    mesh = getattr(model, "seq_axis", None)
+    if mesh is not None:
+        labels = batch["lm_labels"]
+        nxt = from_next_shard(labels[..., :1], mesh)
+        if mesh.rank == mesh.size - 1:
+            nxt = torch.full_like(nxt, LM_IGNORE)
+        labels = torch.cat([labels[..., 1:], nxt], dim=-1)
+        logits = hidden @ wte.T                             # (B, C, S_l, V)
+        tok_valid = (labels != LM_IGNORE) * m[:, None, None]
+        nll = F.cross_entropy(logits.flatten(0, -2),
+                              labels.clamp(min=0).flatten(),
+                              reduction="none").view(labels.shape)
+        num = seq_sum((nll * tok_valid).sum(), mesh)
+        den = mesh.all_reduce(tok_valid.sum().detach())
+        lm_loss = num / torch.clamp(den, min=1.0)
+        return (lm_loss,) + _mc_metrics(mc_logits, batch["mc_label"], m)
     if lm_chunk > 0:
         lm_loss = _chunked_lm_nll(hidden, wte, batch["lm_labels"], m,
                                   lm_chunk)
@@ -193,6 +223,8 @@ def make_gpt2_train_loss(model, lm_coef: float = 1.0,
     and ``mc_label`` (B,), all int64. ``lm_chunk`` > 0: the chunked LM
     loss."""
 
+    check_seq_chunk(model, lm_chunk)
+
     def loss_fn(flat, batch, mask):
         lm_loss, mc_loss, acc = _gpt2_losses(model, flat, batch, mask,
                                              lm_chunk)
@@ -204,6 +236,8 @@ def make_gpt2_train_loss(model, lm_coef: float = 1.0,
 def make_gpt2_val_loss(model, lm_chunk: int = 0) -> Callable:
     """Validation metrics: the per-token LM NLL (perplexity on the host)
     and the MC accuracy."""
+
+    check_seq_chunk(model, lm_chunk)
 
     def loss_fn(flat, batch, mask):
         lm_loss, _, acc = _gpt2_losses(model, flat, batch, mask, lm_chunk)

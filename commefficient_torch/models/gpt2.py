@@ -28,7 +28,14 @@ not a fallback on failure: a K3 launch that fails raises.
 keeps (``REMAT_POLICIES``). K3 is reached through ctypes, so no policy
 saves its outputs: its forward runs again in the backward, as the Pallas
 call is recomputed under JAX's remat. ``GPT2LMHead`` is the LM-only
-model (no ``mc_head`` in its layout). ``load_state_dict`` and
+model (no ``mc_head`` in its layout). On a seq mesh axis
+(``seq_axis``, the axis's ``parallel.Mesh``; the JAX package's
+``seq_axis``/``seq_shards``) the model runs on its shard's S/n tokens:
+the position ids start at the shard's offset, attention is the ring
+(``parallel/ring.py``), and the multiple-choice head reads the hidden
+state on the shard that holds each ``mc_token_id`` and sums the logit
+over the shards (``seq_sum``: each shard's gradient stays its own).
+``load_state_dict`` and
 ``load_hf_weights`` map a HuggingFace GPT-2 state dict (a local
 ``model.safetensors`` or ``pytorch_model.bin``) onto either layout.
 """
@@ -53,6 +60,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from commefficient_torch.models.layers import lecun_normal_, ravel_layout
 from commefficient_torch.ops.flash_attention import flash_attention
+from commefficient_torch.parallel.ring import ring_attention_inner, seq_sum
 
 NUM_SPECIAL_TOKENS = 5  # <bos> <eos> <speaker1> <speaker2> <pad>
 
@@ -222,11 +230,19 @@ class _GPT2(nn.Module):
     mc_head = True
 
     def __init__(self, gcfg: GPT2Config, attn_impl: str = "dense",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 seq_axis=None):
         super().__init__()
         self.gcfg = gcfg
         self.attn_impl = attn_impl
         self.attn = resolve_attn(attn_impl)
+        # a seq axis of size 1 is none
+        self.seq_axis = (seq_axis if seq_axis is not None
+                         and seq_axis.size > 1 else None)
+        self.seq_shards = self.seq_axis.size if self.seq_axis else 1
+        if self.seq_axis is not None:
+            self.attn = functools.partial(ring_attention_inner,
+                                          mesh=self.seq_axis)
         self.layout: List[Tuple[str, Tuple]] = ravel_layout(
             param_tree(gcfg, self.mc_head))
         policy = REMAT_POLICIES[gcfg.remat_policy] if gcfg.remat else None
@@ -298,7 +314,9 @@ class _GPT2(nn.Module):
                   for i in range(g.n_layer)]
         S = input_ids.shape[-1]
         wte = P["wte"]
-        x = F.embedding(input_ids, wte) + P["wpe"][:S]
+        # the global positions of this shard's tokens
+        first = self.seq_axis.rank * S if self.seq_axis is not None else 0
+        x = F.embedding(input_ids, wte) + P["wpe"][first:first + S]
         if token_type_ids is not None:
             x = x + F.embedding(token_type_ids, wte)
         x = x.to(g.compute_dtype)
@@ -329,10 +347,22 @@ class GPT2DoubleHeads(_GPT2):
         (..., S, E), wte, mc_logits float32 (...,))``."""
         g = self.gcfg
         hidden, wte, P = self.hidden(input_ids, token_type_ids, flat)
+        idx, owned = mc_token_ids, None
+        if self.seq_axis is not None:
+            # mc_token_ids are global positions: the shard holding one
+            # contributes its hidden state's logit, the others 0
+            S = hidden.shape[-2]
+            local = mc_token_ids - self.seq_axis.rank * S
+            owned = (local >= 0) & (local < S)
+            idx = local.clamp(0, S - 1)
         mc_hidden = torch.gather(
-            hidden, -2, mc_token_ids[..., None, None].expand(
-                mc_token_ids.shape + (1, g.n_embd)))[..., 0, :]
+            hidden, -2, idx[..., None, None].expand(
+                idx.shape + (1, g.n_embd)))[..., 0, :]
+        if owned is not None:
+            mc_hidden = torch.where(owned[..., None], mc_hidden, 0.0)
         mc_logits = (mc_hidden @ P["mc_head/kernel"])[..., 0]
+        if self.seq_axis is not None:
+            mc_logits = seq_sum(mc_logits, self.seq_axis)
         return hidden, wte, mc_logits
 
     def forward(self, input_ids, mc_token_ids, token_type_ids=None,

@@ -13,8 +13,10 @@ for bit, and a resumed run, whose round comes back from its checkpoint,
 draws them again. ``salt`` tells apart the quantizers of one round (the
 client slot on the per-client path).
 
-The int8 ``all_to_all`` reduce-scatter of a mesh (the JAX package's
-``int8_reduce_scatter``) is not here: the port runs one device.
+On a mesh the table's reduce is :func:`int8_reduce_scatter` (the JAX
+package's): each rank quantizes its partial table with its own salt, the
+int8 column shards and their scales travel by ``all_to_all``, and each
+rank dequantizes and adds what it received in rank order.
 """
 
 from __future__ import annotations
@@ -112,3 +114,25 @@ def wire_round_trip(table: torch.Tensor, block: int, *, seed: int,
     q, scale = quantize_table(table, block, seed=seed, round_idx=round_idx,
                               salt=salt)
     return dequantize_table(q, scale, block)
+
+
+def int8_reduce_scatter(agg: torch.Tensor, mesh, block: int, *, seed: int,
+                        round_idx: int) -> torch.Tensor:
+    """The quantized table reduce of a mesh (``--wire_dtype int8`` under
+    the sharded server tail): this rank's (r, c/n) column shard of the
+    sum of the ranks' (r, c) partial tables. Each rank quantizes its
+    partial with salt ``REDUCE_SALT + rank`` (its rounding drawn apart
+    from every other rank's and from the per-client uploads'), column
+    shard j of ``q`` and of ``scale`` go to rank j by ``Mesh.all_to_all``
+    (int8 cells and float32 scales on the wire), and the receiver
+    dequantizes and adds the n contributions in rank order
+    (:func:`dequantize_accum`)."""
+    n = mesh.size
+    r, c = agg.shape
+    shard_c = c // n
+    q, scale = quantize_table(agg, block, seed=seed, round_idx=round_idx,
+                              salt=REDUCE_SALT + mesh.rank)
+    q = mesh.all_to_all(q.reshape(r, n, shard_c).transpose(0, 1))
+    scale = mesh.all_to_all(
+        scale.reshape(r, n, shard_c // block).transpose(0, 1))
+    return dequantize_accum(q, scale, block)

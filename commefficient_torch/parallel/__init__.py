@@ -1,11 +1,11 @@
-"""The port's clients mesh (counterpart of the JAX package's
-``parallel/``): ``init_distributed``, ``make_mesh``, ``FedShardings`` and
-the tests' CPU rank groups (``spawn_ranks``)."""
+"""The port's mesh (counterpart of the JAX package's ``parallel/``):
+``init_distributed``, ``make_mesh``, ``FedShardings``, ring attention over
+the seq axis (``ring``) and the tests' CPU rank groups
+(``spawn_ranks``)."""
 
-from commefficient_torch.parallel.mesh import (AXIS, NEXT_SLICE,
-                                               FedShardings, Mesh,
-                                               init_distributed, make_mesh,
-                                               spawn_ranks)
+from commefficient_torch.parallel.mesh import (AXIS, SEQ, FedShardings,
+                                               Mesh, init_distributed,
+                                               make_mesh, spawn_ranks)
 
-__all__ = ["AXIS", "NEXT_SLICE", "FedShardings", "Mesh", "init_distributed",
+__all__ = ["AXIS", "SEQ", "FedShardings", "Mesh", "init_distributed",
            "make_mesh", "spawn_ranks"]

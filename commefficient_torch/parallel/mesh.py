@@ -7,12 +7,20 @@ the collectives. The port runs one process per rank (``torchrun``, or
 ``spawn_ranks`` in the tests), each driving one device, and calls
 ``torch.distributed`` collectives on an explicit process group: NCCL for
 ``cuda:{local_rank}``, gloo under ``--device cpu``; neither falls back to
-the other. One mesh axis is ported, ``clients``:
+the other. The mesh has a ``clients`` axis and, optionally, a ``seq``
+axis (``--mesh_axes clients,seq``): rank ``c n_seq + s`` is clients
+index c and seq index s, the order in which the JAX package's
+``devices.reshape(mesh_shape)`` lays them out, and each axis has its own
+process group (``Mesh.clients``, ``Mesh.seq``). A seq axis of size 1 is
+no seq axis. On the clients axis:
 
-- rank i of n runs the round's positions ``[i W/n, (i+1) W/n)``;
+- clients index i of n runs the round's positions ``[i W/n, (i+1) W/n)``
+  (every seq index of it the same positions, each on its own S/n_seq
+  tokens: ``parallel/ring.py``);
 - the dense ``(d_pad,)`` federated vectors (weights, dense momentum and
-  error, ``coord_last_update``) shard into ``d_pad/n`` coordinates a
-  rank, rank i holding ``[i d_pad/n, (i+1) d_pad/n)``;
+  error, ``coord_last_update``) shard over every rank of the mesh into
+  ``d_pad/n`` coordinates a rank, rank i holding
+  ``[i d_pad/n, (i+1) d_pad/n)``;
 - ``(r, c)`` sketch tables shard their columns when n divides c, and
   replicate otherwise;
 - dense per-client rows (velocity, error, the top-k download's weights)
@@ -31,10 +39,17 @@ the reduce-scattered table is therefore bitwise that column of the
 all-reduced one, which makes the sharded sketch server tail bitwise the
 replicated one (an NCCL ``all_reduce`` adds in an order of its own
 choosing, which may differ from one collective to the next).
+
+Every launch a ``Mesh`` issues appends one entry to the collectives
+ledger while one is recording (``telemetry/collectives.py``): the
+logical kind the JAX package's HLO would show, the ``torch.distributed``
+call that carried it, and its result's size. Recording is a list append;
+it adds no sync.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import socket
@@ -45,6 +60,9 @@ import torch
 import torch.distributed as dist
 
 AXIS = "clients"
+SEQ = "seq"
+# the mesh axes the port runs, in their order
+AXES = (AXIS, SEQ)
 # the gather into one tensor (renamed all_gather_single in later torch)
 _all_gather = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
@@ -52,9 +70,48 @@ _all_gather = getattr(dist, "all_gather_single", None) \
 SPAWN_TIMEOUT_S = 180.0
 # the dtypes that travel as their bytes
 _BYTES = (torch.bfloat16, torch.bool)
-# the next slice of the multi-GPU queue, named by every refusal of what
-# it covers
-NEXT_SLICE = "ROADMAP A9b"
+# the JAX package's spelling of each dtype in the collectives ledger
+_XLA_DTYPE = {torch.float32: "f32", torch.bfloat16: "bf16",
+              torch.float16: "f16", torch.float64: "f64", torch.int8: "s8",
+              torch.uint8: "u8", torch.int32: "s32", torch.int64: "s64",
+              torch.bool: "pred"}
+# the ledger being recorded (telemetry/collectives.py recording), or None
+_LEDGER = {"entries": None}
+
+
+def record_ledger(entries: Optional[list]) -> Optional[list]:
+    """Start recording the mesh's launches into ``entries`` (None stops);
+    returns the list that was recording before."""
+    before = _LEDGER["entries"]
+    _LEDGER["entries"] = entries
+    return before
+
+
+@contextlib.contextmanager
+def _unrecorded():
+    """The launches inside go unrecorded (a composite collective records
+    itself once, under its logical kind)."""
+    before = record_ledger(None)
+    try:
+        yield
+    finally:
+        record_ledger(before)
+
+
+def _note(kind: str, via: str, out: torch.Tensor, dtype=None) -> None:
+    """One ledger entry for a launch whose result is ``out`` (its logical
+    ``dtype``, where it travelled as bytes)."""
+    entries = _LEDGER["entries"]
+    if entries is None:
+        return
+    dtype = dtype or out.dtype
+    n = out.numel()
+    entries.append({"kind": kind, "via": via, "n_elements": int(n),
+                    "dtype": _XLA_DTYPE.get(dtype, str(dtype)),
+                    "bytes": int(n * torch.empty((), dtype=dtype)
+                                 .element_size()),
+                    "combined_in": (entries[-1]["combined_in"] + 1
+                                    if entries else 0)})
 
 
 def init_distributed(device="cuda", rank: Optional[int] = None,
@@ -108,15 +165,43 @@ def world_size() -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A one-axis mesh of ``size`` ranks over ``group``: this process is
-    ``rank`` and computes on ``device``. Its collectives run on that
-    group (a CUDA tensor through NCCL, a CPU tensor through gloo)."""
+    """A mesh of ``size`` ranks over ``group``: this process is ``rank``
+    and computes on ``device``. Its collectives run on that group (a CUDA
+    tensor through NCCL, a CPU tensor through gloo). ``shape`` is the
+    mesh's shape over ``axes``; on a (clients, seq) mesh ``sub`` holds the
+    two axes' own meshes (``clients``, ``seq``). ``ranks`` are the
+    group's members' global ranks in group order (a subgroup's
+    point-to-point peers)."""
 
     group: object
     rank: int
     size: int
     device: torch.device
     axis: str = AXIS
+    shape: Tuple[int, ...] = ()
+    axes: Tuple[str, ...] = (AXIS,)
+    ranks: Tuple[int, ...] = ()
+    sub: Tuple = ()
+
+    # ------------------------------------------------------------ axes
+
+    @property
+    def clients(self) -> "Mesh":
+        """The clients axis's mesh (the mesh itself without a seq axis)."""
+        return self.sub[0] if self.sub else self
+
+    @property
+    def seq(self) -> Optional["Mesh"]:
+        """The seq axis's mesh, or None (no seq axis, or one of size 1)."""
+        return self.sub[1] if self.sub else None
+
+    @property
+    def n_seq(self) -> int:
+        return self.seq.size if self.seq is not None else 1
+
+    def peer(self, i: int) -> int:
+        """The global rank of the group's rank ``i``."""
+        return self.ranks[i] if self.ranks else i
 
     # ---------------------------------------------------- collectives
 
@@ -132,6 +217,7 @@ class Mesh:
             wire = wire.view(torch.uint8)
         out = wire.new_empty((self.size, wire.shape[1]))
         _all_gather(out, wire, group=self.group)
+        _note("all-gather", "all_gather_into_tensor", out, dtype)
         return out.view(dtype).reshape((self.size,) + shape)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
@@ -144,6 +230,7 @@ class Mesh:
             wire = wire.view(torch.uint8)
         out = torch.empty_like(wire)
         dist.all_to_all_single(out, wire, group=self.group)
+        _note("all-to-all", "all_to_all_single", out, dtype)
         return out.view(dtype).reshape(shape)
 
     @staticmethod
@@ -160,8 +247,12 @@ class Mesh:
     def all_reduce(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
         """The sum of every rank's ``x``, added in rank order in
         ``dtype`` (default ``x``'s: a bf16 ``x`` travels in bf16 and may
-        add in float32)."""
-        return self.ordered_sum(self.all_gather(x), dtype)
+        add in float32). The ledger counts an all-reduce carried by an
+        all-gather."""
+        with _unrecorded():
+            parts = self.all_gather(x)
+        _note("all-reduce", "all_gather_into_tensor", x)
+        return self.ordered_sum(parts, dtype)
 
     def reduce_scatter(self, x: torch.Tensor, dim: int = 0,
                        dtype=None) -> torch.Tensor:
@@ -173,20 +264,51 @@ class Mesh:
             raise ValueError(f"reduce_scatter: dim {dim} of "
                              f"{tuple(x.shape)} does not split {n} ways")
         blocks = x.movedim(dim, 0).unflatten(0, (n, -1))
-        got = self.all_to_all(blocks)
-        return self.ordered_sum(got, dtype).movedim(0, dim)
+        with _unrecorded():
+            got = self.all_to_all(blocks)
+        out = self.ordered_sum(got, dtype).movedim(0, dim)
+        _note("reduce-scatter", "all_to_all_single", out, x.dtype)
+        return out
 
     def all_reduce_int(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of an integer tensor over the ranks (exact in any
         order)."""
         x = x.clone()
         dist.all_reduce(x, group=self.group)
+        _note("all-reduce", "all_reduce", x)
         return x
 
     def any(self, flag: torch.Tensor) -> torch.Tensor:
         """Whether ``flag`` (a bool scalar) holds on any rank, as a bool
         scalar on every rank."""
         return self.all_reduce_int(flag.to(torch.int32)) > 0
+
+    def rotate(self, tensors: Sequence[torch.Tensor],
+               shift: int = 1) -> list:
+        """Each tensor to rank ``(rank + shift) % n``, and what rank
+        ``(rank - shift) % n`` sent, in one ``batch_isend_irecv`` (the JAX
+        package's ``ppermute``); the tensors themselves at n = 1."""
+        n = self.size
+        if n == 1:
+            return list(tensors)
+        dst = self.peer((self.rank + shift) % n)
+        src = self.peer((self.rank - shift) % n)
+        ops, outs = [], []
+        for t in tensors:
+            wire = t.contiguous()
+            if wire.dtype in _BYTES:
+                wire = wire.view(torch.uint8)
+            out = torch.empty_like(wire)
+            ops.append(dist.P2POp(dist.isend, wire, dst, self.group))
+            ops.append(dist.P2POp(dist.irecv, out, src, self.group))
+            outs.append((out, t.dtype))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        res = []
+        for out, dtype in outs:
+            _note("collective-permute", "batch_isend_irecv", out, dtype)
+            res.append(out.view(dtype))
+        return res
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """The round's (W, ...) vector from the ranks' (W/n, ...) slices,
@@ -208,8 +330,10 @@ def make_mesh(mesh_shape: Tuple[int, ...] = (),
     package's ``make_mesh`` builds it (its ``:37-54``): ``()`` at world
     size 1 is None (the single-device round); ``()`` over several ranks
     is a one-axis mesh of them all; a shape needing more ranks than the
-    world holds raises. Only the ``clients`` axis is ported: a ``seq``
-    axis raises, naming the flag."""
+    world holds raises. A two-axis shape over ``clients,seq`` makes a
+    process group for each row and each column of the (n_clients, n_seq)
+    grid (every rank joins every group's creation, in one order); a seq
+    axis of size 1 makes none."""
     mesh_shape = tuple(int(x) for x in mesh_shape)
     mesh_axes = tuple(mesh_axes) or (AXIS,)
     check_axes(mesh_shape, mesh_axes)
@@ -233,20 +357,40 @@ def make_mesh(mesh_shape: Tuple[int, ...] = (),
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if dist.get_backend() == "nccl" else torch.device("cpu"))
-    return Mesh(group=dist.group.WORLD, rank=dist.get_rank(), size=n,
-                device=torch.device(device), axis=mesh_axes[0])
+    device = torch.device(device)
+    rank = dist.get_rank()
+    axes = mesh_axes[:len(mesh_shape)]
+    sub = ()
+    if len(mesh_shape) == 2 and mesh_shape[1] > 1:
+        n_c, n_s = mesh_shape
+        c, s = divmod(rank, n_s)
+        groups = {}
+        for j in range(n_s):
+            members = tuple(i * n_s + j for i in range(n_c))
+            groups[(AXIS, j)] = (dist.new_group(list(members)), members)
+        for i in range(n_c):
+            members = tuple(i * n_s + j for j in range(n_s))
+            groups[(SEQ, i)] = (dist.new_group(list(members)), members)
+        (cg, cm), (sg, sm) = groups[(AXIS, s)], groups[(SEQ, c)]
+        sub = (Mesh(group=cg, rank=c, size=n_c, device=device, axis=AXIS,
+                    shape=(n_c,), ranks=cm),
+               Mesh(group=sg, rank=s, size=n_s, device=device, axis=SEQ,
+                    shape=(n_s,), axes=(SEQ,), ranks=sm))
+    return Mesh(group=dist.group.WORLD, rank=rank, size=n, device=device,
+                axis=axes[0], shape=mesh_shape, axes=axes, sub=sub)
 
 
 def check_axes(mesh_shape: Tuple[int, ...],
                mesh_axes: Tuple[str, ...]) -> None:
-    """Refuse a mesh axis the port does not run: only ``clients``."""
+    """Refuse a mesh the port does not run: axes other than ``clients``
+    and ``clients,seq``, or a shape with more dimensions than axes."""
     axes = tuple(mesh_axes) or (AXIS,)
-    if any(a != AXIS for a in axes) or len(mesh_shape) > 1:
+    if axes not in (AXES[:1], AXES) or len(mesh_shape) > len(axes):
         raise ValueError(
             f"--mesh_axes {','.join(axes)} --mesh_shape "
             f"{','.join(map(str, mesh_shape))}: the port runs the clients "
-            "axis alone; the seq axis (ring attention, parallel/ring.py) "
-            f"is {NEXT_SLICE}")
+            "axis, or clients,seq (ring attention over the seq axis, "
+            "parallel/ring.py), one size each")
 
 
 class FedShardings:
@@ -302,17 +446,13 @@ def setup_mesh(cfg, device: torch.device):
     """``(device, mesh or None)`` for ``--mesh_shape``: each process of
     ``torchrun --nproc_per_node N`` joins the group (NCCL on
     ``cuda:{LOCAL_RANK}``, gloo under ``--device cpu``) and becomes a rank
-    of the clients mesh; rank 0 alone prints (the others' stdout is
-    closed), writes telemetry and checkpoints. The JAX package's checks
-    (its ``cv_train.py:84-97``): the world is the mesh, and the mesh
-    divides ``--num_workers``. The entry points' helper."""
+    of the mesh; rank 0 alone prints (the others' stdout is closed),
+    writes telemetry and checkpoints (all ranks write under
+    ``--checkpoint_sharded``, through rank 0). The JAX package's checks
+    (its ``cv_train.py:84-97``): the world is the mesh, and its clients
+    axis divides ``--num_workers``. The entry points' helper."""
     if not cfg.mesh_shape:
         return device, None
-    if cfg.alert_action == "abort":
-        raise ValueError(
-            "--alert_action abort on a mesh: rank 0's anomaly monitor "
-            "would stop rank 0 alone; agreeing on an abort across the "
-            f"ranks is {NEXT_SLICE} (use --alert_action log or snapshot)")
     n = 1
     for dim in cfg.mesh_shape:
         n *= dim
@@ -326,9 +466,9 @@ def setup_mesh(cfg, device: torch.device):
     mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes, device)
     if mesh is None:
         return device, None
-    if cfg.num_workers % mesh.size:
+    if cfg.num_workers % mesh.clients.size:
         raise ValueError(f"--num_workers {cfg.num_workers} must be divisible "
-                         f"by the mesh axis size {mesh.size}")
+                         f"by the mesh axis size {mesh.clients.size}")
     if mesh.rank != 0:
         sys.stdout = open(os.devnull, "w")
     return device, mesh

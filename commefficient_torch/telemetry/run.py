@@ -603,6 +603,26 @@ class RunTelemetry:
         self.event("span", t0_wall=tracer.t0_wall,
                    n_dropped=int(dropped), spans=spans)
 
+    def collectives_event(self, name: str, ledger,
+                          n_devices: Optional[int] = None) -> None:
+        """The collectives of one round (telemetry/collectives.py): the
+        launches by kind, the run's table wire dtype and the modeled wire
+        bytes a device sends for the table reduce (null when no rank
+        count is known). ``n_devices`` defaults to the configured mesh's
+        rank count."""
+        from commefficient_torch.telemetry.collectives import (
+            summarize_ledger, table_reduce_wire_bytes)
+        n = n_devices
+        if n is None and self.cfg is not None:
+            n = 1
+            for dim in getattr(self.cfg, "mesh_shape", ()) or ():
+                n *= int(dim)
+        table_bytes = (table_reduce_wire_bytes(ledger, n)
+                       if n is not None else None)
+        self.event("collectives", name=name, **summarize_ledger(ledger),
+                   wire_dtype=self._wire_dtype(),
+                   table_reduce_bytes=table_bytes)
+
     def write_summary(self, *, aborted: bool, n_rounds: int,
                       total_download_mib: Optional[float] = None,
                       total_upload_mib: Optional[float] = None,

@@ -280,7 +280,7 @@ def test_gpt2_train_runs_on_cpu(tmp_path, capsys, extra, rounds):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--mesh_axes", "clients,seq"], "--mesh_axes"),
+    (["--mesh_axes", "clients,model"], "--mesh_axes"),
     (["--defense", "trimmed_mean"], "--defense"),
     (["--async_agg", "--mode", "true_topk", "--error_type", "virtual"],
      "--async_agg"), (["--mesh_shape", "2"],

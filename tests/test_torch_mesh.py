@@ -22,6 +22,8 @@ the mode cases, the vector rate and the sharded tail at 4 ranks, where
 d = 18 pads to 20.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -34,7 +36,11 @@ from test_parallel import make_cfg as j_make_cfg  # noqa: E402
 from test_parallel import quad_loss as j_quad_loss  # noqa: E402
 
 from commefficient_torch.parallel import spawn_ranks  # noqa: E402
+import test_torch_checkpoint_sharded as ckpt  # noqa: E402
+import test_torch_collectives as coll  # noqa: E402
 import test_torch_decode_overlap as overlap  # noqa: E402
+import test_torch_int8_mesh as int8  # noqa: E402
+import test_torch_seq as seq  # noqa: E402
 import test_torch_sharded_server as sharded  # noqa: E402
 import torch_mesh_ranks as ranks  # noqa: E402
 
@@ -117,26 +123,60 @@ def modes_part(with_extras, more=()):
                               val_sets() if with_extras else None)
 
 
-def jax_refs(n):
+def side_by_side(jobs):
+    """Each callable of ``jobs`` on a thread of one pool, their results in
+    order: the JAX references compile side by side (XLA's compiles
+    release the interpreter)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(4) as pool:
+        return [f.result() for f in [pool.submit(job) for job in jobs]]
+
+
+def jax_refs(n, tmp=None, int8_round: bool = True):
     """The JAX package's references on n virtual devices: its mesh round
     of each mode case and its replicated sketch server tail of each
-    sharded-server variant."""
-    return {"modes": [jax_run(m, e, mesh_n=n) for m, e in MODE_CASES],
-            "sharded": [sharded.jax_replicated(n, kw)
-                        for _, kw in sharded.VARIANTS]}
+    sharded-server variant; with ``tmp``, the A9b cases' too (the int8
+    reduce, with ``int8_round`` its round, and the sharded file the ranks
+    read at their end, written first)."""
+    if tmp is not None:
+        jax_ckpt = ckpt.write_jax_file(tmp)
+    jobs = ([functools.partial(jax_run, m, e, mesh_n=n)
+             for m, e in MODE_CASES]
+            + [functools.partial(sharded.jax_replicated, n, kw)
+               for _, kw in sharded.VARIANTS])
+    if tmp is not None:
+        jobs.append(functools.partial(int8.jax_int8_reduce, n))
+        if int8_round:
+            jobs.append(functools.partial(int8.jax_int8_round, n))
+    got = side_by_side(jobs)
+    k, v = len(MODE_CASES), len(sharded.VARIANTS)
+    out = {"modes": got[:k], "sharded": got[k:k + v]}
+    if tmp is not None:
+        out.update(jax_ckpt=jax_ckpt, int8={"reduce": got[k + v]})
+        if int8_round:
+            out["int8"]["round"] = got[k + v + 1]
+    return out
 
 
 @pytest.fixture(scope="module")
-def run():
+def run(tmp_path_factory):
     """The file's one rank group (the mode cases, the sharded tail's
-    variants and the split round's mesh cases) and the JAX references,
-    computed while the ranks run."""
+    variants, the split round's mesh cases, the A9b cases: the int8 wire,
+    the ledger, the sharded checkpoint, and the ring over both ranks) and
+    the JAX references, computed while the ranks run."""
     refs = {}
+    tmp = str(tmp_path_factory.mktemp("mesh2"))
+
+    def references():
+        refs.update(jax_refs(N, tmp, int8_round=False))
+
     res = spawn_ranks(ranks.group_body, N, {
         "modes": modes_part(True, MORE_CASES),
         "sharded": sharded.sharded_part(),
-        "overlap": overlap.overlap_part()},
-        meanwhile=lambda: refs.update(jax_refs(N)))
+        "overlap": overlap.overlap_part(),
+        "a9b": int8.a9b_part(N, tmp, ckpt.jax_file_path(tmp)),
+        "ring": (ranks.ring_body, (seq.RING_SHAPES,))},
+        meanwhile=references)
     return res, refs
 
 
@@ -284,3 +324,38 @@ def test_reduce_in_decode_bitwise_the_sharded_round(groups):
 
 def test_async_cohort_on_a_mesh_bitwise_the_round(groups):
     overlap.check_async_cohort([g["overlap"] for g in groups])
+
+
+# ------------------------------------------------------------ A9b
+
+
+def test_int8_reduce_bitwise_jax(groups, refs):
+    int8.check_reduce(groups, refs["int8"]["reduce"])
+
+
+def test_int8_round_monolithic_split(groups):
+    int8.check_rounds(groups)
+
+
+def test_int8_refused_without_the_sharded_tail(groups):
+    int8.check_refusal(groups)
+
+
+@pytest.mark.parametrize("check", ["bounds", "w8_w16", "sharded_kinds",
+                                   "int8_bytes", "event"])
+def test_collectives_ledger(groups, check):
+    getattr(coll, f"check_{check}")(groups)
+
+
+def test_sharded_checkpoint_written_from_the_ranks(groups):
+    ckpt.check_written(groups)
+
+
+def test_jax_sharded_checkpoint_restores_into_the_ranks(groups, refs):
+    ckpt.check_jax_restore(groups, refs["jax_ckpt"])
+
+
+@pytest.mark.parametrize("j", range(len(seq.RING_SHAPES)))
+def test_ring_on_2_ranks_matches_dense(groups, j):
+    for r in groups:
+        assert max(r["ring"][j]) <= 2e-5, r["ring"][j]

@@ -16,6 +16,9 @@ auto's fallback."""
 import numpy as np
 import pytest
 
+import test_torch_checkpoint_sharded as ckpt  # noqa: E402
+import test_torch_collectives as coll  # noqa: E402
+import test_torch_int8_mesh as int8  # noqa: E402
 import test_torch_mesh as base  # noqa: E402
 import test_torch_sharded_server as sharded  # noqa: E402
 import torch_mesh_ranks as ranks  # noqa: E402
@@ -25,13 +28,19 @@ N = 4
 
 
 @pytest.fixture(scope="module")
-def run():
+def run(tmp_path_factory):
     """The file's one rank group and the JAX references, computed while
     the ranks run."""
     refs = {}
+    tmp = str(tmp_path_factory.mktemp("mesh4"))
+
+    def references():
+        refs.update(base.jax_refs(N, tmp))
+
     res = spawn_ranks(ranks.group_body, N, {
-        "modes": base.modes_part(False), "sharded": sharded.sharded_part()},
-        meanwhile=lambda: refs.update(base.jax_refs(N)))
+        "modes": base.modes_part(False), "sharded": sharded.sharded_part(),
+        "a9b": int8.a9b_part(N, tmp, ckpt.jax_file_path(tmp))},
+        meanwhile=references)
     return res, refs
 
 
@@ -75,3 +84,25 @@ def test_sharded_tail4_bitwise_replicated_and_near_jax(groups, refs, v):
 
 def test_sharded_tail4_per_param_lr_vector_and_refusals(groups):
     sharded.check_lr_vec_and_refusals([g["sharded"] for g in groups])
+
+
+def test_int8_reduce4_bitwise_jax(groups, refs):
+    int8.check_reduce(groups, refs["int8"]["reduce"])
+
+
+def test_int8_round4_monolithic_split_and_jax(groups, refs):
+    int8.check_rounds(groups, refs["int8"]["round"])
+
+
+@pytest.mark.parametrize("check", ["bounds", "w8_w16", "sharded_kinds",
+                                   "int8_bytes", "event"])
+def test_collectives_ledger4(groups, check):
+    getattr(coll, f"check_{check}")(groups)
+
+
+def test_sharded_checkpoint_written_from_4_ranks(groups):
+    ckpt.check_written(groups)
+
+
+def test_jax_sharded_checkpoint_restores_into_4_ranks(groups, refs):
+    ckpt.check_jax_restore(groups, refs["jax_ckpt"])

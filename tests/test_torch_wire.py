@@ -236,10 +236,11 @@ def test_wire_refusals_from_one_argv(name):
 
 def test_wire_flags_parse_in_both_entry_points():
     """The four flags are the port's now (the GPT-2 entry point too); the
-    JAX package's parser holds 8 flags that neither port parser takes
-    (11 before the mesh's three, 56 before the wire's four, 52 before the
-    runtime services' 25, 27 before the telemetry's 16): the XLA-only
-    seven and --checkpoint_sharded."""
+    JAX package's parser holds 7 flags that neither port parser takes
+    (8 before --checkpoint_sharded, 11 before the mesh's three, 56 before
+    the wire's four, 52 before the runtime services' 25, 27 before the
+    telemetry's 16): the XLA-only seven. --checkpoint_sharded parses in
+    both entry points."""
     def flags(parser):
         return {o for a in parser._actions for o in a.option_strings
                 if o.startswith("--")}
@@ -251,10 +252,10 @@ def test_wire_flags_parse_in_both_entry_points():
             "--sketch_scan_rows"}
     assert wire <= flags(cv_train.build_parser())
     assert wire <= flags(gpt2_train.build_parser())
-    assert len(flags(jp) - ours) == 8
-    with pytest.raises(ValueError, match="--checkpoint_sharded"):
-        tconfig.parse_known(cv_train.build_parser(),
-                            ["--checkpoint_sharded"])
+    assert len(flags(jp) - ours) == 7
+    for build in (cv_train.build_parser, gpt2_train.build_parser):
+        ns = tconfig.parse_known(build(), ["--checkpoint_sharded"])
+        assert tconfig.config_from_args(ns).checkpoint_sharded
 
 
 BYTE_CASES = [
