@@ -420,20 +420,23 @@ ROUNDS = 6
 FLAGSHIP = dict(d=6_568_640, c=500_736, r=5)
 GPT2_SKETCH = dict(d=92_138_496, c=524_288, r=5)
 GPT2_ROUNDS = 4
-# K1: 8 clients + the weight-decay encode; K3: 12 layers x 8 clients
-GPT2_PER_ROUND = {"circ_encode": 9, "circ_decode": 1, "flash_fwd": 96,
-                  "flash_bwd_dq": 96, "flash_bwd_dkv": 96}
+# K1: 8 clients + the weight-decay encode; the zero rule's cell sum; K3:
+# 12 layers x 8 clients
+GPT2_PER_ROUND = {"circ_encode": 9, "circ_decode": 1, "cell_sum": 1,
+                  "flash_fwd": 96, "flash_bwd_dq": 96, "flash_bwd_dkv": 96}
 GPT2_VAL_FWD = 12               # one validation batch of 8 items, 12 layers
 # two arms of the JAX package's GPT-2 study (scripts/gpt2_ef_study.sh) at
 # the main path's k, 3 rounds each: the table clip (under the default
 # telemetry, as the JAX package routes it, each client's dense gradient is
-# encoded into its own table: 8 K1) and densestate_clip1 (dense clip, one
-# deferred encode of the dense sum of the (d,) error pre-image: 1 K1)
+# encoded into its own table: 8 K1, 1 cell sum) and densestate_clip1 (dense
+# clip, one deferred encode of the dense sum of the (d,) error pre-image:
+# 1 K1, no cell sum); (flags, K1 a round, cell sums a round)
 GPT2_ARM_ROUNDS = 3
 GPT2_ARMS = {
-    "clip1": (["--max_grad_norm", "1"], 8),
+    "clip1": (["--max_grad_norm", "1"], 8, 1),
     "densestate_clip1": (["--sketch_server_state", "dense",
-                          "--sketch_dense_clip", "--max_grad_norm", "1"], 1),
+                          "--sketch_dense_clip", "--max_grad_norm", "1"], 1,
+                         0),
 }
 # the hash encode on the card against the same call on the CPU: each
 # cell within 1e-5 of itself plus 1e-5 of its row's RMS cell (index_add_
@@ -469,6 +472,10 @@ HOPPER_SASS = ("HGMMA", "UTMALDG")
 # 5.5e-3, and 1.0 to 1.6 with a planted fault). lse to 1e-4 absolute.
 FLASH_ROW_RTOL = 1.5e-2
 FLASH_LSE_ATOL = 1e-4
+# K3's float32 routes against their plain version: the largest difference
+# of o, lse, dq, dk and dv within 2e-5 of that output's largest magnitude
+# (both sum in float32, in different orders; no TF32 on either side)
+FLASH_F32_RTOL = 2e-5
 # narrow GPT-2, card against CPU (phase_gpt2_reference): largest relative
 # L2 error of a c_attn q/k/v gradient block, largest relative loss
 # difference over 3 rounds, least cosine of the rounds' weight update.
@@ -611,10 +618,10 @@ def phase_sass():
     from commefficient_torch.ops import flash_attention as FA
 
     def kernel_of(line):
-        return next((name for name in FA.launches
+        return next((name for name in HOPPER_KERNELS
                      if f"{name}_kernel" in line), None)
 
-    out = {name: dict.fromkeys(HOPPER_SASS, 0) for name in FA.launches}
+    out = {name: dict.fromkeys(HOPPER_SASS, 0) for name in HOPPER_KERNELS}
     name = None
     for line in cuobjdump("-sass", FA.SOURCE):
         if "Function :" in line:
@@ -901,6 +908,21 @@ def same_bits(a, b) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def sketch_launches(rounds: int, k1: int = 9, k2: int = 1,
+                    cells: int = 1) -> dict:
+    """The ``circulant_kernels.launches`` of ``rounds`` rounds that each
+    launch ``k1`` K1, ``k2`` K2 and ``cells`` cell sums (the headline's
+    sketch round: 9, 1 and 1; the subtract rule 2 cell sums, a dense
+    server state or the SRHT none)."""
+    return {"circ_encode": k1 * rounds, "circ_decode": k2 * rounds,
+            "cell_sum": cells * rounds}
+
+
+def nonzero(counts: dict) -> dict:
+    """The entries of a launch count that are not 0."""
+    return {name: n for name, n in counts.items() if n}
+
+
 def zeroed_table(r: int, c: int, seed: int):
     """A seeded (r, c) table as the server's zero rule leaves one: about
     half its cells 0, some -0, and a few NaN (numpy, on the CPU)."""
@@ -911,6 +933,47 @@ def zeroed_table(r: int, c: int, seed: int):
     table[rng.rand(r, c) < 0.05] = -0.0
     table[rng.rand(r, c) < 0.002] = np.nan
     return table
+
+
+def tie_heavy_sparse(d: int, k: int, seed: int, specials: bool = True,
+                     one=None):
+    """A seeded sparse vector ``(idx (k,) int64, vals (k,) float32)`` whose
+    re-encode's cell sums depend on their order (numpy, on the CPU):
+    ``one`` addends (a quarter by default) on one coordinate (one cell in
+    every row), pairs (x, -x) on one coordinate each, which cancel to
+    exactly +0.0 and so decide the zero rule's mask (in another order,
+    x + y - x - y need not be 0 where two pairs collide), -0.0 as the
+    first addend of two coordinates (alone: +0.0, as a sum from +0.0
+    gives), and with ``specials`` inf, -inf and NaN addends; the rest
+    shuffled."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    coords = rng.permutation(d)
+    n_one, n_pairs = (k // 4 if one is None else one), k // 4
+    rest = k - n_one - 2 * n_pairs - 3
+    one = np.full(n_one, coords[0])
+    pairs = np.repeat(coords[1:1 + n_pairs], 2)
+    singles = coords[1 + n_pairs:1 + n_pairs + rest]
+    x = rng.randn(n_pairs).astype(np.float32)
+    idx = np.concatenate([one, pairs, singles])
+    vals = np.concatenate([rng.randn(n_one).astype(np.float32),
+                           np.stack([x, -x], 1).reshape(-1),
+                           rng.randn(rest).astype(np.float32)])
+    if specials:
+        vals[n_one + 2 * n_pairs:n_one + 2 * n_pairs + 3] = [np.inf, -np.inf,
+                                                            np.nan]
+    # shuffle whole pairs and single addends, keeping each pair in order
+    units = ([[i] for i in range(n_one)]
+             + [[n_one + 2 * j, n_one + 2 * j + 1] for j in range(n_pairs)]
+             + [[i] for i in range(n_one + 2 * n_pairs, len(idx))])
+    order = [i for u in rng.permutation(len(units)) for i in units[u]]
+    # -0.0 first, on the last spare coordinate alone and on the one cell's
+    # coordinate before its other addends
+    lone = coords[1 + n_pairs + rest]
+    idx = np.concatenate([[lone, coords[0]], idx[order], [lone]])
+    vals = np.concatenate([[-0.0, -0.0], vals[order], [-0.0]]).astype(
+        np.float32)
+    return idx.astype(np.int64), vals
 
 
 # the numpy twins of the native host gather against its library: the
@@ -1104,28 +1167,31 @@ def phase_kernels(shape: dict, cols_list, scale: float, plain_n: int = 20):
     }
 
 
-def flash_inputs(N, S, H, D, seed=0):
+def flash_inputs(N, S, H, D, seed=0, dtype=None):
     """q, k, v as the three (N, S, H, D) slices of one seeded (N, S, 3HD)
-    bf16 buffer (the c_attn output's layout), and an output gradient."""
+    buffer (the c_attn output's layout) in ``dtype`` (bf16 by default),
+    and an output gradient."""
     import numpy as np
     import torch
+    dtype = dtype or torch.bfloat16
     rng = np.random.RandomState(seed)
     qkv = torch.from_numpy(rng.randn(N, S, 3 * H * D).astype(
-        np.float32)).to("cuda", torch.bfloat16)
+        np.float32)).to("cuda", dtype)
     do = torch.from_numpy(rng.randn(N, S, H, D).astype(np.float32)).to(
-        "cuda", torch.bfloat16)
+        "cuda", dtype)
     q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(H * D, dim=-1))
     return q, k, v, do
 
 
-def flash_bounds(N, S, H, D):
+def flash_bounds(N, S, H, D, elem: int = 2):
     """(bytes, FLOPs) each K3 kernel must move and do: every input read
-    once, every output written once; 2 D FLOPs per causal (query, key)
-    pair and product (forward: q k^T and p v; dq: q k^T, dO v^T, ds k;
-    dk/dv: k q^T, p^T dO, v dO^T, ds^T q)."""
+    once, every output written once (``elem`` bytes an element: 2 bf16, 4
+    float32); 2 D FLOPs per causal (query, key) pair and product
+    (forward: q k^T and p v; dq: q k^T, dO v^T, ds k; dk/dv: k q^T, p^T
+    dO, v dO^T, ds^T q)."""
     pairs = N * H * S * (S + 1) // 2
     product = 2 * D * pairs
-    t = 2 * N * S * H * D                      # one bf16 (N, S, H, D)
+    t = elem * N * S * H * D                   # one (N, S, H, D) operand
     stat = 4 * N * H * S                       # one float32 (N, H, S)
     return {"flash_fwd": (4 * t + stat, 2 * product),
             "flash_bwd_dq": (6 * t + 2 * stat, 3 * product),
@@ -1295,6 +1361,132 @@ def phase_flash(shapes=FLASH_SHAPES):
         for name, entry in per_shape[main].items()}
 
 
+def flash_route_errors(q, k, v, do, got):
+    """``(errors, ok)`` of K3's outputs ``got`` (o, and any of lse, dq,
+    dk, dv) against the plain versions on the same inputs (the backward's
+    from ``got["o"]``, as the kernels' is): bf16 each output row against
+    its own norm (FLASH_ROW_RTOL; lse to FLASH_LSE_ATOL), float32 the
+    largest difference over the plain output's largest magnitude
+    (FLASH_F32_RTOL)."""
+    import torch
+    from commefficient_torch.ops import flash_attention as FA
+    o_ref, lse_ref = FA.forward_plain(q, k, v)
+    refs = {"o": o_ref, "lse": lse_ref}
+    if set(got) & {"dq", "dk", "dv"}:
+        refs.update(zip(("dq", "dk", "dv"), FA.backward_plain(
+            q, k, v, got["o"], lse_ref, do)))
+    f32 = q.dtype == torch.float32
+    errs = {}
+    for name, t in got.items():
+        ref = refs[name].float()
+        if f32:
+            errs[name] = float((t.float() - ref).abs().max()
+                               / ref.abs().max())
+        elif name == "lse":
+            errs[name] = float((t - ref).abs().max())
+        else:
+            errs[name] = float(row_errors(t, ref).max())
+    limit = {name: (FLASH_F32_RTOL if f32 else FLASH_LSE_ATOL
+                    if name == "lse" else FLASH_ROW_RTOL) for name in errs}
+    ok = all(math.isfinite(e) and e <= limit[n] for n, e in errs.items())
+    return errs, ok
+
+
+def phase_flash_routes():
+    """Every route of ``flash_tiled.cu`` (float32 at D = 16, 32, 64 and
+    128; bf16 at D = 16, 32 and 128) at (8, 1024, 768 / D, D) and (8, 256,
+    768 / D, D), GPT-2 small's width in heads of D: o, lse, dq, dk and dv
+    against the plain versions (``flash_route_errors``), a second call of
+    each kernel bitwise the first, and each kernel timed beside its bound,
+    the plain versions and SDPA (the library call, timed here only).
+    Returns {kernel name: its entry at S = 1024, S = 256's under
+    ``at_shapes``}."""
+    import torch
+    import torch.nn.functional as F
+    from commefficient_torch.ops import flash_attention as FA
+
+    out = {}
+    for (dtype, D), r in FA.ROUTES.items():
+        if r.source != FA.TILED_SOURCE:
+            continue
+        f32 = dtype == torch.float32
+        for N, S, H, D in ((8, 1024, 768 // D, D), (8, 256, 768 // D, D)):
+            shape = (N, S, H, D)
+            q, k, v, do = flash_inputs(N, S, H, D, dtype=dtype)
+            o, lse = FA.forward(q, k, v)
+            dq, delta = FA.backward_dq(q, k, v, o, lse, do)
+            dk, dv = FA.backward_dkv(q, k, v, do, lse, delta)
+            torch.cuda.synchronize()
+            got = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+            errs, ok = flash_route_errors(q, k, v, do, got)
+            o2, lse2 = FA.forward(q, k, v)
+            dq2, delta2 = FA.backward_dq(q, k, v, o, lse, do)
+            dk2, dv2 = FA.backward_dkv(q, k, v, do, lse, delta)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in
+                       ((o, o2), (lse, lse2), (dq, dq2), (delta, delta2),
+                        (dk, dk2), (dv, dv2)))
+            del o2, lse2, dq2, delta2, dk2, dv2
+            print(f"[flash {dtype} D={D}] {shape}: "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                  + (f" (largest difference over the largest value, limit "
+                     f"{FLASH_F32_RTOL})" if f32 else
+                     f" (worst row error, limit {FLASH_ROW_RTOL}; lse "
+                     f"{FLASH_LSE_ATOL})")
+                  + f"; a second call bitwise: {same}", flush=True)
+            if not ok or not same:
+                fail(f"K3 {dtype} D={D} at {shape}: {errs}, deterministic "
+                     f"{same}")
+            ms = {r.fwd: time_ms(lambda: FA.forward(q, k, v), n=10),
+                  r.dq: time_ms(lambda: FA.backward_dq(q, k, v, o, lse, do),
+                                n=10),
+                  r.dkv: time_ms(lambda: FA.backward_dkv(q, k, v, do, lse,
+                                                         delta), n=10)}
+            plain_fwd = time_ms(lambda: FA.forward_plain(q, k, v), n=3)
+            plain_bwd = time_ms(
+                lambda: FA.backward_plain(q, k, v, o, lse, do), n=3)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+
+            sdpa_fwd = time_ms(lambda: sdpa().detach(), n=10)
+            o_s = sdpa()
+            sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+                o_s, (qt, kt, vt), dot, retain_graph=True), n=10)
+            plain = {r.fwd: plain_fwd, r.dq: plain_bwd, r.dkv: plain_bwd}
+            library = {r.fwd: sdpa_fwd, r.dq: sdpa_bwd, r.dkv: sdpa_bwd}
+            err = {r.fwd: errs["o"], r.dq: errs["dq"],
+                   r.dkv: max(errs["dk"], errs["dv"])}
+            bounds = dict(zip(r.names, flash_bounds(
+                N, S, H, D, elem=4 if f32 else 2).values()))
+            print(f"[flash {dtype} D={D}] {shape}: kernels "
+                  + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items())
+                  + f"; plain fwd {plain_fwd:.4f} ms, bwd {plain_bwd:.4f} "
+                  f"ms; SDPA fwd {sdpa_fwd:.4f} ms, bwd {sdpa_bwd:.4f} ms",
+                  flush=True)
+            for name in r.names:
+                nbytes, flops = bounds[name]
+                b_ms, kind = bound(nbytes, flops, H100_FP32_PER_S if f32
+                                   else H100_BF16_PER_S)
+                entry = {"max_abs_err": err[name], "ms": ms[name],
+                         "plain_ms": plain[name], "bound_ms": b_ms,
+                         "bound_by": bound_by(kind),
+                         "library_ms": library[name],
+                         "tflops": flops / ms[name] / 1e9}
+                if S == 1024:
+                    out[name] = {**entry, "shape": list(shape),
+                                 "at_shapes": {}}
+                else:
+                    out[name]["at_shapes"]["x".join(map(str, shape))] = entry
+            del q, k, v, do, o, lse, dq, delta, dk, dv, qt, kt, vt, o_s
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_small_reference():
     """Narrow ResNet-9 rounds: the card (kernels) against the CPU (plain
     versions), on the float32 wire and on the int8 wire (``--wire_dtype
@@ -1442,8 +1634,8 @@ def phase_gpt2_reference():
         faults[fault] = readings(run("cuda", fault))
         print(f"[reference] narrow GPT-2 with a planted fault in {fault}: "
               f"{faults[fault]}", flush=True)
-    if n_cpu != {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0} \
-            or sound[3] != dict.fromkeys(n_cpu, 3 * W * gcfg.n_layer):
+    if nonzero(n_cpu) or nonzero(sound[3]) != dict.fromkeys(
+            HOPPER_KERNELS, 3 * W * gcfg.n_layer):
         fail(f"narrow GPT-2: unexpected K3 launches {n_cpu} / {sound[3]}")
     if not np.isfinite(sound[1]).all() or not passes(read):
         fail(f"the card's GPT-2 gradient or rounds disagree with the CPU's "
@@ -1451,6 +1643,123 @@ def phase_gpt2_reference():
     passed = [fault for fault, r in faults.items() if passes(r)]
     if passed:
         fail(f"the narrow GPT-2 check passed planted faults in {passed}")
+
+
+# the K3 routes on the port's GPT-2 paths (phase_gpt2_routes): GPT2Config.
+# small under gpt2_train --test (2 layers, 4 heads of D = 16, bf16) with
+# SMALL_ROUTE_WORKERS clients a round, so each round launches n_layer x
+# clients of each kernel of the bf16 D = 16 route; and, for the routes
+# that no gpt2_train configuration reaches, GPT2DoubleHeads at GPT-2
+# small's width (768) in heads of D, 2 layers, one training-loss forward
+# and backward of (2, 2, 1024) tokens
+SMALL_ROUTE_WORKERS = 4
+SMALL_ROUTE_ROUNDS = 2
+MODEL_ROUTE_FORMS = (("bfloat16", 32), ("bfloat16", 128), ("float32", 16),
+                     ("float32", 32), ("float32", 128))
+
+
+def phase_gpt2_routes():
+    """K3's new routes on the port's GPT-2 paths, each with every launch
+    count set to 0 just before it and read just after: (1) ``gpt2_train
+    --compute_dtype float32`` at GPT-2 small's width and S = 1024 with the
+    default ``--attn_impl auto`` (``phase_gpt2_main``: each of
+    GPT2_ROUNDS rounds exactly 96 of each float32 D = 64 kernel and no
+    other K3 kernel, each validation batch GPT2_VAL_FWD forwards, finite
+    losses, the peak memory); (2) ``gpt2_train --test --attn_impl flash
+    --max_seq_len 128`` (``GPT2Config.small``: bf16, D = 16), every round
+    2 x SMALL_ROUTE_WORKERS of each bf16 D = 16 kernel and no other; (3)
+    each of MODEL_ROUTE_FORMS through ``GPT2DoubleHeads`` and its
+    training loss, n_layer launches of each of the form's kernels, a
+    finite loss and gradient. Returns ({path: launches}, {path: (median
+    round ms, peak bytes)})."""
+    import numpy as np
+    import torch
+    from commefficient_torch import gpt2_train
+    from commefficient_torch.losses import make_gpt2_train_loss
+    from commefficient_torch.models.gpt2 import GPT2Config, GPT2DoubleHeads
+    from commefficient_torch.ops import circulant_kernels as K
+    from commefficient_torch.ops import flash_attention as FA
+
+    paths, runs = {}, {}
+    f32 = FA.route(torch.float32, 64)
+    rounds, val, ms, info = phase_gpt2_main(
+        ["--compute_dtype", "float32"], GPT2_ROUNDS, k3=f32.names)
+    tag = "gpt2_train --compute_dtype float32"
+    paths[tag] = {n: rounds[n] + val[n] for n in rounds}
+    runs[tag] = (ms, info["peak"])
+
+    small = FA.route(torch.bfloat16, 16)
+    argv = ["--test", "--attn_impl", "flash", "--max_seq_len", "128",
+            "--error_type", "virtual", "--local_momentum", "0",
+            "--num_workers", str(SMALL_ROUTE_WORKERS), "--local_batch_size",
+            "2", "--num_rounds", str(SMALL_ROUTE_ROUNDS),
+            *dataset_flags("persona_small")]
+    print("[routes] python -m commefficient_torch.gpt2_train "
+          + " ".join(argv), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    FA.reset_launches()
+    with LaunchSplit(gpt2_train.kernel_launches) as split:
+        out = entry_main(gpt2_train, argv)
+    total = gpt2_train.kernel_launches()
+    want = dict.fromkeys(small.names, 2 * SMALL_ROUTE_WORKERS)
+    per_round = [nonzero({n: c[n] for n in FA.launches})
+                 for c in split.calls["round"]]
+    per_val = [set(nonzero({n: c[n] for n in FA.launches}))
+               for c in split.calls["val"]]
+    if out["rounds"] != SMALL_ROUTE_ROUNDS or \
+            not np.isfinite(out["losses"]).all() or \
+            any(r != want for r in per_round) or \
+            any(v - {small.fwd} for v in per_val):
+        fail(f"gpt2_train --test --attn_impl flash: {out['rounds']} rounds,"
+             f" losses {out['losses']}, K3 launches a round {per_round} "
+             f"(want {want}), a validation batch {per_val}")
+    tag = "gpt2_train --test --attn_impl flash --max_seq_len 128"
+    paths[tag] = total
+    runs[tag] = (statistics.median(out["round_s"]) * 1e3,
+                 torch.cuda.max_memory_allocated())
+    print(f"[routes] {tag}: {SMALL_ROUTE_ROUNDS} rounds, losses "
+          f"{[round(float(x), 5) for x in out['losses']]}, K3 a round "
+          f"{per_round[0]}, the run's K3 {nonzero(total)}", flush=True)
+
+    rng = np.random.RandomState(7)
+    for dtype_name, D in MODEL_ROUTE_FORMS:
+        dtype = getattr(torch, dtype_name)
+        r = FA.route(dtype, D)
+        gcfg = GPT2Config(vocab_size=8192, n_embd=768, n_layer=2,
+                          n_head=768 // D, compute_dtype=dtype)
+        model = GPT2DoubleHeads(gcfg, attn_impl="flash",
+                                generator=torch.Generator().manual_seed(0)
+                                ).cuda()
+        batch = {key: torch.from_numpy(val[0]).long().cuda()
+                 for key, val in narrow_gpt2_batch(
+                     rng, 1, 2, 2, 1024, gcfg.vocab_size).items()}
+        w = model.flat.detach().clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FA.reset_launches()
+        t0 = time.perf_counter()
+        loss, _ = make_gpt2_train_loss(model)(
+            w, batch, torch.ones(2, dtype=torch.bool, device="cuda"))
+        (g,) = torch.autograd.grad(loss, w)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(FA.launches)
+        tag = (f"GPT2DoubleHeads {dtype_name} D={D} (768 wide, "
+               f"{gcfg.n_head} heads, 2 layers)")
+        loss = loss.detach()
+        print(f"[routes] {tag}: loss {float(loss):.5f}, gradient finite "
+              f"{bool(torch.isfinite(g).all())}, K3 {nonzero(launches)}, "
+              f"{step_ms:.1f} ms (first call)", flush=True)
+        if nonzero(launches) != dict.fromkeys(r.names, gcfg.n_layer) or \
+                not math.isfinite(float(loss)) or \
+                not bool(torch.isfinite(g).all()):
+            fail(f"{tag}: loss {float(loss)}, launches {nonzero(launches)}")
+        paths[tag] = launches
+        runs[tag] = (step_ms, torch.cuda.max_memory_allocated())
+        del model, w, g, loss, batch
+        torch.cuda.empty_cache()
+    return paths, runs
 
 
 # where the phases' CIFAR directories are written (a temporary directory
@@ -1551,9 +1860,9 @@ def phase_main_path(extra=()):
     if not np.isfinite(out["losses"]).all() or \
             not math.isfinite(out["val_loss"]):
         fail(f"non-finite losses {out['losses']} / {out['val_loss']}")
-    if launches["circ_encode"] != 9 * ROUNDS or \
-            launches["circ_decode"] != ROUNDS:
-        fail(f"launches {launches}: want 9 encode and 1 decode per round")
+    if launches != sketch_launches(ROUNDS):
+        fail(f"launches {launches}: want 9 encode, 1 decode and 1 cell sum "
+             "per round")
     rt = statistics.median(out["round_s"][1:])
     print(f"[main] {tag}: {ROUNDS} rounds: median of rounds 2-{ROUNDS} "
           f"(the first pays one-time set-up) {rt * 1e3:.3f} ms "
@@ -1564,9 +1873,11 @@ def phase_main_path(extra=()):
 
 
 # the single-device round in every mode at ResNet-9's full width: 100
-# clients of 64 synthetic images, 8 a round; (flags, K1 and K2 launches a
-# round). K1: the fused step's W x (64 / 16) microbatches + weight decay,
-# or the unfused path's one encode of the summed gradient.
+# clients of 64 synthetic images, 8 a round; (flags, K1, K2 and cell-sum
+# launches a round). K1: the fused step's W x (64 / 16) microbatches +
+# weight decay, or the unfused path's one encode of the summed gradient;
+# the cell sum: the zero rule's sparse re-encode once, the subtract
+# rule's twice (the update and the velocity's estimates).
 MODE_ROUNDS = 3
 MODE_COMMON = ["--dataset_name", "CIFAR10", "--model", "ResNet9",
                "--error_type", "virtual", "--local_momentum", "0",
@@ -1576,19 +1887,19 @@ MODE_COMMON = ["--dataset_name", "CIFAR10", "--model", "ResNet9",
                "--valid_batch_size", "400", "--num_rounds", str(MODE_ROUNDS)]
 MODE_CONFIGS = {
     "uncompressed": (["--mode", "uncompressed", "--error_type", "none",
-                      "--virtual_momentum", "0.9"], 0, 0),
+                      "--virtual_momentum", "0.9"], 0, 0, 0),
     "true_topk": (["--mode", "true_topk", "--virtual_momentum", "0.9"],
-                  0, 0),
+                  0, 0, 0),
     "local_topk": (["--mode", "local_topk", "--error_type", "local",
-                    "--local_momentum", "0.9"], 0, 0),
+                    "--local_momentum", "0.9"], 0, 0, 0),
     "fedavg": (["--mode", "fedavg", "--error_type", "none",
                 "--local_batch_size", "-1", "--fedavg_batch_size", "64"],
-               0, 0),
+               0, 0, 0),
     "sketch_subtract": (["--mode", "sketch", "--virtual_momentum", "0.9",
                          "--sketch_ef", "subtract", "--microbatch_size",
-                         "16"], 8 * 4 + 1, 1),
+                         "16"], 8 * 4 + 1, 1, 2),
     "sketch_unfused": (["--mode", "sketch", "--virtual_momentum", "0.9",
-                        "--sketch_fused_encode", "off"], 1, 1),
+                        "--sketch_fused_encode", "off"], 1, 1, 1),
 }
 # the client and server rules of this slice at the same widths (100
 # clients: --topk_down holds a row of weights for each). K1 as the JAX
@@ -1599,29 +1910,33 @@ MODE_CONFIGS = {
 # state its (d,) error once; with --no_client_stats the table clip streams
 # each client's microbatch and its weight-decay term into its own table (8
 # x 2, the fused per-client route, kept held); hash and rht launch none.
+# The cell sum: once a round where the server keeps the table (hash too),
+# none under the dense server state or the SRHT.
 SKETCH_FLAGS = ["--mode", "sketch", "--virtual_momentum", "0.9"]
 RULE_CONFIGS = {
-    "clip": (SKETCH_FLAGS + ["--max_grad_norm", "1"], 8, 1),
+    "clip": (SKETCH_FLAGS + ["--max_grad_norm", "1"], 8, 1, 1),
     "clip_no_client_stats": (SKETCH_FLAGS + ["--max_grad_norm", "1",
-                                             "--no_client_stats"], 16, 1),
+                                             "--no_client_stats"], 16, 1,
+                             1),
     "dense_clip": (SKETCH_FLAGS + ["--sketch_dense_clip",
-                                   "--max_grad_norm", "1"], 1, 1),
-    "dense_state": (SKETCH_FLAGS + ["--sketch_server_state", "dense"], 1, 1),
+                                   "--max_grad_norm", "1"], 1, 1, 1),
+    "dense_state": (SKETCH_FLAGS + ["--sketch_server_state", "dense"], 1, 1,
+                    0),
     "dp_worker": (SKETCH_FLAGS + ["--dp", "--l2_norm_clip", "1",
-                                  "--noise_multiplier", "0.1"], 1, 1),
+                                  "--noise_multiplier", "0.1"], 1, 1, 1),
     "dp_server_uncompressed": (["--mode", "uncompressed", "--error_type",
                                 "none", "--dp", "--dp_mode", "server",
-                                "--noise_multiplier", "0.1"], 0, 0),
-    "topk_down": (SKETCH_FLAGS + ["--topk_down"], 1, 1),
+                                "--noise_multiplier", "0.1"], 0, 0, 0),
+    "topk_down": (SKETCH_FLAGS + ["--topk_down"], 1, 1, 1),
     "hash": (SKETCH_FLAGS + ["--sketch_impl", "hash", "--num_cols",
-                             "500000", "--num_blocks", "20"], 0, 0),
+                             "500000", "--num_blocks", "20"], 0, 0, 1),
     "hash_dense_state": (SKETCH_FLAGS + ["--sketch_impl", "hash",
                                          "--num_cols", "500000",
                                          "--num_blocks", "20",
                                          "--sketch_server_state", "dense"],
-                         0, 0),
+                         0, 0, 0),
     "rht": (SKETCH_FLAGS + ["--sketch_impl", "rht", "--num_rows", "5",
-                            "--num_cols", "1313728"], 0, 0),
+                            "--num_cols", "1313728"], 0, 0, 0),
 }
 
 
@@ -1680,8 +1995,8 @@ class RoundRecorder:
 def phase_modes(configs=None, tag: str = "modes"):
     """``cv_train`` on the card in every configuration of ``configs``
     (default ``MODE_CONFIGS``) at ResNet-9's full width, MODE_ROUNDS
-    rounds each: finite losses, the exact K1/K2 launches a round, and the
-    bytes (``RoundRecorder``). Returns {name: (launches, median round
+    rounds each: finite losses, the exact K1, K2 and cell-sum launches a
+    round, and the bytes (``RoundRecorder``). Returns {name: (launches, median round
     ms)}."""
     import numpy as np
     import torch
@@ -1689,7 +2004,8 @@ def phase_modes(configs=None, tag: str = "modes"):
     from commefficient_torch.ops import circulant_kernels as K
 
     out_modes = {}
-    for mode, (flags, n_enc, n_dec) in (configs or MODE_CONFIGS).items():
+    for mode, (flags, n_enc, n_dec, n_cell) in (configs
+                                                or MODE_CONFIGS).items():
         argv = MODE_COMMON + dataset_flags("synthetic640") + flags
         print(f"[{tag}] python -m commefficient_torch.cv_train "
               + " ".join(argv), flush=True)
@@ -1703,8 +2019,7 @@ def phase_modes(configs=None, tag: str = "modes"):
                 or not np.isfinite(out["losses"]).all():
             fail(f"{mode}: {out['rounds']} rounds, losses {out['losses']}, "
                  f"summary {out['summary']}")
-        want = {"circ_encode": n_enc * MODE_ROUNDS,
-                "circ_decode": n_dec * MODE_ROUNDS}
+        want = sketch_launches(MODE_ROUNDS, n_enc, n_dec, n_cell)
         if launches != want:
             fail(f"{mode}: launches {launches}, want {want}")
         checked = rec.check_bytes(mode)
@@ -1827,46 +2142,140 @@ def phase_accounting():
     return out
 
 
+def time_host_ms(fn, n: int = 5) -> float:
+    """Host-clock time of one ``fn()`` over ``n`` calls ending in a
+    synchronize: for a function that reads back to the host itself (the
+    cell sum's plain loop), which ``time_ms``'s device-side sleep would
+    otherwise enter."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def cell_sum_work(n: int, size: int):
+    """Bytes the cell sum must move for ``n`` addends into a ``size``-cell
+    table: its sorted cells and order (int64) and addends (float32) read
+    once, the table written once (zeroed, then each run's sum)."""
+    return 20 * n + 4 * size
+
+
 def phase_sparse_encode():
-    """The sparse re-encode (``encode_vals_at``, which the subtract rule
-    reads) on the card at both main paths' sketches with k = 50,000: its
-    table must have the bits of the same call on the CPU (a cell's
-    addends are summed in the order of ``idx`` on every device), and two
-    card calls the same bits; timed beside ``index_add_`` (whose order on
-    the card is not fixed)."""
+    """The sparse re-encode (``encode_vals_at``, whose ordered cell sums
+    the zero rule's mask and the subtract rule read) on the card at both
+    main paths' sketches with k = 50,000: its table must have the bits of
+    the same call on the CPU (the plain loop), two card calls the same
+    bits, and neither make a host sync (``host_syncs``). Then
+    ``tie_heavy_sparse`` at k = 50,000 (2,000 addends on one coordinate,
+    cancelling pairs, -0.0 first, inf, NaN) against the CPU's bits, and
+    all k addends of every row in one cell (the kernel's worst case, one
+    thread a row) against numpy's sequential float32 fold. Timed at each
+    sketch on the random case: the cell sum's wrapper (the table's
+    zeroing and the kernel), its plain loop on the card (host clock: it
+    reads its rank count back), ``index_add_`` on the same cells (no
+    fixed order), and the whole ``encode_vals_at``; and the wrapper on
+    the tie-heavy case. Returns {"cell_sum": the kernel line's
+    entry at the ResNet-9 sketch, with the GPT-2 sketch's and the worst
+    case's beside it}."""
     import numpy as np
     import torch
-    from commefficient_torch.ops.circulant import make_circulant_sketch
+    from commefficient_torch.ops import circulant_kernels as K
+    from commefficient_torch.ops.circulant import (make_circulant_sketch,
+                                                   ordered_cell_sum)
 
     rng, out = np.random.RandomState(5), {}
+    k = 50_000
     for shape in (FLAGSHIP, GPT2_SKETCH):
         d, c, r = shape["d"], shape["c"], shape["r"]
-        idx = torch.from_numpy(rng.permutation(d)[:50_000])
-        vals = torch.from_numpy(rng.randn(50_000).astype(np.float32))
         cpu = make_circulant_sketch(d, c, r, device="cpu")
         card = make_circulant_sketch(d, c, r, device="cuda")
-        want = cpu.encode_vals_at(vals, idx)
-        gi, gv = idx.cuda(), vals.cuda()
-        got = card.encode_vals_at(gv, gi)
-        again = card.encode_vals_at(gv, gi)
-        if not (same_bits(got.cpu(), want) and same_bits(got, again)):
-            fail(f"the sparse re-encode at d={d} differs from the CPU's "
-                 "bits or between two calls")
+        cases = {"random": (rng.permutation(d)[:k],
+                            rng.randn(k).astype(np.float32)),
+                 "tie-heavy": tie_heavy_sparse(d, k, seed=d % 1000,
+                                               one=2000)}
+        on_card = {}
+        for case, (idx, vals) in cases.items():
+            idx, vals = torch.from_numpy(idx), torch.from_numpy(vals)
+            want = cpu.encode_vals_at(vals, idx)
+            gi, gv = on_card[case] = idx.cuda(), vals.cuda()
+            K.reset_launches()
+            got = card.encode_vals_at(gv, gi)
+            syncs = host_syncs(lambda: card.encode_vals_at(gv, gi))
+            again = card.encode_vals_at(gv, gi)
+            torch.cuda.synchronize()
+            if not (same_bits(got.cpu(), want) and same_bits(got, again)) \
+                    or syncs or K.launches != sketch_launches(3, 0, 0):
+                fail(f"the sparse re-encode at d={d} ({case}): bitwise the "
+                     f"CPU {same_bits(got.cpu(), want)}, across calls "
+                     f"{same_bits(got, again)}, host syncs {syncs}, "
+                     f"launches {K.launches}")
+            print(f"[sparse] d={d} c={c} {case}: encode_vals_at of {k:,} "
+                  f"values bitwise the CPU's plain loop and across calls, "
+                  f"one cell-sum launch a call, no host sync", flush=True)
+        # timings on the random case's cells, and the kernel's on the
+        # tie-heavy case's (a run of 2,000 addends in one thread a row)
+        def prepared(gi, gv):
+            sg, buckets = card._signs_and_buckets(gi)
+            rows = torch.arange(r, device="cuda")[:, None]
+            cells = (buckets + rows * c).reshape(-1)
+            return (cells, *torch.sort(cells, stable=True),
+                    (sg * gv).reshape(-1).contiguous())
+
+        size = r * c
+        tie_args = prepared(*on_card["tie-heavy"])[1:]
+        tie_ms = time_ms(lambda: K.cell_sum(*tie_args, size))
+        gi, gv = on_card["random"]
+        cells, sorted_cells, order, addends = prepared(gi, gv)
 
         def index_add():
-            table = card.empty_table()
-            for j in range(r):
-                table[j].index_add_(0, card._buckets_of(j, gi),
-                                    card._sign_of(j, gi) * gv)
-            return table
+            return torch.zeros(size, device="cuda").index_add_(0, cells,
+                                                               addends)
 
-        ms = time_ms(lambda: card.encode_vals_at(gv, gi), n=10)
-        lib = time_ms(index_add, n=10)
-        out[d] = (ms, lib)
-        print(f"[sparse] d={d} c={c}: encode_vals_at of 50,000 values "
-              f"bitwise equal to the CPU's and across calls; "
-              f"{ms:.4f} ms (index_add_ {lib:.4f} ms)", flush=True)
-    return out
+        ms = time_ms(lambda: K.cell_sum(sorted_cells, order, addends, size))
+        plain_ms = time_host_ms(
+            lambda: K.cell_sum_plain(sorted_cells, order, addends, size))
+        lib = time_ms(index_add)
+        whole = time_ms(lambda: card.encode_vals_at(gv, gi))
+        err = float((K.cell_sum(sorted_cells, order, addends, size)
+                     - K.cell_sum_plain(sorted_cells, order, addends,
+                                        size)).abs().max())
+        nbytes = cell_sum_work(r * k, size)
+        b_ms, kind = bound(nbytes, 0, H100_FP32_PER_S)
+        print(f"[sparse] d={d} c={c}: the cell sum of {r * k:,} addends "
+              f"{ms:.4f} ms (bound {b_ms:.4f} ms, {kind}: "
+              f"{nbytes / 1e6:.2f} MB), its plain loop {plain_ms:.4f} ms, "
+              f"index_add_ {lib:.4f} ms; the whole encode_vals_at "
+              f"{whole:.4f} ms; the cell sum of the tie-heavy case "
+              f"{tie_ms:.4f} ms", flush=True)
+        out[d] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": b_ms, "bound_by": bound_by(kind),
+                  "library_ms": lib, "encode_vals_at_ms": whole,
+                  "tie_heavy_ms": tie_ms}
+    # the worst case: every addend of a row in one cell
+    d, c, r = FLAGSHIP["d"], FLAGSHIP["c"], FLAGSHIP["r"]
+    addends = rng.randn(r, k).astype(np.float32)
+    addends[:, 0] = -0.0
+    fold = np.zeros((r, c), np.float32)
+    fold[:, 0] = np.add.accumulate(
+        np.concatenate([np.zeros((r, 1), np.float32), addends], 1),
+        axis=1, dtype=np.float32)[:, -1]
+    gb = torch.zeros((r, k), dtype=torch.int64, device="cuda")
+    ga = torch.from_numpy(addends).cuda()
+    got = ordered_cell_sum(gb, ga, c)
+    if not same_bits(got.cpu(), torch.from_numpy(fold)):
+        fail("the cell sum of one cell a row differs from numpy's "
+             "sequential float32 fold")
+    worst = time_ms(lambda: ordered_cell_sum(gb, ga, c), n=5)
+    print(f"[sparse] all {k:,} addends of each of {r} rows in one cell: "
+          f"bitwise numpy's sequential fold, {worst:.4f} ms (one thread a "
+          "row)", flush=True)
+    main = out[FLAGSHIP["d"]]
+    return {"cell_sum": {**main, "at_gpt2_shape": out[GPT2_SKETCH["d"]],
+                         "one_cell_a_row_ms": worst}}
 
 
 def phase_hash_rht():
@@ -2147,19 +2556,21 @@ GPT2_ARGV = ["--mode", "sketch", "--error_type", "virtual",
 def phase_gpt2_main(extra=(), n_rounds: int = GPT2_ROUNDS,
                     encodes: int = 9, fwd: int = GPT2_PER_ROUND["flash_fwd"],
                     keep: bool = False, decodes: int = 1,
-                    want_up=None):
+                    want_up=None, k3=HOPPER_KERNELS, cells: int = 1):
     """``n_rounds`` GPT-2 rounds at GPT-2 small's width through the user's
     entry point, each round an epoch with its validation; ``extra`` flags
     after the main path's. Every round must launch exactly GPT2_PER_ROUND
-    (with ``encodes`` K1 and ``fwd`` K3 forward kernels: 192 when every
-    block's forward runs again in the backward) and every validation batch
-    GPT2_VAL_FWD K3 forward kernels and nothing else (``LaunchSplit``),
-    and the two must add up to the run's counts. Returns the measured
+    (with ``encodes`` K1, ``decodes`` K2, ``cells`` cell sums and ``fwd``
+    K3 forward kernels: 192 when every block's forward runs again in the
+    backward) and every validation batch GPT2_VAL_FWD K3 forward kernels
+    and nothing else (``LaunchSplit``), and the two must add up to the run's counts. Returns the measured
     launches of the rounds and of the validations, the median round time
     (ms) and ``info``: the peak memory (bytes), the round losses and,
     with ``keep``, the first round's weights before and after it and the
     final weights (on the host). With ``want_up``, each round's upload
-    bytes a participant are held to it (``RoundRecorder``)."""
+    bytes a participant are held to it (``RoundRecorder``). ``k3`` names
+    the K3 route's forward, dq and dk/dv kernels (the bf16 D = 64 route's
+    by default; every other route 0)."""
     import contextlib
 
     import numpy as np
@@ -2169,8 +2580,10 @@ def phase_gpt2_main(extra=(), n_rounds: int = GPT2_ROUNDS,
     from commefficient_torch.ops import flash_attention as FA
 
     argv = [*GPT2_ARGV, "--num_rounds", str(n_rounds), *extra]
-    per_round = dict(GPT2_PER_ROUND, circ_encode=encodes, flash_fwd=fwd,
-                     circ_decode=decodes)
+    per_round = {**dict.fromkeys(gpt2_train.kernel_launches(), 0),
+                 **sketch_launches(1, encodes, decodes, cells),
+                 **dict(zip(k3, (fwd, GPT2_PER_ROUND["flash_bwd_dq"],
+                                 GPT2_PER_ROUND["flash_bwd_dkv"])))}
     tag = " ".join(extra) or "bytes on"
     print("[gpt2] python -m commefficient_torch.gpt2_train " + " ".join(argv),
           flush=True)
@@ -2188,7 +2601,7 @@ def phase_gpt2_main(extra=(), n_rounds: int = GPT2_ROUNDS,
     peak = torch.cuda.max_memory_allocated()
     rounds, val = split.total("round"), split.total("val")
     val_batch = dict.fromkeys(total, 0)
-    val_batch["flash_fwd"] = GPT2_VAL_FWD
+    val_batch[k3[0]] = GPT2_VAL_FWD
     if out["rounds"] != n_rounds or len(split.calls["round"]) \
             != n_rounds or len(split.calls["val"]) != out["val_batches"] \
             or out["val_batches"] < 1:
@@ -2324,15 +2737,15 @@ def same_state_bits(a, b) -> list:
 def phase_real_data_resume():
     """The main path from a CIFAR10 pickle directory at full scale:
     ``cv_train`` with the main path's flags, ``--checkpoint_every 1``, two
-    epochs, from the device store (its MiB printed), exactly 9 K1 and 1 K2
-    launches a round; the data path's time a round against the host
+    epochs, from the device store (its MiB printed), exactly 9 K1, 1 K2
+    and 1 cell sum a round; the data path's time a round against the host
     gather's; then a flipped byte in the newest generation and a
     ``--resume`` in a fresh call of the entry point: the restore must
     fall back to the first generation and name the damaged one, the
     restored state must be bitwise the one saved, the first resumed
     round's batch (indices, augmented images, targets) bitwise the
     uninterrupted run's and its loss within RESUME_LOSS_RTOL. Returns the
-    K1/K2 launches of both runs."""
+    launches of both runs."""
     import numpy as np
     import torch
     from commefficient_torch import checkpoint as ckpt
@@ -2374,9 +2787,9 @@ def phase_real_data_resume():
     if whole["summary"] is None or whole["summary"]["epoch"] != REAL_EPOCHS \
             or not np.isfinite(whole["losses"]).all():
         fail(f"the real-data run ended at {whole['summary']}")
-    if launches_a != {"circ_encode": 9 * n_a, "circ_decode": n_a}:
+    if launches_a != sketch_launches(n_a):
         fail(f"real-data launches {launches_a} over {n_a} rounds: want 9 "
-             "encode and 1 decode a round")
+             "encode, 1 decode and 1 cell sum a round")
     if len(rec_a.calls) != n_a:
         fail(f"{len(rec_a.calls)} store batches for {n_a} rounds: the "
              "rounds were not fed by the device store")
@@ -2452,10 +2865,9 @@ def phase_real_data_resume():
     bad = same_state_bits(restored["state"], saved[1])
     if bad or restored["state"].ps_weights.device.type != device.type:
         fail(f"the restored state differs from the saved one in {bad}")
-    if launches_b != {"circ_encode": 9 * n_b, "circ_decode": n_b} \
-            or n_b != n_a - first:
+    if launches_b != sketch_launches(n_b) or n_b != n_a - first:
         fail(f"resumed run: {n_b} rounds, launches {launches_b}; want "
-             f"{n_a - first} rounds, 9 + 1 a round")
+             f"{n_a - first} rounds, 9 + 1 + 1 a round")
     r_a, idx_a, out_a = rec_a.batch(first + 1)
     r_b, idx_b, out_b = rec_b.calls[0]
     if r_b != first + 1 or not np.array_equal(idx_a, idx_b) or not all(
@@ -2770,7 +3182,7 @@ FEMNIST_PER_WRITER = 16
 FEMNIST_TEST_PER_WRITER = 1
 FEMNIST_FILES = 4
 FEMNIST_ROUNDS = 3
-FEMNIST_PER_ROUND = {"circ_encode": 9, "circ_decode": 1}
+FEMNIST_PER_ROUND = sketch_launches(1)
 FEMNIST_ARGV = ["--dataset_name", "EMNIST", "--model", "ResNet101LN",
                 "--mode", "sketch", "--error_type", "virtual",
                 "--virtual_momentum", "0.9", "--local_momentum", "0",
@@ -3158,9 +3570,9 @@ IMAGENET_ARGV = ["--dataset_name", "ImageNet", "--model", "FixupResNet50",
                  "--valid_batch_size", "64", "--mesh_shape", "",
                  "--checkpoint", "--num_rounds", str(IMAGENET_ROUNDS)]
 IMAGENET_MODES = {
-    "uncompressed": ([], {"circ_encode": 0, "circ_decode": 0}),
+    "uncompressed": ([], sketch_launches(1, 0, 0, 0)),
     "sketch": (["--mode", "sketch", "--k", "50000", "--num_rows", "5"],
-               {"circ_encode": 8, "circ_decode": 1}),
+               sketch_launches(1, 8, 1, 1)),
 }
 IMAGENET_STORE_PER_CLASS = 64
 # the host path: 8 classes x 2,000 images (2.41 GB of uint8, over the
@@ -3549,7 +3961,7 @@ def phase_compat():
     val = FedCIFAR10(dataset_flags("synthetic64")[1], train=False,
                      transform=T.CifarEval()).gather(np.arange(160))
     vloss, vacc = fm({"client_id": np.full(160, -1), **val})
-    want = {"circ_encode": 9 * COMPAT_STEPS, "circ_decode": COMPAT_STEPS}
+    want = sketch_launches(COMPAT_STEPS)
     print(f"[compat] FedModel on {fm.runtime.device}, ResNet-9 sketch "
           f"(d={fm.cfg.grad_size}, m={fm.runtime.cs.m}): {COMPAT_STEPS} "
           f"steps, losses {[[round(float(v), 5) for v in x] for x in losses]}"
@@ -3658,8 +4070,9 @@ def phase_kernels_range(shape: dict, scale: float, plain_n: int = 5):
 
 WIRE_ROUNDS = 3
 # the ResNet-9 main path on each wire: (flags, K1 a round, K2 a round,
-# bytes a client a round); int8 at --wire_block 256 is 5 c cells plus a
-# float32 scale every 256 columns of a row
+# bytes a client a round), and in every arm the zero rule's one cell sum a
+# round; int8 at --wire_block 256 is 5 c cells plus a float32 scale every
+# 256 columns of a row
 WIRE_ARMS = {
     "bf16": (["--wire_dtype", "bfloat16"], 9, 1, 5_007_360),
     "sketch_dtype_alias": (["--sketch_dtype", "bfloat16"], 9, 1, 5_007_360),
@@ -3678,7 +4091,8 @@ def phase_wire():
     """The ResNet-9 main path (8 x 64, k = 50,000, r = 5, c = 500,736)
     on each of ``WIRE_ARMS`` through ``python -m
     commefficient_torch.cv_train``, WIRE_ROUNDS rounds each: finite
-    losses, the exact K1/K2 launches a round, every round's upload bytes
+    losses, the exact K1, K2 and cell-sum launches a round, every
+    round's upload bytes
     a client held to the arm's bytes and to ``upload_wire_bytes``
     (``RoundRecorder``); the ``--sketch_dtype`` arm warns and its state
     is bitwise the bf16 arm's; the two int8 runs are bitwise equal.
@@ -3703,8 +4117,7 @@ def phase_wire():
             res = entry_main(cv_train, argv)
         sys.stderr.write(err.getvalue())
         launches = dict(K.launches)
-        want = {"circ_encode": n_enc * WIRE_ROUNDS,
-                "circ_decode": n_dec * WIRE_ROUNDS}
+        want = sketch_launches(WIRE_ROUNDS, n_enc, n_dec)
         if res["rounds"] != WIRE_ROUNDS or \
                 not np.isfinite(res["losses"]).all() or launches != want:
             fail(f"wire {arm}: {res['rounds']} rounds, losses "
@@ -3795,7 +4208,7 @@ def phase_rht_scan():
     for arm, flags in GPT2_RHT_ARMS.items():
         rounds, val, ms, info = phase_gpt2_main(
             ["--sketch_impl", "rht", "--allow_divergent_rht", *flags],
-            GPT2_RHT_ROUNDS, encodes=0, decodes=0)
+            GPT2_RHT_ROUNDS, encodes=0, decodes=0, cells=0)
         arms[arm], runs[arm] = (ms, info["peak"]), (rounds, val)
         torch.cuda.empty_cache()
     print("[rht] GPT-2 SRHT arms, median round (ms) / peak memory (GiB): "
@@ -3893,7 +4306,7 @@ def phase_stream():
         want = {"circ_encode": (want_ranges + STREAM_ROUNDS
                                 if arm == "streaming_grad"
                                 else (STREAM_W + 1) * STREAM_ROUNDS),
-                "circ_decode": STREAM_ROUNDS}
+                "circ_decode": STREAM_ROUNDS, "cell_sum": STREAM_ROUNDS}
         if launches != want or ranges != want_ranges:
             fail(f"stream {arm}: launches {launches}, ranges {ranges}; want "
                  f"{want}, {want_ranges} ranges")
@@ -3931,7 +4344,7 @@ SERVICE_ARGV = MODE_COMMON + ["--mode", "sketch", "--virtual_momentum",
                               "0.9", "--num_rounds", str(SERVICE_ROUNDS),
                               "--telemetry_every", "1"]
 # a robust arm runs the per-client path with deferred encode: one K1 (the
-# aggregate's encode) and one K2 a round
+# aggregate's encode), one K2 and one cell sum a round
 ROBUST_ARMS = {
     "normclip": ["--defense", "normclip"],
     "trim": ["--defense", "trim"],
@@ -4070,8 +4483,8 @@ def robust_reference_round(flags_kw: dict):
 def phase_robust():
     """The plain sketch round and the four robust arms (ROBUST_ARMS)
     through ``cv_train`` at full width, SERVICE_ROUNDS rounds each, in
-    one call: 9 K1 + 1 K2 a round plain, exactly 1 K1 + 1 K2 a robust
-    round, finite losses, the defense scalars of every round printed,
+    one call: 9 K1 + 1 K2 + 1 cell sum a round plain, exactly 1 K1 + 1 K2
+    + 1 cell sum a robust round, finite losses, the defense scalars of every round printed,
     each arm's median round and peak memory beside the plain round's;
     the quarantine arm's ledger (strikes, benches, ejections) equal to
     the CPU run's of the same seeds (``--test`` size: the ledger depends
@@ -4084,8 +4497,7 @@ def phase_robust():
     R = SERVICE_ROUNDS
     argv = SERVICE_ARGV + dataset_flags("synthetic640")
     out, launches, peak = run_cv(argv, "robust")
-    _rounds_ok("plain sketch", out, launches,
-               {"circ_encode": 9 * R, "circ_decode": R})
+    _rounds_ok("plain sketch", out, launches, sketch_launches(R))
     plain_ms = statistics.median(out["round_s"][1:]) * 1e3
     plain = {"launches": launches, "ms": plain_ms, "peak": peak,
              "weights": out["state"].ps_weights.cpu(),
@@ -4097,7 +4509,7 @@ def phase_robust():
     arms = {}
     for arm, flags in ROBUST_ARMS.items():
         out, launches, peak = run_cv(argv + flags, "robust")
-        _rounds_ok(arm, out, launches, {"circ_encode": R, "circ_decode": R})
+        _rounds_ok(arm, out, launches, sketch_launches(R, 1))
         ms = statistics.median(out["round_s"][1:]) * 1e3
         scalars = out["defense"]
         if len(scalars) != R:
@@ -4199,7 +4611,8 @@ def phase_async(plain):
     finally:
         FedRuntime.commit = orig
     agg = out["services"].async_agg
-    want = {"circ_encode": 9 * agg.dispatched, "circ_decode": agg.commits}
+    want = {"circ_encode": 9 * agg.dispatched, "circ_decode": agg.commits,
+            "cell_sum": agg.commits}
     if launches != want or agg.dispatched + agg.dropped != ASYNC_TICKS \
             or agg.inflight or agg.pending or not agg.commits \
             or out["state"].step != agg.commits \
@@ -4474,10 +4887,10 @@ def phase_telemetry():
     for arm, flags in arms:
         with FirstRound() as first:
             out, launches, peak = run_cv(base + flags, f"telemetry {arm}")
-        if launches != {"circ_encode": 9 * ROUNDS, "circ_decode": ROUNDS} \
+        if launches != sketch_launches(ROUNDS) \
                 or out["rounds"] != ROUNDS or out["summary"] is None:
             fail(f"telemetry {arm}: launches {launches}, {out['rounds']} "
-                 "rounds: want 9 K1 + 1 K2 a round")
+                 "rounds: want 9 K1 + 1 K2 + 1 cell sum a round")
         d = out["runtime"].cfg.grad_size
         medians.setdefault(arm, []).append(
             statistics.median(out["round_s"][1:]) * 1e3)
@@ -4593,9 +5006,9 @@ def phase_telemetry():
     out, launches, _ = run_cv(base[:-1] + ["3", "--signals_exact",
                                            "--telemetry_every", "1"],
                               "telemetry --signals_exact")
-    if launches != {"circ_encode": 3, "circ_decode": 3}:
-        fail(f"--signals_exact: launches {launches}, want 1 K1 + 1 K2 a "
-             "round (the unfused route)")
+    if launches != sketch_launches(3, 1):
+        fail(f"--signals_exact: launches {launches}, want 1 K1 + 1 K2 + 1 "
+             "cell sum a round (the unfused route)")
     sig = [e for e in read_stream(out["logdir"], "signals_exact")
            if e["event"] == "signals"]
     if len(sig) != 3 or any(
@@ -4750,9 +5163,13 @@ class SyncedRounds:
         return 1e3 * statistics.median(dt for _, _, dt in self.calls[skip:])
 
 
-def launches_of(k1: int = 0, k2: int = 0, k3=(0, 0, 0)) -> dict:
-    return {"circ_encode": k1, "circ_decode": k2,
-            **dict(zip(K3_NAMES, k3))}
+def launches_of(k1: int = 0, k2: int = 0, k3=(0, 0, 0),
+                cells: int = 0) -> dict:
+    """The K1, K2, cell-sum and bf16 D = 64 K3 counts of
+    ``gpt2_train.kernel_launches`` (every other K3 route 0)."""
+    from commefficient_torch.ops import flash_attention as FA
+    return {**sketch_launches(1, k1, k2, cells),
+            **dict.fromkeys(FA.launches, 0), **dict(zip(K3_NAMES, k3))}
 
 
 def check_calls(tag: str, calls, want) -> None:
@@ -4930,12 +5347,13 @@ def phase_bench():
     - ``bench`` as a user runs it (``bench_as_a_user``);
     - in process, every count set to 0 just before and read just after,
       each round between two syncs (``SyncedRounds``): ``run_cifar`` on
-      the float32 and on the int8 wire (W + 1 K1 and 1 K2 in every warmup
-      and timed round, the bytes exact); ``round_shape_grid`` at its 9
-      cells (W + 1 K1 a round at W = 8, 16, 32); ``gpt2_mfu_sweep`` with
-      SWEEP_ARMS (``bench_gpt2.run`` in each arm: SWEEP_K1 and 1 K2 a
-      round; the ``overlap`` arm's synced calls are its client halves,
-      SWEEP_K1 and no K2, and both its ledgers are measured); ``ledger_ab``
+      the float32 and on the int8 wire (W + 1 K1, 1 K2 and 1 cell sum in
+      every warmup and timed round, the bytes exact); ``round_shape_grid``
+      at its 9 cells (W + 1 K1, 1 K2 and 1 cell sum a round at W = 8, 16,
+      32); ``gpt2_mfu_sweep`` with SWEEP_ARMS (``bench_gpt2.run`` in each
+      arm: SWEEP_K1, 1 K2 and 1 cell sum a round; the ``overlap`` arm's
+      synced calls are its client halves, SWEEP_K1 and no K2 or cell sum,
+      and both its ledgers are measured); ``ledger_ab``
       at full width (the cohort: 8 K1 fused, 1 unfused, no K2; both
       ledgers measured); ``bench_imagenet`` in both layouts (no K1/K2);
       ``bench_gpt2_model`` (K3 at (16, 256, 12, 64): 12 layers x 8
@@ -4971,7 +5389,7 @@ def phase_bench():
         with SyncedRounds(counts) as rec:
             bench.run_cifar(res, n_rounds=R, wire_dtype=wire)
         check_calls(f"run_cifar {wire}", rec.calls,
-                    [("round", launches_of(9, 1))] * (2 + R))
+                    [("round", launches_of(9, 1, cells=1))] * (2 + R))
         want = BENCH_INT8_BYTES if wire == "int8" else \
             BENCH_WIRE_BYTES["headline"]
         if res["wire_bytes_per_round"] != want:
@@ -4987,7 +5405,7 @@ def phase_bench():
     cells = [(W, B) for W in round_shape_grid.GRID_W
              for B in round_shape_grid.GRID_B]
     check_calls("round_shape_grid", rec.calls,
-                [("round", launches_of(W + 1, 1))
+                [("round", launches_of(W + 1, 1, cells=1))
                  for W, _ in cells for _ in range(2 + R)])
     if [(r["W"], r["B"]) for r in grid["rows"]] != cells or any(
             "error" in r or r["mfu"] is None or not 0 < r["mfu"] <= 1
@@ -5009,10 +5427,11 @@ def phase_bench():
     if rc != 0 or list(arms) != list(SWEEP_ARMS):
         fail(f"gpt2_mfu_sweep: rc {rc}, lines {arms}")
     # the overlap arm's rounds are split: its synced calls are the client
-    # halves (its K2 launches in the decode halves between them)
+    # halves (its K2 and cell-sum launches in the decode halves between
+    # them)
     check_calls("gpt2_mfu_sweep", rec.calls,
                 [("cohort", launches_of(SWEEP_K1[a], 0)) if a == "overlap"
-                 else ("round", launches_of(SWEEP_K1[a], 1))
+                 else ("round", launches_of(SWEEP_K1[a], 1, cells=1))
                  for a in SWEEP_ARMS for _ in range(R + 2)])
     for a in SWEEP_K1:
         res = arms[a].get("result") or {}
@@ -5164,16 +5583,16 @@ def phase_bench():
 # the stream's readers, the crash harness and the study recipes (A11c,
 # A13): the crash rows of the full run (the two that no child test of
 # the port covered before the crash matrix), the curve arms of its
-# one-epoch smoke, and the K1/K2 a ResNet-9 sketch round launches
-# (PERF.md kernel table)
+# one-epoch smoke, and the K1, K2 and cell sums a ResNet-9 sketch round
+# launches (PERF.md kernel table)
 CRASH_FULL_POINTS = ("mid_round", "async_pool")
 # the crash child: 2 epochs of 7 rounds (the sampler stops when fewer
 # than W = 4 clients have data left), W K1 (no weight decay: no decay
-# encode) and 1 K2 a synchronous round
+# encode), 1 K2 and 1 cell sum a synchronous round
 CRASH_ROUNDS, CRASH_W = 14, 4
 CURVE_SMOKE_ARMS = ("cv_uncompressed24", "cv_true_topk24", "cv_sketch96",
                     "gpt2_sketch24")
-CV_SKETCH_K1, CV_SKETCH_K2 = 9, 1
+CV_SKETCH_K1, CV_SKETCH_K2, CV_SKETCH_CELLS = 9, 1, 1
 CURVES_OUT = "curves_out"
 
 
@@ -5225,7 +5644,7 @@ def phase_crash(points=CRASH_FULL_POINTS) -> dict:
     """``crash_matrix`` with children on the card, at the rows
     ``points``: each row killed, resumed and held bit for bit to the
     straight child; the straight synchronous child launches exactly
-    CRASH_W K1 and 1 K2 a round at d = 18 (the asynchronous one's counts
+    CRASH_W K1, 1 K2 and 1 cell sum a round at d = 18 (the asynchronous one's counts
     printed). Returns the straight children's launches."""
     from commefficient_torch.scripts import crash_matrix
     rows = [m for m in crash_matrix.MATRIX if m[0] in points]
@@ -5239,10 +5658,10 @@ def phase_crash(points=CRASH_FULL_POINTS) -> dict:
     launches = {("async" if a else "sync"): res[("straight", a)]
                 for a in (False, True) if ("straight", a) in res}
     sync = launches.get("sync")
-    if sync is not None and (sync["circ_encode"] != CRASH_W * CRASH_ROUNDS
-                             or sync["circ_decode"] != CRASH_ROUNDS):
+    if sync is not None and sync != sketch_launches(CRASH_ROUNDS, CRASH_W):
         fail(f"crash matrix: the straight child launched {sync}; want "
-             f"{CRASH_W} K1 + 1 K2 a round over {CRASH_ROUNDS} rounds")
+             f"{CRASH_W} K1 + 1 K2 + 1 cell sum a round over {CRASH_ROUNDS} "
+             "rounds")
     asy = launches.get("async")
     if asy is not None and not (asy["circ_encode"] > 0
                                 and asy["circ_decode"] > 0):
@@ -5257,7 +5676,7 @@ def phase_crash(points=CRASH_FULL_POINTS) -> dict:
 def check_curve_record(rec: dict, arm) -> None:
     """A curve run's record: a TSV with its header, finite epoch rows,
     the CIFAR10 arms' upload MiB at the TPU's seed equal to the TPU
-    log's, and the sketch arm's K1/K2 a round."""
+    log's, and the sketch arm's K1, K2 and cell sums a round."""
     from commefficient_torch.scripts import curves
     name = rec["arm"]
     with open(rec["tsv"]) as f:
@@ -5275,11 +5694,11 @@ def check_curve_record(rec: dict, arm) -> None:
                  f"{wrong[:5]}")
     if name.startswith("cv_sketch"):
         n = rec["rounds"]
-        if (rec["launches"]["circ_encode"], rec["launches"]["circ_decode"]) \
-                != (CV_SKETCH_K1 * n, CV_SKETCH_K2 * n):
+        want = sketch_launches(n, CV_SKETCH_K1, CV_SKETCH_K2, CV_SKETCH_CELLS)
+        if {k: rec["launches"][k] for k in want} != want:
             fail(f"curves {name}: launches {rec['launches']} over {n} "
-                 f"rounds; want {CV_SKETCH_K1} K1 + {CV_SKETCH_K2} K2 a "
-                 "round")
+                 f"rounds; want {CV_SKETCH_K1} K1 + {CV_SKETCH_K2} K2 + "
+                 f"{CV_SKETCH_CELLS} cell sum a round")
 
 
 def phase_curves(arms=CURVE_SMOKE_ARMS, seeds=(21,), epochs=1,
@@ -5448,21 +5867,44 @@ def phase_decode_range(shape: dict, plain_n: int = 5):
 
 def host_syncs(fn) -> list:
     """The host syncs ``fn()`` makes (``torch.cuda.set_sync_debug_mode``'s
-    warnings), as ``path:line`` of the call in the repository."""
+    warnings), each as ``path:line`` of the innermost frame in the
+    repository at the sync, followed by ``(in path:line)`` of the frame
+    the warning names where that lies outside it (inside torch). Only
+    warnings raised inside ``fn()`` count: the process's first switch to
+    the warning mode warns of itself (torch/cuda/__init__.py, read on an
+    H100 with torch 2.11)."""
+    import traceback
     import warnings
     import torch
     root = os.path.dirname(os.path.abspath(__file__))
+    found, inside = set(), [False]
+
+    def where(filename: str, lineno: int) -> str:
+        return f"{os.path.relpath(filename, root)}:{lineno}"
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not inside[0] or "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if os.path.abspath(f.filename).startswith(root + os.sep)]
+        at = where(filename, lineno)
+        if ours and where(ours[-1].filename, ours[-1].lineno) != at:
+            at = f"{where(ours[-1].filename, ours[-1].lineno)} (in {at})"
+        found.add(at)
+
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
+        inside[0] = True
         try:
             fn()
         finally:
+            inside[0] = False
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return sorted({f"{os.path.relpath(w.filename, root)}:{w.lineno}"
-                   for w in caught if "synchroniz" in str(w.message)})
+    return sorted(found)
 
 
 @contextlib.contextmanager
@@ -5486,12 +5928,17 @@ def phase_decode_overlap():
     """``--decode_overlap`` at the ResNet-9 headline round through the
     entry point, interleaved with the monolithic round (monolithic, split,
     split, monolithic; cuDNN deterministic in all four): every run 9 K1 +
-    1 K2 a round; the first split run's losses and state bitwise the first
-    monolithic run's; the driver waiting on the cohort's event once a
-    round (``DecodeOverlapRound.wait_cohort``) and never on the whole
-    card. Then the host syncs left in the decode half (and, apart, in the
-    client half), and the GPT-2 sweep's overlap arms beside its base arm,
-    interleaved. Returns (launches by path, the A/B numbers)."""
+    1 K2 + 1 cell sum a round; the first split run's losses and state
+    bitwise the first monolithic run's; the driver waiting on the cohort's
+    event once a round (``DecodeOverlapRound.wait_cohort``) and never on
+    the whole card, and the share of rounds whose decode had not ended
+    when that wait returned (``decode_done``). The split round again
+    under ``--sketch_ef subtract`` (9 K1 + 1 K2 + 2 cell sums a round) and
+    ``--sketch_impl hash`` (1 cell sum a round). Then the host syncs of
+    the decode half (``FedRuntime.decode``) in those three forms: the
+    phase fails on any (phase_mesh1 checks the sharded tail's); the client
+    half's are printed. Then the GPT-2 sweep's overlap arms beside its
+    base arm, interleaved. Returns (launches by path, the A/B numbers)."""
     import numpy as np
     import torch
     from commefficient_torch.bench import bench_gpt2, gpt2_mfu_sweep
@@ -5500,22 +5947,31 @@ def phase_decode_overlap():
 
     base = MAIN_ARGV + dataset_flags("synthetic64") + [
         "--num_rounds", str(ROUNDS_SPLIT)]
-    counts = {"wait_cohort": 0, "sync": 0}
+    counts = {"wait_cohort": 0, "sync": 0, "decode_running": 0}
     wait, sync = pipeline.DecodeOverlapRound.wait_cohort, driver._sync
 
     def counted_wait(self):
         counts["wait_cohort"] += 1
-        return wait(self)
+        wait(self)
+        # the decode had not ended when the host went on
+        counts["decode_running"] += not self.decode_done.query()
 
     def counted_sync(device):
         counts["sync"] += 1
         return sync(device)
 
     runs, launches_by, medians = {}, {}, {"monolithic": [], "split": []}
+    running, runtimes = [], {}
+    arms = [(arm, ["--decode_overlap"] if arm == "split" else [],
+             sketch_launches(ROUNDS_SPLIT))
+            for arm in ("monolithic", "split", "split", "monolithic")]
+    arms += [("subtract", ["--decode_overlap", "--sketch_ef", "subtract"],
+              sketch_launches(ROUNDS_SPLIT, cells=2)),
+             ("hash", ["--decode_overlap", "--sketch_impl", "hash"],
+              sketch_launches(ROUNDS_SPLIT, 0, 0))]
     with deterministic_cudnn():
-        for arm in ("monolithic", "split", "split", "monolithic"):
-            flags = ["--decode_overlap"] if arm == "split" else []
-            counts.update(wait_cohort=0, sync=0)
+        for arm, flags, want in arms:
+            counts.update(wait_cohort=0, sync=0, decode_running=0)
             pipeline.DecodeOverlapRound.wait_cohort = counted_wait
             driver._sync = counted_sync
             try:
@@ -5523,16 +5979,21 @@ def phase_decode_overlap():
             finally:
                 pipeline.DecodeOverlapRound.wait_cohort = wait
                 driver._sync = sync
-            _rounds_ok(f"overlap {arm}", out, launches,
-                       {"circ_encode": 9 * ROUNDS_SPLIT,
-                        "circ_decode": ROUNDS_SPLIT}, ROUNDS_SPLIT)
-            if arm == "split" and (counts["wait_cohort"] != ROUNDS_SPLIT
-                                   or counts["sync"]):
+            _rounds_ok(f"overlap {arm}", out, launches, want, ROUNDS_SPLIT)
+            if flags and (counts["wait_cohort"] != ROUNDS_SPLIT
+                          or counts["sync"]):
                 fail(f"the split round's driver waited {counts}: want the "
                      f"cohort's event {ROUNDS_SPLIT} times, no whole sync")
-            medians[arm].append(statistics.median(out["round_s"][1:]) * 1e3)
+            if arm in medians:
+                medians[arm].append(
+                    statistics.median(out["round_s"][1:]) * 1e3)
+            if arm == "split":
+                running.append(counts["decode_running"] / ROUNDS_SPLIT)
             launches_by[f"cv_train --decode_overlap ({arm})"] = launches
             runs.setdefault(arm, out)
+            if flags:
+                runtimes.setdefault("zero rule" if arm == "split" else arm,
+                                    out["runtime"])
     mono, split = runs["monolithic"], runs["split"]
     if not np.array_equal(np.asarray(mono["losses"]),
                           np.asarray(split["losses"])):
@@ -5543,25 +6004,30 @@ def phase_decode_overlap():
         fail(f"the split round's state differs from the monolithic one's "
              f"in {bad} after {ROUNDS_SPLIT} rounds")
     print(f"[overlap] {ROUNDS_SPLIT} rounds: losses and state bitwise the "
-          "monolithic round's; 9 K1 + 1 K2 a round; the driver waited on "
-          "the cohort's event once a round", flush=True)
+          "monolithic round's; 9 K1 + 1 K2 + 1 cell sum a round (subtract: "
+          "2 cell sums; hash: 1); the driver waited on the cohort's event "
+          "once a round; share of rounds whose decode still ran when that "
+          f"wait returned: {running}", flush=True)
 
-    # the host syncs of each half, on the split run's runtime
-    rt = split["runtime"]
+    # the host syncs of each half, on each split run's runtime
     rng = np.random.RandomState(0)
     batch = {"image": rng.randn(8, 64, 32, 32, 3).astype(np.float32),
              "target": rng.randint(0, 10, (8, 64))}
     ids, mask = np.arange(8), np.ones((8, 64), bool)
-    state = rt.init_state()
-    got = {}
-    cohort_syncs = host_syncs(lambda: got.update(
-        zip(("state", "pay"), rt.cohort(state, ids, batch, mask, 0.1))))
-    decode_syncs = host_syncs(lambda: rt.decode(
-        got["state"], got["pay"]["sum"], got["pay"]["n_total"], 0.1))
-    print(f"[overlap] host syncs left in the decode half (each ends the "
-          f"overlap there): {decode_syncs or 'none'}; in the client half: "
-          f"{cohort_syncs or 'none'}", flush=True)
-    del rt, state, got, runs, mono, split
+    decode_syncs, cohort_syncs = {}, {}
+    for form, rt in runtimes.items():
+        state = rt.init_state()
+        got = {}
+        cohort_syncs[form] = host_syncs(lambda: got.update(
+            zip(("state", "pay"), rt.cohort(state, ids, batch, mask, 0.1))))
+        decode_syncs[form] = host_syncs(lambda: rt.decode(
+            got["state"], got["pay"]["sum"], got["pay"]["n_total"], 0.1))
+        del state, got
+    print(f"[overlap] host syncs in the decode half: {decode_syncs}; in "
+          f"the client half: {cohort_syncs}", flush=True)
+    if any(decode_syncs.values()):
+        fail(f"the decode half reads back to the host: {decode_syncs}")
+    del rt, runtimes, runs, mono, split
 
     gpt2 = {arm: [] for arm in GPT2_OVERLAP_ARMS}
     for arm in GPT2_OVERLAP_ARMS + GPT2_OVERLAP_ARMS[::-1]:
@@ -5584,6 +6050,7 @@ def phase_decode_overlap():
           + ", ".join(f"{a} {v[0][1]['temp_bytes'] / 2**30:.3f}"
                       for a, v in gpt2.items() if v[0][1]), flush=True)
     return launches_by, {"resnet9": medians, "gpt2": gpt2,
+                         "decode_running": running,
                          "decode_syncs": decode_syncs,
                          "cohort_syncs": cohort_syncs}
 
@@ -5595,9 +6062,9 @@ def phase_mesh1():
     (cuDNN deterministic): the replicated tail, the sharded tail and the
     sharded tail with the reduce in the decode (``--decode_overlap``),
     the sharded forms bitwise the replicated one, each against the
-    no-mesh round at the JAX mesh test's tolerance; 9 K1 a round, K2's
-    whole decode once a replicated round and its range form once a
-    sharded one. Returns {path: launches}."""
+    no-mesh round at the JAX mesh test's tolerance; 9 K1 and 1 cell sum a
+    round, K2's whole decode once a replicated round and its range form
+    once a sharded one. Returns {path: launches}."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -5663,6 +6130,19 @@ def phase_mesh1():
                         ledgers[arm] = entries
                 launches = dict(K.launches)
                 ranged = K.range_launches["circ_decode"]
+                if rt.cfg.decode_overlap:
+                    # the sharded tail's decode half: no host sync
+                    got = dict(zip(("state", "pay"), rt.cohort(
+                        st, ids, rounds[0], mask, 0.1)))
+                    syncs = host_syncs(lambda: rt.decode(
+                        got["state"], got["pay"]["sum"],
+                        got["pay"]["n_total"], 0.1))
+                    print(f"[mesh1] {arm}: host syncs in the decode half: "
+                          f"{syncs or 'none'}", flush=True)
+                    if syncs:
+                        fail(f"mesh1 {arm}: the decode half reads back to "
+                             f"the host: {syncs}")
+                    del got
                 if arm == "int8 sharded tail":
                     # --checkpoint_sharded: this rank's shards written and
                     # read back, and a round more from each, bitwise
@@ -5732,13 +6212,13 @@ def phase_mesh1():
     out = {}
     for arm, (_, _, launches, ranged, ms) in arms.items():
         sharded = "sharded" in arm
-        want = {"circ_encode": 9 * MESH1_ROUNDS,
-                "circ_decode": MESH1_ROUNDS}
+        want = sketch_launches(MESH1_ROUNDS)
         if launches != want or ranged != (MESH1_ROUNDS if sharded else 0):
             fail(f"mesh1 {arm}: launches {launches}, range form {ranged}")
         out[f"mesh1 {arm}"] = {"circ_encode": launches["circ_encode"],
                                "circ_decode": launches["circ_decode"]
-                               - ranged, "circ_decode_range": ranged}
+                               - ranged, "circ_decode_range": ranged,
+                               "cell_sum": launches["cell_sum"]}
     print(f"[mesh1] 1-rank NCCL mesh, {MESH1_ROUNDS} headline rounds: the "
           f"sharded tail and the reduce in the decode bitwise the "
           f"replicated tail; the int8 wire's split round bitwise its "
@@ -5880,8 +6360,8 @@ def phase_mesh_entry():
     a 1-rank NCCL mesh: ``cv_train`` at the headline with ``--mesh_shape 1
     --wire_dtype int8 --checkpoint_sharded --checkpoint_every 1
     --alert_action abort`` (one epoch, then ``--resume`` to the second,
-    bitwise the straight two-epoch run; 9 K1 and K2's range form a
-    round), and ``gpt2_train --test --mesh_axes clients,seq --mesh_shape
+    bitwise the straight two-epoch run; 9 K1, K2's range form and 1 cell
+    sum a round), and ``gpt2_train --test --mesh_axes clients,seq --mesh_shape
     1,1`` (a seq axis of one rank is none). Returns the launches."""
     import numpy as np
     from commefficient_torch import cv_train, gpt2_train
@@ -5915,7 +6395,8 @@ def phase_mesh_entry():
           and same_bits(w["resumed"], w["straight"])
           and launches["circ_encode"] == 9 * rounds
           and launches["circ_decode_range"] == rounds
-          and launches["circ_decode"] == rounds)
+          and launches["circ_decode"] == rounds
+          and launches["cell_sum"] == rounds)
     print(f"[mesh entry] cv_train --mesh_shape 1 --wire_dtype int8 "
           f"--checkpoint_sharded --alert_action abort: {rounds} rounds an "
           f"epoch, launches {launches}, the sharded generation {gens[0]}, "
@@ -5938,7 +6419,8 @@ def phase_mesh_entry():
                 "circ_encode": launches["circ_encode"],
                 "circ_decode": launches["circ_decode"]
                 - launches["circ_decode_range"],
-                "circ_decode_range": launches["circ_decode_range"]}}
+                "circ_decode_range": launches["circ_decode_range"],
+                "cell_sum": launches["cell_sum"]}}
 
 
 def start_multihost():
@@ -6001,6 +6483,18 @@ def run_slice18() -> tuple:
     time_done("the multi-host dryrun")
     return ring, {"scaling_curves n = 1 arms": scaling_launches,
                   **entry_launches}, scaling
+
+
+def run_slice19() -> tuple:
+    """K3's float32 and D = 16, 32, 128 routes against their plain
+    versions and through the port's GPT-2 paths (the cell sum is in
+    phase_sparse_encode, the decode half's host syncs in
+    phase_decode_overlap and phase_mesh1)."""
+    routes = phase_flash_routes()
+    time_done("K3's float32 and D = 16, 32, 128 routes")
+    route_paths, route_runs = phase_gpt2_routes()
+    time_done("K3's new routes on the port's GPT-2 paths")
+    return routes, route_paths, route_runs
 
 
 def run_slice17() -> tuple:
@@ -6086,6 +6580,16 @@ def main() -> int:
             phase_multihost()
             time_done("mesh (partial run: no result line)")
             return 0
+        if sys.argv[1:2] == ["--slice19"]:
+            # the cell sum, K3's new routes and the split round's decode
+            # half alone, after the build (no result line)
+            phase_build()
+            phase_sparse_encode()
+            run_slice19()
+            phase_decode_overlap()
+            phase_mesh1()
+            time_done("slice 19 (partial run: no result line)")
+            return 0
         if sys.argv[1:2] == ["--ring"]:
             # ring attention alone, after the build (no result line)
             phase_build()
@@ -6137,6 +6641,7 @@ def run_phases(t0: float) -> int:
     ring, scaling_launches, scaling = run_slice18()
     flash = phase_flash()
     done("K3")
+    routes, route_paths, route_runs = run_slice19()
     phase_small_reference()
     phase_gpt2_reference()
     zoo = phase_zoo_reference()
@@ -6166,8 +6671,9 @@ def run_phases(t0: float) -> int:
         ["--no_track_bytes"])
     gpt2_ckpt = phase_gpt2_checkpoint()
     done("GPT-2 main path, its state saved and loaded")
-    gpt2_arms = {arm: phase_gpt2_main(flags, GPT2_ARM_ROUNDS, encodes)
-                 for arm, (flags, encodes) in GPT2_ARMS.items()}
+    gpt2_arms = {arm: phase_gpt2_main(flags, GPT2_ARM_ROUNDS, encodes,
+                                      cells=cells)
+                 for arm, (flags, encodes, cells) in GPT2_ARMS.items()}
     gpt2_int8 = phase_gpt2_main(["--wire_dtype", "int8"], GPT2_ARM_ROUNDS,
                                 want_up=GPT2_INT8_BYTES)
     print(f"[gpt2] --wire_dtype int8: {GPT2_INT8_BYTES} bytes a client a "
@@ -6236,7 +6742,9 @@ def run_phases(t0: float) -> int:
           + ", GPT-2 "
           + ", ".join(f"{a} {[round(ms, 3) for ms, _ in v]}"
                       for a, v in overlap["gpt2"].items())
-          + f"; decode-half host syncs {overlap['decode_syncs']}",
+          + f"; decode-half host syncs {overlap['decode_syncs']}; share of "
+          f"split rounds whose decode still ran when wait_cohort returned "
+          f"{overlap['decode_running']}",
           flush=True)
     print(f"[imagenet] this slice's paths, round medians (ms): ImageNet "
           f"FixupResNet50 "
@@ -6271,9 +6779,12 @@ def run_phases(t0: float) -> int:
           + "; accounting's device time a round (count + record, ms): "
           + ", ".join(f"d={d} {kind}: {c:.4f} + {r:.4f}"
                       for (d, kind), (c, r) in accounting.items())
-          + "; sparse re-encode (ms; index_add_): "
-          + ", ".join(f"d={d}: {a:.4f} ({b:.4f})"
-                      for d, (a, b) in sparse.items())
+          + "; the cell sum (ms; plain loop, index_add_): "
+          + ", ".join(f"{at} {t['ms']:.4f} ({t['plain_ms']:.4f}, "
+                      f"{t['library_ms']:.4f})"
+                      for at, t in (("d=6568640", sparse["cell_sum"]),
+                                    ("d=92138496", sparse["cell_sum"][
+                                        "at_gpt2_shape"])))
           + f"; GPT-2 state checkpoint: saved {gpt2_ckpt[0]:.3f} s, loaded "
           f"{gpt2_ckpt[1]:.3f} s, {gpt2_ckpt[2] / 2**20:.1f} MiB"
           + "; the slice's paths, round medians (ms): "
@@ -6294,50 +6805,60 @@ def run_phases(t0: float) -> int:
 
     pallas_file = reference_file("ops/circulant_pallas.py")
     gpt2_file = reference_file("models/gpt2.py")
+
+    def sketch_paths(name: str) -> dict:
+        """{path: launches of the sketch kernel ``name``} over every run
+        of the main paths and the other paths that count it, each read
+        from that run's own counts."""
+        return {"cv_train": cv_launches[name],
+                "cv_train --no_track_bytes": cv_off[name],
+                **{f"cv_train --mode {m}": launches[name]
+                   for m, (launches, _) in modes.items()},
+                "cv_train planted NaN": nan_launches[name],
+                "cv_train CIFAR10 pickles, device store":
+                    real_launches[name],
+                "cv_train --resume": resumed_launches[name],
+                "gpt2_train": gpt2_rounds[name] + gpt2_val[name],
+                "gpt2_train --no_track_bytes": (gpt2_off[name]
+                                                + gpt2_off_val[name]),
+                **{f"cv_train {m}": launches[name]
+                   for m, (launches, _) in rules.items()},
+                **{f"gpt2_train {a}": r[name] + v[name]
+                   for a, (r, v) in gpt2_runs.items()},
+                "cv_train EMNIST ResNet101LN": femnist_launches[name],
+                "cv_train CIFAR100 FixupResNet50 true_topk":
+                    fixup_launches[name],
+                **{f"cv_train ImageNet FixupResNet50 {m}": launches[name]
+                   for m, launches in imagenet_launches.items()},
+                "compat FedModel ResNet9 sketch": compat_launches[name],
+                **{f"cv_train wire {a}": launches[name]
+                   for a, (launches, _, _) in wire.items()},
+                "gpt2_train --wire_dtype int8": (gpt2_int8[0][name]
+                                                 + gpt2_int8[1][name]),
+                **{f"FedRuntime StreamMLP {a}": launches[name]
+                   for a, (launches, _, _, _) in stream.items()},
+                **{f"cv_train services {a}": launches[name]
+                   for a, launches in services.items()},
+                **{path: launches[name]
+                   for path, launches in bench_launches.items()},
+                **{path: launches[name]
+                   for path, launches in crash_launches.items()},
+                **{f"curves {arm} seed {seed} (1 epoch)":
+                   rec["launches"][name]
+                   for (arm, seed), rec in curve_recs.items()},
+                **{path: launches[name]
+                   for path, launches in overlap_launches.items()},
+                **{path: launches[name]
+                   for path, launches in mesh_launches.items()},
+                **{path: launches[name]
+                   for path, launches in scaling_launches.items()},
+                **{path: launches[name]
+                   for path, launches in route_paths.items()
+                   if name in launches}}
+
     kernels = []
     for name, line in (("circ_encode", 144), ("circ_decode", 175)):
-        by_path = {"cv_train": cv_launches[name],
-                   "cv_train --no_track_bytes": cv_off[name],
-                   **{f"cv_train --mode {m}": launches[name]
-                      for m, (launches, _) in modes.items()},
-                   "cv_train planted NaN": nan_launches[name],
-                   "cv_train CIFAR10 pickles, device store":
-                       real_launches[name],
-                   "cv_train --resume": resumed_launches[name],
-                   "gpt2_train": gpt2_rounds[name] + gpt2_val[name],
-                   "gpt2_train --no_track_bytes": (gpt2_off[name]
-                                                   + gpt2_off_val[name]),
-                   **{f"cv_train {m}": launches[name]
-                      for m, (launches, _) in rules.items()},
-                   **{f"gpt2_train {a}": r[name] + v[name]
-                      for a, (r, v) in gpt2_runs.items()},
-                   "cv_train EMNIST ResNet101LN": femnist_launches[name],
-                   "cv_train CIFAR100 FixupResNet50 true_topk":
-                       fixup_launches[name],
-                   **{f"cv_train ImageNet FixupResNet50 {m}": launches[name]
-                      for m, launches in imagenet_launches.items()},
-                   "compat FedModel ResNet9 sketch": compat_launches[name],
-                   **{f"cv_train wire {a}": launches[name]
-                      for a, (launches, _, _) in wire.items()},
-                   "gpt2_train --wire_dtype int8": (gpt2_int8[0][name]
-                                                    + gpt2_int8[1][name]),
-                   **{f"FedRuntime StreamMLP {a}": launches[name]
-                      for a, (launches, _, _, _) in stream.items()},
-                   **{f"cv_train services {a}": launches[name]
-                      for a, launches in services.items()},
-                   **{path: launches[name]
-                      for path, launches in bench_launches.items()},
-                   **{path: launches[name]
-                      for path, launches in crash_launches.items()},
-                   **{f"curves {arm} seed {seed} (1 epoch)":
-                      rec["launches"][name]
-                      for (arm, seed), rec in curve_recs.items()},
-                   **{path: launches[name]
-                      for path, launches in overlap_launches.items()},
-                   **{path: launches[name]
-                      for path, launches in mesh_launches.items()},
-                   **{path: launches[name]
-                      for path, launches in scaling_launches.items()}}
+        by_path = sketch_paths(name)
         extra = {}
         if name == "circ_encode":
             extra = {"range_launches": stream["streaming_grad"][1],
@@ -6387,6 +6908,37 @@ def run_phases(t0: float) -> int:
             "replaces": f"{gpt2_file}:106 -> {LIBRARY_FLASH}:{line}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **flash[name], "resources": resources[name]})
+    for name, entry in routes.items():
+        by_path = {path: launches[name]
+                   for path, launches in route_paths.items()
+                   if launches.get(name)}
+        line = {"fwd": 589, "bwd_dq": 1287, "bwd_dkv": 941}[
+            name.split("_", 1)[1].rsplit("_", 2)[0]]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "commefficient_torch/csrc/flash_tiled.cu",
+            "replaces": f"{gpt2_file}:106 -> {LIBRARY_FLASH}:{line}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **entry})
+    # the sparse re-encode's ordered cell sum: no Pallas kernel computes
+    # it in the JAX package (XLA's segment_sum there)
+    by_path = sketch_paths("cell_sum")
+    kernels.append({
+        "name": "cell_sum", "route": "cuda",
+        "source": "commefficient_torch/csrc/cellsum.cu",
+        "replaces": "none (XLA's jax.ops.segment_sum, "
+                    f"{reference_file('ops/circulant.py')}:296)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        **sparse["cell_sum"]})
+    if any(not k["launches"] for k in kernels):
+        fail("kernels no path launched: "
+             + ", ".join(k["name"] for k in kernels if not k["launches"]))
+    print("[slice 19] K3's new routes (ms at S = 1024; bound, SDPA): "
+          + ", ".join(f"{n} {e['ms']:.4f} ({e['bound_ms']:.4f}, "
+                      f"{e['library_ms']:.4f})" for n, e in routes.items())
+          + "; the routes' GPT-2 paths (ms, peak GiB): "
+          + ", ".join(f"{p} {ms:.3f} / {peak / 2**30:.3f}"
+                      for p, (ms, peak) in route_runs.items()), flush=True)
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

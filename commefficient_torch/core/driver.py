@@ -513,8 +513,7 @@ def train(runtime: FedRuntime, state, train_ds, val_ds, schedule: Callable,
     if cfg.decode_overlap:
         overlap = DecodeOverlapRound(runtime)
         print("decode overlap: round split into cohort + decode halves "
-              "(the decode half still syncs the host, so nothing "
-              "overlaps yet)")
+              "(the server decode can run under round t+1's staging)")
     if svc is not None:
         fetch = svc.retrying(fetch)
     plan = runtime.adversary_plan if svc is not None else None

@@ -225,17 +225,19 @@ class DecodeOverlapRound:
     counterpart of the JAX package's ``core/pipeline.py
     DecodeOverlapRound``. ``round`` enqueues the client half
     (``FedRuntime.cohort``, the synchronous round's client code), records
-    a CUDA event on the current stream, and enqueues the server half
-    (``FedRuntime.decode``, its server tail), then returns; the driver
-    waits on that event (``wait_cohort``) and not on the decode, so that
-    the decode of round t could run on the card while the host stages
-    round t+1. It does not yet: what the decode half reads back to the
-    host ends the overlap there, and the sketch tail's sparse re-encode
-    reads its rank count (``ops/circulant.py ordered_cell_sum``) before
-    ``round`` returns, so ``wait_cohort`` finds the round done.
-    chip_smoke.py lists those reads. The rounds are bitwise
-    those of ``FedRuntime.round``: the port keys every draw by the round,
-    so splitting it changes no draw.
+    a CUDA event on the current stream (``cohort_done``), enqueues the
+    server half (``FedRuntime.decode``, its server tail) and records a
+    second event behind it (``decode_done``), then returns; the driver
+    waits on the first event (``wait_cohort``) and not on the decode, so
+    the decode of round t can run on the card while the host stages round
+    t+1. The decode half reads nothing back to the host: its sparse
+    re-encode's cell sums run in a kernel
+    (``ops/circulant_kernels.py cell_sum``), and chip_smoke.py fails on
+    any host sync it finds there (the client half's own reads stay, and
+    end the overlap at round t+1's cohort). ``decode_done.query()``
+    tells a caller whether the decode still ran when ``wait_cohort``
+    returned. The rounds are bitwise those of ``FedRuntime.round``: the
+    port keys every draw by the round, so splitting it changes no draw.
 
     The metrics follow ``FedRuntime.round``'s contract, with ``signals``
     and ``layer_signals`` None (the runtime prints the NOTE once)."""
@@ -247,7 +249,7 @@ class DecodeOverlapRound:
                 "cfg.decode_overlap=True (its cohort and decode halves "
                 "exist only then)")
         self.runtime = runtime
-        self.cohort_done = None
+        self.cohort_done = self.decode_done = None
 
     def init_state(self):
         """The runtime's: the adapter stands in for it in loops that build
@@ -266,6 +268,9 @@ class DecodeOverlapRound:
             self.cohort_done.record(torch.cuda.current_stream(rt.device))
         with tracing.span("decode_dispatch"):
             state = rt.decode(state, payload["sum"], payload["n_total"], lr)
+        if rt.device.type == "cuda":
+            self.decode_done = torch.cuda.Event()
+            self.decode_done.record(torch.cuda.current_stream(rt.device))
         metrics = {
             "results": payload["results"],
             "n_valid": payload["n_valid"],

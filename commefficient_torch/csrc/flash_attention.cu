@@ -1262,8 +1262,6 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-extern "C" int flash_head_dim() { return kHeadDim; }
-extern "C" int flash_tile() { return kTile; }
 // Dynamic shared memory of a launch of each kernel.
 extern "C" int flash_fwd_smem_bytes() { return (int)kFwdSmem; }
 extern "C" int flash_bwd_dq_smem_bytes() { return (int)kDqSmem; }

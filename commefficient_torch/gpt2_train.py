@@ -237,7 +237,8 @@ def load_pretrained(out_dir: str, device="cpu"):
 
 
 def kernel_launches() -> dict:
-    """Launch counts of every kernel of the slice (K1, K2, K3)."""
+    """Launch counts of every kernel of the slice (K1, K2, the cell sum and
+    each K3 route)."""
     return {**circulant_kernels.launches, **flash_attention.launches}
 
 

@@ -6,7 +6,8 @@ to m = ceil(d / c) blocks of length c; row j of the table is
 mixer (ops/hashing.py) and per-(row, block) cyclic shifts drawn once from
 the seed. The whole-vector and range encodes and the decode run the
 hand-written CUDA kernels K1 and K2 (ops/circulant_kernels.py) on the
-card; the O(k r) sparse encode and gather are plain PyTorch.
+card, and so does the O(k r) sparse encode's ordered cell sum
+(``ordered_cell_sum``); the O(k r) gather is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -177,29 +178,18 @@ def ordered_cell_sum(buckets: torch.Tensor, addends: torch.Tensor,
     t with ``buckets[j, t] == b``, in the order of t on every device, as
     the JAX package's ``segment_sum`` sums them on the CPU:
     ``index_add_``'s order on the card is not fixed, and the subtract
-    rule reads the sums. So the (row, bucket) cells are sorted stably,
-    each addend gets its rank among its cell's addends, and rank t is
-    added to all cells at once for t = 0, 1, ...: one write a cell a
-    rank, no two writes to a cell in one step. The number of ranks is
-    read back to the host (one sync)."""
+    rule and the zero rule's mask read the sums. The flat (row, bucket)
+    cells are sorted stably, and ``circulant_kernels.cell_sum`` folds
+    each run of equal cells in that order (its kernel on the card, which
+    reads nothing back to the host)."""
     r = buckets.shape[0]
     rows = torch.arange(r, device=buckets.device)[:, None]
-    cells = (buckets + rows * c).reshape(-1)
-    addends = addends.reshape(-1)
+    cells = (buckets.to(torch.int64) + rows * c).reshape(-1)
     sorted_cells, order = torch.sort(cells, stable=True)
-    # an addend's rank: its place in the sorted order less the place of
-    # its cell's first addend
-    pos = torch.arange(cells.numel(), device=cells.device)
-    rank = torch.empty_like(pos)
-    rank[order] = pos - torch.searchsorted(sorted_cells, sorted_cells)
-    table = torch.zeros(r * c + 1, dtype=torch.float32,
-                        device=addends.device)
-    spare = r * c                     # where the other ranks write
-    for t in range(int(rank.max()) + 1 if rank.numel() else 0):
-        now = rank == t
-        at = torch.where(now, cells, spare)
-        table[at] = table[at] + torch.where(now, addends, 0.0)
-    return table[:spare].view(r, c)
+    table = kernels.cell_sum(sorted_cells, order,
+                             addends.to(torch.float32).reshape(-1)
+                             .contiguous(), r * c)
+    return table.view(r, c)
 
 
 def make_circulant_sketch(d: int, c: int, r: int, seed: int = 42,

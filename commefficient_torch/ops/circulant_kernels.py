@@ -4,7 +4,9 @@ K1 ``encode`` replaces the JAX package's ``ops/circulant_pallas.py
 pallas_encode``; K2 ``decode`` replaces ``pallas_decode`` (its range form,
 a ``start``, decodes one rank's coordinates for the sharded server tail).
 The kernels are in ``csrc/circulant.cu`` (design and bounds in its header
-note).
+note). ``cell_sum``, the sparse re-encode's ordered sum of each table
+cell's addends, replaces no Pallas kernel (its counterpart is XLA's
+``segment_sum``); its kernel is in ``csrc/cellsum.cu``.
 
 Each wrapper takes the plain PyTorch version only for tensors that lie on
 the CPU. For a CUDA tensor it launches the kernel on the current stream or
@@ -28,17 +30,18 @@ from commefficient_torch.ops.hashing import MASK32, signs
 from commefficient_torch.ops.topk import median_axis0
 
 SOURCE = "circulant.cu"
+CELL_SUM_SOURCE = "cellsum.cu"
 
 # launches of each kernel since the last reset_launches(); the range
 # forms (a ``start``) are also counted apart
-launches = {"circ_encode": 0, "circ_decode": 0}
+launches = {"circ_encode": 0, "circ_decode": 0, "cell_sum": 0}
 range_launches = {"circ_encode": 0, "circ_decode": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
-        range_launches[name] = 0
+    for counts in (launches, range_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -245,3 +248,70 @@ def decode(table: torch.Tensor, shifts: torch.Tensor, keys: torch.Tensor,
         launches["circ_decode"] += 1
         range_launches["circ_decode"] += ranged
     return out
+
+
+# ------------------------------------------------------------ cell sum
+
+
+def _cell_sum_lib() -> ctypes.CDLL:
+    lib = _build.load(CELL_SUM_SOURCE)
+    if not getattr(lib, "_typed", False):
+        p = ctypes.c_void_p
+        lib.cell_sum.argtypes = [p, p, p, ctypes.c_longlong, p, p]
+        lib.cell_sum.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def cell_sum_plain(sorted_cells: torch.Tensor, order: torch.Tensor,
+                   addends: torch.Tensor, size: int) -> torch.Tensor:
+    """Plain version of the cell sum: each addend gets its rank among its
+    cell's addends (its place in the sorted order less the place of its
+    cell's first addend), and rank t is added to all cells at once for
+    t = 0, 1, ...: one write a cell a rank, no two writes to a cell in one
+    step, each ``table[at] + addend`` from a +0.0 table. The number of
+    ranks is read back to the host."""
+    n = sorted_cells.numel()
+    pos = torch.arange(n, device=sorted_cells.device)
+    rank = torch.empty_like(pos)
+    rank[order] = pos - torch.searchsorted(sorted_cells, sorted_cells)
+    cells = torch.empty_like(sorted_cells)
+    cells[order] = sorted_cells
+    table = torch.zeros(size + 1, dtype=torch.float32,
+                        device=addends.device)
+    for t in range(int(rank.max()) + 1 if n else 0):
+        now = rank == t
+        at = torch.where(now, cells, size)     # the other ranks: a spare
+        table[at] = table[at] + torch.where(now, addends, 0.0)
+    return table[:size]
+
+
+def cell_sum(sorted_cells: torch.Tensor, order: torch.Tensor,
+             addends: torch.Tensor, size: int) -> torch.Tensor:
+    """The (size,) float32 table whose cell x sums the float32
+    ``addends[t]`` of the t with cell x, in the order of t: the stable
+    sort of the flat cells (``sorted_cells``, int64 in [0, size), and its
+    ``order``) gives each run of equal cells in that order, and the
+    kernel folds each run from +0.0 into its cell. No value is read back
+    to the host on the card."""
+    n = sorted_cells.numel()
+    if addends.shape != (n,) or order.shape != (n,):
+        raise ValueError(f"cell_sum: {n} cells, {tuple(order.shape)} order, "
+                         f"{tuple(addends.shape)} addends")
+    if addends.device.type == "cpu":
+        return cell_sum_plain(sorted_cells, order,
+                              addends.to(torch.float32), size)
+    if addends.device.type != "cuda":
+        raise ValueError(f"cell_sum: no kernel for device {addends.device}")
+    dev = addends.device
+    _check("sorted_cells", sorted_cells, torch.int64, (n,), dev)
+    _check("order", order, torch.int64, (n,), dev)
+    _check("addends", addends, torch.float32, (n,), dev)
+    table = torch.zeros(size, dtype=torch.float32, device=dev)
+    err = _cell_sum_lib().cell_sum(
+        sorted_cells.data_ptr(), order.data_ptr(), addends.data_ptr(), n,
+        table.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on("cell_sum", err)
+    if n:
+        launches["cell_sum"] += 1
+    return table

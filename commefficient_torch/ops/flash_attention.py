@@ -1,27 +1,36 @@
 """Causal flash attention (K3): wrappers of the CUDA kernels, their plain
-versions, and the ``torch.autograd.Function`` that binds them.
+versions, the route table that picks a kernel by (dtype, D), and the
+``torch.autograd.Function`` that binds them.
 
 K3 replaces the library Pallas TPU kernel that the JAX package's
 ``models/gpt2.py flash_causal_attention`` calls: ``forward`` its forward
 (``_flash_attention_impl``), ``backward`` its two backward kernels
-(``_flash_attention_bwd_dq`` and ``_flash_attention_bwd_dkv``). The
-kernels are in ``csrc/flash_attention.cu`` (design and bounds in its
-header note).
+(``_flash_attention_bwd_dq`` and ``_flash_attention_bwd_dkv``). Two
+libraries hold the kernels (design and bounds in their header notes):
+``csrc/flash_attention.cu``, warp-specialised wgmma kernels fed by TMA, for
+bf16 at head width D = 64 (GPT-2's width); ``csrc/flash_tiled.cu``, simple
+tiled kernels, for float32 at D = 16, 32, 64 and 128 (FFMA, float32 sums)
+and bf16 at D = 16, 32 and 128 (``mma.sync``). ``route`` is the table;
+each kernel's C entry point bears the name ``launches`` counts it under,
+and all three of a kind take the same arguments.
 
 Tensors are (N, S, H, D): N sequences, S positions, H heads, head width D,
 the layout of the c_attn output's slices, which the kernels read through
 their strides. The scale is 1/sqrt(D) and the mask causal.
 
 Each wrapper takes the plain PyTorch version only for tensors that lie on
-the CPU. For a CUDA tensor it launches the kernels on the current stream
-or raises: the kernels take bf16 with D = 64 and S a multiple of 64, and
-nothing falls back. ``launches`` counts, per kernel, the times a wrapper
-launched it.
+the CPU. For a CUDA tensor it launches the route's kernels on the current
+stream or raises: a form outside the table (another dtype, D not in
+``HEAD_DIMS``) or S not a multiple of ``TILE`` raises by name, and nothing
+falls back. ``launches`` counts, per kernel of each route (the route's own
+names: ``flash_fwd`` for bf16 at D = 64, ``flash_fwd_f32_d64``,
+``flash_fwd_bf16_d16`` ...), the times a wrapper launched it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Tuple
 
@@ -29,10 +38,51 @@ import torch
 
 from commefficient_torch.ops import _build
 
-SOURCE = "flash_attention.cu"
+SOURCE = "flash_attention.cu"           # bf16 at D = 64: wgmma and TMA
+TILED_SOURCE = "flash_tiled.cu"         # every other form of the table
+HEAD_DIMS = (16, 32, 64, 128)
+TILE = 64                               # S must be a multiple of this
+# the dtypes the kernels take, by their names in the route names
+DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
-# launches of each kernel since the last reset_launches()
-launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """The kernels of one (dtype, D) form: their library and their names,
+    which are both their C entry points and what ``launches`` counts."""
+
+    source: str
+    fwd: str
+    dq: str
+    dkv: str
+
+    @property
+    def names(self) -> Tuple[str, str, str]:
+        return (self.fwd, self.dq, self.dkv)
+
+
+def route(dtype: torch.dtype, D: int) -> Route:
+    """The route of K3 on the card for operands of ``dtype`` and head
+    width ``D``: bf16 at D = 64 runs ``flash_attention.cu``, float32 at
+    every D of ``HEAD_DIMS`` and bf16 at the others run
+    ``flash_tiled.cu``. Any other form raises, naming it."""
+    if dtype not in DTYPES:
+        raise ValueError(f"flash attention: no kernel for dtype {dtype} "
+                         f"(the kernels take {', '.join(map(str, DTYPES))})")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash attention: no kernel for head width D = {D} "
+                         f"(the kernels take D in {HEAD_DIMS})")
+    if dtype == torch.bfloat16 and D == 64:
+        return Route(SOURCE, "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    tag = DTYPES[dtype]
+    return Route(TILED_SOURCE, f"flash_fwd_{tag}_d{D}",
+                 f"flash_bwd_dq_{tag}_d{D}", f"flash_bwd_dkv_{tag}_d{D}")
+
+
+ROUTES = {(dt, D): route(dt, D) for dt in DTYPES for D in HEAD_DIMS}
+
+# launches of each kernel of each route since the last reset_launches()
+launches = {name: 0 for r in ROUTES.values() for name in r.names}
 
 
 def reset_launches() -> None:
@@ -40,23 +90,24 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
-    if not getattr(lib, "_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p, f, p]
-        lib.flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p,
-                                     f, p]
-        lib.flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p,
-                                      f, p]
-        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
-            fn.restype = i
-        for fn in (lib.flash_head_dim, lib.flash_tile,
-                   lib.flash_fwd_smem_bytes, lib.flash_bwd_dq_smem_bytes,
+def _lib(source: str = SOURCE) -> ctypes.CDLL:
+    """The library ``source``, its entry points typed on first load."""
+    lib = _build.load(source)
+    if getattr(lib, "_typed", False):
+        return lib
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fwd = [p, p, p, p, p, i, i, i, i, p, f, p]
+    bwd = [p, p, p, p, p, p, p, p, i, i, i, i, p, f, p]
+    for r in ROUTES.values():
+        if r.source == source:
+            for name, args in zip(r.names, (fwd, bwd, bwd)):
+                getattr(lib, name).argtypes = args
+                getattr(lib, name).restype = i
+    if source == SOURCE:
+        for fn in (lib.flash_fwd_smem_bytes, lib.flash_bwd_dq_smem_bytes,
                    lib.flash_bwd_dkv_smem_bytes):
-            fn.restype = i
-            fn.argtypes = []
-        lib._typed = True
+            fn.argtypes, fn.restype = [], i
+    lib._typed = True
     return lib
 
 
@@ -64,35 +115,40 @@ def _scale(d: int) -> float:
     return 1.0 / math.sqrt(d)
 
 
-def _check_cuda(name: str, ts, shape) -> None:
-    """The kernels' contract for (N, S, H, D) operands on the card."""
+def _check_cuda(name: str, ts, shape) -> Route:
+    """The kernels' contract for (N, S, H, D) operands on the card; returns
+    the route of their form."""
     if ts[0].device.type != "cuda":
         raise ValueError(f"{name}: a kernel runs on the card only, got "
                          f"{ts[0].device}")
-    lib = _lib()
     N, S, H, D = shape
-    if D != lib.flash_head_dim():
-        raise ValueError(f"{name}: the kernels take head width D = "
-                         f"{lib.flash_head_dim()}, got D = {D}")
-    if S % lib.flash_tile():
+    r = route(ts[0].dtype, D)
+    if S % TILE:
         raise ValueError(f"{name}: the kernels take S a multiple of "
-                         f"{lib.flash_tile()}, got S = {S}")
+                         f"{TILE}, got S = {S}")
     for t in ts:
-        if t.dtype != torch.bfloat16:
-            raise ValueError(
-                f"{name}: the kernels take bfloat16, got {t.dtype} (float32 "
-                "compute with K3 on the card, --compute_dtype float32, is "
-                "not ported)")
-        if tuple(t.shape) != tuple(shape) or t.device != ts[0].device:
-            raise ValueError(f"{name}: operands of shape {tuple(t.shape)} on "
-                             f"{t.device}, want {tuple(shape)} on "
-                             f"{ts[0].device}")
+        if t.dtype != ts[0].dtype or tuple(t.shape) != tuple(shape) \
+                or t.device != ts[0].device:
+            raise ValueError(f"{name}: operands of {t.dtype} {tuple(t.shape)}"
+                             f" on {t.device}, want {ts[0].dtype} "
+                             f"{tuple(shape)} on {ts[0].device}")
         if t.stride(3) != 1 or t.data_ptr() % 16 or any(
                 s % 8 for s in t.stride()[:3]):
             raise ValueError(
                 f"{name}: each (N, S, H, D) operand needs a contiguous last "
                 "dimension, 16-byte aligned rows and strides that are "
                 f"multiples of 8 elements; got strides {t.stride()}")
+    return r
+
+
+def _check_stat(name: str, stat: str, t: torch.Tensor, shape, device
+                ) -> None:
+    if t.dtype != torch.float32 or tuple(t.shape) != shape \
+            or not t.is_contiguous() or t.device != device \
+            or t.data_ptr() % 16:
+        raise ValueError(f"{name}: {stat} must be contiguous, 16-byte "
+                         f"aligned float32 {shape} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _strides(*ts) -> ctypes.Array:
@@ -160,20 +216,21 @@ def backward_plain(q, k, v, o, lse, do
 def forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 forward: ``(o, lse)`` for (N, S, H, D) q, k, v; o is a
-    contiguous (N, S, H, D) tensor, lse float32 (N, H, S)."""
+    contiguous (N, S, H, D) tensor in q's dtype, lse float32 (N, H, S)."""
     if q.device.type == "cpu":
         return forward_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention: no kernel for device {q.device}")
     N, S, H, D = q.shape
-    _check_cuda("flash_fwd", (q, k, v), (N, S, H, D))
+    r = _check_cuda(f"flash attention forward ({q.dtype}, D = {D})",
+                    (q, k, v), (N, S, H, D))
     o = torch.empty((N, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((N, H, S), dtype=torch.float32, device=q.device)
-    err = _lib().flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           o.data_ptr(), lse.data_ptr(), N, S, H, D,
-                           _strides(q, k, v, o), _scale(D), _stream(q))
-    _raise_on("flash_fwd", err)
-    launches["flash_fwd"] += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), N, S, H, D, _strides(q, k, v, o), _scale(D),
+            _stream(q))
+    _raise_on(r.fwd, getattr(_lib(r.source), r.fwd)(*args))
+    launches[r.fwd] += 1
     return o, lse
 
 
@@ -183,22 +240,16 @@ def backward_dq(q, k, v, o, lse, do
     (N, S, H, D) tensor and delta = rowsum(dO o), float32 (N, H, S), which
     the kernel computes for its rows and ``backward_dkv`` reads."""
     N, S, H, D = q.shape
-    _check_cuda("flash_bwd_dq", (q, k, v, o, do), (N, S, H, D))
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (N, H, S) \
-            or not lse.is_contiguous() or lse.device != q.device \
-            or lse.data_ptr() % 16:
-        raise ValueError(f"flash_bwd_dq: lse must be contiguous, 16-byte "
-                         f"aligned float32 {(N, H, S)} on {q.device}, got "
-                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    name = f"flash attention dq ({q.dtype}, D = {D})"
+    r = _check_cuda(name, (q, k, v, o, do), (N, S, H, D))
+    _check_stat(name, "lse", lse, (N, H, S), q.device)
     dq = torch.empty((N, S, H, D), dtype=q.dtype, device=q.device)
     delta = torch.empty((N, H, S), dtype=torch.float32, device=q.device)
-    err = _lib().flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                              delta.data_ptr(), dq.data_ptr(), N, S, H, D,
-                              _strides(q, k, v, o, do, dq), _scale(D),
-                              _stream(q))
-    _raise_on("flash_bwd_dq", err)
-    launches["flash_bwd_dq"] += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            N, S, H, D, _strides(q, k, v, o, do, dq), _scale(D), _stream(q))
+    _raise_on(r.dq, getattr(_lib(r.source), r.dq)(*args))
+    launches[r.dq] += 1
     return dq, delta
 
 
@@ -207,24 +258,17 @@ def backward_dkv(q, k, v, do, lse, delta
     """The dk/dv kernel (card only): ``(dk, dv)``, contiguous (N, S, H,
     D), from the delta that ``backward_dq`` wrote."""
     N, S, H, D = q.shape
-    _check_cuda("flash_bwd_dkv", (q, k, v, do), (N, S, H, D))
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (N, H, S) \
-                or not t.is_contiguous() or t.device != q.device \
-                or t.data_ptr() % 16:
-            raise ValueError(f"flash_bwd_dkv: {name} must be contiguous, "
-                             f"16-byte aligned float32 {(N, H, S)} on "
-                             f"{q.device}")
+    name = f"flash attention dk/dv ({q.dtype}, D = {D})"
+    r = _check_cuda(name, (q, k, v, do), (N, S, H, D))
+    _check_stat(name, "lse", lse, (N, H, S), q.device)
+    _check_stat(name, "delta", delta, (N, H, S), q.device)
     dk, dv = (torch.empty((N, S, H, D), dtype=q.dtype, device=q.device)
               for _ in range(2))
-    err = _lib().flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               do.data_ptr(), lse.data_ptr(),
-                               delta.data_ptr(), dk.data_ptr(),
-                               dv.data_ptr(), N, S, H, D,
-                               _strides(q, k, v, do, dk, dv), _scale(D),
-                               _stream(q))
-    _raise_on("flash_bwd_dkv", err)
-    launches["flash_bwd_dkv"] += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            N, S, H, D, _strides(q, k, v, do, dk, dv), _scale(D), _stream(q))
+    _raise_on(r.dkv, getattr(_lib(r.source), r.dkv)(*args))
+    launches[r.dkv] += 1
     return dk, dv
 
 

@@ -12,7 +12,8 @@ working set stays O(r d / num_blocks); its order of addition on the card
 is not fixed, so a table agrees with the JAX package's to float32
 rounding. The decode is a gather and the median over the rows, bitwise.
 No Pallas kernel computes any of this in the JAX package: here it is
-plain PyTorch on the card.
+plain PyTorch on the card, apart from the sparse re-encode's ordered cell
+sum (``ops/circulant.py ordered_cell_sum``), which runs a kernel.
 """
 
 from __future__ import annotations

@@ -49,7 +49,8 @@ def wire_uniform(r: int, c: int, *, seed: int, round_idx: int, salt: int,
     h = mix32(base ^ seed_mix)
     rs = ((int(round_idx) & MASK32) * 0x85EBCA77
           + (int(salt) & MASK32) * 0xC2B2AE3D) & MASK32
-    rs = mix32(torch.tensor(rs, dtype=torch.int64, device=device))
+    # filled on the device: a host tensor's copy would sync the host
+    rs = mix32(torch.full((), rs, dtype=torch.int64, device=device))
     h = mix32((h + rs) & MASK32)
     return (h >> 8).to(torch.float32) * (2.0 ** -24)
 

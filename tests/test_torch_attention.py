@@ -40,12 +40,19 @@ def ref():
     return jax, jax.numpy, jgpt2
 
 
-SHAPES = [(2, 128, 2, 16), (1, 256, 3, 32), (2, 128, 1, 64)]
+SHAPES = [(2, 128, 2, 16), (1, 256, 3, 32), (2, 128, 1, 64), (1, 128, 1, 128)]
 
 
 def _inputs(N, S, H, D, seed=0):
     rng = np.random.RandomState(seed)
     return [rng.randn(N, S, H, D).astype(np.float32) for _ in range(4)]
+
+
+# bf16 gradients against the JAX package's bf16 backward: the largest
+# error read on the CPU at D = 16 and 128 was 0.29% to 0.62% of each
+# gradient's largest element (about one bf16 ulp there, 2^-8 = 0.39%):
+# four ulps
+BF16_GRAD_RTOL = 4 * 2.0 ** -8
 
 
 def _ulps(ref: np.ndarray, n: int) -> float:
@@ -102,6 +109,68 @@ def test_gradients_match_jax_grad(ref, N, S, H, D):
         want = np.asarray(want)
         np.testing.assert_allclose(t.grad.numpy(), want, rtol=1e-4,
                                    atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("N,S,H,D", [SHAPES[3]])
+def test_gradients_track_jax_grad_bf16(ref, N, S, H, D):
+    """bf16 q, k, v, dO: dq, dk, dv through the autograd.Function (plain
+    backward, float32 inside, outputs rounded to bf16) against jax.grad of
+    the JAX package's bf16 ``dense_causal_attention``, each gradient
+    within BF16_GRAD_RTOL of its largest element (the JAX function rounds
+    the scores, the probabilities and every product of its backward to
+    bf16; the plain version rounds only its outputs)."""
+    jax, jnp, jgpt2 = ref
+    q, k, v, do = (t.astype(np.float32) for t in _inputs(N, S, H, D, seed=5))
+    jb = [jnp.asarray(t, jnp.bfloat16) for t in (q, k, v, do)]
+
+    def objective(q, k, v):
+        o = jgpt2.dense_causal_attention(q, k, v)
+        return (o.astype(jnp.float32) * jb[3].astype(jnp.float32)).sum()
+
+    refs = jax.grad(objective, argnums=(0, 1, 2))(*jb[:3])
+    ts = [torch.from_numpy(t).bfloat16().requires_grad_(True)
+          for t in (q, k, v)]
+    o = flash.flash_attention(*ts)
+    o.backward(torch.from_numpy(do).bfloat16())
+    for t, want in zip(ts, refs):
+        want = np.asarray(want).astype(np.float32)
+        assert t.grad.dtype == torch.bfloat16
+        err = np.abs(t.grad.float().numpy() - want).max()
+        assert err <= BF16_GRAD_RTOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype,D,names", [
+    (torch.bfloat16, 64, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+    *[(torch.bfloat16, D, tuple(f"flash_{k}_bf16_d{D}"
+                                for k in ("fwd", "bwd_dq", "bwd_dkv")))
+      for D in (16, 32, 128)],
+    *[(torch.float32, D, tuple(f"flash_{k}_f32_d{D}"
+                               for k in ("fwd", "bwd_dq", "bwd_dkv")))
+      for D in (16, 32, 64, 128)]])
+def test_route_table_names_each_form(dtype, D, names):
+    """Each (dtype, D) the card takes maps to its kernels and the names
+    ``launches`` counts them under: bf16 at D = 64 to flash_attention.cu,
+    every other form to flash_tiled.cu (``GPT2Config.small``'s D = 16
+    among them)."""
+    r = flash.route(dtype, D)
+    assert r.names == names
+    assert r.source == ("flash_attention.cu"
+                        if (dtype, D) == (torch.bfloat16, 64)
+                        else "flash_tiled.cu")
+    assert set(names) <= set(flash.launches)
+
+
+@pytest.mark.parametrize("dtype,D,match", [
+    (torch.float16, 64, "dtype torch.float16"),
+    (torch.float64, 32, "dtype torch.float64"),
+    (torch.bfloat16, 8, "head width D = 8"),
+    (torch.float32, 96, "head width D = 96"),
+    (torch.bfloat16, 256, "head width D = 256")])
+def test_route_table_refuses_other_forms_by_name(dtype, D, match):
+    """A form outside the table raises, naming it (no fallback to SDPA,
+    dense attention or the plain version on the card)."""
+    with pytest.raises(ValueError, match=match):
+        flash.route(dtype, D)
 
 
 @pytest.mark.parametrize("N,S,H,D", SHAPES[:2])
@@ -164,8 +233,8 @@ def test_function_on_card_matches_plain(cuda, S):
     o = flash.flash_attention(q, k, v)
     o.backward(do)
     torch.cuda.synchronize()
-    assert flash.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
-                              "flash_bwd_dkv": 1}
+    assert chip_smoke.nonzero(flash.launches) == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     qp, kp, vp = (t.detach() for t in (q, k, v))
     o_ref, lse = flash.forward_plain(qp, kp, vp)
     assert float(chip_smoke.row_errors(o.detach(), o_ref).max()) <= \
@@ -175,3 +244,37 @@ def test_function_on_card_matches_plain(cuda, S):
     for j, want in enumerate(grads):
         assert float(chip_smoke.row_errors(got[:, :, j], want).max()) <= \
             chip_smoke.FLASH_ROW_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(dt, D) for dt, D in flash.ROUTES
+                                     if flash.ROUTES[dt, D].source
+                                     == flash.TILED_SOURCE])
+def test_tiled_routes_on_card_match_plain(cuda, dtype, D):
+    """Each route of flash_tiled.cu through the autograd.Function at S =
+    192 (a partial last 128-row block of the JAX rule's tiles, three of
+    the kernels' 64) on q, k, v slices of one c_attn-shaped buffer: one
+    launch of each of the route's kernels and no other, and o, dq, dk, dv
+    against the plain versions (``chip_smoke.flash_route_errors``'s
+    limits: bf16 each row within FLASH_ROW_RTOL of its norm, float32
+    within FLASH_F32_RTOL of the largest value)."""
+    import chip_smoke
+    N, S, H = 2, 192, 2
+    rng = np.random.RandomState(D)
+    qkv = torch.from_numpy(rng.randn(N, S, 3 * H * D).astype(
+        np.float32)).to(cuda, dtype).requires_grad_()
+    do = torch.from_numpy(rng.randn(N, S, H, D).astype(np.float32)).to(
+        cuda, dtype)
+    flash.reset_launches()
+    q, k, v = (t.unflatten(-1, (H, D)) for t in qkv.split(H * D, dim=-1))
+    o = flash.flash_attention(q, k, v)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert chip_smoke.nonzero(flash.launches) == dict.fromkeys(
+        flash.route(dtype, D).names, 1)
+    qp, kp, vp = (t.detach() for t in (q, k, v))
+    got = dict(zip(("dq", "dk", "dv"),
+                   qkv.grad.unflatten(-1, (3, H, D)).unbind(2)))
+    got["o"] = o.detach()
+    errs, ok = chip_smoke.flash_route_errors(qp, kp, vp, do, got)
+    assert ok, errs

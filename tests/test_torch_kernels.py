@@ -51,7 +51,8 @@ def test_wrappers_take_plain_version_on_cpu_without_launching():
                                                  table=t0))
     assert torch.equal(ts.decode(table),
                        kernels.decode_plain(table, *args, D))
-    assert kernels.launches == {"circ_encode": 0, "circ_decode": 0}
+    assert kernels.launches == {"circ_encode": 0, "circ_decode": 0,
+                                "cell_sum": 0}
     with pytest.raises(ValueError, match="not ceil"):
         kernels.encode(v, ts.shifts, ts.sign_keys, 4000, 5, ts.m + 1)
 
@@ -97,7 +98,8 @@ def test_kernels_match_plain_on_card(cuda, c, r):
     got_acc = kernels.encode(v, *args, scale=3.0, table=t0.clone())
     dec = kernels.decode(t0, *args, D)
     torch.cuda.synchronize()
-    assert kernels.launches == {"circ_encode": 2, "circ_decode": 1}
+    assert kernels.launches == {"circ_encode": 2, "circ_decode": 1,
+                                "cell_sum": 0}
     assert chip_smoke.same_bits(got, kernels.encode_plain(v, *args))
     assert chip_smoke.same_bits(got_acc, kernels.encode_plain(
         v, *args, scale=3.0, table=t0))
@@ -553,8 +555,9 @@ def test_flash_wrappers_take_plain_version_on_cpu_without_launching():
     grads = flash.backward_plain(q, k, v, o_ref, lse, do)
     for got, want in zip((qg.grad, kg.grad, vg.grad), grads):
         assert torch.equal(got, want)
-    assert flash.launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                              "flash_bwd_dkv": 0}
+    assert set(flash.launches) >= {"flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "flash_fwd_f32_d16"}
+    assert not any(flash.launches.values())
 
 
 # (N, S, H): S = 64 and 192 end in a partial 128-row tile of the forward
@@ -577,8 +580,8 @@ def test_flash_kernels_match_plain_on_card(cuda, N, S, H):
     o, lse = flash.forward(q, k, v)
     dq, dk, dv = flash.backward(q, k, v, o, lse, do)
     torch.cuda.synchronize()
-    assert flash.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
-                              "flash_bwd_dkv": 1}
+    assert chip_smoke.nonzero(flash.launches) == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     o_ref, lse_ref = flash.forward_plain(q, k, v)
     assert float((lse - lse_ref).abs().max()) <= chip_smoke.FLASH_LSE_ATOL
     assert _worst_row_error(o, o_ref) <= chip_smoke.FLASH_ROW_RTOL
@@ -625,10 +628,57 @@ def test_flash_dkv_matches_plain_from_the_delta_dq_wrote(cuda, S):
 
 @pytest.mark.cuda
 def test_flash_wrappers_reject_bad_inputs(cuda):
+    """A form outside the route table raises by name, and nothing falls
+    back; float32 and D = 32, once refused, run their own routes."""
     q, k, v, _ = _qkv(1, 128, 2, device=cuda)
-    with pytest.raises(ValueError, match="compute_dtype float32"):
-        flash.forward(q.float(), k.float(), v.float())
-    with pytest.raises(ValueError, match="head width"):
-        flash.forward(*(t[..., :32] for t in (q, k, v)))
+    with pytest.raises(ValueError, match="dtype torch.float16"):
+        flash.forward(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head width D = 8"):
+        flash.forward(*(t[..., :8] for t in (q, k, v)))
     with pytest.raises(ValueError, match="multiple of 64"):
         flash.forward(*(t[:, :100] for t in (q, k, v)))
+    flash.reset_launches()
+    flash.forward(q.float(), k.float(), v.float())
+    flash.forward(*(t[..., :32] for t in (q, k, v)))
+    assert chip_smoke.nonzero(flash.launches) == {"flash_fwd_f32_d64": 1,
+                                                  "flash_fwd_bf16_d32": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "tie_heavy", "one_cell"])
+def test_cell_sum_on_card_is_the_plain_version(cuda, kind):
+    """The ordered cell sum's kernel against its plain version on the CPU,
+    by int32 views with NaN by position (``chip_smoke.same_bits``): k =
+    5,000 random coordinates, ``chip_smoke.tie_heavy_sparse`` (cancelling
+    pairs, -0.0 first, inf, NaN), and every addend of a row in one cell;
+    one launch a call, two calls the same bits, no host sync."""
+    from commefficient_torch.ops.circulant import ordered_cell_sum
+    c, r, k = 4000, 5, 5000
+    ts = make_circulant_sketch(D, c, r, device=cuda)
+    cpu = make_circulant_sketch(D, c, r, device="cpu")
+    rng = np.random.RandomState(11)
+    if kind == "one_cell":
+        buckets = torch.zeros((r, k), dtype=torch.int64)
+        addends = torch.from_numpy(rng.randn(r, k).astype(np.float32))
+        want = ordered_cell_sum(buckets, addends, c)
+        gb, ga = buckets.to(cuda), addends.to(cuda)
+        run = lambda: ordered_cell_sum(gb, ga, c)
+    else:
+        if kind == "random":
+            idx = rng.permutation(D)[:k]
+            vals = rng.randn(k).astype(np.float32)
+        else:
+            idx, vals = chip_smoke.tie_heavy_sparse(D, k, seed=3)
+        idx, vals = torch.from_numpy(idx), torch.from_numpy(vals)
+        want = cpu.encode_vals_at(vals, idx)
+        gv, gi = vals.to(cuda), idx.to(cuda)
+        run = lambda: ts.encode_vals_at(gv, gi)
+    kernels.reset_launches()
+    got = run()
+    assert chip_smoke.host_syncs(run) == []
+    again = run()
+    torch.cuda.synchronize()
+    assert kernels.launches == {"circ_encode": 0, "circ_decode": 0,
+                                "cell_sum": 3}
+    assert chip_smoke.same_bits(got.cpu(), want)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))

@@ -27,12 +27,13 @@ from commefficient_tpu.ops import sketch as jsketch  # noqa: E402
 # commefficient_tpu.ops re-exports a function named topk over the module
 jtopk = importlib.import_module("commefficient_tpu.ops.topk")
 
-from chip_smoke import zeroed_table  # noqa: E402
+from chip_smoke import tie_heavy_sparse, zeroed_table  # noqa: E402
 from commefficient_torch import config as tconfig  # noqa: E402
 from commefficient_torch.data import fed_cifar as tcifar  # noqa: E402
 from commefficient_torch.data import fed_sampler as tsampler  # noqa: E402
 from commefficient_torch.data import transforms as ttransforms  # noqa: E402
 from commefficient_torch.ops import circulant as tcirc  # noqa: E402
+from commefficient_torch.ops import circulant_kernels as kernels  # noqa
 from commefficient_torch.ops import hashing, topk as ttopk  # noqa: E402
 
 D, R = 20_000, 5
@@ -338,6 +339,32 @@ def test_encode_vals_at_sums_in_reference_order(c, k):
         for b, x in zip(buckets, signed):
             loop[j, b] = np.float32(loop[j, b] + x)
     assert np.array_equal(_bits(got), _bits(loop))
+
+
+@pytest.mark.parametrize("c,k,one,specials", [(64, 300, 32, True),
+                                               (997, 300, 32, False),
+                                               (997, 300, 300, False)])
+def test_encode_vals_at_tie_heavy_bitwise(c, k, one, specials):
+    """The ordered cell sum on inputs whose sums hang on their order
+    (``chip_smoke.tie_heavy_sparse``): ``one`` addends on one cell of each
+    row (all k of them in the last case), pairs that cancel to exactly 0
+    (the zero rule's mask), -0.0 first, inf and NaN: the bits of the
+    reference's ``segment_sum``, on the CPU without a launch."""
+    js, ts = _pair(c)
+    if one == k:
+        rng = np.random.RandomState(c)
+        idx = np.full(k, rng.randint(D), np.int64)
+        vals = rng.randn(k).astype(np.float32)
+        vals[0] = -0.0
+    else:
+        idx, vals = tie_heavy_sparse(D, k, seed=c, specials=specials,
+                                     one=one)
+    kernels.reset_launches()
+    got = ts.encode_vals_at(torch.from_numpy(vals), torch.from_numpy(idx))
+    assert kernels.launches["cell_sum"] == 0
+    ref = js.encode_vals_at(jnp.asarray(vals), jnp.asarray(idx))
+    assert np.array_equal(_bits(got), _bits(ref))
+    assert np.isnan(_np(got)).any() == specials
 
 
 @pytest.mark.parametrize("r", [1, 2, 4, 5])

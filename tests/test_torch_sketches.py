@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import zeroed_table  # noqa: E402
+from chip_smoke import tie_heavy_sparse, zeroed_table  # noqa: E402
 from commefficient_tpu.ops import rht as jrht  # noqa: E402
 from commefficient_tpu.ops import sketch as jsketch  # noqa: E402
 from commefficient_tpu.ops.pytree import ravel_params as j_ravel  # noqa
@@ -119,6 +119,17 @@ def test_hash_encode_vals_at_matches_reference_bitwise():
     assert np.array_equal(
         _bits(ts.encode_at(torch.from_numpy(dense), torch.from_numpy(idx))),
         _bits(want))
+
+
+def test_hash_encode_vals_at_tie_heavy_bitwise():
+    """The hash sketch's re-encode on ``chip_smoke.tie_heavy_sparse``
+    inputs (32 addends on one cell a row, cancelling pairs, -0.0 first,
+    inf and NaN): the reference's bits."""
+    js, ts = _pair(c=101)
+    idx, vals = tie_heavy_sparse(D, 600, seed=7, one=32)
+    want = js.encode_vals_at(jnp.asarray(vals), jnp.asarray(idx))
+    got = ts.encode_vals_at(torch.from_numpy(vals), torch.from_numpy(idx))
+    assert np.array_equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("c,r", [(3001, 5), (4096, 4), (777, 3)])
