@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    the SASS block that holds the most sign hashes, beside what a term
    needs (SIGN_HASH, K1's index step, K2's share of its median network
    MEDIAN_NETS); K2 must call no subroutine and issue fewer than
-   K2_BUBBLE_SASS_PER_TERM a term;
+   K2_BUBBLE_SASS_PER_TERM a term; print the registers, spills, HMMA
+   mnemonics and most issued opcodes of ``flash_tiled.cu``'s float32
+   backward kernels (``phase_tiled_sass``, TF32_BWD_KERNELS): each
+   kernel's SASS must hold HMMA on TF32 operands;
 2. hold K1 (circulant encode) and K2 (circulant decode) against their
    plain PyTorch versions on the card at the ResNet-9 shapes
    (d = 6,568,640, c = 500,736, r = 5; seeded inputs; shifts from
@@ -77,7 +80,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    autograd function's backward (on autograd's own thread, the process's
    first backward) gives the direct calls' bits; time
    the kernels, the plain versions and ``scaled_dot_product_attention``
-   (forward, backward and both) beside each kernel's bound;
+   (forward, backward and both) beside each kernel's bound; then every
+   route of ``flash_tiled.cu`` (``phase_flash_routes``: float32 at D =
+   16, 32, 64, 128, bf16 at 16, 32, 128) against its plain version at
+   (8, 1024 and 256, 768 / D, D), two calls bitwise, each kernel timed
+   beside its bound (float32 at the 3xTF32 rate, the FFMA rate's bound
+   printed beside it) and SDPA, whose float32 kernels are named
+   (``sdpa_kernels``), and the routes' GPT-2 paths
+   (``phase_gpt2_routes``). ``python3 chip_smoke.py --slice19`` runs
+   the build, these and the split round's decode half alone,
+   ``--slice20`` the build, ``phase_tiled_sass`` and these alone (no
+   result line);
 4. small-input checks: three rounds of a narrow ResNet-9 on the card
    (float32, TF32 off) against the same rounds on the CPU, whose wrappers
    take the plain versions, on the float32 and on the int8 wire; a narrow GPT-2 (2 layers, width 128, 2 heads
@@ -340,6 +353,11 @@ import time
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_PER_S = 67e12         # FP32 outside the tensor cores
 H100_BF16_PER_S = 989e12        # dense bf16 tensor cores
+H100_TF32_PER_S = 495e12        # dense TF32 tensor cores
+# the operations a bound names, by the peak they are held to; a float32
+# product in 3xTF32 is three TF32 products, so those bounds count 3 x FLOPs
+PEAK_KINDS = {H100_FP32_PER_S: "fp32", H100_BF16_PER_S: "bf16",
+              H100_TF32_PER_S: "3xTF32"}
 H100_SMS = 132
 # the clock that gives the data sheet's 67 TFLOP/s float32 (128 lanes an
 # SM, 2 operations an FMA): 67e12 / (132 x 256) = 1.98 GHz
@@ -464,6 +482,14 @@ FLASH_TILE = 64
 # kernels built from wgmma fed by TMA: their SASS must hold both
 HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 HOPPER_SASS = ("HGMMA", "UTMALDG")
+# flash_tiled.cu's float32 backward kernels, each by its C entry point and
+# its instantiation's mangled mark: 3xTF32 products on the tensor cores,
+# so their SASS must hold HMMA on TF32 operands
+TF32_BWD_KERNELS = {
+    **{f"flash_bwd_dq_f32_d{D}": f"dq_f32_kernelILi{D}E"
+       for D in (16, 32, 64, 128)},
+    **{f"flash_bwd_dkv_f32_d{D}": f"dkv_f32_kernelILi{D}E"
+       for D in (16, 32, 64, 128)}}
 # K3 against its plain version, each (n, s, h) row of D held against its
 # own size: |got - ref| <= 1.5e-2 |ref| (+ 1e-3 of the mean row norm, for
 # rows near 0) for o, dq, dk and dv. The kernels round p and ds to bf16 as
@@ -473,8 +499,18 @@ HOPPER_SASS = ("HGMMA", "UTMALDG")
 FLASH_ROW_RTOL = 1.5e-2
 FLASH_LSE_ATOL = 1e-4
 # K3's float32 routes against their plain version: the largest difference
-# of o, lse, dq, dk and dv within 2e-5 of that output's largest magnitude
-# (both sum in float32, in different orders; no TF32 on either side)
+# of o, lse, dq, dk and dv within 2e-5 of that output's largest magnitude.
+# The forward sums FFMA products in float32; the backward kernels run
+# 3xTF32 products (about 21 bits an operand) on the tensor cores, summed
+# there from zero a stage at a time, then in float32; the plain version is
+# float32 with TF32 off. tests/test_torch_attention.py holds the limit to
+# emulated products: 3xTF32 summed in float32 within an eighth of it
+# (3.8e-7 to 1.4e-6 on the CPU) and summed as a model of the tensor cores
+# (truncating, stage by stage) within a third (9.5e-7 to 4.5e-6), single
+# TF32 products each more than ten times over (2.6e-4 to 1.1e-3), a
+# skipped tile far over. Read on an H100 80GB HBM3: 2.0e-7 to 4.3e-6, the
+# same to two digits with exp2f as with ex2.approx in the backward: the
+# truncating sums, not the exp, set the backward's error
 FLASH_F32_RTOL = 2e-5
 # narrow GPT-2, card against CPU (phase_gpt2_reference): largest relative
 # L2 error of a c_attn q/k/v gradient block, largest relative loss
@@ -535,10 +571,15 @@ def reference_file(name: str) -> str:
     return hits[0] if hits else name
 
 
+# the compiler's output of each source compiled by phase_build
+BUILD_LOGS = {}
+
+
 def phase_build():
     from commefficient_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
+    BUILD_LOGS.update(logs)
     dt = time.perf_counter() - t0
     for source, log in logs.items():
         lines = [ln for ln in log.splitlines()
@@ -656,17 +697,91 @@ def phase_sass():
     return out
 
 
+def ptxas_spills(log: str) -> dict:
+    """{mangled function: (stack frame, spill store, spill load bytes)}
+    from ``nvcc -Xptxas -v`` output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            name = line.split("Function properties for ", 1)[1].strip()
+        elif name is not None and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[name] = tuple(nums[:3])
+            name = None
+    return out
+
+
+def phase_tiled_sass():
+    """The float32 backward kernels of ``flash_tiled.cu`` (every D of
+    TF32_BWD_KERNELS) in the built library: registers and stack frame
+    (``cuobjdump -res-usage``), spill bytes (the build's ptxas output,
+    when this run compiled it), the HMMA mnemonics and the most issued
+    opcodes of their SASS. Fails if a kernel's SASS holds no HMMA on TF32
+    operands."""
+    from commefficient_torch.ops import flash_attention as FA
+
+    def kernel_of(line):
+        return next((name for name, mark in TF32_BWD_KERNELS.items()
+                     if mark in line), None)
+
+    ops = {name: {} for name in TF32_BWD_KERNELS}
+    name = None
+    for line in cuobjdump("-sass", FA.TILED_SOURCE):
+        if "Function :" in line:
+            name = kernel_of(line)
+        elif name is not None and "/*" in line and ";" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                ops[name][words[0]] = ops[name].get(words[0], 0) + 1
+    res = {}
+    for line in cuobjdump("-res-usage", FA.TILED_SOURCE):
+        if "Function " in line:
+            name = kernel_of(line)
+        elif name is not None and "REG:" in line:
+            res[name] = dict(f.split(":", 1) for f in line.split()
+                             if ":" in f)
+    spills = {}
+    for mangled, nums in ptxas_spills(
+            BUILD_LOGS.get(FA.TILED_SOURCE, "")).items():
+        hit = kernel_of(mangled)
+        if hit is not None:
+            spills[hit] = nums
+    out, lacking = {}, []
+    for name, count in ops.items():
+        hmma = {op: n for op, n in count.items() if op.startswith("HMMA")}
+        top = sorted(count.items(), key=lambda kv: -kv[1])[:10]
+        use = res.get(name, {})
+        sp = spills.get(name)
+        print(f"[sass] {name}: {use.get('REG')} registers, stack frame "
+              f"{use.get('STACK')} B, local {use.get('LOCAL')} B; ptxas "
+              + (f"{sp[1]} B spill stores, {sp[2]} B spill loads"
+                 if sp else "spills not in this run's build log")
+              + f"; HMMA {hmma}; most issued (static): {top}", flush=True)
+        if not any("TF32" in op for op in hmma):
+            lacking.append(name)
+        out[name] = {"registers": int(use.get("REG", -1)),
+                     "stack_bytes": int(use.get("STACK", -1)),
+                     "spill_store_bytes": sp[1] if sp else None,
+                     "hmma": hmma, "instructions": sum(count.values())}
+    if lacking:
+        fail(f"float32 backward kernels without TF32 HMMA in SASS: "
+             f"{lacking}")
+    return out
+
+
 def bound(nbytes: float, ops: float, peak: float, instr=None):
     """(least ms, what bounds it) on an H100 SXM: the largest of
-    ``nbytes`` over 3.35 TB/s ("bytes"), ``ops`` over ``peak`` ("fp32
-    operations" or "bf16 operations") and, given ``instr`` (instruction
-    counts by pipe: "alu", "imad", "either" of the two, "other"), the
-    ALU's and the IMAD pipe's own instructions over their lanes ("ALU
-    issue", "IMAD issue") and all of them over the SM's issue rate
-    ("instruction issue")."""
+    ``nbytes`` over 3.35 TB/s ("bytes"), ``ops`` over ``peak`` ("fp32",
+    "bf16" or "3xTF32 operations", PEAK_KINDS) and, given ``instr``
+    (instruction counts by pipe: "alu", "imad", "either" of the two,
+    "other"), the ALU's and the IMAD pipe's own instructions over their
+    lanes ("ALU issue", "IMAD issue") and all of them over the SM's issue
+    rate ("instruction issue")."""
     times = {"bytes": nbytes / H100_BYTES_PER_S,
-             ("fp32" if peak == H100_FP32_PER_S else "bf16")
-             + " operations": ops / peak}
+             PEAK_KINDS[peak] + " operations": ops / peak}
     if instr:
         per_lane = H100_SMS * H100_CLOCK_HZ
         times["ALU issue"] = instr["alu"] / (LANES["alu"] * per_lane)
@@ -675,6 +790,24 @@ def bound(nbytes: float, ops: float, peak: float, instr=None):
                                       / (LANES["issue"] * per_lane))
     kind = max(times, key=times.get)
     return 1e3 * times[kind], kind
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """float32 matrix products and convolutions in full float32 on the card
+    (TF32 off) while open, and the caller's two settings restored after:
+    a phase that needs float32 must not leave TF32 on for the phases after
+    it (PyTorch's default is off for matrix products)."""
+    import torch
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def bound_by(kind: str) -> str:
@@ -1392,6 +1525,30 @@ def flash_route_errors(q, k, v, do, got):
     return errs, ok
 
 
+def sdpa_kernels(D, sdpa, o_s, leaves, dot):
+    """Print the CUDA kernels that one float32 SDPA forward and one
+    backward ran (``torch.profiler``): what the float32 routes are timed
+    against."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for part, fn in (("forward", lambda: sdpa().detach()),
+                     ("backward", lambda: torch.autograd.grad(
+                         o_s, leaves, dot, retain_graph=True))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names[part] = sorted({e.name for e in prof.events()
+                              if e.device_type == DeviceType.CUDA})
+    print(f"[flash float32 D={D}] SDPA's kernels: forward "
+          f"{[n[:110] for n in names['forward']]}, backward "
+          f"{[n[:110] for n in names['backward']]}", flush=True)
+    return names
+
+
 def phase_flash_routes():
     """Every route of ``flash_tiled.cu`` (float32 at D = 16, 32, 64 and
     128; bf16 at D = 16, 32 and 128) at (8, 1024, 768 / D, D) and (8, 256,
@@ -1468,15 +1625,30 @@ def phase_flash_routes():
                   + f"; plain fwd {plain_fwd:.4f} ms, bwd {plain_bwd:.4f} "
                   f"ms; SDPA fwd {sdpa_fwd:.4f} ms, bwd {sdpa_bwd:.4f} ms",
                   flush=True)
+            if S == 1024 and f32:
+                sdpa_kernels(D, sdpa, o_s, (qt, kt, vt), dot)
             for name in r.names:
                 nbytes, flops = bounds[name]
-                b_ms, kind = bound(nbytes, flops, H100_FP32_PER_S if f32
-                                   else H100_BF16_PER_S)
+                # float32: the products at the 3xTF32 rate, the rate the
+                # tensor cores give float32-level products at (the FFMA
+                # rate's bound printed beside it)
+                b_ms, kind = (bound(nbytes, 3 * flops, H100_TF32_PER_S)
+                              if f32 else
+                              bound(nbytes, flops, H100_BF16_PER_S))
                 entry = {"max_abs_err": err[name], "ms": ms[name],
                          "plain_ms": plain[name], "bound_ms": b_ms,
                          "bound_by": bound_by(kind),
                          "library_ms": library[name],
                          "tflops": flops / ms[name] / 1e9}
+                ffma_ms = (bound(nbytes, flops, H100_FP32_PER_S)[0]
+                           if f32 else None)
+                print(f"[flash {dtype} D={D}] {shape} {name}: bound "
+                      f"{b_ms:.4f} ms ({kind})"
+                      + (f", at the FFMA rate {ffma_ms:.4f} ms" if f32
+                         else "")
+                      + f"; kernel {ms[name]:.4f} ms = "
+                      f"{100 * b_ms / ms[name]:.1f}% of the bound, SDPA "
+                      f"{library[name]:.4f} ms", flush=True)
                 if S == 1024:
                     out[name] = {**entry, "shape": list(shape),
                                  "at_shapes": {}}
@@ -1500,41 +1672,43 @@ def phase_small_reference():
     from commefficient_torch.losses import make_cv_loss
     from commefficient_torch.models.resnet9 import ResNet9
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    ch = {"prep": 8, "layer1": 16, "layer2": 16, "layer3": 32}
-    for wire in ("float32", "int8"):
-        cfg = FedConfig(mode="sketch", error_type="virtual",
-                        local_momentum=0.0, virtual_momentum=0.9,
-                        weight_decay=5e-4, k=200, num_rows=5,
-                        num_cols=4096, num_workers=2, local_batch_size=8,
-                        compute_dtype="float32", wire_dtype=wire)
-        runs = {}
-        for device in ("cpu", "cuda"):
-            model = ResNet9(channels=ch,
-                            generator=torch.Generator().manual_seed(0))
-            rt = FedRuntime(cfg, model, make_cv_loss(model, "float32"),
-                            device=device)
-            st = rt.init_state()
-            rng = np.random.RandomState(0)
-            losses = []
-            for rnd in range(3):
-                batch = {"image": rng.randn(2, 8, 32, 32, 3).astype(
-                    np.float32), "target": rng.randint(0, 10, (2, 8))}
-                st, met = rt.round(st, np.arange(2), batch,
-                                   np.ones((2, 8), bool), 0.1 * (rnd + 1))
-                losses.append(met["results"][0].cpu().numpy())
-            runs[device] = (np.stack(losses), st.ps_weights.cpu().numpy())
-        (l_cpu, w_cpu), (l_gpu, w_gpu) = runs["cpu"], runs["cuda"]
-        dl = float(np.abs(l_gpu - l_cpu).max())
-        dw = float(np.abs(w_gpu - w_cpu).max())
-        print(f"[reference] narrow ResNet-9, {wire} wire, 3 rounds, card vs "
-              f"CPU: max|dloss| {dl:.3e}, max|dw| {dw:.3e}", flush=True)
-        if not np.allclose(l_gpu, l_cpu, rtol=1e-4, atol=0) or dw > 1e-5:
-            fail(f"the card's rounds on the {wire} wire disagree with the "
-                 "CPU's plain rounds")
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
+    with no_tf32():
+        ch = {"prep": 8, "layer1": 16, "layer2": 16, "layer3": 32}
+        for wire in ("float32", "int8"):
+            cfg = FedConfig(mode="sketch", error_type="virtual",
+                            local_momentum=0.0, virtual_momentum=0.9,
+                            weight_decay=5e-4, k=200, num_rows=5,
+                            num_cols=4096, num_workers=2,
+                            local_batch_size=8, compute_dtype="float32",
+                            wire_dtype=wire)
+            runs = {}
+            for device in ("cpu", "cuda"):
+                model = ResNet9(channels=ch,
+                                generator=torch.Generator().manual_seed(0))
+                rt = FedRuntime(cfg, model, make_cv_loss(model, "float32"),
+                                device=device)
+                st = rt.init_state()
+                rng = np.random.RandomState(0)
+                losses = []
+                for rnd in range(3):
+                    batch = {"image": rng.randn(2, 8, 32, 32, 3).astype(
+                        np.float32), "target": rng.randint(0, 10, (2, 8))}
+                    st, met = rt.round(st, np.arange(2), batch,
+                                       np.ones((2, 8), bool),
+                                       0.1 * (rnd + 1))
+                    losses.append(met["results"][0].cpu().numpy())
+                runs[device] = (np.stack(losses),
+                                st.ps_weights.cpu().numpy())
+            (l_cpu, w_cpu), (l_gpu, w_gpu) = runs["cpu"], runs["cuda"]
+            dl = float(np.abs(l_gpu - l_cpu).max())
+            dw = float(np.abs(w_gpu - w_cpu).max())
+            print(f"[reference] narrow ResNet-9, {wire} wire, 3 rounds, "
+                  f"card vs CPU: max|dloss| {dl:.3e}, max|dw| {dw:.3e}",
+                  flush=True)
+            if not np.allclose(l_gpu, l_cpu, rtol=1e-4, atol=0) \
+                    or dw > 1e-5:
+                fail(f"the card's rounds on the {wire} wire disagree with "
+                     "the CPU's plain rounds")
 
 
 def narrow_gpt2_batch(rng, W, B, C, S, vocab):
@@ -3249,10 +3423,8 @@ def phase_zoo_reference():
                     virtual_momentum=0.9, weight_decay=5e-4, k=200,
                     num_rows=5, num_cols=4096, num_workers=2,
                     local_batch_size=4, compute_dtype="float32")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    try:
+    with no_tf32():
         for name, make, shape, classes in zoo_families():
             rng = np.random.RandomState(0)
             batch = {"image": rng.randn(2, 4, *shape).astype(np.float32),
@@ -3291,9 +3463,6 @@ def phase_zoo_reference():
                 fail(f"{name}: the card's round disagrees with the CPU's "
                      f"(dloss {dl}, dupdate {du}, swaps {swaps})")
             out[name] = (dl, du, swaps)
-    finally:
-        torch.backends.cudnn.allow_tf32 = True
-        torch.backends.cuda.matmul.allow_tf32 = True
     return out
 
 
@@ -4433,9 +4602,7 @@ def robust_reference_round(flags_kw: dict):
     mask = np.ones((8, 8), bool)
     mask[1, 5:] = False
     runs = {}
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32():
         for device in ("cpu", "cuda"):
             model = ResNet9(num_classes=10,
                             generator=torch.Generator().manual_seed(0))
@@ -4449,9 +4616,6 @@ def robust_reference_round(flags_kw: dict):
                             None if met["client_finite"] is None
                             else met["client_finite"].cpu().numpy())
             del rt, st, met
-    finally:
-        torch.backends.cudnn.allow_tf32 = True
-        torch.backends.cuda.matmul.allow_tf32 = True
     (l_cpu, u_cpu, d_cpu, f_cpu), (l_gpu, u_gpu, d_gpu, f_gpu) = \
         runs["cpu"], runs["cuda"]
     fin = np.isfinite(l_cpu)
@@ -4937,15 +5101,13 @@ def phase_telemetry():
     time_done("the stream's readers (check_telemetry_schema, teleview)")
 
     # round 1's signals, card against CPU
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     ch = {"prep": 8, "layer1": 16, "layer2": 16, "layer3": 32}
     cfg = FedConfig(mode="sketch", error_type="virtual", local_momentum=0.0,
                     virtual_momentum=0.9, weight_decay=5e-4, k=200,
                     num_rows=5, num_cols=4096, num_workers=2,
                     local_batch_size=8, compute_dtype="float32")
     got = {}
-    try:
+    with no_tf32():
         for device in ("cpu", "cuda"):
             model = ResNet9(channels=ch,
                             generator=torch.Generator().manual_seed(0))
@@ -4960,9 +5122,6 @@ def phase_telemetry():
                               0.1)
             got[device] = tree_to_host({k: met[k] for k in (
                 "signals", "layer_signals", "client_stats")})
-    finally:
-        torch.backends.cudnn.allow_tf32 = True
-        torch.backends.cuda.matmul.allow_tf32 = True
     worst = 0.0
 
     def near(a, b, what):
@@ -6590,6 +6749,15 @@ def main() -> int:
             phase_mesh1()
             time_done("slice 19 (partial run: no result line)")
             return 0
+        if sys.argv[1:2] == ["--slice20"]:
+            # K3's float32 backward on the TF32 tensor cores: the build,
+            # its SASS, every tiled route against its plain version and
+            # SDPA, and the routes' GPT-2 paths (no result line)
+            phase_build()
+            phase_tiled_sass()
+            run_slice19()
+            time_done("slice 20 (partial run: no result line)")
+            return 0
         if sys.argv[1:2] == ["--ring"]:
             # ring attention alone, after the build (no result line)
             phase_build()
@@ -6618,6 +6786,7 @@ def run_phases(t0: float) -> int:
 
     phase_build()
     resources = phase_sass()
+    resources.update(phase_tiled_sass())
     sketch_sass = phase_sketch_sass()
     done("build")
     # scale: a client's datum count, as the fused step passes it
@@ -6919,7 +7088,8 @@ def run_phases(t0: float) -> int:
             "source": "commefficient_torch/csrc/flash_tiled.cu",
             "replaces": f"{gpt2_file}:106 -> {LIBRARY_FLASH}:{line}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            **entry})
+            **entry, **({"resources": resources[name]}
+                        if name in resources else {})})
     # the sparse re-encode's ordered cell sum: no Pallas kernel computes
     # it in the JAX package (XLA's segment_sum there)
     by_path = sketch_paths("cell_sum")

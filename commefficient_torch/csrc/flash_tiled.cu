@@ -15,23 +15,53 @@
 // operands are (N, S, H, D) tensors given by a base pointer and three
 // element strides (sequence, position, head), last dimension contiguous.
 //
-// Design: simple tiled kernels, right first. A CTA owns one work item, a
-// 64-row tile of queries (forward, dq) or keys (dk/dv) of one head of one
-// sequence, and walks the other side's 64-row tiles in a loop: the keys
-// up to the diagonal, or the queries from it. Heaviest items come first in
-// the grid. Tiles are copied into shared memory by all threads (no TMA, no
-// pipelining), with rows padded so that reads hit distinct banks; the
-// diagonal tile alone is masked. No atomics anywhere, so two calls give
-// the same bits.
-//   float32: every product in float32 FFMA with float32 sums (no TF32:
-//   the port's float32 matmuls run at "highest" precision, and TF32 keeps
-//   about three digits). 256 threads; thread (rg, cg) of a 16 x 16 grid
-//   owns rows 4 rg .. 4 rg + 3 of the item and the columns cg + 16 j of
-//   a 64-wide score tile (4) and of a D-wide output (D / 16): a score is
-//   a dot product over D from shared memory, a row's softmax statistics
-//   reduce over the 16 lanes of its row group, and p (or ds) goes through
-//   shared memory into the products with v, k, dO or q. Softmax in the
-//   log2 domain with exp2f (no fast math).
+// Design: tiled kernels. A CTA owns one work item, a 64-row tile of
+// queries (forward, dq) or keys (dk/dv) of one head of one sequence, and
+// walks the other side's 64-row tiles in a loop: the keys up to the
+// diagonal, or the queries from it. Heaviest items come first in the
+// grid. Tiles are copied into shared memory by all threads (no TMA), with
+// rows padded so that reads hit distinct banks; the diagonal tile alone
+// is masked. No atomics anywhere, so two calls give the same bits.
+//   float32 forward: every product in float32 FFMA with float32 sums. 256
+//   threads; thread (rg, cg) of a 16 x 16 grid owns rows 4 rg .. 4 rg + 3
+//   of the item and the columns cg + 16 j of a 64-wide score tile (4) and
+//   of a D-wide output (D / 16): a score is a dot product over D from
+//   shared memory, a row's softmax statistics reduce over the 16 lanes of
+//   its row group, and p goes through shared memory into the product with
+//   v. Softmax in the log2 domain with exp2f (no fast math).
+//   float32 backward (dq, dk/dv): mma.sync.m16n8k8 on the TF32 tensor cores
+//   with a 3xTF32 split, 128 threads, each warp 16 rows of the item. An
+//   operand x is split into hi = tf32(x) and lo = tf32(x - hi) (rounded to
+//   nearest, ties away, by an add and a mask), and a product is a_lo b_hi +
+//   a_hi b_lo + a_hi b_hi (lo lo, 2^-22 of it, is left out): about 21 bits of
+//   each operand, where one TF32 product keeps 11 and misses the float32 check
+//   more than ten times over (tests/test_torch_attention.py emulates both).
+//   Each of the three terms runs over several independent accumulators in
+//   turn, so that two MMAs on one accumulator are never back to back: with one
+//   or two warps a scheduler, that is what hides the MMAs' latency. The tile
+//   that every warp reads as the B operand (K, V in dq; q, dO in dk/dv) is
+//   split once where it is staged, into a hi and a lo plane; a warp's own rows
+//   (the A operand) stay float32 and are split as they are read, except K and
+//   V at D = 128, where dk/dv stages 32 queries at a time and so has room for
+//   their planes. p and ds go from the C fragment of s (row g, columns 2 tig,
+//   2 tig + 1 of each 8-column n-tile) into the A fragment of the next product
+//   (columns tig, tig + 4) as they lie: the k-step is reordered to match, and
+//   B's rows are read in that order, so no shuffle. The tensor cores truncate
+//   their sums, so each 16 x 8 output tile of dq += ds k, dv += p^T dO and dk
+//   += ds^T q sums one stage (up to 64 keys or queries) from zero and is added
+//   to its accumulator in float32: a sum over S kept on the tensor cores
+//   drifted to 1.8e-5 of the largest dk at S = 1024, against 4.3e-6 at most
+//   this way. What is left comes from those truncating sums, not from the
+//   split: summed in float32, 3xTF32 products read at most 1.4e-6 of the
+//   largest value, and a model of the tensor cores' sums, stage by stage
+//   as here, 9.5e-7 to 4.5e-6 (tests/test_torch_attention.py, S = 256).
+//   p = exp2f(s log2(e) / sqrt(D) - lse log2(e)). Rows are D + 4 floats: every fragment read (row g or 2 tig,
+//   column tig or g) hits 32 distinct banks. The dq kernel loads the next K
+//   and V tile into registers while it computes (D <= 64). dk and dv at D =
+//   128 take their queries in stages of 32 to keep their accumulators (D
+//   floats a thread) in registers. Why mma.sync and not wgmma: wgmma takes
+//   TF32 operands only K-major, so ds k and ds^T q would need transposed
+//   copies of ds, k and q in shared memory.
 //   bf16: mma.sync.m16n8k16 (bf16 in, float32 accumulate) fed by
 //   ldmatrix, 128 threads, each warp 16 rows of the item. p and ds round
 //   to bf16 only as product operands, as in flash_attention.cu; the
@@ -41,30 +71,36 @@
 //   Why not templates of flash_attention.cu's wgmma/TMA design: its tile
 //   shapes, 128-byte swizzle and register split are laid out around D =
 //   64, the one width GPT-2's configurations use at full size; the other
-//   widths run only in small configurations and tests, where a simple
-//   kernel that is right is enough (a faster design is later work).
+//   widths run in small configurations, in tests and in float32 runs
+//   (`--compute_dtype float32`, D = 64).
 //
 // Bound on an H100 SXM: the products' FLOPs (2 D a causal (query, key)
-// pair and product: forward 2 products, dq 3, dk/dv 4) over 67 TFLOP/s
-// in float32 or 989 in bf16, against the bytes of the operands and
-// outputs over 3.35 TB/s. At (8, 1024, 12, 64) in float32: forward 12.9
-// GFLOP, 0.19 ms; dq 19.4 GFLOP, 0.29 ms; dk/dv 25.8 GFLOP, 0.39 ms.
-// These kernels issue a shared-memory load for every few FFMAs, so they
-// are held well below that. Measured on an NVIDIA H100 80GB HBM3 at a
-// 700 W limit (chip_smoke.py, (8, 1024, 768 / D, D), ms forward / dq /
-// dk-dv): float32 D = 64 0.629 / 0.822 / 1.031 (SDPA forward 0.501),
-// D = 16 0.788 / 1.104 / 1.490, D = 32 0.609 / 0.891 / 1.158, D = 128
-// 0.587 / 1.112 / 1.363; bf16 D = 16 0.149 / 0.197 / 0.216 (SDPA forward
-// 0.154), D = 32 0.128 / 0.179 / 0.206 (0.083), D = 128 0.083 / 0.117 /
-// 0.161 (0.041; the bf16 bound is 0.015 ms by bytes). ptxas (sm_90a):
-// 64 to 196 registers, no spills but 8 bytes in three instantiations and
-// 28 in the bf16 dk/dv kernel at D = 128 (255 registers).
+// pair and product: forward 2 products, dq 3, dk/dv 4) over 989 TFLOP/s
+// in bf16 or, in float32, 3 x FLOPs over 495 TFLOP/s (the TF32 tensor
+// cores in 3xTF32), against the bytes of the operands and outputs over
+// 3.35 TB/s. At (8, 1024, 12, 64) in float32: forward 12.9 GFLOP, dq
+// 19.4, dk/dv 25.8: 0.078 / 0.117 / 0.156 ms (at the FFMA rate, 67
+// TFLOP/s: 0.19 / 0.29 / 0.39). Measured on an NVIDIA H100 80GB HBM3 at
+// a 700 W limit (chip_smoke.py --slice20, (8, 1024, 768 / D, D), ms
+// forward / dq / dk-dv): float32 D = 16 0.787 / 0.428 / 0.529 (SDPA
+// backward 3.57), D = 32 0.605 / 0.361 / 0.475 (1.94), D = 64 0.626 /
+// 0.378 / 0.461 (1.21; forward 0.500), D = 128 0.591 / 0.464 / 0.705
+// (1.23); the backward 22-34% of its bound. The pair beats SDPA's
+// float32 backward (itself 3xTF32 mma.sync: PyTorch's memory-efficient
+// kernel) at every D; at D = 128 the K, V and 32-query stages fill 203 KB
+// of shared memory, one CTA of 4 warps an SM, whose stage loads nothing
+// hides. bf16 D = 16
+// 0.149 / 0.197 / 0.216 (SDPA forward 0.154), D = 32 0.128 / 0.179 /
+// 0.206 (0.083), D = 128 0.083 / 0.117 / 0.161 (0.041; the bf16 bound is
+// 0.015 ms by bytes). ptxas (sm_90a): the float32 backward kernels 156
+// to 255 registers, 32 bytes spilled in dk/dv at D = 128; bf16 64 to
+// 196, 28 bytes spilled in dk/dv at D = 128.
 //
-// Interface: plain C, loaded with ctypes. dtype 0 is float32, 1 bf16.
-// Each function launches on the given stream and returns
-// cudaGetLastError() (0 on success), cudaErrorInvalidValue for a form or
-// shape it does not take (the forms above; S a multiple of 64), or the
-// error of raising the kernel's shared-memory limit.
+// Interface: plain C, loaded with ctypes. Each function launches on the
+// given stream and returns cudaGetLastError() (0 on success),
+// cudaErrorInvalidValue for a form or shape it does not take (the forms
+// above; S a multiple of 64), or the error of raising the kernel's
+// shared-memory limit.
 
 #include <cmath>
 #include <cstdint>
@@ -111,7 +147,7 @@ __device__ __forceinline__ T* at_row(T* p, Strides st, int n, int h,
 }
 
 // ------------------------------------------------------------------------
-// float32: FFMA on a 16 x 16 thread grid, 256 threads.
+// float32 forward: FFMA on a 16 x 16 thread grid, 256 threads.
 
 constexpr int kF32Threads = 256;
 
@@ -124,9 +160,6 @@ struct F32 {
   static constexpr int kCols = D / 16;        // output columns a thread
   static constexpr unsigned fwd_smem() {
     return 4u * (3 * kTileFloats + kPFloats);
-  }
-  static constexpr unsigned bwd_smem() {
-    return 4u * (4 * kTileFloats + kPFloats);
   }
 };
 
@@ -271,8 +304,288 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 }
 
+// ------------------------------------------------------------------------
+// float32 backward: mma.sync m16n8k8 on the TF32 tensor cores, each
+// product in three (3xTF32), float32 accumulation; 4 warps of 16 rows.
+
+constexpr int kTfThreads = 128;
+
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+struct Tf {
+  // D + 4 floats a row: the fragments' reads (row g or 2 tig, column tig
+  // or g) fall on 32 distinct banks at every D (see the header note)
+  static constexpr int kPitch = D + 4;
+  static constexpr int kTileFloats = kTile * kPitch;
+  static constexpr int kNt = D / 8;           // output n-tiles of a warp
+  // the dq kernel loads the next K and V tile into registers while it
+  // computes with the current one (D floats a thread), up to D = 64; at
+  // D = 128 there is no room
+  static constexpr bool kDqPrefetch = D <= 64;
+  // dq: q and dO as read, K and V split into hi and lo planes, delta
+  static constexpr unsigned dq_smem() {
+    return 4u * (6 * kTileFloats + kTile);
+  }
+  // dk/dv: the queries staged at a time, a whole tile or, at D = 128, 32
+  // rows (which keeps the dk and dv accumulators in registers); K and V
+  // as read, or at D = 128 split once into planes, which that shorter
+  // stage leaves room for (a warp's K and V rows would otherwise be split
+  // again for every 32 queries)
+  static constexpr int kCols = D > 64 ? 32 : kTile;
+  static constexpr bool kKvPlanes = D > 64;
+  static constexpr unsigned dkv_smem() {
+    return 4u * ((kKvPlanes ? 4 : 2) * kTileFloats + 4 * kCols * kPitch +
+                 2 * kCols);
+  }
+};
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 rounds a finite x, in two integer operations
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32: hi = tf32(x), lo = tf32(x - hi) (the difference
+// is exact), about 21 bits of x's 24 together
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a b, one m16n8k8 TF32 product. A product in 3xTF32 is three of
+// them, the two small terms first: c += a_lo b_hi, c += a_hi b_lo, c +=
+// a_hi b_hi (a_lo b_lo, about 2^-22 of the product, is left out). The
+// callers issue each term over several independent accumulators in turn,
+// so that two MMAs on one accumulator are not back to back (with one warp
+// a scheduler, nothing else would hide the wait between them).
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 64 rows of D floats from global (row stride `ss` elements, rows 16-byte
+// aligned) to shared as read, 16 bytes a thread at a time.
+template <int D>
+__device__ __forceinline__ void tf_load(float* dst, const float* src,
+                                        long long ss) {
+  constexpr int C = D / 4;
+  for (int i = threadIdx.x; i < kTile * C; i += kTfThreads) {
+    const int r = i / C, c = i - r * C;
+    *reinterpret_cast<float4*>(dst + r * Tf<D>::kPitch + 4 * c) =
+        *reinterpret_cast<const float4*>(src + r * ss + 4 * c);
+  }
+}
+
+// A thread's share (Rows D / 512 float4) of Rows rows of D floats from
+// global (row stride `ss` elements, rows 16-byte aligned), into registers.
+template <int D, int Rows = kTile>
+__device__ __forceinline__ void tf_fetch(float4 (&r)[Rows * D / 512],
+                                         const float* src, long long ss) {
+  constexpr int C = D / 4;
+#pragma unroll
+  for (int i = 0; i < Rows * D / 512; ++i) {
+    const int idx = threadIdx.x + i * kTfThreads;
+    const int row = idx / C, c = idx - row * C;
+    r[i] = *reinterpret_cast<const float4*>(src + row * ss + 4 * c);
+  }
+}
+
+// The rows tf_fetch read, split once into a hi and a lo plane of TF32
+// values in shared memory.
+template <int D, int Rows = kTile>
+__device__ __forceinline__ void tf_stage(uint32_t* hi, uint32_t* lo,
+                                         const float4 (&r)[Rows * D / 512]) {
+  constexpr int C = D / 4;
+#pragma unroll
+  for (int i = 0; i < Rows * D / 512; ++i) {
+    const int idx = threadIdx.x + i * kTfThreads;
+    const int row = idx / C, c = idx - row * C;
+    uint4 h, l;
+    split(r[i].x, h.x, l.x);
+    split(r[i].y, h.y, l.y);
+    split(r[i].z, h.z, l.z);
+    split(r[i].w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + row * Tf<D>::kPitch + 4 * c) = h;
+    *reinterpret_cast<uint4*>(lo + row * Tf<D>::kPitch + 4 * c) = l;
+  }
+}
+
+// An A operand already split into hi and lo planes.
+struct Planes {
+  const uint32_t* hi;
+  const uint32_t* lo;
+};
+
+// The A fragment at `o` (rows g, g + 8 at `o` and `o + R`, columns tig,
+// tig + 4): float32 rows split as they are read, or a pair of planes.
+template <int R>
+__device__ __forceinline__ void frag_a(const float* a, int o, uint32_t ah[4],
+                                       uint32_t al[4]) {
+  split(a[o], ah[0], al[0]);
+  split(a[o + R], ah[1], al[1]);
+  split(a[o + 4], ah[2], al[2]);
+  split(a[o + R + 4], ah[3], al[3]);
+}
+
+template <int R>
+__device__ __forceinline__ void frag_a(Planes a, int o, uint32_t ah[4],
+                                       uint32_t al[4]) {
+  const int at[4] = {o, o + R, o + 4, o + R + 4};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    ah[e] = a.hi[at[e]];
+    al[e] = a.lo[at[e]];
+  }
+}
+
+// c[t] (t < NT n-tiles of 8) = A[16 rows] B[8 NT rows]^T over D in
+// 3xTF32: A's rows from `a` (this warp's first row): float32, split as
+// they are read (a warp reads only its own rows), or Planes; B's rows
+// from the planes bh, bl. The A fragment: rows g, g + 8, columns 8 kk +
+// tig, + 4; B's: row 8 t + g, the same columns; C: c[t][0..1] row g,
+// columns 8 t + 2 tig + {0, 1}, c[t][2..3] row g + 8 (g = lane / 4, tig
+// = lane % 4). Each term runs over the NT n-tiles in turn.
+template <int D, int NT, typename A>
+__device__ __forceinline__ void tf_abt(A a, const uint32_t* bh,
+                                       const uint32_t* bl, int lane,
+                                       float c[NT][4]) {
+  constexpr int P = Tf<D>::kPitch;
+  const int at = (lane >> 2) * P + (lane & 3);
+#pragma unroll
+  for (int t = 0; t < NT; ++t) c[t][0] = c[t][1] = c[t][2] = c[t][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const int o = at + 8 * kk;
+    uint32_t ah[4], al[4];
+    frag_a<8 * P>(a, o, ah, al);
+    uint32_t b_h[NT][2], b_l[NT][2];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int b = o + 8 * t * P;
+      b_h[t][0] = bh[b];
+      b_h[t][1] = bh[b + 4];
+      b_l[t][0] = bl[b];
+      b_l[t][1] = bl[b + 4];
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t) mma_tf32(c[t], al, b_h[t][0], b_h[t][1]);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) mma_tf32(c[t], ah, b_l[t][0], b_l[t][1]);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) mma_tf32(c[t], ah, b_h[t][0], b_h[t][1]);
+  }
+}
+
+// out[j] (D / 8 n-tiles) += W[16 rows][8 KS] V[8 KS rows][D]: W the C
+// fragments of a 16 x 8 KS product (split here), V's rows from the planes
+// vh, vl. The C fragment of n-tile t is taken as the A fragment of k-step
+// t as it lies, which reorders the step's k: A's columns tig and tig + 4
+// hold W's columns 8 t + 2 tig and 8 t + 2 tig + 1, so B reads V's rows
+// 8 t + 2 tig and 8 t + 2 tig + 1 (column 8 j + g). No shuffles. The
+// n-tiles go in groups of G, each term over the group in turn; each
+// n-tile's KS k-steps sum from zero on the tensor cores and then add to
+// out[j] in float32: the tensor cores' sums truncate, so a long sum kept
+// there (dk over up to S queries) would drift toward zero.
+template <int D, int KS>
+__device__ __forceinline__ void tf_wv(const float w[KS][4],
+                                      const uint32_t* vh, const uint32_t* vl,
+                                      int lane, float out[Tf<D>::kNt][4]) {
+  constexpr int P = Tf<D>::kPitch;
+  const int vt = 2 * (lane & 3) * P + (lane >> 2);
+  uint32_t ah[KS][4], al[KS][4];
+#pragma unroll
+  for (int t = 0; t < KS; ++t) {
+    split(w[t][0], ah[t][0], al[t][0]);
+    split(w[t][2], ah[t][1], al[t][1]);
+    split(w[t][1], ah[t][2], al[t][2]);
+    split(w[t][3], ah[t][3], al[t][3]);
+  }
+  constexpr int G = Tf<D>::kNt < 4 ? Tf<D>::kNt : 4;
+#pragma unroll
+  for (int j0 = 0; j0 < Tf<D>::kNt; j0 += G) {
+    float c[G][4];
+#pragma unroll
+    for (int g = 0; g < G; ++g) c[g][0] = c[g][1] = c[g][2] = c[g][3] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < KS; ++t) {
+      uint32_t b_h[G][2], b_l[G][2];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int b = vt + 8 * t * P + 8 * (j0 + g);
+        b_h[g][0] = vh[b];
+        b_h[g][1] = vh[b + P];
+        b_l[g][0] = vl[b];
+        b_l[g][1] = vl[b + P];
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) mma_tf32(c[g], al[t], b_h[g][0], b_h[g][1]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) mma_tf32(c[g], ah[t], b_l[g][0], b_l[g][1]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) mma_tf32(c[g], ah[t], b_h[g][0], b_h[g][1]);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[j0 + g][e] += c[g][e];
+  }
+}
+
+// Write a warp's 16 x D accumulator as float32 rows, times `scale`.
+template <int D>
+__device__ __forceinline__ void tf_store(float* p, Strides st, int n, int h,
+                                         int row0, int lane,
+                                         const float acc[Tf<D>::kNt][4],
+                                         float scale) {
+  const int g = lane >> 2, tig = lane & 3;
+  float* r0 = at_row(p, st, n, h, row0 + g);
+  float* r1 = at_row(p, st, n, h, row0 + g + 8);
+#pragma unroll
+  for (int j = 0; j < Tf<D>::kNt; ++j) {
+    const int col = 8 * j + 2 * tig;
+    *reinterpret_cast<float2*>(r0 + col) =
+        make_float2(acc[j][0] * scale, acc[j][1] * scale);
+    *reinterpret_cast<float2*>(r1 + col) =
+        make_float2(acc[j][2] * scale, acc[j][3] * scale);
+  }
+}
+
+// One key tile of the dq kernel's walk (k0 its first key; diag: the
+// diagonal tile, the only one masked, by a warp-uniform branch), its K
+// and V planes staged.
+template <int D>
+__device__ __forceinline__ void dq_f32_step(
+    const float* Qw, const float* dOw, const uint32_t* Kh,
+    const uint32_t* Kl, const uint32_t* Vh, const uint32_t* Vl, int lane,
+    int k0, bool diag, const int rows[2], const float ls[2],
+    const float dl[2], float scale_log2, float acc[Tf<D>::kNt][4]) {
+  const int tig = lane & 3;
+  float s[8][4], dp[8][4];
+  tf_abt<D, 8>(Qw, Kh, Kl, lane, s);
+  tf_abt<D, 8>(dOw, Vh, Vl, lane, dp);
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[t][e] = exp2f(s[t][e] * scale_log2 - ls[e >> 1]);
+  if (diag) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + 8 * t + 2 * tig + (e & 1) > rows[e >> 1]) s[t][e] = 0.0f;
+  }
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[t][e] *= dp[t][e] - dl[e >> 1];
+  tf_wv<D, 8>(s, Kh, Kl, lane, acc);    // dq += ds k
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTfThreads)
     dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ o,
                   const float* __restrict__ dout,
@@ -280,69 +593,152 @@ __global__ void __launch_bounds__(kF32Threads)
                   float* __restrict__ dq, int S, int H, Strides sq,
                   Strides sk, Strides sv, Strides so, Strides sdo,
                   Strides sdq, float scale, float scale_log2) {
-  extern __shared__ float smem[];
-  using L = F32<D>;
-  float* Qs = smem;
+  extern __shared__ __align__(16) float smem_tf[];
+  using L = Tf<D>;
+  constexpr int P = L::kPitch;
+  float* Qs = smem_tf;
   float* dOs = Qs + L::kTileFloats;
-  float* Ks = dOs + L::kTileFloats;
-  float* Vs = Ks + L::kTileFloats;
-  float* Ps = Vs + L::kTileFloats;
+  uint32_t* Kh = reinterpret_cast<uint32_t*>(dOs + L::kTileFloats);
+  uint32_t* Kl = Kh + L::kTileFloats;
+  uint32_t* Vh = Kl + L::kTileFloats;
+  uint32_t* Vl = Vh + L::kTileFloats;
+  float* dls = reinterpret_cast<float*>(Vl + L::kTileFloats);
+  float* Os = reinterpret_cast<float*>(Kh);   // O, for delta, before K
   const int nt = S / kTile;
   const Item it = item_of(nt, H, true);
-  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
   const int q0 = it.tile * kTile;
   const long long stat = (static_cast<long long>(it.n) * H + it.h) * S;
-  f32_load<D>(Qs, at_row(q, sq, it.n, it.h, q0), sq.s);
-  f32_load<D>(dOs, at_row(dout, sdo, it.n, it.h, q0), sdo.s);
-  f32_load<D>(Ks, at_row(o, so, it.n, it.h, q0), so.s);   // O, for delta
+  tf_load<D>(Qs, at_row(q, sq, it.n, it.h, q0), sq.s);
+  tf_load<D>(dOs, at_row(dout, sdo, it.n, it.h, q0), sdo.s);
+  tf_load<D>(Os, at_row(o, so, it.n, it.h, q0), so.s);
   __syncthreads();
-  float dl[4], ls[4], acc[4][L::kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * rg + i;
+  {
+    // delta of row tid / 2 from the two halves of its D columns
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+    const float* a = dOs + r * P + half * (D / 2);
+    const float* b = Os + r * P + half * (D / 2);
     float part = 0.0f;
 #pragma unroll
-    for (int j = 0; j < L::kCols; ++j)
-      part = fmaf(dOs[r * L::kPitch + cg + 16 * j],
-                  Ks[r * L::kPitch + cg + 16 * j], part);
-    dl[i] = sum16(part);
-    if (cg == 0) delta[stat + q0 + r] = dl[i];
-    ls[i] = lse[stat + q0 + r] * kLog2e;
+    for (int c = 0; c < D / 2; ++c) part = fmaf(a[c], b[c], part);
+    part += __shfl_xor_sync(kFull, part, 1);
+    if (half == 0) {
+      dls[r] = part;
+      delta[stat + q0 + r] = part;
+    }
+  }
+  __syncthreads();
+  const int rl[2] = {16 * warp + g, 16 * warp + g + 8};
+  const int rows[2] = {q0 + rl[0], q0 + rl[1]};
+  const float ls[2] = {lse[stat + rows[0]] * kLog2e,
+                       lse[stat + rows[1]] * kLog2e};
+  const float dl[2] = {dls[rl[0]], dls[rl[1]]};
+  const float* Qw = Qs + 16 * warp * P;
+  const float* dOw = dOs + 16 * warp * P;
+  float acc[L::kNt][4];
 #pragma unroll
-    for (int j = 0; j < L::kCols; ++j) acc[i][j] = 0.0f;
+  for (int j = 0; j < L::kNt; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  float4 nk[D / 8], nv[D / 8];          // the next K and V tile
+  if (L::kDqPrefetch) {
+    tf_fetch<D>(nk, at_row(k, sk, it.n, it.h, 0), sk.s);
+    tf_fetch<D>(nv, at_row(v, sv, it.n, it.h, 0), sv.s);
   }
   for (int kt = 0; kt <= it.tile; ++kt) {
     const int k0 = kt * kTile;
-    __syncthreads();
-    f32_load<D>(Ks, at_row(k, sk, it.n, it.h, k0), sk.s);
-    f32_load<D>(Vs, at_row(v, sv, it.n, it.h, k0), sv.s);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    f32_scores<D>(Qs, Ks, rg, cg, s);
-    f32_scores<D>(dOs, Vs, rg, cg, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * rg + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool masked = kt == it.tile && k0 + cg + 16 * j > row;
-        const float p = masked ? 0.0f : exp2f(s[i][j] * scale_log2 - ls[i]);
-        Ps[(4 * rg + i) * L::kPPitch + cg + 16 * j] = p * (dp[i][j] - dl[i]);
-      }
+    __syncthreads();                    // the last tile's reads are done
+    if (!L::kDqPrefetch) {
+      tf_fetch<D>(nk, at_row(k, sk, it.n, it.h, k0), sk.s);
+      tf_fetch<D>(nv, at_row(v, sv, it.n, it.h, k0), sv.s);
     }
-    __syncwarp();
-    f32_accum<D>(Ps, Ks, rg, cg, acc);
+    tf_stage<D>(Kh, Kl, nk);
+    tf_stage<D>(Vh, Vl, nv);
+    __syncthreads();
+    if (L::kDqPrefetch && kt < it.tile) {  // in flight during this tile
+      tf_fetch<D>(nk, at_row(k, sk, it.n, it.h, k0 + kTile), sk.s);
+      tf_fetch<D>(nv, at_row(v, sv, it.n, it.h, k0 + kTile), sv.s);
+    }
+    dq_f32_step<D>(Qw, dOw, Kh, Kl, Vh, Vl, lane, k0, kt == it.tile, rows,
+                   ls, dl, scale_log2, acc);
+  }
+  tf_store<D>(dq, sdq, it.n, it.h, q0 + 16 * warp, lane, acc, scale);
+}
+
+// One pass of the dk/dv kernel over a staged stage of kCols queries (q0
+// the first; diag: on the diagonal tile, the only one masked). KV: the
+// warp's K and V rows as float32 or as Planes.
+template <int D, typename KV>
+__device__ __forceinline__ void dkv_f32_pass(
+    KV Kw, KV Vw, const uint32_t* Qh, const uint32_t* Ql,
+    const uint32_t* dOh, const uint32_t* dOl, const float* lss,
+    const float* dls, int lane, int q0, bool diag, const int keys[2],
+    float scale_log2, float gk[Tf<D>::kNt][4], float gv[Tf<D>::kNt][4]) {
+  constexpr int NT = Tf<D>::kCols / 8;  // query n-tiles a pass
+  const int tig = lane & 3;
+  float st[NT][4], dpt[NT][4];          // [key][query]
+  tf_abt<D, NT>(Kw, Qh, Ql, lane, st);
+  tf_abt<D, NT>(Vw, dOh, dOl, lane, dpt);
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      st[t][e] = exp2f(st[t][e] * scale_log2 -
+                       lss[8 * t + 2 * tig + (e & 1)]);
+  if (diag) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (q0 + 8 * t + 2 * tig + (e & 1) < keys[e >> 1]) st[t][e] = 0.0f;
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* row = at_row(dq, sdq, it.n, it.h, q0 + 4 * rg + i);
+  for (int t = 0; t < NT; ++t)
 #pragma unroll
-    for (int j = 0; j < L::kCols; ++j) row[cg + 16 * j] = acc[i][j] * scale;
+    for (int e = 0; e < 4; ++e)
+      dpt[t][e] = st[t][e] * (dpt[t][e] - dls[8 * t + 2 * tig + (e & 1)]);
+  tf_wv<D, NT>(st, dOh, dOl, lane, gv);   // dv += p^T dO
+  tf_wv<D, NT>(dpt, Qh, Ql, lane, gk);    // dk += ds^T q
+}
+
+// The dk/dv kernel's walk over the query stages from its diagonal on,
+// with K and V in shared memory as float32 rows or as planes (KV).
+template <int D, typename KV>
+__device__ __forceinline__ void dkv_f32_walk(
+    KV Kw, KV Vw, uint32_t* Qh, uint32_t* Ql, uint32_t* dOh, uint32_t* dOl,
+    float* lss, float* dls, const float* q, const float* dout,
+    const float* lse, const float* delta, Strides sq, Strides sdo, Item it,
+    int nt, long long stat, int warp, int lane, const int keys[2],
+    float scale_log2, float gk[Tf<D>::kNt][4], float gv[Tf<D>::kNt][4]) {
+  constexpr int R = Tf<D>::kCols;
+  for (int qt = it.tile; qt < nt; ++qt) {
+#pragma unroll 1
+    for (int h0 = 0; h0 < kTile; h0 += R) {
+      const int q0 = qt * kTile + h0;
+      __syncthreads();                  // the last stage's reads are done
+      {
+        float4 nq[R * D / 512], ndo[R * D / 512];
+        tf_fetch<D, R>(nq, at_row(q, sq, it.n, it.h, q0), sq.s);
+        tf_fetch<D, R>(ndo, at_row(dout, sdo, it.n, it.h, q0), sdo.s);
+        tf_stage<D, R>(Qh, Ql, nq);
+        tf_stage<D, R>(dOh, dOl, ndo);
+      }
+      if (threadIdx.x < R) {
+        lss[threadIdx.x] = lse[stat + q0 + threadIdx.x] * kLog2e;
+        dls[threadIdx.x] = delta[stat + q0 + threadIdx.x];
+      }
+      __syncthreads();
+      // on the diagonal, a stage whose queries all precede this warp's
+      // keys adds nothing (a warp-uniform branch)
+      if (qt > it.tile || h0 + R > 16 * warp)
+        dkv_f32_pass<D>(Kw, Vw, Qh, Ql, dOh, dOl, lss, dls, lane, q0,
+                        qt == it.tile, keys, scale_log2, gk, gv);
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(kTfThreads)
     dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
                    const float* __restrict__ dout,
@@ -351,72 +747,58 @@ __global__ void __launch_bounds__(kF32Threads)
                    float* __restrict__ dv, int S, int H, Strides sq,
                    Strides sk, Strides sv, Strides sdo, Strides sdk,
                    Strides sdv, float scale, float scale_log2) {
-  extern __shared__ float smem[];
-  using L = F32<D>;
-  float* Ks = smem;
-  float* Vs = Ks + L::kTileFloats;
-  float* Qs = Vs + L::kTileFloats;
-  float* dOs = Qs + L::kTileFloats;
-  float* Ps = dOs + L::kTileFloats;
+  extern __shared__ __align__(16) float smem_tf[];
+  using L = Tf<D>;
+  constexpr int P = L::kPitch;
+  constexpr int R = L::kCols;
+  float* kv = smem_tf;                  // K, V: 2 tiles, or 4 planes
+  uint32_t* Qh = reinterpret_cast<uint32_t*>(
+      kv + (L::kKvPlanes ? 4 : 2) * L::kTileFloats);
+  uint32_t* Ql = Qh + R * P;
+  uint32_t* dOh = Ql + R * P;
+  uint32_t* dOl = dOh + R * P;
+  float* lss = reinterpret_cast<float*>(dOl + R * P);
+  float* dls = lss + R;
   const int nt = S / kTile;
   const Item it = item_of(nt, H, false);
-  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
   const int k0 = it.tile * kTile;
+  const int keys[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
   const long long stat = (static_cast<long long>(it.n) * H + it.h) * S;
-  f32_load<D>(Ks, at_row(k, sk, it.n, it.h, k0), sk.s);
-  f32_load<D>(Vs, at_row(v, sv, it.n, it.h, k0), sv.s);
-  float gk[4][L::kCols], gv[4][L::kCols];
+  const int w0 = 16 * warp * P;         // the warp's first row
+  float gk[L::kNt][4], gv[L::kNt][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < L::kNt; ++j)
 #pragma unroll
-    for (int j = 0; j < L::kCols; ++j) gk[i][j] = gv[i][j] = 0.0f;
-  for (int qt = it.tile; qt < nt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    f32_load<D>(Qs, at_row(q, sq, it.n, it.h, q0), sq.s);
-    f32_load<D>(dOs, at_row(dout, sdo, it.n, it.h, q0), sdo.s);
-    __syncthreads();
-    float ls[4], dl[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      ls[j] = lse[stat + q0 + cg + 16 * j] * kLog2e;
-      dl[j] = delta[stat + q0 + cg + 16 * j];
+    for (int e = 0; e < 4; ++e) gk[j][e] = gv[j][e] = 0.0f;
+  if constexpr (L::kKvPlanes) {
+    uint32_t* Kh = reinterpret_cast<uint32_t*>(kv);
+    uint32_t* Kl = Kh + L::kTileFloats;
+    uint32_t* Vh = Kl + L::kTileFloats;
+    uint32_t* Vl = Vh + L::kTileFloats;
+    {
+      float4 nk[D / 8], nv[D / 8];
+      tf_fetch<D>(nk, at_row(k, sk, it.n, it.h, k0), sk.s);
+      tf_fetch<D>(nv, at_row(v, sv, it.n, it.h, k0), sv.s);
+      tf_stage<D>(Kh, Kl, nk);
+      tf_stage<D>(Vh, Vl, nv);
     }
-    float st[4][4], dpt[4][4];          // [key][query]
-    f32_scores<D>(Ks, Qs, rg, cg, st);
-    f32_scores<D>(Vs, dOs, rg, cg, dpt);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + 4 * rg + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool masked = qt == it.tile && q0 + cg + 16 * j < key;
-        const float p = masked ? 0.0f : exp2f(st[i][j] * scale_log2 - ls[j]);
-        Ps[(4 * rg + i) * L::kPPitch + cg + 16 * j] = p;
-        dpt[i][j] = p * (dpt[i][j] - dl[j]);
-      }
-    }
-    __syncwarp();
-    f32_accum<D>(Ps, dOs, rg, cg, gv);  // dv += p^T dO
-    __syncwarp();                       // every lane has read p
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ps[(4 * rg + i) * L::kPPitch + cg + 16 * j] = dpt[i][j];
-    __syncwarp();
-    f32_accum<D>(Ps, Qs, rg, cg, gk);   // dk += ds^T q
+    dkv_f32_walk<D>(Planes{Kh + w0, Kl + w0}, Planes{Vh + w0, Vl + w0}, Qh,
+                    Ql, dOh, dOl, lss, dls, q, dout, lse, delta, sq, sdo, it,
+                    nt, stat, warp, lane, keys, scale_log2, gk, gv);
+  } else {
+    float* Ks = kv;
+    float* Vs = Ks + L::kTileFloats;
+    tf_load<D>(Ks, at_row(k, sk, it.n, it.h, k0), sk.s);
+    tf_load<D>(Vs, at_row(v, sv, it.n, it.h, k0), sv.s);
+    dkv_f32_walk<D>(static_cast<const float*>(Ks + w0),
+                    static_cast<const float*>(Vs + w0), Qh, Ql, dOh, dOl,
+                    lss, dls, q, dout, lse, delta, sq, sdo, it, nt, stat,
+                    warp, lane, keys, scale_log2, gk, gv);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* krow = at_row(dk, sdk, it.n, it.h, k0 + 4 * rg + i);
-    float* vrow = at_row(dv, sdv, it.n, it.h, k0 + 4 * rg + i);
-#pragma unroll
-    for (int j = 0; j < L::kCols; ++j) {
-      krow[cg + 16 * j] = gk[i][j] * scale;
-      vrow[cg + 16 * j] = gv[i][j];
-    }
-  }
+  tf_store<D>(dk, sdk, it.n, it.h, k0 + 16 * warp, lane, gk, scale);
+  tf_store<D>(dv, sdv, it.n, it.h, k0 + 16 * warp, lane, gv, 1.0f);
 }
 
 // ------------------------------------------------------------------------
@@ -840,10 +1222,10 @@ int dq_f32(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq, int N,
            int S, int H, const long long* st, float scale,
            cudaStream_t stream) {
-  const unsigned smem = F32<D>::bwd_smem();
+  const unsigned smem = Tf<D>::dq_smem();
   const cudaError_t err = set_smem(dq_f32_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  dq_f32_kernel<D><<<grid_of(N, S, H), kF32Threads, smem, stream>>>(
+  dq_f32_kernel<D><<<grid_of(N, S, H), kTfThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)o,
       (const float*)dout, lse, delta, (float*)dq, S, H, at(st, 0), at(st, 1),
       at(st, 2), at(st, 3), at(st, 4), at(st, 5), scale, scale * kLog2e);
@@ -870,10 +1252,10 @@ int dkv_f32(const void* q, const void* k, const void* v, const void* dout,
             const float* lse, const float* delta, void* dk, void* dv, int N,
             int S, int H, const long long* st, float scale,
             cudaStream_t stream) {
-  const unsigned smem = F32<D>::bwd_smem();
+  const unsigned smem = Tf<D>::dkv_smem();
   const cudaError_t err = set_smem(dkv_f32_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  dkv_f32_kernel<D><<<grid_of(N, S, H), kF32Threads, smem, stream>>>(
+  dkv_f32_kernel<D><<<grid_of(N, S, H), kTfThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
       lse, delta, (float*)dk, (float*)dv, S, H, at(st, 0), at(st, 1),
       at(st, 2), at(st, 3), at(st, 4), at(st, 5), scale, scale * kLog2e);

@@ -31,6 +31,14 @@ SOURCES = ("circulant.cu", "cellsum.cu", "flash_attention.cu",
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v"]
+# a source's own flags after NVCC_FLAGS: flash_tiled.cu's many unrolled
+# instantiations build faster with the compiler's optimizer split over
+# the machine's cores (the kernels' times on an H100 are the same)
+SOURCE_FLAGS = {"flash_tiled.cu": ["--split-compile=0"]}
+
+
+def nvcc_flags(source: str):
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source, [])
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -52,7 +60,8 @@ def find_nvcc() -> str:
 
 def library_path(source: str) -> str:
     with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read()
+                                + " ".join(nvcc_flags(source)).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
 
@@ -65,7 +74,8 @@ def _start(source: str, nvcc: str):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+    cmd = [nvcc, *nvcc_flags(source), "-o", tmp,
+           os.path.join(CSRC_DIR, source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, cmd
@@ -96,6 +106,16 @@ def build_all(sources=SOURCES) -> Dict[str, str]:
         if errors:
             raise RuntimeError("\n".join(errors))
     return logs
+
+
+def load_from(source: str, path: str) -> ctypes.CDLL:
+    """Load the library at ``path`` and use it as ``source``'s from now on,
+    in place of the one built from the checkout (two builds of one source
+    compared in one process, as scripts/k3_tiled_ab.py does)."""
+    lib = ctypes.CDLL(path)
+    with _lock:
+        _loaded[source] = lib
+    return lib
 
 
 def load(source: str) -> ctypes.CDLL:

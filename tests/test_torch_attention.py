@@ -184,6 +184,131 @@ def test_plain_backward_matches_autograd_of_plain_forward(N, S, H, D):
         torch.testing.assert_close(g, t.grad, rtol=1e-5, atol=1e-6)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, as csrc/flash_tiled.cu splits its operands (and
+    as ``cvt.rna.tf32.f32`` rounds)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tc_add(c: torch.Tensor, prods: torch.Tensor) -> torch.Tensor:
+    """``c`` plus the sum of the exact products ``prods`` (..., n) as a
+    model of one tensor-core step, after what Fasi, Higham, Mikaitis and
+    Pranesh measured on the A100 ("Numerical behavior of NVIDIA tensor
+    cores", 2021): the terms aligned to the largest of them, every bit
+    below its 24th truncated, the sum rounded toward zero to float32."""
+    terms = torch.cat([c.double()[..., None], prods], -1)
+    _, ex = torch.frexp(terms.abs().amax(-1, keepdim=True))
+    quantum = torch.exp2((ex - 24).double())
+    r = (torch.trunc(terms / quantum) * quantum).sum(-1)
+    r32 = r.float()
+    up = r32.double().abs() > r.abs()
+    return torch.where(up, torch.nextafter(r32, torch.zeros_like(r32)), r32)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, terms: int,
+             stage: int = 0, reorder: bool = False) -> torch.Tensor:
+    """``a @ b`` in float32 from TF32 operands: one product of the rounded
+    operands (``terms`` 1), or the 3xTF32 split of the float32 backward
+    kernels (``terms`` 3): a_lo b_hi + a_hi b_lo + a_hi b_hi. With
+    ``stage`` 0 the products are summed in float32. Otherwise they are
+    summed as the kernels sum them: k-steps of 8 (``reorder``: a step's
+    even k first, then its odd k, as a C fragment taken as the A operand
+    lies), each term's step 4 products at a time by ``_tc_add``, from zero
+    for every ``stage`` of k, each stage then added in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    pairs = [(ah, bh)]
+    if terms == 3:
+        pairs = [(_tf32(a - ah), bh), (ah, _tf32(b - bh)), (ah, bh)]
+    if not stage:
+        return sum(x @ y for x, y in pairs[:-1]) + ah @ bh
+    K = a.shape[-1]
+    order = torch.arange(K)
+    if reorder:
+        order = order.view(-1, 4, 2).transpose(1, 2).reshape(-1)
+    out = torch.zeros(*a.shape[:-1], b.shape[-1])
+    for s0 in range(0, K, stage):
+        c = torch.zeros_like(out)
+        for k0 in range(s0, s0 + stage, 8):
+            for x, y in pairs:
+                for j in (k0, k0 + 4):
+                    ks = order[j:j + 4]
+                    c = _tc_add(c, x[..., ks].double().unsqueeze(-2)
+                                * y[..., ks, :].double().transpose(-1, -2)
+                                .unsqueeze(-3))
+        out = out + c
+    return out
+
+
+def _backward_tf32(q, k, v, o, lse, do, terms: int, tensor_cores: bool):
+    """``(dq, dk, dv)`` of the float32 backward kernels' formulas with
+    every product emulated by ``_mm_tf32``: the dq kernel's q k^T, dO v^T
+    and ds k, and the dk/dv kernel's own k q^T, v dO^T, ds^T q and p^T dO;
+    with ``tensor_cores``, summed as the kernels do (over D in one stage,
+    keys in stages of 64, queries of 64 or, at D = 128, 32)."""
+    S, D = q.shape[1], q.shape[-1]
+    scale = 1.0 / math.sqrt(D)
+    log2e = 1.4426950408889634
+    qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    ls = lse * log2e
+    delta = (do * o).sum(-1).transpose(1, 2)
+
+    def mm(a, b, stage):
+        return _mm_tf32(a, b, terms, stage if tensor_cores else 0,
+                        reorder=stage < a.shape[-1])
+
+    s = mm(qh, kh.transpose(-1, -2), D)
+    p = torch.exp2(s * (scale * log2e) - ls[..., None]).masked_fill(~keep,
+                                                                    0.0)
+    ds = p * (mm(doh, vh.transpose(-1, -2), D) - delta[..., None])
+    st = mm(kh, qh.transpose(-1, -2), D)
+    pt = torch.exp2(st * (scale * log2e) - ls[..., None, :]).masked_fill(
+        ~keep.T, 0.0)
+    dst = pt * (mm(vh, doh.transpose(-1, -2), D) - delta[..., None, :])
+    cols = 32 if D > 64 else 64
+    grads = (mm(ds, kh, 64) * scale, mm(dst, qh, cols) * scale,
+             mm(pt, doh, cols))
+    return tuple(t.transpose(1, 2) for t in grads)
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_f32_route_check_tells_3xtf32_from_1xtf32_and_a_skipped_tile(D):
+    """``chip_smoke.flash_route_errors``'s float32 check (FLASH_F32_RTOL of
+    each output's largest value) against the products the float32
+    backward kernels run: dq, dk and dv from 3xTF32 products pass with
+    room, within an eighth of the limit summed in float32 and within a
+    third summed as the tensor cores sum (truncating, stage by stage);
+    from single TF32 products each misses by more than ten times; and one
+    tile skipped by the dq or the dk/dv kernel (``attention_skipping``)
+    fails."""
+    import chip_smoke
+    N, S, H = 1, 256, 2
+    q, k, v, do = (torch.from_numpy(t) for t in _inputs(N, S, H, D, seed=5))
+    o, lse = flash.forward_plain(q, k, v)
+    limit = chip_smoke.FLASH_F32_RTOL
+    for terms, tensor_cores in ((3, False), (3, True), (1, False)):
+        got = dict(zip(("dq", "dk", "dv"), _backward_tf32(
+            q, k, v, o, lse, do, terms, tensor_cores)))
+        errs, ok = chip_smoke.flash_route_errors(q, k, v, do,
+                                                 {"o": o, **got})
+        if terms == 3:
+            room = 3 if tensor_cores else 8
+            assert ok and max(errs.values()) <= limit / room, errs
+        else:
+            assert not ok and min(errs[n] for n in got) > 10 * limit, errs
+    drops = chip_smoke.planted_drops(S, q.device)
+    delta = chip_smoke.plain_delta(o, do)
+    for kernel, names in (("flash_bwd_dq", ("dq",)),
+                          ("flash_bwd_dkv", ("dk", "dv"))):
+        grads = dict(zip(("dq", "dk", "dv"), chip_smoke.attention_skipping(
+            q, k, v, drops[kernel], do, lse, delta)))
+        errs, ok = chip_smoke.flash_route_errors(
+            q, k, v, do, {"o": o, **{n: grads[n] for n in names}})
+        assert not ok, (kernel, errs)
+
+
 def test_dispatch_follows_the_jax_rules(monkeypatch):
     """auto: K3 from S = 1024 up, dense below; flash: K3 when S % 128 ==
     0, else dense with the JAX package's warning. K3 is the only other
