@@ -17,9 +17,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    needs (SIGN_HASH, K1's index step, K2's share of its median network
    MEDIAN_NETS); K2 must call no subroutine and issue fewer than
    K2_BUBBLE_SASS_PER_TERM a term; print the registers, spills, HMMA
-   mnemonics and most issued opcodes of ``flash_tiled.cu``'s float32
-   backward kernels (``phase_tiled_sass``, TF32_BWD_KERNELS): each
-   kernel's SASS must hold HMMA on TF32 operands;
+   mnemonics, asynchronous copies and most issued opcodes of
+   ``flash_tiled.cu``'s float32 kernels and bf16 forwards
+   (``phase_tiled_sass``): each float32 kernel's SASS must hold HMMA on
+   TF32 operands (TF32_KERNELS), each bf16 forward's LDGSTS or UTMALDG
+   (ASYNC_KERNELS);
 2. hold K1 (circulant encode) and K2 (circulant decode) against their
    plain PyTorch versions on the card at the ResNet-9 shapes
    (d = 6,568,640, c = 500,736, r = 5; seeded inputs; shifts from
@@ -66,9 +68,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    mesh (``phase_mesh_entry``: ``--wire_dtype int8 --checkpoint_sharded
    --alert_action abort``, a resume bitwise the straight run; ``gpt2_train
    --mesh_axes clients,seq``) and ``multihost_dryrun`` on the machine's
-   CPU (``phase_multihost``). ``python3 chip_smoke.py --mesh`` runs the
-   build and the mesh phases alone, ``--ring`` the build and the ring
-   (no result line);
+   CPU (``phase_multihost``; in the whole run it runs beside K1 and K2's
+   phases, whose times are device times). ``python3 chip_smoke.py
+   --mesh`` runs the build and the mesh phases alone, ``--ring`` the
+   build and the ring (no result line);
 3. hold K3 (causal flash attention: forward, dq, dk/dv) against its plain
    versions at (N, S, H, D) = (8, 1024, 12, 64), (8, 256, 12, 64), (8,
    2048, 12, 64), (4, 4096, 12, 64), (16, 256, 12, 64) and (16, 1024,
@@ -83,13 +86,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    (forward, backward and both) beside each kernel's bound; then every
    route of ``flash_tiled.cu`` (``phase_flash_routes``: float32 at D =
    16, 32, 64, 128, bf16 at 16, 32, 128) against its plain version at
-   (8, 1024 and 256, 768 / D, D), two calls bitwise, each kernel timed
+   (8, 1024 and 256, 768 / D, D), two calls bitwise, the check rejecting
+   a forward that skips one key tile (``planted_drops``), each kernel timed
    beside its bound (float32 at the 3xTF32 rate, the FFMA rate's bound
-   printed beside it) and SDPA, whose float32 kernels are named
+   printed beside it) and SDPA, whose kernels are named
    (``sdpa_kernels``), and the routes' GPT-2 paths
    (``phase_gpt2_routes``). ``python3 chip_smoke.py --slice19`` runs
    the build, these and the split round's decode half alone,
-   ``--slice20`` the build, ``phase_tiled_sass`` and these alone (no
+   ``--slice21`` the build, ``phase_tiled_sass`` and these alone (no
    result line);
 4. small-input checks: three rounds of a narrow ResNet-9 on the card
    (float32, TF32 off) against the same rounds on the CPU, whose wrappers
@@ -482,14 +486,19 @@ FLASH_TILE = 64
 # kernels built from wgmma fed by TMA: their SASS must hold both
 HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 HOPPER_SASS = ("HGMMA", "UTMALDG")
-# flash_tiled.cu's float32 backward kernels, each by its C entry point and
-# its instantiation's mangled mark: 3xTF32 products on the tensor cores,
-# so their SASS must hold HMMA on TF32 operands
-TF32_BWD_KERNELS = {
-    **{f"flash_bwd_dq_f32_d{D}": f"dq_f32_kernelILi{D}E"
-       for D in (16, 32, 64, 128)},
-    **{f"flash_bwd_dkv_f32_d{D}": f"dkv_f32_kernelILi{D}E"
-       for D in (16, 32, 64, 128)}}
+# flash_tiled.cu's float32 kernels (forward, dq, dk/dv), each by its C
+# entry point and its instantiation's mangled mark: 3xTF32 products on the
+# tensor cores, so their SASS must hold HMMA on TF32 operands
+TF32_KERNELS = {
+    f"flash_{kind}_f32_d{D}": f"{kernel}_f32_kernelILi{D}E"
+    for kind, kernel in (("fwd", "fwd"), ("bwd_dq", "dq"),
+                         ("bwd_dkv", "dkv"))
+    for D in (16, 32, 64, 128)}
+# flash_tiled.cu's bf16 forward kernels: K and V copied asynchronously, so
+# their SASS must hold LDGSTS (cp.async) or UTMALDG (a TMA load)
+ASYNC_KERNELS = {f"flash_fwd_bf16_d{D}": f"fwd_bf16_kernelILi{D}E"
+                 for D in (16, 32, 128)}
+ASYNC_SASS = ("LDGSTS", "UTMALDG")
 # K3 against its plain version, each (n, s, h) row of D held against its
 # own size: |got - ref| <= 1.5e-2 |ref| (+ 1e-3 of the mean row norm, for
 # rows near 0) for o, dq, dk and dv. The kernels round p and ds to bf16 as
@@ -500,17 +509,20 @@ FLASH_ROW_RTOL = 1.5e-2
 FLASH_LSE_ATOL = 1e-4
 # K3's float32 routes against their plain version: the largest difference
 # of o, lse, dq, dk and dv within 2e-5 of that output's largest magnitude.
-# The forward sums FFMA products in float32; the backward kernels run
-# 3xTF32 products (about 21 bits an operand) on the tensor cores, summed
-# there from zero a stage at a time, then in float32; the plain version is
-# float32 with TF32 off. tests/test_torch_attention.py holds the limit to
-# emulated products: 3xTF32 summed in float32 within an eighth of it
-# (3.8e-7 to 1.4e-6 on the CPU) and summed as a model of the tensor cores
-# (truncating, stage by stage) within a third (9.5e-7 to 4.5e-6), single
-# TF32 products each more than ten times over (2.6e-4 to 1.1e-3), a
-# skipped tile far over. Read on an H100 80GB HBM3: 2.0e-7 to 4.3e-6, the
-# same to two digits with exp2f as with ex2.approx in the backward: the
-# truncating sums, not the exp, set the backward's error
+# Every float32 kernel runs 3xTF32 products (about 21 bits an operand) on
+# the tensor cores, summed there from zero a stage at a time (the forward's
+# s over D, its p v over a tile of 64 keys), then in float32; the plain
+# version is float32 with TF32 off. tests/test_torch_attention.py holds
+# the limit to emulated products: the backward's 3xTF32 summed in float32
+# within an eighth of it (3.8e-7 to 1.4e-6 on the CPU) and summed as a
+# model of the tensor cores (truncating, stage by stage) within a third
+# (9.5e-7 to 4.5e-6), single TF32 products each more than ten times over
+# (2.6e-4 to 1.1e-3); the forward's within a sixteenth and an eighth
+# (3.6e-7 to 6.6e-7, 6.6e-7 to 1.1e-6), single TF32 more than ten times
+# over (2.7e-4 to 4.8e-4); a skipped tile far over. Read on an H100 80GB
+# HBM3: the backward 2.0e-7 to 4.3e-6, the same to two digits with exp2f
+# as with ex2.approx: the truncating sums, not the exp, set its error; the
+# forward's o 5.5e-7 to 1.0e-6
 FLASH_F32_RTOL = 2e-5
 # narrow GPT-2, card against CPU (phase_gpt2_reference): largest relative
 # L2 error of a c_attn q/k/v gradient block, largest relative loss
@@ -713,19 +725,21 @@ def ptxas_spills(log: str) -> dict:
 
 
 def phase_tiled_sass():
-    """The float32 backward kernels of ``flash_tiled.cu`` (every D of
-    TF32_BWD_KERNELS) in the built library: registers and stack frame
-    (``cuobjdump -res-usage``), spill bytes (the build's ptxas output,
-    when this run compiled it), the HMMA mnemonics and the most issued
-    opcodes of their SASS. Fails if a kernel's SASS holds no HMMA on TF32
-    operands."""
+    """``flash_tiled.cu``'s float32 kernels (TF32_KERNELS: forward, dq and
+    dk/dv at every D) and bf16 forwards (ASYNC_KERNELS) in the built
+    library: registers and stack frame (``cuobjdump -res-usage``), spill
+    bytes (the build's ptxas output, when this run compiled it), the HMMA
+    mnemonics, the asynchronous copies and the most issued opcodes of
+    their SASS. Fails if a float32 kernel's SASS holds no HMMA on TF32
+    operands, or a bf16 forward's no LDGSTS or UTMALDG."""
     from commefficient_torch.ops import flash_attention as FA
+    marks = {**TF32_KERNELS, **ASYNC_KERNELS}
 
     def kernel_of(line):
-        return next((name for name, mark in TF32_BWD_KERNELS.items()
-                     if mark in line), None)
+        return next((name for name, mark in marks.items() if mark in line),
+                    None)
 
-    ops = {name: {} for name in TF32_BWD_KERNELS}
+    ops = {name: {} for name in marks}
     name = None
     for line in cuobjdump("-sass", FA.TILED_SOURCE):
         if "Function :" in line:
@@ -752,6 +766,8 @@ def phase_tiled_sass():
     out, lacking = {}, []
     for name, count in ops.items():
         hmma = {op: n for op, n in count.items() if op.startswith("HMMA")}
+        copies = {op: n for op, n in count.items()
+                  if op.split(".")[0] in ASYNC_SASS}
         top = sorted(count.items(), key=lambda kv: -kv[1])[:10]
         use = res.get(name, {})
         sp = spills.get(name)
@@ -759,15 +775,19 @@ def phase_tiled_sass():
               f"{use.get('STACK')} B, local {use.get('LOCAL')} B; ptxas "
               + (f"{sp[1]} B spill stores, {sp[2]} B spill loads"
                  if sp else "spills not in this run's build log")
-              + f"; HMMA {hmma}; most issued (static): {top}", flush=True)
-        if not any("TF32" in op for op in hmma):
-            lacking.append(name)
+              + f"; HMMA {hmma}; asynchronous copies {copies}; most "
+              f"issued (static): {top}", flush=True)
+        if name in TF32_KERNELS and not any("TF32" in op for op in hmma):
+            lacking.append(f"{name} (no TF32 HMMA)")
+        if name in ASYNC_KERNELS and not copies:
+            lacking.append(f"{name} (no {' or '.join(ASYNC_SASS)})")
         out[name] = {"registers": int(use.get("REG", -1)),
                      "stack_bytes": int(use.get("STACK", -1)),
                      "spill_store_bytes": sp[1] if sp else None,
-                     "hmma": hmma, "instructions": sum(count.values())}
+                     "hmma": hmma, "async_copies": copies,
+                     "instructions": sum(count.values())}
     if lacking:
-        fail(f"float32 backward kernels without TF32 HMMA in SASS: "
+        fail(f"flash_tiled.cu kernels without their instructions in SASS: "
              f"{lacking}")
     return out
 
@@ -1525,10 +1545,9 @@ def flash_route_errors(q, k, v, do, got):
     return errs, ok
 
 
-def sdpa_kernels(D, sdpa, o_s, leaves, dot):
-    """Print the CUDA kernels that one float32 SDPA forward and one
-    backward ran (``torch.profiler``): what the float32 routes are timed
-    against."""
+def sdpa_kernels(dtype, D, sdpa, o_s, leaves, dot):
+    """Print the CUDA kernels that one SDPA forward and one backward ran
+    (``torch.profiler``): what the tiled routes are timed against."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1543,7 +1562,7 @@ def sdpa_kernels(D, sdpa, o_s, leaves, dot):
             torch.cuda.synchronize()
         names[part] = sorted({e.name for e in prof.events()
                               if e.device_type == DeviceType.CUDA})
-    print(f"[flash float32 D={D}] SDPA's kernels: forward "
+    print(f"[flash {dtype} D={D}] SDPA's kernels: forward "
           f"{[n[:110] for n in names['forward']]}, backward "
           f"{[n[:110] for n in names['backward']]}", flush=True)
     return names
@@ -1554,7 +1573,9 @@ def phase_flash_routes():
     128; bf16 at D = 16, 32 and 128) at (8, 1024, 768 / D, D) and (8, 256,
     768 / D, D), GPT-2 small's width in heads of D: o, lse, dq, dk and dv
     against the plain versions (``flash_route_errors``), a second call of
-    each kernel bitwise the first, and each kernel timed beside its bound,
+    each kernel bitwise the first, the same check failing a forward that
+    skips one key tile (``planted_drops``), and each kernel timed beside
+    its bound,
     the plain versions and SDPA (the library call, timed here only).
     Returns {kernel name: its entry at S = 1024, S = 256's under
     ``at_shapes``}."""
@@ -1584,16 +1605,26 @@ def phase_flash_routes():
                        ((o, o2), (lse, lse2), (dq, dq2), (delta, delta2),
                         (dk, dk2), (dv, dv2)))
             del o2, lse2, dq2, delta2, dk2, dv2
+            # the check must reject a forward that skips one key tile
+            o_f, lse_f = attention_skipping(
+                q, k, v, planted_drops(S, q.device)["flash_fwd"])
+            planted, caught = flash_route_errors(q, k, v, do,
+                                                 {"o": o_f, "lse": lse_f})
+            caught = not caught
+            del o_f, lse_f
             print(f"[flash {dtype} D={D}] {shape}: "
                   + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
                   + (f" (largest difference over the largest value, limit "
                      f"{FLASH_F32_RTOL})" if f32 else
                      f" (worst row error, limit {FLASH_ROW_RTOL}; lse "
                      f"{FLASH_LSE_ATOL})")
-                  + f"; a second call bitwise: {same}", flush=True)
-            if not ok or not same:
+                  + f"; a second call bitwise: {same}; a forward that "
+                  f"skips key tile 0 for the second half's rows: "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in planted.items())
+                  + f" (rejected: {caught})", flush=True)
+            if not ok or not same or not caught:
                 fail(f"K3 {dtype} D={D} at {shape}: {errs}, deterministic "
-                     f"{same}")
+                     f"{same}, a skipped forward tile rejected {caught}")
             ms = {r.fwd: time_ms(lambda: FA.forward(q, k, v), n=10),
                   r.dq: time_ms(lambda: FA.backward_dq(q, k, v, o, lse, do),
                                 n=10),
@@ -1625,8 +1656,8 @@ def phase_flash_routes():
                   + f"; plain fwd {plain_fwd:.4f} ms, bwd {plain_bwd:.4f} "
                   f"ms; SDPA fwd {sdpa_fwd:.4f} ms, bwd {sdpa_bwd:.4f} ms",
                   flush=True)
-            if S == 1024 and f32:
-                sdpa_kernels(D, sdpa, o_s, (qt, kt, vt), dot)
+            if S == 1024:
+                sdpa_kernels(dtype, D, sdpa, o_s, (qt, kt, vt), dot)
             for name in r.names:
                 nbytes, flops = bounds[name]
                 # float32: the products at the 3xTF32 rate, the rate the
@@ -6623,23 +6654,16 @@ def phase_multihost():
 
 
 def run_slice18() -> tuple:
-    """The ring at GPT-2 small's width, the scaling curves' n = 1 arms,
-    the lifted flags through the entry points and, on the CPU beside
-    them, the multi-host dryrun (phase_mesh1 holds the int8 wire, the
-    sharded checkpoint and the ledger on the 1-rank mesh)."""
-    multihost = start_multihost()
-    try:
-        ring = phase_ring()
-        time_done("ring attention")
-        scaling_launches, scaling = phase_scaling()
-        time_done("the scaling curves' n = 1 arms")
-        entry_launches = phase_mesh_entry()
-        time_done("the lifted flags through the entry points on the mesh")
-    except BaseException:
-        stop_multihost(multihost)
-        raise
-    finish_multihost(multihost)
-    time_done("the multi-host dryrun")
+    """The ring at GPT-2 small's width, the scaling curves' n = 1 arms and
+    the lifted flags through the entry points (phase_mesh1 holds the int8
+    wire, the sharded checkpoint and the ledger on the 1-rank mesh; the
+    multi-host dryrun runs beside the K1/K2 phases)."""
+    ring = phase_ring()
+    time_done("ring attention")
+    scaling_launches, scaling = phase_scaling()
+    time_done("the scaling curves' n = 1 arms")
+    entry_launches = phase_mesh_entry()
+    time_done("the lifted flags through the entry points on the mesh")
     return ring, {"scaling_curves n = 1 arms": scaling_launches,
                   **entry_launches}, scaling
 
@@ -6749,14 +6773,15 @@ def main() -> int:
             phase_mesh1()
             time_done("slice 19 (partial run: no result line)")
             return 0
-        if sys.argv[1:2] == ["--slice20"]:
-            # K3's float32 backward on the TF32 tensor cores: the build,
-            # its SASS, every tiled route against its plain version and
+        if sys.argv[1:2] == ["--slice21"]:
+            # K3's tiled kernels (the float32 kernels on the TF32 tensor
+            # cores, the bf16 forwards by asynchronous copies): the build,
+            # their SASS, every tiled route against its plain version and
             # SDPA, and the routes' GPT-2 paths (no result line)
             phase_build()
             phase_tiled_sass()
             run_slice19()
-            time_done("slice 20 (partial run: no result line)")
+            time_done("slice 21 (partial run: no result line)")
             return 0
         if sys.argv[1:2] == ["--ring"]:
             # ring attention alone, after the build (no result line)
@@ -6789,23 +6814,35 @@ def run_phases(t0: float) -> int:
     resources.update(phase_tiled_sass())
     sketch_sass = phase_sketch_sass()
     done("build")
-    # scale: a client's datum count, as the fused step passes it
-    circ = phase_kernels(FLAGSHIP, (FLAGSHIP["c"], 500_000), scale=64.0)
-    circ_gpt2 = phase_kernels(GPT2_SKETCH, (GPT2_SKETCH["c"],), scale=4.0,
-                              plain_n=5)
-    circ_femnist = phase_kernels(FEMNIST_SKETCH, (FEMNIST_SKETCH["c"],),
-                                 scale=16.0, plain_n=5)
-    circ_imagenet = phase_kernels(IMAGENET_SKETCH, (IMAGENET_SKETCH["c"],),
-                                  scale=64.0, plain_n=5)
-    circ_stream = phase_kernels(STREAM_SKETCH, (STREAM_SKETCH["c"],),
-                                scale=32.0, plain_n=5)
-    # the GPT-2 bench's full vocabulary: m = 238, 8 dialogues a client
-    circ_gpt2_bench = phase_kernels(GPT2_BENCH_SKETCH,
-                                    (GPT2_BENCH_SKETCH["c"],), scale=8.0,
-                                    plain_n=5)
-    k1_range = {"gpt2": phase_kernels_range(GPT2_SKETCH, scale=4.0),
-                "stream": phase_kernels_range(STREAM_SKETCH, scale=32.0)}
+    # the multi-host dryrun, CPU only, beside the card's K1/K2 phases: they
+    # time their kernels and plain versions in device time (time_ms), so
+    # the host the dryrun loads does not enter their numbers
+    multihost = start_multihost()
+    try:
+        # scale: a client's datum count, as the fused step passes it
+        circ = phase_kernels(FLAGSHIP, (FLAGSHIP["c"], 500_000), scale=64.0)
+        circ_gpt2 = phase_kernels(GPT2_SKETCH, (GPT2_SKETCH["c"],),
+                                  scale=4.0, plain_n=5)
+        circ_femnist = phase_kernels(FEMNIST_SKETCH, (FEMNIST_SKETCH["c"],),
+                                     scale=16.0, plain_n=5)
+        circ_imagenet = phase_kernels(IMAGENET_SKETCH,
+                                      (IMAGENET_SKETCH["c"],), scale=64.0,
+                                      plain_n=5)
+        circ_stream = phase_kernels(STREAM_SKETCH, (STREAM_SKETCH["c"],),
+                                    scale=32.0, plain_n=5)
+        # the GPT-2 bench's full vocabulary: m = 238, 8 dialogues a client
+        circ_gpt2_bench = phase_kernels(GPT2_BENCH_SKETCH,
+                                        (GPT2_BENCH_SKETCH["c"],), scale=8.0,
+                                        plain_n=5)
+        k1_range = {"gpt2": phase_kernels_range(GPT2_SKETCH, scale=4.0),
+                    "stream": phase_kernels_range(STREAM_SKETCH,
+                                                  scale=32.0)}
+    except BaseException:
+        stop_multihost(multihost)
+        raise
     done("K1/K2, K1's range form")
+    finish_multihost(multihost)
+    done("the multi-host dryrun")
     decode_range, overlap_launches, overlap, mesh_launches = run_slice17()
     ring, scaling_launches, scaling = run_slice18()
     flash = phase_flash()

@@ -15,59 +15,69 @@
 // operands are (N, S, H, D) tensors given by a base pointer and three
 // element strides (sequence, position, head), last dimension contiguous.
 //
-// Design: tiled kernels. A CTA owns one work item, a 64-row tile of
-// queries (forward, dq) or keys (dk/dv) of one head of one sequence, and
-// walks the other side's 64-row tiles in a loop: the keys up to the
-// diagonal, or the queries from it. Heaviest items come first in the
-// grid. Tiles are copied into shared memory by all threads (no TMA), with
-// rows padded so that reads hit distinct banks; the diagonal tile alone
-// is masked. No atomics anywhere, so two calls give the same bits.
-//   float32 forward: every product in float32 FFMA with float32 sums. 256
-//   threads; thread (rg, cg) of a 16 x 16 grid owns rows 4 rg .. 4 rg + 3
-//   of the item and the columns cg + 16 j of a 64-wide score tile (4) and
-//   of a D-wide output (D / 16): a score is a dot product over D from
-//   shared memory, a row's softmax statistics reduce over the 16 lanes of
-//   its row group, and p goes through shared memory into the product with
-//   v. Softmax in the log2 domain with exp2f (no fast math).
-//   float32 backward (dq, dk/dv): mma.sync.m16n8k8 on the TF32 tensor cores
+// Design: tiled kernels. A CTA owns one work item, a tile of queries
+// (forward, dq: 64 rows; the bf16 forward 128) or 64 keys (dk/dv) of one
+// head of one sequence, and walks the other side's 64-row tiles in a
+// loop: the keys up to the diagonal, or the queries from it. Heaviest
+// items come first in the grid. Rows in shared memory are padded so that
+// reads hit distinct banks; the diagonal tile alone is masked. No atomics
+// anywhere, so two calls give the same bits. Softmax in the log2 domain,
+// with exp2f (no fast math) but in the bf16 forward.
+//   float32 (forward, dq, dk/dv): mma.sync.m16n8k8 on the TF32 tensor cores
 //   with a 3xTF32 split, 128 threads, each warp 16 rows of the item. An
 //   operand x is split into hi = tf32(x) and lo = tf32(x - hi) (rounded to
 //   nearest, ties away, by an add and a mask), and a product is a_lo b_hi +
-//   a_hi b_lo + a_hi b_hi (lo lo, 2^-22 of it, is left out): about 21 bits of
-//   each operand, where one TF32 product keeps 11 and misses the float32 check
-//   more than ten times over (tests/test_torch_attention.py emulates both).
-//   Each of the three terms runs over several independent accumulators in
-//   turn, so that two MMAs on one accumulator are never back to back: with one
-//   or two warps a scheduler, that is what hides the MMAs' latency. The tile
-//   that every warp reads as the B operand (K, V in dq; q, dO in dk/dv) is
-//   split once where it is staged, into a hi and a lo plane; a warp's own rows
-//   (the A operand) stay float32 and are split as they are read, except K and
-//   V at D = 128, where dk/dv stages 32 queries at a time and so has room for
-//   their planes. p and ds go from the C fragment of s (row g, columns 2 tig,
-//   2 tig + 1 of each 8-column n-tile) into the A fragment of the next product
-//   (columns tig, tig + 4) as they lie: the k-step is reordered to match, and
-//   B's rows are read in that order, so no shuffle. The tensor cores truncate
-//   their sums, so each 16 x 8 output tile of dq += ds k, dv += p^T dO and dk
-//   += ds^T q sums one stage (up to 64 keys or queries) from zero and is added
-//   to its accumulator in float32: a sum over S kept on the tensor cores
-//   drifted to 1.8e-5 of the largest dk at S = 1024, against 4.3e-6 at most
-//   this way. What is left comes from those truncating sums, not from the
-//   split: summed in float32, 3xTF32 products read at most 1.4e-6 of the
-//   largest value, and a model of the tensor cores' sums, stage by stage
-//   as here, 9.5e-7 to 4.5e-6 (tests/test_torch_attention.py, S = 256).
-//   p = exp2f(s log2(e) / sqrt(D) - lse log2(e)). Rows are D + 4 floats: every fragment read (row g or 2 tig,
-//   column tig or g) hits 32 distinct banks. The dq kernel loads the next K
-//   and V tile into registers while it computes (D <= 64). dk and dv at D =
-//   128 take their queries in stages of 32 to keep their accumulators (D
-//   floats a thread) in registers. Why mma.sync and not wgmma: wgmma takes
-//   TF32 operands only K-major, so ds k and ds^T q would need transposed
-//   copies of ds, k and q in shared memory.
-//   bf16: mma.sync.m16n8k16 (bf16 in, float32 accumulate) fed by
-//   ldmatrix, 128 threads, each warp 16 rows of the item. p and ds round
-//   to bf16 only as product operands, as in flash_attention.cu; the
-//   C fragments of s = q k^T map onto the A fragments of p v. The dk/dv
-//   kernel takes a query tile in two halves of 32 to keep its dk and dv
-//   accumulators (D floats a thread at D = 128) out of local memory.
+//   a_hi b_lo + a_hi b_hi (lo lo, 2^-22 of it, is left out): about 21 bits
+//   of each operand, where one TF32 product keeps 11 and misses the float32
+//   check more than ten times over (tests/test_torch_attention.py emulates
+//   both). Each of the three terms runs over several independent
+//   accumulators in turn, so that two MMAs on one accumulator are never back
+//   to back: with one or two warps a scheduler, that is what hides the MMAs'
+//   latency. The tile that every warp reads as the B operand (K, V in the
+//   forward and dq; q, dO in dk/dv) is split once where it is staged, into a
+//   hi and a lo plane; a warp's own rows (the A operand) stay float32 and
+//   are split as they are read, except K and V at D = 128, where dk/dv
+//   stages 32 queries at a time and so has room for their planes. p and ds
+//   go from the C fragment of s (row g, columns 2 tig, 2 tig + 1 of each
+//   8-column n-tile) into the A fragment of the next product (columns tig,
+//   tig + 4) as they lie: the k-step is reordered to match, and B's rows are
+//   read in that order, so no shuffle. The tensor cores truncate their sums,
+//   so each 16 x 8 output tile of o += p v, dq += ds k, dv += p^T dO and dk
+//   += ds^T q sums one stage (up to 64 keys or queries) from zero and is
+//   added to its accumulator in float32 (the forward's after the online
+//   softmax's rescale of it): a sum over S kept on the tensor cores drifted
+//   to 1.8e-5 of the largest dk at S = 1024, against 4.3e-6 at most this
+//   way. What is left comes from those truncating sums, not from the split:
+//   summed in float32, 3xTF32 products read at most 1.4e-6 of the largest
+//   value, and a model of the tensor cores' sums, stage by stage as here,
+//   9.5e-7 to 4.5e-6 (tests/test_torch_attention.py, S = 256). p = exp2f(s
+//   log2(e) / sqrt(D) - lse log2(e)) in the backward. Rows are D + 4 floats:
+//   every fragment read (row g or 2 tig, column tig or g) hits 32 distinct
+//   banks. The forward copies K and V by cp.async into their hi planes and
+//   splits them there in place (q and the hi and lo planes of K and V: 5
+//   tiles, 169 KB at D = 128), each copy in flight while the other operand's
+//   product runs. The dq kernel loads the next K and V tile into registers
+//   while it computes (D <= 64). dk and dv at D = 128 take their queries in
+//   stages of 32 to keep their accumulators (D floats a thread) in
+//   registers. Why mma.sync and not wgmma: wgmma takes TF32 operands only
+//   K-major, so ds k and ds^T q would need transposed copies of ds, k and q
+//   in shared memory.
+//   bf16: mma.sync.m16n8k16 (bf16 in, float32 accumulate) fed by ldmatrix.
+//   p and ds round to bf16 only as product
+//   operands, as in flash_attention.cu; the C fragments of s = q k^T map
+//   onto the A fragments of p v. The forward takes 128 queries with 4 warps
+//   of 32 rows (two m-tiles sharing each K and V fragment that ldmatrix
+//   reads, where with 16 rows a warp one 512-byte ldmatrix fed two MMAs), so
+//   each K and V tile that crosses from L2 serves twice the queries of a
+//   64-query item; it copies K and V by cp.async through two stages, one
+//   __syncthreads a tile, the next tile's copy in flight during this tile's
+//   products (rows of D + 8: ldmatrix's eight 16-byte rows fall on distinct
+//   banks; 104 KB at D = 128, two CTAs an SM), and takes exp2 from the
+//   special-function unit with the scale folded into its FFMA, as
+//   flash_attention.cu does. dq and dk/dv take 128 threads of 16 rows and
+//   copy their tiles synchronously. The dk/dv kernel takes a query tile in
+//   two halves of 32 to keep its dk and dv accumulators (D floats a thread
+//   at D = 128) out of local memory.
 //   Why not templates of flash_attention.cu's wgmma/TMA design: its tile
 //   shapes, 128-byte swizzle and register split are laid out around D =
 //   64, the one width GPT-2's configurations use at full size; the other
@@ -81,20 +91,21 @@
 // 3.35 TB/s. At (8, 1024, 12, 64) in float32: forward 12.9 GFLOP, dq
 // 19.4, dk/dv 25.8: 0.078 / 0.117 / 0.156 ms (at the FFMA rate, 67
 // TFLOP/s: 0.19 / 0.29 / 0.39). Measured on an NVIDIA H100 80GB HBM3 at
-// a 700 W limit (chip_smoke.py --slice20, (8, 1024, 768 / D, D), ms
-// forward / dq / dk-dv): float32 D = 16 0.787 / 0.428 / 0.529 (SDPA
-// backward 3.57), D = 32 0.605 / 0.361 / 0.475 (1.94), D = 64 0.626 /
-// 0.378 / 0.461 (1.21; forward 0.500), D = 128 0.591 / 0.464 / 0.705
-// (1.23); the backward 22-34% of its bound. The pair beats SDPA's
-// float32 backward (itself 3xTF32 mma.sync: PyTorch's memory-efficient
-// kernel) at every D; at D = 128 the K, V and 32-query stages fill 203 KB
-// of shared memory, one CTA of 4 warps an SM, whose stage loads nothing
-// hides. bf16 D = 16
-// 0.149 / 0.197 / 0.216 (SDPA forward 0.154), D = 32 0.128 / 0.179 /
-// 0.206 (0.083), D = 128 0.083 / 0.117 / 0.161 (0.041; the bf16 bound is
-// 0.015 ms by bytes). ptxas (sm_90a): the float32 backward kernels 156
-// to 255 registers, 32 bytes spilled in dk/dv at D = 128; bf16 64 to
-// 196, 28 bytes spilled in dk/dv at D = 128.
+// a 700 W limit (scripts/k3_tiled_ab.py, (8, 1024, 768 / D, D), ms forward
+// / dq / dk-dv): float32 D = 16 0.330 / 0.424 / 0.524 (SDPA forward 1.47,
+// backward 3.57), D = 32 0.288 / 0.357 / 0.471 (0.781, 1.91), D = 64
+// 0.300 / 0.372 / 0.459 (0.497, 1.20), D = 128 0.368 / 0.456 / 0.696
+// (0.376, 1.22): the forward 21-27% of its bound, the backward 22-34%, each
+// below SDPA's float32 kernels (themselves 3xTF32 mma.sync: PyTorch's
+// memory-efficient kernels); at D = 128 dk/dv's K, V and 32-query stages
+// fill 203 KB of shared memory, one CTA of 4 warps an SM, whose stage
+// loads nothing hides. bf16 D = 16 0.131 / 0.194 / 0.214 (SDPA forward
+// 0.154), D = 32 0.091 / 0.178 / 0.207 (0.083), D = 128 0.061 / 0.118 /
+// 0.162 (0.041, cuDNN's wgmma kernel; the bf16 bound is 0.015 ms by
+// bytes). ptxas (sm_90a): the float32 forward 96 to 255 registers (48 and
+// 16 bytes spilled at D = 64 and 128), the backward 156 to 255 (32 bytes
+// spilled in dk/dv at D = 128); the bf16 forward 158 to 255, no spills;
+// bf16 dq and dk/dv 64 to 196, 28 bytes spilled in dk/dv at D = 128.
 //
 // Interface: plain C, loaded with ctypes. Each function launches on the
 // given stream and returns cudaGetLastError() (0 on success),
@@ -146,162 +157,53 @@ __device__ __forceinline__ T* at_row(T* p, Strides st, int n, int h,
   return p + n * st.n + h * st.h + static_cast<long long>(row) * st.s;
 }
 
-// ------------------------------------------------------------------------
-// float32 forward: FFMA on a 16 x 16 thread grid, 256 threads.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-constexpr int kF32Threads = 256;
+// cp.async: 16 bytes from global to shared, bypassing L1 (.cg); the
+// copies a thread issued since its last commit form one group, and
+// wait<N> returns once all but its N most recent groups have landed (for
+// this thread's own copies: a __syncthreads after it shows them to all)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
 
-template <int D>
-struct F32 {
-  static constexpr int kPitch = D + 1;        // odd: rows on distinct banks
-  static constexpr int kTileFloats = kTile * kPitch;
-  static constexpr int kPPitch = kTile + 1;
-  static constexpr int kPFloats = kTile * kPPitch;
-  static constexpr int kCols = D / 16;        // output columns a thread
-  static constexpr unsigned fwd_smem() {
-    return 4u * (3 * kTileFloats + kPFloats);
-  }
-};
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-// 64 rows of D floats from global (row stride `ss` elements) to shared.
-template <int D>
-__device__ __forceinline__ void f32_load(float* dst, const float* src,
-                                         long long ss) {
-  for (int i = threadIdx.x; i < kTile * D; i += kF32Threads) {
-    const int r = i / D, c = i - r * D;
-    dst[r * F32<D>::kPitch + c] = src[r * ss + c];
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `rows` rows of D elements from global (row stride `ss` elements, rows
+// 16-byte aligned) into shared rows of Pitch elements: thread t copies
+// the 16-byte chunks t, t + Threads, ... (chunk i: row i / (chunks a row))
+template <typename T, int D, int Pitch, int Threads>
+__device__ __forceinline__ void cp_rows(T* dst, const T* src, long long ss,
+                                        int rows) {
+  constexpr int C = D * static_cast<int>(sizeof(T)) / 16;  // chunks a row
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  for (int i = threadIdx.x; i < rows * C; i += Threads) {
+    const int r = i / C, c = i - r * C;
+    cp_async16(dst + r * Pitch + E * c, src + r * ss + E * c);
   }
 }
 
-// acc[i][j] = A[4 rg + i] . B[cg + 16 j] over D, rows from shared memory.
-template <int D>
-__device__ __forceinline__ void f32_scores(const float* A, const float* B,
-                                           int rg, int cg,
-                                           float acc[4][4]) {
-  constexpr int P = F32<D>::kPitch;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(4 * rg + i) * P + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(cg + 16 * j) * P + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
+// Reductions over the quad that holds a row of a C fragment.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
 }
 
-// out[i][j] += sum_t W[4 rg + i][t] V[t][cg + 16 j] over the 64 rows t of
-// a tile: W the (64, 64) weights in shared memory, V a (64, D) tile.
-template <int D>
-__device__ __forceinline__ void f32_accum(const float* W, const float* V,
-                                          int rg, int cg,
-                                          float out[4][F32<D>::kCols]) {
-  constexpr int P = F32<D>::kPitch, PP = F32<D>::kPPitch;
-#pragma unroll 4
-  for (int t = 0; t < kTile; ++t) {
-    float w[4], v[F32<D>::kCols];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = W[(4 * rg + i) * PP + t];
-#pragma unroll
-    for (int j = 0; j < F32<D>::kCols; ++j) v[j] = V[t * P + cg + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < F32<D>::kCols; ++j)
-        out[i][j] = fmaf(w[i], v[j], out[i][j]);
-  }
-}
-
-// Reductions over the 16 lanes of a row group (lanes differ in bits 0-3).
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-    fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ o,
-                   float* __restrict__ lse, int S, int H, Strides sq,
-                   Strides sk, Strides sv, Strides so, float scale_log2) {
-  extern __shared__ float smem[];
-  using L = F32<D>;
-  float* Qs = smem;
-  float* Ks = Qs + L::kTileFloats;
-  float* Vs = Ks + L::kTileFloats;
-  float* Ps = Vs + L::kTileFloats;
-  const int nt = S / kTile;
-  const Item it = item_of(nt, H, true);
-  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
-  const int q0 = it.tile * kTile;
-  f32_load<D>(Qs, at_row(q, sq, it.n, it.h, q0), sq.s);
-  float m[4], l[4], acc[4][L::kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < L::kCols; ++j) acc[i][j] = 0.0f;
-  }
-  for (int kt = 0; kt <= it.tile; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();                    // the last tile's reads are done
-    f32_load<D>(Ks, at_row(k, sk, it.n, it.h, k0), sk.s);
-    f32_load<D>(Vs, at_row(v, sv, it.n, it.h, k0), sv.s);
-    __syncthreads();
-    float s[4][4];
-    f32_scores<D>(Qs, Ks, rg, cg, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * rg + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] *= scale_log2;
-        if (kt == it.tile && k0 + cg + 16 * j > row) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], max16(mx));
-      const float alpha = exp2f(m[i] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[i][j] - m_new);
-        sum += p;
-        Ps[(4 * rg + i) * L::kPPitch + cg + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + sum16(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < L::kCols; ++j) acc[i][j] *= alpha;
-    }
-    __syncwarp();                       // a row group's p rows: its warp
-    f32_accum<D>(Ps, Vs, rg, cg, acc);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * rg + i;
-    float* orow = at_row(o, so, it.n, it.h, row);
-#pragma unroll
-    for (int j = 0; j < L::kCols; ++j) orow[cg + 16 * j] = acc[i][j] / l[i];
-    if (cg == 0)
-      lse[(static_cast<long long>(it.n) * H + it.h) * S + row] =
-          (m[i] + log2f(l[i])) * kLn2;
-  }
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
 }
 
 // ------------------------------------------------------------------------
@@ -321,6 +223,9 @@ struct Tf {
   // computes with the current one (D floats a thread), up to D = 64; at
   // D = 128 there is no room
   static constexpr bool kDqPrefetch = D <= 64;
+  // forward: q as read; K and V each a hi and a lo plane, copied as read
+  // into the hi plane and split there
+  static constexpr unsigned fwd_smem() { return 4u * 5 * kTileFloats; }
   // dq: q and dO as read, K and V split into hi and lo planes, delta
   static constexpr unsigned dq_smem() {
     return 4u * (6 * kTileFloats + kTile);
@@ -549,6 +454,148 @@ __device__ __forceinline__ void tf_store(float* p, Strides st, int n, int h,
         make_float2(acc[j][0] * scale, acc[j][1] * scale);
     *reinterpret_cast<float2*>(r1 + col) =
         make_float2(acc[j][2] * scale, acc[j][3] * scale);
+  }
+}
+
+// The 64 rows of D floats that cp_rows copied into the hi plane `hi`,
+// split there in place: hi = tf32(x), lo = tf32(x - hi). Each thread
+// splits the chunks it copied itself (cp_rows' order), so its own
+// cp_wait is all it waits for.
+template <int D>
+__device__ __forceinline__ void tf_split(uint32_t* hi, uint32_t* lo) {
+  constexpr int C = D / 4;
+#pragma unroll
+  for (int j = 0; j < kTile * C / kTfThreads; ++j) {
+    const int i = threadIdx.x + j * kTfThreads;
+    const int at = (i / C) * Tf<D>::kPitch + 4 * (i % C);
+    const float4 x = *reinterpret_cast<const float4*>(hi + at);
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + at) = h;
+    *reinterpret_cast<uint4*>(lo + at) = l;
+  }
+}
+
+// The float32 forward: a CTA owns a 64-query item, each warp 16 of its
+// rows. Per key tile: s = q k^T (tf_abt, over D from zero), the online
+// softmax in registers, and o = alpha o + p v (tf_wv: the tile's 64 keys
+// summed from zero on the tensor cores, then added in float32). K and V
+// arrive by cp.async into their hi planes and are split there; each copy
+// is in flight while the other operand's product runs: V_t's during the
+// split of K_t and s, K_t+1's during the softmax and p v, V_t+1's during
+// the next split of K and s. Three __syncthreads a tile.
+template <int D>
+__global__ void __launch_bounds__(kTfThreads)
+    fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o,
+                   float* __restrict__ lse, int S, int H, Strides sq,
+                   Strides sk, Strides sv, Strides so, float scale_log2) {
+  extern __shared__ __align__(16) float smem_tf[];
+  using L = Tf<D>;
+  constexpr int P = L::kPitch;
+  float* Qs = smem_tf;
+  uint32_t* Kh = reinterpret_cast<uint32_t*>(Qs + L::kTileFloats);
+  uint32_t* Kl = Kh + L::kTileFloats;
+  uint32_t* Vh = Kl + L::kTileFloats;
+  uint32_t* Vl = Vh + L::kTileFloats;
+  const int nt = S / kTile;
+  const Item it = item_of(nt, H, true);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int q0 = it.tile * kTile;
+  const int rows[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  // the groups in flight, oldest first: (q, K_0), V_0; then K_t+1 and
+  // V_t+1, issued during tile t
+  cp_rows<float, D, P, kTfThreads>(Qs, at_row(q, sq, it.n, it.h, q0), sq.s,
+                                   kTile);
+  cp_rows<float, D, P, kTfThreads>(reinterpret_cast<float*>(Kh),
+                                   at_row(k, sk, it.n, it.h, 0), sk.s, kTile);
+  cp_commit();
+  cp_rows<float, D, P, kTfThreads>(reinterpret_cast<float*>(Vh),
+                                   at_row(v, sv, it.n, it.h, 0), sv.s, kTile);
+  cp_commit();
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float acc[L::kNt][4];
+#pragma unroll
+  for (int j = 0; j < L::kNt; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  const float* Qw = Qs + 16 * warp * P;
+  for (int kt = 0; kt <= it.tile; ++kt) {
+    const int k0 = kt * kTile;
+    const bool diag = kt == it.tile;    // the only tile masked
+    cp_wait<1>();                       // this thread's K_t (and q) landed
+    tf_split<D>(Kh, Kl);
+    __syncthreads();                    // K_t's planes and q for all
+    float s[8][4];
+    tf_abt<D, 8>(Qw, Kh, Kl, lane, s);
+    cp_wait<0>();                       // this thread's V_t landed
+    tf_split<D>(Vh, Vl);
+    __syncthreads();                    // V_t's planes; K_t read by all
+    if (!diag) {
+      cp_rows<float, D, P, kTfThreads>(
+          reinterpret_cast<float*>(Kh),
+          at_row(k, sk, it.n, it.h, k0 + kTile), sk.s, kTile);
+      cp_commit();
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[t][e] * scale_log2;
+        if (diag && k0 + 8 * t + 2 * tig + (e & 1) > rows[e >> 1])
+          x = -INFINITY;
+        s[t][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[t][e] = exp2f(s[t][e] - m[e >> 1]);
+        sum[e >> 1] += s[t][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+    for (int j = 0; j < L::kNt; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+    tf_wv<D, 8>(s, Vh, Vl, lane, acc);  // o += p v
+    __syncthreads();                    // V_t read by all
+    if (!diag) {
+      cp_rows<float, D, P, kTfThreads>(
+          reinterpret_cast<float*>(Vh),
+          at_row(v, sv, it.n, it.h, k0 + kTile), sv.s, kTile);
+      cp_commit();
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < L::kNt; ++j) {
+    acc[j][0] /= l[0];
+    acc[j][1] /= l[0];
+    acc[j][2] /= l[1];
+    acc[j][3] /= l[1];
+  }
+  tf_store<D>(o, so, it.n, it.h, q0 + 16 * warp, lane, acc, 1.0f);
+  if (tig == 0) {
+    const long long stat = (static_cast<long long>(it.n) * H + it.h) * S;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      lse[stat + rows[r]] = (m[r] + log2f(l[r])) * kLn2;
   }
 }
 
@@ -805,6 +852,9 @@ __global__ void __launch_bounds__(kTfThreads)
 // bf16: mma.sync m16n8k16 fed by ldmatrix, 4 warps of 16 rows each.
 
 constexpr int kBfThreads = 128;
+constexpr int kBfFwdThreads = 128;      // the forward: 4 warps
+constexpr int kBfFwdMt = 2;             // ... of 2 m-tiles of 16 rows
+constexpr int kBfFwdRows = 128;         // the forward's queries an item
 
 template <int D>
 struct Bf {
@@ -812,7 +862,10 @@ struct Bf {
                                               // rows fall on distinct banks
   static constexpr int kTileElems = kTile * kPitch;
   static constexpr int kNt = D / 8;           // output n-tiles of a warp
-  static constexpr unsigned fwd_smem() { return 2u * 3 * kTileElems; }
+  // forward: q (kBfFwdRows rows) and two stages of K and V
+  static constexpr unsigned fwd_smem() {
+    return 2u * (kBfFwdRows + 4 * kTile) * kPitch;
+  }
   static constexpr unsigned dq_smem() {
     return 2u * 4 * kTileElems + 4u * kTile;
   }
@@ -820,10 +873,6 @@ struct Bf {
     return 2u * 4 * kTileElems + 8u * kTile;
   }
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -921,17 +970,6 @@ __device__ __forceinline__ void mma_wv(const float w[2 * KS][4],
   }
 }
 
-// Reductions over the quad that holds a row of a C fragment.
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
-
 // Write a warp's 16 x D float32 accumulator as bf16 rows, times `scale`.
 template <int D>
 __device__ __forceinline__ void bf_store(bf16* p, Strides st, int n, int h,
@@ -951,80 +989,201 @@ __device__ __forceinline__ void bf_store(bf16* p, Strides st, int n, int h,
   }
 }
 
+// c[i][t] (MT m-tiles of 16 rows, NT n-tiles of 8) = A[16 MT rows]
+// B[8 NT rows]^T over D, as mma_abt, each B fragment read once for the
+// MT m-tiles (A's rows from `a`, the warp's first row).
+template <int D, int NT, int MT>
+__device__ __forceinline__ void mma_abt_m(const bf16* a, const bf16* b,
+                                          int lane, float c[MT][NT][4]) {
+  constexpr int P = Bf<D>::kPitch;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+      c[i][t][0] = c[i][t][1] = c[i][t][2] = c[i][t][3] = 0.0f;
+  const uint32_t a_lane = smem_addr(
+      a + ((lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 8);
+  const uint32_t b_lane = smem_addr(
+      b + ((lane & 7) + (lane >> 4) * 8) * P + ((lane >> 3) & 1) * 8);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      ldsm_x4(af[i], a_lane + 2 * (16 * i * P + 16 * kk));
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bfr[4];
+      ldsm_x4(bfr, b_lane + 2 * (16 * np * P + 16 * kk));
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma(c[i][2 * np], af[i], bfr[0], bfr[1]);
+        mma(c[i][2 * np + 1], af[i], bfr[2], bfr[3]);
+      }
+    }
+  }
+}
+
+// out[i][t] += W[i] V over 16 KS rows of V, as mma_wv, each V fragment
+// read once for the MT m-tiles (W[i] the C fragments of m-tile i).
+template <int D, int KS, int MT>
+__device__ __forceinline__ void mma_wv_m(const float w[MT][2 * KS][4],
+                                         const bf16* v, int lane,
+                                         float out[MT][Bf<D>::kNt][4]) {
+  constexpr int P = Bf<D>::kPitch;
+  const uint32_t v_lane = smem_addr(
+      v + ((lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 8);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      af[i][0] = pack(w[i][2 * kk][0], w[i][2 * kk][1]);
+      af[i][1] = pack(w[i][2 * kk][2], w[i][2 * kk][3]);
+      af[i][2] = pack(w[i][2 * kk + 1][0], w[i][2 * kk + 1][1]);
+      af[i][3] = pack(w[i][2 * kk + 1][2], w[i][2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bfr[4];
+      ldsm_x4_t(bfr, v_lane + 2 * (16 * kk * P + 16 * dp));
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma(out[i][2 * dp], af[i], bfr[0], bfr[1]);
+        mma(out[i][2 * dp + 1], af[i], bfr[2], bfr[3]);
+      }
+    }
+  }
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz), as flash_attention.cu
+// takes it: the bf16 forward rounds p to bf16 for its product with v
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The bf16 forward: a CTA owns a 128-query item (kBfFwdRows), each of
+// its 4 warps 32 rows as two m-tiles of 16 (kBfFwdMt), which share every
+// K and V fragment that ldmatrix reads: half the shared-memory reads of a
+// warp of 16 rows a product. It walks the 64-key tiles up to its last
+// query. K and V go through two stages by cp.async, one __syncthreads a
+// tile: past it, tile t has landed for every thread and every warp is
+// done with tile t - 1, so tile t + 1's copy goes into that stage at once
+// and is in flight during tile t's products. A key tile past a warp's
+// last query adds nothing to it (a warp-uniform branch), and in an item
+// that S cuts to 64 queries the upper two warps only copy. The row
+// maximum is taken on the raw scores and the scale folded into the
+// exponent's FFMA: p = 2^(s scale log2(e) - m).
 template <int D>
-__global__ void __launch_bounds__(kBfThreads)
+__global__ void __launch_bounds__(kBfFwdThreads, 2)
     fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ lse, int S, int H, Strides sq,
                     Strides sk, Strides sv, Strides so, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using L = Bf<D>;
+  constexpr int P = L::kPitch, T = L::kTileElems, MT = kBfFwdMt;
+  constexpr int WR = 16 * MT;           // a warp's rows
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + L::kTileElems;
-  bf16* Vs = Ks + L::kTileElems;
-  const int nt = S / kTile;
-  const Item it = item_of(nt, H, true);
+  bf16* KV = Qs + kBfFwdRows * P;       // stage b: K at 2 b T, V at 2 b T + T
+  const int nq = (S + kBfFwdRows - 1) / kBfFwdRows;
+  const Item it = item_of(nq, H, true);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int q0 = it.tile * kTile;
-  const int rows[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
-  bf_load<D>(Qs, at_row(q, sq, it.n, it.h, q0), sq.s);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  float acc[L::kNt][4];
+  const int q0 = it.tile * kBfFwdRows;
+  const int qrows = min(kBfFwdRows, S - q0);
+  const int w0 = q0 + WR * warp;        // the warp's first query
+  const bool active = w0 < S;
+  const int nk = (q0 + qrows - 1) / kTile + 1;  // key tiles of the item
+  cp_rows<bf16, D, P, kBfFwdThreads>(Qs, at_row(q, sq, it.n, it.h, q0),
+                                     sq.s, qrows);
+  cp_rows<bf16, D, P, kBfFwdThreads>(KV, at_row(k, sk, it.n, it.h, 0), sk.s,
+                                     kTile);
+  cp_rows<bf16, D, P, kBfFwdThreads>(KV + T, at_row(v, sv, it.n, it.h, 0),
+                                     sv.s, kTile);
+  cp_commit();
+  // [m-tile][row g, row g + 8]
+  float m[MT][2], l[MT][2];
+  float acc[MT][L::kNt][4];
 #pragma unroll
-  for (int t = 0; t < L::kNt; ++t)
-    acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
-  for (int kt = 0; kt <= it.tile; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    bf_load<D>(Ks, at_row(k, sk, it.n, it.h, k0), sk.s);
-    bf_load<D>(Vs, at_row(v, sv, it.n, it.h, k0), sv.s);
-    __syncthreads();
-    float s[8][4];
-    mma_abt<D, 8>(Qs + 16 * warp * L::kPitch, Ks, lane, s);
-    float mx[2] = {-INFINITY, -INFINITY};
+  for (int i = 0; i < MT; ++i) {
+    m[i][0] = m[i][1] = -INFINITY;
+    l[i][0] = l[i][1] = 0.0f;
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[t][e] * scale_log2;
-        if (kt == it.tile && k0 + 8 * t + 2 * tig + (e & 1) > rows[e >> 1])
-          x = -INFINITY;
-        s[t][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2], sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[t][e] = exp2f(s[t][e] - m[e >> 1]);
-        sum[e >> 1] += s[t][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
-#pragma unroll
-    for (int t = 0; t < L::kNt; ++t) {
-      acc[t][0] *= alpha[0];
-      acc[t][1] *= alpha[0];
-      acc[t][2] *= alpha[1];
-      acc[t][3] *= alpha[1];
-    }
-    mma_wv<D, 4>(s, Vs, lane, acc);
+    for (int t = 0; t < L::kNt; ++t)
+      acc[i][t][0] = acc[i][t][1] = acc[i][t][2] = acc[i][t][3] = 0.0f;
   }
-  bf_store<D>(o, so, it.n, it.h, q0 + 16 * warp, lane, acc, 1.0f / l[0],
-              1.0f / l[1]);
-  if (tig == 0) {
-    const long long stat = (static_cast<long long>(it.n) * H + it.h) * S;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    const bf16* Ks = KV + 2 * (kt & 1) * T;
+    cp_wait<0>();                       // this thread's copies of tile t
+    __syncthreads();                    // ... every thread's; t - 1 read
+    if (kt + 1 < nk) {                  // tile t + 1, in flight during t
+      bf16* nxt = KV + 2 * ((kt + 1) & 1) * T;
+      cp_rows<bf16, D, P, kBfFwdThreads>(
+          nxt, at_row(k, sk, it.n, it.h, k0 + kTile), sk.s, kTile);
+      cp_rows<bf16, D, P, kBfFwdThreads>(
+          nxt + T, at_row(v, sv, it.n, it.h, k0 + kTile), sv.s, kTile);
+      cp_commit();
+    }
+    if (!active || k0 > w0 + WR - 1) continue;
+    const bool diag = k0 + kTile - 1 > w0;  // some key past some row
+    float s[MT][8][4];
+    mma_abt_m<D, 8, MT>(Qs + WR * warp * P, Ks, lane, s);
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      lse[stat + rows[r]] = (m[r] + log2f(l[r])) * kLn2;
+    for (int i = 0; i < MT; ++i) {
+      const int r0 = w0 + 16 * i + g;   // rows r0 and r0 + 8
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (diag && k0 + 8 * t + 2 * tig + (e & 1) > r0 + 8 * (e >> 1))
+            s[i][t][e] = -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[i][t][e]);
+        }
+      float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[i][r], quad_max(mx[r]) * scale_log2);
+        alpha[r] = fast_exp2(m[i][r] - m_new);
+        m[i][r] = m_new;
+      }
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[i][t][e] = fast_exp2(fmaf(s[i][t][e], scale_log2,
+                                      -m[i][e >> 1]));
+          sum[e >> 1] += s[i][t][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        l[i][r] = l[i][r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+      for (int t = 0; t < L::kNt; ++t) {
+        acc[i][t][0] *= alpha[0];
+        acc[i][t][1] *= alpha[0];
+        acc[i][t][2] *= alpha[1];
+        acc[i][t][3] *= alpha[1];
+      }
+    }
+    mma_wv_m<D, 4, MT>(s, Ks + T, lane, acc);
+  }
+  if (!active) return;
+  const long long stat = (static_cast<long long>(it.n) * H + it.h) * S;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int r0 = w0 + 16 * i;
+    bf_store<D>(o, so, it.n, it.h, r0, lane, acc[i], 1.0f / l[i][0],
+                1.0f / l[i][1]);
+    if (tig == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        lse[stat + r0 + g + 8 * r] = (m[i][r] + log2f(l[i][r])) * kLn2;
+    }
   }
 }
 
@@ -1195,10 +1354,10 @@ template <int D>
 int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse,
             int N, int S, int H, const long long* st, float scale_log2,
             cudaStream_t stream) {
-  const unsigned smem = F32<D>::fwd_smem();
+  const unsigned smem = Tf<D>::fwd_smem();
   const cudaError_t err = set_smem(fwd_f32_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_f32_kernel<D><<<grid_of(N, S, H), kF32Threads, smem, stream>>>(
+  fwd_f32_kernel<D><<<grid_of(N, S, H), kTfThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, S,
       H, at(st, 0), at(st, 1), at(st, 2), at(st, 3), scale_log2);
   return (int)cudaGetLastError();
@@ -1211,7 +1370,9 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o,
   const unsigned smem = Bf<D>::fwd_smem();
   const cudaError_t err = set_smem(fwd_bf16_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_bf16_kernel<D><<<grid_of(N, S, H), kBfThreads, smem, stream>>>(
+  const unsigned grid = static_cast<unsigned>(
+      (S + kBfFwdRows - 1) / kBfFwdRows * H * N);
+  fwd_bf16_kernel<D><<<grid, kBfFwdThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, S, H,
       at(st, 0), at(st, 1), at(st, 2), at(st, 3), scale_log2);
   return (int)cudaGetLastError();

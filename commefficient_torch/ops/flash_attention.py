@@ -9,10 +9,11 @@ K3 replaces the library Pallas TPU kernel that the JAX package's
 libraries hold the kernels (design and bounds in their header notes):
 ``csrc/flash_attention.cu``, warp-specialised wgmma kernels fed by TMA, for
 bf16 at head width D = 64 (GPT-2's width); ``csrc/flash_tiled.cu``, tiled
-kernels, for float32 at D = 16, 32, 64 and 128 (the forward in FFMA with
-float32 sums; dq and dk/dv in ``mma.sync`` on the TF32 tensor cores, each
-product split into three, 3xTF32, for float32-level accuracy) and bf16 at
-D = 16, 32 and 128 (``mma.sync``). ``route`` is the table;
+kernels, for float32 at D = 16, 32, 64 and 128 (forward, dq and dk/dv in
+``mma.sync`` on the TF32 tensor cores, each product split into three,
+3xTF32, for float32-level accuracy) and bf16 at D = 16, 32 and 128
+(``mma.sync``; the forward's K and V tiles copied by ``cp.async``).
+``route`` is the table;
 each kernel's C entry point bears the name ``launches`` counts it under,
 and all three of a kind take the same arguments.
 

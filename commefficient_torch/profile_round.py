@@ -44,13 +44,19 @@ from commefficient_torch.utils.schedules import lr_schedule_for
 
 GROUPS = (
     ("flash attention (K3)", ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                              "flash_bwd_dkv_kernel")),
-    ("sketch kernels (K1, K2)", ("encode_kernel", "decode_kernel")),
+                              "flash_bwd_dkv_kernel", "fwd_f32_kernel",
+                              "dq_f32_kernel", "dkv_f32_kernel",
+                              "fwd_bf16_kernel", "dq_bf16_kernel",
+                              "dkv_bf16_kernel")),
+    ("sketch kernels (K1, K2, cell sum)", ("encode_kernel", "decode_kernel",
+                                           "cell_sum_kernel")),
     ("convolution / matmul", ("conv", "cudnn", "gemm", "xmma", "sm90",
                               "wgrad", "dgrad", "implicit", "nvjet",
                               "cutlass")),
     ("top-k / sort / nonzero", ("topk", "sort", "radix", "select",
                                 "nonzero", "scan", "gatherTopK")),
+    ("elementwise", ("elementwise",)),
+    ("reductions", ("reduce_kernel",)),
 )
 
 
@@ -77,15 +83,16 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def _profiled(fn, device="cuda"):
+def _profiled(fn, device="cuda", shapes: bool = False):
     """``(profiler, device events, wall us)`` of ``fn()`` under
-    ``torch.profiler``, synced at its end. On the CPU the "device events"
-    are the leaf operators (those that call no other operator), which run
-    one after another on the calling thread."""
+    ``torch.profiler`` (``shapes``: the operators' input shapes recorded),
+    synced at its end. On the CPU the "device events" are the leaf
+    operators (those that call no other operator), which run one after
+    another on the calling thread."""
     on_cuda = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if on_cuda else [])
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         fn()
         if on_cuda:
@@ -117,6 +124,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--top", type=int, default=20)
     p.add_argument("--trace", default="")
+    # then this many more rounds profiled with the operators' input shapes
+    # recorded (it slows the host, so apart from the rounds above): the
+    # top operators by their own device time, by name and shapes
+    p.add_argument("--shapes", type=int, default=0)
     ns = parse_known(p, argv)
     if not torch.cuda.is_available() or torch.device(ns.device).type != "cuda":
         raise SystemExit("profile_round measures the card: no CUDA device")
@@ -203,8 +214,31 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         print(f"  {us / n / 1e3:9.3f}  {name[:110]}")
     if ns.trace:
         prof.export_chrome_trace(ns.trace)
+    if ns.shapes:
+        more = [next(it) for _ in range(ns.shapes)]
+        rounds[:] = more
+        out["operators_ms_per_round"] = _by_shape(
+            _profiled(run_rounds, shapes=True)[0], ns.shapes, ns.top)
     print(json.dumps(out))
     return out
+
+
+def _by_shape(prof, n: int, top: int) -> list:
+    """The ``top`` operators by their own device time a round (``n``
+    rounds profiled), each by name and input shapes, printed and returned
+    as ``[ms, name, shapes]``."""
+    rows = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append([us / n / 1e3, e.key, str(e.input_shapes)])
+    rows.sort(key=lambda r: -r[0])
+    print(f"top {top} operators by their own device time (ms per round), "
+          "with their input shapes:")
+    for ms, name, shapes in rows[:top]:
+        print(f"  {ms:9.3f}  {name}  {shapes[:150]}")
+    return rows[:top]
 
 
 if __name__ == "__main__":

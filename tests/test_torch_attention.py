@@ -28,6 +28,18 @@ import torch
 from commefficient_torch.models import gpt2 as tgpt2
 from commefficient_torch.ops import flash_attention as flash
 
+import torch_mesh_ranks as ranks
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: the emulations of the
+    tensor cores' sums below loop over many small float64 operations,
+    which more threads only spin on while the run's other workers share
+    the machine's cores."""
+    with ranks.one_thread():
+        yield
+
 
 @pytest.fixture(scope="module")
 def ref():
@@ -273,6 +285,68 @@ def _backward_tf32(q, k, v, o, lse, do, terms: int, tensor_cores: bool):
     return tuple(t.transpose(1, 2) for t in grads)
 
 
+def _forward_tf32(q, k, v, terms: int, tensor_cores: bool):
+    """``(o, lse)`` of the float32 forward kernel's formulas with every
+    product emulated by ``_mm_tf32``: s = q k^T over D, then for each tile
+    of 64 keys the online softmax in the log2 domain and o = alpha o + p v;
+    with ``tensor_cores``, summed as the kernel sums them (s over D from
+    zero in one stage; a tile's p v over its 64 keys from zero, each k-step
+    reordered as the C fragment of s is taken as the A operand, then added
+    to o in float32)."""
+    S, D = q.shape[1], q.shape[-1]
+    log2e = 1.4426950408889634
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    x = _mm_tf32(qh, kh.transpose(-1, -2), terms, D if tensor_cores else 0)
+    x = (x * (log2e / math.sqrt(D))).masked_fill(~keep, float("-inf"))
+    m = torch.full(x.shape[:-1], float("-inf"))
+    l = torch.zeros(x.shape[:-1])
+    acc = torch.zeros(*x.shape[:-1], D)
+    for t0 in range(0, S, 64):
+        xt = x[..., t0:t0 + 64]
+        m_new = torch.maximum(m, xt.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(xt - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _mm_tf32(
+            p, vh[..., t0:t0 + 64, :], terms, 64 if tensor_cores else 0,
+            reorder=True)
+        m = m_new
+    o = (acc / l[..., None]).transpose(1, 2)
+    return o, (m + torch.log2(l)) * math.log(2.0)
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_f32_forward_check_tells_3xtf32_from_1xtf32_and_a_skipped_tile(D):
+    """``chip_smoke.flash_route_errors``'s float32 check (FLASH_F32_RTOL of
+    each output's largest value) against the products the float32 forward
+    kernel runs: o and lse from 3xTF32 products pass with room, within an
+    eighth of the limit summed as the tensor cores sum (truncating, each
+    key tile's p v from zero; read: 6.6e-7 to 1.1e-6) and within a
+    sixteenth summed in float32 (3.6e-7 to 6.6e-7); from single TF32
+    products o misses by more than ten times (2.7e-4 to 4.8e-4); and a
+    forward that skips key tile 0 for the second half's rows
+    (``attention_skipping``) fails."""
+    import chip_smoke
+    N, S, H = 1, 256, 2
+    q, k, v, do = (torch.from_numpy(t) for t in _inputs(N, S, H, D, seed=6))
+    limit = chip_smoke.FLASH_F32_RTOL
+    for terms, tensor_cores in ((3, False), (3, True), (1, False)):
+        o, lse = _forward_tf32(q, k, v, terms, tensor_cores)
+        errs, ok = chip_smoke.flash_route_errors(q, k, v, do,
+                                                 {"o": o, "lse": lse})
+        if terms == 3:
+            room = 8 if tensor_cores else 16
+            assert ok and max(errs.values()) <= limit / room, errs
+        else:
+            assert not ok and errs["o"] > 10 * limit, errs
+    o, lse = chip_smoke.attention_skipping(
+        q, k, v, chip_smoke.planted_drops(S, q.device)["flash_fwd"])
+    errs, ok = chip_smoke.flash_route_errors(q, k, v, do,
+                                             {"o": o, "lse": lse})
+    assert not ok, errs
+
+
 @pytest.mark.parametrize("D", [16, 64, 128])
 def test_f32_route_check_tells_3xtf32_from_1xtf32_and_a_skipped_tile(D):
     """``chip_smoke.flash_route_errors``'s float32 check (FLASH_F32_RTOL of
@@ -372,19 +446,23 @@ def test_function_on_card_matches_plain(cuda, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [64, 192])
 @pytest.mark.parametrize("dtype,D", [(dt, D) for dt, D in flash.ROUTES
                                      if flash.ROUTES[dt, D].source
                                      == flash.TILED_SOURCE])
-def test_tiled_routes_on_card_match_plain(cuda, dtype, D):
-    """Each route of flash_tiled.cu through the autograd.Function at S =
-    192 (a partial last 128-row block of the JAX rule's tiles, three of
-    the kernels' 64) on q, k, v slices of one c_attn-shaped buffer: one
-    launch of each of the route's kernels and no other, and o, dq, dk, dv
-    against the plain versions (``chip_smoke.flash_route_errors``'s
-    limits: bf16 each row within FLASH_ROW_RTOL of its norm, float32
-    within FLASH_F32_RTOL of the largest value)."""
+def test_tiled_routes_on_card_match_plain(cuda, dtype, D, S):
+    """Each route of flash_tiled.cu through the autograd.Function on q, k,
+    v slices of one c_attn-shaped buffer, at S = 192 (a partial last
+    128-row block of the JAX rule's tiles, three of the kernels' 64 keys,
+    an odd count for the forwards' two-stage copies) and S = 64 (one key
+    tile, nothing to prefetch; the bf16 forward's 128-query item cut to
+    half): one launch of each of the route's kernels and no other, and o,
+    dq, dk, dv against the plain versions
+    (``chip_smoke.flash_route_errors``'s limits: bf16 each row within
+    FLASH_ROW_RTOL of its norm, float32 within FLASH_F32_RTOL of the
+    largest value)."""
     import chip_smoke
-    N, S, H = 2, 192, 2
+    N, H = 2, 2
     rng = np.random.RandomState(D)
     qkv = torch.from_numpy(rng.randn(N, S, 3 * H * D).astype(
         np.float32)).to(cuda, dtype).requires_grad_()

@@ -48,6 +48,16 @@ PHASES = {"host_s": 0.25, "dispatch_s": 1.5, "device_wait_s": 0.25,
           "warmup_s": 3.0}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 def _script(name):
     spec = importlib.util.spec_from_file_location(
         f"jax_script_{name}", ROOT / "scripts" / f"{name}.py")

@@ -42,6 +42,16 @@ MESSAGES = [
      for m in jax_bench_common._TRANSIENT_MARKERS]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 @pytest.mark.parametrize("exc", MESSAGES, ids=lambda e: str(e)[:40])
 def test_is_transient_matches_jax(exc):
     assert bench_common.is_transient(exc) == jax_bench_common.is_transient(

@@ -55,6 +55,16 @@ FLASH_LOSS_RTOL = 5e-3
 TINY = dict(vocab_size=128, n_embd=64, n_layer=1, n_head=1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 def _sweep_script():
     spec = importlib.util.spec_from_file_location(
         "jax_script_gpt2_mfu_sweep", ROOT / "scripts" / "gpt2_mfu_sweep.py")

@@ -43,6 +43,16 @@ import torch_mesh_ranks as ranks  # noqa: E402
 ROWS = dict(mode="local_topk", error_type="local", k=5, local_momentum=0.9)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 def jax_file_path(directory: str) -> str:
     return os.path.join(directory, "jax_rows8")
 

@@ -77,6 +77,16 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_round_matches_reference(case):
     kw = CASES[case]

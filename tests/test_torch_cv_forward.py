@@ -76,6 +76,16 @@ FAMILIES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 def carried_weights(jm, tm, shape, noise=0.01, seed=0):
     """The JAX initialisation plus seeded noise on every leaf, float32:
     ``(numpy tree, flat vector)``."""

@@ -35,6 +35,16 @@ from commefficient_torch.models.resnet18 import FixupResNet18  # noqa: E402
 CIFAR, EMNIST = (32, 32, 3), (28, 28, 1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _runs_under_tmp(tmp_path, monkeypatch):
     """The entry points' default run directory (``runs/<stamp>_...``, the

@@ -23,6 +23,16 @@ from commefficient_torch.data.device_store import (  # noqa: E402
 from commefficient_torch.data.fed_emnist import FedEMNIST  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 def write_leaf_femnist(root, seed=3):
     """A tiny LEAF FEMNIST tree in the reference's on-disk format: train/
     and test/ directories of ``all_data_*.json`` files, each ``{"users",

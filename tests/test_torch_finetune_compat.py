@@ -46,6 +46,16 @@ from commefficient_torch.models.convert import params_from_jax  # noqa
 from commefficient_torch.models.resnet9 import ResNet9  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _runs_under_tmp(tmp_path, monkeypatch):
     """The entry points' default run directory (``runs/<stamp>_...``, the

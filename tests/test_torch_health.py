@@ -35,6 +35,16 @@ jhealth = pytest.importorskip("commefficient_tpu.telemetry.health")
 jpreempt = pytest.importorskip("commefficient_tpu.core.preempt")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 def id_stream(seed=7, rounds=60, slots=24, universe=5000):
     """A zipf head over a uniform tail, per round (ids, samples)."""
     rs = np.random.RandomState(seed)

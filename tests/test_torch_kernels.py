@@ -31,6 +31,16 @@ from commefficient_torch.ops.circulant import make_circulant_sketch
 D = 20_000
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 def _inputs(c, r, seed=10, device="cpu"):
     rng = np.random.RandomState(seed)
     v = torch.from_numpy(rng.randn(D).astype(np.float32)).to(device)

@@ -27,6 +27,16 @@ from commefficient_torch.parallel import spawn_ranks  # noqa: E402
 N = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """The file's one rank group and the JAX references, computed while

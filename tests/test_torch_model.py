@@ -28,6 +28,16 @@ from commefficient_torch.models.resnet9 import ResNet9  # noqa: E402
 CH = {"prep": 8, "layer1": 16, "layer2": 16, "layer3": 32}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 def _models(bn, channels=CH):
     jm = JResNet9(do_batchnorm=bn, num_classes=10, channels=channels)
     params = jm.init(jax.random.PRNGKey(0), jnp.ones((1, 32, 32, 3)))

@@ -40,6 +40,16 @@ W = 4          # clients a round
 B = 8          # local batch size
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 def j_loss(params, batch, mask):
     """Masked linear-regression MSE and mean absolute error."""
     pred = batch["x"] @ params["w"] + params["b"]

@@ -36,6 +36,16 @@ from chip_smoke import (NATIVE_PLAIN_ATOL,  # noqa: E402
 MEAN, STD = T.CIFAR10_MEAN, T.CIFAR10_STD
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 def _images(n=40, hw=32, seed=0):
     rng = np.random.RandomState(seed)
     return rng.randint(0, 256, (n, hw, hw, 3)).astype(np.uint8)

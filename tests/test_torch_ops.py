@@ -39,6 +39,16 @@ from commefficient_torch.ops import hashing, topk as ttopk  # noqa: E402
 D, R = 20_000, 5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 def _pair(c, d=D, r=R, seed=42):
     return (jcirc.make_circulant_sketch(d, c, r, seed=seed, pallas="off"),
             tcirc.make_circulant_sketch(d, c, r, seed=seed,

@@ -24,6 +24,16 @@ PACKAGES = {"jax": jpersona, "port": tpersona}
 KW = dict(max_seq_len=48, synthetic=True)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 @pytest.fixture
 def packs(monkeypatch):
     """Counts ``_pack_split`` calls of either package's FedPERSONA."""

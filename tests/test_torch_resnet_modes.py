@@ -52,6 +52,16 @@ MODES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_narrow_resnet9_rounds_match_reference(mode):
     kw = dict(COMMON, **MODES[mode])

@@ -59,6 +59,16 @@ DIFF_FLAGS = ["--count_slack", "1", "--wire_bytes_growth", "1.2",
               "--alert_slack", "1", "--coverage_stall", "0.01"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 def _load(name):
     spec = importlib.util.spec_from_file_location(
         f"jax_script_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))

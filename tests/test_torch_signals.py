@@ -64,6 +64,16 @@ NAN, INF = float("nan"), float("inf")
 D_FEAT = len(init_params()[1]) - 1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 class LaidToy(Toy):
     """The toy model with its flat layout, as the JAX tree {b, w}."""
 

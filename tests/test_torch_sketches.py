@@ -35,6 +35,16 @@ from commefficient_torch.ops.pytree import (make_unraveler,  # noqa: E402
 D = 20_011      # not a multiple of the block length
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 def _pair(d=D, c=3001, r=5, num_blocks=7, seed=42):
     return (jsketch.make_sketch(d, c, r, num_blocks, seed=seed),
             tsketch.make_sketch(d, c, r, num_blocks, seed=seed,

@@ -43,6 +43,16 @@ D_IN, H, L, C = 16, 32, 3, 5
 B = 6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Torch on one intra-op thread in this file: at these sizes more
+    threads only spin while the test run's other workers share the
+    machine's cores."""
+    import torch_mesh_ranks as ranks
+    with ranks.one_thread():
+        yield
+
+
 @pytest.fixture(scope="module")
 def J():
     """The JAX package's modules, imported on first use (the test skips
