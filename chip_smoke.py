@@ -11,7 +11,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    each K3 kernel's registers and shared memory (``cuobjdump -res-usage``
    and the launch's dynamic shared memory) and count its HGMMA (wgmma)
    and UTMALDG (TMA load) instructions in the library's SASS (``cuobjdump
-   -sass``): all three K3 kernels must hold both; count by pipe the
+   -sass``): every kernel of ``flash_attention.cu`` (WGMMA_KERNELS: the
+   bf16 D = 64 forward, dq and dk/dv, the bf16 dq and dk/dv at D = 32
+   and 128) must hold both, and ptxas's spills of each are printed;
+   count by pipe the
    instructions K1 and K2 issue per (row, coordinate) term at r = 5, in
    the SASS block that holds the most sign hashes, beside what a term
    needs (SIGN_HASH, K1's index step, K2's share of its median network
@@ -84,17 +87,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    first backward) gives the direct calls' bits; time
    the kernels, the plain versions and ``scaled_dot_product_attention``
    (forward, backward and both) beside each kernel's bound; then every
-   route of ``flash_tiled.cu`` (``phase_flash_routes``: float32 at D =
-   16, 32, 64, 128, bf16 at 16, 32, 128) against its plain version at
-   (8, 1024 and 256, 768 / D, D), two calls bitwise, the check rejecting
-   a forward that skips one key tile (``planted_drops``), each kernel timed
-   beside its bound (float32 at the 3xTF32 rate, the FFMA rate's bound
-   printed beside it) and SDPA, whose kernels are named
-   (``sdpa_kernels``), and the routes' GPT-2 paths
-   (``phase_gpt2_routes``). ``python3 chip_smoke.py --slice19`` runs
-   the build, these and the split round's decode half alone,
-   ``--slice21`` the build, ``phase_tiled_sass`` and these alone (no
-   result line);
+   route with a kernel in ``flash_tiled.cu`` (``phase_flash_routes``:
+   float32 at D = 16, 32, 64, 128, bf16 at 16, 32, 128, the bf16
+   backward being ``flash_attention.cu``'s) against
+   its plain version at (8, 1024 and 256, 768 / D, D), two calls
+   bitwise, the check rejecting a forward that skips one key tile
+   (``planted_drops``) and, for the ``flash_attention.cu`` backward, a
+   dq and a dk/dv that each skip one tile, each kernel timed beside its
+   bound (float32 at the 3xTF32 rate, the FFMA rate's bound printed
+   beside it) and SDPA, whose kernels are named (``sdpa_kernels``), and
+   the routes' GPT-2 paths (``phase_gpt2_routes``; the bf16 D = 16, 32
+   and 128 forms at GPT-2 small's depth, 12 layers, ``model_route_steps``).
+   ``python3 chip_smoke.py --slice19`` runs the build, these and the
+   split round's decode half alone, ``--slice21`` the build,
+   ``phase_sass``, ``phase_tiled_sass`` and these alone (no result
+   line);
 4. small-input checks: three rounds of a narrow ResNet-9 on the card
    (float32, TF32 off) against the same rounds on the CPU, whose wrappers
    take the plain versions, on the float32 and on the int8 wire; a narrow GPT-2 (2 layers, width 128, 2 heads
@@ -347,6 +354,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -483,8 +491,17 @@ FLASH_SHAPES = ((8, 1024, 12, 64), (8, 256, 12, 64), (8, 2048, 12, 64),
 # a planted fault skips this many keys or queries: finer than the
 # 128-wide tiles of every K3 kernel
 FLASH_TILE = 64
-# kernels built from wgmma fed by TMA: their SASS must hold both
+# the bf16 D = 64 route: K3's kernels on GPT-2's paths
 HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# flash_attention.cu's kernels, built from wgmma fed by TMA, each by its C
+# entry point and its instantiation's mangled mark: their SASS must hold
+# both of HOPPER_SASS
+WGMMA_KERNELS = {
+    "flash_fwd": "flash_fwd_kernel",
+    "flash_bwd_dq": "flash_bwd_dq_kernelILi64E",
+    "flash_bwd_dkv": "flash_bwd_dkv_kernelILi64E",
+    **{f"flash_bwd_{kind}_bf16_d{D}": f"flash_bwd_{kind}_kernelILi{D}E"
+       for D in (16, 32, 128) for kind in ("dq", "dkv")}}
 HOPPER_SASS = ("HGMMA", "UTMALDG")
 # flash_tiled.cu's float32 kernels (forward, dq, dk/dv), each by its C
 # entry point and its instantiation's mangled mark: 3xTF32 products on the
@@ -665,16 +682,18 @@ def phase_sketch_sass():
 
 
 def phase_sass():
-    """Registers, shared memory and the wgmma/TMA instruction counts of each
-    K3 kernel, read from the built library with the toolkit's cuobjdump.
-    Fails if a kernel of HOPPER_KERNELS lacks HGMMA or UTMALDG."""
+    """Registers, shared memory, spills and the wgmma/TMA instruction
+    counts of each kernel of ``flash_attention.cu`` (WGMMA_KERNELS), read
+    from the built library with the toolkit's cuobjdump (spills from the
+    build's ptxas output, when this run compiled it). Fails if a kernel
+    lacks HGMMA or UTMALDG."""
     from commefficient_torch.ops import flash_attention as FA
 
     def kernel_of(line):
-        return next((name for name in HOPPER_KERNELS
-                     if f"{name}_kernel" in line), None)
+        return next((name for name, mark in WGMMA_KERNELS.items()
+                     if mark in line), None)
 
-    out = {name: dict.fromkeys(HOPPER_SASS, 0) for name in HOPPER_KERNELS}
+    out = {name: dict.fromkeys(HOPPER_SASS, 0) for name in WGMMA_KERNELS}
     name = None
     for line in cuobjdump("-sass", FA.SOURCE):
         if "Function :" in line:
@@ -689,20 +708,24 @@ def phase_sass():
             use = dict(f.split(":", 1) for f in line.split() if ":" in f)
             out[name]["registers"] = int(use["REG"])
             out[name]["static_smem"] = int(use["SHARED"])
+    spills = {kernel_of(m): nums for m, nums in ptxas_spills(
+        BUILD_LOGS.get(FA.SOURCE, "")).items() if kernel_of(m)}
     lib_fa = FA._lib()
-    dynamic = {"flash_fwd": lib_fa.flash_fwd_smem_bytes(),
-               "flash_bwd_dq": lib_fa.flash_bwd_dq_smem_bytes(),
-               "flash_bwd_dkv": lib_fa.flash_bwd_dkv_smem_bytes()}
     for name, use in out.items():
-        use["dynamic_smem"] = dynamic[name]
+        use["dynamic_smem"] = getattr(lib_fa, f"{name}_smem_bytes")()
+        sp = spills.get(name)
+        use["spill_store_bytes"] = sp[1] if sp else None
         print(f"[sass] {name}: {use.get('registers')} registers at launch, "
               f"shared memory {use.get('static_smem')} B static + "
-              f"{use['dynamic_smem']} B dynamic; SASS: "
+              f"{use['dynamic_smem']} B dynamic; ptxas "
+              + (f"{sp[1]} B spill stores, {sp[2]} B spill loads" if sp
+                 else "spills not in this run's build log")
+              + "; SASS: "
               + ", ".join(f"{use[op]} {op}" for op in HOPPER_SASS),
               flush=True)
         if "registers" not in use:
             fail(f"cuobjdump -res-usage reported nothing for {name}")
-    lacking = [f"{name} ({op})" for name in HOPPER_KERNELS
+    lacking = [f"{name} ({op})" for name in WGMMA_KERNELS
                for op in HOPPER_SASS if out[name][op] == 0]
     if lacking:
         fail(f"K3 kernels without wgmma/TMA in SASS: {lacking}")
@@ -1424,21 +1447,16 @@ def phase_flash(shapes=FLASH_SHAPES):
         # the check must reject a kernel that skips one tile of its walk
         drops = planted_drops(S, q.device)
         fwd_f = attention_skipping(q, k, v, drops["flash_fwd"])
-        delta_ref = plain_delta(o, do)
-        dq_f = attention_skipping(q, k, v, drops["flash_bwd_dq"], do,
-                                  lse_ref, delta_ref)[0]
-        dk_f, dv_f = attention_skipping(q, k, v, drops["flash_bwd_dkv"], do,
-                                        lse_ref, delta_ref)[1:]
-        for name, outs in (("flash_fwd", {"o": fwd_f[0], "lse": fwd_f[1]}),
-                           ("flash_bwd_dq", {"dq": dq_f}),
-                           ("flash_bwd_dkv", {"dk": dk_f, "dv": dv_f})):
+        faults = {"flash_fwd": {"o": fwd_f[0], "lse": fwd_f[1]},
+                  **planted_backward(q, k, v, do, o, lse_ref, drops)}
+        for name, outs in faults.items():
             planted = worst(outs)
             print(f"[flash] S={S}, planted fault in {name} (one tile "
                   f"skipped): worst row error {planted}", flush=True)
             if passes(planted):
                 fail(f"the K3 check passed a planted fault in {name} at "
                      f"S={S}: {planted}")
-        del fwd_f, dq_f, dk_f, dv_f, delta_ref
+        del fwd_f, faults
         # no atomics: a second call repeats every bit
         o2, lse2 = FA.forward(q, k, v)
         dq2, delta2 = FA.backward_dq(q, k, v, o, lse, do)
@@ -1514,6 +1532,20 @@ def phase_flash(shapes=FLASH_SHAPES):
         for name, entry in per_shape[main].items()}
 
 
+def planted_backward(q, k, v, do, o, lse, drops) -> dict:
+    """The outputs of a dq kernel and of a dk/dv kernel that each skip one
+    tile of their walk (``planted_drops``), from the forward's ``o`` and
+    the plain ``lse``: {"flash_bwd_dq": {"dq": ...}, "flash_bwd_dkv":
+    {"dk": ..., "dv": ...}}."""
+    delta = plain_delta(o, do)
+    dq = attention_skipping(q, k, v, drops["flash_bwd_dq"], do, lse,
+                            delta)[0]
+    _, dk, dv = attention_skipping(q, k, v, drops["flash_bwd_dkv"], do, lse,
+                                   delta)
+    return {"flash_bwd_dq": {"dq": dq}, "flash_bwd_dkv": {"dk": dk,
+                                                          "dv": dv}}
+
+
 def flash_route_errors(q, k, v, do, got):
     """``(errors, ok)`` of K3's outputs ``got`` (o, and any of lse, dq,
     dk, dv) against the plain versions on the same inputs (the backward's
@@ -1569,23 +1601,25 @@ def sdpa_kernels(dtype, D, sdpa, o_s, leaves, dot):
 
 
 def phase_flash_routes():
-    """Every route of ``flash_tiled.cu`` (float32 at D = 16, 32, 64 and
-    128; bf16 at D = 16, 32 and 128) at (8, 1024, 768 / D, D) and (8, 256,
-    768 / D, D), GPT-2 small's width in heads of D: o, lse, dq, dk and dv
-    against the plain versions (``flash_route_errors``), a second call of
-    each kernel bitwise the first, the same check failing a forward that
-    skips one key tile (``planted_drops``), and each kernel timed beside
-    its bound,
-    the plain versions and SDPA (the library call, timed here only).
-    Returns {kernel name: its entry at S = 1024, S = 256's under
-    ``at_shapes``}."""
+    """Every route with a kernel in ``flash_tiled.cu`` (float32 at D = 16,
+    32, 64 and 128; bf16 at D = 16, 32 and 128, whose backward is
+    ``flash_attention.cu``'s) at (8, 1024, 768 / D, D) and (8,
+    256, 768 / D, D), GPT-2 small's width in heads of D: o, lse, dq, dk
+    and dv against the plain versions (``flash_route_errors``), a second
+    call of each kernel bitwise the first, the same check failing a
+    forward that skips one key tile (``planted_drops``) and, for the
+    backward kernels of ``flash_attention.cu``, a dq that skips key tile
+    0 for the second half's rows and a dk/dv that skips the last query
+    tile, and each kernel timed beside its bound, the plain versions and
+    SDPA (the library call, timed here only). Returns {kernel name: its
+    entry at S = 1024, S = 256's under ``at_shapes``}."""
     import torch
     import torch.nn.functional as F
     from commefficient_torch.ops import flash_attention as FA
 
     out = {}
     for (dtype, D), r in FA.ROUTES.items():
-        if r.source != FA.TILED_SOURCE:
+        if FA.TILED_SOURCE not in r.sources:
             continue
         f32 = dtype == torch.float32
         for N, S, H, D in ((8, 1024, 768 // D, D), (8, 256, 768 // D, D)):
@@ -1605,26 +1639,39 @@ def phase_flash_routes():
                        ((o, o2), (lse, lse2), (dq, dq2), (delta, delta2),
                         (dk, dk2), (dv, dv2)))
             del o2, lse2, dq2, delta2, dk2, dv2
-            # the check must reject a forward that skips one key tile
-            o_f, lse_f = attention_skipping(
-                q, k, v, planted_drops(S, q.device)["flash_fwd"])
+            # the check must reject a forward that skips one key tile,
+            # and a wgmma backward kernel that skips one tile of its walk
+            drops = planted_drops(S, q.device)
+            o_f, lse_f = attention_skipping(q, k, v, drops["flash_fwd"])
             planted, caught = flash_route_errors(q, k, v, do,
                                                  {"o": o_f, "lse": lse_f})
             caught = not caught
             del o_f, lse_f
+            if r.sources[1] == FA.SOURCE:
+                for fault, outs in planted_backward(
+                        q, k, v, do, o, FA.forward_plain(q, k, v)[1],
+                        drops).items():
+                    errs_f, ok_f = flash_route_errors(
+                        q, k, v, do, {"o": o, **outs})
+                    planted.update({f"{fault} {n}": e
+                                    for n, e in errs_f.items() if n != "o"})
+                    caught = caught and not ok_f
             print(f"[flash {dtype} D={D}] {shape}: "
                   + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
                   + (f" (largest difference over the largest value, limit "
                      f"{FLASH_F32_RTOL})" if f32 else
                      f" (worst row error, limit {FLASH_ROW_RTOL}; lse "
                      f"{FLASH_LSE_ATOL})")
-                  + f"; a second call bitwise: {same}; a forward that "
-                  f"skips key tile 0 for the second half's rows: "
+                  + f"; a second call bitwise: {same}; planted faults (a "
+                  f"forward or dq that skips key tile 0 for the second "
+                  f"half's rows, a dk/dv that skips the last query tile): "
                   + ", ".join(f"{n} {e:.3e}" for n, e in planted.items())
-                  + f" (rejected: {caught})", flush=True)
+                  + f" (each rejected: {caught}); libraries "
+                  + ", ".join(f"{n} {src}" for n, src in
+                              zip(r.names, r.sources)), flush=True)
             if not ok or not same or not caught:
                 fail(f"K3 {dtype} D={D} at {shape}: {errs}, deterministic "
-                     f"{same}, a skipped forward tile rejected {caught}")
+                     f"{same}, each planted fault rejected {caught}")
             ms = {r.fwd: time_ms(lambda: FA.forward(q, k, v), n=10),
                   r.dq: time_ms(lambda: FA.backward_dq(q, k, v, o, lse, do),
                                 n=10),
@@ -1855,12 +1902,20 @@ def phase_gpt2_reference():
 # SMALL_ROUTE_WORKERS clients a round, so each round launches n_layer x
 # clients of each kernel of the bf16 D = 16 route; and, for the routes
 # that no gpt2_train configuration reaches, GPT2DoubleHeads at GPT-2
-# small's width (768) in heads of D, 2 layers, one training-loss forward
-# and backward of (2, 2, 1024) tokens
+# small's width (768) in heads of D, (dtype, D, layers): the bf16 forms
+# whose backward is flash_attention.cu's templates at GPT-2 small's full
+# depth (D = 16 also, beside its GPT2Config.small round), the float32 ones
+# at 2 layers, each step a training-loss forward and backward of (2, 2,
+# 1024) tokens, MODEL_ROUTE_STEPS of them (the first warms up)
 SMALL_ROUTE_WORKERS = 4
 SMALL_ROUTE_ROUNDS = 2
-MODEL_ROUTE_FORMS = (("bfloat16", 32), ("bfloat16", 128), ("float32", 16),
-                     ("float32", 32), ("float32", 128))
+MODEL_ROUTE_FORMS = (("bfloat16", 16, 12), ("bfloat16", 32, 12),
+                     ("bfloat16", 128, 12), ("float32", 16, 2),
+                     ("float32", 32, 2), ("float32", 128, 2))
+MODEL_ROUTE_STEPS = 3
+# K3's kernel functions in either library, as the profiler names them
+K3_KERNEL_NAMES = re.compile(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv|"
+                             r"(fwd|dq|dkv)_(bf16|f32))_kernel")
 
 
 def phase_gpt2_routes():
@@ -1874,14 +1929,12 @@ def phase_gpt2_routes():
     --max_seq_len 128`` (``GPT2Config.small``: bf16, D = 16), every round
     2 x SMALL_ROUTE_WORKERS of each bf16 D = 16 kernel and no other; (3)
     each of MODEL_ROUTE_FORMS through ``GPT2DoubleHeads`` and its
-    training loss, n_layer launches of each of the form's kernels, a
-    finite loss and gradient. Returns ({path: launches}, {path: (median
-    round ms, peak bytes)})."""
+    training loss (``model_route_steps``), every step n_layer launches of
+    each of the form's kernels, a finite loss and gradient. Returns
+    ({path: launches}, {path: (median round or step ms, peak bytes)})."""
     import numpy as np
     import torch
     from commefficient_torch import gpt2_train
-    from commefficient_torch.losses import make_gpt2_train_loss
-    from commefficient_torch.models.gpt2 import GPT2Config, GPT2DoubleHeads
     from commefficient_torch.ops import circulant_kernels as K
     from commefficient_torch.ops import flash_attention as FA
 
@@ -1927,44 +1980,99 @@ def phase_gpt2_routes():
           f"{[round(float(x), 5) for x in out['losses']]}, K3 a round "
           f"{per_round[0]}, the run's K3 {nonzero(total)}", flush=True)
 
-    rng = np.random.RandomState(7)
-    for dtype_name, D in MODEL_ROUTE_FORMS:
-        dtype = getattr(torch, dtype_name)
-        r = FA.route(dtype, D)
-        gcfg = GPT2Config(vocab_size=8192, n_embd=768, n_layer=2,
-                          n_head=768 // D, compute_dtype=dtype)
-        model = GPT2DoubleHeads(gcfg, attn_impl="flash",
-                                generator=torch.Generator().manual_seed(0)
-                                ).cuda()
-        batch = {key: torch.from_numpy(val[0]).long().cuda()
-                 for key, val in narrow_gpt2_batch(
-                     rng, 1, 2, 2, 1024, gcfg.vocab_size).items()}
-        w = model.flat.detach().clone().requires_grad_(True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        FA.reset_launches()
-        t0 = time.perf_counter()
-        loss, _ = make_gpt2_train_loss(model)(
-            w, batch, torch.ones(2, dtype=torch.bool, device="cuda"))
-        (g,) = torch.autograd.grad(loss, w)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3
-        launches = dict(FA.launches)
-        tag = (f"GPT2DoubleHeads {dtype_name} D={D} (768 wide, "
-               f"{gcfg.n_head} heads, 2 layers)")
-        loss = loss.detach()
-        print(f"[routes] {tag}: loss {float(loss):.5f}, gradient finite "
-              f"{bool(torch.isfinite(g).all())}, K3 {nonzero(launches)}, "
-              f"{step_ms:.1f} ms (first call)", flush=True)
-        if nonzero(launches) != dict.fromkeys(r.names, gcfg.n_layer) or \
-                not math.isfinite(float(loss)) or \
-                not bool(torch.isfinite(g).all()):
-            fail(f"{tag}: loss {float(loss)}, launches {nonzero(launches)}")
+    for dtype_name, D, n_layer in MODEL_ROUTE_FORMS:
+        tag, launches, step_ms, peak, _ = model_route_steps(
+            getattr(torch, dtype_name), D, n_layer)
         paths[tag] = launches
-        runs[tag] = (step_ms, torch.cuda.max_memory_allocated())
-        del model, w, g, loss, batch
-        torch.cuda.empty_cache()
+        runs[tag] = (step_ms, peak)
     return paths, runs
+
+
+def model_route_steps(dtype, D: int, n_layer: int,
+                      steps: int = MODEL_ROUTE_STEPS, profile: bool = False):
+    """``GPT2DoubleHeads`` at GPT-2 small's width (768) in heads of D,
+    ``n_layer`` layers, flash attention in ``dtype``: ``steps`` training
+    loss forwards and backwards of one seeded (2, 2, 1024) batch, K3's
+    counts set to 0 just before each step and read just after. Fails
+    unless every step launches exactly n_layer of each of the form's
+    kernels and no other, with a finite loss and gradient. With
+    ``profile``, one more step under ``torch.profiler``: its device busy
+    time (the union of its kernels' intervals) and its K3 kernels' sum,
+    in ms. Returns (tag, the launches of all steps, the median host ms of
+    the steps after the first, the peak bytes, the profiled step's
+    {"busy_ms", "k3_ms"} or None)."""
+    import numpy as np
+    import torch
+    from commefficient_torch import profile_round
+    from commefficient_torch.losses import make_gpt2_train_loss
+    from commefficient_torch.models.gpt2 import GPT2Config, GPT2DoubleHeads
+    from commefficient_torch.ops import flash_attention as FA
+
+    r = FA.route(dtype, D)
+    dtype_name = str(dtype).split(".")[-1]
+    gcfg = GPT2Config(vocab_size=8192, n_embd=768, n_layer=n_layer,
+                      n_head=768 // D, compute_dtype=dtype)
+    model = GPT2DoubleHeads(gcfg, attn_impl="flash",
+                            generator=torch.Generator().manual_seed(0)
+                            ).cuda()
+    batch = {key: torch.from_numpy(val[0]).long().cuda()
+             for key, val in narrow_gpt2_batch(
+                 np.random.RandomState(7), 1, 2, 2, 1024,
+                 gcfg.vocab_size).items()}
+    w = model.flat.detach().clone().requires_grad_(True)
+    loss_fn = make_gpt2_train_loss(model)
+    mask = torch.ones(2, dtype=torch.bool, device="cuda")
+    tag = (f"GPT2DoubleHeads {dtype_name} D={D} (768 wide, "
+           f"{gcfg.n_head} heads, {n_layer} layers)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = dict.fromkeys(FA.launches, 0)
+    times, losses, busy = [], [], None
+
+    def step():
+        loss, _ = loss_fn(w, batch, mask)
+        return loss, torch.autograd.grad(loss, w)[0]
+
+    for i in range(steps + int(profile)):
+        FA.reset_launches()
+        if i < steps:
+            t0 = time.perf_counter()
+            loss, g = step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        else:
+            out = []
+            _, kernels, _ = profile_round._profiled(
+                lambda: out.extend(step()))
+            loss, g = out
+            busy = {"busy_ms": profile_round._busy_us(
+                [(e.time_range.start, e.time_range.end)
+                 for e in kernels]) / 1e3,
+                "k3_ms": sum(e.time_range.end - e.time_range.start
+                             for e in kernels
+                             if K3_KERNEL_NAMES.search(e.name)) / 1e3}
+        launches = dict(FA.launches)
+        loss = float(loss.detach())
+        losses.append(loss)
+        finite = bool(torch.isfinite(g).all())
+        if nonzero(launches) != dict.fromkeys(r.names, n_layer) or \
+                not math.isfinite(loss) or not finite:
+            fail(f"{tag}: loss {loss}, gradient finite {finite}, launches "
+                 f"{nonzero(launches)}")
+        for n, c in launches.items():
+            total[n] += c
+        del g
+    step_ms = statistics.median(times[1:]) if steps > 1 else times[0]
+    print(f"[routes] {tag}: losses {[round(x, 5) for x in losses]}, "
+          f"gradient finite, K3 a step {nonzero(launches)}, steps (ms) "
+          + ", ".join(f"{t:.1f}" for t in times)
+          + f": median after the first {step_ms:.3f} ms"
+          + (f"; a profiled step: device busy {busy['busy_ms']:.3f} ms, "
+             f"K3 {busy['k3_ms']:.3f} ms" if busy else ""), flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    del model, w, batch
+    torch.cuda.empty_cache()
+    return tag, total, step_ms, peak, busy
 
 
 # where the phases' CIFAR directories are written (a temporary directory
@@ -6774,11 +6882,12 @@ def main() -> int:
             time_done("slice 19 (partial run: no result line)")
             return 0
         if sys.argv[1:2] == ["--slice21"]:
-            # K3's tiled kernels (the float32 kernels on the TF32 tensor
-            # cores, the bf16 forwards by asynchronous copies): the build,
-            # their SASS, every tiled route against its plain version and
-            # SDPA, and the routes' GPT-2 paths (no result line)
+            # K3's kernels but the D = 64 main path's: the build, the SASS
+            # of every kernel of both libraries, every route with a tiled
+            # kernel against its plain version and SDPA with the planted
+            # faults, and the routes' GPT-2 paths (no result line)
             phase_build()
+            phase_sass()
             phase_tiled_sass()
             run_slice19()
             time_done("slice 21 (partial run: no result line)")
@@ -6804,6 +6913,7 @@ def main() -> int:
 
 def run_phases(t0: float) -> int:
     import torch
+    from commefficient_torch.ops import flash_attention as FA
 
     def done(phase: str) -> None:
         print(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s",
@@ -7114,6 +7224,8 @@ def run_phases(t0: float) -> int:
             "replaces": f"{gpt2_file}:106 -> {LIBRARY_FLASH}:{line}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **flash[name], "resources": resources[name]})
+    source_of = {n: r.source_of(n) for r in FA.ROUTES.values()
+                 for n in r.names}
     for name, entry in routes.items():
         by_path = {path: launches[name]
                    for path, launches in route_paths.items()
@@ -7122,7 +7234,7 @@ def run_phases(t0: float) -> int:
             name.split("_", 1)[1].rsplit("_", 2)[0]]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "commefficient_torch/csrc/flash_tiled.cu",
+            "source": f"commefficient_torch/csrc/{source_of[name]}",
             "replaces": f"{gpt2_file}:106 -> {LIBRARY_FLASH}:{line}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **entry, **({"resources": resources[name]}

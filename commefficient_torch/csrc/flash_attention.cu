@@ -1,12 +1,14 @@
-// Causal flash attention for Hopper (sm_90a): forward, dq and dk/dv.
+// Causal flash attention for Hopper (sm_90a) in bf16: forward, dq and
+// dk/dv at head width D = 64 (GPT-2's), and dq and dk/dv at D = 16, 32
+// and 128 (their forwards are flash_tiled.cu's).
 //
 // Replaces the library Pallas TPU kernel that the JAX package's
 // models/gpt2.py flash_causal_attention calls
 // (jax.experimental.pallas.ops.tpu.flash_attention):
 //   flash_fwd     <- _flash_attention_impl (forward, writes o and the
 //                    row statistics the backward reads)
-//   flash_bwd_dq  <- _flash_attention_bwd_dq
-//   flash_bwd_dkv <- _flash_attention_bwd_dkv
+//   flash_bwd_dq, flash_bwd_dq_bf16_d<16|32|128>   <- _flash_attention_bwd_dq
+//   flash_bwd_dkv, flash_bwd_dkv_bf16_d<16|32|128> <- _flash_attention_bwd_dkv
 //
 // What it computes, per sequence n and head h (q, k, v: S x D, bf16):
 //
@@ -24,7 +26,7 @@
 // follows a kernel. Rows must start on 16-byte boundaries (the wrapper
 // checks the pointers and strides).
 //
-// All three kernels are warp-specialised wgmma kernels fed by TMA. A
+// All the kernels are warp-specialised wgmma kernels fed by TMA. A
 // persistent grid, one CTA per SM, each CTA of three warpgroups: a
 // producer whose one elected thread issues TMA loads (cp.async.bulk.tensor
 // through a 4-D (D, H, S, N) tensor map of the strided operand, 128-byte
@@ -68,6 +70,28 @@
 //   operands and dO, q read MN-major. A query tile that lies wholly before
 //   a consumer's keys is skipped. dk (x 1/sqrt(D)) and dv are written once
 //   each as bf16.
+// The two backward kernels are templates over D (Bw<D> lays each width
+// out); their D = 64 instantiations are the kernels above, the same SASS
+// instruction for instruction as before the templates. The other widths:
+//   D = 32 and 16: rows of 64 and 32 bytes under the 64-byte and 32-byte
+//   swizzles (TMA and the wgmma descriptors' layout field agree; the
+//   group stride 512 and 256 bytes); every tile and stage as at D = 64,
+//   so the products are the same shapes with a half or a quarter of the
+//   depth (dq += ds k m64n32k16 and m64n16k16, dk and dv too), and the
+//   item's elementwise work, one exp2 per score, two and four times D =
+//   64's per FLOP, is what bounds them. At D = 16 a quad's four threads
+//   read 8 bytes each of a 32-byte row for delta.
+//   D = 128: each tile in two parts of 64 columns, each a 128-byte-
+//   swizzled TMA box of its own, part 1 R rows x 128 bytes after part 0;
+//   a K-major operand steps into part 1 after four 16-deep slices, an
+//   MN-major one (n128) reads part 1 through the descriptor's leading byte
+//   offset. dq takes 64 keys a stage (s and dp m64n64, 32 floats a thread
+//   each beside dq's 64) and one buffer of Q and dO (231,008 bytes of
+//   shared memory with O and four stages), so the first consumer's rows
+//   end one key tile before the item's diagonal: it releases that stage
+//   unread, once it has landed. dk/dv takes 32 queries a stage (s^T and
+//   dp^T m64n32, 16 floats a thread each beside dk's and dv's 64 each):
+//   no spills at 240 registers.
 // No atomics anywhere, so two calls give the same bits. p and ds round to
 // bf16 only as product operands, in all three kernels. The TPU kernel's
 // block structure (512-wide blocks, the sequential grid that carries the
@@ -86,19 +110,27 @@
 // main shape); dk/dv does one against 512. Measured on an NVIDIA H100
 // 80GB HBM3 at a 700 W limit (chip_smoke.py): forward 0.047 ms (272
 // TFLOP/s), dq 0.054 ms (359-361 TFLOP/s), dk/dv 0.075 ms (343-346
-// TFLOP/s).
+// TFLOP/s). At (8, 1024, 768 / D, D) the other widths do the same FLOPs
+// (dq's bound 0.023 ms by bytes, dk/dv's 0.026 by operations) with two
+// and four times the exp2 at D = 32 and 16, half at D = 128; measured
+// (scripts/k3_tiled_ab.py, interleaved with the mma.sync pair they
+// replace) dq 0.118 / 0.073 / 0.054 ms and dk/dv 0.154 / 0.101 / 0.078 at
+// D = 16 / 32 / 128, each pair below SDPA's backward (0.447 / 0.259 /
+// 0.145).
 //
-// Build (nvcc -Xptxas -v, sm_90a): all three kernels 168 registers at
-// launch (384 threads; 24 for the producer, 240 for the consumers after
+// Build (nvcc -Xptxas -v, sm_90a): every kernel 168 registers at launch
+// (384 threads; 24 for the producer, 240 for the consumers after
 // setmaxnreg), no spills, no wgmma serialisation; 164,992 (forward),
 // 215,152 (dq: Q and dO x 2, O, 4 stages of K and V, lse) and 134,240
-// (dk/dv) bytes of dynamic shared memory: one CTA an SM.
+// (dk/dv) bytes of dynamic shared memory at D = 64; dq 55,408 / 108,656 /
+// 231,008 and dk/dv 35,936 / 68,704 / 198,752 at D = 16 / 32 / 128: one
+// CTA an SM.
 //
 // Interface: plain C, loaded with ctypes. Each function launches on the
 // given stream and returns cudaGetLastError() (0 on success),
-// cudaErrorInvalidValue for a shape it does not take (D != 64, S not a
-// multiple of 64), -1 when the driver refuses a tensor map, or the error
-// of raising the kernel's shared-memory limit.
+// cudaErrorInvalidValue for a shape it does not take (D not its width, S
+// not a multiple of 64), -1 when the driver refuses a tensor map, or the
+// error of raising the kernel's shared-memory limit.
 
 #include <cmath>
 #include <cstdint>
@@ -129,11 +161,12 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-constexpr int kHeadDim = 64;                    // the one D compiled
+constexpr int kHeadDim = 64;                    // the forward's D
 
-bool bad_shape(int N, int S, int H, int D) {
-  return D != kHeadDim || S <= 0 || S % kTile != 0 || N <= 0 ||
-         N > 65535 || H <= 0 || H > 65535;
+// A shape the kernel of head width `want` does not take.
+bool bad_shape(int N, int S, int H, int D, int want) {
+  return D != want || S <= 0 || S % kTile != 0 || N <= 0 || N > 65535 ||
+         H <= 0 || H > 65535;
 }
 
 Strides at(const long long* s, int i) {
@@ -144,17 +177,16 @@ Strides at(const long long* s, int i) {
 // Hopper: TMA into an mbarrier ring, wgmma, producer and consumer
 // warpgroups.
 
-constexpr int kBlock = 128;       // forward: query rows of a work item and
-                                  // keys of a stage; dk/dv: keys of an item
-constexpr int kQBlock = 64;       // dk/dv: query rows of a stage
+constexpr int kBlock = 128;       // rows of a work item (queries of the
+                                  // forward and dq, keys of dk/dv); keys
+                                  // of a forward stage
+constexpr int kQBlock = 64;       // dk/dv: query rows of a stage (D <= 64)
 constexpr int kStages = 4;        // depth of the TMA ring
 constexpr int kWg = 128;          // threads of a warpgroup
 constexpr int kWsThreads = 3 * kWg;           // producer + two consumers
 constexpr int kConsumerThreads = 2 * kWg;
 constexpr uint32_t kRowBytes = 2 * kHeadDim;  // 128: the swizzle span
 constexpr uint32_t kBlockBytes = kBlock * kRowBytes;     // 16 KB
-constexpr uint32_t kQBlockBytes = kQBlock * kRowBytes;   // 8 KB
-constexpr uint32_t kStatBytes = 4 * kQBlock;  // a stage's lse or delta
 constexpr int kEncodeFailed = -1;             // a tensor map was refused
 
 // Shared memory of the forward, from a 1024-byte aligned base (the
@@ -164,21 +196,89 @@ constexpr int kEncodeFailed = -1;             // a tensor map was refused
 constexpr uint32_t kFwdK = 2 * kBlockBytes;
 constexpr uint32_t kFwdBar = kBlockBytes * (2 + 2 * kStages);
 constexpr uint32_t kFwdSmem = kFwdBar + 8 * (4 + 3 * kStages) + 1024;
-// dk/dv: two K, V buffers, kStages stages of Q and dO, the stages' lse and
-// delta, then the barriers kv[2], kv_empty[2], full[s], empty[s].
-constexpr uint32_t kDkvStage = 4 * kBlockBytes;
-constexpr uint32_t kDkvStat = kDkvStage + 2 * kStages * kQBlockBytes;
-constexpr uint32_t kDkvBar = kDkvStat + 2 * kStages * kStatBytes;
-constexpr uint32_t kDkvSmem = kDkvBar + 8 * (4 + 2 * kStages) + 1024;
-// dq: two buffers of Q and dO (dO kBlockBytes after Q), one O buffer (read
-// once an item, for delta), kStages stages of K and V, the two buffers'
-// lse, then the barriers q[2], q_empty[2], o, o_empty, full[s], empty[s].
-constexpr uint32_t kDqO = 4 * kBlockBytes;
-constexpr uint32_t kDqK = 5 * kBlockBytes;
-constexpr uint32_t kDqStat = kDqK + 2 * kStages * kBlockBytes;
-constexpr uint32_t kDqBar = kDqStat + 2 * 4 * kBlock;
-constexpr uint32_t kDqSmem = kDqBar + 8 * (6 + 2 * kStages) + 1024;
-static_assert(kDqSmem <= 232448, "dq exceeds an SM's shared memory");
+
+// The backward kernels' layout at head width D = 16, 32, 64 or 128. A
+// tile of R rows of an operand lies in shared memory as TMA wrote it: in
+// kParts parts of R rows x kAtom columns, part p at p R kRowBytes, each
+// part one TMA box under the swizzle that spans its row (D = 64: 128-byte
+// rows, the 128-byte swizzle; D = 32: 64-byte rows, the 64-byte swizzle;
+// D = 16: 32-byte rows, the 32-byte swizzle; D = 128: two parts of
+// 128-byte rows, the 128-byte swizzle). The swizzle repeats every 8 rows
+// (kGroupBytes).
+template <int D>
+struct Bw {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "the backward kernels take D = 16, 32, 64 or 128");
+  static constexpr int kAtom = D < 64 ? D : 64;
+  static constexpr int kParts = D / kAtom;
+  static constexpr uint32_t kRowBytes = 2 * kAtom;
+  static constexpr uint32_t kGroupBytes = 8 * kRowBytes;
+  // the descriptor's layout field: 1 the 128-byte swizzle, 2 the 64-byte,
+  // 3 the 32-byte
+  static constexpr uint64_t kLayout =
+      kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  __host__ __device__ static constexpr uint32_t tile_bytes(int rows) {
+    return rows * 2u * D;
+  }
+  // dq: an item's Q and dO (dO kDqQBytes after Q) in kDqBufs buffers, one
+  // O tile (read once an item, for delta), kStages stages of kDqKeys keys
+  // of K and V, the buffers' lse, then the barriers q[kDqBufs],
+  // q_empty[kDqBufs], o, o_empty, full[s], empty[s]. At D = 128 the stages
+  // take 64 keys (s and dp, 64 floats a thread each, beside dq's 64) and
+  // Q and dO one buffer (shared memory).
+  static constexpr int kDqKeys = D == 128 ? 64 : kBlock;
+  static constexpr int kDqBufs = D == 128 ? 1 : 2;
+  static constexpr uint32_t kDqQBytes = tile_bytes(kBlock);
+  static constexpr uint32_t kDqKBytes = tile_bytes(kDqKeys);
+  static constexpr uint32_t kDqO = 2 * kDqBufs * kDqQBytes;
+  static constexpr uint32_t kDqK = kDqO + kDqQBytes;
+  static constexpr uint32_t kDqStat = kDqK + 2 * kStages * kDqKBytes;
+  static constexpr uint32_t kDqBar = kDqStat + kDqBufs * 4 * kBlock;
+  static constexpr uint32_t kDqSmem =
+      kDqBar + 8 * (2 * kDqBufs + 2 + 2 * kStages) + 1024;
+  // dk/dv: two K, V buffers, kStages stages of kDkvRows rows of Q and dO,
+  // the stages' lse and delta, then the barriers kv[2], kv_empty[2],
+  // full[s], empty[s]. At D = 128 a stage takes 32 queries (dk and dv, 64
+  // floats a thread each, beside s^T and dp^T).
+  static constexpr int kDkvRows = D == 128 ? 32 : kQBlock;
+  static constexpr uint32_t kDkvKBytes = tile_bytes(kBlock);
+  static constexpr uint32_t kDkvQBytes = tile_bytes(kDkvRows);
+  static constexpr uint32_t kDkvStatBytes = 4 * kDkvRows;
+  static constexpr uint32_t kDkvStage = 4 * kDkvKBytes;
+  static constexpr uint32_t kDkvStat = kDkvStage + 2 * kStages * kDkvQBytes;
+  static constexpr uint32_t kDkvBar = kDkvStat + 2 * kStages * kDkvStatBytes;
+  static constexpr uint32_t kDkvSmem = kDkvBar + 8 * (4 + 2 * kStages) + 1024;
+  static_assert(kDqSmem <= 232448 && kDkvSmem <= 232448,
+                "a backward kernel exceeds an SM's shared memory");
+
+  // wgmma descriptor of a tile from `addr`: the group stride as the stride
+  // byte offset, `lbo` as the leading one. K-major swizzled layouts read
+  // no leading offset; an MN-major operand reads it as the stride between
+  // its parts (mn_lbo), where it has two.
+  __device__ static uint64_t desc(uint32_t addr, uint32_t lbo = kGroupBytes) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+           (static_cast<uint64_t>(lbo >> 4) << 16) |
+           (static_cast<uint64_t>(kGroupBytes >> 4) << 32) | (kLayout << 62);
+  }
+  __host__ __device__ static constexpr uint32_t mn_lbo(int rows) {
+    return kParts > 1 ? rows * kRowBytes : kGroupBytes;
+  }
+  // descriptor step to the kk-th 16-deep slice of a K-major tile of `rows`
+  // rows: 32 bytes along the row, the next part every kAtom / 16 steps
+  __host__ __device__ static constexpr uint64_t kstep(int kk, int rows) {
+    return ((kk / (kAtom / 16)) * rows * kRowBytes + (kk % (kAtom / 16)) * 32)
+           >> 4;
+  }
+  // an MN-major operand's 16 rows of depth
+  static constexpr uint64_t kMNStep = (16 * kRowBytes) >> 4;
+  // where TMA put 16-byte chunk c of row r: the swizzle xors the chunk
+  // index with the row's bits 0-2 (128 bytes), 1-2 (64) or 2 (32)
+  __device__ static int chunk(int r, int c) {
+    return kRowBytes == 128  ? c ^ (r & 7)
+           : kRowBytes == 64 ? c ^ ((r >> 1) & 3)
+                             : c ^ ((r >> 2) & 1);
+  }
+};
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -228,6 +328,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A backward tile of `rows` positions from row0: one box a part.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int rows, int h,
+                                         int row0, int n) {
+#pragma unroll
+  for (int p = 0; p < Bw<D>::kParts; ++p) {
+    tma_load(dst + p * rows * Bw<D>::kRowBytes, map, bar, p * Bw<D>::kAtom, h,
+             row0, n);
+  }
 }
 
 // Bulk copy of contiguous bytes (16-byte aligned) into shared memory.
@@ -377,6 +489,124 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "r"(accumulate));
 }
 
+// d (64 x 32) (+)= a b^T, a and b K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 32) += a b, a in registers, b MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d (64 x 128) += a b, a in registers, b MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// d (64 x 16) += a b, a in registers, b MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// The backward's products by the width of their accumulator (N = 2 x its
+// floats a thread): both operands K-major (ss), or A from registers and B
+// MN-major (rs).
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  wgmma_ss_n32(d, a, b, accumulate);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  wgmma_ss_n64(d, a, b, accumulate);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  wgmma_ss_n128(d, a, b, accumulate);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  wgmma_rs_n16(d, a, b, accumulate);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  wgmma_rs_n32(d, a, b, accumulate);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  wgmma_rs_n64(d, a, b, accumulate);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  wgmma_rs_n128(d, a, b, accumulate);
+}
+
 // The bf16 A operand of k-step kk (accumulator columns 16 kk .. 16 kk + 15)
 // from a warpgroup's float accumulators: the wgmma accumulator and register
 // A layouts agree thread by thread, as for mma.sync.
@@ -389,14 +619,15 @@ __device__ __forceinline__ void frag_to_a(uint32_t (&a)[4],
   a[3] = pack(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
-// Write a thread's part of a 64 x 64 accumulator times `mul` as bf16: rows
-// row0 and row0 + 8 (those below S) of a strided (S, D) slab.
+// Write a thread's part of a 64 x 2 N accumulator times `mul` as bf16:
+// rows row0 and row0 + 8 (those below S) of a strided (S, D) slab.
+template <int N>
 __device__ __forceinline__ void store_frag(bf16* base, long long row_stride,
                                            int row0, int S,
-                                           const float (&d)[32], float mul0,
+                                           const float (&d)[N], float mul0,
                                            float mul1, int t) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
+  for (int c = 0; c < N / 4; ++c) {
     const int col = 8 * c + 2 * t;
     if (row0 < S) {
       *reinterpret_cast<__nv_bfloat162*>(base + row0 * row_stride + col) =
@@ -651,27 +882,51 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 }
 
 // rowsum(dO o) of rows r and r + 8 of a 128-row dO tile and O tile as TMA
-// wrote them (128-byte rows, 16-byte chunks swizzled by the row mod 8):
-// the four threads of a quad (t) sum 16 columns each, the quad reduces.
+// wrote them (each part's rows kRowBytes long, 16-byte chunks swizzled by
+// the row): the four threads of a quad (t) sum a quarter of each part's
+// chunks, the quad reduces.
+template <int D>
 __device__ __forceinline__ float2 row_delta(const uint8_t* dout,
                                             const uint8_t* o, int r, int t) {
+  using L = Bw<D>;
+  constexpr int kPer = L::kRowBytes / 64;      // chunks a thread of a row
   float sum[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r + 8 * h;
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int off = row * kRowBytes + (((2 * t + k) ^ (row & 7)) << 4);
-      const uint4 a = *reinterpret_cast<const uint4*>(dout + off);
-      const uint4 b = *reinterpret_cast<const uint4*>(o + off);
+    if constexpr (kPer == 0) {
+      // 32-byte rows: 8 bytes a thread, half of chunk t / 2
+      const int off = row * L::kRowBytes + (L::chunk(row, t >> 1) << 4) +
+                      8 * (t & 1);
+      const uint2 a = *reinterpret_cast<const uint2*>(dout + off);
+      const uint2 b = *reinterpret_cast<const uint2*>(o + off);
       const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
       const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < 2; ++e) {
         const float2 fa = __bfloat1622float2(pa[e]);
         const float2 fb = __bfloat1622float2(pb[e]);
         sum[h] = fmaf(fa.x, fb.x, sum[h]);
         sum[h] = fmaf(fa.y, fb.y, sum[h]);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < L::kParts; ++p) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int off = p * kBlock * L::kRowBytes + row * L::kRowBytes +
+                        (L::chunk(row, kPer * t + k) << 4);
+        const uint4 a = *reinterpret_cast<const uint4*>(dout + off);
+        const uint4 b = *reinterpret_cast<const uint4*>(o + off);
+        const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 fa = __bfloat1622float2(pa[e]);
+          const float2 fb = __bfloat1622float2(pb[e]);
+          sum[h] = fmaf(fa.x, fb.x, sum[h]);
+          sum[h] = fmaf(fa.y, fb.y, sum[h]);
+        }
       }
     }
     sum[h] += __shfl_xor_sync(kFull, sum[h], 1);
@@ -680,16 +935,17 @@ __device__ __forceinline__ float2 row_delta(const uint8_t* dout,
   return make_float2(sum[0], sum[1]);
 }
 
-// dq's elementwise step over one key tile (64 rows x 128 keys a
+// dq's elementwise step over one key tile (64 rows x 2 N keys a
 // warpgroup), in place: s becomes ds = p (dp - delta), p = exp2(s scale
 // log2e - lse log2e) masked on the diagonal tile (`key0` its first key).
 // ls0, ls1 are the rows' lse times log2e, dl0, dl1 their delta.
-__device__ __forceinline__ void dq_tile(float (&sc)[64], const float (&dp)[64],
+template <int N>
+__device__ __forceinline__ void dq_tile(float (&sc)[N], const float (&dp)[N],
                                         float ls0, float ls1, float dl0,
                                         float dl1, bool diag, int key0,
                                         int row0, int t, float scale_log2) {
 #pragma unroll
-  for (int c = 0; c < 16; ++c) {
+  for (int c = 0; c < N / 4; ++c) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const bool lo = e < 2;
@@ -702,6 +958,7 @@ __device__ __forceinline__ void dq_tile(float (&sc)[64], const float (&dp)[64],
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -712,29 +969,47 @@ __global__ void __launch_bounds__(kWsThreads, 1)
                         float* __restrict__ delta, bf16* __restrict__ dq,
                         int S, int H, int N, Strides sdq, float scale,
                         float scale_log2) {
+  using L = Bw<D>;
+  constexpr int kKeys = L::kDqKeys, kBufs = L::kDqBufs;
+  constexpr int kBufShift = kBufs == 2 ? 1 : 0;
+  constexpr uint32_t kQBytes = L::kDqQBytes, kKBytes = L::kDqKBytes;
   extern __shared__ uint8_t smem[];
   const uint32_t raw = smem_addr(smem);
   const uint32_t base = (raw + 1023) & ~1023u;
-  const uint32_t bar0 = base + kDqBar;
+  const uint32_t bar0 = base + L::kDqBar;
   const int n_qt = (S + kBlock - 1) / kBlock;
   const int items = n_qt * H * N;
-  // Q of buffer b at base + 2 b kBlockBytes, dO kBlockBytes after it, its
-  // lse at base + kDqStat + b 4 kBlock; O at base + kDqO; stage s: K at
-  // base + kDqK + 2 s kBlockBytes, V kBlockBytes after it; barriers from
-  // bar0: q[2], q_empty[2], o, o_empty, full[s], empty[s]
-  auto sQ = [&](int b) { return base + 2 * b * kBlockBytes; };
-  const uint32_t sO = base + kDqO;
-  auto sK = [&](int s) { return base + kDqK + 2 * s * kBlockBytes; };
-  auto sL = [&](int b) { return base + kDqStat + b * 4 * kBlock; };
+  // Q of buffer b at base + 2 b kQBytes, dO kQBytes after it, its lse at
+  // base + kDqStat + b 4 kBlock; O at base + kDqO; stage s: K at base +
+  // kDqK + 2 s kKBytes, V kKBytes after it; barriers from bar0:
+  // q[kBufs], q_empty[kBufs], o, o_empty, full[s], empty[s]
+  auto sQ = [&](int b) { return base + 2 * b * kQBytes; };
+  const uint32_t sO = base + L::kDqO;
+  auto sK = [&](int s) { return base + L::kDqK + 2 * s * kKBytes; };
+  auto sL = [&](int b) { return base + L::kDqStat + b * 4 * kBlock; };
   auto bar_q = [&](int b) { return bar0 + 8 * b; };
-  auto bar_qe = [&](int b) { return bar0 + 8 * (2 + b); };
-  const uint32_t bar_o = bar0 + 8 * 4, bar_oe = bar0 + 8 * 5;
-  auto bar_f = [&](int s) { return bar0 + 8 * (6 + s); };
-  auto bar_e = [&](int s) { return bar0 + 8 * (6 + kStages + s); };
+  auto bar_qe = [&](int b) { return bar0 + 8 * (kBufs + b); };
+  const uint32_t bar_o = bar0 + 8 * (2 * kBufs);
+  const uint32_t bar_oe = bar0 + 8 * (2 * kBufs + 1);
+  auto bar_f = [&](int s) { return bar0 + 8 * (2 * kBufs + 2 + s); };
+  auto bar_e = [&](int s) {
+    return bar0 + 8 * (2 * kBufs + 2 + kStages + s);
+  };
   auto generic = [&](uint32_t a) { return smem + (a - raw); };
+  // key tiles of an item's walk: to the diagonal of its last rows (at 64
+  // keys a tile, none wholly past S)
+  auto key_tiles = [&](int tile) {
+    if constexpr (kKeys == kBlock) {
+      return tile + 1;
+    } else {
+      const int to_diag = (tile + 1) * (kBlock / kKeys);
+      const int in_s = (S + kKeys - 1) / kKeys;
+      return to_diag < in_s ? to_diag : in_s;
+    }
+  };
 
   if (threadIdx.x == 0) {
-    for (int b = 0; b < 2; ++b) {
+    for (int b = 0; b < kBufs; ++b) {
       mbar_init(bar_q(b), 1);
       mbar_init(bar_qe(b), kConsumerThreads);
     }
@@ -757,24 +1032,27 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         const int i = item_index(it);
         if (i >= items) break;
         const Item w = item_at(i, n_qt - 1, -1, H, N);
-        const int b = it & 1, q0 = w.tile * kBlock;
+        const int b = it & (kBufs - 1), q0 = w.tile * kBlock;
         const int rows = S - q0 < kBlock ? S - q0 : kBlock;
-        if (it >= 2) mbar_wait(bar_qe(b), ((it >> 1) - 1) & 1);
-        mbar_expect_tx(bar_q(b), 2 * kBlockBytes + 4 * rows);
-        tma_load(sQ(b), &tq, bar_q(b), 0, w.h, q0, w.n);
-        tma_load(sQ(b) + kBlockBytes, &tdo, bar_q(b), 0, w.h, q0, w.n);
+        if (it >= kBufs) {
+          mbar_wait(bar_qe(b), ((it >> kBufShift) - 1) & 1);
+        }
+        mbar_expect_tx(bar_q(b), 2 * kQBytes + 4 * rows);
+        tma_tile<D>(sQ(b), &tq, bar_q(b), kBlock, w.h, q0, w.n);
+        tma_tile<D>(sQ(b) + kQBytes, &tdo, bar_q(b), kBlock, w.h, q0, w.n);
         bulk_load(sL(b), lse + ((long long)w.n * H + w.h) * S + q0, 4 * rows,
                   bar_q(b));
         if (it >= 1) mbar_wait(bar_oe, (it - 1) & 1);
-        mbar_expect_tx(bar_o, kBlockBytes);
-        tma_load(sO, &to, bar_o, 0, w.h, q0, w.n);
-        for (int j = 0; j <= w.tile; ++j, ++jg) {
+        mbar_expect_tx(bar_o, kQBytes);
+        tma_tile<D>(sO, &to, bar_o, kBlock, w.h, q0, w.n);
+        const int nk = key_tiles(w.tile);
+        for (int j = 0; j < nk; ++j, ++jg) {
           const int s = jg % kStages;
           if (jg >= kStages) mbar_wait(bar_e(s), (jg / kStages - 1) & 1);
-          mbar_expect_tx(bar_f(s), 2 * kBlockBytes);
-          tma_load(sK(s), &tk, bar_f(s), 0, w.h, j * kBlock, w.n);
-          tma_load(sK(s) + kBlockBytes, &tv, bar_f(s), 0, w.h, j * kBlock,
-                   w.n);
+          mbar_expect_tx(bar_f(s), 2 * kKBytes);
+          tma_tile<D>(sK(s), &tk, bar_f(s), kKeys, w.h, j * kKeys, w.n);
+          tma_tile<D>(sK(s) + kKBytes, &tv, bar_f(s), kKeys, w.h,
+                      j * kKeys, w.n);
         }
       }
     }
@@ -787,48 +1065,58 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int wg = ct / kWg, warp = (ct / 32) % 4, lane = ct % 32;
   const int g = lane >> 2, t = lane & 3;
   const int rl = wg * 64 + warp * 16 + g;      // row in the tile, and + 8
-  // s = q k^T and dp = dO v^T for 64 rows x 128 keys, all K-major
-  auto issue_s = [&](float (&sc)[64], float (&dp)[64], uint64_t qdesc,
-                     int s) {
-    const uint64_t kdesc = smem_desc(sK(s));
-    const uint64_t ddesc = qdesc + (kBlockBytes >> 4);
-    const uint64_t vdesc = kdesc + (kBlockBytes >> 4);
+  // s = q k^T and dp = dO v^T for 64 rows x kKeys keys, all K-major
+  auto issue_s = [&](float (&sc)[kKeys / 2], float (&dp)[kKeys / 2],
+                     uint64_t qdesc, int s) {
+    const uint64_t kdesc = L::desc(sK(s));
+    const uint64_t ddesc = qdesc + (kQBytes >> 4);
+    const uint64_t vdesc = kdesc + (kKBytes >> 4);
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      wgmma_ss_n128(sc, qdesc + kDescK * kk, kdesc + kDescK * kk, kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(sc, qdesc + L::kstep(kk, kBlock), kdesc + L::kstep(kk, kKeys),
+               kk);
     }
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      wgmma_ss_n128(dp, ddesc + kDescK * kk, vdesc + kDescK * kk, kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(dp, ddesc + L::kstep(kk, kBlock), vdesc + L::kstep(kk, kKeys),
+               kk);
     }
   };
   // dq += ds k: ds as bf16 from registers, k MN-major
-  auto issue_dq = [&](float (&acc)[32], const uint32_t (&da)[kBlock / 16][4],
-                      int s) {
-    const uint64_t kdesc = smem_desc(sK(s));
+  auto issue_dq = [&](float (&acc)[D / 2],
+                      const uint32_t (&da)[kKeys / 16][4], int s) {
+    const uint64_t kdesc = L::desc(sK(s), L::mn_lbo(kKeys));
 #pragma unroll
-    for (int kk = 0; kk < kBlock / 16; ++kk) {
-      wgmma_rs_n64(acc, da[kk], kdesc + kDescMN * kk, 1);
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      wgmma_rs(acc, da[kk], kdesc + L::kMNStep * kk, 1);
     }
   };
 
-  float acc[32], sc[64], dp[64];
-  uint32_t da[kBlock / 16][4];
+  float acc[D / 2], sc[kKeys / 2], dp[kKeys / 2];
+  uint32_t da[kKeys / 16][4];
   int jg = 0;                                  // K/V tiles consumed so far
   for (int it = 0; it * (int)gridDim.x < items; ++it) {
     const int i = item_index(it);
     if (i >= items) break;
     const Item w = item_at(i, n_qt - 1, -1, H, N);
-    const int b = it & 1, nk = w.tile + 1;     // key tiles to the diagonal
+    const int b = it & (kBufs - 1);
+    const int nk = key_tiles(w.tile);          // key tiles of the item
+    // this warpgroup's: at 64 keys a tile, the first warpgroup's rows end
+    // a tile before the item's diagonal
+    int nkw = nk;
+    if constexpr (kKeys < kBlock) {
+      const int own = (w.tile * kBlock + wg * 64 + 64) / kKeys;
+      nkw = own < nk ? own : nk;
+    }
     const int row0 = w.tile * kBlock + rl;
-    const uint64_t qdesc = smem_desc(sQ(b) + wg * 64 * kRowBytes);
+    const uint64_t qdesc = L::desc(sQ(b) + wg * 64 * L::kRowBytes);
 
     // delta from this item's dO and O; lse of the rows (0 past S, where
     // q and dO are zero)
-    mbar_wait(bar_q(b), (it >> 1) & 1);
+    mbar_wait(bar_q(b), (it >> kBufShift) & 1);
     mbar_wait(bar_o, it & 1);
-    const float2 dl = row_delta(generic(sQ(b) + kBlockBytes), generic(sO),
-                                rl, t);
+    const float2 dl = row_delta<D>(generic(sQ(b) + kQBytes), generic(sO),
+                                   rl, t);
     fence_proxy_async();
     mbar_arrive(bar_oe);                       // O is read
     const float* ls = reinterpret_cast<const float*>(generic(sL(b)));
@@ -840,7 +1128,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       if (row0 + 8 < S) db[row0 + 8] = dl.y;
     }
 #pragma unroll
-    for (int r = 0; r < 32; ++r) acc[r] = 0.0f;
+    for (int r = 0; r < D / 2; ++r) acc[r] = 0.0f;
 
     int s = jg % kStages;
     mbar_wait(bar_f(s), (jg / kStages) & 1);
@@ -850,15 +1138,15 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
-    if (nk == 1) mbar_arrive(bar_qe(b));       // q and dO read for the last
-    dq_tile(sc, dp, ls0, ls1, dl.x, dl.y, nk == 1, 0, row0, t, scale_log2);
+    if (nkw == 1) mbar_arrive(bar_qe(b));      // q and dO read for the last
+    dq_tile(sc, dp, ls0, ls1, dl.x, dl.y, nkw == 1, 0, row0, t, scale_log2);
 #pragma unroll
-    for (int kk = 0; kk < kBlock / 16; ++kk) frag_to_a(da[kk], sc, kk);
+    for (int kk = 0; kk < kKeys / 16; ++kk) frag_to_a(da[kk], sc, kk);
 
     // tile j's two score products run on the tensor cores while tile j -
     // 1's ds k is issued behind them; tile j's elementwise step overlaps
     // that ds k
-    for (int j = 1; j < nk; ++j) {
+    for (int j = 1; j < nkw; ++j) {
       const int sp = s, jj = jg + j;
       s = jj % kStages;
       mbar_wait(bar_f(s), (jj / kStages) & 1);
@@ -870,14 +1158,14 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       wgmma_wait<1>();
       fence_regs(sc);
       fence_regs(dp);
-      if (j == nk - 1) mbar_arrive(bar_qe(b));
-      dq_tile(sc, dp, ls0, ls1, dl.x, dl.y, j == nk - 1, j * kBlock, row0, t,
+      if (j == nkw - 1) mbar_arrive(bar_qe(b));
+      dq_tile(sc, dp, ls0, ls1, dl.x, dl.y, j == nkw - 1, j * kKeys, row0, t,
               scale_log2);
       wgmma_wait<0>();
       fence_regs(acc);
       mbar_arrive(bar_e(sp));                  // k, v of tile j - 1 read
 #pragma unroll
-      for (int kk = 0; kk < kBlock / 16; ++kk) frag_to_a(da[kk], sc, kk);
+      for (int kk = 0; kk < kKeys / 16; ++kk) frag_to_a(da[kk], sc, kk);
     }
     wgmma_fence();
     issue_dq(acc, da, s);
@@ -885,6 +1173,15 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     wgmma_wait<0>();
     fence_regs(acc);
     mbar_arrive(bar_e(s));
+    if constexpr (kKeys < kBlock) {
+      // the item's tiles past this warpgroup's rows: released unread,
+      // each once it has landed (so the arrival counts for this fill)
+      for (int j = nkw; j < nk; ++j) {
+        const int jj = jg + j;
+        mbar_wait(bar_f(jj % kStages), (jj / kStages) & 1);
+        mbar_arrive(bar_e(jj % kStages));
+      }
+    }
     jg += nk;
 
     store_frag(dq + w.n * sdq.n + w.h * sdq.h, sdq.s, row0, S, acc, scale,
@@ -892,17 +1189,18 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   }
 }
 
-// dk/dv's elementwise step over one query tile (64 keys x 64 queries a
+// dk/dv's elementwise step over one query tile (64 keys x 2 N queries a
 // warpgroup), in place: s^T becomes p^T = exp2(s^T scale log2e - lse
 // log2e), masked on the diagonal (query < key), and dp^T becomes ds^T =
 // p^T (dp^T - delta). lse and delta of the tile's queries are read from
 // shared memory once per column pair of the thread.
-__device__ __forceinline__ void dkv_tile(float (&pt)[32], float (&dpt)[32],
+template <int N>
+__device__ __forceinline__ void dkv_tile(float (&pt)[N], float (&dpt)[N],
                                          const float2* ls, const float2* dl,
                                          bool diag, int q0, int key0, int t,
                                          float scale_log2) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
+  for (int c = 0; c < N / 4; ++c) {
     const float2 l2 = ls[4 * c + t], d2 = dl[4 * c + t];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -918,6 +1216,7 @@ __device__ __forceinline__ void dkv_tile(float (&pt)[32], float (&dpt)[32],
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -928,21 +1227,24 @@ __global__ void __launch_bounds__(kWsThreads, 1)
                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
                          int H, int N, Strides sdk, Strides sdv, float scale,
                          float scale_log2) {
+  using L = Bw<D>;
+  constexpr int kRows = L::kDkvRows;          // queries a stage
+  constexpr uint32_t kKBytes = L::kDkvKBytes, kQBytes = L::kDkvQBytes;
+  constexpr uint32_t kStat = L::kDkvStatBytes;
   extern __shared__ uint8_t smem[];
   const uint32_t raw = smem_addr(smem);
   const uint32_t base = (raw + 1023) & ~1023u;
-  const uint32_t bar0 = base + kDkvBar;
+  const uint32_t bar0 = base + L::kDkvBar;
   const int n_kt = (S + kBlock - 1) / kBlock;
   const int items = n_kt * H * N;
-  // K of buffer b at base + 2 b kBlockBytes, V kBlockBytes after it;
-  // stage s: Q at base + kDkvStage + 2 s kQBlockBytes, dO kQBlockBytes
-  // after it, its lse at base + kDkvStat + s kStatBytes, its delta kStages
-  // kStatBytes after that; barriers from bar0: kv[2], kv_empty[2],
-  // full[s], empty[s]
-  auto sK = [&](int b) { return base + 2 * b * kBlockBytes; };
-  auto sQ = [&](int s) { return base + kDkvStage + 2 * s * kQBlockBytes; };
-  auto sL = [&](int s) { return base + kDkvStat + s * kStatBytes; };
-  auto sD = [&](int s) { return sL(s) + kStages * kStatBytes; };
+  // K of buffer b at base + 2 b kKBytes, V kKBytes after it; stage s: Q
+  // at base + kDkvStage + 2 s kQBytes, dO kQBytes after it, its lse at
+  // base + kDkvStat + s kStat, its delta kStages kStat after that;
+  // barriers from bar0: kv[2], kv_empty[2], full[s], empty[s]
+  auto sK = [&](int b) { return base + 2 * b * kKBytes; };
+  auto sQ = [&](int s) { return base + L::kDkvStage + 2 * s * kQBytes; };
+  auto sL = [&](int s) { return base + L::kDkvStat + s * kStat; };
+  auto sD = [&](int s) { return sL(s) + kStages * kStat; };
   auto bar_kv = [&](int b) { return bar0 + 8 * b; };
   auto bar_kve = [&](int b) { return bar0 + 8 * (2 + b); };
   auto bar_f = [&](int s) { return bar0 + 8 * (4 + s); };
@@ -970,21 +1272,22 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         if (i >= items) break;
         const Item w = item_at(i, 0, 1, H, N);
         const int b = it & 1;
-        const int q_first = w.tile * (kBlock / kQBlock);
+        const int q_first = w.tile * (kBlock / kRows);
         const long long stat = ((long long)w.n * H + w.h) * S;
         if (it >= 2) mbar_wait(bar_kve(b), ((it >> 1) - 1) & 1);
-        mbar_expect_tx(bar_kv(b), 2 * kBlockBytes);
-        tma_load(sK(b), &tk, bar_kv(b), 0, w.h, w.tile * kBlock, w.n);
-        tma_load(sK(b) + kBlockBytes, &tv, bar_kv(b), 0, w.h,
-                 w.tile * kBlock, w.n);
-        for (int qi = q_first; qi < S / kQBlock; ++qi, ++jg) {
-          const int s = jg % kStages, q0 = qi * kQBlock;
+        mbar_expect_tx(bar_kv(b), 2 * kKBytes);
+        tma_tile<D>(sK(b), &tk, bar_kv(b), kBlock, w.h, w.tile * kBlock,
+                    w.n);
+        tma_tile<D>(sK(b) + kKBytes, &tv, bar_kv(b), kBlock, w.h,
+                    w.tile * kBlock, w.n);
+        for (int qi = q_first; qi < S / kRows; ++qi, ++jg) {
+          const int s = jg % kStages, q0 = qi * kRows;
           if (jg >= kStages) mbar_wait(bar_e(s), (jg / kStages - 1) & 1);
-          mbar_expect_tx(bar_f(s), 2 * kQBlockBytes + 2 * kStatBytes);
-          tma_load(sQ(s), &tq, bar_f(s), 0, w.h, q0, w.n);
-          tma_load(sQ(s) + kQBlockBytes, &tdo, bar_f(s), 0, w.h, q0, w.n);
-          bulk_load(sL(s), lse + stat + q0, kStatBytes, bar_f(s));
-          bulk_load(sD(s), delta + stat + q0, kStatBytes, bar_f(s));
+          mbar_expect_tx(bar_f(s), 2 * kQBytes + 2 * kStat);
+          tma_tile<D>(sQ(s), &tq, bar_f(s), kRows, w.h, q0, w.n);
+          tma_tile<D>(sQ(s) + kQBytes, &tdo, bar_f(s), kRows, w.h, q0, w.n);
+          bulk_load(sL(s), lse + stat + q0, kStat, bar_f(s));
+          bulk_load(sD(s), delta + stat + q0, kStat, bar_f(s));
         }
       }
     }
@@ -996,61 +1299,63 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int ct = threadIdx.x - kWg;
   const int wg = ct / kWg, warp = (ct / 32) % 4, lane = ct % 32;
   const int g = lane >> 2, t = lane & 3;
-  // s^T = k q^T and dp^T = v dO^T, 64 keys x 64 queries, K-major
-  auto issue_s = [&](float (&pt)[32], float (&dpt)[32], uint64_t kdesc,
-                     uint64_t vdesc, int s) {
-    const uint64_t qd = smem_desc(sQ(s));
-    const uint64_t dd = smem_desc(sQ(s) + kQBlockBytes);
+  // s^T = k q^T and dp^T = v dO^T, 64 keys x kRows queries, K-major
+  auto issue_s = [&](float (&pt)[kRows / 2], float (&dpt)[kRows / 2],
+                     uint64_t kdesc, uint64_t vdesc, int s) {
+    const uint64_t qd = L::desc(sQ(s));
+    const uint64_t dd = L::desc(sQ(s) + kQBytes);
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      wgmma_ss_n64(pt, kdesc + kDescK * kk, qd + kDescK * kk, kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(pt, kdesc + L::kstep(kk, kBlock), qd + L::kstep(kk, kRows),
+               kk);
     }
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      wgmma_ss_n64(dpt, vdesc + kDescK * kk, dd + kDescK * kk, kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(dpt, vdesc + L::kstep(kk, kBlock), dd + L::kstep(kk, kRows),
+               kk);
     }
   };
   // dv += p^T dO and dk += ds^T q: A bf16 from registers, B MN-major
-  auto issue_grad = [&](float (&dva)[32], float (&dka)[32],
-                        const uint32_t (&pa)[kQBlock / 16][4],
-                        const uint32_t (&da)[kQBlock / 16][4], int s) {
-    const uint64_t qd = smem_desc(sQ(s));
-    const uint64_t dd = smem_desc(sQ(s) + kQBlockBytes);
+  auto issue_grad = [&](float (&dva)[D / 2], float (&dka)[D / 2],
+                        const uint32_t (&pa)[kRows / 16][4],
+                        const uint32_t (&da)[kRows / 16][4], int s) {
+    const uint64_t qd = L::desc(sQ(s), L::mn_lbo(kRows));
+    const uint64_t dd = L::desc(sQ(s) + kQBytes, L::mn_lbo(kRows));
 #pragma unroll
-    for (int kk = 0; kk < kQBlock / 16; ++kk) {
-      wgmma_rs_n64(dva, pa[kk], dd + kDescMN * kk, 1);
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      wgmma_rs(dva, pa[kk], dd + L::kMNStep * kk, 1);
     }
 #pragma unroll
-    for (int kk = 0; kk < kQBlock / 16; ++kk) {
-      wgmma_rs_n64(dka, da[kk], qd + kDescMN * kk, 1);
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      wgmma_rs(dka, da[kk], qd + L::kMNStep * kk, 1);
     }
   };
-  auto step = [&](float (&pt)[32], float (&dpt)[32], int s, int q0, int kw0,
-                  int key0) {
+  auto step = [&](float (&pt)[kRows / 2], float (&dpt)[kRows / 2], int s,
+                  int q0, int kw0, int key0) {
     dkv_tile(pt, dpt, reinterpret_cast<const float2*>(smem + (sL(s) - raw)),
              reinterpret_cast<const float2*>(smem + (sD(s) - raw)),
              q0 < kw0 + 64, q0, key0, t, scale_log2);
   };
 
-  float dka[32], dva[32], pt[32], dpt[32];
-  uint32_t pa[kQBlock / 16][4], da[kQBlock / 16][4];
+  float dka[D / 2], dva[D / 2], pt[kRows / 2], dpt[kRows / 2];
+  uint32_t pa[kRows / 16][4], da[kRows / 16][4];
   int jg = 0;                                  // Q/dO tiles consumed so far
   for (int it = 0; it * (int)gridDim.x < items; ++it) {
     const int i = item_index(it);
     if (i >= items) break;
     const Item w = item_at(i, 0, 1, H, N);
     const int b = it & 1;
-    const int q_first = w.tile * (kBlock / kQBlock);   // the diagonal's
-    const int nq = S / kQBlock - q_first;
+    const int q_first = w.tile * (kBlock / kRows);   // the diagonal's
+    const int nq = S / kRows - q_first;
     const int kw0 = w.tile * kBlock + wg * 64;   // the warpgroup's first key
     const int key0 = kw0 + warp * 16 + g;        // and key0 + 8
-    const uint64_t kdesc = smem_desc(sK(b) + wg * 64 * kRowBytes);
-    const uint64_t vdesc = kdesc + (kBlockBytes >> 4);
+    const uint64_t kdesc = L::desc(sK(b) + wg * 64 * L::kRowBytes);
+    const uint64_t vdesc = kdesc + (kKBytes >> 4);
 #pragma unroll
-    for (int r = 0; r < 32; ++r) dka[r] = dva[r] = 0.0f;
-    // the first query tile lies wholly before the second warpgroup's keys
-    // and adds nothing there: that warpgroup starts at the next one
-    const int j0 = wg;
+    for (int r = 0; r < D / 2; ++r) dka[r] = dva[r] = 0.0f;
+    // the query tiles that lie wholly before the second warpgroup's keys
+    // add nothing there: that warpgroup starts after them
+    const int j0 = wg * (64 / kRows);
     for (int j = 0; j < j0 && j < nq; ++j) {
       mbar_wait(bar_f((jg + j) % kStages), ((jg + j) / kStages) & 1);
       mbar_arrive(bar_e((jg + j) % kStages));
@@ -1059,7 +1364,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     if (j0 < nq) {
       mbar_wait(bar_kv(b), (it >> 1) & 1);
       int s = (jg + j0) % kStages;
-      int q0 = (q_first + j0) * kQBlock;
+      int q0 = (q_first + j0) * kRows;
       mbar_wait(bar_f(s), ((jg + j0) / kStages) & 1);
       wgmma_fence();
       issue_s(pt, dpt, kdesc, vdesc, s);
@@ -1070,7 +1375,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       if (j0 == nq - 1) mbar_arrive(bar_kve(b));   // k, v read for the last
       step(pt, dpt, s, q0, kw0, key0);
 #pragma unroll
-      for (int kk = 0; kk < kQBlock / 16; ++kk) {
+      for (int kk = 0; kk < kRows / 16; ++kk) {
         frag_to_a(pa[kk], pt, kk);
         frag_to_a(da[kk], dpt, kk);
       }
@@ -1080,7 +1385,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       for (int j = j0 + 1; j < nq; ++j) {
         const int sp = s;
         s = (jg + j) % kStages;
-        q0 = (q_first + j) * kQBlock;
+        q0 = (q_first + j) * kRows;
         mbar_wait(bar_f(s), ((jg + j) / kStages) & 1);
         wgmma_fence();
         issue_s(pt, dpt, kdesc, vdesc, s);
@@ -1097,7 +1402,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         fence_regs(dka);
         mbar_arrive(bar_e(sp));
 #pragma unroll
-        for (int kk = 0; kk < kQBlock / 16; ++kk) {
+        for (int kk = 0; kk < kRows / 16; ++kk) {
           frag_to_a(pa[kk], pt, kk);
           frag_to_a(da[kk], dpt, kk);
         }
@@ -1147,21 +1452,28 @@ EncodeTiled encode_tiled() {
 }
 
 // The 4-D tensor map (D, H, S, N) of a strided (N, S, H, D) bf16 operand,
-// read in boxes of `rows` positions of one head with the 128-byte swizzle.
-// Rows past S read as zeros; the box never crosses into the next sequence.
+// read in boxes of `rows` positions of one head and one swizzle row
+// (Bw<D>::kAtom columns: 128 bytes under the 128-byte swizzle, or at D =
+// 32 64 bytes under the 64-byte one). Rows past S read as zeros; the box
+// never crosses into the next sequence.
+template <int D>
 bool tensor_map(CUtensorMap* map, const void* ptr, int N, int S, int H,
                 Strides st, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {kHeadDim, (cuuint64_t)H, (cuuint64_t)S,
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)N};
   const cuuint64_t bytes[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
                                (cuuint64_t)st.n * 2};
-  const cuuint32_t box[4] = {kHeadDim, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)Bw<D>::kAtom, 1, (cuuint32_t)rows,
+                             1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, bytes, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                Bw<D>::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : Bw<D>::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                         : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1189,6 +1501,59 @@ int persistent_grid(int items) {
   return items < sms ? items : sms;
 }
 
+template <int D>
+int bwd_dq(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq, int N,
+           int S, int H, int dim, const long long* strides, float scale,
+           void* stream) {
+  using L = Bw<D>;
+  if (bad_shape(N, S, H, dim, D)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      bind_and_set_smem(flash_bwd_dq_kernel<D>, L::kDqSmem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tq, tk, tv, to, tdo;
+  if (!tensor_map<D>(&tq, q, N, S, H, at(strides, 0), kBlock) ||
+      !tensor_map<D>(&tk, k, N, S, H, at(strides, 1), L::kDqKeys) ||
+      !tensor_map<D>(&tv, v, N, S, H, at(strides, 2), L::kDqKeys) ||
+      !tensor_map<D>(&to, o, N, S, H, at(strides, 3), kBlock) ||
+      !tensor_map<D>(&tdo, dout, N, S, H, at(strides, 4), kBlock)) {
+    return kEncodeFailed;
+  }
+  const int grid = persistent_grid((S + kBlock - 1) / kBlock * H * N);
+  if (grid < 0) return (int)cudaGetLastError();
+  flash_bwd_dq_kernel<D><<<grid, kWsThreads, L::kDqSmem,
+                           (cudaStream_t)stream>>>(
+      tq, tk, tv, to, tdo, lse, delta, (bf16*)dq, S, H, N, at(strides, 5),
+      scale, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+            const float* lse, const float* delta, void* dk, void* dv, int N,
+            int S, int H, int dim, const long long* strides, float scale,
+            void* stream) {
+  using L = Bw<D>;
+  if (bad_shape(N, S, H, dim, D)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      bind_and_set_smem(flash_bwd_dkv_kernel<D>, L::kDkvSmem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tensor_map<D>(&tq, q, N, S, H, at(strides, 0), L::kDkvRows) ||
+      !tensor_map<D>(&tk, k, N, S, H, at(strides, 1), kBlock) ||
+      !tensor_map<D>(&tv, v, N, S, H, at(strides, 2), kBlock) ||
+      !tensor_map<D>(&tdo, dout, N, S, H, at(strides, 3), L::kDkvRows)) {
+    return kEncodeFailed;
+  }
+  const int grid = persistent_grid((S + kBlock - 1) / kBlock * H * N);
+  if (grid < 0) return (int)cudaGetLastError();
+  flash_bwd_dkv_kernel<D><<<grid, kWsThreads, L::kDkvSmem,
+                            (cudaStream_t)stream>>>(
+      tq, tk, tv, tdo, lse, delta, (bf16*)dk, (bf16*)dv, S, H, N,
+      at(strides, 4), at(strides, 5), scale, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // strides: (sequence, position, head) element strides of q, k, v, o.
@@ -1196,13 +1561,13 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, float* lse, int N, int S, int H, int D,
                          const long long* strides, float scale,
                          void* stream) {
-  if (bad_shape(N, S, H, D)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(N, S, H, D, kHeadDim)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = bind_and_set_smem(flash_fwd_kernel, kFwdSmem);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, N, S, H, at(strides, 0), kBlock) ||
-      !tensor_map(&tk, k, N, S, H, at(strides, 1), kBlock) ||
-      !tensor_map(&tv, v, N, S, H, at(strides, 2), kBlock)) {
+  if (!tensor_map<kHeadDim>(&tq, q, N, S, H, at(strides, 0), kBlock) ||
+      !tensor_map<kHeadDim>(&tk, k, N, S, H, at(strides, 1), kBlock) ||
+      !tensor_map<kHeadDim>(&tv, v, N, S, H, at(strides, 2), kBlock)) {
     return kEncodeFailed;
   }
   const int grid = persistent_grid((S + kBlock - 1) / kBlock * H * N);
@@ -1212,57 +1577,35 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// strides: q, k, v, o, dO, dq. Writes delta (N, H, S) float32.
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
-                            const void* o, const void* dout,
-                            const float* lse, float* delta, void* dq, int N,
-                            int S, int H, int D, const long long* strides,
-                            float scale, void* stream) {
-  if (bad_shape(N, S, H, D)) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = bind_and_set_smem(flash_bwd_dq_kernel, kDqSmem);
-  if (err != cudaSuccess) return (int)err;
-  CUtensorMap tq, tk, tv, to, tdo;
-  if (!tensor_map(&tq, q, N, S, H, at(strides, 0), kBlock) ||
-      !tensor_map(&tk, k, N, S, H, at(strides, 1), kBlock) ||
-      !tensor_map(&tv, v, N, S, H, at(strides, 2), kBlock) ||
-      !tensor_map(&to, o, N, S, H, at(strides, 3), kBlock) ||
-      !tensor_map(&tdo, dout, N, S, H, at(strides, 4), kBlock)) {
-    return kEncodeFailed;
-  }
-  const int grid = persistent_grid((S + kBlock - 1) / kBlock * H * N);
-  if (grid < 0) return (int)cudaGetLastError();
-  flash_bwd_dq_kernel<<<grid, kWsThreads, kDqSmem, (cudaStream_t)stream>>>(
-      tq, tk, tv, to, tdo, lse, delta, (bf16*)dq, S, H, N, at(strides, 5),
-      scale, scale * kLog2e);
-  return (int)cudaGetLastError();
-}
+// The backward entry points, one pair a head width: flash_bwd_dq and
+// flash_bwd_dkv at D = 64, flash_bwd_dq_bf16_d<D> and
+// flash_bwd_dkv_bf16_d<D> at D = 16, 32 and 128 (ops/flash_attention.py's
+// route names; the forwards of those two forms are flash_tiled.cu's),
+// each with the dynamic shared memory of its launch beside it as
+// <name>_smem_bytes. dq: strides q, k, v, o, dO, dq; writes delta (N, H,
+// S) float32. dk/dv: strides q, k, v, dO, dk, dv; reads the delta that dq
+// wrote.
+#define FLASH_BWD(DQ, DKV, DIM)                                               \
+  extern "C" int DQ(const void* q, const void* k, const void* v,              \
+                    const void* o, const void* dout, const float* lse,        \
+                    float* delta, void* dq, int N, int S, int H, int D,       \
+                    const long long* strides, float scale, void* stream) {    \
+    return bwd_dq<DIM>(q, k, v, o, dout, lse, delta, dq, N, S, H, D,          \
+                       strides, scale, stream);                               \
+  }                                                                           \
+  extern "C" int DKV(const void* q, const void* k, const void* v,             \
+                     const void* dout, const float* lse, const float* delta,  \
+                     void* dk, void* dv, int N, int S, int H, int D,          \
+                     const long long* strides, float scale, void* stream) {   \
+    return bwd_dkv<DIM>(q, k, v, dout, lse, delta, dk, dv, N, S, H, D,        \
+                        strides, scale, stream);                              \
+  }                                                                           \
+  extern "C" int DQ##_smem_bytes() { return (int)Bw<DIM>::kDqSmem; }          \
+  extern "C" int DKV##_smem_bytes() { return (int)Bw<DIM>::kDkvSmem; }
 
-// strides: q, k, v, dO, dk, dv. Reads the delta flash_bwd_dq wrote.
-extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
-                             const void* dout, const float* lse,
-                             const float* delta, void* dk, void* dv, int N,
-                             int S, int H, int D, const long long* strides,
-                             float scale, void* stream) {
-  if (bad_shape(N, S, H, D)) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = bind_and_set_smem(flash_bwd_dkv_kernel, kDkvSmem);
-  if (err != cudaSuccess) return (int)err;
-  CUtensorMap tq, tk, tv, tdo;
-  if (!tensor_map(&tq, q, N, S, H, at(strides, 0), kQBlock) ||
-      !tensor_map(&tk, k, N, S, H, at(strides, 1), kBlock) ||
-      !tensor_map(&tv, v, N, S, H, at(strides, 2), kBlock) ||
-      !tensor_map(&tdo, dout, N, S, H, at(strides, 3), kQBlock)) {
-    return kEncodeFailed;
-  }
-  const int grid = persistent_grid((S + kBlock - 1) / kBlock * H * N);
-  if (grid < 0) return (int)cudaGetLastError();
-  flash_bwd_dkv_kernel<<<grid, kWsThreads, kDkvSmem,
-                         (cudaStream_t)stream>>>(
-      tq, tk, tv, tdo, lse, delta, (bf16*)dk, (bf16*)dv, S, H, N,
-      at(strides, 4), at(strides, 5), scale, scale * kLog2e);
-  return (int)cudaGetLastError();
-}
+FLASH_BWD(flash_bwd_dq, flash_bwd_dkv, 64)
+FLASH_BWD(flash_bwd_dq_bf16_d16, flash_bwd_dkv_bf16_d16, 16)
+FLASH_BWD(flash_bwd_dq_bf16_d32, flash_bwd_dkv_bf16_d32, 32)
+FLASH_BWD(flash_bwd_dq_bf16_d128, flash_bwd_dkv_bf16_d128, 128)
 
-// Dynamic shared memory of a launch of each kernel.
 extern "C" int flash_fwd_smem_bytes() { return (int)kFwdSmem; }
-extern "C" int flash_bwd_dq_smem_bytes() { return (int)kDqSmem; }
-extern "C" int flash_bwd_dkv_smem_bytes() { return (int)kDkvSmem; }

@@ -1,14 +1,15 @@
-// Causal flash attention for Hopper (sm_90a) in the forms that
-// csrc/flash_attention.cu does not take: float32 at head widths
-// D = 16, 32, 64 and 128, and bf16 at D = 16, 32 and 128.
+// Causal flash attention for Hopper (sm_90a) in the kernels that
+// csrc/flash_attention.cu does not hold: float32 at head widths D = 16,
+// 32, 64 and 128 (forward, dq, dk/dv) and the bf16 forward at D = 16, 32
+// and 128 (their dq and dk/dv are flash_attention.cu's wgmma kernels).
 //
 // Replaces, in those forms, the same library Pallas TPU kernels as
 // flash_attention.cu (jax.experimental.pallas.ops.tpu.flash_attention,
 // called by the JAX package's models/gpt2.py flash_causal_attention, which
 // sets no condition on the dtype or on D):
-//   flash_fwd_<f32|bf16>_d<D>     <- _flash_attention_impl
-//   flash_bwd_dq_<f32|bf16>_d<D>  <- _flash_attention_bwd_dq
-//   flash_bwd_dkv_<f32|bf16>_d<D> <- _flash_attention_bwd_dkv
+//   flash_fwd_<f32|bf16>_d<D>  <- _flash_attention_impl
+//   flash_bwd_dq_f32_d<D>      <- _flash_attention_bwd_dq
+//   flash_bwd_dkv_f32_d<D>     <- _flash_attention_bwd_dkv
 // It computes what flash_attention.cu computes (see its note): o and the
 // float32 lse (N, H, S) forward; dq and delta = rowsum(dO o), written for
 // the dk/dv kernel, launched after it on the same stream; dk and dv. The
@@ -62,10 +63,10 @@
 //   registers. Why mma.sync and not wgmma: wgmma takes TF32 operands only
 //   K-major, so ds k and ds^T q would need transposed copies of ds, k and q
 //   in shared memory.
-//   bf16: mma.sync.m16n8k16 (bf16 in, float32 accumulate) fed by ldmatrix.
-//   p and ds round to bf16 only as product
-//   operands, as in flash_attention.cu; the C fragments of s = q k^T map
-//   onto the A fragments of p v. The forward takes 128 queries with 4 warps
+//   bf16 forward: mma.sync.m16n8k16 (bf16 in, float32 accumulate) fed by
+//   ldmatrix. p rounds to bf16 only as a product operand, as in
+//   flash_attention.cu; the C fragments of s = q k^T map onto the A
+//   fragments of p v. It takes 128 queries with 4 warps
 //   of 32 rows (two m-tiles sharing each K and V fragment that ldmatrix
 //   reads, where with 16 rows a warp one 512-byte ldmatrix fed two MMAs), so
 //   each K and V tile that crosses from L2 serves twice the queries of a
@@ -74,15 +75,14 @@
 //   products (rows of D + 8: ldmatrix's eight 16-byte rows fall on distinct
 //   banks; 104 KB at D = 128, two CTAs an SM), and takes exp2 from the
 //   special-function unit with the scale folded into its FFMA, as
-//   flash_attention.cu does. dq and dk/dv take 128 threads of 16 rows and
-//   copy their tiles synchronously. The dk/dv kernel takes a query tile in
-//   two halves of 32 to keep its dk and dv accumulators (D floats a thread
-//   at D = 128) out of local memory.
-//   Why not templates of flash_attention.cu's wgmma/TMA design: its tile
-//   shapes, 128-byte swizzle and register split are laid out around D =
-//   64, the one width GPT-2's configurations use at full size; the other
-//   widths run in small configurations, in tests and in float32 runs
-//   (`--compute_dtype float32`, D = 64).
+//   flash_attention.cu does. The bf16 dq and dk/dv that were here (128
+//   threads of 16 rows, synchronous tile loads) lost to SDPA's backward
+//   by 1.5 and 1.9 times at D = 32 and 128 and gave way, at every D, to
+//   flash_attention.cu's wgmma templates.
+//   Why the bf16 forward is not yet a template of flash_attention.cu's
+//   wgmma/TMA design, as the bf16 backward is: a template needs each
+//   width's tiles, swizzle and register split laid out anew, done so far
+//   for the backward only.
 //
 // Bound on an H100 SXM: the products' FLOPs (2 D a causal (query, key)
 // pair and product: forward 2 products, dq 3, dk/dv 4) over 989 TFLOP/s
@@ -99,13 +99,12 @@
 // below SDPA's float32 kernels (themselves 3xTF32 mma.sync: PyTorch's
 // memory-efficient kernels); at D = 128 dk/dv's K, V and 32-query stages
 // fill 203 KB of shared memory, one CTA of 4 warps an SM, whose stage
-// loads nothing hides. bf16 D = 16 0.131 / 0.194 / 0.214 (SDPA forward
-// 0.154), D = 32 0.091 / 0.178 / 0.207 (0.083), D = 128 0.061 / 0.118 /
-// 0.162 (0.041, cuDNN's wgmma kernel; the bf16 bound is 0.015 ms by
-// bytes). ptxas (sm_90a): the float32 forward 96 to 255 registers (48 and
-// 16 bytes spilled at D = 64 and 128), the backward 156 to 255 (32 bytes
-// spilled in dk/dv at D = 128); the bf16 forward 158 to 255, no spills;
-// bf16 dq and dk/dv 64 to 196, 28 bytes spilled in dk/dv at D = 128.
+// loads nothing hides. The bf16 forward D = 16 0.131 (SDPA 0.154), D =
+// 32 0.091 (0.083), D = 128 0.061 (0.041, cuDNN's wgmma kernel; the bf16
+// bound is 0.015 ms by bytes). ptxas (sm_90a): the float32 forward 96 to
+// 255 registers (48 and 16 bytes spilled at D = 64 and 128), the backward
+// 156 to 255 (32 bytes spilled in dk/dv at D = 128); the bf16 forward 158
+// to 255, no spills.
 //
 // Interface: plain C, loaded with ctypes. Each function launches on the
 // given stream and returns cudaGetLastError() (0 on success),
@@ -849,9 +848,8 @@ __global__ void __launch_bounds__(kTfThreads)
 }
 
 // ------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16 fed by ldmatrix, 4 warps of 16 rows each.
+// bf16 forward: mma.sync m16n8k16 fed by ldmatrix.
 
-constexpr int kBfThreads = 128;
 constexpr int kBfFwdThreads = 128;      // the forward: 4 warps
 constexpr int kBfFwdMt = 2;             // ... of 2 m-tiles of 16 rows
 constexpr int kBfFwdRows = 128;         // the forward's queries an item
@@ -865,12 +863,6 @@ struct Bf {
   // forward: q (kBfFwdRows rows) and two stages of K and V
   static constexpr unsigned fwd_smem() {
     return 2u * (kBfFwdRows + 4 * kTile) * kPitch;
-  }
-  static constexpr unsigned dq_smem() {
-    return 2u * 4 * kTileElems + 4u * kTile;
-  }
-  static constexpr unsigned dkv_smem() {
-    return 2u * 4 * kTileElems + 8u * kTile;
   }
 };
 
@@ -903,73 +895,6 @@ __device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 64 rows of D bf16 from global (row stride `ss` elements, rows 16-byte
-// aligned) to shared, 16 bytes a thread at a time.
-template <int D>
-__device__ __forceinline__ void bf_load(bf16* dst, const bf16* src,
-                                        long long ss) {
-  constexpr int C = D / 8;
-  for (int i = threadIdx.x; i < kTile * C; i += kBfThreads) {
-    const int r = i / C, c = i - r * C;
-    *reinterpret_cast<uint4*>(dst + r * Bf<D>::kPitch + 8 * c) =
-        *reinterpret_cast<const uint4*>(src + r * ss + 8 * c);
-  }
-}
-
-// c[t] (t < NT n-tiles of 8) = A[16 rows] B[8 NT rows]^T over D: A's rows
-// from `a` (this warp's first row), B's from `b`, both row-major in shared
-// memory. The C fragment: c[t][0..1] row g, columns 8 t + 2 tig + {0, 1};
-// c[t][2..3] row g + 8 (g = lane / 4, tig = lane % 4).
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(const bf16* a, const bf16* b,
-                                        int lane, float c[NT][4]) {
-  constexpr int P = Bf<D>::kPitch;
-#pragma unroll
-  for (int t = 0; t < NT; ++t) c[t][0] = c[t][1] = c[t][2] = c[t][3] = 0.0f;
-  const uint32_t a_lane = smem_addr(
-      a + ((lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 8);
-  const uint32_t b_lane = smem_addr(
-      b + ((lane & 7) + (lane >> 4) * 8) * P + ((lane >> 3) & 1) * 8);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, a_lane + 32 * kk);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bfr[4];
-      ldsm_x4(bfr, b_lane + 2 * (16 * np * P + 16 * kk));
-      mma(c[2 * np], af, bfr[0], bfr[1]);
-      mma(c[2 * np + 1], af, bfr[2], bfr[3]);
-    }
-  }
-}
-
-// out[t] (D / 8 n-tiles) += W[16 rows][16 KS] V[16 KS rows][D]: W the C
-// fragments of a 16 x 16 KS product (rounded to bf16 here), V row-major
-// in shared memory from `v` (read transposed by ldmatrix).
-template <int D, int KS>
-__device__ __forceinline__ void mma_wv(const float w[2 * KS][4],
-                                       const bf16* v, int lane,
-                                       float out[Bf<D>::kNt][4]) {
-  constexpr int P = Bf<D>::kPitch;
-  const uint32_t v_lane = smem_addr(
-      v + ((lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 8);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const uint32_t af[4] = {pack(w[2 * kk][0], w[2 * kk][1]),
-                            pack(w[2 * kk][2], w[2 * kk][3]),
-                            pack(w[2 * kk + 1][0], w[2 * kk + 1][1]),
-                            pack(w[2 * kk + 1][2], w[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bfr[4];
-      ldsm_x4_t(bfr, v_lane + 2 * (16 * kk * P + 16 * dp));
-      mma(out[2 * dp], af, bfr[0], bfr[1]);
-      mma(out[2 * dp + 1], af, bfr[2], bfr[3]);
-    }
-  }
-}
-
 // Write a warp's 16 x D float32 accumulator as bf16 rows, times `scale`.
 template <int D>
 __device__ __forceinline__ void bf_store(bf16* p, Strides st, int n, int h,
@@ -990,8 +915,11 @@ __device__ __forceinline__ void bf_store(bf16* p, Strides st, int n, int h,
 }
 
 // c[i][t] (MT m-tiles of 16 rows, NT n-tiles of 8) = A[16 MT rows]
-// B[8 NT rows]^T over D, as mma_abt, each B fragment read once for the
-// MT m-tiles (A's rows from `a`, the warp's first row).
+// B[8 NT rows]^T over D, each B fragment read once for the MT m-tiles:
+// A's rows from `a` (this warp's first row), B's from `b`, both row-major
+// in shared memory. The C fragment: c[i][t][0..1] row g of m-tile i,
+// columns 8 t + 2 tig + {0, 1}; c[i][t][2..3] row g + 8 (g = lane / 4,
+// tig = lane % 4).
 template <int D, int NT, int MT>
 __device__ __forceinline__ void mma_abt_m(const bf16* a, const bf16* b,
                                           int lane, float c[MT][NT][4]) {
@@ -1024,8 +952,10 @@ __device__ __forceinline__ void mma_abt_m(const bf16* a, const bf16* b,
   }
 }
 
-// out[i][t] += W[i] V over 16 KS rows of V, as mma_wv, each V fragment
-// read once for the MT m-tiles (W[i] the C fragments of m-tile i).
+// out[i][t] (D / 8 n-tiles) += W[i] V over 16 KS rows of V, each V
+// fragment read once for the MT m-tiles: W[i] the C fragments of m-tile
+// i's 16 x 16 KS product (rounded to bf16 here), V row-major in shared
+// memory from `v` (read transposed by ldmatrix).
 template <int D, int KS, int MT>
 __device__ __forceinline__ void mma_wv_m(const float w[MT][2 * KS][4],
                                          const bf16* v, int lane,
@@ -1187,150 +1117,6 @@ __global__ void __launch_bounds__(kBfFwdThreads, 2)
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kBfThreads)
-    dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ o,
-                   const bf16* __restrict__ dout,
-                   const float* __restrict__ lse, float* __restrict__ delta,
-                   bf16* __restrict__ dq, int S, int H, Strides sq,
-                   Strides sk, Strides sv, Strides so, Strides sdo,
-                   Strides sdq, float scale, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  using L = Bf<D>;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + L::kTileElems;
-  bf16* Ks = dOs + L::kTileElems;
-  bf16* Vs = Ks + L::kTileElems;
-  float* dls = reinterpret_cast<float*>(Vs + L::kTileElems);
-  const int nt = S / kTile;
-  const Item it = item_of(nt, H, true);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int q0 = it.tile * kTile;
-  const long long stat = (static_cast<long long>(it.n) * H + it.h) * S;
-  bf_load<D>(Qs, at_row(q, sq, it.n, it.h, q0), sq.s);
-  bf_load<D>(dOs, at_row(dout, sdo, it.n, it.h, q0), sdo.s);
-  bf_load<D>(Ks, at_row(o, so, it.n, it.h, q0), so.s);   // O, for delta
-  __syncthreads();
-  {
-    // delta of row tid / 2 from the two halves of its D columns
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-    const bf16* a = dOs + r * L::kPitch + half * (D / 2);
-    const bf16* b = Ks + r * L::kPitch + half * (D / 2);
-    float part = 0.0f;
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c)
-      part = fmaf(__bfloat162float(a[c]), __bfloat162float(b[c]), part);
-    part += __shfl_xor_sync(kFull, part, 1);
-    if (half == 0) {
-      dls[r] = part;
-      delta[stat + q0 + r] = part;
-    }
-  }
-  __syncthreads();
-  const int rl[2] = {16 * warp + g, 16 * warp + g + 8};
-  const float ls[2] = {lse[stat + q0 + rl[0]] * kLog2e,
-                       lse[stat + q0 + rl[1]] * kLog2e};
-  const float dl[2] = {dls[rl[0]], dls[rl[1]]};
-  float acc[L::kNt][4];
-#pragma unroll
-  for (int t = 0; t < L::kNt; ++t)
-    acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
-  for (int kt = 0; kt <= it.tile; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    bf_load<D>(Ks, at_row(k, sk, it.n, it.h, k0), sk.s);
-    bf_load<D>(Vs, at_row(v, sv, it.n, it.h, k0), sv.s);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    mma_abt<D, 8>(Qs + 16 * warp * L::kPitch, Ks, lane, s);
-    mma_abt<D, 8>(dOs + 16 * warp * L::kPitch, Vs, lane, dp);
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const bool masked = kt == it.tile &&
-                            k0 + 8 * t + 2 * tig + (e & 1) > q0 + rl[r];
-        const float p =
-            masked ? 0.0f : exp2f(s[t][e] * scale_log2 - ls[r]);
-        s[t][e] = p * (dp[t][e] - dl[r]);
-      }
-    mma_wv<D, 4>(s, Ks, lane, acc);     // dq += ds k
-  }
-  bf_store<D>(dq, sdq, it.n, it.h, q0 + 16 * warp, lane, acc, scale, scale);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kBfThreads)
-    dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v,
-                    const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int S, int H, Strides sq,
-                    Strides sk, Strides sv, Strides sdo, Strides sdk,
-                    Strides sdv, float scale, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  using L = Bf<D>;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + L::kTileElems;
-  bf16* Qs = Vs + L::kTileElems;
-  bf16* dOs = Qs + L::kTileElems;
-  float* lss = reinterpret_cast<float*>(dOs + L::kTileElems);
-  float* dls = lss + kTile;
-  const int nt = S / kTile;
-  const Item it = item_of(nt, H, false);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int k0 = it.tile * kTile;
-  const int keys[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
-  const long long stat = (static_cast<long long>(it.n) * H + it.h) * S;
-  bf_load<D>(Ks, at_row(k, sk, it.n, it.h, k0), sk.s);
-  bf_load<D>(Vs, at_row(v, sv, it.n, it.h, k0), sv.s);
-  float gk[L::kNt][4], gv[L::kNt][4];
-#pragma unroll
-  for (int t = 0; t < L::kNt; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) gk[t][e] = gv[t][e] = 0.0f;
-  for (int qt = it.tile; qt < nt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    bf_load<D>(Qs, at_row(q, sq, it.n, it.h, q0), sq.s);
-    bf_load<D>(dOs, at_row(dout, sdo, it.n, it.h, q0), sdo.s);
-    if (threadIdx.x < kTile) {
-      lss[threadIdx.x] = lse[stat + q0 + threadIdx.x] * kLog2e;
-      dls[threadIdx.x] = delta[stat + q0 + threadIdx.x];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int h0 = 32 * half;         // the half's first query of the tile
-      float st[4][4], dpt[4][4];        // [key][query]
-      mma_abt<D, 4>(Ks + 16 * warp * L::kPitch, Qs + h0 * L::kPitch, lane,
-                    st);
-      mma_abt<D, 4>(Vs + 16 * warp * L::kPitch, dOs + h0 * L::kPitch, lane,
-                    dpt);
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = h0 + 8 * t + 2 * tig + (e & 1);
-          const bool masked = qt == it.tile && q0 + ql < keys[e >> 1];
-          const float p =
-              masked ? 0.0f : exp2f(st[t][e] * scale_log2 - lss[ql]);
-          st[t][e] = p;
-          dpt[t][e] = p * (dpt[t][e] - dls[ql]);
-        }
-      mma_wv<D, 2>(st, dOs + h0 * L::kPitch, lane, gv);   // dv += p^T dO
-      mma_wv<D, 2>(dpt, Qs + h0 * L::kPitch, lane, gk);   // dk += ds^T q
-    }
-  }
-  bf_store<D>(dk, sdk, it.n, it.h, k0 + 16 * warp, lane, gk, scale, scale);
-  bf_store<D>(dv, sdv, it.n, it.h, k0 + 16 * warp, lane, gv, 1.0f, 1.0f);
-}
-
 // ------------------------------------------------------------------------
 // Host side.
 
@@ -1394,21 +1180,6 @@ int dq_f32(const void* q, const void* k, const void* v, const void* o,
 }
 
 template <int D>
-int dq_bf16(const void* q, const void* k, const void* v, const void* o,
-            const void* dout, const float* lse, float* delta, void* dq,
-            int N, int S, int H, const long long* st, float scale,
-            cudaStream_t stream) {
-  const unsigned smem = Bf<D>::dq_smem();
-  const cudaError_t err = set_smem(dq_bf16_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dq_bf16_kernel<D><<<grid_of(N, S, H), kBfThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
-      (const bf16*)dout, lse, delta, (bf16*)dq, S, H, at(st, 0), at(st, 1),
-      at(st, 2), at(st, 3), at(st, 4), at(st, 5), scale, scale * kLog2e);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
 int dkv_f32(const void* q, const void* k, const void* v, const void* dout,
             const float* lse, const float* delta, void* dk, void* dv, int N,
             int S, int H, const long long* st, float scale,
@@ -1423,30 +1194,17 @@ int dkv_f32(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
-             const float* lse, const float* delta, void* dk, void* dv,
-             int N, int S, int H, const long long* st, float scale,
-             cudaStream_t stream) {
-  const unsigned smem = Bf<D>::dkv_smem();
-  const cudaError_t err = set_smem(dkv_bf16_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dkv_bf16_kernel<D><<<grid_of(N, S, H), kBfThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-      delta, (bf16*)dk, (bf16*)dv, S, H, at(st, 0), at(st, 1), at(st, 2),
-      at(st, 3), at(st, 4), at(st, 5), scale, scale * kLog2e);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// One C entry point per form, named as ops/flash_attention.py counts its
+// One C entry point per kernel, named as ops/flash_attention.py counts its
 // launches, each with flash_attention.cu's signature (D must be the
-// form's): float32 at D = 16, 32, 64, 128; bf16 at D = 16, 32, 128 (bf16
-// at D = 64 is flash_attention.cu's). Strides: forward q, k, v, o; dq q,
-// k, v, o, dO, dq (it writes delta (N, H, S) float32); dk/dv q, k, v, dO,
-// dk, dv (it reads the delta that dq wrote).
-#define FLASH_TILED_FORM(TAG, DIM)                                           \
+// form's): float32 at D = 16, 32, 64, 128 forward, dq and dk/dv; bf16 at
+// D = 16, 32 and 128 the forward (their dq and dk/dv, and every bf16
+// kernel at D = 64, are flash_attention.cu's).
+// Strides: forward q, k, v, o; dq q, k, v, o, dO, dq (it writes delta (N,
+// H, S) float32); dk/dv q, k, v, dO, dk, dv (it reads the delta that dq
+// wrote).
+#define FLASH_TILED_FWD(TAG, DIM)                                            \
   extern "C" int flash_fwd_##TAG##_d##DIM(                                   \
       const void* q, const void* k, const void* v, void* o, float* lse,      \
       int N, int S, int H, int D, const long long* strides, float scale,     \
@@ -1454,7 +1212,8 @@ int dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
     if (D != DIM || bad_shape(N, S, H)) return (int)cudaErrorInvalidValue;   \
     return fwd_##TAG<DIM>(q, k, v, o, lse, N, S, H, strides,                 \
                           scale * kLog2e, (cudaStream_t)stream);             \
-  }                                                                          \
+  }
+#define FLASH_TILED_BWD(TAG, DIM)                                            \
   extern "C" int flash_bwd_dq_##TAG##_d##DIM(                                \
       const void* q, const void* k, const void* v, const void* o,            \
       const void* dout, const float* lse, float* delta, void* dq, int N,     \
@@ -1473,11 +1232,14 @@ int dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
     return dkv_##TAG<DIM>(q, k, v, dout, lse, delta, dk, dv, N, S, H,        \
                           strides, scale, (cudaStream_t)stream);             \
   }
+#define FLASH_TILED_FORM(TAG, DIM) \
+  FLASH_TILED_FWD(TAG, DIM)        \
+  FLASH_TILED_BWD(TAG, DIM)
 
 FLASH_TILED_FORM(f32, 16)
 FLASH_TILED_FORM(f32, 32)
 FLASH_TILED_FORM(f32, 64)
 FLASH_TILED_FORM(f32, 128)
-FLASH_TILED_FORM(bf16, 16)
-FLASH_TILED_FORM(bf16, 32)
-FLASH_TILED_FORM(bf16, 128)
+FLASH_TILED_FWD(bf16, 16)
+FLASH_TILED_FWD(bf16, 32)
+FLASH_TILED_FWD(bf16, 128)

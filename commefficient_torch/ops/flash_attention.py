@@ -8,14 +8,15 @@ K3 replaces the library Pallas TPU kernel that the JAX package's
 (``_flash_attention_bwd_dq`` and ``_flash_attention_bwd_dkv``). Two
 libraries hold the kernels (design and bounds in their header notes):
 ``csrc/flash_attention.cu``, warp-specialised wgmma kernels fed by TMA, for
-bf16 at head width D = 64 (GPT-2's width); ``csrc/flash_tiled.cu``, tiled
-kernels, for float32 at D = 16, 32, 64 and 128 (forward, dq and dk/dv in
-``mma.sync`` on the TF32 tensor cores, each product split into three,
-3xTF32, for float32-level accuracy) and bf16 at D = 16, 32 and 128
-(``mma.sync``; the forward's K and V tiles copied by ``cp.async``).
-``route`` is the table;
-each kernel's C entry point bears the name ``launches`` counts it under,
-and all three of a kind take the same arguments.
+bf16 at head width D = 64 (GPT-2's width; forward, dq and dk/dv) and the
+bf16 backward at D = 16, 32 and 128 (dq and dk/dv, templates over D);
+``csrc/flash_tiled.cu``, tiled kernels, for float32 at D = 16, 32, 64 and
+128 (forward, dq and dk/dv in ``mma.sync`` on the TF32 tensor cores, each
+product split into three, 3xTF32, for float32-level accuracy) and the
+bf16 forward at D = 16, 32 and 128 (``mma.sync``, K and V tiles copied by
+``cp.async``). ``route`` is the table, naming each kernel's library; each
+kernel's C entry point bears the name ``launches`` counts it under, and
+all three of a kind take the same arguments.
 
 Tensors are (N, S, H, D): N sequences, S positions, H heads, head width D,
 the layout of the c_attn output's slices, which the kernels read through
@@ -41,8 +42,8 @@ import torch
 
 from commefficient_torch.ops import _build
 
-SOURCE = "flash_attention.cu"           # bf16 at D = 64: wgmma and TMA
-TILED_SOURCE = "flash_tiled.cu"         # every other form of the table
+SOURCE = "flash_attention.cu"           # wgmma and TMA
+TILED_SOURCE = "flash_tiled.cu"         # mma.sync
 HEAD_DIMS = (16, 32, 64, 128)
 TILE = 64                               # S must be a multiple of this
 # the dtypes the kernels take, by their names in the route names
@@ -51,23 +52,28 @@ DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 @dataclasses.dataclass(frozen=True)
 class Route:
-    """The kernels of one (dtype, D) form: their library and their names,
-    which are both their C entry points and what ``launches`` counts."""
+    """The kernels of one (dtype, D) form: their names, which are both
+    their C entry points and what ``launches`` counts, and the library
+    (``SOURCE`` or ``TILED_SOURCE``) of each."""
 
-    source: str
     fwd: str
     dq: str
     dkv: str
+    sources: Tuple[str, str, str]       # the libraries of fwd, dq, dkv
 
     @property
     def names(self) -> Tuple[str, str, str]:
         return (self.fwd, self.dq, self.dkv)
 
+    def source_of(self, name: str) -> str:
+        return self.sources[self.names.index(name)]
+
 
 def route(dtype: torch.dtype, D: int) -> Route:
     """The route of K3 on the card for operands of ``dtype`` and head
-    width ``D``: bf16 at D = 64 runs ``flash_attention.cu``, float32 at
-    every D of ``HEAD_DIMS`` and bf16 at the others run
+    width ``D``: bf16 at D = 64 runs ``flash_attention.cu``; bf16 at D =
+    16, 32 and 128 its forward in ``flash_tiled.cu`` and its backward in
+    ``flash_attention.cu``; float32 at every D of ``HEAD_DIMS`` runs
     ``flash_tiled.cu``. Any other form raises, naming it."""
     if dtype not in DTYPES:
         raise ValueError(f"flash attention: no kernel for dtype {dtype} "
@@ -76,10 +82,12 @@ def route(dtype: torch.dtype, D: int) -> Route:
         raise ValueError(f"flash attention: no kernel for head width D = {D} "
                          f"(the kernels take D in {HEAD_DIMS})")
     if dtype == torch.bfloat16 and D == 64:
-        return Route(SOURCE, "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        return Route("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     (SOURCE, SOURCE, SOURCE))
     tag = DTYPES[dtype]
-    return Route(TILED_SOURCE, f"flash_fwd_{tag}_d{D}",
-                 f"flash_bwd_dq_{tag}_d{D}", f"flash_bwd_dkv_{tag}_d{D}")
+    bwd = SOURCE if dtype == torch.bfloat16 else TILED_SOURCE
+    return Route(f"flash_fwd_{tag}_d{D}", f"flash_bwd_dq_{tag}_d{D}",
+                 f"flash_bwd_dkv_{tag}_d{D}", (TILED_SOURCE, bwd, bwd))
 
 
 ROUTES = {(dt, D): route(dt, D) for dt in DTYPES for D in HEAD_DIMS}
@@ -94,7 +102,10 @@ def reset_launches() -> None:
 
 
 def _lib(source: str = SOURCE) -> ctypes.CDLL:
-    """The library ``source``, its entry points typed on first load."""
+    """The library ``source``, its entry points typed on first load: each
+    route kernel it exports (and, for ``SOURCE``, each one's
+    ``<name>_smem_bytes``). A library of another tree may hold other
+    kernels than the route table gives it (``scripts/k3_tiled_ab.py``)."""
     lib = _build.load(source)
     if getattr(lib, "_typed", False):
         return lib
@@ -102,14 +113,14 @@ def _lib(source: str = SOURCE) -> ctypes.CDLL:
     fwd = [p, p, p, p, p, i, i, i, i, p, f, p]
     bwd = [p, p, p, p, p, p, p, p, i, i, i, i, p, f, p]
     for r in ROUTES.values():
-        if r.source == source:
-            for name, args in zip(r.names, (fwd, bwd, bwd)):
-                getattr(lib, name).argtypes = args
-                getattr(lib, name).restype = i
-    if source == SOURCE:
-        for fn in (lib.flash_fwd_smem_bytes, lib.flash_bwd_dq_smem_bytes,
-                   lib.flash_bwd_dkv_smem_bytes):
-            fn.argtypes, fn.restype = [], i
+        for name, args in zip(r.names, (fwd, bwd, bwd)):
+            fn = getattr(lib, name, None)
+            if fn is None:
+                continue
+            fn.argtypes, fn.restype = args, i
+            smem = getattr(lib, f"{name}_smem_bytes", None)
+            if smem is not None:
+                smem.argtypes, smem.restype = [], i
     lib._typed = True
     return lib
 
@@ -232,7 +243,7 @@ def forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), N, S, H, D, _strides(q, k, v, o), _scale(D),
             _stream(q))
-    _raise_on(r.fwd, getattr(_lib(r.source), r.fwd)(*args))
+    _raise_on(r.fwd, getattr(_lib(r.source_of(r.fwd)), r.fwd)(*args))
     launches[r.fwd] += 1
     return o, lse
 
@@ -251,7 +262,7 @@ def backward_dq(q, k, v, o, lse, do
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             N, S, H, D, _strides(q, k, v, o, do, dq), _scale(D), _stream(q))
-    _raise_on(r.dq, getattr(_lib(r.source), r.dq)(*args))
+    _raise_on(r.dq, getattr(_lib(r.source_of(r.dq)), r.dq)(*args))
     launches[r.dq] += 1
     return dq, delta
 
@@ -270,7 +281,7 @@ def backward_dkv(q, k, v, do, lse, delta
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             N, S, H, D, _strides(q, k, v, do, dk, dv), _scale(D), _stream(q))
-    _raise_on(r.dkv, getattr(_lib(r.source), r.dkv)(*args))
+    _raise_on(r.dkv, getattr(_lib(r.source_of(r.dkv)), r.dkv)(*args))
     launches[r.dkv] += 1
     return dk, dv
 

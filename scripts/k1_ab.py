@@ -9,8 +9,10 @@ other.
     git show <commit>:commefficient_torch/csrc/circulant.cu > other.cu
     python3 scripts/k1_ab.py --other other.cu
 
-The other source must have the whole-vector C interface ``circ_encode(v,
-d, shifts, keys, c, r, m, scale, accumulate, table, stream)``.
+The other source must have the C interface ``circ_encode(v, start, n,
+shifts, keys, c, r, m, scale, accumulate, table, stream)``
+(``csrc/circulant.cu`` since K1's range form); the whole vector is
+``start = 0, n = d``.
 """
 
 import argparse
@@ -59,8 +61,9 @@ def main(argv=None) -> int:
                    check=True, capture_output=True)
     lib = ctypes.CDLL(other)
     ptr, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.circ_encode.argtypes = [ptr, ll, ptr, ptr, i, i, i, ctypes.c_float,
-                                i, ptr, ptr]
+    lib.circ_encode.argtypes = [ptr, ll, ll, ptr, ptr, i, i, i,
+                                ctypes.c_float, i, ptr, ptr]
+    lib.circ_encode.restype = i
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     for label, path in (("other", other),
                         ("this", _build.library_path(K.SOURCE))):
@@ -70,9 +73,9 @@ def main(argv=None) -> int:
               + f" = {sum(per.values()):.2f}", flush=True)
 
     def other_encode(v, sk, scale, table):
-        err = lib.circ_encode(v.data_ptr(), v.shape[0], sk.shifts.data_ptr(),
-                              sk.sign_keys.data_ptr(), sk.c, sk.r, sk.m,
-                              scale, 1, table.data_ptr(),
+        err = lib.circ_encode(v.data_ptr(), 0, v.shape[0],
+                              sk.shifts.data_ptr(), sk.sign_keys.data_ptr(),
+                              sk.c, sk.r, sk.m, scale, 1, table.data_ptr(),
                               torch.cuda.current_stream().cuda_stream)
         if err:
             cs.fail(f"the other circ_encode failed: CUDA error {err}")

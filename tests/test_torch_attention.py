@@ -160,16 +160,83 @@ def test_gradients_track_jax_grad_bf16(ref, N, S, H, D):
                                for k in ("fwd", "bwd_dq", "bwd_dkv")))
       for D in (16, 32, 64, 128)]])
 def test_route_table_names_each_form(dtype, D, names):
-    """Each (dtype, D) the card takes maps to its kernels and the names
-    ``launches`` counts them under: bf16 at D = 64 to flash_attention.cu,
-    every other form to flash_tiled.cu (``GPT2Config.small``'s D = 16
-    among them)."""
+    """Each (dtype, D) the card takes maps to its kernels, the names
+    ``launches`` counts them under and the library of each: bf16 at D =
+    64 all three to flash_attention.cu; bf16 at D = 16
+    (``GPT2Config.small``'s), 32 and 128 the forward to flash_tiled.cu, dq
+    and dk/dv to flash_attention.cu's wgmma kernels; every float32 form
+    all three to flash_tiled.cu."""
     r = flash.route(dtype, D)
     assert r.names == names
-    assert r.source == ("flash_attention.cu"
-                        if (dtype, D) == (torch.bfloat16, 64)
-                        else "flash_tiled.cu")
+    fa, tiled = "flash_attention.cu", "flash_tiled.cu"
+    if (dtype, D) == (torch.bfloat16, 64):
+        want = (fa, fa, fa)
+    elif dtype == torch.bfloat16:
+        want = (tiled, fa, fa)
+    else:
+        want = (tiled, tiled, tiled)
+    assert r.sources == want
+    assert [r.source_of(n) for n in names] == list(want)
     assert set(names) <= set(flash.launches)
+
+
+def _entry_points(source: str) -> set:
+    """The ``extern "C"`` functions a ``csrc/`` source defines: those
+    written out and those its macros define where the file invokes them
+    (parameters substituted, ``##`` pasted, macros inside macros
+    expanded), read from the text without a compiler."""
+    import os
+    import re
+    with open(os.path.join(flash._build.CSRC_DIR, source)) as f:
+        text = f.read().replace("\\\n", " ")
+    macros, body_lines = {}, []
+    for line in text.splitlines():
+        m = re.match(r"#define (\w+)\(([^)]*)\)(.*)", line)
+        if m:
+            params = [p.strip() for p in m.group(2).split(",")]
+            macros[m.group(1)] = (params, m.group(3))
+        else:
+            body_lines.append(line)
+
+    def expand(code: str, depth: int = 0) -> str:
+        assert depth < 8, "macros nested too deeply"
+
+        def one(m):
+            params, body = macros[m.group(1)]
+            args = dict(zip(params, (a.strip()
+                                     for a in m.group(2).split(","))))
+            out = re.sub(r"\b(" + "|".join(params) + r")\b",
+                         lambda p: args[p.group(1)], body)
+            return expand(re.sub(r"\s*##\s*", "", out), depth + 1)
+
+        if not macros:
+            return code
+        return re.sub(r"\b(" + "|".join(macros) + r")\(([^()]*)\)", one,
+                      code)
+
+    return set(re.findall(r'extern "C" int (\w+)\(',
+                          expand("\n".join(body_lines))))
+
+
+def test_route_table_names_kernels_of_their_libraries():
+    """Each kernel the route table names is defined in the library it
+    names for it, and in no other: read from the sources' ``extern "C"``
+    definitions and the macros that write them, so a kernel routed to
+    the wrong library fails here, without nvcc (on the card ctypes would
+    find no such symbol)."""
+    libs = {src: _entry_points(src)
+            for src in (flash.SOURCE, flash.TILED_SOURCE)}
+    assert {"flash_fwd", "flash_bwd_dq_bf16_d32",
+            "flash_fwd_f32_d16"} <= libs[flash.SOURCE] | \
+        libs[flash.TILED_SOURCE]
+    for (dtype, D), r in flash.ROUTES.items():
+        for name, src in zip(r.names, r.sources):
+            where = {s for s, names in libs.items() if name in names}
+            assert where == {src}, (dtype, D, name, where)
+    routed = {n for r in flash.ROUTES.values() for n in r.names}
+    kernels = {n for names in libs.values() for n in names
+               if not n.endswith("_smem_bytes")}
+    assert kernels == routed, kernels ^ routed
 
 
 @pytest.mark.parametrize("dtype,D,match", [
@@ -448,16 +515,17 @@ def test_function_on_card_matches_plain(cuda, S):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [64, 192])
 @pytest.mark.parametrize("dtype,D", [(dt, D) for dt, D in flash.ROUTES
-                                     if flash.ROUTES[dt, D].source
-                                     == flash.TILED_SOURCE])
+                                     if flash.TILED_SOURCE
+                                     in flash.ROUTES[dt, D].sources])
 def test_tiled_routes_on_card_match_plain(cuda, dtype, D, S):
-    """Each route of flash_tiled.cu through the autograd.Function on q, k,
-    v slices of one c_attn-shaped buffer, at S = 192 (a partial last
-    128-row block of the JAX rule's tiles, three of the kernels' 64 keys,
-    an odd count for the forwards' two-stage copies) and S = 64 (one key
-    tile, nothing to prefetch; the bf16 forward's 128-query item cut to
-    half): one launch of each of the route's kernels and no other, and o,
-    dq, dk, dv against the plain versions
+    """Each route with a kernel in flash_tiled.cu (the bf16 backward is
+    flash_attention.cu's) through the autograd.Function on q, k, v slices
+    of one c_attn-shaped buffer, at S = 192 (a partial last 128-row block
+    of the JAX rule's tiles and of the wgmma kernels' items, three of the
+    tiled kernels' 64 keys, an odd count for the forwards' two-stage
+    copies) and S = 64 (one key tile, nothing to prefetch; the 128-row
+    items cut to half): one launch of each of the route's kernels and no
+    other, and o, dq, dk, dv against the plain versions
     (``chip_smoke.flash_route_errors``'s limits: bf16 each row within
     FLASH_ROW_RTOL of its norm, float32 within FLASH_F32_RTOL of the
     largest value)."""

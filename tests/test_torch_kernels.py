@@ -524,14 +524,21 @@ def test_planted_fault_helper_is_the_plain_attention_without_drops(S):
         torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("S", [128, 256])
-def test_row_check_admits_kernel_rounding_and_rejects_planted_faults(S):
-    """The K3 check of chip_smoke.py and of the cuda tests: the kernels'
-    bf16 rounding stays within FLASH_ROW_RTOL of each row's norm (about a
-    third of it), while each planted fault (the forward or dq kernel
-    skipping key tile 0 for the second half's rows, the dk/dv kernel
-    skipping the last query tile) exceeds it in some row."""
-    q, k, v, do = _qkv(2, S, 2)
+# (S, D): GPT-2's head width under the ids the cases had before other
+# widths joined them, and the widths of the other wgmma backward kernels
+ROW_CHECK_CASES = [pytest.param(S, D, id=str(S) if D == 64 else f"{S}-d{D}")
+                   for D in (64, 16, 32, 128) for S in (128, 256)]
+
+
+@pytest.mark.parametrize("S,D", ROW_CHECK_CASES)
+def test_row_check_admits_kernel_rounding_and_rejects_planted_faults(S, D):
+    """The K3 check of chip_smoke.py and of the cuda tests, at each head
+    width of flash_attention.cu's bf16 backward: the kernels' bf16
+    rounding stays within FLASH_ROW_RTOL of each row's norm (about a third
+    of it), while each planted fault (the forward or dq kernel skipping
+    key tile 0 for the second half's rows, the dk/dv kernel skipping the
+    last query tile) exceeds it in some row."""
+    q, k, v, do = _qkv(2, S, 2, D=D)
     o_ref, lse_ref = flash.forward_plain(q, k, v)
     o, dq, dk, dv = _kernel_rounding(q, k, v, do)
     refs = flash.backward_plain(q, k, v, o, lse_ref, do)
@@ -540,18 +547,15 @@ def test_row_check_admits_kernel_rounding_and_rejects_planted_faults(S):
     assert max(rounding) <= chip_smoke.FLASH_ROW_RTOL / 2, rounding
 
     drops = chip_smoke.planted_drops(S, "cpu")
-    delta = chip_smoke.plain_delta(o, do)
     o_f, lse_f = chip_smoke.attention_skipping(q, k, v, drops["flash_fwd"])
     assert _worst_row_error(o_f, o_ref) > 10 * chip_smoke.FLASH_ROW_RTOL
     assert float((lse_f - lse_ref).abs().max()) > \
         100 * chip_smoke.FLASH_LSE_ATOL
-    dq_f = chip_smoke.attention_skipping(q, k, v, drops["flash_bwd_dq"], do,
-                                         lse_ref, delta)[0]
-    assert _worst_row_error(dq_f, refs[0]) > 10 * chip_smoke.FLASH_ROW_RTOL
-    _, dk_f, dv_f = chip_smoke.attention_skipping(
-        q, k, v, drops["flash_bwd_dkv"], do, lse_ref, delta)
-    assert _worst_row_error(dk_f, refs[1]) > 10 * chip_smoke.FLASH_ROW_RTOL
-    assert _worst_row_error(dv_f, refs[2]) > 10 * chip_smoke.FLASH_ROW_RTOL
+    faults = chip_smoke.planted_backward(q, k, v, do, o, lse_ref, drops)
+    for name, want in zip(("dq", "dk", "dv"), refs):
+        got = faults["flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"]
+        assert _worst_row_error(got[name], want) > \
+            10 * chip_smoke.FLASH_ROW_RTOL
 
 
 def test_flash_wrappers_take_plain_version_on_cpu_without_launching():
