@@ -12,18 +12,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    and the launch's dynamic shared memory) and count its HGMMA (wgmma)
    and UTMALDG (TMA load) instructions in the library's SASS (``cuobjdump
    -sass``): every kernel of ``flash_attention.cu`` (WGMMA_KERNELS: the
-   bf16 D = 64 forward, dq and dk/dv, the bf16 dq and dk/dv at D = 32
-   and 128) must hold both, and ptxas's spills of each are printed;
-   count by pipe the
+   bf16 forward, dq and dk/dv at D = 32, 64 and 128, the bf16 dq and
+   dk/dv at D = 16) must hold both, and ptxas's spills of each are
+   printed; count by pipe the
    instructions K1 and K2 issue per (row, coordinate) term at r = 5, in
    the SASS block that holds the most sign hashes, beside what a term
    needs (SIGN_HASH, K1's index step, K2's share of its median network
    MEDIAN_NETS); K2 must call no subroutine and issue fewer than
    K2_BUBBLE_SASS_PER_TERM a term; print the registers, spills, HMMA
    mnemonics, asynchronous copies and most issued opcodes of
-   ``flash_tiled.cu``'s float32 kernels and bf16 forwards
+   ``flash_tiled.cu``'s float32 kernels and bf16 D = 16 forward
    (``phase_tiled_sass``): each float32 kernel's SASS must hold HMMA on
-   TF32 operands (TF32_KERNELS), each bf16 forward's LDGSTS or UTMALDG
+   TF32 operands (TF32_KERNELS), the bf16 forward's LDGSTS or UTMALDG
    (ASYNC_KERNELS);
 2. hold K1 (circulant encode) and K2 (circulant decode) against their
    plain PyTorch versions on the card at the ResNet-9 shapes
@@ -87,9 +87,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    first backward) gives the direct calls' bits; time
    the kernels, the plain versions and ``scaled_dot_product_attention``
    (forward, backward and both) beside each kernel's bound; then every
-   route with a kernel in ``flash_tiled.cu`` (``phase_flash_routes``:
-   float32 at D = 16, 32, 64, 128, bf16 at 16, 32, 128, the bf16
-   backward being ``flash_attention.cu``'s) against
+   other route (``phase_flash_routes``: float32 at D = 16, 32, 64, 128,
+   ``flash_tiled.cu``'s; bf16 at 16, 32, 128, ``flash_attention.cu``'s
+   but the D = 16 forward) against
    its plain version at (8, 1024 and 256, 768 / D, D), two calls
    bitwise, the check rejecting a forward that skips one key tile
    (``planted_drops``) and, for the ``flash_attention.cu`` backward, a
@@ -497,9 +497,11 @@ HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # entry point and its instantiation's mangled mark: their SASS must hold
 # both of HOPPER_SASS
 WGMMA_KERNELS = {
-    "flash_fwd": "flash_fwd_kernel",
+    "flash_fwd": "flash_fwd_kernelILi64E",
     "flash_bwd_dq": "flash_bwd_dq_kernelILi64E",
     "flash_bwd_dkv": "flash_bwd_dkv_kernelILi64E",
+    **{f"flash_fwd_bf16_d{D}": f"flash_fwd_kernelILi{D}E"
+       for D in (32, 128)},
     **{f"flash_bwd_{kind}_bf16_d{D}": f"flash_bwd_{kind}_kernelILi{D}E"
        for D in (16, 32, 128) for kind in ("dq", "dkv")}}
 HOPPER_SASS = ("HGMMA", "UTMALDG")
@@ -511,10 +513,10 @@ TF32_KERNELS = {
     for kind, kernel in (("fwd", "fwd"), ("bwd_dq", "dq"),
                          ("bwd_dkv", "dkv"))
     for D in (16, 32, 64, 128)}
-# flash_tiled.cu's bf16 forward kernels: K and V copied asynchronously, so
-# their SASS must hold LDGSTS (cp.async) or UTMALDG (a TMA load)
-ASYNC_KERNELS = {f"flash_fwd_bf16_d{D}": f"fwd_bf16_kernelILi{D}E"
-                 for D in (16, 32, 128)}
+# flash_tiled.cu's bf16 forward kernel (D = 16): K and V copied
+# asynchronously, so its SASS must hold LDGSTS (cp.async) or UTMALDG (a
+# TMA load)
+ASYNC_KERNELS = {"flash_fwd_bf16_d16": "fwd_bf16_kernelILi16E"}
 ASYNC_SASS = ("LDGSTS", "UTMALDG")
 # K3 against its plain version, each (n, s, h) row of D held against its
 # own size: |got - ref| <= 1.5e-2 |ref| (+ 1e-3 of the mean row norm, for
@@ -1601,13 +1603,14 @@ def sdpa_kernels(dtype, D, sdpa, o_s, leaves, dot):
 
 
 def phase_flash_routes():
-    """Every route with a kernel in ``flash_tiled.cu`` (float32 at D = 16,
-    32, 64 and 128; bf16 at D = 16, 32 and 128, whose backward is
-    ``flash_attention.cu``'s) at (8, 1024, 768 / D, D) and (8,
-    256, 768 / D, D), GPT-2 small's width in heads of D: o, lse, dq, dk
-    and dv against the plain versions (``flash_route_errors``), a second
-    call of each kernel bitwise the first, the same check failing a
-    forward that skips one key tile (``planted_drops``) and, for the
+    """Every route but bf16 D = 64's (float32 at D = 16, 32, 64 and 128
+    in ``flash_tiled.cu``; bf16 at D = 32 and 128 in
+    ``flash_attention.cu``, at D = 16 its forward in ``flash_tiled.cu``
+    and its backward in ``flash_attention.cu``) at (8, 1024, 768 / D, D)
+    and (8, 256, 768 / D, D), GPT-2 small's width in heads of D: o, lse,
+    dq, dk and dv against the plain versions (``flash_route_errors``), a
+    second call of each kernel bitwise the first, the same check failing
+    a forward that skips one key tile (``planted_drops``) and, for the
     backward kernels of ``flash_attention.cu``, a dq that skips key tile
     0 for the second half's rows and a dk/dv that skips the last query
     tile, and each kernel timed beside its bound, the plain versions and
@@ -1619,8 +1622,8 @@ def phase_flash_routes():
 
     out = {}
     for (dtype, D), r in FA.ROUTES.items():
-        if FA.TILED_SOURCE not in r.sources:
-            continue
+        if (dtype, D) == (torch.bfloat16, 64):
+            continue                    # phase_flash's, at FLASH_SHAPES
         f32 = dtype == torch.float32
         for N, S, H, D in ((8, 1024, 768 // D, D), (8, 256, 768 // D, D)):
             shape = (N, S, H, D)

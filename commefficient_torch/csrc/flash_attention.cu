@@ -1,12 +1,13 @@
 // Causal flash attention for Hopper (sm_90a) in bf16: forward, dq and
-// dk/dv at head width D = 64 (GPT-2's), and dq and dk/dv at D = 16, 32
-// and 128 (their forwards are flash_tiled.cu's).
+// dk/dv at head widths D = 32, 64 (GPT-2's) and 128, and dq and dk/dv at
+// D = 16 (its forward is flash_tiled.cu's).
 //
 // Replaces the library Pallas TPU kernel that the JAX package's
 // models/gpt2.py flash_causal_attention calls
 // (jax.experimental.pallas.ops.tpu.flash_attention):
-//   flash_fwd     <- _flash_attention_impl (forward, writes o and the
-//                    row statistics the backward reads)
+//   flash_fwd, flash_fwd_bf16_d<32|128>  <- _flash_attention_impl
+//                    (forward, writes o and the row statistics the
+//                    backward reads)
 //   flash_bwd_dq, flash_bwd_dq_bf16_d<16|32|128>   <- _flash_attention_bwd_dq
 //   flash_bwd_dkv, flash_bwd_dkv_bf16_d<16|32|128> <- _flash_attention_bwd_dkv
 //
@@ -70,28 +71,36 @@
 //   operands and dO, q read MN-major. A query tile that lies wholly before
 //   a consumer's keys is skipped. dk (x 1/sqrt(D)) and dv are written once
 //   each as bf16.
-// The two backward kernels are templates over D (Bw<D> lays each width
-// out); their D = 64 instantiations are the kernels above, the same SASS
-// instruction for instruction as before the templates. The other widths:
+// The three kernels are templates over D (Bw<D> lays each width out, Fw<D>
+// the forward's buffers); their D = 64 instantiations are the kernels
+// above, the same SASS instruction for instruction as before the
+// templates. The other widths:
 //   D = 32 and 16: rows of 64 and 32 bytes under the 64-byte and 32-byte
 //   swizzles (TMA and the wgmma descriptors' layout field agree; the
 //   group stride 512 and 256 bytes); every tile and stage as at D = 64,
 //   so the products are the same shapes with a half or a quarter of the
-//   depth (dq += ds k m64n32k16 and m64n16k16, dk and dv too), and the
-//   item's elementwise work, one exp2 per score, two and four times D =
-//   64's per FLOP, is what bounds them. At D = 16 a quad's four threads
-//   read 8 bytes each of a 32-byte row for delta.
+//   depth (o += p v and dq += ds k m64n32k16 and m64n16k16, dk and dv
+//   too), and the item's elementwise work, one exp2 per score, two and
+//   four times D = 64's per FLOP, is what bounds them. At D = 16 a quad's
+//   four threads read 8 bytes each of a 32-byte row for delta.
 //   D = 128: each tile in two parts of 64 columns, each a 128-byte-
 //   swizzled TMA box of its own, part 1 R rows x 128 bytes after part 0;
 //   a K-major operand steps into part 1 after four 16-deep slices, an
 //   MN-major one (n128) reads part 1 through the descriptor's leading byte
-//   offset. dq takes 64 keys a stage (s and dp m64n64, 32 floats a thread
+//   offset. The forward keeps 128-key stages (s and o 64 floats a thread
+//   each, p's bf16 A fragments 32: no spills at 240 registers) and o += p
+//   v as m64n128k16, with one Q buffer and three stages (Fw<128>). dq
+//   takes 64 keys a stage (s and dp m64n64, 32 floats a thread
 //   each beside dq's 64) and one buffer of Q and dO (231,008 bytes of
 //   shared memory with O and four stages), so the first consumer's rows
 //   end one key tile before the item's diagonal: it releases that stage
 //   unread, once it has landed. dk/dv takes 32 queries a stage (s^T and
 //   dp^T m64n32, 16 floats a thread each beside dk's and dv's 64 each):
 //   no spills at 240 registers.
+//   The forward at D = 32 and 128 also takes turns: its two consumer
+//   warpgroups issue their products one after the other (two named
+//   barriers, FlashAttention-3's ping-pong), so one's softmax runs beside
+//   the other's products and their exp2 phases do not coincide.
 // No atomics anywhere, so two calls give the same bits. p and ds round to
 // bf16 only as product operands, in all three kernels. The TPU kernel's
 // block structure (512-wide blocks, the sequential grid that carries the
@@ -116,15 +125,19 @@
 // (scripts/k3_tiled_ab.py, interleaved with the mma.sync pair they
 // replace) dq 0.118 / 0.073 / 0.054 ms and dk/dv 0.154 / 0.101 / 0.078 at
 // D = 16 / 32 / 128, each pair below SDPA's backward (0.447 / 0.259 /
-// 0.145).
+// 0.145); the forward 0.074 ms at D = 32 (24 heads: twice D = 64's
+// scores, each key tile cheaper than D = 64's) and 0.040-0.042 at D = 128
+// (6 heads), against the mma.sync forward's 0.092 and 0.061 and SDPA's
+// 0.083 and 0.041 (cuDNN's wgmma forward, which the D = 128 forward only
+// ties).
 //
 // Build (nvcc -Xptxas -v, sm_90a): every kernel 168 registers at launch
 // (384 threads; 24 for the producer, 240 for the consumers after
 // setmaxnreg), no spills, no wgmma serialisation; 164,992 (forward),
 // 215,152 (dq: Q and dO x 2, O, 4 stages of K and V, lse) and 134,240
-// (dk/dv) bytes of dynamic shared memory at D = 64; dq 55,408 / 108,656 /
-// 231,008 and dk/dv 35,936 / 68,704 / 198,752 at D = 16 / 32 / 128: one
-// CTA an SM.
+// (dk/dv) bytes of dynamic shared memory at D = 64; the forward 83,072 /
+// 230,488 at D = 32 / 128, dq 55,408 / 108,656 / 231,008 and dk/dv 35,936
+// / 68,704 / 198,752 at D = 16 / 32 / 128: one CTA an SM.
 //
 // Interface: plain C, loaded with ctypes. Each function launches on the
 // given stream and returns cudaGetLastError() (0 on success),
@@ -161,8 +174,6 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-constexpr int kHeadDim = 64;                    // the forward's D
-
 // A shape the kernel of head width `want` does not take.
 bool bad_shape(int N, int S, int H, int D, int want) {
   return D != want || S <= 0 || S % kTile != 0 || N <= 0 || N > 65535 ||
@@ -181,24 +192,16 @@ constexpr int kBlock = 128;       // rows of a work item (queries of the
                                   // forward and dq, keys of dk/dv); keys
                                   // of a forward stage
 constexpr int kQBlock = 64;       // dk/dv: query rows of a stage (D <= 64)
-constexpr int kStages = 4;        // depth of the TMA ring
+constexpr int kStages = 4;        // depth of the TMA ring (the forward's
+                                  // at D = 128: Fw<128>::kRing)
 constexpr int kWg = 128;          // threads of a warpgroup
 constexpr int kWsThreads = 3 * kWg;           // producer + two consumers
 constexpr int kConsumerThreads = 2 * kWg;
-constexpr uint32_t kRowBytes = 2 * kHeadDim;  // 128: the swizzle span
-constexpr uint32_t kBlockBytes = kBlock * kRowBytes;     // 16 KB
 constexpr int kEncodeFailed = -1;             // a tensor map was refused
 
-// Shared memory of the forward, from a 1024-byte aligned base (the
-// 128-byte swizzle repeats every 8 rows of 128 bytes): two Q buffers (a
-// CTA's next work item loads while the current one runs), kStages stages
-// of K and V, then the barriers q[2], q_empty[2], k[s], v[s], empty[s].
-constexpr uint32_t kFwdK = 2 * kBlockBytes;
-constexpr uint32_t kFwdBar = kBlockBytes * (2 + 2 * kStages);
-constexpr uint32_t kFwdSmem = kFwdBar + 8 * (4 + 3 * kStages) + 1024;
-
-// The backward kernels' layout at head width D = 16, 32, 64 or 128. A
-// tile of R rows of an operand lies in shared memory as TMA wrote it: in
+// The kernels' layout at head width D = 16, 32, 64 or 128 (the backward
+// kernels' buffers here, the forward's in Fw<D>). A tile of R rows of an
+// operand lies in shared memory as TMA wrote it: in
 // kParts parts of R rows x kAtom columns, part p at p R kRowBytes, each
 // part one TMA box under the swizzle that spans its row (D = 64: 128-byte
 // rows, the 128-byte swizzle; D = 32: 64-byte rows, the 64-byte swizzle;
@@ -208,7 +211,7 @@ constexpr uint32_t kFwdSmem = kFwdBar + 8 * (4 + 3 * kStages) + 1024;
 template <int D>
 struct Bw {
   static_assert(D == 16 || D == 32 || D == 64 || D == 128,
-                "the backward kernels take D = 16, 32, 64 or 128");
+                "the kernels take D = 16, 32, 64 or 128");
   static constexpr int kAtom = D < 64 ? D : 64;
   static constexpr int kParts = D / kAtom;
   static constexpr uint32_t kRowBytes = 2 * kAtom;
@@ -278,6 +281,35 @@ struct Bw {
            : kRowBytes == 64 ? c ^ ((r >> 1) & 3)
                              : c ^ ((r >> 2) & 1);
   }
+};
+
+// The forward's layout at D = 32, 64 or 128, in Bw<D>'s rows, swizzles and
+// parts, from a 1024-byte aligned base: kBufs Q buffers of kBlock rows
+// (with two, a CTA's next work item loads while the current one runs),
+// kRing stages of kBlock keys of K and V, then the barriers q[kBufs],
+// q_empty[kBufs], k[s], v[s], empty[s]. A stage is released once its p v
+// has run, after the next tile's q k^T was issued: a ring of three holds
+// the two tiles being read and one in flight. At D = 128 a tile is 32 KB,
+// and two Q buffers would leave room for two stages, so no load in flight:
+// one Q buffer (its next item's load waits for the item's last q k^T)
+// and three stages, 230,488 bytes. (Two Q buffers and two stages, K
+// released after its q k^T and V after its p v, as FlashAttention-3 runs
+// this width, measured no faster on an H100.) kTurns: the consumers issue
+// their products in turns, so their exp2 phases do not coincide; D = 64
+// keeps the schedule it had before the template.
+template <int D>
+struct Fw {
+  static_assert(D == 32 || D == 64 || D == 128,
+                "the forward takes D = 32, 64 or 128");
+  static constexpr int kBufs = D == 128 ? 1 : 2;
+  static constexpr int kRing = D == 128 ? 3 : kStages;
+  static constexpr bool kTurns = D != 64;
+  static constexpr uint32_t kTileBytes = Bw<D>::tile_bytes(kBlock);
+  static constexpr uint32_t kK = kBufs * kTileBytes;
+  static constexpr uint32_t kBar = kK + 2 * kRing * kTileBytes;
+  static constexpr uint32_t kSmem =
+      kBar + 8 * (2 * kBufs + 3 * kRing) + 1024;
+  static_assert(kSmem <= 232448, "the forward exceeds an SM's shared memory");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -368,6 +400,19 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
+// Named barrier `id` (1 or 2; 0 is __syncthreads') of the two consumer
+// warpgroups: sync waits until both have reached it, this warpgroup by
+// syncing, the other by arriving.
+__device__ __forceinline__ void consumers_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumerThreads)
+               : "memory");
+}
+
+__device__ __forceinline__ void consumers_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumerThreads)
+               : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -396,23 +441,6 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
-
-// wgmma descriptor of a tile in shared memory as TMA wrote it: 64-wide bf16
-// rows of 128 bytes, 128-byte swizzle, groups of 8 rows 1024 bytes apart.
-// As a K-major operand (rows along M or N) the k-th 16-deep step starts
-// 32 k bytes further (+2 k in the descriptor); as an MN-major operand
-// (rows along the depth) 16 rows further, 2048 k bytes (+128 k). Both byte
-// offsets of the descriptor are set to the 1024-byte group stride: the
-// swizzled K-major layouts read only the stride byte offset, and an
-// MN-major operand 64 wide is one swizzle atom across, so whichever offset
-// steps between its 8-row groups is right.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  constexpr uint64_t kGroup = 1024 >> 4;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (kGroup << 16) |
-         (kGroup << 32) | (1ull << 62);
-}
-constexpr uint64_t kDescK = 32 >> 4;
-constexpr uint64_t kDescMN = (16 * kRowBytes) >> 4;
 
 // d (64 x 128) (+)= a b^T, a and b K-major in shared memory.
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
@@ -714,34 +742,42 @@ __device__ __forceinline__ Item item_at(int i, int first_tile, int step,
   return Item{first_tile + step * (i / (H * N)), hn % H, hn / H};
 }
 
+template <int D>
 __global__ void __launch_bounds__(kWsThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      bf16* __restrict__ o, float* __restrict__ lse, int S,
                      int H, int N, Strides so, float scale_log2) {
+  using L = Bw<D>;
+  using F = Fw<D>;
+  constexpr int kBufs = F::kBufs, kRing = F::kRing;
+  constexpr int kBufShift = kBufs == 2 ? 1 : 0;
+  constexpr uint32_t kTBytes = F::kTileBytes;
   extern __shared__ uint8_t smem[];
   const uint32_t base = (smem_addr(smem) + 1023) & ~1023u;
-  const uint32_t bar0 = base + kFwdBar;
+  const uint32_t bar0 = base + F::kBar;
   const int n_qt = (S + kBlock - 1) / kBlock;
   const int items = n_qt * H * N;
-  // Q buffer b at base + b kBlockBytes; stage s: K at base + kFwdK +
-  // 2 s kBlockBytes, V kBlockBytes after it; barriers from bar0: q[2],
-  // q_empty[2], k[s], v[s], empty[s]
-  auto sQ = [&](int b) { return base + b * kBlockBytes; };
-  auto sK = [&](int s) { return base + kFwdK + 2 * s * kBlockBytes; };
+  // Q buffer b at base + b kTBytes; stage s: K at base + kK + 2 s
+  // kTBytes, V kTBytes after it; barriers from bar0: q[kBufs],
+  // q_empty[kBufs], k[s], v[s], empty[s]
+  auto sQ = [&](int b) { return base + b * kTBytes; };
+  auto sK = [&](int s) { return base + F::kK + 2 * s * kTBytes; };
   auto bar_q = [&](int b) { return bar0 + 8 * b; };
-  auto bar_qe = [&](int b) { return bar0 + 8 * (2 + b); };
-  auto bar_k = [&](int s) { return bar0 + 8 * (4 + s); };
-  auto bar_v = [&](int s) { return bar0 + 8 * (4 + kStages + s); };
-  auto bar_e = [&](int s) { return bar0 + 8 * (4 + 2 * kStages + s); };
+  auto bar_qe = [&](int b) { return bar0 + 8 * (kBufs + b); };
+  auto bar_k = [&](int s) { return bar0 + 8 * (2 * kBufs + s); };
+  auto bar_v = [&](int s) { return bar0 + 8 * (2 * kBufs + kRing + s); };
+  auto bar_e = [&](int s) {
+    return bar0 + 8 * (2 * kBufs + 2 * kRing + s);
+  };
 
   if (threadIdx.x == 0) {
-    for (int b = 0; b < 2; ++b) {
+    for (int b = 0; b < kBufs; ++b) {
       mbar_init(bar_q(b), 1);
       mbar_init(bar_qe(b), kConsumerThreads);
     }
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kRing; ++s) {
       mbar_init(bar_k(s), 1);
       mbar_init(bar_v(s), 1);
       mbar_init(bar_e(s), kConsumerThreads);
@@ -759,18 +795,20 @@ __global__ void __launch_bounds__(kWsThreads, 1)
         const int i = item_index(it);
         if (i >= items) break;
         const Item w = item_at(i, n_qt - 1, -1, H, N);
-        const int b = it & 1;
-        if (it >= 2) mbar_wait(bar_qe(b), ((it >> 1) - 1) & 1);
-        mbar_expect_tx(bar_q(b), kBlockBytes);
-        tma_load(sQ(b), &tq, bar_q(b), 0, w.h, w.tile * kBlock, w.n);
+        const int b = it & (kBufs - 1);
+        if (it >= kBufs) {
+          mbar_wait(bar_qe(b), ((it >> kBufShift) - 1) & 1);
+        }
+        mbar_expect_tx(bar_q(b), kTBytes);
+        tma_tile<D>(sQ(b), &tq, bar_q(b), kBlock, w.h, w.tile * kBlock, w.n);
         for (int j = 0; j <= w.tile; ++j, ++jg) {
-          const int s = jg % kStages;
-          if (jg >= kStages) mbar_wait(bar_e(s), (jg / kStages - 1) & 1);
-          mbar_expect_tx(bar_k(s), kBlockBytes);
-          tma_load(sK(s), &tk, bar_k(s), 0, w.h, j * kBlock, w.n);
-          mbar_expect_tx(bar_v(s), kBlockBytes);
-          tma_load(sK(s) + kBlockBytes, &tv, bar_v(s), 0, w.h, j * kBlock,
-                   w.n);
+          const int s = jg % kRing;
+          if (jg >= kRing) mbar_wait(bar_e(s), (jg / kRing - 1) & 1);
+          mbar_expect_tx(bar_k(s), kTBytes);
+          tma_tile<D>(sK(s), &tk, bar_k(s), kBlock, w.h, j * kBlock, w.n);
+          mbar_expect_tx(bar_v(s), kTBytes);
+          tma_tile<D>(sK(s) + kTBytes, &tv, bar_v(s), kBlock, w.h,
+                      j * kBlock, w.n);
         }
       }
     }
@@ -782,44 +820,60 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   const int ct = threadIdx.x - kWg;
   const int wg = ct / kWg, warp = (ct / 32) % 4, lane = ct % 32;
   const int g = lane >> 2, t = lane & 3;
+  // Fw<D>::kTurns: the two consumers issue their products in turns
+  // (named barrier 1 + wg is this warpgroup's turn; the first is the first
+  // warpgroup's), so that one's softmax runs beside the other's products
+  auto take_turn = [&]() {
+    if constexpr (F::kTurns) consumers_sync(1 + wg);
+  };
+  auto pass_turn = [&]() {
+    if constexpr (F::kTurns) consumers_arrive(2 - wg);
+  };
+  if constexpr (F::kTurns) {
+    if (wg == 0) consumers_arrive(1);
+  }
   // s = q k^T for 64 rows x 128 keys, both operands K-major
   auto issue_qk = [&](float (&sc)[64], uint64_t qdesc, int s) {
-    const uint64_t kdesc = smem_desc(sK(s));
+    const uint64_t kdesc = L::desc(sK(s));
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      wgmma_ss_n128(sc, qdesc + kDescK * kk, kdesc + kDescK * kk, kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_n128(sc, qdesc + L::kstep(kk, kBlock),
+                    kdesc + L::kstep(kk, kBlock), kk);
     }
   };
   // o += p v: p as bf16 from registers, v MN-major
-  auto issue_pv = [&](float (&acc)[32], const uint32_t (&pa)[kBlock / 16][4],
-                      int s) {
-    const uint64_t vdesc = smem_desc(sK(s) + kBlockBytes);
+  auto issue_pv = [&](float (&acc)[D / 2],
+                      const uint32_t (&pa)[kBlock / 16][4], int s) {
+    const uint64_t vdesc = L::desc(sK(s) + kTBytes, L::mn_lbo(kBlock));
 #pragma unroll
     for (int kk = 0; kk < kBlock / 16; ++kk) {
-      wgmma_rs_n64(acc, pa[kk], vdesc + kDescMN * kk, 1);
+      wgmma_rs(acc, pa[kk], vdesc + L::kMNStep * kk, 1);
     }
   };
 
-  float acc[32], sc[64];
+  float acc[D / 2], sc[64];
   uint32_t pa[kBlock / 16][4];
   int jg = 0;                                  // K/V tiles consumed so far
   for (int it = 0; it * (int)gridDim.x < items; ++it) {
     const int i = item_index(it);
     if (i >= items) break;
     const Item w = item_at(i, n_qt - 1, -1, H, N);
-    const int b = it & 1, nk = w.tile + 1;     // key tiles to the diagonal
+    // nk: key tiles to the diagonal
+    const int b = it & (kBufs - 1), nk = w.tile + 1;
     const int row0 = w.tile * kBlock + wg * 64 + warp * 16 + g;  // + 8
-    const uint64_t qdesc = smem_desc(sQ(b) + wg * 64 * kRowBytes);
+    const uint64_t qdesc = L::desc(sQ(b) + wg * 64 * L::kRowBytes);
 #pragma unroll
-    for (int r = 0; r < 32; ++r) acc[r] = 0.0f;
+    for (int r = 0; r < D / 2; ++r) acc[r] = 0.0f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f, al0, al1;
 
-    mbar_wait(bar_q(b), (it >> 1) & 1);
-    int s = jg % kStages;
-    mbar_wait(bar_k(s), (jg / kStages) & 1);
+    mbar_wait(bar_q(b), (it >> kBufShift) & 1);
+    int s = jg % kRing;
+    mbar_wait(bar_k(s), (jg / kRing) & 1);
+    take_turn();
     wgmma_fence();
     issue_qk(sc, qdesc, s);
     wgmma_commit();
+    pass_turn();
     wgmma_wait<0>();
     fence_regs(sc);
     if (nk == 1) mbar_arrive(bar_qe(b));       // q is read for the last time
@@ -832,14 +886,16 @@ __global__ void __launch_bounds__(kWsThreads, 1)
     // issued behind it; tile j's softmax overlaps that p v
     for (int j = 1; j < nk; ++j) {
       const int sp = s, jj = jg + j;
-      s = jj % kStages;
-      mbar_wait(bar_k(s), (jj / kStages) & 1);
-      mbar_wait(bar_v(sp), ((jj - 1) / kStages) & 1);
+      s = jj % kRing;
+      mbar_wait(bar_k(s), (jj / kRing) & 1);
+      mbar_wait(bar_v(sp), ((jj - 1) / kRing) & 1);
+      take_turn();
       wgmma_fence();
       issue_qk(sc, qdesc, s);
       wgmma_commit();
       issue_pv(acc, pa, sp);
       wgmma_commit();
+      pass_turn();
       wgmma_wait<1>();
       fence_regs(sc);
       if (j == nk - 1) mbar_arrive(bar_qe(b));
@@ -849,7 +905,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       fence_regs(acc);
       mbar_arrive(bar_e(sp));
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
+      for (int c = 0; c < D / 8; ++c) {
         acc[4 * c] *= al0;
         acc[4 * c + 1] *= al0;
         acc[4 * c + 2] *= al1;
@@ -858,10 +914,12 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < kBlock / 16; ++kk) frag_to_a(pa[kk], sc, kk);
     }
-    mbar_wait(bar_v(s), ((jg + nk - 1) / kStages) & 1);
+    mbar_wait(bar_v(s), ((jg + nk - 1) / kRing) & 1);
+    take_turn();
     wgmma_fence();
     issue_pv(acc, pa, s);
     wgmma_commit();
+    pass_turn();
     wgmma_wait<0>();
     fence_regs(acc);
     mbar_arrive(bar_e(s));
@@ -1502,6 +1560,27 @@ int persistent_grid(int items) {
 }
 
 template <int D>
+int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+        int N, int S, int H, int dim, const long long* strides, float scale,
+        void* stream) {
+  using F = Fw<D>;
+  if (bad_shape(N, S, H, dim, D)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = bind_and_set_smem(flash_fwd_kernel<D>, F::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map<D>(&tq, q, N, S, H, at(strides, 0), kBlock) ||
+      !tensor_map<D>(&tk, k, N, S, H, at(strides, 1), kBlock) ||
+      !tensor_map<D>(&tv, v, N, S, H, at(strides, 2), kBlock)) {
+    return kEncodeFailed;
+  }
+  const int grid = persistent_grid((S + kBlock - 1) / kBlock * H * N);
+  if (grid < 0) return (int)cudaGetLastError();
+  flash_fwd_kernel<D><<<grid, kWsThreads, F::kSmem, (cudaStream_t)stream>>>(
+      tq, tk, tv, (bf16*)o, lse, S, H, N, at(strides, 3), scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq, int N,
            int S, int H, int dim, const long long* strides, float scale,
@@ -1556,35 +1635,27 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// strides: (sequence, position, head) element strides of q, k, v, o.
-extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         void* o, float* lse, int N, int S, int H, int D,
-                         const long long* strides, float scale,
-                         void* stream) {
-  if (bad_shape(N, S, H, D, kHeadDim)) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = bind_and_set_smem(flash_fwd_kernel, kFwdSmem);
-  if (err != cudaSuccess) return (int)err;
-  CUtensorMap tq, tk, tv;
-  if (!tensor_map<kHeadDim>(&tq, q, N, S, H, at(strides, 0), kBlock) ||
-      !tensor_map<kHeadDim>(&tk, k, N, S, H, at(strides, 1), kBlock) ||
-      !tensor_map<kHeadDim>(&tv, v, N, S, H, at(strides, 2), kBlock)) {
-    return kEncodeFailed;
-  }
-  const int grid = persistent_grid((S + kBlock - 1) / kBlock * H * N);
-  if (grid < 0) return (int)cudaGetLastError();
-  flash_fwd_kernel<<<grid, kWsThreads, kFwdSmem, (cudaStream_t)stream>>>(
-      tq, tk, tv, (bf16*)o, lse, S, H, N, at(strides, 3), scale * kLog2e);
-  return (int)cudaGetLastError();
-}
+// The entry points, named as ops/flash_attention.py's route table names
+// them, each with the dynamic shared memory of its launch beside it as
+// <name>_smem_bytes. The forward, one a head width: flash_fwd at D = 64,
+// flash_fwd_bf16_d<D> at D = 32 and 128 (D = 16's is flash_tiled.cu's);
+// strides q, k, v, o.
+#define FLASH_FWD(NAME, DIM)                                                  \
+  extern "C" int NAME(const void* q, const void* k, const void* v, void* o,   \
+                      float* lse, int N, int S, int H, int D,                 \
+                      const long long* strides, float scale, void* stream) {  \
+    return fwd<DIM>(q, k, v, o, lse, N, S, H, D, strides, scale, stream);     \
+  }                                                                           \
+  extern "C" int NAME##_smem_bytes() { return (int)Fw<DIM>::kSmem; }
 
-// The backward entry points, one pair a head width: flash_bwd_dq and
-// flash_bwd_dkv at D = 64, flash_bwd_dq_bf16_d<D> and
-// flash_bwd_dkv_bf16_d<D> at D = 16, 32 and 128 (ops/flash_attention.py's
-// route names; the forwards of those two forms are flash_tiled.cu's),
-// each with the dynamic shared memory of its launch beside it as
-// <name>_smem_bytes. dq: strides q, k, v, o, dO, dq; writes delta (N, H,
-// S) float32. dk/dv: strides q, k, v, dO, dk, dv; reads the delta that dq
-// wrote.
+FLASH_FWD(flash_fwd, 64)
+FLASH_FWD(flash_fwd_bf16_d32, 32)
+FLASH_FWD(flash_fwd_bf16_d128, 128)
+
+// The backward, one pair a head width: flash_bwd_dq and flash_bwd_dkv at
+// D = 64, flash_bwd_dq_bf16_d<D> and flash_bwd_dkv_bf16_d<D> at D = 16, 32
+// and 128. dq: strides q, k, v, o, dO, dq; writes delta (N, H, S) float32.
+// dk/dv: strides q, k, v, dO, dk, dv; reads the delta that dq wrote.
 #define FLASH_BWD(DQ, DKV, DIM)                                               \
   extern "C" int DQ(const void* q, const void* k, const void* v,              \
                     const void* o, const void* dout, const float* lse,        \
@@ -1607,5 +1678,3 @@ FLASH_BWD(flash_bwd_dq, flash_bwd_dkv, 64)
 FLASH_BWD(flash_bwd_dq_bf16_d16, flash_bwd_dkv_bf16_d16, 16)
 FLASH_BWD(flash_bwd_dq_bf16_d32, flash_bwd_dkv_bf16_d32, 32)
 FLASH_BWD(flash_bwd_dq_bf16_d128, flash_bwd_dkv_bf16_d128, 128)
-
-extern "C" int flash_fwd_smem_bytes() { return (int)kFwdSmem; }

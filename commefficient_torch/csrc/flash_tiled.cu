@@ -1,7 +1,8 @@
 // Causal flash attention for Hopper (sm_90a) in the kernels that
 // csrc/flash_attention.cu does not hold: float32 at head widths D = 16,
-// 32, 64 and 128 (forward, dq, dk/dv) and the bf16 forward at D = 16, 32
-// and 128 (their dq and dk/dv are flash_attention.cu's wgmma kernels).
+// 32, 64 and 128 (forward, dq, dk/dv) and the bf16 forward at D = 16 (its
+// dq and dk/dv, and every bf16 kernel at D = 32, 64 and 128, are
+// flash_attention.cu's wgmma kernels).
 //
 // Replaces, in those forms, the same library Pallas TPU kernels as
 // flash_attention.cu (jax.experimental.pallas.ops.tpu.flash_attention,
@@ -73,16 +74,14 @@
 //   64-query item; it copies K and V by cp.async through two stages, one
 //   __syncthreads a tile, the next tile's copy in flight during this tile's
 //   products (rows of D + 8: ldmatrix's eight 16-byte rows fall on distinct
-//   banks; 104 KB at D = 128, two CTAs an SM), and takes exp2 from the
-//   special-function unit with the scale folded into its FFMA, as
-//   flash_attention.cu does. The bf16 dq and dk/dv that were here (128
-//   threads of 16 rows, synchronous tile loads) lost to SDPA's backward
-//   by 1.5 and 1.9 times at D = 32 and 128 and gave way, at every D, to
-//   flash_attention.cu's wgmma templates.
-//   Why the bf16 forward is not yet a template of flash_attention.cu's
-//   wgmma/TMA design, as the bf16 backward is: a template needs each
-//   width's tiles, swizzle and register split laid out anew, done so far
-//   for the backward only.
+//   banks), and takes exp2 from the special-function unit with the scale
+//   folded into its FFMA, as flash_attention.cu does. It is instantiated
+//   at D = 16 only, where it beats SDPA's forward: at D = 32 and 128 it
+//   lost to cuDNN's wgmma forward by 1.1 and 1.5 times and gave way to
+//   flash_attention.cu's wgmma forward template, as the bf16 dq and dk/dv
+//   that were here (128 threads of 16 rows, synchronous tile loads; 1.5
+//   and 1.9 times SDPA's backward at D = 32 and 128) gave way, at every
+//   D, to its backward templates.
 //
 // Bound on an H100 SXM: the products' FLOPs (2 D a causal (query, key)
 // pair and product: forward 2 products, dq 3, dk/dv 4) over 989 TFLOP/s
@@ -99,12 +98,11 @@
 // below SDPA's float32 kernels (themselves 3xTF32 mma.sync: PyTorch's
 // memory-efficient kernels); at D = 128 dk/dv's K, V and 32-query stages
 // fill 203 KB of shared memory, one CTA of 4 warps an SM, whose stage
-// loads nothing hides. The bf16 forward D = 16 0.131 (SDPA 0.154), D =
-// 32 0.091 (0.083), D = 128 0.061 (0.041, cuDNN's wgmma kernel; the bf16
-// bound is 0.015 ms by bytes). ptxas (sm_90a): the float32 forward 96 to
-// 255 registers (48 and 16 bytes spilled at D = 64 and 128), the backward
-// 156 to 255 (32 bytes spilled in dk/dv at D = 128); the bf16 forward 158
-// to 255, no spills.
+// loads nothing hides. The bf16 forward at D = 16 0.131 (SDPA 0.154; the
+// bf16 bound is 0.015 ms by bytes). ptxas (sm_90a): the float32 forward 96
+// to 255 registers (48 and 16 bytes spilled at D = 64 and 128), the
+// backward 156 to 255 (32 bytes spilled in dk/dv at D = 128); the bf16
+// forward 158, no spills.
 //
 // Interface: plain C, loaded with ctypes. Each function launches on the
 // given stream and returns cudaGetLastError() (0 on success),
@@ -1199,8 +1197,8 @@ int dkv_f32(const void* q, const void* k, const void* v, const void* dout,
 // One C entry point per kernel, named as ops/flash_attention.py counts its
 // launches, each with flash_attention.cu's signature (D must be the
 // form's): float32 at D = 16, 32, 64, 128 forward, dq and dk/dv; bf16 at
-// D = 16, 32 and 128 the forward (their dq and dk/dv, and every bf16
-// kernel at D = 64, are flash_attention.cu's).
+// D = 16 the forward (its dq and dk/dv, and every bf16 kernel at D = 32,
+// 64 and 128, are flash_attention.cu's).
 // Strides: forward q, k, v, o; dq q, k, v, o, dO, dq (it writes delta (N,
 // H, S) float32); dk/dv q, k, v, dO, dk, dv (it reads the delta that dq
 // wrote).
@@ -1241,5 +1239,3 @@ FLASH_TILED_FORM(f32, 32)
 FLASH_TILED_FORM(f32, 64)
 FLASH_TILED_FORM(f32, 128)
 FLASH_TILED_FWD(bf16, 16)
-FLASH_TILED_FWD(bf16, 32)
-FLASH_TILED_FWD(bf16, 128)

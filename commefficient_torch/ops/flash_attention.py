@@ -7,14 +7,15 @@ K3 replaces the library Pallas TPU kernel that the JAX package's
 (``_flash_attention_impl``), ``backward`` its two backward kernels
 (``_flash_attention_bwd_dq`` and ``_flash_attention_bwd_dkv``). Two
 libraries hold the kernels (design and bounds in their header notes):
-``csrc/flash_attention.cu``, warp-specialised wgmma kernels fed by TMA, for
-bf16 at head width D = 64 (GPT-2's width; forward, dq and dk/dv) and the
-bf16 backward at D = 16, 32 and 128 (dq and dk/dv, templates over D);
-``csrc/flash_tiled.cu``, tiled kernels, for float32 at D = 16, 32, 64 and
-128 (forward, dq and dk/dv in ``mma.sync`` on the TF32 tensor cores, each
-product split into three, 3xTF32, for float32-level accuracy) and the
-bf16 forward at D = 16, 32 and 128 (``mma.sync``, K and V tiles copied by
-``cp.async``). ``route`` is the table, naming each kernel's library; each
+``csrc/flash_attention.cu``, warp-specialised wgmma kernels fed by TMA,
+templates over D, for bf16 at head widths D = 32, 64 (GPT-2's width) and
+128 (forward, dq and dk/dv) and the bf16 backward at D = 16 (dq and
+dk/dv); ``csrc/flash_tiled.cu``, tiled kernels, for float32 at D = 16, 32,
+64 and 128 (forward, dq and dk/dv in ``mma.sync`` on the TF32 tensor
+cores, each product split into three, 3xTF32, for float32-level
+accuracy) and the bf16 forward at D = 16 (``mma.sync``, K and V tiles
+copied by ``cp.async``). ``route`` is the table, naming each kernel's
+library; each
 kernel's C entry point bears the name ``launches`` counts it under, and
 all three of a kind take the same arguments.
 
@@ -71,8 +72,8 @@ class Route:
 
 def route(dtype: torch.dtype, D: int) -> Route:
     """The route of K3 on the card for operands of ``dtype`` and head
-    width ``D``: bf16 at D = 64 runs ``flash_attention.cu``; bf16 at D =
-    16, 32 and 128 its forward in ``flash_tiled.cu`` and its backward in
+    width ``D``: bf16 at D = 32, 64 and 128 runs ``flash_attention.cu``;
+    bf16 at D = 16 its forward in ``flash_tiled.cu`` and its backward in
     ``flash_attention.cu``; float32 at every D of ``HEAD_DIMS`` runs
     ``flash_tiled.cu``. Any other form raises, naming it."""
     if dtype not in DTYPES:
@@ -85,9 +86,12 @@ def route(dtype: torch.dtype, D: int) -> Route:
         return Route("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                      (SOURCE, SOURCE, SOURCE))
     tag = DTYPES[dtype]
-    bwd = SOURCE if dtype == torch.bfloat16 else TILED_SOURCE
+    if dtype == torch.float32:
+        sources = (TILED_SOURCE,) * 3
+    else:
+        sources = (TILED_SOURCE if D == 16 else SOURCE, SOURCE, SOURCE)
     return Route(f"flash_fwd_{tag}_d{D}", f"flash_bwd_dq_{tag}_d{D}",
-                 f"flash_bwd_dkv_{tag}_d{D}", (TILED_SOURCE, bwd, bwd))
+                 f"flash_bwd_dkv_{tag}_d{D}", sources)
 
 
 ROUTES = {(dt, D): route(dt, D) for dt in DTYPES for D in HEAD_DIMS}

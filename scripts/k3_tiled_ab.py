@@ -12,11 +12,13 @@ compared with the kernels that ran it before.
    dk/dv): instruction for instruction, from ``cuobjdump -sass``.
 2. Every form of the route table (float32 at D = 16, 32, 64 and 128;
    bf16 at D = 16, 32, 64 and 128) at (8, 1024, 768 / D, D) and (8,
-   256, 768 / D, D): both builds held to the plain
+   256, 768 / D, D), bf16 D = 64 also at the bench paths' shapes
+   (BENCH_SHAPES): both builds held to the plain
    version (``chip_smoke.flash_route_errors``: FLASH_F32_RTOL in float32,
    FLASH_ROW_RTOL in bf16) and timed in the order other, this, this,
-   other, forward, dq and dk/dv, the backward pair's share of its bound
-   printed beside SDPA's forward and backward timed in the same call.
+   other, forward, dq and dk/dv, the forward's and the backward pair's
+   share of their bounds printed beside SDPA's forward and backward
+   timed in the same call.
 3. ``GPT2DoubleHeads`` at GPT-2 small's width and depth (768 wide, 12
    layers) in bf16 with 6 heads of 128, 24 of 32 and 48 of 16, a
    training-loss forward and backward of (2, 2, 1024) tokens
@@ -48,6 +50,9 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 GPT2_FORMS = (16, 32, 128)    # bf16 head widths of the 12-layer steps
+# (N, S, H) of bf16 D = 64 beside the main shapes: the bench paths' (the
+# bare-model bench's microbatch and the long-context bench's)
+BENCH_SHAPES = ((16, 1024, 12), (8, 2048, 12), (4, 4096, 12))
 GPT2_LAYERS = 12
 GPT2_STEPS = 8                # timed steps of each; the first warms up
 
@@ -150,15 +155,19 @@ def main(argv=None) -> int:
 
 
 def kernel_ab(use, FA, dtype, D) -> None:
-    """One form at (8, 1024, 768 / D, D) and (8, 256, 768 / D, D): both
-    builds against the plain version, then timed other, this, this,
-    other, beside SDPA."""
+    """One form at (8, 1024, 768 / D, D) and (8, 256, 768 / D, D), bf16 D
+    = 64 also at BENCH_SHAPES: both builds against the plain version,
+    then timed other, this, this, other, beside SDPA."""
     import torch
     import torch.nn.functional as F
     f32 = dtype == torch.float32
-    for N, S, H in ((8, 1024, 768 // D), (8, 256, 768 // D)):
+    shapes = [(8, 1024, 768 // D), (8, 256, 768 // D)]
+    if (dtype, D) == (torch.bfloat16, 64):
+        shapes += BENCH_SHAPES
+    for N, S, H in shapes:
         q, k, v, do = cs.flash_inputs(N, S, H, D, dtype=dtype)
-        line, pairs = [], {"other": [], "this": []}
+        line = []
+        fwds, pairs = {"other": [], "this": []}, {"other": [], "this": []}
         for label in ("other", "this", "this", "other"):
             use(label)
             o, lse = FA.forward(q, k, v)
@@ -176,6 +185,7 @@ def kernel_ab(use, FA, dtype, D) -> None:
                             n=10),
                  cs.time_ms(lambda: FA.backward_dkv(q, k, v, do, lse,
                                                     delta), n=10))
+            fwds[label].append(t[0])
             pairs[label].append(t[1] + t[2])
             line.append(f"{label} {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} "
                         f"(error o {errs['o']:.1e}, worst "
@@ -192,6 +202,8 @@ def kernel_ab(use, FA, dtype, D) -> None:
         bounds = cs.flash_bounds(N, S, H, D, elem=4 if f32 else 2)
         peak, mul = ((cs.H100_TF32_PER_S, 3) if f32
                      else (cs.H100_BF16_PER_S, 1))
+        nb, fl = bounds["flash_fwd"]
+        fwd_bound = cs.bound(nb, mul * fl, peak)[0]
         pair_bound = sum(cs.bound(nb, mul * fl, peak)[0]
                          for name, (nb, fl) in bounds.items()
                          if name != "flash_fwd")
@@ -199,12 +211,15 @@ def kernel_ab(use, FA, dtype, D) -> None:
         print(f"[k3_tiled_ab] {tag} {(N, S, H, D)} ms fwd / dq / dk-dv: "
               + "; ".join(line)
               + f"; SDPA fwd {sdpa_fwd:.4f}, bwd {sdpa_bwd:.4f}", flush=True)
-        print(f"[k3_tiled_ab] {tag} {(N, S, H, D)} backward pair (ms; "
-              f"bound {pair_bound:.4f}): "
-              + "; ".join(f"{k} " + ", ".join(
-                  f"{t:.4f} ({100 * pair_bound / t:.1f}% of the bound)"
-                  for t in v) for k, v in pairs.items())
-              + f"; SDPA backward {sdpa_bwd:.4f}", flush=True)
+        for part, b, times, sdpa in (("forward", fwd_bound, fwds, sdpa_fwd),
+                                     ("backward pair", pair_bound, pairs,
+                                      sdpa_bwd)):
+            print(f"[k3_tiled_ab] {tag} {(N, S, H, D)} {part} (ms; bound "
+                  f"{b:.4f}): "
+                  + "; ".join(f"{k} " + ", ".join(
+                      f"{t:.4f} ({100 * b / t:.1f}% of the bound)"
+                      for t in v) for k, v in times.items())
+                  + f"; SDPA {sdpa:.4f}", flush=True)
         del q, k, v, do, o, lse, dq, delta, dk, dv, qt, kt, vt, o_s
         torch.cuda.empty_cache()
 

@@ -162,14 +162,14 @@ def test_gradients_track_jax_grad_bf16(ref, N, S, H, D):
 def test_route_table_names_each_form(dtype, D, names):
     """Each (dtype, D) the card takes maps to its kernels, the names
     ``launches`` counts them under and the library of each: bf16 at D =
-    64 all three to flash_attention.cu; bf16 at D = 16
-    (``GPT2Config.small``'s), 32 and 128 the forward to flash_tiled.cu, dq
-    and dk/dv to flash_attention.cu's wgmma kernels; every float32 form
-    all three to flash_tiled.cu."""
+    32, 64 and 128 all three to flash_attention.cu's wgmma kernels; bf16
+    at D = 16 (``GPT2Config.small``'s) the forward to flash_tiled.cu, dq
+    and dk/dv to flash_attention.cu; every float32 form all three to
+    flash_tiled.cu."""
     r = flash.route(dtype, D)
     assert r.names == names
     fa, tiled = "flash_attention.cu", "flash_tiled.cu"
-    if (dtype, D) == (torch.bfloat16, 64):
+    if dtype == torch.bfloat16 and D != 16:
         want = (fa, fa, fa)
     elif dtype == torch.bfloat16:
         want = (tiled, fa, fa)
@@ -237,6 +237,39 @@ def test_route_table_names_kernels_of_their_libraries():
     kernels = {n for names in libs.values() for n in names
                if not n.endswith("_smem_bytes")}
     assert kernels == routed, kernels ^ routed
+
+
+def test_sass_checks_mark_each_instantiation_apart():
+    """``chip_smoke.py``'s SASS phases check every kernel the route table
+    gives each library under a mark of its own: each kernel of
+    flash_attention.cu has an entry in ``WGMMA_KERNELS`` naming its own
+    instantiation (``ILi<D>E``) and exports its launch's shared memory
+    (``<name>_smem_bytes``, which the phase reads); the bf16 forwards of
+    flash_tiled.cu are ``ASYNC_KERNELS``'; and no mark is part of
+    another, or one instantiation's HGMMA, UTMALDG, registers and spills
+    would be counted under another's name."""
+    import chip_smoke
+    exported = _entry_points(flash.SOURCE)
+    by_source = {flash.SOURCE: {}, flash.TILED_SOURCE: {}}
+    for (dtype, D), r in flash.ROUTES.items():
+        for name, src in zip(r.names, r.sources):
+            if src == flash.SOURCE or (dtype, name) == (torch.bfloat16,
+                                                         r.fwd):
+                by_source[src][name] = D
+    assert set(chip_smoke.WGMMA_KERNELS) == set(by_source[flash.SOURCE])
+    assert set(chip_smoke.ASYNC_KERNELS) == set(
+        by_source[flash.TILED_SOURCE])
+    for marks, kernels in ((chip_smoke.WGMMA_KERNELS,
+                            by_source[flash.SOURCE]),
+                           (chip_smoke.ASYNC_KERNELS,
+                            by_source[flash.TILED_SOURCE])):
+        for name, D in kernels.items():
+            assert marks[name].endswith(f"ILi{D}E"), (name, marks[name])
+    for name in by_source[flash.SOURCE]:
+        assert f"{name}_smem_bytes" in exported
+    marks = [*chip_smoke.WGMMA_KERNELS.values(),
+             *chip_smoke.ASYNC_KERNELS.values()]
+    assert not [(a, b) for a in marks for b in marks if a != b and a in b]
 
 
 @pytest.mark.parametrize("dtype,D,match", [
@@ -515,11 +548,11 @@ def test_function_on_card_matches_plain(cuda, S):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [64, 192])
 @pytest.mark.parametrize("dtype,D", [(dt, D) for dt, D in flash.ROUTES
-                                     if flash.TILED_SOURCE
-                                     in flash.ROUTES[dt, D].sources])
-def test_tiled_routes_on_card_match_plain(cuda, dtype, D, S):
-    """Each route with a kernel in flash_tiled.cu (the bf16 backward is
-    flash_attention.cu's) through the autograd.Function on q, k, v slices
+                                     if (dt, D) != (torch.bfloat16, 64)])
+def test_other_routes_on_card_match_plain(cuda, dtype, D, S):
+    """Each route but bf16 D = 64's (float32 in flash_tiled.cu; bf16 at D
+    = 32 and 128 in flash_attention.cu, at D = 16 the forward in
+    flash_tiled.cu) through the autograd.Function on q, k, v slices
     of one c_attn-shaped buffer, at S = 192 (a partial last 128-row block
     of the JAX rule's tiles and of the wgmma kernels' items, three of the
     tiled kernels' 64 keys, an odd count for the forwards' two-stage
