@@ -335,12 +335,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``mid_round`` and ``async_pool`` rows with children on the card
    (``phase_crash``: killed, resumed, bit for bit the straight child,
    whose launches are exactly CRASH_W K1 + 1 K2 a round), and one epoch
-   of each CIFAR10 curve arm and of the GPT-2 sketch arm at seed 21
-   (``phase_curves``: the TSV header, the CIFAR10 upload MiB equal to
-   the TPU log's, 9 K1 + 1 K2 a sketch round). ``python3 chip_smoke.py
-   --crash`` runs the build and all six crash rows, ``--curves [ARM,...
-   [SEED,... [OUT]]]`` the whole learning-curve study into OUT (default
-   CURVES_OUT) with each arm's band verdict (no result line);
+   of each CIFAR10 curve arm, of the GPT-2 sketch arm and of its two
+   clip placements at seed 21 (``phase_curves``: the TSV header, the
+   upload MiB equal to the TPU log's, each arm's K1, K2 and cell sums a
+   round, ``CURVE_LAUNCHES``: 9 K1 + 1 K2 a ResNet-9 sketch round, 8 + 1
+   a GPT-2 one and under its table clip, 1 + 1 under its dense clip).
+   ``python3 chip_smoke.py --crash`` runs the build and all six crash
+   rows, ``--curves [ARM,... [SEED,... [OUT]]]`` the whole learning-curve
+   study into OUT (default CURVES_OUT): each run's record checked the
+   same way, what differs printed rather than fatal, then each arm's band
+   verdict (no result line);
 17. print the ``{"kernels": [...]}`` line (K1's range launches and
    range timings in its entry; K2's range form an entry of its own,
    ``circ_decode_range``), the card's name and power limit, and last
@@ -5892,8 +5896,22 @@ CRASH_FULL_POINTS = ("mid_round", "async_pool")
 # encode), 1 K2 and 1 cell sum a synchronous round
 CRASH_ROUNDS, CRASH_W = 14, 4
 CURVE_SMOKE_ARMS = ("cv_uncompressed24", "cv_true_topk24", "cv_sketch96",
-                    "gpt2_sketch24")
-CV_SKETCH_K1, CV_SKETCH_K2, CV_SKETCH_CELLS = 9, 1, 1
+                    "gpt2_sketch24", "gpt2_sketch24_clip",
+                    "gpt2_sketch24_denseclip")
+# each curve arm's K1, K2 and cell sums a round (PERF.md kernel table):
+# the ResNet-9 sketch 9 K1 (8 clients and the weight decay's encode); the
+# GPT-2 sketch 8 (no weight decay), also under the table clip (each
+# client's table is clipped) and at any width; 1 under the dense clip
+# (one encode of the clipped sum); the dense arms none
+CURVE_LAUNCHES = {
+    "cv_uncompressed24": (0, 0, 0), "cv_true_topk24": (0, 0, 0),
+    "cv_sketch96": (9, 1, 1),
+    "gpt2_uncompressed24": (0, 0, 0), "gpt2_true_topk24_clip": (0, 0, 0),
+    "gpt2_true_topk24": (0, 0, 0),
+    "gpt2_sketch24": (8, 1, 1), "gpt2_sketch24_clip": (8, 1, 1),
+    "gpt2_sketch24_denseclip": (1, 1, 1), "gpt2_sketch24_clip8": (8, 1, 1),
+    "gpt2_sketch24_c1048576": (8, 1, 1), "gpt2_sketch24_c2097152": (8, 1, 1),
+    "gpt2_sketch48": (8, 1, 1)}
 CURVES_OUT = "curves_out"
 
 
@@ -5974,10 +5992,13 @@ def phase_crash(points=CRASH_FULL_POINTS) -> dict:
             for k, v in launches.items()}
 
 
-def check_curve_record(rec: dict, arm) -> None:
+def check_curve_record(rec: dict, arm, strict: bool = True) -> bool:
     """A curve run's record: a TSV with its header, finite epoch rows,
-    the CIFAR10 arms' upload MiB at the TPU's seed equal to the TPU
-    log's, and the sketch arm's K1, K2 and cell sums a round."""
+    the upload MiB at the TPU's seed equal to the TPU log's, and the
+    arm's K1, K2 and cell sums a round (``CURVE_LAUNCHES``). Fails on a
+    wrong header or a non-finite row; on the rest too when ``strict``,
+    else prints what differs (the whole study reports, it does not
+    stop). Returns whether everything matched."""
     from commefficient_torch.scripts import curves
     name = rec["arm"]
     with open(rec["tsv"]) as f:
@@ -5988,22 +6009,28 @@ def check_curve_record(rec: dict, arm) -> None:
     if head != want_head or not rows or not all(
             math.isfinite(r["test_loss"]) for r in rows):
         fail(f"curves {name}: header {head!r}, epoch rows {rows}")
-    if arm.kind == "cv" and rec["seed"] == curves.TPU_SEED:
+    problems = []
+    if rec["seed"] == curves.TPU_SEED:
         wrong = curves.up_matches(rec, arm.tpu_log)
         if wrong:
-            fail(f"curves {name}: up (MiB) differs from the TPU log's: "
-                 f"{wrong[:5]}")
-    if name.startswith("cv_sketch"):
-        n = rec["rounds"]
-        want = sketch_launches(n, CV_SKETCH_K1, CV_SKETCH_K2, CV_SKETCH_CELLS)
-        if {k: rec["launches"][k] for k in want} != want:
-            fail(f"curves {name}: launches {rec['launches']} over {n} "
-                 f"rounds; want {CV_SKETCH_K1} K1 + {CV_SKETCH_K2} K2 + "
-                 f"{CV_SKETCH_CELLS} cell sum a round")
+            problems.append(f"up (MiB) differs from the TPU log's: "
+                            f"{wrong[:5]}")
+    n = rec["rounds"]
+    k1, k2, cells = CURVE_LAUNCHES[name]
+    want = sketch_launches(n, k1, k2, cells)
+    got = {k: rec["launches"][k] for k in want}
+    if got != want:
+        problems.append(f"launches {got} over {n} rounds; want {k1} K1 + "
+                        f"{k2} K2 + {cells} cell sum a round")
+    if problems and strict:
+        fail(f"curves {name}: " + "; ".join(problems))
+    for p in problems:
+        print(f"[curves] {name} seed {rec['seed']}: {p}", flush=True)
+    return not problems
 
 
 def phase_curves(arms=CURVE_SMOKE_ARMS, seeds=(21,), epochs=1,
-                 out=None) -> dict:
+                 out=None, strict=True) -> dict:
     """The study recipes (``curves.run_arm``) on the card: each arm at each
     seed, its first ``epochs`` epochs (None: the whole run), each run's
     record checked (``check_curve_record``). Returns the records."""
@@ -6014,14 +6041,15 @@ def phase_curves(arms=CURVE_SMOKE_ARMS, seeds=(21,), epochs=1,
         for seed in seeds:
             t = time.perf_counter()
             rec = curves.run_arm(name, seed, out, "cuda", epochs)
-            check_curve_record(rec, curves.ARMS[name])
+            check_curve_record(rec, curves.ARMS[name], strict)
             recs[(name, seed)] = rec
             row = rec["epochs"][-1]
             print(f"[curves] {name} seed {seed}: {rec['rounds']} rounds, "
                   f"round median {rec['round_s_median'] * 1e3:.3f} ms, "
                   f"epoch {row['epoch']}: test_loss {row['test_loss']:.4f}"
                   f" test_acc {row['test_acc']:.4f} up (MiB) "
-                  f"{row['up (MiB)']}; launches {rec['launches']}; "
+                  f"{row['up (MiB)']}; launches "
+                  f"{nonzero(rec['launches'])}; "
                   f"{time.perf_counter() - t:.1f} s", flush=True)
     return recs
 
@@ -6033,7 +6061,7 @@ def run_curve_study(arms, seeds, out: str) -> None:
     line printed. A curve outside its band is a finding, not a failure
     of the run."""
     from commefficient_torch.scripts import curves
-    phase_curves(arms, seeds, None, out)
+    phase_curves(arms, seeds, None, out, strict=False)
     print(f"[curves] on {smi_line()}", flush=True)
     curves.main(["band", "--arms", ",".join(arms), "--seeds",
                  ",".join(map(str, seeds)), "--out", out])
@@ -7028,7 +7056,8 @@ def run_phases(t0: float) -> int:
     crash_launches = phase_crash()
     done("the crash matrix's mid_round and async_pool rows")
     curve_recs = phase_curves()
-    done("one epoch of each CIFAR10 curve arm and of the GPT-2 sketch arm")
+    done("one epoch of each CIFAR10 curve arm and of the GPT-2 sketch arm "
+         "and its two clip placements")
     print("[slice 12] round medians (ms): ResNet-9 wires "
           + ", ".join(f"{a} {ms:.3f} ({b} B a client)"
                       for a, (_, ms, b) in wire.items())

@@ -269,7 +269,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             loggers=(TableLogger(), tsv), timer=timer, ckpt_mgr=ckpt_mgr,
             checkpoint_every=cfg.checkpoint_every, start_epoch=start_epoch,
             global_round=global_round, telemetry=telemetry,
-            model_flops_per_round=flops, writer=make_writer(cfg, logdir))
+            model_flops_per_round=flops, writer=make_writer(cfg, logdir),
+            eval_before_start=cfg.eval_before_start)
     finally:
         if telemetry is not None:
             telemetry.close()

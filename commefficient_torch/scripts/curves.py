@@ -30,7 +30,9 @@ point. ``--epochs N`` runs each arm's first N epochs at its full
 schedule (the runs stop after those epochs' rounds), for a smoke.
 
 ``band`` writes each arm's per-epoch verdict against its TPU curve to
-``<arm>_band.txt`` under ``--out`` and prints its first line, with the
+``<arm>_band.txt`` under ``--out`` and prints its first two lines (the
+second: the last epoch's port range beside the TPU's value, the runs'
+wall seconds, round medians and kernel launches a round), with the
 arm's ``BAND``: the port's [min, max] over its seeds, widened by 2
 points of top-1 (CIFAR10) or by 0.05 NLL and 0.03 MC accuracy (GPT-2),
 and checks each epoch's upload MiB at the TPU's seed against the TPU
@@ -92,6 +94,18 @@ class Arm:
     tpu_log: str
 
 
+# scripts/gpt2_convergence.sh's flagship sketch: 5 x 524,288, k = 50,000
+GPT2_SKETCH = ("--mode", "sketch", "--error_type", "virtual",
+               "--num_cols", "524288", "--num_rows", "5", "--k", "50000",
+               "--approx_topk")
+
+
+def _with(flags: Tuple[str, ...], flag: str, value: str) -> Tuple[str, ...]:
+    """``flags`` with ``flag``'s value set to ``value``."""
+    i = flags.index(flag)
+    return flags[:i + 1] + (value,) + flags[i + 2:]
+
+
 ARMS = {
     "cv_uncompressed24": Arm(
         "cv", 24, ("--mode", "uncompressed", "--error_type", "none"),
@@ -119,11 +133,41 @@ ARMS = {
         "runs/gpt2_conv/gpt2_true_topk24_clip.tsv",
         "runs/gpt2_conv/gpt2_true_topk24_clip.log"),
     "gpt2_sketch24": Arm(
-        "gpt2", 24, ("--mode", "sketch", "--error_type", "virtual",
-                     "--num_cols", "524288", "--num_rows", "5", "--k",
-                     "50000", "--approx_topk"),
-        "runs/gpt2_conv/gpt2_sketch24.tsv",
+        "gpt2", 24, GPT2_SKETCH, "runs/gpt2_conv/gpt2_sketch24.tsv",
         "runs/gpt2_conv/gpt2_sketch24.log"),
+    # the rest of runs/gpt2_conv/README.md's table (:35-46): the two clip
+    # placements at one threshold (the table's, and each worker's dense
+    # gradient before the encode), the loose table clip, the wider
+    # tables, the unclipped true_topk and the 48-epoch sketch
+    "gpt2_sketch24_clip": Arm(
+        "gpt2", 24, GPT2_SKETCH + ("--max_grad_norm", "1"),
+        "runs/gpt2_conv/gpt2_sketch24_clip.tsv",
+        "runs/gpt2_conv/gpt2_sketch24_clip.log"),
+    "gpt2_sketch24_denseclip": Arm(
+        "gpt2", 24, GPT2_SKETCH + ("--max_grad_norm", "1",
+                                   "--sketch_dense_clip"),
+        "runs/gpt2_conv/gpt2_sketch24_denseclip.tsv",
+        "runs/gpt2_conv/gpt2_sketch24_denseclip.log"),
+    "gpt2_sketch24_clip8": Arm(
+        "gpt2", 24, GPT2_SKETCH + ("--max_grad_norm", "8"),
+        "runs/gpt2_conv/gpt2_sketch24_clip8.tsv",
+        "runs/gpt2_conv/gpt2_sketch24_clip8.log"),
+    "gpt2_sketch24_c1048576": Arm(
+        "gpt2", 24, _with(GPT2_SKETCH, "--num_cols", "1048576"),
+        "runs/gpt2_conv/gpt2_sketch24_c1048576.tsv",
+        "runs/gpt2_conv/gpt2_sketch24_c1048576.log"),
+    "gpt2_sketch24_c2097152": Arm(
+        "gpt2", 24, _with(GPT2_SKETCH, "--num_cols", "2097152"),
+        "runs/gpt2_conv/gpt2_sketch24_c2097152.tsv",
+        "runs/gpt2_conv/gpt2_sketch24_c2097152.log"),
+    "gpt2_true_topk24": Arm(
+        "gpt2", 24, ("--mode", "true_topk", "--error_type", "virtual",
+                     "--k", "50000", "--approx_topk"),
+        "runs/gpt2_conv/gpt2_true_topk24.tsv",
+        "runs/gpt2_conv/gpt2_true_topk24.log"),
+    "gpt2_sketch48": Arm(
+        "gpt2", 48, GPT2_SKETCH, "runs/gpt2_conv/gpt2_sketch48.tsv",
+        "runs/gpt2_conv/gpt2_sketch48.log"),
 }
 
 
@@ -319,6 +363,41 @@ def format_band(name: str, verdict: dict, band: Dict[str, float]) -> List[str]:
     return lines
 
 
+def _span(vals, fmt: str) -> str:
+    lo, hi = min(vals), max(vals)
+    return format(lo, fmt) + ("" if lo == hi else "-" + format(hi, fmt))
+
+
+def run_summary(verdict: dict, band: Dict[str, float],
+                records: Sequence[dict]) -> str:
+    """One line of an arm's runs: at the TPU curve's last epoch each
+    column's port range over the seeds beside the TPU's value, then,
+    from the runs' JSON records, their wall seconds, round medians (ms)
+    and the kernels each launched a round."""
+    last = verdict["last"]
+    parts = [f"epoch {last['epoch']}: " + "; ".join(
+        f"{col} tpu {last[col]['tpu']:.4g} port "
+        + (_span(last[col]["port"], ".4g") if last[col]["port"]
+           else "missing") for col in band)]
+    walls = [r["wall_s"] for r in records if r.get("wall_s")]
+    meds = [r["round_s_median"] * 1e3 for r in records
+            if r.get("round_s_median")]
+    if walls:
+        parts.append(f"wall {_span(walls, '.1f')} s")
+    if meds:
+        parts.append(f"round median {_span(meds, '.1f')} ms")
+    runs = [r for r in records if r.get("rounds") and "launches" in r]
+    if runs:
+        names = sorted({k for r in runs for k, v in r["launches"].items()
+                        if v})
+        per_round = {k: [r["launches"].get(k, 0) / r["rounds"]
+                         for r in runs] for k in names}
+        parts.append("a round: " + (", ".join(
+            f"{k} {_span(v, '.4g')}" for k, v in per_round.items())
+            or "no kernel launched"))
+    return "  " + "; ".join(parts)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("cmd", choices=("run", "band"))
@@ -352,14 +431,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         band = BAND[arm.kind]
         verdict = curve_band([s + ".tsv" for s in stems],
                              os.path.join(REPO, arm.tpu_tsv), band)
+        records = {}
+        for stem in stems:
+            if os.path.exists(stem + ".json"):
+                with open(stem + ".json") as f:
+                    records[stem] = json.load(f)
         lines = format_band(name, verdict, band)
+        lines.insert(1, run_summary(verdict, band, list(records.values())))
         with open(os.path.join(args.out, f"{name}_band.txt"), "w") as f:
             f.write("\n".join(lines) + "\n")
-        print(lines[0])
+        print("\n".join(lines[:2]))
         if TPU_SEED in seeds:
             stem = stems[seeds.index(TPU_SEED)]
-            with open(stem + ".json") as f:
-                wrong = up_matches(json.load(f), arm.tpu_log)
+            wrong = up_matches(records[stem], arm.tpu_log)
             print(f"  up (MiB) {os.path.basename(stem)}: "
                   + ("equal to the TPU log's at every epoch" if not wrong
                      else f"differs at {wrong[:5]}"))

@@ -289,6 +289,25 @@ def test_gpt2_train_runs_on_cpu(tmp_path, capsys, extra, rounds):
     assert "final val nll" in text and "tokens/s" in text
 
 
+def test_gpt2_train_validates_before_start(tmp_path, capsys):
+    """``--eval_before_start`` validates once before the first round, as
+    the JAX package's loop does (``cv_train.py:573``), and leaves the
+    run's rounds as they were."""
+    argv = ["--test", "--device", "cpu", "--dataset_dir", str(tmp_path),
+            "--error_type", "virtual", "--local_momentum", "0",
+            "--num_workers", "2", "--local_batch_size", "2", "--num_cols",
+            "4096", "--valid_batch_size", "4", "--num_rounds", "2",
+            "--no_telemetry"]
+    plain = gpt2_train.main(argv)
+    assert "Test acc at epoch 0" not in capsys.readouterr().out
+    first = gpt2_train.main(argv + ["--eval_before_start"])
+    text = capsys.readouterr().out
+    assert text.count("Test acc at epoch 0: ") == 1
+    assert text.index("Test acc at epoch 0") < text.index("final val nll")
+    assert first["losses"] == plain["losses"]
+    assert first["val_loss"] == plain["val_loss"]
+
+
 @pytest.mark.parametrize("flags,name", [
     (["--mesh_axes", "clients,model"], "--mesh_axes"),
     (["--defense", "trimmed_mean"], "--defense"),
