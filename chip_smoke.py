@@ -340,11 +340,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    upload MiB equal to the TPU log's, each arm's K1, K2 and cell sums a
    round, ``CURVE_LAUNCHES``: 9 K1 + 1 K2 a ResNet-9 sketch round, 8 + 1
    a GPT-2 one and under its table clip, 1 + 1 under its dense clip).
-   ``python3 chip_smoke.py --crash`` runs the build and all six crash
-   rows, ``--curves [ARM,... [SEED,... [OUT]]]`` the whole learning-curve
-   study into OUT (default CURVES_OUT): each run's record checked the
-   same way, what differs printed rather than fatal, then each arm's band
-   verdict (no result line);
+   The smoke also runs the first epoch of two EF arms
+   (CURVE_EF_SMOKE_ARMS: 9 rows, and the subtract rule up to its abort;
+   2 cell sums a round). ``python3 chip_smoke.py --crash`` runs the build
+   and all six crash rows, ``--curves [ARM,...|ef|all [SEED,...
+   [OUT]]]`` a learning-curve study (default: the EF study's 15 arms at
+   seeds 21-23) into OUT (default CURVES_OUT), CURVE_PROCS runs on the
+   card at once after the parent has written their shared data: each
+   run's record checked the same way, what differs printed rather than
+   fatal, then each arm's band verdict (no result line);
 17. print the ``{"kernels": [...]}`` line (K1's range launches and
    range timings in its entry; K2's range form an entry of its own,
    ``circ_decode_range``), the card's name and power limit, and last
@@ -434,6 +438,135 @@ MEDIAN_NETS = {
         ("min", 18, 17), ("max", 18, 17), ("min", 22, 21), ("max", 22, 21),
         ("max", 16, 20), ("max", 24, 26), ("min", 25, 27), ("min", 19, 23),
         ("min", 31, 29), ("max", 30, 28)),
+    # r = 9 to 16: Batcher's odd-even merge sort on r wires, less every
+    # operation no median output reads and every one whose value could be
+    # either operand's on all 0/1 columns (csrc/circulant.cu MedianNet)
+    9: (("min", 0, 1), ("max", 0, 1), ("min", 2, 3), ("max", 2, 3),
+        ("min", 4, 5), ("max", 4, 5), ("min", 6, 7), ("max", 6, 7),
+        ("min", 9, 11), ("max", 9, 11), ("min", 10, 12), ("max", 10, 12),
+        ("min", 13, 15), ("max", 13, 15), ("min", 14, 16), ("max", 14, 16),
+        ("min", 19, 18), ("max", 19, 18), ("min", 23, 22), ("max", 23, 22),
+        ("max", 17, 21), ("max", 25, 27), ("min", 26, 28), ("min", 20, 24),
+        ("max", 31, 29), ("min", 32, 30), ("min", 34, 33), ("max", 34, 33),
+        ("min", 36, 8), ("max", 35, 37)),
+    10: (("min", 0, 1), ("max", 0, 1), ("min", 2, 3), ("max", 2, 3),
+        ("min", 4, 5), ("max", 4, 5), ("min", 6, 7), ("max", 6, 7),
+        ("min", 8, 9), ("max", 8, 9), ("min", 10, 12), ("max", 10, 12),
+        ("min", 11, 13), ("max", 11, 13), ("min", 14, 16), ("max", 14, 16),
+        ("min", 15, 17), ("max", 15, 17), ("min", 22, 21), ("max", 22, 21),
+        ("min", 26, 25), ("max", 26, 25), ("max", 20, 24), ("min", 28, 30),
+        ("max", 28, 30), ("min", 29, 31), ("max", 29, 31), ("min", 23, 27),
+        ("min", 35, 32), ("max", 35, 32), ("min", 37, 34), ("max", 37, 34),
+        ("min", 40, 39), ("max", 40, 39), ("min", 41, 36), ("max", 33, 19),
+        ("min", 43, 18), ("max", 43, 18), ("min", 44, 45), ("max", 38, 46),
+        ("min", 42, 48), ("max", 42, 48), ("max", 50, 49), ("min", 51, 47)),
+    11: (("min", 0, 1), ("max", 0, 1), ("min", 2, 3), ("max", 2, 3),
+        ("min", 4, 5), ("max", 4, 5), ("min", 6, 7), ("max", 6, 7),
+        ("min", 8, 9), ("max", 8, 9), ("min", 11, 13), ("max", 11, 13),
+        ("min", 12, 14), ("max", 12, 14), ("min", 15, 17), ("max", 15, 17),
+        ("min", 16, 18), ("max", 16, 18), ("min", 19, 10), ("max", 19, 10),
+        ("min", 23, 22), ("max", 23, 22), ("min", 27, 26), ("max", 27, 26),
+        ("min", 20, 30), ("max", 20, 30), ("max", 21, 25), ("min", 31, 33),
+        ("max", 31, 33), ("min", 32, 34), ("max", 32, 34), ("min", 24, 28),
+        ("min", 40, 37), ("max", 40, 37), ("min", 42, 39), ("max", 42, 39),
+        ("max", 38, 43), ("min", 45, 44), ("max", 45, 44), ("min", 46, 41),
+        ("max", 47, 36), ("max", 49, 29), ("min", 50, 35), ("max", 48, 53),
+        ("min", 51, 52), ("min", 54, 55)),
+    12: (("min", 0, 1), ("max", 0, 1), ("min", 2, 3), ("max", 2, 3),
+        ("min", 4, 5), ("max", 4, 5), ("min", 6, 7), ("max", 6, 7),
+        ("min", 8, 9), ("max", 8, 9), ("min", 10, 11), ("max", 10, 11),
+        ("min", 12, 14), ("max", 12, 14), ("min", 13, 15), ("max", 13, 15),
+        ("min", 16, 18), ("max", 16, 18), ("min", 17, 19), ("max", 17, 19),
+        ("min", 20, 22), ("max", 20, 22), ("min", 21, 23), ("max", 21, 23),
+        ("min", 26, 25), ("max", 26, 25), ("min", 30, 29), ("max", 30, 29),
+        ("min", 34, 33), ("max", 34, 33), ("max", 24, 28), ("min", 36, 38),
+        ("max", 36, 38), ("min", 37, 39), ("max", 37, 39), ("min", 27, 31),
+        ("min", 45, 42), ("max", 45, 42), ("min", 47, 44), ("max", 47, 44),
+        ("min", 43, 48), ("max", 43, 48), ("min", 50, 49), ("max", 50, 49),
+        ("min", 51, 46), ("max", 51, 46), ("max", 52, 40), ("max", 53, 41),
+        ("min", 54, 35), ("max", 55, 32), ("min", 56, 58), ("min", 57, 59),
+        ("max", 60, 62), ("min", 63, 61), ("min", 64, 65), ("max", 64, 65)),
+    13: (("min", 0, 1), ("max", 0, 1), ("min", 2, 3), ("max", 2, 3),
+        ("min", 4, 5), ("max", 4, 5), ("min", 6, 7), ("max", 6, 7),
+        ("min", 8, 9), ("max", 8, 9), ("min", 10, 11), ("max", 10, 11),
+        ("min", 13, 15), ("max", 13, 15), ("min", 14, 16), ("max", 14, 16),
+        ("min", 17, 19), ("max", 17, 19), ("min", 18, 20), ("max", 18, 20),
+        ("min", 21, 23), ("max", 21, 23), ("min", 22, 24), ("max", 22, 24),
+        ("min", 27, 26), ("max", 27, 26), ("min", 31, 30), ("max", 31, 30),
+        ("min", 35, 34), ("max", 35, 34), ("max", 25, 29), ("min", 37, 39),
+        ("max", 37, 39), ("min", 38, 40), ("max", 38, 40), ("min", 28, 32),
+        ("min", 33, 12), ("max", 33, 12), ("min", 46, 43), ("max", 46, 43),
+        ("min", 48, 45), ("max", 48, 45), ("min", 42, 50), ("max", 42, 50),
+        ("min", 44, 51), ("max", 44, 51), ("min", 53, 52), ("max", 53, 52),
+        ("min", 54, 47), ("max", 54, 47), ("min", 41, 55), ("max", 41, 55),
+        ("min", 36, 56), ("max", 36, 56), ("max", 57, 63), ("max", 58, 64),
+        ("min", 59, 65), ("min", 60, 66), ("max", 70, 49), ("min", 61, 67),
+        ("min", 62, 68), ("max", 69, 72), ("min", 73, 71), ("max", 74, 75)),
+    14: (("min", 0, 1), ("max", 0, 1), ("min", 2, 3), ("max", 2, 3),
+        ("min", 4, 5), ("max", 4, 5), ("min", 6, 7), ("max", 6, 7),
+        ("min", 8, 9), ("max", 8, 9), ("min", 10, 11), ("max", 10, 11),
+        ("min", 12, 13), ("max", 12, 13), ("min", 14, 16), ("max", 14, 16),
+        ("min", 15, 17), ("max", 15, 17), ("min", 18, 20), ("max", 18, 20),
+        ("min", 19, 21), ("max", 19, 21), ("min", 22, 24), ("max", 22, 24),
+        ("min", 23, 25), ("max", 23, 25), ("min", 30, 29), ("max", 30, 29),
+        ("min", 34, 33), ("max", 34, 33), ("min", 38, 37), ("max", 38, 37),
+        ("min", 28, 32), ("max", 28, 32), ("min", 40, 42), ("max", 40, 42),
+        ("min", 41, 43), ("max", 41, 43), ("min", 31, 35), ("max", 31, 35),
+        ("min", 36, 26), ("max", 36, 26), ("min", 44, 27), ("max", 44, 27),
+        ("min", 50, 47), ("max", 50, 47), ("min", 52, 49), ("max", 52, 49),
+        ("min", 45, 55), ("max", 45, 55), ("min", 39, 57), ("max", 39, 57),
+        ("min", 48, 58), ("max", 48, 58), ("min", 60, 59), ("max", 60, 59),
+        ("min", 61, 51), ("max", 61, 51), ("min", 56, 62), ("max", 56, 62),
+        ("min", 64, 63), ("max", 64, 63), ("max", 46, 54), ("max", 66, 72),
+        ("max", 67, 73), ("min", 68, 74), ("max", 68, 74), ("min", 69, 75),
+        ("min", 70, 65), ("max", 81, 76), ("min", 82, 77), ("max", 82, 77),
+        ("min", 71, 78), ("min", 53, 80), ("max", 79, 84), ("min", 86, 83),
+        ("max", 86, 83), ("min", 87, 85), ("max", 88, 89), ("min", 91, 90)),
+    15: (("min", 0, 1), ("max", 0, 1), ("min", 2, 3), ("max", 2, 3),
+        ("min", 4, 5), ("max", 4, 5), ("min", 6, 7), ("max", 6, 7),
+        ("min", 8, 9), ("max", 8, 9), ("min", 10, 11), ("max", 10, 11),
+        ("min", 12, 13), ("max", 12, 13), ("min", 15, 17), ("max", 15, 17),
+        ("min", 16, 18), ("max", 16, 18), ("min", 19, 21), ("max", 19, 21),
+        ("min", 20, 22), ("max", 20, 22), ("min", 23, 25), ("max", 23, 25),
+        ("min", 24, 26), ("max", 24, 26), ("min", 27, 14), ("max", 27, 14),
+        ("min", 31, 30), ("max", 31, 30), ("min", 35, 34), ("max", 35, 34),
+        ("min", 39, 38), ("max", 39, 38), ("min", 28, 42), ("max", 28, 42),
+        ("min", 29, 33), ("max", 29, 33), ("min", 43, 45), ("max", 43, 45),
+        ("min", 44, 46), ("max", 44, 46), ("min", 32, 36), ("max", 32, 36),
+        ("min", 37, 41), ("max", 37, 41), ("min", 47, 49), ("max", 47, 49),
+        ("min", 48, 50), ("max", 48, 50), ("min", 55, 52), ("max", 55, 52),
+        ("min", 57, 54), ("max", 57, 54), ("min", 63, 60), ("max", 63, 60),
+        ("min", 40, 62), ("max", 40, 62), ("min", 53, 65), ("max", 53, 65),
+        ("min", 67, 66), ("max", 67, 66), ("min", 68, 56), ("max", 68, 56),
+        ("min", 61, 69), ("max", 61, 69), ("min", 71, 70), ("max", 71, 70),
+        ("min", 72, 64), ("max", 72, 64), ("max", 51, 59), ("max", 73, 79),
+        ("max", 74, 80), ("max", 75, 81), ("min", 76, 82), ("min", 77, 83),
+        ("min", 78, 84), ("max", 89, 85), ("max", 90, 86), ("min", 91, 87),
+        ("min", 58, 88), ("max", 94, 92), ("min", 95, 93), ("min", 97, 96)),
+    16: (("min", 0, 1), ("max", 0, 1), ("min", 2, 3), ("max", 2, 3),
+        ("min", 4, 5), ("max", 4, 5), ("min", 6, 7), ("max", 6, 7),
+        ("min", 8, 9), ("max", 8, 9), ("min", 10, 11), ("max", 10, 11),
+        ("min", 12, 13), ("max", 12, 13), ("min", 14, 15), ("max", 14, 15),
+        ("min", 16, 18), ("max", 16, 18), ("min", 17, 19), ("max", 17, 19),
+        ("min", 20, 22), ("max", 20, 22), ("min", 21, 23), ("max", 21, 23),
+        ("min", 24, 26), ("max", 24, 26), ("min", 25, 27), ("max", 25, 27),
+        ("min", 28, 30), ("max", 28, 30), ("min", 29, 31), ("max", 29, 31),
+        ("min", 34, 33), ("max", 34, 33), ("min", 38, 37), ("max", 38, 37),
+        ("min", 42, 41), ("max", 42, 41), ("min", 46, 45), ("max", 46, 45),
+        ("min", 32, 36), ("max", 32, 36), ("min", 48, 50), ("max", 48, 50),
+        ("min", 49, 51), ("max", 49, 51), ("min", 35, 39), ("max", 35, 39),
+        ("min", 40, 44), ("max", 40, 44), ("min", 52, 54), ("max", 52, 54),
+        ("min", 53, 55), ("max", 53, 55), ("min", 43, 47), ("max", 43, 47),
+        ("min", 60, 57), ("max", 60, 57), ("min", 62, 59), ("max", 62, 59),
+        ("min", 68, 65), ("max", 68, 65), ("min", 70, 67), ("max", 70, 67),
+        ("min", 58, 72), ("max", 58, 72), ("min", 74, 73), ("max", 74, 73),
+        ("min", 75, 61), ("max", 75, 61), ("min", 66, 76), ("max", 66, 76),
+        ("min", 78, 77), ("max", 78, 77), ("min", 79, 69), ("max", 79, 69),
+        ("max", 56, 64), ("max", 80, 86), ("max", 81, 87), ("max", 82, 88),
+        ("min", 83, 89), ("min", 84, 90), ("min", 85, 91), ("min", 63, 71),
+        ("max", 96, 92), ("max", 97, 93), ("min", 98, 94), ("min", 99, 95),
+        ("max", 102, 100), ("min", 103, 101), ("min", 105, 104),
+        ("max", 105, 104)),
 }
 # what K2's earlier design (one thread per coordinate, a 64-bit division
 # per coordinate, the bubble network of NaN-aware min/max) issued per term
@@ -453,6 +586,17 @@ SASS_HASH_MARK = f"-{hex(2**32 - 0x85EBCA6B)}"
 ROUNDS = 6
 FLAGSHIP = dict(d=6_568_640, c=500_736, r=5)
 GPT2_SKETCH = dict(d=92_138_496, c=524_288, r=5)
+# K1/K2 at the EF study's tables (scripts/gpt2_ef_study.sh) at GPT-2's d,
+# with the encode's scale (a client's datum count): 9 rows (m = 176), 2
+# rows of 4,603,904 columns (m = 21), 5 rows of 8,388,608, 4,194,304 and
+# 1,835,008 (m = 11, 22, 51); and 16 rows, the kernels' most, at the
+# ResNet-9 shape (m = 14)
+ROWS_SKETCHES = {
+    "gpt2_r9_shape": (dict(GPT2_SKETCH, r=9), 4.0),
+    "gpt2_r2_c4603904_shape": (dict(GPT2_SKETCH, c=4_603_904, r=2), 4.0),
+    "r16_resnet9_shape": (dict(FLAGSHIP, r=16), 64.0),
+    **{f"gpt2_m{m}_shape": (dict(GPT2_SKETCH, c=c), 4.0) for m, c in
+       ((11, 8_388_608), (22, 4_194_304), (51, 1_835_008))}}
 GPT2_ROUNDS = 4
 # K1: 8 clients + the weight-decay encode; the zero rule's cell sum; K3:
 # 12 layers x 8 clients
@@ -649,7 +793,8 @@ def phase_sketch_sass():
     funcs, name = {}, None
     # K2's whole decode is its kRange = false instantiation
     marks = {"circ_encode": "encode_kernelILi5E",
-             "circ_decode": "decode_kernelILi5ELb0E"}
+             "circ_decode": "decode_kernelILi5ELb0E",
+             "circ_decode r = 9": "decode_kernelILi9ELb0E"}
     for line in cuobjdump("-sass", K.SOURCE):
         if "Function :" in line:
             name = next((n for n, mark in marks.items() if mark in line),
@@ -658,8 +803,10 @@ def phase_sketch_sass():
                 funcs[name] = []
         elif name is not None:
             funcs[name].append(line)
+    resources = sketch_resources(funcs.pop("circ_decode r = 9", []))
     needs = {"circ_encode": term_instructions(0),
              "circ_decode": decode_term_instructions(5)}
+    kind_of = {"circ_encode": "K1", "circ_decode": "K2"}
     out = {}
     for name, need in needs.items():
         need_int = need["alu"] + need["imad"] + need["either"]
@@ -683,7 +830,71 @@ def phase_sketch_sass():
             if calls or issued >= K2_BUBBLE_SASS_PER_TERM:
                 fail(f"circ_decode: {calls} CALL, {issued:.2f} "
                      "instructions a term")
-        out[name] = {"hashes_in_block": hashes, "calls": calls, **per}
+        out[name] = {"hashes_in_block": hashes, "calls": calls, **per,
+                     "resources": {k: v for k, v in resources.items()
+                                   if k.startswith(kind_of[name])}}
+    return out
+
+
+# the instantiations of K1 and K2 whose registers, stack and local memory
+# are printed: r = 5 (the main paths') and the first and last past r = 8
+SKETCH_RESOURCE_ROWS = (5, 9, 16)
+
+
+def sketch_resources(decode9_sass) -> dict:
+    """Registers, stack frame and local memory of every K1 and K2
+    instantiation (``cuobjdump -res-usage`` of the built library, whether
+    or not this run compiled it), printed at SKETCH_RESOURCE_ROWS, and the
+    SASS of the whole decode at r = 9. Fails if an instantiation has a
+    stack frame or local memory (a spill would), or if
+    ``decode_kernel<9>`` calls a subroutine or moves local memory (LDL,
+    STL): its median network must stay in registers."""
+    import re
+
+    from commefficient_torch.ops import circulant_kernels as K
+
+    def instance(line):
+        hit = re.search(r"(encode|decode)_kernelILi(\d+)E(Lb([01])E)?",
+                        line)
+        if not hit:
+            return None
+        kind = "K1 encode" if hit.group(1) == "encode" else (
+            "K2 decode" + (" range" if hit.group(4) == "1" else ""))
+        return f"{kind}<{hit.group(2)}>"
+
+    use, name = {}, None
+    for line in cuobjdump("-res-usage", K.SOURCE):
+        if "Function " in line:
+            name = instance(line)
+        elif name is not None and "REG:" in line:
+            fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
+            use[name] = {"registers": int(fields["REG"]),
+                         "stack_bytes": int(fields["STACK"]),
+                         "local_bytes": int(fields["LOCAL"])}
+    out = {}
+    for r in SKETCH_RESOURCE_ROWS:
+        for kind in ("K1 encode", "K2 decode"):
+            key = f"{kind}<{r}>"
+            if key not in use:
+                fail(f"cuobjdump -res-usage reported nothing for {key}")
+            out[key] = use[key]
+            print(f"[sass] {key}: {use[key]['registers']} registers, "
+                  f"{use[key]['stack_bytes']} B stack, "
+                  f"{use[key]['local_bytes']} B local", flush=True)
+    local = sorted(k for k, u in use.items()
+                   if u["stack_bytes"] or u["local_bytes"])
+    if local:
+        fail(f"K1/K2 instantiations with a stack frame or local memory: "
+             f"{local}")
+    ops = [line.split(";")[0] for line in decode9_sass]
+    calls = sum(" CALL" in op for op in ops)
+    local = sum(bool(re.search(r"\b(LDL|STL)\b", op)) for op in ops)
+    print(f"[sass] K2 decode<9>: {len(ops)} SASS lines, {calls} CALL, "
+          f"{local} local-memory loads and stores; instantiations "
+          f"without stack or local memory: {len(use)}", flush=True)
+    if not ops or calls or local:
+        fail(f"decode_kernel<9>: {len(ops)} SASS lines, {calls} CALL, "
+             f"{local} LDL/STL")
     return out
 
 
@@ -1237,6 +1448,25 @@ def l2_read_rate(nbytes: int = 4 * 5 * 524_288, passes: int = 64):
     return passes * nbytes / (ms * 1e-3) / 1e12, ms
 
 
+# phase_kernels' seeded vectors on the host by d, each with the state of
+# its RandomState after the draw (several shapes share GPT-2's d)
+SKETCH_VECTORS = {}
+
+
+def sketch_vector(d: int):
+    """The seeded (d,) float32 vector of ``phase_kernels`` (numpy) and a
+    RandomState in the state its draw left, drawn once a run for each d."""
+    import numpy as np
+    if d not in SKETCH_VECTORS:
+        rng = np.random.RandomState(0)
+        SKETCH_VECTORS[d] = (rng.randn(d).astype(np.float32),
+                             rng.get_state())
+    v, state = SKETCH_VECTORS[d]
+    rng = np.random.RandomState()
+    rng.set_state(state)
+    return v, rng
+
+
 def phase_kernels(shape: dict, cols_list, scale: float, plain_n: int = 20):
     """K1 and K2 against their plain versions at (d, r) of ``shape`` and
     each c of ``cols_list``, bitwise (``same_bits``), K2 also on a table
@@ -1250,8 +1480,8 @@ def phase_kernels(shape: dict, cols_list, scale: float, plain_n: int = 20):
 
     dev = torch.device("cuda")
     d, c, r = shape["d"], shape["c"], shape["r"]
-    rng = np.random.RandomState(0)
-    v = torch.from_numpy(rng.randn(d).astype(np.float32)).to(dev)
+    v, rng = sketch_vector(d)
+    v = torch.from_numpy(v).to(dev)
     t0 = torch.from_numpy(rng.randn(r, c).astype(np.float32)).to(dev)
     results = {}
 
@@ -1326,12 +1556,14 @@ def phase_kernels(shape: dict, cols_list, scale: float, plain_n: int = 20):
               + ", ".join(f"{n / 1e6:.1f} M {p}" for p, n in instr.items())
               + f" -> bound {bounds[name][0] * 1e3:.2f} us "
               f"({bounds[name][1]})")
-    print(f"[kernels] circ_encode (accumulate, m={m}): kernel {enc_ms:.4f} "
-          f"ms, plain {enc_plain_ms:.4f} ms, bound "
-          f"{bounds['circ_encode'][0]:.4f} ms")
-    print(f"[kernels] circ_decode (m={m}): kernel {dec_ms:.4f} ms, plain "
-          f"{dec_plain_ms:.4f} ms, bound {bounds['circ_decode'][0]:.4f} ms",
-          flush=True)
+    print(f"[kernels] circ_encode (accumulate, r={r}, m={m}): kernel "
+          f"{enc_ms:.4f} ms, plain {enc_plain_ms:.4f} ms, bound "
+          f"{bounds['circ_encode'][0]:.4f} ms "
+          f"({bounds['circ_encode'][0] / enc_ms:.1%} of it)")
+    print(f"[kernels] circ_decode (r={r}, m={m}): kernel {dec_ms:.4f} ms, "
+          f"plain {dec_plain_ms:.4f} ms, bound "
+          f"{bounds['circ_decode'][0]:.4f} ms "
+          f"({bounds['circ_decode'][0] / dec_ms:.1%} of it)", flush=True)
     e1, e2 = results["err"]
     return {
         "circ_encode": {"max_abs_err": e1, "ms": enc_ms, "kernel_ms": enc_ms,
@@ -1347,6 +1579,16 @@ def phase_kernels(shape: dict, cols_list, scale: float, plain_n: int = 20):
                         "library_ms": None, "l2_sum_tb_s": l2_tb_s,
                         "gather_tb_s": rates["circ_decode"]},
     }
+
+
+def phase_kernels_rows() -> dict:
+    """K1 and K2 at each table of ROWS_SKETCHES (``phase_kernels``:
+    bitwise their plain versions, K2 also on the zeroed table with -0 and
+    NaN; time, bound and share printed). Returns each table's entries of
+    the kernel line."""
+    return {name: phase_kernels(shape, (shape["c"],), scale=scale,
+                                plain_n=5)
+            for name, (shape, scale) in ROWS_SKETCHES.items()}
 
 
 def flash_inputs(N, S, H, D, seed=0, dtype=None):
@@ -2964,6 +3206,25 @@ def phase_gpt2_main(extra=(), n_rounds: int = GPT2_ROUNDS,
         info["first_weights"] = split.first_weights
         info["final"] = out["state"].ps_weights.cpu()
     return rounds, val, rt * 1e3, info
+
+
+# the main path's table at more rows than r = 8 (K1/K2 took at most 8
+# before): GPT2_ARM_ROUNDS rounds at each
+GPT2_ROWS = (9, 16)
+
+
+def phase_gpt2_rows() -> dict:
+    """``gpt2_train --num_rows R`` for R of GPT2_ROWS at the main path's
+    width (``phase_gpt2_main``: exact launches a round, finite losses,
+    each round's upload 4 R c bytes a participant); returns each run's
+    result."""
+    out = {}
+    for r in GPT2_ROWS:
+        out[r] = phase_gpt2_main(["--num_rows", str(r)], GPT2_ARM_ROUNDS,
+                                 want_up=4 * r * GPT2_SKETCH["c"])
+        print(f"[gpt2] --num_rows {r}: median {out[r][2]:.3f} ms, peak "
+              f"{out[r][3]['peak'] / 2**30:.3f} GiB", flush=True)
+    return out
 
 
 # the real-data phase: a full-scale CIFAR10 pickle directory (50,000 train
@@ -5895,14 +6156,21 @@ CRASH_FULL_POINTS = ("mid_round", "async_pool")
 # than W = 4 clients have data left), W K1 (no weight decay: no decay
 # encode), 1 K2 and 1 cell sum a synchronous round
 CRASH_ROUNDS, CRASH_W = 14, 4
+# the EF study's arms in the smoke: 9 rows (K1/K2 past r = 8 on a real
+# path) and the subtract rule, which aborted in its first epoch on the TPU
+CURVE_EF_SMOKE_ARMS = ("gpt2_sketch24_clip1_r9", "gpt2_sketch24_sub")
 CURVE_SMOKE_ARMS = ("cv_uncompressed24", "cv_true_topk24", "cv_sketch96",
                     "gpt2_sketch24", "gpt2_sketch24_clip",
-                    "gpt2_sketch24_denseclip")
-# each curve arm's K1, K2 and cell sums a round (PERF.md kernel table):
-# the ResNet-9 sketch 9 K1 (8 clients and the weight decay's encode); the
-# GPT-2 sketch 8 (no weight decay), also under the table clip (each
-# client's table is clipped) and at any width; 1 under the dense clip
-# (one encode of the clipped sum); the dense arms none
+                    "gpt2_sketch24_denseclip") + CURVE_EF_SMOKE_ARMS
+# each curve arm's K1, K2 and cell sums a round (PERF.md kernel table;
+# core/server.py): the ResNet-9 sketch 9 K1 (8 clients and the weight
+# decay's encode); the GPT-2 sketch 8 (no weight decay), also under the
+# table clip (each client's table is clipped) and at any width, r or k;
+# 1 under the dense clip (one encode of the clipped sum); the subtract
+# rule 2 cell sums (encode_at of the update and encode_vals_at of the
+# momentum's kept values); the dense server state 1 K1 (one encode of the
+# round's dense sum) and no cell sum (its state is dense); the dense arms
+# none
 CURVE_LAUNCHES = {
     "cv_uncompressed24": (0, 0, 0), "cv_true_topk24": (0, 0, 0),
     "cv_sketch96": (9, 1, 1),
@@ -5911,7 +6179,22 @@ CURVE_LAUNCHES = {
     "gpt2_sketch24": (8, 1, 1), "gpt2_sketch24_clip": (8, 1, 1),
     "gpt2_sketch24_denseclip": (1, 1, 1), "gpt2_sketch24_clip8": (8, 1, 1),
     "gpt2_sketch24_c1048576": (8, 1, 1), "gpt2_sketch24_c2097152": (8, 1, 1),
-    "gpt2_sketch48": (8, 1, 1)}
+    "gpt2_sketch48": (8, 1, 1),
+    "gpt2_sketch24_clip1_decay95": (8, 1, 1),
+    "gpt2_sketch24_clip1_k200k": (8, 1, 1),
+    "gpt2_sketch24_clip1_r9": (8, 1, 1),
+    "gpt2_sketch24_clip1_c1p8m": (8, 1, 1),
+    "gpt2_sketch24_clip1_c4m": (8, 1, 1),
+    "gpt2_sketch24_clip1_c8m": (8, 1, 1),
+    "gpt2_sketch24_clip1_r2_c4p6m": (8, 1, 1),
+    "gpt2_sketch24_densestate_clip1": (1, 1, 0),
+    "gpt2_sketch24_densestate_clip1_decay95": (1, 1, 0),
+    "gpt2_sketch24_sub": (8, 1, 2),
+    "gpt2_sketch24_sub_clip1": (8, 1, 2),
+    "gpt2_sketch24_sub_clip1_decay90": (8, 1, 2),
+    "gpt2_sketch24_sub_clip1_r9": (8, 1, 2),
+    "gpt2_sketch24_sub_clip1_c1p8m": (8, 1, 2),
+    "gpt2_sketch24_densestate": (1, 1, 0)}
 CURVES_OUT = "curves_out"
 
 
@@ -5995,10 +6278,15 @@ def phase_crash(points=CRASH_FULL_POINTS) -> dict:
 def check_curve_record(rec: dict, arm, strict: bool = True) -> bool:
     """A curve run's record: a TSV with its header, finite epoch rows,
     the upload MiB at the TPU's seed equal to the TPU log's, and the
-    arm's K1, K2 and cell sums a round (``CURVE_LAUNCHES``). Fails on a
-    wrong header or a non-finite row; on the rest too when ``strict``,
-    else prints what differs (the whole study reports, it does not
-    stop). Returns whether everything matched."""
+    arm's K1, K2 and cell sums a round (``CURVE_LAUNCHES``) over the
+    rounds it ran. An arm whose TPU run aborted (``arm.tpu_abort``) may
+    have no epoch row (the port's run aborted too) and has no upload
+    column to compare; whether it aborted where the TPU's did is
+    ``curves band``'s verdict. Fails on a wrong header or a non-finite
+    row, and on a full arm's record without an epoch row when
+    ``strict``; on the rest too when ``strict``, else prints what differs
+    (the whole study reports, it does not stop). Returns whether
+    everything matched."""
     from commefficient_torch.scripts import curves
     name = rec["arm"]
     with open(rec["tsv"]) as f:
@@ -6006,11 +6294,14 @@ def check_curve_record(rec: dict, arm, strict: bool = True) -> bool:
     want_head = ("epoch,hours,top1Accuracy" if arm.kind == "cv"
                  else "epoch\thours\ttest_nll\tppl\tmc_acc")
     rows = rec["epochs"]
-    if head != want_head or not rows or not all(
+    aborting = arm.tpu_abort is not None
+    if head != want_head or not all(
             math.isfinite(r["test_loss"]) for r in rows):
         fail(f"curves {name}: header {head!r}, epoch rows {rows}")
     problems = []
-    if rec["seed"] == curves.TPU_SEED:
+    if not rows and not aborting:
+        problems.append("no epoch row: the run aborted")
+    if rec["seed"] == curves.TPU_SEED and not aborting:
         wrong = curves.up_matches(rec, arm.tpu_log)
         if wrong:
             problems.append(f"up (MiB) differs from the TPU log's: "
@@ -6043,28 +6334,114 @@ def phase_curves(arms=CURVE_SMOKE_ARMS, seeds=(21,), epochs=1,
             rec = curves.run_arm(name, seed, out, "cuda", epochs)
             check_curve_record(rec, curves.ARMS[name], strict)
             recs[(name, seed)] = rec
-            row = rec["epochs"][-1]
-            print(f"[curves] {name} seed {seed}: {rec['rounds']} rounds, "
-                  f"round median {rec['round_s_median'] * 1e3:.3f} ms, "
-                  f"epoch {row['epoch']}: test_loss {row['test_loss']:.4f}"
-                  f" test_acc {row['test_acc']:.4f} up (MiB) "
-                  f"{row['up (MiB)']}; launches "
-                  f"{nonzero(rec['launches'])}; "
+            print(f"[curves] {name} seed {seed}: {curve_outcome(rec)}; "
                   f"{time.perf_counter() - t:.1f} s", flush=True)
     return recs
 
 
-def run_curve_study(arms, seeds, out: str) -> None:
-    """The whole A13 study (``--curves``): every arm at every seed, each
-    run's record checked, then ``curves band``: each arm's per-epoch
-    verdict against its TPU curve in ``out/<arm>_band.txt``, its first
-    line printed. A curve outside its band is a finding, not a failure
-    of the run."""
+def curve_outcome(rec: dict) -> str:
+    """A run record's rounds, round median, last epoch row (or the
+    driver's abort and its first non-finite round) and launches."""
     from commefficient_torch.scripts import curves
-    phase_curves(arms, seeds, None, out, strict=False)
+    if rec["epochs"]:
+        row = rec["epochs"][-1]
+        end = (f"epoch {row['epoch']}: test_loss {row['test_loss']:.4f} "
+               f"test_acc {row['test_acc']:.4f} up (MiB) "
+               f"{row['up (MiB)']}")
+    else:
+        with open(os.path.splitext(rec["tsv"])[0] + ".log") as f:
+            end = (f"aborted, first non-finite round "
+                   f"{curves.abort_round(f.read())}, no epoch row")
+    median = rec["round_s_median"]
+    return (f"{rec['rounds']} rounds, round median "
+            f"{median * 1e3 if median else float('nan'):.3f} ms, {end}; "
+            f"launches {nonzero(rec['launches'])}")
+
+
+# the study's runs on the card at once: six GPT-2 runs share one H100
+# without slowing a round
+CURVE_PROCS = 6
+
+
+def run_curve_study(arms, seeds, out: str) -> None:
+    """The A13 study (``--curves``): every arm at every seed, CURVE_PROCS
+    child processes on the card at once (``curves run`` each, largest
+    tables first), each run's record checked, then ``curves band``: each
+    arm's per-epoch verdict against its TPU curve in
+    ``out/<arm>_band.txt``, its first line printed. A curve outside its
+    band is a finding, not a failure of the run. The data the runs share
+    under ``out`` is written here first, once for each kind of arm, so
+    that no two children prepare it at once."""
+    from commefficient_torch.scripts import curves
+    first = {}
+    for a in arms:
+        first.setdefault(curves.ARMS[a].kind, a)
+    for a in first.values():
+        curves.prepare_data(a, out)
+    jobs = sorted(((a, s) for a in arms for s in seeds),
+                  key=lambda job: curve_cost(curves.ARMS[job[0]]),
+                  reverse=True)
+    rcs = run_children(
+        [(f"{a}_s{s}", [sys.executable, "-m",
+                        "commefficient_torch.scripts.curves", "run",
+                        "--arms", a, "--seeds", str(s), "--out", out])
+         for a, s in jobs], CURVE_PROCS, out)
+    for a, s in jobs:
+        path = os.path.join(out, f"{a}_s{s}.json")
+        if rcs[f"{a}_s{s}"] != 0 or not os.path.exists(path):
+            print(f"[curves] {a} seed {s}: the run failed (rc "
+                  f"{rcs[f'{a}_s{s}']}, {out}/{a}_s{s}.out)", flush=True)
+            continue
+        with open(path) as f:
+            rec = json.load(f)
+        check_curve_record(rec, curves.ARMS[a], strict=False)
+        print(f"[curves] {a} seed {s}: {curve_outcome(rec)}; "
+              f"{rec['wall_s']:.1f} s", flush=True)
     print(f"[curves] on {smi_line()}", flush=True)
     curves.main(["band", "--arms", ",".join(arms), "--seeds",
                  ",".join(map(str, seeds)), "--out", out])
+
+
+def curve_cost(arm) -> tuple:
+    """A run's expected length, for the order of the study's runs: whole
+    runs before those whose TPU run aborted, more epochs first, then
+    the larger table."""
+    flags = list(arm.flags)
+
+    def value(flag, default):
+        return int(flags[flags.index(flag) + 1]) if flag in flags \
+            else default
+    return (arm.tpu_abort is None, arm.epochs,
+            value("--num_rows", 0) * value("--num_cols", 0))
+
+
+def run_children(jobs, procs: int, out: str) -> dict:
+    """Runs the commands of ``jobs`` (``(name, argv)``), ``procs`` at a
+    time, each one's output in ``out/<name>.out``; returns each one's
+    exit code. Stops every child it started if interrupted."""
+    running, rcs, queue = {}, {}, list(jobs)
+    try:
+        while queue or running:
+            while queue and len(running) < procs:
+                name, argv = queue.pop(0)
+                log = open(os.path.join(out, f"{name}.out"), "w")
+                running[name] = (subprocess.Popen(
+                    argv, stdout=log, stderr=subprocess.STDOUT), log,
+                    time.perf_counter())
+            time.sleep(2)
+            for name, (proc, log, t) in list(running.items()):
+                if proc.poll() is not None:
+                    log.close()
+                    rcs[name] = proc.returncode
+                    del running[name]
+                    print(f"[curves] {name}: rc {proc.returncode} after "
+                          f"{time.perf_counter() - t:.1f} s", flush=True)
+    finally:
+        for proc, log, _ in running.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+    return rcs
 
 
 def run_services() -> dict:
@@ -6876,13 +7253,15 @@ def main() -> int:
             time_done("crash matrix (partial run: no result line)")
             return 0
         if sys.argv[1:2] == ["--curves"]:
-            # the learning-curve study (no result line): every arm (or
-            # the comma-separated arms of the next argument) at every
-            # seed (or those of the one after), records under the
-            # directory after them (default CURVES_OUT)
+            # the learning-curve study (no result line): the EF study's
+            # arms (or the comma-separated arms of the next argument;
+            # "all" for every arm) at every seed (or those of the one
+            # after), records under the directory after them (default
+            # CURVES_OUT)
             from commefficient_torch.scripts import curves
-            arms = (sys.argv[2].split(",") if len(sys.argv) > 2
-                    else list(curves.ARMS))
+            arg = sys.argv[2] if len(sys.argv) > 2 else "ef"
+            arms = {"ef": list(curves.EF_ARMS),
+                    "all": list(curves.ARMS)}.get(arg, arg.split(","))
             seeds = ([int(x) for x in sys.argv[3].split(",")]
                      if len(sys.argv) > 3 else list(curves.SEEDS))
             phase_build()
@@ -6975,12 +7354,14 @@ def run_phases(t0: float) -> int:
         circ_gpt2_bench = phase_kernels(GPT2_BENCH_SKETCH,
                                         (GPT2_BENCH_SKETCH["c"],), scale=8.0,
                                         plain_n=5)
+        circ_rows = phase_kernels_rows()
         k1_range = {"gpt2": phase_kernels_range(GPT2_SKETCH, scale=4.0),
                     "stream": phase_kernels_range(STREAM_SKETCH,
                                                   scale=32.0)}
     except BaseException:
         stop_multihost(multihost)
         raise
+    SKETCH_VECTORS.clear()
     done("K1/K2, K1's range form")
     finish_multihost(multihost)
     done("the multi-host dryrun")
@@ -7026,11 +7407,13 @@ def run_phases(t0: float) -> int:
     print(f"[gpt2] --wire_dtype int8: {GPT2_INT8_BYTES} bytes a client a "
           f"round (float32: {4 * 5 * GPT2_SKETCH['c']}), median "
           f"{gpt2_int8[2]:.3f} ms", flush=True)
+    gpt2_rows = phase_gpt2_rows()
     done("GPT-2 study arms, the int8 wire")
     levers = phase_gpt2_levers()
     pretrained = phase_gpt2_pretrained()
     done("GPT-2 memory levers and the pretrained round trip")
     gpt2_runs = {**{f"{a} (GPT2_ARMS)": v[:2] for a, v in gpt2_arms.items()},
+                 **{f"--num_rows {r}": v[:2] for r, v in gpt2_rows.items()},
                  **{f"levers {a}": v[:2] for a, v in levers.items()},
                  **{k: pretrained[k][:2] for k in ("pretrained", "cached")}}
     femnist_launches, femnist_ms = phase_femnist()
@@ -7056,8 +7439,12 @@ def run_phases(t0: float) -> int:
     crash_launches = phase_crash()
     done("the crash matrix's mid_round and async_pool rows")
     curve_recs = phase_curves()
-    done("one epoch of each CIFAR10 curve arm and of the GPT-2 sketch arm "
-         "and its two clip placements")
+    print("[curves] the EF arms of the smoke added "
+          + ", ".join(f"{a} {curve_recs[(a, 21)]['wall_s']:.1f} s"
+                      for a in CURVE_EF_SMOKE_ARMS), flush=True)
+    done("one epoch of each CIFAR10 curve arm, of the GPT-2 sketch arm "
+         "and its two clip placements, and of the EF study's r = 9 and "
+         "subtract arms")
     print("[slice 12] round medians (ms): ResNet-9 wires "
           + ", ".join(f"{a} {ms:.3f} ({b} B a client)"
                       for a, (_, ms, b) in wire.items())
@@ -7221,6 +7608,7 @@ def run_phases(t0: float) -> int:
             "at_imagenet_shape": circ_imagenet[name],
             "at_stream_shape": circ_stream[name],
             "at_gpt2_bench_shape": circ_gpt2_bench[name],
+            **{f"at_{shape}": t[name] for shape, t in circ_rows.items()},
             "sass_per_term": sketch_sass[name], **extra})
     # K2's range form: the sharded server tail's decode of a rank's
     # coordinates (the headline's m = 14 shard of 4; m = 176 beside it)

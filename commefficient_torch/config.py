@@ -305,6 +305,14 @@ class FedConfig:
                              "--max_client_batch and --num_fedavg_epochs "
                              "must be positive, --checkpoint_every not "
                              "negative")
+        if self.mode == "sketch" and self.sketch_impl == "circ":
+            from commefficient_torch.ops.circulant_kernels import MAX_ROWS
+            if self.num_rows > MAX_ROWS:
+                raise ValueError(
+                    f"--num_rows {self.num_rows}: the circulant sketch's "
+                    f"kernels take at most {MAX_ROWS} rows (K1/K2, "
+                    "csrc/circulant.cu kMaxRows); use --sketch_impl hash "
+                    "for more rows")
         if self.sketch_fused_encode == "on" and self.mode != "sketch":
             raise ValueError(
                 f"--sketch_fused_encode on requires --mode sketch (mode="

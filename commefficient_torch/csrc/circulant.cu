@@ -46,44 +46,45 @@
 //
 // K1: a persistent grid of 256-thread CTAs, as many as fit on the card at
 // once (4 an SM). A CTA owns a tile of output columns for all r rows (4
-// columns a thread for r <= 5, 2 above, strided by 256 so that neighbouring
-// threads gather neighbouring elements of v) and keeps r sums a column in
-// registers. It walks the blocks b = 0 .. m - 1 in ascending order with the
-// (r, m) shifts staged in shared memory 128 blocks at a time (the range
-// form: only the blocks that hold coordinates of [start, start + n)). Since every
-// CTA in flight walks b in step, the r gathers of block b come from one
-// 4 c-byte slice of v that L2 holds: v is read from device memory once
-// (368 MB at the GPT-2 shape), and the r reads of it are L2 hits (r x 4 d
-// bytes of L2 traffic, 1.84 GB at the GPT-2 shape, not measured apart: the
-// likely ceiling above the issue of K1's own SASS). When the column tiles
-// outnumber the CTAs (c above about 540,000 at r <= 5) a CTA takes a
-// second tile and v is read once per wave. The summation order is that of
-// the plain version (and of pallas_encode), ascending b per cell, with no
-// atomics, so the result is deterministic. Only a block that the range
-// does not cover whole (its first block, and its last, such as the block
-// that holds d) tests x. One launch computes table = [table +]
-// encode(scale * v): the accumulate flag and the scale fold the fused
-// client step's per-microbatch weighting into the launch. The range form
-// (a layer's gradient at its offset, StreamMLP's streaming encode) reads
-// and writes all r c cells whatever n is: a 2,048-value bias costs the
+// columns a thread for r <= 5, 2 up to r = 8, 1 above, strided by 256 so
+// that neighbouring threads gather neighbouring elements of v) and keeps r
+// sums a column in registers. It walks the blocks b = 0 .. m - 1 in
+// ascending order with the (r, m) shifts staged in shared memory 128 blocks
+// at a time (the range form: only the blocks that hold coordinates of
+// [start, start + n)). Since every CTA in flight walks b in step, the r
+// gathers of block b come from one 4 c-byte slice of v that L2 holds: v is
+// read from device memory once (368 MB at the GPT-2 shape), and the r reads
+// of it are L2 hits (r x 4 d bytes of L2 traffic, 1.84 GB at the GPT-2
+// shape, not measured apart: the likely ceiling above what K1's own SASS
+// issues). When the column tiles outnumber the CTAs (c above about 540,000 at
+// r <= 5) a CTA takes a second tile and v is read once per wave. The
+// summation order is that of the plain version (and of pallas_encode),
+// ascending b per cell, with no atomics, so the result is deterministic.
+// Only a block that the range does not cover whole (its first block, and its
+// last, such as the block that holds d) tests x. One launch computes table =
+// [table +] encode(scale * v): the accumulate flag and the scale fold the
+// fused client step's per-microbatch weighting into the launch. The range
+// form (a layer's gradient at its offset, StreamMLP's streaming encode)
+// reads and writes all r c cells whatever n is: a 2,048-value bias costs the
 // table's 21 MB at c = 524,288 (a design that touches only the columns a
 // range reaches is left for later).
 //
 // K2: a CTA of 256 threads owns one work item, a tile of 2,048 columns
-// (1,024 for r > 5) of one block b: grid x the tile, grid y the block (y
-// loops past 65,535 blocks). It loads the r shifts s[j, b] and keys once,
-// so a coordinate costs no division and no 64-bit index arithmetic (x =
-// b c + i stays in uint32). A thread owns 8 coordinates (4 for r > 5),
-// strided by 256, and issues all their r gathers before it uses one: row
-// j of the tile is the run table[j, (i0 + s[j, b]) mod c ...], which wraps
-// at most once; a tile whose runs do not wrap and that ends before c and
-// before d reads through row pointers with constant offsets and stores
-// without a test, the few others wrap and test each coordinate. The hash
-// input x key + C advances by 256 key from one of a thread's coordinates
-// to the next (one add), and the median is the network MedianNet<r>, one
-// min.NaN / max.NaN each. Neighbouring threads gather neighbouring cells
-// and store neighbouring coordinates. The 10.5 MB table stays in the 50
-// MB L2. Bytes: 4 r c read + 4 d written = 36.3 MB at the ResNet-9 shape.
+// (1,024 for r = 6 to 8, 512 up to 12, 256 up to 16) of one block b: grid x
+// the tile, grid y the block (y loops past 65,535 blocks). It loads the r
+// shifts s[j, b] and keys once, so a coordinate costs no division and no
+// 64-bit index arithmetic (x = b c + i stays in uint32). A thread owns 8
+// coordinates (4, 2, 1 as r grows: dec_cols), strided by 256, and issues all
+// their r gathers before it uses one: row j of the tile is the run table[j,
+// (i0 + s[j, b]) mod c ...], which wraps at most once; a tile whose runs do
+// not wrap and that ends before c and before d reads through row pointers
+// with constant offsets and stores without a test, the few others wrap and
+// test each coordinate. The hash input x key + C advances by 256 key from
+// one of a thread's coordinates to the next (one add), and the median is the
+// network MedianNet<r>, one min.NaN / max.NaN each. Neighbouring threads
+// gather neighbouring cells and store neighbouring coordinates. The 10.5 MB
+// table stays in the 50 MB L2. Bytes: 4 r c read + 4 d written = 36.3 MB at
+// the ResNet-9 shape.
 //
 // K2's range form (start, n: the sharded server tail's decode of one
 // rank's coordinates, ops/circulant.py decode_range): the coordinates
@@ -108,7 +109,10 @@
 // 1.2 memory; no CALL), and its gathers read L2 at 6.7 TB/s at m = 176.
 // ptxas (nvcc -Xptxas -v, sm_90a): the encode 63-64 registers for r >= 3
 // (55 at r = 2, 40 at r = 1) and 512 r bytes of shared memory, the decode
-// 122 registers at r = 5 (56 to 108 for the other r); no spills.
+// 122 registers at r = 5 (56 to 108 for the other r up to 8, 80 at r = 9,
+// 72 at r = 16); no instantiation spills. At r = 9 (GPT-2 shape) K1 took
+// 0.776 ms and K2 0.740 ms, 33% and 56% of their bounds; at r = 16 (m =
+// 14) 0.140 and 0.149 ms (23% and 45%).
 //
 // Bitwise agreement with the plain PyTorch versions
 // (ops/circulant_kernels.py): the float operations are written with
@@ -126,24 +130,26 @@
 
 namespace {
 
-constexpr int kMaxRows = 8;
+constexpr int kMaxRows = 16;       // K1/K2 are instantiated for r <= it
 constexpr int kDecThreads = 256;       // decode: threads a CTA
 constexpr int kEncThreads = 256;       // encode: threads a CTA
 constexpr int kEncCtasPerSm = 4;       // resident encode CTAs an SM
 constexpr int kShiftChunk = 128;       // blocks whose shifts are staged
 
 // Coordinates of a column tile a thread owns in the decode, strided by
-// kDecThreads: their C r gathers are in flight together.
+// kDecThreads: their C r gathers are in flight together. The C r
+// estimates and each row's start, hash and step stay in registers (at
+// most 128 a thread for 2 CTAs an SM), so C falls as r grows.
 template <int R>
 __host__ __device__ constexpr int dec_cols() {
-  return R <= 5 ? 8 : 4;
+  return R <= 5 ? 8 : R <= 8 ? 4 : R <= 12 ? 2 : 1;
 }
 
 // Columns of a table tile a thread owns in the encode: its r sums a column
-// stay in registers (at most 64 a thread for 4 CTAs an SM).
+// and the r keys stay in registers (at most 64 a thread for 4 CTAs an SM).
 template <int R>
 __host__ __device__ constexpr int enc_cols() {
-  return R <= 5 ? 4 : 2;
+  return R <= 5 ? 4 : R <= 8 ? 2 : 1;
 }
 
 // The sign bit of sigma_j(x): bit 31 of fmix32(h), h = x * key +
@@ -305,7 +311,12 @@ int launch_encode(const float* v, long long start, long long n,
 // the last two (even R: the two middle values, in either order; a float
 // sum does not depend on its operands' order). chip_smoke.py MEDIAN_NETS
 // holds the same lists; its tests hold each, bit for bit, to the JAX
-// package's median_axis0 and parse them from this file.
+// package's median_axis0 and parse them from this file. R = 9 to 16:
+// Batcher's odd-even merge sort restricted to R wires, its operations
+// that no median output reads dropped, then each operation whose value
+// could be either operand's on every 0/1 column (30 at R = 9, 92 at 16).
+// kMaxRows bounds r: both entry points refuse a larger --num_rows for
+// the circulant sketch (config.py), and the wrappers refuse it too.
 enum { kMin, kMax };
 template <int Kind, int A, int B>
 struct MinMax {};
@@ -375,6 +386,270 @@ struct MedianNet<8> {
                    MinMax<kMax, 24, 26>, MinMax<kMin, 25, 27>,
                    MinMax<kMin, 19, 23>, MinMax<kMin, 31, 29>,
                    MinMax<kMax, 30, 28>>;
+};
+template <>
+struct MedianNet<9> {
+  using type = Net<MinMax<kMin, 0, 1>, MinMax<kMax, 0, 1>, MinMax<kMin, 2, 3>,
+                   MinMax<kMax, 2, 3>, MinMax<kMin, 4, 5>, MinMax<kMax, 4, 5>,
+                   MinMax<kMin, 6, 7>, MinMax<kMax, 6, 7>, MinMax<kMin, 9, 11>,
+                   MinMax<kMax, 9, 11>, MinMax<kMin, 10, 12>,
+                   MinMax<kMax, 10, 12>, MinMax<kMin, 13, 15>,
+                   MinMax<kMax, 13, 15>, MinMax<kMin, 14, 16>,
+                   MinMax<kMax, 14, 16>, MinMax<kMin, 19, 18>,
+                   MinMax<kMax, 19, 18>, MinMax<kMin, 23, 22>,
+                   MinMax<kMax, 23, 22>, MinMax<kMax, 17, 21>,
+                   MinMax<kMax, 25, 27>, MinMax<kMin, 26, 28>,
+                   MinMax<kMin, 20, 24>, MinMax<kMax, 31, 29>,
+                   MinMax<kMin, 32, 30>, MinMax<kMin, 34, 33>,
+                   MinMax<kMax, 34, 33>, MinMax<kMin, 36, 8>,
+                   MinMax<kMax, 35, 37>>;
+};
+template <>
+struct MedianNet<10> {
+  using type = Net<MinMax<kMin, 0, 1>, MinMax<kMax, 0, 1>, MinMax<kMin, 2, 3>,
+                   MinMax<kMax, 2, 3>, MinMax<kMin, 4, 5>, MinMax<kMax, 4, 5>,
+                   MinMax<kMin, 6, 7>, MinMax<kMax, 6, 7>, MinMax<kMin, 8, 9>,
+                   MinMax<kMax, 8, 9>, MinMax<kMin, 10, 12>,
+                   MinMax<kMax, 10, 12>, MinMax<kMin, 11, 13>,
+                   MinMax<kMax, 11, 13>, MinMax<kMin, 14, 16>,
+                   MinMax<kMax, 14, 16>, MinMax<kMin, 15, 17>,
+                   MinMax<kMax, 15, 17>, MinMax<kMin, 22, 21>,
+                   MinMax<kMax, 22, 21>, MinMax<kMin, 26, 25>,
+                   MinMax<kMax, 26, 25>, MinMax<kMax, 20, 24>,
+                   MinMax<kMin, 28, 30>, MinMax<kMax, 28, 30>,
+                   MinMax<kMin, 29, 31>, MinMax<kMax, 29, 31>,
+                   MinMax<kMin, 23, 27>, MinMax<kMin, 35, 32>,
+                   MinMax<kMax, 35, 32>, MinMax<kMin, 37, 34>,
+                   MinMax<kMax, 37, 34>, MinMax<kMin, 40, 39>,
+                   MinMax<kMax, 40, 39>, MinMax<kMin, 41, 36>,
+                   MinMax<kMax, 33, 19>, MinMax<kMin, 43, 18>,
+                   MinMax<kMax, 43, 18>, MinMax<kMin, 44, 45>,
+                   MinMax<kMax, 38, 46>, MinMax<kMin, 42, 48>,
+                   MinMax<kMax, 42, 48>, MinMax<kMax, 50, 49>,
+                   MinMax<kMin, 51, 47>>;
+};
+template <>
+struct MedianNet<11> {
+  using type = Net<MinMax<kMin, 0, 1>, MinMax<kMax, 0, 1>, MinMax<kMin, 2, 3>,
+                   MinMax<kMax, 2, 3>, MinMax<kMin, 4, 5>, MinMax<kMax, 4, 5>,
+                   MinMax<kMin, 6, 7>, MinMax<kMax, 6, 7>, MinMax<kMin, 8, 9>,
+                   MinMax<kMax, 8, 9>, MinMax<kMin, 11, 13>,
+                   MinMax<kMax, 11, 13>, MinMax<kMin, 12, 14>,
+                   MinMax<kMax, 12, 14>, MinMax<kMin, 15, 17>,
+                   MinMax<kMax, 15, 17>, MinMax<kMin, 16, 18>,
+                   MinMax<kMax, 16, 18>, MinMax<kMin, 19, 10>,
+                   MinMax<kMax, 19, 10>, MinMax<kMin, 23, 22>,
+                   MinMax<kMax, 23, 22>, MinMax<kMin, 27, 26>,
+                   MinMax<kMax, 27, 26>, MinMax<kMin, 20, 30>,
+                   MinMax<kMax, 20, 30>, MinMax<kMax, 21, 25>,
+                   MinMax<kMin, 31, 33>, MinMax<kMax, 31, 33>,
+                   MinMax<kMin, 32, 34>, MinMax<kMax, 32, 34>,
+                   MinMax<kMin, 24, 28>, MinMax<kMin, 40, 37>,
+                   MinMax<kMax, 40, 37>, MinMax<kMin, 42, 39>,
+                   MinMax<kMax, 42, 39>, MinMax<kMax, 38, 43>,
+                   MinMax<kMin, 45, 44>, MinMax<kMax, 45, 44>,
+                   MinMax<kMin, 46, 41>, MinMax<kMax, 47, 36>,
+                   MinMax<kMax, 49, 29>, MinMax<kMin, 50, 35>,
+                   MinMax<kMax, 48, 53>, MinMax<kMin, 51, 52>,
+                   MinMax<kMin, 54, 55>>;
+};
+template <>
+struct MedianNet<12> {
+  using type = Net<MinMax<kMin, 0, 1>, MinMax<kMax, 0, 1>, MinMax<kMin, 2, 3>,
+                   MinMax<kMax, 2, 3>, MinMax<kMin, 4, 5>, MinMax<kMax, 4, 5>,
+                   MinMax<kMin, 6, 7>, MinMax<kMax, 6, 7>, MinMax<kMin, 8, 9>,
+                   MinMax<kMax, 8, 9>, MinMax<kMin, 10, 11>,
+                   MinMax<kMax, 10, 11>, MinMax<kMin, 12, 14>,
+                   MinMax<kMax, 12, 14>, MinMax<kMin, 13, 15>,
+                   MinMax<kMax, 13, 15>, MinMax<kMin, 16, 18>,
+                   MinMax<kMax, 16, 18>, MinMax<kMin, 17, 19>,
+                   MinMax<kMax, 17, 19>, MinMax<kMin, 20, 22>,
+                   MinMax<kMax, 20, 22>, MinMax<kMin, 21, 23>,
+                   MinMax<kMax, 21, 23>, MinMax<kMin, 26, 25>,
+                   MinMax<kMax, 26, 25>, MinMax<kMin, 30, 29>,
+                   MinMax<kMax, 30, 29>, MinMax<kMin, 34, 33>,
+                   MinMax<kMax, 34, 33>, MinMax<kMax, 24, 28>,
+                   MinMax<kMin, 36, 38>, MinMax<kMax, 36, 38>,
+                   MinMax<kMin, 37, 39>, MinMax<kMax, 37, 39>,
+                   MinMax<kMin, 27, 31>, MinMax<kMin, 45, 42>,
+                   MinMax<kMax, 45, 42>, MinMax<kMin, 47, 44>,
+                   MinMax<kMax, 47, 44>, MinMax<kMin, 43, 48>,
+                   MinMax<kMax, 43, 48>, MinMax<kMin, 50, 49>,
+                   MinMax<kMax, 50, 49>, MinMax<kMin, 51, 46>,
+                   MinMax<kMax, 51, 46>, MinMax<kMax, 52, 40>,
+                   MinMax<kMax, 53, 41>, MinMax<kMin, 54, 35>,
+                   MinMax<kMax, 55, 32>, MinMax<kMin, 56, 58>,
+                   MinMax<kMin, 57, 59>, MinMax<kMax, 60, 62>,
+                   MinMax<kMin, 63, 61>, MinMax<kMin, 64, 65>,
+                   MinMax<kMax, 64, 65>>;
+};
+template <>
+struct MedianNet<13> {
+  using type = Net<MinMax<kMin, 0, 1>, MinMax<kMax, 0, 1>, MinMax<kMin, 2, 3>,
+                   MinMax<kMax, 2, 3>, MinMax<kMin, 4, 5>, MinMax<kMax, 4, 5>,
+                   MinMax<kMin, 6, 7>, MinMax<kMax, 6, 7>, MinMax<kMin, 8, 9>,
+                   MinMax<kMax, 8, 9>, MinMax<kMin, 10, 11>,
+                   MinMax<kMax, 10, 11>, MinMax<kMin, 13, 15>,
+                   MinMax<kMax, 13, 15>, MinMax<kMin, 14, 16>,
+                   MinMax<kMax, 14, 16>, MinMax<kMin, 17, 19>,
+                   MinMax<kMax, 17, 19>, MinMax<kMin, 18, 20>,
+                   MinMax<kMax, 18, 20>, MinMax<kMin, 21, 23>,
+                   MinMax<kMax, 21, 23>, MinMax<kMin, 22, 24>,
+                   MinMax<kMax, 22, 24>, MinMax<kMin, 27, 26>,
+                   MinMax<kMax, 27, 26>, MinMax<kMin, 31, 30>,
+                   MinMax<kMax, 31, 30>, MinMax<kMin, 35, 34>,
+                   MinMax<kMax, 35, 34>, MinMax<kMax, 25, 29>,
+                   MinMax<kMin, 37, 39>, MinMax<kMax, 37, 39>,
+                   MinMax<kMin, 38, 40>, MinMax<kMax, 38, 40>,
+                   MinMax<kMin, 28, 32>, MinMax<kMin, 33, 12>,
+                   MinMax<kMax, 33, 12>, MinMax<kMin, 46, 43>,
+                   MinMax<kMax, 46, 43>, MinMax<kMin, 48, 45>,
+                   MinMax<kMax, 48, 45>, MinMax<kMin, 42, 50>,
+                   MinMax<kMax, 42, 50>, MinMax<kMin, 44, 51>,
+                   MinMax<kMax, 44, 51>, MinMax<kMin, 53, 52>,
+                   MinMax<kMax, 53, 52>, MinMax<kMin, 54, 47>,
+                   MinMax<kMax, 54, 47>, MinMax<kMin, 41, 55>,
+                   MinMax<kMax, 41, 55>, MinMax<kMin, 36, 56>,
+                   MinMax<kMax, 36, 56>, MinMax<kMax, 57, 63>,
+                   MinMax<kMax, 58, 64>, MinMax<kMin, 59, 65>,
+                   MinMax<kMin, 60, 66>, MinMax<kMax, 70, 49>,
+                   MinMax<kMin, 61, 67>, MinMax<kMin, 62, 68>,
+                   MinMax<kMax, 69, 72>, MinMax<kMin, 73, 71>,
+                   MinMax<kMax, 74, 75>>;
+};
+template <>
+struct MedianNet<14> {
+  using type = Net<MinMax<kMin, 0, 1>, MinMax<kMax, 0, 1>, MinMax<kMin, 2, 3>,
+                   MinMax<kMax, 2, 3>, MinMax<kMin, 4, 5>, MinMax<kMax, 4, 5>,
+                   MinMax<kMin, 6, 7>, MinMax<kMax, 6, 7>, MinMax<kMin, 8, 9>,
+                   MinMax<kMax, 8, 9>, MinMax<kMin, 10, 11>,
+                   MinMax<kMax, 10, 11>, MinMax<kMin, 12, 13>,
+                   MinMax<kMax, 12, 13>, MinMax<kMin, 14, 16>,
+                   MinMax<kMax, 14, 16>, MinMax<kMin, 15, 17>,
+                   MinMax<kMax, 15, 17>, MinMax<kMin, 18, 20>,
+                   MinMax<kMax, 18, 20>, MinMax<kMin, 19, 21>,
+                   MinMax<kMax, 19, 21>, MinMax<kMin, 22, 24>,
+                   MinMax<kMax, 22, 24>, MinMax<kMin, 23, 25>,
+                   MinMax<kMax, 23, 25>, MinMax<kMin, 30, 29>,
+                   MinMax<kMax, 30, 29>, MinMax<kMin, 34, 33>,
+                   MinMax<kMax, 34, 33>, MinMax<kMin, 38, 37>,
+                   MinMax<kMax, 38, 37>, MinMax<kMin, 28, 32>,
+                   MinMax<kMax, 28, 32>, MinMax<kMin, 40, 42>,
+                   MinMax<kMax, 40, 42>, MinMax<kMin, 41, 43>,
+                   MinMax<kMax, 41, 43>, MinMax<kMin, 31, 35>,
+                   MinMax<kMax, 31, 35>, MinMax<kMin, 36, 26>,
+                   MinMax<kMax, 36, 26>, MinMax<kMin, 44, 27>,
+                   MinMax<kMax, 44, 27>, MinMax<kMin, 50, 47>,
+                   MinMax<kMax, 50, 47>, MinMax<kMin, 52, 49>,
+                   MinMax<kMax, 52, 49>, MinMax<kMin, 45, 55>,
+                   MinMax<kMax, 45, 55>, MinMax<kMin, 39, 57>,
+                   MinMax<kMax, 39, 57>, MinMax<kMin, 48, 58>,
+                   MinMax<kMax, 48, 58>, MinMax<kMin, 60, 59>,
+                   MinMax<kMax, 60, 59>, MinMax<kMin, 61, 51>,
+                   MinMax<kMax, 61, 51>, MinMax<kMin, 56, 62>,
+                   MinMax<kMax, 56, 62>, MinMax<kMin, 64, 63>,
+                   MinMax<kMax, 64, 63>, MinMax<kMax, 46, 54>,
+                   MinMax<kMax, 66, 72>, MinMax<kMax, 67, 73>,
+                   MinMax<kMin, 68, 74>, MinMax<kMax, 68, 74>,
+                   MinMax<kMin, 69, 75>, MinMax<kMin, 70, 65>,
+                   MinMax<kMax, 81, 76>, MinMax<kMin, 82, 77>,
+                   MinMax<kMax, 82, 77>, MinMax<kMin, 71, 78>,
+                   MinMax<kMin, 53, 80>, MinMax<kMax, 79, 84>,
+                   MinMax<kMin, 86, 83>, MinMax<kMax, 86, 83>,
+                   MinMax<kMin, 87, 85>, MinMax<kMax, 88, 89>,
+                   MinMax<kMin, 91, 90>>;
+};
+template <>
+struct MedianNet<15> {
+  using type = Net<MinMax<kMin, 0, 1>, MinMax<kMax, 0, 1>, MinMax<kMin, 2, 3>,
+                   MinMax<kMax, 2, 3>, MinMax<kMin, 4, 5>, MinMax<kMax, 4, 5>,
+                   MinMax<kMin, 6, 7>, MinMax<kMax, 6, 7>, MinMax<kMin, 8, 9>,
+                   MinMax<kMax, 8, 9>, MinMax<kMin, 10, 11>,
+                   MinMax<kMax, 10, 11>, MinMax<kMin, 12, 13>,
+                   MinMax<kMax, 12, 13>, MinMax<kMin, 15, 17>,
+                   MinMax<kMax, 15, 17>, MinMax<kMin, 16, 18>,
+                   MinMax<kMax, 16, 18>, MinMax<kMin, 19, 21>,
+                   MinMax<kMax, 19, 21>, MinMax<kMin, 20, 22>,
+                   MinMax<kMax, 20, 22>, MinMax<kMin, 23, 25>,
+                   MinMax<kMax, 23, 25>, MinMax<kMin, 24, 26>,
+                   MinMax<kMax, 24, 26>, MinMax<kMin, 27, 14>,
+                   MinMax<kMax, 27, 14>, MinMax<kMin, 31, 30>,
+                   MinMax<kMax, 31, 30>, MinMax<kMin, 35, 34>,
+                   MinMax<kMax, 35, 34>, MinMax<kMin, 39, 38>,
+                   MinMax<kMax, 39, 38>, MinMax<kMin, 28, 42>,
+                   MinMax<kMax, 28, 42>, MinMax<kMin, 29, 33>,
+                   MinMax<kMax, 29, 33>, MinMax<kMin, 43, 45>,
+                   MinMax<kMax, 43, 45>, MinMax<kMin, 44, 46>,
+                   MinMax<kMax, 44, 46>, MinMax<kMin, 32, 36>,
+                   MinMax<kMax, 32, 36>, MinMax<kMin, 37, 41>,
+                   MinMax<kMax, 37, 41>, MinMax<kMin, 47, 49>,
+                   MinMax<kMax, 47, 49>, MinMax<kMin, 48, 50>,
+                   MinMax<kMax, 48, 50>, MinMax<kMin, 55, 52>,
+                   MinMax<kMax, 55, 52>, MinMax<kMin, 57, 54>,
+                   MinMax<kMax, 57, 54>, MinMax<kMin, 63, 60>,
+                   MinMax<kMax, 63, 60>, MinMax<kMin, 40, 62>,
+                   MinMax<kMax, 40, 62>, MinMax<kMin, 53, 65>,
+                   MinMax<kMax, 53, 65>, MinMax<kMin, 67, 66>,
+                   MinMax<kMax, 67, 66>, MinMax<kMin, 68, 56>,
+                   MinMax<kMax, 68, 56>, MinMax<kMin, 61, 69>,
+                   MinMax<kMax, 61, 69>, MinMax<kMin, 71, 70>,
+                   MinMax<kMax, 71, 70>, MinMax<kMin, 72, 64>,
+                   MinMax<kMax, 72, 64>, MinMax<kMax, 51, 59>,
+                   MinMax<kMax, 73, 79>, MinMax<kMax, 74, 80>,
+                   MinMax<kMax, 75, 81>, MinMax<kMin, 76, 82>,
+                   MinMax<kMin, 77, 83>, MinMax<kMin, 78, 84>,
+                   MinMax<kMax, 89, 85>, MinMax<kMax, 90, 86>,
+                   MinMax<kMin, 91, 87>, MinMax<kMin, 58, 88>,
+                   MinMax<kMax, 94, 92>, MinMax<kMin, 95, 93>,
+                   MinMax<kMin, 97, 96>>;
+};
+template <>
+struct MedianNet<16> {
+  using type = Net<MinMax<kMin, 0, 1>, MinMax<kMax, 0, 1>, MinMax<kMin, 2, 3>,
+                   MinMax<kMax, 2, 3>, MinMax<kMin, 4, 5>, MinMax<kMax, 4, 5>,
+                   MinMax<kMin, 6, 7>, MinMax<kMax, 6, 7>, MinMax<kMin, 8, 9>,
+                   MinMax<kMax, 8, 9>, MinMax<kMin, 10, 11>,
+                   MinMax<kMax, 10, 11>, MinMax<kMin, 12, 13>,
+                   MinMax<kMax, 12, 13>, MinMax<kMin, 14, 15>,
+                   MinMax<kMax, 14, 15>, MinMax<kMin, 16, 18>,
+                   MinMax<kMax, 16, 18>, MinMax<kMin, 17, 19>,
+                   MinMax<kMax, 17, 19>, MinMax<kMin, 20, 22>,
+                   MinMax<kMax, 20, 22>, MinMax<kMin, 21, 23>,
+                   MinMax<kMax, 21, 23>, MinMax<kMin, 24, 26>,
+                   MinMax<kMax, 24, 26>, MinMax<kMin, 25, 27>,
+                   MinMax<kMax, 25, 27>, MinMax<kMin, 28, 30>,
+                   MinMax<kMax, 28, 30>, MinMax<kMin, 29, 31>,
+                   MinMax<kMax, 29, 31>, MinMax<kMin, 34, 33>,
+                   MinMax<kMax, 34, 33>, MinMax<kMin, 38, 37>,
+                   MinMax<kMax, 38, 37>, MinMax<kMin, 42, 41>,
+                   MinMax<kMax, 42, 41>, MinMax<kMin, 46, 45>,
+                   MinMax<kMax, 46, 45>, MinMax<kMin, 32, 36>,
+                   MinMax<kMax, 32, 36>, MinMax<kMin, 48, 50>,
+                   MinMax<kMax, 48, 50>, MinMax<kMin, 49, 51>,
+                   MinMax<kMax, 49, 51>, MinMax<kMin, 35, 39>,
+                   MinMax<kMax, 35, 39>, MinMax<kMin, 40, 44>,
+                   MinMax<kMax, 40, 44>, MinMax<kMin, 52, 54>,
+                   MinMax<kMax, 52, 54>, MinMax<kMin, 53, 55>,
+                   MinMax<kMax, 53, 55>, MinMax<kMin, 43, 47>,
+                   MinMax<kMax, 43, 47>, MinMax<kMin, 60, 57>,
+                   MinMax<kMax, 60, 57>, MinMax<kMin, 62, 59>,
+                   MinMax<kMax, 62, 59>, MinMax<kMin, 68, 65>,
+                   MinMax<kMax, 68, 65>, MinMax<kMin, 70, 67>,
+                   MinMax<kMax, 70, 67>, MinMax<kMin, 58, 72>,
+                   MinMax<kMax, 58, 72>, MinMax<kMin, 74, 73>,
+                   MinMax<kMax, 74, 73>, MinMax<kMin, 75, 61>,
+                   MinMax<kMax, 75, 61>, MinMax<kMin, 66, 76>,
+                   MinMax<kMax, 66, 76>, MinMax<kMin, 78, 77>,
+                   MinMax<kMax, 78, 77>, MinMax<kMin, 79, 69>,
+                   MinMax<kMax, 79, 69>, MinMax<kMax, 56, 64>,
+                   MinMax<kMax, 80, 86>, MinMax<kMax, 81, 87>,
+                   MinMax<kMax, 82, 88>, MinMax<kMin, 83, 89>,
+                   MinMax<kMin, 84, 90>, MinMax<kMin, 85, 91>,
+                   MinMax<kMin, 63, 71>, MinMax<kMax, 96, 92>,
+                   MinMax<kMax, 97, 93>, MinMax<kMin, 98, 94>,
+                   MinMax<kMin, 99, 95>, MinMax<kMax, 102, 100>,
+                   MinMax<kMin, 103, 101>, MinMax<kMin, 105, 104>,
+                   MinMax<kMax, 105, 104>>;
 };
 
 // min and max that return NaN if an operand is NaN and order -0 below
@@ -580,6 +855,14 @@ extern "C" int circ_encode(const float* v, long long start, long long n,
     CIRC_ENCODE(6);
     CIRC_ENCODE(7);
     CIRC_ENCODE(8);
+    CIRC_ENCODE(9);
+    CIRC_ENCODE(10);
+    CIRC_ENCODE(11);
+    CIRC_ENCODE(12);
+    CIRC_ENCODE(13);
+    CIRC_ENCODE(14);
+    CIRC_ENCODE(15);
+    CIRC_ENCODE(16);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CIRC_ENCODE
@@ -622,9 +905,15 @@ extern "C" int circ_decode(const float* table, const int* shifts,
     CIRC_DECODE(6);
     CIRC_DECODE(7);
     CIRC_DECODE(8);
+    CIRC_DECODE(9);
+    CIRC_DECODE(10);
+    CIRC_DECODE(11);
+    CIRC_DECODE(12);
+    CIRC_DECODE(13);
+    CIRC_DECODE(14);
+    CIRC_DECODE(15);
+    CIRC_DECODE(16);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CIRC_DECODE
 }
-
-extern "C" int circ_max_rows() { return kMaxRows; }

@@ -31,6 +31,10 @@ from commefficient_torch.ops.topk import median_axis0
 
 SOURCE = "circulant.cu"
 CELL_SUM_SOURCE = "cellsum.cu"
+# the most rows K1 and K2 take (csrc/circulant.cu kMaxRows): each r up to
+# it has its own instantiation and median network; both entry points
+# refuse a larger --num_rows for the circulant sketch at parse time
+MAX_ROWS = 16
 
 # launches of each kernel since the last reset_launches(); the range
 # forms (a ``start``) are also counted apart
@@ -53,8 +57,6 @@ def _lib() -> ctypes.CDLL:
         lib.circ_encode.restype = i
         lib.circ_decode.argtypes = [p, p, p, i, i, i, ll, ll, ll, i, p, p]
         lib.circ_decode.restype = i
-        lib.circ_max_rows.argtypes = []
-        lib.circ_max_rows.restype = i
         lib._typed = True
     return lib
 
@@ -156,10 +158,9 @@ def encode(v: torch.Tensor, shifts: torch.Tensor, keys: torch.Tensor,
     _check("v", v, torch.float32, (n,), v.device)
     _check("shifts", shifts, torch.int32, (r, m), v.device)
     _check("keys", keys, torch.int32, (r,), v.device)
+    if r > MAX_ROWS:
+        raise ValueError(f"encode kernel takes r <= {MAX_ROWS}, got r={r}")
     lib = _lib()
-    if r > lib.circ_max_rows():
-        raise ValueError(f"encode kernel takes r <= {lib.circ_max_rows()}, "
-                         f"got r={r}")
     if table is None:
         out, accumulate = torch.empty((r, c), dtype=torch.float32,
                                       device=v.device), 0
@@ -234,10 +235,9 @@ def decode(table: torch.Tensor, shifts: torch.Tensor, keys: torch.Tensor,
     _check("table", table, torch.float32, (r, c), table.device)
     _check("shifts", shifts, torch.int32, (r, m), table.device)
     _check("keys", keys, torch.int32, (r,), table.device)
+    if r > MAX_ROWS:
+        raise ValueError(f"decode kernel takes r <= {MAX_ROWS}, got r={r}")
     lib = _lib()
-    if r > lib.circ_max_rows():
-        raise ValueError(f"decode kernel takes r <= {lib.circ_max_rows()}, "
-                         f"got r={r}")
     out = torch.empty(n, dtype=torch.float32, device=table.device)
     err = lib.circ_decode(
         table.data_ptr(), shifts.data_ptr(), keys.data_ptr(), c, r, m, d,

@@ -11,10 +11,11 @@ curves epoch by epoch to the TPU's.
 ``ARMS`` is the table of arms: each one's entry point, its flags (taken
 from the reference's records: the hard-v2 recipe of ``runs/README.md``
 and the first line of each ``runs/cifar10_hard*v2_*.log`` for CIFAR10,
-``scripts/gpt2_convergence.sh`` and the result table of
-``runs/gpt2_conv/README.md`` for GPT-2), its epochs, and the TPU's TSV and
-log. ``run`` calls ``cv_train.main`` or ``gpt2_train.main`` in this
-process once for each arm and seed and writes, under ``--out``:
+``scripts/gpt2_convergence.sh``, the result table of
+``runs/gpt2_conv/README.md`` and the EF study ``scripts/gpt2_ef_study.sh``
+for GPT-2), its epochs, and the TPU's TSV and log. ``run`` calls
+``cv_train.main`` or ``gpt2_train.main`` in this process once for each
+arm and seed and writes, under ``--out``:
 
 - ``<arm>_s<seed>.tsv``: CIFAR10's ``epoch,hours,top1Accuracy``
   (``utils/logging.py TSVLogger``) or GPT-2's tab-separated ``epoch hours
@@ -36,9 +37,15 @@ wall seconds, round medians and kernel launches a round), with the
 arm's ``BAND``: the port's [min, max] over its seeds, widened by 2
 points of top-1 (CIFAR10) or by 0.05 NLL and 0.03 MC accuracy (GPT-2),
 and checks each epoch's upload MiB at the TPU's seed against the TPU
-log's (each epoch's rounds are the sampler's draws). Exit status:
-0 when every arm's TPU curve lies inside its band at every epoch and its
-upload column matches, 1 otherwise, 2 when a run's TSV is missing.
+log's (each epoch's rounds are the sampler's draws). An arm whose TPU
+run aborted (the driver's ``TRAINING DIVERGED`` line in its log, a TSV
+with no row past it) is held to that outcome instead
+(``abort_verdict``): each port run must abort at the end of the same
+epoch, with no epoch row of it; its second line puts each run's first
+non-finite round beside the TPU's. Exit status: 0 when every arm's TPU
+curve lies inside its band at every epoch and its upload column
+matches (every run of an aborted arm aborts in the TPU's epoch), 1
+otherwise, 2 when a run's TSV is missing.
 """
 
 from __future__ import annotations
@@ -46,9 +53,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
+import re
 import statistics
 import sys
 import time
@@ -85,6 +94,18 @@ BAND = {"cv": {"top1Accuracy": 2.0},
         "gpt2": {"test_nll": 0.05, "mc_acc": 0.03}}
 
 
+# the driver's divergence abort, the same line in both packages' logs
+ABORT = re.compile(r"TRAINING DIVERGED \(first non-finite update at round "
+                   r"(\d+)\)")
+
+
+def abort_round(text: str) -> Optional[int]:
+    """The first non-finite round of a run's log ``text``, from the
+    driver's abort line, or None when the run did not abort."""
+    hit = ABORT.search(text)
+    return int(hit.group(1)) if hit else None
+
+
 @dataclasses.dataclass(frozen=True)
 class Arm:
     kind: str             # "cv" or "gpt2"
@@ -92,6 +113,19 @@ class Arm:
     flags: Tuple[str, ...]
     tpu_tsv: str          # relative to the repository's root
     tpu_log: str
+
+    @functools.cached_property
+    def tpu_abort(self) -> Optional[int]:
+        """The TPU run's first non-finite round, read from its log's abort
+        line; None for a run that trained to its end."""
+        with open(os.path.join(REPO, self.tpu_log)) as f:
+            return abort_round(f.read())
+
+    @property
+    def tpu_abort_epoch(self) -> int:
+        """The epoch at whose end the TPU run aborted: the one after its
+        TSV's last row (the abort comes before that epoch's row)."""
+        return len(read_tsv(os.path.join(REPO, self.tpu_tsv))) + 1
 
 
 # scripts/gpt2_convergence.sh's flagship sketch: 5 x 524,288, k = 50,000
@@ -171,6 +205,52 @@ ARMS = {
 }
 
 
+def _ef_arm(stem: str, flags: Tuple[str, ...]) -> Arm:
+    return Arm("gpt2", 24, flags, f"runs/gpt2_conv/{stem}.tsv",
+               f"runs/gpt2_conv/{stem}.log")
+
+
+# The EF study (scripts/gpt2_ef_study.sh, each arm's case there, on
+# gpt2_convergence.sh's COMMON): the 15 arms the TPU recorded, named
+# after their TSVs. Six of them aborted in their first epoch
+# (``Arm.tpu_abort``), the others ran 24 epochs. The script's three other
+# arms have no TPU record to hold a curve to (sub_clip1_k200k: no log;
+# warmup: a log cut after its epoch-0 validation; uncompressed_warmup: no
+# log).
+_CLIP1 = ("--max_grad_norm", "1")
+_SUB = ("--sketch_ef", "subtract")
+_DENSE = ("--sketch_server_state", "dense")
+EF_ARMS = {
+    "gpt2_sketch24_clip1_decay95": GPT2_SKETCH + _CLIP1 + (
+        "--error_decay", "0.95"),
+    "gpt2_sketch24_clip1_k200k": _with(GPT2_SKETCH, "--k", "200000")
+    + _CLIP1,
+    "gpt2_sketch24_clip1_r9": _with(GPT2_SKETCH, "--num_rows", "9") + _CLIP1,
+    "gpt2_sketch24_clip1_c1p8m": _with(GPT2_SKETCH, "--num_cols",
+                                       "1835008") + _CLIP1,
+    "gpt2_sketch24_clip1_c4m": _with(GPT2_SKETCH, "--num_cols", "4194304")
+    + _CLIP1,
+    "gpt2_sketch24_clip1_c8m": _with(GPT2_SKETCH, "--num_cols", "8388608")
+    + _CLIP1,
+    "gpt2_sketch24_clip1_r2_c4p6m": _with(_with(
+        GPT2_SKETCH, "--num_cols", "4603904"), "--num_rows", "2") + _CLIP1,
+    "gpt2_sketch24_densestate_clip1": GPT2_SKETCH + _DENSE + (
+        "--sketch_dense_clip",) + _CLIP1,
+    "gpt2_sketch24_densestate_clip1_decay95": GPT2_SKETCH + _DENSE + (
+        "--sketch_dense_clip",) + _CLIP1 + ("--error_decay", "0.95"),
+    "gpt2_sketch24_sub": GPT2_SKETCH + _SUB,
+    "gpt2_sketch24_sub_clip1": GPT2_SKETCH + _SUB + _CLIP1,
+    "gpt2_sketch24_sub_clip1_decay90": GPT2_SKETCH + _SUB + _CLIP1 + (
+        "--error_decay", "0.90"),
+    "gpt2_sketch24_sub_clip1_r9": _with(GPT2_SKETCH, "--num_rows", "9")
+    + _SUB + _CLIP1,
+    "gpt2_sketch24_sub_clip1_c1p8m": _with(GPT2_SKETCH, "--num_cols",
+                                           "1835008") + _SUB + _CLIP1,
+    "gpt2_sketch24_densestate": GPT2_SKETCH + _DENSE,
+}
+ARMS.update({name: _ef_arm(name, flags) for name, flags in EF_ARMS.items()})
+
+
 def arm_argv(name: str, seed: int, out: str, device: str = "cuda") -> list:
     """The entry point's argv for ``name`` at ``seed``, its data and
     stream under ``out``."""
@@ -218,6 +298,18 @@ def ensure_corpus(out: str) -> str:
     if not os.path.exists(path):
         make_persona_corpus.main([data])
     return path
+
+
+def prepare_data(name: str, out: str) -> None:
+    """Writes the data that arm ``name`` reads under ``out`` (GPT-2's
+    corpus, then the prepared training and validation sets, which do not
+    depend on the seed), as its first run would: once, before runs that
+    share ``out`` start side by side."""
+    kind = ARMS[name].kind
+    os.makedirs(out, exist_ok=True)
+    if kind == "gpt2":
+        ensure_corpus(out)
+    epoch_rounds(kind, arm_argv(name, TPU_SEED, out), 1)
 
 
 def run_arm(name: str, seed: int, out: str, device: str = "cuda",
@@ -324,6 +416,44 @@ def curve_band(port_tsvs: Sequence[str], tpu_tsv: str,
             "misses": misses}
 
 
+def abort_verdict(port_stems: Sequence[str], arm: Arm) -> dict:
+    """Holds the port's runs of an arm whose TPU run aborted
+    (``arm.tpu_abort``) to that outcome: a run is inside when its log ends
+    in the driver's abort and its TSV has no epoch row past the epochs
+    before the TPU's abort epoch (it stopped at the end of the epoch in
+    which the TPU's did). Returns each run's ``(stem, first non-finite
+    round or None, epoch rows, inside)``, the TPU's round and epoch, and
+    ``inside`` (every run inside)."""
+    runs = []
+    for stem in port_stems:
+        with open(stem + ".log") as f:
+            rnd = abort_round(f.read())
+        rows = len(read_tsv(stem + ".tsv"))
+        runs.append((stem, rnd, rows,
+                     rnd is not None and rows == arm.tpu_abort_epoch - 1))
+    return {"runs": runs, "tpu_round": arm.tpu_abort,
+            "tpu_epoch": arm.tpu_abort_epoch,
+            "inside": all(r[3] for r in runs)}
+
+
+def format_abort(name: str, verdict: dict) -> List[str]:
+    """The verdict's lines: the first one whether every run aborted in the
+    TPU's epoch, then one a run."""
+    runs = verdict["runs"]
+    lines = [f"== {name}: aborted at the end of epoch {verdict['tpu_epoch']}"
+             f" as the TPU's did in {sum(r[3] for r in runs)} of "
+             f"{len(runs)} runs"]
+    for stem, rnd, rows, inside in runs:
+        lines.append(f"  {os.path.basename(stem)}: "
+                     + (f"aborted, first non-finite round {rnd}"
+                        if rnd is not None else "did not abort")
+                     + f", {rows} epoch rows (TPU: round "
+                     f"{verdict['tpu_round']}, "
+                     f"{verdict['tpu_epoch'] - 1} rows) "
+                     + ("in" if inside else "OUT"))
+    return lines
+
+
 def tpu_log_column(log_path: str, column: int = 8) -> Dict[int, int]:
     """{epoch: column} of the TableLogger epoch rows of a TPU log (10
     fields, the first an integer); column 8 is ``up (MiB)``."""
@@ -371,14 +501,20 @@ def _span(vals, fmt: str) -> str:
 def run_summary(verdict: dict, band: Dict[str, float],
                 records: Sequence[dict]) -> str:
     """One line of an arm's runs: at the TPU curve's last epoch each
-    column's port range over the seeds beside the TPU's value, then,
-    from the runs' JSON records, their wall seconds, round medians (ms)
-    and the kernels each launched a round."""
-    last = verdict["last"]
-    parts = [f"epoch {last['epoch']}: " + "; ".join(
-        f"{col} tpu {last[col]['tpu']:.4g} port "
-        + (_span(last[col]["port"], ".4g") if last[col]["port"]
-           else "missing") for col in band)]
+    column's port range over the seeds beside the TPU's value (for an arm
+    whose TPU run aborted, each run's first non-finite round beside the
+    TPU's), then, from the runs' JSON records, their wall seconds, round
+    medians (ms) and the kernels each launched a round."""
+    if "tpu_round" in verdict:
+        parts = [f"first non-finite round tpu {verdict['tpu_round']} port "
+                 + "/".join("none" if r[1] is None else str(r[1])
+                            for r in verdict["runs"])]
+    else:
+        last = verdict["last"]
+        parts = [f"epoch {last['epoch']}: " + "; ".join(
+            f"{col} tpu {last[col]['tpu']:.4g} port "
+            + (_span(last[col]["port"], ".4g") if last[col]["port"]
+               else "missing") for col in band)]
     walls = [r["wall_s"] for r in records if r.get("wall_s")]
     meds = [r["round_s_median"] * 1e3 for r in records
             if r.get("round_s_median")]
@@ -429,18 +565,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"{name}: missing {missing}", file=sys.stderr)
             return 2
         band = BAND[arm.kind]
-        verdict = curve_band([s + ".tsv" for s in stems],
-                             os.path.join(REPO, arm.tpu_tsv), band)
+        if arm.tpu_abort is not None:
+            verdict = abort_verdict(stems, arm)
+            lines = format_abort(name, verdict)
+        else:
+            verdict = curve_band([s + ".tsv" for s in stems],
+                                 os.path.join(REPO, arm.tpu_tsv), band)
+            lines = format_band(name, verdict, band)
         records = {}
         for stem in stems:
             if os.path.exists(stem + ".json"):
                 with open(stem + ".json") as f:
                     records[stem] = json.load(f)
-        lines = format_band(name, verdict, band)
         lines.insert(1, run_summary(verdict, band, list(records.values())))
         with open(os.path.join(args.out, f"{name}_band.txt"), "w") as f:
             f.write("\n".join(lines) + "\n")
         print("\n".join(lines[:2]))
+        if arm.tpu_abort is not None:
+            # the TPU log has no epoch row: no upload column to compare
+            bad = bad or not verdict["inside"]
+            continue
         if TPU_SEED in seeds:
             stem = stems[seeds.index(TPU_SEED)]
             wrong = up_matches(records[stem], arm.tpu_log)

@@ -57,6 +57,16 @@ CASES = {
     "sketch_dense_state": dict(SKETCH, sketch_server_state="dense"),
     "sketch_dense_state_clip": dict(SKETCH, sketch_server_state="dense",
                                     sketch_dense_clip=True, **CLIP),
+    # the EF study's dense-state arms' rules: the dense clip with the
+    # error decay (``_densestate_clip1_decay95``)
+    "sketch_dense_state_clip_decay": dict(SKETCH, sketch_server_state="dense",
+                                          sketch_dense_clip=True,
+                                          error_decay=0.95, **CLIP),
+    # the EF study's dense-state tables: 9 rows and 2 of a wider table
+    "sketch_dense_state_r9": dict(SKETCH, num_rows=9,
+                                  sketch_server_state="dense"),
+    "sketch_dense_state_r2": dict(SKETCH, num_rows=2, num_cols=13,
+                                  sketch_server_state="dense"),
     "hash_zero": dict(SKETCH, sketch_impl="hash", num_blocks=3,
                       weight_decay=5e-4),
     "hash_subtract": dict(SKETCH, sketch_impl="hash", sketch_ef="subtract"),

@@ -95,7 +95,8 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,r", [(4096, 5), (4000, 5), (1000, 4), (777, 8),
-                                 (30_000, 1)])
+                                 (30_000, 1), (4000, 9), (777, 12),
+                                 (4096, 16)])
 def test_kernels_match_plain_on_card(cuda, c, r):
     """Aligned and unaligned shifts, even and odd r, c above d: K1 sums in
     the plain version's order with unfused float operations and K2 takes
@@ -116,8 +117,9 @@ def test_kernels_match_plain_on_card(cuda, c, r):
     assert chip_smoke.same_bits(dec, kernels.decode_plain(t0, *args, D))
 
 
-# (d, c, r) for K2, r = 1 .. 8: c not a multiple of the tile (2,048
-# columns for r <= 5, 1,024 above), so each block ends in a partial tile;
+# (d, c, r) for K2, r = 1 .. 16: c not a multiple of the tile (2,048
+# columns for r <= 5, 1,024 to r = 8, 512 to 12, 256 above), so each block
+# ends in a partial tile;
 # d that ends inside a tile; m = 1 with d < c (tiles past d); c below the
 # tile (every tile tests its coordinates); random unaligned shifts, whose
 # tiles cross the seam (a row's run wraps from column c - 1 to 0), and
@@ -127,7 +129,9 @@ K2_CASES = [(20_000, 4000, 1), (19_999, 4096, 2), (3_000, 4096, 3),
             (20_000, 500_000, 4), (1_200_000, 500_000, 5),
             (1_100_000, 524_288, 5), (600_000, 131_072, 6),
             (50_000, 777, 7), (2_000_000, 300_007, 8),
-            (20_000, 150, 5), (1_120_000, 16, 3)]
+            (20_000, 150, 5), (1_120_000, 16, 3), (1_200_000, 524_288, 9),
+            (50_000, 777, 10), (2_000_000, 300_007, 12),
+            (20_000, 150, 13), (1_100_000, 500_000, 16)]
 
 
 @pytest.mark.cuda
@@ -215,11 +219,14 @@ def test_decode_range_matches_plain_on_card(cuda, d, c, r, n):
 # the 128 blocks whose shifts K1 stages at a time (m = 134 and 129), the
 # unaligned c = 500,000 (m = 3), and c = 2,000,000, whose column tiles
 # outnumber the CTAs of K1's persistent grid (a CTA takes a second tile);
-# r = 1, 5 (4 columns a thread) and 8 (2 columns a thread)
+# r = 1, 5 (4 columns a thread), 8 (2 columns a thread), 9, 12 and 16
+# (1 column a thread)
 K1_WALKS = [(20_000, 20_000, 5), (20_000, 30_000, 1), (20_000, 150, 5),
             (20_000, 156, 8), (1_200_000, 500_000, 1),
             (1_200_000, 500_000, 5), (1_200_000, 500_000, 8),
-            (4_000_000, 2_000_000, 5), (4_000_000, 2_000_000, 8)]
+            (4_000_000, 2_000_000, 5), (4_000_000, 2_000_000, 8),
+            (20_000, 156, 9), (1_200_000, 500_000, 12),
+            (4_000_000, 2_000_000, 16)]
 
 
 @pytest.mark.cuda
@@ -255,12 +262,12 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
         kernels.encode(v.double(), *args)
     with pytest.raises(ValueError, match="table"):
         kernels.encode(v, *args, table=t0[:, :100])
-    ts9 = make_circulant_sketch(D, 4000, 9, device=cuda)
-    with pytest.raises(ValueError, match="r <= 8"):
-        kernels.decode(torch.zeros(9, 4000, device=cuda), ts9.shifts,
-                       ts9.sign_keys, 4000, 9, ts9.m, D)
-    with pytest.raises(ValueError, match="r <= 8"):
-        kernels.encode(v, ts9.shifts, ts9.sign_keys, 4000, 9, ts9.m)
+    ts17 = make_circulant_sketch(D, 4000, 17, device=cuda)
+    with pytest.raises(ValueError, match="r <= 16"):
+        kernels.decode(torch.zeros(17, 4000, device=cuda), ts17.shifts,
+                       ts17.sign_keys, 4000, 17, ts17.m, D)
+    with pytest.raises(ValueError, match="r <= 16"):
+        kernels.encode(v, ts17.shifts, ts17.sign_keys, 4000, 17, ts17.m)
 
 
 def test_sign_hash_instructions_compute_the_sign_stream():
@@ -381,17 +388,22 @@ def _jax_median_axis0():
     return topk.median_axis0
 
 
-@pytest.mark.parametrize("r", range(1, 9))
+@pytest.mark.parametrize("r", range(1, 17))
 def test_median_nets_match_the_jax_median_bitwise(r):
     """Each K2 median network (chip_smoke.MEDIAN_NETS) gives the bits of
     the JAX package's median_axis0, and of the port's, on every r-row
-    column over {+0, -0, 1, -1, NaN}: signed zeros, ties and NaN. JAX runs
-    on its CPU device, as the JAX package's tests do (a card's float units
-    return another NaN payload)."""
+    column over {+0, -0, 1, -1, NaN} for r <= 9 (1,953,125 columns at
+    r = 9), on 200,000 seeded such columns above: signed zeros, ties and
+    NaN. JAX runs on its CPU device, as the JAX package's tests do (a
+    card's float units return another NaN payload)."""
     jax_median = _jax_median_axis0()
     import jax
     from commefficient_torch.ops.topk import median_axis0
-    x = _SPECIALS[np.indices((len(_SPECIALS),) * r).reshape(r, -1)]
+    if r <= 9:
+        x = _SPECIALS[np.indices((len(_SPECIALS),) * r).reshape(r, -1)]
+    else:
+        x = _SPECIALS[np.random.RandomState(r).randint(
+            0, len(_SPECIALS), size=(r, 200_000))]
     got = _bits(chip_smoke.median_net(x, chip_smoke.MEDIAN_NETS[r]))
     with jax.default_device(jax.devices("cpu")[0]):
         want = _bits(jax_median(jax.numpy.asarray(x)))
@@ -399,12 +411,13 @@ def test_median_nets_match_the_jax_median_bitwise(r):
     assert np.array_equal(got, _bits(median_axis0(torch.from_numpy(x))))
 
 
-@pytest.mark.parametrize("r", range(3, 9))
+@pytest.mark.parametrize("r", range(3, 17))
 def test_each_median_net_operation_is_needed(r):
-    """No min/max of a median network can go: with any one of them left
-    out (its value taken as either operand), some 0/1 column gets a wrong
-    median. A network of min/max is a median on every input if it is one
-    on every 0/1 input, so these columns decide it."""
+    """Every 0/1 column of r rows gets its median from the network, and
+    no min/max of it can go: with any one of them left out (its value
+    taken as either operand), some 0/1 column gets a wrong median. A
+    network of min/max is a median on every input if it is one on every
+    0/1 input, so these columns decide it."""
     x = ((np.arange(2 ** r)[None, :] >> np.arange(r)[:, None]) & 1).astype(
         np.float32)
     ops = chip_smoke.MEDIAN_NETS[r]
@@ -420,10 +433,20 @@ def test_each_median_net_operation_is_needed(r):
 
 def test_kernel_holds_the_median_nets():
     """csrc/circulant.cu MedianNet<R> holds the operations of
-    chip_smoke.MEDIAN_NETS[R], in order, for R = 1 .. 8: the bound counts
-    the network the kernel runs."""
+    chip_smoke.MEDIAN_NETS[R], in order, for R = 1 .. 16: the bound counts
+    the network the kernel runs. Both entry functions launch an
+    instantiation for every r up to kMaxRows, which is the wrappers'
+    MAX_ROWS."""
     src = open(os.path.join(os.path.dirname(kernels.__file__), os.pardir,
                             "csrc", kernels.SOURCE)).read()
+    assert int(re.search(r"constexpr int kMaxRows = (\d+);", src).group(1)) \
+        == kernels.MAX_ROWS == 16
+    for macro in ("CIRC_ENCODE", "CIRC_DECODE"):
+        cases = [int(r) for r in re.findall(r"    %s\((\d+)\);" % macro,
+                                            src)]
+        assert cases == list(range(1, kernels.MAX_ROWS + 1)), macro
+    assert sorted(chip_smoke.MEDIAN_NETS) == list(
+        range(1, kernels.MAX_ROWS + 1))
     for r, ops in chip_smoke.MEDIAN_NETS.items():
         body = re.search(r"struct MedianNet<%d> \{\s*using type = "
                          r"Net<(.*?)>;\s*\};" % r, src, re.S)
@@ -696,3 +719,24 @@ def test_cell_sum_on_card_is_the_plain_version(cuda, kind):
                                 "cell_sum": 3}
     assert chip_smoke.same_bits(got.cpu(), want)
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_entry_points_refuse_more_rows_than_the_kernels_take():
+    """Both entry points take the circulant sketch up to K1/K2's
+    MAX_ROWS rows and refuse more at parse time, naming the limit, so no
+    accepted r stops inside a kernel wrapper; the hash sketch, which has
+    no such kernel, takes more."""
+    from commefficient_torch import config, cv_train, gpt2_train
+    base = ["--mode", "sketch", "--error_type", "virtual",
+            "--local_momentum", "0"]
+
+    def parse(entry, *extra):
+        return config.config_from_args(config.parse_known(
+            entry.build_parser(), base + list(extra)))
+
+    for entry in (cv_train, gpt2_train):
+        assert parse(entry, "--num_rows", "16").num_rows == 16
+        with pytest.raises(ValueError, match="at most 16 rows"):
+            parse(entry, "--num_rows", "17")
+        assert parse(entry, "--num_rows", "17", "--sketch_impl",
+                     "hash").num_rows == 17

@@ -178,6 +178,13 @@ PARITY_CASES = {
                            weight_decay=5e-4),
     "sketch_zero": dict(SKETCH, weight_decay=5e-4),
     "sketch_subtract": dict(SKETCH, sketch_ef="subtract"),
+    # the EF study's tables: 9 rows (past the 8 K1/K2 once took), and 2
+    # rows of a wider table
+    "sketch_zero_r9": dict(SKETCH, num_rows=9, weight_decay=5e-4),
+    "sketch_subtract_r9": dict(SKETCH, num_rows=9, sketch_ef="subtract"),
+    "sketch_zero_r2": dict(SKETCH, num_rows=2, num_cols=13),
+    "sketch_subtract_r2": dict(SKETCH, num_rows=2, num_cols=13,
+                               sketch_ef="subtract"),
     "sketch_unfused": dict(SKETCH, sketch_fused_encode="off"),
     "sketch_microbatched": dict(SKETCH, microbatch_size=3),
     "uncompressed_microbatched": dict(microbatch_size=3),
